@@ -1,10 +1,12 @@
 """paddle_tpu_torch: the PyTorch + CUDA port of paddle_tpu for an NVIDIA
 H100.
 
-This slice ports the flagship causal LM's continuous-batching decode
-engine (``serving.GenerateEngine``) with hand-written CUDA kernels for the
-embedding gather, the fused residual-add + LayerNorm, flash attention and
-the FFN tail. The JAX package ``paddle_tpu`` stays the reference; this
+It ports the flagship causal LM's continuous-batching decode engine
+(``serving.GenerateEngine``) and its training step
+(``models.transformer.TransformerLM.loss`` with ``optimizer.Adam``), with
+hand-written CUDA kernels for the embedding gather, the fused residual-add
++ LayerNorm (forward and backward), flash attention, the FFN tail, the
+softmax cross-entropy (forward and backward) and multi-tensor Adam. The JAX package ``paddle_tpu`` stays the reference; this
 package imports ``torch`` and numpy only, never ``jax`` or ``paddle_tpu``.
 
 Entry points run on ``cuda:0`` unless the caller passes ``device='cpu'``.

@@ -1,18 +1,21 @@
-"""The flagship causal LM, for decode.
+"""The flagship causal LM: training forward and decode.
 
-Counterpart of paddle_tpu/models/transformer.py: `LMConfig`,
-`build_lm_prefill` and `build_lm_decode_step` (with `_decode_tower`). The
-JAX package builds these as Programs; here the LM is an ``nn.Module``
-whose parameters carry the JAX package's names (``tok_emb.w``,
-``layer_{i}.attn.qkv.w``, ...) and layouts — fc weights stay [in, out], so
-``y = x @ W + b`` — so a scope saved by the JAX package loads as it is
-(paddle_tpu_torch/io.py).
+Counterpart of paddle_tpu/models/transformer.py: `LMConfig`, `build_lm`
+(the training program's forward, up to the mean loss) and the decode
+programs `build_lm_prefill` and `build_lm_decode_step` (with
+`_decode_tower`). The JAX package builds these as Programs; here the LM is
+an ``nn.Module`` whose parameters carry the JAX package's names
+(``tok_emb.w``, ``layer_{i}.attn.qkv.w``, ...) and layouts — fc weights
+stay [in, out], so ``y = x @ W + b`` — so a scope saved by the JAX package
+loads as it is (paddle_tpu_torch/io.py). The backward of `build_lm`'s
+program is ``torch.autograd`` over :meth:`TransformerLM.loss`.
 
 The residual wiring is the JAX package's: each block's FFN output is left
-unadded and fused into the NEXT LayerNorm (``fused_ln_residual``), so a
-forward has 2·L fused LN sites and one plain ``layer_norm`` (layer 0's
-entry, which has no pending delta); the final LayerNorm is fused with the
-last block's delta.
+unadded and fused into the NEXT LayerNorm (``fused_ln_residual``); the final
+LayerNorm is fused with the last block's delta. Training puts a zero delta
+(``x * 0``) ahead of block 0, so every block's entry LayerNorm is a fused
+site (2·L + 1 per forward); decode keeps one plain ``layer_norm`` at layer
+0's entry, as the decode programs do.
 
 The KV cache is two [slots, layers, heads, max_len, head_dim] tensors
 owned by the module (:meth:`TransformerLM.allocate_cache`), allocated
@@ -24,11 +27,13 @@ import torch
 from torch import nn
 
 from ..ops.attention_ops import flash_attention
+from ..ops.ce_ops import fused_softmax_ce
 from ..ops.embedding_ops import embedding_gather
 from ..ops.ffn_ops import fused_ffn_core
 from ..ops.kv_cache_ops import (kv_cache_prefill, kv_cache_update,
                                 kv_decode_attention, sample_next_token)
 from ..ops.nn_ops import fused_ln_residual, layer_norm
+from ..ops.random_ops import dropout, keep_mask
 from ..ops.tensor_ops import add_position_encoding, position_encoding_table
 
 __all__ = ['LMConfig', 'TransformerLM', 'param_shapes', 'init_params']
@@ -100,23 +105,20 @@ def _key(name):
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only LM with a KV cache: :meth:`prefill` one prompt into a
-    cache slot, :meth:`decode_step` every slot by one token. Inference
-    only (the methods run under ``torch.no_grad``)."""
+    """Decoder-only LM: :meth:`loss` is the training forward of `build_lm`;
+    with a KV cache, :meth:`prefill` runs one prompt into a cache slot and
+    :meth:`decode_step` advances every slot by one token (both under
+    ``torch.no_grad``). ``max_len`` bounds the positions of both: the
+    position table has that many rows."""
 
     def __init__(self, cfg, params, max_len):
         nn.Module.__init__(self)
-        if not getattr(cfg, 'use_flash_attention', True):
-            raise NotImplementedError(
-                'the port always attends through flash_attention; '
-                'use_flash_attention=False is not ported (ROADMAP.md)')
         self.cfg = cfg
         self.max_len = int(max_len)
         shapes = param_shapes(cfg)
         self.weights = nn.ParameterDict()
         for name in shapes:
-            self.weights[_key(name)] = nn.Parameter(params[name],
-                                                    requires_grad=False)
+            self.weights[_key(name)] = nn.Parameter(params[name].detach())
         self.p = {name: self.weights[_key(name)] for name in shapes}
         dev = self.p['tok_emb.w'].device
         self.register_buffer('pe', torch.from_numpy(
@@ -172,6 +174,81 @@ class TransformerLM(nn.Module):
                                  any_sampled=any_sampled)
 
     # -- entry points --------------------------------------------------------
+    def flash_in_training(self):
+        """`build_lm`'s ``flash_ok`` rule for a training forward: flash
+        attention when it is on and attention dropout is 0, else the
+        unfused matmul, mask, softmax, dropout, matmul."""
+        return bool(self.cfg.use_flash_attention and
+                    not self.cfg.attn_dropout)
+
+    def _attention_train(self, q, k, v, mask, generator):
+        """Causal attention of the training forward, q, k, v [B, H, L, dh]
+        -> [B, H, L, dh]: flash attention when ``mask`` is None (the
+        ``flash_ok`` rule picked it), else the unfused branch of
+        `multi_head_attention`: scores·dh^-0.5 + ``mask`` (the -1e9 upper
+        triangle), softmax, dropout on the weights, matmul with v."""
+        dh = q.shape[-1]
+        if mask is None:
+            # the CPU takes the plain flash version, under autograd
+            return flash_attention(q, k, v, scale=dh ** -0.5, causal=True)
+        scores = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5 + mask
+        weights = torch.softmax(scores, dim=-1)
+        weights = dropout(weights, self.cfg.attn_dropout, generator)
+        return torch.matmul(weights, v)
+
+    def loss(self, tokens, labels, generator=None):
+        """The mean softmax cross-entropy of `build_lm`'s training program
+        for tokens and labels [B, L] (int64, L <= max_len): embedding
+        gather + position encoding, dropout, a zero delta ahead of block 0,
+        per block the fused entry LayerNorm, QKV, causal attention, proj,
+        the fused LayerNorm at ln2 and the FFN tail with its dropout mask,
+        then the final fused LayerNorm, lm_head and the fused CE. Dropout
+        (``cfg.dropout`` and ``cfg.attn_dropout``) draws from
+        ``generator``, a torch.Generator on the parameters' device; it may
+        be None only when both are 0. Returns a 0-d tensor; call
+        ``.backward()`` on it (or hand it to an optimizer's ``minimize``)."""
+        c = self.cfg
+        B, L = tokens.shape
+        d, h = c.d_model, c.n_head
+        dh = d // h
+        x = embedding_gather(self.p['tok_emb.w'], tokens).view(B, L, d)
+        x = add_position_encoding(x, table=self.pe)
+        x = dropout(x, c.dropout, generator)
+        if not self.flash_in_training():
+            mask = torch.triu(torch.full((L, L), -1e9, dtype=torch.float32,
+                                         device=x.device), diagonal=1)
+        elif x.device.type == 'cuda':
+            raise NotImplementedError(
+                'training with flash attention needs the flash backward '
+                'kernels (dQ, dK/dV), which are not ported yet: port slice 3 '
+                '(ROADMAP.md). Set attn_dropout > 0 or '
+                'use_flash_attention=False to train on the card.')
+        else:
+            mask = None
+        delta = x * 0.0
+        for i in range(c.n_layer):
+            p = 'layer_%d' % i
+            ln1, x = self._entry_ln(x, delta, p + '.ln1')
+            qkv = self._fc(ln1, p + '.attn.qkv')
+            qkv = qkv.view(B, L, 3, h, dh).permute(2, 0, 3, 1, 4)
+            ctx = self._attention_train(qkv[0], qkv[1], qkv[2], mask,
+                                        generator)
+            ctx = ctx.permute(0, 2, 1, 3).reshape(B, L, d)
+            attn = self._fc(ctx, p + '.attn.proj')
+            ln2, x, _, _ = fused_ln_residual(x, attn, self.p[p + '.ln2.w'],
+                                             self.p[p + '.ln2.b'])
+            keep = keep_mask((B * L, d), c.dropout, generator, x.device) \
+                if c.dropout else None
+            delta, _ = fused_ffn_core(ln2.reshape(B * L, d),
+                                      self.p[p + '.ffn1.w'],
+                                      self.p[p + '.ffn1.b'],
+                                      self.p[p + '.ffn2.w'],
+                                      self.p[p + '.ffn2.b'], keep)
+            delta = delta.view(B, L, d)
+        x, _ = self._entry_ln(x, delta, 'final_ln')
+        logits = self._fc(x.reshape(B * L, d), 'lm_head', bias=False)
+        return fused_softmax_ce(logits, labels.reshape(-1)).mean()
+
     @torch.no_grad()
     def prefill(self, prompt, slot, length, sample=None):
         """Run one prompt [1, T] (padded to its bucket T) through the LM,

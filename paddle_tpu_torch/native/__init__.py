@@ -30,7 +30,8 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 
 # one shared library per kernel source
-SOURCES = ('embedding_gather', 'ln_residual', 'flash_attn_fwd', 'ffn_gemm')
+SOURCES = ('embedding_gather', 'ln_residual', 'flash_attn_fwd', 'ffn_gemm',
+           'softmax_ce', 'fused_adam')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')

@@ -6,7 +6,14 @@ Counterpart of paddle_tpu/ops/embedding_ops.py (`embedding_gather`,
 out-of-range id reads the first or last row, it does not raise.
 
 On a CUDA tensor the wrapper launches ``csrc/embedding_gather.cu``; on the
-CPU it runs :func:`_gather_ref`.
+CPU it runs :func:`_gather_ref`. Where autograd records the call it is an
+``autograd.Function`` whose backward is the JAX package's
+`_gather_grad_bwd`: an ``index_add_`` scatter of the output gradient into a
+zero table. The backward does NOT mirror the forward's clamp: it follows
+``.at[ids].add(..., mode='drop')``, which first wraps an id in [-V, 0) to
+id + V (NumPy's negative indexing) and then drops any id still outside
+[0, V) — so an out-of-range id reads a clamped row but adds its gradient
+to a wrapped row or to none.
 """
 import ctypes
 
@@ -35,10 +42,47 @@ def _gather_ref(w, ids, bias=None):
     return out if bias is None else out + bias.reshape(1, -1)
 
 
+def _scatter_grad(ids, ct, V):
+    """The table's gradient [V, D]: ``ct`` rows added at ``ids`` with the
+    JAX scatter's rule (ids in [-V, 0) wrap, the rest outside [0, V) are
+    dropped). Dropped rows add an exact 0 to row 0 instead of being
+    filtered out, which would need a host sync."""
+    idx = torch.where(ids < 0, ids + V, ids)
+    keep = (idx >= 0) & (idx < V)
+    idx = torch.where(keep, idx, torch.zeros_like(idx))
+    ct = torch.where(keep[:, None], ct, torch.zeros_like(ct))
+    return torch.zeros((V, ct.shape[1]), dtype=ct.dtype,
+                       device=ct.device).index_add_(0, idx, ct)
+
+
+class _Gather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, w, ids, bias):
+        ctx.save_for_backward(ids)
+        ctx.V = w.shape[0]
+        ctx.has_bias = bias is not None
+        return _gather(w, ids, bias)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ids, = ctx.saved_tensors
+        db = ct.sum(dim=0) if ctx.has_bias else None
+        return _scatter_grad(ids, ct, ctx.V), None, db
+
+
 def embedding_gather(w, ids, bias=None):
     """Rows of ``w`` [V, D] at ``ids`` (any integer shape, flattened),
-    plus ``bias`` [D] if given. Returns [n_ids, D]."""
+    plus ``bias`` [D] if given. Returns [n_ids, D]. Differentiable in
+    ``w`` and ``bias`` where autograd records the call."""
     ids = ids.reshape(-1)
+    if kernel_tier.records_grad(w, bias):
+        return _Gather.apply(w, ids, bias)
+    return _gather(w, ids, bias)
+
+
+def _gather(w, ids, bias):
+    """The kernel on CUDA tensors, the plain version on the CPU."""
     if not kernel_tier.on_cuda(w, ids, bias):
         return _gather_ref(w, ids, bias)
     if w.dim() != 2:

@@ -16,11 +16,12 @@ import threading
 import torch
 
 __all__ = ['KERNELS', 'launch_counts', 'reset_counts', 'count', 'on_cuda',
-           'require', 'stream_ptr', 'ptr']
+           'records_grad', 'require', 'stream_ptr', 'ptr']
 
 # the kernels of the port, by the name their wrapper counts under
 KERNELS = ('embedding_gather', 'fused_ln_residual', 'flash_attention',
-           'fused_ffn')
+           'fused_ffn', 'softmax_ce_fwd', 'softmax_ce_bwd',
+           'fused_ln_residual_bwd', 'fused_adam')
 
 _counts = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
@@ -53,6 +54,16 @@ def on_cuda(*tensors):
         return False
     raise RuntimeError('kernel inputs must all lie on one CUDA device or '
                        'all on the CPU, got %s' % sorted(kinds))
+
+
+def records_grad(*tensors):
+    """True when autograd records a call on ``tensors``: grad mode is on
+    and one of the (non-None) tensors requires grad. A wrapper then goes
+    through its ``autograd.Function``; otherwise (serving, under
+    ``no_grad``) it calls the bare forward and keeps no backward's
+    residuals."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def require(t, what, shape, dtype=torch.float32, device=None):

@@ -1,13 +1,20 @@
 """LayerNorm and the fused residual-add + LayerNorm.
 
 Counterparts in paddle_tpu/ops/nn_ops.py: the `layer_norm` lowering and
-`fused_ln_residual` with its Pallas forward `_ln_res_fwd_pallas`.
+`fused_ln_residual` with its Pallas kernels `_ln_res_fwd_pallas` and
+`_ln_res_bwd_pallas`.
 
-:func:`fused_ln_residual` on a CUDA tensor launches
+:func:`fused_ln_residual` on a CUDA tensor launches the forward of
 ``csrc/ln_residual.cu``; on the CPU it runs :func:`_ln_res_ref`, the TPU
-kernel's arithmetic in the same two-pass order. :func:`layer_norm` is plain
-PyTorch everywhere: in the JAX package it is an XLA lowering with no
-Pallas kernel (the LM uses it once per forward, at layer 0's entry).
+kernel's arithmetic in the same two-pass order. Where autograd records it
+(grad mode on and an input that requires grad) it is an
+``autograd.Function`` whose backward launches the backward kernel of the
+same source for dx (the gradient of both x and r), or runs
+:func:`_ln_res_bwd_ref` on the CPU; the scale and bias gradients are plain
+column sums over the recomputed x_hat, as in the JAX package. Serving calls
+it under ``no_grad`` and gets the bare forward. :func:`layer_norm` is plain
+PyTorch everywhere: in the JAX package it is an XLA lowering with no Pallas
+kernel (the decode path uses it once per forward, at layer 0's entry).
 """
 import ctypes
 
@@ -18,17 +25,22 @@ from . import kernel_tier
 
 __all__ = ['layer_norm', 'fused_ln_residual']
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(which):
+    fn = _fns.get(which)
+    if fn is None:
         P, I = ctypes.c_void_p, ctypes.c_int64
-        _fn = native.function('ln_residual', 'ptt_ln_residual_fwd',
-                              [P, P, P, P, P, P, P, P, I, I,
-                               ctypes.c_float, P])
-    return _fn
+        if which == 'fwd':
+            fn = native.function('ln_residual', 'ptt_ln_residual_fwd',
+                                 [P, P, P, P, P, P, P, P, I, I,
+                                  ctypes.c_float, P])
+        else:
+            fn = native.function('ln_residual', 'ptt_ln_residual_bwd',
+                                 [P, P, P, P, P, P, P, I, I, P])
+        _fns[which] = fn
+    return fn
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
@@ -49,24 +61,29 @@ def _ln_res_ref(x, r, scale, bias, eps):
     return y, s, m, rstd
 
 
-def fused_ln_residual(x, r, scale, bias, eps=1e-5):
-    """``s = x + r``; ``y = LayerNorm(s) * scale + bias`` over the last
-    axis. ``x`` and ``r`` are [..., D] (flattened to rows internally).
-    Returns (y, s, mean, rstd) with y and s shaped like x and the
-    statistics [N] f32 — serving uses y and s, the backward will use the
-    statistics."""
-    lead = x.shape[:-1]
-    D = x.shape[-1]
-    x2 = x.reshape(-1, D)
-    r2 = r.reshape(-1, D)
-    if not kernel_tier.on_cuda(x2, r2, scale, bias):
-        y, s, m, rs = _ln_res_ref(x2, r2, scale, bias, eps)
-        return y.reshape(x.shape), s.reshape(x.shape), m, rs
-    n = x2.shape[0]
+def _ln_res_bwd_ref(s, m, rstd, scale, dy, ds):
+    """Plain version of the backward kernel: dx [N, D]."""
+    xhat = (s - m[:, None]) * rstd[:, None]
+    dyw = dy * scale
+    mean1 = dyw.mean(dim=-1, keepdim=True)
+    mean2 = (dyw * xhat).mean(dim=-1, keepdim=True)
+    return rstd[:, None] * (dyw - mean1 - xhat * mean2) + ds
+
+
+def _check_width(D):
     if D > 4096:
-        raise ValueError('fused_ln_residual: the CUDA kernel keeps a row in '
-                         'registers and takes D <= 4096, got %d' % D)
-    dev = x.device
+        raise ValueError('fused_ln_residual: the CUDA kernels keep a row in '
+                         'registers and take D <= 4096, got %d' % D)
+
+
+def _ln_res_fwd(x2, r2, scale, bias, eps):
+    """(y, s, mean, rstd) for rows [N, D]: the kernel on CUDA tensors, the
+    plain version on the CPU."""
+    if not kernel_tier.on_cuda(x2, r2, scale, bias):
+        return _ln_res_ref(x2, r2, scale, bias, eps)
+    n, D = x2.shape
+    _check_width(D)
+    dev = x2.device
     kernel_tier.require(x2, 'x', (n, D))
     kernel_tier.require(r2, 'residual', (n, D), device=dev)
     kernel_tier.require(scale, 'scale', (D,), device=dev)
@@ -75,10 +92,69 @@ def fused_ln_residual(x, r, scale, bias, eps=1e-5):
     y = torch.empty_like(x2)
     m = torch.empty((n,), dtype=torch.float32, device=dev)
     rs = torch.empty((n,), dtype=torch.float32, device=dev)
-    rc = _kernel()(x2.data_ptr(), r2.data_ptr(), scale.data_ptr(),
-                   bias.data_ptr(), s.data_ptr(), y.data_ptr(), m.data_ptr(),
-                   rs.data_ptr(), n, D, float(eps),
-                   kernel_tier.stream_ptr(x2))
+    rc = _kernel('fwd')(x2.data_ptr(), r2.data_ptr(), scale.data_ptr(),
+                        bias.data_ptr(), s.data_ptr(), y.data_ptr(),
+                        m.data_ptr(), rs.data_ptr(), n, D, float(eps),
+                        kernel_tier.stream_ptr(x2))
     native.check(rc, 'fused_ln_residual')
     kernel_tier.count('fused_ln_residual')
+    return y, s, m, rs
+
+
+def _ln_res_bwd(s, m, rstd, scale, dy, ds):
+    """dx [N, D]: the kernel on CUDA tensors, the plain version on the
+    CPU."""
+    if not kernel_tier.on_cuda(s, m, rstd, scale, dy, ds):
+        return _ln_res_bwd_ref(s, m, rstd, scale, dy, ds)
+    n, D = s.shape
+    _check_width(D)
+    dev = s.device
+    kernel_tier.require(s, 's', (n, D))
+    kernel_tier.require(m, 'mean', (n,), device=dev)
+    kernel_tier.require(rstd, 'rstd', (n,), device=dev)
+    kernel_tier.require(scale, 'scale', (D,), device=dev)
+    kernel_tier.require(dy, 'dy', (n, D), device=dev)
+    kernel_tier.require(ds, 'ds', (n, D), device=dev)
+    dx = torch.empty_like(s)
+    rc = _kernel('bwd')(s.data_ptr(), m.data_ptr(), rstd.data_ptr(),
+                        scale.data_ptr(), dy.data_ptr(), ds.data_ptr(),
+                        dx.data_ptr(), n, D, kernel_tier.stream_ptr(s))
+    native.check(rc, 'fused_ln_residual_bwd')
+    kernel_tier.count('fused_ln_residual_bwd')
+    return dx
+
+
+class _FusedLNResidual(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x2, r2, scale, bias, eps):
+        y, s, m, rs = _ln_res_fwd(x2, r2, scale, bias, eps)
+        ctx.save_for_backward(s, m, rs, scale)
+        ctx.mark_non_differentiable(m, rs)
+        return y, s, m, rs
+
+    @staticmethod
+    def backward(ctx, dy, ds, _dm, _drs):
+        s, m, rs, scale = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = _ln_res_bwd(s, m, rs, scale, dy, ds.contiguous())
+        # scale/bias grads: plain column sums over the recomputed x_hat
+        xhat = (s - m[:, None]) * rs[:, None]
+        return dx, dx, (dy * xhat).sum(dim=0), dy.sum(dim=0), None
+
+
+def fused_ln_residual(x, r, scale, bias, eps=1e-5):
+    """``s = x + r``; ``y = LayerNorm(s) * scale + bias`` over the last
+    axis. ``x`` and ``r`` are [..., D] (flattened to rows internally).
+    Returns (y, s, mean, rstd) with y and s shaped like x and the
+    statistics [N] f32 (not differentiable). Differentiable in x, r, scale
+    and bias where autograd records the call."""
+    lead = x.shape[:-1]
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D)
+    r2 = r.reshape(-1, D)
+    if kernel_tier.records_grad(x2, r2, scale, bias):
+        y, s, m, rs = _FusedLNResidual.apply(x2, r2, scale, bias, eps)
+    else:
+        y, s, m, rs = _ln_res_fwd(x2, r2, scale, bias, eps)
     return y.reshape(lead + (D,)), s.reshape(lead + (D,)), m, rs

@@ -255,6 +255,10 @@ class GenerateEngine(object):
 
     def __init__(self, config=None, params=None, device=None):
         self.config = c = config or GenerateConfig()
+        if not getattr(c.model, 'use_flash_attention', True):
+            raise NotImplementedError(
+                'the decode engine always attends through flash_attention; '
+                'use_flash_attention=False is not ported (ROADMAP.md)')
         self.device = resolve_device(device)
         if self.device.type == 'cuda':
             # the JAX package's f32 products are full f32: keep cuBLAS and

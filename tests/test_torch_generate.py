@@ -89,7 +89,7 @@ def test_params_from_numpy_maps_every_jax_name(jax_params):
     assert list(p) == list(param_shapes(LMConfig(**LM)))
     np.testing.assert_array_equal(p['layer_1.ffn2.w'].numpy(),
                                   jax_params['layer_1.ffn2.w'])
-    inferred = params_from_numpy(jax_params)
+    inferred = params_from_numpy(jax_params, 'cpu')
     assert set(inferred) == set(p)
 
 
