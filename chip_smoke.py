@@ -40,16 +40,52 @@ Phases, each printing one JSON line:
    every gradient within 1e-3 of that gradient's largest magnitude.
 7. train     — the flagship training step as a user runs it:
    ``TransformerLM.loss`` (LMConfig() defaults: dropout 0.1, attention
-   dropout 0.1) and ``Adam(1e-4, fuse=True).minimize`` for 20 steps on one
-   fixed batch (B 16, L 512) with a seeded generator: the loss finite and
-   fallen by step 20, every kernel of the training path launched in this
-   phase, step ms, tokens/s, peak device memory and a torch.profiler
-   breakdown of one step.
+   dropout 0.1, so attention is the unfused branch) and ``Adam(1e-4,
+   fuse=True).minimize`` for 20 steps on one fixed batch (B 16, L 512)
+   with a seeded generator: the loss finite and fallen by step 20, every
+   kernel of that path launched in this phase, step ms, tokens/s, peak
+   device memory and a torch.profiler breakdown of one step.
+8. flash_kernel — the flash forward (with its LSE), the dQ kernel and the
+   dK/dV kernel against their plain versions at (a) the LM training shape,
+   BH 128 (B 16 x 8 heads), L 512, dh 64, causal, no bias, and (b) BERT's,
+   BH 1536 (B 128 x 12 heads), L 128, dh 64, not causal, with a key-padding
+   bias from key lengths drawn in 32..128 and one batch element wholly
+   padded, for which O, dQ, dK and dV must be exactly 0. O and LSE within
+   1e-4 absolute (LSE on the rows that keep a key); each gradient within
+   1e-4 of that tensor's largest magnitude. ``library_ms`` is
+   ``F.scaled_dot_product_attention`` and its backward through autograd
+   (one call that yields dQ, dK and dV together; timed by CUDA events
+   around eager calls), timed only. ``bound_ms`` counts the visible (query,
+   key) pairs of this run's mask: 4 dh flops a pair forward, 6 dh for dQ,
+   8 dh for dK/dV.
+9. flash_train_vs_cpu — phase 6 with flash attention on: the card against
+   the CPU, and on the card flash against the unfused branch of phase 6,
+   same limits.
+10. train_flash — phase 7 in the configuration the repo's bench trains
+   (attention dropout 0, flash attention on; its ``amp=True`` is not
+   ported): all ten kernels of that path launched (the seven of phase 7 and
+   the flash forward, dQ and dK/dV), step ms and tokens/s beside phase 7's.
+11. bert_kernel — the kernels of phases 3 and 5 at BERT-base's shapes (rows
+   of D 768, the FFN at 768 -> 3072 -> 768, CE at V 30522 and at V 2,
+   gathers from the [30522, 768] and [2, 768] tables, Adam over 160
+   tensors), each against its plain version.
+12. bert      — BERT-base at full width (12 layers, d 768, 12 heads, d_ff
+   3072, V 30522, L 128, 20 masked positions; random weights from a seed;
+   batches from ``make_pretrain_batch`` with ``input_mask`` cut to lengths
+   in 32..128, where the bench's batch has an all-ones mask under which the
+   bias is all zeros and no key is dropped): the inference losses at B 4 on
+   the card and on the CPU (total within 1e-4), flash against unfused on
+   the card (rtol 1e-4), the forward at B 128 (ms, samples/s), and 10
+   training steps at B 32 with attention dropout 0 so that the flash path
+   trains (dropout 0.1, ``Adam(1e-4, fuse=True)``, one fixed batch): the
+   loss finite and fallen, all ten kernels launched, step ms, samples/s,
+   peak memory and a profile of one step.
 
 Then one line ``{"kernels": [...]}`` (per kernel: route, source, the TPU
-kernel it replaces, launches in the engine and training phases, max abs
-error, ms, plain_ms, bound_ms and what bounds it, library_ms, at the shape
-of the path that runs it), and last ``{"ok": true, "device": {...}}``. Any
+kernel it replaces, launches on each path, max abs error, ms, plain_ms,
+bound_ms and what bounds it, library_ms, at the shape of the first path
+that runs it, with its cases at the other paths' shapes beside them), and
+last ``{"ok": true, "device": {...}}``. Any
 failure raises: the script exits non-zero and prints no last line. Without
 a CUDA card, or without the rest of the repository beside it, it exits
 non-zero at once.
@@ -79,11 +115,22 @@ ENGINE_KERNELS = ('embedding_gather', 'fused_ln_residual', 'flash_attention',
 # the flagship training step: B 16 sequences of L 512 tokens
 TRAIN_B = 16
 TRAIN_STEPS = 20
-# the kernels a training step launches (flash attention is not among them:
-# with attention dropout on, build_lm attends through the unfused branch)
+# the kernels a training step launches with attention dropout on (build_lm
+# then attends through the unfused branch) ...
 TRAIN_KERNELS = ('embedding_gather', 'fused_ln_residual', 'fused_ffn',
                  'softmax_ce_fwd', 'softmax_ce_bwd', 'fused_ln_residual_bwd',
                  'fused_adam')
+# ... and with attention dropout 0 and flash attention on, as BERT does too
+FLASH_KERNELS = ('flash_attention', 'flash_attention_bwd_dq',
+                 'flash_attention_bwd_dkv')
+FLASH_TRAIN_KERNELS = TRAIN_KERNELS + FLASH_KERNELS
+BERT_TRAIN_B = 32
+BERT_INFER_B = 128
+BERT_STEPS = 10
+# the kernels each driven path must launch
+PATH_KERNELS = {'engine': ENGINE_KERNELS, 'train': TRAIN_KERNELS,
+                'train_flash': FLASH_TRAIN_KERNELS,
+                'bert': FLASH_TRAIN_KERNELS}
 
 
 def emit(obj):
@@ -429,16 +476,16 @@ def run_engine(torch, kt):
     return summary, counts
 
 
-def check_train_kernels(torch, F):
-    """Phase 5: the training kernels at the flagship step's shapes. Returns
-    {kernel name: summary dict} as check_kernels does."""
-    from paddle_tpu_torch.models.transformer import LMConfig, param_shapes
+def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes):
+    """Phases 5 and 11: the kernels a training step runs, but for flash
+    attention, at one model's shapes: ``n_rows`` rows of ``cfg.d_model``,
+    CE at each (rows, vocabulary) of ``ce_shapes``, Adam over the parameter
+    ``shapes``. Returns {kernel name: summary dict} as check_kernels does."""
     from paddle_tpu_torch.ops import (ce_ops, embedding_ops, ffn_ops, nn_ops,
                                       optimizer_ops)
     dev = torch.device('cuda', 0)
     g = torch.Generator(device=dev).manual_seed(4321)
-    cfg = LMConfig()
-    N, V, D = TRAIN_B * cfg.seq_len, cfg.vocab_size, cfg.d_model
+    N, V, D = n_rows, cfg.vocab_size, cfg.d_model
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
@@ -451,25 +498,29 @@ def check_train_kernels(torch, F):
                     library_ms=library(), bound_ms=b_ms, bound_by=b_by)
 
     out = {}
-    # the slice-1 forward kernels at the training step's row count: the
-    # embedding gather, the LN-residual forward and the FFN tail (with its
-    # pre-scaled dropout mask and pre1, as a training step calls it)
-    w = randn(V, D, scale=0.02)
-    ids = torch.randint(0, V, (N,), generator=g, device=dev)
-    err = max_err(torch, [embedding_ops.embedding_gather(w, ids)],
-                  [embedding_ops._gather_ref(w, ids)])
-    out['embedding_gather'] = dict(tolerance=0.0, cases=[dict(
-        n=N, max_abs_err=err, **timed(
+    # the forward kernels of the decode path at the training step's row
+    # count: the embedding gather (from every table the model has), the
+    # LN-residual forward and the FFN tail (with its pre-scaled dropout
+    # mask and pre1, as a training step calls it)
+    cases = []
+    for rows in [V] + ([cfg.type_vocab_size]
+                       if hasattr(cfg, 'type_vocab_size') else []):
+        w = randn(rows, D, scale=0.02)
+        ids = torch.randint(0, rows, (N,), generator=g, device=dev)
+        err = max_err(torch, [embedding_ops.embedding_gather(w, ids)],
+                      [embedding_ops._gather_ref(w, ids)])
+        cases.append(dict(n=N, table_rows=rows, max_abs_err=err, **timed(
             lambda: embedding_ops.embedding_gather(w, ids),
             lambda: embedding_ops._gather_ref(w, ids),
             lambda: cuda_ms(torch, lambda: F.embedding(ids, w)),
-            2 * N * D * 4 + N * 8, 0, calls=20))])
+            (N + min(N, rows)) * D * 4 + N * 8, 0, calls=20)))
+    out['embedding_gather'] = dict(tolerance=0.0, cases=cases)
     x, r = randn(N, D), randn(N, D)
     sc, bi = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
     err = max_err(torch, nn_ops._ln_res_fwd(x, r, sc, bi, 1e-5),
                   nn_ops._ln_res_ref(x, r, sc, bi, 1e-5))
     out['fused_ln_residual'] = dict(tolerance=1e-4, cases=[dict(
-        n=N, max_abs_err=err, **timed(
+        n=N, D=D, max_abs_err=err, **timed(
             lambda: nn_ops._ln_res_fwd(x, r, sc, bi, 1e-5),
             lambda: nn_ops._ln_res_ref(x, r, sc, bi, 1e-5),
             lambda: cuda_ms(torch, lambda: F.layer_norm(
@@ -482,7 +533,7 @@ def check_train_kernels(torch, F):
     err = max_err(torch, ffn_ops._ffn_fwd(x, w1, b1, w2, b2, mask, True),
                   ffn_ops._ffn_ref(x, w1, b1, w2, b2, mask))
     out['fused_ffn'] = dict(tolerance=1e-4, cases=[dict(
-        n=N, max_abs_err=err, **timed(
+        n=N, d=D, d_ff=d_ff, max_abs_err=err, **timed(
             lambda: ffn_ops._ffn_fwd(x, w1, b1, w2, b2, mask, True),
             lambda: ffn_ops._ffn_ref(x, w1, b1, w2, b2, mask),
             lambda: cuda_ms(torch, lambda: (F.gelu(x @ w1 + b1) @ w2 + b2)
@@ -493,50 +544,57 @@ def check_train_kernels(torch, F):
 
     # CE: logits of an LM head's scale, labels in range but for some rows
     # that are ignored (-100) and two outside [0, V)
-    x = randn(N, V, scale=2.0)
-    lab = torch.randint(0, V, (N,), generator=g, device=dev)
-    lab[::97] = -100
-    lab[1] = V + 11
-    lab[2] = -3
-    ct = torch.full((N,), 1.0 / N, device=dev)      # the mean's cotangent
-    loss, lse = ce_ops._ce_fwd(x, lab, -100)
-    loss_r, lse_r = ce_ops._ce_fwd_ref(x, lab, -100)
-    err = max_err(torch, [loss, lse], [loss_r, lse_r])
-    safe = lab.clamp(0, V - 1)
-    # the library call asserts on labels outside [0, V) other than -100
-    lib_lab = torch.where((lab == -100) | (lab == safe), lab, safe)
-    case = dict(n=N, V=V, max_abs_err=err, **timed(
-        lambda: ce_ops._ce_fwd(x, lab, -100),
-        lambda: ce_ops._ce_fwd_ref(x, lab, -100),
-        lambda: cuda_ms(torch, lambda: F.cross_entropy(
-            x, lib_lab, reduction='none'), calls=5, replays=5),
-        N * V * 4 + N * 8 + 2 * N * 4, 4 * N * V))
-    out['softmax_ce_fwd'] = dict(tolerance=1e-4, cases=[case])
-    dx = ce_ops._ce_bwd(x, lab, lse, ct, -100)
-    dx_r = ce_ops._ce_bwd_ref(x, lab, lse, ct, -100)
-    # a typical |dx| is p * ct ~ 1e-9 here, so an absolute limit would pass
-    # almost anything: each element is held against its own magnitude (an
-    # ignored row's 0 against 0, so any nonzero there fails too)
-    diff = (dx - dx_r).abs()
-    err = float(diff.max())
-    rel = float((diff / dx_r.abs().clamp_min(1e-30)).max())
-    ignored = bool((dx[lab == -100] == 0).all())
-    del dx, dx_r, diff
-    one = -torch.ones((N, 1), device=dev)
-    case = dict(n=N, V=V, max_abs_err=err, max_rel_err=rel,
-                ignored_rows_zero=ignored, **timed(lambda: ce_ops._ce_bwd(x, lab, lse, ct, -100),
-                        lambda: ce_ops._ce_bwd_ref(x, lab, lse, ct, -100),
-                        lambda: cuda_ms(torch, lambda: torch.softmax(
-                            x, 1).scatter_add_(1, safe[:, None], one)
-                            * ct[:, None], calls=5, replays=5),
-                        2 * N * V * 4 + N * 8 + 2 * N * 4, 4 * N * V))
-    if not ignored:
-        raise AssertionError('CE backward: an ignored row is not exactly 0')
+    fwd_cases, bwd_cases = [], []
+    for n, v in ce_shapes:
+        calls = 5 if n * v > 1 << 26 else 20
+        x = randn(n, v, scale=2.0)
+        lab = torch.randint(0, v, (n,), generator=g, device=dev)
+        lab[::97] = -100
+        lab[1] = v + 11
+        lab[2] = -3
+        ct = torch.full((n,), 1.0 / n, device=dev)   # the mean's cotangent
+        loss, lse = ce_ops._ce_fwd(x, lab, -100)
+        loss_r, lse_r = ce_ops._ce_fwd_ref(x, lab, -100)
+        err = max_err(torch, [loss, lse], [loss_r, lse_r])
+        safe = lab.clamp(0, v - 1)
+        # the library call asserts on labels outside [0, V) other than -100
+        lib_lab = torch.where((lab == -100) | (lab == safe), lab, safe)
+        fwd_cases.append(dict(n=n, V=v, max_abs_err=err, **timed(
+            lambda: ce_ops._ce_fwd(x, lab, -100),
+            lambda: ce_ops._ce_fwd_ref(x, lab, -100),
+            lambda: cuda_ms(torch, lambda: F.cross_entropy(
+                x, lib_lab, reduction='none'), calls=calls, replays=5),
+            n * v * 4 + n * 8 + 2 * n * 4, 4 * n * v, calls=calls)))
+        dx = ce_ops._ce_bwd(x, lab, lse, ct, -100)
+        dx_r = ce_ops._ce_bwd_ref(x, lab, lse, ct, -100)
+        # a typical |dx| is p * ct ~ 1e-9 at the LM's shape, so an absolute
+        # limit would pass almost anything: each element is held against
+        # its own magnitude (an ignored row's 0 against 0, so any nonzero
+        # there fails too)
+        diff = (dx - dx_r).abs()
+        err = float(diff.max())
+        rel = float((diff / dx_r.abs().clamp_min(1e-30)).max())
+        ignored = bool((dx[lab == -100] == 0).all())
+        del dx, dx_r, diff
+        one = -torch.ones((n, 1), device=dev)
+        bwd_cases.append(dict(
+            n=n, V=v, max_abs_err=err, max_rel_err=rel,
+            ignored_rows_zero=ignored, **timed(
+                lambda: ce_ops._ce_bwd(x, lab, lse, ct, -100),
+                lambda: ce_ops._ce_bwd_ref(x, lab, lse, ct, -100),
+                lambda: cuda_ms(torch, lambda: torch.softmax(
+                    x, 1).scatter_add_(1, safe[:, None], one)
+                    * ct[:, None], calls=calls, replays=5),
+                2 * n * v * 4 + n * 8 + 2 * n * 4, 4 * n * v, calls=calls)))
+        if not ignored:
+            raise AssertionError('CE backward: an ignored row is not '
+                                 'exactly 0')
+        del x, loss, lse, loss_r, lse_r
+    out['softmax_ce_fwd'] = dict(tolerance=1e-4, cases=fwd_cases)
     out['softmax_ce_bwd'] = dict(tolerance=1e-5, checked='max_rel_err',
-                                 cases=[case])
-    del x, loss, lse, loss_r, lse_r
+                                 cases=bwd_cases)
 
-    # LN-residual backward at N 8192, D 512, from a real forward's stats
+    # LN-residual backward, from a real forward's stats
     sc = 1.0 + randn(D, scale=0.1)
     _, s, m, rs = nn_ops._ln_res_ref(randn(N, D), randn(N, D), sc,
                                      randn(D, scale=0.1), 1e-5)
@@ -553,9 +611,9 @@ def check_train_kernels(torch, F):
         4 * N * D * 4 + 2 * N * 4 + D * 4, 12 * N * D, calls=20))
     out['fused_ln_residual_bwd'] = dict(tolerance=1e-4, cases=[case])
 
-    # multi-tensor Adam over the flagship's 76 parameter shapes, as at
-    # step 4 (the beta powers advanced three times)
-    shapes = list(param_shapes(cfg).values())
+    # multi-tensor Adam over the model's parameter shapes, as at step 4
+    # (the beta powers advanced three times)
+    shapes = list(shapes)
     numel = sum(int(np.prod(sh)) for sh in shapes)
     p = [randn(*sh, scale=0.02) for sh in shapes]
     gr = [randn(*sh, scale=1e-3) for sh in shapes]
@@ -594,69 +652,196 @@ def check_train_kernels(torch, F):
                              cases=[case])
     del p, gr, m1, m2, ref, pairs, lib_p, lib
 
+    finish_kernel_checks(phase, out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def finish_kernel_checks(phase, out):
+    """Emit every case of ``out`` and raise where a kernel's checked error
+    exceeds its tolerance."""
     for name, res in out.items():
         key = res.setdefault('checked', 'max_abs_err')
         for k in {'max_abs_err', key}:
             res[k] = max(c[k] for c in res['cases'])
         for c in res['cases']:
-            emit(dict(phase='train_kernel', name=name, checked=key,
+            emit(dict(phase=phase, name=name, checked=key,
                       tolerance=res['tolerance'], **c))
         if not res[key] <= res['tolerance']:
             raise AssertionError('%s disagrees with its plain version: %s '
                                  '%g > %g' % (name, key, res[key],
                                               res['tolerance']))
+
+
+def check_flash_kernels(torch, F):
+    """Phase 8: the three flash kernels at the LM training shape and at
+    BERT's (with the key-padding bias). Returns {kernel name: summary}."""
+    from paddle_tpu_torch.ops import attention_ops as A
+    dev = torch.device('cuda', 0)
+    g = torch.Generator(device=dev).manual_seed(777)
+    lens = np.random.RandomState(11).randint(32, 129, size=BERT_INFER_B)
+    lens[0] = 0                       # one batch element wholly padded
+    bias = torch.zeros(BERT_INFER_B, 128)
+    for i, n in enumerate(lens):
+        bias[i, n:] = -1e9
+    shapes = [dict(shape='lm_train', B=TRAIN_B, H=8, L=512, dh=64,
+                   causal=True, bias=None, pairs=TRAIN_B * 8 * 512 * 513 // 2),
+              dict(shape='bert', B=BERT_INFER_B, H=12, L=128, dh=64,
+                   causal=False, bias=bias.to(dev),
+                   pairs=12 * 128 * int(lens.sum()))]
+    names = FLASH_KERNELS
+    out = {n: dict(tolerance=1e-4, cases=[]) for n in names}
+    out[names[1]]['checked'] = out[names[2]]['checked'] = 'max_rel_err'
+    for sh in shapes:
+        B, H, L, dh, causal, bias = (sh[k] for k in (
+            'B', 'H', 'L', 'dh', 'causal', 'bias'))
+        bh, scale = B * H, dh ** -0.5
+        q, k, v, do = (torch.randn((bh, L, dh), generator=g, device=dev)
+                       for _ in range(4))
+        args = (scale, causal, bias, H)
+        o, lse = A._flash_fwd(q, k, v, *args)
+        o_ref, lse_ref = A._attention_ref(q, k, v, *args)
+        delta = (do * o).sum(dim=-1)
+        dq = A._flash_bwd_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = A._flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+        dq_ref = A._bwd_dq_ref(q, k, v, do, lse, delta, *args)
+        dk_ref, dv_ref = A._bwd_dkv_ref(q, k, v, do, lse, delta, *args)
+        torch.cuda.synchronize()
+        # LSE is compared on the rows that keep a key: in a wholly padded
+        # row it is about -1e9, where f32 steps by 64
+        live = torch.ones(bh, dtype=torch.bool, device=dev) if bias is None \
+            else (bias > -1e8).any(dim=1).repeat_interleave(H)
+        padded_zero = None
+        if bias is not None:
+            padded_zero = not any(bool(t[~live].any())
+                                  for t in (o, dq, dk, dv))
+            if not padded_zero or int((~live).sum()) != H:
+                raise AssertionError('the wholly padded element is not '
+                                     'exactly 0 in O, dQ, dK and dV')
+
+        def rel(got, want):
+            return float((got - want).abs().max() / want.abs().max())
+
+        common = dict(shape=sh['shape'], bh=bh, L=L, dh=dh, causal=causal,
+                      biased=bias is not None, visible_pairs=sh['pairs'],
+                      padded_element_exactly_zero=padded_zero)
+        mat, row = bh * L * dh * 4, bh * L * 4
+        extra = 0 if bias is None else bias.numel() * 4
+        q4, k4, v4, do4 = (t.view(B, H, L, dh) for t in (q, k, v, do))
+        mask4 = None if bias is None else bias.view(B, 1, 1, L)
+
+        def sdpa(a, b, c):
+            return F.scaled_dot_product_attention(a, b, c, attn_mask=mask4,
+                                                  is_causal=causal)
+
+        leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+        lib_out = sdpa(*leaves)
+        lib_bwd = eager_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, do4, retain_graph=True), iters=20, warmup=3)
+        del lib_out, leaves
+
+        def case(fn, plain, library_ms, nbytes, flops, **errs):
+            b_ms, b_by = bound(nbytes, flops)
+            return dict(common, ms=cuda_ms(torch, fn, calls=10, replays=5),
+                        eager_ms=eager_ms(torch, fn, iters=10, warmup=2),
+                        plain_ms=cuda_ms(torch, plain, calls=5, replays=5),
+                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                        **errs)
+
+        out[names[0]]['cases'].append(case(
+            lambda: A._flash_fwd(q, k, v, *args),
+            lambda: A._attention_ref(q, k, v, *args),
+            cuda_ms(torch, lambda: sdpa(q4, k4, v4), calls=10, replays=5),
+            4 * mat + row + extra, 4 * dh * sh['pairs'],
+            max_abs_err=max(float((o - o_ref).abs().max()),
+                            float((lse - lse_ref)[live].abs().max()))))
+        out[names[1]]['cases'].append(case(
+            lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
+            lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args),
+            lib_bwd, 5 * mat + 2 * row + extra, 6 * dh * sh['pairs'],
+            max_abs_err=float((dq - dq_ref).abs().max()),
+            max_rel_err=rel(dq, dq_ref),
+            largest_magnitude=dict(dq=float(dq_ref.abs().max())),
+            library_covers='dQ, dK and dV in one call'))
+        out[names[2]]['cases'].append(case(
+            lambda: A._flash_bwd_dkv(q, k, v, do, lse, delta, *args),
+            lambda: A._bwd_dkv_ref(q, k, v, do, lse, delta, *args),
+            lib_bwd, 6 * mat + 2 * row + extra, 8 * dh * sh['pairs'],
+            max_abs_err=max(float((dk - dk_ref).abs().max()),
+                            float((dv - dv_ref).abs().max())),
+            max_rel_err=max(rel(dk, dk_ref), rel(dv, dv_ref)),
+            largest_magnitude=dict(dk=float(dk_ref.abs().max()),
+                                   dv=float(dv_ref.abs().max())),
+            library_covers='dQ, dK and dV in one call'))
+        del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref
+        del dv_ref, q4, k4, v4, do4
+    finish_kernel_checks('flash_kernel', out)
     torch.cuda.empty_cache()
     return out
 
 
-def compare_train_step_with_cpu(torch):
-    """Phase 6: one full-width training forward and backward on the card
-    and on the CPU, same weights and batch."""
-    from paddle_tpu_torch.models.transformer import (LMConfig, TransformerLM,
-                                                     init_params)
-    cfg = LMConfig(dropout=0.0, use_flash_attention=False)
+def train_step_grads(torch, cfg, params, tok, lab, dev):
+    """(loss, {name: gradient on the CPU}, seconds) of one forward and
+    backward of the LM on ``dev``."""
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    model = TransformerLM(cfg, {k: v.to(dev) for k, v in params.items()},
+                          cfg.seq_len)
+    t = time.perf_counter()
+    loss = model.loss(tok.to(dev), lab.to(dev))
+    loss.backward()
+    grads = {n: p.grad.cpu() for n, p in model.p.items()}
+    return float(loss.detach()), grads, time.perf_counter() - t
+
+
+def compare_train_step_with_cpu(torch, flash=False, unfused_card=None):
+    """Phases 6 and 9: one full-width training forward and backward on the
+    card and on the CPU, same weights and batch; with ``unfused_card`` (the
+    card's result of phase 6) also flash against unfused on the card.
+    Returns the card's (loss, gradients, seconds)."""
+    from paddle_tpu_torch.models.transformer import LMConfig, init_params
+    phase = 'flash_train_vs_cpu' if flash else 'train_vs_cpu'
+    cfg = LMConfig(dropout=0.0, use_flash_attention=flash)
     params = init_params(cfg, 1, 'cpu')
     g = torch.Generator(device='cpu').manual_seed(5)
     tok = torch.randint(0, cfg.vocab_size, (2, cfg.seq_len), generator=g)
     lab = torch.randint(0, cfg.vocab_size, (2, cfg.seq_len), generator=g)
-    res = {}
-    for dev in (torch.device('cuda', 0), torch.device('cpu')):
-        model = TransformerLM(cfg, {k: v.to(dev) for k, v in params.items()},
-                              cfg.seq_len)
-        t = time.perf_counter()
-        loss = model.loss(tok.to(dev), lab.to(dev))
-        loss.backward()
-        grads = {n: p.grad.cpu() for n, p in model.p.items()}
-        res[dev.type] = (float(loss.detach()), grads,
-                         time.perf_counter() - t)
-    loss_err = abs(res['cuda'][0] - res['cpu'][0])
-    grad_rel = {n: float((res['cuda'][1][n] - gc).abs().max()
-                         / gc.abs().max().clamp_min(1e-30))
-                for n, gc in res['cpu'][1].items()}
-    worst = max(grad_rel, key=grad_rel.get)
-    summary = dict(phase='train_vs_cpu', batch=2, seq_len=cfg.seq_len,
-                   loss_card=res['cuda'][0], loss_cpu=res['cpu'][0],
-                   loss_abs_err=loss_err, grad_rel_err_max=grad_rel[worst],
-                   grad_rel_err_worst_param=worst,
-                   seconds_card=res['cuda'][2], seconds_cpu=res['cpu'][2])
+    card = train_step_grads(torch, cfg, params, tok, lab,
+                            torch.device('cuda', 0))
+    cpu = train_step_grads(torch, cfg, params, tok, lab, torch.device('cpu'))
+    summary = dict(phase=phase, batch=2, seq_len=cfg.seq_len, flash=flash,
+                   loss_card=card[0], loss_cpu=cpu[0], seconds_card=card[2],
+                   seconds_cpu=cpu[2])
+    pairs = [('cpu', cpu)] + ([('unfused_card', unfused_card)]
+                              if unfused_card is not None else [])
+    failures = []
+    for what, other in pairs:
+        loss_err = abs(card[0] - other[0])
+        grad_rel = {n: float((card[1][n] - go).abs().max()
+                             / go.abs().max().clamp_min(1e-30))
+                    for n, go in other[1].items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        summary['vs_' + what] = dict(
+            loss_abs_err=loss_err, grad_rel_err_max=grad_rel[worst],
+            grad_rel_err_worst_param=worst)
+        if not (np.isfinite(card[0]) and loss_err <= 1e-4):
+            failures.append('card vs %s training loss: %r vs %r'
+                            % (what, card[0], other[0]))
+        if not grad_rel[worst] <= 1e-3:
+            failures.append('card vs %s gradient of %s differs by %g of its '
+                            'largest magnitude' % (what, worst,
+                                                   grad_rel[worst]))
     emit(summary)
-    if not (np.isfinite(res['cuda'][0]) and loss_err <= 1e-4):
-        raise AssertionError('card vs CPU training loss: %r vs %r'
-                             % (res['cuda'][0], res['cpu'][0]))
-    if not grad_rel[worst] <= 1e-3:
-        raise AssertionError('card vs CPU gradient of %s differs by %g of '
-                             'its largest magnitude' % (worst,
-                                                        grad_rel[worst]))
-    return summary
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return card
 
 
-def run_training(torch, kt):
-    """Phase 7: the flagship training step. Returns (summary, counts)."""
-    from paddle_tpu_torch.models.transformer import (LMConfig, TransformerLM,
-                                                     init_params)
+def run_training(torch, kt, phase, cfg, kernels, note=None):
+    """Phases 7 and 10: the flagship training step with ``cfg``. Returns
+    (summary, counts)."""
+    from paddle_tpu_torch.models.transformer import TransformerLM, init_params
     from paddle_tpu_torch.optimizer import Adam
     dev = torch.device('cuda', 0)
-    cfg = LMConfig()                         # dropout 0.1, attn dropout 0.1
     model = TransformerLM(cfg, init_params(cfg, 2, dev), cfg.seq_len)
     opt = Adam(model.p, 1e-4, fuse=True)
     gen = torch.Generator(device=dev).manual_seed(2024)
@@ -665,14 +850,32 @@ def run_training(torch, kt):
                         generator=g).to(dev)
     lab = torch.randint(0, cfg.vocab_size, (TRAIN_B, cfg.seq_len),
                         generator=g).to(dev)
+    summary, counts = timed_training(
+        torch, kt, lambda: opt.minimize(model.loss(tok, lab, gen)),
+        TRAIN_STEPS, kernels)
+    summary = dict(
+        phase=phase, batch=TRAIN_B, seq_len=cfg.seq_len, dropout=cfg.dropout,
+        attn_dropout=cfg.attn_dropout, flash=model.flash_in_training(),
+        tokens_per_s=TRAIN_B * cfg.seq_len / (summary['step_ms'] / 1e3),
+        **summary)
+    if note:
+        summary['note'] = note
+    return summary, counts
+
+
+def timed_training(torch, kt, step, steps, kernels):
+    """Run ``step`` (one training step returning its loss) ``steps`` times
+    with the launch counts set to 0 just before: the loss finite and fallen
+    by the last step, every kernel of ``kernels`` launched, the step's ms
+    (first step apart), peak memory and a profile of one more step."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kt.reset_counts()
     losses = []
     t0 = time.perf_counter()
-    for step in range(TRAIN_STEPS):
-        losses.append(opt.minimize(model.loss(tok, lab, gen)))
-        if step == 0:
+    for i in range(steps):
+        losses.append(step())
+        if i == 0:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
     torch.cuda.synchronize()
@@ -680,23 +883,102 @@ def run_training(torch, kt):
     counts = kt.launch_counts()
     losses = [float(v) for v in torch.stack(losses).cpu()]
     peak = torch.cuda.max_memory_allocated()
-    step_s = (t2 - t1) / (TRAIN_STEPS - 1)
     if not all(np.isfinite(losses)):
         raise AssertionError('non-finite training loss: %s' % losses)
     if not losses[-1] < losses[0]:
         raise AssertionError('the loss did not fall in %d steps: %s'
-                             % (TRAIN_STEPS, losses))
-    idle = [k for k in TRAIN_KERNELS if counts[k] <= 0]
+                             % (steps, losses))
+    idle = [k for k in kernels if counts[k] <= 0]
     if idle:
         raise AssertionError('training kernels never launched: %s' % idle)
-    profile = step_profile(
-        torch, lambda: opt.minimize(model.loss(tok, lab, gen)), steps=1)
+    return dict(steps=steps, losses=losses, loss_fall=losses[0] - losses[-1],
+                first_step_ms=(t1 - t0) * 1e3,
+                step_ms=(t2 - t1) / (steps - 1) * 1e3, peak_mem_bytes=peak,
+                launches=counts,
+                step_profile=step_profile(torch, step, steps=1)), counts
+
+
+def run_bert(torch, kt):
+    """Phase 12: BERT-base at full width. Returns (summary, counts of the
+    training steps)."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import Adam
+    dev = torch.device('cuda', 0)
+    cfg = bert.BertConfig(attn_dropout=0.0)      # dropout 0.1, flash trains
+    params = bert.init_params(cfg, 3, 'cpu')
+    model = bert.BertPretrain(cfg, {k: v.to(dev) for k, v in params.items()})
+
+    def batch(n, seed, to):
+        rs = np.random.RandomState(seed)
+        feed = bert.make_pretrain_batch(cfg, n, rs)
+        for i, keep in enumerate(rs.randint(32, cfg.seq_len + 1, size=n)):
+            feed['input_mask'][i, keep:] = 0.0
+        return {k: torch.from_numpy(v).to(to) for k, v in feed.items()}
+
+    # (i) the inference losses on the card and on the CPU, (ii) flash
+    # against unfused on the card, same weights
+    cpu = bert.BertPretrain(cfg, params)
+    unfused = bert.BertPretrain(
+        bert.BertConfig(attn_dropout=0.0, use_flash_attention=False), model.p)
+    with torch.no_grad():
+        t = time.perf_counter()
+        want = [float(v) for v in cpu.loss(is_test=True,
+                                           **batch(4, 1, 'cpu'))]
+        cpu_s = time.perf_counter() - t
+        got = [float(v) for v in model.loss(is_test=True, **batch(4, 1, dev))]
+        unf = [float(v) for v in unfused.loss(is_test=True,
+                                              **batch(4, 1, dev))]
+    del cpu
+    total_err = abs(got[0] - want[0])
+    flash_rel = max(abs(a - b) / abs(b) for a, b in zip(got, unf))
+    if not (all(np.isfinite(got)) and total_err <= 1e-4):
+        raise AssertionError('BERT card vs CPU losses: %s vs %s' % (got, want))
+    if not flash_rel <= 1e-4:
+        raise AssertionError('BERT flash vs unfused losses: %s vs %s'
+                             % (got, unf))
+
+    # (iii) the forward at the inference batch
+    feed = batch(BERT_INFER_B, 2, dev)
+    kt.reset_counts()
+    with torch.no_grad():
+        model.loss(is_test=True, **feed)
+        torch.cuda.synchronize()
+        infer_counts = kt.launch_counts()
+        t = time.perf_counter()
+        for _ in range(5):
+            model.loss(is_test=True, **feed)
+        torch.cuda.synchronize()
+        infer_ms = (time.perf_counter() - t) / 5 * 1e3
+        infer_profile = step_profile(
+            torch, lambda: model.loss(is_test=True, **feed), steps=2)
+    del feed
+    torch.cuda.empty_cache()
+
+    # (iv) training
+    opt = Adam(model.p, 1e-4, fuse=True)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    feed = batch(BERT_TRAIN_B, 3, dev)
+    train, counts = timed_training(
+        torch, kt, lambda: opt.minimize(model.loss(generator=gen, **feed)[0]),
+        BERT_STEPS, FLASH_TRAIN_KERNELS)
     summary = dict(
-        phase='train', batch=TRAIN_B, seq_len=cfg.seq_len,
-        steps=TRAIN_STEPS, losses=losses, loss_fall=losses[0] - losses[-1],
-        first_step_ms=(t1 - t0) * 1e3, step_ms=step_s * 1e3,
-        tokens_per_s=TRAIN_B * cfg.seq_len / step_s, peak_mem_bytes=peak,
-        launches=counts, step_profile=profile)
+        phase='bert', layers=cfg.n_layer, d_model=cfg.d_model,
+        heads=cfg.n_head, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        seq_len=cfg.seq_len, max_predictions=cfg.max_predictions,
+        parameters=sum(p.numel() for p in model.p.values()),
+        tensors=len(model.p),
+        input_mask='key lengths drawn in 32..%d (the bench feeds an '
+                   'all-ones mask: a zero bias, no key dropped)' % cfg.seq_len,
+        losses_card=got, losses_cpu=want, losses_unfused_card=unf,
+        total_abs_err_vs_cpu=total_err, flash_vs_unfused_rel_err=flash_rel,
+        cpu_forward_s=cpu_s,
+        infer=dict(batch=BERT_INFER_B, forward_ms=infer_ms,
+                   samples_per_s=BERT_INFER_B / (infer_ms / 1e3),
+                   launches=infer_counts, profile=infer_profile),
+        train=dict(batch=BERT_TRAIN_B, dropout=cfg.dropout,
+                   attn_dropout=cfg.attn_dropout,
+                   samples_per_s=BERT_TRAIN_B / (train['step_ms'] / 1e3),
+                   **train))
     return summary, counts
 
 
@@ -732,24 +1014,73 @@ def main():
     emit(dict(phase='build', seconds=time.perf_counter() - t0,
               built=built['built'], nvcc=native.nvcc_path()))
 
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.models.transformer import LMConfig, param_shapes
+
     kernels = check_kernels(torch, F, kt)
-    engine, engine_counts = run_engine(torch, kt)
+    engine, counts = run_engine(torch, kt)
+    by_path = {'engine': counts}
     emit(engine)
     del engine
     torch.cuda.empty_cache()
-    # the three slice-1 kernels come back with a case at the training shape
-    train_kernels = check_train_kernels(torch, F)
-    train_cases = {k: v['cases'][0] for k, v in train_kernels.items()
-                   if k in kernels}
-    for name, res in train_kernels.items():
+    # kernels that several paths run come back with a case at each path's
+    # shape: other[name][path] is that case
+    other = {}
+
+    def merge(path, results):
+        for name, res in results.items():
+            if name in kernels:
+                kernels[name]['max_abs_err'] = max(
+                    kernels[name]['max_abs_err'], res['max_abs_err'])
+                other.setdefault(name, {})[path] = res['cases']
+            else:
+                kernels[name] = res
+
+    lm = LMConfig()
+    merge('train', check_train_kernels(
+        torch, F, 'train_kernel', lm, param_shapes(lm).values(),
+        TRAIN_B * lm.seq_len, [(TRAIN_B * lm.seq_len, lm.vocab_size)]))
+    unfused_card = compare_train_step_with_cpu(torch)
+    train, by_path['train'] = run_training(torch, kt, 'train', lm,
+                                           TRAIN_KERNELS)
+    emit(train)
+
+    flash = check_flash_kernels(torch, F)
+    # each has one case at the LM's training shape and one at BERT's; the
+    # forward has its prefill cases already, the backward kernels' first
+    # path is the LM's training step
+    for name in FLASH_KERNELS:
+        lm_case, bert_case = flash[name]['cases']
+        other[name] = {'bert': [bert_case]}
         if name in kernels:
             kernels[name]['max_abs_err'] = max(kernels[name]['max_abs_err'],
-                                               res['max_abs_err'])
+                                               flash[name]['max_abs_err'])
+            other[name]['train_flash'] = [lm_case]
         else:
-            kernels[name] = res
-    compare_train_step_with_cpu(torch)
-    train, train_counts = run_training(torch, kt)
-    emit(train)
+            kernels[name] = flash[name]
+    compare_train_step_with_cpu(torch, flash=True, unfused_card=unfused_card)
+    del unfused_card
+    train_flash, by_path['train_flash'] = run_training(
+        torch, kt, 'train_flash', LMConfig(attn_dropout=0.0),
+        FLASH_TRAIN_KERNELS,
+        note="the bench's flagship row also sets amp=True, which is not "
+             "ported: this is f32")
+    train_flash['unfused_step_ms'] = train['step_ms']
+    train_flash['unfused_tokens_per_s'] = train['tokens_per_s']
+    train_flash['unfused_peak_mem_bytes'] = train['peak_mem_bytes']
+    emit(train_flash)
+    del train, train_flash
+    torch.cuda.empty_cache()
+
+    bc = bert.BertConfig()
+    merge('bert', check_train_kernels(
+        torch, F, 'bert_kernel', bc, bert.param_shapes(bc).values(),
+        BERT_TRAIN_B * bc.seq_len,
+        [(BERT_TRAIN_B * bc.max_predictions, bc.vocab_size),
+         (BERT_TRAIN_B, 2)]))
+    bert_summary, by_path['bert'] = run_bert(torch, kt)
+    emit(bert_summary)
+    del bert_summary
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {
@@ -771,17 +1102,22 @@ def main():
         'fused_adam': ('paddle_tpu_torch/csrc/fused_adam.cu',
                        'paddle_tpu/ops/optimizer_ops.py:239', 'tensors',
                        None),
+        'flash_attention_bwd_dq': ('paddle_tpu_torch/csrc/flash_attn_bwd.cu',
+                                   'paddle_tpu/ops/attention_ops.py:307',
+                                   'shape', 'lm_train'),
+        'flash_attention_bwd_dkv': ('paddle_tpu_torch/csrc/flash_attn_bwd.cu',
+                                    'paddle_tpu/ops/attention_ops.py:329',
+                                    'shape', 'lm_train'),
     }
     line = []
     for name in kt.KERNELS:
         src, repl, key, at = meta[name]
         res = kernels[name]
         case = [c for c in res['cases'] if at is None or c[key] == at][0]
+        launches = {path: c[name] for path, c in by_path.items()}
         line.append(dict(
             name=name, route='cuda', source=src, replaces=repl,
-            launches=engine_counts[name] + train_counts[name],
-            launches_by_path={'engine': engine_counts[name],
-                              'train': train_counts[name]},
+            launches=sum(launches.values()), launches_by_path=launches,
             max_abs_err=res['max_abs_err'],
             ms=case['ms'], plain_ms=case['plain_ms'],
             bound_ms=case['bound_ms'], bound_by=case['bound_by'],
@@ -791,9 +1127,14 @@ def main():
             checked=res.get('checked', 'max_abs_err'),
             **({'max_rel_err': res['max_rel_err']}
                if 'max_rel_err' in res else {})))
-        if name in train_cases:
-            # a kernel both paths run: its time at the training shape too
-            line[-1]['train_case'] = train_cases[name]
+        if name in other:
+            # a kernel several paths run: its cases at their shapes too
+            line[-1]['other_cases'] = other[name]
+        idle = [path for path, n in launches.items()
+                if n <= 0 and name in PATH_KERNELS[path]]
+        if idle:
+            raise AssertionError('%s was never launched on the %s path'
+                                 % (name, idle))
     emit({'kernels': line})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                  'count': torch.cuda.device_count()}})

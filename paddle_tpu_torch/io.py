@@ -1,11 +1,12 @@
-"""Carry the JAX package's LM weights and training state into the port.
+"""Carry the JAX package's weights and training state into the port.
 
 `load_params` reads what `paddle_tpu.io.save_params` writes — one combined
 ``.npz`` (``filename=``) or one ``.npy`` per variable, with ``/`` in a name
 written as ``%2F`` — and `params_from_numpy` maps those names onto the
-port's `TransformerLM` state, checking every name and shape.
+port's `TransformerLM` or `BertPretrain` state (a scope whose names start
+with ``bert.`` is BERT's), checking every name and shape.
 `train_state_from_numpy` takes a whole training scope (the parameters, the
-Adam accumulators and the learning rate) apart for `TransformerLM` and
+Adam accumulators and the learning rate) apart for the model and
 `optimizer.Adam`.
 """
 import os
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .framework import resolve_device
+from .models import bert
 from .models.transformer import LMConfig, param_shapes
 
 __all__ = ['load_params', 'params_from_numpy', 'train_state_from_numpy']
@@ -41,41 +43,59 @@ def load_params(dirname, filename=None):
     return out
 
 
+def _is_bert(names):
+    return any(n.startswith('bert.') for n in names)
+
+
 def _infer_config(arrays):
-    """The LMConfig the arrays' shapes imply (head count aside: it shapes no
-    parameter, so it does not matter for the check)."""
+    """The LMConfig, or for a ``bert.`` scope the BertConfig, that the
+    arrays' shapes imply (head count aside: it shapes no parameter, so it
+    does not matter for the check)."""
+    pre = 'bert.' if _is_bert(arrays) else ''
     try:
-        V, d = np.shape(arrays['tok_emb.w'])
-        d_ff = np.shape(arrays['layer_0.ffn1.w'])[1]
+        V, d = np.shape(arrays[pre + 'tok_emb.w'])
+        d_ff = np.shape(arrays[pre + 'layer_0.ffn1.w'])[1]
+        kw = {'type_vocab_size': np.shape(arrays['bert.seg_emb.w'])[0]} \
+            if pre else {}
     except KeyError as e:
         raise ValueError('parameter %s is missing' % e) from None
     n_layer = 0
-    while 'layer_%d.ln1.w' % n_layer in arrays:
+    while '%slayer_%d.ln1.w' % (pre, n_layer) in arrays:
         n_layer += 1
-    return LMConfig(vocab_size=V, d_model=d, n_head=1, n_layer=n_layer,
-                    d_ff=d_ff)
+    return (bert.BertConfig if pre else LMConfig)(
+        vocab_size=V, d_model=d, n_head=1, n_layer=n_layer, d_ff=d_ff, **kw)
+
+
+def _want_shapes(cfg):
+    return bert.param_shapes(cfg) if isinstance(cfg, bert.BertConfig) \
+        else param_shapes(cfg)
 
 
 def params_from_numpy(arrays, device=None, config=None):
-    """{name: float32 tensor on ``device``} for `TransformerLM`, from a
-    {JAX parameter name: array} mapping (numpy arrays or tensors). The
-    names are ``tok_emb.w``, ``layer_{i}.{ln1,ln2}.{w,b}``,
-    ``layer_{i}.attn.{qkv,proj}.{w,b}``, ``layer_{i}.{ffn1,ffn2}.{w,b}``,
-    ``final_ln.{w,b}`` and ``lm_head.w``; ``gen_kv_k``/``gen_kv_v`` are
-    ignored. Shapes are checked against ``config`` (an LMConfig), or
-    against the config the arrays imply when it is None. Raises ValueError
+    """{name: float32 tensor on ``device``} for `TransformerLM` or
+    `BertPretrain`, from a {JAX parameter name: array} mapping (numpy
+    arrays or tensors). The LM's names are ``tok_emb.w``,
+    ``layer_{i}.{ln1,ln2}.{w,b}``, ``layer_{i}.attn.{qkv,proj}.{w,b}``,
+    ``layer_{i}.{ffn1,ffn2}.{w,b}``, ``final_ln.{w,b}`` and ``lm_head.w``;
+    BERT's are those of `models.bert.param_shapes` (``bert.tok_emb.w``,
+    ``bert.layer_{i}...``, ``bert.mlm.out.w``, ...); ``gen_kv_k`` and
+    ``gen_kv_v`` are ignored. Shapes are checked against ``config`` (an
+    LMConfig or a BertConfig), or against the config the arrays imply when
+    it is None. Raises ValueError
     on a missing, unexpected or mis-shaped name. ``device`` goes through
     `framework.resolve_device` once every name and shape has been checked:
     None means ``cuda:0`` (and raises without a card), ``'cpu'`` the
     CPU."""
     arrays = {k: v for k, v in arrays.items() if k not in _IGNORED}
     cfg = config if config is not None else _infer_config(arrays)
-    want = param_shapes(cfg)
+    want = _want_shapes(cfg)
     missing = [k for k in want if k not in arrays]
     extra = sorted(k for k in arrays if k not in want)
     if missing or extra:
-        raise ValueError('parameter names do not match the LM: missing %s, '
-                         'unexpected %s' % (missing, extra))
+        raise ValueError('parameter names do not match the %s: missing %s, '
+                         'unexpected %s'
+                         % ('BERT model' if isinstance(cfg, bert.BertConfig)
+                            else 'LM', missing, extra))
     checked = {name: _tensor(arrays[name], shape, 'parameter %r' % name)
                for name, shape in want.items()}
     dev = resolve_device(device)
@@ -88,7 +108,7 @@ def _tensor(a, shape, what):
     t = a.detach() if isinstance(a, torch.Tensor) else \
         torch.from_numpy(np.array(a, dtype=np.float32))
     if tuple(t.shape) != tuple(shape):
-        raise ValueError('%s has shape %s, the LM needs %s'
+        raise ValueError('%s has shape %s, the model needs %s'
                          % (what, tuple(t.shape), tuple(shape)))
     return t.to(dtype=torch.float32).contiguous()
 
@@ -103,8 +123,8 @@ _ACC_KEYS = {'moment1': 'moment1', 'moment2': 'moment2',
 
 
 def train_state_from_numpy(arrays, device=None, config=None):
-    """Take a JAX training scope of the LM with Adam apart: returns
-    (params, adam_state, learning_rate) with ``params`` as
+    """Take a JAX training scope of the LM or of BERT with Adam apart:
+    returns (params, adam_state, learning_rate) with ``params`` as
     `params_from_numpy` gives them, ``adam_state`` as {parameter name:
     {'moment1', 'moment2', 'beta1_pow', 'beta2_pow'}} float32 tensors on
     ``device`` (None: ``cuda:0``, as in `params_from_numpy`; the form

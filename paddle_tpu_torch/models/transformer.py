@@ -20,6 +20,11 @@ site (2·L + 1 per forward); decode keeps one plain ``layer_norm`` at layer
 The KV cache is two [slots, layers, heads, max_len, head_dim] tensors
 owned by the module (:meth:`TransformerLM.allocate_cache`), allocated
 zeroed and updated in place.
+
+:class:`TransformerStack` holds what the LM shares with BERT
+(paddle_tpu_torch/models/bert.py), as `transformer_block` serves both
+models in the JAX package: the parameters under their JAX names and the
+pre-norm block of the training forward.
 """
 import collections
 
@@ -36,7 +41,8 @@ from ..ops.nn_ops import fused_ln_residual, layer_norm
 from ..ops.random_ops import dropout, keep_mask
 from ..ops.tensor_ops import add_position_encoding, position_encoding_table
 
-__all__ = ['LMConfig', 'TransformerLM', 'param_shapes', 'init_params']
+__all__ = ['LMConfig', 'TransformerLM', 'TransformerStack', 'param_shapes',
+           'block_param_shapes', 'init_params']
 
 
 class LMConfig(object):
@@ -57,38 +63,45 @@ class LMConfig(object):
         self.use_flash_attention = use_flash_attention
 
 
+def block_param_shapes(shapes, cfg, prefix):
+    """Add one block's parameters, named ``prefix + '.ln1.w'`` ..., to
+    ``shapes`` in the JAX package's creation order."""
+    d, f, p = cfg.d_model, cfg.d_ff, prefix
+    shapes[p + '.ln1.w'] = (d,)
+    shapes[p + '.ln1.b'] = (d,)
+    shapes[p + '.attn.qkv.w'] = (d, 3 * d)
+    shapes[p + '.attn.qkv.b'] = (3 * d,)
+    shapes[p + '.attn.proj.w'] = (d, d)
+    shapes[p + '.attn.proj.b'] = (d,)
+    shapes[p + '.ln2.w'] = (d,)
+    shapes[p + '.ln2.b'] = (d,)
+    shapes[p + '.ffn1.w'] = (d, f)
+    shapes[p + '.ffn1.b'] = (f,)
+    shapes[p + '.ffn2.w'] = (f, d)
+    shapes[p + '.ffn2.b'] = (d,)
+
+
 def param_shapes(cfg):
     """{JAX parameter name: shape}, in the JAX package's creation order."""
-    d, V, f = cfg.d_model, cfg.vocab_size, cfg.d_ff
+    d, V = cfg.d_model, cfg.vocab_size
     shapes = collections.OrderedDict()
     shapes['tok_emb.w'] = (V, d)
     for i in range(cfg.n_layer):
-        p = 'layer_%d' % i
-        shapes[p + '.ln1.w'] = (d,)
-        shapes[p + '.ln1.b'] = (d,)
-        shapes[p + '.attn.qkv.w'] = (d, 3 * d)
-        shapes[p + '.attn.qkv.b'] = (3 * d,)
-        shapes[p + '.attn.proj.w'] = (d, d)
-        shapes[p + '.attn.proj.b'] = (d,)
-        shapes[p + '.ln2.w'] = (d,)
-        shapes[p + '.ln2.b'] = (d,)
-        shapes[p + '.ffn1.w'] = (d, f)
-        shapes[p + '.ffn1.b'] = (f,)
-        shapes[p + '.ffn2.w'] = (f, d)
-        shapes[p + '.ffn2.b'] = (d,)
+        block_param_shapes(shapes, cfg, 'layer_%d' % i)
     shapes['final_ln.w'] = (d,)
     shapes['final_ln.b'] = (d,)
     shapes['lm_head.w'] = (d, V)
     return shapes
 
 
-def init_params(cfg, seed, device):
+def init_params(cfg, seed, device, shapes=None):
     """Fresh parameters from ``seed`` (a torch.Generator on the CPU):
     N(0, 0.02) weights, unit LayerNorm scales, zero biases. These are not
-    the JAX package's initial values."""
+    the JAX package's initial values. ``shapes`` is the {name: shape} map
+    to fill, the LM's `param_shapes(cfg)` when None."""
     g = torch.Generator(device='cpu').manual_seed(int(seed))
     out = collections.OrderedDict()
-    for name, shape in param_shapes(cfg).items():
+    for name, shape in (shapes or param_shapes(cfg)).items():
         if name.endswith('.b'):
             t = torch.zeros(shape)
         elif len(shape) == 1:
@@ -104,44 +117,28 @@ def _key(name):
     return name.replace('.', '__')
 
 
-class TransformerLM(nn.Module):
-    """Decoder-only LM: :meth:`loss` is the training forward of `build_lm`;
-    with a KV cache, :meth:`prefill` runs one prompt into a cache slot and
-    :meth:`decode_step` advances every slot by one token (both under
-    ``torch.no_grad``). ``max_len`` bounds the positions of both: the
-    position table has that many rows."""
+class TransformerStack(nn.Module):
+    """What the LM and BERT share: the parameters of ``shapes`` under their
+    JAX names (``self.p``), the position table ``self.pe`` of ``max_len``
+    rows, and the pre-norm block of the training forward
+    (:meth:`_block`)."""
 
-    def __init__(self, cfg, params, max_len):
+    def __init__(self, cfg, params, shapes, max_len):
         nn.Module.__init__(self)
         self.cfg = cfg
         self.max_len = int(max_len)
-        shapes = param_shapes(cfg)
         self.weights = nn.ParameterDict()
         for name in shapes:
             self.weights[_key(name)] = nn.Parameter(params[name].detach())
         self.p = {name: self.weights[_key(name)] for name in shapes}
-        dev = self.p['tok_emb.w'].device
         self.register_buffer('pe', torch.from_numpy(
-            position_encoding_table(self.max_len, cfg.d_model)).to(dev))
-        self.k_cache = None
-        self.v_cache = None
+            position_encoding_table(self.max_len, cfg.d_model)).to(
+                self.device))
 
     @property
     def device(self):
-        return self.p['tok_emb.w'].device
+        return next(iter(self.p.values())).device
 
-    def allocate_cache(self, slots):
-        """Zeroed K and V caches [slots, layers, heads, max_len, dh]. Zeros,
-        not empty memory: stale rows are masked by a select, but they must
-        never hold uninitialised bits either."""
-        c = self.cfg
-        shape = (int(slots), c.n_layer, c.n_head, self.max_len,
-                 c.d_model // c.n_head)
-        self.k_cache = torch.zeros(shape, dtype=torch.float32,
-                                   device=self.device)
-        self.v_cache = torch.zeros_like(self.k_cache)
-
-    # -- pieces shared by prefill and decode --------------------------------
     def _fc(self, x, name, bias=True):
         y = torch.matmul(x, self.p[name + '.w'])
         return y + self.p[name + '.b'] if bias else y
@@ -155,15 +152,77 @@ class TransformerLM(nn.Module):
         y, s, _, _ = fused_ln_residual(x, delta, w, b)
         return y, s
 
-    def _post_attention(self, x, ctx, prefix):
+    def _post_attention(self, x, ctx, prefix, keep=None):
+        """The block after its attention context ``ctx`` (shaped like the
+        stream ``x``): proj, the fused residual-add + LayerNorm at ln2 and
+        the FFN tail with its pre-scaled keep mask (rows x d_model, or
+        None). Returns (stream, the FFN delta left unadded)."""
+        d = x.shape[-1]
         attn = self._fc(ctx, prefix + '.attn.proj')
         ln2, x, _, _ = fused_ln_residual(x, attn, self.p[prefix + '.ln2.w'],
                                          self.p[prefix + '.ln2.b'])
-        delta, _ = fused_ffn_core(ln2, self.p[prefix + '.ffn1.w'],
+        delta, _ = fused_ffn_core(ln2.reshape(-1, d),
+                                  self.p[prefix + '.ffn1.w'],
                                   self.p[prefix + '.ffn1.b'],
                                   self.p[prefix + '.ffn2.w'],
-                                  self.p[prefix + '.ffn2.b'])
-        return x, delta
+                                  self.p[prefix + '.ffn2.b'], keep)
+        return x, delta.view(x.shape)
+
+    def _block(self, x, delta, prefix, causal, mask=None,
+               key_padding_bias=None, dropout_prob=0.0, attn_dropout=0.0,
+               generator=None):
+        """One pre-norm block of a training forward over the stream ``x``
+        [B, L, d] with the previous block's pending FFN ``delta``:
+        the fused entry LayerNorm, QKV, attention, proj, the fused
+        LayerNorm at ln2 and the FFN tail with its dropout mask. Attention
+        is flash attention (``causal``, with ``key_padding_bias`` [B, L])
+        when ``mask`` is None, as the models' ``flash_ok`` rule decides;
+        else the unfused branch of `multi_head_attention`:
+        scores * dh^-0.5 + ``mask`` (broadcast to [B, H, L, L]), softmax,
+        dropout on the weights, matmul with v. Returns (stream, delta)."""
+        B, L, d = x.shape
+        h = self.cfg.n_head
+        dh = d // h
+        ln1, x = self._entry_ln(x, delta, prefix + '.ln1')
+        qkv = self._fc(ln1, prefix + '.attn.qkv')
+        q, k, v = qkv.view(B, L, 3, h, dh).permute(2, 0, 3, 1, 4)
+        if mask is None:
+            ctx = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal,
+                                  key_padding_bias=key_padding_bias)
+        else:
+            scores = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5 + mask
+            weights = dropout(torch.softmax(scores, dim=-1), attn_dropout,
+                              generator)
+            ctx = torch.matmul(weights, v)
+        ctx = ctx.permute(0, 2, 1, 3).reshape(B, L, d)
+        keep = keep_mask((B * L, d), dropout_prob, generator, x.device) \
+            if dropout_prob else None
+        return self._post_attention(x, ctx, prefix, keep)
+
+
+class TransformerLM(TransformerStack):
+    """Decoder-only LM: :meth:`loss` is the training forward of `build_lm`;
+    with a KV cache, :meth:`prefill` runs one prompt into a cache slot and
+    :meth:`decode_step` advances every slot by one token (both under
+    ``torch.no_grad``). ``max_len`` bounds the positions of both: the
+    position table has that many rows."""
+
+    def __init__(self, cfg, params, max_len):
+        TransformerStack.__init__(self, cfg, params, param_shapes(cfg),
+                                  max_len)
+        self.k_cache = None
+        self.v_cache = None
+
+    def allocate_cache(self, slots):
+        """Zeroed K and V caches [slots, layers, heads, max_len, dh]. Zeros,
+        not empty memory: stale rows are masked by a select, but they must
+        never hold uninitialised bits either."""
+        c = self.cfg
+        shape = (int(slots), c.n_layer, c.n_head, self.max_len,
+                 c.d_model // c.n_head)
+        self.k_cache = torch.zeros(shape, dtype=torch.float32,
+                                   device=self.device)
+        self.v_cache = torch.zeros_like(self.k_cache)
 
     @staticmethod
     def _sample(logits, sample):
@@ -181,70 +240,33 @@ class TransformerLM(nn.Module):
         return bool(self.cfg.use_flash_attention and
                     not self.cfg.attn_dropout)
 
-    def _attention_train(self, q, k, v, mask, generator):
-        """Causal attention of the training forward, q, k, v [B, H, L, dh]
-        -> [B, H, L, dh]: flash attention when ``mask`` is None (the
-        ``flash_ok`` rule picked it), else the unfused branch of
-        `multi_head_attention`: scores·dh^-0.5 + ``mask`` (the -1e9 upper
-        triangle), softmax, dropout on the weights, matmul with v."""
-        dh = q.shape[-1]
-        if mask is None:
-            # the CPU takes the plain flash version, under autograd
-            return flash_attention(q, k, v, scale=dh ** -0.5, causal=True)
-        scores = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5 + mask
-        weights = torch.softmax(scores, dim=-1)
-        weights = dropout(weights, self.cfg.attn_dropout, generator)
-        return torch.matmul(weights, v)
-
     def loss(self, tokens, labels, generator=None):
         """The mean softmax cross-entropy of `build_lm`'s training program
         for tokens and labels [B, L] (int64, L <= max_len): embedding
         gather + position encoding, dropout, a zero delta ahead of block 0,
-        per block the fused entry LayerNorm, QKV, causal attention, proj,
-        the fused LayerNorm at ln2 and the FFN tail with its dropout mask,
-        then the final fused LayerNorm, lm_head and the fused CE. Dropout
-        (``cfg.dropout`` and ``cfg.attn_dropout``) draws from
-        ``generator``, a torch.Generator on the parameters' device; it may
-        be None only when both are 0. Returns a 0-d tensor; call
-        ``.backward()`` on it (or hand it to an optimizer's ``minimize``)."""
+        the blocks (:meth:`TransformerStack._block`: causal flash attention
+        under the ``flash_ok`` rule, else the unfused branch with the -1e9
+        upper-triangle mask), then the final fused LayerNorm, lm_head and
+        the fused CE. Dropout (``cfg.dropout`` and ``cfg.attn_dropout``)
+        draws from ``generator``, a torch.Generator on the parameters'
+        device; it may be None only when both are 0. Returns a 0-d tensor;
+        call ``.backward()`` on it (or hand it to an optimizer's
+        ``minimize``)."""
         c = self.cfg
         B, L = tokens.shape
-        d, h = c.d_model, c.n_head
-        dh = d // h
+        d = c.d_model
         x = embedding_gather(self.p['tok_emb.w'], tokens).view(B, L, d)
         x = add_position_encoding(x, table=self.pe)
         x = dropout(x, c.dropout, generator)
-        if not self.flash_in_training():
-            mask = torch.triu(torch.full((L, L), -1e9, dtype=torch.float32,
-                                         device=x.device), diagonal=1)
-        elif x.device.type == 'cuda':
-            raise NotImplementedError(
-                'training with flash attention needs the flash backward '
-                'kernels (dQ, dK/dV), which are not ported yet: port slice 3 '
-                '(ROADMAP.md). Set attn_dropout > 0 or '
-                'use_flash_attention=False to train on the card.')
-        else:
-            mask = None
+        mask = None if self.flash_in_training() else torch.triu(
+            torch.full((L, L), -1e9, dtype=torch.float32, device=x.device),
+            diagonal=1)
         delta = x * 0.0
         for i in range(c.n_layer):
-            p = 'layer_%d' % i
-            ln1, x = self._entry_ln(x, delta, p + '.ln1')
-            qkv = self._fc(ln1, p + '.attn.qkv')
-            qkv = qkv.view(B, L, 3, h, dh).permute(2, 0, 3, 1, 4)
-            ctx = self._attention_train(qkv[0], qkv[1], qkv[2], mask,
-                                        generator)
-            ctx = ctx.permute(0, 2, 1, 3).reshape(B, L, d)
-            attn = self._fc(ctx, p + '.attn.proj')
-            ln2, x, _, _ = fused_ln_residual(x, attn, self.p[p + '.ln2.w'],
-                                             self.p[p + '.ln2.b'])
-            keep = keep_mask((B * L, d), c.dropout, generator, x.device) \
-                if c.dropout else None
-            delta, _ = fused_ffn_core(ln2.reshape(B * L, d),
-                                      self.p[p + '.ffn1.w'],
-                                      self.p[p + '.ffn1.b'],
-                                      self.p[p + '.ffn2.w'],
-                                      self.p[p + '.ffn2.b'], keep)
-            delta = delta.view(B, L, d)
+            x, delta = self._block(x, delta, 'layer_%d' % i, causal=True,
+                                   mask=mask, dropout_prob=c.dropout,
+                                   attn_dropout=c.attn_dropout,
+                                   generator=generator)
         x, _ = self._entry_ln(x, delta, 'final_ln')
         logits = self._fc(x.reshape(B * L, d), 'lm_head', bias=False)
         return fused_softmax_ce(logits, labels.reshape(-1)).mean()

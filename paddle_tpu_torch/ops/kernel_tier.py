@@ -21,7 +21,8 @@ __all__ = ['KERNELS', 'launch_counts', 'reset_counts', 'count', 'on_cuda',
 # the kernels of the port, by the name their wrapper counts under
 KERNELS = ('embedding_gather', 'fused_ln_residual', 'flash_attention',
            'fused_ffn', 'softmax_ce_fwd', 'softmax_ce_bwd',
-           'fused_ln_residual_bwd', 'fused_adam')
+           'fused_ln_residual_bwd', 'fused_adam', 'flash_attention_bwd_dq',
+           'flash_attention_bwd_dkv')
 
 _counts = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()

@@ -148,8 +148,9 @@ def test_flash_attention_matches_pallas_interpret(causal):
 
 
 def test_flash_attention_3d_form_and_unported_bias():
-    """[BH, L, dh] input gives the 4-d result; the key-padding-bias variant
-    is not ported and raises."""
+    """[BH, L, dh] input gives the 4-d result; a zero key-padding bias
+    changes nothing, and a dropped key has exactly no weight (the output
+    equals attention over the kept keys alone)."""
     rs = np.random.RandomState(7)
     B, H, L, dh = 2, 2, 16, 32
     q, k, v = (rs.randn(B, H, L, dh).astype('float32') for _ in range(3))
@@ -157,9 +158,19 @@ def test_flash_attention_3d_form_and_unported_bias():
     o3 = attention_ops.flash_attention(*(_t(a.reshape(B * H, L, dh))
                                          for a in (q, k, v)))
     np.testing.assert_array_equal(o3.numpy(), o4.numpy().reshape(-1, L, dh))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        attention_ops.flash_attention(_t(q), _t(k), _t(v),
-                                      key_padding_bias=torch.zeros(B, L))
+    o0 = attention_ops.flash_attention(_t(q), _t(k), _t(v),
+                                       key_padding_bias=torch.zeros(B, L))
+    np.testing.assert_array_equal(o0.numpy(), o4.numpy())
+    bias = torch.zeros(B, L)
+    bias[:, L - 5:] = -1e9
+    ob = attention_ops.flash_attention(_t(q), _t(k), _t(v), causal=False,
+                                       key_padding_bias=bias)
+    s = torch.einsum('bhqd,bhkd->bhqk', _t(q), _t(k[:, :, :L - 5])) \
+        * dh ** -0.5
+    want = torch.einsum('bhqk,bhkd->bhqd', torch.softmax(s, -1),
+                        _t(v[:, :, :L - 5]))
+    np.testing.assert_allclose(ob.numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_position_encoding_table_is_bitwise_the_jax_table():

@@ -320,17 +320,16 @@ def _scope_arrays(scope):
             if hasattr(scope.get(n), 'shape')}
 
 
-@pytest.fixture(scope='module')
-def jax_run():
+def _jax_train_run(lm_kw):
     """(startup scope, losses, final scope) of the JAX package's training
-    program at the interpret tier."""
+    program for LMConfig(**lm_kw) at the interpret tier."""
     old = os.environ.get('PADDLE_FUSED_TIER')
     os.environ['PADDLE_FUSED_TIER'] = 'interpret'
     try:
         main, startup = fluid.Program(), fluid.Program()
         main.random_seed = startup.random_seed = 5
         with fluid.program_guard(main, startup), fluid.unique_name.guard():
-            _, _, _, avg_loss = build_lm(JLMConfig(**LM))
+            _, _, _, avg_loss = build_lm(JLMConfig(**lm_kw))
             fluid.optimizer.Adam(1e-3, fuse=True).minimize(avg_loss)
         exe = fluid.Executor()
         scope = fluid.Scope()
@@ -351,11 +350,28 @@ def jax_run():
             os.environ['PADDLE_FUSED_TIER'] = old
 
 
-def test_three_step_trajectory_matches_jax_build_lm(jax_run):
-    init, want_losses, final = jax_run
-    cfg = LMConfig(**LM)
+@pytest.fixture(scope='module')
+def jax_run():
+    return _jax_train_run(LM)
+
+
+# the bench's flagship configuration in small: attention dropout 0 and flash
+# attention on, so that both packages attend through flash attention (the
+# JAX package through its plain reference on the CPU)
+LM_FLASH = dict(LM, use_flash_attention=True)
+
+
+@pytest.fixture(scope='module')
+def jax_run_flash():
+    return _jax_train_run(LM_FLASH)
+
+
+def _check_trajectory(run, lm_kw):
+    init, want_losses, final = run
+    cfg = LMConfig(**lm_kw)
     params, state, lr = train_state_from_numpy(init, 'cpu', config=cfg)
     model = TransformerLM(cfg, params, cfg.seq_len)
+    assert model.flash_in_training() is lm_kw['use_flash_attention']
     opt = Adam(model.p, 1e-3, fuse=True)
     opt.load_state(state, lr)
     losses = []
@@ -373,6 +389,14 @@ def test_three_step_trajectory_matches_jax_build_lm(jax_run):
             np.testing.assert_allclose(
                 got[name][key].numpy(), final['%s_%s_0' % (name, acc)],
                 rtol=1e-4, atol=1e-5, err_msg='%s %s' % (name, key))
+
+
+def test_three_step_trajectory_matches_jax_build_lm(jax_run):
+    _check_trajectory(jax_run, LM)
+
+
+def test_three_step_trajectory_with_flash_matches_jax_build_lm(jax_run_flash):
+    _check_trajectory(jax_run_flash, LM_FLASH)
 
 
 def test_train_state_carry_checks_names(jax_run):
