@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
    and ``library_ms`` (one PyTorch library call computing the same function,
    timed only: the port never calls it) are device times, from CUDA events
    around replays of a CUDA graph of 20 calls; ``eager_ms`` is the
-   wrapper's back-to-back eager rate, host overhead included.
+   wrapper's back-to-back eager rate, host overhead included. The FFN and
+   flash forward must give the same bits on a second call, and the FFN's
+   row 0 at M 8 must not move when the other rows change (the engine's
+   bitwise concurrent = sequential contract); an ``ffn_routes`` line per M
+   in 8, 16, 32 times the FFN through each of its two routes.
 4. engine  — the full-width flagship LM (V 32000, d 512, 8 heads, 6 layers,
    d_ff 2048; random weights from a seed) behind GenerateEngine: warmup,
    16 concurrent requests (prompts of 5..256 tokens, 32 new tokens, half
@@ -66,7 +70,8 @@ Phases, each printing one JSON line:
    ported): all ten kernels of that path launched (the seven of phase 7 and
    the flash forward, dQ and dK/dV), step ms and tokens/s beside phase 7's.
 11. bert_kernel — the kernels of phases 3 and 5 at BERT-base's shapes (rows
-   of D 768, the FFN at 768 -> 3072 -> 768, CE at V 30522 and at V 2,
+   of D 768, the FFN at 768 -> 3072 -> 768 at N 4096 and, as the B 128
+   forward calls it, at N 16384, CE at V 30522 and at V 2,
    gathers from the [30522, 768] and [2, 768] tables, Adam over 160
    tensors), each against its plain version.
 12. bert      — BERT-base at full width (12 layers, d 768, 12 heads, d_ff
@@ -80,6 +85,15 @@ Phases, each printing one JSON line:
    trains (dropout 0.1, ``Adam(1e-4, fuse=True)``, one fixed batch): the
    loss finite and fallen, all ten kernels launched, step ms, samples/s,
    peak memory and a profile of one step.
+
+``bound_ms`` is the least time the card could take: the larger of the
+bytes (each input read once, each output written once) over 3.35 TB/s and
+the operations' time, where matrix-product flops (the FFN's two products,
+the flash kernels' Q·K^T, P·V and gradient products) count at 165 TFLOP/s
+(495 TFLOP/s TF32 over the 3xTF32 split's three passes: f32 accuracy on the
+tensor cores) and other flops at the f32 CUDA-core peak of 67 TFLOP/s.
+Those four kernels also get ``bound_simt_ms``, every flop at 67 TFLOP/s,
+the rule of the tables before the tensor-core kernels.
 
 Then one line ``{"kernels": [...]}`` (per kernel: route, source, the TPU
 kernel it replaces, launches on each path, max abs error, ms, plain_ms,
@@ -98,10 +112,12 @@ import time
 
 import numpy as np
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# throughput outside the tensor cores — the kernels here are f32 SIMT
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32
+# throughput outside the tensor cores, and the f32-accurate tensor-core rate
+# of the 3xTF32 split (495 TFLOP/s TF32, three passes a product)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 
 SLOTS = 8
 MAX_LEN = 512
@@ -137,12 +153,30 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes, flops):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    f32 operations over the f32 peak."""
+def bound(nbytes, flops, product_flops=0):
+    """{bound_ms, bound_by}: the larger of bytes over HBM bandwidth and the
+    operations' time, where the flops of matrix products
+    (``product_flops``) count at the f32-accurate tensor-core rate (165
+    TFLOP/s) and the other ``flops`` at the f32 CUDA-core peak (67). A
+    kernel with matrix products also gets ``bound_simt_ms``, every flop at
+    67 TFLOP/s, the rule of the tables before the tensor-core kernels."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+    t_ops = (product_flops / PEAK_TF32X3_FLOPS + flops / PEAK_F32_FLOPS) * 1e3
+    out = dict(bound_ms=t_bytes, bound_by='bytes') if t_bytes >= t_ops \
+        else dict(bound_ms=t_ops, bound_by='operations')
+    if product_flops:
+        out['bound_simt_ms'] = max(
+            t_bytes, (product_flops + flops) / PEAK_F32_FLOPS * 1e3)
+    return out
+
+
+def same_bits(torch, fn):
+    """True when two calls of ``fn`` return bitwise equal tensors."""
+    first, second = fn(), fn()
+    first = first if isinstance(first, (tuple, list)) else [first]
+    second = second if isinstance(second, (tuple, list)) else [second]
+    return all(torch.equal(a, b) for a, b in zip(first, second)
+               if a is not None)
 
 
 def eager_ms(torch, fn, iters=50, warmup=5):
@@ -222,6 +256,31 @@ def max_err(torch, got, want):
                for g, w in zip(got, want))
 
 
+def ffn_routes(torch, ffn_ops, randn, w1, b1, w2, b2):
+    """The skinny route's row limit, measured: at M 8, 16 and 32 the FFN
+    through each route (its limit set for the measurement and put back),
+    each held to 1e-4 of the plain version. One line per M."""
+    saved = ffn_ops._SKINNY_MAX_ROWS
+    d = w1.shape[0]
+    for n in (8, 16, 32):
+        x = randn(n, d)
+        want = ffn_ops._ffn_ref(x, w1, b1, w2, b2)
+        res = dict(phase='ffn_routes', n=n, limit=saved)
+        try:
+            for route, limit in (('skinny', 32), ('tile', 0)):
+                ffn_ops._SKINNY_MAX_ROWS = limit
+                got = ffn_ops.fused_ffn_core(x, w1, b1, w2, b2,
+                                             want_pre1=True)
+                res[route + '_err'] = max_err(torch, got, want)
+                res[route + '_ms'] = cuda_ms(
+                    torch, lambda: ffn_ops.fused_ffn_core(x, w1, b1, w2, b2))
+        finally:
+            ffn_ops._SKINNY_MAX_ROWS = saved
+        emit(res)
+        if not max(res['skinny_err'], res['tile_err']) <= 1e-4:
+            raise AssertionError('fused_ffn routes at M %d: %s' % (n, res))
+
+
 def check_kernels(torch, F, kt):
     """Phase 3. Returns {kernel name: summary dict} with per-shape cases."""
     from paddle_tpu_torch.ops import (attention_ops, embedding_ops,
@@ -246,15 +305,13 @@ def check_kernels(torch, F, kt):
         want = embedding_ops._gather_ref(w, ids)
         err = max_err(torch, [got], [want])
         nbytes = 2 * n * d * 4 + n * 8
-        b_ms, b_by = bound(nbytes, 0)
-        cases.append(dict(
+        cases.append(dict(**bound(nbytes, 0),
             n=n, max_abs_err=err,
             ms=cuda_ms(torch, lambda: embedding_ops.embedding_gather(w, ids)),
             eager_ms=eager_ms(torch, lambda: embedding_ops.embedding_gather(
                 w, ids)),
             plain_ms=cuda_ms(torch, lambda: embedding_ops._gather_ref(w, ids)),
-            library_ms=cuda_ms(torch, lambda: F.embedding(ids, w)),
-            bound_ms=b_ms, bound_by=b_by))
+            library_ms=cuda_ms(torch, lambda: F.embedding(ids, w))))
     probe = torch.tensor([-3, 0, V - 1, V + 5], device=dev)
     clamp_err = max_err(torch, [embedding_ops.embedding_gather(w, probe)],
                         [w[torch.tensor([0, 0, V - 1, V - 1], device=dev)]])
@@ -272,8 +329,7 @@ def check_kernels(torch, F, kt):
         want = nn_ops._ln_res_ref(x, r, sc, bi, 1e-5)
         err = max_err(torch, got, want)
         nbytes = 4 * n * d * 4 + 2 * d * 4 + 2 * n * 4
-        b_ms, b_by = bound(nbytes, 9 * n * d)
-        cases.append(dict(
+        cases.append(dict(**bound(nbytes, 9 * n * d),
             n=n, max_abs_err=err,
             ms=cuda_ms(torch, lambda: nn_ops.fused_ln_residual(
                 x, r, sc, bi, 1e-5)),
@@ -282,8 +338,7 @@ def check_kernels(torch, F, kt):
             plain_ms=cuda_ms(torch, lambda: nn_ops._ln_res_ref(
                 x, r, sc, bi, 1e-5)),
             library_ms=cuda_ms(torch, lambda: F.layer_norm(
-                x + r, (d,), sc, bi, 1e-5)),
-            bound_ms=b_ms, bound_by=b_by))
+                x + r, (d,), sc, bi, 1e-5))))
     out['fused_ln_residual'] = dict(tolerance=1e-4, cases=cases)
 
     # flash attention, causal, B 1, H 8, dh 64: online softmax vs the
@@ -300,10 +355,12 @@ def check_kernels(torch, F, kt):
                       [o_ref, l_ref])
         nbytes = 4 * H * T * dh * 4 + H * T * 4
         flops = 4 * H * dh * (T * (T + 1) // 2)   # causal half: QK^T + PV
-        b_ms, b_by = bound(nbytes, flops)
         q3, k3, v3 = (t.reshape(H, T, dh) for t in (q, k, v))
         cases.append(dict(
-            T=T, max_abs_err=err,
+            T=T, max_abs_err=err, **bound(nbytes, 0, flops),
+            deterministic=same_bits(
+                torch, lambda: attention_ops.flash_attention(
+                    q, k, v, causal=True, return_lse=True)),
             ms=cuda_ms(torch, lambda: attention_ops.flash_attention(
                 q, k, v, causal=True)),
             eager_ms=eager_ms(torch, lambda: attention_ops.flash_attention(
@@ -311,12 +368,12 @@ def check_kernels(torch, F, kt):
             plain_ms=cuda_ms(torch, lambda: attention_ops._attention_ref(
                 q3, k3, v3, dh ** -0.5, True)),
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True)),
-            bound_ms=b_ms, bound_by=b_by))
+                q, k, v, is_causal=True))))
     out['flash_attention'] = dict(tolerance=1e-4, cases=cases)
 
-    # FFN tail: two f32 GEMMs (K = 512 and 2048) in another summation
-    # order than cuBLAS, plus erfc -> 1e-4 absolute on y and pre1
+    # FFN tail: two f32 products (K = 512 and 2048) in another summation
+    # order than cuBLAS (3xTF32 on the tensor cores, or the skinny route's
+    # FMAs), plus erfc -> 1e-4 absolute on y and pre1
     w1, b1 = randn(d, d_ff, scale=0.02), randn(d_ff, scale=0.02)
     w2, b2 = randn(d_ff, d, scale=0.02), randn(d, scale=0.02)
     cases = []
@@ -326,20 +383,39 @@ def check_kernels(torch, F, kt):
         want = ffn_ops._ffn_ref(x, w1, b1, w2, b2)
         err = max_err(torch, got, want)
         nbytes = (n * d + d * d_ff + d_ff + d_ff * d + d + n * d) * 4
-        flops = 2 * n * d * d_ff * 2 + 8 * n * d_ff
-        b_ms, b_by = bound(nbytes, flops)
-        cases.append(dict(
-            n=n, max_abs_err=err,
+        case = dict(
+            n=n, route=ffn_ops._plan(n, d, d_ff, d)[0], max_abs_err=err,
+            **bound(nbytes, 8 * n * d_ff, 2 * n * d * d_ff * 2),
+            deterministic=same_bits(torch, lambda: ffn_ops.fused_ffn_core(
+                x, w1, b1, w2, b2, want_pre1=True)),
             ms=cuda_ms(torch, lambda: ffn_ops.fused_ffn_core(
                 x, w1, b1, w2, b2)),
             eager_ms=eager_ms(torch, lambda: ffn_ops.fused_ffn_core(
                 x, w1, b1, w2, b2)),
             plain_ms=cuda_ms(torch, lambda: ffn_ops._ffn_ref(
                 x, w1, b1, w2, b2)),
-            library_ms=cuda_ms(torch, lambda: F.gelu(x @ w1 + b1) @ w2 + b2),
-            bound_ms=b_ms, bound_by=b_by))
+            library_ms=cuda_ms(torch, lambda: F.gelu(x @ w1 + b1) @ w2 + b2))
+        if n == SLOTS:
+            # the decode step's bitwise contract: row 0 does not move when
+            # the other rows change
+            other = x.clone()
+            other[1:] = randn(n - 1, d)
+            a = ffn_ops.fused_ffn_core(x, w1, b1, w2, b2, want_pre1=True)
+            b = ffn_ops.fused_ffn_core(other, w1, b1, w2, b2, want_pre1=True)
+            case['row_independent'] = all(torch.equal(u[0], v[0])
+                                          for u, v in zip(a, b))
+            if not case['row_independent']:
+                raise AssertionError('fused_ffn: row 0 moved with the other '
+                                     'rows at M %d' % n)
+        cases.append(case)
     out['fused_ffn'] = dict(tolerance=1e-4, cases=cases)
+    ffn_routes(torch, ffn_ops, randn, w1, b1, w2, b2)
 
+    for res in out.values():
+        for c in res['cases']:
+            if c.get('deterministic') is False:
+                raise AssertionError('a kernel gave other bits on a second '
+                                     'call: %s' % c)
     for name, res in out.items():
         worst = max(c['max_abs_err'] for c in res['cases'])
         res['max_abs_err'] = max(worst, res.get('clamp_err', 0.0))
@@ -476,11 +552,14 @@ def run_engine(torch, kt):
     return summary, counts
 
 
-def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes):
+def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
+                        ffn_infer_rows=()):
     """Phases 5 and 11: the kernels a training step runs, but for flash
     attention, at one model's shapes: ``n_rows`` rows of ``cfg.d_model``,
     CE at each (rows, vocabulary) of ``ce_shapes``, Adam over the parameter
-    ``shapes``. Returns {kernel name: summary dict} as check_kernels does."""
+    ``shapes``, and the FFN also at each of ``ffn_infer_rows`` as inference
+    calls it (no mask, no pre1). Returns {kernel name: summary dict} as
+    check_kernels does."""
     from paddle_tpu_torch.ops import (ce_ops, embedding_ops, ffn_ops, nn_ops,
                                       optimizer_ops)
     dev = torch.device('cuda', 0)
@@ -490,12 +569,12 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    def timed(fn, plain, library, nbytes, flops, calls=5):
-        b_ms, b_by = bound(nbytes, flops)
+    def timed(fn, plain, library, nbytes, flops, calls=5, product_flops=0):
         return dict(ms=cuda_ms(torch, fn, calls=calls, replays=5),
                     eager_ms=eager_ms(torch, fn, iters=10, warmup=2),
                     plain_ms=cuda_ms(torch, plain, calls=calls, replays=5),
-                    library_ms=library(), bound_ms=b_ms, bound_by=b_by)
+                    library_ms=library(),
+                    **bound(nbytes, flops, product_flops))
 
     out = {}
     # the forward kernels of the decode path at the training step's row
@@ -530,17 +609,40 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes):
     w1, b1 = randn(D, d_ff, scale=0.02), randn(d_ff, scale=0.02)
     w2, b2 = randn(d_ff, D, scale=0.02), randn(D, scale=0.02)
     mask = (torch.rand((N, D), generator=g, device=dev) < 0.9).float() / 0.9
-    err = max_err(torch, ffn_ops._ffn_fwd(x, w1, b1, w2, b2, mask, True),
-                  ffn_ops._ffn_ref(x, w1, b1, w2, b2, mask))
-    out['fused_ffn'] = dict(tolerance=1e-4, cases=[dict(
-        n=N, d=D, d_ff=d_ff, max_abs_err=err, **timed(
-            lambda: ffn_ops._ffn_fwd(x, w1, b1, w2, b2, mask, True),
-            lambda: ffn_ops._ffn_ref(x, w1, b1, w2, b2, mask),
-            lambda: cuda_ms(torch, lambda: (F.gelu(x @ w1 + b1) @ w2 + b2)
-                            * mask),
-            (2 * N * D + D * d_ff + d_ff + d_ff * D + D + N * d_ff + N * D)
-            * 4, 4 * N * D * d_ff + 8 * N * d_ff))])
-    del w, x, r, w1, w2, mask
+    del w, r
+    cases = []
+    # the training step's call (mask and pre1), then the inference rows'
+    # (neither)
+    for n, m, want_pre1 in [(N, mask, True)] + [
+            (n, None, False) for n in ffn_infer_rows]:
+        x = randn(n, D)
+        got = ffn_ops._ffn_fwd(x, w1, b1, w2, b2, m, want_pre1)
+        ref = ffn_ops._ffn_ref(x, w1, b1, w2, b2, m)
+        err = max_err(torch, got[:1 + want_pre1], ref[:1 + want_pre1])
+        del got, ref
+
+        def lib(x=x, m=m):
+            y = F.gelu(x @ w1 + b1) @ w2 + b2
+            return y * m if m is not None else y
+
+        cases.append(dict(
+            n=n, d=D, d_ff=d_ff, masked=m is not None, pre1=want_pre1,
+            route=ffn_ops._plan(n, D, d_ff, D)[0], max_abs_err=err,
+            deterministic=same_bits(torch, lambda: ffn_ops._ffn_fwd(
+                x, w1, b1, w2, b2, m, want_pre1)), **timed(
+                lambda: ffn_ops._ffn_fwd(x, w1, b1, w2, b2, m, want_pre1),
+                lambda: ffn_ops._ffn_ref(x, w1, b1, w2, b2, m),
+                lambda: cuda_ms(torch, lib, calls=5, replays=5),
+                (2 * n * D + D * d_ff + d_ff + d_ff * D + D
+                 + want_pre1 * n * d_ff + (m is not None) * n * D) * 4,
+                8 * n * d_ff, product_flops=4 * n * D * d_ff)))
+        del x
+        if not cases[-1]['deterministic']:
+            raise AssertionError('fused_ffn gave other bits on a second '
+                                 'call at N %d' % n)
+    out['fused_ffn'] = dict(tolerance=1e-4, cases=cases)
+    del w1, w2, mask
+    torch.cuda.empty_cache()
 
     # CE: logits of an LM head's scale, labels in range but for some rows
     # that are ignored (-100) and two outside [0, V)
@@ -741,11 +843,11 @@ def check_flash_kernels(torch, F):
         del lib_out, leaves
 
         def case(fn, plain, library_ms, nbytes, flops, **errs):
-            b_ms, b_by = bound(nbytes, flops)
+            # every flop counted here is a matrix product's
             return dict(common, ms=cuda_ms(torch, fn, calls=10, replays=5),
                         eager_ms=eager_ms(torch, fn, iters=10, warmup=2),
                         plain_ms=cuda_ms(torch, plain, calls=5, replays=5),
-                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=library_ms, **bound(nbytes, 0, flops),
                         **errs)
 
         out[names[0]]['cases'].append(case(
@@ -754,7 +856,12 @@ def check_flash_kernels(torch, F):
             cuda_ms(torch, lambda: sdpa(q4, k4, v4), calls=10, replays=5),
             4 * mat + row + extra, 4 * dh * sh['pairs'],
             max_abs_err=max(float((o - o_ref).abs().max()),
-                            float((lse - lse_ref)[live].abs().max()))))
+                            float((lse - lse_ref)[live].abs().max())),
+            deterministic=same_bits(torch, lambda: A._flash_fwd(
+                q, k, v, *args))))
+        if not out[names[0]]['cases'][-1]['deterministic']:
+            raise AssertionError('the flash forward gave other bits on a '
+                                 'second call at the %s shape' % sh['shape'])
         out[names[1]]['cases'].append(case(
             lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args),
@@ -1077,7 +1184,7 @@ def main():
         torch, F, 'bert_kernel', bc, bert.param_shapes(bc).values(),
         BERT_TRAIN_B * bc.seq_len,
         [(BERT_TRAIN_B * bc.max_predictions, bc.vocab_size),
-         (BERT_TRAIN_B, 2)]))
+         (BERT_TRAIN_B, 2)], ffn_infer_rows=[BERT_INFER_B * bc.seq_len]))
     bert_summary, by_path['bert'] = run_bert(torch, kt)
     emit(bert_summary)
     del bert_summary
@@ -1121,6 +1228,8 @@ def main():
             max_abs_err=res['max_abs_err'],
             ms=case['ms'], plain_ms=case['plain_ms'],
             bound_ms=case['bound_ms'], bound_by=case['bound_by'],
+            **({'bound_simt_ms': case['bound_simt_ms']}
+               if 'bound_simt_ms' in case else {}),
             library_ms=case['library_ms'], eager_ms=case['eager_ms'],
             shape={key: case[key]},
             tolerance=res['tolerance'],

@@ -1,4 +1,4 @@
-// Flash attention forward (FlashAttention-2 style online softmax), f32:
+// Flash attention forward (FlashAttention-2 online softmax), f32 in and out:
 //   O[b, i, :] = sum_j softmax_j(scale · q_i·k_j  masked) · v_j
 //   LSE[b, i]  = m_i + log(l_i)
 // over q, k, v [BH, L, DH], with an optional causal mask (key j > query i is
@@ -13,245 +13,426 @@
 // `_fwd_kernel`), with and without `has_bias`. On the TPU the grid is
 // (bh, q_block, k_block) with the k axis sequential, and the running max m,
 // the denominator l and the accumulator carry across k blocks in VMEM
-// scratch.
+// scratch; here that axis is a loop inside the block.
 //
-// Bound on an H100: operations. At the prefill shapes (L up to 256, DH 64),
-// the training shape (BH 128, L 512) and BERT's (BH 1536, L 128)
-// the scores cost 4·DH flops per (query, visible key) pair against 16·DH
-// bytes per query row of q, k, v and o, so the f32 flops outweigh the bytes
-// (see chip_smoke.py's bound_ms). This first version runs on the f32 CUDA
-// cores; tensor cores (TF32 or bf16 wgmma) are later work.
+// Bound on an H100: operations. The scores and P·V cost 4·DH flops per
+// visible (query, key) pair against 16·DH bytes per query row of q, k, v and
+// o. Both products run on the tensor cores with the f32-accurate 3xTF32
+// split: a = big + small, big = a cut to tf32, small = a - big (split_tf32),
+// and a·b ~ small_a·big_b + big_a·small_b + big_a·big_b accumulated in f32,
+// an effective 165 TFLOP/s (495 / 3) against 67 for f32 on the CUDA cores;
+// one TF32 pass (10 mantissa bits) would miss the kernels' 1e-4 tolerance.
+// The products are `mma.sync.aligned.m16n8k8` with .tf32 operands. `wgmma`
+// with tf32 needs both operands K-major in shared memory; V (the B operand
+// of P·V) is N-major there, so `wgmma` waits for a later step.
 //
-// Design: one block of 256 threads per (bh, 64-row q tile). The TPU's
-// sequential k axis becomes a loop inside the block over 64-row k tiles, up
-// to the diagonal when causal (tiles wholly above it are never loaded). The
-// Q tile, the current K and V tiles and the 64x64 score tile sit in shared
-// memory (67 KB at DH 64, so the launch raises the dynamic shared-memory
-// limit); m, l and the rescale factor of each row, and the bias of the
-// current key tile, sit in shared memory too,
-// and each thread keeps a 4 x (DH/16) slice of the output accumulator in
-// registers. Q and K rows are padded by one float so that the threads of a
-// warp read distinct banks. Rows and keys past L (prompt buckets need not be
-// multiples of 64) load as zeros and are masked, so any L works.
+// Design: each warp owns 16 query rows; a block has 1, 2 or 4 warps (16, 32
+// or 64 query rows), the most that still gives BH·ceil(L/rows) >= 132
+// blocks, so the prefill's small grids (BH 8) fill the card. The Q
+// fragments are split once, and held in registers (DH <= 64) or in shared
+// memory in fragment order (DH 128, where registers run short). Key tiles
+// of 64 rows of K and V double-buffer through cp.async, the next tile
+// loading while this one computes; the key tile stays 64 whatever the query
+// tile, so a row's sequence of rescalings does not depend on that choice.
+// S = Q·K^T lands in registers in the accumulator layout (thread (g, t) of
+// a quad row holds rows g and g + 8, keys 2t and 2t + 1 of each 8-key
+// block); the online softmax runs there, a row's max and sum taken over the
+// four lanes that share it by shuffles, with no shared score tile and no
+// block-wide barrier between phases. For tf32 the m16n8k8 accumulator
+// layout is not the A-operand layout (A wants keys t and t + 4), so P is
+// moved into A fragments by shuffles within each quad. Each key tile's P·V
+// lands in a fresh fragment and joins O by rounded FMAs (O = alpha·O +
+// P·V): the tensor cores' f32 accumulation truncates, and one chain of it
+// over the whole key loop would bias O as L grows. Causal tiles wholly
+// above the diagonal are never loaded; rows and keys past L load as zeros
+// and are masked, so any L works. Each output has one owner and a fixed
+// summation order: two calls give the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
+constexpr int kBK = 64;  // keys per tile
 constexpr float kNegInf = -1e30f;
 constexpr float kBiasDrop = -1e8f;  // a key with bias <= this is dropped
+constexpr int kSms = 132;
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = big + small: big is x cut to tf32 (its low 13 mantissa bits cleared),
+// small = x - big exactly; the tensor cores read small's top 10 mantissa
+// bits. A masked AND and an FADD: cheaper on the card than two `cvt.rna`
+// conversions, and still within 2^-20 of x, where one tf32 pass keeps 2^-10
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a · b for one m16n8k8 tile (A row-major 16 x 8, B col-major 8 x 8)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[n] += a · b[n] for N tiles in 3xTF32, the small cross terms first, pass
+// by pass so that consecutive products are independent
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (*bb)[2],
+                                           const uint32_t (*bs)[2]) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], as, bb[n]);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], ab, bs[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[n], ab, bb[n]);
 }
 
-template <int DH>
-constexpr size_t smem_floats() {
-  return static_cast<size_t>(kBQ) * (DH + 1) + kBK * (DH + 1) + kBK * DH +
-         kBQ * (kBK + 1) + 3 * kBQ + kBK;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ bias,
-              float* __restrict__ o, float* __restrict__ lse, int L,
-              int n_heads, float scale, int causal) {
-  constexpr int QS = DH + 1;   // padded Q/K row stride
-  constexpr int SS = kBK + 1;  // padded score row stride
-  constexpr int CPT = DH / 16; // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * QS;
-  float* Vs = Ks + kBK * QS;
-  float* Ss = Vs + kBK * DH;
-  float* m_s = Ss + kBQ * SS;
-  float* l_s = m_s + kBQ;
-  float* a_s = l_s + kBQ;
-  float* b_s = a_s + kBQ;  // bias of the current key tile
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// row strides: K rows of DH + 4 floats and V rows of DH + 8 put the eight
+// rows of a B fragment's reads in distinct banks
+template <int DH, int NW>
+constexpr int smem_bytes() {
+  return (2 * kBK * ((DH + 4) + (DH + 8)) + 2 * kBK) * 4 +
+         (DH > 64 ? NW * (DH / 8) * 32 * 32 : 0);
+}
+
+template <int DH, int NW>
+__global__ void __launch_bounds__(NW * 32)
+    flash_fwd_tc(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 float* __restrict__ o, float* __restrict__ lse, int L,
+                 int n_heads, float scale, int causal) {
+  constexpr int kThreads = NW * 32;
+  constexpr int LDK = DH + 4, LDV = DH + 8;
+  constexpr int KS = DH / 8;       // k-steps of Q·K^T, n-tiles of P·V
+  constexpr bool kQRegs = DH <= 64;
+  constexpr int NG = KS < 4 ? KS : 4;  // output column blocks per mma group
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                      // [2][kBK][LDK]
+  float* Vs = Ks + 2 * kBK * LDK;        // [2][kBK][LDV]
+  float* Bs = Vs + 2 * kBK * LDV;        // [2][kBK] bias of the key tile
+  uint4* Qf = reinterpret_cast<uint4*>(Bs + 2 * kBK);  // DH 128 only
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;   // column group
-  const int ty = tid >> 4;   // rows ty*4 .. ty*4+3
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int q0 = blockIdx.x * kBQ;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * NW * 16;
   const int64_t off = static_cast<int64_t>(blockIdx.y) * L * DH;
   const float* qb = q + off;
   const float* kb = k + off;
   const float* vb = v + off;
   const float* brow =
       bias ? bias + static_cast<int64_t>(blockIdx.y / n_heads) * L : nullptr;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
 
-  for (int e = tid; e < kBQ * DH; e += kThreads) {
-    const int rr = e / DH, c = e % DH, g = q0 + rr;
-    Qs[rr * QS + c] = g < L ? qb[static_cast<int64_t>(g) * DH + c] : 0.f;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
-  const int last_row = min(q0 + kBQ, L) - 1;
+  const int last_row = min(q0 + NW * 16, L) - 1;
   const int nk = causal ? last_row / kBK + 1 : (L + kBK - 1) / kBK;
-  for (int j = 0; j < nk; ++j) {
+
+  auto load_tile = [&](int buf, int j) {
     const int k0 = j * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < kBK * DH; e += kThreads) {
-      const int rr = e / DH, c = e % DH, g = k0 + rr;
-      const bool in = g < L;
-      const int64_t gi = static_cast<int64_t>(g) * DH + c;
-      Ks[rr * QS + c] = in ? kb[gi] : 0.f;
-      Vs[rr * DH + c] = in ? vb[gi] : 0.f;
+    float* ks = Ks + buf * kBK * LDK;
+    float* vs = Vs + buf * kBK * LDV;
+    for (int c = tid; c < kBK * DH / 4; c += kThreads) {
+      const int r = c / (DH / 4), cc = (c % (DH / 4)) * 4;
+      const bool in = k0 + r < L;
+      const int64_t gi = static_cast<int64_t>(k0 + r) * DH + cc;
+      cp_async16(ks + r * LDK + cc, in ? kb + gi : kb, in);
+      cp_async16(vs + r * LDV + cc, in ? vb + gi : vb, in);
     }
-    if (tid < kBK) b_s[tid] = (brow && k0 + tid < L) ? brow[k0 + tid] : 0.f;
-    __syncthreads();
-
-    // scores for rows ty*4+i, keys tx+16*jj
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sc[i][jj] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * QS + d];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) kv[jj] = Ks[(tx + 16 * jj) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) sc[i][jj] += qv[i] * kv[jj];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rr = ty * 4 + i, gr = q0 + rr;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int cc = tx + 16 * jj, gc = k0 + cc;
-        const bool keep = gc < L && (!causal || gc <= gr);
-        Ss[rr * SS + cc] = keep ? sc[i][jj] * scale + b_s[cc] : kNegInf;
+    if (brow != nullptr)
+      for (int c = tid; c < kBK; c += kThreads) {
+        const bool in = k0 + c < L;
+        cp_async4(Bs + buf * kBK + c, in ? brow + k0 + c : brow, in);
       }
-    }
-    __syncthreads();
+  };
 
-    // online softmax: each warp owns 8 rows, each lane 2 keys of a row
-    for (int rr = warp * 8; rr < warp * 8 + 8; ++rr) {
-      const int gr = q0 + rr;
-      const int c0 = k0 + lane, c1 = k0 + lane + 32;
-      const bool ok0 =
-          c0 < L && (!causal || c0 <= gr) && b_s[lane] > kBiasDrop;
-      const bool ok1 =
-          c1 < L && (!causal || c1 <= gr) && b_s[lane + 32] > kBiasDrop;
-      const float s0 = Ss[rr * SS + lane];
-      const float s1 = Ss[rr * SS + lane + 32];
-      const float m_prev = m_s[rr];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      // a fully masked row slice has m_new == -1e30 and exp(0) == 1, and a
-      // row of dropped keys has m_new ~ -1e9 with exp(s - m_new) ~ 1: the
-      // select, not the exponential, is what makes such a key exactly 0
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      Ss[rr * SS + lane] = p0;
-      Ss[rr * SS + lane + 32] = p1;
-      const float psum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[rr] = alpha;
-        l_s[rr] = alpha * l_s[rr] + psum;
-        m_s[rr] = m_new;
-      }
-    }
-    __syncthreads();
+  load_tile(0, 0);
+  cp_async_commit();
 
-    // acc = acc * alpha + P @ V
+  // Q's A fragments for k-step s: a0 (row g, col 8s + t), a1 (row g + 8),
+  // a2 (col + 4), a3 (row g + 8, col + 4), split once
+  uint32_t qr[kQRegs ? KS : 1][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty * 4 + i];
+  for (int s = 0; s < KS; ++s) {
+    uint32_t f[8];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + (e & 1) * 8, c = 8 * s + t + (e >> 1) * 4;
+      const float val = r < L ? qb[static_cast<int64_t>(r) * DH + c] : 0.f;
+      split_tf32(val, f[e], f[4 + e]);
     }
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float vv[CPT];
+    if constexpr (kQRegs) {
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = Vs[kk * DH + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ss[(ty * 4 + i) * SS + kk];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] += p * vv[c];
-      }
+      for (int e = 0; e < 8; ++e) qr[s][e] = f[e];
+    } else {
+      uint4* dst = Qf + ((warp * KS + s) * 32 + lane) * 2;
+      dst[0] = make_uint4(f[0], f[1], f[2], f[3]);
+      dst[1] = make_uint4(f[4], f[5], f[6], f[7]);
     }
   }
 
+  float oacc[KS][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty * 4 + i, gr = q0 + rr;
-    if (gr >= L) continue;
-    const float l = fmaxf(l_s[rr], 1e-30f);
-    float* orow = o + off + static_cast<int64_t>(gr) * DH;
+  for (int n = 0; n < KS; ++n)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[i][c] / l;
-    if (tx == 0)
-      lse[static_cast<int64_t>(blockIdx.y) * L + gr] = m_s[rr] + logf(l);
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  for (int j = 0; j < nk; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < nk) {
+      load_tile(buf ^ 1, j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j is in for every thread
+    const float* ks = Ks + buf * kBK * LDK;
+    const float* vs = Vs + buf * kBK * LDV;
+    const float* bs = Bs + buf * kBK;
+    const int k0 = j * kBK;
+
+    // S = Q K^T: sacc[n] holds keys 8n + 2t, 8n + 2t + 1 of rows g, g + 8
+    float sacc[kBK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t ab[4], as[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ab[e] = qr[s][e];
+          as[e] = qr[s][4 + e];
+        }
+      } else {
+        const uint4* src = Qf + ((warp * KS + s) * 32 + lane) * 2;
+        const uint4 b4 = src[0], s4 = src[1];
+        ab[0] = b4.x; ab[1] = b4.y; ab[2] = b4.z; ab[3] = b4.w;
+        as[0] = s4.x; as[1] = s4.y; as[2] = s4.z; as[3] = s4.w;
+      }
+#pragma unroll
+      for (int n0 = 0; n0 < kBK / 8; n0 += 4) {
+        // B = K^T: b0 (k 8s + t, key 8n + g), b1 (k + 4); four key blocks
+        // at a time
+        uint32_t bb[4][2], bsm[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float* kp = ks + (8 * (n0 + n) + g) * LDK + 8 * s + t;
+          split_tf32(kp[0], bb[n][0], bsm[n][0]);
+          split_tf32(kp[4], bb[n][1], bsm[n][1]);
+        }
+        mma_3xtf32<4>(sacc + n0, ab, as, bb, bsm);
+      }
+    }
+
+    // scale, bias and mask; the tile's row max
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = 8 * n + 2 * t + (e & 1), key = k0 + kc;
+        const int row = row0 + (e >> 1) * 8;
+        const bool vis = key < L && (!causal || key <= row);
+        const float bv = brow ? bs[kc] : 0.f;
+        const float sv = vis ? sacc[n][e] * scale + bv : kNegInf;
+        sacc[n][e] = sv;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sv);
+      }
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m_r[h], quad_max(mx[h]));
+      alpha[h] = expf(m_r[h] - m_new);
+      m_r[h] = m_new;
+    }
+    // a fully masked row slice has m == -1e30 and exp(0) == 1, and a row of
+    // dropped keys has m ~ -1e9 with exp(s - m) ~ 1: the select, not the
+    // exponential, is what makes such a key exactly 0
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = 8 * n + 2 * t + (e & 1), key = k0 + kc;
+        const int row = row0 + (e >> 1) * 8;
+        const bool keep = key < L && (!causal || key <= row) &&
+                          (!brow || bs[kc] > kBiasDrop);
+        const float p = keep ? expf(sacc[n][e] - m_r[e >> 1]) : 0.f;
+        sacc[n][e] = p;
+        psum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_r[h] = alpha[h] * l_r[h] + quad_sum(psum[h]);
+    // this tile's P V in a fresh fragment, then O = alpha O + P V with
+    // rounded FMAs: the tensor cores' f32 accumulation truncates, and a
+    // chain of it over every key tile would bias O as L grows
+    float pv[KS][4];
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+
+    // O += P V over the tile's 8 key steps. P's A fragment for key step s
+    // wants keys 8s + t and 8s + t + 4; lane (g, t') holds keys 8s + 2t'
+    // and + 1, so key 8s + t lives in lane (g, t / 2), element t & 1
+    const int src_lo = (lane & ~3) | (t >> 1);
+    const int src_hi = src_lo + 2;
+    const bool odd = t & 1;
+#pragma unroll
+    for (int s = 0; s < kBK / 8; ++s) {
+      float pa[4];
+      {
+        const float x0 = __shfl_sync(0xffffffffu, sacc[s][0], src_lo);
+        const float x1 = __shfl_sync(0xffffffffu, sacc[s][1], src_lo);
+        const float y0 = __shfl_sync(0xffffffffu, sacc[s][2], src_lo);
+        const float y1 = __shfl_sync(0xffffffffu, sacc[s][3], src_lo);
+        const float z0 = __shfl_sync(0xffffffffu, sacc[s][0], src_hi);
+        const float z1 = __shfl_sync(0xffffffffu, sacc[s][1], src_hi);
+        const float w0 = __shfl_sync(0xffffffffu, sacc[s][2], src_hi);
+        const float w1 = __shfl_sync(0xffffffffu, sacc[s][3], src_hi);
+        pa[0] = odd ? x1 : x0;  // row g,     key 8s + t
+        pa[1] = odd ? y1 : y0;  // row g + 8, key 8s + t
+        pa[2] = odd ? z1 : z0;  // row g,     key 8s + t + 4
+        pa[3] = odd ? w1 : w0;  // row g + 8, key 8s + t + 4
+      }
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(pa[e], ab[e], as[e]);
+#pragma unroll
+      for (int n0 = 0; n0 < KS; n0 += NG) {
+        // B = V: b0 (key 8s + t, column 8n + g), b1 (key + 4)
+        uint32_t bb[NG][2], bsm[NG][2];
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          const float* vp = vs + (8 * s + t) * LDV + 8 * (n0 + n) + g;
+          split_tf32(vp[0], bb[n][0], bsm[n][0]);
+          split_tf32(vp[4 * LDV], bb[n][1], bsm[n][1]);
+        }
+        mma_3xtf32<NG>(pv + n0, ab, as, bb, bsm);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        oacc[n][e] = fmaf(oacc[n][e], alpha[e >> 1], pv[n][e]);
+    __syncthreads();  // every warp is done with this buffer before reuse
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + h * 8;
+    if (row >= L) continue;
+    const float l = fmaxf(l_r[h], 1e-30f);
+    float* orow = o + off + static_cast<int64_t>(row) * DH;
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+          make_float2(oacc[n][2 * h] / l, oacc[n][2 * h + 1] / l);
+    if (t == 0)
+      lse[static_cast<int64_t>(blockIdx.y) * L + row] = m_r[h] + logf(l);
   }
 }
 
-template <int DH>
+template <int DH, int NW>
 int launch(const float* q, const float* k, const float* v, const float* bias,
            float* o, float* lse, int64_t bh, int64_t L, int n_heads,
            float scale, int causal, cudaStream_t stream) {
-  const size_t bytes = smem_floats<DH>() * sizeof(float);
-  // once per head width (idempotent, so a racing second call is harmless);
-  // keeping it out of later launches lets them be captured in CUDA graphs
+  constexpr int bytes = smem_bytes<DH, NW>();
+  // once per instantiation (idempotent, so a racing second call is
+  // harmless); keeping it out of later launches lets them be captured in
+  // CUDA graphs
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        flash_fwd_tc<DH, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(static_cast<unsigned>((L + kBQ - 1) / kBQ),
+  const dim3 grid(static_cast<unsigned>((L + NW * 16 - 1) / (NW * 16)),
                   static_cast<unsigned>(bh));
-  flash_fwd<DH><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_tc<DH, NW><<<grid, NW * 32, bytes, stream>>>(
       q, k, v, bias, o, lse, static_cast<int>(L), n_heads, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH>
+int launch_rows(const float* q, const float* k, const float* v,
+                const float* bias, float* o, float* lse, int64_t bh,
+                int64_t L, int n_heads, float scale, int causal,
+                cudaStream_t s) {
+  // 64 query rows a block where that fills the card, else 32, else 16
+  if (bh * ((L + 63) / 64) >= kSms)
+    return launch<DH, 4>(q, k, v, bias, o, lse, bh, L, n_heads, scale,
+                         causal, s);
+  if (bh * ((L + 31) / 32) >= kSms)
+    return launch<DH, 2>(q, k, v, bias, o, lse, bh, L, n_heads, scale,
+                         causal, s);
+  return launch<DH, 1>(q, k, v, bias, o, lse, bh, L, n_heads, scale, causal,
+                       s);
+}
+
 }  // namespace
 
-// q, k, v, o [bh, L, dh] f32 and lse [bh, L] f32, all contiguous; dh in
-// {16, 32, 64, 128}; bias null or [bh / n_heads, L] f32. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a head
-// width the kernel does not take).
+// q, k, v, o [bh, L, dh] f32 and lse [bh, L] f32, all contiguous and q, k,
+// v 16-byte aligned; dh in {16, 32, 64, 128}; bias null or [bh / n_heads, L]
+// f32. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a head width the kernel does not take).
 extern "C" int ptt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   const void* bias, void* o, void* lse,
                                   int64_t bh, int64_t L, int64_t dh,
                                   int64_t n_heads, float scale, int causal,
                                   void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (n_heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_heads <= 0 || bh > 65535 || L > INT32_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+       15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
@@ -262,13 +443,17 @@ extern "C" int ptt_flash_attn_fwd(const void* q, const void* k, const void* v,
   const int nh = static_cast<int>(n_heads);
   switch (dh) {
     case 16:
-      return launch<16>(qp, kp, vp, bp, op, lp, bh, L, nh, scale, causal, s);
+      return launch_rows<16>(qp, kp, vp, bp, op, lp, bh, L, nh, scale,
+                             causal, s);
     case 32:
-      return launch<32>(qp, kp, vp, bp, op, lp, bh, L, nh, scale, causal, s);
+      return launch_rows<32>(qp, kp, vp, bp, op, lp, bh, L, nh, scale,
+                             causal, s);
     case 64:
-      return launch<64>(qp, kp, vp, bp, op, lp, bh, L, nh, scale, causal, s);
+      return launch_rows<64>(qp, kp, vp, bp, op, lp, bh, L, nh, scale,
+                             causal, s);
     case 128:
-      return launch<128>(qp, kp, vp, bp, op, lp, bh, L, nh, scale, causal, s);
+      return launch_rows<128>(qp, kp, vp, bp, op, lp, bh, L, nh, scale,
+                              causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

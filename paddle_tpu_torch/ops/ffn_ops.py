@@ -6,14 +6,20 @@ forward `_ffn_fwd_pallas` and its backward `_ffn_bwd`. GELU is the exact
 jax.nn.gelu(approximate=False) computes it. Weights keep the JAX layout
 [in, out].
 
-On CUDA tensors the forward makes two launches of ``csrc/ffn_gemm.cu``
-(bias + GELU epilogue writing pre1 on request, then bias + mask epilogue)
-and counts them as one call of the fused unit; on the CPU it runs
-:func:`_ffn_ref`. Where autograd records the call, :func:`fused_ffn_core`
-is an ``autograd.Function`` over that forward that saves (x, pre1, mask)
-and whose backward is `_ffn_bwd` in plain PyTorch (the mask on dy, GELU's
-factor recomputed from pre1, four matmuls): the JAX package computes it
-outside any Pallas kernel too.
+On CUDA tensors the forward runs ``csrc/ffn_gemm.cu`` by one of two
+routes, chosen by :func:`_plan` from the row count and the widths alone
+(never from the data), so a row's bits depend only on that row and on the
+row count of its call: the skinny route for at most ``_SKINNY_MAX_ROWS``
+rows (the decode step: each block owns a slice of d_ff, h stays on chip, a
+second launch sums the slices' partials in order), else the tile route
+(two 3xTF32 tensor-core GEMMs with fused epilogues: bias + GELU writing
+pre1 on request, then bias + mask; a deterministic split-K where the tiles
+alone would leave SMs idle). Either way it counts as one call of the fused
+unit. On the CPU it runs :func:`_ffn_ref`. Where autograd records the call,
+:func:`fused_ffn_core` is an ``autograd.Function`` over that forward that
+saves (x, pre1, mask) and whose backward is `_ffn_bwd` in plain PyTorch
+(the mask on dy, GELU's factor recomputed from pre1, four matmuls): the JAX
+package computes it outside any Pallas kernel too.
 """
 import ctypes
 import math
@@ -27,16 +33,66 @@ __all__ = ['fused_ffn_core']
 
 _SQRT_HALF = math.sqrt(0.5)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
-_fn = None
+# rows up to which the skinny route runs (its kernel takes at most 32): on
+# an H100 at d 512 / d_ff 2048 it beats the tile route at 8 rows (0.0110
+# against 0.0162 ms) and loses at 16 (0.0169 against 0.0163) and 32
+# (chip_smoke.py's ffn_routes lines)
+_SKINNY_MAX_ROWS = 8
+_SKINNY_SLICE = 16            # d_ff columns per skinny block
+_SMEM_LIMIT = 232448          # dynamic shared memory of one block (sm_90)
+_FILL = 128                   # blocks that fill an H100's 132 SMs
+_BK = 32                      # the tile GEMM's K step
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(which):
+    fn = _fns.get(which)
+    if fn is None:
         P, I = ctypes.c_void_p, ctypes.c_int64
-        _fn = native.function('ffn_gemm', 'ptt_ffn_gemm',
-                              [P, P, P, P, P, P, I, I, I, ctypes.c_int, P])
-    return _fn
+        if which == 'gemm':
+            fn = native.function('ffn_gemm', 'ptt_ffn_gemm',
+                                 [P] * 7 + [I, I, I, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int, I, P])
+        else:
+            fn = native.function('ffn_gemm', 'ptt_ffn_skinny',
+                                 [P] * 9 + [I, I, I, I, P])
+        _fns[which] = fn
+    return fn
+
+
+def _skinny_smem(rows, d_in, d_out):
+    """Shared-memory bytes of a skinny block (its kernel's layout: x, the
+    W2 slice, the per-warp sums and h, at the row count rounded up to 8,
+    16 or 32)."""
+    mb = 8 if rows <= 8 else 16 if rows <= 16 else 32
+    r4 = lambda n: (n + 3) // 4 * 4
+    return (mb * r4(d_in) + _SKINNY_SLICE * r4(d_out)
+            + 9 * mb * _SKINNY_SLICE) * 4
+
+
+def _gemm_plan(m, n, k):
+    """(tile, splits, kchunk) of one tile-route GEMM [m, k] @ [k, n]:
+    64 x 128 tiles (tile 1) where they give at least _FILL blocks, else
+    64 x 64 tiles (tile 0), split along K into chunks (multiples of 32,
+    at least 128 deep) where even those give fewer."""
+    blocks = -(-m // 64) * -(-n // 128)
+    if blocks >= _FILL:
+        return 1, 1, -(-k // _BK) * _BK
+    blocks = -(-m // 64) * -(-n // 64)
+    splits = max(1, min(-(-_FILL // blocks), k // (4 * _BK)))
+    chunk = -(-(-(-k // splits)) // _BK) * _BK
+    return 0, -(-k // chunk), chunk
+
+
+def _plan(rows, d_in, d_ff, d_out):
+    """How the kernels run ``rows`` rows: ('skinny', slices) or ('tile',
+    GEMM 1's plan, GEMM 2's plan). A function of the shapes alone, so every
+    call with the same row count takes the same route."""
+    if rows <= _SKINNY_MAX_ROWS and \
+            _skinny_smem(rows, d_in, d_out) <= _SMEM_LIMIT:
+        return ('skinny', -(-d_ff // _SKINNY_SLICE))
+    return ('tile', _gemm_plan(rows, d_ff, d_in), _gemm_plan(rows, d_out,
+                                                             d_ff))
 
 
 def _gelu(x):
@@ -69,20 +125,36 @@ def _ffn_fwd(x, w1, b1, w2, b2, mask=None, want_pre1=False):
     kernel_tier.require(b2, 'b2', (d_out,), device=dev)
     if mask is not None:
         kernel_tier.require(mask, 'mask', (n, d_out), device=dev)
-    if (n + 63) // 64 > 65535:
-        raise ValueError('fused_ffn_core: at most 65535*64 rows per call')
-    fn = _kernel()
+    plan = _plan(n, d_in, d_ff, d_out)
     stream = kernel_tier.stream_ptr(x)
-    h = torch.empty((n, d_ff), dtype=torch.float32, device=dev)
-    pre1 = torch.empty_like(h) if want_pre1 else None
-    rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), None, h.data_ptr(),
-            kernel_tier.ptr(pre1), n, d_ff, d_in, 1, stream)
-    native.check(rc, 'fused_ffn (gemm 1)')
+    pre1 = torch.empty((n, d_ff), dtype=torch.float32, device=dev) \
+        if want_pre1 else None
     y = torch.empty((n, d_out), dtype=torch.float32, device=dev)
-    rc = fn(h.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            kernel_tier.ptr(mask), y.data_ptr(), None, n, d_out, d_ff, 0,
+    if plan[0] == 'skinny':
+        ws = torch.empty((plan[1], n, d_out), dtype=torch.float32,
+                         device=dev)
+        rc = _kernel('skinny')(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), kernel_tier.ptr(mask), y.data_ptr(),
+            kernel_tier.ptr(pre1), ws.data_ptr(), n, d_in, d_ff, d_out,
             stream)
-    native.check(rc, 'fused_ffn (gemm 2)')
+        native.check(rc, 'fused_ffn (skinny)')
+    else:
+        fn = _kernel('gemm')
+        (t1, s1, c1), (t2, s2, c2) = plan[1], plan[2]
+        h = torch.empty((n, d_ff), dtype=torch.float32, device=dev)
+        # one workspace for whichever GEMM splits K: [splits, n, width]
+        ws = torch.empty((max(s1 * d_ff if s1 > 1 else 0,
+                              s2 * d_out if s2 > 1 else 0) * n,),
+                         dtype=torch.float32, device=dev)
+        rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
+                h.data_ptr(), kernel_tier.ptr(pre1), ws.data_ptr(), n, d_ff,
+                d_in, 1, t1, s1, c1, stream)
+        native.check(rc, 'fused_ffn (gemm 1)')
+        rc = fn(h.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                kernel_tier.ptr(mask), y.data_ptr(), None, ws.data_ptr(), n,
+                d_out, d_ff, 0, t2, s2, c2, stream)
+        native.check(rc, 'fused_ffn (gemm 2)')
     kernel_tier.count('fused_ffn')
     return y, pre1
 

@@ -181,20 +181,88 @@ def test_flash_attention_kernel_rejects_bias_and_odd_head_width(dev):
         attention_ops.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize('n,d,f,with_mask', [(1, 64, 128, False),
-                                             (70, 100, 200, True),
-                                             (8, 512, 2048, False),
-                                             (300, 768, 3072, True)])
-def test_fused_ffn_kernel(dev, n, d, f, with_mask):
+def _ffn_operands(dev, n, d, f, with_mask=False):
     x = _randn(dev, n, d)
     w1, b1 = _randn(dev, d, f, scale=0.05, seed=1), _randn(dev, f, seed=2)
     w2, b2 = _randn(dev, f, d, scale=0.05, seed=3), _randn(dev, d, seed=4)
     mask = (_randn(dev, n, d, seed=5) > 0).float() if with_mask else None
-    y, pre1 = ffn_ops.fused_ffn_core(x, w1, b1, w2, b2, mask,
-                                     want_pre1=True)
-    y_ref, pre1_ref = ffn_ops._ffn_ref(x, w1, b1, w2, b2, mask)
+    return x, w1, b1, w2, b2, mask
+
+
+# row counts on both sides of the skinny route's limit (8) and of its
+# kernel's 32-row ceiling, with and without a split K; widths that are not
+# multiples of 4 (the 4-byte copies)
+@pytest.mark.parametrize('n,d,f,with_mask', [
+    (1, 64, 128, False), (70, 100, 200, True), (8, 512, 2048, False),
+    (300, 768, 3072, True), (16, 512, 2048, True), (32, 512, 2048, True),
+    (33, 512, 2048, True), (64, 512, 2048, True), (3, 30, 50, True),
+    (37, 30, 50, True), (300, 30, 50, True)])
+def test_fused_ffn_kernel(dev, n, d, f, with_mask):
+    args = _ffn_operands(dev, n, d, f, with_mask)
+    y, pre1 = ffn_ops.fused_ffn_core(*args, want_pre1=True)
+    y_ref, pre1_ref = ffn_ops._ffn_ref(*args)
     torch.cuda.synchronize()
     assert _err(y, y_ref) <= 1e-4 and _err(pre1, pre1_ref) <= 1e-4
+
+
+@pytest.mark.parametrize('n', [17, 32])
+def test_fused_ffn_skinny_kernel_takes_32_rows(dev, monkeypatch, n):
+    """The skinny kernel's 32-row form, which the route's limit of 16 leaves
+    to measurements: with the limit raised it is right too."""
+    monkeypatch.setattr(ffn_ops, '_SKINNY_MAX_ROWS', 32)
+    args = _ffn_operands(dev, n, 512, 2048, with_mask=True)
+    assert ffn_ops._plan(n, 512, 2048, 512)[0] == 'skinny'
+    y, pre1 = ffn_ops.fused_ffn_core(*args, want_pre1=True)
+    y_ref, pre1_ref = ffn_ops._ffn_ref(*args)
+    torch.cuda.synchronize()
+    assert _err(y, y_ref) <= 1e-4 and _err(pre1, pre1_ref) <= 1e-4
+
+
+@pytest.mark.parametrize('n', [8, 128, 4096])
+def test_fused_ffn_kernel_is_deterministic_and_row_independent(dev, n):
+    """Two calls give the same bits on every route (skinny, split K, plain
+    tiles), and row 0's output does not move when the other rows change."""
+    x, w1, b1, w2, b2, _ = _ffn_operands(dev, n, 512, 2048)
+    first = ffn_ops.fused_ffn_core(x, w1, b1, w2, b2, want_pre1=True)
+    second = ffn_ops.fused_ffn_core(x, w1, b1, w2, b2, want_pre1=True)
+    other = x.clone()
+    other[1:] = _randn(dev, n - 1, 512, seed=9)
+    moved = ffn_ops.fused_ffn_core(other, w1, b1, w2, b2, want_pre1=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for a, b in zip(first, moved):
+        assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize('L', [1, 37, 256])
+def test_flash_attention_kernel_dh128_with_bias(dev, L):
+    B, H, dh = 2, 3, 128
+    q, k, v = (_randn(dev, B * H, L, dh, seed=s) for s in range(3))
+    bias = _padding_bias(dev, B, L, False)
+    for causal in (False, True):
+        o, lse = attention_ops._flash_fwd(q, k, v, dh ** -0.5, causal, bias,
+                                          H)
+        o_ref, lse_ref = attention_ops._attention_ref(q, k, v, dh ** -0.5,
+                                                      causal, bias, H)
+        torch.cuda.synchronize()
+        assert _err(o, o_ref) <= 1e-4 and _err(lse, lse_ref) <= 1e-4
+
+
+@pytest.mark.parametrize('bh,L', [(8, 256), (40, 100), (256, 128)],
+                         ids=['16-row-tiles', '32-row-tiles', '64-row-tiles'])
+def test_flash_attention_kernel_is_deterministic(dev, bh, L):
+    """Two calls give the same bits whatever query tile the grid picks."""
+    q, k, v = (_randn(dev, bh, L, 64, seed=s) for s in range(3))
+    bias = _padding_bias(dev, bh // 4, L, True)
+    for b in (None, bias):
+        first = attention_ops._flash_fwd(q, k, v, 0.125, b is None, b, 4)
+        second = attention_ops._flash_fwd(q, k, v, 0.125, b is None, b, 4)
+        want = attention_ops._attention_ref(q, k, v, 0.125, b is None, b, 4)
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+        assert _err(first[0], want[0]) <= 1e-4
 
 
 @pytest.mark.parametrize('n,V', [(1, 32000), (37, 1001), (300, 4096),
@@ -267,7 +335,7 @@ def test_fused_adam_kernel(dev, sizes):
             assert torch.equal(a, b)
 
 
-def test_flash_training_on_the_card_raises_naming_slice_3(dev):
+def test_flash_training_on_the_card_matches_unfused(dev):
     """Flash-on training (attention dropout 0) on the card runs the three
     flash kernels, once a layer each, and matches the unfused branch."""
     from paddle_tpu_torch.optimizer import Adam
