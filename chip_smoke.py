@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
 1. device  — the card's name, plus ``nvidia-smi --query-gpu=name,power.limit
    --format=csv,noheader`` printed as it comes (a line of its own).
 2. build   — nvcc builds every CUDA kernel of the port from csrc/ (all
-   sources in parallel), with its seconds.
+   sources in parallel), with its seconds and, from ``-Xptxas -v``, each
+   kernel's registers and spilled bytes (``ptxas``).
 3. kernel  — each kernel's wrapper on the card at the shapes the decode
    engine gives it, held against its plain PyTorch version on the same
    inputs (max abs error within a stated tolerance). ``ms``, ``plain_ms``
@@ -56,12 +57,13 @@ Phases, each printing one JSON line:
    bias from key lengths drawn in 32..128 and one batch element wholly
    padded, for which O, dQ, dK and dV must be exactly 0. O and LSE within
    1e-4 absolute (LSE on the rows that keep a key); each gradient within
-   1e-4 of that tensor's largest magnitude. ``library_ms`` is
-   ``F.scaled_dot_product_attention`` and its backward through autograd
-   (one call that yields dQ, dK and dV together; timed by CUDA events
-   around eager calls), timed only. ``bound_ms`` counts the visible (query,
-   key) pairs of this run's mask: 4 dh flops a pair forward, 6 dh for dQ,
-   8 dh for dK/dV.
+   1e-4 of that tensor's largest magnitude; two calls of each kernel give
+   the same bits. ``library_ms`` is ``F.scaled_dot_product_attention`` and
+   its backward through autograd (one call that yields dQ, dK and dV
+   together), timed only: the backward's device time from CUDA-graph
+   replays like the kernels', and ``library_eager_ms`` its eager rate.
+   ``bound_ms`` counts the visible (query, key) pairs of this run's mask:
+   4 dh flops a pair forward, 6 dh for dQ, 8 dh for dK/dV.
 9. flash_train_vs_cpu — phase 6 with flash attention on: the card against
    the CPU, and on the card flash against the unfused branch of phase 6,
    same limits.
@@ -106,6 +108,7 @@ non-zero at once.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -209,6 +212,12 @@ def cuda_ms(torch, fn, calls=20, replays=10):
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    return replay_ms(torch, graph, calls, replays)
+
+
+def replay_ms(torch, graph, calls, replays):
+    """Device milliseconds per call of a CUDA graph of ``calls`` calls:
+    one replay to warm up, then ``replays`` replays between CUDA events."""
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -219,6 +228,33 @@ def cuda_ms(torch, fn, calls=20, replays=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def backward_ms(torch, fwd, inputs, grad, calls=10, replays=5):
+    """Device milliseconds of one backward of ``fwd``: autograd.grad of its
+    output at leaf copies of ``inputs`` with ``grad``, captured as
+    torch.cuda.make_graphed_callables captures it (warm-up, the forward
+    captured in one CUDA graph and replayed once so that what the backward
+    saved holds values, ``calls`` backward calls captured in a second graph
+    on the same memory pool, whose replays are timed). Everything runs on
+    one side stream, the leaves made there too: autograd runs a leaf's
+    gradient on the stream that made it, and a wait on another stream
+    would break the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        for _ in range(3):
+            torch.autograd.grad(fwd(*leaves), leaves, grad)
+    side.synchronize()
+    fwd_graph, bwd_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd_graph, stream=side):
+        out = fwd(*leaves)
+    with torch.cuda.graph(bwd_graph, pool=fwd_graph.pool(), stream=side):
+        for _ in range(calls):
+            torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    fwd_graph.replay()
+    return replay_ms(torch, bwd_graph, calls, replays)
 
 
 def step_profile(torch, fn, steps=10):
@@ -249,6 +285,50 @@ def step_profile(torch, fn, steps=10):
         top=[dict(name=e.key[:60], count=e.count,
                   ms_per_step=e.self_device_time_total / 1e3 / steps)
              for e in top])
+
+
+def ptxas_report(log):
+    """{source: {kernel: [registers, spill store bytes, spill load bytes]}}
+    from nvcc's ``-Xptxas -v`` output; a kernel is named by its template
+    arguments as the mangled name gives them (flash_bwd_dq<64, 4>)."""
+    out = {}
+    for source, text in log.items():
+        kernels, name = {}, None
+        for ln in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name = demangle(m.group(1))
+                kernels[name] = [None, None, None]
+                continue
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                          ln)
+            if m and name:
+                kernels[name][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r'Used (\d+) registers', ln)
+            if m and name:
+                kernels[name][0] = int(m.group(1))
+        out[source] = kernels
+    return out
+
+
+def demangle(mangled):
+    """name<args> of a kernel from its mangled name: the last of its
+    length-prefixed name components (after any namespace) and its integer
+    or bool template arguments; ``mangled`` itself when it does not
+    parse."""
+    pos, name = (3 if mangled.startswith('_ZN') else 2), None
+    while True:
+        m = re.compile(r'\d+').match(mangled, pos)
+        if not m:
+            break
+        pos = m.end() + int(m.group())
+        name = mangled[m.end():pos]
+    if not name:
+        return mangled
+    args = re.compile(r'I((?:L\w\d+E)+)E').match(mangled, pos)
+    if args:
+        name += '<%s>' % ', '.join(re.findall(r'L\w(\d+)E', args.group(1)))
+    return name
 
 
 def max_err(torch, got, want):
@@ -836,32 +916,34 @@ def check_flash_kernels(torch, F):
             return F.scaled_dot_product_attention(a, b, c, attn_mask=mask4,
                                                   is_causal=causal)
 
+        # SDPA's backward (dQ, dK and dV in one call): device time from CUDA
+        # graph replays, like the kernels', and the eager rate beside it
         leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
         lib_out = sdpa(*leaves)
-        lib_bwd = eager_ms(torch, lambda: torch.autograd.grad(
-            lib_out, leaves, do4, retain_graph=True), iters=20, warmup=3)
+        lib_bwd = dict(
+            library_ms=backward_ms(torch, sdpa, (q4, k4, v4), do4),
+            library_eager_ms=eager_ms(torch, lambda: torch.autograd.grad(
+                lib_out, leaves, do4, retain_graph=True), iters=20, warmup=3),
+            library_covers='dQ, dK and dV in one call')
         del lib_out, leaves
 
-        def case(fn, plain, library_ms, nbytes, flops, **errs):
+        def case(fn, plain, library, nbytes, flops, **errs):
             # every flop counted here is a matrix product's
             return dict(common, ms=cuda_ms(torch, fn, calls=10, replays=5),
                         eager_ms=eager_ms(torch, fn, iters=10, warmup=2),
                         plain_ms=cuda_ms(torch, plain, calls=5, replays=5),
-                        library_ms=library_ms, **bound(nbytes, 0, flops),
-                        **errs)
+                        **library, **bound(nbytes, 0, flops), **errs)
 
         out[names[0]]['cases'].append(case(
             lambda: A._flash_fwd(q, k, v, *args),
             lambda: A._attention_ref(q, k, v, *args),
-            cuda_ms(torch, lambda: sdpa(q4, k4, v4), calls=10, replays=5),
+            dict(library_ms=cuda_ms(torch, lambda: sdpa(q4, k4, v4), calls=10,
+                                    replays=5)),
             4 * mat + row + extra, 4 * dh * sh['pairs'],
             max_abs_err=max(float((o - o_ref).abs().max()),
                             float((lse - lse_ref)[live].abs().max())),
             deterministic=same_bits(torch, lambda: A._flash_fwd(
                 q, k, v, *args))))
-        if not out[names[0]]['cases'][-1]['deterministic']:
-            raise AssertionError('the flash forward gave other bits on a '
-                                 'second call at the %s shape' % sh['shape'])
         out[names[1]]['cases'].append(case(
             lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args),
@@ -869,7 +951,8 @@ def check_flash_kernels(torch, F):
             max_abs_err=float((dq - dq_ref).abs().max()),
             max_rel_err=rel(dq, dq_ref),
             largest_magnitude=dict(dq=float(dq_ref.abs().max())),
-            library_covers='dQ, dK and dV in one call'))
+            deterministic=same_bits(torch, lambda: A._flash_bwd_dq(
+                q, k, v, do, lse, delta, *args))))
         out[names[2]]['cases'].append(case(
             lambda: A._flash_bwd_dkv(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dkv_ref(q, k, v, do, lse, delta, *args),
@@ -879,7 +962,12 @@ def check_flash_kernels(torch, F):
             max_rel_err=max(rel(dk, dk_ref), rel(dv, dv_ref)),
             largest_magnitude=dict(dk=float(dk_ref.abs().max()),
                                    dv=float(dv_ref.abs().max())),
-            library_covers='dQ, dK and dV in one call'))
+            deterministic=same_bits(torch, lambda: A._flash_bwd_dkv(
+                q, k, v, do, lse, delta, *args))))
+        for name in names:
+            if not out[name]['cases'][-1]['deterministic']:
+                raise AssertionError('%s gave other bits on a second call at '
+                                     'the %s shape' % (name, sh['shape']))
         del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref
         del dv_ref, q4, k4, v4, do4
     finish_kernel_checks('flash_kernel', out)
@@ -1119,7 +1207,8 @@ def main():
     t0 = time.perf_counter()
     built = native.build()
     emit(dict(phase='build', seconds=time.perf_counter() - t0,
-              built=built['built'], nvcc=native.nvcc_path()))
+              built=built['built'], nvcc=native.nvcc_path(),
+              ptxas=ptxas_report(built['log'])))
 
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.models.transformer import LMConfig, param_shapes

@@ -1,7 +1,8 @@
 // Flash attention backward (the FlashAttention-2 split), f32: two kernels
 // over q, k, v, dO [BH, L, DH], the forward's LSE [BH, L] and
 // delta = rowsum(dO * O) [BH, L]. Both recompute, per (q tile, k tile),
-//   P  = exp(scale · Q K^T + bias - LSE)     (0 where masked or dropped)
+//   S  = scale · Q K^T + bias
+//   P  = exp(S - LSE)           (0 where masked or dropped)
 //   dP = dO V^T
 //   dS = P · (dP - delta) · scale
 // and then
@@ -14,206 +15,338 @@
 // LSE is about -1e9 + log(1e-30) and exp(s - LSE) would be ~e^69.
 //
 // Replaces paddle_tpu/ops/attention_ops.py `_flash_bwd_pallas`: its first
-// pallas_call (body `_bwd_dq_kernel`) and its second (body
-// `_bwd_dkv_kernel`), with and without `has_bias`. On the TPU each is a
-// grid (bh, outer tile, inner tile) whose inner axis is sequential, the
-// accumulator carried across it in VMEM scratch.
+// pallas_call (body `_bwd_dq_kernel`, :184) and its second (body
+// `_bwd_dkv_kernel`, :232), with and without `has_bias`. On the TPU each is
+// a grid (bh, outer tile, inner tile) whose inner axis is sequential, the
+// accumulator carried across it in VMEM scratch; here that axis is a loop
+// inside the block.
 //
-// Bound on an H100: operations. dQ does three products per (query, key)
-// pair (6·DH flops), dK/dV four (8·DH), against 4 bytes per element of six
-// [BH, L, DH] operands: at L 128..512 and DH 64 the f32 flops outweigh the
-// bytes several times. This first version runs on the f32 CUDA cores;
-// tensor cores are later work.
+// Bound on an H100: operations. dQ does three products per visible (query,
+// key) pair (6·DH flops), dK/dV four (8·DH), against 4 bytes per element of
+// six [BH, L, DH] operands. Every product runs on the tensor cores in the
+// f32-accurate 3xTF32 split of tf32_mma.cuh (an effective 165 TFLOP/s, 495
+// / 3, against 67 for f32 on the CUDA cores), as `mma.sync.m16n8k8` with
+// .tf32 operands: the forward's tile. `wgmma` with tf32 wants both operands
+// K-major in shared memory, and dS·K, P^T·dO and dS^T·Q read K, dO and Q
+// N-major.
 //
-// Design: the TPU's two-kernel split is kept, so every output element is
-// summed by exactly one block in a fixed order: no atomics, and the result
-// is the same from run to run. A CUDA grid has no order, so the sequential
-// grid axis becomes a loop inside the block. dQ: one block of 256 threads
-// per (bh, 64-row q tile) keeps Q, dO, LSE and delta resident and streams
-// 64-row K, V tiles up to the diagonal. dK/dV: one block per (bh, 64-row k
-// tile) keeps K, V and the tile's bias resident and streams Q, dO, LSE and
-// delta tiles from the diagonal down. Each thread computes a 4 x 4 patch of
-// S and dP in one sweep over DH (rows padded by one float, so the lanes of a
-// warp read distinct banks), writes P and dS to shared memory, and then owns
-// a 4 x (DH/16) slice of each accumulator in registers. Shared memory: 84 KB
-// (dQ) and 100 KB (dK/dV) at DH 64, 149 KB and 165 KB at DH 128, so the
-// launches raise the dynamic shared-memory limit. Rows and keys past L load
-// as zeros and are masked, so any L works.
+// Design. The TPU's two-kernel split is kept, so every output element is
+// summed by exactly one warp in a fixed order: no atomics, and two calls
+// give the same bits.
+// - dQ: each warp owns 16 query rows (a block has 1, 2 or 4 warps, the most
+//   that still gives >= 132 blocks). Per key tile it computes S = Q K^T and
+//   dP = dO V^T into accumulator fragments (thread (g, t) of a quad row
+//   holds rows g and g + 8, keys 2t and 2t + 1 of each 8-key block), forms
+//   P and dS there with the row's LSE and delta in registers, moves dS into
+//   A fragments by shuffles within each quad (the forward's move of P), and
+//   adds dS K with K read N-major.
+// - dK/dV: each warp owns 16 keys and works in the transposed form: S^T =
+//   K Q^T and dP^T = V dO^T, P^T and dS^T formed with LSE and delta indexed
+//   by column (the query, from the tile's shared copy) and the two keys'
+//   bias held in registers; then dV += P^T dO and dK += dS^T Q with dO and Q
+//   read N-major. Nothing goes through shared memory between the products,
+//   and no barrier separates them.
+// - The streamed operand (K, V and the bias for dQ; Q, dO, LSE and delta for
+//   dK/dV) comes in tiles, double-buffered through cp.async so that the
+//   next tile loads while this one computes; causal tiles wholly above the
+//   diagonal are never loaded. dQ streams 32 keys a tile, dK/dV 64 queries
+//   (32 at DH 128): at DH 64 dQ's smaller tile holds it to about 170
+//   registers and 70 KB, three blocks an SM, and made it faster on an H100;
+//   dK/dV, at about 240 registers, gets two blocks an SM either way, and
+//   the smaller tile made it slower at BERT's shape.
+// - Registers are what limits a warp: split fragments of its two 16-row
+//   operands would take 128 at DH 64 on top of the 128-192 that the
+//   accumulators and the S and dP tiles need. So those operands stay in
+//   shared memory as f32 and are split as each k-step reads them: four
+//   32-bit loads and eight integer and float operations a k-step, against
+//   two 16-byte loads for a pre-split copy (twice the shared-memory traffic
+//   and space).
+// - Instructions, not the tensor cores, are what limits the kernels: the
+//   mma instructions are a small share of a tile's instructions, most of
+//   the rest being the operands' split, their loads and their addresses.
+//   Two choices follow.
+//   Tile rows are padded to DH + 4 floats: a row-wise read (the B operand
+//   of Q K^T, lanes on 8 rows and 4 columns) hits 32 distinct banks and a
+//   column-wise read (the N-major B operand of dS K, lanes on 4 rows and 8
+//   columns) conflicts two ways, but every address is a base plus a
+//   constant; a swizzle that freed both reads cost more time on an H100 in
+//   address arithmetic than the conflicts do. And P is
+//   exp(S - LSE) by `__expf` (ex2.approx), whose error, under 2e-6 of P
+//   for the arguments that matter, is far inside the tolerance.
+// - The tensor cores' f32 accumulation truncates, so each tile's product
+//   lands in a fresh fragment that joins the running sum by a rounded FADD;
+//   one chain over every tile would bias dQ, dK and dV as L grows. The
+//   fresh fragment spans at most 64 columns (two passes at DH 128).
+// Rows and keys past L load as zeros and are masked, so any L works.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
+using namespace ptt;
+
 constexpr float kBiasDrop = -1e8f;  // a key with bias <= this is dropped
+constexpr int kSms = 132;
 
-// rows [r0, r0 + 64) of a [L, DH] matrix into a padded shared tile, zeros
-// past L
+// rows of a streamed tile: keys for dQ, queries for dK/dV
+constexpr int kKeyTile = 32;
 template <int DH>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
-                                          int L, int tid) {
-  constexpr int RS = DH + 1;
-  for (int e = tid; e < 64 * DH; e += kThreads) {
-    const int rr = e / DH, c = e % DH, g = r0 + rr;
-    dst[rr * RS + c] = g < L ? src[static_cast<int64_t>(g) * DH + c] : 0.f;
+constexpr int kQueryTile = DH > 64 ? 32 : 64;
+
+// row stride of a tile in shared memory: lanes (g, t) reading (row 8n + g,
+// column 8s + t) hit 32 distinct banks
+template <int DH>
+constexpr int kLD = DH + 4;
+
+// rows [r0, r0 + ROWS) of a [L, DH] matrix into a tile of padded rows,
+// zeros past L
+template <int DH, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int L, int tid) {
+  for (int c = tid; c < ROWS * DH / 4; c += THREADS) {
+    const int r = c / (DH / 4), cc = (c % (DH / 4)) * 4;
+    const bool in = r0 + r < L;
+    cp_async16(dst + r * kLD<DH> + cc,
+               in ? src + static_cast<int64_t>(r0 + r) * DH + cc : src, in);
   }
 }
 
-// The thread's 4 x 4 patch (q rows ty*4+i, keys tx+16*jj) of P and dS for
-// one (q tile, k tile) pair, from tiles in shared memory.
-template <int DH>
-__device__ __forceinline__ void p_and_ds(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* lse_s, const float* delta_s, const float* b_s, int q0, int k0,
-    int L, float scale, int causal, int tx, int ty, float p[4][4],
-    float ds[4][4]) {
-  constexpr int RS = DH + 1;
-  float s[4][4], dp[4][4];
+// n values [r0, r0 + n) of a length-L vector, zeros past L
+template <int THREADS>
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int r0,
+                                         int n, int L, int tid) {
+  for (int c = tid; c < n; c += THREADS) {
+    const bool in = r0 + c < L;
+    cp_async4(dst + c, in ? src + r0 + c : src, in);
+  }
+}
+
+// acc[n] += X T^T over DH, for the warp's 16 rows of X (rows xr.. of a
+// [.][kLD] tile) and NT 8-row blocks of T: X's A fragment for
+// k-step s (rows g, g + 8; columns 8s + t, 8s + t + 4) is split as it is
+// read, T's B fragments (row 8n + g; columns 8s + t, + 4) likewise
+template <int DH, int NT>
+__device__ __forceinline__ void mma_xt(float (*acc)[4], const float* xs,
+                                       int xr, const float* ts, int g,
+                                       int t) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < DH / 8; ++s) {
+    uint32_t ab[4], as[4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; ++d) {
-    float qv[4], gv[4], kv[4], vv[4];
+    for (int e = 0; e < 4; ++e)
+      split_tf32(xs[(xr + g + (e & 1) * 8) * kLD<DH> + 8 * s + t +
+                    (e >> 1) * 4],
+                 ab[e], as[e]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty * 4 + i) * RS + d];
-      gv[i] = dOs[(ty * 4 + i) * RS + d];
-    }
+    for (int n0 = 0; n0 < NT; n0 += 4) {
+      uint32_t bb[4][2], bsm[4][2];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      kv[jj] = Ks[(tx + 16 * jj) * RS + d];
-      vv[jj] = Vs[(tx + 16 * jj) * RS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        s[i][jj] += qv[i] * kv[jj];
-        dp[i][jj] += gv[i] * vv[jj];
+      for (int n = 0; n < 4; ++n) {
+        const int r = 8 * (n0 + n) + g;
+        const float* tp = ts + r * kLD<DH> + 8 * s + t;
+        split_tf32(tp[0], bb[n][0], bsm[n][0]);
+        split_tf32(tp[4], bb[n][1], bsm[n][1]);
       }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty * 4 + i, gr = q0 + rr;
-    const float row_lse = lse_s[rr], row_delta = delta_s[rr];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int cc = tx + 16 * jj, gc = k0 + cc;
-      const float b = b_s[cc];
-      const bool keep = gr < L && gc < L && (!causal || gc <= gr) &&
-                        b > kBiasDrop;
-      const float pv = keep ? expf(s[i][jj] * scale + b - row_lse) : 0.f;
-      p[i][jj] = pv;
-      ds[i][jj] = pv * (dp[i][jj] - row_delta) * scale;
+      mma_3xtf32<4>(acc + n0, ab, as, bb, bsm);
     }
   }
 }
 
-template <int DH>
-constexpr size_t dq_smem_floats() {
-  return static_cast<size_t>(4) * 64 * (DH + 1) + kBQ * (kBK + 1) + 2 * kBQ +
-         kBK;
+// out[n] += C T for the warp's 16 x (8 KT) tile C, held in accumulator
+// fragments, and T an [8 KT][kLD] tile read N-major (B fragment of
+// key step s, column block n: rows 8s + t and + 4, column 8n + g). C's A
+// fragment for step s wants columns 8s + t and 8s + t + 4; lane (g, t')
+// holds 8s + 2t' and + 1, so column 8s + t lives in lane (g, t / 2),
+// element t & 1: eight shuffles within the quad. Each 64-column block of
+// the result sums in a fresh fragment, added to `out` by rounded FADDs.
+template <int DH, int KT>
+__device__ __forceinline__ void mma_ct(float (*out)[4], const float (*c)[4],
+                                       const float* ts, int lane, int g,
+                                       int t) {
+  constexpr int KS = DH / 8;
+  constexpr int NC = KS < 8 ? KS : 8;  // column blocks per fresh fragment
+  constexpr int NG = NC < 4 ? NC : 4;  // column blocks per mma group
+  const int src_lo = (lane & ~3) | (t >> 1);
+  const int src_hi = src_lo + 2;
+  const bool odd = t & 1;
+#pragma unroll
+  for (int c0 = 0; c0 < KS; c0 += NC) {
+    float f[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[n][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KT; ++s) {
+      float pa[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {   // h: rows g (0) and g + 8 (1)
+        const float x0 = __shfl_sync(0xffffffffu, c[s][2 * h], src_lo);
+        const float x1 = __shfl_sync(0xffffffffu, c[s][2 * h + 1], src_lo);
+        const float z0 = __shfl_sync(0xffffffffu, c[s][2 * h], src_hi);
+        const float z1 = __shfl_sync(0xffffffffu, c[s][2 * h + 1], src_hi);
+        pa[h] = odd ? x1 : x0;       // column 8s + t
+        pa[2 + h] = odd ? z1 : z0;   // column 8s + t + 4
+      }
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(pa[e], ab[e], as[e]);
+#pragma unroll
+      for (int n0 = 0; n0 < NC; n0 += NG) {
+        uint32_t bb[NG][2], bsm[NG][2];
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          const float* tp =
+              ts + (8 * s + t) * kLD<DH> + 8 * (c0 + n0 + n) + g;
+          split_tf32(tp[0], bb[n][0], bsm[n][0]);
+          split_tf32(tp[4 * kLD<DH>], bb[n][1], bsm[n][1]);
+        }
+        mma_3xtf32<NG>(f + n0, ab, as, bb, bsm);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[c0 + n][e] += f[n][e];
+  }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
+// dQ: [2][NW·16][kLD] Q and dO rows, [2][2][BT][kLD] K and V tiles,
+// [2][BT] bias
+template <int DH, int NW>
+constexpr int dq_smem_bytes() {
+  return (2 * NW * 16 * kLD<DH> + 4 * kKeyTile * kLD<DH> + 2 * kKeyTile) *
+         4;
+}
+
+template <int DH, int NW>
+__global__ void __launch_bounds__(NW * 32)
     flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const float* __restrict__ bias, float* __restrict__ dq, int L,
                  int n_heads, float scale, int causal) {
-  constexpr int RS = DH + 1;   // padded tile row stride
-  constexpr int SS = kBK + 1;  // padded dS row stride
-  constexpr int CPT = DH / 16; // dQ columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBQ * RS;
-  float* Ks = dOs + kBQ * RS;
-  float* Vs = Ks + kBK * RS;
-  float* dSs = Vs + kBK * RS;
-  float* lse_s = dSs + kBQ * SS;
-  float* delta_s = lse_s + kBQ;
-  float* b_s = delta_s + kBQ;
+  constexpr int kThreads = NW * 32;
+  constexpr int KS = DH / 8;
+  constexpr int BT = kKeyTile;
+  constexpr int NT = BT / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                     // [NW·16][kLD]
+  float* Gs = Qs + NW * 16 * kLD<DH>;   // dO, the same rows
+  float* Ks = Gs + NW * 16 * kLD<DH>;   // [2][BT][kLD]
+  float* Vs = Ks + 2 * BT * kLD<DH>;    // [2][BT][kLD]
+  float* Bs = Vs + 2 * BT * kLD<DH>;    // [2][BT] bias of the key tile
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * kBQ;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * NW * 16;
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * L;
   const int64_t off = row0 * DH;
+  const float* kb = k + off;
+  const float* vb = v + off;
   const float* brow =
       bias ? bias + static_cast<int64_t>(blockIdx.y / n_heads) * L : nullptr;
+  const int wr = warp * 16;          // the warp's first row in Qs and Gs
+  const int r0 = q0 + wr + g;        // this thread's rows: r0, r0 + 8
 
-  load_tile<DH>(Qs, q + off, q0, L, tid);
-  load_tile<DH>(dOs, dout + off, q0, L, tid);
-  if (tid < kBQ) {
-    const int g = q0 + tid;
-    lse_s[tid] = g < L ? lse[row0 + g] : 0.f;
-    delta_s[tid] = g < L ? delta[row0 + g] : 0.f;
+  auto load_tile = [&](int buf, int j) {
+    const int k0 = j * BT;
+    load_rows<DH, BT, kThreads>(Ks + buf * BT * kLD<DH>, kb, k0, L, tid);
+    load_rows<DH, BT, kThreads>(Vs + buf * BT * kLD<DH>, vb, k0, L, tid);
+    if (brow != nullptr)
+      load_vec<kThreads>(Bs + buf * BT, brow, k0, BT, L, tid);
+  };
+
+  load_rows<DH, NW * 16, kThreads>(Qs, q + off, q0, L, tid);
+  load_rows<DH, NW * 16, kThreads>(Gs, dout + off, q0, L, tid);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + h * 8;
+    lse_r[h] = r < L ? lse[row0 + r] : 0.f;
+    dl_r[h] = r < L ? delta[row0 + r] : 0.f;
   }
-  float acc[4][CPT];
+  float acc[KS][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < KS; ++n)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const int last_row = min(q0 + kBQ, L) - 1;
-  const int nk = causal ? last_row / kBK + 1 : (L + kBK - 1) / kBK;
+  const int last_row = min(q0 + NW * 16, L) - 1;
+  const int nk = causal ? last_row / BT + 1 : (L + BT - 1) / BT;
+  const int warp_last = min(q0 + wr + 15, L - 1);
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DH>(Ks, k + off, k0, L, tid);
-    load_tile<DH>(Vs, v + off, k0, L, tid);
-    if (tid < kBK) b_s[tid] = (brow && k0 + tid < L) ? brow[k0 + tid] : 0.f;
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    p_and_ds<DH>(Qs, dOs, Ks, Vs, lse_s, delta_s, b_s, q0, k0, L, scale,
-                 causal, tx, ty, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        dSs[(ty * 4 + i) * SS + tx + 16 * jj] = ds[i][jj];
-    __syncthreads();
-
-    // dQ += dS @ K
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float kv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) kv[c] = Ks[kk * RS + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = dSs[(ty * 4 + i) * SS + kk];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] += d * kv[c];
-      }
+    const int buf = j & 1;
+    if (j + 1 < nk) {
+      load_tile(buf ^ 1, j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // tile j is in for every thread
+    const int k0 = j * BT;
+    if (!causal || k0 <= warp_last) {  // else the tile is above the diagonal
+      const float* ks = Ks + buf * BT * kLD<DH>;
+      const float* bs = Bs + buf * BT;
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      mma_xt<DH, NT>(sc, Qs, wr, ks, g, t);
+      mma_xt<DH, NT>(dp, Gs, wr, Vs + buf * BT * kLD<DH>, g, t);
+      // P and dS in place of S
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 b2 = brow ? *reinterpret_cast<const float2*>(
+                                     bs + 8 * n + 2 * t)
+                               : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int h = e >> 1;
+          const float bv = (e & 1) ? b2.y : b2.x;
+          const bool keep = key < L && (!causal || key <= r0 + 8 * h) &&
+                            bv > kBiasDrop;
+          const float p =
+              keep ? __expf(sc[n][e] * scale + bv - lse_r[h]) : 0.f;
+          sc[n][e] = p * (dp[n][e] - dl_r[h]) * scale;
+        }
+      }
+      mma_ct<DH, NT>(acc, sc, ks, lane, g, t);
+    }
+    __syncthreads();  // every warp is done with this buffer before reuse
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = q0 + ty * 4 + i;
-    if (gr >= L) continue;
-    float* row = dq + off + static_cast<int64_t>(gr) * DH;
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + h * 8;
+    if (r >= L) continue;
+    float* out = dq + off + static_cast<int64_t>(r) * DH;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) row[tx + 16 * c] = acc[i][c];
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
   }
 }
 
-template <int DH>
-constexpr size_t dkv_smem_floats() {
-  return static_cast<size_t>(4) * 64 * (DH + 1) + 2 * kBQ * (kBK + 1) +
-         2 * kBQ + kBK;
+// dK/dV: [2][NW·16][kLD] K and V rows, [2][2][BT][kLD] Q and dO tiles,
+// [2][2][BT] LSE and delta
+template <int DH, int NW>
+constexpr int dkv_smem_bytes() {
+  return (2 * NW * 16 * kLD<DH> + 4 * kQueryTile<DH> * kLD<DH> +
+          4 * kQueryTile<DH>) * 4;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
+template <int DH, int NW>
+__global__ void __launch_bounds__(NW * 32)
     flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
@@ -221,99 +354,123 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ bias, float* __restrict__ dk,
                   float* __restrict__ dv, int L, int n_heads, float scale,
                   int causal) {
-  constexpr int RS = DH + 1;
-  constexpr int SS = kBK + 1;
-  constexpr int CPT = DH / 16;  // dK and dV columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBK * RS;
-  float* Qs = Vs + kBK * RS;
-  float* dOs = Qs + kBQ * RS;
-  float* Ps = dOs + kBQ * RS;
-  float* dSs = Ps + kBQ * SS;
-  float* lse_s = dSs + kBQ * SS;
-  float* delta_s = lse_s + kBQ;
-  float* b_s = delta_s + kBQ;
+  constexpr int kThreads = NW * 32;
+  constexpr int KS = DH / 8;
+  constexpr int BT = kQueryTile<DH>;
+  constexpr int NT = BT / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                     // [NW·16][kLD]
+  float* Vs = Ks + NW * 16 * kLD<DH>;   // the same rows of V
+  float* Qs = Vs + NW * 16 * kLD<DH>;   // [2][BT][kLD]
+  float* Gs = Qs + 2 * BT * kLD<DH>;    // [2][BT][kLD] dO
+  float* Ls = Gs + 2 * BT * kLD<DH>;    // [2][BT] LSE of the query tile
+  float* Ds = Ls + 2 * BT;            // [2][BT] delta
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int k0 = blockIdx.x * kBK;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb0 = blockIdx.x * NW * 16;
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * L;
   const int64_t off = row0 * DH;
+  const float* qb = q + off;
+  const float* gb = dout + off;
+  const float* brow =
+      bias ? bias + static_cast<int64_t>(blockIdx.y / n_heads) * L : nullptr;
+  const int wr = warp * 16;          // the warp's first row in Ks and Vs
+  const int key0 = kb0 + wr + g;     // this thread's keys: key0, key0 + 8
 
-  load_tile<DH>(Ks, k + off, k0, L, tid);
-  load_tile<DH>(Vs, v + off, k0, L, tid);
-  if (tid < kBK) {
-    const int g = k0 + tid;
-    b_s[tid] =
-        (bias && g < L)
-            ? bias[static_cast<int64_t>(blockIdx.y / n_heads) * L + g]
-            : 0.f;
+  auto load_tile = [&](int buf, int j) {
+    const int q0 = j * BT;
+    load_rows<DH, BT, kThreads>(Qs + buf * BT * kLD<DH>, qb, q0, L, tid);
+    load_rows<DH, BT, kThreads>(Gs + buf * BT * kLD<DH>, gb, q0, L, tid);
+    load_vec<kThreads>(Ls + buf * BT, lse + row0, q0, BT, L, tid);
+    load_vec<kThreads>(Ds + buf * BT, delta + row0, q0, BT, L, tid);
+  };
+
+  // a query tile sees this block's keys iff its last row >= the first key
+  const int nq = (L + BT - 1) / BT;
+  const int j0 = causal ? kb0 / BT : 0;
+  load_rows<DH, NW * 16, kThreads>(Ks, k + off, kb0, L, tid);
+  load_rows<DH, NW * 16, kThreads>(Vs, v + off, kb0, L, tid);
+  load_tile(0, j0);
+  cp_async_commit();
+
+  // the two keys' bias and whether they are kept, for the whole kernel
+  float bk[2];
+  bool kk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + h * 8;
+    bk[h] = (brow != nullptr && key < L) ? brow[key] : 0.f;
+    kk[h] = key < L && bk[h] > kBiasDrop;
   }
-  float acc_k[4][CPT], acc_v[4][CPT];
+  float acc_k[KS][4], acc_v[KS][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < KS; ++n)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-  // a q tile sees this k tile iff its last row >= the tile's first key
-  const int nq = (L + kBQ - 1) / kBQ;
-  for (int j = causal ? k0 / kBQ : 0; j < nq; ++j) {
-    const int q0 = j * kBQ;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DH>(Qs, q + off, q0, L, tid);
-    load_tile<DH>(dOs, dout + off, q0, L, tid);
-    if (tid < kBQ) {
-      const int g = q0 + tid;
-      lse_s[tid] = g < L ? lse[row0 + g] : 0.f;
-      delta_s[tid] = g < L ? delta[row0 + g] : 0.f;
+  const int warp_first = kb0 + wr;
+  for (int j = j0; j < nq; ++j) {
+    const int buf = (j - j0) & 1;
+    if (j + 1 < nq) {
+      load_tile(buf ^ 1, j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    p_and_ds<DH>(Qs, dOs, Ks, Vs, lse_s, delta_s, b_s, q0, k0, L, scale,
-                 causal, tx, ty, p, ds);
+    __syncthreads();  // tile j is in for every thread
+    const int q0 = j * BT;
+    // else every query of the tile is before the warp's keys
+    if (!causal || q0 + BT - 1 >= warp_first) {
+      const float* qs = Qs + buf * BT * kLD<DH>;
+      const float* gs = Gs + buf * BT * kLD<DH>;
+      const float* ls = Ls + buf * BT;
+      const float* ds = Ds + buf * BT;
+      float sc[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        Ps[(ty * 4 + i) * SS + tx + 16 * jj] = p[i][jj];
-        dSs[(ty * 4 + i) * SS + tx + 16 * jj] = ds[i][jj];
-      }
-    __syncthreads();
-
-    // dV += P^T @ dO and dK += dS^T @ Q, for keys ty*4+i
-#pragma unroll 2
-    for (int rr = 0; rr < kBQ; ++rr) {
-      float gv[CPT], qv[CPT];
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+      mma_xt<DH, NT>(sc, Ks, wr, qs, g, t);   // S^T = K Q^T
+      mma_xt<DH, NT>(dp, Vs, wr, gs, g, t);   // dP^T = V dO^T
+      // P^T in place of S^T, dS^T in place of dP^T
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        gv[c] = dOs[rr * RS + tx + 16 * c];
-        qv[c] = Qs[rr * RS + tx + 16 * c];
-      }
+      for (int n = 0; n < NT; ++n) {
+        const int qc = 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + qc);
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + qc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv = Ps[rr * SS + ty * 4 + i];
-        const float d = dSs[rr * SS + ty * 4 + i];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          acc_v[i][c] += pv * gv[c];
-          acc_k[i][c] += d * qv[c];
+        for (int e = 0; e < 4; ++e) {
+          const int query = q0 + qc + (e & 1);
+          const int h = e >> 1;
+          const bool keep = kk[h] && query < L &&
+                            (!causal || key0 + 8 * h <= query);
+          const float p =
+              keep ? __expf(sc[n][e] * scale + bk[h] - ((e & 1) ? l2.y : l2.x))
+                   : 0.f;
+          sc[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - ((e & 1) ? d2.y : d2.x)) * scale;
         }
       }
+      mma_ct<DH, NT>(acc_v, sc, gs, lane, g, t);   // dV += P^T dO
+      mma_ct<DH, NT>(acc_k, dp, qs, lane, g, t);   // dK += dS^T Q
     }
+    __syncthreads();  // every warp is done with this buffer before reuse
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = k0 + ty * 4 + i;
-    if (gk >= L) continue;
-    const int64_t at = off + static_cast<int64_t>(gk) * DH;
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + h * 8;
+    if (key >= L) continue;
+    const int64_t at = off + static_cast<int64_t>(key) * DH;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      dk[at + tx + 16 * c] = acc_k[i][c];
-      dv[at + tx + 16 * c] = acc_v[i][c];
+    for (int n = 0; n < KS; ++n) {
+      *reinterpret_cast<float2*>(dk + at + 8 * n + 2 * t) =
+          make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * n + 2 * t) =
+          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
   }
 }
@@ -327,45 +484,76 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Raise the kernel's dynamic shared-memory limit once (idempotent, so a
-// racing second call is harmless); keeping it out of later launches lets
+// Raise the kernel's dynamic shared-memory limit once per instantiation
+// (idempotent, so a racing second call is harmless), then launch one block
+// per (ROWS-row tile, bh); keeping the attribute out of later launches lets
 // them be captured in CUDA graphs.
-template <typename Kernel>
-int configure(Kernel kernel, size_t bytes, bool* configured) {
-  if (*configured) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *configured = true;
-  return 0;
+template <int ROWS, typename Kernel, typename... Out>
+int launch(Kernel kernel, int bytes, bool* configured, const Args& a,
+           Out... out) {
+  if (!*configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *configured = true;
+  }
+  const dim3 grid(static_cast<unsigned>((a.L + ROWS - 1) / ROWS),
+                  static_cast<unsigned>(a.bh));
+  kernel<<<grid, ROWS * 2, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, out...,
+      static_cast<int>(a.L), a.n_heads, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int DH, int NW>
 int launch_dq(const Args& a, float* dq) {
-  const size_t bytes = dq_smem_floats<DH>() * sizeof(float);
   static bool configured = false;
-  if (const int rc = configure(flash_bwd_dq<DH>, bytes, &configured)) return rc;
-  const dim3 grid(static_cast<unsigned>((a.L + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(a.bh));
-  flash_bwd_dq<DH><<<grid, kThreads, bytes, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, dq,
-      static_cast<int>(a.L), a.n_heads, a.scale, a.causal);
-  return static_cast<int>(cudaGetLastError());
+  return launch<NW * 16>(flash_bwd_dq<DH, NW>, dq_smem_bytes<DH, NW>(),
+                         &configured, a, dq);
+}
+
+template <int DH, int NW>
+int launch_dkv(const Args& a, float* dk, float* dv) {
+  static bool configured = false;
+  return launch<NW * 16>(flash_bwd_dkv<DH, NW>, dkv_smem_bytes<DH, NW>(),
+                         &configured, a, dk, dv);
+}
+
+// 4 warps (64 rows) a block where that fills the card, else 2, else 1
+int warps_for(const Args& a) {
+  if (a.bh * ((a.L + 63) / 64) >= kSms) return 4;
+  if (a.bh * ((a.L + 31) / 32) >= kSms) return 2;
+  return 1;
 }
 
 template <int DH>
-int launch_dkv(const Args& a, float* dk, float* dv) {
-  const size_t bytes = dkv_smem_floats<DH>() * sizeof(float);
-  static bool configured = false;
-  if (const int rc = configure(flash_bwd_dkv<DH>, bytes, &configured))
-    return rc;
-  const dim3 grid(static_cast<unsigned>((a.L + kBK - 1) / kBK),
-                  static_cast<unsigned>(a.bh));
-  flash_bwd_dkv<DH><<<grid, kThreads, bytes, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, dk, dv,
-      static_cast<int>(a.L), a.n_heads, a.scale, a.causal);
-  return static_cast<int>(cudaGetLastError());
+int launch_dq_rows(const Args& a, float* dq) {
+  switch (warps_for(a)) {
+    case 4: return launch_dq<DH, 4>(a, dq);
+    case 2: return launch_dq<DH, 2>(a, dq);
+    default: return launch_dq<DH, 1>(a, dq);
+  }
+}
+
+template <int DH>
+int launch_dkv_rows(const Args& a, float* dk, float* dv) {
+  switch (warps_for(a)) {
+    case 4: return launch_dkv<DH, 4>(a, dk, dv);
+    case 2: return launch_dkv<DH, 2>(a, dk, dv);
+    default: return launch_dkv<DH, 1>(a, dk, dv);
+  }
+}
+
+// 0 when the call can launch, else the CUDA error to return
+int check_args(const void* q, const void* k, const void* v, const void* dout,
+               int64_t bh, int64_t L, int64_t n_heads) {
+  if (n_heads <= 0 || bh > 65535 || L > INT32_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
+       15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return 0;
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
@@ -383,10 +571,10 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// q, k, v, dout, dq [bh, L, dh] f32; lse, delta [bh, L] f32; bias null or
-// [bh / n_heads, L] f32; all contiguous; dh in {16, 32, 64, 128}. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a head
-// width the kernel does not take).
+// q, k, v, dout, dq [bh, L, dh] f32, q, k, v and dout 16-byte aligned; lse,
+// delta [bh, L] f32; bias null or [bh / n_heads, L] f32; all contiguous; dh
+// in {16, 32, 64, 128}. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a head width the kernel does not take).
 extern "C" int ptt_flash_attn_bwd_dq(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
@@ -394,15 +582,15 @@ extern "C" int ptt_flash_attn_bwd_dq(const void* q, const void* k,
                                      int64_t L, int64_t dh, int64_t n_heads,
                                      float scale, int causal, void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (n_heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int rc = check_args(q, k, v, dout, bh, L, n_heads)) return rc;
   const Args a = make_args(q, k, v, dout, lse, delta, bias, bh, L, n_heads,
                            scale, causal, stream);
   float* out = static_cast<float*>(dq);
   switch (dh) {
-    case 16: return launch_dq<16>(a, out);
-    case 32: return launch_dq<32>(a, out);
-    case 64: return launch_dq<64>(a, out);
-    case 128: return launch_dq<128>(a, out);
+    case 16: return launch_dq_rows<16>(a, out);
+    case 32: return launch_dq_rows<32>(a, out);
+    case 64: return launch_dq_rows<64>(a, out);
+    case 128: return launch_dq_rows<128>(a, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -416,16 +604,16 @@ extern "C" int ptt_flash_attn_bwd_dkv(const void* q, const void* k,
                                       int64_t n_heads, float scale, int causal,
                                       void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (n_heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int rc = check_args(q, k, v, dout, bh, L, n_heads)) return rc;
   const Args a = make_args(q, k, v, dout, lse, delta, bias, bh, L, n_heads,
                            scale, causal, stream);
   float* outk = static_cast<float*>(dk);
   float* outv = static_cast<float*>(dv);
   switch (dh) {
-    case 16: return launch_dkv<16>(a, outk, outv);
-    case 32: return launch_dkv<32>(a, outk, outv);
-    case 64: return launch_dkv<64>(a, outk, outv);
-    case 128: return launch_dkv<128>(a, outk, outv);
+    case 16: return launch_dkv_rows<16>(a, outk, outv);
+    case 32: return launch_dkv_rows<32>(a, outk, outv);
+    case 64: return launch_dkv_rows<64>(a, outk, outv);
+    case 128: return launch_dkv_rows<128>(a, outk, outv);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

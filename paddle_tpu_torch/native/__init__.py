@@ -4,9 +4,12 @@ Each kernel lives in one source under ``paddle_tpu_torch/csrc/`` with a
 plain C interface. At first use ``nvcc`` compiles every source into its own
 shared library under ``paddle_tpu_torch/_build/`` (one ``nvcc`` process per
 source, all started together), and ``ctypes`` loads it. A library's file
-name carries a hash of its source, so an edited kernel is rebuilt and a
-stale one is never loaded. Nothing here includes PyTorch's headers, which
-keeps a build to seconds.
+name carries a hash of its source and of the headers it includes (``#include
+"x.cuh"`` from ``csrc/``), so an edited kernel or header is rebuilt and a
+stale library is never loaded. Nothing here includes PyTorch's headers,
+which keeps a build to seconds. ``-Xptxas -v`` makes nvcc report each
+kernel's registers, shared memory and spills; :func:`build` returns that
+report.
 
 Pointers and the CUDA stream cross the boundary as ``ctypes.c_void_p``
 (Python ints from ``Tensor.data_ptr()`` and ``Stream.cuda_stream``); every
@@ -17,6 +20,7 @@ build raises :class:`BuildError`: there is no fallback.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,7 +38,8 @@ SOURCES = ('embedding_gather', 'ln_residual', 'flash_attn_fwd', 'ffn_gemm',
            'softmax_ce', 'fused_adam', 'flash_attn_bwd')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs = {}
@@ -65,18 +70,23 @@ def nvcc_path():
 def _lib_path(name):
     src = os.path.join(CSRC, name + '.cu')
     with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode())
+        text = f.read()
+    digest = hashlib.sha1(text + ' '.join(NVCC_FLAGS).encode())
+    for header in _INCLUDE.findall(text):
+        with open(os.path.join(CSRC, header.decode()), 'rb') as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, 'lib%s-%s.so'
                              % (name, digest.hexdigest()[:12]))
 
 
 def build(names=SOURCES):
     """Compile every listed source whose library is missing, one nvcc
-    process each, all running at once. Returns {'seconds', 'built'}:
-    the wall time and the sources that were compiled (empty when every
-    library already existed)."""
+    process each, all running at once. Returns {'seconds', 'built',
+    'log'}: the wall time, the sources that were compiled (empty when every
+    library already existed) and nvcc's output for each of them (ptxas's
+    report of every kernel's registers and spills)."""
     t0 = time.perf_counter()
-    todo = []
+    todo, log = [], {}
     for name in names:
         src, lib = _lib_path(name)
         if not os.path.exists(lib):
@@ -94,10 +104,10 @@ def build(names=SOURCES):
         failed = []
         for name, lib, tmp, p in procs:
             out, _ = p.communicate()
+            log[name] = out.decode(errors='replace')
             if p.returncode != 0:
                 failed.append('%s.cu (exit %d):\n%s'
-                              % (name, p.returncode,
-                                 out.decode(errors='replace')))
+                              % (name, p.returncode, log[name]))
                 if os.path.exists(tmp):
                     os.remove(tmp)
                 continue
@@ -105,7 +115,8 @@ def build(names=SOURCES):
         if failed:
             raise BuildError('nvcc failed:\n' + '\n'.join(failed))
     return {'seconds': time.perf_counter() - t0,
-            'built': [name for name, _, _ in todo]}
+            'built': [name for name, _, _ in todo],
+            'log': log}
 
 
 def _library(name):

@@ -12,7 +12,9 @@ Tolerances: exact for the gather (a copy) and for Adam (the same
 correctly rounded IEEE operations in the same order); 1e-4 absolute for the
 other f32 kernels, whose sums run in another order than the plain
 version's (1e-6 for the CE gradient, a probability times ct); the flash
-backward's gradients within 1e-4 of each tensor's largest magnitude.
+backward's gradients (3xTF32 products on the tensor cores, summed tile by
+tile) within 1e-4 of each tensor's largest magnitude, and bitwise equal
+from one call to the next.
 """
 import pytest
 import torch
@@ -235,34 +237,51 @@ def test_fused_ffn_kernel_is_deterministic_and_row_independent(dev, n):
         assert torch.equal(a[0], b[0])
 
 
-@pytest.mark.parametrize('L', [1, 37, 256])
+@pytest.mark.parametrize('L', [1, 37, 256, 300])
 def test_flash_attention_kernel_dh128_with_bias(dev, L):
+    """The three kernels at head width 128 with the padding bias, causal
+    and not: the backward streams 32-row tiles there and sums each tile's
+    product in two 64-column passes."""
     B, H, dh = 2, 3, 128
-    q, k, v = (_randn(dev, B * H, L, dh, seed=s) for s in range(3))
+    q, k, v, do = (_randn(dev, B * H, L, dh, seed=s) for s in range(4))
     bias = _padding_bias(dev, B, L, False)
     for causal in (False, True):
-        o, lse = attention_ops._flash_fwd(q, k, v, dh ** -0.5, causal, bias,
-                                          H)
-        o_ref, lse_ref = attention_ops._attention_ref(q, k, v, dh ** -0.5,
-                                                      causal, bias, H)
+        args = (dh ** -0.5, causal, bias, H)
+        o, lse = attention_ops._flash_fwd(q, k, v, *args)
+        o_ref, lse_ref = attention_ops._attention_ref(q, k, v, *args)
+        grads = attention_ops._flash_bwd(q, k, v, o, lse, do, *args)
+        want = attention_ops._flash_bwd_ref(q, k, v, o, lse, do, *args)
         torch.cuda.synchronize()
         assert _err(o, o_ref) <= 1e-4 and _err(lse, lse_ref) <= 1e-4
+        for g, w in zip(grads, want):
+            assert torch.isfinite(g).all()
+            assert _err(g, w) <= 1e-4 * max(1.0, float(w.abs().max()))
 
 
 @pytest.mark.parametrize('bh,L', [(8, 256), (40, 100), (256, 128)],
                          ids=['16-row-tiles', '32-row-tiles', '64-row-tiles'])
 def test_flash_attention_kernel_is_deterministic(dev, bh, L):
-    """Two calls give the same bits whatever query tile the grid picks."""
-    q, k, v = (_randn(dev, bh, L, 64, seed=s) for s in range(3))
+    """Two calls of the forward, of the dQ kernel and of the dK/dV kernel
+    give the same bits, with and without the padding bias, whatever rows a
+    block owns."""
+    q, k, v, do = (_randn(dev, bh, L, 64, seed=s) for s in range(4))
     bias = _padding_bias(dev, bh // 4, L, True)
     for b in (None, bias):
-        first = attention_ops._flash_fwd(q, k, v, 0.125, b is None, b, 4)
-        second = attention_ops._flash_fwd(q, k, v, 0.125, b is None, b, 4)
-        want = attention_ops._attention_ref(q, k, v, 0.125, b is None, b, 4)
+        args = (0.125, b is None, b, 4)
+        first = attention_ops._flash_fwd(q, k, v, *args)
+        second = attention_ops._flash_fwd(q, k, v, *args)
+        want = attention_ops._attention_ref(q, k, v, *args)
+        ins = (q, k, v, do, first[1], (do * first[0]).sum(dim=-1)) + args
+        dq = [attention_ops._flash_bwd_dq(*ins) for _ in range(2)]
+        dkv = [attention_ops._flash_bwd_dkv(*ins) for _ in range(2)]
+        want_bwd = (attention_ops._bwd_dq_ref(*ins),) + \
+            attention_ops._bwd_dkv_ref(*ins)
         torch.cuda.synchronize()
-        for x, y in zip(first, second):
+        for x, y in zip(first + (dq[0],) + dkv[0], second + (dq[1],) + dkv[1]):
             assert torch.equal(x, y)
         assert _err(first[0], want[0]) <= 1e-4
+        for g, w in zip((dq[0],) + dkv[0], want_bwd):
+            assert _err(g, w) <= 1e-4 * float(w.abs().max())
 
 
 @pytest.mark.parametrize('n,V', [(1, 32000), (37, 1001), (300, 4096),

@@ -108,3 +108,23 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
         pytest.skip('nvcc is installed here')
     with pytest.raises(native.BuildError, match='nvcc not found'):
         native.build()
+
+
+def test_library_name_hashes_the_headers_a_source_includes(tmp_path,
+                                                            monkeypatch):
+    """Editing a header renames the library of every source that includes
+    it, and of no other, so a stale kernel is never loaded; the three
+    tensor-core sources include the shared 3xTF32 header."""
+    from paddle_tpu_torch import native
+    for name in ('flash_attn_fwd', 'flash_attn_bwd', 'ffn_gemm'):
+        with open(os.path.join(native.CSRC, name + '.cu'), 'rb') as f:
+            assert native._INCLUDE.findall(f.read()) == [b'tf32_mma.cuh']
+    (tmp_path / 'a.cu').write_text('#include "h.cuh"\n#include <stdint.h>\n')
+    (tmp_path / 'b.cu').write_text('#include <stdint.h>\n')
+    (tmp_path / 'h.cuh').write_text('// one\n')
+    monkeypatch.setattr(native, 'CSRC', str(tmp_path))
+    before = {n: native._lib_path(n)[1] for n in 'ab'}
+    (tmp_path / 'h.cuh').write_text('// two\n')
+    after = {n: native._lib_path(n)[1] for n in 'ab'}
+    assert before['a'] != after['a']
+    assert before['b'] == after['b']

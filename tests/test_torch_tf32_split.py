@@ -1,7 +1,8 @@
 """The numeric premise of the port's tensor-core kernels, held on the CPU.
 
-``csrc/ffn_gemm.cu`` (tile route) and ``csrc/flash_attn_fwd.cu`` run their
-f32 products on the tensor cores as three TF32 products: a = big + small,
+``csrc/ffn_gemm.cu`` (tile route), ``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu`` run their f32 products on the tensor cores as
+three TF32 products: a = big + small,
 a·b ~ small_a·big_b + big_a·small_b + big_a·big_b. One TF32 product keeps 10
 mantissa bits, which at these depths misses the kernels' 1e-4 tolerance
 against their f32 plain versions; three keep f32-level accuracy. Here the
@@ -15,6 +16,8 @@ depths and the input scales of the port's main paths (``chip_smoke.py``).
 Also here: the FFN wrapper's launch plan, a function of the shapes alone,
 fills an H100's 132 SMs at every main-path shape.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -106,6 +109,53 @@ def test_three_tf32_passes_keep_the_flash_products_within_tolerance(scheme):
     assert float((_three_pass(p, v, scheme) - o_exact).abs().max()) <= \
         TOL / 10
     assert float((_one_pass(p, v) - o_exact).abs().max()) > TOL
+
+
+@functools.lru_cache(maxsize=1)
+def _flash_bwd_products():
+    """The flash backward's three gradient products at the LM's training
+    shape (dh 64, 512 queries and keys, causal), q, k, v, dO ~ N(0, 1) as
+    chip_smoke.py draws them, P and dS formed in float64 and handed to the
+    products in f32 as the kernels hold them: {name: (A, B)} of dQ = dS K,
+    dK = dS^T Q and dV = P^T dO, each 512 deep."""
+    rs = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rs.randn(512, 64).astype('float32'))
+                   for _ in range(4))
+    s = q.double() @ k.double().t() / 8
+    causal = torch.ones(512, 512, dtype=torch.bool).tril()
+    p = torch.softmax(s.masked_fill(~causal, -np.inf), dim=1)
+    dp = do.double() @ v.double().t()
+    delta = (do.double() * (p @ v.double())).sum(dim=1, keepdim=True)
+    p, ds = p.float(), (p * (dp - delta) / 8).float()
+    return {'dq': (ds, k), 'dk': (ds.t().contiguous(), q),
+            'dv': (p.t().contiguous(), do)}
+
+
+def _tiled(a, b, product, tile=64):
+    """a @ b as the backward kernels sum it: each 64-deep tile's product in
+    a fresh f32 fragment, the fragments added in f32 in tile order."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for i in range(0, a.shape[1], tile):
+        acc = acc + product(a[:, i:i + tile].contiguous(),
+                            b[i:i + tile]).float()
+    return acc
+
+
+@pytest.mark.parametrize('product', ['dq', 'dk', 'dv'])
+@pytest.mark.parametrize('scheme', ['cut', 'rna'])
+def test_three_tf32_passes_keep_the_flash_backward_products_within_tolerance(
+        scheme, product):
+    """dQ = dS K, dK = dS^T Q and dV = P^T dO at the LM's training shape,
+    summed over 64-row tiles as the kernels sum them: three passes within
+    1e-5 of the product's largest magnitude from the float64 product, one
+    pass outside 1e-4 of it."""
+    a, b = _flash_bwd_products()[product]
+    exact = a.double() @ b.double()
+    top = float(exact.abs().max())
+    three = _tiled(a, b, lambda x, y: _three_pass(x, y, scheme))
+    one = _tiled(a, b, _one_pass)
+    assert float((three - exact).abs().max()) <= 1e-5 * top
+    assert float((one - exact).abs().max()) > TOL * top
 
 
 def test_the_split_is_exact_where_it_must_be():
