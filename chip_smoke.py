@@ -68,9 +68,10 @@ Phases, each printing one JSON line:
    the CPU, and on the card flash against the unfused branch of phase 6,
    same limits.
 10. train_flash — phase 7 in the configuration the repo's bench trains
-   (attention dropout 0, flash attention on; its ``amp=True`` is not
-   ported): all ten kernels of that path launched (the seven of phase 7 and
-   the flash forward, dQ and dK/dV), step ms and tokens/s beside phase 7's.
+   (attention dropout 0, flash attention on) but in float32 (phase 15 runs
+   its ``amp=True``): all ten kernels of that path launched (the seven of
+   phase 7 and the flash forward, dQ and dK/dV), step ms and tokens/s
+   beside phase 7's.
 11. bert_kernel — the kernels of phases 3 and 5 at BERT-base's shapes (rows
    of D 768, the FFN at 768 -> 3072 -> 768 at N 4096 and, as the B 128
    forward calls it, at N 16384, CE at V 30522 and at V 2,
@@ -87,13 +88,40 @@ Phases, each printing one JSON line:
    trains (dropout 0.1, ``Adam(1e-4, fuse=True)``, one fixed batch): the
    loss finite and fallen, all ten kernels launched, step ms, samples/s,
    peak memory and a profile of one step.
+13. amp_flash_kernel — phase 8 on bf16 operands: the bf16 forward, dQ and
+   dK/dV kernels against their plain versions at (a) the AMP LM step's
+   shape, BH 512 (B 64 x 8 heads), L 512, dh 64, causal, and (b) BERT's
+   (as phase 8). O, dQ, dK and dV within 1e-2 of each tensor's largest
+   magnitude, LSE within 1e-5 absolute on the rows that keep a key, the
+   padded element exactly 0, two calls bitwise equal; ``library_ms`` is
+   bf16 ``F.scaled_dot_product_attention`` and its backward; ``bound_ms``
+   counts the products at the bf16 rate (989 TFLOP/s).
+14. amp_train_vs_cpu — phase 9 with the model bf16-marked
+   (``rewrite_model_bf16``): card against CPU, loss within 5e-3 relative
+   and every gradient within 2e-2 of its largest magnitude; then the
+   card's AMP step against phase 9's float32 one, reported without a
+   limit.
+15. train_amp — the bench's flagship row as it runs (bench.py:1058-1062:
+   dropout 0.1, attention dropout 0, flash on, ``amp=True``): the model
+   marked, ``decorate(Adam(1e-4, fuse=True))``, B 64 x L 512, 20 steps on
+   one fixed batch: the loss finite and fallen, every kernel of the AMP
+   path launched (gather, LN forward and backward, CE forward and backward,
+   Adam, the three bf16 flash kernels) and neither the FFN kernel nor the
+   float32 flash kernels; step ms, tokens/s, peak memory and a profile of
+   one step. Then the same at B 16 (``train_amp_b16``) beside phase 10.
+16. bert_amp — BERT-base under AMP at the bench's B 128 (bench.py:1131):
+   the inference forward beside phase 12's float32 one; 10 training steps
+   with attention dropout 0 (the biased bf16 flash kernels train) under
+   phase 15's checks; the bench's own configuration (attention dropout
+   0.1: the unfused branch with bf16 matmuls), timed only.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
 the operations' time, where matrix-product flops (the FFN's two products,
 the flash kernels' Q·K^T, P·V and gradient products) count at 165 TFLOP/s
 (495 TFLOP/s TF32 over the 3xTF32 split's three passes: f32 accuracy on the
-tensor cores) and other flops at the f32 CUDA-core peak of 67 TFLOP/s.
+tensor cores), the bf16 kernels' products at 989 TFLOP/s, and other flops
+at the f32 CUDA-core peak of 67 TFLOP/s.
 Those four kernels also get ``bound_simt_ms``, every flop at 67 TFLOP/s,
 the rule of the tables before the tensor-core kernels.
 
@@ -121,6 +149,8 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32X3_FLOPS = 495e12 / 3
+# bf16 tensor-core products with float32 accumulation (dense)
+PEAK_BF16_FLOPS = 989e12
 
 SLOTS = 8
 MAX_LEN = 512
@@ -147,24 +177,38 @@ BERT_TRAIN_B = 32
 BERT_INFER_B = 128
 BERT_STEPS = 10
 # the kernels each driven path must launch
+# bf16 AMP training (the bench's amp=True): the flash kernels' bf16 form;
+# the marked FFN runs no kernel (the JAX package's XLA tier)
+AMP_FLASH_KERNELS = ('flash_attention_bf16', 'flash_attention_bf16_bwd_dq',
+                     'flash_attention_bf16_bwd_dkv')
+AMP_TRAIN_KERNELS = ('embedding_gather', 'fused_ln_residual',
+                     'softmax_ce_fwd', 'softmax_ce_bwd',
+                     'fused_ln_residual_bwd', 'fused_adam') + AMP_FLASH_KERNELS
+# ... and must not launch
+AMP_IDLE_KERNELS = ('fused_ffn',) + FLASH_KERNELS
+AMP_TRAIN_B = 64            # bench.py:1062
+AMP_BERT_B = 128            # bench.py:1131
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'train': TRAIN_KERNELS,
                 'train_flash': FLASH_TRAIN_KERNELS,
-                'bert': FLASH_TRAIN_KERNELS}
+                'bert': FLASH_TRAIN_KERNELS, 'train_amp': AMP_TRAIN_KERNELS,
+                'bert_amp': AMP_TRAIN_KERNELS}
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes, flops, product_flops=0):
+def bound(nbytes, flops, product_flops=0, bf16_flops=0):
     """{bound_ms, bound_by}: the larger of bytes over HBM bandwidth and the
     operations' time, where the flops of matrix products
     (``product_flops``) count at the f32-accurate tensor-core rate (165
-    TFLOP/s) and the other ``flops`` at the f32 CUDA-core peak (67). A
-    kernel with matrix products also gets ``bound_simt_ms``, every flop at
-    67 TFLOP/s, the rule of the tables before the tensor-core kernels."""
+    TFLOP/s), those of bf16 products (``bf16_flops``) at the bf16 rate (989)
+    and the other ``flops`` at the f32 CUDA-core peak (67). A kernel with
+    float32 matrix products also gets ``bound_simt_ms``, every flop at 67
+    TFLOP/s, the rule of the tables before the tensor-core kernels."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (product_flops / PEAK_TF32X3_FLOPS + flops / PEAK_F32_FLOPS) * 1e3
+    t_ops = (product_flops / PEAK_TF32X3_FLOPS + flops / PEAK_F32_FLOPS +
+             bf16_flops / PEAK_BF16_FLOPS) * 1e3
     out = dict(bound_ms=t_bytes, bound_by='bytes') if t_bytes >= t_ops \
         else dict(bound_ms=t_ops, bound_by='operations')
     if product_flops:
@@ -259,9 +303,10 @@ def backward_ms(torch, fwd, inputs, grad, calls=10, replays=5):
 
 def step_profile(torch, fn, steps=10):
     """Device time of ``steps`` eager calls of ``fn`` by torch.profiler:
-    the wall time, the summed kernel time, the busy share, and the kernels
-    taking the most device time. ``busy_share`` is None when the profiler
-    recorded no device time (then it was not measured)."""
+    the wall time, the summed kernel time, the busy share, the kernels
+    taking the most device time and the host ops that launched the most of
+    it. ``busy_share`` is None when the profiler recorded no device time
+    (then it was not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -272,19 +317,27 @@ def step_profile(torch, fn, steps=10):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
+    # the host-side ops that launched the device time (each kernel counted
+    # once, under the op that launched it)
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+
+    def top(evs, n):
+        return [dict(name=e.key[:60], count=e.count,
+                     ms_per_step=e.self_device_time_total / 1e3 / steps)
+                for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                                reverse=True)[:n]]
+
     return dict(
         steps=steps, wall_ms_per_step=wall_ms / steps,
         device_ms_per_step=dev_ms / steps,
         busy_share=dev_ms / wall_ms if dev_ms > 0 else None,
         launches_per_step=sum(e.count for e in kernels) / steps,
-        top=[dict(name=e.key[:60], count=e.count,
-                  ms_per_step=e.self_device_time_total / 1e3 / steps)
-             for e in top])
+        top=top(kernels, 10), top_ops=top(ops, 10))
 
 
 def ptxas_report(log):
@@ -855,10 +908,14 @@ def finish_kernel_checks(phase, out):
                                               res['tolerance']))
 
 
-def check_flash_kernels(torch, F):
-    """Phase 8: the three flash kernels at the LM training shape and at
-    BERT's (with the key-padding bias). Returns {kernel name: summary}."""
+def check_flash_kernels(torch, F, dtype=None):
+    """Phases 8 and 13: the three flash kernels at the LM training shape and
+    at BERT's (with the key-padding bias), on float32 operands (phase 8) or
+    on bf16 ones (phase 13, ``dtype`` bf16: the bf16 kernels at the AMP
+    step's B 64). Returns {kernel name: summary}."""
     from paddle_tpu_torch.ops import attention_ops as A
+    dtype = dtype or torch.float32
+    low = dtype == torch.bfloat16
     dev = torch.device('cuda', 0)
     g = torch.Generator(device=dev).manual_seed(777)
     lens = np.random.RandomState(11).randint(32, 129, size=BERT_INFER_B)
@@ -866,24 +923,31 @@ def check_flash_kernels(torch, F):
     bias = torch.zeros(BERT_INFER_B, 128)
     for i, n in enumerate(lens):
         bias[i, n:] = -1e9
-    shapes = [dict(shape='lm_train', B=TRAIN_B, H=8, L=512, dh=64,
-                   causal=True, bias=None, pairs=TRAIN_B * 8 * 512 * 513 // 2),
+    lm_b = AMP_TRAIN_B if low else TRAIN_B
+    shapes = [dict(shape='lm_train', B=lm_b, H=8, L=512, dh=64,
+                   causal=True, bias=None, pairs=lm_b * 8 * 512 * 513 // 2),
               dict(shape='bert', B=BERT_INFER_B, H=12, L=128, dh=64,
                    causal=False, bias=bias.to(dev),
                    pairs=12 * 128 * int(lens.sum()))]
-    names = FLASH_KERNELS
-    out = {n: dict(tolerance=1e-4, cases=[]) for n in names}
-    out[names[1]]['checked'] = out[names[2]]['checked'] = 'max_rel_err'
+    names = AMP_FLASH_KERNELS if low else FLASH_KERNELS
+    # float32: O and LSE within 1e-4 absolute, each gradient within 1e-4 of
+    # its largest magnitude; bf16: O, dQ, dK and dV within 1e-2 of each
+    # one's largest magnitude (one bf16 step is 2^-8 of an element), LSE
+    # within 1e-5 absolute (checked apart)
+    tol = 1e-2 if low else 1e-4
+    out = {n: dict(tolerance=tol, cases=[]) for n in names}
+    for n in (names if low else names[1:]):
+        out[n]['checked'] = 'max_rel_err'
     for sh in shapes:
         B, H, L, dh, causal, bias = (sh[k] for k in (
             'B', 'H', 'L', 'dh', 'causal', 'bias'))
         bh, scale = B * H, dh ** -0.5
-        q, k, v, do = (torch.randn((bh, L, dh), generator=g, device=dev)
-                       for _ in range(4))
+        q, k, v, do = (torch.randn((bh, L, dh), generator=g,
+                                   device=dev).to(dtype) for _ in range(4))
         args = (scale, causal, bias, H)
         o, lse = A._flash_fwd(q, k, v, *args)
         o_ref, lse_ref = A._attention_ref(q, k, v, *args)
-        delta = (do * o).sum(dim=-1)
+        delta = A._delta(do, o)
         dq = A._flash_bwd_dq(q, k, v, do, lse, delta, *args)
         dk, dv = A._flash_bwd_dkv(q, k, v, do, lse, delta, *args)
         dq_ref = A._bwd_dq_ref(q, k, v, do, lse, delta, *args)
@@ -900,17 +964,23 @@ def check_flash_kernels(torch, F):
             if not padded_zero or int((~live).sum()) != H:
                 raise AssertionError('the wholly padded element is not '
                                      'exactly 0 in O, dQ, dK and dV')
+        lse_err = float((lse - lse_ref)[live].abs().max())
+        if low and not lse_err <= 1e-5:
+            raise AssertionError('%s: LSE differs from its plain version by '
+                                 '%g > 1e-5' % (names[0], lse_err))
 
         def rel(got, want):
-            return float((got - want).abs().max() / want.abs().max())
+            return float((got.float() - want.float()).abs().max()
+                         / want.float().abs().max())
 
         common = dict(shape=sh['shape'], bh=bh, L=L, dh=dh, causal=causal,
                       biased=bias is not None, visible_pairs=sh['pairs'],
                       padded_element_exactly_zero=padded_zero)
-        mat, row = bh * L * dh * 4, bh * L * 4
+        size = 2 if low else 4
+        mat, row = bh * L * dh * size, bh * L * 4
         extra = 0 if bias is None else bias.numel() * 4
         q4, k4, v4, do4 = (t.view(B, H, L, dh) for t in (q, k, v, do))
-        mask4 = None if bias is None else bias.view(B, 1, 1, L)
+        mask4 = None if bias is None else bias.view(B, 1, 1, L).to(dtype)
 
         def sdpa(a, b, c):
             return F.scaled_dot_product_attention(a, b, c, attn_mask=mask4,
@@ -929,39 +999,43 @@ def check_flash_kernels(torch, F):
 
         def case(fn, plain, library, nbytes, flops, **errs):
             # every flop counted here is a matrix product's
+            products = dict(bf16_flops=flops) if low else \
+                dict(product_flops=flops)
             return dict(common, ms=cuda_ms(torch, fn, calls=10, replays=5),
                         eager_ms=eager_ms(torch, fn, iters=10, warmup=2),
                         plain_ms=cuda_ms(torch, plain, calls=5, replays=5),
-                        **library, **bound(nbytes, 0, flops), **errs)
+                        **library, **bound(nbytes, 0, **products), **errs)
 
+        fwd_errs = dict(max_abs_err=max(float((o.float() - o_ref.float())
+                                              .abs().max()), lse_err))
+        if low:
+            fwd_errs.update(max_rel_err=rel(o, o_ref), lse_abs_err=lse_err)
         out[names[0]]['cases'].append(case(
             lambda: A._flash_fwd(q, k, v, *args),
             lambda: A._attention_ref(q, k, v, *args),
             dict(library_ms=cuda_ms(torch, lambda: sdpa(q4, k4, v4), calls=10,
                                     replays=5)),
             4 * mat + row + extra, 4 * dh * sh['pairs'],
-            max_abs_err=max(float((o - o_ref).abs().max()),
-                            float((lse - lse_ref)[live].abs().max())),
             deterministic=same_bits(torch, lambda: A._flash_fwd(
-                q, k, v, *args))))
+                q, k, v, *args)), **fwd_errs))
         out[names[1]]['cases'].append(case(
             lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args),
             lib_bwd, 5 * mat + 2 * row + extra, 6 * dh * sh['pairs'],
-            max_abs_err=float((dq - dq_ref).abs().max()),
+            max_abs_err=float((dq.float() - dq_ref.float()).abs().max()),
             max_rel_err=rel(dq, dq_ref),
-            largest_magnitude=dict(dq=float(dq_ref.abs().max())),
+            largest_magnitude=dict(dq=float(dq_ref.float().abs().max())),
             deterministic=same_bits(torch, lambda: A._flash_bwd_dq(
                 q, k, v, do, lse, delta, *args))))
         out[names[2]]['cases'].append(case(
             lambda: A._flash_bwd_dkv(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dkv_ref(q, k, v, do, lse, delta, *args),
             lib_bwd, 6 * mat + 2 * row + extra, 8 * dh * sh['pairs'],
-            max_abs_err=max(float((dk - dk_ref).abs().max()),
-                            float((dv - dv_ref).abs().max())),
+            max_abs_err=max(float((dk.float() - dk_ref.float()).abs().max()),
+                            float((dv.float() - dv_ref.float()).abs().max())),
             max_rel_err=max(rel(dk, dk_ref), rel(dv, dv_ref)),
-            largest_magnitude=dict(dk=float(dk_ref.abs().max()),
-                                   dv=float(dv_ref.abs().max())),
+            largest_magnitude=dict(dk=float(dk_ref.float().abs().max()),
+                                   dv=float(dv_ref.float().abs().max())),
             deterministic=same_bits(torch, lambda: A._flash_bwd_dkv(
                 q, k, v, do, lse, delta, *args))))
         for name in names:
@@ -970,17 +1044,21 @@ def check_flash_kernels(torch, F):
                                      'the %s shape' % (name, sh['shape']))
         del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref
         del dv_ref, q4, k4, v4, do4
-    finish_kernel_checks('flash_kernel', out)
+        torch.cuda.empty_cache()
+    finish_kernel_checks('amp_flash_kernel' if low else 'flash_kernel', out)
     torch.cuda.empty_cache()
     return out
 
 
-def train_step_grads(torch, cfg, params, tok, lab, dev):
+def train_step_grads(torch, cfg, params, tok, lab, dev, amp=False):
     """(loss, {name: gradient on the CPU}, seconds) of one forward and
-    backward of the LM on ``dev``."""
+    backward of the LM on ``dev`` (bf16-marked with ``amp``)."""
+    from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models.transformer import TransformerLM
     model = TransformerLM(cfg, {k: v.to(dev) for k, v in params.items()},
                           cfg.seq_len)
+    if amp:
+        mixed_precision.rewrite_model_bf16(model)
     t = time.perf_counter()
     loss = model.loss(tok.to(dev), lab.to(dev))
     loss.backward()
@@ -988,26 +1066,38 @@ def train_step_grads(torch, cfg, params, tok, lab, dev):
     return float(loss.detach()), grads, time.perf_counter() - t
 
 
-def compare_train_step_with_cpu(torch, flash=False, unfused_card=None):
-    """Phases 6 and 9: one full-width training forward and backward on the
-    card and on the CPU, same weights and batch; with ``unfused_card`` (the
-    card's result of phase 6) also flash against unfused on the card.
-    Returns the card's (loss, gradients, seconds)."""
+def compare_train_step_with_cpu(torch, flash=False, unfused_card=None,
+                                amp=False, f32_card=None):
+    """Phases 6, 9 and 14: one full-width training forward and backward on
+    the card and on the CPU, same weights and batch; with ``unfused_card``
+    (the card's result of phase 6) also flash against unfused on the card.
+    With ``amp`` (phase 14, flash on) the model is bf16-marked, the limits
+    are bf16's (loss within 5e-3 relative, every gradient within 2e-2 of
+    its largest magnitude: the same roundings on both sides, float32 sums
+    in another order, so an element near a bf16 rounding boundary may land
+    a step away and move what follows), and the card's AMP step is set
+    beside ``f32_card`` (phase 9's card result) with no limit. Returns the
+    card's (loss, gradients, seconds)."""
     from paddle_tpu_torch.models.transformer import LMConfig, init_params
-    phase = 'flash_train_vs_cpu' if flash else 'train_vs_cpu'
+    phase = 'amp_train_vs_cpu' if amp else \
+        'flash_train_vs_cpu' if flash else 'train_vs_cpu'
     cfg = LMConfig(dropout=0.0, use_flash_attention=flash)
     params = init_params(cfg, 1, 'cpu')
     g = torch.Generator(device='cpu').manual_seed(5)
     tok = torch.randint(0, cfg.vocab_size, (2, cfg.seq_len), generator=g)
     lab = torch.randint(0, cfg.vocab_size, (2, cfg.seq_len), generator=g)
     card = train_step_grads(torch, cfg, params, tok, lab,
-                            torch.device('cuda', 0))
-    cpu = train_step_grads(torch, cfg, params, tok, lab, torch.device('cpu'))
+                            torch.device('cuda', 0), amp)
+    cpu = train_step_grads(torch, cfg, params, tok, lab, torch.device('cpu'),
+                           amp)
     summary = dict(phase=phase, batch=2, seq_len=cfg.seq_len, flash=flash,
-                   loss_card=card[0], loss_cpu=cpu[0], seconds_card=card[2],
-                   seconds_cpu=cpu[2])
+                   amp=amp, loss_card=card[0], loss_cpu=cpu[0],
+                   seconds_card=card[2], seconds_cpu=cpu[2])
     pairs = [('cpu', cpu)] + ([('unfused_card', unfused_card)]
-                              if unfused_card is not None else [])
+                              if unfused_card is not None else []) + \
+        ([('f32_card', f32_card)] if f32_card is not None else [])
+    loss_tol = 5e-3 * abs(cpu[0]) if amp else 1e-4
+    grad_tol = 2e-2 if amp else 1e-3
     failures = []
     for what, other in pairs:
         loss_err = abs(card[0] - other[0])
@@ -1017,11 +1107,14 @@ def compare_train_step_with_cpu(torch, flash=False, unfused_card=None):
         worst = max(grad_rel, key=grad_rel.get)
         summary['vs_' + what] = dict(
             loss_abs_err=loss_err, grad_rel_err_max=grad_rel[worst],
-            grad_rel_err_worst_param=worst)
-        if not (np.isfinite(card[0]) and loss_err <= 1e-4):
+            grad_rel_err_worst_param=worst,
+            grad_rel_err_median=float(np.median(list(grad_rel.values()))))
+        if what == 'f32_card':
+            continue            # AMP against float32: reported, no limit
+        if not (np.isfinite(card[0]) and loss_err <= loss_tol):
             failures.append('card vs %s training loss: %r vs %r'
                             % (what, card[0], other[0]))
-        if not grad_rel[worst] <= 1e-3:
+        if not grad_rel[worst] <= grad_tol:
             failures.append('card vs %s gradient of %s differs by %g of its '
                             'largest magnitude' % (what, worst,
                                                    grad_rel[worst]))
@@ -1031,38 +1124,48 @@ def compare_train_step_with_cpu(torch, flash=False, unfused_card=None):
     return card
 
 
-def run_training(torch, kt, phase, cfg, kernels, note=None):
-    """Phases 7 and 10: the flagship training step with ``cfg``. Returns
-    (summary, counts)."""
+def run_training(torch, kt, phase, cfg, kernels, note=None, amp=False,
+                 batch=TRAIN_B, idle=()):
+    """Phases 7, 10 and 15: the flagship training step with ``cfg`` at
+    ``batch`` sequences, bf16 AMP with ``amp`` (the model marked by
+    rewrite_model_bf16, Adam decorated); the kernels of ``idle`` must not
+    launch. Returns (summary, counts)."""
+    from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models.transformer import TransformerLM, init_params
     from paddle_tpu_torch.optimizer import Adam
     dev = torch.device('cuda', 0)
     model = TransformerLM(cfg, init_params(cfg, 2, dev), cfg.seq_len)
     opt = Adam(model.p, 1e-4, fuse=True)
+    marked = None
+    if amp:
+        marked = mixed_precision.rewrite_model_bf16(model)
+        opt = mixed_precision.decorate(opt)
     gen = torch.Generator(device=dev).manual_seed(2024)
     g = torch.Generator(device='cpu').manual_seed(6)
-    tok = torch.randint(0, cfg.vocab_size, (TRAIN_B, cfg.seq_len),
+    tok = torch.randint(0, cfg.vocab_size, (batch, cfg.seq_len),
                         generator=g).to(dev)
-    lab = torch.randint(0, cfg.vocab_size, (TRAIN_B, cfg.seq_len),
+    lab = torch.randint(0, cfg.vocab_size, (batch, cfg.seq_len),
                         generator=g).to(dev)
     summary, counts = timed_training(
         torch, kt, lambda: opt.minimize(model.loss(tok, lab, gen)),
-        TRAIN_STEPS, kernels)
+        TRAIN_STEPS, kernels, idle)
     summary = dict(
-        phase=phase, batch=TRAIN_B, seq_len=cfg.seq_len, dropout=cfg.dropout,
+        phase=phase, batch=batch, seq_len=cfg.seq_len, dropout=cfg.dropout,
         attn_dropout=cfg.attn_dropout, flash=model.flash_in_training(),
-        tokens_per_s=TRAIN_B * cfg.seq_len / (summary['step_ms'] / 1e3),
+        amp=amp, marked_sites=marked,
+        tokens_per_s=batch * cfg.seq_len / (summary['step_ms'] / 1e3),
         **summary)
     if note:
         summary['note'] = note
     return summary, counts
 
 
-def timed_training(torch, kt, step, steps, kernels):
+def timed_training(torch, kt, step, steps, kernels, idle=()):
     """Run ``step`` (one training step returning its loss) ``steps`` times
     with the launch counts set to 0 just before: the loss finite and fallen
-    by the last step, every kernel of ``kernels`` launched, the step's ms
-    (first step apart), peak memory and a profile of one more step."""
+    by the last step, every kernel of ``kernels`` launched and none of
+    ``idle``, the step's ms (first step apart), peak memory and a profile
+    of one more step."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kt.reset_counts()
@@ -1083,14 +1186,46 @@ def timed_training(torch, kt, step, steps, kernels):
     if not losses[-1] < losses[0]:
         raise AssertionError('the loss did not fall in %d steps: %s'
                              % (steps, losses))
-    idle = [k for k in kernels if counts[k] <= 0]
-    if idle:
-        raise AssertionError('training kernels never launched: %s' % idle)
+    never = [k for k in kernels if counts[k] <= 0]
+    if never:
+        raise AssertionError('training kernels never launched: %s' % never)
+    wrong = [k for k in idle if counts[k] > 0]
+    if wrong:
+        raise AssertionError('kernels off this path launched: %s' % wrong)
     return dict(steps=steps, losses=losses, loss_fall=losses[0] - losses[-1],
                 first_step_ms=(t1 - t0) * 1e3,
                 step_ms=(t2 - t1) / (steps - 1) * 1e3, peak_mem_bytes=peak,
                 launches=counts,
                 step_profile=step_profile(torch, step, steps=1)), counts
+
+
+def bert_batch(torch, cfg, n, seed, to):
+    """A BERT pretraining batch of ``n`` sequences on ``to`` whose
+    ``input_mask`` keeps key lengths drawn in 32..L."""
+    from paddle_tpu_torch.models import bert
+    rs = np.random.RandomState(seed)
+    feed = bert.make_pretrain_batch(cfg, n, rs)
+    for i, keep in enumerate(rs.randint(32, cfg.seq_len + 1, size=n)):
+        feed['input_mask'][i, keep:] = 0.0
+    return {k: torch.from_numpy(v).to(to) for k, v in feed.items()}
+
+
+def bert_forward_ms(torch, kt, model, feed):
+    """(ms of one inference forward, the launch counts of one, a profile of
+    two) at ``feed``'s batch."""
+    kt.reset_counts()
+    with torch.no_grad():
+        model.loss(is_test=True, **feed)
+        torch.cuda.synchronize()
+        counts = kt.launch_counts()
+        t = time.perf_counter()
+        for _ in range(5):
+            model.loss(is_test=True, **feed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / 5 * 1e3
+        profile = step_profile(
+            torch, lambda: model.loss(is_test=True, **feed), steps=2)
+    return ms, counts, profile
 
 
 def run_bert(torch, kt):
@@ -1104,11 +1239,7 @@ def run_bert(torch, kt):
     model = bert.BertPretrain(cfg, {k: v.to(dev) for k, v in params.items()})
 
     def batch(n, seed, to):
-        rs = np.random.RandomState(seed)
-        feed = bert.make_pretrain_batch(cfg, n, rs)
-        for i, keep in enumerate(rs.randint(32, cfg.seq_len + 1, size=n)):
-            feed['input_mask'][i, keep:] = 0.0
-        return {k: torch.from_numpy(v).to(to) for k, v in feed.items()}
+        return bert_batch(torch, cfg, n, seed, to)
 
     # (i) the inference losses on the card and on the CPU, (ii) flash
     # against unfused on the card, same weights
@@ -1134,18 +1265,8 @@ def run_bert(torch, kt):
 
     # (iii) the forward at the inference batch
     feed = batch(BERT_INFER_B, 2, dev)
-    kt.reset_counts()
-    with torch.no_grad():
-        model.loss(is_test=True, **feed)
-        torch.cuda.synchronize()
-        infer_counts = kt.launch_counts()
-        t = time.perf_counter()
-        for _ in range(5):
-            model.loss(is_test=True, **feed)
-        torch.cuda.synchronize()
-        infer_ms = (time.perf_counter() - t) / 5 * 1e3
-        infer_profile = step_profile(
-            torch, lambda: model.loss(is_test=True, **feed), steps=2)
+    infer_ms, infer_counts, infer_profile = bert_forward_ms(torch, kt, model,
+                                                            feed)
     del feed
     torch.cuda.empty_cache()
 
@@ -1175,6 +1296,63 @@ def run_bert(torch, kt):
                    samples_per_s=BERT_TRAIN_B / (train['step_ms'] / 1e3),
                    **train))
     return summary, counts
+
+
+def run_bert_amp(torch, kt, f32_infer_ms):
+    """Phase 16: BERT-base under bf16 AMP at the bench's B 128: the
+    inference forward (beside phase 12's float32 one, ``f32_infer_ms``), 10
+    training steps with attention dropout 0 (so that the biased bf16 flash
+    kernels train; every kernel of the AMP path launched, the float32 flash
+    kernels and the FFN kernel not), and the bench's own configuration
+    (attention dropout 0.1: the unfused branch with its two bf16 matmuls),
+    timed only. Returns (summary, counts of the training steps)."""
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import Adam
+    dev = torch.device('cuda', 0)
+    out = dict(phase='bert_amp', batch=AMP_BERT_B)
+    counts = None
+    for attn_dropout in (0.0, 0.1):
+        cfg = bert.BertConfig(attn_dropout=attn_dropout)
+        model = bert.BertPretrain(cfg, bert.init_params(cfg, 3, dev))
+        marked = mixed_precision.rewrite_model_bf16(model)
+        feed = bert_batch(torch, cfg, AMP_BERT_B, 3, dev)
+        opt = mixed_precision.decorate(Adam(model.p, 1e-4, fuse=True))
+        gen = torch.Generator(device=dev).manual_seed(77)
+        step = lambda: opt.minimize(model.loss(generator=gen, **feed)[0])
+        if attn_dropout:
+            # the bench's configuration: timed only
+            step()
+            torch.cuda.synchronize()
+            kt.reset_counts()
+            t = time.perf_counter()
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) / 3 * 1e3
+            out['bench_config'] = dict(
+                attn_dropout=attn_dropout, flash=model.flash_ok(False),
+                marked_sites=marked, step_ms=ms,
+                samples_per_s=AMP_BERT_B / (ms / 1e3),
+                launches_per_step={k: n / 3 for k, n in
+                                   kt.launch_counts().items()})
+        else:
+            ms, infer_counts, profile = bert_forward_ms(torch, kt, model,
+                                                        feed)
+            out['infer'] = dict(forward_ms=ms, f32_forward_ms=f32_infer_ms,
+                                samples_per_s=AMP_BERT_B / (ms / 1e3),
+                                launches=infer_counts, profile=profile)
+            train, counts = timed_training(torch, kt, step, BERT_STEPS,
+                                           AMP_TRAIN_KERNELS,
+                                           AMP_IDLE_KERNELS)
+            out['train'] = dict(attn_dropout=attn_dropout, dropout=cfg.dropout,
+                                flash=model.flash_ok(False),
+                                marked_sites=marked,
+                                samples_per_s=AMP_BERT_B /
+                                (train['step_ms'] / 1e3), **train)
+        del model, opt, feed, step
+        torch.cuda.empty_cache()
+    return out, counts
 
 
 def main():
@@ -1254,17 +1432,20 @@ def main():
             other[name]['train_flash'] = [lm_case]
         else:
             kernels[name] = flash[name]
-    compare_train_step_with_cpu(torch, flash=True, unfused_card=unfused_card)
+    flash_card = compare_train_step_with_cpu(torch, flash=True,
+                                             unfused_card=unfused_card)
     del unfused_card
     train_flash, by_path['train_flash'] = run_training(
         torch, kt, 'train_flash', LMConfig(attn_dropout=0.0),
         FLASH_TRAIN_KERNELS,
-        note="the bench's flagship row also sets amp=True, which is not "
-             "ported: this is f32")
+        note="the bench's flagship row with amp=False: float32 (phase 15 "
+             "runs its amp=True)")
     train_flash['unfused_step_ms'] = train['step_ms']
     train_flash['unfused_tokens_per_s'] = train['tokens_per_s']
     train_flash['unfused_peak_mem_bytes'] = train['peak_mem_bytes']
     emit(train_flash)
+    f32_flash_step = {k: train_flash[k] for k in (
+        'batch', 'step_ms', 'tokens_per_s', 'peak_mem_bytes')}
     del train, train_flash
     torch.cuda.empty_cache()
 
@@ -1276,7 +1457,37 @@ def main():
          (BERT_TRAIN_B, 2)], ffn_infer_rows=[BERT_INFER_B * bc.seq_len]))
     bert_summary, by_path['bert'] = run_bert(torch, kt)
     emit(bert_summary)
+    f32_infer_ms = bert_summary['infer']['forward_ms']
     del bert_summary
+    torch.cuda.empty_cache()
+
+    # bf16 AMP: the bf16 flash kernels, then the AMP training steps
+    amp_flash = check_flash_kernels(torch, F, torch.bfloat16)
+    for name in AMP_FLASH_KERNELS:
+        lm_case, bert_case = amp_flash[name]['cases']
+        other[name] = {'bert_amp': [bert_case]}
+        kernels[name] = amp_flash[name]
+    compare_train_step_with_cpu(torch, flash=True, amp=True,
+                                f32_card=flash_card)
+    del flash_card
+    train_amp, by_path['train_amp'] = run_training(
+        torch, kt, 'train_amp', LMConfig(attn_dropout=0.0),
+        AMP_TRAIN_KERNELS, amp=True, batch=AMP_TRAIN_B,
+        idle=AMP_IDLE_KERNELS)
+    emit(train_amp)
+    del train_amp
+    torch.cuda.empty_cache()
+    train_amp_b16, _ = run_training(
+        torch, kt, 'train_amp_b16', LMConfig(attn_dropout=0.0),
+        AMP_TRAIN_KERNELS, amp=True, batch=TRAIN_B, idle=AMP_IDLE_KERNELS,
+        note='like for like with phase 10 (f32_* keys)')
+    train_amp_b16.update({'f32_' + k: v for k, v in f32_flash_step.items()})
+    emit(train_amp_b16)
+    del train_amp_b16
+    torch.cuda.empty_cache()
+    bert_amp, by_path['bert_amp'] = run_bert_amp(torch, kt, f32_infer_ms)
+    emit(bert_amp)
+    del bert_amp
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {
@@ -1304,6 +1515,15 @@ def main():
         'flash_attention_bwd_dkv': ('paddle_tpu_torch/csrc/flash_attn_bwd.cu',
                                     'paddle_tpu/ops/attention_ops.py:329',
                                     'shape', 'lm_train'),
+        'flash_attention_bf16': ('paddle_tpu_torch/csrc/flash_attn_bf16_fwd.cu',
+                                 'paddle_tpu/ops/attention_ops.py:162',
+                                 'shape', 'lm_train'),
+        'flash_attention_bf16_bwd_dq': (
+            'paddle_tpu_torch/csrc/flash_attn_bf16_bwd.cu',
+            'paddle_tpu/ops/attention_ops.py:307', 'shape', 'lm_train'),
+        'flash_attention_bf16_bwd_dkv': (
+            'paddle_tpu_torch/csrc/flash_attn_bf16_bwd.cu',
+            'paddle_tpu/ops/attention_ops.py:329', 'shape', 'lm_train'),
     }
     line = []
     for name in kt.KERNELS:

@@ -9,7 +9,8 @@ CUDA kernels for the embedding gather, the fused residual-add + LayerNorm
 (forward and backward), flash attention (forward, dQ and dK/dV, with the
 key-padding bias), the FFN tail, the softmax cross-entropy (forward and
 backward) and multi-tensor Adam: one for each Pallas kernel of the JAX
-package. The JAX package ``paddle_tpu`` stays the reference; this
+package; and bf16 mixed-precision training (``contrib.mixed_precision``)
+with the bf16 form of the three flash kernels. The JAX package ``paddle_tpu`` stays the reference; this
 package imports ``torch`` and numpy only, never ``jax`` or ``paddle_tpu``.
 
 Entry points run on ``cuda:0`` unless the caller passes ``device='cpu'``.

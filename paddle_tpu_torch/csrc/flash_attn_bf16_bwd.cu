@@ -1,0 +1,534 @@
+// Flash attention backward (the FlashAttention-2 split) on bf16 operands
+// with float32 accumulation, the bf16 form of flash_attn_bwd.cu: two kernels
+// over q, k, v, dO [BH, L, DH] bf16, the forward's LSE [BH, L] float32 and
+// delta = rowsum(dO * O) [BH, L] float32 (taken over the bf16 values).
+// Both recompute, per (query tile, key tile),
+//   S  = scale · Q K^T + bias          float32
+//   P  = exp(S - LSE)                  float32 (0 where masked or dropped)
+//   dP = dO V^T                        float32
+//   dS = P · (dP - delta) · scale      float32
+// and then, with P and dS rounded to bf16 before their products,
+//   dQ = bf16(dS) K                    (ptt_flash_attn_bf16_bwd_dq)
+//   dK = bf16(dS)^T Q, dV = bf16(P)^T dO   (ptt_flash_attn_bf16_bwd_dkv)
+// summed in float32 and written in bf16. The mask is causal (key j > query
+// i) or none; the optional bias [B, L] float32 is per key (row b of
+// [BH, ...] reads bias row b / n_heads), and a key whose bias is -1e8 or
+// lower is dropped: P of a masked or dropped entry is made 0 by a select,
+// so a wholly padded batch element gets exactly zero dQ, dK and dV.
+//
+// Replaces paddle_tpu/ops/attention_ops.py `_flash_bwd_pallas` as the JAX
+// package runs it under bf16 AMP: its first pallas_call (body
+// `_bwd_dq_kernel`, :184; dS cast to K's dtype before dS·K, :219) and its
+// second (body `_bwd_dkv_kernel`, :232; P cast to dO's dtype before P^T·dO,
+// :263, dS to Q's before dS^T·Q, :269), with and without `has_bias`; the
+// outputs in the input dtype (:312, :334-335).
+//
+// Bound on an H100: bytes at the models' shapes. dQ reads q, k, v, dO (bf16)
+// and writes dQ, 10·DH bytes a row, against 6·DH flops per visible pair at
+// 989 TFLOP/s; dK/dV reads the same and writes two outputs (12·DH bytes a
+// row) for 8·DH flops a pair. At L 512 causal and DH 64 a row's bytes take
+// ~0.19 / 0.23 ns and its 256 pairs' flops ~0.10 / 0.13 ns.
+//
+// Design: the f32 kernels' split on the bf16 tile. Every output element is
+// summed by exactly one warp in a fixed order: no atomics, and two calls
+// give the same bits.
+// - dQ: each warp owns 16 query rows (1, 2 or 4 warps a block, the most that
+//   still gives >= 132 blocks). Per key tile it computes S = Q K^T and dP =
+//   dO V^T into accumulator fragments (`mma.sync.m16n8k16`, Q and dO as A
+//   fragments and K and V rows as B fragments, all by ldmatrix from shared
+//   memory), forms P and dS there with the row's LSE and delta in
+//   registers, and adds bf16(dS) K: dS, packed two accumulator tiles at a
+//   time, is the A fragment as it stands, and K is read N-major by
+//   ldmatrix.trans.
+// - dK/dV: each warp owns 16 keys and works in the transposed form: S^T = K
+//   Q^T and dP^T = V dO^T, P^T and dS^T formed with LSE and delta indexed
+//   by column (the query, from the tile's shared copy) and the two keys'
+//   bias in registers; then dV += bf16(P^T) dO and dK += bf16(dS^T) Q, dO
+//   and Q read N-major.
+// - The streamed operand (K, V and the bias for dQ; Q, dO, LSE and delta for
+//   dK/dV) comes in tiles of 64 rows (32 at DH 128, where the accumulators
+//   take twice the registers), double-buffered through cp.async; causal
+//   tiles wholly above the diagonal are never loaded, and a warp skips the
+//   products of a loaded tile that lies wholly above its own rows. The
+//   warp's own 16 rows of its two fixed operands stay in shared memory and
+//   are read as A fragments by ldmatrix when used, which keeps registers
+//   for the accumulators.
+// - Rows and keys past L load as zeros and are masked, so any L works.
+// - Blocks are numbered (bh, tile) on gridDim.x alone, so batch × heads may
+//   exceed 65535.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bf16_mma.cuh"
+#include "tf32_mma.cuh"
+
+namespace {
+
+using namespace ptt;
+
+constexpr float kBiasDrop = -1e8f;  // a key with bias <= this is dropped
+constexpr int kSms = 132;
+
+// rows of a streamed tile: keys for dQ, queries for dK/dV
+template <int DH>
+constexpr int kTile = DH > 64 ? 32 : 64;
+
+// [2][NW·16][LD] the warp rows' fixed operands, [2][2][BT][LD] the streamed
+// tiles (bf16), [2][2][BT] float32 vectors (the bias, or LSE and delta)
+template <int DH, int NW>
+constexpr int smem_bytes() {
+  return (2 * NW * 16 + 4 * kTile<DH>) * kLdB<DH> * 2 + 4 * kTile<DH> * 4;
+}
+
+template <int DH, int NW>
+__global__ void __launch_bounds__(NW * 32)
+    flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ bias, bf16* __restrict__ dq,
+                      int L, int n_heads, float scale, int causal) {
+  constexpr int kThreads = NW * 32;
+  constexpr int LD = kLdB<DH>;
+  constexpr int BT = kTile<DH>;
+  constexpr int NT = BT / 8;   // 8-key tiles of S
+  constexpr int NO = DH / 8;   // 8-column tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [NW·16][LD]
+  bf16* Gs = Qs + NW * 16 * LD;                  // dO, the same rows
+  bf16* Ks = Gs + NW * 16 * LD;                  // [2][BT][LD]
+  bf16* Vs = Ks + 2 * BT * LD;                   // [2][BT][LD]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * BT * LD);  // [2][BT]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (L + NW * 16 - 1) / (NW * 16);
+  const int64_t bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t row0 = bh * L;
+  const int64_t off = row0 * DH;
+  const bf16* kb = k + off;
+  const bf16* vb = v + off;
+  const float* brow = bias ? bias + (bh / n_heads) * L : nullptr;
+  const int wr = warp * 16;        // the warp's first row in Qs and Gs
+  const int r0 = q0 + wr + g;      // this thread's rows: r0, r0 + 8
+
+  auto load_tile = [&](int buf, int j) {
+    const int k0 = j * BT;
+    load_rows_bf16<DH, BT, kThreads>(Ks + buf * BT * LD, kb, k0, L, tid);
+    load_rows_bf16<DH, BT, kThreads>(Vs + buf * BT * LD, vb, k0, L, tid);
+    if (brow != nullptr)
+      load_vec_f32<kThreads>(Bs + buf * BT, brow, k0, BT, L, tid);
+  };
+
+  load_rows_bf16<DH, NW * 16, kThreads>(Qs, q + off, q0, L, tid);
+  load_rows_bf16<DH, NW * 16, kThreads>(Gs, dout + off, q0, L, tid);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + h * 8;
+    lse_r[h] = r < L ? lse[row0 + r] : 0.f;
+    dl_r[h] = r < L ? delta[row0 + r] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int last_row = min(q0 + NW * 16, L) - 1;
+  const int nk = causal ? last_row / BT + 1 : (L + BT - 1) / BT;
+  const int warp_last = min(q0 + wr + 15, L - 1);
+  for (int j = 0; j < nk; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < nk) {
+      load_tile(buf ^ 1, j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j is in for every thread
+    const int k0 = j * BT;
+    if (!causal || k0 <= warp_last) {  // else the tile is above the diagonal
+      const bf16* ks = Ks + buf * BT * LD;
+      const bf16* vs = Vs + buf * BT * LD;
+      const float* bs = Bs + buf * BT;
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < DH / 16; ++s) {
+        uint32_t aq[4], ag[4];
+        load_a<DH>(aq, Qs, wr, 16 * s, lane);
+        load_a<DH>(ag, Gs, wr, 16 * s, lane);
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t b[4];
+          load_b_rows<DH>(b, ks, 8 * n, 16 * s, lane);
+          mma_bf16(sc[n], aq, b[0], b[1]);
+          mma_bf16(sc[n + 1], aq, b[2], b[3]);
+          load_b_rows<DH>(b, vs, 8 * n, 16 * s, lane);
+          mma_bf16(dp[n], ag, b[0], b[1]);
+          mma_bf16(dp[n + 1], ag, b[2], b[3]);
+        }
+      }
+      // dS in place of S
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 b2 = brow ? *reinterpret_cast<const float2*>(
+                                     bs + 8 * n + 2 * t)
+                               : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          const int h = e >> 1;
+          const float bv = (e & 1) ? b2.y : b2.x;
+          const bool keep = key < L && (!causal || key <= r0 + 8 * h) &&
+                            bv > kBiasDrop;
+          const float p =
+              keep ? __expf(sc[n][e] * scale + bv - lse_r[h]) : 0.f;
+          sc[n][e] = p * (dp[n][e] - dl_r[h]) * scale;
+        }
+      }
+      // dQ += bf16(dS) K, K read N-major
+#pragma unroll
+      for (int s = 0; s < BT / 16; ++s) {
+        uint32_t a[4];
+        pack_a(a, sc, s);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t b[4];
+          load_b_cols<DH>(b, ks, 16 * s, 8 * n, lane);
+          mma_bf16(acc[n], a, b[0], b[1]);
+          mma_bf16(acc[n + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before reuse
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + h * 8;
+    if (r >= L) continue;
+    bf16* out = dq + off + static_cast<int64_t>(r) * DH;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) =
+          pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+template <int DH, int NW>
+__global__ void __launch_bounds__(NW * 32)
+    flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const float* __restrict__ bias, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int L, int n_heads,
+                       float scale, int causal) {
+  constexpr int kThreads = NW * 32;
+  constexpr int LD = kLdB<DH>;
+  constexpr int BT = kTile<DH>;
+  constexpr int NT = BT / 8;   // 8-query tiles of S^T
+  constexpr int NO = DH / 8;   // 8-column tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [NW·16][LD]
+  bf16* Vs = Ks + NW * 16 * LD;                  // the same rows of V
+  bf16* Qs = Vs + NW * 16 * LD;                  // [2][BT][LD]
+  bf16* Gs = Qs + 2 * BT * LD;                   // [2][BT][LD] dO
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * BT * LD);  // [2][BT] LSE
+  float* Ds = Ls + 2 * BT;                                 // [2][BT] delta
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (L + NW * 16 - 1) / (NW * 16);
+  const int64_t bh = blockIdx.x / tiles;
+  const int kb0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t row0 = bh * L;
+  const int64_t off = row0 * DH;
+  const bf16* qb = q + off;
+  const bf16* gb = dout + off;
+  const float* brow = bias ? bias + (bh / n_heads) * L : nullptr;
+  const int wr = warp * 16;        // the warp's first row in Ks and Vs
+  const int key0 = kb0 + wr + g;   // this thread's keys: key0, key0 + 8
+
+  auto load_tile = [&](int buf, int j) {
+    const int q0 = j * BT;
+    load_rows_bf16<DH, BT, kThreads>(Qs + buf * BT * LD, qb, q0, L, tid);
+    load_rows_bf16<DH, BT, kThreads>(Gs + buf * BT * LD, gb, q0, L, tid);
+    load_vec_f32<kThreads>(Ls + buf * BT, lse + row0, q0, BT, L, tid);
+    load_vec_f32<kThreads>(Ds + buf * BT, delta + row0, q0, BT, L, tid);
+  };
+
+  // a query tile sees this block's keys iff its last row >= the first key
+  const int nq = (L + BT - 1) / BT;
+  const int j0 = causal ? kb0 / BT : 0;
+  load_rows_bf16<DH, NW * 16, kThreads>(Ks, k + off, kb0, L, tid);
+  load_rows_bf16<DH, NW * 16, kThreads>(Vs, v + off, kb0, L, tid);
+  load_tile(0, j0);
+  cp_async_commit();
+
+  // the two keys' bias and whether they are kept, for the whole kernel
+  float bk[2];
+  bool kk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + h * 8;
+    bk[h] = (brow != nullptr && key < L) ? brow[key] : 0.f;
+    kk[h] = key < L && bk[h] > kBiasDrop;
+  }
+  float acc_k[NO][4], acc_v[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  const int warp_first = kb0 + wr;
+  for (int j = j0; j < nq; ++j) {
+    const int buf = (j - j0) & 1;
+    if (j + 1 < nq) {
+      load_tile(buf ^ 1, j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j is in for every thread
+    const int q0 = j * BT;
+    // else every query of the tile is before the warp's keys
+    if (!causal || q0 + BT - 1 >= warp_first) {
+      const bf16* qs = Qs + buf * BT * LD;
+      const bf16* gs = Gs + buf * BT * LD;
+      const float* ls = Ls + buf * BT;
+      const float* ds = Ds + buf * BT;
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < DH / 16; ++s) {   // S^T = K Q^T, dP^T = V dO^T
+        uint32_t ak[4], av[4];
+        load_a<DH>(ak, Ks, wr, 16 * s, lane);
+        load_a<DH>(av, Vs, wr, 16 * s, lane);
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          uint32_t b[4];
+          load_b_rows<DH>(b, qs, 8 * n, 16 * s, lane);
+          mma_bf16(sc[n], ak, b[0], b[1]);
+          mma_bf16(sc[n + 1], ak, b[2], b[3]);
+          load_b_rows<DH>(b, gs, 8 * n, 16 * s, lane);
+          mma_bf16(dp[n], av, b[0], b[1]);
+          mma_bf16(dp[n + 1], av, b[2], b[3]);
+        }
+      }
+      // P^T in place of S^T, dS^T in place of dP^T
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int qc = 8 * n + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + qc);
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int query = q0 + qc + (e & 1);
+          const int h = e >> 1;
+          const bool keep = kk[h] && query < L &&
+                            (!causal || key0 + 8 * h <= query);
+          const float p =
+              keep ? __expf(sc[n][e] * scale + bk[h] -
+                            ((e & 1) ? l2.y : l2.x))
+                   : 0.f;
+          sc[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+        }
+      }
+      // dV += bf16(P^T) dO, dK += bf16(dS^T) Q; dO and Q read N-major
+#pragma unroll
+      for (int s = 0; s < BT / 16; ++s) {
+        uint32_t ap[4], ad[4];
+        pack_a(ap, sc, s);
+        pack_a(ad, dp, s);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t b[4];
+          load_b_cols<DH>(b, gs, 16 * s, 8 * n, lane);
+          mma_bf16(acc_v[n], ap, b[0], b[1]);
+          mma_bf16(acc_v[n + 1], ap, b[2], b[3]);
+          load_b_cols<DH>(b, qs, 16 * s, 8 * n, lane);
+          mma_bf16(acc_k[n], ad, b[0], b[1]);
+          mma_bf16(acc_k[n + 1], ad, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before reuse
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + h * 8;
+    if (key >= L) continue;
+    const int64_t at = off + static_cast<int64_t>(key) * DH;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) =
+          pack_bf16(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * n + 2 * t) =
+          pack_bf16(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+    }
+  }
+}
+
+struct Args {
+  const bf16 *q, *k, *v, *dout;
+  const float *lse, *delta, *bias;
+  int64_t bh, L;
+  int n_heads;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// Raise the kernel's dynamic shared-memory limit once per instantiation
+// (idempotent, so a racing second call is harmless), then launch one block
+// per (bh, ROWS-row tile); keeping the attribute out of later launches lets
+// them be captured in CUDA graphs.
+template <int ROWS, typename Kernel, typename... Out>
+int launch(Kernel kernel, int bytes, bool* configured, const Args& a,
+           Out... out) {
+  if (!*configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *configured = true;
+  }
+  const int64_t blocks = a.bh * ((a.L + ROWS - 1) / ROWS);
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), ROWS * 2, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, out...,
+      static_cast<int>(a.L), a.n_heads, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH, int NW>
+int launch_dq(const Args& a, bf16* dq) {
+  static bool configured = false;
+  return launch<NW * 16>(flash_bwd_dq_bf16<DH, NW>, smem_bytes<DH, NW>(),
+                         &configured, a, dq);
+}
+
+template <int DH, int NW>
+int launch_dkv(const Args& a, bf16* dk, bf16* dv) {
+  static bool configured = false;
+  return launch<NW * 16>(flash_bwd_dkv_bf16<DH, NW>, smem_bytes<DH, NW>(),
+                         &configured, a, dk, dv);
+}
+
+// 4 warps (64 rows) a block where that fills the card, else 2, else 1
+int warps_for(const Args& a) {
+  if (a.bh * ((a.L + 63) / 64) >= kSms) return 4;
+  if (a.bh * ((a.L + 31) / 32) >= kSms) return 2;
+  return 1;
+}
+
+template <int DH>
+int launch_dq_rows(const Args& a, bf16* dq) {
+  switch (warps_for(a)) {
+    case 4: return launch_dq<DH, 4>(a, dq);
+    case 2: return launch_dq<DH, 2>(a, dq);
+    default: return launch_dq<DH, 1>(a, dq);
+  }
+}
+
+template <int DH>
+int launch_dkv_rows(const Args& a, bf16* dk, bf16* dv) {
+  switch (warps_for(a)) {
+    case 4: return launch_dkv<DH, 4>(a, dk, dv);
+    case 2: return launch_dkv<DH, 2>(a, dk, dv);
+    default: return launch_dkv<DH, 1>(a, dk, dv);
+  }
+}
+
+// 0 when the call can launch, else the CUDA error to return
+int check_args(const void* q, const void* k, const void* v, const void* dout,
+               int64_t L, int64_t n_heads) {
+  if (n_heads <= 0 || L > INT32_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
+       15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return 0;
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, const void* bias,
+               int64_t bh, int64_t L, int64_t n_heads, float scale,
+               int causal, void* stream) {
+  return Args{static_cast<const bf16*>(q),      static_cast<const bf16*>(k),
+              static_cast<const bf16*>(v),      static_cast<const bf16*>(dout),
+              static_cast<const float*>(lse),   static_cast<const float*>(delta),
+              static_cast<const float*>(bias),  bh,
+              L,                                static_cast<int>(n_heads),
+              scale,                            causal,
+              static_cast<cudaStream_t>(stream)};
+}
+
+}  // namespace
+
+// q, k, v, dout, dq [bh, L, dh] bf16, q, k, v and dout 16-byte aligned; lse,
+// delta [bh, L] float32; bias null or [bh / n_heads, L] float32; all
+// contiguous; dh in {16, 32, 64, 128}. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a head width the kernel does not take).
+extern "C" int ptt_flash_attn_bf16_bwd_dq(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* delta,
+                                          const void* bias, void* dq,
+                                          int64_t bh, int64_t L, int64_t dh,
+                                          int64_t n_heads, float scale,
+                                          int causal, void* stream) {
+  if (bh <= 0 || L <= 0) return 0;
+  if (const int rc = check_args(q, k, v, dout, L, n_heads)) return rc;
+  const Args a = make_args(q, k, v, dout, lse, delta, bias, bh, L, n_heads,
+                           scale, causal, stream);
+  bf16* out = static_cast<bf16*>(dq);
+  switch (dh) {
+    case 16: return launch_dq_rows<16>(a, out);
+    case 32: return launch_dq_rows<32>(a, out);
+    case 64: return launch_dq_rows<64>(a, out);
+    case 128: return launch_dq_rows<128>(a, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// As ptt_flash_attn_bf16_bwd_dq, with outputs dk, dv [bh, L, dh] bf16.
+extern "C" int ptt_flash_attn_bf16_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* bias, void* dk, void* dv,
+    int64_t bh, int64_t L, int64_t dh, int64_t n_heads, float scale,
+    int causal, void* stream) {
+  if (bh <= 0 || L <= 0) return 0;
+  if (const int rc = check_args(q, k, v, dout, L, n_heads)) return rc;
+  const Args a = make_args(q, k, v, dout, lse, delta, bias, bh, L, n_heads,
+                           scale, causal, stream);
+  bf16* outk = static_cast<bf16*>(dk);
+  bf16* outv = static_cast<bf16*>(dv);
+  switch (dh) {
+    case 16: return launch_dkv_rows<16>(a, outk, outv);
+    case 32: return launch_dkv_rows<32>(a, outk, outv);
+    case 64: return launch_dkv_rows<64>(a, outk, outv);
+    case 128: return launch_dkv_rows<128>(a, outk, outv);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

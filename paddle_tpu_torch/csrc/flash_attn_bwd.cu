@@ -242,13 +242,15 @@ __global__ void __launch_bounds__(NW * 32)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * NW * 16;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * L;
+  const int tiles = (L + NW * 16 - 1) / (NW * 16);
+  const int64_t bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t row0 = bh * L;
   const int64_t off = row0 * DH;
   const float* kb = k + off;
   const float* vb = v + off;
   const float* brow =
-      bias ? bias + static_cast<int64_t>(blockIdx.y / n_heads) * L : nullptr;
+      bias ? bias + (bh / n_heads) * L : nullptr;
   const int wr = warp * 16;          // the warp's first row in Qs and Gs
   const int r0 = q0 + wr + g;        // this thread's rows: r0, r0 + 8
 
@@ -369,13 +371,15 @@ __global__ void __launch_bounds__(NW * 32)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int kb0 = blockIdx.x * NW * 16;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * L;
+  const int tiles = (L + NW * 16 - 1) / (NW * 16);
+  const int64_t bh = blockIdx.x / tiles;
+  const int kb0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t row0 = bh * L;
   const int64_t off = row0 * DH;
   const float* qb = q + off;
   const float* gb = dout + off;
   const float* brow =
-      bias ? bias + static_cast<int64_t>(blockIdx.y / n_heads) * L : nullptr;
+      bias ? bias + (bh / n_heads) * L : nullptr;
   const int wr = warp * 16;          // the warp's first row in Ks and Vs
   const int key0 = kb0 + wr + g;     // this thread's keys: key0, key0 + 8
 
@@ -486,7 +490,8 @@ struct Args {
 
 // Raise the kernel's dynamic shared-memory limit once per instantiation
 // (idempotent, so a racing second call is harmless), then launch one block
-// per (ROWS-row tile, bh); keeping the attribute out of later launches lets
+// per (bh, ROWS-row tile), numbered on gridDim.x alone so that bh may exceed
+// the 65535 of gridDim.y; keeping the attribute out of later launches lets
 // them be captured in CUDA graphs.
 template <int ROWS, typename Kernel, typename... Out>
 int launch(Kernel kernel, int bytes, bool* configured, const Args& a,
@@ -497,9 +502,9 @@ int launch(Kernel kernel, int bytes, bool* configured, const Args& a,
     if (err != cudaSuccess) return static_cast<int>(err);
     *configured = true;
   }
-  const dim3 grid(static_cast<unsigned>((a.L + ROWS - 1) / ROWS),
-                  static_cast<unsigned>(a.bh));
-  kernel<<<grid, ROWS * 2, bytes, a.stream>>>(
+  const int64_t blocks = a.bh * ((a.L + ROWS - 1) / ROWS);
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), ROWS * 2, bytes, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, out...,
       static_cast<int>(a.L), a.n_heads, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
@@ -546,8 +551,8 @@ int launch_dkv_rows(const Args& a, float* dk, float* dv) {
 
 // 0 when the call can launch, else the CUDA error to return
 int check_args(const void* q, const void* k, const void* v, const void* dout,
-               int64_t bh, int64_t L, int64_t n_heads) {
-  if (n_heads <= 0 || bh > 65535 || L > INT32_MAX / 2)
+               int64_t L, int64_t n_heads) {
+  if (n_heads <= 0 || L > INT32_MAX / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
@@ -582,7 +587,7 @@ extern "C" int ptt_flash_attn_bwd_dq(const void* q, const void* k,
                                      int64_t L, int64_t dh, int64_t n_heads,
                                      float scale, int causal, void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (const int rc = check_args(q, k, v, dout, bh, L, n_heads)) return rc;
+  if (const int rc = check_args(q, k, v, dout, L, n_heads)) return rc;
   const Args a = make_args(q, k, v, dout, lse, delta, bias, bh, L, n_heads,
                            scale, causal, stream);
   float* out = static_cast<float*>(dq);
@@ -604,7 +609,7 @@ extern "C" int ptt_flash_attn_bwd_dkv(const void* q, const void* k,
                                       int64_t n_heads, float scale, int causal,
                                       void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (const int rc = check_args(q, k, v, dout, bh, L, n_heads)) return rc;
+  if (const int rc = check_args(q, k, v, dout, L, n_heads)) return rc;
   const Args a = make_args(q, k, v, dout, lse, delta, bias, bh, L, n_heads,
                            scale, causal, stream);
   float* outk = static_cast<float*>(dk);

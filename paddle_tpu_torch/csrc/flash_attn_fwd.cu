@@ -89,13 +89,15 @@ __global__ void __launch_bounds__(NW * 32)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * NW * 16;
-  const int64_t off = static_cast<int64_t>(blockIdx.y) * L * DH;
+  const int tiles = (L + NW * 16 - 1) / (NW * 16);
+  const int64_t bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t off = bh * L * DH;
   const float* qb = q + off;
   const float* kb = k + off;
   const float* vb = v + off;
   const float* brow =
-      bias ? bias + static_cast<int64_t>(blockIdx.y / n_heads) * L : nullptr;
+      bias ? bias + (bh / n_heads) * L : nullptr;
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
 
   const int last_row = min(q0 + NW * 16, L) - 1;
@@ -307,7 +309,7 @@ __global__ void __launch_bounds__(NW * 32)
       *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
           make_float2(oacc[n][2 * h] / l, oacc[n][2 * h + 1] / l);
     if (t == 0)
-      lse[static_cast<int64_t>(blockIdx.y) * L + row] = m_r[h] + logf(l);
+      lse[bh * L + row] = m_r[h] + logf(l);
   }
 }
 
@@ -327,9 +329,12 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(static_cast<unsigned>((L + NW * 16 - 1) / (NW * 16)),
-                  static_cast<unsigned>(bh));
-  flash_fwd_tc<DH, NW><<<grid, NW * 32, bytes, stream>>>(
+  // blocks numbered (bh, query tile) on gridDim.x alone: bh may exceed the
+  // 65535 of gridDim.y
+  const int64_t blocks = bh * ((L + NW * 16 - 1) / (NW * 16));
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_tc<DH, NW><<<static_cast<unsigned>(blocks), NW * 32, bytes,
+                         stream>>>(
       q, k, v, bias, o, lse, static_cast<int>(L), n_heads, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -362,7 +367,7 @@ extern "C" int ptt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   int64_t n_heads, float scale, int causal,
                                   void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (n_heads <= 0 || bh > 65535 || L > INT32_MAX / 2)
+  if (n_heads <= 0 || L > INT32_MAX / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &

@@ -31,12 +31,18 @@
 // 4096 still fits), reduces the two row means with warp shuffles and, in
 // its second sweep, reads s again (from L1 or L2: the warp has just read
 // it) to recompute x_hat. No shared memory, no block-level synchronisation.
+// Rows wider than 4096 (up to 8192, the JAX package's Pallas limit) take
+// the `_wide` kernels: the same lanes, sums and order, with each sweep a
+// strided loop that reads its row again (s written by the forward's first
+// sweep, dy and s in the backward's second) instead of holding it in
+// registers, so the bits equal what a register-resident row would give.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxD = 8192;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -87,6 +93,44 @@ __global__ void ln_res_fwd(const float* __restrict__ x,
     const int c = lane + 32 * k;
     if (c < D) y_out[base + c] = v[k] * rstd * scale[c] + bias[c];
   }
+  if (lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+}
+
+// the forward of a row too wide for registers: s written in the first sweep
+// and read back (by the same thread) in the second and third
+__global__ void ln_res_fwd_wide(const float* __restrict__ x,
+                                const float* __restrict__ r,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ bias,
+                                float* __restrict__ s_out,
+                                float* __restrict__ y_out,
+                                float* __restrict__ mean_out,
+                                float* __restrict__ rstd_out, int64_t n, int D,
+                                float eps) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n) return;  // the whole warp shares the row: no shuffle is cut
+  const int64_t base = row * D;
+  float sum = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float t = x[base + c] + r[base + c];
+    s_out[base + c] = t;
+    sum += t;
+  }
+  const float mean = warp_sum(sum) / static_cast<float>(D);
+  float sq = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float d = s_out[base + c] - mean;
+    sq += d * d;
+  }
+  const float rstd =
+      1.f / sqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
+  for (int c = lane; c < D; c += 32)
+    y_out[base + c] = (s_out[base + c] - mean) * rstd * scale[c] + bias[c];
   if (lane == 0) {
     mean_out[row] = mean;
     rstd_out[row] = rstd;
@@ -144,6 +188,38 @@ __global__ void ln_res_bwd(const float* __restrict__ s,
   }
 }
 
+// the backward of a row too wide for registers: dy·scale recomputed in the
+// second sweep
+__global__ void ln_res_bwd_wide(const float* __restrict__ s,
+                                const float* __restrict__ mean,
+                                const float* __restrict__ rstd,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ dy,
+                                const float* __restrict__ ds,
+                                float* __restrict__ dx, int64_t n, int D) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n) return;  // the whole warp shares the row: no shuffle is cut
+  const int64_t base = row * D;
+  const float m = mean[row];
+  const float rs = rstd[row];
+  float sum1 = 0.f;
+  float sum2 = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float t = dy[base + c] * scale[c];
+    sum2 += t * ((s[base + c] - m) * rs);
+    sum1 += t;
+  }
+  const float mean1 = warp_sum(sum1) / static_cast<float>(D);
+  const float mean2 = warp_sum(sum2) / static_cast<float>(D);
+  for (int c = lane; c < D; c += 32) {
+    const float xhat = (s[base + c] - m) * rs;
+    const float t = dy[base + c] * scale[c];
+    dx[base + c] = rs * (t - mean1 - xhat * mean2) + ds[base + c];
+  }
+}
+
 template <int K>
 void launch_bwd(const float* s, const float* mean, const float* rstd,
                 const float* scale, const float* dy, const float* ds,
@@ -156,8 +232,9 @@ void launch_bwd(const float* s, const float* mean, const float* rstd,
 
 }  // namespace
 
-// Largest row width the register-resident kernel takes.
-extern "C" int ptt_ln_residual_max_d() { return 4096; }
+// Largest row width the kernels take (the JAX package's Pallas limit);
+// rows up to 4096 are register-resident.
+extern "C" int ptt_ln_residual_max_d() { return kMaxD; }
 
 // x, r, s, y [n, D] f32; scale, bias [D] f32; mean, rstd [n] f32; all
 // contiguous. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
@@ -178,8 +255,13 @@ extern "C" int ptt_ln_residual_fwd(const void* x, const void* r,
   float* mp = static_cast<float*>(mean);
   float* rs = static_cast<float*>(rstd);
   const int d = static_cast<int>(D);
-  if (D <= 0 || D > 4096) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 128) {
+  if (D <= 0 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 4096) {
+    const unsigned blocks =
+        static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    ln_res_fwd_wide<<<blocks, 32 * kWarpsPerBlock, 0, st>>>(
+        xp, rp, sc, bp, sp, yp, mp, rs, n, d, eps);
+  } else if (D <= 128) {
     launch<4>(xp, rp, sc, bp, sp, yp, mp, rs, n, d, eps, st);
   } else if (D <= 256) {
     launch<8>(xp, rp, sc, bp, sp, yp, mp, rs, n, d, eps, st);
@@ -203,7 +285,7 @@ extern "C" int ptt_ln_residual_bwd(const void* s, const void* mean,
                                    const void* dy, const void* ds, void* dx,
                                    int64_t n, int64_t D, void* stream) {
   if (n <= 0) return 0;
-  if (D <= 0 || D > 4096) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 0 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(s);
   const float* mp = static_cast<const float*>(mean);
@@ -213,7 +295,12 @@ extern "C" int ptt_ln_residual_bwd(const void* s, const void* mean,
   const float* dsp = static_cast<const float*>(ds);
   float* dxp = static_cast<float*>(dx);
   const int d = static_cast<int>(D);
-  if (D <= 128) {
+  if (D > 4096) {
+    const unsigned blocks =
+        static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    ln_res_bwd_wide<<<blocks, 32 * kWarpsPerBlock, 0, st>>>(
+        sp, mp, rp, sc, dyp, dsp, dxp, n, d);
+  } else if (D <= 128) {
     launch_bwd<4>(sp, mp, rp, sc, dyp, dsp, dxp, n, d, st);
   } else if (D <= 256) {
     launch_bwd<8>(sp, mp, rp, sc, dyp, dsp, dxp, n, d, st);

@@ -97,6 +97,13 @@ class BertPretrain(TransformerStack):
         return bool(self.cfg.use_flash_attention and
                     (is_test or not self.cfg.attn_dropout))
 
+    def forward_sites(self):
+        """The op types of the AMP sites one training forward runs, in the
+        order of `build_bert_pretrain`'s ops: each block's, then the four
+        head fcs (``mlm.trans``, ``mlm.out``, ``pooler``, ``nsp``)."""
+        return self._block_sites(self.flash_ok(False)) * self.cfg.n_layer \
+            + ['mul'] * 4
+
     def loss(self, tokens, segments, input_mask, mlm_positions, mlm_labels,
              nsp_labels, generator=None, is_test=False):
         """The losses of `build_bert_pretrain` for one batch: tokens and

@@ -25,6 +25,14 @@ zeroed and updated in place.
 (paddle_tpu_torch/models/bert.py), as `transformer_block` serves both
 models in the JAX package: the parameters under their JAX names and the
 pre-norm block of the training forward.
+
+Mixed precision: ``TransformerStack.amp`` maps an op type to its AMP dtype
+for the sites that `contrib.mixed_precision.rewrite_model_bf16` marked
+(empty: everything float32). The sites are the counterparts of the JAX
+program's ops: every fc's ``mul`` (:meth:`TransformerStack._fc`), the
+unfused attention's two ``matmul``s and ``flash_attention`` (in
+:meth:`TransformerStack._block`) and ``fused_ffn_tail`` (in
+:meth:`TransformerStack._post_attention`).
 """
 import collections
 
@@ -34,7 +42,8 @@ from torch import nn
 from ..ops.attention_ops import flash_attention
 from ..ops.ce_ops import fused_softmax_ce
 from ..ops.embedding_ops import embedding_gather
-from ..ops.ffn_ops import fused_ffn_core
+from ..ops.ffn_ops import fused_ffn_amp, fused_ffn_core
+from ..ops.math_ops import matmul, mul
 from ..ops.kv_cache_ops import (kv_cache_prefill, kv_cache_update,
                                 kv_decode_attention, sample_next_token)
 from ..ops.nn_ops import fused_ln_residual, layer_norm
@@ -120,8 +129,11 @@ def _key(name):
 class TransformerStack(nn.Module):
     """What the LM and BERT share: the parameters of ``shapes`` under their
     JAX names (``self.p``), the position table ``self.pe`` of ``max_len``
-    rows, and the pre-norm block of the training forward
-    (:meth:`_block`)."""
+    rows, the pre-norm block of the training forward (:meth:`_block`) and
+    the AMP marks of its sites (``self.amp``, {op type: dtype})."""
+
+    # the op types of the JAX program's ops that the sites stand for
+    SITE_TYPES = ('mul', 'matmul', 'flash_attention', 'fused_ffn_tail')
 
     def __init__(self, cfg, params, shapes, max_len):
         nn.Module.__init__(self)
@@ -134,13 +146,20 @@ class TransformerStack(nn.Module):
         self.register_buffer('pe', torch.from_numpy(
             position_encoding_table(self.max_len, cfg.d_model)).to(
                 self.device))
+        self.amp = {}
+
+    def _block_sites(self, flash):
+        """The op types of one block's sites, in the JAX program's order:
+        qkv, the attention, proj, the FFN tail."""
+        attn = ['flash_attention'] if flash else ['matmul', 'matmul']
+        return ['mul'] + attn + ['mul', 'fused_ffn_tail']
 
     @property
     def device(self):
         return next(iter(self.p.values())).device
 
     def _fc(self, x, name, bias=True):
-        y = torch.matmul(x, self.p[name + '.w'])
+        y = mul(x, self.p[name + '.w'], self.amp.get('mul'))
         return y + self.p[name + '.b'] if bias else y
 
     def _entry_ln(self, x, delta, name):
@@ -161,11 +180,13 @@ class TransformerStack(nn.Module):
         attn = self._fc(ctx, prefix + '.attn.proj')
         ln2, x, _, _ = fused_ln_residual(x, attn, self.p[prefix + '.ln2.w'],
                                          self.p[prefix + '.ln2.b'])
-        delta, _ = fused_ffn_core(ln2.reshape(-1, d),
-                                  self.p[prefix + '.ffn1.w'],
-                                  self.p[prefix + '.ffn1.b'],
-                                  self.p[prefix + '.ffn2.w'],
-                                  self.p[prefix + '.ffn2.b'], keep)
+        ffn = [ln2.reshape(-1, d)] + [self.p[prefix + n] for n in (
+            '.ffn1.w', '.ffn1.b', '.ffn2.w', '.ffn2.b')]
+        policy = self.amp.get('fused_ffn_tail')
+        if policy:
+            delta = fused_ffn_amp(*ffn, keep, policy=policy)
+        else:
+            delta, _ = fused_ffn_core(*ffn, keep)
         return x, delta.view(x.shape)
 
     def _block(self, x, delta, prefix, causal, mask=None,
@@ -188,12 +209,15 @@ class TransformerStack(nn.Module):
         q, k, v = qkv.view(B, L, 3, h, dh).permute(2, 0, 3, 1, 4)
         if mask is None:
             ctx = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal,
-                                  key_padding_bias=key_padding_bias)
+                                  key_padding_bias=key_padding_bias,
+                                  policy=self.amp.get('flash_attention'))
         else:
-            scores = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5 + mask
+            policy = self.amp.get('matmul')
+            scores = matmul(q, k.transpose(-1, -2), policy) * dh ** -0.5 \
+                + mask
             weights = dropout(torch.softmax(scores, dim=-1), attn_dropout,
                               generator)
-            ctx = torch.matmul(weights, v)
+            ctx = matmul(weights, v, policy)
         ctx = ctx.permute(0, 2, 1, 3).reshape(B, L, d)
         keep = keep_mask((B * L, d), dropout_prob, generator, x.device) \
             if dropout_prob else None
@@ -239,6 +263,12 @@ class TransformerLM(TransformerStack):
         unfused matmul, mask, softmax, dropout, matmul."""
         return bool(self.cfg.use_flash_attention and
                     not self.cfg.attn_dropout)
+
+    def forward_sites(self):
+        """The op types of the AMP sites one training forward runs, in the
+        order of `build_lm`'s ops: each block's, then lm_head's mul."""
+        return self._block_sites(self.flash_in_training()) * \
+            self.cfg.n_layer + ['mul']
 
     def loss(self, tokens, labels, generator=None):
         """The mean softmax cross-entropy of `build_lm`'s training program

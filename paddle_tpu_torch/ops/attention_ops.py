@@ -15,12 +15,25 @@ the CPU the forward is :func:`_attention_ref` and the backward
 :func:`_flash_bwd_ref`, the kernels' own arithmetic (P recomputed from the
 saved LSE, then the three products), not autograd of the forward. The bias
 is a mask and takes no gradient.
+
+Under bf16 AMP (``policy``, core/amp.py) float32 q, k and v are cast to
+bf16 and the same three products run in the kernels' bf16 form
+(``csrc/flash_attn_bf16_fwd.cu``, ``csrc/flash_attn_bf16_bwd.cu``), as the
+JAX package's kernels run on bf16 operands: S = Q K^T with float32
+accumulation; the scale, bias, mask, the online (m, l) and LSE in float32;
+P rounded to bf16 before P V and before P^T dO, dS rounded to bf16 before
+dS K and dS^T Q; delta = rowsum(dO * O) in float32 over the bf16 values; O,
+dQ, dK and dV come out in bf16. O goes back to float32 (and its cotangent
+is rounded to bf16 on the way in), as the JAX op's ``astype`` does. The
+plain versions take either dtype and repeat the bf16 roundings for bf16
+operands; the float32 arithmetic is unchanged.
 """
 import ctypes
 
 import torch
 
 from .. import native
+from ..core import amp
 from . import kernel_tier
 
 __all__ = ['flash_attention']
@@ -32,28 +45,52 @@ _BIAS_DROP = -1e8
 _fns = {}
 
 
-def _kernel(which):
-    fn = _fns.get(which)
+# per operand dtype: the kernel library of the forward and of the backward,
+# and the counted names of the forward, dQ and dK/dV kernels
+_ROUTES = {
+    torch.float32: ('flash_attn_fwd', 'flash_attn_bwd', 'ptt_flash_attn',
+                    ('flash_attention', 'flash_attention_bwd_dq',
+                     'flash_attention_bwd_dkv')),
+    torch.bfloat16: ('flash_attn_bf16_fwd', 'flash_attn_bf16_bwd',
+                     'ptt_flash_attn_bf16',
+                     ('flash_attention_bf16', 'flash_attention_bf16_bwd_dq',
+                      'flash_attention_bf16_bwd_dkv')),
+}
+
+
+def _kernel(which, dtype):
+    fn = _fns.get((which, dtype))
     if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
         tail = [I, I, I, I, F, ctypes.c_int, P]
+        fwd_lib, bwd_lib, prefix, _ = _ROUTES[dtype]
         if which == 'fwd':
-            fn = native.function('flash_attn_fwd', 'ptt_flash_attn_fwd',
-                                 [P] * 6 + tail)
+            fn = native.function(fwd_lib, prefix + '_fwd', [P] * 6 + tail)
         elif which == 'dq':
-            fn = native.function('flash_attn_bwd', 'ptt_flash_attn_bwd_dq',
-                                 [P] * 8 + tail)
+            fn = native.function(bwd_lib, prefix + '_bwd_dq', [P] * 8 + tail)
         else:
-            fn = native.function('flash_attn_bwd', 'ptt_flash_attn_bwd_dkv',
+            fn = native.function(bwd_lib, prefix + '_bwd_dkv',
                                  [P] * 9 + tail)
-        _fns[which] = fn
+        _fns[(which, dtype)] = fn
     return fn
+
+
+def _names(dtype):
+    """The counted names (forward, dQ, dK/dV) of the kernels for operands
+    of ``dtype``."""
+    return _ROUTES[dtype][3]
+
+
+def _round(x, dtype):
+    """``x`` rounded to ``dtype`` and back to float32 (no-op for float32):
+    where the bf16 kernels round P and dS before a product."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
 
 
 def _scores(q, k, scale, causal, bias, n_heads):
     """(s, keep): the scaled, biased scores [BH, L, L] with masked entries
     at -1e30, and the bool mask of the entries that keep a probability."""
-    s = torch.einsum('bqd,bkd->bqk', q, k) * scale
+    s = torch.einsum('bqd,bkd->bqk', q.float(), k.float()) * scale
     L = s.shape[1]
     keep = torch.ones((L, L), dtype=torch.bool, device=s.device)
     if causal:
@@ -72,12 +109,18 @@ def _scores(q, k, scale, causal, bias, n_heads):
 def _attention_ref(q, k, v, scale, causal, bias=None, n_heads=1):
     """Plain version of the forward kernel over [BH, L, dh]: (O, LSE).
     Masked and dropped keys get exactly zero weight; a row with every key
-    dropped gives O = 0 and LSE = max + log(1e-30), as the kernel does."""
+    dropped gives O = 0 and LSE = max + log(1e-30), as the kernel does.
+    For bf16 operands, P is rounded to bf16 before P V, the sum is divided
+    by l afterwards and O is returned in bf16, as the bf16 kernel does."""
     s, keep = _scores(q, k, scale, causal, bias, n_heads)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(keep, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum('bqk,bkd->bqd', p / l.clamp_min(1e-30), v)
+    if q.dtype == torch.float32:
+        o = torch.einsum('bqk,bkd->bqd', p / l.clamp_min(1e-30), v)
+    else:
+        o = (torch.einsum('bqk,bkd->bqd', _round(p, q.dtype), v.float())
+             / l.clamp_min(1e-30)).to(q.dtype)
     lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]
     return o, lse
 
@@ -90,48 +133,61 @@ def _p_and_ds(q, k, v, do, lse, delta, scale, causal, bias, n_heads):
     s, keep = _scores(q, k, scale, causal, bias, n_heads)
     p = torch.where(keep, torch.exp(s - lse[:, :, None]),
                     torch.zeros_like(s))
-    dp = torch.einsum('bqd,bkd->bqk', do, v)
+    dp = torch.einsum('bqd,bkd->bqk', do.float(), v.float())
     return p, p * (dp - delta[:, :, None]) * scale
 
 
 def _bwd_dq_ref(q, k, v, do, lse, delta, scale, causal, bias=None,
                 n_heads=1):
-    """Plain version of the dQ kernel: dQ = dS K."""
+    """Plain version of the dQ kernel: dQ = dS K (for bf16 operands dS
+    rounded to bf16 first and dQ returned in bf16)."""
     _, ds = _p_and_ds(q, k, v, do, lse, delta, scale, causal, bias, n_heads)
-    return torch.einsum('bqk,bkd->bqd', ds, k)
+    dq = torch.einsum('bqk,bkd->bqd', _round(ds, q.dtype), k.float())
+    return dq.to(q.dtype)
 
 
 def _bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal, bias=None,
                  n_heads=1):
-    """Plain version of the dK/dV kernel: (dK = dS^T Q, dV = P^T dO)."""
+    """Plain version of the dK/dV kernel: (dK = dS^T Q, dV = P^T dO) (for
+    bf16 operands P and dS rounded to bf16 first and dK, dV returned in
+    bf16)."""
     p, ds = _p_and_ds(q, k, v, do, lse, delta, scale, causal, bias, n_heads)
-    return (torch.einsum('bqk,bqd->bkd', ds, q),
-            torch.einsum('bqk,bqd->bkd', p, do))
+    dt = q.dtype
+    return (torch.einsum('bqk,bqd->bkd', _round(ds, dt), q.float()).to(dt),
+            torch.einsum('bqk,bqd->bkd', _round(p, dt), do.float()).to(dt))
 
 
 def _flash_bwd_ref(q, k, v, o, lse, do, scale, causal, bias=None, n_heads=1):
     """Plain version of the backward over [BH, L, dh]: (dQ, dK, dV), as the
     kernels compute them: delta = rowsum(dO * O), then each kernel's own
     recomputation of P and dS from the saved LSE, and its products."""
-    delta = (do * o).sum(dim=-1)
+    delta = _delta(do, o)
     dq = _bwd_dq_ref(q, k, v, do, lse, delta, scale, causal, bias, n_heads)
     dk, dv = _bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal, bias,
                           n_heads)
     return dq, dk, dv
 
 
+def _delta(do, o):
+    """delta = rowsum(dO * O) [BH, L] in float32 (over the bf16 values for
+    bf16 operands)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
 def _check_cuda_operands(q, k, v, bias, n_heads):
-    """Validate the kernels' operands; returns (bh, L, dh, device)."""
+    """Validate the kernels' operands (float32, or bf16 for the bf16
+    kernels); returns (bh, L, dh, device)."""
     bh, L, dh = q.shape
     if dh not in (16, 32, 64, 128):
         raise ValueError('flash_attention: the CUDA kernels take head '
                          'width 16, 32, 64 or 128, got %d' % dh)
-    if bh > 65535:
-        raise ValueError('flash_attention: batch*heads must be <= 65535')
+    if q.dtype not in _ROUTES:
+        raise ValueError('flash_attention: the CUDA kernels take float32 '
+                         'or bfloat16 operands, got %s' % q.dtype)
     dev = q.device
-    kernel_tier.require(q, 'q', (bh, L, dh))
-    kernel_tier.require(k, 'k', (bh, L, dh), device=dev)
-    kernel_tier.require(v, 'v', (bh, L, dh), device=dev)
+    kernel_tier.require(q, 'q', (bh, L, dh), dtype=q.dtype)
+    kernel_tier.require(k, 'k', (bh, L, dh), dtype=q.dtype, device=dev)
+    kernel_tier.require(v, 'v', (bh, L, dh), dtype=q.dtype, device=dev)
     if bias is not None:
         kernel_tier.require(bias, 'key_padding_bias', (bh // n_heads, L),
                             device=dev)
@@ -146,12 +202,13 @@ def _flash_fwd(q, k, v, scale, causal, bias=None, n_heads=1):
     bh, L, dh, dev = _check_cuda_operands(q, k, v, bias, n_heads)
     o = torch.empty_like(q)
     lse = torch.empty((bh, L), dtype=torch.float32, device=dev)
-    rc = _kernel('fwd')(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        kernel_tier.ptr(bias), o.data_ptr(), lse.data_ptr(),
-                        bh, L, dh, n_heads, scale, int(causal),
-                        kernel_tier.stream_ptr(q))
-    native.check(rc, 'flash_attention')
-    kernel_tier.count('flash_attention')
+    rc = _kernel('fwd', q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kernel_tier.ptr(bias),
+        o.data_ptr(), lse.data_ptr(), bh, L, dh, n_heads, scale, int(causal),
+        kernel_tier.stream_ptr(q))
+    name = _names(q.dtype)[0]
+    native.check(rc, name)
+    kernel_tier.count(name)
     return o, lse
 
 
@@ -159,7 +216,7 @@ def _bwd_operands(q, k, v, do, lse, delta, bias, n_heads):
     """Validate the backward kernels' operands; returns the leading
     pointer arguments and the trailing scalar ones' head (bh, L, dh)."""
     bh, L, dh, dev = _check_cuda_operands(q, k, v, bias, n_heads)
-    kernel_tier.require(do, 'do', (bh, L, dh), device=dev)
+    kernel_tier.require(do, 'do', (bh, L, dh), dtype=q.dtype, device=dev)
     kernel_tier.require(lse, 'lse', (bh, L), device=dev)
     kernel_tier.require(delta, 'delta', (bh, L), device=dev)
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -176,10 +233,11 @@ def _flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, bias=None,
                            n_heads)
     ins, dims = _bwd_operands(q, k, v, do, lse, delta, bias, n_heads)
     dq = torch.empty_like(q)
-    rc = _kernel('dq')(*ins, dq.data_ptr(), *dims, n_heads, scale,
-                       int(causal), kernel_tier.stream_ptr(q))
-    native.check(rc, 'flash_attention_bwd_dq')
-    kernel_tier.count('flash_attention_bwd_dq')
+    rc = _kernel('dq', q.dtype)(*ins, dq.data_ptr(), *dims, n_heads, scale,
+                                int(causal), kernel_tier.stream_ptr(q))
+    name = _names(q.dtype)[1]
+    native.check(rc, name)
+    kernel_tier.count(name)
     return dq
 
 
@@ -192,17 +250,19 @@ def _flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, bias=None,
                             n_heads)
     ins, dims = _bwd_operands(q, k, v, do, lse, delta, bias, n_heads)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _kernel('dkv')(*ins, dk.data_ptr(), dv.data_ptr(), *dims, n_heads,
-                        scale, int(causal), kernel_tier.stream_ptr(q))
-    native.check(rc, 'flash_attention_bwd_dkv')
-    kernel_tier.count('flash_attention_bwd_dkv')
+    rc = _kernel('dkv', q.dtype)(*ins, dk.data_ptr(), dv.data_ptr(), *dims,
+                                 n_heads, scale, int(causal),
+                                 kernel_tier.stream_ptr(q))
+    name = _names(q.dtype)[2]
+    native.check(rc, name)
+    kernel_tier.count(name)
     return dk, dv
 
 
 def _flash_bwd(q, k, v, o, lse, do, scale, causal, bias=None, n_heads=1):
     """(dQ, dK, dV) over [BH, L, dh]: delta = rowsum(dO * O) in plain
     PyTorch, then the two kernels (their plain versions on the CPU)."""
-    delta = (do * o).sum(dim=-1)
+    delta = _delta(do, o)
     dq = _flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, bias, n_heads)
     dk, dv = _flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, bias,
                             n_heads)
@@ -229,7 +289,7 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, scale=None, causal=True, return_lse=False,
-                    key_padding_bias=None, num_heads=1):
+                    key_padding_bias=None, num_heads=1, policy=None):
     """Softmax attention of q over k, v: [B, H, L, dh] or [BH, L, dh].
     ``scale`` defaults to dh**-0.5. ``key_padding_bias`` is an optional
     [B, L] f32 bias added to every query's score of a key (0 keeps a key,
@@ -237,7 +297,9 @@ def flash_attention(q, k, v, scale=None, causal=True, return_lse=False,
     how many consecutive rows share one bias row. Returns O shaped like q,
     and with ``return_lse=True`` also the per-row log-sum-exp ([B, H, L]
     or [BH, L], f32, not differentiable). Differentiable in q, k and v
-    where autograd records the call; the bias takes no gradient."""
+    where autograd records the call; the bias takes no gradient. Under the
+    AMP ``policy`` (core/amp.py) float32 q, k and v are cast to bf16, the
+    bf16 kernels run and O comes back in q's dtype."""
     shape4 = q.dim() == 4
     if shape4:
         b, h, L, dh = q.shape
@@ -257,12 +319,15 @@ def flash_attention(q, k, v, scale=None, causal=True, return_lse=False,
         bias = bias.detach().to(torch.float32).contiguous()
     # the kernels take contiguous [BH, L, dh]; the models hand in permuted
     # views of the QKV product
+    out_dtype = q.dtype
+    q, k, v = amp.cast_compute(policy, q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if kernel_tier.records_grad(q, k, v):
         o, lse = _FlashAttention.apply(q, k, v, bias, scale, bool(causal),
                                        num_heads)
     else:
         o, lse = _flash_fwd(q, k, v, scale, bool(causal), bias, num_heads)
+    o = o.to(out_dtype)
     if shape4:
         o = o.reshape(b, h, L, dh)
         lse = lse.reshape(b, h, L)

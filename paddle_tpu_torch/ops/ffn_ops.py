@@ -19,7 +19,9 @@ unit. On the CPU it runs :func:`_ffn_ref`. Where autograd records the call,
 :func:`fused_ffn_core` is an ``autograd.Function`` over that forward that
 saves (x, pre1, mask) and whose backward is `_ffn_bwd` in plain PyTorch
 (the mask on dy, GELU's factor recomputed from pre1, four matmuls): the JAX
-package computes it outside any Pallas kernel too.
+package computes it outside any Pallas kernel too. At an AMP-marked site
+the JAX package stands the Pallas kernel down and runs its XLA tier on bf16
+operands: :func:`fused_ffn_amp` is that math, with no kernel.
 """
 import ctypes
 import math
@@ -27,9 +29,10 @@ import math
 import torch
 
 from .. import native
-from . import kernel_tier
+from ..core import amp
+from . import kernel_tier, math_ops
 
-__all__ = ['fused_ffn_core']
+__all__ = ['fused_ffn_core', 'fused_ffn_amp']
 
 _SQRT_HALF = math.sqrt(0.5)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -189,6 +192,69 @@ class _FusedFFN(torch.autograd.Function):
     def backward(ctx, dy, _dpre1):
         x, w1, w2, pre1, mask = ctx.saved_tensors
         return _ffn_bwd(x, w1, w2, pre1, mask, dy) + (None,)
+
+
+def _gelu_cdf(pre1):
+    """Phi(x), the erf factor of exact GELU, as the JAX package's XLA tier
+    writes it."""
+    return 0.5 * (1.0 + torch.erf(pre1 * _SQRT_HALF))
+
+
+def _round(x, dtype):
+    return x.to(dtype).float()
+
+
+class _FusedFFNAmp(torch.autograd.Function):
+    """The FFN tail of a marked site: the JAX package's XLA tier of
+    `fused_ffn_core` on bf16 x, W1, W2 (:func:`fused_ffn_amp`)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, mask, dtype):
+        xc, w1c, w2c = (t.to(dtype) for t in (x, w1, w2))
+        pre1 = math_ops.bf16_product(xc, w1c) + b1
+        cdf = _gelu_cdf(pre1)
+        h = (pre1 * cdf).to(dtype)
+        y = (math_ops.bf16_product(h, w2c) + b2).to(dtype)
+        ctx.save_for_backward(xc, w1c, w2c, pre1, cdf, mask)
+        # without a mask the output is bf16 until the op's cast back to
+        # float32, whose transpose rounds the cotangent to bf16
+        return y.float() if mask is None else y.float() * mask
+
+    @staticmethod
+    def backward(ctx, dy):
+        xc, w1c, w2c, pre1, cdf, mask = ctx.saved_tensors
+        dt = xc.dtype
+        if mask is None:
+            dy = _round(dy, dt)
+        else:
+            dy = dy * mask
+        # `_ffn_bwd`: float32 products on the bf16-valued residuals, each
+        # gradient rounded to its residual's dtype (b1 and b2 to the
+        # weights' bf16, as the JAX package rounds them)
+        h = pre1 * cdf
+        db2 = _round(dy.sum(dim=0), dt)
+        dh = torch.matmul(dy, w2c.float().t())
+        dw2 = _round(torch.matmul(h.t(), dy), dt)
+        phi = torch.exp(-0.5 * pre1 * pre1) * _INV_SQRT_2PI
+        dpre1 = dh * (cdf + pre1 * phi)
+        db1 = _round(dpre1.sum(dim=0), dt)
+        dx = _round(torch.matmul(dpre1, w1c.float().t()), dt)
+        dw1 = _round(torch.matmul(xc.float().t(), dpre1), dt)
+        return dx, dw1, db1, dw2, db2, None, None
+
+
+def fused_ffn_amp(x, w1, b1, w2, b2, mask=None, policy='bfloat16'):
+    """The FFN tail of an AMP-marked site, y [N, d_out] float32 for rows x
+    [N, d_in] float32. Under AMP the JAX package stands its Pallas kernel
+    down and runs the XLA tier of `fused_ffn_core` on bf16 x, W1 and W2:
+    pre1 = x W1 (bf16 operands, float32 accumulation) + b1, h =
+    gelu(pre1) rounded to bf16, y = (h W2 + b2) rounded to bf16, times the
+    float32 ``mask``, returned as float32. So this launches no kernel: the
+    products are bf16 library GEMMs (ops/math_ops.py). Its backward is
+    `_ffn_bwd`: float32 products on the bf16-valued residuals (four
+    float32 GEMMs), dx, dW1, db1, dW2 and db2 rounded to bf16."""
+    dt = amp.compute_dtype(policy)
+    return _FusedFFNAmp.apply(x, w1, b1, w2, b2, mask, dt)
 
 
 def fused_ffn_core(x, w1, b1, w2, b2, mask=None, want_pre1=False):

@@ -22,7 +22,8 @@ __all__ = ['KERNELS', 'launch_counts', 'reset_counts', 'count', 'on_cuda',
 KERNELS = ('embedding_gather', 'fused_ln_residual', 'flash_attention',
            'fused_ffn', 'softmax_ce_fwd', 'softmax_ce_bwd',
            'fused_ln_residual_bwd', 'fused_adam', 'flash_attention_bwd_dq',
-           'flash_attention_bwd_dkv')
+           'flash_attention_bwd_dkv', 'flash_attention_bf16',
+           'flash_attention_bf16_bwd_dq', 'flash_attention_bf16_bwd_dkv')
 
 _counts = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()

@@ -70,10 +70,15 @@ def _ln_res_bwd_ref(s, m, rstd, scale, dy, ds):
     return rstd[:, None] * (dyw - mean1 - xhat * mean2) + ds
 
 
+# the widest row the CUDA kernels take (csrc/ln_residual.cu kMaxD), the JAX
+# package's Pallas limit; rows up to 4096 stay in registers
+_MAX_D = 8192
+
+
 def _check_width(D):
-    if D > 4096:
-        raise ValueError('fused_ln_residual: the CUDA kernels keep a row in '
-                         'registers and take D <= 4096, got %d' % D)
+    if D > _MAX_D:
+        raise ValueError('fused_ln_residual: the CUDA kernels take D <= %d, '
+                         'got %d' % (_MAX_D, D))
 
 
 def _ln_res_fwd(x2, r2, scale, bias, eps):

@@ -95,10 +95,23 @@ class Adam(object):
         for p in self.params:
             p.grad = None
 
-    def minimize(self, loss):
-        """``loss.backward()``, :meth:`step`, then clear the gradients.
-        Returns the loss, detached."""
+    def backward(self, loss):
+        """``loss.backward()``; returns [(parameter, gradient)] for the
+        parameters that received one, as Fluid's ``backward`` returns its
+        params_grads."""
         loss.backward()
+        return [(p, p.grad) for p in self.params if p.grad is not None]
+
+    def apply_gradients(self, params_grads):
+        """:meth:`step` over the parameters' gradients (``params_grads`` as
+        :meth:`backward` returns them: each parameter's own ``.grad``),
+        then clear them."""
         self.step()
         self.zero_grad()
+
+    def minimize(self, loss):
+        """:meth:`backward` then :meth:`apply_gradients`, as Fluid's
+        ``minimize`` runs them in one program. Returns the loss,
+        detached."""
+        self.apply_gradients(self.backward(loss))
         return loss.detach()

@@ -14,7 +14,12 @@ other f32 kernels, whose sums run in another order than the plain
 version's (1e-6 for the CE gradient, a probability times ct); the flash
 backward's gradients (3xTF32 products on the tensor cores, summed tile by
 tile) within 1e-4 of each tensor's largest magnitude, and bitwise equal
-from one call to the next.
+from one call to the next. The bf16 flash kernels (bf16 operands, float32
+sums, P and dS rounded to bf16 before their products) within 1e-2 of each
+output's largest magnitude of their plain versions, which round at the same
+places but sum in another order, so that an element near a bf16 rounding
+boundary may land one bf16 step (2^-8 of its magnitude) away; their LSE
+within 1e-5 (float32 sums of float32 exponentials).
 """
 import pytest
 import torch
@@ -59,7 +64,9 @@ def test_embedding_gather_kernel(dev, V, D):
     assert kernel_tier.launch_counts()['embedding_gather'] == before + 2
 
 
-@pytest.mark.parametrize('n,D', [(1, 96), (13, 512), (37, 1000), (5, 4096)])
+# widths up to 4096 stay in registers; 6144 and 8192 take the wide kernel
+@pytest.mark.parametrize('n,D', [(1, 96), (13, 512), (37, 1000), (5, 4096),
+                                 (9, 6144), (3, 8192)])
 def test_fused_ln_residual_kernel(dev, n, D):
     x, r = _randn(dev, n, D), _randn(dev, n, D, seed=1)
     sc, b = 1 + _randn(dev, D, scale=0.1, seed=2), _randn(dev, D, seed=3)
@@ -310,7 +317,7 @@ def test_softmax_ce_kernels(dev, n, V):
     assert loss[0] == 0 and not dx[0].any()
 
 
-@pytest.mark.parametrize('n,D', [(13, 256), (3, 4096), (37, 1000),
+@pytest.mark.parametrize('n,D', [(13, 256), (3, 4096), (9, 6144), (37, 1000),
                                  (64, 512)])
 def test_fused_ln_residual_backward_kernel(dev, n, D):
     x, r = _randn(dev, n, D), _randn(dev, n, D, seed=1)
@@ -439,3 +446,154 @@ def test_training_step_goes_through_the_kernels(dev):
               'softmax_ce_bwd', 'fused_adam'):
         assert counts[k] >= 1, k
     assert counts['flash_attention'] == 0
+
+
+BF16_FLASH = ('flash_attention_bf16', 'flash_attention_bf16_bwd_dq',
+              'flash_attention_bf16_bwd_dkv')
+
+
+def _bf16_flash_case(dev, B, H, L, dh, causal, bias):
+    """The three bf16 kernels and their plain versions on one set of bf16
+    inputs: (kernel outputs o, lse, dq, dk, dv; plain ones; launches)."""
+    q, k, v, do = (_randn(dev, B * H, L, dh, seed=s).to(torch.bfloat16)
+                   for s in range(4))
+    args = (dh ** -0.5, causal, bias, H)
+    before = kernel_tier.launch_counts()
+    o, lse = attention_ops._flash_fwd(q, k, v, *args)
+    dq, dk, dv = attention_ops._flash_bwd(q, k, v, o, lse, do, *args)
+    torch.cuda.synchronize()
+    after = kernel_tier.launch_counts()
+    o_ref, lse_ref = attention_ops._attention_ref(q, k, v, *args)
+    delta = attention_ops._delta(do, o)
+    want = (attention_ops._bwd_dq_ref(q, k, v, do, lse, delta, *args),) + \
+        attention_ops._bwd_dkv_ref(q, k, v, do, lse, delta, *args)
+    launched = {n: after[n] - before[n] for n in after}
+    return (o, lse, dq, dk, dv), (o_ref, lse_ref) + want, launched
+
+
+@pytest.mark.parametrize('all_padded', [False, True],
+                         ids=['tails', 'one-element-all-padded'])
+@pytest.mark.parametrize('causal', [False, True], ids=['full', 'causal'])
+@pytest.mark.parametrize('L,dh', [(1, 64), (63, 16), (65, 32), (200, 64),
+                                  (130, 128)])
+def test_flash_bf16_kernels_forward_and_backward(dev, L, dh, causal,
+                                                 all_padded):
+    """The three bf16 flash kernels against their plain versions, with and
+    without the key-padding bias, at lengths that are not multiples of the
+    tiles; a wholly padded element gives exact zeros."""
+    B, H = 3, 2
+    for bias in (None, _padding_bias(dev, B, L, all_padded)):
+        got, want, launched = _bf16_flash_case(dev, B, H, L, dh, causal, bias)
+        assert [launched[n] for n in BF16_FLASH] == [1, 1, 1]
+        assert launched['flash_attention'] == 0
+        assert launched['flash_attention_bwd_dq'] == 0
+        o, lse, dq, dk, dv = got
+        assert all(t.dtype == torch.bfloat16 for t in (o, dq, dk, dv))
+        live = slice(H if bias is not None and all_padded else 0, None)
+        assert _err(lse[live], want[1][live]) <= 1e-5
+        for g, w in zip((o, dq, dk, dv), want[:1] + want[2:]):
+            g, w = g.float(), w.float()
+            assert torch.isfinite(g).all()
+            assert _err(g, w) <= 1e-2 * max(1.0, float(w.abs().max()))
+        if bias is not None and all_padded:
+            for t in (o, dq, dk, dv):
+                assert not t[:H].any()
+
+
+@pytest.mark.parametrize('bh,L', [(8, 256), (40, 100), (256, 128)],
+                         ids=['16-row-tiles', '32-row-tiles', '64-row-tiles'])
+def test_flash_bf16_kernels_are_deterministic(dev, bh, L):
+    """Two calls of each bf16 kernel give the same bits, with and without
+    the padding bias, whatever rows a block owns."""
+    q, k, v, do = (_randn(dev, bh, L, 64, seed=s).to(torch.bfloat16)
+                   for s in range(4))
+    bias = _padding_bias(dev, bh // 4, L, True)
+    for b in (None, bias):
+        args = (0.125, b is None, b, 4)
+        first = attention_ops._flash_fwd(q, k, v, *args)
+        second = attention_ops._flash_fwd(q, k, v, *args)
+        ins = (q, k, v, do, first[1], attention_ops._delta(do, first[0])) \
+            + args
+        dq = [attention_ops._flash_bwd_dq(*ins) for _ in range(2)]
+        dkv = [attention_ops._flash_bwd_dkv(*ins) for _ in range(2)]
+        torch.cuda.synchronize()
+        for x, y in zip(first + (dq[0],) + dkv[0], second + (dq[1],) + dkv[1]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_kernels_take_more_than_65535_rows(dev, dtype):
+    """Batch x heads above 65535 (gridDim.y's limit): every row of the
+    forward and of both backward kernels against the plain versions."""
+    bh, L, dh = 65536 + 3, 8, 16
+    q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(dtype)
+                   for s in range(4))
+    args = (dh ** -0.5, True, None, 1)
+    o, lse = attention_ops._flash_fwd(q, k, v, *args)
+    delta = attention_ops._delta(do, o)
+    dq = attention_ops._flash_bwd_dq(q, k, v, do, lse, delta, *args)
+    dk, dv = attention_ops._flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    want = attention_ops._attention_ref(q, k, v, *args) + \
+        (attention_ops._bwd_dq_ref(q, k, v, do, lse, delta, *args),) + \
+        attention_ops._bwd_dkv_ref(q, k, v, do, lse, delta, *args)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w in zip((o, lse, dq, dk, dv), want):
+        g, w = g.float(), w.float()
+        assert _err(g, w) <= tol * max(1.0, float(w.abs().max()))
+        # the last rows too: a grid cut at 65535 would leave them unwritten
+        assert _err(g[-3:], w[-3:]) <= tol * max(1.0, float(w.abs().max()))
+
+
+def test_bf16_products_on_the_card_match_the_cpu(dev):
+    """The marked product's forward (a bf16 GEMM writing float32) and its
+    backward (the float32 cotangent as two bf16 terms) on the card against
+    the same arithmetic on the CPU: float32 sums in another order, so the
+    bf16-rounded gradients may differ by one bf16 step (2^-8) of an
+    element."""
+    from paddle_tpu_torch.ops import math_ops
+    x, w = _randn(dev, 64, 96), _randn(dev, 96, 80, scale=0.1, seed=1)
+    ct = _randn(dev, 64, 80, seed=2)
+    res = {}
+    for d in (dev, torch.device('cpu')):
+        a = [t.detach().to(d).requires_grad_() for t in (x, w)]
+        y = math_ops.mul(*a, 'bfloat16')
+        y.backward(ct.to(d))
+        res[d.type] = [t.cpu() for t in (y.detach(), a[0].grad, a[1].grad)]
+    assert res['cuda'][0].dtype == torch.float32
+    assert _err(res['cuda'][0], res['cpu'][0]) <= 1e-5 * float(
+        res['cpu'][0].abs().max())
+    for g, w_ in zip(res['cuda'][1:], res['cpu'][1:]):
+        assert _err(g, w_) <= 2 ** -8 * float(w_.abs().max())
+
+
+def test_amp_training_step_goes_through_the_bf16_kernels(dev):
+    """An AMP training step (marked LM, flash on) launches the bf16 flash
+    kernels once a layer each, neither the float32 flash kernels nor the
+    FFN kernel, and the float32 kernels of the unmarked ops; its loss is
+    within 5e-3 of the CPU's (the same arithmetic, sums in another order
+    across bf16 roundings)."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.optimizer import Adam
+    cfg = LMConfig(vocab_size=300, seq_len=32, d_model=64, n_head=2,
+                   n_layer=2, d_ff=128, dropout=0.0, attn_dropout=0.0)
+    params = init_params(cfg, 0, 'cpu')
+    g = torch.Generator(device='cpu').manual_seed(0)
+    tok = torch.randint(0, 300, (3, 32), generator=g)
+    losses = {}
+    for d in (dev, torch.device('cpu')):
+        m = TransformerLM(cfg, {k: v.to(d) for k, v in params.items()}, 32)
+        assert mp.rewrite_model_bf16(m) == 9
+        opt = mp.decorate(Adam(m.p, 1e-3, fuse=True))
+        kernel_tier.reset_counts()
+        losses[d.type] = float(opt.minimize(m.loss(tok.to(d), tok.to(d))))
+        counts = kernel_tier.launch_counts()
+        n = 2 if d.type == 'cuda' else 0
+        assert [counts[k] for k in BF16_FLASH] == [n, n, n]
+        for k in ('flash_attention', 'flash_attention_bwd_dq',
+                  'flash_attention_bwd_dkv', 'fused_ffn'):
+            assert counts[k] == 0, k
+        assert counts['fused_ln_residual'] == (5 if n else 0)
+        assert counts['fused_adam'] == (1 if n else 0)
+    assert abs(losses['cuda'] - losses['cpu']) <= 5e-3 * abs(losses['cpu'])
