@@ -95,7 +95,14 @@ Phases, each printing one JSON line:
    magnitude, LSE within 1e-5 absolute on the rows that keep a key, the
    padded element exactly 0, two calls bitwise equal; ``library_ms`` is
    bf16 ``F.scaled_dot_product_attention`` and its backward; ``bound_ms``
-   counts the products at the bf16 rate (989 TFLOP/s).
+   counts the products at the bf16 rate (989 TFLOP/s). The forward's
+   cases name its plan (query rows a block and a warp, raw products or
+   scaled scores), the registers and spilled bytes of the instantiation
+   it launched (no instantiation of it may spill), ``ms_over_library``,
+   the device kernels SDPA's call runs (``library_kernels``) and, without
+   a mask, SDPA's FlashAttention-2 backend forced (``library_fa2_ms``,
+   ``ms_over_fa2``): an mma.sync kernel, where SDPA's default on an H100
+   is cuDNN's wgmma one.
 14. amp_train_vs_cpu — phase 9 with the model bf16-marked
    (``rewrite_model_bf16``): card against CPU, loss within 5e-3 relative
    and every gradient within 2e-2 of its largest magnitude; then the
@@ -908,14 +915,44 @@ def finish_kernel_checks(phase, out):
                                               res['tolerance']))
 
 
-def check_flash_kernels(torch, F, dtype=None):
+def sdpa_yardsticks(torch, F, sdpa, q4, k4, v4, mask4, causal):
+    """What bf16 SDPA's time stands for: the device kernels one call of it
+    runs (``library_kernels``: on an H100 cuDNN's wgmma kernel), and the
+    time of its FlashAttention-2 backend forced (``library_fa2_ms``, an
+    mma.sync kernel like this repo's; None with a mask, which FA2 does not
+    take)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa(q4, k4, v4)
+        torch.cuda.synchronize()
+    # None where the profiler recorded no device kernel (not measured)
+    names = sorted({e.key[:100] for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA}) or None
+    fa2 = None
+    if mask4 is None:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            fa2 = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), calls=10, replays=5)
+    return dict(library_kernels=names, library_fa2_ms=fa2)
+
+
+def check_flash_kernels(torch, F, dtype=None, ptxas=None):
     """Phases 8 and 13: the three flash kernels at the LM training shape and
     at BERT's (with the key-padding bias), on float32 operands (phase 8) or
     on bf16 ones (phase 13, ``dtype`` bf16: the bf16 kernels at the AMP
-    step's B 64). Returns {kernel name: summary}."""
+    step's B 64; the forward's cases also name its plan and, from
+    ``ptxas`` (``ptxas_report`` of the build), the registers and spilled
+    bytes of the instantiation that plan launches; no instantiation of the
+    forward may spill). Returns {kernel name: summary}."""
     from paddle_tpu_torch.ops import attention_ops as A
     dtype = dtype or torch.float32
     low = dtype == torch.bfloat16
+    fwd_ptxas = (ptxas or {}).get('flash_attn_bf16_fwd', {})
+    if low:
+        spilled = {k: r for k, r in fwd_ptxas.items() if r[1] or r[2]}
+        if spilled:
+            raise AssertionError('the bf16 forward spills: %s' % spilled)
     dev = torch.device('cuda', 0)
     g = torch.Generator(device=dev).manual_seed(777)
     lens = np.random.RandomState(11).randint(32, 129, size=BERT_INFER_B)
@@ -1008,16 +1045,37 @@ def check_flash_kernels(torch, F, dtype=None):
 
         fwd_errs = dict(max_abs_err=max(float((o.float() - o_ref.float())
                                               .abs().max()), lse_err))
+        fwd_library = dict(library_ms=cuda_ms(torch, lambda: sdpa(q4, k4, v4),
+                                              calls=10, replays=5))
         if low:
             fwd_errs.update(max_rel_err=rel(o, o_ref), lse_abs_err=lse_err)
+            fwd_library.update(sdpa_yardsticks(torch, F, sdpa, q4, k4, v4,
+                                               mask4, causal))
+            # the plan the forward took: query rows a block and a warp,
+            # whether its scores are the raw products, and its instantiation
+            # flash_fwd_bf16<dh, warps, row tiles a warp, raw>
+            rows_block, rows_warp, raw = A._bf16_fwd_plan(
+                bh, L, dh, causal, bias is not None, scale)
+            kname = 'flash_fwd_bf16<%d, %d, %d, %d>' % (
+                dh, rows_block // rows_warp, rows_warp // 16, raw)
+            regs = fwd_ptxas.get(kname, [None] * 3)
+            fwd_errs.update(plan=dict(rows_block=rows_block,
+                                      rows_warp=rows_warp, raw=raw),
+                            kernel=kname, registers=regs[0],
+                            spill_store_bytes=regs[1],
+                            spill_load_bytes=regs[2])
         out[names[0]]['cases'].append(case(
             lambda: A._flash_fwd(q, k, v, *args),
             lambda: A._attention_ref(q, k, v, *args),
-            dict(library_ms=cuda_ms(torch, lambda: sdpa(q4, k4, v4), calls=10,
-                                    replays=5)),
+            fwd_library,
             4 * mat + row + extra, 4 * dh * sh['pairs'],
             deterministic=same_bits(torch, lambda: A._flash_fwd(
                 q, k, v, *args)), **fwd_errs))
+        if low:
+            fwd = out[names[0]]['cases'][-1]
+            fwd['ms_over_library'] = fwd['ms'] / fwd['library_ms']
+            if fwd['library_fa2_ms']:
+                fwd['ms_over_fa2'] = fwd['ms'] / fwd['library_fa2_ms']
         out[names[1]]['cases'].append(case(
             lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args),
@@ -1384,9 +1442,9 @@ def main():
 
     t0 = time.perf_counter()
     built = native.build()
+    ptxas = ptxas_report(built['log'])
     emit(dict(phase='build', seconds=time.perf_counter() - t0,
-              built=built['built'], nvcc=native.nvcc_path(),
-              ptxas=ptxas_report(built['log'])))
+              built=built['built'], nvcc=native.nvcc_path(), ptxas=ptxas))
 
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.models.transformer import LMConfig, param_shapes
@@ -1462,7 +1520,7 @@ def main():
     torch.cuda.empty_cache()
 
     # bf16 AMP: the bf16 flash kernels, then the AMP training steps
-    amp_flash = check_flash_kernels(torch, F, torch.bfloat16)
+    amp_flash = check_flash_kernels(torch, F, torch.bfloat16, ptxas)
     for name in AMP_FLASH_KERNELS:
         lm_case, bert_case = amp_flash[name]['cases']
         other[name] = {'bert_amp': [bert_case]}

@@ -1,7 +1,7 @@
 // Pieces shared by the bf16 tensor-core kernels (flash_attn_bf16_fwd.cu,
 // flash_attn_bf16_bwd.cu): the m16n8k16 bf16 product with float32
 // accumulation, ldmatrix loads of its operands from shared memory, packing
-// float32 accumulators into bf16 A fragments, and the tile loader. The
+// float32 accumulators into bf16 A fragments, 2^x, and the tile loader. The
 // cp.async helpers and the quad reductions come from tf32_mma.cuh.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 g + t):
@@ -99,6 +99,14 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (*c)[4],
   a[1] = pack_bf16(c[2 * s][2], c[2 * s][3]);
   a[2] = pack_bf16(c[2 * s + 1][0], c[2 * s + 1][1]);
   a[3] = pack_bf16(c[2 * s + 1][2], c[2 * s + 1][3]);
+}
+
+// 2^x as one instruction of the special-function unit (`ex2.approx.ftz`:
+// about 2^-22 relative error; a result below 2^-126, or x = -inf, gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // rows [r0, r0 + ROWS) of a [L, DH] bf16 matrix into a tile of padded rows,

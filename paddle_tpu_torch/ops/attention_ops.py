@@ -75,6 +75,24 @@ def _kernel(which, dtype):
     return fn
 
 
+def _bf16_fwd_plan(bh, L, dh, causal, biased, scale):
+    """(query rows a block, query rows a warp, raw) of the bf16 forward
+    kernel's launch with these arguments; ``raw``: its scores are the
+    products themselves (no bias, 0 < scale < 1e4). It builds the kernel
+    library: card machines only."""
+    fn = _fns.get('bf16_plan')
+    if fn is None:
+        I = ctypes.c_int64
+        fn = _fns['bf16_plan'] = native.function(
+            _ROUTES[torch.bfloat16][0], 'ptt_flash_attn_bf16_fwd_plan',
+            [I, I, I, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_void_p])
+    plan = (ctypes.c_int * 3)()
+    native.check(fn(bh, L, dh, int(causal), int(biased), scale, plan),
+                 'flash_attention_bf16 plan')
+    return plan[0], plan[1], bool(plan[2])
+
+
 def _names(dtype):
     """The counted names (forward, dQ, dK/dV) of the kernels for operands
     of ``dtype``."""

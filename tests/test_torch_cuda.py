@@ -521,6 +521,182 @@ def test_flash_bf16_kernels_are_deterministic(dev, bh, L):
             assert torch.equal(x, y)
 
 
+BF16_FWD_LENGTHS = (127, 128, 129, 256, 383, 512)
+
+
+def _bf16_fwd_plans(dh, causal):
+    """{query rows a block: query rows a warp} of the bf16 forward's plans
+    at head width ``dh``: 32 rows a warp at dh <= 64 without causal, else
+    16."""
+    if dh <= 64 and not causal:
+        return {128: 32, 64: 32, 32: 16, 16: 16}
+    return {64: 16, 32: 16, 16: 16}
+
+
+BF16_FWD_PLANS = [(dh, causal, rows) for dh in (16, 32, 64, 128)
+                  for causal in (False, True)
+                  for rows in _bf16_fwd_plans(dh, causal)]
+
+
+def _bh_for_rows(rows, L):
+    """A batch x heads at which the bf16 forward takes its plan of ``rows``
+    query rows a block: the fewest whose blocks give each of the card's 132
+    SMs one (3 for the 16-row plan, which takes what fills nothing)."""
+    return 3 if rows == 16 else -(-132 // -(-L // rows))
+
+
+def _tile_bias(dev, bh, L):
+    """[bh, L] key bias (-1e9 drops a key) whose dropped keys fill key tile
+    1 (keys 64-127), touch tile 2 (key 130) and, in every fourth element,
+    tile 0 (key 3) and the last tile (the last 37 keys), and miss the other
+    tiles; element 0 keeps no key."""
+    bias = torch.zeros(bh, L)
+    bias[:, 64:128] = -1e9
+    bias[:, 130:131] = -1e9
+    bias[1::4, 3] = -1e9
+    bias[1::4, L - 37:] = -1e9
+    bias[0] = -1e9
+    return bias.to(dev)
+
+
+def _tile_paths(L, causal, rows_block, rows_warp, bias_row):
+    """The paths that the bf16 forward's warps take over the 64-key tiles
+    of one head whose key bias is ``bias_row`` (a list; None for no bias),
+    by the kernel's rule: 'interior' (a tile below L, under causal at or
+    below the warp's first row, no key dropped), 'dropped' (such a tile
+    with a dropped key), 'diagonal' (a causal tile below L that crosses the
+    warp's rows, no key dropped) and 'edge' (the others)."""
+    paths = set()
+    for q0 in range(0, L, rows_block):
+        last_row = min(q0 + rows_block, L) - 1
+        nk = last_row // 64 + 1 if causal else -(-L // 64)
+        for w0 in range(q0, min(q0 + rows_block, L), rows_warp):
+            warp_last = min(w0 + rows_warp - 1, L - 1)
+            for k0 in range(0, 64 * nk, 64):
+                if causal and k0 > warp_last:
+                    continue
+                dropped = bias_row is not None and \
+                    min(bias_row[k0:k0 + 64]) <= -1e8
+                if k0 + 64 > L or (causal and k0 + 63 > w0):
+                    paths.add('diagonal' if k0 + 64 <= L and not dropped
+                              else 'edge')
+                else:
+                    paths.add('dropped' if dropped else 'interior')
+    return paths
+
+
+@pytest.mark.parametrize('L', BF16_FWD_LENGTHS)
+@pytest.mark.parametrize('dh,causal,rows', BF16_FWD_PLANS)
+def test_flash_bf16_forward_plans_and_tile_paths(dev, dh, causal, rows, L):
+    """The bf16 forward in each of its plans (query rows a block and a
+    warp, chosen by the grid's size and causal), at lengths at and around
+    the 128-row and 64-key tile edges, with no bias and with one whose
+    dropped keys fill, touch and miss key
+    tiles: O within 1e-2 of its largest magnitude and LSE within 1e-5 of
+    the plain version (on the rows that keep a key), the element that
+    keeps no key exactly 0, and two calls bitwise equal. (The raw-product
+    form runs at 16 rows a warp without a bias.)"""
+    bh = _bh_for_rows(rows, L)
+    q, k, v = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
+               for s in range(3))
+    for bias in (None, _tile_bias(dev, bh, L)):
+        args = (dh ** -0.5, causal, bias, 1)
+        rows_warp = _bf16_fwd_plans(dh, causal)[rows]
+        assert attention_ops._bf16_fwd_plan(
+            bh, L, dh, causal, bias is not None, args[0]) == \
+            (rows, rows_warp, bias is None and rows_warp == 16)
+        o, lse = attention_ops._flash_fwd(q, k, v, *args)
+        again = attention_ops._flash_fwd(q, k, v, *args)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_ops._attention_ref(q, k, v, *args)
+        live = slice(0 if bias is None else 1, None)
+        assert _err(lse[live], lse_ref[live]) <= 1e-5
+        o, o_ref = o.float(), o_ref.float()
+        assert torch.isfinite(o).all()
+        assert _err(o, o_ref) <= 1e-2 * max(1.0, float(o_ref.abs().max()))
+        if bias is not None:
+            assert not o[0].any()
+        assert torch.equal(again[0].float(), o) and torch.equal(again[1], lse)
+
+
+def test_flash_bf16_forward_cases_reach_every_plan_and_tile_path(dev):
+    """The cases above take every plan of every head width, and in each
+    plan every tile path (by the kernel's rule in ``_tile_paths``): the
+    diagonal one under causal alone."""
+    for dh, causal, rows in BF16_FWD_PLANS:
+        rows_warp = _bf16_fwd_plans(dh, causal)[rows]
+        reached = set()
+        for L in BF16_FWD_LENGTHS:
+            bh = _bh_for_rows(rows, L)
+            for biased in (False, True):
+                assert attention_ops._bf16_fwd_plan(
+                    bh, L, dh, causal, biased, dh ** -0.5) == \
+                    (rows, rows_warp, not biased and rows_warp == 16)
+            rows_bias = set(map(tuple, _tile_bias('cpu', bh, L).tolist()))
+            for row in [None] + sorted(rows_bias):
+                reached |= _tile_paths(L, causal, rows, rows_warp, row)
+        want = {'interior', 'dropped', 'edge'} | \
+            ({'diagonal'} if causal else set())
+        assert reached == want, (dh, causal, rows)
+
+
+@pytest.mark.parametrize('scale', [-0.125, 0.0, 2e4],
+                         ids=['negative', 'zero', 'huge'])
+def test_flash_bf16_forward_takes_any_scale(dev, scale):
+    """Without a bias but with a scale that the raw-product form does not
+    take (not in (0, 1e4)), the forward scales and masks each score as with
+    a bias: O within 1e-2 of its largest magnitude, LSE within 1e-5 of its
+    magnitude (2e4 x the products reaches 1e5)."""
+    bh, L, dh = 6, 200, 64
+    q, k, v = (_randn(dev, bh, L, dh, scale=0.1, seed=s).to(torch.bfloat16)
+               for s in range(3))
+    for causal in (False, True):
+        args = (scale, causal, None, 1)
+        assert not attention_ops._bf16_fwd_plan(bh, L, dh, causal, False,
+                                                scale)[2]
+        o, lse = attention_ops._flash_fwd(q, k, v, *args)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_ops._attention_ref(q, k, v, *args)
+        o, o_ref = o.float(), o_ref.float()
+        assert _err(o, o_ref) <= 1e-2 * max(1.0, float(o_ref.abs().max()))
+        assert _err(lse, lse_ref) <= 1e-5 * max(1.0,
+                                                float(lse_ref.abs().max()))
+
+
+def test_flash_bf16_forward_drops_at_exactly_minus_1e8(dev):
+    """A key whose bias is exactly -1e8 is dropped and one at -9.9e7 kept,
+    in rows whose every key carries one of the two (so that the kept keys
+    set the row's max), in interior, dropped-key and edge tiles. Scores
+    this small against the bias round away in float32, so O is the mean of
+    the kept keys' V: within 1e-2 of its largest magnitude; LSE (about
+    -9.9e7, where float32 steps by 8) within one step of its magnitude."""
+    bh, L, dh = 4, 200, 64
+    q = _randn(dev, bh, L, dh, scale=1e-2).to(torch.bfloat16)
+    k, v = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
+            for s in (1, 2))
+    bias = torch.full((bh, L), -9.9e7)
+    bias[0, 1::2] = -1e8           # every other key, in every tile
+    bias[1, 64:128] = -1e8         # fills tile 1
+    bias[2, :] = -1e8
+    bias[2, 5] = -9.9e7            # keeps one key
+    bias[3, 130] = -1e8            # touches tile 2
+    bias = bias.to(dev)
+    for causal in (False, True):
+        args = (0.125, causal, bias, 1)
+        o, lse = attention_ops._flash_fwd(q, k, v, *args)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_ops._attention_ref(q, k, v, *args)
+        o, o_ref = o.float(), o_ref.float()
+        assert _err(o, o_ref) <= 1e-2 * float(o_ref.abs().max())
+        live = slice(5, None) if causal else slice(None)  # row 5 sees key 5
+        assert float((lse - lse_ref)[:, live].abs().max()) <= \
+            2 ** -23 * float(lse_ref.abs().max())
+        # element 2's rows see only key 5: its V row, to a bf16 step
+        v5 = v[2, 5].float()
+        assert _err(o[2, 5:], v5.expand(L - 5, dh)) <= \
+            2 ** -8 * float(v5.abs().max())
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 def test_flash_kernels_take_more_than_65535_rows(dev, dtype):
