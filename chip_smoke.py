@@ -102,7 +102,12 @@ Phases, each printing one JSON line:
    the device kernels SDPA's call runs (``library_kernels``) and, without
    a mask, SDPA's FlashAttention-2 backend forced (``library_fa2_ms``,
    ``ms_over_fa2``): an mma.sync kernel, where SDPA's default on an H100
-   is cuDNN's wgmma one.
+   is cuDNN's wgmma one. The dK/dV kernel's cases likewise name its plan
+   (keys a block), the registers and spills of its instantiation (no
+   instantiation of it may spill), the device kernels of SDPA's backward
+   and, without a mask, that backward with FA2 forced; ``pair_ms`` is dQ's
+   time plus its own, and ``ms_over_library`` and ``ms_over_fa2`` hold
+   that pair against SDPA's backward, which yields dQ, dK and dV.
 14. amp_train_vs_cpu — phase 9 with the model bf16-marked
    (``rewrite_model_bf16``): card against CPU, loss within 5e-3 relative
    and every gradient within 2e-2 of its largest magnitude; then the
@@ -915,6 +920,19 @@ def finish_kernel_checks(phase, out):
                                               res['tolerance']))
 
 
+def kernel_names(torch, fn):
+    """The sorted names of the device kernels one call of ``fn`` runs, by
+    torch.profiler; None where it recorded no device kernel (then they
+    were not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:100] for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}) or None
+
+
 def sdpa_yardsticks(torch, F, sdpa, q4, k4, v4, mask4, causal):
     """What bf16 SDPA's time stands for: the device kernels one call of it
     runs (``library_kernels``: on an H100 cuDNN's wgmma kernel), and the
@@ -922,13 +940,7 @@ def sdpa_yardsticks(torch, F, sdpa, q4, k4, v4, mask4, causal):
     mma.sync kernel like this repo's; None with a mask, which FA2 does not
     take)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sdpa(q4, k4, v4)
-        torch.cuda.synchronize()
-    # None where the profiler recorded no device kernel (not measured)
-    names = sorted({e.key[:100] for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA}) or None
+    names = kernel_names(torch, lambda: sdpa(q4, k4, v4))
     fa2 = None
     if mask4 is None:
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
@@ -937,35 +949,68 @@ def sdpa_yardsticks(torch, F, sdpa, q4, k4, v4, mask4, causal):
     return dict(library_kernels=names, library_fa2_ms=fa2)
 
 
-def check_flash_kernels(torch, F, dtype=None, ptxas=None):
-    """Phases 8 and 13: the three flash kernels at the LM training shape and
-    at BERT's (with the key-padding bias), on float32 operands (phase 8) or
-    on bf16 ones (phase 13, ``dtype`` bf16: the bf16 kernels at the AMP
-    step's B 64; the forward's cases also name its plan and, from
-    ``ptxas`` (``ptxas_report`` of the build), the registers and spilled
-    bytes of the instantiation that plan launches; no instantiation of the
-    forward may spill). Returns {kernel name: summary}."""
-    from paddle_tpu_torch.ops import attention_ops as A
-    dtype = dtype or torch.float32
-    low = dtype == torch.bfloat16
-    fwd_ptxas = (ptxas or {}).get('flash_attn_bf16_fwd', {})
-    if low:
-        spilled = {k: r for k, r in fwd_ptxas.items() if r[1] or r[2]}
-        if spilled:
-            raise AssertionError('the bf16 forward spills: %s' % spilled)
-    dev = torch.device('cuda', 0)
-    g = torch.Generator(device=dev).manual_seed(777)
+def flash_shapes(torch, low):
+    """The shapes of phases 8 (``low`` False) and 13 (``low``, the AMP
+    step's B 64): the LM training shape, causal, and BERT's, with its
+    key-padding bias [B, L] on the CPU (key lengths drawn in 32..128, batch
+    element 0 wholly padded) and the visible (query, key) pairs of each."""
     lens = np.random.RandomState(11).randint(32, 129, size=BERT_INFER_B)
     lens[0] = 0                       # one batch element wholly padded
     bias = torch.zeros(BERT_INFER_B, 128)
     for i, n in enumerate(lens):
         bias[i, n:] = -1e9
     lm_b = AMP_TRAIN_B if low else TRAIN_B
-    shapes = [dict(shape='lm_train', B=lm_b, H=8, L=512, dh=64,
-                   causal=True, bias=None, pairs=lm_b * 8 * 512 * 513 // 2),
-              dict(shape='bert', B=BERT_INFER_B, H=12, L=128, dh=64,
-                   causal=False, bias=bias.to(dev),
-                   pairs=12 * 128 * int(lens.sum()))]
+    return [dict(shape='lm_train', B=lm_b, H=8, L=512, dh=64, causal=True,
+                 bias=None, pairs=lm_b * 8 * 512 * 513 // 2),
+            dict(shape='bert', B=BERT_INFER_B, H=12, L=128, dh=64,
+                 causal=False, bias=bias, pairs=12 * 128 * int(lens.sum()))]
+
+
+def sdpa_bwd_yardsticks(torch, F, sdpa, q4, k4, v4, do4, mask4, causal):
+    """What the time of bf16 SDPA's backward stands for: the device kernels
+    one backward call runs (``library_kernels``), and the backward's time
+    with SDPA's FlashAttention-2 backend forced (``library_fa2_ms``, an
+    mma.sync kernel like this repo's; None with a mask, which FA2 does not
+    take)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    out = sdpa(*leaves)
+    names = kernel_names(torch, lambda: torch.autograd.grad(out, leaves, do4))
+    del out, leaves
+    fa2 = None
+    if mask4 is None:
+        def fwd(a, b, c):
+            return F.scaled_dot_product_attention(a, b, c, is_causal=causal)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            fa2 = backward_ms(torch, fwd, (q4, k4, v4), do4)
+    return dict(library_kernels=names, library_fa2_ms=fa2)
+
+
+def check_flash_kernels(torch, F, dtype=None, ptxas=None):
+    """Phases 8 and 13: the three flash kernels at the LM training shape and
+    at BERT's (with the key-padding bias), on float32 operands (phase 8) or
+    on bf16 ones (phase 13, ``dtype`` bf16: the bf16 kernels at the AMP
+    step's B 64; the forward's and the dK/dV kernel's cases also name
+    their plan and, from ``ptxas`` (``ptxas_report`` of the build), the
+    registers and spilled bytes of the instantiation that plan launches; no
+    instantiation of the forward or of the dK/dV kernel may spill). Returns
+    {kernel name: summary}."""
+    from paddle_tpu_torch.ops import attention_ops as A
+    dtype = dtype or torch.float32
+    low = dtype == torch.bfloat16
+    fwd_ptxas = (ptxas or {}).get('flash_attn_bf16_fwd', {})
+    dkv_ptxas = {k: r for k, r in (ptxas or {}).get(
+        'flash_attn_bf16_bwd', {}).items()
+        if k.startswith('flash_bwd_dkv_bf16')}
+    if low:
+        for what, rep in (('forward', fwd_ptxas), ('dK/dV', dkv_ptxas)):
+            spilled = {k: r for k, r in rep.items() if r[1] or r[2]}
+            if spilled:
+                raise AssertionError('the bf16 %s spills: %s'
+                                     % (what, spilled))
+    dev = torch.device('cuda', 0)
+    g = torch.Generator(device=dev).manual_seed(777)
+    shapes = flash_shapes(torch, low)
     names = AMP_FLASH_KERNELS if low else FLASH_KERNELS
     # float32: O and LSE within 1e-4 absolute, each gradient within 1e-4 of
     # its largest magnitude; bf16: O, dQ, dK and dV within 1e-2 of each
@@ -978,6 +1023,7 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
     for sh in shapes:
         B, H, L, dh, causal, bias = (sh[k] for k in (
             'B', 'H', 'L', 'dh', 'causal', 'bias'))
+        bias = None if bias is None else bias.to(dev)
         bh, scale = B * H, dh ** -0.5
         q, k, v, do = (torch.randn((bh, L, dh), generator=g,
                                    device=dev).to(dtype) for _ in range(4))
@@ -1033,6 +1079,20 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
                 lib_out, leaves, do4, retain_graph=True), iters=20, warmup=3),
             library_covers='dQ, dK and dV in one call')
         del lib_out, leaves
+        dkv_extra = {}
+        if low:
+            dkv_extra = sdpa_bwd_yardsticks(torch, F, sdpa, q4, k4, v4, do4,
+                                            mask4, causal)
+            # the plan (keys a block, 16 a warp) and its instantiation
+            # flash_bwd_dkv_bf16<dh, warps, biased>
+            rows = A._bf16_bwd_plan(bh, L, dh)
+            kname = 'flash_bwd_dkv_bf16<%d, %d, %d>' % (
+                dh, rows // 16, bias is not None)
+            regs = dkv_ptxas.get(kname, [None] * 3)
+            dkv_extra.update(plan=dict(rows_block=rows, rows_warp=16),
+                             kernel=kname, registers=regs[0],
+                             spill_store_bytes=regs[1],
+                             spill_load_bytes=regs[2])
 
         def case(fn, plain, library, nbytes, flops, **errs):
             # every flop counted here is a matrix product's
@@ -1089,6 +1149,7 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
             lambda: A._flash_bwd_dkv(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dkv_ref(q, k, v, do, lse, delta, *args),
             lib_bwd, 6 * mat + 2 * row + extra, 8 * dh * sh['pairs'],
+            **dkv_extra,
             max_abs_err=max(float((dk.float() - dk_ref.float()).abs().max()),
                             float((dv.float() - dv_ref.float()).abs().max())),
             max_rel_err=max(rel(dk, dk_ref), rel(dv, dv_ref)),
@@ -1096,6 +1157,14 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
                                    dv=float(dv_ref.float().abs().max())),
             deterministic=same_bits(torch, lambda: A._flash_bwd_dkv(
                 q, k, v, do, lse, delta, *args))))
+        if low:
+            # the backward pair (dQ + dK/dV) against SDPA's backward, which
+            # yields dQ, dK and dV in one call
+            dkv = out[names[2]]['cases'][-1]
+            dkv['pair_ms'] = out[names[1]]['cases'][-1]['ms'] + dkv['ms']
+            dkv['ms_over_library'] = dkv['pair_ms'] / dkv['library_ms']
+            if dkv['library_fa2_ms']:
+                dkv['ms_over_fa2'] = dkv['pair_ms'] / dkv['library_fa2_ms']
         for name in names:
             if not out[name]['cases'][-1]['deterministic']:
                 raise AssertionError('%s gave other bits on a second call at '

@@ -1,7 +1,7 @@
 // Pieces shared by the bf16 tensor-core kernels (flash_attn_bf16_fwd.cu,
 // flash_attn_bf16_bwd.cu): the m16n8k16 bf16 product with float32
 // accumulation, ldmatrix loads of its operands from shared memory, packing
-// float32 accumulators into bf16 A fragments, 2^x, and the tile loader. The
+// float32 accumulators into bf16 A fragments, 2^x, and the tile loaders. The
 // cp.async helpers and the quad reductions come from tf32_mma.cuh.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 g + t):
@@ -110,7 +110,30 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // rows [r0, r0 + ROWS) of a [L, DH] bf16 matrix into a tile of padded rows,
-// zeros past L, 16 bytes a copy
+// zeros past L, 16 bytes a copy. A thread's copies lie at one column and
+// rows THREADS / (DH / 8) apart, so each costs an offset and a compare
+// (load_rows_bf16 below spends a division and a 64-bit index a copy, which
+// in an issue-bound loop of mma.sync costs about as much as a softmax).
+template <int DH, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
+                                          int L, int tid) {
+  constexpr int CH = DH / 8;          // 16-byte chunks a row
+  constexpr int STEP = THREADS / CH;  // rows between a thread's chunks
+  constexpr int N = (ROWS + STEP - 1) / STEP;
+  const int rr = tid / CH, cc = (tid % CH) * 8;
+  bf16* d = dst + rr * kLdB<DH> + cc;
+  const bf16* g = src + static_cast<int64_t>(r0 + rr) * DH + cc;
+  const int left = L - r0 - rr;  // rows below L from this thread's first
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (ROWS % STEP == 0 || rr + i * STEP < ROWS) {
+      const bool in = i * STEP < left;
+      cp_async16(d + i * STEP * kLdB<DH>, in ? g + i * STEP * DH : src, in);
+    }
+}
+
+// rows [r0, r0 + ROWS) of a [L, DH] bf16 matrix into a tile of padded rows,
+// zeros past L, 16 bytes a copy (the dQ kernel's loader)
 template <int DH, int ROWS, int THREADS>
 __device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
                                                int r0, int L, int tid) {

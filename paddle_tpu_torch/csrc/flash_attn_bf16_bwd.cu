@@ -31,7 +31,9 @@
 //
 // Design: the f32 kernels' split on the bf16 tile. Every output element is
 // summed by exactly one warp in a fixed order: no atomics, and two calls
-// give the same bits.
+// give the same bits. On this card a loop of mma.sync is paced by its
+// instruction count (a sub-partition hardly overlaps other instructions
+// with a stream of mma.sync), so the dK/dV kernel spends as few as it can.
 // - dQ: each warp owns 16 query rows (1, 2 or 4 warps a block, the most that
 //   still gives >= 132 blocks). Per key tile it computes S = Q K^T and dP =
 //   dO V^T into accumulator fragments (`mma.sync.m16n8k16`, Q and dO as A
@@ -39,20 +41,36 @@
 //   memory), forms P and dS there with the row's LSE and delta in
 //   registers, and adds bf16(dS) K: dS, packed two accumulator tiles at a
 //   time, is the A fragment as it stands, and K is read N-major by
-//   ldmatrix.trans.
-// - dK/dV: each warp owns 16 keys and works in the transposed form: S^T = K
-//   Q^T and dP^T = V dO^T, P^T and dS^T formed with LSE and delta indexed
-//   by column (the query, from the tile's shared copy) and the two keys'
-//   bias in registers; then dV += bf16(P^T) dO and dK += bf16(dS^T) Q, dO
-//   and Q read N-major.
-// - The streamed operand (K, V and the bias for dQ; Q, dO, LSE and delta for
-//   dK/dV) comes in tiles of 64 rows (32 at DH 128, where the accumulators
-//   take twice the registers), double-buffered through cp.async; causal
-//   tiles wholly above the diagonal are never loaded, and a warp skips the
-//   products of a loaded tile that lies wholly above its own rows. The
-//   warp's own 16 rows of its two fixed operands stay in shared memory and
-//   are read as A fragments by ldmatrix when used, which keeps registers
-//   for the accumulators.
+//   ldmatrix.trans. K, V and the bias come in tiles of 64 rows (32 at DH
+//   128, where the accumulators take twice the registers), double-buffered
+//   through cp.async; causal tiles wholly above the diagonal are never
+//   loaded, and a warp skips the products of a loaded tile that lies wholly
+//   above its own rows. The warp's Q and dO rows stay in shared memory and
+//   are read as A fragments when used.
+// - dK/dV: each warp owns 16 keys (blocks as for dQ) and works in the
+//   transposed form: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T formed
+//   with LSE and delta indexed by column (the query, from the tile's shared
+//   copy) and the two keys' bias in registers; then dV += bf16(P^T) dO and
+//   dK += bf16(dS^T) Q, dO and Q read N-major. Query tiles of 64 rows (32
+//   at DH 128) of Q, dO, LSE and delta stream through a three-slot cp.async
+//   ring (two at DH 128), one barrier a tile, by bf16_mma.cuh's load_rows
+//   (a thread's copies at fixed strides, an offset and a compare each), and
+//   are worked in chunks of 16 queries, one at a time, which at DH <= 64
+//   fits 168 registers and three blocks of 4 warps an SM; K's and V's A
+//   fragments are read into registers once (DH <= 64). p = 2^(s c
+//   + x): log2(e) and the scale folded into one FFMA a score, x = -LSE ·
+//   log2(e) per query (with a bias (bias - LSE) · log2(e) per key and
+//   query). dS^T leaves the scale out and dK takes it once at the end
+//   (exact for a power-of-two scale, as at DH 16 and 64). Each tile takes
+//   one of five paths, uniform over a warp: interior (every query at or
+//   after every key of the warp, all below L, no key dropped: no index,
+//   compare or select), the same with a dropped key (a select on the key's
+//   flag), the causal diagonal with and without that select (one compare of
+//   key and query), and the edge (past L: every test). A warp whose keys
+//   are all dropped skips every product, and a block whose keys are all
+//   dropped loads nothing; both write zeros. A head's key blocks are
+//   neighbours on the grid (they share Q and dO in L2), its first keys, the
+//   most query tiles under causal, first.
 // - Rows and keys past L load as zeros and are masked, so any L works.
 // - Blocks are numbered (bh, tile) on gridDim.x alone, so batch × heads may
 //   exceed 65535.
@@ -67,6 +85,7 @@ namespace {
 using namespace ptt;
 
 constexpr float kBiasDrop = -1e8f;  // a key with bias <= this is dropped
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSms = 132;
 
 // rows of a streamed tile: keys for dQ, queries for dK/dV
@@ -227,8 +246,151 @@ __global__ void __launch_bounds__(NW * 32)
   }
 }
 
+// The dK/dV kernel's query tiles: a ring of kDkvStages slots, each holding
+// Q and dO [BT][LD] (bf16), then LSE and delta [BT] (float32). At DH <= 64
+// K's and V's A fragments stay in registers (32 at DH 64), so K and V are
+// staged in the last slot and read out before the ring first fills it; at
+// DH 128 (64 registers beside 128 accumulators) they stay in shared memory
+// after the ring and are read by ldmatrix when used.
+template <int DH>
+constexpr bool kKvInRegs = DH <= 64;
+template <int DH>
+constexpr int kDkvStages = DH > 64 ? 2 : 3;
+template <int DH>
+constexpr int kDkvSlot = 2 * kTile<DH> * kLdB<DH> * 2 + 2 * kTile<DH> * 4;
+template <int DH>
+constexpr int kDkvKvAt =
+    (kKvInRegs<DH> ? kDkvStages<DH> - 1 : kDkvStages<DH>) * kDkvSlot<DH>;
 template <int DH, int NW>
-__global__ void __launch_bounds__(NW * 32)
+constexpr int dkv_smem_bytes() {
+  constexpr int ring = kDkvStages<DH> * kDkvSlot<DH>;
+  constexpr int kv = kDkvKvAt<DH> + 2 * NW * 16 * kLdB<DH> * 2;
+  return ring > kv ? ring : kv;
+}
+
+// One query tile, queries [q0, q0 + BT) in shared memory (qs, gs: Q and dO;
+// ls, ds: LSE and delta), for a warp's 16 keys, this thread's keys key0 and
+// key0 + 8 (h = 0, 1; bias kb[h], kept kk[h]): in chunks of 16 queries,
+// S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T / scale in place, then
+// dV += bf16(P^T) dO and dK += bf16(dS^T / scale) Q. P = 2^(s c + x) with
+// c = scale · log2(e) and x = -LSE · log2(e), or with a bias (BIAS) x =
+// (bias - LSE) · log2(e), the difference taken first so that a bias and an
+// LSE of one size cancel exactly, as in the plain version's s - LSE.
+//   MASK 0  the tile is wholly at or after the warp's keys and below L: no
+//           index, compare or select;
+//   MASK 1  the causal diagonal (below L): one compare of key and query;
+//   MASK 2  the edge: every score's query against L and, under causal, the
+//           key against the query.
+// DROP selects p = 0 for a dropped key (or one past L). kq = key0 - q0 - 2t
+// and qr = L - q0 - 2t fold the thread's offsets, so that each test is one
+// compare with a constant.
+template <int DH, int MASK, bool DROP, bool BIAS>
+__device__ __forceinline__ void dkv_tile(
+    const uint32_t (&kf)[kKvInRegs<DH> ? DH / 16 : 1][4],
+    const uint32_t (&vf)[kKvInRegs<DH> ? DH / 16 : 1][4], const bf16* Ks,
+    const bf16* Vs, int wr, float (&acc_k)[DH / 8][4],
+    float (&acc_v)[DH / 8][4], const bf16* qs, const bf16* gs,
+    const float* ls, const float* ds, const float (&kb)[2],
+    const bool (&kk)[2], int kq, int qr, int causal, float c, int lane) {
+  constexpr int BT = kTile<DH>;
+  constexpr int QC = 16;       // queries a chunk
+  constexpr int NC = QC / 8;   // 8-query tiles of a chunk
+  constexpr int KS = DH / 16;  // k-steps of K Q^T
+  constexpr int NO = DH / 8;   // 8-column tiles of dK and dV
+  const int t = lane & 3;
+  // one chunk at a time: unrolled, the chunks' products would overlap and
+  // take the registers that a third block an SM needs
+#pragma unroll 1
+  for (int c0 = 0; c0 < BT; c0 += QC) {
+    float sc[NC][4], dp[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t ak[4], av[4];
+      if constexpr (kKvInRegs<DH>) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ak[i] = kf[s][i], av[i] = vf[s][i];
+      } else {
+        load_a<DH>(ak, Ks, wr, 16 * s, lane);
+        load_a<DH>(av, Vs, wr, 16 * s, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < NC; n += 2) {
+        uint32_t b[4];
+        load_b_rows<DH>(b, qs, c0 + 8 * n, 16 * s, lane);
+        mma_bf16(sc[n], ak, b[0], b[1]);
+        mma_bf16(sc[n + 1], ak, b[2], b[3]);
+        load_b_rows<DH>(b, gs, c0 + 8 * n, 16 * s, lane);
+        mma_bf16(dp[n], av, b[0], b[1]);
+        mma_bf16(dp[n + 1], av, b[2], b[3]);
+      }
+    }
+    // the exponent's offset and delta of this thread's queries
+    float xo[BIAS ? 2 : 1][NC][2], dl[NC][2];
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + c0 + 8 * n +
+                                                         2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(ds + c0 + 8 * n +
+                                                         2 * t);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float l = x ? l2.y : l2.x;
+        dl[n][x] = x ? d2.y : d2.x;
+        if constexpr (BIAS) {
+          xo[0][n][x] = (kb[0] - l) * kLog2e;
+          xo[1][n][x] = (kb[1] - l) * kLog2e;
+        } else {
+          xo[0][n][x] = -l * kLog2e;
+        }
+      }
+    }
+    // P^T in place of S^T, dS^T / scale in place of dP^T
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, x = e & 1;
+        const int col = c0 + 8 * n + x;  // the query, less q0 + 2t
+        float p = ex2(fmaf(sc[n][e], c, xo[BIAS ? h : 0][n][x]));
+        bool keep = true;
+        if (MASK == 1) keep = kq + 8 * h <= col;
+        if (MASK == 2) keep = col < qr && (!causal || kq + 8 * h <= col);
+        if (DROP) keep = keep && kk[h];
+        if (MASK != 0 || DROP) p = keep ? p : 0.f;
+        sc[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dl[n][x]);
+      }
+    // dV += bf16(P^T) dO, dK += bf16(dS^T / scale) Q; dO and Q read N-major
+#pragma unroll
+    for (int s = 0; s < QC / 16; ++s) {
+      uint32_t ap[4], ad[4];
+      pack_a(ap, sc, s);
+      pack_a(ad, dp, s);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t b[4];
+        load_b_cols<DH>(b, gs, c0 + 16 * s, 8 * n, lane);
+        mma_bf16(acc_v[n], ap, b[0], b[1]);
+        mma_bf16(acc_v[n + 1], ap, b[2], b[3]);
+        load_b_cols<DH>(b, qs, c0 + 16 * s, 8 * n, lane);
+        mma_bf16(acc_k[n], ad, b[0], b[1]);
+        mma_bf16(acc_k[n + 1], ad, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// dK and dV of NW · 16 keys a block, 16 a warp; BIAS: the call has a key
+// bias. At DH <= 64 and 2 or 4 warps it fits 168 registers, 384 threads an
+// SM (three blocks of 4 warps at the models' shapes), without a spill; one
+// warp a block (grids too small to fill the card) copies 16 rows a thread
+// per tile and would spill there, so it takes what it needs.
+template <int DH, int NW, bool BIAS>
+__global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
     flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const bf16* __restrict__ dout,
@@ -240,15 +402,13 @@ __global__ void __launch_bounds__(NW * 32)
   constexpr int kThreads = NW * 32;
   constexpr int LD = kLdB<DH>;
   constexpr int BT = kTile<DH>;
-  constexpr int NT = BT / 8;   // 8-query tiles of S^T
+  constexpr int S = kDkvStages<DH>;
+  constexpr int KS = DH / 16;  // k-steps of K Q^T
   constexpr int NO = DH / 8;   // 8-column tiles of dK and dV
+  constexpr int SLOT = kDkvSlot<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [NW·16][LD]
-  bf16* Vs = Ks + NW * 16 * LD;                  // the same rows of V
-  bf16* Qs = Vs + NW * 16 * LD;                  // [2][BT][LD]
-  bf16* Gs = Qs + 2 * BT * LD;                   // [2][BT][LD] dO
-  float* Ls = reinterpret_cast<float*>(Gs + 2 * BT * LD);  // [2][BT] LSE
-  float* Ds = Ls + 2 * BT;                                 // [2][BT] delta
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + kDkvKvAt<DH>);
+  bf16* Vs = Ks + NW * 16 * LD;  // [NW·16][LD] each
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -258,36 +418,18 @@ __global__ void __launch_bounds__(NW * 32)
   const int kb0 = (blockIdx.x % tiles) * NW * 16;
   const int64_t row0 = bh * L;
   const int64_t off = row0 * DH;
-  const bf16* qb = q + off;
-  const bf16* gb = dout + off;
-  const float* brow = bias ? bias + (bh / n_heads) * L : nullptr;
   const int wr = warp * 16;        // the warp's first row in Ks and Vs
-  const int key0 = kb0 + wr + g;   // this thread's keys: key0, key0 + 8
-
-  auto load_tile = [&](int buf, int j) {
-    const int q0 = j * BT;
-    load_rows_bf16<DH, BT, kThreads>(Qs + buf * BT * LD, qb, q0, L, tid);
-    load_rows_bf16<DH, BT, kThreads>(Gs + buf * BT * LD, gb, q0, L, tid);
-    load_vec_f32<kThreads>(Ls + buf * BT, lse + row0, q0, BT, L, tid);
-    load_vec_f32<kThreads>(Ds + buf * BT, delta + row0, q0, BT, L, tid);
-  };
-
-  // a query tile sees this block's keys iff its last row >= the first key
-  const int nq = (L + BT - 1) / BT;
-  const int j0 = causal ? kb0 / BT : 0;
-  load_rows_bf16<DH, NW * 16, kThreads>(Ks, k + off, kb0, L, tid);
-  load_rows_bf16<DH, NW * 16, kThreads>(Vs, v + off, kb0, L, tid);
-  load_tile(0, j0);
-  cp_async_commit();
+  const int wk0 = kb0 + wr;        // the warp's first key
+  const int key0 = wk0 + g;        // this thread's keys: key0, key0 + 8
 
   // the two keys' bias and whether they are kept, for the whole kernel
-  float bk[2];
+  float kb[2];
   bool kk[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + h * 8;
-    bk[h] = (brow != nullptr && key < L) ? brow[key] : 0.f;
-    kk[h] = key < L && bk[h] > kBiasDrop;
+    kb[h] = (BIAS && key < L) ? bias[(bh / n_heads) * L + key] : 0.f;
+    kk[h] = key < L && kb[h] > kBiasDrop;
   }
   float acc_k[NO][4], acc_v[NO][4];
 #pragma unroll
@@ -295,86 +437,83 @@ __global__ void __launch_bounds__(NW * 32)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-  const int warp_first = kb0 + wr;
-  for (int j = j0; j < nq; ++j) {
-    const int buf = (j - j0) & 1;
-    if (j + 1 < nq) {
-      load_tile(buf ^ 1, j + 1);
+  // a block whose keys are all dropped loads nothing and writes zeros
+  if (__syncthreads_or(kk[0] || kk[1])) {
+    auto load_tile = [&](int buf, int j) {
+      const int q0 = j * BT;
+      bf16* qs = reinterpret_cast<bf16*>(smem_raw + buf * SLOT);
+      float* ls = reinterpret_cast<float*>(qs + 2 * BT * LD);
+      load_rows<DH, BT, kThreads>(qs, q + off, q0, L, tid);
+      load_rows<DH, BT, kThreads>(qs + BT * LD, dout + off, q0, L, tid);
+      load_vec_f32<kThreads>(ls, lse + row0, q0, BT, L, tid);
+      load_vec_f32<kThreads>(ls + BT, delta + row0, q0, BT, L, tid);
+    };
+    // a query tile sees this block's keys iff its last row >= the first
+    // key; under causal the tiles start at the block's own
+    const int nq = (L + BT - 1) / BT;
+    const int j0 = causal ? kb0 / BT : 0;
+    load_rows<DH, NW * 16, kThreads>(Ks, k + off, kb0, L, tid);
+    load_rows<DH, NW * 16, kThreads>(Vs, v + off, kb0, L, tid);
+    cp_async_commit();
+    // one commit group a tile (empty past the last), so that waiting for
+    // all but the newest S - 2 groups waits for exactly the oldest tile
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) {
+      if (j0 + i < nq) load_tile(i, j0 + i);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();  // tile j is in for every thread
-    const int q0 = j * BT;
-    // else every query of the tile is before the warp's keys
-    if (!causal || q0 + BT - 1 >= warp_first) {
-      const bf16* qs = Qs + buf * BT * LD;
-      const bf16* gs = Gs + buf * BT * LD;
-      const float* ls = Ls + buf * BT;
-      const float* ds = Ds + buf * BT;
-      float sc[NT][4], dp[NT][4];
+    cp_async_wait<S - 1>();
+    __syncthreads();  // K and V are in for every thread
+    uint32_t kf[kKvInRegs<DH> ? KS : 1][4], vf[kKvInRegs<DH> ? KS : 1][4];
+    if constexpr (kKvInRegs<DH>) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int s = 0; s < DH / 16; ++s) {   // S^T = K Q^T, dP^T = V dO^T
-        uint32_t ak[4], av[4];
-        load_a<DH>(ak, Ks, wr, 16 * s, lane);
-        load_a<DH>(av, Vs, wr, 16 * s, lane);
-#pragma unroll
-        for (int n = 0; n < NT; n += 2) {
-          uint32_t b[4];
-          load_b_rows<DH>(b, qs, 8 * n, 16 * s, lane);
-          mma_bf16(sc[n], ak, b[0], b[1]);
-          mma_bf16(sc[n + 1], ak, b[2], b[3]);
-          load_b_rows<DH>(b, gs, 8 * n, 16 * s, lane);
-          mma_bf16(dp[n], av, b[0], b[1]);
-          mma_bf16(dp[n + 1], av, b[2], b[3]);
-        }
-      }
-      // P^T in place of S^T, dS^T in place of dP^T
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int qc = 8 * n + 2 * t;
-        const float2 l2 = *reinterpret_cast<const float2*>(ls + qc);
-        const float2 d2 = *reinterpret_cast<const float2*>(ds + qc);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int query = q0 + qc + (e & 1);
-          const int h = e >> 1;
-          const bool keep = kk[h] && query < L &&
-                            (!causal || key0 + 8 * h <= query);
-          const float p =
-              keep ? __expf(sc[n][e] * scale + bk[h] -
-                            ((e & 1) ? l2.y : l2.x))
-                   : 0.f;
-          sc[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - ((e & 1) ? d2.y : d2.x)) * scale;
-        }
-      }
-      // dV += bf16(P^T) dO, dK += bf16(dS^T) Q; dO and Q read N-major
-#pragma unroll
-      for (int s = 0; s < BT / 16; ++s) {
-        uint32_t ap[4], ad[4];
-        pack_a(ap, sc, s);
-        pack_a(ad, dp, s);
-#pragma unroll
-        for (int n = 0; n < NO; n += 2) {
-          uint32_t b[4];
-          load_b_cols<DH>(b, gs, 16 * s, 8 * n, lane);
-          mma_bf16(acc_v[n], ap, b[0], b[1]);
-          mma_bf16(acc_v[n + 1], ap, b[2], b[3]);
-          load_b_cols<DH>(b, qs, 16 * s, 8 * n, lane);
-          mma_bf16(acc_k[n], ad, b[0], b[1]);
-          mma_bf16(acc_k[n + 1], ad, b[2], b[3]);
-        }
+      for (int s = 0; s < KS; ++s) {
+        load_a<DH>(kf[s], Ks, wr, 16 * s, lane);
+        load_a<DH>(vf[s], Vs, wr, 16 * s, lane);
       }
     }
-    __syncthreads();  // every warp is done with this buffer before reuse
+    // whether the warp keeps any key, and drops any (past L counts)
+    const bool live = __any_sync(0xffffffffu, kk[0] || kk[1]);
+    const bool drops = __any_sync(0xffffffffu, !(kk[0] && kk[1]));
+    const float c = scale * kLog2e;
+    for (int j = j0; j < nq; ++j) {
+      const int i = j - j0;
+      cp_async_wait<S - 2>();
+      // tile j is in for every thread, and every warp is done with tile
+      // j - 1 (and with the K and V staged in the last slot)
+      __syncthreads();
+      if (j + S - 1 < nq) load_tile((i + S - 1) % S, j + S - 1);
+      cp_async_commit();
+      const int q0 = j * BT;
+      // a warp that keeps no key, or a tile wholly before its keys
+      if (!live || (causal && q0 + BT - 1 < wk0)) continue;
+      const bf16* qs =
+          reinterpret_cast<const bf16*>(smem_raw + (i % S) * SLOT);
+      const bf16* gs = qs + BT * LD;
+      const float* ls = reinterpret_cast<const float*>(gs + BT * LD);
+      const float* ds = ls + BT;
+      const int kq = key0 - q0 - 2 * t, qr = L - q0 - 2 * t;
+      if (q0 + BT > L)
+        dkv_tile<DH, 2, true, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs, gs,
+                                    ls, ds, kb, kk, kq, qr, causal, c, lane);
+      else if (causal && q0 < wk0 + 15 && drops)
+        dkv_tile<DH, 1, true, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs, gs,
+                                    ls, ds, kb, kk, kq, qr, causal, c, lane);
+      else if (causal && q0 < wk0 + 15)
+        dkv_tile<DH, 1, false, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
+                                     gs, ls, ds, kb, kk, kq, qr, causal, c,
+                                     lane);
+      else if (drops)
+        dkv_tile<DH, 0, true, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs, gs,
+                                    ls, ds, kb, kk, kq, qr, causal, c, lane);
+      else
+        dkv_tile<DH, 0, false, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
+                                     gs, ls, ds, kb, kk, kq, qr, causal, c,
+                                     lane);
+    }
   }
 
+  // dK takes the scale that dS^T left out
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + h * 8;
@@ -382,8 +521,8 @@ __global__ void __launch_bounds__(NW * 32)
     const int64_t at = off + static_cast<int64_t>(key) * DH;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) =
-          pack_bf16(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) = pack_bf16(
+          acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + at + 8 * n + 2 * t) =
           pack_bf16(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
@@ -428,11 +567,11 @@ int launch_dq(const Args& a, bf16* dq) {
                          &configured, a, dq);
 }
 
-template <int DH, int NW>
+template <int DH, int NW, bool BIAS>
 int launch_dkv(const Args& a, bf16* dk, bf16* dv) {
   static bool configured = false;
-  return launch<NW * 16>(flash_bwd_dkv_bf16<DH, NW>, smem_bytes<DH, NW>(),
-                         &configured, a, dk, dv);
+  return launch<NW * 16>(flash_bwd_dkv_bf16<DH, NW, BIAS>,
+                         dkv_smem_bytes<DH, NW>(), &configured, a, dk, dv);
 }
 
 // 4 warps (64 rows) a block where that fills the card, else 2, else 1
@@ -451,13 +590,19 @@ int launch_dq_rows(const Args& a, bf16* dq) {
   }
 }
 
-template <int DH>
+template <int DH, bool BIAS>
 int launch_dkv_rows(const Args& a, bf16* dk, bf16* dv) {
   switch (warps_for(a)) {
-    case 4: return launch_dkv<DH, 4>(a, dk, dv);
-    case 2: return launch_dkv<DH, 2>(a, dk, dv);
-    default: return launch_dkv<DH, 1>(a, dk, dv);
+    case 4: return launch_dkv<DH, 4, BIAS>(a, dk, dv);
+    case 2: return launch_dkv<DH, 2, BIAS>(a, dk, dv);
+    default: return launch_dkv<DH, 1, BIAS>(a, dk, dv);
   }
+}
+
+template <int DH>
+int launch_dkv_bias(const Args& a, bf16* dk, bf16* dv) {
+  return a.bias ? launch_dkv_rows<DH, true>(a, dk, dv)
+                : launch_dkv_rows<DH, false>(a, dk, dv);
 }
 
 // 0 when the call can launch, else the CUDA error to return
@@ -486,6 +631,20 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 }
 
 }  // namespace
+
+// Rows a block of a launch of either kernel with these arguments: plan[0]
+// query rows (dQ) or keys (dK/dV), 16 a warp. Returns cudaErrorInvalidValue
+// for a head width the kernels do not take.
+extern "C" int ptt_flash_attn_bf16_bwd_plan(int64_t bh, int64_t L,
+                                            int64_t dh, int* plan) {
+  if (dh != 16 && dh != 32 && dh != 64 && dh != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.bh = bh;
+  a.L = L;
+  plan[0] = warps_for(a) * 16;
+  return 0;
+}
 
 // q, k, v, dout, dq [bh, L, dh] bf16, q, k, v and dout 16-byte aligned; lse,
 // delta [bh, L] float32; bias null or [bh / n_heads, L] float32; all
@@ -525,10 +684,10 @@ extern "C" int ptt_flash_attn_bf16_bwd_dkv(
   bf16* outk = static_cast<bf16*>(dk);
   bf16* outv = static_cast<bf16*>(dv);
   switch (dh) {
-    case 16: return launch_dkv_rows<16>(a, outk, outv);
-    case 32: return launch_dkv_rows<32>(a, outk, outv);
-    case 64: return launch_dkv_rows<64>(a, outk, outv);
-    case 128: return launch_dkv_rows<128>(a, outk, outv);
+    case 16: return launch_dkv_bias<16>(a, outk, outv);
+    case 32: return launch_dkv_bias<32>(a, outk, outv);
+    case 64: return launch_dkv_bias<64>(a, outk, outv);
+    case 128: return launch_dkv_bias<128>(a, outk, outv);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

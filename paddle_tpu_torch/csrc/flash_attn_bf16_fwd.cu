@@ -92,29 +92,6 @@ constexpr int smem_bytes() {
   return (BM + 2 * kStages<DH> * kBK) * kLdB<DH> * 2 + kStages<DH> * kBK * 4;
 }
 
-// rows [r0, r0 + ROWS) of a [L, DH] bf16 matrix into a tile of padded rows,
-// zeros past L, 16 bytes a copy. A thread's copies lie at one column and
-// rows THREADS / (DH / 8) apart, so each costs an offset and a compare
-// (bf16_mma.cuh's load_rows_bf16 spends a division and a 64-bit index a
-// copy, which in this issue-bound loop cost about as much as the softmax).
-template <int DH, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int L, int tid) {
-  constexpr int CH = DH / 8;          // 16-byte chunks a row
-  constexpr int STEP = THREADS / CH;  // rows between a thread's chunks
-  constexpr int N = (ROWS + STEP - 1) / STEP;
-  const int rr = tid / CH, cc = (tid % CH) * 8;
-  bf16* d = dst + rr * kLdB<DH> + cc;
-  const bf16* g = src + static_cast<int64_t>(r0 + rr) * DH + cc;
-  const int left = L - r0 - rr;  // rows below L from this thread's first
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (ROWS % STEP == 0 || rr + i * STEP < ROWS) {
-      const bool in = i * STEP < left;
-      cp_async16(d + i * STEP * kLdB<DH>, in ? g + i * STEP * DH : src, in);
-    }
-}
-
 // a key below L and, under causal, at or before the row
 __device__ __forceinline__ bool visible(int key, int row, int L, int causal) {
   return key < L && (!causal || key <= row);

@@ -93,6 +93,21 @@ def _bf16_fwd_plan(bh, L, dh, causal, biased, scale):
     return plan[0], plan[1], bool(plan[2])
 
 
+def _bf16_bwd_plan(bh, L, dh):
+    """Rows a block (query rows for dQ, keys for dK/dV; 16 a warp) of the
+    bf16 backward kernels' launch with these arguments. It builds the
+    kernel library: card machines only."""
+    fn = _fns.get('bf16_bwd_plan')
+    if fn is None:
+        I = ctypes.c_int64
+        fn = _fns['bf16_bwd_plan'] = native.function(
+            _ROUTES[torch.bfloat16][1], 'ptt_flash_attn_bf16_bwd_plan',
+            [I, I, I, ctypes.c_void_p])
+    plan = (ctypes.c_int * 1)()
+    native.check(fn(bh, L, dh, plan), 'flash_attention_bf16_bwd plan')
+    return plan[0]
+
+
 def _names(dtype):
     """The counted names (forward, dQ, dK/dV) of the kernels for operands
     of ``dtype``."""

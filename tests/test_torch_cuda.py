@@ -6,7 +6,10 @@ skips without a card; on one, run
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest imports jax, which the card's
-machine need not have; this file imports only the port.)
+machine need not have; this file imports only the port.) The two tests
+that check which paths of the bf16 dK/dV kernel the cases and
+chip_smoke.py's shapes reach follow the kernel's rule in Python and need
+no card.
 
 Tolerances: exact for the gather (a copy) and for Adam (the same
 correctly rounded IEEE operations in the same order); 1e-4 absolute for the
@@ -695,6 +698,160 @@ def test_flash_bf16_forward_drops_at_exactly_minus_1e8(dev):
         v5 = v[2, 5].float()
         assert _err(o[2, 5:], v5.expand(L - 5, dh)) <= \
             2 ** -8 * float(v5.abs().max())
+
+
+BF16_DKV_LENGTHS = (1, 37, 63, 65, 200, 300)
+
+
+def _dkv_rows(bh, L):
+    """Keys a block (16 a warp) of the bf16 dK/dV kernel's launch: 64 where
+    that gives each of the card's 132 SMs a block, else 32, else 16."""
+    for rows in (64, 32):
+        if bh * -(-L // rows) >= 132:
+            return rows
+    return 16
+
+
+def _dkv_bh(rows, L):
+    """A batch x heads at which the dK/dV kernel takes blocks of ``rows``
+    keys (3 for 16, which takes what fills nothing), where some does."""
+    bh = 3 if rows == 16 else -(-132 // -(-L // rows))
+    return bh if _dkv_rows(bh, L) == rows else None
+
+
+BF16_DKV_PLANS = [(dh, causal, rows, L) for dh in (16, 32, 64, 128)
+                  for causal in (False, True) for rows in (64, 32, 16)
+                  for L in BF16_DKV_LENGTHS if _dkv_bh(rows, L)]
+
+
+def _dkv_bias(bh, L):
+    """[bh, L] key bias (-1e9 drops a key) whose dropped keys fill the
+    second 16-key warp (keys 16-31) and the second 64-key block (keys
+    64-127), touch the warp of key 130 and, in every fourth element, the
+    first warp (key 3) and the last 37 keys; element 0 keeps no key."""
+    bias = torch.zeros(bh, L)
+    bias[:, 16:32] = -1e9
+    bias[:, 64:128] = -1e9
+    bias[:, 130:131] = -1e9
+    bias[1::4, 3:4] = -1e9
+    bias[1::4, L - 37:] = -1e9
+    bias[0] = -1e9
+    return bias
+
+
+def _dkv_paths(L, dh, causal, rows, kept):
+    """The paths that the bf16 dK/dV kernel's warps take over the query
+    tiles (64 rows, 32 at dh 128) of one head whose keys ``kept`` (a list
+    of bools) says are kept, by the kernel's rule: 'dead block' (no key of
+    the block kept: nothing loaded), 'dead warp' (no key of the warp kept:
+    no product), and for each tile that is not wholly before the warp's
+    keys 'edge' (a tile past L), 'diagonal' (causal, some query before
+    some key of the warp), else 'interior'; ' dropped' is added where the
+    warp drops a key (or has one past L)."""
+    bt = 32 if dh > 64 else 64
+    paths = set()
+    for kb0 in range(0, L, rows):
+        if not any(kept[kb0:kb0 + rows]):
+            paths.add('dead block')
+            continue
+        for wk0 in range(kb0, kb0 + rows, 16):
+            keys = [k < L and kept[k] for k in range(wk0, wk0 + 16)]
+            if not any(keys):
+                paths.add('dead warp')
+                continue
+            tail = '' if all(keys) else ' dropped'
+            for q0 in range(kb0 // bt * bt if causal else 0, L, bt):
+                if causal and q0 + bt - 1 < wk0:
+                    continue
+                if q0 + bt > L:
+                    paths.add('edge')
+                elif causal and q0 < wk0 + 15:
+                    paths.add('diagonal' + tail)
+                else:
+                    paths.add('interior' + tail)
+    return paths
+
+
+@pytest.mark.parametrize('dh,causal,rows,L', BF16_DKV_PLANS)
+def test_flash_bf16_dkv_plans_and_tile_paths(dev, dh, causal, rows, L):
+    """The bf16 dK/dV kernel in each of its plans (keys a block, chosen by
+    the grid's size) at lengths off and on the tile edges, with no bias and
+    with one whose dropped keys fill a warp and a block, touch warps and
+    drop every key of one element, on the LSE and delta of the plain
+    forward: dK and dV within 1e-2 of each one's largest magnitude of the
+    plain version (at L 1, where dK is rounding noise around 0, within
+    1e-2), the dropped keys' rows exactly 0, and two calls bitwise
+    equal."""
+    bh = _dkv_bh(rows, L)
+    assert attention_ops._bf16_bwd_plan(bh, L, dh) == rows
+    q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
+                   for s in range(4))
+    for bias in (None, _dkv_bias(bh, L).to(dev)):
+        fwd = (dh ** -0.5, causal, bias, 1)
+        o, lse = attention_ops._attention_ref(q, k, v, *fwd)
+        args = (q, k, v, do, lse, attention_ops._delta(do, o)) + fwd
+        before = kernel_tier.launch_counts()['flash_attention_bf16_bwd_dkv']
+        dk, dv = attention_ops._flash_bwd_dkv(*args)
+        again = attention_ops._flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        assert kernel_tier.launch_counts()['flash_attention_bf16_bwd_dkv'] \
+            == before + 2
+        want = attention_ops._bwd_dkv_ref(*args)
+        for g, w, a in zip((dk, dv), want, again):
+            assert g.dtype == torch.bfloat16
+            assert torch.equal(g, a)
+            g, w = g.float(), w.float()
+            assert torch.isfinite(g).all()
+            largest = float(w.abs().max())
+            assert _err(g, w) <= 1e-2 * (max(largest, 1.0) if L == 1
+                                         else largest)
+            if bias is not None:
+                assert not g[bias <= -1e8].any()
+
+
+def test_flash_bf16_dkv_cases_reach_every_plan_and_tile_path():
+    """The cases above take every plan that each length allows, and in each
+    plan of each head width every path of the dK/dV kernel (by its rule in
+    ``_dkv_paths``): the diagonal ones under causal alone, a dead warp
+    where a block has more than one. Needs no card."""
+    for dh in (16, 32, 64, 128):
+        for causal in (False, True):
+            for rows in (64, 32, 16):
+                reached = set()
+                for L in BF16_DKV_LENGTHS:
+                    bh = _dkv_bh(rows, L)
+                    if bh is None:
+                        continue
+                    kept = [[True] * L] + \
+                        (_dkv_bias(bh, L) > -1e8).tolist()
+                    for row in kept:
+                        reached |= _dkv_paths(L, dh, causal, rows, row)
+                want = {'interior', 'interior dropped', 'edge', 'dead block'}
+                if causal:
+                    want |= {'diagonal', 'diagonal dropped'}
+                if rows > 16:
+                    want.add('dead warp')
+                assert reached == want, (dh, causal, rows)
+
+
+def test_flash_bf16_dkv_phase13_shapes_reach_their_paths():
+    """chip_smoke.py's phase 13 shapes (the AMP LM step's, causal, and
+    BERT's with its key-padding bias) take the dK/dV kernel's widest plan
+    and, between them, its interior and diagonal paths, a warp with a
+    dropped key, a dead warp and a dead block. The edge path needs L off
+    the tiles, which only the cases above reach. Needs no card."""
+    import chip_smoke
+    reached = set()
+    for sh in chip_smoke.flash_shapes(torch, True):
+        bh, L = sh['B'] * sh['H'], sh['L']
+        assert _dkv_rows(bh, L) == 64
+        rows = [None] if sh['bias'] is None else \
+            sorted(set(map(tuple, (sh['bias'] > -1e8).tolist())))
+        for row in rows:
+            reached |= _dkv_paths(L, sh['dh'], sh['causal'], 64,
+                                  [True] * L if row is None else row)
+    assert reached == {'interior', 'diagonal', 'interior dropped',
+                       'dead warp', 'dead block'}
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
