@@ -102,12 +102,13 @@ Phases, each printing one JSON line:
    the device kernels SDPA's call runs (``library_kernels``) and, without
    a mask, SDPA's FlashAttention-2 backend forced (``library_fa2_ms``,
    ``ms_over_fa2``): an mma.sync kernel, where SDPA's default on an H100
-   is cuDNN's wgmma one. The dK/dV kernel's cases likewise name its plan
-   (keys a block), the registers and spills of its instantiation (no
-   instantiation of it may spill), the device kernels of SDPA's backward
-   and, without a mask, that backward with FA2 forced; ``pair_ms`` is dQ's
-   time plus its own, and ``ms_over_library`` and ``ms_over_fa2`` hold
-   that pair against SDPA's backward, which yields dQ, dK and dV.
+   is cuDNN's wgmma one. The dQ and dK/dV kernels' cases likewise name
+   their plan (query rows or keys a block), the registers and spills of
+   their instantiation (no instantiation of either may spill); the dK/dV
+   cases also the device kernels of SDPA's backward and, without a mask,
+   that backward with FA2 forced; ``pair_ms`` is dQ's time plus its own,
+   and ``ms_over_library`` and ``ms_over_fa2`` hold that pair against
+   SDPA's backward, which yields dQ, dK and dV.
 14. amp_train_vs_cpu — phase 9 with the model bf16-marked
    (``rewrite_model_bf16``): card against CPU, loss within 5e-3 relative
    and every gradient within 2e-2 of its largest magnitude; then the
@@ -990,20 +991,23 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
     """Phases 8 and 13: the three flash kernels at the LM training shape and
     at BERT's (with the key-padding bias), on float32 operands (phase 8) or
     on bf16 ones (phase 13, ``dtype`` bf16: the bf16 kernels at the AMP
-    step's B 64; the forward's and the dK/dV kernel's cases also name
-    their plan and, from ``ptxas`` (``ptxas_report`` of the build), the
-    registers and spilled bytes of the instantiation that plan launches; no
-    instantiation of the forward or of the dK/dV kernel may spill). Returns
+    step's B 64; each kernel's cases also name their plan and, from
+    ``ptxas`` (``ptxas_report`` of the build), the registers and spilled
+    bytes of the instantiation that plan launches; no instantiation of the
+    forward, the dQ or the dK/dV kernel may spill). Returns
     {kernel name: summary}."""
     from paddle_tpu_torch.ops import attention_ops as A
     dtype = dtype or torch.float32
     low = dtype == torch.bfloat16
     fwd_ptxas = (ptxas or {}).get('flash_attn_bf16_fwd', {})
-    dkv_ptxas = {k: r for k, r in (ptxas or {}).get(
-        'flash_attn_bf16_bwd', {}).items()
-        if k.startswith('flash_bwd_dkv_bf16')}
+    bwd_ptxas = (ptxas or {}).get('flash_attn_bf16_bwd', {})
+    dq_ptxas, dkv_ptxas = ({k: r for k, r in bwd_ptxas.items()
+                            if k.startswith(name)}
+                           for name in ('flash_bwd_dq_bf16',
+                                        'flash_bwd_dkv_bf16'))
     if low:
-        for what, rep in (('forward', fwd_ptxas), ('dK/dV', dkv_ptxas)):
+        for what, rep in (('forward', fwd_ptxas), ('dQ', dq_ptxas),
+                          ('dK/dV', dkv_ptxas)):
             spilled = {k: r for k, r in rep.items() if r[1] or r[2]}
             if spilled:
                 raise AssertionError('the bf16 %s spills: %s'
@@ -1079,20 +1083,21 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
                 lib_out, leaves, do4, retain_graph=True), iters=20, warmup=3),
             library_covers='dQ, dK and dV in one call')
         del lib_out, leaves
-        dkv_extra = {}
+        dq_extra, dkv_extra = {}, {}
         if low:
             dkv_extra = sdpa_bwd_yardsticks(torch, F, sdpa, q4, k4, v4, do4,
                                             mask4, causal)
-            # the plan (keys a block, 16 a warp) and its instantiation
-            # flash_bwd_dkv_bf16<dh, warps, biased>
+            # the plan (query rows or keys a block, 16 a warp) and the
+            # instantiations flash_bwd_{dq,dkv}_bf16<dh, warps, biased>
             rows = A._bf16_bwd_plan(bh, L, dh)
-            kname = 'flash_bwd_dkv_bf16<%d, %d, %d>' % (
-                dh, rows // 16, bias is not None)
-            regs = dkv_ptxas.get(kname, [None] * 3)
-            dkv_extra.update(plan=dict(rows_block=rows, rows_warp=16),
-                             kernel=kname, registers=regs[0],
-                             spill_store_bytes=regs[1],
-                             spill_load_bytes=regs[2])
+            for res, rep, kernel in ((dq_extra, dq_ptxas, 'dq'),
+                                     (dkv_extra, dkv_ptxas, 'dkv')):
+                kname = 'flash_bwd_%s_bf16<%d, %d, %d>' % (
+                    kernel, dh, rows // 16, bias is not None)
+                regs = rep.get(kname, [None] * 3)
+                res.update(plan=dict(rows_block=rows, rows_warp=16),
+                           kernel=kname, registers=regs[0],
+                           spill_store_bytes=regs[1], spill_load_bytes=regs[2])
 
         def case(fn, plain, library, nbytes, flops, **errs):
             # every flop counted here is a matrix product's
@@ -1140,6 +1145,7 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
             lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args),
             lib_bwd, 5 * mat + 2 * row + extra, 6 * dh * sh['pairs'],
+            **dq_extra,
             max_abs_err=float((dq.float() - dq_ref.float()).abs().max()),
             max_rel_err=rel(dq, dq_ref),
             largest_magnitude=dict(dq=float(dq_ref.float().abs().max())),

@@ -111,9 +111,9 @@ __device__ __forceinline__ float ex2(float x) {
 
 // rows [r0, r0 + ROWS) of a [L, DH] bf16 matrix into a tile of padded rows,
 // zeros past L, 16 bytes a copy. A thread's copies lie at one column and
-// rows THREADS / (DH / 8) apart, so each costs an offset and a compare
-// (load_rows_bf16 below spends a division and a 64-bit index a copy, which
-// in an issue-bound loop of mma.sync costs about as much as a softmax).
+// rows THREADS / (DH / 8) apart, so each costs an offset and a compare (a
+// loader that spends a division and a 64-bit index a copy costs, in an
+// issue-bound loop of mma.sync, about as much as a softmax).
 template <int DH, int ROWS, int THREADS>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
                                           int L, int tid) {
@@ -130,20 +130,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
       const bool in = i * STEP < left;
       cp_async16(d + i * STEP * kLdB<DH>, in ? g + i * STEP * DH : src, in);
     }
-}
-
-// rows [r0, r0 + ROWS) of a [L, DH] bf16 matrix into a tile of padded rows,
-// zeros past L, 16 bytes a copy (the dQ kernel's loader)
-template <int DH, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, const bf16* src,
-                                               int r0, int L, int tid) {
-  constexpr int kChunks = DH / 8;
-  for (int c = tid; c < ROWS * kChunks; c += THREADS) {
-    const int r = c / kChunks, cc = (c % kChunks) * 8;
-    const bool in = r0 + r < L;
-    cp_async16(dst + r * kLdB<DH> + cc,
-               in ? src + static_cast<int64_t>(r0 + r) * DH + cc : src, in);
-  }
 }
 
 // n float32 values [r0, r0 + n) of a length-L vector, zeros past L

@@ -33,20 +33,32 @@
 // summed by exactly one warp in a fixed order: no atomics, and two calls
 // give the same bits. On this card a loop of mma.sync is paced by its
 // instruction count (a sub-partition hardly overlaps other instructions
-// with a stream of mma.sync), so the dK/dV kernel spends as few as it can.
+// with a stream of mma.sync), so both kernels spend as few as they can.
 // - dQ: each warp owns 16 query rows (1, 2 or 4 warps a block, the most that
-//   still gives >= 132 blocks). Per key tile it computes S = Q K^T and dP =
-//   dO V^T into accumulator fragments (`mma.sync.m16n8k16`, Q and dO as A
-//   fragments and K and V rows as B fragments, all by ldmatrix from shared
-//   memory), forms P and dS there with the row's LSE and delta in
-//   registers, and adds bf16(dS) K: dS, packed two accumulator tiles at a
-//   time, is the A fragment as it stands, and K is read N-major by
-//   ldmatrix.trans. K, V and the bias come in tiles of 64 rows (32 at DH
-//   128, where the accumulators take twice the registers), double-buffered
-//   through cp.async; causal tiles wholly above the diagonal are never
-//   loaded, and a warp skips the products of a loaded tile that lies wholly
-//   above its own rows. The warp's Q and dO rows stay in shared memory and
-//   are read as A fragments when used.
+//   still gives >= 132 blocks; a head's last query rows, the most key tiles
+//   under causal, first). The warp's Q and dO A fragments are read into
+//   registers once (DH <= 64; at DH 128 they stay in shared memory). Key
+//   tiles of 64 rows (32 at DH 128) of K, V and the bias stream through a
+//   three-slot cp.async ring (two at DH 128), one barrier a tile, by
+//   load_rows. Each tile is worked in chunks of 16 keys, one at a time: S =
+//   Q K^T and dP = dO V^T into accumulator fragments (`mma.sync.m16n8k16`,
+//   K and V rows as B fragments by ldmatrix), P and dS there with the row's
+//   LSE and delta in registers, and dQ += bf16(dS) K: dS, packed two
+//   accumulator tiles at a time, is the A fragment as it stands, and K is
+//   read N-major by ldmatrix.trans. p = 2^(s c + x), as for dK/dV below,
+//   with x per row (and key, with a bias); dS leaves the scale out and dQ
+//   takes it once at the end. A warp takes a tile's chunks by one of four
+//   paths, each a loop of its own (one loop holding every path ran 1.5-3.5%
+//   slower): interior (every key of the tile kept and below L, the chunk at
+//   or before the warp's first row: no index, compare or select),
+//   dropped-key (a select on each key: dropped, or past L, where the loader
+//   puts a bias of -inf; without a bias one compare with L, the edge), the
+//   causal diagonal (the chunk that crosses the warp's rows: one compare of
+//   key and row) and the diagonal with dropped keys. A chunk that keeps no
+//   key (a vote of the warp once the bias lands), or lies wholly after the
+//   warp's rows under causal, is skipped; the block's key loop ends at the
+//   last tile that keeps a key (a scan of the bias row first), so an
+//   element that keeps no key loads nothing and writes zeros.
 // - dK/dV: each warp owns 16 keys (blocks as for dQ) and works in the
 //   transposed form: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T formed
 //   with LSE and delta indexed by column (the query, from the tile's shared
@@ -56,11 +68,12 @@
 //   ring (two at DH 128), one barrier a tile, by bf16_mma.cuh's load_rows
 //   (a thread's copies at fixed strides, an offset and a compare each), and
 //   are worked in chunks of 16 queries, one at a time, which at DH <= 64
-//   fits 168 registers and three blocks of 4 warps an SM; K's and V's A
-//   fragments are read into registers once (DH <= 64). p = 2^(s c
-//   + x): log2(e) and the scale folded into one FFMA a score, x = -LSE ·
-//   log2(e) per query (with a bias (bias - LSE) · log2(e) per key and
-//   query). dS^T leaves the scale out and dK takes it once at the end
+//   fits 168 registers and three blocks of 4 warps an SM (dQ's 16-key
+//   chunks fit 128 and four blocks); K's and V's A fragments are read into
+//   registers once (DH <= 64).
+//   p = 2^(s c + x): log2(e) and the scale folded into one FFMA a score,
+//   x = -LSE · log2(e) per query (with a bias (bias - LSE) · log2(e) per key
+//   and query). dS^T leaves the scale out and dK takes it once at the end
 //   (exact for a power-of-two scale, as at DH 16 and 64). Each tile takes
 //   one of five paths, uniform over a warp: interior (every query at or
 //   after every key of the warp, all below L, no key dropped: no index,
@@ -71,7 +84,8 @@
 //   dropped loads nothing; both write zeros. A head's key blocks are
 //   neighbours on the grid (they share Q and dO in L2), its first keys, the
 //   most query tiles under causal, first.
-// - Rows and keys past L load as zeros and are masked, so any L works.
+// - Rows and keys past L load as zeros (a dQ row past L gets an LSE of
+//   +inf, so that its p is 0) and are masked, so any L works.
 // - Blocks are numbered (bh, tile) on gridDim.x alone, so batch × heads may
 //   exceed 65535.
 #include <cuda_runtime.h>
@@ -92,15 +106,146 @@ constexpr int kSms = 132;
 template <int DH>
 constexpr int kTile = DH > 64 ? 32 : 64;
 
-// [2][NW·16][LD] the warp rows' fixed operands, [2][2][BT][LD] the streamed
-// tiles (bf16), [2][2][BT] float32 vectors (the bias, or LSE and delta)
-template <int DH, int NW>
-constexpr int smem_bytes() {
-  return (2 * NW * 16 + 4 * kTile<DH>) * kLdB<DH> * 2 + 4 * kTile<DH> * 4;
+// Both kernels stream their tiles through a ring of kStages slots, each
+// holding two [BT][LD] bf16 tiles (K and V for dQ, Q and dO for dK/dV), then
+// VECS [BT] float32 vectors (the bias; LSE and delta). At DH <= 64 the A
+// fragments of the warp's fixed operands (Q and dO for dQ, K and V for
+// dK/dV) stay in registers (32 at DH 64), so those operands are staged in
+// the last slot and read out before the ring first fills it; at DH 128 (64
+// registers beside 128 accumulators) they stay in shared memory after the
+// ring and are read by ldmatrix when used.
+template <int DH>
+constexpr bool kInRegs = DH <= 64;
+template <int DH>
+constexpr int kStages = DH > 64 ? 2 : 3;
+template <int DH, int VECS>
+constexpr int kSlot = 2 * kTile<DH> * kLdB<DH> * 2 + VECS * kTile<DH> * 4;
+template <int DH, int VECS>
+constexpr int kFixedAt =
+    (kInRegs<DH> ? kStages<DH> - 1 : kStages<DH>) * kSlot<DH, VECS>;
+template <int DH, int NW, int VECS>
+constexpr int ring_smem_bytes() {
+  constexpr int ring = kStages<DH> * kSlot<DH, VECS>;
+  constexpr int fixed = kFixedAt<DH, VECS> + 2 * NW * 16 * kLdB<DH> * 2;
+  return ring > fixed ? ring : fixed;
 }
 
-template <int DH, int NW>
-__global__ void __launch_bounds__(NW * 32)
+// n bias values [r0, r0 + n) of a length-L row, -inf past L, so that a key
+// past L fails the test of a kept key as a dropped one does
+template <int THREADS>
+__device__ __forceinline__ void load_bias(float* dst, const float* src,
+                                          int r0, int n, int L, int tid) {
+  for (int c = tid; c < n; c += THREADS) {
+    if (r0 + c < L)
+      cp_async4(dst + c, src + r0 + c, true);
+    else
+      dst[c] = -__int_as_float(0x7f800000);
+  }
+}
+
+// Chunks of 16 keys, [k0 + c0, k0 + c0 + 16) for c0 in [from, to), of a key
+// tile in shared memory (ks, vs, bs: its K and V rows and its bias), one at
+// a time, for a warp's 16 query rows, this thread's rows r0 and r0 + 8 (h =
+// 0, 1): S = Q K^T and dP = dO V^T, then P and dS / scale in place of dP,
+// then dQ += bf16(dS / scale) K, K read N-major. With a bias (BIAS) a chunk
+// that keeps no key (its bits of ``any``, the tile's vote) is skipped. P =
+// 2^(s c + x) with c = scale · log2(e) and x = lx[h] = -LSE · log2(e), or
+// with a bias (lx[h] = LSE) x = (bias - LSE) · log2(e), the difference
+// taken first so that a bias and an LSE of one size cancel exactly, as in
+// the plain version's s - LSE.
+//   MASK  the causal diagonal: one compare of key and row;
+//   DROP  a select on each key, kept where its bias is above -1e8 (the
+//         loader's -inf past L fails it) or, without a bias, below L.
+// Neither: the interior path, no index, compare or select. kr = r0 - k0 -
+// 2t and kl = L - k0 - 2t fold the thread's offsets, so that each test is
+// one compare with a constant.
+template <int DH, bool MASK, bool DROP, bool BIAS>
+__device__ __forceinline__ void dq_chunks(
+    int from, int to, uint32_t any,
+    const uint32_t (&qf)[kInRegs<DH> ? DH / 16 : 1][4],
+    const uint32_t (&gf)[kInRegs<DH> ? DH / 16 : 1][4], const bf16* Qs,
+    const bf16* Gs, int wr, float (&acc)[DH / 8][4], const bf16* ks,
+    const bf16* vs, const float* bs, const float (&lx)[2],
+    const float (&dl)[2], int kr, int kl, float c, int lane) {
+  constexpr int KS = DH / 16;            // k-steps of Q K^T
+  constexpr int NO = DH / 8;             // 8-column tiles of dQ
+  constexpr int KPL = kTile<DH> / 32;    // keys a lane in the tile's vote
+  constexpr uint32_t kChunk = (1u << (16 / KPL)) - 1;  // a chunk's bits
+  const int t = lane & 3;
+  // one chunk at a time: unrolled, the chunks' products would overlap and
+  // take the registers that more blocks an SM need
+#pragma unroll 1
+  for (int c0 = from; c0 < to; c0 += 16) {
+    if (BIAS && ((any >> (c0 / KPL)) & kChunk) == 0) continue;
+    float sc[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t aq[4], ag[4];
+      if constexpr (kInRegs<DH>) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) aq[i] = qf[s][i], ag[i] = gf[s][i];
+      } else {
+        load_a<DH>(aq, Qs, wr, 16 * s, lane);
+        load_a<DH>(ag, Gs, wr, 16 * s, lane);
+      }
+      uint32_t b[4];
+      load_b_rows<DH>(b, ks, c0, 16 * s, lane);
+      mma_bf16(sc[0], aq, b[0], b[1]);
+      mma_bf16(sc[1], aq, b[2], b[3]);
+      load_b_rows<DH>(b, vs, c0, 16 * s, lane);
+      mma_bf16(dp[0], ag, b[0], b[1]);
+      mma_bf16(dp[1], ag, b[2], b[3]);
+    }
+    // the bias of this thread's four keys
+    float kb[2][2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float2 b2 = BIAS ? *reinterpret_cast<const float2*>(
+                                   bs + c0 + 8 * n + 2 * t)
+                             : make_float2(0.f, 0.f);
+      kb[n][0] = b2.x;
+      kb[n][1] = b2.y;
+    }
+    // P, and dS / scale in place of dP
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, x = e & 1;
+        const float xo = BIAS ? (kb[n][x] - lx[h]) * kLog2e : lx[h];
+        float p = ex2(fmaf(sc[n][e], c, xo));
+        bool keep = true;
+        if (MASK) keep = c0 + 8 * n + x <= kr + 8 * h;
+        if (DROP)
+          keep = keep && (BIAS ? kb[n][x] > kBiasDrop : c0 + 8 * n + x < kl);
+        if (MASK || DROP) p = keep ? p : 0.f;
+        dp[n][e] = p * (dp[n][e] - dl[h]);
+      }
+    // dQ += bf16(dS / scale) K, K read N-major
+    uint32_t a[4];
+    pack_a(a, dp, 0);
+#pragma unroll
+    for (int n = 0; n < NO; n += 2) {
+      uint32_t b[4];
+      load_b_cols<DH>(b, ks, c0, 8 * n, lane);
+      mma_bf16(acc[n], a, b[0], b[1]);
+      mma_bf16(acc[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// dQ of NW · 16 query rows a block, 16 a warp; BIAS: the call has a key
+// bias. At DH <= 64 with 2 or 4 warps it is held to 128 registers, 512
+// threads an SM: four blocks of 4 warps at the models' shapes, whose 56 KB
+// rings fill the SM's 228 KB of shared memory (4-8% faster than three
+// blocks, no spill); one warp a block (grids too small to fill the card)
+// takes what it needs.
+template <int DH, int NW, bool BIAS>
+__global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
     flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const bf16* __restrict__ dout,
@@ -111,129 +256,147 @@ __global__ void __launch_bounds__(NW * 32)
   constexpr int kThreads = NW * 32;
   constexpr int LD = kLdB<DH>;
   constexpr int BT = kTile<DH>;
-  constexpr int NT = BT / 8;   // 8-key tiles of S
+  constexpr int S = kStages<DH>;
+  constexpr int KS = DH / 16;  // k-steps of Q K^T
   constexpr int NO = DH / 8;   // 8-column tiles of dQ
+  constexpr int SLOT = kSlot<DH, 1>;
+  constexpr int KPL = BT / 32;  // keys a lane in the tile's votes
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [NW·16][LD]
-  bf16* Gs = Qs + NW * 16 * LD;                  // dO, the same rows
-  bf16* Ks = Gs + NW * 16 * LD;                  // [2][BT][LD]
-  bf16* Vs = Ks + 2 * BT * LD;                   // [2][BT][LD]
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * BT * LD);  // [2][BT]
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + kFixedAt<DH, 1>);
+  bf16* Gs = Qs + NW * 16 * LD;  // [NW·16][LD] each
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int tiles = (L + NW * 16 - 1) / (NW * 16);
   const int64_t bh = blockIdx.x / tiles;
-  const int q0 = (blockIdx.x % tiles) * NW * 16;
+  // a head's last query rows (under causal the most key tiles) first
+  const int q0 =
+      (tiles - 1 - static_cast<int>(blockIdx.x % tiles)) * NW * 16;
   const int64_t row0 = bh * L;
   const int64_t off = row0 * DH;
-  const bf16* kb = k + off;
-  const bf16* vb = v + off;
-  const float* brow = bias ? bias + (bh / n_heads) * L : nullptr;
-  const int wr = warp * 16;        // the warp's first row in Qs and Gs
-  const int r0 = q0 + wr + g;      // this thread's rows: r0, r0 + 8
+  const float* brow = BIAS ? bias + (bh / n_heads) * L : nullptr;
+  const int wr = warp * 16;   // the warp's first row in Qs and Gs
+  const int wq0 = q0 + wr;    // the warp's first row
+  const int r0 = wq0 + g;     // this thread's rows: r0, r0 + 8
 
-  auto load_tile = [&](int buf, int j) {
-    const int k0 = j * BT;
-    load_rows_bf16<DH, BT, kThreads>(Ks + buf * BT * LD, kb, k0, L, tid);
-    load_rows_bf16<DH, BT, kThreads>(Vs + buf * BT * LD, vb, k0, L, tid);
-    if (brow != nullptr)
-      load_vec_f32<kThreads>(Bs + buf * BT, brow, k0, BT, L, tid);
-  };
-
-  load_rows_bf16<DH, NW * 16, kThreads>(Qs, q + off, q0, L, tid);
-  load_rows_bf16<DH, NW * 16, kThreads>(Gs, dout + off, q0, L, tid);
-  load_tile(0, 0);
-  cp_async_commit();
-
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + h * 8;
-    lse_r[h] = r < L ? lse[row0 + r] : 0.f;
-    dl_r[h] = r < L ? delta[row0 + r] : 0.f;
+  // the keys the block sees: under causal up to its last row; with a bias
+  // up to its last kept key (every warp scans the row and gets the same
+  // answer), so that an element that keeps no key visits no tile
+  const int last_row = min(q0 + NW * 16, L) - 1;
+  int kend = causal ? last_row + 1 : L;
+  if constexpr (BIAS) {
+    int last = 0;
+#pragma unroll 4
+    for (int c = lane; c < kend; c += 32)
+      if (brow[c] > kBiasDrop) last = c + 1;
+    kend = __reduce_max_sync(0xffffffffu, last);
   }
+  const int nk = (kend + BT - 1) / BT;
+
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const int last_row = min(q0 + NW * 16, L) - 1;
-  const int nk = causal ? last_row / BT + 1 : (L + BT - 1) / BT;
-  const int warp_last = min(q0 + wr + 15, L - 1);
-  for (int j = 0; j < nk; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nk) {
-      load_tile(buf ^ 1, j + 1);
+  if (nk > 0) {
+    auto load_tile = [&](int buf, int j) {
+      const int k0 = j * BT;
+      bf16* ks = reinterpret_cast<bf16*>(smem_raw + buf * SLOT);
+      load_rows<DH, BT, kThreads>(ks, k + off, k0, L, tid);
+      load_rows<DH, BT, kThreads>(ks + BT * LD, v + off, k0, L, tid);
+      if constexpr (BIAS)
+        load_bias<kThreads>(reinterpret_cast<float*>(ks + 2 * BT * LD), brow,
+                            k0, BT, L, tid);
+    };
+    load_rows<DH, NW * 16, kThreads>(Qs, q + off, q0, L, tid);
+    load_rows<DH, NW * 16, kThreads>(Gs, dout + off, q0, L, tid);
+    cp_async_commit();
+    // one commit group a tile (empty past the last), so that waiting for
+    // all but the newest S - 2 groups waits for exactly the oldest tile
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) {
+      if (i < nk) load_tile(i, i);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();  // tile j is in for every thread
-    const int k0 = j * BT;
-    if (!causal || k0 <= warp_last) {  // else the tile is above the diagonal
-      const bf16* ks = Ks + buf * BT * LD;
-      const bf16* vs = Vs + buf * BT * LD;
-      const float* bs = Bs + buf * BT;
-      float sc[NT][4], dp[NT][4];
+    cp_async_wait<S - 1>();
+    __syncthreads();  // Q and dO are in for every thread
+    uint32_t qf[kInRegs<DH> ? KS : 1][4], gf[kInRegs<DH> ? KS : 1][4];
+    if constexpr (kInRegs<DH>) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int s = 0; s < DH / 16; ++s) {
-        uint32_t aq[4], ag[4];
-        load_a<DH>(aq, Qs, wr, 16 * s, lane);
-        load_a<DH>(ag, Gs, wr, 16 * s, lane);
-#pragma unroll
-        for (int n = 0; n < NT; n += 2) {
-          uint32_t b[4];
-          load_b_rows<DH>(b, ks, 8 * n, 16 * s, lane);
-          mma_bf16(sc[n], aq, b[0], b[1]);
-          mma_bf16(sc[n + 1], aq, b[2], b[3]);
-          load_b_rows<DH>(b, vs, 8 * n, 16 * s, lane);
-          mma_bf16(dp[n], ag, b[0], b[1]);
-          mma_bf16(dp[n + 1], ag, b[2], b[3]);
-        }
-      }
-      // dS in place of S
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float2 b2 = brow ? *reinterpret_cast<const float2*>(
-                                     bs + 8 * n + 2 * t)
-                               : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * n + 2 * t + (e & 1);
-          const int h = e >> 1;
-          const float bv = (e & 1) ? b2.y : b2.x;
-          const bool keep = key < L && (!causal || key <= r0 + 8 * h) &&
-                            bv > kBiasDrop;
-          const float p =
-              keep ? __expf(sc[n][e] * scale + bv - lse_r[h]) : 0.f;
-          sc[n][e] = p * (dp[n][e] - dl_r[h]) * scale;
-        }
-      }
-      // dQ += bf16(dS) K, K read N-major
-#pragma unroll
-      for (int s = 0; s < BT / 16; ++s) {
-        uint32_t a[4];
-        pack_a(a, sc, s);
-#pragma unroll
-        for (int n = 0; n < NO; n += 2) {
-          uint32_t b[4];
-          load_b_cols<DH>(b, ks, 16 * s, 8 * n, lane);
-          mma_bf16(acc[n], a, b[0], b[1]);
-          mma_bf16(acc[n + 1], a, b[2], b[3]);
-        }
+      for (int s = 0; s < KS; ++s) {
+        load_a<DH>(qf[s], Qs, wr, 16 * s, lane);
+        load_a<DH>(gf[s], Gs, wr, 16 * s, lane);
       }
     }
-    __syncthreads();  // every warp is done with this buffer before reuse
+    // this thread's rows' LSE (-LSE · log2(e) without a bias) and delta; a
+    // row past L takes an LSE of +inf, so that its p is 0
+    float lx[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + h * 8;
+      const float l = r < L ? lse[row0 + r] : __int_as_float(0x7f800000);
+      lx[h] = BIAS ? l : -l * kLog2e;
+      dl[h] = r < L ? delta[row0 + r] : 0.f;
+    }
+    const float c = scale * kLog2e;
+    // the warp's keys end at its last row under causal, else at L
+    const int kmax = causal ? min(wq0 + 15, L - 1) + 1 : L;
+    for (int j = 0; j < nk; ++j) {
+      cp_async_wait<S - 2>();
+      // tile j is in for every thread, and every warp is done with tile
+      // j - 1 (and with the Q and dO staged in the last slot)
+      __syncthreads();
+      if (j + S - 1 < nk) load_tile((j + S - 1) % S, j + S - 1);
+      cp_async_commit();
+      const int k0 = j * BT;
+      const int cend = min(kmax, k0 + BT) - k0;  // the warp's keys in it
+      if (wq0 >= L || cend <= 0) continue;
+      const bf16* ks =
+          reinterpret_cast<const bf16*>(smem_raw + (j % S) * SLOT);
+      const bf16* vs = ks + BT * LD;
+      const float* bs = reinterpret_cast<const float*>(vs + BT * LD);
+      // which keys the tile keeps: bit i of ``any`` (``all``) says that
+      // some (every) key of lane i's KPL keys k0 + KPL·i.. is kept; the
+      // tile drops a key (or has one past L) unless every bit of ``all``
+      uint32_t any = 0;
+      bool drop = k0 + BT > L;
+      if constexpr (BIAS) {
+        uint32_t all;
+        if constexpr (KPL == 2) {
+          const float2 b2 = reinterpret_cast<const float2*>(bs)[lane];
+          const bool a0 = b2.x > kBiasDrop, a1 = b2.y > kBiasDrop;
+          any = __ballot_sync(0xffffffffu, a0 || a1);
+          all = __ballot_sync(0xffffffffu, a0 && a1);
+        } else {
+          any = all = __ballot_sync(0xffffffffu, bs[lane] > kBiasDrop);
+        }
+        drop = all != 0xffffffffu;
+      }
+      // the tile's chunks before cmid lie at or before the warp's first
+      // row; under causal the rest cross its diagonal
+      const int cmid = causal ? max(0, min(cend, wq0 - k0)) : cend;
+      const int kr = r0 - k0 - 2 * t, kl = L - k0 - 2 * t;
+      if (drop) {
+        dq_chunks<DH, false, true, BIAS>(0, cmid, any, qf, gf, Qs, Gs, wr,
+                                         acc, ks, vs, bs, lx, dl, kr, kl, c,
+                                         lane);
+        dq_chunks<DH, true, true, BIAS>(cmid, cend, any, qf, gf, Qs, Gs, wr,
+                                        acc, ks, vs, bs, lx, dl, kr, kl, c,
+                                        lane);
+      } else {
+        dq_chunks<DH, false, false, BIAS>(0, cmid, any, qf, gf, Qs, Gs, wr,
+                                          acc, ks, vs, bs, lx, dl, kr, kl,
+                                          c, lane);
+        dq_chunks<DH, true, false, BIAS>(cmid, cend, any, qf, gf, Qs, Gs,
+                                         wr, acc, ks, vs, bs, lx, dl, kr, kl,
+                                         c, lane);
+      }
+    }
   }
 
+  // dQ takes the scale that dS left out
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + h * 8;
@@ -242,30 +405,8 @@ __global__ void __launch_bounds__(NW * 32)
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) =
-          pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
+          pack_bf16(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
   }
-}
-
-// The dK/dV kernel's query tiles: a ring of kDkvStages slots, each holding
-// Q and dO [BT][LD] (bf16), then LSE and delta [BT] (float32). At DH <= 64
-// K's and V's A fragments stay in registers (32 at DH 64), so K and V are
-// staged in the last slot and read out before the ring first fills it; at
-// DH 128 (64 registers beside 128 accumulators) they stay in shared memory
-// after the ring and are read by ldmatrix when used.
-template <int DH>
-constexpr bool kKvInRegs = DH <= 64;
-template <int DH>
-constexpr int kDkvStages = DH > 64 ? 2 : 3;
-template <int DH>
-constexpr int kDkvSlot = 2 * kTile<DH> * kLdB<DH> * 2 + 2 * kTile<DH> * 4;
-template <int DH>
-constexpr int kDkvKvAt =
-    (kKvInRegs<DH> ? kDkvStages<DH> - 1 : kDkvStages<DH>) * kDkvSlot<DH>;
-template <int DH, int NW>
-constexpr int dkv_smem_bytes() {
-  constexpr int ring = kDkvStages<DH> * kDkvSlot<DH>;
-  constexpr int kv = kDkvKvAt<DH> + 2 * NW * 16 * kLdB<DH> * 2;
-  return ring > kv ? ring : kv;
 }
 
 // One query tile, queries [q0, q0 + BT) in shared memory (qs, gs: Q and dO;
@@ -286,8 +427,8 @@ constexpr int dkv_smem_bytes() {
 // compare with a constant.
 template <int DH, int MASK, bool DROP, bool BIAS>
 __device__ __forceinline__ void dkv_tile(
-    const uint32_t (&kf)[kKvInRegs<DH> ? DH / 16 : 1][4],
-    const uint32_t (&vf)[kKvInRegs<DH> ? DH / 16 : 1][4], const bf16* Ks,
+    const uint32_t (&kf)[kInRegs<DH> ? DH / 16 : 1][4],
+    const uint32_t (&vf)[kInRegs<DH> ? DH / 16 : 1][4], const bf16* Ks,
     const bf16* Vs, int wr, float (&acc_k)[DH / 8][4],
     float (&acc_v)[DH / 8][4], const bf16* qs, const bf16* gs,
     const float* ls, const float* ds, const float (&kb)[2],
@@ -310,7 +451,7 @@ __device__ __forceinline__ void dkv_tile(
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       uint32_t ak[4], av[4];
-      if constexpr (kKvInRegs<DH>) {
+      if constexpr (kInRegs<DH>) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) ak[i] = kf[s][i], av[i] = vf[s][i];
       } else {
@@ -402,12 +543,12 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
   constexpr int kThreads = NW * 32;
   constexpr int LD = kLdB<DH>;
   constexpr int BT = kTile<DH>;
-  constexpr int S = kDkvStages<DH>;
+  constexpr int S = kStages<DH>;
   constexpr int KS = DH / 16;  // k-steps of K Q^T
   constexpr int NO = DH / 8;   // 8-column tiles of dK and dV
-  constexpr int SLOT = kDkvSlot<DH>;
+  constexpr int SLOT = kSlot<DH, 2>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + kDkvKvAt<DH>);
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + kFixedAt<DH, 2>);
   bf16* Vs = Ks + NW * 16 * LD;  // [NW·16][LD] each
 
   const int tid = threadIdx.x;
@@ -464,8 +605,8 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
     }
     cp_async_wait<S - 1>();
     __syncthreads();  // K and V are in for every thread
-    uint32_t kf[kKvInRegs<DH> ? KS : 1][4], vf[kKvInRegs<DH> ? KS : 1][4];
-    if constexpr (kKvInRegs<DH>) {
+    uint32_t kf[kInRegs<DH> ? KS : 1][4], vf[kInRegs<DH> ? KS : 1][4];
+    if constexpr (kInRegs<DH>) {
 #pragma unroll
       for (int s = 0; s < KS; ++s) {
         load_a<DH>(kf[s], Ks, wr, 16 * s, lane);
@@ -560,18 +701,18 @@ int launch(Kernel kernel, int bytes, bool* configured, const Args& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH, int NW>
+template <int DH, int NW, bool BIAS>
 int launch_dq(const Args& a, bf16* dq) {
   static bool configured = false;
-  return launch<NW * 16>(flash_bwd_dq_bf16<DH, NW>, smem_bytes<DH, NW>(),
-                         &configured, a, dq);
+  return launch<NW * 16>(flash_bwd_dq_bf16<DH, NW, BIAS>,
+                         ring_smem_bytes<DH, NW, 1>(), &configured, a, dq);
 }
 
 template <int DH, int NW, bool BIAS>
 int launch_dkv(const Args& a, bf16* dk, bf16* dv) {
   static bool configured = false;
   return launch<NW * 16>(flash_bwd_dkv_bf16<DH, NW, BIAS>,
-                         dkv_smem_bytes<DH, NW>(), &configured, a, dk, dv);
+                         ring_smem_bytes<DH, NW, 2>(), &configured, a, dk, dv);
 }
 
 // 4 warps (64 rows) a block where that fills the card, else 2, else 1
@@ -581,13 +722,19 @@ int warps_for(const Args& a) {
   return 1;
 }
 
-template <int DH>
+template <int DH, bool BIAS>
 int launch_dq_rows(const Args& a, bf16* dq) {
   switch (warps_for(a)) {
-    case 4: return launch_dq<DH, 4>(a, dq);
-    case 2: return launch_dq<DH, 2>(a, dq);
-    default: return launch_dq<DH, 1>(a, dq);
+    case 4: return launch_dq<DH, 4, BIAS>(a, dq);
+    case 2: return launch_dq<DH, 2, BIAS>(a, dq);
+    default: return launch_dq<DH, 1, BIAS>(a, dq);
   }
+}
+
+template <int DH>
+int launch_dq_bias(const Args& a, bf16* dq) {
+  return a.bias ? launch_dq_rows<DH, true>(a, dq)
+                : launch_dq_rows<DH, false>(a, dq);
 }
 
 template <int DH, bool BIAS>
@@ -663,10 +810,10 @@ extern "C" int ptt_flash_attn_bf16_bwd_dq(const void* q, const void* k,
                            scale, causal, stream);
   bf16* out = static_cast<bf16*>(dq);
   switch (dh) {
-    case 16: return launch_dq_rows<16>(a, out);
-    case 32: return launch_dq_rows<32>(a, out);
-    case 64: return launch_dq_rows<64>(a, out);
-    case 128: return launch_dq_rows<128>(a, out);
+    case 16: return launch_dq_bias<16>(a, out);
+    case 32: return launch_dq_bias<32>(a, out);
+    case 64: return launch_dq_bias<64>(a, out);
+    case 128: return launch_dq_bias<128>(a, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

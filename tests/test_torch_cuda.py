@@ -6,9 +6,9 @@ skips without a card; on one, run
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest imports jax, which the card's
-machine need not have; this file imports only the port.) The two tests
-that check which paths of the bf16 dK/dV kernel the cases and
-chip_smoke.py's shapes reach follow the kernel's rule in Python and need
+machine need not have; this file imports only the port.) The four tests
+that check which paths of the bf16 dQ and dK/dV kernels the cases and
+chip_smoke.py's shapes reach follow the kernels' rules in Python and need
 no card.
 
 Tolerances: exact for the gather (a copy) and for Adam (the same
@@ -852,6 +852,165 @@ def test_flash_bf16_dkv_phase13_shapes_reach_their_paths():
                                   [True] * L if row is None else row)
     assert reached == {'interior', 'diagonal', 'interior dropped',
                        'dead warp', 'dead block'}
+
+
+def _dq_sparse_bias(bh, L):
+    """[bh, L] key bias (-1e9 drops a key) that keeps one key of each
+    16-key chunk: its last in even elements, its first in odd ones."""
+    bias = torch.full((bh, L), -1e9)
+    bias[0::2, 15::16] = 0.0
+    bias[1::2, 0::16] = 0.0
+    return bias
+
+
+def _dq_chunks(L, dh, causal, rows, kept):
+    """The 16-key chunks that the bf16 dQ kernel's warps visit, by its rule,
+    in one head whose keys ``kept`` (a list of bools) says are kept, with
+    its plan's ``rows`` query rows a block (16 a warp) and key tiles of 64
+    (32 at dh 128): a list of (the warp's first row, the chunk's first key,
+    path). A block ends its key loop at its last kept key (under causal at
+    most its last row) and, when it keeps none, visits nothing: (its first
+    row, None, 'dead block'). A warp visits the chunks of those tiles up to
+    its last row under causal, else up to L; a chunk that keeps no key is
+    'dead chunk' (skipped). The others take 'diagonal' (causal, some key
+    after the warp's first row: a compare of key and row) or 'interior',
+    plus ' edge' where the tile crosses L or ' dropped' where it drops a
+    key (both a select on each key of the tile's chunks)."""
+    bt = 32 if dh > 64 else 64
+    out = []
+    for q0 in range(0, L, rows):
+        last_row = min(q0 + rows, L) - 1
+        seen = [k for k in range(last_row + 1 if causal else L) if kept[k]]
+        if not seen:
+            out.append((q0, None, 'dead block'))
+            continue
+        kend = seen[-1] + 1
+        for wq0 in range(q0, min(q0 + rows, L), 16):
+            kmax = min(wq0 + 15, L - 1) + 1 if causal else L
+            for k0 in range(0, kend, bt):
+                tail = ' edge' if k0 + bt > L else \
+                    '' if all(kept[k0:k0 + bt]) else ' dropped'
+                for c in range(k0, min(kmax, k0 + bt), 16):
+                    if not any(kept[c:min(c + 16, L)]):
+                        out.append((wq0, c, 'dead chunk'))
+                        continue
+                    path = 'diagonal' if causal and c + 15 > wq0 \
+                        else 'interior'
+                    out.append((wq0, c, path + tail))
+    return out
+
+
+def _dq_reach(L, dh, causal, rows, kept):
+    """The paths of ``_dq_chunks``, after checking that the (row, key)
+    pairs whose p the kernel keeps when it works those chunks by their
+    paths' tests (every pair of an interior chunk, the kept keys where a
+    select drops keys, key <= row on the diagonal) are exactly those the
+    plain version keeps (visible under causal, key kept): no pair is lost
+    to a skipped chunk or an interior path, and none masked is kept."""
+    chunks = _dq_chunks(L, dh, causal, rows, kept)
+    kept = torch.tensor(kept)
+    keep = torch.zeros(L, L, dtype=torch.bool)
+    for wq0, c, path in chunks:
+        if c is None or path == 'dead chunk':
+            continue
+        rs, ks = slice(wq0, min(wq0 + 16, L)), slice(c, min(c + 16, L))
+        tile = torch.ones(rs.stop - rs.start, ks.stop - ks.start,
+                          dtype=torch.bool)
+        if 'dropped' in path or 'edge' in path:
+            tile &= kept[ks][None, :]
+        if 'diagonal' in path:
+            tile &= torch.arange(ks.start, ks.stop)[None, :] <= \
+                torch.arange(rs.start, rs.stop)[:, None]
+        keep[rs, ks] = tile
+    want = kept[None, :].expand(L, L)
+    if causal:
+        want = want & torch.ones(L, L, dtype=torch.bool).tril()
+    assert torch.equal(keep, want), (L, dh, causal, rows)
+    return {path for _, _, path in chunks}
+
+
+# the dQ kernel takes dK/dV's plan (16 rows a warp; 4, 2 or 1 warps a block)
+@pytest.mark.parametrize('dh,causal,rows,L', BF16_DKV_PLANS)
+def test_flash_bf16_dq_plans_and_tile_paths(dev, dh, causal, rows, L):
+    """The bf16 dQ kernel in each of its plans (query rows a block, chosen
+    by the grid's size) at lengths off and on the tile edges, with no bias
+    and with one whose dropped keys fill a 64-key tile and a 16-key chunk,
+    touch single keys and drop every key of one element, and with one that
+    keeps a single key a chunk, on the LSE and delta of the plain forward:
+    dQ within 1e-2 of its largest magnitude of
+    the plain version (at L 1, where dQ is rounding noise around 0, within
+    1e-2), the rows that keep no key exactly 0, two calls bitwise equal,
+    and each launch counted."""
+    bh = _dkv_bh(rows, L)
+    assert attention_ops._bf16_bwd_plan(bh, L, dh) == rows
+    q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
+                   for s in range(4))
+    for bias in (None, _dkv_bias(bh, L).to(dev),
+                 _dq_sparse_bias(bh, L).to(dev)):
+        fwd = (dh ** -0.5, causal, bias, 1)
+        o, lse = attention_ops._attention_ref(q, k, v, *fwd)
+        args = (q, k, v, do, lse, attention_ops._delta(do, o)) + fwd
+        before = kernel_tier.launch_counts()['flash_attention_bf16_bwd_dq']
+        dq = attention_ops._flash_bwd_dq(*args)
+        again = attention_ops._flash_bwd_dq(*args)
+        torch.cuda.synchronize()
+        assert kernel_tier.launch_counts()['flash_attention_bf16_bwd_dq'] \
+            == before + 2
+        want = attention_ops._bwd_dq_ref(*args)
+        assert dq.dtype == torch.bfloat16
+        assert torch.equal(dq, again)
+        got, want = dq.float(), want.float()
+        assert torch.isfinite(got).all()
+        largest = float(want.abs().max())
+        assert _err(got, want) <= 1e-2 * (max(largest, 1.0) if L == 1
+                                          else largest)
+        _, keep = attention_ops._scores(q, k, dh ** -0.5, causal, bias, 1)
+        assert not got[(~keep.any(dim=-1)).expand(bh, L)].any()
+
+
+def test_flash_bf16_dq_cases_reach_every_plan_and_tile_path():
+    """The cases above take every plan that each length allows, and in each
+    plan of each head width every path of the dQ kernel (by its rule in
+    ``_dq_chunks``, which ``_dq_reach`` first holds to the plain version's
+    mask): the diagonal ones under causal alone. Needs no card."""
+    for dh in (16, 32, 64, 128):
+        for causal in (False, True):
+            for rows in (64, 32, 16):
+                reached = set()
+                for L in BF16_DKV_LENGTHS:
+                    bh = _dkv_bh(rows, L)
+                    if bh is None:
+                        continue
+                    kept = [[True] * L] + \
+                        (_dkv_bias(bh, L) > -1e8).tolist() + \
+                        (_dq_sparse_bias(bh, L) > -1e8).tolist()
+                    for row in map(list, sorted(set(map(tuple, kept)))):
+                        reached |= _dq_reach(L, dh, causal, rows, row)
+                want = {'interior', 'interior dropped', 'interior edge',
+                        'dead chunk', 'dead block'}
+                if causal:
+                    want |= {'diagonal', 'diagonal dropped', 'diagonal edge'}
+                assert reached == want, (dh, causal, rows, reached)
+
+
+def test_flash_bf16_dq_phase13_shapes_reach_their_paths():
+    """chip_smoke.py's phase 13 shapes (the AMP LM step's, causal, and
+    BERT's with its key-padding bias) take the dQ kernel's widest plan
+    and, between them, its interior and diagonal paths, chunks with a
+    dropped key, dead chunks and a dead block (the wholly padded element).
+    The edge needs L off the chunks, which only the cases above reach.
+    Needs no card."""
+    import chip_smoke
+    reached = set()
+    for sh in chip_smoke.flash_shapes(torch, True):
+        bh, L = sh['B'] * sh['H'], sh['L']
+        assert _dkv_rows(bh, L) == 64
+        rows = [[True] * L] if sh['bias'] is None else \
+            map(list, sorted(set(map(tuple, (sh['bias'] > -1e8).tolist()))))
+        for row in rows:
+            reached |= _dq_reach(L, sh['dh'], sh['causal'], 64, row)
+    assert reached == {'interior', 'diagonal', 'interior dropped',
+                       'dead chunk', 'dead block'}
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
