@@ -30,6 +30,29 @@ Phases, each printing one JSON line:
    tokens/s, prefill ms per bucket, decode-step ms beside the step's memory
    floor, and a torch.profiler breakdown of a decode step and a prefill
    (device busy share, the kernels taking the most device time).
+4b. engine_paged — the same LM behind the paged GenerateEngine
+   (``paged=True``, block_size 16, slots 16 on 256 blocks: phase 4's HBM
+   for K and V), after the gather, LN and FFN wrappers are held against
+   their plain versions at its step's 16 rows (``kernel`` lines, as in
+   phase 3). 24 concurrent requests, 32 new tokens each, half greedy and
+   half sampled with pinned seeds: 12 prompts of one 192-token prefix (12
+   full blocks) and distinct 8..60-token suffixes, 4 prompts of that
+   prefix alone (copy-on-write), 4 of 300..470 tokens (two prefill
+   chunks) and 4 of 5..40. Checks: every request equals its own paged
+   generate_once, and each greedy one a contiguous engine's generate_once
+   (phase 4's, or one whose ladder holds a 512 bucket for the long
+   prompts), where a token may differ only at a tie (at the first
+   divergent step the two tokens' logits in the reference run within 1e-5:
+   a prefix hit, a chunk or a bucket changes the products' shapes and so
+   their bits; each tie is printed and nothing after it compared); prefix
+   hits >= 15, copy-on-write copies >= 4 and the tokens saved those hits'
+   cached lengths; ``peak_active`` above phase 4's 8 slots; no block in
+   use after ``stop()``; the gather, LN and FFN kernels launched; one
+   paged prefill, one with a prefix hit and one paged step within 1e-3 of
+   the CPU's logits. Reports tokens/s, prefill ms per suffix bucket after
+   the 192-token prefix, the paged step's ms beside a contiguous step at
+   the same 16 slots (wall and device, by torch.profiler) with each
+   one's byte floor, ``stats()`` and peak memory, tagged with the card.
 
 5. train_kernel — the training slice's kernels (CE forward and backward,
    the LN-residual backward, multi-tensor Adam) at the shapes the flagship's
@@ -170,6 +193,20 @@ MAX_LEN = 512
 BUCKETS = (64, 128, 256)
 NEW_TOKENS = 32
 N_REQUESTS = 16
+# phase 4b: the paged engine at phase 4's K/V HBM (256 blocks of 16 rows =
+# 8 slots of 512 rows) with twice its slots
+PAGED_SLOTS = 16
+PAGED_BLOCK = 16
+PAGED_BLOCKS = SLOTS * MAX_LEN // PAGED_BLOCK
+PAGED_PREFIX = 192
+# token counts of the other prompts: the shared prompts' suffixes, the long
+# prompts (two prefill chunks each) and the short ones, (least, most)
+PAGED_SUFFIX = (8, 60)
+PAGED_LONG = (300, 470)
+PAGED_SHORT = (5, 40)
+PAGED_KERNELS = ('embedding_gather', 'fused_ln_residual', 'fused_ffn')
+# logits of two tokens this close are a tie (phase 4b's token comparisons)
+TIE = 1e-5
 
 # the kernels the decode engine launches
 ENGINE_KERNELS = ('embedding_gather', 'fused_ln_residual', 'flash_attention',
@@ -201,7 +238,8 @@ AMP_TRAIN_KERNELS = ('embedding_gather', 'fused_ln_residual',
 AMP_IDLE_KERNELS = ('fused_ffn',) + FLASH_KERNELS
 AMP_TRAIN_B = 64            # bench.py:1062
 AMP_BERT_B = 128            # bench.py:1131
-PATH_KERNELS = {'engine': ENGINE_KERNELS, 'train': TRAIN_KERNELS,
+PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
+                'train': TRAIN_KERNELS,
                 'train_flash': FLASH_TRAIN_KERNELS,
                 'bert': FLASH_TRAIN_KERNELS, 'train_amp': AMP_TRAIN_KERNELS,
                 'bert_amp': AMP_TRAIN_KERNELS}
@@ -314,12 +352,13 @@ def backward_ms(torch, fwd, inputs, grad, calls=10, replays=5):
     return replay_ms(torch, bwd_graph, calls, replays)
 
 
-def step_profile(torch, fn, steps=10):
+def step_profile(torch, fn, steps=10, host=False):
     """Device time of ``steps`` eager calls of ``fn`` by torch.profiler:
     the wall time, the summed kernel time, the busy share, the kernels
     taking the most device time and the host ops that launched the most of
-    it. ``busy_share`` is None when the profiler recorded no device time
-    (then it was not measured)."""
+    it; with ``host`` also the host ops taking the most host time of their
+    own (``top_host``). ``busy_share`` is None when the profiler recorded
+    no device time (then it was not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -345,12 +384,20 @@ def step_profile(torch, fn, steps=10):
                 for e in sorted(evs, key=lambda e: e.self_device_time_total,
                                 reverse=True)[:n]]
 
-    return dict(
+    out = dict(
         steps=steps, wall_ms_per_step=wall_ms / steps,
         device_ms_per_step=dev_ms / steps,
         busy_share=dev_ms / wall_ms if dev_ms > 0 else None,
         launches_per_step=sum(e.count for e in kernels) / steps,
         top=top(kernels, 10), top_ops=top(ops, 10))
+    if host:
+        cpu_ops = sorted((e for e in events if e.device_type ==
+                          torch.autograd.DeviceType.CPU),
+                         key=lambda e: e.self_cpu_time_total, reverse=True)
+        out['top_host'] = [dict(name=e.key[:60], count=e.count,
+                                ms_per_step=e.self_cpu_time_total / 1e3 /
+                                steps) for e in cpu_ops[:10]]
+    return out
 
 
 def ptxas_report(log):
@@ -427,8 +474,11 @@ def ffn_routes(torch, ffn_ops, randn, w1, b1, w2, b2):
             raise AssertionError('fused_ffn routes at M %d: %s' % (n, res))
 
 
-def check_kernels(torch, F, kt):
-    """Phase 3. Returns {kernel name: summary dict} with per-shape cases."""
+def check_kernels(torch, F, kt, rows=None, decode_only=False):
+    """Phase 3 (at ``rows``: the buckets and the slots when None). With
+    ``decode_only`` the gather, LN and FFN only, without the FFN's route
+    lines (phase 4b at its step's rows). Returns {kernel name: summary
+    dict} with per-shape cases."""
     from paddle_tpu_torch.ops import (attention_ops, embedding_ops,
                                       ffn_ops, nn_ops)
     dev = torch.device('cuda', 0)
@@ -439,7 +489,7 @@ def check_kernels(torch, F, kt):
 
     d, d_ff, V, H = 512, 2048, 32000, 8
     dh = d // H
-    rows = list(BUCKETS) + [SLOTS]
+    rows = rows or list(BUCKETS) + [SLOTS]
     out = {}
 
     # embedding gather: exact (a copy); ids in range, plus a clamp probe
@@ -490,7 +540,7 @@ def check_kernels(torch, F, kt):
     # flash attention, causal, B 1, H 8, dh 64: online softmax vs the
     # plain two-pass softmax -> 1e-4 absolute on O and LSE
     cases = []
-    for T in BUCKETS:
+    for T in () if decode_only else BUCKETS:
         q, k, v = randn(1, H, T, dh), randn(1, H, T, dh), randn(1, H, T, dh)
         got = attention_ops.flash_attention(q, k, v, causal=True,
                                             return_lse=True)
@@ -515,7 +565,8 @@ def check_kernels(torch, F, kt):
                 q3, k3, v3, dh ** -0.5, True)),
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True))))
-    out['flash_attention'] = dict(tolerance=1e-4, cases=cases)
+    if cases:
+        out['flash_attention'] = dict(tolerance=1e-4, cases=cases)
 
     # FFN tail: two f32 products (K = 512 and 2048) in another summation
     # order than cuBLAS (3xTF32 on the tensor cores, or the skinny route's
@@ -541,7 +592,7 @@ def check_kernels(torch, F, kt):
             plain_ms=cuda_ms(torch, lambda: ffn_ops._ffn_ref(
                 x, w1, b1, w2, b2)),
             library_ms=cuda_ms(torch, lambda: F.gelu(x @ w1 + b1) @ w2 + b2))
-        if n == SLOTS:
+        if n in (SLOTS, PAGED_SLOTS):
             # the decode step's bitwise contract: row 0 does not move when
             # the other rows change
             other = x.clone()
@@ -555,7 +606,8 @@ def check_kernels(torch, F, kt):
                                      'rows at M %d' % n)
         cases.append(case)
     out['fused_ffn'] = dict(tolerance=1e-4, cases=cases)
-    ffn_routes(torch, ffn_ops, randn, w1, b1, w2, b2)
+    if not decode_only:
+        ffn_routes(torch, ffn_ops, randn, w1, b1, w2, b2)
 
     for res in out.values():
         for c in res['cases']:
@@ -695,6 +747,260 @@ def run_engine(torch, kt):
         prefill_profile={str(BUCKETS[-1]): pf_profile},
         logits_max_abs_err_vs_cpu=logit_err, launches=counts,
         stats=eng.stats(), peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return summary, counts
+
+
+def traced_once(eng, prompt, kw):
+    """(tokens, logits): ``eng.generate_once(prompt, max_new_tokens=
+    NEW_TOKENS, **kw)`` and, on the CPU, the logits each of its tokens was
+    chosen from (the final prefill's, then slot 0's of each step)."""
+    model, rec = eng.model, []
+
+    def traced(fn, row):
+        def call(*args, **kw):
+            tok, logits = fn(*args, **kw)
+            rec.append(logits[row].cpu())
+            return tok, logits
+        return call
+
+    model.prefill = traced(model.prefill, 0)
+    model.prefill_paged = traced(model.prefill_paged, 0)
+    model.decode_step = traced(model.decode_step, 0)
+    try:
+        tokens = eng.generate_once(prompt, max_new_tokens=NEW_TOKENS, **kw)
+    finally:
+        del model.prefill, model.prefill_paged, model.decode_step
+    # a chunked prefill's earlier chunks come first: the last len(tokens)
+    return tokens, rec[-len(tokens):]
+
+
+def first_tie(got, ref, logits):
+    """None when ``got`` equals the reference tokens ``ref``; when they
+    first differ at a tie (the reference run's logits of the two tokens
+    within TIE), that step, the tokens and their gap; else raises."""
+    for t, (a, b) in enumerate(zip(got, ref)):
+        if a != b:
+            gap = abs(float(logits[t][a] - logits[t][b]))
+            if not gap <= TIE:
+                raise AssertionError(
+                    'tokens differ at step %d (%d against the reference\'s '
+                    '%d) with a logit gap of %g' % (t, a, b, gap))
+            return dict(step=t, token=int(a), ref_token=int(b), gap=gap)
+    if len(got) != len(ref):
+        raise AssertionError('%d tokens against the reference\'s %d'
+                             % (len(got), len(ref)))
+    return None
+
+
+def run_engine_paged(torch, kt, smi):
+    """Phase 4b: the full-width paged engine. Returns (summary, launch
+    counts of its traffic)."""
+    from paddle_tpu_torch.models.transformer import LMConfig, TransformerLM
+    from paddle_tpu_torch.serving import GenerateConfig, GenerateEngine
+    model_cfg = LMConfig(dropout=0.0, attn_dropout=0.0,
+                         use_flash_attention=True)
+    cfg = GenerateConfig(
+        model=model_cfg, slots=PAGED_SLOTS, max_len=MAX_LEN,
+        prompt_buckets=list(BUCKETS), max_new_tokens=NEW_TOKENS, seed=0,
+        paged=True, block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS)
+    V = model_cfg.vocab_size
+    rs = np.random.RandomState(17)
+    prefix = rs.randint(2, V, size=PAGED_PREFIX)
+    shared = [np.concatenate([prefix, rs.randint(2, V, size=int(n))])
+              for n in np.linspace(*PAGED_SUFFIX, num=12)]
+    cow = [prefix] * 4
+    long_ = [rs.randint(2, V, size=int(n))
+             for n in np.linspace(*PAGED_LONG, num=4)]
+    short = [rs.randint(2, V, size=int(n))
+             for n in np.linspace(*PAGED_SHORT, num=4)]
+    # the copy-on-write prompts right after the first shared one, whose
+    # admission registers the prefix's blocks: each of them is a hit
+    order = [(shared[0], 'shared')] + [(p, 'cow') for p in cow]
+    for i in range(4):
+        order += [(p, 'shared') for p in shared[1 + 3 * i:4 + 3 * i]]
+        order += [(long_[i], 'long'), (short[i], 'short')]
+    prompts, kinds = zip(*order)
+    kinds = list(kinds)
+    work = [(p, dict(temperature=0.8, top_k=50, top_p=0.9,
+                     sample_seed=2000 + i) if i % 2 else {})
+            for i, p in enumerate(prompts)]
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerateEngine(cfg)                       # cuda:0
+    warm = eng.warmup()
+    kt.reset_counts()
+    t0 = time.perf_counter()
+    with eng:
+        reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, **kw)
+                for p, kw in work]
+        outs = [r.result(600) for r in reqs]
+    wall = time.perf_counter() - t0
+    counts = kt.launch_counts()
+    stats = eng.stats()
+    counters = dict(eng.counters)
+
+    reasons = [o.finish_reason for o in outs]
+    if reasons != ['length'] * len(work):
+        raise AssertionError('unexpected finish reasons %s' % reasons)
+    if stats['blocks']['in_use'] != 0:
+        raise AssertionError('blocks in use after stop(): %s'
+                             % stats['blocks'])
+    idle = [k for k in PAGED_KERNELS if counts[k] <= 0]
+    if idle:
+        raise AssertionError('kernels never launched on the paged path: %s'
+                             % idle)
+    if not stats['peak_active'] > SLOTS:
+        raise AssertionError('peak_active %d is not above the contiguous '
+                             'engine\'s %d slots' % (stats['peak_active'],
+                                                     SLOTS))
+    hits = counters['kv_prefix_hit_total{outcome=hit}']
+    cows = counters['kv_block_cow_total']
+    # a shared prompt's hit caches its 12 prefix blocks; a copy-on-write
+    # prompt (the prefix alone) recomputes its last position
+    saved = PAGED_PREFIX * (hits - cows) + (PAGED_PREFIX - 1) * cows
+    if hits < 15 or cows < 4 or \
+            counters['kv_prefix_tokens_saved_total'] != saved:
+        raise AssertionError('prefix sharing: %s (tokens saved should be '
+                             '%d)' % (counters, saved))
+
+    # (a) each request against its own paged generate_once; (b) each
+    # greedy one against contiguous engines on the same weights
+    ties = []
+    for i, ((p, kw), out) in enumerate(zip(work, outs)):
+        ref, logits = traced_once(eng, p, kw)
+        tie = first_tie(list(out), ref, logits)
+        if tie:
+            ties.append(dict(request=i, kind=kinds[i], reference='paged',
+                             **tie))
+    if eng._alloc.in_use() != 0:
+        raise AssertionError('generate_once left blocks in use')
+    params = dict(eng.model.p)
+    greedy = [(i, p) for i, (p, kw) in enumerate(work) if not kw]
+    for ladder in (list(BUCKETS), list(BUCKETS) + [MAX_LEN]):
+        contig = GenerateEngine(GenerateConfig(
+            model=model_cfg, slots=SLOTS, max_len=MAX_LEN,
+            prompt_buckets=ladder, max_new_tokens=NEW_TOKENS),
+            params=params)
+        for i, p in greedy:
+            if (p.size > BUCKETS[-1]) != (len(ladder) > len(BUCKETS)):
+                continue
+            ref, logits = traced_once(contig, p, {})
+            tie = first_tie(list(outs[i]), ref, logits)
+            if tie:
+                ties.append(dict(request=i, kind=kinds[i],
+                                 reference='contiguous %s' % ladder, **tie))
+        del contig
+    for tie in ties:
+        emit(dict(phase='engine_paged_tie', **tie))
+
+    # timings (host clock to a sync): a suffix prefill after the 192-token
+    # prefix in each bucket; the paged step at 16 slots beside a
+    # contiguous one at 16 slots, both by torch.profiler too
+    dev, model = eng.device, eng.model
+    mb = MAX_LEN // PAGED_BLOCK
+    table = torch.arange(1, mb + 1, device=dev)
+    prefill_ms = {}
+    for b in BUCKETS:
+        prompt = torch.from_numpy(rs.randint(2, V, size=(1, b))).to(dev)
+        pos = torch.arange(PAGED_PREFIX, PAGED_PREFIX + b, device=dev)
+        model.prefill_paged(prompt, pos, table, b)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            model.prefill_paged(prompt, pos, table, b)
+        torch.cuda.synchronize()
+        prefill_ms[str(b)] = (time.perf_counter() - t) / 5 * 1e3
+    pf_profile = step_profile(
+        torch, lambda: model.prefill_paged(prompt, pos, table, b), steps=5,
+        host=True)
+    tok = torch.from_numpy(rs.randint(2, V, size=PAGED_SLOTS)).to(dev)
+    pos = torch.arange(PAGED_SLOTS, device=dev) + MAX_LEN * 19 // 32  # 304
+    # every slot's table full (blocks may repeat across slots: the step
+    # gathers all max_len / 16 entries of each row whatever they hold)
+    tables = (torch.arange(PAGED_SLOTS * mb, device=dev).view(
+        PAGED_SLOTS, mb) % (PAGED_BLOCKS - 1)) + 1
+    paged_step = lambda: model.decode_step(tok, pos, tables=tables)  # noqa
+    contig = TransformerLM(model_cfg, params, MAX_LEN)
+    contig.allocate_cache(PAGED_SLOTS)
+    contig_step = lambda: contig.decode_step(tok, pos)  # noqa: E731
+    step_ms = {}
+    for name, fn in (('paged', paged_step), ('contiguous', contig_step),
+                     ('contiguous_again', contig_step),
+                     ('paged_again', paged_step)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t) / 20 * 1e3
+    profiles = {'paged': step_profile(torch, paged_step, host=True),
+                'contiguous': step_profile(torch, contig_step, host=True)}
+    d, Ln = model_cfg.d_model, model_cfg.n_layer
+    weights = sum(p.numel() * 4 for n, p in params.items()
+                  if n != 'tok_emb.w') + PAGED_SLOTS * d * 4
+    # the paged step's gather reads S x max_blocks x block_size rows of K
+    # and of V a layer and writes them again; the contiguous step reads its
+    # whole cache once
+    floors = {'paged': weights + 2 * 2 * Ln * PAGED_SLOTS * MAX_LEN * d * 4,
+              'contiguous': weights + 2 * Ln * PAGED_SLOTS * MAX_LEN * d * 4}
+    del contig
+
+    # (g) the card's logits against the plain-PyTorch path on the CPU: a
+    # 100-token paged prefill (bucket 128), a prefix hit's 40-token suffix
+    # prefill (bucket 64) over its first 96 rows, and one paged step
+    cpu = TransformerLM(model_cfg, {k: v.cpu() for k, v in params.items()},
+                        MAX_LEN)
+    cpu.allocate_paged_cache(PAGED_BLOCKS, PAGED_BLOCK)
+    b1, b0 = BUCKETS[1], BUCKETS[0]
+    hit, n_hit = b1 * 3 // 4, b0 * 5 // 8
+    prompt = rs.randint(2, V, size=(1, hit + n_hit))
+    errs = {}
+    for name, start, b, n in (('prefill', 0, b1, b1 * 25 // 32),
+                              ('prefix_hit', hit, b0, n_hit)):
+        chunk = np.zeros((1, b), 'int64')
+        chunk[0, :n] = prompt[0, start:start + n]
+        pos = np.arange(start, start + b)
+        got = model.prefill_paged(torch.from_numpy(chunk).to(dev),
+                                  torch.from_numpy(pos).to(dev), table, n)
+        want = cpu.prefill_paged(torch.from_numpy(chunk),
+                                 torch.from_numpy(pos), table.cpu(), n)
+        errs[name] = float((got[1].cpu() - want[1]).abs().max())
+        first = int(want[0][0])
+    tok = np.zeros(PAGED_SLOTS, 'int64')
+    tok[1] = first
+    posv = np.zeros(PAGED_SLOTS, 'int64')
+    posv[1] = hit + n_hit
+    tab = np.zeros((PAGED_SLOTS, mb), 'int64')
+    tab[1] = np.arange(1, mb + 1)
+    _, sg_gpu = model.decode_step(*(torch.from_numpy(a).to(dev)
+                                    for a in (tok, posv)),
+                                  tables=torch.from_numpy(tab).to(dev))
+    _, sg_cpu = cpu.decode_step(torch.from_numpy(tok),
+                                torch.from_numpy(posv),
+                                tables=torch.from_numpy(tab))
+    sg_gpu = sg_gpu[1].cpu()
+    if not torch.isfinite(sg_gpu).all():
+        raise AssertionError('non-finite paged step logits on the card')
+    errs['step'] = float((sg_gpu - sg_cpu[1]).abs().max())
+    # phase 4's limit: six layers of f32 in two summation orders
+    if not max(errs.values()) <= 1e-3:
+        raise AssertionError('card vs CPU paged logits differ: %s' % errs)
+
+    gen = sum(len(o) for o in outs)
+    summary = dict(
+        phase='engine_paged', card=smi, requests=len(work), new_tokens=gen,
+        slots=PAGED_SLOTS, num_blocks=PAGED_BLOCKS, block_size=PAGED_BLOCK,
+        kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+        warmup=warm, wall_s=wall, tokens_per_s=gen / wall,
+        finish_reasons=sorted(set(reasons)), ties=len(ties),
+        counters=counters, prefill_ms_after_prefix=prefill_ms,
+        prefill_profile={str(BUCKETS[-1]): pf_profile}, decode_step_ms=step_ms,
+        decode_step_floor_ms={k: v / PEAK_BYTES_PER_S * 1e3
+                              for k, v in floors.items()},
+        decode_step_bytes=floors, decode_step_profile=profiles,
+        logits_max_abs_err_vs_cpu=errs, launches=counts, stats=stats,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
     return summary, counts
 
 
@@ -1088,11 +1394,12 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
             dkv_extra = sdpa_bwd_yardsticks(torch, F, sdpa, q4, k4, v4, do4,
                                             mask4, causal)
             # the plan (query rows or keys a block, 16 a warp) and the
-            # instantiations flash_bwd_{dq,dkv}_bf16<dh, warps, biased>
+            # instantiations flash_bwd_{dq,dkv}_bf16<dh, warps, biased,
+            # scaled dS> (0: dh^-0.5 = 0.125 is a power of two)
             rows = A._bf16_bwd_plan(bh, L, dh)
             for res, rep, kernel in ((dq_extra, dq_ptxas, 'dq'),
                                      (dkv_extra, dkv_ptxas, 'dkv')):
-                kname = 'flash_bwd_%s_bf16<%d, %d, %d>' % (
+                kname = 'flash_bwd_%s_bf16<%d, %d, %d, 0>' % (
                     kernel, dh, rows // 16, bias is not None)
                 regs = rep.get(kname, [None] * 3)
                 res.update(plan=dict(rows_block=rows, rows_warp=16),
@@ -1533,6 +1840,15 @@ def main():
     # kernels that several paths run come back with a case at each path's
     # shape: other[name][path] is that case
     other = {}
+    for name, res in check_kernels(torch, F, kt, rows=[PAGED_SLOTS],
+                                   decode_only=True).items():
+        kernels[name]['max_abs_err'] = max(kernels[name]['max_abs_err'],
+                                           res['max_abs_err'])
+        other.setdefault(name, {})['engine_paged'] = res['cases']
+    paged, by_path['engine_paged'] = run_engine_paged(torch, kt, smi)
+    emit(paged)
+    del paged
+    torch.cuda.empty_cache()
 
     def merge(path, results):
         for name, res in results.items():

@@ -47,10 +47,11 @@
 //   accumulator tiles at a time, is the A fragment as it stands, and K is
 //   read N-major by ldmatrix.trans. p = 2^(s c + x), as for dK/dV below,
 //   with x per row (and key, with a bias); dS leaves the scale out and dQ
-//   takes it once at the end. A warp takes a tile's chunks by one of four
-//   paths, each a loop of its own (one loop holding every path ran 1.5-3.5%
-//   slower): interior (every key of the tile kept and below L, the chunk at
-//   or before the warp's first row: no index, compare or select),
+//   takes it once at the end, exact for a power-of-two scale (else SDS,
+//   below). A warp takes a tile's chunks by one of four paths, each a loop
+//   of its own (one loop holding every path ran 1.5-3.5% slower): interior
+//   (every key of the tile kept and below L, the chunk at or before the
+//   warp's first row: no index, compare or select),
 //   dropped-key (a select on each key: dropped, or past L, where the loader
 //   puts a bias of -inf; without a bias one compare with L, the edge), the
 //   causal diagonal (the chunk that crosses the warp's rows: one compare of
@@ -74,20 +75,28 @@
 //   p = 2^(s c + x): log2(e) and the scale folded into one FFMA a score,
 //   x = -LSE · log2(e) per query (with a bias (bias - LSE) · log2(e) per key
 //   and query). dS^T leaves the scale out and dK takes it once at the end
-//   (exact for a power-of-two scale, as at DH 16 and 64). Each tile takes
-//   one of five paths, uniform over a warp: interior (every query at or
-//   after every key of the warp, all below L, no key dropped: no index,
-//   compare or select), the same with a dropped key (a select on the key's
-//   flag), the causal diagonal with and without that select (one compare of
-//   key and query), and the edge (past L: every test). A warp whose keys
-//   are all dropped skips every product, and a block whose keys are all
-//   dropped loads nothing; both write zeros. A head's key blocks are
-//   neighbours on the grid (they share Q and dO in L2), its first keys, the
-//   most query tiles under causal, first.
+//   (exact for a power-of-two scale, as at DH 16 and 64; else SDS, below).
+//   Each tile takes one of five paths, uniform over a warp: interior
+//   (every query at or after every key of the warp, all below L, no key
+//   dropped: no index, compare or select), the same with a dropped key (a
+//   select on the key's flag), the causal diagonal with and without that
+//   select (one compare of key and query), and the edge (past L: every
+//   test). A warp whose keys are all dropped skips every product, and a
+//   block whose keys are all dropped loads nothing; both write zeros. A
+//   head's key blocks are neighbours on the grid (they share Q and dO in
+//   L2), its first keys, the most query tiles under causal, first.
 // - Rows and keys past L load as zeros (a dQ row past L gets an LSE of
 //   +inf, so that its p is 0) and are masked, so any L works.
 // - Blocks are numbered (bh, tile) on gridDim.x alone, so batch × heads may
 //   exceed 65535.
+// - SDS: the reference rounds the scaled dS to bf16 (ds = p (dp - delta)
+//   scale, then ds.astype). Leaving the scale out of dS and taking it once
+//   at the end gives the same bits only when the scale is a power of two
+//   (as dh^-0.5 is at DH 16 and 64), so the host launches that form only
+//   then; for any other scale it launches the instantiation with SDS true,
+//   which multiplies dS by the scale before rounding it and skips the final
+//   multiply.
+#include <cmath>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -147,26 +156,27 @@ __device__ __forceinline__ void load_bias(float* dst, const float* src,
 // tile in shared memory (ks, vs, bs: its K and V rows and its bias), one at
 // a time, for a warp's 16 query rows, this thread's rows r0 and r0 + 8 (h =
 // 0, 1): S = Q K^T and dP = dO V^T, then P and dS / scale in place of dP,
-// then dQ += bf16(dS / scale) K, K read N-major. With a bias (BIAS) a chunk
-// that keeps no key (its bits of ``any``, the tile's vote) is skipped. P =
-// 2^(s c + x) with c = scale · log2(e) and x = lx[h] = -LSE · log2(e), or
-// with a bias (lx[h] = LSE) x = (bias - LSE) · log2(e), the difference
-// taken first so that a bias and an LSE of one size cancel exactly, as in
-// the plain version's s - LSE.
+// then dQ += bf16(dS / scale) K, K read N-major (with SDS dS itself, scaled
+// before it is rounded). With a bias (BIAS) a chunk that keeps no key (its
+// bits of ``any``, the tile's vote) is skipped. P = 2^(s c + x) with c =
+// scale · log2(e) and x = lx[h] = -LSE · log2(e), or with a bias (lx[h] =
+// LSE) x = (bias - LSE) · log2(e), the difference taken first so that a
+// bias and an LSE of one size cancel exactly, as in the plain version's
+// s - LSE.
 //   MASK  the causal diagonal: one compare of key and row;
 //   DROP  a select on each key, kept where its bias is above -1e8 (the
 //         loader's -inf past L fails it) or, without a bias, below L.
 // Neither: the interior path, no index, compare or select. kr = r0 - k0 -
 // 2t and kl = L - k0 - 2t fold the thread's offsets, so that each test is
 // one compare with a constant.
-template <int DH, bool MASK, bool DROP, bool BIAS>
+template <int DH, bool MASK, bool DROP, bool BIAS, bool SDS>
 __device__ __forceinline__ void dq_chunks(
     int from, int to, uint32_t any,
     const uint32_t (&qf)[kInRegs<DH> ? DH / 16 : 1][4],
     const uint32_t (&gf)[kInRegs<DH> ? DH / 16 : 1][4], const bf16* Qs,
     const bf16* Gs, int wr, float (&acc)[DH / 8][4], const bf16* ks,
     const bf16* vs, const float* bs, const float (&lx)[2],
-    const float (&dl)[2], int kr, int kl, float c, int lane) {
+    const float (&dl)[2], int kr, int kl, float c, float scale, int lane) {
   constexpr int KS = DH / 16;            // k-steps of Q K^T
   constexpr int NO = DH / 8;             // 8-column tiles of dQ
   constexpr int KPL = kTile<DH> / 32;    // keys a lane in the tile's vote
@@ -223,7 +233,8 @@ __device__ __forceinline__ void dq_chunks(
         if (DROP)
           keep = keep && (BIAS ? kb[n][x] > kBiasDrop : c0 + 8 * n + x < kl);
         if (MASK || DROP) p = keep ? p : 0.f;
-        dp[n][e] = p * (dp[n][e] - dl[h]);
+        const float grad = p * (dp[n][e] - dl[h]);
+        dp[n][e] = SDS ? grad * scale : grad;
       }
     // dQ += bf16(dS / scale) K, K read N-major
     uint32_t a[4];
@@ -244,7 +255,7 @@ __device__ __forceinline__ void dq_chunks(
 // rings fill the SM's 228 KB of shared memory (4-8% faster than three
 // blocks, no spill); one warp a block (grids too small to fill the card)
 // takes what it needs.
-template <int DH, int NW, bool BIAS>
+template <int DH, int NW, bool BIAS, bool SDS>
 __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
     flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -379,33 +390,38 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
       const int cmid = causal ? max(0, min(cend, wq0 - k0)) : cend;
       const int kr = r0 - k0 - 2 * t, kl = L - k0 - 2 * t;
       if (drop) {
-        dq_chunks<DH, false, true, BIAS>(0, cmid, any, qf, gf, Qs, Gs, wr,
-                                         acc, ks, vs, bs, lx, dl, kr, kl, c,
-                                         lane);
-        dq_chunks<DH, true, true, BIAS>(cmid, cend, any, qf, gf, Qs, Gs, wr,
-                                        acc, ks, vs, bs, lx, dl, kr, kl, c,
-                                        lane);
+        dq_chunks<DH, false, true, BIAS, SDS>(0, cmid, any, qf, gf, Qs, Gs,
+                                              wr, acc, ks, vs, bs, lx, dl, kr,
+                                              kl, c, scale, lane);
+        dq_chunks<DH, true, true, BIAS, SDS>(cmid, cend, any, qf, gf, Qs, Gs,
+                                             wr, acc, ks, vs, bs, lx, dl, kr,
+                                             kl, c, scale, lane);
       } else {
-        dq_chunks<DH, false, false, BIAS>(0, cmid, any, qf, gf, Qs, Gs, wr,
-                                          acc, ks, vs, bs, lx, dl, kr, kl,
-                                          c, lane);
-        dq_chunks<DH, true, false, BIAS>(cmid, cend, any, qf, gf, Qs, Gs,
-                                         wr, acc, ks, vs, bs, lx, dl, kr, kl,
-                                         c, lane);
+        dq_chunks<DH, false, false, BIAS, SDS>(0, cmid, any, qf, gf, Qs, Gs,
+                                               wr, acc, ks, vs, bs, lx, dl,
+                                               kr, kl, c, scale, lane);
+        dq_chunks<DH, true, false, BIAS, SDS>(cmid, cend, any, qf, gf, Qs,
+                                              Gs, wr, acc, ks, vs, bs, lx, dl,
+                                              kr, kl, c, scale, lane);
       }
     }
   }
 
-  // dQ takes the scale that dS left out
+  // dQ takes the scale that dS left out (with SDS dS took it)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + h * 8;
     if (r >= L) continue;
     bf16* out = dq + off + static_cast<int64_t>(r) * DH;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) =
-          pack_bf16(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+    for (int n = 0; n < NO; ++n) {
+      if constexpr (SDS)
+        *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) =
+            pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) =
+            pack_bf16(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+    }
   }
 }
 
@@ -413,7 +429,8 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
 // ls, ds: LSE and delta), for a warp's 16 keys, this thread's keys key0 and
 // key0 + 8 (h = 0, 1; bias kb[h], kept kk[h]): in chunks of 16 queries,
 // S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T / scale in place, then
-// dV += bf16(P^T) dO and dK += bf16(dS^T / scale) Q. P = 2^(s c + x) with
+// dV += bf16(P^T) dO and dK += bf16(dS^T / scale) Q (with SDS dS^T itself,
+// scaled before it is rounded). P = 2^(s c + x) with
 // c = scale · log2(e) and x = -LSE · log2(e), or with a bias (BIAS) x =
 // (bias - LSE) · log2(e), the difference taken first so that a bias and an
 // LSE of one size cancel exactly, as in the plain version's s - LSE.
@@ -425,14 +442,15 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
 // DROP selects p = 0 for a dropped key (or one past L). kq = key0 - q0 - 2t
 // and qr = L - q0 - 2t fold the thread's offsets, so that each test is one
 // compare with a constant.
-template <int DH, int MASK, bool DROP, bool BIAS>
+template <int DH, int MASK, bool DROP, bool BIAS, bool SDS>
 __device__ __forceinline__ void dkv_tile(
     const uint32_t (&kf)[kInRegs<DH> ? DH / 16 : 1][4],
     const uint32_t (&vf)[kInRegs<DH> ? DH / 16 : 1][4], const bf16* Ks,
     const bf16* Vs, int wr, float (&acc_k)[DH / 8][4],
     float (&acc_v)[DH / 8][4], const bf16* qs, const bf16* gs,
     const float* ls, const float* ds, const float (&kb)[2],
-    const bool (&kk)[2], int kq, int qr, int causal, float c, int lane) {
+    const bool (&kk)[2], int kq, int qr, int causal, float c, float scale,
+    int lane) {
   constexpr int BT = kTile<DH>;
   constexpr int QC = 16;       // queries a chunk
   constexpr int NC = QC / 8;   // 8-query tiles of a chunk
@@ -503,7 +521,8 @@ __device__ __forceinline__ void dkv_tile(
         if (DROP) keep = keep && kk[h];
         if (MASK != 0 || DROP) p = keep ? p : 0.f;
         sc[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - dl[n][x]);
+        const float grad = p * (dp[n][e] - dl[n][x]);
+        dp[n][e] = SDS ? grad * scale : grad;
       }
     // dV += bf16(P^T) dO, dK += bf16(dS^T / scale) Q; dO and Q read N-major
 #pragma unroll
@@ -530,7 +549,7 @@ __device__ __forceinline__ void dkv_tile(
 // SM (three blocks of 4 warps at the models' shapes), without a spill; one
 // warp a block (grids too small to fill the card) copies 16 rows a thread
 // per tile and would spill there, so it takes what it needs.
-template <int DH, int NW, bool BIAS>
+template <int DH, int NW, bool BIAS, bool SDS>
 __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
     flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
@@ -635,26 +654,29 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
       const float* ds = ls + BT;
       const int kq = key0 - q0 - 2 * t, qr = L - q0 - 2 * t;
       if (q0 + BT > L)
-        dkv_tile<DH, 2, true, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs, gs,
-                                    ls, ds, kb, kk, kq, qr, causal, c, lane);
+        dkv_tile<DH, 2, true, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
+                                         gs, ls, ds, kb, kk, kq, qr, causal,
+                                         c, scale, lane);
       else if (causal && q0 < wk0 + 15 && drops)
-        dkv_tile<DH, 1, true, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs, gs,
-                                    ls, ds, kb, kk, kq, qr, causal, c, lane);
+        dkv_tile<DH, 1, true, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
+                                         gs, ls, ds, kb, kk, kq, qr, causal,
+                                         c, scale, lane);
       else if (causal && q0 < wk0 + 15)
-        dkv_tile<DH, 1, false, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
-                                     gs, ls, ds, kb, kk, kq, qr, causal, c,
-                                     lane);
+        dkv_tile<DH, 1, false, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v,
+                                          qs, gs, ls, ds, kb, kk, kq, qr,
+                                          causal, c, scale, lane);
       else if (drops)
-        dkv_tile<DH, 0, true, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs, gs,
-                                    ls, ds, kb, kk, kq, qr, causal, c, lane);
+        dkv_tile<DH, 0, true, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
+                                         gs, ls, ds, kb, kk, kq, qr, causal,
+                                         c, scale, lane);
       else
-        dkv_tile<DH, 0, false, BIAS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
-                                     gs, ls, ds, kb, kk, kq, qr, causal, c,
-                                     lane);
+        dkv_tile<DH, 0, false, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v,
+                                          qs, gs, ls, ds, kb, kk, kq, qr,
+                                          causal, c, scale, lane);
     }
   }
 
-  // dK takes the scale that dS^T left out
+  // dK takes the scale that dS^T left out (with SDS dS^T took it)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + h * 8;
@@ -662,8 +684,12 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
     const int64_t at = off + static_cast<int64_t>(key) * DH;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) = pack_bf16(
-          acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale);
+      if constexpr (SDS)
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) =
+            pack_bf16(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) = pack_bf16(
+            acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + at + 8 * n + 2 * t) =
           pack_bf16(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
@@ -701,17 +727,17 @@ int launch(Kernel kernel, int bytes, bool* configured, const Args& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH, int NW, bool BIAS>
+template <int DH, int NW, bool BIAS, bool SDS>
 int launch_dq(const Args& a, bf16* dq) {
   static bool configured = false;
-  return launch<NW * 16>(flash_bwd_dq_bf16<DH, NW, BIAS>,
+  return launch<NW * 16>(flash_bwd_dq_bf16<DH, NW, BIAS, SDS>,
                          ring_smem_bytes<DH, NW, 1>(), &configured, a, dq);
 }
 
-template <int DH, int NW, bool BIAS>
+template <int DH, int NW, bool BIAS, bool SDS>
 int launch_dkv(const Args& a, bf16* dk, bf16* dv) {
   static bool configured = false;
-  return launch<NW * 16>(flash_bwd_dkv_bf16<DH, NW, BIAS>,
+  return launch<NW * 16>(flash_bwd_dkv_bf16<DH, NW, BIAS, SDS>,
                          ring_smem_bytes<DH, NW, 2>(), &configured, a, dk, dv);
 }
 
@@ -722,34 +748,47 @@ int warps_for(const Args& a) {
   return 1;
 }
 
-template <int DH, bool BIAS>
+template <int DH, bool BIAS, bool SDS>
 int launch_dq_rows(const Args& a, bf16* dq) {
   switch (warps_for(a)) {
-    case 4: return launch_dq<DH, 4, BIAS>(a, dq);
-    case 2: return launch_dq<DH, 2, BIAS>(a, dq);
-    default: return launch_dq<DH, 1, BIAS>(a, dq);
+    case 4: return launch_dq<DH, 4, BIAS, SDS>(a, dq);
+    case 2: return launch_dq<DH, 2, BIAS, SDS>(a, dq);
+    default: return launch_dq<DH, 1, BIAS, SDS>(a, dq);
   }
+}
+
+// whether the scale is a power of two: then dS / scale rounds to the bits
+// of dS, scaled, and the kernels may take the scale once at the end
+bool pow2(float scale) {
+  int e;
+  return std::frexp(scale, &e) == 0.5f;
 }
 
 template <int DH>
 int launch_dq_bias(const Args& a, bf16* dq) {
-  return a.bias ? launch_dq_rows<DH, true>(a, dq)
-                : launch_dq_rows<DH, false>(a, dq);
+  if (pow2(a.scale))
+    return a.bias ? launch_dq_rows<DH, true, false>(a, dq)
+                  : launch_dq_rows<DH, false, false>(a, dq);
+  return a.bias ? launch_dq_rows<DH, true, true>(a, dq)
+                : launch_dq_rows<DH, false, true>(a, dq);
 }
 
-template <int DH, bool BIAS>
+template <int DH, bool BIAS, bool SDS>
 int launch_dkv_rows(const Args& a, bf16* dk, bf16* dv) {
   switch (warps_for(a)) {
-    case 4: return launch_dkv<DH, 4, BIAS>(a, dk, dv);
-    case 2: return launch_dkv<DH, 2, BIAS>(a, dk, dv);
-    default: return launch_dkv<DH, 1, BIAS>(a, dk, dv);
+    case 4: return launch_dkv<DH, 4, BIAS, SDS>(a, dk, dv);
+    case 2: return launch_dkv<DH, 2, BIAS, SDS>(a, dk, dv);
+    default: return launch_dkv<DH, 1, BIAS, SDS>(a, dk, dv);
   }
 }
 
 template <int DH>
 int launch_dkv_bias(const Args& a, bf16* dk, bf16* dv) {
-  return a.bias ? launch_dkv_rows<DH, true>(a, dk, dv)
-                : launch_dkv_rows<DH, false>(a, dk, dv);
+  if (pow2(a.scale))
+    return a.bias ? launch_dkv_rows<DH, true, false>(a, dk, dv)
+                  : launch_dkv_rows<DH, false, false>(a, dk, dv);
+  return a.bias ? launch_dkv_rows<DH, true, true>(a, dk, dv)
+                : launch_dkv_rows<DH, false, true>(a, dk, dv);
 }
 
 // 0 when the call can launch, else the CUDA error to return

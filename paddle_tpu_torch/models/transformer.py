@@ -2,8 +2,8 @@
 
 Counterpart of paddle_tpu/models/transformer.py: `LMConfig`, `build_lm`
 (the training program's forward, up to the mean loss) and the decode
-programs `build_lm_prefill` and `build_lm_decode_step` (with
-`_decode_tower`). The JAX package builds these as Programs; here the LM is
+programs `build_lm_prefill`, `build_lm_prefill_paged` and `build_lm_decode_step`
+(with `_decode_tower`, in both cache modes). The JAX package builds these as Programs; here the LM is
 an ``nn.Module`` whose parameters carry the JAX package's names
 (``tok_emb.w``, ``layer_{i}.attn.qkv.w``, ...) and layouts — fc weights
 stay [in, out], so ``y = x @ W + b`` — so a scope saved by the JAX package
@@ -17,9 +17,11 @@ LayerNorm is fused with the last block's delta. Training puts a zero delta
 site (2·L + 1 per forward); decode keeps one plain ``layer_norm`` at layer
 0's entry, as the decode programs do.
 
-The KV cache is two [slots, layers, heads, max_len, head_dim] tensors
-owned by the module (:meth:`TransformerLM.allocate_cache`), allocated
-zeroed and updated in place.
+The KV cache is two tensors owned by the module, allocated zeroed and
+updated in place: [slots, layers, heads, max_len, head_dim]
+(:meth:`TransformerLM.allocate_cache`), or a pool of [num_blocks, layers,
+heads, block_size, head_dim] blocks addressed through block tables
+(:meth:`TransformerLM.allocate_paged_cache`).
 
 :class:`TransformerStack` holds what the LM shares with BERT
 (paddle_tpu_torch/models/bert.py), as `transformer_block` serves both
@@ -44,8 +46,11 @@ from ..ops.ce_ops import fused_softmax_ce
 from ..ops.embedding_ops import embedding_gather
 from ..ops.ffn_ops import fused_ffn_amp, fused_ffn_core
 from ..ops.math_ops import matmul, mul
-from ..ops.kv_cache_ops import (kv_cache_prefill, kv_cache_update,
-                                kv_decode_attention, sample_next_token)
+from ..ops.kv_cache_ops import (kv_cache_prefill, kv_cache_prefill_paged,
+                                kv_cache_update, kv_cache_update_paged,
+                                kv_decode_attention,
+                                kv_decode_attention_paged,
+                                kv_prefix_attention, sample_next_token)
 from ..ops.nn_ops import fused_ln_residual, layer_norm
 from ..ops.random_ops import dropout, keep_mask
 from ..ops.tensor_ops import add_position_encoding, position_encoding_table
@@ -189,6 +194,18 @@ class TransformerStack(nn.Module):
             delta, _ = fused_ffn_core(*ffn, keep)
         return x, delta.view(x.shape)
 
+    def _unfused_attention(self, q, k, v, mask, attn_dropout=0.0,
+                           generator=None):
+        """The unfused branch of `multi_head_attention` over q, k, v [B, H,
+        L, dh]: scores * dh^-0.5 + ``mask`` (broadcast to [B, H, L, L]),
+        softmax, dropout on the weights, matmul with v."""
+        policy = self.amp.get('matmul')
+        scores = matmul(q, k.transpose(-1, -2), policy) * \
+            q.shape[-1] ** -0.5 + mask
+        weights = dropout(torch.softmax(scores, dim=-1), attn_dropout,
+                          generator)
+        return matmul(weights, v, policy)
+
     def _block(self, x, delta, prefix, causal, mask=None,
                key_padding_bias=None, dropout_prob=0.0, attn_dropout=0.0,
                generator=None):
@@ -198,9 +215,8 @@ class TransformerStack(nn.Module):
         LayerNorm at ln2 and the FFN tail with its dropout mask. Attention
         is flash attention (``causal``, with ``key_padding_bias`` [B, L])
         when ``mask`` is None, as the models' ``flash_ok`` rule decides;
-        else the unfused branch of `multi_head_attention`:
-        scores * dh^-0.5 + ``mask`` (broadcast to [B, H, L, L]), softmax,
-        dropout on the weights, matmul with v. Returns (stream, delta)."""
+        else the unfused branch (:meth:`_unfused_attention`). Returns
+        (stream, delta)."""
         B, L, d = x.shape
         h = self.cfg.n_head
         dh = d // h
@@ -212,12 +228,8 @@ class TransformerStack(nn.Module):
                                   key_padding_bias=key_padding_bias,
                                   policy=self.amp.get('flash_attention'))
         else:
-            policy = self.amp.get('matmul')
-            scores = matmul(q, k.transpose(-1, -2), policy) * dh ** -0.5 \
-                + mask
-            weights = dropout(torch.softmax(scores, dim=-1), attn_dropout,
-                              generator)
-            ctx = matmul(weights, v, policy)
+            ctx = self._unfused_attention(q, k, v, mask, attn_dropout,
+                                          generator)
         ctx = ctx.permute(0, 2, 1, 3).reshape(B, L, d)
         keep = keep_mask((B * L, d), dropout_prob, generator, x.device) \
             if dropout_prob else None
@@ -228,7 +240,9 @@ class TransformerLM(TransformerStack):
     """Decoder-only LM: :meth:`loss` is the training forward of `build_lm`;
     with a KV cache, :meth:`prefill` runs one prompt into a cache slot and
     :meth:`decode_step` advances every slot by one token (both under
-    ``torch.no_grad``). ``max_len`` bounds the positions of both: the
+    ``torch.no_grad``). With a paged cache, :meth:`prefill_paged` runs a
+    prompt suffix into a slot's blocks and :meth:`decode_step` takes the
+    slots' block tables. ``max_len`` bounds the positions of all three: the
     position table has that many rows."""
 
     def __init__(self, cfg, params, max_len):
@@ -236,6 +250,7 @@ class TransformerLM(TransformerStack):
                                   max_len)
         self.k_cache = None
         self.v_cache = None
+        self.block_size = None
 
     def allocate_cache(self, slots):
         """Zeroed K and V caches [slots, layers, heads, max_len, dh]. Zeros,
@@ -247,6 +262,19 @@ class TransformerLM(TransformerStack):
         self.k_cache = torch.zeros(shape, dtype=torch.float32,
                                    device=self.device)
         self.v_cache = torch.zeros_like(self.k_cache)
+        self.block_size = None
+
+    def allocate_paged_cache(self, num_blocks, block_size):
+        """Zeroed K and V block pools [num_blocks, layers, heads,
+        block_size, dh] (block 0 is the trash block), as
+        :meth:`allocate_cache`."""
+        c = self.cfg
+        shape = (int(num_blocks), c.n_layer, c.n_head, int(block_size),
+                 c.d_model // c.n_head)
+        self.k_cache = torch.zeros(shape, dtype=torch.float32,
+                                   device=self.device)
+        self.v_cache = torch.zeros_like(self.k_cache)
+        self.block_size = int(block_size)
 
     @staticmethod
     def _sample(logits, sample):
@@ -306,15 +334,66 @@ class TransformerLM(TransformerStack):
         """Run one prompt [1, T] (padded to its bucket T) through the LM,
         write its K/V rows 0..T-1 (pad rows included; decode overwrites
         them) into cache slot ``slot``, and sample the first token from
-        the last REAL row ``length - 1``. ``sample`` is (temp, topk, topp,
-        u, any_sampled) with [1] tensors, or None for greedy. Returns
-        (first_token [1] int64, logits [1, V])."""
-        c = self.cfg
-        d, h = c.d_model, c.n_head
-        dh = d // h
+        the last REAL row ``length - 1``. Attention is causal flash
+        attention, or with ``use_flash_attention`` off the unfused branch
+        with the -1e9 upper-triangle mask, as `build_lm_prefill`.
+        ``sample`` is (temp, topk, topp, u, any_sampled) with [1] tensors,
+        or None for greedy. Returns (first_token [1] int64, logits [1,
+        V])."""
         T = prompt.shape[1]
         x = add_position_encoding(embedding_gather(self.p['tok_emb.w'],
                                                    prompt), table=self.pe)
+        mask = None
+        if not self.cfg.use_flash_attention:
+            mask = torch.triu(torch.full((T, T), -1e9, dtype=torch.float32,
+                                         device=x.device), diagonal=1)
+
+        def attend(q, k, v, i):
+            kv_cache_prefill(self.k_cache, k, slot, i)
+            kv_cache_prefill(self.v_cache, v, slot, i)
+            if mask is None:
+                return flash_attention(q, k, v, scale=q.shape[-1] ** -0.5,
+                                       causal=True)
+            return self._unfused_attention(q, k, v, mask)
+
+        return self._prefill_tower(x, attend, length, sample)
+
+    @torch.no_grad()
+    def prefill_paged(self, prompt, positions, table, length, sample=None):
+        """Run one prompt suffix [1, T] (padded to its bucket T) into a
+        paged slot: its rows sit at global ``positions`` [T] (int64: the
+        cached context's length plus t), add those rows of the position
+        table, write their K/V rows below ``length`` (a host int, the real
+        suffix length) through the slot's block ``table`` [MB] (pad rows go
+        to the trash block) and attend the slot's cache through it, prefix
+        included (`kv_prefix_attention`); sample the first token from the
+        last real row ``length - 1``. Returns (first_token [1] int64,
+        logits [1, V])."""
+        positions = positions.reshape(-1)
+        x = embedding_gather(self.p['tok_emb.w'], prompt) + \
+            self.pe[positions]
+        bs = self.block_size
+
+        def attend(q, k, v, i):
+            kv_cache_prefill_paged(self.k_cache, k, table, positions, length,
+                                   i, bs)
+            kv_cache_prefill_paged(self.v_cache, v, table, positions, length,
+                                   i, bs)
+            return kv_prefix_attention(q, self.k_cache, self.v_cache, table,
+                                       positions, i, q.shape[-1] ** -0.5)
+
+        return self._prefill_tower(x, attend, length, sample)
+
+    def _prefill_tower(self, x, attend, length, sample):
+        """The prefill programs' tower over the stream x [T, d]: per layer
+        the entry LayerNorm, QKV, ``attend(q, k, v, layer)`` (q, k, v [1, H,
+        T, dh]: write the cache, return the context [1, H, T, dh]) and
+        :meth:`_post_attention`; then the final LayerNorm, the row
+        ``length - 1``, lm_head and the sampler."""
+        c = self.cfg
+        d, h = c.d_model, c.n_head
+        dh = d // h
+        T = x.shape[0]
         delta = None
         for i in range(c.n_layer):
             p = 'layer_%d' % i
@@ -322,9 +401,7 @@ class TransformerLM(TransformerStack):
             qkv = self._fc(ln1, p + '.attn.qkv')              # [T, 3d]
             qkv = qkv.view(1, T, 3, h, dh).permute(2, 0, 3, 1, 4)
             q, k, v = (qkv[j].contiguous() for j in range(3))  # [1,H,T,dh]
-            kv_cache_prefill(self.k_cache, k, slot, i)
-            kv_cache_prefill(self.v_cache, v, slot, i)
-            ctx = flash_attention(q, k, v, scale=dh ** -0.5, causal=True)
+            ctx = attend(q, k, v, i)
             ctx = ctx.permute(0, 2, 1, 3).reshape(T, d)
             x, delta = self._post_attention(x, ctx, p)
         x, _ = self._entry_ln(x, delta, 'final_ln')
@@ -333,11 +410,13 @@ class TransformerLM(TransformerStack):
         return self._sample(logits, sample), logits
 
     @torch.no_grad()
-    def decode_step(self, tokens, pos, sample=None):
+    def decode_step(self, tokens, pos, sample=None, tables=None):
         """Advance every slot by one token: tokens [S] int64 (each slot's
         last token), pos [S] int64 (the cache position each slot writes).
-        Idle slots compute garbage that no one reads. Returns
-        (next_tokens [S] int64, logits [S, V])."""
+        With a paged cache ``tables`` [S, max_len / block_size] int64 are
+        the slots' block tables (an idle slot's row is all zero, so it
+        writes to the trash block). Idle slots compute garbage that no one
+        reads. Returns (next_tokens [S] int64, logits [S, V])."""
         c = self.cfg
         d, h = c.d_model, c.n_head
         dh = d // h
@@ -349,10 +428,19 @@ class TransformerLM(TransformerStack):
             ln1, x = self._entry_ln(x, delta, p + '.ln1')
             qkv = self._fc(ln1, p + '.attn.qkv').view(S, 3, h, dh)
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]       # [S, H, dh]
-            kv_cache_update(self.k_cache, k, pos, i)
-            kv_cache_update(self.v_cache, v, pos, i)
-            ctx = kv_decode_attention(q, self.k_cache, self.v_cache, pos, i,
-                                      dh ** -0.5)
+            if tables is None:
+                kv_cache_update(self.k_cache, k, pos, i)
+                kv_cache_update(self.v_cache, v, pos, i)
+                ctx = kv_decode_attention(q, self.k_cache, self.v_cache, pos,
+                                          i, dh ** -0.5)
+            else:
+                kv_cache_update_paged(self.k_cache, k, tables, pos, i,
+                                      self.block_size)
+                kv_cache_update_paged(self.v_cache, v, tables, pos, i,
+                                      self.block_size)
+                ctx = kv_decode_attention_paged(q, self.k_cache,
+                                                self.v_cache, tables, pos, i,
+                                                dh ** -0.5)
             x, delta = self._post_attention(x, ctx.reshape(S, d), p)
         x, _ = self._entry_ln(x, delta, 'final_ln')
         logits = self._fc(x, 'lm_head', bias=False)         # [S, V]

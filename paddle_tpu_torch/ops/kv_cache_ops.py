@@ -1,12 +1,21 @@
-"""KV-cache ops of the contiguous decode engine, plain PyTorch.
+"""KV-cache ops of the decode engine, plain PyTorch.
 
 Counterparts of paddle_tpu/ops/kv_cache_ops.py `kv_cache_prefill`,
-`kv_cache_update`, `kv_decode_attention` and `sample_next_token`, which are
-plain jnp in the JAX package: no kernel is owed for them.
+`kv_cache_update`, `kv_decode_attention` and `sample_next_token` (the
+contiguous cache) and of its paged variants `kv_cache_prefill_paged`,
+`kv_cache_update_paged`, `kv_decode_attention_paged` and
+`kv_prefix_attention`, which are plain jnp in the JAX package: no kernel is
+owed for them.
 
-The cache is one [slots, layers, heads, max_len, head_dim] tensor per K and
-V. Unlike the JAX ops, which return a new cache that donation aliases onto
-the old buffer, the writes here update the cache **in place**.
+The contiguous cache is one [slots, layers, heads, max_len, head_dim]
+tensor per K and V; the paged cache one [num_blocks, layers, heads,
+block_size, head_dim] tensor per K and V, addressed through block tables
+(a slot's logical position p lives in block ``table[p // block_size]`` at
+offset ``p % block_size``; table entry 0 is the trash block, which no
+request owns, so a pad row, an idle slot or a clipped position only ever
+writes there). Unlike the JAX ops, which return a new cache that donation
+aliases onto the old buffer, the writes here update the cache **in
+place**.
 
 Every op is slot-row-independent, which is what makes admitting and
 evicting requests at token boundaries safe while other slots are
@@ -19,6 +28,8 @@ zeros, so it never holds uninitialised (possibly NaN) bits.
 import torch
 
 __all__ = ['kv_cache_prefill', 'kv_cache_update', 'kv_decode_attention',
+           'kv_cache_prefill_paged', 'kv_cache_update_paged',
+           'kv_decode_attention_paged', 'kv_prefix_attention',
            'sample_next_token']
 
 _NEG_INF = -1e30
@@ -45,8 +56,14 @@ def kv_decode_attention(q, k_cache, v_cache, positions, layer, scale):
     """One-query attention per slot over its cached K/V, masked to cache
     positions 0..positions[s] inclusive (the step's own token was just
     written at positions[s]). q [S, H, dh] -> [S, H, dh]."""
-    k = k_cache[:, int(layer)]                      # [S, H, M, dh]
-    v = v_cache[:, int(layer)]
+    return _attend_cached(q, k_cache[:, int(layer)], v_cache[:, int(layer)],
+                          positions, scale)
+
+
+def _attend_cached(q, k, v, positions, scale):
+    """One-query attention per slot: q [S, H, dh] against k, v [S, H, M,
+    dh] in logical position order, slot s keeping positions
+    0..positions[s]."""
     scores = torch.einsum('shd,shmd->shm', q, k) * scale
     M = k.shape[2]
     keep = torch.arange(M, device=q.device)[None, None, :] <= \
@@ -56,6 +73,98 @@ def kv_decode_attention(q, k_cache, v_cache, positions, layer, scale):
     # exact zero for stale rows: a select, so 0 * NaN never happens
     w = torch.where(keep, w, torch.zeros_like(w))
     return torch.einsum('shm,shmd->shd', w, v)
+
+
+# ---------------------------------------------------------------------------
+# paged (block-table) variants
+
+
+def _block_of(table, pos, block_size):
+    """(block id, in-block offset) of logical position(s) ``pos`` through a
+    block table (its last dimension). Out-of-range table indices clip to
+    the last entry; unallocated entries hold 0, the trash block, so a wild
+    position can only ever touch trash."""
+    idx = torch.clamp(pos // block_size, 0, table.shape[-1] - 1)
+    return table[idx], pos % block_size
+
+
+def _gather_blocks(cache, layer, tables):
+    """cache[:, layer][tables] in logical position order: tables [S, MB] ->
+    [S, H, MB * block_size, dh] (a copy)."""
+    g = cache[:, int(layer)][tables]                # [S, MB, H, bs, dh]
+    S, MB, H, bs, dh = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(S, H, MB * bs, dh)
+
+
+def kv_cache_prefill_paged(cache, new, table, positions, length, layer,
+                           block_size):
+    """cache[table[p_t // bs], layer, :, p_t % bs, :] = new[0, :, t, :] for
+    the suffix rows t < ``length`` (p = ``positions`` [T], the rows' global
+    positions); rows at or past ``length`` (the bucket's pad rows) are
+    redirected to the trash block, offset 0: a paged slot owns no span
+    where pad garbage could park. new [1, H, T, dh], table [MB] int64,
+    ``length`` a host int; in place."""
+    rows = new[0].transpose(0, 1)                   # [T, H, dh]
+    blk, off = _block_of(table, positions, int(block_size))
+    real = torch.arange(rows.shape[0], device=rows.device) < int(length)
+    blk = torch.where(real, blk, torch.zeros_like(blk))
+    off = torch.where(real, off, torch.zeros_like(off))
+    cache[:, int(layer)][blk, :, off, :] = rows
+    return cache
+
+
+def kv_cache_update_paged(cache, new, tables, positions, layer, block_size,
+                          valid=None):
+    """cache[tables[s][p_s // bs], layer, :, p_s % bs, :] = new[s] for every
+    slot s (p = ``positions`` [S]). Idle slots feed position 0 against an
+    all-zero table row, so their garbage row lands in the trash block. An
+    optional ``valid`` ([S] or [S, 1]; nonzero = keep) redirects invalid
+    rows to the trash block explicitly, for positions at or past max_len
+    where the clipped table lookup would otherwise name a live block.
+    new [S, H, dh], tables [S, MB] int64; in place."""
+    bs = int(block_size)
+    idx = torch.clamp(positions // bs, 0, tables.shape[1] - 1)
+    blk = torch.gather(tables, 1, idx[:, None])[:, 0]
+    off = positions % bs
+    if valid is not None:
+        keep = valid.reshape(-1) != 0
+        blk = torch.where(keep, blk, torch.zeros_like(blk))
+        off = torch.where(keep, off, torch.zeros_like(off))
+    cache[:, int(layer)][blk, :, off, :] = new
+    return cache
+
+
+def kv_decode_attention_paged(q, k_cache, v_cache, tables, positions, layer,
+                              scale):
+    """One-query attention per slot over its block-table-gathered K/V
+    (``cache[:, layer][tables]``, table order x in-block offset), masked
+    to positions 0..positions[s] exactly as :func:`kv_decode_attention`:
+    masked (stale, trash, shared-beyond-prefix) rows contribute exact 0.
+    q [S, H, dh], tables [S, MB] -> [S, H, dh]."""
+    return _attend_cached(q, _gather_blocks(k_cache, layer, tables),
+                          _gather_blocks(v_cache, layer, tables),
+                          positions, scale)
+
+
+def kv_prefix_attention(q, k_cache, v_cache, table, positions, layer, scale):
+    """Multi-query causal attention of one slot's prefill suffix against
+    its block-table cache: query row t sits at global position
+    positions[t] and attends every cached position <= positions[t] — a
+    shared prefix cached by an earlier request (or an earlier chunk) plus
+    the suffix rows just written. With positions starting at 0 this is the
+    causal prefill attention, computed from the cache. q [1, H, T, dh],
+    table [MB] -> [1, H, T, dh]."""
+    k = _gather_blocks(k_cache, layer, table[None])[0]    # [H, M, dh]
+    v = _gather_blocks(v_cache, layer, table[None])[0]
+    scores = torch.einsum('htd,hmd->htm', q[0], k) * scale
+    M = k.shape[1]
+    keep = torch.arange(M, device=q.device)[None, :] <= \
+        positions[:, None]                          # [T, M]
+    scores = torch.where(keep[None], scores,
+                         torch.full_like(scores, _NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    w = torch.where(keep[None], w, torch.zeros_like(w))
+    return torch.einsum('htm,hmd->htd', w, v)[None]
 
 
 def sample_next_token(logits, temp, topk, topp, u, any_sampled=None):

@@ -1,10 +1,27 @@
 """Continuous-batching generative decode engine with a device-resident KV
-cache — the port of paddle_tpu/serving/generate.py (contiguous mode).
+cache — the port of paddle_tpu/serving/generate.py (contiguous and paged
+modes).
 
 - **KV cache on the card.** One pair of [slots, layers, heads, max_len,
   head_dim] tensors, allocated zeroed, updated in place by every prefill
   and decode step (the JAX engine returns a new cache that donation
   aliases onto the old buffer; here the write is in place).
+- **Paged mode** (``GenerateConfig(paged=True)``) replaces the per-slot
+  ``max_len`` rows with a pool of [num_blocks, layers, heads, block_size,
+  head_dim] blocks that each slot addresses through a block table fed to
+  every step (serving/kv_blocks.py): HBM is committed as sequences grow,
+  admission is a blocks-available decision (a request waits in
+  ``_pending_admit`` while the pool is dry), each step first grows the
+  slots that cross into a new block, and a pool that runs dry finishes
+  the starved request with ``finish_reason='cache_full'``. On top rides
+  prefix sharing: prompts are chain-hashed per full block, a hit maps the
+  request's leading table entries onto the blocks already holding that
+  prefix (refcounted; copy-on-write of the last block when the whole
+  prompt lands on shared blocks), and only the suffix is prefilled,
+  bucketed by its own length. A suffix wider than the widest bucket
+  prefills in bucket-wide chunks, each attending the cached prefix, so
+  paged admission reaches ``max_len - 1`` tokens. The prefill attends
+  through `kv_prefix_attention` in either flash setting.
 - **Eager execution.** The JAX engine compiles one prefill program per
   prompt bucket and one decode-step program and dispatches them through
   `Executor.bind`, with a compile cache and a warm-up farm. PyTorch runs
@@ -25,9 +42,13 @@ cache — the port of paddle_tpu/serving/generate.py (contiguous mode).
   the JAX engine's: the same ``sample_seed`` draws the same uniforms in
   both packages. Temperature 0 is greedy.
 
-Not ported in this slice (ROADMAP.md): the paged cache with prefix sharing,
-speculative decoding and chunked prefill, the monitor / goodput / trace /
-black-box hooks, and the metrics endpoint.
+The JAX engine's monitor counters of the paged cache are kept in
+``GenerateEngine.counters`` under the monitor's names
+(``kv_block_cow_total``, ``kv_prefix_hit_total{outcome=hit|miss}``,
+``kv_prefix_tokens_saved_total``).
+
+Not ported yet (ROADMAP.md): speculative decoding, the monitor / goodput /
+trace / black-box hooks, and the metrics endpoint.
 """
 import queue as _pyqueue
 import threading
@@ -42,6 +63,7 @@ from ..models.transformer import LMConfig, TransformerLM, init_params
 from ..reader.bucketing import bucketize
 from .batcher import (DeadlineExceededError, EngineStoppedError,
                       LoadShedError, Request, RequestQueue)
+from .kv_blocks import BlockAllocator, PrefixCache, chain_hashes
 
 __all__ = ['GenerateConfig', 'GenerateEngine', 'GenerateRequest',
            'GenerateResult']
@@ -76,7 +98,7 @@ class GenerateResult(list):
 
 
 class GenerateConfig(object):
-    """Decode-engine knobs (the JAX engine's, contiguous mode).
+    """Decode-engine knobs (the JAX engine's).
 
     - model: an `LMConfig`.
     - slots: KV-cache width, the most sequences in flight.
@@ -91,19 +113,24 @@ class GenerateConfig(object):
     - seed: parameter-init seed when the engine gets no parameters.
     - idle_poll_s: how long an idle engine loop waits for work per poll.
     - temperature / top_k / top_p: engine-wide sampling defaults.
-    - paged / speculative / metrics_port: not ported yet; asking for them
-      raises NotImplementedError.
+    - paged / block_size / num_blocks / prefix_sharing: paged-KV mode.
+      ``num_blocks`` is the physical pool size (block 0 is the reserved
+      trash block, so ``num_blocks - 1`` blocks are allocatable); the
+      default matches the contiguous cache's HBM exactly
+      (slots * max_len / block_size). ``prompt_buckets`` bucket the
+      prefill SUFFIX in paged mode (with a prefix hit a request prefills
+      only its uncached suffix).
+    - speculative / metrics_port: not ported yet; asking for them raises
+      NotImplementedError.
     """
 
     def __init__(self, model=None, slots=8, max_len=256,
                  prompt_buckets=None, eos_id=None, max_new_tokens=64,
                  pad_id=0, queue_cap=256, default_deadline_s=60.0,
                  seed=0, idle_poll_s=0.02, temperature=0.0, top_k=0,
-                 top_p=0.0, paged=False, speculative=False,
-                 metrics_port=None):
-        for flag, what in ((paged, 'paged=True (paged KV cache, prefix '
-                            'sharing, chunked prefill)'),
-                           (speculative, 'speculative=True'),
+                 top_p=0.0, paged=False, block_size=16, num_blocks=None,
+                 prefix_sharing=True, speculative=False, metrics_port=None):
+        for flag, what in ((speculative, 'speculative=True'),
                            (metrics_port is not None, 'metrics_port')):
             if flag:
                 raise NotImplementedError(
@@ -116,6 +143,25 @@ class GenerateConfig(object):
             raise ValueError("slots must be >= 1")
         if self.max_len < 2:
             raise ValueError("max_len must be >= 2")
+        self.paged = bool(paged)
+        self.block_size = int(block_size)
+        self.prefix_sharing = bool(prefix_sharing) and self.paged
+        self.num_blocks = None
+        if self.paged:
+            if self.block_size < 1:
+                raise ValueError("block_size must be >= 1")
+            if self.max_len % self.block_size:
+                raise ValueError(
+                    "paged mode needs max_len (%d) divisible by "
+                    "block_size (%d) — the block table is "
+                    "max_len/block_size entries wide"
+                    % (self.max_len, self.block_size))
+            if num_blocks is None:
+                num_blocks = self.slots * self.max_len // self.block_size
+            self.num_blocks = int(num_blocks)
+            if self.num_blocks < 2:
+                raise ValueError("num_blocks must be >= 2 (block 0 is "
+                                 "the reserved trash block)")
         if prompt_buckets is None:
             prompt_buckets, b = [], 16
             while b <= self.max_len // 2:
@@ -225,14 +271,17 @@ class GenerateRequest(Request):
 
 
 class _Slot(object):
-    __slots__ = ('req', 'pos', 'generated', 'last', 'last_t')
+    __slots__ = ('req', 'pos', 'generated', 'last', 'last_t', 'blocks',
+                 'table')
 
-    def __init__(self, req, pos, last):
+    def __init__(self, req, pos, last, blocks=None, table=None):
         self.req = req
         self.pos = pos          # cache position the NEXT step writes
         self.generated = 1      # prefill already emitted the first token
         self.last = last        # last generated token (next step's input)
         self.last_t = time.perf_counter()
+        self.blocks = blocks    # paged: physical block ids, table order
+        self.table = table      # paged: np [max_blocks] int64, filler 0
 
 
 class GenerateEngine(object):
@@ -251,14 +300,23 @@ class GenerateEngine(object):
     saved); without it the engine initialises fresh weights from
     ``config.seed``. ``device`` None means ``cuda:0`` and raises without a
     card; pass ``device='cpu'`` to run on the CPU.
+
+    ``block_allocator=`` (paged mode) injects a shared pool instead of the
+    engine-private default: co-resident engines each take a
+    `QuotaBlockAllocator` view over one `BlockAllocator` sized to the HBM
+    budget. Its block_size must match the config's; the engine's prefix
+    cache is built over the injected view, so pressure eviction stays
+    tenant-local.
     """
 
-    def __init__(self, config=None, params=None, device=None):
+    def __init__(self, config=None, params=None, device=None,
+                 block_allocator=None):
         self.config = c = config or GenerateConfig()
-        if not getattr(c.model, 'use_flash_attention', True):
-            raise NotImplementedError(
-                'the decode engine always attends through flash_attention; '
-                'use_flash_attention=False is not ported (ROADMAP.md)')
+        if block_allocator is not None and not c.paged:
+            raise ValueError(
+                "block_allocator= injection is a paged-mode feature "
+                "(the contiguous cache reserves slots * max_len rows "
+                "up front) — pass paged=True")
         self.device = resolve_device(device)
         if self.device.type == 'cuda':
             # the JAX package's f32 products are full f32: keep cuBLAS and
@@ -270,10 +328,35 @@ class GenerateEngine(object):
         else:
             weights = params_from_numpy(params, self.device, config=c.model)
         self.model = TransformerLM(c.model, weights, c.max_len)
-        self.model.allocate_cache(c.slots)
+        self._alloc = self._prefix = None
+        if c.paged:
+            if block_allocator is not None:
+                if block_allocator.block_size != c.block_size:
+                    raise ValueError(
+                        "injected allocator block_size %d != config "
+                        "block_size %d — the paged ops address the cache "
+                        "through the table at the allocator's granularity"
+                        % (block_allocator.block_size, c.block_size))
+                pool = getattr(block_allocator, 'pool', block_allocator)
+                if pool.num_blocks > c.num_blocks:
+                    raise ValueError(
+                        "injected pool has %d blocks, the config's cache %d "
+                        "— every block id the pool hands out must address "
+                        "this engine's cache" % (pool.num_blocks,
+                                                 c.num_blocks))
+                self._alloc = block_allocator
+            else:
+                self._alloc = BlockAllocator(c.num_blocks, c.block_size)
+            if c.prefix_sharing:
+                self._prefix = PrefixCache(self._alloc)
+            self._max_blocks = c.max_len // c.block_size
+            self.model.allocate_paged_cache(c.num_blocks, c.block_size)
+        else:
+            self.model.allocate_cache(c.slots)
         self.queue = RequestQueue(c.queue_cap)
         self._slots = [None] * c.slots
         self._free = list(range(c.slots))[::-1]
+        self._pending_admit = None   # popped, waiting for free blocks
         self._thread = None
         self._started = False
         self._warm = False
@@ -284,6 +367,12 @@ class GenerateEngine(object):
         self._occ_sum = 0.0
         self._occ_peak = 0.0
         self._active_peak = 0
+        self._blocks_peak = 0
+        # the JAX engine's monitor counters of the paged cache, by name
+        self.counters = {'kv_block_cow_total': 0,
+                         'kv_prefix_hit_total{outcome=hit}': 0,
+                         'kv_prefix_hit_total{outcome=miss}': 0,
+                         'kv_prefix_tokens_saved_total': 0}
 
     # ------------------------------------------------------------------
     # device feeds
@@ -297,36 +386,157 @@ class GenerateEngine(object):
         k = k.to(self.device)
         return f[0], k, f[1], f[2], bool((a[:, 0] > 0).any())
 
-    def _run_prefill(self, slot, prompt, sample=(0.0, 0, 0.0, 0.0)):
+    def _tensor(self, a):
+        return torch.from_numpy(np.ascontiguousarray(a, 'int64')).to(
+            self.device)
+
+    def _run_prefill(self, slot, prompt, sample=(0.0, 0, 0.0, 0.0),
+                     table=None, ctx_len=0):
         c = self.config
-        b = bucketize(prompt.size, c.prompt_buckets)
+        if table is None:
+            b = bucketize(prompt.size, c.prompt_buckets)
+            padded = np.full((1, b), c.pad_id, 'int64')
+            padded[0, :prompt.size] = prompt
+            tok, _ = self.model.prefill(self._tensor(padded), slot,
+                                        prompt.size, self._sample([sample]))
+            return int(tok.cpu()[0])
+        # paged: only the uncached suffix is computed, bucketed by its own
+        # length; a suffix wider than the widest bucket runs in chunks of
+        # that width, each depositing its K/V and attending the cached
+        # prefix like a shared-prefix suffix. Only the final chunk's token
+        # is the answer.
+        wide = c.prompt_buckets[-1]
+        tab = self._tensor(table)
+        off = int(ctx_len)
+        suffix = prompt[off:]
+        while suffix.size > wide:
+            chunk, suffix = suffix[:wide], suffix[wide:]
+            pos = np.clip(off + np.arange(wide), 0, c.max_len - 1)
+            self.model.prefill_paged(self._tensor(chunk[None]),
+                                     self._tensor(pos), tab, wide)
+            off += wide
+        b = bucketize(suffix.size, c.prompt_buckets)
         padded = np.full((1, b), c.pad_id, 'int64')
-        padded[0, :prompt.size] = prompt
-        tok, _ = self.model.prefill(
-            torch.from_numpy(padded).to(self.device), slot, prompt.size,
+        padded[0, :suffix.size] = suffix
+        pos = np.clip(off + np.arange(b), 0, c.max_len - 1)
+        tok, _ = self.model.prefill_paged(
+            self._tensor(padded), self._tensor(pos), tab, suffix.size,
             self._sample([sample]))
         return int(tok.cpu()[0])
 
-    def _run_step(self, rows):
+    def _run_step(self, rows, tables=None):
         """One decode step over every slot; ``rows`` maps slot index to
-        (last token, position, (temperature, top_k, top_p, u)). Idle slots
-        feed token 0 at position 0. Returns next tokens as numpy [S]."""
+        (last token, position, (temperature, top_k, top_p, u)) and, paged,
+        ``tables`` slot index to its block table. Idle slots feed token 0
+        at position 0 (paged: against an all-zero table row, so they write
+        to the trash block). Returns next tokens as numpy [S]."""
         S = self.config.slots
         toks = np.zeros((2, S), 'int64')
         sample = [(0.0, 0, 0.0, 0.0)] * S
         for i, (last, pos, smp) in rows.items():
             toks[0, i], toks[1, i] = last, pos
             sample[i] = smp
-        t = torch.from_numpy(toks).to(self.device)
-        nxt, _ = self.model.decode_step(t[0], t[1], self._sample(sample))
+        btab = None
+        if self.config.paged:
+            btab = np.zeros((S, self._max_blocks), 'int64')
+            for i, table in (tables or {}).items():
+                btab[i] = table
+            btab = self._tensor(btab)
+        t = self._tensor(toks)
+        nxt, _ = self.model.decode_step(t[0], t[1], self._sample(sample),
+                                        tables=btab)
         return nxt.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # paged helpers
+    def _cow_copy(self, src, dst):
+        """Copy-on-write: duplicate physical block ``src`` into ``dst`` in
+        both caches, on the device."""
+        for cache in (self.model.k_cache, self.model.v_cache):
+            cache[dst] = cache[src]
+
+    def _alloc_blocks(self, n):
+        """n blocks, evicting idle prefix-cache entries under pressure;
+        None when the pool cannot satisfy the request."""
+        ids = self._alloc.alloc(n)
+        if ids is None and self._prefix is not None:
+            self._prefix.evict_for(n)
+            ids = self._alloc.alloc(n)
+        if ids is not None:
+            self._blocks_peak = max(self._blocks_peak, self._alloc.in_use())
+        return ids
+
+    def _slot_table(self, blocks):
+        table = np.zeros((self._max_blocks,), 'int64')
+        table[:len(blocks)] = blocks
+        return table
+
+    def _paged_plan(self, req):
+        """Block plan for one admission: (blocks, ctx_len, hashes).
+        ``blocks`` covers the whole prompt in logical order: prefix-cache
+        hits mapped to their existing physical blocks (referenced), fresh
+        blocks for the rest, and a copy-on-write duplicate of the final
+        shared block when the ENTIRE prompt landed on shared blocks (its
+        last position must be recomputed, a divergent write). None when
+        the pool cannot satisfy the request now (nothing referenced,
+        nothing allocated)."""
+        bs = self.config.block_size
+        L = req.prompt.size
+        total = -(-L // bs)
+        shared, hashes = [], []
+        if self._prefix is not None:
+            hashes = chain_hashes(req.prompt, bs)
+            shared = self._prefix.match(hashes)
+        cow = bool(shared) and len(shared) * bs >= L
+        n_keep = len(shared) - (1 if cow else 0)
+        ctx_len = min(n_keep * bs + (bs if cow else 0), L - 1)
+        # pin every matched block (the COW source too) BEFORE touching the
+        # allocator: under pressure _alloc_blocks evicts refcount-1 prefix
+        # entries, and an unpinned match could be recycled as "fresh" — a
+        # duplicate id in the plan, the suffix prefill clobbering its own
+        # cached prefix
+        pinned = shared[:n_keep] + (shared[-1:] if cow else [])
+        for b in pinned:
+            self._alloc.ref(b)
+        new_ids = self._alloc_blocks(total - n_keep)
+        if new_ids is None:
+            self._alloc.deref_many(pinned)
+            return None
+        if cow:
+            self._cow_copy(shared[-1], new_ids[0])
+            self._alloc.deref(shared[-1])   # pinned only for the copy
+            self.counters['kv_block_cow_total'] += 1
+        if self._prefix is not None:
+            self.counters['kv_prefix_hit_total{outcome=%s}' % (
+                'hit' if ctx_len > 0 else 'miss')] += 1
+            self.counters['kv_prefix_tokens_saved_total'] += ctx_len
+        return shared[:n_keep] + new_ids, ctx_len, hashes
+
+    def _grow_blocks(self):
+        """Before a paged step: a resident whose next write position
+        crosses into an unallocated block gets one more block; a dry pool
+        (even after prefix-cache eviction) finishes that request with
+        'cache_full' and returns its blocks — its neighbours decode on."""
+        bs = self.config.block_size
+        for i, st in enumerate(self._slots):
+            if st is None or st.pos // bs < len(st.blocks):
+                continue
+            grown = self._alloc_blocks(1)
+            if grown is None:
+                self._release(i)
+                st.req._finish('cache_full')
+                continue
+            st.table[len(st.blocks)] = grown[0]
+            st.blocks.append(grown[0])
+        self._set_occupancy()
 
     # ------------------------------------------------------------------
     # warmup + lifecycle
     def warmup(self):
         """Run every prompt bucket's prefill and one decode step once: on
         the card this builds the kernels (first use) and settles the
-        allocator. Returns {'buckets', 'seconds'}."""
+        allocator. A paged engine's warmup writes only to the trash block
+        (all-zero tables). Returns {'buckets', 'seconds'}."""
         if self._started:
             raise RuntimeError(
                 "warmup() runs the prefill/decode path against the live KV "
@@ -334,7 +544,13 @@ class GenerateEngine(object):
                 "before start() (start() warms up automatically)")
         t0 = time.perf_counter()
         for b in self.config.prompt_buckets:
-            self._run_prefill(0, np.zeros((b,), 'int64'))
+            if self.config.paged:
+                self.model.prefill_paged(
+                    self._tensor(np.zeros((1, b))), self._tensor(
+                        np.zeros(b)), self._tensor(np.zeros(
+                            self._max_blocks)), 1)
+            else:
+                self._run_prefill(0, np.zeros((b,), 'int64'))
         self._run_step({})
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
@@ -362,7 +578,8 @@ class GenerateEngine(object):
 
     def stop(self, timeout_s=10.0):
         """Close the queue (queued requests fail with EngineStoppedError),
-        fail resident generations, join the decode loop."""
+        fail resident generations, join the decode loop; a paged engine
+        then drops its prefix cache's block references."""
         with self._lock:
             self._started = False
         self._stop_evt.set()
@@ -370,6 +587,9 @@ class GenerateEngine(object):
         if self._thread is not None:
             self._thread.join(timeout_s)
             self._thread = None
+        if self._prefix is not None:
+            # a stopped engine serves no more hits
+            self._prefix.drop_all()
 
     def __enter__(self):
         return self.start()
@@ -383,18 +603,26 @@ class GenerateEngine(object):
     def submit(self, prompt, max_new_tokens=None, deadline_s=None,
                temperature=None, top_k=None, top_p=None, sample_seed=None):
         """Enqueue one prompt (1-D int token ids); returns the
-        `GenerateRequest`. Raises ValueError for a prompt longer than the
-        largest bucket (or empty) and `LoadShedError` when the queue is
+        `GenerateRequest`. Raises ValueError for an empty prompt or one
+        longer than the largest bucket (paged engines: than max_len - 1,
+        the chunked-prefill bound) and `LoadShedError` when the queue is
         full. Sampling arguments default to the config's; temperature <= 0
         is greedy; ``sample_seed`` pins the request's sampling stream."""
         c = self.config
         prompt = np.asarray(prompt, dtype='int64').reshape(-1)
-        limit = c.prompt_buckets[-1]
+        if c.paged:
+            # chunked prefill lifts admission past the ladder: one row must
+            # remain for the first decode write
+            limit = c.max_len - 1
+            why = "max_len - 1 (chunked-prefill admission bound)"
+        else:
+            limit = c.prompt_buckets[-1]
+            why = ("largest prompt bucket — trim the prompt, widen "
+                   "prompt_buckets, or use paged=True (chunked prefill "
+                   "admits up to max_len - 1)")
         if prompt.size < 1 or prompt.size > limit:
-            raise ValueError(
-                "prompt length %d outside [1, %d] (largest prompt bucket — "
-                "trim the prompt or widen prompt_buckets)"
-                % (prompt.size, limit))
+            raise ValueError("prompt length %d outside [1, %d] (%s)"
+                             % (prompt.size, limit, why))
         if max_new_tokens is None:
             max_new_tokens = c.max_new_tokens
         if int(max_new_tokens) < 1:
@@ -435,7 +663,10 @@ class GenerateEngine(object):
         prefill and decode step the loop runs — the sequential reference
         the concurrent engine is held to. Greedy by default; a pinned
         ``sample_seed`` replays submit()'s sampling stream. Only valid
-        while the engine is NOT started."""
+        while the engine is NOT started. A paged engine allocates the
+        reference's blocks from the live pool (bypassing the prefix cache:
+        fresh blocks, the whole prompt prefilled) and returns every block
+        before returning."""
         if self._started:
             raise RuntimeError(
                 "generate_once drives the decode path inline and must not "
@@ -448,15 +679,38 @@ class GenerateEngine(object):
                               temperature=temperature, top_k=top_k,
                               top_p=top_p, sample_seed=sample_seed)
         smp = (req.temperature, req.top_k, req.top_p)
-        first = self._run_prefill(0, prompt, smp + (req._draw_u(),))
-        tokens, last, pos = [first], first, prompt.size
-        while (len(tokens) < max_new_tokens and pos < c.max_len and
-               (c.eos_id is None or last != c.eos_id)):
-            nxt = self._run_step({0: (last, pos, smp + (req._draw_u(),))})
-            last = int(nxt[0])
-            tokens.append(last)
-            pos += 1
-        return tokens
+        blocks, table = None, None
+        if c.paged:
+            blocks = self._alloc_blocks(-(-prompt.size // c.block_size))
+            if blocks is None:
+                raise RuntimeError(
+                    "paged KV pool cannot hold a %d-token prompt right now "
+                    "(%d blocks free of %d)" % (prompt.size,
+                                                self._alloc.available(),
+                                                self._alloc.capacity))
+            table = self._slot_table(blocks)
+        try:
+            first = self._run_prefill(0, prompt, smp + (req._draw_u(),),
+                                      table=table)
+            tokens, last, pos = [first], first, prompt.size
+            while (len(tokens) < max_new_tokens and pos < c.max_len and
+                   (c.eos_id is None or last != c.eos_id)):
+                if c.paged and pos // c.block_size >= len(blocks):
+                    grown = self._alloc_blocks(1)
+                    if grown is None:     # pool dry: cache_full semantics
+                        break
+                    table[len(blocks)] = grown[0]
+                    blocks.append(grown[0])
+                nxt = self._run_step({0: (last, pos,
+                                          smp + (req._draw_u(),))},
+                                     tables={0: table})
+                last = int(nxt[0])
+                tokens.append(last)
+                pos += 1
+            return tokens
+        finally:
+            if blocks:
+                self._alloc.deref_many(blocks)
 
     # ------------------------------------------------------------------
     # decode loop
@@ -466,6 +720,12 @@ class GenerateEngine(object):
             self._evict_expired()
             self._admit()
             if not any(s is not None for s in self._slots):
+                if self._pending_admit is not None:
+                    # parked for blocks with nothing resident: _admit()
+                    # retries it every pass (with no residents the prefix
+                    # cache is wholly evictable, so this is transient)
+                    time.sleep(poll)
+                    continue
                 req, expired = self.queue.take(poll)
                 self._fail_expired(expired)
                 if req is not None:
@@ -478,49 +738,88 @@ class GenerateEngine(object):
                 st.req.fail(EngineStoppedError(
                     "engine stopped after %d generated tokens"
                     % st.generated))
+        if self._pending_admit is not None:
+            req, self._pending_admit = self._pending_admit, None
+            req.fail(EngineStoppedError(
+                "engine stopped while the request waited for KV blocks"))
 
     def _admit(self):
         while self._free and not self._stop_evt.is_set():
-            req, expired = self.queue.take(0.0)
-            self._fail_expired(expired)
+            req, self._pending_admit = self._pending_admit, None
             if req is None:
-                return
-            self._admit_one(req)
+                req, expired = self.queue.take(0.0)
+                self._fail_expired(expired)
+                if req is None:
+                    return
+            if not self._admit_one(req):
+                return      # parked for blocks: retried next boundary
 
     def _admit_one(self, req):
+        """Admit one popped request. False when a paged engine must wait
+        for blocks (the request parks in ``_pending_admit``); True when
+        the request was consumed: admitted, finished or failed."""
+        c = self.config
+        blocks, table, ctx_len, hashes = None, None, 0, []
+        if c.paged:
+            if -(-req.prompt.size // c.block_size) > self._alloc.capacity:
+                # no eviction can ever fit this prompt
+                req._finish('cache_full')
+                return True
+            plan = self._paged_plan(req)
+            if plan is None:
+                self._pending_admit = req
+                return False
+            blocks, ctx_len, hashes = plan
+            table = self._slot_table(blocks)
         slot = self._free.pop()
         req.queue_s = max(0.0, time.monotonic() - req.enqueue_t)
         t0 = time.perf_counter()
         try:
             first = self._run_prefill(
                 slot, req.prompt,
-                (req.temperature, req.top_k, req.top_p, req._draw_u()))
+                (req.temperature, req.top_k, req.top_p, req._draw_u()),
+                table=table, ctx_len=ctx_len)
         except Exception as e:  # noqa: BLE001 — delivered to the request
             self._free.append(slot)
+            if blocks:
+                self._alloc.deref_many(blocks)
             req.fail(e)
-            return
+            return True
+        if self._prefix is not None:
+            # publish the prompt's full blocks (immutable once prefilled:
+            # decode writes land past the prompt)
+            for i, h in enumerate(hashes):
+                self._prefix.register(h, i, blocks[i])
         req.prefill_s = time.perf_counter() - t0
         self._decode_tokens += 1
         req._emit(first)
-        st = _Slot(req, pos=req.prompt.size, last=first)
+        st = _Slot(req, pos=req.prompt.size, last=first, blocks=blocks,
+                   table=table)
         reason = self._finish_reason(st)
         if reason:
+            self._release_blocks(st)
             self._free.append(slot)
             req._finish(reason)
         else:
             self._slots[slot] = st
         self._set_occupancy()
+        return True
 
     def _step(self):
+        if self.config.paged:
+            self._grow_blocks()
         active = [(i, st) for i, st in enumerate(self._slots)
                   if st is not None]
-        rows = {}
+        if not active:
+            return
+        rows, tables = {}, {}
         for i, st in active:
             r = st.req
             rows[i] = (st.last, st.pos,
                        (r.temperature, r.top_k, r.top_p, r._draw_u()))
+            tables[i] = st.table
         try:
-            nxt = self._run_step(rows)
+            nxt = self._run_step(rows, tables)
         except Exception as e:  # noqa: BLE001 — fails the residents only
             for i, st in active:
                 self._release(i)
@@ -563,6 +862,11 @@ class GenerateEngine(object):
                 st.req.fail(DeadlineExceededError(
                     "deadline passed mid-generation after %d tokens"
                     % st.generated))
+        if self._pending_admit is not None and \
+                self._pending_admit.expired(now):
+            req, self._pending_admit = self._pending_admit, None
+            req.fail(DeadlineExceededError(
+                "deadline passed waiting for free KV blocks"))
         self._set_occupancy()
 
     @staticmethod
@@ -573,7 +877,15 @@ class GenerateEngine(object):
                 "deadline passed after %.3fs in queue"
                 % (now - r.enqueue_t)))
 
+    def _release_blocks(self, st):
+        if st.blocks:
+            self._alloc.deref_many(st.blocks)
+            st.blocks = []
+
     def _release(self, i):
+        st = self._slots[i]
+        if st is not None:
+            self._release_blocks(st)
         self._slots[i] = None
         self._free.append(i)
 
@@ -584,9 +896,11 @@ class GenerateEngine(object):
 
     # ------------------------------------------------------------------
     def stats(self):
-        """Decode-loop statistics since construction."""
+        """Decode-loop statistics since construction. Paged engines add
+        the block accounting under 'blocks': the pool's state, the peak
+        footprint and the prefix-cache entry count."""
         steps = self._decode_steps
-        return {
+        out = {
             'slots': self.config.slots,
             'active': sum(1 for s in self._slots if s is not None),
             'peak_active': self._active_peak,
@@ -597,3 +911,14 @@ class GenerateEngine(object):
             'mean_slot_occupancy': round(self._occ_sum / steps, 4)
             if steps else 0.0,
         }
+        if self.config.paged:
+            out['blocks'] = {
+                'block_size': self.config.block_size,
+                'capacity': self._alloc.capacity,
+                'in_use': self._alloc.in_use(),
+                'free': self._alloc.available(),
+                'peak_in_use': self._blocks_peak,
+                'prefix_entries': len(self._prefix)
+                if self._prefix is not None else 0,
+            }
+        return out

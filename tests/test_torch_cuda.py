@@ -1013,6 +1013,55 @@ def test_flash_bf16_dq_phase13_shapes_reach_their_paths():
                        'dead chunk', 'dead block'}
 
 
+def _unscaled_ds_form(q, k, v, do, lse, delta, scale, causal):
+    """dQ and dK as the bf16 kernels computed them before they rounded the
+    scaled dS: dS rounded to bf16 without the scale, the scale taken once
+    at the end (the same bits as the reference only for a power-of-two
+    scale)."""
+    s, keep = attention_ops._scores(q, k, scale, causal, None, 1)
+    p = torch.where(keep, torch.exp(s - lse[:, :, None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum('bqd,bkd->bqk', do.float(), v.float())
+    g = (p * (dp - delta[:, :, None])).to(torch.bfloat16).float()
+    dq = torch.einsum('bqk,bkd->bqd', g, k.float()) * scale
+    dk = torch.einsum('bqk,bqd->bkd', g, q.float()) * scale
+    return dq.to(q.dtype), dk.to(q.dtype)
+
+
+def _rms_err(g, w):
+    g, w = g.float(), w.float()
+    return float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+
+
+@pytest.mark.parametrize('causal', [False, True], ids=['full', 'causal'])
+@pytest.mark.parametrize('dh,scale', [(32, None), (128, None), (64, 0.1)],
+                         ids=['dh32', 'dh128', 'dh64-scale0.1'])
+def test_flash_bf16_bwd_rounds_the_scaled_ds(dev, dh, scale, causal):
+    """Where the scale is not a power of two (dh^-0.5 at dh 32 and 128, or
+    a caller's 0.1 at dh 64) the bf16 dQ and dK/dV kernels round the scaled
+    dS to bf16, as the reference does: dQ, dK and dV within 1e-2 of each
+    one's largest magnitude of the plain version, and dQ's and dK's root
+    mean square error below that of the form that rounds dS without the
+    scale (held to the same plain version)."""
+    bh, L = 8, 200
+    scale = dh ** -0.5 if scale is None else scale
+    q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
+                   for s in range(4))
+    fwd = (scale, causal, None, 1)
+    o, lse = attention_ops._attention_ref(q, k, v, *fwd)
+    args = (q, k, v, do, lse, attention_ops._delta(do, o))
+    dq = attention_ops._flash_bwd_dq(*args, *fwd)
+    dk, dv = attention_ops._flash_bwd_dkv(*args, *fwd)
+    torch.cuda.synchronize()
+    want = (attention_ops._bwd_dq_ref(*args, *fwd),) + \
+        attention_ops._bwd_dkv_ref(*args, *fwd)
+    for g, w in zip((dq, dk, dv), want):
+        assert _err(g.float(), w.float()) <= 1e-2 * float(w.float().abs().max())
+    old = _unscaled_ds_form(*args, scale, causal)
+    for g, o_, w in zip((dq, dk), old, want):
+        assert _rms_err(g, w) < _rms_err(o_, w)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 def test_flash_kernels_take_more_than_65535_rows(dev, dtype):

@@ -249,13 +249,15 @@ def test_admission_control_shed_deadline_stop_and_rejects(port_engine):
 
 
 def test_not_ported_modes_raise():
-    for kw in (dict(paged=True), dict(speculative=True),
-               dict(metrics_port=0)):
+    for kw in (dict(speculative=True), dict(metrics_port=0)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             GenerateConfig(**kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        GenerateEngine(_port_cfg(model=LMConfig(
-            use_flash_attention=False, **LM)), device='cpu')
+    # ported: the paged cache (tests/test_torch_paged.py) and the unfused
+    # prefill of use_flash_attention=False
+    assert GenerateConfig(paged=True).paged
+    eng = GenerateEngine(_port_cfg(model=LMConfig(
+        use_flash_attention=False, **LM)), device='cpu')
+    assert len(eng.generate_once(_prompt(5), max_new_tokens=3)) == 3
 
 
 def test_deadline_evicts_mid_generation_and_neighbours_finish(port_engine):

@@ -3,7 +3,7 @@
 in turns.
 
     python3 tools/flash_bf16_variants.py DIR '{"name": "file.cu [nvcc flags]"}'
-        [--kernel dq|dkv] [--reps N]
+        [--kernel dq|dkv|both] [--reps N] [--dh D,...] [--scale S,...]
 
 A variant is a copy of ``paddle_tpu_torch/csrc/flash_attn_bf16_bwd.cu`` (the
 headers it includes resolved from its own directory) under DIR, changed by
@@ -15,7 +15,11 @@ shapes (the AMP LM step's, causal, and BERT's with its key-padding bias)
 each variant's dQ (``--kernel dq``) or dK and dV (``dkv``) is held against
 the plain PyTorch version: the largest error over the largest magnitude
 within 1e-2, two calls bitwise equal, and the rows (for dK and dV the keys)
-that keep nothing exactly 0. Each variant's launch is then timed by
+that keep nothing exactly 0; ``rms_err`` is the root mean square error over
+the root mean square of the plain version. ``--dh`` and ``--scale`` (lists,
+one run each) take other head widths and scales than the shapes' own (64,
+dh^-0.5) at the same batch, heads and lengths; ``--kernel both`` runs dQ,
+then dK/dV, from one build. Each variant's launch is then timed by
 CUDA-graph replays (``chip_smoke.cuda_ms``) in the order given and back
 again, ``--reps`` times, so that two variants alternate (a, b, b, a).
 
@@ -60,28 +64,17 @@ def build(directory, variants):
     return libs
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(
-        description='Build and time variants of the bf16 flash backward.')
-    parser.add_argument('dir', help='directory of the variant sources')
-    parser.add_argument('variants',
-                        help='JSON {name: "file.cu [nvcc flags]"}')
-    parser.add_argument('--kernel', choices=('dq', 'dkv'), default='dq')
-    parser.add_argument('--reps', type=int, default=2)
-    args = parser.parse_args(argv)
-    sys.path.insert(0, ROOT)
+def measure(libs, kernel, dh_arg, scale_arg, reps):
+    """One JSON line per shape of phase 13 for ``kernel`` ('dq' or 'dkv')
+    at head width ``dh_arg`` and ``scale_arg`` (None: the shape's own dh
+    and dh^-0.5). Returns whether every variant passed its checks."""
     import torch
-    if not torch.cuda.is_available():
-        print('flash_bf16_variants: needs a CUDA card', file=sys.stderr)
-        return 2
     import chip_smoke
     from paddle_tpu_torch.ops import attention_ops as A
-
-    libs = build(os.path.abspath(args.dir), json.loads(args.variants))
-    n_out = 1 if args.kernel == 'dq' else 2
+    n_out = 1 if kernel == 'dq' else 2
     fns = {}
     for name, lib in libs.items():
-        fn = getattr(lib, 'ptt_flash_attn_bf16_bwd_' + args.kernel)
+        fn = getattr(lib, 'ptt_flash_attn_bf16_bwd_' + kernel)
         fn.argtypes = [ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int64] * 4 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -94,25 +87,28 @@ def main(argv=None):
         B, H, L, dh, causal, bias = (sh[k] for k in (
             'B', 'H', 'L', 'dh', 'causal', 'bias'))
         bias = None if bias is None else bias.to(dev)
-        bh, scale = B * H, dh ** -0.5
+        dh = dh_arg or dh
+        bh = B * H
+        scale = dh ** -0.5 if scale_arg is None else scale_arg
         q, k, v, do = (torch.randn((bh, L, dh), generator=g, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
         fwd = (scale, causal, bias, H)
         o, lse = A._flash_fwd(q, k, v, *fwd)
         ins = (q, k, v, do, lse, A._delta(do, o))
-        want = (A._bwd_dq_ref(*ins, *fwd),) if args.kernel == 'dq' \
+        want = (A._bwd_dq_ref(*ins, *fwd),) if kernel == 'dq' \
             else A._bwd_dkv_ref(*ins, *fwd)
         _, keep = A._scores(q, k, scale, causal, bias, H)
         # the rows (dQ) or keys (dK, dV) that keep nothing
-        dead = (~keep.any(dim=2 if args.kernel == 'dq' else 1)).expand(bh, L)
+        dead = (~keep.any(dim=2 if kernel == 'dq' else 1)).expand(bh, L)
         del keep
         outs = [torch.empty_like(q) for _ in range(n_out)]
         ptrs = [t.data_ptr() for t in ins] + \
             [0 if bias is None else bias.data_ptr()] + \
             [t.data_ptr() for t in outs]
-        res = dict(shape=sh['shape'], kernel=args.kernel)
+        res = dict(shape=sh['shape'], kernel=kernel, dh=dh,
+                   scale=scale)
         times = {name: [] for name in fns}
-        for _ in range(args.reps):
+        for _ in range(reps):
             for name in order:
                 def call(fn=fns[name], name=name):
                     rc = fn(*ptrs, bh, L, dh, H, scale, int(causal),
@@ -128,6 +124,10 @@ def main(argv=None):
                         rel_err=max(float((t.float() - w.float()).abs().max()
                                           / w.float().abs().max())
                                     for t, w in zip(outs, want)),
+                        rms_err=max(float(
+                            (t.float() - w.float()).pow(2).mean().sqrt()
+                            / w.float().pow(2).mean().sqrt())
+                            for t, w in zip(outs, want)),
                         same=all(torch.equal(f, t)
                                  for f, t in zip(first, outs)),
                         dead_zero=not any(bool(t[dead].any()) for t in outs))
@@ -140,6 +140,39 @@ def main(argv=None):
         print(json.dumps(res), flush=True)
         del q, k, v, do, o, lse, ins, want, outs, dead
         torch.cuda.empty_cache()
+    return ok
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description='Build and time variants of the bf16 flash backward.')
+    parser.add_argument('dir', help='directory of the variant sources')
+    parser.add_argument('variants',
+                        help='JSON {name: "file.cu [nvcc flags]"}')
+    parser.add_argument('--kernel', choices=('dq', 'dkv', 'both'),
+                        default='dq')
+    parser.add_argument('--reps', type=int, default=2)
+    parser.add_argument('--dh', default='',
+                        help='comma-separated head widths, one run each')
+    parser.add_argument('--scale', default='',
+                        help='comma-separated scales, one for each --dh')
+    args = parser.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    import torch
+    if not torch.cuda.is_available():
+        print('flash_bf16_variants: needs a CUDA card', file=sys.stderr)
+        return 2
+    dhs = [int(x) for x in args.dh.split(',') if x] or [None]
+    scales = [float(x) for x in args.scale.split(',') if x] or \
+        [None] * len(dhs)
+    if len(scales) != len(dhs):
+        parser.error('--scale needs one value for each --dh')
+    libs = build(os.path.abspath(args.dir), json.loads(args.variants))
+    kernels = ('dq', 'dkv') if args.kernel == 'both' else (args.kernel,)
+    ok = True
+    for kernel in kernels:
+        for dh, scale in zip(dhs, scales):
+            ok = measure(libs, kernel, dh, scale, args.reps) and ok
     return 0 if ok else 1
 
 
