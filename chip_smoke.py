@@ -53,6 +53,28 @@ Phases, each printing one JSON line:
    the 192-token prefix, the paged step's ms beside a contiguous step at
    the same 16 slots (wall and device, by torch.profiler) with each
    one's byte floor, ``stats()`` and peak memory, tagged with the card.
+4c. engine_spec — speculative decoding on phase 4b's engine (``spec_k``
+   4), after the gather, LN and FFN wrappers are held against their plain
+   versions at the verify step's 80 rows. Phase 4b's 24 prompts, all
+   greedy, through (a) a draft with the target's own weights (aliased; a
+   draft pool of 513 blocks), (b) a layer-skip draft (``LMConfig(n_layer=
+   1)`` over the target's ``tok_emb.w``, ``layer_0.*``, ``final_ln.*`` and
+   ``lm_head.w``, aliased), then (a) again with every sixth request
+   sampled for 8 tokens (fallback steps, then resyncs of stale draft
+   caches), and a plain paged engine on the same weights. Checks: every
+   token equal to the plain engine's generate_once (a sampled one to its
+   own engine's) but at a tie (``engine_spec_tie`` lines); (a) accepts >=
+   95% of its proposals, each one it turned down printed with the
+   target's logit gap (``engine_spec_lost``); after every run the target
+   pool holds only the prefix cache's blocks, and after ``stop()`` no
+   block of either pool is in use; the fallback run counts fallbacks and
+   a resync; one full-width verify step within 1e-3 of the CPU's logits
+   and of the card's one-token step at each of its rows; the gather, LN
+   and FFN kernels launched by the speculative traffic. Reports each
+   run's tokens/s, rounds, accept rate, tokens a round and host ms a
+   round (draft and verify legs), one round's device time and launches
+   by torch.profiler (each drafter, the verify step, the plain step) and
+   host ms, and peak memory, tagged with the card.
 
 5. train_kernel — the training slice's kernels (CE forward and backward,
    the LN-residual backward, multi-tensor Adam) at the shapes the flagship's
@@ -207,6 +229,12 @@ PAGED_SHORT = (5, 40)
 PAGED_KERNELS = ('embedding_gather', 'fused_ln_residual', 'fused_ffn')
 # logits of two tokens this close are a tie (phase 4b's token comparisons)
 TIE = 1e-5
+# phase 4c: speculative decoding on phase 4b's engine, the reference's
+# spec_k; the fallback run samples every sixth request, for 8 new tokens
+# (the greedy ones then speculate again, on stale draft caches)
+SPEC_K = 4
+SPEC_SAMPLED_EVERY = 6
+SPEC_SAMPLED_TOKENS = 8
 
 # the kernels the decode engine launches
 ENGINE_KERNELS = ('embedding_gather', 'fused_ln_residual', 'flash_attention',
@@ -239,6 +267,7 @@ AMP_IDLE_KERNELS = ('fused_ffn',) + FLASH_KERNELS
 AMP_TRAIN_B = 64            # bench.py:1062
 AMP_BERT_B = 128            # bench.py:1131
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
+                'engine_spec': PAGED_KERNELS,
                 'train': TRAIN_KERNELS,
                 'train_flash': FLASH_TRAIN_KERNELS,
                 'bert': FLASH_TRAIN_KERNELS, 'train_amp': AMP_TRAIN_KERNELS,
@@ -792,19 +821,22 @@ def first_tie(got, ref, logits):
     return None
 
 
-def run_engine_paged(torch, kt, smi):
-    """Phase 4b: the full-width paged engine. Returns (summary, launch
-    counts of its traffic)."""
-    from paddle_tpu_torch.models.transformer import LMConfig, TransformerLM
-    from paddle_tpu_torch.serving import GenerateConfig, GenerateEngine
+def paged_config(**kw):
+    """Phase 4b's engine configuration (the flagship LM, dropout 0), with
+    ``kw`` on top."""
+    from paddle_tpu_torch.models.transformer import LMConfig
+    from paddle_tpu_torch.serving import GenerateConfig
     model_cfg = LMConfig(dropout=0.0, attn_dropout=0.0,
                          use_flash_attention=True)
-    cfg = GenerateConfig(
+    return GenerateConfig(
         model=model_cfg, slots=PAGED_SLOTS, max_len=MAX_LEN,
         prompt_buckets=list(BUCKETS), max_new_tokens=NEW_TOKENS, seed=0,
-        paged=True, block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS)
-    V = model_cfg.vocab_size
-    rs = np.random.RandomState(17)
+        paged=True, block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, **kw)
+
+
+def paged_prompts(rs, V):
+    """Phase 4b's 24 prompts in submission order, and each one's kind
+    ('shared', 'cow', 'long' or 'short'), drawn from ``rs``."""
     prefix = rs.randint(2, V, size=PAGED_PREFIX)
     shared = [np.concatenate([prefix, rs.randint(2, V, size=int(n))])
               for n in np.linspace(*PAGED_SUFFIX, num=12)]
@@ -820,7 +852,19 @@ def run_engine_paged(torch, kt, smi):
         order += [(p, 'shared') for p in shared[1 + 3 * i:4 + 3 * i]]
         order += [(long_[i], 'long'), (short[i], 'short')]
     prompts, kinds = zip(*order)
-    kinds = list(kinds)
+    return prompts, list(kinds)
+
+
+def run_engine_paged(torch, kt, smi):
+    """Phase 4b: the full-width paged engine. Returns (summary, launch
+    counts of its traffic)."""
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    from paddle_tpu_torch.serving import GenerateConfig, GenerateEngine
+    cfg = paged_config()
+    model_cfg = cfg.model
+    V = model_cfg.vocab_size
+    rs = np.random.RandomState(17)
+    prompts, kinds = paged_prompts(rs, V)
     work = [(p, dict(temperature=0.8, top_k=50, top_p=0.9,
                      sample_seed=2000 + i) if i % 2 else {})
             for i, p in enumerate(prompts)]
@@ -1001,6 +1045,262 @@ def run_engine_paged(torch, kt, smi):
         decode_step_bytes=floors, decode_step_profile=profiles,
         logits_max_abs_err_vs_cpu=errs, launches=counts, stats=stats,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    return summary, counts
+
+
+def lost_proposals(rounds):
+    """Where the verify step turned down a draft, from the (drafts, verdict,
+    gap, counted) device tensors that `trace_verify` kept for each round:
+    per slot and round its first refused draft that the round counted, with
+    the target's logit gap between its own token and the draft's, and the
+    number of counted drafts lost there."""
+    out = []
+    for r, rec in enumerate(rounds):
+        d, v, gap, counted = (t.cpu().numpy() for t in rec)
+        for s in range(d.shape[0]):
+            miss = np.flatnonzero((d[s] != v[s]) & (counted[s] != 0))
+            if miss.size:
+                t = int(miss[0])
+                out.append(dict(round=r, slot=s, draft=t,
+                                gap=float(gap[s, t]),
+                                lost=int(counted[s, t:].sum())))
+    return out
+
+
+def trace_verify(model, rounds):
+    """Wrap ``model.verify_step`` (an instance attribute, deleted to undo)
+    so that each call appends to ``rounds``, on the device, its drafts, its
+    argmax at the rows that judge them, the logit gap between the two and
+    which drafts the round counts."""
+    orig = model.verify_step
+
+    def call(tokens, pos, tables, vmask):
+        nxt, logits = orig(tokens, pos, tables, vmask)
+        S, W = tokens.shape
+        lg = logits.view(S, W, -1)[:, :-1]
+        drafts = tokens[:, 1:]
+        gap = lg.max(-1).values - lg.gather(-1, drafts[..., None])[..., 0]
+        rounds.append((drafts, nxt.view(S, W)[:, :-1], gap, vmask[:, 1:]))
+        return nxt, logits
+    model.verify_step = call
+
+
+def run_engine_spec(torch, kt, smi):
+    """Phase 4c: speculative decoding on phase 4b's engine. Returns (summary,
+    launch counts of the speculative traffic)."""
+    from paddle_tpu_torch.models.transformer import LMConfig, TransformerLM
+    from paddle_tpu_torch.serving import GenerateEngine
+    cfg = paged_config()
+    V = cfg.model.vocab_size
+    prompts, kinds = paged_prompts(np.random.RandomState(17), V)
+    greedy = [(p, {}) for p in prompts]
+    mixed = [(p, dict(temperature=0.8, top_k=50, top_p=0.9,
+                      sample_seed=3000 + i)
+              if i % SPEC_SAMPLED_EVERY == 1 else {})
+             for i, p in enumerate(prompts)]
+    sampled_tokens = dict(max_new_tokens=SPEC_SAMPLED_TOKENS)
+
+    torch.cuda.reset_peak_memory_stats()
+    plain = GenerateEngine(cfg)                     # cuda:0, seed 0
+    params = dict(plain.model.p)
+    skip = {n: t for n, t in params.items() if n.startswith('layer_0.') or
+            n in ('tok_emb.w', 'final_ln.w', 'final_ln.b', 'lm_head.w')}
+    spec_cfg = paged_config(speculative=True, spec_k=SPEC_K)
+    skip_cfg = paged_config(speculative=True, spec_k=SPEC_K,
+                            draft_model=LMConfig(n_layer=1, dropout=0.0,
+                                                 attn_dropout=0.0))
+    engines = {'target': GenerateEngine(spec_cfg, params=params),
+               'layer_skip': GenerateEngine(skip_cfg, params=params,
+                                            draft_params=skip),
+               'fallback': GenerateEngine(spec_cfg, params=params)}
+    for name, eng in engines.items():
+        # both drafts share the target's weights: no copy
+        names = skip if name == 'layer_skip' else params
+        if any(eng.draft.p[n].data_ptr() != params[n].data_ptr()
+               for n in names):
+            raise AssertionError('the %s draft copied the target\'s '
+                                 'weights' % name)
+    for eng in list(engines.values()) + [plain]:
+        eng.warmup()
+
+    def drive(eng, work):
+        t0 = time.perf_counter()
+        with eng:
+            reqs = [eng.submit(p, **dict(kw, **(
+                sampled_tokens if kw else dict(max_new_tokens=NEW_TOKENS))))
+                for p, kw in work]
+            outs = [r.result(600) for r in reqs]
+            held = dict(eng.stats()['blocks'])
+        return dict(outs=outs, wall=time.perf_counter() - t0, held=held,
+                    stats=eng.stats(), counters=dict(eng.counters))
+
+    verified = []
+    trace_verify(engines['target'].model, verified)
+    kt.reset_counts()
+    runs = {'target': drive(engines['target'], greedy),
+            'layer_skip': drive(engines['layer_skip'], greedy),
+            'fallback': drive(engines['fallback'], mixed)}
+    counts = kt.launch_counts()
+    del engines['target'].model.verify_step
+    runs['plain'] = drive(plain, greedy)
+
+    for name, run in runs.items():
+        st = run['stats']
+        if any(o.finish_reason != 'length' for o in run['outs']):
+            raise AssertionError('%s: unexpected finish reasons' % name)
+        if run['held']['in_use'] != run['held']['prefix_entries'] or \
+                st['blocks']['in_use'] != 0 or \
+                st.get('spec', {}).get('draft_blocks_in_use', 0) != 0:
+            raise AssertionError('%s: pools not conserved: %s, after '
+                                 'stop() %s' % (name, run['held'], st))
+    idle = [k for k in PAGED_KERNELS if counts[k] <= 0]
+    if idle:
+        raise AssertionError('kernels never launched on the speculative '
+                             'path: %s' % idle)
+    lost = lost_proposals(verified)
+    for miss in lost:
+        emit(dict(phase='engine_spec_lost', draft='target', **miss))
+    acc = runs['target']['stats']['spec']
+    if not acc['accept_rate'] >= 0.95:
+        raise AssertionError('the target-weights draft accepted %s of its '
+                             'proposals' % acc['accept_rate'])
+    fb = runs['fallback']['counters']
+    if not (fb['spec_fallback_total'] > 0 and
+            fb['spec_stale_draft_rounds_total'] >= 1):
+        raise AssertionError('no fallback and resync: %s' % fb)
+
+    # every greedy token against the plain paged engine's generate_once, a
+    # sampled one against its own engine's (the first 8 of its tokens), a
+    # token differing at a tie only
+    ties, refs = [], {}
+    for name in ('target', 'layer_skip', 'fallback'):
+        for i, ((p, kw), out) in enumerate(zip(
+                mixed if name == 'fallback' else greedy,
+                runs[name]['outs'])):
+            key = (i, bool(kw))
+            if key not in refs:
+                refs[key] = traced_once(engines['fallback'] if kw else plain,
+                                        p, kw)
+            ref, logits = refs[key]
+            tie = first_tie(list(out), ref[:len(out)], logits[:len(out)])
+            if tie:
+                ties.append(dict(run=name, request=i, kind=kinds[i], **tie))
+    for tie in ties:
+        emit(dict(phase='engine_spec_tie', **tie))
+
+    # one full-width verify step on the card against the CPU, and each of
+    # its rows against the card's one-token step at that position: a
+    # 100-token prompt in slot 1, then its next token and 4 drafts
+    model = engines['target'].model
+    dev = model.device
+    cpu = TransformerLM(cfg.model, {k: v.cpu() for k, v in params.items()},
+                        MAX_LEN)
+    cpu.allocate_paged_cache(PAGED_BLOCKS, PAGED_BLOCK)
+    mb, W, n = MAX_LEN // PAGED_BLOCK, SPEC_K + 1, BUCKETS[1] * 25 // 32
+    rs = np.random.RandomState(23)
+    chunk = np.zeros((1, BUCKETS[1]), 'int64')
+    chunk[0, :n] = rs.randint(2, V, size=n)
+    tab = np.zeros((PAGED_SLOTS, mb), 'int64')
+    tab[1] = np.arange(1, mb + 1)
+    vt, vp, vv = (np.zeros((PAGED_SLOTS, W), 'int64') for _ in range(3))
+    vp[1], vv[1] = n + np.arange(W), 1
+    vt[1] = rs.randint(2, V, size=W)    # the verify rows' tokens: any will do
+    logits = []                         # the card's, then the CPU's
+    for m in (model, cpu):
+        t = lambda a: torch.from_numpy(a).to(m.device)  # noqa: E731
+        m.prefill_paged(t(chunk), t(np.arange(BUCKETS[1])), t(tab[1]), n)
+        logits.append(m.verify_step(t(vt), t(vp), t(tab), t(vv))[1][
+            W:2 * W].cpu())
+    ver = logits[0]
+    if not torch.isfinite(ver).all():
+        raise AssertionError('non-finite verify logits on the card')
+    errs = {'verify_vs_cpu': float((ver - logits[1]).abs().max())}
+    steps = []
+    for j in range(W):
+        tok, posv = np.zeros(PAGED_SLOTS, 'int64'), np.zeros(PAGED_SLOTS,
+                                                             'int64')
+        tok[1], posv[1] = vt[1, j], vp[1, j]
+        steps.append(model.decode_step(
+            *(torch.from_numpy(a).to(dev) for a in (tok, posv)),
+            tables=torch.from_numpy(tab).to(dev))[1][1].cpu())
+    errs['verify_vs_step'] = float((ver - torch.stack(steps)).abs().max())
+    # phase 4's limit: six layers of f32 in two summation orders
+    if not max(errs.values()) <= 1e-3:
+        raise AssertionError('verify logits differ: %s' % errs)
+    del cpu
+
+    # one round's device time and launches: 16 slots at position 304 on
+    # full tables (blocks may repeat across slots), the drafter of each
+    # draft and the verify step, beside phase 4b's plain step
+    tok = torch.from_numpy(rs.randint(2, V, size=PAGED_SLOTS)).to(dev)
+    pos = torch.arange(PAGED_SLOTS, device=dev) + MAX_LEN * 19 // 32
+    grid = torch.arange(PAGED_SLOTS * mb, device=dev).view(PAGED_SLOTS, mb)
+    tables = grid % (PAGED_BLOCKS - 1) + 1
+    ones = torch.ones(PAGED_SLOTS, W, dtype=torch.int64, device=dev)
+    vpos = pos[:, None] + torch.arange(W, device=dev)
+    drafts = {}
+    for name in ('target', 'layer_skip'):
+        eng = engines[name]
+        dtab = grid % (eng._draft_alloc.num_blocks - 1) + 1
+        drafts[name] = (lambda d=eng.draft, dt=dtab:  # noqa: E731
+                        d.draft_steps(tok, pos, dt, ones, SPEC_K))
+    def spec_round(name):
+        return lambda: model.verify_step(torch.cat(
+            [tok[:, None], drafts[name]()], 1), vpos, tables, ones)
+
+    vtok = torch.cat([tok[:, None], drafts['target']()], 1)
+    only_verify = lambda: model.verify_step(  # noqa: E731
+        vtok, vpos, tables, ones)
+    plain_step = lambda: plain.model.decode_step(  # noqa: E731
+        tok, pos, tables=tables)
+    round_ms = {}
+    for name, fn in (('plain_step', plain_step),
+                     ('round_target', spec_round('target')),
+                     ('round_layer_skip', spec_round('layer_skip')),
+                     ('round_layer_skip_again', spec_round('layer_skip')),
+                     ('round_target_again', spec_round('target')),
+                     ('plain_step_again', plain_step)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        round_ms[name] = (time.perf_counter() - t0) / 10 * 1e3
+    profiles = {'drafter_target': step_profile(torch, drafts['target'],
+                                               steps=5),
+                'drafter_layer_skip': step_profile(
+                    torch, drafts['layer_skip'], steps=5),
+                'verify': step_profile(torch, only_verify, steps=5,
+                                       host=True),
+                'plain_step': step_profile(torch, plain_step, steps=5)}
+
+    summary = dict(phase='engine_spec', card=smi, spec_k=SPEC_K,
+                   requests=len(prompts), new_tokens=NEW_TOKENS,
+                   slots=PAGED_SLOTS, num_blocks=PAGED_BLOCKS,
+                   block_size=PAGED_BLOCK,
+                   sampled_in_fallback_run=sum(1 for _, kw in mixed if kw),
+                   ties=len(ties), lost_proposals_target=dict(
+                       at_ties=sum(m['lost'] for m in lost
+                                   if m['gap'] <= TIE),
+                       otherwise=sum(m['lost'] for m in lost
+                                     if m['gap'] > TIE)),
+                   logits_max_abs_err=errs, round_host_ms=round_ms,
+                   round_profile=profiles, launches=counts,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated())
+    for name, run in runs.items():
+        gen = sum(len(o) for o in run['outs'])
+        res = dict(tokens=gen, wall_s=run['wall'],
+                   tokens_per_s=gen / run['wall'],
+                   decode_steps=run['stats']['decode_steps'])
+        sp = run['stats'].get('spec')
+        if sp:
+            r = max(sp['rounds'], 1)
+            res.update(sp, tokens_per_round=sp['emitted'] / r,
+                       round_ms=(sp['draft_s'] + sp['verify_s']) / r * 1e3,
+                       draft_ms=sp['draft_s'] / r * 1e3,
+                       verify_ms=sp['verify_s'] / r * 1e3)
+        summary[name] = res
     return summary, counts
 
 
@@ -1848,6 +2148,17 @@ def main():
     paged, by_path['engine_paged'] = run_engine_paged(torch, kt, smi)
     emit(paged)
     del paged
+    torch.cuda.empty_cache()
+    # phase 4c: the verify step's rows (the drafter's 16 are phase 4b's)
+    for name, res in check_kernels(torch, F, kt,
+                                   rows=[PAGED_SLOTS * (SPEC_K + 1)],
+                                   decode_only=True).items():
+        kernels[name]['max_abs_err'] = max(kernels[name]['max_abs_err'],
+                                           res['max_abs_err'])
+        other.setdefault(name, {})['engine_spec'] = res['cases']
+    spec, by_path['engine_spec'] = run_engine_spec(torch, kt, smi)
+    emit(spec)
+    del spec
     torch.cuda.empty_cache()
 
     def merge(path, results):

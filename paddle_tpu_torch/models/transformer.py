@@ -1,9 +1,11 @@
 """The flagship causal LM: training forward and decode.
 
 Counterpart of paddle_tpu/models/transformer.py: `LMConfig`, `build_lm`
-(the training program's forward, up to the mean loss) and the decode
-programs `build_lm_prefill`, `build_lm_prefill_paged` and `build_lm_decode_step`
-(with `_decode_tower`, in both cache modes). The JAX package builds these as Programs; here the LM is
+(the training program's forward, up to the mean loss), the decode programs
+`build_lm_prefill`, `build_lm_prefill_paged` and `build_lm_decode_step`
+(with `_decode_tower`, in both cache modes) and speculative decoding's
+`build_lm_drafter` and `build_lm_verify` on the paged cache. The JAX
+package builds these as Programs; here the LM is
 an ``nn.Module`` whose parameters carry the JAX package's names
 (``tok_emb.w``, ``layer_{i}.attn.qkv.w``, ...) and layouts — fc weights
 stay [in, out], so ``y = x @ W + b`` — so a scope saved by the JAX package
@@ -48,9 +50,11 @@ from ..ops.ffn_ops import fused_ffn_amp, fused_ffn_core
 from ..ops.math_ops import matmul, mul
 from ..ops.kv_cache_ops import (kv_cache_prefill, kv_cache_prefill_paged,
                                 kv_cache_update, kv_cache_update_paged,
+                                kv_cache_update_span_paged,
                                 kv_decode_attention,
                                 kv_decode_attention_paged,
-                                kv_prefix_attention, sample_next_token)
+                                kv_prefix_attention,
+                                kv_verify_attention_paged, sample_next_token)
 from ..ops.nn_ops import fused_ln_residual, layer_norm
 from ..ops.random_ops import dropout, keep_mask
 from ..ops.tensor_ops import add_position_encoding, position_encoding_table
@@ -242,7 +246,8 @@ class TransformerLM(TransformerStack):
     :meth:`decode_step` advances every slot by one token (both under
     ``torch.no_grad``). With a paged cache, :meth:`prefill_paged` runs a
     prompt suffix into a slot's blocks and :meth:`decode_step` takes the
-    slots' block tables. ``max_len`` bounds the positions of all three: the
+    slots' block tables; speculative decoding adds :meth:`draft_steps` and
+    :meth:`verify_step` there. ``max_len`` bounds the positions: the
     position table has that many rows."""
 
     def __init__(self, cfg, params, max_len):
@@ -409,6 +414,43 @@ class TransformerLM(TransformerStack):
         logits = self._fc(last, 'lm_head', bias=False)      # [1, V]
         return self._sample(logits, sample), logits
 
+    def _decode_tower(self, x, write, attend, head=True):
+        """The decode programs' tower (`_decode_tower` of the JAX package)
+        over per-row state x [R, d] (token embedding + position encoding):
+        per layer the entry LayerNorm, QKV, ``write(k, v, layer)`` (k, v [R,
+        H, dh]: deposit the rows' K/V), ``attend(q, layer)`` (q [R, H, dh]
+        -> context [R, H, dh]) and :meth:`_post_attention`; then the final
+        LayerNorm and lm_head. The plain step, each of the drafter's steps
+        and the verify step share it, so their arithmetic per row cannot
+        drift apart. ``head=False`` stops after the last layer's write and
+        returns None: the drafter's trailing step needs every layer's K/V
+        deposited but no logits. Returns logits [R, V]."""
+        c = self.cfg
+        d, h = c.d_model, c.n_head
+        dh = d // h
+        R = x.shape[0]
+        delta = None
+        for i in range(c.n_layer):
+            p = 'layer_%d' % i
+            ln1, x = self._entry_ln(x, delta, p + '.ln1')
+            qkv = self._fc(ln1, p + '.attn.qkv').view(R, 3, h, dh)
+            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]       # [R, H, dh]
+            write(k, v, i)
+            if not head and i == c.n_layer - 1:
+                return None
+            ctx = attend(q, i)
+            x, delta = self._post_attention(x, ctx.reshape(R, d), p)
+        x, _ = self._entry_ln(x, delta, 'final_ln')
+        return self._fc(x, 'lm_head', bias=False)           # [R, V]
+
+    def _embed(self, tokens, pos):
+        """Token embedding + position encoding of rows at ``pos``; a
+        position at or past max_len reads the last row of the table, as the
+        JAX package's clipping gather does (such a row's output is never
+        used and its cache write goes to the trash block)."""
+        return embedding_gather(self.p['tok_emb.w'], tokens) + \
+            self.pe[torch.clamp(pos, max=self.max_len - 1)]
+
     @torch.no_grad()
     def decode_step(self, tokens, pos, sample=None, tables=None):
         """Advance every slot by one token: tokens [S] int64 (each slot's
@@ -417,31 +459,104 @@ class TransformerLM(TransformerStack):
         the slots' block tables (an idle slot's row is all zero, so it
         writes to the trash block). Idle slots compute garbage that no one
         reads. Returns (next_tokens [S] int64, logits [S, V])."""
-        c = self.cfg
-        d, h = c.d_model, c.n_head
-        dh = d // h
-        S = tokens.shape[0]
+        dh = self.cfg.d_model // self.cfg.n_head
         x = embedding_gather(self.p['tok_emb.w'], tokens) + self.pe[pos]
-        delta = None
-        for i in range(c.n_layer):
-            p = 'layer_%d' % i
-            ln1, x = self._entry_ln(x, delta, p + '.ln1')
-            qkv = self._fc(ln1, p + '.attn.qkv').view(S, 3, h, dh)
-            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]       # [S, H, dh]
-            if tables is None:
+        if tables is None:
+            def write(k, v, i):
                 kv_cache_update(self.k_cache, k, pos, i)
                 kv_cache_update(self.v_cache, v, pos, i)
-                ctx = kv_decode_attention(q, self.k_cache, self.v_cache, pos,
-                                          i, dh ** -0.5)
-            else:
+
+            def attend(q, i):
+                return kv_decode_attention(q, self.k_cache, self.v_cache,
+                                           pos, i, dh ** -0.5)
+        else:
+            def write(k, v, i):
                 kv_cache_update_paged(self.k_cache, k, tables, pos, i,
                                       self.block_size)
                 kv_cache_update_paged(self.v_cache, v, tables, pos, i,
                                       self.block_size)
-                ctx = kv_decode_attention_paged(q, self.k_cache,
-                                                self.v_cache, tables, pos, i,
-                                                dh ** -0.5)
-            x, delta = self._post_attention(x, ctx.reshape(S, d), p)
-        x, _ = self._entry_ln(x, delta, 'final_ln')
-        logits = self._fc(x, 'lm_head', bias=False)         # [S, V]
+
+            def attend(q, i):
+                return kv_decode_attention_paged(q, self.k_cache,
+                                                 self.v_cache, tables, pos,
+                                                 i, dh ** -0.5)
+        logits = self._decode_tower(x, write, attend)      # [S, V]
         return self._sample(logits, sample), logits
+
+    @torch.no_grad()
+    def draft_steps(self, tokens, pos, tables, vmask, k):
+        """The drafter of speculative decoding (`build_lm_drafter`): ``k``
+        greedy steps over every slot of a paged cache, each step's argmax
+        feeding the next step's embedding on the device (no host sync in
+        between). tokens [S] int64 (each slot's last accepted token), pos
+        [S] int64 (the position step 0 writes; step j writes pos + j),
+        tables [S, max_len / block_size] the slots' block tables in this
+        model's cache, vmask [S, k + 1] int64 (nonzero: step j's write is
+        budgeted; zero rows, idle slots and positions at or past max_len,
+        go to the trash block). Runs k + 1 towers: the last only writes
+        (``head=False``), depositing the k-th draft's K/V at pos + k, or a
+        fully accepted round would leave a hole in the draft cache at the
+        target's bonus token. Returns the drafts [S, k] int64 on the
+        device."""
+        dh = self.cfg.d_model // self.cfg.n_head
+        bs = self.block_size
+        drafts, tok = [], tokens
+        for j in range(int(k) + 1):
+            pos_j = pos + j
+            valid = vmask[:, j]
+
+            def write(kk, v, i, _pos=pos_j, _valid=valid):
+                kv_cache_update_paged(self.k_cache, kk, tables, _pos, i, bs,
+                                      valid=_valid)
+                kv_cache_update_paged(self.v_cache, v, tables, _pos, i, bs,
+                                      valid=_valid)
+
+            def attend(q, i, _pos=pos_j):
+                return kv_decode_attention_paged(q, self.k_cache,
+                                                 self.v_cache, tables, _pos,
+                                                 i, dh ** -0.5)
+            logits = self._decode_tower(self._embed(tok, pos_j), write,
+                                        attend, head=j < k)
+            if j < k:
+                tok = torch.argmax(logits, dim=1)
+                drafts.append(tok)
+        return torch.stack(drafts, dim=1)
+
+    @torch.no_grad()
+    def verify_step(self, tokens, pos, tables, vmask):
+        """The verify step of speculative decoding (`build_lm_verify`): W
+        positions of every slot scored in one pass. Row t of slot s carries
+        the token at position pos[s, t] (row 0 the slot's last accepted
+        token, rows 1.. the drafts); the S * W rows run through the same
+        tower as :meth:`decode_step`, every row's K/V deposited through the
+        slot's block table first (`kv_cache_update_span_paged`, rows with
+        ``vmask == 0`` to the trash block), then each row attending the
+        cache up to its own position (`kv_verify_attention_paged`). So row
+        t's logits are what the one-token step computes at that position,
+        and their argmax is the acceptance oracle. tokens, pos, vmask [S,
+        W] int64 (pos clipped to max_len - 1 by the caller), tables [S,
+        max_len / block_size]. Returns (argmax [S * W] int64, logits
+        [S * W, V]), row-major."""
+        c = self.cfg
+        h, dh = c.n_head, c.d_model // c.n_head
+        S, W = tokens.shape
+        bs = self.block_size
+
+        def span(t):                    # tower rows -> [S, H, W, dh]
+            return t.view(S, W, h, dh).permute(0, 2, 1, 3)
+
+        def write(k, v, i):
+            kv_cache_update_span_paged(self.k_cache, span(k), tables, pos,
+                                       vmask, i, bs)
+            kv_cache_update_span_paged(self.v_cache, span(v), tables, pos,
+                                       vmask, i, bs)
+
+        def attend(q, i):
+            ctx = kv_verify_attention_paged(span(q), self.k_cache,
+                                            self.v_cache, tables, pos, i,
+                                            dh ** -0.5)
+            return ctx.permute(0, 2, 1, 3)              # [S, W, H, dh]
+        logits = self._decode_tower(self._embed(tokens.reshape(-1),
+                                                pos.reshape(-1)),
+                                    write, attend)
+        return torch.argmax(logits, dim=1), logits

@@ -4,8 +4,9 @@ Counterparts of paddle_tpu/ops/kv_cache_ops.py `kv_cache_prefill`,
 `kv_cache_update`, `kv_decode_attention` and `sample_next_token` (the
 contiguous cache) and of its paged variants `kv_cache_prefill_paged`,
 `kv_cache_update_paged`, `kv_decode_attention_paged` and
-`kv_prefix_attention`, which are plain jnp in the JAX package: no kernel is
-owed for them.
+`kv_prefix_attention`, and of the speculative verify step's
+`kv_cache_update_span_paged` and `kv_verify_attention_paged`, which are
+plain jnp in the JAX package: no kernel is owed for them.
 
 The contiguous cache is one [slots, layers, heads, max_len, head_dim]
 tensor per K and V; the paged cache one [num_blocks, layers, heads,
@@ -30,6 +31,7 @@ import torch
 __all__ = ['kv_cache_prefill', 'kv_cache_update', 'kv_decode_attention',
            'kv_cache_prefill_paged', 'kv_cache_update_paged',
            'kv_decode_attention_paged', 'kv_prefix_attention',
+           'kv_cache_update_span_paged', 'kv_verify_attention_paged',
            'sample_next_token']
 
 _NEG_INF = -1e30
@@ -165,6 +167,54 @@ def kv_prefix_attention(q, k_cache, v_cache, table, positions, layer, scale):
     w = torch.softmax(scores, dim=-1)
     w = torch.where(keep[None], w, torch.zeros_like(w))
     return torch.einsum('htm,hmd->htd', w, v)[None]
+
+
+def kv_cache_update_span_paged(cache, new, tables, positions, valid, layer,
+                               block_size):
+    """The verify step's wide write: every slot deposits W rows,
+    cache[tables[s][p // bs], layer, :, p % bs, :] = new[s, :, t, :] with
+    p = positions[s, t]. Rows with ``valid[s, t] == 0`` (idle slots,
+    positions past max_len or past the slot's blocks, rows past the
+    request's budget) go to the trash block at offset 0: a speculative row
+    may be rolled back later, but it never touches a live block the slot
+    does not own. new [S, H, W, dh], tables [S, MB], positions and valid
+    [S, W] int64; in place."""
+    bs = int(block_size)
+    idx = torch.clamp(positions // bs, 0, tables.shape[1] - 1)
+    blk = torch.gather(tables, 1, idx)                  # [S, W]
+    off = positions % bs
+    keep = valid != 0
+    blk = torch.where(keep, blk, torch.zeros_like(blk))
+    off = torch.where(keep, off, torch.zeros_like(off))
+    rows = new.permute(0, 2, 1, 3).reshape(-1, new.shape[1], new.shape[3])
+    cache[:, int(layer)][blk.reshape(-1), :, off.reshape(-1), :] = rows
+    return cache
+
+
+def kv_verify_attention_paged(q, k_cache, v_cache, tables, positions, layer,
+                              scale):
+    """W-query attention per slot over its block-table-gathered K/V: query
+    row (s, t) sits at position positions[s, t] and attends every cached
+    position <= positions[s, t], the slot's accepted history plus the
+    window's rows at or before t (the span write deposited them). Each of
+    the S * W rows runs through :func:`kv_decode_attention_paged`'s own
+    products (one query against its slot's gathered K/V, repeated for the
+    window's rows), so a row's output has the bits the one-token step
+    computes at that position on the CPU: the acceptance oracle of
+    speculative decoding. Masked (stale, trash, rolled-back) rows give
+    exactly 0. q [S, H, W, dh], tables [S, MB], positions [S, W] ->
+    [S, H, W, dh]."""
+    S, H, W, dh = q.shape
+
+    def rows(cache):
+        g = _gather_blocks(cache, layer, tables)        # [S, H, M, dh]
+        return g[:, None].expand(S, W, *g.shape[1:]).reshape(
+            S * W, *g.shape[1:])
+
+    out = _attend_cached(q.permute(0, 2, 1, 3).reshape(S * W, H, dh),
+                         rows(k_cache), rows(v_cache),
+                         positions.reshape(-1), scale)
+    return out.view(S, W, H, dh).permute(0, 2, 1, 3)
 
 
 def sample_next_token(logits, temp, topk, topp, u, any_sampled=None):

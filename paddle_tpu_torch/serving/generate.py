@@ -41,14 +41,33 @@ modes).
   numpy Philox stream per request (`_sampling_stream`), byte-identical to
   the JAX engine's: the same ``sample_seed`` draws the same uniforms in
   both packages. Temperature 0 is greedy.
+- **Speculative decoding** (``GenerateConfig(speculative=True)``, paged
+  engines only). A draft LM with its own paged cache and block pool
+  proposes ``spec_k`` greedy tokens a slot (`TransformerLM.draft_steps`:
+  the steps' argmaxes feed each other on the device), then the target
+  scores all ``spec_k + 1`` positions in one wide step
+  (`TransformerLM.verify_step`). The engine accepts the longest draft
+  prefix that agrees with the target's argmax plus the target's own next
+  token, so every emitted token is the target's greedy token: the output
+  is the plain engine's, up to ``spec_k + 1`` tokens a round. Rejected
+  rows roll back by truncating the block tables (they sit past the write
+  head, masked to exact 0; blocks that hold no accepted position go back
+  to the pools): no cache byte moves. By default the draft is the
+  target's own weights (aliased, not copied), and admission copies the
+  target's prompt blocks into the draft pool instead of a draft prefill.
+  While any resident samples, every round is a plain step
+  (``spec_fallback_total``), and the residents' draft caches miss those
+  positions until the next speculative round copies them across.
 
-The JAX engine's monitor counters of the paged cache are kept in
-``GenerateEngine.counters`` under the monitor's names
+The JAX engine's monitor counters of the paged cache and of speculation
+are kept in ``GenerateEngine.counters`` under the monitor's names
 (``kv_block_cow_total``, ``kv_prefix_hit_total{outcome=hit|miss}``,
-``kv_prefix_tokens_saved_total``).
+``kv_prefix_tokens_saved_total``; ``spec_propose_total``,
+``spec_accept_total``, ``spec_fallback_total``,
+``spec_stale_draft_rounds_total``).
 
-Not ported yet (ROADMAP.md): speculative decoding, the monitor / goodput /
-trace / black-box hooks, and the metrics endpoint.
+Not ported yet (ROADMAP.md): the monitor / goodput / trace / black-box
+hooks, and the metrics endpoint.
 """
 import queue as _pyqueue
 import threading
@@ -85,7 +104,10 @@ class GenerateResult(list):
     (it IS a list) plus ``finish_reason`` ('eos' | 'length' |
     'cache_full') and ``timing``: ``queue_s``, ``prefill_s``,
     ``decode_step_s`` (sum of the per-token gaps), ``total_s``,
-    ``tokens``, ``step_s_mean`` / ``step_s_p99``."""
+    ``tokens``, ``step_s_mean`` / ``step_s_p99``; a request that rode a
+    speculative round adds ``spec_proposed``, ``spec_accepted``,
+    ``spec_accept_rate``, ``draft_s`` and ``verify_s`` (host seconds of
+    its rounds' draft and verify legs)."""
 
     def __init__(self, tokens, finish_reason=None, timing=None):
         list.__init__(self, tokens)
@@ -120,7 +142,13 @@ class GenerateConfig(object):
       (slots * max_len / block_size). ``prompt_buckets`` bucket the
       prefill SUFFIX in paged mode (with a prefix hit a request prefills
       only its uncached suffix).
-    - speculative / metrics_port: not ported yet; asking for them raises
+    - speculative / spec_k / draft_model: speculative decoding (paged
+      engines only). A draft LM proposes ``spec_k`` greedy tokens a slot
+      each round and the target verifies them in one ``spec_k + 1``-wide
+      step; greedy output stays the plain engine's. ``draft_model`` is the
+      draft's LMConfig (its vocab must be the target's); None drafts with
+      the target's own config and weights.
+    - metrics_port: not ported yet; asking for it raises
       NotImplementedError.
     """
 
@@ -129,13 +157,12 @@ class GenerateConfig(object):
                  pad_id=0, queue_cap=256, default_deadline_s=60.0,
                  seed=0, idle_poll_s=0.02, temperature=0.0, top_k=0,
                  top_p=0.0, paged=False, block_size=16, num_blocks=None,
-                 prefix_sharing=True, speculative=False, metrics_port=None):
-        for flag, what in ((speculative, 'speculative=True'),
-                           (metrics_port is not None, 'metrics_port')):
-            if flag:
-                raise NotImplementedError(
-                    '%s is not ported to paddle_tpu_torch yet — see '
-                    'ROADMAP.md, Queue 1' % what)
+                 prefix_sharing=True, speculative=False, spec_k=4,
+                 draft_model=None, metrics_port=None):
+        if metrics_port is not None:
+            raise NotImplementedError(
+                'metrics_port is not ported to paddle_tpu_torch yet — see '
+                'ROADMAP.md, Queue 1')
         self.model = model or LMConfig()
         self.slots = int(slots)
         self.max_len = int(max_len)
@@ -162,6 +189,23 @@ class GenerateConfig(object):
             if self.num_blocks < 2:
                 raise ValueError("num_blocks must be >= 2 (block 0 is "
                                  "the reserved trash block)")
+        self.speculative = bool(speculative)
+        self.spec_k = int(spec_k)
+        self.draft_model = draft_model
+        if self.speculative:
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding rides the paged KV engine "
+                    "(rollback is block-table truncation) — pass "
+                    "paged=True")
+            if self.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if draft_model is not None and \
+                    draft_model.vocab_size != self.model.vocab_size:
+                raise ValueError(
+                    "draft_model.vocab_size (%d) must equal the target's "
+                    "(%d) — draft proposals are target token ids"
+                    % (draft_model.vocab_size, self.model.vocab_size))
         if prompt_buckets is None:
             prompt_buckets, b = [], 16
             while b <= self.max_len // 2:
@@ -196,7 +240,9 @@ class GenerateRequest(Request):
 
     __slots__ = ('prompt', 'max_new_tokens', 'tokens', 'finish_reason',
                  'timing', 'step_s', 'queue_s', 'prefill_s', '_stream_q',
-                 'temperature', 'top_k', 'top_p', 'sample_seed', '_rng')
+                 'temperature', 'top_k', 'top_p', 'sample_seed', '_rng',
+                 'spec_rounds', 'spec_proposed', 'spec_accepted', 'draft_s',
+                 'verify_s')
 
     def __init__(self, prompt, deadline, max_new_tokens, temperature=0.0,
                  top_k=0, top_p=0.0, sample_seed=None):
@@ -215,6 +261,11 @@ class GenerateRequest(Request):
         self.top_p = float(top_p)
         self.sample_seed = sample_seed
         self._rng = None
+        self.spec_rounds = 0        # speculative rounds this request rode
+        self.spec_proposed = 0      # draft tokens proposed for it
+        self.spec_accepted = 0      # ... that became emitted tokens
+        self.draft_s = 0.0
+        self.verify_s = 0.0
 
     def _draw_u(self):
         """Next uniform of this request's own sampling stream (0.0 for a
@@ -240,6 +291,14 @@ class GenerateRequest(Request):
             t['step_s_mean'] = sum(srt) / len(srt)
             t['step_s_p99'] = srt[min(len(srt) - 1,
                                       int(np.ceil(0.99 * len(srt))) - 1)]
+        if self.spec_rounds:
+            t['spec_proposed'] = self.spec_proposed
+            t['spec_accepted'] = self.spec_accepted
+            t['spec_accept_rate'] = round(
+                self.spec_accepted / float(self.spec_proposed), 4) \
+                if self.spec_proposed else 0.0
+            t['draft_s'] = self.draft_s
+            t['verify_s'] = self.verify_s
         self.timing = t
         self.done(GenerateResult(self.tokens, finish_reason=reason,
                                  timing=t))
@@ -272,9 +331,10 @@ class GenerateRequest(Request):
 
 class _Slot(object):
     __slots__ = ('req', 'pos', 'generated', 'last', 'last_t', 'blocks',
-                 'table')
+                 'table', 'dblocks', 'dtable', 'draft_stale')
 
-    def __init__(self, req, pos, last, blocks=None, table=None):
+    def __init__(self, req, pos, last, blocks=None, table=None,
+                 dblocks=None, dtable=None):
         self.req = req
         self.pos = pos          # cache position the NEXT step writes
         self.generated = 1      # prefill already emitted the first token
@@ -282,6 +342,11 @@ class _Slot(object):
         self.last_t = time.perf_counter()
         self.blocks = blocks    # paged: physical block ids, table order
         self.table = table      # paged: np [max_blocks] int64, filler 0
+        self.dblocks = dblocks  # speculative: the draft pool's block ids
+        self.dtable = dtable    # speculative: the draft block table
+        # a plain (fallback) step writes K/V into the target cache only:
+        # the draft cache misses that row until a speculative round resyncs
+        self.draft_stale = False
 
 
 class GenerateEngine(object):
@@ -307,10 +372,20 @@ class GenerateEngine(object):
     budget. Its block_size must match the config's; the engine's prefix
     cache is built over the injected view, so pressure eviction stays
     tenant-local.
+
+    A speculative engine's draft runs on ``draft_params`` (the counterpart
+    of the JAX engine's ``draft_scope=``: a {name: array or tensor} mapping
+    that `io.params_from_numpy` takes, for ``config.draft_model`` or, when
+    that is None, the target's config). Tensors already on the device are
+    used as they are, so a layer-skip draft built from the target's own
+    ``tok_emb.w``, ``layer_0.*``, ``final_ln.*`` and ``lm_head.w`` shares
+    their memory. Without ``draft_params`` a ``draft_model`` draft
+    initialises from ``config.seed``, and with neither the draft is a
+    second `TransformerLM` over the target's own parameter tensors.
     """
 
-    def __init__(self, config=None, params=None, device=None,
-                 block_allocator=None):
+    def __init__(self, config=None, params=None, draft_params=None,
+                 device=None, block_allocator=None):
         self.config = c = config or GenerateConfig()
         if block_allocator is not None and not c.paged:
             raise ValueError(
@@ -353,6 +428,25 @@ class GenerateEngine(object):
             self.model.allocate_paged_cache(c.num_blocks, c.block_size)
         else:
             self.model.allocate_cache(c.slots)
+        self.draft = self._draft_alloc = None
+        self._draft_copies_target = False
+        if c.speculative:
+            dcfg = c.draft_model or c.model
+            if draft_params is not None:
+                dweights = params_from_numpy(draft_params, self.device,
+                                             config=dcfg)
+            elif c.draft_model is not None:
+                dweights = init_params(dcfg, c.seed, self.device)
+            else:
+                # the target's own tensors, aliased: the full-accept draft
+                dweights = dict(self.model.p)
+                self._draft_copies_target = True
+            self.draft = TransformerLM(dcfg, dweights, c.max_len)
+            # every slot at max_len plus the trash block: draft growth never
+            # starves, so the draft pool needs no eviction or parking
+            draft_nb = c.slots * c.max_len // c.block_size + 1
+            self._draft_alloc = BlockAllocator(draft_nb, c.block_size)
+            self.draft.allocate_paged_cache(draft_nb, c.block_size)
         self.queue = RequestQueue(c.queue_cap)
         self._slots = [None] * c.slots
         self._free = list(range(c.slots))[::-1]
@@ -368,11 +462,19 @@ class GenerateEngine(object):
         self._occ_peak = 0.0
         self._active_peak = 0
         self._blocks_peak = 0
+        self._spec_rounds = 0
+        self._spec_emitted = 0
+        self._spec_draft_s = self._spec_verify_s = 0.0
         # the JAX engine's monitor counters of the paged cache, by name
         self.counters = {'kv_block_cow_total': 0,
                          'kv_prefix_hit_total{outcome=hit}': 0,
                          'kv_prefix_hit_total{outcome=miss}': 0,
                          'kv_prefix_tokens_saved_total': 0}
+        if c.speculative:
+            self.counters.update({'spec_propose_total': 0,
+                                  'spec_accept_total': 0,
+                                  'spec_fallback_total': 0,
+                                  'spec_stale_draft_rounds_total': 0})
 
     # ------------------------------------------------------------------
     # device feeds
@@ -390,15 +492,31 @@ class GenerateEngine(object):
         return torch.from_numpy(np.ascontiguousarray(a, 'int64')).to(
             self.device)
 
+    def _tensors(self, *arrays):
+        """Int64 device tensors of ``arrays`` (their shapes kept) through
+        one host-to-device copy."""
+        flat = self._tensor(np.concatenate(
+            [np.asarray(a, 'int64').reshape(-1) for a in arrays]))
+        out, at = [], 0
+        for a in arrays:
+            n = int(np.size(a))
+            out.append(flat[at:at + n].view(np.shape(a)))
+            at += n
+        return out
+
     def _run_prefill(self, slot, prompt, sample=(0.0, 0, 0.0, 0.0),
-                     table=None, ctx_len=0):
+                     table=None, ctx_len=0, model=None):
+        """Prefill ``prompt`` into ``slot`` (contiguous) or, paged, its
+        uncached suffix through ``table``; returns the first token. ``model``
+        is the target, or the draft for a speculative admission."""
         c = self.config
+        model = model or self.model
         if table is None:
             b = bucketize(prompt.size, c.prompt_buckets)
             padded = np.full((1, b), c.pad_id, 'int64')
             padded[0, :prompt.size] = prompt
-            tok, _ = self.model.prefill(self._tensor(padded), slot,
-                                        prompt.size, self._sample([sample]))
+            tok, _ = model.prefill(self._tensor(padded), slot, prompt.size,
+                                   self._sample([sample]))
             return int(tok.cpu()[0])
         # paged: only the uncached suffix is computed, bucketed by its own
         # length; a suffix wider than the widest bucket runs in chunks of
@@ -412,14 +530,14 @@ class GenerateEngine(object):
         while suffix.size > wide:
             chunk, suffix = suffix[:wide], suffix[wide:]
             pos = np.clip(off + np.arange(wide), 0, c.max_len - 1)
-            self.model.prefill_paged(self._tensor(chunk[None]),
-                                     self._tensor(pos), tab, wide)
+            model.prefill_paged(self._tensor(chunk[None]), self._tensor(pos),
+                                tab, wide)
             off += wide
         b = bucketize(suffix.size, c.prompt_buckets)
         padded = np.full((1, b), c.pad_id, 'int64')
         padded[0, :suffix.size] = suffix
         pos = np.clip(off + np.arange(b), 0, c.max_len - 1)
-        tok, _ = self.model.prefill_paged(
+        tok, _ = model.prefill_paged(
             self._tensor(padded), self._tensor(pos), tab, suffix.size,
             self._sample([sample]))
         return int(tok.cpu()[0])
@@ -454,6 +572,16 @@ class GenerateEngine(object):
         both caches, on the device."""
         for cache in (self.model.k_cache, self.model.v_cache):
             cache[dst] = cache[src]
+
+    def _draft_cache_sync(self, dblocks, blocks):
+        """Draft == target: the draft prefill would recompute exactly the
+        K/V rows the target holds (same weights, same inputs), so copy the
+        target's ``blocks`` into the draft pool's ``dblocks`` on the device
+        instead, in both caches."""
+        d_ids, s_ids = self._tensors(dblocks, blocks)
+        for dst, src in ((self.draft.k_cache, self.model.k_cache),
+                         (self.draft.v_cache, self.model.v_cache)):
+            dst[d_ids] = src[s_ids]
 
     def _alloc_blocks(self, n):
         """n blocks, evicting idle prefix-cache entries under pressure;
@@ -533,25 +661,40 @@ class GenerateEngine(object):
     # ------------------------------------------------------------------
     # warmup + lifecycle
     def warmup(self):
-        """Run every prompt bucket's prefill and one decode step once: on
-        the card this builds the kernels (first use) and settles the
-        allocator. A paged engine's warmup writes only to the trash block
-        (all-zero tables). Returns {'buckets', 'seconds'}."""
+        """Run every prompt bucket's prefill and one decode step once (a
+        speculative engine: also the draft's prefills, unless the draft is
+        the target, the drafter and the verify step): on the card this
+        builds the kernels (first use) and settles the allocator. A paged
+        engine's warmup writes only to the trash block (all-zero tables).
+        Returns {'buckets', 'seconds'}."""
         if self._started:
             raise RuntimeError(
                 "warmup() runs the prefill/decode path against the live KV "
                 "cache and must not race the started engine loop — warm up "
                 "before start() (start() warms up automatically)")
         t0 = time.perf_counter()
-        for b in self.config.prompt_buckets:
-            if self.config.paged:
-                self.model.prefill_paged(
+        c = self.config
+        models = [self.model]
+        if c.speculative and not self._draft_copies_target:
+            models.append(self.draft)
+        for b in c.prompt_buckets:
+            if not c.paged:
+                self._run_prefill(0, np.zeros((b,), 'int64'))
+                continue
+            for model in models:
+                model.prefill_paged(
                     self._tensor(np.zeros((1, b))), self._tensor(
                         np.zeros(b)), self._tensor(np.zeros(
                             self._max_blocks)), 1)
-            else:
-                self._run_prefill(0, np.zeros((b,), 'int64'))
         self._run_step({})
+        if c.speculative:
+            S, W = c.slots, c.spec_k + 1
+            zeros = self._tensor(np.zeros((S, self._max_blocks)))
+            tok, pos, vm = self._tensors(np.zeros(S), np.zeros(S),
+                                         np.zeros((S, W)))
+            drafts = self.draft.draft_steps(tok, pos, zeros, vm, c.spec_k)
+            self.model.verify_step(torch.cat([tok[:, None], drafts], 1),
+                                   vm, zeros, vm)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self._warm = True
@@ -760,6 +903,7 @@ class GenerateEngine(object):
         the request was consumed: admitted, finished or failed."""
         c = self.config
         blocks, table, ctx_len, hashes = None, None, 0, []
+        dblocks, dtable = None, None
         if c.paged:
             if -(-req.prompt.size // c.block_size) > self._alloc.capacity:
                 # no eviction can ever fit this prompt
@@ -779,10 +923,27 @@ class GenerateEngine(object):
                 slot, req.prompt,
                 (req.temperature, req.top_k, req.top_p, req._draw_u()),
                 table=table, ctx_len=ctx_len)
+            if c.speculative:
+                # the draft tracks the request in its own pool: the whole
+                # prompt (no prefix cache), copied from the target's blocks
+                # when the draft is the target, else prefilled like the
+                # target's (chunked)
+                dblocks = self._draft_alloc.alloc(
+                    -(-req.prompt.size // c.block_size))
+                if dblocks is None:     # unreachable by the pool's sizing
+                    raise RuntimeError("draft KV pool exhausted")
+                dtable = self._slot_table(dblocks)
+                if self._draft_copies_target:
+                    self._draft_cache_sync(dblocks, blocks)
+                else:
+                    self._run_prefill(slot, req.prompt, table=dtable,
+                                      model=self.draft)
         except Exception as e:  # noqa: BLE001 — delivered to the request
             self._free.append(slot)
             if blocks:
                 self._alloc.deref_many(blocks)
+            if dblocks:
+                self._draft_alloc.deref_many(dblocks)
             req.fail(e)
             return True
         if self._prefix is not None:
@@ -794,7 +955,7 @@ class GenerateEngine(object):
         self._decode_tokens += 1
         req._emit(first)
         st = _Slot(req, pos=req.prompt.size, last=first, blocks=blocks,
-                   table=table)
+                   table=table, dblocks=dblocks, dtable=dtable)
         reason = self._finish_reason(st)
         if reason:
             self._release_blocks(st)
@@ -806,6 +967,17 @@ class GenerateEngine(object):
         return True
 
     def _step(self):
+        """One token boundary's work: a speculative round when the engine
+        speculates and every resident is greedy, else one plain decode step
+        (on a speculative engine with residents, a counted fallback)."""
+        if self._spec_ready():
+            self._spec_round()
+            return
+        if self.config.speculative and any(self._slots):
+            self.counters['spec_fallback_total'] += 1
+        self._plain_step()
+
+    def _plain_step(self):
         if self.config.paged:
             self._grow_blocks()
         active = [(i, st) for i, st in enumerate(self._slots)
@@ -821,10 +993,7 @@ class GenerateEngine(object):
         try:
             nxt = self._run_step(rows, tables)
         except Exception as e:  # noqa: BLE001 — fails the residents only
-            for i, st in active:
-                self._release(i)
-                st.req.fail(e)
-            self._set_occupancy()
+            self._fail_residents(active, e)
             return
         now = time.perf_counter()
         self._decode_steps += 1
@@ -834,6 +1003,8 @@ class GenerateEngine(object):
             st.pos += 1
             st.generated += 1
             st.last = int(nxt[i])
+            # on a speculative engine this row went to the target only
+            st.draft_stale = self.config.speculative
             st.req.step_s.append(max(0.0, now - st.last_t))
             st.last_t = now
             st.req._emit(st.last)
@@ -841,6 +1012,203 @@ class GenerateEngine(object):
             if reason:
                 self._release(i)
                 st.req._finish(reason)
+        self._set_occupancy()
+
+    # ------------------------------------------------------------------
+    # speculative decoding
+    def _spec_ready(self):
+        """Speculate this round: a speculative engine with residents, all
+        greedy (a sampled row has no argmax rule to accept by)."""
+        if not self.config.speculative:
+            return False
+        active = [st for st in self._slots if st is not None]
+        return bool(active) and all(st.req.temperature <= 0.0
+                                    for st in active)
+
+    def _spec_grow(self, active):
+        """Before a round: extend each slot's target table over the verify
+        window's write positions (pos .. pos + spec_k, capped at max_len -
+        1) and its draft table to the same coverage (the drafter's trailing
+        write-only step deposits pos + spec_k too). Returns {slot index:
+        n_valid}, the verify rows fully budgeted by cache coverage, max_len
+        and the request's remaining tokens (so the accept rate measures the
+        draft, not the budget). A pool too dry to extend the tail shortens
+        this round's window (n_valid >= 1: `_grow_blocks` already holds the
+        next write's block); it never starves a request."""
+        c = self.config
+        bs, K = c.block_size, c.spec_k
+        n_valid = {}
+        for i, st in active:
+            want_last = min(st.pos + K, c.max_len - 1) // bs
+            while len(st.blocks) <= want_last:
+                grown = self._alloc_blocks(1)
+                if grown is None:
+                    break
+                st.table[len(st.blocks)] = grown[0]
+                st.blocks.append(grown[0])
+            covered = len(st.blocks) * bs - 1       # last writable position
+            remaining = st.req.max_new_tokens - st.generated
+            n_valid[i] = max(1, min(K + 1, c.max_len - st.pos,
+                                    covered - st.pos + 1, remaining))
+            while len(st.dblocks) <= want_last:
+                grown = self._draft_alloc.alloc(1)
+                if grown is None:       # unreachable by the pool's sizing
+                    break
+                st.dtable[len(st.dblocks)] = grown[0]
+                st.dblocks.append(grown[0])
+        return n_valid
+
+    def _spec_truncate(self, st):
+        """Roll back the speculative tail: blocks that hold no position
+        below the write head and are not the next write's block go back to
+        their pools, their table entries to 0 (the trash block). No cache
+        byte moves: rejected rows sit past the write head, where every
+        attention masks them to exact 0. Keeping the next write's block (not
+        just ceil(pos / bs)) keeps the plain path's rule that a resident
+        never frees the block its next token lands in: freed after an accept
+        that ends on a block edge, another slot could take it and this
+        one's next growth would end in a false 'cache_full'."""
+        keep = min(self._max_blocks, st.pos // self.config.block_size + 1)
+        for blocks, table, alloc in ((st.blocks, st.table, self._alloc),
+                                     (st.dblocks, st.dtable,
+                                      self._draft_alloc)):
+            while len(blocks) > keep:
+                alloc.deref(blocks.pop())
+                table[len(blocks)] = 0
+
+    def _spec_round(self):
+        """One speculative round over the (all-greedy) residents: the
+        drafter proposes spec_k tokens a slot from the draft's cache, the
+        verify step scores all spec_k + 1 positions with the target, and
+        the host accepts the longest draft prefix the target's argmax
+        agrees with plus the target's own next token, cut at the budget
+        and at eos. The drafts and the verdict come back in one host sync.
+        Rejected rows roll back by block-table truncation."""
+        c = self.config
+        self._grow_blocks()     # the plain growth (may end in cache_full)
+        active = [(i, st) for i, st in enumerate(self._slots)
+                  if st is not None]
+        if not active:
+            return
+        K, W, S = c.spec_k, c.spec_k + 1, c.slots
+        n_valid = self._spec_grow(active)
+        if max(n_valid.values()) <= 1:
+            # no resident can take a proposal: a plain step is cheaper
+            self._plain_step()
+            return
+        # fallback steps wrote their positions into the target cache only;
+        # a draft that is the target gets those blocks copied across (the
+        # tables already cover them), another draft catches up as its own
+        # steps write past them
+        stale = [st for _, st in active if st.draft_stale]
+        if stale:
+            self.counters['spec_stale_draft_rounds_total'] += 1
+            for st in stale:
+                n = min(len(st.dblocks), len(st.blocks))
+                if self._draft_copies_target and n:
+                    self._draft_cache_sync(st.dblocks[:n], st.blocks[:n])
+                st.draft_stale = False
+
+        idx = np.array([i for i, _ in active])
+        posv = np.array([st.pos for _, st in active], 'int64')
+        toks = np.zeros(S, 'int64')
+        pos = np.zeros(S, 'int64')
+        dbtab = np.zeros((S, self._max_blocks), 'int64')
+        vbtab = np.zeros((S, self._max_blocks), 'int64')
+        toks[idx] = [st.last for _, st in active]
+        pos[idx] = posv
+        for i, st in active:
+            dbtab[i] = st.dtable
+            vbtab[i] = st.table
+        dlim = np.array([min(c.max_len, len(st.dblocks) * c.block_size)
+                         for _, st in active], 'int64')
+        dvm = np.zeros((S, W), 'int64')
+        dvm[idx] = np.arange(W)[None, :] < \
+            np.clip(dlim - posv, 0, W)[:, None]
+        vp = np.zeros((S, W), 'int64')
+        vv = np.zeros((S, W), 'int64')
+        vp[idx] = np.clip(posv[:, None] + np.arange(W)[None, :], 0,
+                          c.max_len - 1)
+        nvs = np.array([n_valid[i] for i, _ in active], 'int64')
+        vv[idx] = np.arange(W)[None, :] < nvs[:, None]
+        t0 = time.perf_counter()
+        try:
+            toks_d, pos_d, dbtab_d, dvm_d, vp_d, vbtab_d, vv_d = \
+                self._tensors(toks, pos, dbtab, dvm, vp, vbtab, vv)
+            drafts = self.draft.draft_steps(toks_d, pos_d, dbtab_d, dvm_d, K)
+            t1 = time.perf_counter()
+            # the verify rows, built on the device: each slot's last token,
+            # then its drafts (an idle slot's row 0 is invalid: all token 0)
+            vt = torch.cat([toks_d[:, None], drafts], dim=1) * vv_d[:, :1]
+            verdict, _ = self.model.verify_step(vt, vp_d, vbtab_d, vv_d)
+        except Exception as e:  # noqa: BLE001 — fails the residents only
+            self._fail_residents(active, e)
+            return
+        # admit queued prompts while the verify step runs on the card
+        t_adm = time.perf_counter()
+        self._admit()
+        adm_s = time.perf_counter() - t_adm
+        try:
+            both = torch.cat([drafts.reshape(-1), verdict]).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — fails the residents only
+            self._fail_residents(active, e)
+            return
+        now = time.perf_counter()
+        draft_s = t1 - t0
+        verify_s = max(0.0, now - t1 - adm_s)
+        drafts = both[:S * K].reshape(S, K)
+        verdict = both[S * K:].reshape(S, W)
+
+        self._decode_steps += 1
+        round_proposed = round_accepted = emitted_total = 0
+        # the longest draft prefix the target's argmax agrees with, a slot
+        agree = drafts[idx] == verdict[idx, :K]             # [n, K]
+        runs = np.where(agree.all(axis=1), K, np.argmax(~agree, axis=1))
+        for (i, st), run in zip(active, runs.tolist()):
+            r = st.req
+            nv = n_valid[i]
+            m = min(1 + min(run, nv - 1), r.max_new_tokens - st.generated)
+            emitted = [int(t) for t in verdict[i, :m]]
+            if c.eos_id is not None and c.eos_id in emitted:
+                emitted = emitted[:emitted.index(c.eos_id) + 1]
+                m = len(emitted)
+            accepted = max(0, m - 1)
+            round_proposed += nv - 1
+            round_accepted += accepted
+            r.spec_rounds += 1
+            r.spec_proposed += nv - 1
+            r.spec_accepted += accepted
+            r.draft_s += draft_s
+            r.verify_s += verify_s
+            st.pos += m
+            st.generated += m
+            st.last = emitted[-1]
+            self._spec_truncate(st)
+            per_tok = max(0.0, now - st.last_t) / m
+            st.last_t = now
+            for tok in emitted:
+                r.step_s.append(per_tok)
+                r._emit(tok)
+            emitted_total += m
+            reason = self._finish_reason(st)
+            if reason:
+                self._release(i)
+                r._finish(reason)
+        self._decode_tokens += emitted_total
+        self._occ_sum += len(active) / float(S)
+        self._spec_rounds += 1
+        self._spec_draft_s += draft_s
+        self._spec_verify_s += verify_s
+        self._spec_emitted += emitted_total
+        self.counters['spec_propose_total'] += round_proposed
+        self.counters['spec_accept_total'] += round_accepted
+        self._blocks_peak = max(self._blocks_peak, self._alloc.in_use())
+        self._set_occupancy()
+
+    def _fail_residents(self, active, e):
+        for i, st in active:
+            self._release(i)
+            st.req.fail(e)
         self._set_occupancy()
 
     def _finish_reason(self, st):
@@ -881,6 +1249,9 @@ class GenerateEngine(object):
         if st.blocks:
             self._alloc.deref_many(st.blocks)
             st.blocks = []
+        if st.dblocks:
+            self._draft_alloc.deref_many(st.dblocks)
+            st.dblocks = []
 
     def _release(self, i):
         st = self._slots[i]
@@ -898,7 +1269,13 @@ class GenerateEngine(object):
     def stats(self):
         """Decode-loop statistics since construction. Paged engines add
         the block accounting under 'blocks': the pool's state, the peak
-        footprint and the prefix-cache entry count."""
+        footprint and the prefix-cache entry count. Speculative engines add
+        'spec': rounds, the tokens they emitted, proposed and accepted
+        drafts, the accept rate, fallback steps, rounds that resynced a
+        stale draft cache, the draft pool's blocks in use and the host
+        seconds of the rounds' draft and verify legs (``draft_s``: issuing
+        the drafter; ``verify_s``: issuing the verify step and waiting for
+        both results)."""
         steps = self._decode_steps
         out = {
             'slots': self.config.slots,
@@ -920,5 +1297,21 @@ class GenerateEngine(object):
                 'peak_in_use': self._blocks_peak,
                 'prefix_entries': len(self._prefix)
                 if self._prefix is not None else 0,
+            }
+        if self.config.speculative:
+            n = self.counters
+            prop, acc = n['spec_propose_total'], n['spec_accept_total']
+            out['spec'] = {
+                'k': self.config.spec_k,
+                'rounds': self._spec_rounds,
+                'emitted': self._spec_emitted,
+                'proposed': prop,
+                'accepted': acc,
+                'accept_rate': round(acc / float(prop), 4) if prop else 0.0,
+                'fallbacks': n['spec_fallback_total'],
+                'stale_draft_rounds': n['spec_stale_draft_rounds_total'],
+                'draft_blocks_in_use': self._draft_alloc.in_use(),
+                'draft_s': self._spec_draft_s,
+                'verify_s': self._spec_verify_s,
             }
         return out

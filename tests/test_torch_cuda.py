@@ -1138,3 +1138,167 @@ def test_amp_training_step_goes_through_the_bf16_kernels(dev):
         assert counts['fused_ln_residual'] == (5 if n else 0)
         assert counts['fused_adam'] == (1 if n else 0)
     assert abs(losses['cuda'] - losses['cpu']) <= 5e-3 * abs(losses['cpu'])
+
+
+# speculative decoding on the paged engine, at tests/test_torch_speculative.py's
+# tiny shapes (V 64, d 32, 2 heads, 2 layers, max_len 48, blocks of 8)
+SPEC_LM = dict(vocab_size=64, seq_len=32, d_model=32, n_head=2, n_layer=2,
+               d_ff=64, dropout=0.0, attn_dropout=0.0,
+               use_flash_attention=False)
+SPEC_WORK = [(4, 9), (7, 14), (12, 6), (16, 11), (40, 8)]
+# logits of two tokens this close are a tie (chip_smoke.py's TIE)
+TIE = 1e-5
+
+
+def _spec_cfg(**kw):
+    from paddle_tpu_torch.serving import GenerateConfig
+    for k, v in dict(model=LMConfig(**SPEC_LM), slots=4, max_len=48,
+                     prompt_buckets=[8, 16], paged=True, block_size=8,
+                     spec_k=2).items():
+        kw.setdefault(k, v)
+    return GenerateConfig(**kw)
+
+
+def _spec_prompts():
+    g = torch.Generator(device='cpu').manual_seed(5)
+    return [(torch.randint(2, 64, (n,), generator=g).numpy(), m)
+            for n, m in SPEC_WORK]
+
+
+def test_verify_step_on_the_card_matches_the_cpu(dev):
+    """The verify step (S * W rows through the gather, LN and FFN kernels)
+    on the card against the CPU's plain path on the same weights and
+    caches: logits within 1e-4, and each verify row within 1e-4 of the
+    card's one-token step at its position; the drafter runs on the card
+    and returns [S, K] token ids."""
+    cfg = LMConfig(**SPEC_LM)
+    params = init_params(cfg, 0, 'cpu')
+    g = torch.Generator(device='cpu').manual_seed(1)
+    S, W, MB = 4, 3, 6
+    kv = [torch.randn(13, 2, 2, 8, 16, generator=g) for _ in range(2)]
+    tok = torch.randint(2, 64, (S, W), generator=g)
+    pos = torch.tensor([13, 30, 0, 45])[:, None] + torch.arange(W)
+    tables = torch.zeros(S, MB, dtype=torch.int64)
+    # each live slot's blocks cover its window (slot 1 crosses into its
+    # fifth block at position 32)
+    tables[0, :2], tables[1, :5], tables[3] = (torch.tensor([3, 5]),
+                                               torch.tensor([2, 4, 6, 8, 1]),
+                                               torch.arange(7, 13))
+    vmask = torch.ones(S, W, dtype=torch.int64)
+    vmask[2] = 0
+    out = {}
+    for d in (dev, torch.device('cpu')):
+        m = TransformerLM(cfg, {k: v.to(d) for k, v in params.items()}, 48)
+        m.allocate_paged_cache(13, 8)
+        m.k_cache.copy_(kv[0])
+        m.v_cache.copy_(kv[1])
+        kernel_tier.reset_counts()
+        a = [t.to(d) for t in (tok, pos, tables, vmask)]
+        _, logits = m.verify_step(*a)
+        counts = kernel_tier.launch_counts()
+        n = 1 if d.type == 'cuda' else 0
+        for k in ('embedding_gather', 'fused_ln_residual', 'fused_ffn'):
+            assert (counts[k] > 0) == bool(n), k
+        # the one-token step at each window row, in order: each rewrites
+        # its own row and attends the rows before it
+        steps = [m.decode_step(a[0][:, t], a[1][:, t] * a[3][:, t],
+                               tables=a[2] * a[3][:, t:t + 1])[1]
+                 for t in range(W)]
+        drafts = m.draft_steps(a[0][:, 0], a[1][:, 0], a[2], a[3], W - 1)
+        out[d.type] = (logits.cpu(), drafts.cpu(),
+                       torch.stack(steps, 1).reshape(S * W, -1).cpu())
+    live = [s * W + t for s in (0, 1, 3) for t in range(W)]
+    assert _err(out['cuda'][0][live], out['cpu'][0][live]) <= 1e-4
+    assert _err(out['cuda'][0][live], out['cuda'][2][live]) <= 1e-4
+    assert torch.isfinite(out['cuda'][0]).all()
+    assert out['cuda'][1].shape == (S, W - 1)
+    assert int(out['cuda'][1].min()) >= 0 and int(out['cuda'][1].max()) < 64
+
+
+def _traced_plain(eng, prompt, n):
+    """(tokens, logits of each token's choice) of a plain paged engine's
+    generate_once, the logits on the CPU."""
+    model, rec = eng.model, []
+
+    def traced(fn):
+        def call(*args, **kw):
+            tok, logits = fn(*args, **kw)
+            rec.append(logits[0].cpu())
+            return tok, logits
+        return call
+
+    model.prefill_paged = traced(model.prefill_paged)
+    model.decode_step = traced(model.decode_step)
+    try:
+        tokens = eng.generate_once(prompt, max_new_tokens=n)
+    finally:
+        del model.prefill_paged, model.decode_step
+    return tokens, rec[-len(tokens):]
+
+
+def _tie_equal(got, ref, logits):
+    """True when ``got`` equals ``ref``, or first differs where the
+    reference's two logits lie within TIE."""
+    for t, (a, b) in enumerate(zip(got, ref)):
+        if a != b:
+            return abs(float(logits[t][a] - logits[t][b])) <= TIE
+    return len(got) == len(ref)
+
+
+@pytest.mark.parametrize('draft', ['target', 'one_layer'])
+def test_spec_engine_on_the_card_matches_the_plain_engine(dev, draft):
+    """Greedy tokens of a speculative engine on the card equal a plain
+    paged engine's on the same weights (a token may differ only at a tie:
+    the verify step's products run at S * W rows, the plain step's at S);
+    the draft with the target's weights accepts at least 95% of its
+    proposals."""
+    from paddle_tpu_torch.serving import GenerateEngine
+    cfg = LMConfig(**SPEC_LM)
+    params = init_params(cfg, 0, dev)
+    plain = GenerateEngine(_spec_cfg(), params=params, device=dev)
+    work = _spec_prompts()
+    refs = [_traced_plain(plain, p, n) for p, n in work]
+    kw = {'draft_model': LMConfig(**dict(SPEC_LM, n_layer=1))} \
+        if draft == 'one_layer' else {}
+    spec = GenerateEngine(_spec_cfg(speculative=True, **kw), params=params,
+                          device=dev)
+    with spec:
+        outs = [list(r.result(120)) for r in
+                [spec.submit(p, max_new_tokens=n) for p, n in work]]
+    for out, (ref, logits) in zip(outs, refs):
+        assert _tie_equal(out, ref, logits), (out, ref)
+    st = spec.stats()['spec']
+    assert st['rounds'] > 0
+    if draft == 'target':
+        assert st['accept_rate'] >= 0.95, st
+
+
+def test_spec_engine_on_the_card_drains_both_pools(dev):
+    """Greedy requests with short sampled riders (fallback steps, then
+    speculation again on stale draft caches, which a resync copies): after
+    stop() the draft pool holds no block and the target pool none either
+    (the prefix cache is dropped)."""
+    from paddle_tpu_torch.serving import GenerateEngine
+    cfg = LMConfig(**SPEC_LM)
+    eng = GenerateEngine(_spec_cfg(speculative=True),
+                         params=init_params(cfg, 0, dev), device=dev)
+    prompts = _spec_prompts()
+    # (prompt, new tokens, sampled): a rider first and last, every greedy
+    # request twice (the second time a prefix hit)
+    work = [(prompts[0][0], 3, True)] + [(p, n, False) for p, n in
+                                          prompts * 2] + \
+        [(prompts[1][0], 3, True)]
+    with eng:
+        reqs = [eng.submit(p, max_new_tokens=n,
+                           **({'temperature': 0.8, 'sample_seed': i}
+                              if smp else {}))
+                for i, (p, n, smp) in enumerate(work)]
+        outs = [r.result(120) for r in reqs]
+        assert eng.stats()['blocks']['in_use'] == \
+            eng.stats()['blocks']['prefix_entries']
+    assert [len(o) for o in outs] == [n for _, n, _ in work]
+    st = eng.stats()
+    assert st['spec']['draft_blocks_in_use'] == 0
+    assert st['blocks']['in_use'] == 0 and st['active'] == 0
+    assert eng.counters['spec_fallback_total'] > 0
+    assert eng.counters['spec_stale_draft_rounds_total'] > 0

@@ -249,11 +249,15 @@ def test_admission_control_shed_deadline_stop_and_rejects(port_engine):
 
 
 def test_not_ported_modes_raise():
-    for kw in (dict(speculative=True), dict(metrics_port=0)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            GenerateConfig(**kw)
-    # ported: the paged cache (tests/test_torch_paged.py) and the unfused
-    # prefill of use_flash_attention=False
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        GenerateConfig(metrics_port=0)
+    # ported: speculative decoding on the paged cache
+    # (tests/test_torch_speculative.py), which the contiguous cache refuses
+    # as the JAX package's does; the paged cache (tests/test_torch_paged.py)
+    # and the unfused prefill of use_flash_attention=False
+    with pytest.raises(ValueError, match='paged=True'):
+        GenerateConfig(speculative=True)
+    assert GenerateConfig(speculative=True, paged=True).speculative
     assert GenerateConfig(paged=True).paged
     eng = GenerateEngine(_port_cfg(model=LMConfig(
         use_flash_attention=False, **LM)), device='cpu')

@@ -380,9 +380,19 @@ def _check_trajectory(run, lm_kw):
         losses.append(float(opt.minimize(loss)))
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
     got = opt.state()
+    d = cfg.d_model
     for name, p in model.p.items():
-        np.testing.assert_allclose(p.detach().numpy(), final[name],
-                                   rtol=1e-4, atol=1e-5, err_msg=name)
+        have, want = p.detach().numpy(), final[name]
+        if name.endswith('.attn.qkv.b'):
+            # softmax is invariant to a shift of every key's score, so the
+            # K bias has a true gradient of 0: what reaches it is rounding
+            # noise, which Adam normalises to steps of +-lr. Only the Q
+            # and V parts of this bias carry a signal to compare.
+            assert np.abs(have[d:2 * d] - want[d:2 * d]).max() <= STEPS * 1e-3
+            have = np.delete(have, np.s_[d:2 * d])
+            want = np.delete(want, np.s_[d:2 * d])
+        np.testing.assert_allclose(have, want, rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
         for key, acc in (('moment1', 'moment1'), ('moment2', 'moment2'),
                          ('beta1_pow', 'beta1_pow_acc'),
                          ('beta2_pow', 'beta2_pow_acc')):
