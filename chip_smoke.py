@@ -15,21 +15,32 @@ Phases, each printing one JSON line:
    inputs (max abs error within a stated tolerance). ``ms``, ``plain_ms``
    and ``library_ms`` (one PyTorch library call computing the same function,
    timed only: the port never calls it) are device times, from CUDA events
-   around replays of a CUDA graph of 20 calls; ``eager_ms`` is the
-   wrapper's back-to-back eager rate, host overhead included. The FFN and
+   around replays of a CUDA graph of 20 calls (the gather's over rotating
+   id sets and outputs, three L2 caches of them: its operands fit in L2);
+   ``eager_ms`` is the wrapper's back-to-back eager rate, host overhead
+   included. A kernel whose time reads under its bound fails the phase,
+   here and in every later kernel phase. The FFN and
    flash forward must give the same bits on a second call, and the FFN's
    row 0 at M 8 must not move when the other rows change (the engine's
    bitwise concurrent = sequential contract); an ``ffn_routes`` line per M
    in 8, 16, 32 times the FFN through each of its two routes.
 4. engine  — the full-width flagship LM (V 32000, d 512, 8 heads, 6 layers,
-   d_ff 2048; random weights from a seed) behind GenerateEngine: warmup,
-   16 concurrent requests (prompts of 5..256 tokens, 32 new tokens, half
-   greedy and half sampled with pinned seeds), every request equal to its
-   own generate_once, every kernel's launch count risen in this phase, the
-   card's logits within tolerance of the plain-PyTorch path on the CPU, and
-   tokens/s, prefill ms per bucket, decode-step ms beside the step's memory
-   floor, and a torch.profiler breakdown of a decode step and a prefill
-   (device busy share, the kernels taking the most device time).
+   d_ff 2048; random weights from a seed) behind GenerateEngine, whose
+   fixed signatures run as CUDA graphs: warmup binds and captures 2 + 2 x
+   buckets of them (the step and each bucket's prefill, greedy and
+   sampled); 16 concurrent requests (prompts of 5..256 tokens, 32 new
+   tokens, half greedy and half sampled with pinned seeds), every request
+   equal to its own generate_once, no capture after warmup, every kernel's
+   launch count risen by the traffic's replays, each signature's replay
+   equal to its eager function (the model's own methods) at one cache
+   state and one set of feeds (bitwise, or the logits within 1e-6 of the
+   largest and a differing token only at a tie), the card's logits within
+   tolerance of the plain-PyTorch path on the CPU, and tokens/s, the
+   launches a replay runs, and the host ms of the step and each bucket's
+   prefill to the read of the result, graphed and eager at the same feeds
+   (with each replay's device time), beside the step's memory floor, and
+   a torch.profiler breakdown of both (device busy share, the kernels
+   taking the most device time), tagged with the card.
 4b. engine_paged — the same LM behind the paged GenerateEngine
    (``paged=True``, block_size 16, slots 16 on 256 blocks: phase 4's HBM
    for K and V), after the gather, LN and FFN wrappers are held against
@@ -38,21 +49,23 @@ Phases, each printing one JSON line:
    half sampled with pinned seeds: 12 prompts of one 192-token prefix (12
    full blocks) and distinct 8..60-token suffixes, 4 prompts of that
    prefix alone (copy-on-write), 4 of 300..470 tokens (two prefill
-   chunks) and 4 of 5..40. Checks: every request equals its own paged
-   generate_once, and each greedy one a contiguous engine's generate_once
-   (phase 4's, or one whose ladder holds a 512 bucket for the long
-   prompts), where a token may differ only at a tie (at the first
-   divergent step the two tokens' logits in the reference run within 1e-5:
-   a prefix hit, a chunk or a bucket changes the products' shapes and so
-   their bits; each tie is printed and nothing after it compared); prefix
-   hits >= 15, copy-on-write copies >= 4 and the tokens saved those hits'
-   cached lengths; ``peak_active`` above phase 4's 8 slots; no block in
-   use after ``stop()``; the gather, LN and FFN kernels launched; one
-   paged prefill, one with a prefix hit and one paged step within 1e-3 of
-   the CPU's logits. Reports tokens/s, prefill ms per suffix bucket after
-   the 192-token prefix, the paged step's ms beside a contiguous step at
-   the same 16 slots (wall and device, by torch.profiler) with each
-   one's byte floor, ``stats()`` and peak memory, tagged with the card.
+   chunks) and 4 of 5..40. Checks: phase 4's graph checks; every request
+   equals its own paged generate_once, and each greedy one a contiguous
+   engine's generate_once (phase 4's, or one whose ladder holds a 512
+   bucket for the long prompts), where a token may differ only at a tie
+   (at the first divergent step the two tokens' logits in the reference
+   run within 1e-5: a prefix hit, a chunk or a bucket changes the
+   products' shapes and so their bits; each tie is printed and nothing
+   after it compared); prefix hits >= 15, copy-on-write copies >= 4 and
+   the tokens saved those hits' cached lengths; ``peak_active`` above
+   phase 4's 8 slots; no block in use after ``stop()``; the gather, LN
+   and FFN kernels launched; one paged prefill, one with a prefix hit and
+   one paged step within 1e-3 of the CPU's logits. Reports tokens/s, the
+   host ms of a suffix prefill after the 192-token prefix in each bucket
+   and of the paged step at 16 slots, graphed and eager, beside an eager
+   contiguous step at the same 16 slots (replay device times; wall and
+   device by torch.profiler) with each one's byte floor, ``stats()`` and
+   peak memory, tagged with the card.
 4c. engine_spec — speculative decoding on phase 4b's engine (``spec_k``
    4), after the gather, LN and FFN wrappers are held against their plain
    versions at the verify step's 80 rows. Phase 4b's 24 prompts, all
@@ -61,20 +74,24 @@ Phases, each printing one JSON line:
    1)`` over the target's ``tok_emb.w``, ``layer_0.*``, ``final_ln.*`` and
    ``lm_head.w``, aliased), then (a) again with every sixth request
    sampled for 8 tokens (fallback steps, then resyncs of stale draft
-   caches), and a plain paged engine on the same weights. Checks: every
-   token equal to the plain engine's generate_once (a sampled one to its
-   own engine's) but at a tie (``engine_spec_tie`` lines); (a) accepts >=
-   95% of its proposals, each one it turned down printed with the
-   target's logit gap (``engine_spec_lost``); after every run the target
-   pool holds only the prefix cache's blocks, and after ``stop()`` no
-   block of either pool is in use; the fallback run counts fallbacks and
-   a resync; one full-width verify step within 1e-3 of the CPU's logits
-   and of the card's one-token step at each of its rows; the gather, LN
-   and FFN kernels launched by the speculative traffic. Reports each
-   run's tokens/s, rounds, accept rate, tokens a round and host ms a
-   round (draft and verify legs), one round's device time and launches
-   by torch.profiler (each drafter, the verify step, the plain step) and
-   host ms, and peak memory, tagged with the card.
+   caches), and a plain paged engine on the same weights. Checks: each
+   engine's warmup captures its signatures (the plain ones, the drafter,
+   the verify step and (b)'s draft prefills) and none after the traffic;
+   each signature's replay (drafter and verify included) equal to its
+   eager function as in phase 4; every token equal to the plain engine's
+   generate_once (a sampled one to its own engine's) but at a tie
+   (``engine_spec_tie`` lines); (a) accepts >= 95% of its proposals, each
+   one it turned down printed with the target's logit gap
+   (``engine_spec_lost``); after every run the target pool holds only the
+   prefix cache's blocks, and after ``stop()`` no block of either pool is
+   in use; the fallback run counts fallbacks and a resync; one full-width
+   verify step within 1e-3 of the CPU's logits and of the card's one-token
+   step at each of its rows; the gather, LN and FFN kernels launched by
+   the speculative traffic. Reports each run's tokens/s, rounds, accept
+   rate, tokens a round and host ms a round (draft and verify legs), one
+   round's host ms graphed and eager for each draft beside the plain
+   step, each graph's replay device time, torch.profiler breakdowns, the
+   launches a replay runs, and peak memory, tagged with the card.
 
 5. train_kernel — the training slice's kernels (CE forward and backward,
    the LN-residual backward, multi-tensor Adam) at the shapes the flagship's
@@ -184,7 +201,8 @@ Those four kernels also get ``bound_simt_ms``, every flop at 67 TFLOP/s,
 the rule of the tables before the tensor-core kernels.
 
 Then one line ``{"kernels": [...]}`` (per kernel: route, source, the TPU
-kernel it replaces, launches on each path, max abs error, ms, plain_ms,
+kernel it replaces, launches on each path (the engine paths' counted
+through their graphs' replays), max abs error, ms, plain_ms,
 bound_ms and what bounds it, library_ms, at the shape of the first path
 that runs it, with its cases at the other paths' shapes beside them), and
 last ``{"ok": true, "device": {...}}``. Any
@@ -209,6 +227,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32X3_FLOPS = 495e12 / 3
 # bf16 tensor-core products with float32 accumulation (dense)
 PEAK_BF16_FLOPS = 989e12
+# the H100's L2 cache (hopper-kernels guide): a timed kernel whose operands
+# fit in it runs over rotating buffers (`rotating_ms`)
+L2_BYTES = 50 * 2 ** 20
 
 SLOTS = 8
 MAX_LEN = 512
@@ -352,6 +373,56 @@ def replay_ms(torch, graph, calls, replays):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def rotating_ms(torch, fn, arg_sets, replays=5):
+    """Device milliseconds per call of ``fn(*args)`` over every argument set
+    of ``arg_sets`` in turn, captured in one CUDA graph whose outputs all
+    stay alive (each call writes its own): with enough sets the working
+    set exceeds the L2 cache, so no call finds its operands there, as the
+    engine's calls do not (its weights and caches are far larger)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn(*arg_sets[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        keep = [fn(*args) for args in arg_sets]
+    ms = replay_ms(torch, graph, len(arg_sets), replays)
+    del keep, graph
+    return ms
+
+
+def rotation(nbytes):
+    """How many argument sets of ``nbytes`` each (the bytes one call must
+    move) make a working set of three L2 caches (at most 4096 sets)."""
+    return int(min(4096, max(4, -(-3 * L2_BYTES // nbytes))))
+
+
+def gather_times(torch, F, embedding_ops, w, n, g, nbytes):
+    """(ms, plain_ms, library_ms) of the gather of ``n`` ids from the table
+    ``w``, each over rotating id sets and outputs (`rotating_ms`); the
+    ids drawn from ``g`` over the whole table."""
+    sets = [(torch.randint(0, w.shape[0], (n,), generator=g,
+                           device=w.device),) for _ in range(rotation(nbytes))]
+    return (rotating_ms(torch, lambda ids: embedding_ops.embedding_gather(
+                w, ids), sets),
+            rotating_ms(torch, lambda ids: embedding_ops._gather_ref(w, ids),
+                        sets),
+            rotating_ms(torch, lambda ids: F.embedding(ids, w), sets))
+
+
+def check_bound(name, case):
+    """Raise when a kernel's device time reads under the least time the card
+    could take for its work: the measurement, not the kernel, is wrong
+    (operands left in L2 by the calls before)."""
+    if 'bound_ms' in case and case['ms'] < case['bound_ms']:
+        raise AssertionError('%s: %.6f ms is under its bound %.6f ms (%s)'
+                             % (name, case['ms'], case['bound_ms'],
+                                {k: v for k, v in case.items()
+                                 if not isinstance(v, (dict, list))}))
 
 
 def backward_ms(torch, fwd, inputs, grad, calls=10, replays=5):
@@ -524,19 +595,20 @@ def check_kernels(torch, F, kt, rows=None, decode_only=False):
     # embedding gather: exact (a copy); ids in range, plus a clamp probe
     w = randn(V, d, scale=0.02)
     cases = []
+    gd = torch.Generator(device=dev).manual_seed(99)
     for n in rows:
         ids = torch.randint(0, V, (n,), generator=g).to(dev)
         got = embedding_ops.embedding_gather(w, ids)
         want = embedding_ops._gather_ref(w, ids)
         err = max_err(torch, [got], [want])
         nbytes = 2 * n * d * 4 + n * 8
+        ms, plain, library = gather_times(torch, F, embedding_ops, w, n, gd,
+                                          nbytes)
         cases.append(dict(**bound(nbytes, 0),
-            n=n, max_abs_err=err,
-            ms=cuda_ms(torch, lambda: embedding_ops.embedding_gather(w, ids)),
+            n=n, max_abs_err=err, ms=ms, rotating_sets=rotation(nbytes),
             eager_ms=eager_ms(torch, lambda: embedding_ops.embedding_gather(
                 w, ids)),
-            plain_ms=cuda_ms(torch, lambda: embedding_ops._gather_ref(w, ids)),
-            library_ms=cuda_ms(torch, lambda: F.embedding(ids, w))))
+            plain_ms=plain, library_ms=library))
     probe = torch.tensor([-3, 0, V - 1, V + 5], device=dev)
     clamp_err = max_err(torch, [embedding_ops.embedding_gather(w, probe)],
                         [w[torch.tensor([0, 0, V - 1, V - 1], device=dev)]])
@@ -649,6 +721,7 @@ def check_kernels(torch, F, kt, rows=None, decode_only=False):
         for c in res['cases']:
             emit(dict(phase='kernel', name=name, tolerance=res['tolerance'],
                       **c))
+            check_bound(name, c)
         if not res['max_abs_err'] <= res['tolerance']:
             raise AssertionError('%s disagrees with its plain version: max '
                                  'abs err %g > %g' % (name, res['max_abs_err'],
@@ -656,7 +729,179 @@ def check_kernels(torch, F, kt, rows=None, decode_only=False):
     return out
 
 
-def run_engine(torch, kt):
+def sample_feeds(n, sampled):
+    """The sampling feeds of ``n`` rows (temperature, top_k, top_p, u):
+    greedy, or temperature 0.8, top-k 50, top-p 0.9."""
+    return [np.full(n, 0.8 if sampled else 0.0, 'float32'),
+            np.full(n, 50 if sampled else 0, 'int64'),
+            np.full(n, 0.9 if sampled else 0.0, 'float32'),
+            np.full(n, 0.37, 'float32')]
+
+
+def signature_feeds(eng, key, rs):
+    """Feeds (numpy) of the bound signature ``key`` of ``eng`` at the state
+    the timings use: every slot live at position 304 + slot (19/32 of
+    max_len) on a full block table (blocks may repeat across slots), a
+    prefill of a whole bucket into slot 0 (contiguous) or at positions
+    192.. (paged: after phase 4b's shared prefix), tokens drawn from
+    ``rs``."""
+    c = eng.config
+    S, V, kind = c.slots, c.model.vocab_size, key[0]
+    tok = rs.randint(2, V, size=S).astype('int64')
+    pos = (MAX_LEN * 19 // 32 + np.arange(S)).astype('int64')
+    mb = c.max_len // c.block_size
+    draft = kind == 'drafter' or (kind == 'prefill_paged' and key[3])
+    nb = eng._draft_alloc.num_blocks if draft else c.num_blocks
+    tables = None if not c.paged else \
+        np.arange(S * mb).reshape(S, mb) % (nb - 1) + 1
+    if kind == 'step':
+        return [tok, pos] + sample_feeds(S, key[1]) + \
+            ([tables] if c.paged else [])
+    if kind in ('prefill', 'prefill_paged'):
+        b = key[1]
+        prompt = rs.randint(2, V, size=(1, b)).astype('int64')
+        tail = [np.array([b], 'int64')] + sample_feeds(1, key[2])
+        if kind == 'prefill':
+            return [prompt, np.array([0], 'int64')] + tail
+        return [prompt, np.minimum(PAGED_PREFIX + np.arange(b),
+                                   c.max_len - 1),
+                np.arange(1, mb + 1)] + tail
+    ones = np.ones((S, c.spec_k + 1), 'int64')
+    if kind == 'drafter':
+        return [tok, pos, tables, ones]
+    return [pos[:, None] + np.arange(c.spec_k + 1), tables, ones]
+
+
+def device_feeds(torch, eng, feeds):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(eng.device)
+            for a in feeds]
+
+
+def graphed_and_eager(torch, eng, key, feeds):
+    """Two callables running the signature ``key`` of ``eng`` at ``feeds``,
+    each reading its first output to the host (one sync): through its
+    CUDA graph (the engine's own path: staging, one host-to-device copy,
+    replay), and through its eager function (the model's own methods) on
+    device copies of the feeds made once."""
+    bs = eng.graphs[key]
+    dev = device_feeds(torch, eng, feeds)
+    return (lambda: bs(*feeds)[0].cpu()), (lambda: bs.fn(*dev)[0].cpu())
+
+
+def compare_graphed(torch, eng, key, feeds):
+    """The signature's replay against its eager function at one cache state
+    and one set of feeds (both write the same cache rows). Returns
+    {signature, bitwise, max_abs_diff, ties}; raises unless the outputs are
+    bitwise equal, or the logits (the last output) lie within 1e-6 of the
+    largest logit and every token that differs is a tie (the eager logits
+    of the two within TIE). The drafter has no logits: its drafts must be
+    equal."""
+    bs = eng.graphs[key]
+    got = [t.clone() for t in bs(*feeds)]
+    want = bs.fn(*device_feeds(torch, eng, feeds))
+    out = dict(signature=str(key), max_abs_diff=0.0, ties=0,
+               bitwise=all(torch.equal(a, b) for a, b in zip(got, want)))
+    if out['bitwise']:
+        return out
+    if len(got) < 2:
+        raise AssertionError('%s: the replay\'s drafts differ from the eager '
+                             'drafter\'s' % (key,))
+    lg, lw = got[-1], want[-1]
+    out['max_abs_diff'] = float((lg - lw).abs().max())
+    if not out['max_abs_diff'] <= 1e-6 * float(lw.abs().max()):
+        raise AssertionError('%s: replay and eager logits differ by %g'
+                             % (key, out['max_abs_diff']))
+    tg, tw = got[0], want[0]
+    if key == ('verify',):          # the drafts, then each row's verdict
+        n = tg.numel() - lw.shape[0]
+        if not torch.equal(tg[:n], tw[:n]):
+            raise AssertionError('verify: the drafts it returns differ')
+        tg, tw = tg[n:], tw[n:]
+    rows = (tg != tw).nonzero().reshape(-1).tolist()
+    for r in rows:
+        gap = abs(float(lw[r, tg[r]] - lw[r, tw[r]]))
+        if not gap <= TIE:
+            raise AssertionError('%s: row %d\'s token %d against the eager '
+                                 '%d with a logit gap of %g'
+                                 % (key, r, int(tg[r]), int(tw[r]), gap))
+    out['ties'] = len(rows)
+    return out
+
+
+def check_graphs(torch, eng, rs):
+    """`compare_graphed` for every signature of ``eng`` (the verify step
+    right after the drafter, whose drafts it reads); a summary."""
+    res = []
+    for key in sorted(eng.graphs, key=str):
+        if key != ('verify',):
+            res.append(compare_graphed(torch, eng, key,
+                                       signature_feeds(eng, key, rs)))
+        if key == ('drafter',):
+            res.append(compare_graphed(torch, eng, ('verify',),
+                                       signature_feeds(eng, ('verify',), rs)))
+    return dict(signatures=len(res),
+                bitwise=sum(1 for r in res if r['bitwise']),
+                max_abs_diff=max(r['max_abs_diff'] for r in res),
+                ties=sum(r['ties'] for r in res),
+                not_bitwise=[r for r in res if not r['bitwise']])
+
+
+def check_warm(name, warm, signatures):
+    """warmup() bound and captured every signature: ``signatures`` each."""
+    if not warm['signatures'] == warm['graphs'] == signatures:
+        raise AssertionError('%s: warmup bound %d signatures and captured %d '
+                             'graphs, expected %d' % (
+                                 name, warm['signatures'], warm['graphs'],
+                                 signatures))
+
+
+def check_no_late_capture(name, stats):
+    g = stats['graphs']
+    if g['captures_after_warmup'] != 0 or g['replays'] <= 0:
+        raise AssertionError('%s: graphs after the traffic %s' % (name, g))
+
+
+def host_ms(torch, fn, calls):
+    """Host milliseconds per call of ``fn`` (each call ends in its own read
+    to the host), after one call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e3
+
+
+def graph_device_ms(torch, eng, key):
+    """Device milliseconds of one replay of the signature's CUDA graph,
+    between CUDA events (no host work inside)."""
+    return replay_ms(torch, eng.graphs[key]._graph, 1, 20)
+
+
+def replay_launches(eng):
+    """{signature: the kernel launches one replay runs (wrapper counts)}."""
+    return {str(k): sum(bs.launches.values())
+            for k, bs in sorted(eng.graphs.items(), key=str)}
+
+
+class Traced(object):
+    """A bound step whose every call also hands (feeds, outputs) to
+    ``record``; other attributes are the step's."""
+
+    def __init__(self, bs, record):
+        self.bs, self.record = bs, record
+
+    def __call__(self, *feeds):
+        out = self.bs(*feeds)
+        self.record(feeds, out)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.bs, name)
+
+
+def run_engine(torch, kt, smi):
     """Phase 4: the full-width engine. Returns (summary, launch counts)."""
     from paddle_tpu_torch.models.transformer import LMConfig, TransformerLM
     from paddle_tpu_torch.serving import GenerateConfig, GenerateEngine
@@ -674,9 +919,11 @@ def run_engine(torch, kt):
         work.append((prompt, dict(temperature=0.8, top_k=50, top_p=0.9,
                                   sample_seed=1000 + i) if sampled else {}))
 
-    kt.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     eng = GenerateEngine(cfg)                       # cuda:0
     warm = eng.warmup()
+    check_warm('engine', warm, 2 + 2 * len(BUCKETS))
+    kt.reset_counts()
     t0 = time.perf_counter()
     with eng:
         reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, **kw)
@@ -686,6 +933,8 @@ def run_engine(torch, kt):
     refs = [eng.generate_once(p, max_new_tokens=NEW_TOKENS, **kw)
             for p, kw in work]
     counts = kt.launch_counts()
+    stats = eng.stats()
+    check_no_late_capture('engine', stats)
 
     reasons = [o.finish_reason for o in outs]
     if reasons != ['length'] * N_REQUESTS:
@@ -701,41 +950,40 @@ def run_engine(torch, kt):
         raise AssertionError('kernels never launched on the main path: %s'
                              % idle)
 
-    # timings of the two shapes the engine runs (host clock to a sync)
-    dev = eng.device
-    model = eng.model
+    # every signature's replay against its eager function, then the
+    # timings of the step and each bucket's prefill: host clock to the
+    # read of the result, graphed and eager at the same feeds, and the
+    # replay's device time
+    graph_check = check_graphs(torch, eng, rs)
+    dev, model = eng.device, eng.model
     prefill_ms = {}
     for b in BUCKETS:
-        prompt = torch.from_numpy(rs.randint(2, cfg.model.vocab_size,
-                                             size=(1, b))).to(dev)
-        model.prefill(prompt, 0, b)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(5):
-            model.prefill(prompt, 0, b)
-        torch.cuda.synchronize()
-        prefill_ms[str(b)] = (time.perf_counter() - t) / 5 * 1e3
-    tok = torch.from_numpy(rs.randint(2, cfg.model.vocab_size,
-                                      size=SLOTS)).to(dev)
-    pos = torch.arange(300, 300 + SLOTS, device=dev)
-    model.decode_step(tok, pos)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(20):
-        model.decode_step(tok, pos)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) / 20 * 1e3
+        key = ('prefill', b, False)
+        graphed, eager = graphed_and_eager(torch, eng, key,
+                                           signature_feeds(eng, key, rs))
+        prefill_ms[str(b)] = dict(
+            graphed=host_ms(torch, graphed, 5), eager=host_ms(torch, eager, 5),
+            eager_again=host_ms(torch, eager, 5),
+            graphed_again=host_ms(torch, graphed, 5),
+            device=graph_device_ms(torch, eng, key))
+    pf_profile = {str(BUCKETS[-1]): dict(
+        graphed=step_profile(torch, graphed, steps=5),
+        eager=step_profile(torch, eager, steps=5))}
+    key = ('step', False)
+    graphed, eager = graphed_and_eager(torch, eng, key,
+                                       signature_feeds(eng, key, rs))
+    step_ms = {name: host_ms(torch, fn, 20) for name, fn in (
+        ('graphed', graphed), ('eager', eager), ('eager_again', eager),
+        ('graphed_again', graphed))}
+    step_ms['device'] = graph_device_ms(torch, eng, key)
     # the least time a step can take: it must read every weight (of the
     # embedding table only its SLOTS rows) and the whole K/V cache
     # (kv_decode_attention reads all max_len rows of every slot)
     step_bytes = sum(p.numel() * 4 for n, p in model.p.items()
                      if n != 'tok_emb.w') + SLOTS * cfg.model.d_model * 4 + \
         (model.k_cache.numel() + model.v_cache.numel()) * 4
-    profile = step_profile(torch, lambda: model.decode_step(tok, pos))
-    prompt = torch.from_numpy(rs.randint(2, cfg.model.vocab_size,
-                                         size=(1, BUCKETS[-1]))).to(dev)
-    pf_profile = step_profile(
-        torch, lambda: model.prefill(prompt, 0, BUCKETS[-1]), steps=5)
+    profile = dict(graphed=step_profile(torch, graphed),
+                   eager=step_profile(torch, eager))
 
     # the card's logits against the plain-PyTorch path on the CPU, same
     # weights and inputs: one 64-token prefill, then one decode step
@@ -767,38 +1015,38 @@ def run_engine(torch, kt):
 
     gen = sum(len(o) for o in outs)
     summary = dict(
-        phase='engine', requests=N_REQUESTS, new_tokens=gen,
+        phase='engine', card=smi, requests=N_REQUESTS, new_tokens=gen,
         warmup=warm, wall_s=wall, tokens_per_s=gen / wall,
         finish_reasons=sorted(set(reasons)), concurrent_equals_sequential=True,
+        graphs_vs_eager=graph_check, launches_per_replay=replay_launches(eng),
         prefill_ms=prefill_ms, decode_step_ms=step_ms,
         decode_step_floor_ms=step_bytes / PEAK_BYTES_PER_S * 1e3,
         decode_step_bytes=step_bytes, decode_step_profile=profile,
-        prefill_profile={str(BUCKETS[-1]): pf_profile},
+        prefill_profile=pf_profile,
         logits_max_abs_err_vs_cpu=logit_err, launches=counts,
-        stats=eng.stats(), peak_mem_bytes=torch.cuda.max_memory_allocated())
+        stats=stats, peak_mem_bytes=torch.cuda.max_memory_allocated())
     return summary, counts
 
 
 def traced_once(eng, prompt, kw):
     """(tokens, logits): ``eng.generate_once(prompt, max_new_tokens=
     NEW_TOKENS, **kw)`` and, on the CPU, the logits each of its tokens was
-    chosen from (the final prefill's, then slot 0's of each step)."""
-    model, rec = eng.model, []
+    chosen from (the final prefill's, then slot 0's of each step), read
+    from the outputs of its bound prefill and step signatures (their CUDA
+    graphs' replays) as it runs."""
+    if not eng._warm:
+        eng.warmup()
+    rec, bound = [], eng.graphs
 
-    def traced(fn, row):
-        def call(*args, **kw):
-            tok, logits = fn(*args, **kw)
-            rec.append(logits[row].cpu())
-            return tok, logits
-        return call
+    def record(feeds, out):
+        rec.append(out[1][0].cpu())
 
-    model.prefill = traced(model.prefill, 0)
-    model.prefill_paged = traced(model.prefill_paged, 0)
-    model.decode_step = traced(model.decode_step, 0)
+    eng._graphs.update({k: Traced(bs, record) for k, bs in bound.items()
+                        if k[0] in ('step', 'prefill', 'prefill_paged')})
     try:
         tokens = eng.generate_once(prompt, max_new_tokens=NEW_TOKENS, **kw)
     finally:
-        del model.prefill, model.prefill_paged, model.decode_step
+        eng._graphs.update(bound)
     # a chunked prefill's earlier chunks come first: the last len(tokens)
     return tokens, rec[-len(tokens):]
 
@@ -872,6 +1120,7 @@ def run_engine_paged(torch, kt, smi):
     torch.cuda.reset_peak_memory_stats()
     eng = GenerateEngine(cfg)                       # cuda:0
     warm = eng.warmup()
+    check_warm('engine_paged', warm, 2 + 2 * len(BUCKETS))
     kt.reset_counts()
     t0 = time.perf_counter()
     with eng:
@@ -882,6 +1131,7 @@ def run_engine_paged(torch, kt, smi):
     counts = kt.launch_counts()
     stats = eng.stats()
     counters = dict(eng.counters)
+    check_no_late_capture('engine_paged', stats)
 
     reasons = [o.finish_reason for o in outs]
     if reasons != ['length'] * len(work):
@@ -937,48 +1187,44 @@ def run_engine_paged(torch, kt, smi):
     for tie in ties:
         emit(dict(phase='engine_paged_tie', **tie))
 
-    # timings (host clock to a sync): a suffix prefill after the 192-token
-    # prefix in each bucket; the paged step at 16 slots beside a
-    # contiguous one at 16 slots, both by torch.profiler too
+    # every signature's replay against its eager function; timings (host
+    # clock to the read of the result, graphed and eager at the same
+    # feeds; the replay's device time): a suffix prefill after the
+    # 192-token prefix in each bucket, the paged step at 16 slots beside
+    # an eager contiguous one at 16 slots, all by torch.profiler too
+    graph_check = check_graphs(torch, eng, rs)
     dev, model = eng.device, eng.model
     mb = MAX_LEN // PAGED_BLOCK
     table = torch.arange(1, mb + 1, device=dev)
     prefill_ms = {}
     for b in BUCKETS:
-        prompt = torch.from_numpy(rs.randint(2, V, size=(1, b))).to(dev)
-        pos = torch.arange(PAGED_PREFIX, PAGED_PREFIX + b, device=dev)
-        model.prefill_paged(prompt, pos, table, b)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(5):
-            model.prefill_paged(prompt, pos, table, b)
-        torch.cuda.synchronize()
-        prefill_ms[str(b)] = (time.perf_counter() - t) / 5 * 1e3
-    pf_profile = step_profile(
-        torch, lambda: model.prefill_paged(prompt, pos, table, b), steps=5,
-        host=True)
-    tok = torch.from_numpy(rs.randint(2, V, size=PAGED_SLOTS)).to(dev)
-    pos = torch.arange(PAGED_SLOTS, device=dev) + MAX_LEN * 19 // 32  # 304
-    # every slot's table full (blocks may repeat across slots: the step
-    # gathers all max_len / 16 entries of each row whatever they hold)
-    tables = (torch.arange(PAGED_SLOTS * mb, device=dev).view(
-        PAGED_SLOTS, mb) % (PAGED_BLOCKS - 1)) + 1
-    paged_step = lambda: model.decode_step(tok, pos, tables=tables)  # noqa
+        key = ('prefill_paged', b, False, False)
+        graphed, eager = graphed_and_eager(torch, eng, key,
+                                           signature_feeds(eng, key, rs))
+        prefill_ms[str(b)] = dict(
+            graphed=host_ms(torch, graphed, 5), eager=host_ms(torch, eager, 5),
+            eager_again=host_ms(torch, eager, 5),
+            graphed_again=host_ms(torch, graphed, 5),
+            device=graph_device_ms(torch, eng, key))
+    pf_profile = dict(graphed=step_profile(torch, graphed, steps=5),
+                      eager=step_profile(torch, eager, steps=5, host=True))
+    key = ('step', False)
+    feeds = signature_feeds(eng, key, rs)
+    paged_graphed, paged_step = graphed_and_eager(torch, eng, key, feeds)
+    tok, pos = device_feeds(torch, eng, feeds[:2])
     contig = TransformerLM(model_cfg, params, MAX_LEN)
     contig.allocate_cache(PAGED_SLOTS)
-    contig_step = lambda: contig.decode_step(tok, pos)  # noqa: E731
+    contig_step = lambda: contig.decode_step(tok, pos)[0].cpu()  # noqa: E731
     step_ms = {}
-    for name, fn in (('paged', paged_step), ('contiguous', contig_step),
+    for name, fn in (('paged_graphed', paged_graphed), ('paged', paged_step),
+                     ('contiguous', contig_step),
                      ('contiguous_again', contig_step),
-                     ('paged_again', paged_step)):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        step_ms[name] = (time.perf_counter() - t) / 20 * 1e3
-    profiles = {'paged': step_profile(torch, paged_step, host=True),
+                     ('paged_again', paged_step),
+                     ('paged_graphed_again', paged_graphed)):
+        step_ms[name] = host_ms(torch, fn, 20)
+    step_ms['paged_graphed_device'] = graph_device_ms(torch, eng, key)
+    profiles = {'paged_graphed': step_profile(torch, paged_graphed),
+                'paged': step_profile(torch, paged_step, host=True),
                 'contiguous': step_profile(torch, contig_step, host=True)}
     d, Ln = model_cfg.d_model, model_cfg.n_layer
     weights = sum(p.numel() * 4 for n, p in params.items()
@@ -1038,7 +1284,9 @@ def run_engine_paged(torch, kt, smi):
         kinds={k: kinds.count(k) for k in sorted(set(kinds))},
         warmup=warm, wall_s=wall, tokens_per_s=gen / wall,
         finish_reasons=sorted(set(reasons)), ties=len(ties),
-        counters=counters, prefill_ms_after_prefix=prefill_ms,
+        counters=counters, graphs_vs_eager=graph_check,
+        launches_per_replay=replay_launches(eng),
+        prefill_ms_after_prefix=prefill_ms,
         prefill_profile={str(BUCKETS[-1]): pf_profile}, decode_step_ms=step_ms,
         decode_step_floor_ms={k: v / PEAK_BYTES_PER_S * 1e3
                               for k, v in floors.items()},
@@ -1050,13 +1298,15 @@ def run_engine_paged(torch, kt, smi):
 
 def lost_proposals(rounds):
     """Where the verify step turned down a draft, from the (drafts, verdict,
-    gap, counted) device tensors that `trace_verify` kept for each round:
-    per slot and round its first refused draft that the round counted, with
+    gap: device tensors; counted: numpy) that `trace_verify` kept for each
+    round: per slot and round its first refused draft that the round
+    counted, with
     the target's logit gap between its own token and the draft's, and the
     number of counted drafts lost there."""
     out = []
     for r, rec in enumerate(rounds):
-        d, v, gap, counted = (t.cpu().numpy() for t in rec)
+        d, v, gap = (t.cpu().numpy() for t in rec[:3])
+        counted = rec[3]
         for s in range(d.shape[0]):
             miss = np.flatnonzero((d[s] != v[s]) & (counted[s] != 0))
             if miss.size:
@@ -1067,22 +1317,23 @@ def lost_proposals(rounds):
     return out
 
 
-def trace_verify(model, rounds):
-    """Wrap ``model.verify_step`` (an instance attribute, deleted to undo)
-    so that each call appends to ``rounds``, on the device, its drafts, its
-    argmax at the rows that judge them, the logit gap between the two and
-    which drafts the round counts."""
-    orig = model.verify_step
+def trace_verify(eng, rounds):
+    """Wrap the engine's bound verify step (`Traced`; put ``eng.graphs[(
+    'verify',)]`` back to undo) so that each call appends to ``rounds``, on
+    the device, its drafts, its argmax at the rows that judge them, the
+    logit gap between the two and which drafts the round counts."""
+    S, K = eng.config.slots, eng.config.spec_k
+    W = K + 1
 
-    def call(tokens, pos, tables, vmask):
-        nxt, logits = orig(tokens, pos, tables, vmask)
-        S, W = tokens.shape
+    def record(feeds, out):
+        both, logits = out
+        drafts = both[:S * K].view(S, K).clone()
         lg = logits.view(S, W, -1)[:, :-1]
-        drafts = tokens[:, 1:]
         gap = lg.max(-1).values - lg.gather(-1, drafts[..., None])[..., 0]
-        rounds.append((drafts, nxt.view(S, W)[:, :-1], gap, vmask[:, 1:]))
-        return nxt, logits
-    model.verify_step = call
+        rounds.append((drafts, both[S * K:].view(S, W)[:, :-1].clone(), gap,
+                       feeds[2][:, 1:].copy()))
+
+    eng._graphs[('verify',)] = Traced(eng.graphs[('verify',)], record)
 
 
 def run_engine_spec(torch, kt, smi):
@@ -1120,8 +1371,14 @@ def run_engine_spec(torch, kt, smi):
                for n in names):
             raise AssertionError('the %s draft copied the target\'s '
                                  'weights' % name)
-    for eng in list(engines.values()) + [plain]:
-        eng.warmup()
+    warm = {}
+    nb = len(BUCKETS)
+    for name, eng, n in (('target', engines['target'], 4 + 2 * nb),
+                         ('layer_skip', engines['layer_skip'], 4 + 3 * nb),
+                         ('fallback', engines['fallback'], 4 + 2 * nb),
+                         ('plain', plain, 2 + 2 * nb)):
+        warm[name] = eng.warmup()
+        check_warm('engine_spec %s' % name, warm[name], n)
 
     def drive(eng, work):
         t0 = time.perf_counter()
@@ -1135,14 +1392,17 @@ def run_engine_spec(torch, kt, smi):
                     stats=eng.stats(), counters=dict(eng.counters))
 
     verified = []
-    trace_verify(engines['target'].model, verified)
+    verify_bound = engines['target'].graphs[('verify',)]
+    trace_verify(engines['target'], verified)
     kt.reset_counts()
     runs = {'target': drive(engines['target'], greedy),
             'layer_skip': drive(engines['layer_skip'], greedy),
             'fallback': drive(engines['fallback'], mixed)}
     counts = kt.launch_counts()
-    del engines['target'].model.verify_step
+    engines['target']._graphs[('verify',)] = verify_bound
     runs['plain'] = drive(plain, greedy)
+    for name, run in runs.items():
+        check_no_late_capture('engine_spec %s' % name, run['stats'])
 
     for name, run in runs.items():
         st = run['stats']
@@ -1229,51 +1489,73 @@ def run_engine_spec(torch, kt, smi):
         raise AssertionError('verify logits differ: %s' % errs)
     del cpu
 
-    # one round's device time and launches: 16 slots at position 304 on
-    # full tables (blocks may repeat across slots), the drafter of each
-    # draft and the verify step, beside phase 4b's plain step
-    tok = torch.from_numpy(rs.randint(2, V, size=PAGED_SLOTS)).to(dev)
-    pos = torch.arange(PAGED_SLOTS, device=dev) + MAX_LEN * 19 // 32
-    grid = torch.arange(PAGED_SLOTS * mb, device=dev).view(PAGED_SLOTS, mb)
-    tables = grid % (PAGED_BLOCKS - 1) + 1
-    ones = torch.ones(PAGED_SLOTS, W, dtype=torch.int64, device=dev)
-    vpos = pos[:, None] + torch.arange(W, device=dev)
-    drafts = {}
+    # every signature's replay against its eager function (both drafts'
+    # engines, the plain one); one round's host ms, graphed (the engine's
+    # path: the drafter's and the verify's replays and one read) and eager
+    # (the drafter, the verify rows built on the device, the verify step
+    # and one read), 16 slots at position 304 on full tables (blocks may
+    # repeat across slots), beside the plain step; device times of the
+    # graphs' replays and by torch.profiler
+    graph_check = {name: check_graphs(torch, engines[name], rs)
+                   for name in ('target', 'layer_skip')}
+    graph_check['plain'] = check_graphs(torch, plain, rs)
+    feeds = {}
     for name in ('target', 'layer_skip'):
         eng = engines[name]
-        dtab = grid % (eng._draft_alloc.num_blocks - 1) + 1
-        drafts[name] = (lambda d=eng.draft, dt=dtab:  # noqa: E731
-                        d.draft_steps(tok, pos, dt, ones, SPEC_K))
-    def spec_round(name):
-        return lambda: model.verify_step(torch.cat(
-            [tok[:, None], drafts[name]()], 1), vpos, tables, ones)
+        # the drafter's positions, the verify's window over them
+        feeds[name] = [signature_feeds(eng, ('drafter',), rs),
+                       signature_feeds(eng, ('verify',), rs)]
 
-    vtok = torch.cat([tok[:, None], drafts['target']()], 1)
-    only_verify = lambda: model.verify_step(  # noqa: E731
-        vtok, vpos, tables, ones)
-    plain_step = lambda: plain.model.decode_step(  # noqa: E731
-        tok, pos, tables=tables)
+    def graphed_round(name):
+        d, v = (engines[name].graphs[k] for k in (('drafter',), ('verify',)))
+        df, vf = feeds[name]
+        return lambda: (d(*df), v(*vf)[0].cpu())
+
+    def eager_round(name):
+        eng = engines[name]
+        tok, pos, dtab, ones = device_feeds(torch, eng, feeds[name][0])
+        vpos, tab, _ = device_feeds(torch, eng, feeds[name][1])
+        return lambda: eng.model.verify_step(torch.cat(
+            [tok[:, None], eng.draft.draft_steps(tok, pos, dtab, ones,
+                                                 SPEC_K)], 1),
+            vpos, tab, ones)[0].cpu()
+
+    key = ('step', False)
+    plain_graphed, plain_step = graphed_and_eager(
+        torch, plain, key, signature_feeds(plain, key, rs))
     round_ms = {}
-    for name, fn in (('plain_step', plain_step),
-                     ('round_target', spec_round('target')),
-                     ('round_layer_skip', spec_round('layer_skip')),
-                     ('round_layer_skip_again', spec_round('layer_skip')),
-                     ('round_target_again', spec_round('target')),
-                     ('plain_step_again', plain_step)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        round_ms[name] = (time.perf_counter() - t0) / 10 * 1e3
-    profiles = {'drafter_target': step_profile(torch, drafts['target'],
-                                               steps=5),
-                'drafter_layer_skip': step_profile(
-                    torch, drafts['layer_skip'], steps=5),
-                'verify': step_profile(torch, only_verify, steps=5,
-                                       host=True),
+    for name, fn in (('plain_step_graphed', plain_graphed),
+                     ('plain_step', plain_step),
+                     ('round_target_graphed', graphed_round('target')),
+                     ('round_target', eager_round('target')),
+                     ('round_layer_skip_graphed', graphed_round('layer_skip')),
+                     ('round_layer_skip', eager_round('layer_skip')),
+                     ('round_layer_skip_again', eager_round('layer_skip')),
+                     ('round_layer_skip_graphed_again',
+                      graphed_round('layer_skip')),
+                     ('round_target_again', eager_round('target')),
+                     ('round_target_graphed_again', graphed_round('target')),
+                     ('plain_step_again', plain_step),
+                     ('plain_step_graphed_again', plain_graphed)):
+        round_ms[name] = host_ms(torch, fn, 10)
+    device_ms = {'plain_step': graph_device_ms(torch, plain, key)}
+    for name in ('target', 'layer_skip'):
+        for k in ('drafter', 'verify'):
+            device_ms['%s_%s' % (k, name)] = graph_device_ms(
+                torch, engines[name], (k,))
+    profiles = {'round_target_graphed': step_profile(
+                    torch, graphed_round('target'), steps=5),
+                'round_layer_skip_graphed': step_profile(
+                    torch, graphed_round('layer_skip'), steps=5),
+                'round_target': step_profile(torch, eager_round('target'),
+                                             steps=5, host=True),
+                'round_layer_skip': step_profile(
+                    torch, eager_round('layer_skip'), steps=5),
+                'plain_step_graphed': step_profile(torch, plain_graphed,
+                                                   steps=5),
                 'plain_step': step_profile(torch, plain_step, steps=5)}
+    launches_per_replay = {name: replay_launches(engines[name])
+                           for name in ('target', 'layer_skip')}
 
     summary = dict(phase='engine_spec', card=smi, spec_k=SPEC_K,
                    requests=len(prompts), new_tokens=NEW_TOKENS,
@@ -1285,7 +1567,10 @@ def run_engine_spec(torch, kt, smi):
                                    if m['gap'] <= TIE),
                        otherwise=sum(m['lost'] for m in lost
                                      if m['gap'] > TIE)),
+                   warmup=warm, graphs_vs_eager=graph_check,
+                   launches_per_replay=launches_per_replay,
                    logits_max_abs_err=errs, round_host_ms=round_ms,
+                   graph_device_ms=device_ms,
                    round_profile=profiles, launches=counts,
                    peak_mem_bytes=torch.cuda.max_memory_allocated())
     for name, run in runs.items():
@@ -1340,11 +1625,15 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
         ids = torch.randint(0, rows, (N,), generator=g, device=dev)
         err = max_err(torch, [embedding_ops.embedding_gather(w, ids)],
                       [embedding_ops._gather_ref(w, ids)])
-        cases.append(dict(n=N, table_rows=rows, max_abs_err=err, **timed(
-            lambda: embedding_ops.embedding_gather(w, ids),
-            lambda: embedding_ops._gather_ref(w, ids),
-            lambda: cuda_ms(torch, lambda: F.embedding(ids, w)),
-            (N + min(N, rows)) * D * 4 + N * 8, 0, calls=20)))
+        nbytes = (N + min(N, rows)) * D * 4 + N * 8
+        ms, plain, library = gather_times(
+            torch, F, embedding_ops, w, N,
+            torch.Generator(device=dev).manual_seed(98), nbytes)
+        cases.append(dict(
+            n=N, table_rows=rows, max_abs_err=err, ms=ms, plain_ms=plain,
+            library_ms=library, rotating_sets=rotation(nbytes),
+            eager_ms=eager_ms(torch, lambda: embedding_ops.embedding_gather(
+                w, ids), iters=10, warmup=2), **bound(nbytes, 0)))
     out['embedding_gather'] = dict(tolerance=0.0, cases=cases)
     x, r = randn(N, D), randn(N, D)
     sc, bi = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
@@ -1513,7 +1802,7 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
 
 def finish_kernel_checks(phase, out):
     """Emit every case of ``out`` and raise where a kernel's checked error
-    exceeds its tolerance."""
+    exceeds its tolerance or its time reads under its bound."""
     for name, res in out.items():
         key = res.setdefault('checked', 'max_abs_err')
         for k in {'max_abs_err', key}:
@@ -1521,6 +1810,7 @@ def finish_kernel_checks(phase, out):
         for c in res['cases']:
             emit(dict(phase=phase, name=name, checked=key,
                       tolerance=res['tolerance'], **c))
+            check_bound(name, c)
         if not res[key] <= res['tolerance']:
             raise AssertionError('%s disagrees with its plain version: %s '
                                  '%g > %g' % (name, key, res[key],
@@ -2132,7 +2422,7 @@ def main():
     from paddle_tpu_torch.models.transformer import LMConfig, param_shapes
 
     kernels = check_kernels(torch, F, kt)
-    engine, counts = run_engine(torch, kt)
+    engine, counts = run_engine(torch, kt, smi)
     by_path = {'engine': counts}
     emit(engine)
     del engine

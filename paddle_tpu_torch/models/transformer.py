@@ -256,11 +256,16 @@ class TransformerLM(TransformerStack):
         self.k_cache = None
         self.v_cache = None
         self.block_size = None
+        # set by the decode engine once a CUDA graph holds the cache
+        self.cache_captured = False
 
     def allocate_cache(self, slots):
         """Zeroed K and V caches [slots, layers, heads, max_len, dh]. Zeros,
         not empty memory: stale rows are masked by a select, but they must
-        never hold uninitialised bits either."""
+        never hold uninitialised bits either. Raises once a CUDA graph has
+        captured this model's cache (``cache_captured``): the graph holds
+        the old addresses."""
+        self._check_cache_free()
         c = self.cfg
         shape = (int(slots), c.n_layer, c.n_head, self.max_len,
                  c.d_model // c.n_head)
@@ -273,6 +278,7 @@ class TransformerLM(TransformerStack):
         """Zeroed K and V block pools [num_blocks, layers, heads,
         block_size, dh] (block 0 is the trash block), as
         :meth:`allocate_cache`."""
+        self._check_cache_free()
         c = self.cfg
         shape = (int(num_blocks), c.n_layer, c.n_head, int(block_size),
                  c.d_model // c.n_head)
@@ -280,6 +286,13 @@ class TransformerLM(TransformerStack):
                                    device=self.device)
         self.v_cache = torch.zeros_like(self.k_cache)
         self.block_size = int(block_size)
+
+    def _check_cache_free(self):
+        if self.cache_captured:
+            raise RuntimeError(
+                'a CUDA graph has captured this model\'s KV cache and holds '
+                'its addresses: build a new model (or engine) for another '
+                'cache')
 
     @staticmethod
     def _sample(logits, sample):
@@ -342,9 +355,11 @@ class TransformerLM(TransformerStack):
         the last REAL row ``length - 1``. Attention is causal flash
         attention, or with ``use_flash_attention`` off the unfused branch
         with the -1e9 upper-triangle mask, as `build_lm_prefill`.
-        ``sample`` is (temp, topk, topp, u, any_sampled) with [1] tensors,
-        or None for greedy. Returns (first_token [1] int64, logits [1,
-        V])."""
+        ``slot`` and ``length`` are host ints or 0-d or [1] int64 tensors
+        on the model's device (the ``gen_slot`` and ``gen_len`` feeds; a
+        CUDA graph needs the tensors). ``sample`` is (temp, topk, topp, u,
+        any_sampled) with [1] tensors, or None for greedy. Returns
+        (first_token [1] int64, logits [1, V])."""
         T = prompt.shape[1]
         x = add_position_encoding(embedding_gather(self.p['tok_emb.w'],
                                                    prompt), table=self.pe)
@@ -368,8 +383,9 @@ class TransformerLM(TransformerStack):
         """Run one prompt suffix [1, T] (padded to its bucket T) into a
         paged slot: its rows sit at global ``positions`` [T] (int64: the
         cached context's length plus t), add those rows of the position
-        table, write their K/V rows below ``length`` (a host int, the real
-        suffix length) through the slot's block ``table`` [MB] (pad rows go
+        table, write their K/V rows below ``length`` (the real suffix
+        length: a host int or a 0-d or [1] int64 tensor, as
+        :meth:`prefill`'s) through the slot's block ``table`` [MB] (pad rows go
         to the trash block) and attend the slot's cache through it, prefix
         included (`kv_prefix_attention`); sample the first token from the
         last real row ``length - 1``. Returns (first_token [1] int64,
@@ -410,7 +426,10 @@ class TransformerLM(TransformerStack):
             ctx = ctx.permute(0, 2, 1, 3).reshape(T, d)
             x, delta = self._post_attention(x, ctx, p)
         x, _ = self._entry_ln(x, delta, 'final_ln')
-        last = x[int(length) - 1:int(length)]               # [1, d]
+        if torch.is_tensor(length):                         # [1, d]
+            last = x.index_select(0, length.reshape(1) - 1)
+        else:
+            last = x[int(length) - 1:int(length)]
         logits = self._fc(last, 'lm_head', bias=False)      # [1, V]
         return self._sample(logits, sample), logits
 

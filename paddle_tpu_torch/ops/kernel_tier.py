@@ -9,13 +9,16 @@ does not take at all raises in its wrapper.
 
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else (the plain version on the CPU does not count), so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels. Under CUDA-graph
+capture a wrapper runs but the device launches nothing; the bound step
+(serving/graphs.py) takes those counts back and adds them on each replay.
 """
 import threading
 
 import torch
 
-__all__ = ['KERNELS', 'launch_counts', 'reset_counts', 'count', 'on_cuda',
+__all__ = ['KERNELS', 'launch_counts', 'reset_counts', 'count',
+           'add_counts', 'on_cuda',
            'records_grad', 'require', 'stream_ptr', 'ptr']
 
 # the kernels of the port, by the name their wrapper counts under
@@ -44,6 +47,14 @@ def reset_counts():
 def count(name):
     with _lock:
         _counts[name] += 1
+
+
+def add_counts(delta):
+    """Add ``delta`` ({kernel name: launches}) to the counts: a CUDA graph's
+    replay runs the launches its capture counted (serving/graphs.py)."""
+    with _lock:
+        for name, n in delta.items():
+            _counts[name] += n
 
 
 def on_cuda(*tensors):

@@ -39,9 +39,14 @@ _NEG_INF = -1e30
 
 def kv_cache_prefill(cache, new, slot, layer):
     """cache[slot, layer, :, 0:T, :] = new[0] for new [1, H, T, dh]; in
-    place. ``slot`` is a host int."""
+    place. ``slot`` is a host int or a 0-d or [1] int64 tensor on the
+    cache's device (the JAX program's ``gen_slot`` feed): then the write
+    reads no host value, as a CUDA graph's capture needs."""
     T = new.shape[2]
-    cache[int(slot), int(layer), :, :T, :] = new[0]
+    if torch.is_tensor(slot):
+        cache[:, int(layer), :, :T].index_copy_(0, slot.reshape(1), new)
+    else:
+        cache[int(slot), int(layer), :, :T, :] = new[0]
     return cache
 
 
@@ -105,10 +110,13 @@ def kv_cache_prefill_paged(cache, new, table, positions, length, layer,
     positions); rows at or past ``length`` (the bucket's pad rows) are
     redirected to the trash block, offset 0: a paged slot owns no span
     where pad garbage could park. new [1, H, T, dh], table [MB] int64,
-    ``length`` a host int; in place."""
+    ``length`` a host int or a 0-d or [1] int64 tensor on the cache's
+    device (the ``gen_len`` feed); in place."""
     rows = new[0].transpose(0, 1)                   # [T, H, dh]
     blk, off = _block_of(table, positions, int(block_size))
-    real = torch.arange(rows.shape[0], device=rows.device) < int(length)
+    if not torch.is_tensor(length):
+        length = int(length)
+    real = torch.arange(rows.shape[0], device=rows.device) < length
     blk = torch.where(real, blk, torch.zeros_like(blk))
     off = torch.where(real, off, torch.zeros_like(off))
     cache[:, int(layer)][blk, :, off, :] = rows

@@ -22,13 +22,22 @@ modes).
   prefills in bucket-wide chunks, each attending the cached prefix, so
   paged admission reaches ``max_len - 1`` tokens. The prefill attends
   through `kv_prefix_attention` in either flash setting.
-- **Eager execution.** The JAX engine compiles one prefill program per
-  prompt bucket and one decode-step program and dispatches them through
-  `Executor.bind`, with a compile cache and a warm-up farm. PyTorch runs
-  eagerly, so none of that has a counterpart: a prefill is
-  `TransformerLM.prefill` on the prompt padded to its bucket, a step is
-  `TransformerLM.decode_step` over every slot. The bucket ladder stays —
-  it bounds the prefill shapes the kernels see.
+- **Fixed signatures, replayed.** The JAX engine compiles one prefill
+  program per prompt bucket and one decode-step program and dispatches
+  them through `Executor.bind`. Here each signature is a `BoundStep`
+  (serving/graphs.py): `warmup()` binds every one and on the card captures
+  it as a CUDA graph (all of one engine's graphs share a memory pool);
+  every later call writes the feeds into its static buffers with one
+  host-to-device copy, replays, and the engine reads the result with one
+  sync. The signatures: a prefill for each prompt bucket and the decode
+  step, each greedy and sampled (`TransformerLM.prefill` or
+  `prefill_paged` on the prompt padded to its bucket,
+  `TransformerLM.decode_step` over every slot); a speculative engine adds
+  the drafter, the verify step and, unless the draft is the target, the
+  draft's prefills. On the CPU a bound step calls the model on the same
+  static buffers. The model's own methods stay the eager path. What stays
+  eager in the engine: the copy-on-write block copy and the draft cache's
+  block copies (rare, a few copies each).
 - **In-flight (continuous) batching.** Requests are admitted into free
   slots and finished or expired ones evicted at token boundaries, between
   decode steps. Every op of the step is slot-row-independent, so
@@ -82,6 +91,7 @@ from ..models.transformer import LMConfig, TransformerLM, init_params
 from ..reader.bucketing import bucketize
 from .batcher import (DeadlineExceededError, EngineStoppedError,
                       LoadShedError, Request, RequestQueue)
+from .graphs import BoundStep
 from .kv_blocks import BlockAllocator, PrefixCache, chain_hashes
 
 __all__ = ['GenerateConfig', 'GenerateEngine', 'GenerateRequest',
@@ -354,7 +364,7 @@ class GenerateEngine(object):
 
         cfg = GenerateConfig(model=LMConfig(...), slots=8, max_len=256)
         engine = GenerateEngine(cfg)          # on cuda:0
-        engine.warmup()                       # builds kernels, runs shapes
+        engine.warmup()                       # binds every signature
         with engine:                          # start()/stop()
             req = engine.submit(prompt_ids, max_new_tokens=32)
             for tok in req.stream():
@@ -427,6 +437,7 @@ class GenerateEngine(object):
             self._max_blocks = c.max_len // c.block_size
             self.model.allocate_paged_cache(c.num_blocks, c.block_size)
         else:
+            self._max_blocks = None
             self.model.allocate_cache(c.slots)
         self.draft = self._draft_alloc = None
         self._draft_copies_target = False
@@ -447,6 +458,11 @@ class GenerateEngine(object):
             draft_nb = c.slots * c.max_len // c.block_size + 1
             self._draft_alloc = BlockAllocator(draft_nb, c.block_size)
             self.draft.allocate_paged_cache(draft_nb, c.block_size)
+        # the bound signatures, their graphs' shared memory pool on the card
+        self._graphs = {}
+        self._pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == 'cuda' else None
+        self._late_binds = 0
         self.queue = RequestQueue(c.queue_cap)
         self._slots = [None] * c.slots
         self._free = list(range(c.slots))[::-1]
@@ -477,26 +493,110 @@ class GenerateEngine(object):
                                   'spec_stale_draft_rounds_total': 0})
 
     # ------------------------------------------------------------------
-    # device feeds
-    def _sample(self, rows):
-        """(temp, topk, topp, u, any_sampled) tensors on the device from
-        per-row tuples (temperature, top_k, top_p, u)."""
-        a = np.asarray(rows, dtype=np.float64).reshape(-1, 4)
-        f = torch.from_numpy(a[:, [0, 2, 3]].T.astype(np.float32))
-        k = torch.from_numpy(a[:, 1].astype(np.int64))
-        f = f.to(self.device)
-        k = k.to(self.device)
-        return f[0], k, f[1], f[2], bool((a[:, 0] > 0).any())
+    # bound signatures (serving/graphs.py): one per shape the engine
+    # dispatches, captured as a CUDA graph on the card
+    @property
+    def graphs(self):
+        """{signature key: `BoundStep`} of the signatures bound so far."""
+        return dict(self._graphs)
 
-    def _tensor(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a, 'int64')).to(
-            self.device)
+    def _bound(self, key):
+        """The `BoundStep` of signature ``key``, bound at its first use:
+        ('step', sampled), ('prefill', bucket, sampled), ('prefill_paged',
+        bucket, sampled, draft), ('drafter',) or ('verify',). A signature
+        first bound after warmup() counts in
+        ``stats()['graphs']['captures_after_warmup']``."""
+        bs = self._graphs.get(key)
+        if bs is None:
+            fn, feeds = self._signature(key)
+            bs = BoundStep(fn, feeds, self.device, pool=self._pool,
+                           name='signature %r' % (key,))
+            self._graphs[key] = bs
+            if self._warm:
+                self._late_binds += 1
+            if self.device.type == 'cuda':
+                # the graph captures the caches' addresses
+                for m in (self.model, self.draft):
+                    if m is not None:
+                        m.cache_captured = True
+        return bs
+
+    def _signature(self, key):
+        """(fn, feed specs) of signature ``key`` (see `_bound`). The
+        functions hold the models, not the engine: an engine that its own
+        bound steps referenced would be freed only by a cyclic collection,
+        whose freeing of its graphs could land inside another capture."""
+        c = self.config
+        S, MB, i64, f32 = c.slots, self._max_blocks, 'int64', 'float32'
+        kind = key[0]
+        target, draft_lm, K = self.model, self.draft, c.spec_k
+
+        def smp(n):     # temperature, top_k, top_p, u
+            return [((n,), f32), ((n,), i64), ((n,), f32), ((n,), f32)]
+
+        if kind == 'step':
+            sampled = key[1]
+
+            def fn(tok, pos, temp, topk, topp, u, tables=None):
+                return target.decode_step(
+                    tok, pos, (temp, topk, topp, u, sampled), tables=tables)
+            feeds = [((S,), i64), ((S,), i64)] + smp(S)
+            if c.paged:
+                feeds.append(((S, MB), i64))
+            return fn, feeds
+        if kind == 'prefill':
+            b, sampled = key[1:]
+
+            def fn(prompt, slot, length, temp, topk, topp, u):
+                return target.prefill(prompt, slot, length,
+                                      (temp, topk, topp, u, sampled))
+            return fn, [((1, b), i64), ((1,), i64), ((1,), i64)] + smp(1)
+        if kind == 'prefill_paged':
+            b, sampled, draft = key[1:]
+            model = draft_lm if draft else target
+
+            def fn(prompt, pos, table, length, temp, topk, topp, u):
+                return model.prefill_paged(prompt, pos, table, length,
+                                           (temp, topk, topp, u, sampled))
+            return fn, [((1, b), i64), ((b,), i64), ((MB,), i64),
+                        ((1,), i64)] + smp(1)
+        W = K + 1
+        if kind == 'drafter':
+            def fn(tok, pos, tables, vmask):
+                return (draft_lm.draft_steps(tok, pos, tables, vmask, K),)
+            return fn, [((S,), i64), ((S,), i64), ((S, MB), i64),
+                        ((S, W), i64)]
+        if kind == 'verify':
+            drafter = self._graphs[('drafter',)]
+
+            def fn(pos, tables, vmask):
+                # the verify rows, built on the device from the drafter's
+                # feeds and drafts: each slot's last token, then its drafts
+                # (an idle slot's row 0 is invalid: all token 0)
+                toks, drafts = drafter.inputs[0], drafter.outputs[0]
+                vt = torch.cat([toks[:, None], drafts], dim=1) * vmask[:, :1]
+                verdict, logits = target.verify_step(vt, pos, tables, vmask)
+                # drafts and verdict in one tensor: one read a round
+                return torch.cat([drafts.reshape(-1), verdict]), logits
+            return fn, [((S, W), i64), ((S, MB), i64), ((S, W), i64)]
+        raise KeyError(key)
+
+    @staticmethod
+    def _sample_feeds(rows):
+        """The sampling feeds (temperature f32, top_k int64, top_p f32, u
+        f32 [n]) of per-row tuples (temperature, top_k, top_p, u), and
+        whether any row samples."""
+        a = np.asarray(rows, dtype=np.float64).reshape(-1, 4)
+        return ([a[:, 0].astype(np.float32), a[:, 1].astype(np.int64),
+                 a[:, 2].astype(np.float32), a[:, 3].astype(np.float32)],
+                bool((a[:, 0] > 0).any()))
 
     def _tensors(self, *arrays):
         """Int64 device tensors of ``arrays`` (their shapes kept) through
-        one host-to-device copy."""
-        flat = self._tensor(np.concatenate(
-            [np.asarray(a, 'int64').reshape(-1) for a in arrays]))
+        one host-to-device copy (the eager block copies)."""
+        flat = torch.from_numpy(np.concatenate(
+            [np.asarray(a, 'int64').reshape(-1) for a in arrays])).to(
+                self.device)
         out, at = [], 0
         for a in arrays:
             n = int(np.size(a))
@@ -505,42 +605,45 @@ class GenerateEngine(object):
         return out
 
     def _run_prefill(self, slot, prompt, sample=(0.0, 0, 0.0, 0.0),
-                     table=None, ctx_len=0, model=None):
+                     table=None, ctx_len=0, draft=False):
         """Prefill ``prompt`` into ``slot`` (contiguous) or, paged, its
-        uncached suffix through ``table``; returns the first token. ``model``
-        is the target, or the draft for a speculative admission."""
+        uncached suffix through ``table``; returns the first token.
+        ``draft`` prefills the draft's cache (a speculative admission)."""
         c = self.config
-        model = model or self.model
+        smp, sampled = self._sample_feeds([sample])
         if table is None:
             b = bucketize(prompt.size, c.prompt_buckets)
             padded = np.full((1, b), c.pad_id, 'int64')
             padded[0, :prompt.size] = prompt
-            tok, _ = model.prefill(self._tensor(padded), slot, prompt.size,
-                                   self._sample([sample]))
-            return int(tok.cpu()[0])
+            tok, _ = self._bound(('prefill', b, sampled))(
+                padded, np.array([slot], 'int64'),
+                np.array([prompt.size], 'int64'), *smp)
+            return int(tok[0])
         # paged: only the uncached suffix is computed, bucketed by its own
         # length; a suffix wider than the widest bucket runs in chunks of
-        # that width, each depositing its K/V and attending the cached
-        # prefix like a shared-prefix suffix. Only the final chunk's token
-        # is the answer.
+        # that width (the widest bucket's greedy signature at length =
+        # wide), each depositing its K/V and attending the cached prefix
+        # like a shared-prefix suffix. Only the final chunk's token is the
+        # answer.
         wide = c.prompt_buckets[-1]
-        tab = self._tensor(table)
+        table = np.asarray(table, 'int64')
         off = int(ctx_len)
         suffix = prompt[off:]
+        greedy, _ = self._sample_feeds([(0.0, 0, 0.0, 0.0)])
         while suffix.size > wide:
             chunk, suffix = suffix[:wide], suffix[wide:]
             pos = np.clip(off + np.arange(wide), 0, c.max_len - 1)
-            model.prefill_paged(self._tensor(chunk[None]), self._tensor(pos),
-                                tab, wide)
+            self._bound(('prefill_paged', wide, False, draft))(
+                chunk[None], pos, table, np.array([wide], 'int64'),
+                *greedy)
             off += wide
         b = bucketize(suffix.size, c.prompt_buckets)
         padded = np.full((1, b), c.pad_id, 'int64')
         padded[0, :suffix.size] = suffix
         pos = np.clip(off + np.arange(b), 0, c.max_len - 1)
-        tok, _ = model.prefill_paged(
-            self._tensor(padded), self._tensor(pos), tab, suffix.size,
-            self._sample([sample]))
-        return int(tok.cpu()[0])
+        tok, _ = self._bound(('prefill_paged', b, sampled, draft))(
+            padded, pos, table, np.array([suffix.size], 'int64'), *smp)
+        return int(tok[0])
 
     def _run_step(self, rows, tables=None):
         """One decode step over every slot; ``rows`` maps slot index to
@@ -548,22 +651,22 @@ class GenerateEngine(object):
         ``tables`` slot index to its block table. Idle slots feed token 0
         at position 0 (paged: against an all-zero table row, so they write
         to the trash block). Returns next tokens as numpy [S]."""
-        S = self.config.slots
+        c = self.config
+        S = c.slots
         toks = np.zeros((2, S), 'int64')
         sample = [(0.0, 0, 0.0, 0.0)] * S
         for i, (last, pos, smp) in rows.items():
             toks[0, i], toks[1, i] = last, pos
             sample[i] = smp
-        btab = None
-        if self.config.paged:
+        smp, any_sampled = self._sample_feeds(sample)
+        feeds = [toks[0], toks[1]] + smp
+        if c.paged:
             btab = np.zeros((S, self._max_blocks), 'int64')
             for i, table in (tables or {}).items():
                 btab[i] = table
-            btab = self._tensor(btab)
-        t = self._tensor(toks)
-        nxt, _ = self.model.decode_step(t[0], t[1], self._sample(sample),
-                                        tables=btab)
-        return nxt.cpu().numpy()
+            feeds.append(btab)
+        nxt, _ = self._bound(('step', any_sampled))(*feeds)
+        return nxt.cpu().numpy().copy()
 
     # ------------------------------------------------------------------
     # paged helpers
@@ -661,12 +764,15 @@ class GenerateEngine(object):
     # ------------------------------------------------------------------
     # warmup + lifecycle
     def warmup(self):
-        """Run every prompt bucket's prefill and one decode step once (a
-        speculative engine: also the draft's prefills, unless the draft is
-        the target, the drafter and the verify step): on the card this
-        builds the kernels (first use) and settles the allocator. A paged
-        engine's warmup writes only to the trash block (all-zero tables).
-        Returns {'buckets', 'seconds'}."""
+        """Bind every signature the engine dispatches and run it once (on
+        the card: build the kernels, capture each one's CUDA graph): each
+        prompt bucket's prefill and the decode step, greedy and sampled; a
+        speculative engine also the draft's prefills (greedy; unless the
+        draft is the target, whose admissions copy blocks instead), the
+        drafter and the verify step. A contiguous engine's warmup writes
+        slot 0's rows and row 0 of every slot, a paged one's only the trash
+        block (all-zero tables). Returns {'buckets', 'signatures' (bound),
+        'graphs' (captured), 'seconds'}."""
         if self._started:
             raise RuntimeError(
                 "warmup() runs the prefill/decode path against the live KV "
@@ -674,31 +780,32 @@ class GenerateEngine(object):
                 "before start() (start() warms up automatically)")
         t0 = time.perf_counter()
         c = self.config
-        models = [self.model]
-        if c.speculative and not self._draft_copies_target:
-            models.append(self.draft)
+        zero_table = None if not c.paged else np.zeros(self._max_blocks,
+                                                       'int64')
         for b in c.prompt_buckets:
-            if not c.paged:
-                self._run_prefill(0, np.zeros((b,), 'int64'))
-                continue
-            for model in models:
-                model.prefill_paged(
-                    self._tensor(np.zeros((1, b))), self._tensor(
-                        np.zeros(b)), self._tensor(np.zeros(
-                            self._max_blocks)), 1)
-        self._run_step({})
+            for temp in (0.0, 1.0):
+                self._run_prefill(0, np.zeros((b,), 'int64'),
+                                  (temp, 0, 0.0, 0.0), table=zero_table)
+            if c.speculative and not self._draft_copies_target:
+                self._run_prefill(0, np.zeros((b,), 'int64'),
+                                  table=zero_table, draft=True)
+        for temp in (0.0, 1.0):
+            self._run_step({0: (0, 0, (temp, 0, 0.0, 0.0))})
         if c.speculative:
             S, W = c.slots, c.spec_k + 1
-            zeros = self._tensor(np.zeros((S, self._max_blocks)))
-            tok, pos, vm = self._tensors(np.zeros(S), np.zeros(S),
-                                         np.zeros((S, W)))
-            drafts = self.draft.draft_steps(tok, pos, zeros, vm, c.spec_k)
-            self.model.verify_step(torch.cat([tok[:, None], drafts], 1),
-                                   vm, zeros, vm)
+            zeros = np.zeros((S, self._max_blocks), 'int64')
+            self._bound(('drafter',))(np.zeros(S, 'int64'),
+                                      np.zeros(S, 'int64'), zeros,
+                                      np.zeros((S, W), 'int64'))
+            self._bound(('verify',))(np.zeros((S, W), 'int64'), zeros,
+                                     np.zeros((S, W), 'int64'))
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self._warm = True
         return {'buckets': len(self.config.prompt_buckets),
+                'signatures': len(self._graphs),
+                'graphs': sum(1 for g in self._graphs.values()
+                              if g.captured),
                 'seconds': round(time.perf_counter() - t0, 3)}
 
     def start(self):
@@ -937,7 +1044,7 @@ class GenerateEngine(object):
                     self._draft_cache_sync(dblocks, blocks)
                 else:
                     self._run_prefill(slot, req.prompt, table=dtable,
-                                      model=self.draft)
+                                      draft=True)
         except Exception as e:  # noqa: BLE001 — delivered to the request
             self._free.append(slot)
             if blocks:
@@ -1133,23 +1240,19 @@ class GenerateEngine(object):
         vv[idx] = np.arange(W)[None, :] < nvs[:, None]
         t0 = time.perf_counter()
         try:
-            toks_d, pos_d, dbtab_d, dvm_d, vp_d, vbtab_d, vv_d = \
-                self._tensors(toks, pos, dbtab, dvm, vp, vbtab, vv)
-            drafts = self.draft.draft_steps(toks_d, pos_d, dbtab_d, dvm_d, K)
+            self._bound(('drafter',))(toks, pos, dbtab, dvm)
             t1 = time.perf_counter()
-            # the verify rows, built on the device: each slot's last token,
-            # then its drafts (an idle slot's row 0 is invalid: all token 0)
-            vt = torch.cat([toks_d[:, None], drafts], dim=1) * vv_d[:, :1]
-            verdict, _ = self.model.verify_step(vt, vp_d, vbtab_d, vv_d)
+            both, _ = self._bound(('verify',))(vp, vbtab, vv)
         except Exception as e:  # noqa: BLE001 — fails the residents only
             self._fail_residents(active, e)
             return
-        # admit queued prompts while the verify step runs on the card
+        # admit queued prompts while the verify step runs on the card (the
+        # prefills' own bound steps: their feeds and outputs are their own)
         t_adm = time.perf_counter()
         self._admit()
         adm_s = time.perf_counter() - t_adm
         try:
-            both = torch.cat([drafts.reshape(-1), verdict]).cpu().numpy()
+            both = both.cpu().numpy().copy()
         except Exception as e:  # noqa: BLE001 — fails the residents only
             self._fail_residents(active, e)
             return
@@ -1267,7 +1370,11 @@ class GenerateEngine(object):
 
     # ------------------------------------------------------------------
     def stats(self):
-        """Decode-loop statistics since construction. Paged engines add
+        """Decode-loop statistics since construction. 'graphs' counts the
+        bound signatures, the CUDA graphs captured (none on the CPU), their
+        replays, and the signatures first bound after warmup() (0 when
+        warmup bound every signature the traffic dispatched: the
+        counterpart of the JAX engine's zero recompiles). Paged engines add
         the block accounting under 'blocks': the pool's state, the peak
         footprint and the prefix-cache entry count. Speculative engines add
         'spec': rounds, the tokens they emitted, proposed and accepted
@@ -1287,6 +1394,13 @@ class GenerateEngine(object):
             'peak_slot_occupancy': round(self._occ_peak, 4),
             'mean_slot_occupancy': round(self._occ_sum / steps, 4)
             if steps else 0.0,
+        }
+        graphs = list(self._graphs.values())
+        out['graphs'] = {
+            'signatures': len(self._graphs),
+            'captured': sum(1 for g in graphs if g.captured),
+            'replays': sum(g.replays for g in graphs),
+            'captures_after_warmup': self._late_binds,
         }
         if self.config.paged:
             out['blocks'] = {

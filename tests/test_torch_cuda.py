@@ -24,6 +24,7 @@ places but sum in another order, so that an element near a bf16 rounding
 boundary may land one bf16 step (2^-8 of its magnitude) away; their LSE
 within 1e-5 (float32 sums of float32 exponentials).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -1217,22 +1218,25 @@ def test_verify_step_on_the_card_matches_the_cpu(dev):
 
 def _traced_plain(eng, prompt, n):
     """(tokens, logits of each token's choice) of a plain paged engine's
-    generate_once, the logits on the CPU."""
-    model, rec = eng.model, []
+    generate_once, the logits on the CPU: its bound prefill and step
+    signatures (CUDA-graph replays) are wrapped for the call."""
+    if not eng._warm:
+        eng.warmup()
+    rec, bound = [], dict(eng._graphs)
 
-    def traced(fn):
-        def call(*args, **kw):
-            tok, logits = fn(*args, **kw)
-            rec.append(logits[0].cpu())
-            return tok, logits
+    def traced(bs):
+        def call(*feeds):
+            out = bs(*feeds)
+            rec.append(out[1][0].to('cpu', copy=True))
+            return out
         return call
 
-    model.prefill_paged = traced(model.prefill_paged)
-    model.decode_step = traced(model.decode_step)
+    eng._graphs.update({k: traced(bs) for k, bs in bound.items()
+                        if k[0] in ('step', 'prefill', 'prefill_paged')})
     try:
         tokens = eng.generate_once(prompt, max_new_tokens=n)
     finally:
-        del model.prefill_paged, model.decode_step
+        eng._graphs.update(bound)
     return tokens, rec[-len(tokens):]
 
 
@@ -1302,3 +1306,121 @@ def test_spec_engine_on_the_card_drains_both_pools(dev):
     assert st['blocks']['in_use'] == 0 and st['active'] == 0
     assert eng.counters['spec_fallback_total'] > 0
     assert eng.counters['spec_stale_draft_rounds_total'] > 0
+
+
+# the decode engine's bound signatures as CUDA graphs (serving/graphs.py)
+
+
+def _graph_feeds(eng, key, rs):
+    """Feeds of signature ``key`` at a live cache state: slot 1 (the
+    contiguous cache) or blocks 1.. of every slot's table (paged) at
+    position 19; a prefill of 3/4 of its bucket at position 0."""
+    c = eng.config
+    S, MB = c.slots, eng._max_blocks
+    smp = [np.full(n, v, dt) for n, v, dt in ((S, 0.8, 'float32'),
+                                              (S, 5, 'int64'),
+                                              (S, 0.9, 'float32'),
+                                              (S, 0.3, 'float32'))]
+    tok = rs.randint(2, c.model.vocab_size, size=S).astype('int64')
+    pos = np.full(S, 19, 'int64')
+    tab = 1 + np.arange(S * MB).reshape(S, MB) % 7 if MB else None
+    if key[0] == 'step':
+        return [tok, pos] + smp + ([tab] if MB else [])
+    if key[0] in ('prefill', 'prefill_paged'):
+        b = key[1]
+        prompt = rs.randint(2, c.model.vocab_size, size=(1, b)) \
+            .astype('int64')
+        one = [a[:1] for a in smp]
+        n = np.array([b * 3 // 4])
+        if key[0] == 'prefill':
+            return [prompt, np.array([1]), n] + one
+        return [prompt, np.arange(b), tab[0], n] + one
+    W = c.spec_k + 1
+    vm = np.ones((S, W), 'int64')
+    if key[0] == 'drafter':
+        return [tok, pos, tab, vm]
+    return [pos[:, None] + np.arange(W), tab, vm]
+
+
+def _graphed_equals_eager(key, got, want):
+    """A replay's outputs against the eager function's: bitwise equal, or
+    the logits (the last output) within 1e-6 of the largest logit with
+    every differing token a tie (the eager logits of the two tokens within
+    TIE). The drafter returns no logits: its drafts must be equal."""
+    if all(torch.equal(g, w) for g, w in zip(got, want)):
+        return True
+    if len(got) < 2:
+        return False
+    lg, lw = got[-1], want[-1]
+    if _err(lg, lw) > 1e-6 * float(lw.abs().max()):
+        return False
+    tg, tw = got[0], want[0]
+    if key == ('verify',):      # drafts, then the verdict of each row
+        n = tg.numel() - lw.shape[0]
+        if not torch.equal(tg[:n], tw[:n]):
+            return False
+        tg, tw = tg[n:], tw[n:]
+    rows = (tg != tw).nonzero().reshape(-1).tolist()
+    return all(abs(float(lw[r, tg[r]] - lw[r, tw[r]])) <= TIE
+               for r in rows)
+
+
+@pytest.mark.parametrize('mode', ['contiguous', 'paged', 'spec'])
+def test_engine_graphs_replay_equal_the_eager_path(dev, mode):
+    """warmup() captures one graph for each signature; each replay at one
+    cache state and one set of feeds equals the signature's eager
+    function (the model's own methods) on the same feeds, and adds the
+    launches its capture counted to the kernels' counts."""
+    from paddle_tpu_torch.serving import GenerateEngine
+    cfg = LMConfig(**SPEC_LM)
+    kw = {'paged': False} if mode == 'contiguous' else \
+        {'speculative': mode == 'spec'}
+    eng = GenerateEngine(_spec_cfg(**kw), params=init_params(cfg, 0, dev),
+                         device=dev)
+    warm = eng.warmup()
+    n = 2 + 2 * 2 + (2 if mode == 'spec' else 0)
+    assert warm['signatures'] == warm['graphs'] == n
+    rs = np.random.RandomState(3)
+    for key, bs in sorted(eng.graphs.items(), key=lambda kv: str(kv[0])):
+        if key == ('verify',):
+            continue                    # after the drafter, below
+        feeds = _graph_feeds(eng, key, rs)
+        kernel_tier.reset_counts()
+        got = [t.clone() for t in bs(*feeds)]
+        counts = kernel_tier.launch_counts()
+        assert {k: v for k, v in counts.items() if v} == bs.launches
+        assert bs.launches['embedding_gather'] >= 1
+        want = bs.fn(*[torch.from_numpy(a).to(dev) for a in feeds])
+        assert _graphed_equals_eager(key, got, want), key
+        if key == ('drafter',):
+            vfeeds = _graph_feeds(eng, ('verify',), rs)
+            vb = eng.graphs[('verify',)]
+            got = [t.clone() for t in vb(*vfeeds)]
+            want = vb.fn(*[torch.from_numpy(a).to(dev) for a in vfeeds])
+            assert _graphed_equals_eager(('verify',), got, want)
+    assert eng.stats()['graphs']['captures_after_warmup'] == 0
+    with pytest.raises(RuntimeError, match='CUDA graph'):
+        eng.model.allocate_cache(2)
+
+
+def test_engine_graphs_serve_traffic_without_new_captures(dev):
+    """Concurrent greedy and sampled traffic on the graphed contiguous
+    engine equals its own generate_once; every signature was captured at
+    warmup and replayed since, none captured after."""
+    from paddle_tpu_torch.serving import GenerateEngine
+    cfg = LMConfig(**SPEC_LM)
+    eng = GenerateEngine(_spec_cfg(paged=False),
+                         params=init_params(cfg, 0, dev), device=dev)
+    eng.warmup()
+    work = [(p, m, {'temperature': 0.8, 'sample_seed': i} if i % 2 else {})
+            for i, (p, m) in enumerate(_spec_prompts()) if p.size <= 16]
+    refs = [eng.generate_once(p, max_new_tokens=m, **kw)
+            for p, m, kw in work]
+    with eng:
+        outs = [list(r.result(120)) for r in
+                [eng.submit(p, max_new_tokens=m, **kw)
+                 for p, m, kw in work]]
+    assert outs == refs
+    g = eng.stats()['graphs']
+    assert g['captured'] == g['signatures'] == 6
+    assert g['replays'] > 0 and g['captures_after_warmup'] == 0
