@@ -107,7 +107,7 @@ Phases, each printing one JSON line:
    every gradient within 1e-3 of that gradient's largest magnitude.
 7. train     — the flagship training step as a user runs it:
    ``TransformerLM.loss`` (LMConfig() defaults: dropout 0.1, attention
-   dropout 0.1, so attention is the unfused branch) and ``Adam(1e-4,
+   dropout 0.1, so attention is the unfused branch) and ``TensorAdam(1e-4,
    fuse=True).minimize`` for 20 steps on one fixed batch (B 16, L 512)
    with a seeded generator: the loss finite and fallen by step 20, every
    kernel of that path launched in this phase, step ms, tokens/s, peak
@@ -134,6 +134,30 @@ Phases, each printing one JSON line:
    its ``amp=True``): all ten kernels of that path launched (the seven of
    phase 7 and the flash forward, dQ and dK/dV), step ms and tokens/s
    beside phase 7's.
+10b. program_train — the Fluid front end on the card: ``build_lm`` +
+   ``optimizer.Adam(1e-4, fuse=True).minimize``, the startup program and
+   ``Executor().run(main, feed, fetch_list)`` (no place: cuda:0), at phase
+   10's shape and batch (B 16 x L 512). (a) Flash on, dropout and
+   attention dropout 0: the startup scope's parameters overwritten by name
+   with a ``TransformerLM`` + ``TensorAdam`` run's initial weights, 10
+   steps of each; the Executor's loss within 1e-4 relative of that run's
+   at every step, every parameter within 1e-3 of its largest magnitude
+   after the 10 steps (the K slice of each ``*.attn.qkv.b``, whose true
+   gradient is 0, within 10 x lr), and each step launching exactly the
+   path's kernels (gather 1, LN forward and backward 13, flash forward, dQ
+   and dK/dV 6, FFN 6, CE forward and backward 1, Adam 1). (b) The bench's
+   configuration (dropout 0.1, attention dropout 0), 10 steps on phase 10's
+   weights: the loss finite and fallen, the same launches, step ms (host
+   clock, no fetch read until the last step, as phase 10 times it; and
+   with the loss read each step), device ms and peak memory beside phase
+   10's, and the host ms an Executor step and a ``TransformerLM`` step take
+   to return (the interpreter's cost). (c) ``LMConfig()`` (the unfused
+   branch, the causal mask an ``assign_value``), 5 steps: the loss finite
+   and fallen, the seven kernels of phase 7's path launched and no flash
+   kernel, step ms. (d) ``build_lm(cfg, is_test=True)`` at B 8: its logits
+   within 1e-4 of the largest magnitude of ``TransformerLM.logits`` on the
+   same weights. (e) The README's quick start (fc, square_error_cost,
+   ``SGD(0.01)``): the loss falls over 20 steps.
 11. bert_kernel — the kernels of phases 3 and 5 at BERT-base's shapes (rows
    of D 768, the FFN at 768 -> 3072 -> 768 at N 4096 and, as the B 128
    forward calls it, at N 16384, CE at V 30522 and at V 2,
@@ -147,7 +171,7 @@ Phases, each printing one JSON line:
    the card and on the CPU (total within 1e-4), flash against unfused on
    the card (rtol 1e-4), the forward at B 128 (ms, samples/s), and 10
    training steps at B 32 with attention dropout 0 so that the flash path
-   trains (dropout 0.1, ``Adam(1e-4, fuse=True)``, one fixed batch): the
+   trains (dropout 0.1, ``TensorAdam(1e-4, fuse=True)``, one fixed batch): the
    loss finite and fallen, all ten kernels launched, step ms, samples/s,
    peak memory and a profile of one step.
 13. amp_flash_kernel — phase 8 on bf16 operands: the bf16 forward, dQ and
@@ -178,7 +202,7 @@ Phases, each printing one JSON line:
    limit.
 15. train_amp — the bench's flagship row as it runs (bench.py:1058-1062:
    dropout 0.1, attention dropout 0, flash on, ``amp=True``): the model
-   marked, ``decorate(Adam(1e-4, fuse=True))``, B 64 x L 512, 20 steps on
+   marked, ``decorate(TensorAdam(1e-4, fuse=True))``, B 64 x L 512, 20 steps on
    one fixed batch: the loss finite and fallen, every kernel of the AMP
    path launched (gather, LN forward and backward, CE forward and backward,
    Adam, the three bf16 flash kernels) and neither the FFN kernel nor the
@@ -287,10 +311,18 @@ AMP_TRAIN_KERNELS = ('embedding_gather', 'fused_ln_residual',
 AMP_IDLE_KERNELS = ('fused_ffn',) + FLASH_KERNELS
 AMP_TRAIN_B = 64            # bench.py:1062
 AMP_BERT_B = 128            # bench.py:1131
+# phase 10b: the Fluid front end's steps
+PROGRAM_STEPS = 10
+PROGRAM_DEFAULT_STEPS = 5
+PROGRAM_INFER_B = 8
+QUICK_START_STEPS = 20
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'engine_spec': PAGED_KERNELS,
                 'train': TRAIN_KERNELS,
                 'train_flash': FLASH_TRAIN_KERNELS,
+                'program_held': FLASH_TRAIN_KERNELS,
+                'program_train': FLASH_TRAIN_KERNELS,
+                'program_default': TRAIN_KERNELS,
                 'bert': FLASH_TRAIN_KERNELS, 'train_amp': AMP_TRAIN_KERNELS,
                 'bert_amp': AMP_TRAIN_KERNELS}
 
@@ -2162,10 +2194,10 @@ def run_training(torch, kt, phase, cfg, kernels, note=None, amp=False,
     launch. Returns (summary, counts)."""
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models.transformer import TransformerLM, init_params
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import TensorAdam
     dev = torch.device('cuda', 0)
     model = TransformerLM(cfg, init_params(cfg, 2, dev), cfg.seq_len)
-    opt = Adam(model.p, 1e-4, fuse=True)
+    opt = TensorAdam(model.p, 1e-4, fuse=True)
     marked = None
     if amp:
         marked = mixed_precision.rewrite_model_bf16(model)
@@ -2229,6 +2261,247 @@ def timed_training(torch, kt, step, steps, kernels, idle=()):
                 step_profile=step_profile(torch, step, steps=1)), counts
 
 
+def program_step_launches(cfg):
+    """The launches one training step of the flash program makes: the
+    gather, the 2L + 1 fused LayerNorms forward and backward, the three
+    flash kernels and the FFN a layer, the CE forward and backward, one
+    fused Adam (`PERF.md` §6's launches column)."""
+    from paddle_tpu_torch.ops import kernel_tier as kt
+    n, ln = cfg.n_layer, 2 * cfg.n_layer + 1
+    return dict(dict.fromkeys(kt.KERNELS, 0), embedding_gather=1,
+                fused_ln_residual=ln, fused_ln_residual_bwd=ln,
+                flash_attention=n, flash_attention_bwd_dq=n,
+                flash_attention_bwd_dkv=n, fused_ffn=n, softmax_ce_fwd=1,
+                softmax_ce_bwd=1, fused_adam=1)
+
+
+def build_program(fluid, cfg, is_test=False):
+    """(main, startup, logits, loss) of ``build_lm(cfg)`` with
+    ``Adam(1e-4, fuse=True).minimize`` unless ``is_test``."""
+    from paddle_tpu_torch.models import transformer
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, logits, loss = transformer.build_lm(cfg, is_test=is_test)
+        if not is_test:
+            fluid.optimizer.Adam(1e-4, fuse=True).minimize(loss)
+    return main, startup, logits, loss
+
+
+def program_scope(torch, fluid, exe, startup, params):
+    """Run the startup program into a new scope (its ms beside it) and
+    overwrite its parameters by name with copies of ``params``."""
+    scope = fluid.Scope()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_ms = (time.perf_counter() - t) * 1e3
+    for name, p in params.items():
+        have = scope.get(name)
+        if have is None or tuple(have.shape) != tuple(p.shape):
+            raise AssertionError('the startup program made no %s of shape '
+                                 '%s' % (name, tuple(p.shape)))
+        scope.set(name, p.to(exe.device, copy=True))
+    return scope, startup_ms
+
+
+def program_step(exe, main, feed, loss, scope):
+    """One training step of ``main`` through ``Executor.run``, its loss
+    left on the card."""
+    return lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)[0]
+
+
+def return_ms(torch, steps, rounds=10):
+    """For each function of ``steps``: (host ms to return, ms to the end of
+    its device work), medians over ``rounds`` rounds that call each in
+    turn, every call started on an idle card (the host's noise falls on
+    all of them alike)."""
+    host = [[] for _ in steps]
+    wall = [[] for _ in steps]
+    for _ in range(rounds):
+        for i, step in enumerate(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host[i].append((t1 - t0) * 1e3)
+            wall[i].append((time.perf_counter() - t0) * 1e3)
+    return [(float(np.median(h)), float(np.median(w)))
+            for h, w in zip(host, wall)]
+
+
+def run_program_train(torch, kt, smi, flash_step):
+    """Phase 10b (module docstring). ``flash_step`` is phase 10's summary.
+    Returns (summary, {path: launch counts})."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import (LMConfig,
+                                                     TransformerLM,
+                                                     init_params)
+    from paddle_tpu_torch.optimizer import TensorAdam
+    exe = fluid.Executor()
+    dev = exe.device
+    if dev != torch.device('cuda', 0):
+        raise AssertionError('Executor() runs on %s, not cuda:0' % dev)
+    lr = 1e-4
+    # phase 10's batch and weights
+    g = torch.Generator(device='cpu').manual_seed(6)
+    lm = LMConfig()
+    tok = torch.randint(0, lm.vocab_size, (TRAIN_B, lm.seq_len), generator=g)
+    lab = torch.randint(0, lm.vocab_size, (TRAIN_B, lm.seq_len), generator=g)
+    feed = {'tokens': tok.numpy(), 'labels': lab.numpy()}
+    params = init_params(lm, 2, 'cpu')
+    out = dict(phase='program_train', card=smi, batch=TRAIN_B,
+               seq_len=lm.seq_len, steps=PROGRAM_STEPS)
+    by_path = {}
+
+    # (a) the two paths held to each other: flash on, no dropout
+    cfg = LMConfig(dropout=0.0, attn_dropout=0.0)
+    model = TransformerLM(cfg, {k: v.to(dev, copy=True)
+                                for k, v in params.items()}, cfg.seq_len)
+    opt = TensorAdam(model.p, lr, fuse=True)
+    tok_d, lab_d = tok.to(dev), lab.to(dev)
+    ref = [float(opt.minimize(model.loss(tok_d, lab_d)))
+           for _ in range(PROGRAM_STEPS)]
+    ref_params = {n: p.detach().clone() for n, p in model.p.items()}
+    del model, opt
+    torch.cuda.empty_cache()
+    main, startup, _, loss = build_program(fluid, cfg)
+    scope, startup_ms = program_scope(torch, fluid, exe, startup, params)
+    per_step = program_step_launches(cfg)
+    kt.reset_counts()
+    got = []
+    for i in range(PROGRAM_STEPS):
+        before = kt.launch_counts()
+        got.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)[0][0]))
+        after = kt.launch_counts()
+        step_counts = {k: after[k] - before[k] for k in after}
+        if step_counts != per_step:
+            raise AssertionError('program step %d launched %s, the path '
+                                 'launches %s' % (i, step_counts, per_step))
+    by_path['program_held'] = kt.launch_counts()
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    d = cfg.d_model
+    param_rel, kbias = {}, 0.0
+    for n, want in ref_params.items():
+        have = scope.get(n)
+        if n.endswith('.attn.qkv.b'):
+            kbias = max(kbias, float((have[d:2 * d] - want[d:2 * d])
+                                     .abs().max()))
+            have = torch.cat([have[:d], have[2 * d:]])
+            want = torch.cat([want[:d], want[2 * d:]])
+        param_rel[n] = float((have - want).abs().max() /
+                             want.abs().max().clamp_min(1e-30))
+    worst = max(param_rel, key=param_rel.get)
+    out['held'] = dict(losses=got, ref_losses=ref,
+                       loss_rel_err_max=max(loss_rel),
+                       param_rel_err_max=param_rel[worst],
+                       param_rel_err_worst=worst, k_bias_abs_err_max=kbias,
+                       launches_per_step=per_step, startup_ms=startup_ms)
+    failures = []
+    if not max(loss_rel) <= 1e-4:
+        failures.append('program losses %s against TransformerLM %s'
+                        % (got, ref))
+    if not param_rel[worst] <= 1e-3:
+        failures.append('parameter %s differs by %g of its largest '
+                        'magnitude' % (worst, param_rel[worst]))
+    if not kbias <= 10 * lr:
+        failures.append('a K bias differs by %g' % kbias)
+    if failures:
+        emit(out)
+        raise AssertionError('; '.join(failures))
+    del scope, ref_params
+    torch.cuda.empty_cache()
+
+    # (b) the bench's configuration, timed beside phase 10
+    cfg = LMConfig(attn_dropout=0.0)
+    main, startup, _, loss = build_program(fluid, cfg)
+    scope, _ = program_scope(torch, fluid, exe, startup, params)
+    feed_d = {'tokens': tok_d, 'labels': lab_d}
+    step = program_step(exe, main, feed_d, loss, scope)
+    timed, counts = timed_training(torch, kt, step, PROGRAM_STEPS,
+                                   FLASH_TRAIN_KERNELS)
+    want = {k: PROGRAM_STEPS * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError('%d program steps launched %s, not %s'
+                             % (PROGRAM_STEPS, counts, want))
+    by_path['program_train'] = counts
+    fetched_ms = host_ms(torch, lambda: exe.run(
+        main, feed=feed_d, fetch_list=[loss], scope=scope), 5)
+    model = TransformerLM(cfg, {k: v.to(dev, copy=True)
+                                for k, v in params.items()}, cfg.seq_len)
+    opt = TensorAdam(model.p, lr, fuse=True)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    (exe_host, exe_wall), (lm_host, lm_wall) = return_ms(
+        torch, [step, lambda: opt.minimize(model.loss(tok_d, lab_d, gen))])
+    del model, opt, scope, step
+    torch.cuda.empty_cache()
+    out['train'] = dict(
+        dropout=cfg.dropout, attn_dropout=cfg.attn_dropout,
+        tokens_per_s=TRAIN_B * cfg.seq_len / (timed['step_ms'] / 1e3),
+        fetched_step_ms=fetched_ms, host_ms=exe_host, host_wall_ms=exe_wall,
+        model_host_ms=lm_host, model_host_wall_ms=lm_wall,
+        phase10=flash_step, **timed)
+
+    # (c) LMConfig(): the unfused branch with the assign_value mask
+    cfg = LMConfig()
+    main, startup, _, loss = build_program(fluid, cfg)
+    scope, _ = program_scope(torch, fluid, exe, startup, params)
+    timed, by_path['program_default'] = timed_training(
+        torch, kt, program_step(exe, main, feed_d, loss, scope),
+        PROGRAM_DEFAULT_STEPS, TRAIN_KERNELS,
+        idle=FLASH_KERNELS)
+    out['default'] = dict(dropout=cfg.dropout,
+                          attn_dropout=cfg.attn_dropout, **timed)
+    del scope
+    torch.cuda.empty_cache()
+
+    # (d) the inference program against TransformerLM.logits
+    cfg = LMConfig(dropout=0.0, attn_dropout=0.0)
+    main, startup, logits, _ = build_program(fluid, cfg, is_test=True)
+    scope, _ = program_scope(torch, fluid, exe, startup, params)
+    itok = tok[:PROGRAM_INFER_B]
+    got, = exe.run(main, feed={'tokens': itok.numpy()},
+                   fetch_list=[logits], scope=scope, return_numpy=False)
+    model = TransformerLM(cfg, {k: v.to(dev, copy=True)
+                                for k, v in params.items()}, cfg.seq_len)
+    with torch.no_grad():
+        want = model.logits(itok.to(dev))
+    infer_err = float((got.reshape(want.shape) - want).abs().max() /
+                      want.abs().max())
+    out['infer'] = dict(batch=PROGRAM_INFER_B, rel_err=infer_err,
+                        shape=list(got.shape))
+    del model, scope, got, want
+    torch.cuda.empty_cache()
+    if not infer_err <= 1e-4:
+        emit(out)
+        raise AssertionError('inference logits differ by %g of their '
+                             'largest magnitude' % infer_err)
+
+    # (e) the README's quick start
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name='x', shape=[13], dtype='float32')
+        y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+        cost = fluid.layers.square_error_cost(fluid.layers.fc(x, size=1), y)
+        avg = fluid.layers.mean(cost)
+        fluid.optimizer.SGD(0.01).minimize(avg)
+    rs = np.random.RandomState(11)
+    X = rs.randn(64, 13).astype('float32')
+    Y = (X @ rs.randn(13, 1) + 0.5).astype('float32')
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    qs = [float(exe.run(main, feed={'x': X, 'y': Y}, fetch_list=[avg],
+                        scope=scope)[0][0]) for _ in range(QUICK_START_STEPS)]
+    out['quick_start'] = dict(losses=qs)
+    if not (np.all(np.isfinite(qs)) and qs[-1] < qs[0]):
+        emit(out)
+        raise AssertionError('the quick start did not train: %s' % qs)
+    return out, by_path
+
+
 def bert_batch(torch, cfg, n, seed, to):
     """A BERT pretraining batch of ``n`` sequences on ``to`` whose
     ``input_mask`` keeps key lengths drawn in 32..L."""
@@ -2262,7 +2535,7 @@ def run_bert(torch, kt):
     """Phase 12: BERT-base at full width. Returns (summary, counts of the
     training steps)."""
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import TensorAdam
     dev = torch.device('cuda', 0)
     cfg = bert.BertConfig(attn_dropout=0.0)      # dropout 0.1, flash trains
     params = bert.init_params(cfg, 3, 'cpu')
@@ -2301,7 +2574,7 @@ def run_bert(torch, kt):
     torch.cuda.empty_cache()
 
     # (iv) training
-    opt = Adam(model.p, 1e-4, fuse=True)
+    opt = TensorAdam(model.p, 1e-4, fuse=True)
     gen = torch.Generator(device=dev).manual_seed(77)
     feed = batch(BERT_TRAIN_B, 3, dev)
     train, counts = timed_training(
@@ -2338,7 +2611,7 @@ def run_bert_amp(torch, kt, f32_infer_ms):
     timed only. Returns (summary, counts of the training steps)."""
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import TensorAdam
     dev = torch.device('cuda', 0)
     out = dict(phase='bert_amp', batch=AMP_BERT_B)
     counts = None
@@ -2347,7 +2620,7 @@ def run_bert_amp(torch, kt, f32_infer_ms):
         model = bert.BertPretrain(cfg, bert.init_params(cfg, 3, dev))
         marked = mixed_precision.rewrite_model_bf16(model)
         feed = bert_batch(torch, cfg, AMP_BERT_B, 3, dev)
-        opt = mixed_precision.decorate(Adam(model.p, 1e-4, fuse=True))
+        opt = mixed_precision.decorate(TensorAdam(model.p, 1e-4, fuse=True))
         gen = torch.Generator(device=dev).manual_seed(77)
         step = lambda: opt.minimize(model.loss(generator=gen, **feed)[0])
         if attn_dropout:
@@ -2496,7 +2769,15 @@ def main():
     emit(train_flash)
     f32_flash_step = {k: train_flash[k] for k in (
         'batch', 'step_ms', 'tokens_per_s', 'peak_mem_bytes')}
+    f32_flash_step['device_ms'] = train_flash['step_profile'][
+        'device_ms_per_step']
     del train, train_flash
+    torch.cuda.empty_cache()
+    program, program_paths = run_program_train(torch, kt, smi,
+                                               f32_flash_step)
+    by_path.update(program_paths)
+    emit(program)
+    del program
     torch.cuda.empty_cache()
 
     bc = bert.BertConfig()

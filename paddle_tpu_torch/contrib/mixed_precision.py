@@ -10,7 +10,8 @@ forward: :func:`rewrite_model_bf16` is the counterpart of
 `rewrite_program_bf16`. A user writes two lines::
 
     mixed_precision.rewrite_model_bf16(model)
-    opt = mixed_precision.decorate(optimizer.Adam(model.p, 1e-4, fuse=True))
+    opt = mixed_precision.decorate(
+        optimizer.TensorAdam(model.p, 1e-4, fuse=True))
     opt.minimize(model.loss(tokens, labels, generator))
 
 In the LM and BERT the marked sites are every fc's ``mul``, the unfused

@@ -1,0 +1,44 @@
+"""The op registry: op type -> lowering on torch tensors.
+
+The port's own copy of paddle_tpu/core/registry.py. A lowering
+``fn(ctx, op)`` reads its inputs from the LowerContext (core/lowering.py),
+computes on torch tensors by calling the port's op functions (which launch
+the CUDA kernels on the card) and writes its outputs back. ``needs_rng`` is
+a bool, or a predicate over the op instance for ops whose random draws
+depend on their attrs (a fused FFN tail draws only in training with live
+dropout); ``stateful`` marks ops that update their inputs in place (the
+optimizers). Gradients come from ``torch.autograd`` over the lowerings
+(the `backward` meta-op), so no op registers a gradient.
+"""
+
+__all__ = ['OpDef', 'register_op', 'get_op']
+
+
+class OpDef(object):
+    __slots__ = ('type', 'lower', 'stateful', 'needs_rng')
+
+    def __init__(self, type, lower, stateful=False, needs_rng=False):
+        self.type = type
+        self.lower = lower
+        self.stateful = stateful
+        self.needs_rng = needs_rng
+
+
+_ops = {}
+
+
+def register_op(type, stateful=False, needs_rng=False):
+    """Decorator: register ``fn(ctx, op)`` as the lowering of op ``type``."""
+    def deco(fn):
+        if type in _ops:
+            raise KeyError("op %r already registered" % type)
+        _ops[type] = OpDef(type, fn, stateful=stateful, needs_rng=needs_rng)
+        return fn
+    return deco
+
+
+def get_op(type):
+    if type not in _ops:
+        raise NotImplementedError(
+            "op %r has no lowering registered in paddle_tpu_torch" % type)
+    return _ops[type]

@@ -7,7 +7,9 @@ port's `TransformerLM` or `BertPretrain` state (a scope whose names start
 with ``bert.`` is BERT's), checking every name and shape.
 `train_state_from_numpy` takes a whole training scope (the parameters, the
 Adam accumulators and the learning rate) apart for the model and
-`optimizer.Adam`.
+`optimizer.TensorAdam`. `scope_from_numpy` puts every array of a JAX scope,
+by name, into a port `Scope` for the Executor (``load_params(...,
+scope=)`` does the same from a saved directory).
 """
 import os
 import re
@@ -15,32 +17,56 @@ import re
 import numpy as np
 import torch
 
+from .executor import Scope
 from .framework import resolve_device
 from .models import bert
 from .models.transformer import LMConfig, param_shapes
 
-__all__ = ['load_params', 'params_from_numpy', 'train_state_from_numpy']
+__all__ = ['load_params', 'params_from_numpy', 'train_state_from_numpy',
+           'scope_from_numpy']
 
 # decode-engine state the JAX package keeps in the same scope: not weights
 _IGNORED = ('gen_kv_k', 'gen_kv_v')
 
 
-def load_params(dirname, filename=None):
+def load_params(dirname, filename=None, scope=None, device=None):
     """{name: numpy array} from a directory written by
-    `paddle_tpu.io.save_params` (or `save_vars`)."""
+    `paddle_tpu.io.save_params` (or `save_vars`); with ``scope`` (a port
+    `Scope`) the arrays also go into it, as `scope_from_numpy` puts them
+    (tensors on ``device``: None means ``cuda:0``)."""
     if filename is not None:
         if not filename.endswith('.npz'):
             filename += '.npz'
         with np.load(os.path.join(dirname, filename)) as data:
-            return {k: data[k] for k in data.files}
-    out = {}
-    for fn in sorted(os.listdir(dirname)):
-        if fn.endswith('.npy'):
-            out[fn[:-4].replace('%2F', '/')] = np.load(
-                os.path.join(dirname, fn))
-    if not out:
-        raise FileNotFoundError('no .npy parameter files in %r' % dirname)
+            out = {k: data[k] for k in data.files}
+    else:
+        out = {}
+        for fn in sorted(os.listdir(dirname)):
+            if fn.endswith('.npy'):
+                out[fn[:-4].replace('%2F', '/')] = np.load(
+                    os.path.join(dirname, fn))
+        if not out:
+            raise FileNotFoundError('no .npy parameter files in %r'
+                                    % dirname)
+    if scope is not None:
+        scope_from_numpy(out, scope, device)
     return out
+
+
+def scope_from_numpy(arrays, scope=None, device=None):
+    """Put every array of ``arrays`` ({name: numpy array or tensor}, such as
+    a JAX scope's parameters, ``<param>_moment1_<k>`` ...,
+    ``<param>_beta1_pow_acc_<k>`` ... and ``learning_rate_<k>``) into
+    ``scope`` (a new `Scope` when None) by name, each a tensor of its own
+    dtype on ``device`` (None: ``cuda:0``, raising without a card).
+    Returns the scope."""
+    dev = resolve_device(device)
+    scope = Scope() if scope is None else scope
+    for name, a in arrays.items():
+        t = a.detach().clone() if isinstance(a, torch.Tensor) else \
+            torch.from_numpy(np.array(a))
+        scope.set(name, t.to(dev))
+    return scope
 
 
 def _is_bert(names):
@@ -128,8 +154,8 @@ def train_state_from_numpy(arrays, device=None, config=None):
     `params_from_numpy` gives them, ``adam_state`` as {parameter name:
     {'moment1', 'moment2', 'beta1_pow', 'beta2_pow'}} float32 tensors on
     ``device`` (None: ``cuda:0``, as in `params_from_numpy`; the form
-    `optimizer.Adam.load_state` takes) and ``learning_rate`` a one-element
-    tensor there. The accumulators are
+    `optimizer.TensorAdam.load_state` takes) and ``learning_rate`` a
+    one-element tensor there. The accumulators are
     ``<param>_moment1_<k>``, ``<param>_moment2_<k>``,
     ``<param>_beta1_pow_acc_<k>`` and ``<param>_beta2_pow_acc_<k>``; the
     learning rate is ``learning_rate_<k>``. Raises ValueError on a missing

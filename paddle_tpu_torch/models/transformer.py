@@ -1,4 +1,11 @@
-"""The flagship causal LM: training forward and decode.
+"""The flagship causal LM: the program builder, the training forward and
+decode.
+
+`build_lm` (with `multi_head_attention`, `transformer_block`, `_entry_ln`
+and `_ffn_tail`) is the port's own copy of the JAX builder: it appends the
+same ops to the default programs through the port's `layers`, and the
+Executor runs them (executor.py). The rest of the module is the same model
+as an ``nn.Module`` for the paths that run without a Program.
 
 Counterpart of paddle_tpu/models/transformer.py: `LMConfig`, `build_lm`
 (the training program's forward, up to the mean loss), the decode programs
@@ -40,9 +47,12 @@ unfused attention's two ``matmul``s and ``flash_attention`` (in
 """
 import collections
 
+import numpy as np
 import torch
 from torch import nn
 
+from .. import layers
+from ..param_attr import ParamAttr
 from ..ops.attention_ops import flash_attention
 from ..ops.ce_ops import fused_softmax_ce
 from ..ops.embedding_ops import embedding_gather
@@ -59,7 +69,9 @@ from ..ops.nn_ops import fused_ln_residual, layer_norm
 from ..ops.random_ops import dropout, keep_mask
 from ..ops.tensor_ops import add_position_encoding, position_encoding_table
 
-__all__ = ['LMConfig', 'TransformerLM', 'TransformerStack', 'param_shapes',
+__all__ = ['LMConfig', 'build_lm', 'multi_head_attention',
+           'transformer_block', 'TransformerLM', 'TransformerStack',
+           'param_shapes',
            'block_param_shapes', 'init_params']
 
 
@@ -128,6 +140,173 @@ def init_params(cfg, seed, device, shapes=None):
             t = torch.randn(shape, generator=g) * 0.02
         out[name] = t.to(device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the program builder (paddle_tpu/models/transformer.py:44-235)
+
+
+def multi_head_attention(x, cfg, prefix, mask_var=None, is_test=False,
+                         seq_parallel=False, causal=False,
+                         key_padding_bias=None):
+    """Fused-QKV multi-head self-attention: one (D, 3D) product for Q, K
+    and V, then the ``flash_attention`` op (causal or with a key-padding
+    bias, no full mask, no live attention dropout) or the unfused matmul,
+    mask, softmax, dropout, matmul."""
+    d, h = cfg.d_model, cfg.n_head
+    dh = d // h
+    qkv = layers.fc(input=x, size=3 * d, num_flatten_dims=2,
+                    param_attr=ParamAttr(name=prefix + '.qkv.w'),
+                    bias_attr=ParamAttr(name=prefix + '.qkv.b'))
+    qkv = layers.reshape(qkv, shape=[0, cfg.seq_len, 3, h, dh])
+    qkv = layers.transpose(qkv, perm=[2, 0, 3, 1, 4])  # (3, B, H, L, dh)
+    q = layers.squeeze(layers.slice(qkv, axes=[0], starts=[0], ends=[1]),
+                       axes=[0])
+    k = layers.squeeze(layers.slice(qkv, axes=[0], starts=[1], ends=[2]),
+                       axes=[0])
+    v = layers.squeeze(layers.slice(qkv, axes=[0], starts=[2], ends=[3]),
+                       axes=[0])
+    attn_drop = getattr(cfg, 'attn_dropout', 0.0)
+    use_flash = getattr(cfg, 'use_flash_attention', False) and \
+        (causal or key_padding_bias is not None) and \
+        mask_var is None and (is_test or not attn_drop)
+    if use_flash:
+        helper_block = x.block
+        ctx = helper_block.create_var(
+            name=prefix + '.flash_out',
+            shape=(-1, h, cfg.seq_len, dh), dtype='float32')
+        flash_inputs = {'Q': [q], 'K': [k], 'V': [v]}
+        if key_padding_bias is not None:
+            flash_inputs['KeyPaddingBias'] = [key_padding_bias]
+        helper_block.append_op(
+            type='flash_attention',
+            inputs=flash_inputs,
+            outputs={'Out': [ctx]},
+            attrs={'scale': dh ** -0.5, 'causal': bool(causal),
+                   'ring_zigzag': bool(getattr(cfg, 'ring_zigzag',
+                                               False))})
+    else:
+        logits = layers.matmul(q, k, transpose_y=True, alpha=dh ** -0.5)
+        if mask_var is not None:
+            logits = layers.elementwise_add(logits, mask_var)
+        if key_padding_bias is not None:
+            logits = layers.elementwise_add(
+                logits, layers.reshape(key_padding_bias,
+                                       [-1, 1, 1, cfg.seq_len]))
+        weights = layers.softmax(logits)
+        if attn_drop and not is_test:
+            weights = layers.dropout(weights, dropout_prob=attn_drop,
+                                     is_test=is_test,
+                                     dropout_implementation='upscale_in_train')
+        ctx = layers.matmul(weights, v)                # (B, H, L, dh)
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = layers.reshape(ctx, shape=[0, cfg.seq_len, d])
+    out = layers.fc(input=ctx, size=d, num_flatten_dims=2,
+                    param_attr=ParamAttr(name=prefix + '.proj.w'),
+                    bias_attr=ParamAttr(name=prefix + '.proj.b'))
+    return out
+
+
+def _entry_ln(x, residual, bna, name):
+    """LayerNorm at a residual-stream read point, fused with the pending
+    FFN delta ``residual`` when there is one. Returns (ln_out, stream)."""
+    if residual is None:
+        ln = layers.layer_norm(x, begin_norm_axis=bna,
+                               param_attr=ParamAttr(name=name + '.w'),
+                               bias_attr=ParamAttr(name=name + '.b'))
+        return ln, x
+    return layers.fused_layer_norm_residual(
+        x, residual, begin_norm_axis=bna,
+        param_attr=ParamAttr(name=name + '.w'),
+        bias_attr=ParamAttr(name=name + '.b'))
+
+
+def _ffn_tail(ln2, cfg, prefix, num_flatten_dims, dropout_prob=0.0,
+              is_test=True):
+    """The block's FFN tail as ONE fused_ffn_tail op."""
+    return layers.fused_ffn_tail(
+        ln2, cfg.d_ff, cfg.d_model,
+        num_flatten_dims=num_flatten_dims,
+        dropout_prob=dropout_prob, is_test=is_test,
+        inner_param_attr=ParamAttr(name=prefix + '.ffn1.w'),
+        inner_bias_attr=ParamAttr(name=prefix + '.ffn1.b'),
+        param_attr=ParamAttr(name=prefix + '.ffn2.w'),
+        bias_attr=ParamAttr(name=prefix + '.ffn2.b'))
+
+
+def transformer_block(x, cfg, prefix, mask_var=None, is_test=False,
+                      causal=False, key_padding_bias=None, residual=None,
+                      defer_residual=False):
+    """Pre-norm residual block. ``residual`` is the previous block's
+    unadded FFN delta (fused into the entry LayerNorm);
+    ``defer_residual=True`` returns ``(stream, delta)`` with this block's
+    FFN output unadded."""
+    ln1, x = _entry_ln(x, residual, 2, prefix + '.ln1')
+    attn = multi_head_attention(ln1, cfg, prefix + '.attn',
+                                mask_var=mask_var, is_test=is_test,
+                                causal=causal,
+                                key_padding_bias=key_padding_bias)
+    ln2, x = layers.fused_layer_norm_residual(
+        x, attn, begin_norm_axis=2,
+        param_attr=ParamAttr(name=prefix + '.ln2.w'),
+        bias_attr=ParamAttr(name=prefix + '.ln2.b'))
+    ff2 = _ffn_tail(ln2, cfg, prefix, 2,
+                    dropout_prob=float(cfg.dropout or 0.0),
+                    is_test=is_test)
+    if defer_residual:
+        return x, ff2
+    return layers.elementwise_add(x, ff2)
+
+
+def build_lm(cfg=None, is_test=False):
+    """Causal LM into the default programs: feeds {'tokens', 'labels'} of
+    shape (B, L) int64; returns (tokens, labels, logits, avg_loss)."""
+    cfg = cfg or LMConfig()
+    tokens = layers.data(name='tokens', shape=[cfg.seq_len], dtype='int64')
+    labels = layers.data(name='labels', shape=[cfg.seq_len], dtype='int64')
+
+    emb = layers.embedding(
+        tokens, size=[cfg.vocab_size, cfg.d_model], dtype='float32',
+        param_attr=ParamAttr(name='tok_emb.w'))
+    x = layers.add_position_encoding(emb, alpha=1.0, beta=1.0)
+    if cfg.dropout and not is_test:
+        x = layers.dropout(x, dropout_prob=cfg.dropout, is_test=is_test,
+                           dropout_implementation='upscale_in_train')
+
+    attn_drop = getattr(cfg, 'attn_dropout', 0.0)
+    flash_ok = getattr(cfg, 'use_flash_attention', False) and \
+        (is_test or not attn_drop)
+    if flash_ok:
+        mask_var = None          # causal masking fused into the kernel
+    else:
+        causal_mask = np.triu(np.full((cfg.seq_len, cfg.seq_len), -1e9,
+                                      dtype='float32'), k=1)
+        mask_var = layers.assign(causal_mask)
+
+    block_outputs = []
+    # a zero delta ahead of block 0: every block's entry LN is a fused site
+    delta = layers.scale(x, scale=0.0)
+    for i in range(cfg.n_layer):
+        x, delta = transformer_block(x, cfg, 'layer_%d' % i,
+                                     mask_var=mask_var, is_test=is_test,
+                                     causal=flash_ok, residual=delta,
+                                     defer_residual=True)
+        block_outputs.append(x)
+    # the JAX package's remat boundaries and health taps, recorded on the
+    # program (rematerialization and the health observatory wait)
+    cfg.block_outputs = block_outputs
+    tokens.block.program._lm_checkpoint_vars = block_outputs
+    tokens.block.program._health_act_taps = tuple(
+        v.name for v in block_outputs)
+    x, _ = _entry_ln(x, delta, 2, 'final_ln')
+    logits = layers.fc(input=x, size=cfg.vocab_size, num_flatten_dims=2,
+                       param_attr=ParamAttr(name='lm_head.w'),
+                       bias_attr=False)
+    flat_logits = layers.reshape(logits, shape=[-1, cfg.vocab_size])
+    flat_labels = layers.reshape(labels, shape=[-1, 1])
+    loss = layers.softmax_with_cross_entropy(flat_logits, flat_labels)
+    avg_loss = layers.mean(loss)
+    return tokens, labels, logits, avg_loss
 
 
 def _key(name):
@@ -316,18 +495,18 @@ class TransformerLM(TransformerStack):
         return self._block_sites(self.flash_in_training()) * \
             self.cfg.n_layer + ['mul']
 
-    def loss(self, tokens, labels, generator=None):
-        """The mean softmax cross-entropy of `build_lm`'s training program
-        for tokens and labels [B, L] (int64, L <= max_len): embedding
-        gather + position encoding, dropout, a zero delta ahead of block 0,
-        the blocks (:meth:`TransformerStack._block`: causal flash attention
-        under the ``flash_ok`` rule, else the unfused branch with the -1e9
-        upper-triangle mask), then the final fused LayerNorm, lm_head and
-        the fused CE. Dropout (``cfg.dropout`` and ``cfg.attn_dropout``)
-        draws from ``generator``, a torch.Generator on the parameters'
-        device; it may be None only when both are 0. Returns a 0-d tensor;
-        call ``.backward()`` on it (or hand it to an optimizer's
-        ``minimize``)."""
+    def logits(self, tokens, generator=None):
+        """The [B * L, V] logits of `build_lm`'s training forward for tokens
+        [B, L] (int64, L <= max_len): embedding gather + position encoding,
+        dropout, a zero delta ahead of block 0, the blocks
+        (:meth:`TransformerStack._block`: causal flash attention under the
+        ``flash_ok`` rule, else the unfused branch with the -1e9
+        upper-triangle mask), then the final fused LayerNorm and lm_head.
+        Dropout (``cfg.dropout`` and ``cfg.attn_dropout``) draws from
+        ``generator``, a torch.Generator on the parameters' device; it may
+        be None only when both are 0 (then these are the logits of
+        ``build_lm(cfg, is_test=True)``, whose attention is flash
+        attention)."""
         c = self.cfg
         B, L = tokens.shape
         d = c.d_model
@@ -344,8 +523,15 @@ class TransformerLM(TransformerStack):
                                    attn_dropout=c.attn_dropout,
                                    generator=generator)
         x, _ = self._entry_ln(x, delta, 'final_ln')
-        logits = self._fc(x.reshape(B * L, d), 'lm_head', bias=False)
-        return fused_softmax_ce(logits, labels.reshape(-1)).mean()
+        return self._fc(x.reshape(B * L, d), 'lm_head', bias=False)
+
+    def loss(self, tokens, labels, generator=None):
+        """The mean softmax cross-entropy of `build_lm`'s training program
+        for tokens and labels [B, L]: the fused CE over :meth:`logits`.
+        Returns a 0-d tensor; call ``.backward()`` on it (or hand it to an
+        optimizer's ``minimize``)."""
+        return fused_softmax_ce(self.logits(tokens, generator),
+                                labels.reshape(-1)).mean()
 
     @torch.no_grad()
     def prefill(self, prompt, slot, length, sample=None):

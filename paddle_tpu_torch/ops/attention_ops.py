@@ -27,6 +27,10 @@ dQ, dK and dV come out in bf16. O goes back to float32 (and its cotangent
 is rounded to bf16 on the way in), as the JAX op's ``astype`` does. The
 plain versions take either dtype and repeat the bf16 roundings for bf16
 operands; the float32 arithmetic is unchanged.
+
+The program op `flash_attention` (Q, K, V [B, H, L, dh], an optional
+KeyPaddingBias [B, L], attrs ``scale`` (missing or 0: dh^-0.5) and
+``causal``) calls :func:`flash_attention`, as the JAX op calls its own.
 """
 import ctypes
 
@@ -34,6 +38,7 @@ import torch
 
 from .. import native
 from ..core import amp
+from ..core.registry import register_op
 from . import kernel_tier
 
 __all__ = ['flash_attention']
@@ -365,3 +370,21 @@ def flash_attention(q, k, v, scale=None, causal=True, return_lse=False,
         o = o.reshape(b, h, L, dh)
         lse = lse.reshape(b, h, L)
     return (o, lse) if return_lse else o
+
+
+@register_op('flash_attention')
+def _flash_attention_op(ctx, op):
+    if op.attr(amp.AMP_ATTR):
+        raise NotImplementedError(
+            'flash_attention carries the AMP mark: the AMP program pass '
+            'waits for a later slice of paddle_tpu_torch')
+    q, k, v = ctx.in1(op, 'Q'), ctx.in1(op, 'K'), ctx.in1(op, 'V')
+    bias = ctx.in1(op, 'KeyPaddingBias')
+    if bias is not None and q.dim() != 4:
+        raise NotImplementedError(
+            'flash_attention KeyPaddingBias needs 4-d [B, H, L, dh] Q')
+    scale = op.attr('scale', None)
+    scale = None if scale is None or scale == 0.0 else float(scale)
+    ctx.out(op, 'Out', flash_attention(q, k, v, scale=scale,
+                                       causal=op.attr('causal', True),
+                                       key_padding_bias=bias))

@@ -14,12 +14,17 @@ zero table. The backward does NOT mirror the forward's clamp: it follows
 id + V (NumPy's negative indexing) and then drops any id still outside
 [0, V) — so an out-of-range id reads a clamped row but adds its gradient
 to a wrapped row or to none.
+
+The program op `lookup_table` gathers through :func:`embedding_gather`,
+zeroes the ``padding_idx`` rows and shapes the rows as the ids (a trailing
+1 of the ids folds into the embedding dim), as the JAX lowering does.
 """
 import ctypes
 
 import torch
 
 from .. import native
+from ..core.registry import register_op
 from . import kernel_tier
 
 __all__ = ['embedding_gather']
@@ -104,3 +109,21 @@ def _gather(w, ids, bias):
     native.check(rc, 'embedding_gather')
     kernel_tier.count('embedding_gather')
     return out
+
+
+@register_op('lookup_table')
+def _lookup_table(ctx, op):
+    if op.attr('is_distributed', False):
+        raise NotImplementedError(
+            'lookup_table(is_distributed=True) waits for the parallel slice '
+            'of paddle_tpu_torch')
+    w, ids = ctx.in1(op, 'W'), ctx.in1(op, 'Ids')
+    flat = ids.reshape(-1)
+    out = embedding_gather(w, flat)
+    pad = op.attr('padding_idx', -1)
+    if pad is not None and pad != -1:
+        pad = pad if pad >= 0 else pad + w.shape[0]
+        out = torch.where((flat == pad)[:, None], torch.zeros_like(out), out)
+    lead = tuple(ids.shape[:-1]) if ids.dim() and ids.shape[-1] == 1 \
+        else tuple(ids.shape)
+    ctx.out(op, 'Out', out.reshape(lead + (w.shape[1],)))

@@ -22,6 +22,12 @@ saves (x, pre1, mask) and whose backward is `_ffn_bwd` in plain PyTorch
 package computes it outside any Pallas kernel too. At an AMP-marked site
 the JAX package stands the Pallas kernel down and runs its XLA tier on bf16
 operands: :func:`fused_ffn_amp` is that math, with no kernel.
+
+The program op `fused_ffn_tail` calls :func:`fused_ffn_core` where the JAX
+op is fusable (trailing-axis products on float32 rows; dropout, if live,
+``upscale_in_train`` with p < 1), its pre-scaled keep mask drawn from the
+run's generator (random_ops.keep_mask), and otherwise runs the JAX op's
+own composition: mul, add, GELU, mul, add, dropout.
 """
 import ctypes
 import math
@@ -30,7 +36,9 @@ import torch
 
 from .. import native
 from ..core import amp
-from . import kernel_tier, math_ops
+from ..core.registry import register_op
+from . import kernel_tier, math_ops, random_ops
+from .common import broadcast_y_to, flatten_to_2d
 
 __all__ = ['fused_ffn_core', 'fused_ffn_amp']
 
@@ -267,3 +275,56 @@ def fused_ffn_core(x, w1, b1, w2, b2, mask=None, want_pre1=False):
         y, pre1 = _FusedFFN.apply(x, w1, b1, w2, b2, mask)
         return y, (pre1 if want_pre1 else None)
     return _ffn_fwd(x, w1, b1, w2, b2, mask, want_pre1)
+
+
+# ---------------------------------------------------------------------------
+# the program op
+
+
+def _ffn_rng_active(op):
+    """Only a training-mode op with live dropout draws."""
+    return (not op.attr('is_test', False)
+            and op.attr('dropout_prob', 0.0) > 0.0)
+
+
+@register_op('fused_ffn_tail', needs_rng=_ffn_rng_active)
+def _fused_ffn_tail_op(ctx, op):
+    if op.attr(amp.AMP_ATTR):
+        raise NotImplementedError(
+            'fused_ffn_tail carries the AMP mark: the AMP program pass waits '
+            'for a later slice of paddle_tpu_torch')
+    x = ctx.in1(op, 'X')
+    w1, b1 = ctx.in1(op, 'W1'), ctx.in1(op, 'B1')
+    w2, b2 = ctx.in1(op, 'W2'), ctx.in1(op, 'B2')
+    xnc = op.attr('x_num_col_dims', 1)
+    prob = op.attr('dropout_prob', 0.0)
+    is_test = op.attr('is_test', False)
+    dimpl = op.attr('dropout_implementation', 'upscale_in_train')
+    drop_active = bool(prob) and not is_test
+    seed = op.attr('seed', 0)
+    gen = (lambda: ctx.op_rng(seed)) if seed else ctx.rng
+    fusable = (tuple(x.shape[xnc:]) == tuple(w1.shape[:1])
+               and x.dim() == xnc + 1 and x.dtype == torch.float32
+               and (not drop_active or (dimpl == 'upscale_in_train'
+                                        and prob < 1.0)))
+    lead = tuple(x.shape[:xnc])
+    if fusable:
+        x2 = x.reshape(-1, w1.shape[0]).contiguous()
+        mask = random_ops.keep_mask((x2.shape[0], w2.shape[1]), prob, gen(),
+                                    x.device) if drop_active else None
+        y2, _ = fused_ffn_core(x2, w1, b1, w2, b2, mask)
+        ctx.out(op, 'Out', y2.reshape(lead + (w2.shape[1],)))
+        return
+    # the JAX op's composition (its 'off' tier)
+    h = math_ops.mul(flatten_to_2d(x, xnc), flatten_to_2d(w1, 1))
+    h = h.reshape(lead + tuple(w1.shape[1:]))
+    h = _gelu(h + broadcast_y_to(h, b1, xnc))
+    y = math_ops.mul(flatten_to_2d(h, xnc), flatten_to_2d(w2, 1))
+    y = y.reshape(lead + tuple(w2.shape[1:]))
+    y = y + broadcast_y_to(y, b2, xnc)
+    if drop_active:
+        y, _ = random_ops.train_dropout(y, prob,
+                                        dimpl == 'upscale_in_train', gen())
+    elif is_test and prob and dimpl == 'downgrade_in_infer':
+        y = y * (1.0 - prob)
+    ctx.out(op, 'Out', y)

@@ -31,6 +31,8 @@ from float32 (tests/test_torch_amp.py measures both).
 import torch
 
 from ..core import amp
+from ..core.registry import register_op
+from .common import broadcast_y_to, flatten_to_2d
 
 __all__ = ['mul', 'matmul', 'bf16_product', 'split', 'split_product']
 
@@ -116,3 +118,69 @@ def mul(x, w, policy=None):
     lead = x.shape[:-1]
     out = _Bf16Matmul.apply(x.reshape(-1, x.shape[-1]), w, dt)
     return out.reshape(*lead, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# the program ops (paddle_tpu/ops/math_ops.py `_mul`, `_matmul`, the
+# elementwise family's add and sub, `_mean`; activations.py's `square`):
+# float32 products and plain elementwise PyTorch. An AMP-marked op waits
+# for the AMP program pass.
+
+
+def _unmarked(op):
+    if op.attr(amp.AMP_ATTR):
+        raise NotImplementedError(
+            'op %r carries the AMP mark: the AMP program pass '
+            '(rewrite_program_bf16) waits for a later slice of '
+            'paddle_tpu_torch' % op.type)
+
+
+@register_op('mul')
+def _mul_op(ctx, op):
+    _unmarked(op)
+    x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
+    xnc = op.attr('x_num_col_dims', 1)
+    ynk = op.attr('y_num_col_dims', 1)
+    out = mul(flatten_to_2d(x, xnc), flatten_to_2d(y, ynk))
+    ctx.out(op, 'Out', out.reshape(tuple(x.shape[:xnc]) +
+                                   tuple(y.shape[ynk:])))
+
+
+@register_op('matmul')
+def _matmul_op(ctx, op):
+    _unmarked(op)
+    x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
+    if x.dim() == 1:
+        x = x.reshape(1, -1)
+    if y.dim() == 1:
+        y = y.reshape(-1, 1)
+    if op.attr('transpose_X', False):
+        x = x.transpose(-1, -2)
+    if op.attr('transpose_Y', False):
+        y = y.transpose(-1, -2)
+    out = matmul(x, y)
+    alpha = op.attr('alpha', 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    ctx.out(op, 'Out', out)
+
+
+def _register_elementwise(name, fn):
+    @register_op(name)
+    def _lower(ctx, op):
+        x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
+        ctx.out(op, 'Out', fn(x, broadcast_y_to(x, y, op.attr('axis', -1))))
+
+
+_register_elementwise('elementwise_add', torch.add)
+_register_elementwise('elementwise_sub', torch.sub)
+
+
+@register_op('mean')
+def _mean_op(ctx, op):
+    ctx.out(op, 'Out', ctx.in1(op, 'X').mean().reshape(1))
+
+
+@register_op('square')
+def _square_op(ctx, op):
+    ctx.out(op, 'Out', torch.square(ctx.in1(op, 'X')))

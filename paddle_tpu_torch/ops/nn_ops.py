@@ -15,13 +15,22 @@ column sums over the recomputed x_hat, as in the JAX package. Serving calls
 it under ``no_grad`` and gets the bare forward. :func:`layer_norm` is plain
 PyTorch everywhere: in the JAX package it is an XLA lowering with no Pallas
 kernel (the decode path uses it once per forward, at layer 0's entry).
+
+The program ops (paddle_tpu/ops/nn_ops.py): `fused_ln_residual` calls
+:func:`fused_ln_residual` where the JAX op is fusable (scale and bias
+given, the normalized axis the last), and otherwise runs the JAX op's own
+composition, elementwise_add then layer_norm over ``begin_norm_axis``..;
+`layer_norm`, `softmax` and `softmax_with_cross_entropy` (hard labels:
+ce_ops.fused_softmax_ce on [N, V] logits; soft labels: log-softmax) as the
+JAX lowerings compute them.
 """
 import ctypes
 
 import torch
 
 from .. import native
-from . import kernel_tier
+from ..core.registry import register_op
+from . import ce_ops, kernel_tier
 
 __all__ = ['layer_norm', 'fused_ln_residual']
 
@@ -163,3 +172,74 @@ def fused_ln_residual(x, r, scale, bias, eps=1e-5):
     else:
         y, s, m, rs = _ln_res_fwd(x2, r2, scale, bias, eps)
     return y.reshape(lead + (D,)), s.reshape(lead + (D,)), m, rs
+
+
+# ---------------------------------------------------------------------------
+# the program ops
+
+
+def _layer_norm_nd(x, scale, bias, eps, bna):
+    """The `layer_norm` op over axes bna.. (the JAX lowering's arithmetic:
+    the mean, then the mean of the squared deviation): (y, mean, var)."""
+    axes = tuple(range(bna, x.dim()))
+    m = x.mean(dim=axes, keepdim=True)
+    v = ((x - m) ** 2).mean(dim=axes, keepdim=True)
+    y = (x - m) / torch.sqrt(v + eps)
+    tail = tuple(x.shape[bna:])
+    if scale is not None:
+        y = y * scale.reshape((1,) * bna + tail)
+    if bias is not None:
+        y = y + bias.reshape((1,) * bna + tail)
+    return y, m.reshape(-1), v.reshape(-1)
+
+
+@register_op('layer_norm')
+def _layer_norm_op(ctx, op):
+    x = ctx.in1(op, 'X')
+    y, m, v = _layer_norm_nd(x, ctx.in1(op, 'Scale'), ctx.in1(op, 'Bias'),
+                             op.attr('epsilon', 1e-5),
+                             op.attr('begin_norm_axis', 1))
+    ctx.out(op, 'Y', y)
+    ctx.out(op, 'Mean', m)
+    ctx.out(op, 'Variance', v)
+
+
+@register_op('fused_ln_residual')
+def _fused_ln_residual_op(ctx, op):
+    x, r = ctx.in1(op, 'X'), ctx.in1(op, 'Residual')
+    scale, bias = ctx.in1(op, 'Scale'), ctx.in1(op, 'Bias')
+    eps = op.attr('epsilon', 1e-5)
+    bna = op.attr('begin_norm_axis', x.dim() - 1)
+    if scale is not None and bias is not None and bna == x.dim() - 1 and \
+            x.dim() >= 2:
+        y, s, _, _ = fused_ln_residual(x.contiguous(), r.contiguous(),
+                                       scale, bias, eps)
+    else:
+        s = x + r
+        y = _layer_norm_nd(s, scale, bias, eps, bna)[0]
+    ctx.out(op, 'Y', y)
+    ctx.out(op, 'ResidualOut', s)
+
+
+@register_op('softmax')
+def _softmax_op(ctx, op):
+    ctx.out(op, 'Out', torch.softmax(ctx.in1(op, 'X'), dim=-1))
+
+
+@register_op('softmax_with_cross_entropy')
+def _softmax_with_ce_op(ctx, op):
+    logits, label = ctx.in1(op, 'Logits'), ctx.in1(op, 'Label')
+    if op.attr('soft_label', False):
+        log_sm = torch.log_softmax(logits, dim=-1)
+        ctx.out(op, 'Softmax', torch.exp(log_sm))
+        ctx.out(op, 'Loss', -(label * log_sm).sum(dim=-1, keepdim=True))
+        return
+    if logits.dim() != 2:
+        raise NotImplementedError(
+            'softmax_with_cross_entropy with hard labels takes [N, V] '
+            'logits, got %s' % (tuple(logits.shape),))
+    loss = ce_ops.fused_softmax_ce(logits.contiguous(), label,
+                                   op.attr('ignore_index', -100))
+    ctx.out(op, 'Loss', loss[:, None])
+    if ctx.needed(op, 'Softmax'):
+        ctx.out(op, 'Softmax', torch.softmax(logits, dim=-1))

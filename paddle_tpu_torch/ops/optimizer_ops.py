@@ -20,12 +20,17 @@ once for the whole set (lr_t computed on the card, no host read); on the
 CPU it runs :func:`_fused_adam_ref`. :func:`adam` is the per-parameter
 update of the `adam` op (an XLA lowering with no Pallas kernel), plain
 PyTorch on every device.
+
+The program ops `fused_adam`, `adam` and `sgd` update the scope's tensors
+in place (the JAX ops return new state, which its executor writes back)
+and write the same tensors to their outputs.
 """
 import ctypes
 
 import torch
 
 from .. import native
+from ..core.registry import register_op
 from . import kernel_tier
 
 __all__ = ['adam', 'fused_adam']
@@ -127,3 +132,47 @@ def fused_adam(params, grads, m1s, m2s, b1ps, b2ps, lr, beta1=0.9,
                    float(eps), kernel_tier.stream_ptr(lr))
     native.check(rc, 'fused_adam')
     kernel_tier.count('fused_adam')
+
+
+# ---------------------------------------------------------------------------
+# the program ops
+
+
+def _outs(ctx, op, pairs):
+    for slot, ts in pairs:
+        for i, t in enumerate(ts):
+            ctx.out(op, slot, t, idx=i)
+
+
+@register_op('fused_adam', stateful=True)
+def _fused_adam_op(ctx, op):
+    ps = ctx.in_list(op, 'Params')
+    gs = [g.contiguous() for g in ctx.in_list(op, 'Grads')]
+    m1s, m2s = ctx.in_list(op, 'Moment1s'), ctx.in_list(op, 'Moment2s')
+    b1ps, b2ps = ctx.in_list(op, 'Beta1Pows'), ctx.in_list(op, 'Beta2Pows')
+    fused_adam(ps, gs, m1s, m2s, b1ps, b2ps, ctx.in1(op, 'LearningRate'),
+               op.attr('beta1', 0.9), op.attr('beta2', 0.999),
+               op.attr('epsilon', 1e-8))
+    _outs(ctx, op, (('ParamsOut', ps), ('Moment1sOut', m1s),
+                    ('Moment2sOut', m2s), ('Beta1PowsOut', b1ps),
+                    ('Beta2PowsOut', b2ps)))
+
+
+@register_op('adam', stateful=True)
+def _adam_op(ctx, op):
+    p, m1, m2 = (ctx.in1(op, s) for s in ('Param', 'Moment1', 'Moment2'))
+    b1p, b2p = ctx.in1(op, 'Beta1Pow'), ctx.in1(op, 'Beta2Pow')
+    adam(p, ctx.in1(op, 'Grad'), m1, m2, b1p, b2p,
+         ctx.in1(op, 'LearningRate'), op.attr('beta1', 0.9),
+         op.attr('beta2', 0.999), op.attr('epsilon', 1e-8))
+    _outs(ctx, op, (('ParamOut', [p]), ('Moment1Out', [m1]),
+                    ('Moment2Out', [m2]), ('Beta1PowOut', [b1p]),
+                    ('Beta2PowOut', [b2p])))
+
+
+@register_op('sgd', stateful=True)
+def _sgd_op(ctx, op):
+    p = ctx.in1(op, 'Param')
+    lr = ctx.in1(op, 'LearningRate').reshape(())
+    p.sub_(lr.to(p.dtype) * ctx.in1(op, 'Grad').to(p.dtype))
+    ctx.out(op, 'ParamOut', p)

@@ -1,25 +1,271 @@
-"""Adam, as Fluid's `AdamOptimizer` keeps it.
+"""Optimizers: Fluid's program-building optimizers, and Adam on tensors.
 
-Counterpart of paddle_tpu/optimizer.py `AdamOptimizer`. Each parameter has
-its moment1, moment2 (zeros, its shape) and its one-element beta1_pow and
-beta2_pow (starting at beta1 and beta2), all on the parameters' device; the
-learning rate is a one-element tensor there too, as the JAX scope holds
-``learning_rate_0``. ``fuse=True`` applies :func:`ops.optimizer_ops
-.fused_adam` to the whole set in one launch, as the JAX package's
-``fuse=True`` emits one `fused_adam` op; ``fuse=False`` runs the
-per-parameter `adam` update.
+The port's own copy of paddle_tpu/optimizer.py `Optimizer` (``backward``,
+``apply_gradients``, ``minimize``), `SGDOptimizer` and `AdamOptimizer`,
+with the aliases ``SGD`` and ``Adam``. ``minimize(loss)`` appends the
+``backward`` meta-op (backward.py) and the update ops to the loss's
+program, and the learning rate and the accumulators to the startup
+program, under the JAX package's names (``learning_rate_0``,
+``<param>_moment1_0``, ``<param>_beta1_pow_acc_0``, ...). ``Adam(fuse=True)``
+emits one ``fused_adam`` op over the parameter set, ``fuse=False`` one
+``adam`` op a parameter. The Executor runs them (executor.py). The other
+Fluid optimizers wait for later slices.
+
+:class:`TensorAdam` is the same Adam over tensors, for a model driven
+without a Program (`TransformerLM.loss`, `BertPretrain.loss`): each
+parameter has its moment1, moment2 (zeros, its shape) and its one-element
+beta1_pow and beta2_pow (starting at beta1 and beta2), all on the
+parameters' device; the learning rate is a one-element tensor there too,
+as the JAX scope holds ``learning_rate_0``. ``fuse=True`` applies
+:func:`ops.optimizer_ops.fused_adam` to the whole set in one launch, as
+the JAX package's ``fuse=True`` emits one `fused_adam` op; ``fuse=False``
+runs the per-parameter `adam` update.
 """
 import collections.abc
 
 import torch
 
+from . import unique_name
+from .backward import append_backward
+from .clip import append_gradient_clip_ops
+from .framework import Variable, default_main_program
+from .initializer import Constant
+from .layer_helper import LayerHelper
 from .ops import optimizer_ops
+from .regularizer import append_regularization_ops
 
-__all__ = ['Adam']
+__all__ = ['SGD', 'Adam', 'SGDOptimizer', 'AdamOptimizer', 'Optimizer',
+           'TensorAdam']
 
 
-class Adam(object):
-    """``Adam(parameters, learning_rate=1e-3, beta1=0.9, beta2=0.999,
+class Optimizer(object):
+    def __init__(self, learning_rate, regularization=None, name=None):
+        self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._name = name
+        self._learning_rate_map = {}
+        self._accumulators = {}
+        self.helper = None
+
+    def _create_global_learning_rate(self):
+        program = default_main_program()
+        lr = self._learning_rate_map.get(program)
+        if lr is not None:
+            return
+        if isinstance(self._learning_rate, Variable):
+            self._learning_rate_map[program] = self._learning_rate
+            return
+        if not isinstance(self._learning_rate, float):
+            raise TypeError("learning rate must be float or Variable")
+        helper = LayerHelper('learning_rate')
+        lr_name = unique_name.generate("learning_rate")
+        lr_var = helper.create_or_get_global_variable(
+            name=lr_name, dtype='float32', shape=(1,))
+        lr_var.persistable = True
+        lr_var.stop_gradient = True
+        helper.set_variable_initializer(
+            lr_var, Constant(float(self._learning_rate)))
+        self._learning_rate_map[program] = lr_var
+
+    @property
+    def _global_learning_rate(self):
+        return self._learning_rate_map[default_main_program()]
+
+    def _create_param_lr(self, param_and_grad):
+        param = param_and_grad[0]
+        param_lr = getattr(param, 'optimize_attr', {}).get(
+            'learning_rate', 1.0)
+        if isinstance(param_lr, Variable):
+            return param_lr
+        base = self._global_learning_rate
+        if param_lr == 1.0:
+            return base
+        helper = LayerHelper('param_lr')
+        out = helper.create_variable_for_type_inference('float32',
+                                                        shape=(1,))
+        helper.append_op(type='scale', inputs={'X': [base]},
+                         outputs={'Out': [out]},
+                         attrs={'scale': float(param_lr), 'bias': 0.0})
+        return out
+
+    def _add_accumulator(self, name, param, dtype=None, fill_value=0.0,
+                         shape=None):
+        if self._name is not None:
+            name = self._name + "_" + name
+        key = (name, param.name)
+        if key in self._accumulators:
+            return self._accumulators[key]
+        helper = LayerHelper(name)
+        var = helper.create_or_get_global_variable(
+            name=unique_name.generate(param.name + "_" + name),
+            dtype=dtype or param.dtype,
+            shape=tuple(shape) if shape is not None else param.shape)
+        var.persistable = True
+        var.stop_gradient = True
+        helper.set_variable_initializer(var, Constant(float(fill_value)))
+        self._accumulators[key] = var
+        return var
+
+    def _get_accumulator(self, name, param):
+        if self._name is not None:
+            name = self._name + "_" + name
+        return self._accumulators[(name, param.name)]
+
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError
+
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    def _finish_update(self, block, parameters_and_grads):
+        pass
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        return append_backward(loss, parameter_list, no_grad_set)
+
+    def apply_gradients(self, params_grads):
+        program = default_main_program()
+        with program._role_guard('Optimize'):
+            params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
+            params_grads = append_gradient_clip_ops(params_grads)
+            params_grads = append_regularization_ops(params_grads,
+                                                     self.regularization)
+            # the training-health observatory's names (the JAX package's
+            # health.note_params_grads); the observatory itself waits
+            program._health_params = [(p.name, g.name)
+                                      for p, g in params_grads]
+            self._create_global_learning_rate()
+            block = program.global_block()
+            self._create_accumulators(block, [pg[0] for pg in params_grads])
+            optimize_ops = self._append_optimize_ops(block, params_grads)
+            self._finish_update(block, params_grads)
+        return optimize_ops
+
+    def _append_optimize_ops(self, block, params_grads):
+        """One update op a parameter; Adam with fuse=True overrides this."""
+        return [self._append_optimize_op(block, pg) for pg in params_grads]
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        optimize_ops = self.apply_gradients(params_grads)
+        return optimize_ops, params_grads
+
+
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, regularization=None, name=None):
+        super(SGDOptimizer, self).__init__(learning_rate, regularization,
+                                           name)
+        self.type = 'sgd'
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            type='sgd',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]]})
+
+
+class AdamOptimizer(Optimizer):
+    _moment1_acc_str = "moment1"
+    _moment2_acc_str = "moment2"
+    _beta1_pow_acc_str = "beta1_pow_acc"
+    _beta2_pow_acc_str = "beta2_pow_acc"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, regularization=None, name=None,
+                 lazy_mode=False, fuse=False):
+        super(AdamOptimizer, self).__init__(learning_rate, regularization,
+                                            name)
+        self.type = 'adam'
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+        self._lazy_mode = lazy_mode
+        # fuse=True: ONE fused_adam op over the parameter set (the CUDA
+        # kernel's one launch); parameters with their own learning-rate
+        # multiplier keep their own adam op
+        self._fuse = bool(fuse)
+
+    def _append_optimize_ops(self, block, params_grads):
+        if not self._fuse:
+            return super(AdamOptimizer, self)._append_optimize_ops(
+                block, params_grads)
+        plain, custom_lr = [], []
+        for pg in params_grads:
+            lr_mult = getattr(pg[0], 'optimize_attr', {}).get(
+                'learning_rate', 1.0)
+            (plain if not isinstance(lr_mult, Variable)
+             and lr_mult == 1.0 else custom_lr).append(pg)
+        optimize_ops = []
+        if plain:
+            acc = self._get_accumulator
+            inputs = {
+                'Params': [pg[0] for pg in plain],
+                'Grads': [pg[1] for pg in plain],
+                'Moment1s': [acc(self._moment1_acc_str, pg[0])
+                             for pg in plain],
+                'Moment2s': [acc(self._moment2_acc_str, pg[0])
+                             for pg in plain],
+                'Beta1Pows': [acc(self._beta1_pow_acc_str, pg[0])
+                              for pg in plain],
+                'Beta2Pows': [acc(self._beta2_pow_acc_str, pg[0])
+                              for pg in plain],
+                'LearningRate': [self._global_learning_rate],
+            }
+            optimize_ops.append(block.append_op(
+                type='fused_adam',
+                inputs=inputs,
+                outputs={'ParamsOut': inputs['Params'],
+                         'Moment1sOut': inputs['Moment1s'],
+                         'Moment2sOut': inputs['Moment2s'],
+                         'Beta1PowsOut': inputs['Beta1Pows'],
+                         'Beta2PowsOut': inputs['Beta2Pows']},
+                attrs={'beta1': self._beta1, 'beta2': self._beta2,
+                       'epsilon': self._epsilon}))
+        for pg in custom_lr:
+            optimize_ops.append(self._append_optimize_op(block, pg))
+        return optimize_ops
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment1_acc_str, p)
+            self._add_accumulator(self._moment2_acc_str, p)
+            self._add_accumulator(self._beta1_pow_acc_str, p,
+                                  fill_value=self._beta1, shape=[1])
+            self._add_accumulator(self._beta2_pow_acc_str, p,
+                                  fill_value=self._beta2, shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        m1 = self._get_accumulator(self._moment1_acc_str, param_and_grad[0])
+        m2 = self._get_accumulator(self._moment2_acc_str, param_and_grad[0])
+        b1p = self._get_accumulator(self._beta1_pow_acc_str,
+                                    param_and_grad[0])
+        b2p = self._get_accumulator(self._beta2_pow_acc_str,
+                                    param_and_grad[0])
+        return block.append_op(
+            type='adam',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'LearningRate': [self._create_param_lr(param_and_grad)],
+                    'Moment1': [m1], 'Moment2': [m2],
+                    'Beta1Pow': [b1p], 'Beta2Pow': [b2p]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'Moment1Out': [m1], 'Moment2Out': [m2],
+                     'Beta1PowOut': [b1p], 'Beta2PowOut': [b2p]},
+            attrs={'beta1': self._beta1, 'beta2': self._beta2,
+                   'epsilon': self._epsilon, 'lazy_mode': self._lazy_mode})
+
+
+SGD = SGDOptimizer
+Adam = AdamOptimizer
+
+
+class TensorAdam(object):
+    """``TensorAdam(parameters, learning_rate=1e-3, beta1=0.9, beta2=0.999,
     epsilon=1e-8, fuse=False)``. ``parameters`` is a {name: tensor}
     mapping (such as `TransformerLM.p`) or a sequence of tensors (named by
     position). :meth:`step` applies the update to the parameters that have
@@ -33,7 +279,7 @@ class Adam(object):
         else:
             named = [(str(i), p) for i, p in enumerate(parameters)]
         if not named:
-            raise ValueError('Adam needs at least one parameter')
+            raise ValueError('TensorAdam needs at least one parameter')
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.beta1 = float(beta1)

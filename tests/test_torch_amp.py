@@ -64,7 +64,7 @@ from paddle_tpu_torch.models.transformer import (LMConfig, TransformerLM,
                                                  init_params)
 from paddle_tpu_torch.ops import (attention_ops, ffn_ops, kernel_tier,
                                   math_ops)
-from paddle_tpu_torch.optimizer import Adam
+from paddle_tpu_torch.optimizer import TensorAdam
 
 LM = dict(vocab_size=512, seq_len=32, d_model=128, n_head=4, n_layer=2,
           d_ff=256, dropout=0.0, attn_dropout=0.0, use_flash_attention=True)
@@ -128,7 +128,7 @@ def test_decorate_rejects_loss_scaling_as_in_jax(kw):
         jmp.decorate(fluid.optimizer.SGD(0.1), **kw)
     p = torch.zeros(3, requires_grad=True)
     with pytest.raises(ValueError, match='loss scaling is unnecessary'):
-        mp.decorate(Adam([p]), **kw)
+        mp.decorate(TensorAdam([p]), **kw)
 
 
 def test_cast_compute_casts_float32_only():
@@ -183,7 +183,7 @@ def test_decorated_optimizer_delegates():
     cfg = LMConfig(**dict(LM, n_layer=1))
     m = TransformerLM(cfg, init_params(cfg, 0, 'cpu'), 32)
     mp.rewrite_model_bf16(m)
-    opt = mp.decorate(Adam(m.p, 1e-3, fuse=True))
+    opt = mp.decorate(TensorAdam(m.p, 1e-3, fuse=True))
     tok = torch.randint(0, 512, (2, 32), generator=torch.Generator()
                         .manual_seed(0))
     before = m.p['lm_head.w'].detach().clone()
@@ -493,7 +493,7 @@ def _port_run(model, init):
             out = m.loss(**{k: torch.from_numpy(v) for k, v in f.items()})
             return out[0], out
     mp.rewrite_model_bf16(m)
-    opt = mp.decorate(Adam(m.p, 1e-3, fuse=True))
+    opt = mp.decorate(TensorAdam(m.p, 1e-3, fuse=True))
     opt.load_state(state, lr)
     losses, first = [], None
     for f in feeds:

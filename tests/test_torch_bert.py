@@ -29,7 +29,7 @@ from paddle_tpu_torch.io import params_from_numpy, train_state_from_numpy
 from paddle_tpu_torch.models import bert
 from paddle_tpu_torch.models.bert import BertConfig, BertPretrain
 from paddle_tpu_torch.ops import kernel_tier
-from paddle_tpu_torch.optimizer import Adam
+from paddle_tpu_torch.optimizer import TensorAdam
 
 SMALL = dict(vocab_size=64, seq_len=16, d_model=16, n_head=2, n_layer=1,
              d_ff=32, dropout=0.0, max_predictions=2)
@@ -200,7 +200,7 @@ def test_three_step_trajectory_matches_jax_build_bert_pretrain(jax_run):
     params, state, lr = train_state_from_numpy(init, 'cpu', config=cfg)
     model = BertPretrain(cfg, params)
     assert model.flash_ok(False)
-    opt = Adam(model.p, 1e-3, fuse=True)
+    opt = TensorAdam(model.p, 1e-3, fuse=True)
     opt.load_state(state, lr)
     losses = []
     for f in feeds:
@@ -265,7 +265,7 @@ def test_adam_advances_every_beta_power_once_over_160_tensors():
                      n_layer=12, d_ff=16, dropout=0.0, max_predictions=2)
     model = BertPretrain(cfg, bert.init_params(cfg, 0, 'cpu'))
     assert len(model.p) == 160
-    opt = Adam(model.p, 1e-2, fuse=True)
+    opt = TensorAdam(model.p, 1e-2, fuse=True)
     start = {n: p.detach().clone() for n, p in model.p.items()}
     feed = _tensors(_batch(cfg, 2, 0, pad=[2, 0]))
     first = float(opt.minimize(model.loss(**feed)[0]))

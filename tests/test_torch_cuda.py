@@ -368,7 +368,7 @@ def test_fused_adam_kernel(dev, sizes):
 def test_flash_training_on_the_card_matches_unfused(dev):
     """Flash-on training (attention dropout 0) on the card runs the three
     flash kernels, once a layer each, and matches the unfused branch."""
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import TensorAdam
     kw = dict(vocab_size=64, seq_len=16, d_model=64, n_head=2, n_layer=2,
               d_ff=64, dropout=0.0)
     g = torch.Generator(device='cpu').manual_seed(3)
@@ -387,7 +387,7 @@ def test_flash_training_on_the_card_matches_unfused(dev):
                 counts['flash_attention_bwd_dkv']) == (n, n, n)
         res[flash] = (float(loss.detach()),
                       m.p['layer_0.attn.qkv.w'].grad.clone())
-        Adam(m.p, 1e-3, fuse=True).step()
+        TensorAdam(m.p, 1e-3, fuse=True).step()
     assert abs(res[True][0] - res[False][0]) <= 1e-5
     assert _err(res[True][1], res[False][1]) <= \
         1e-4 * float(res[False][1].abs().max())
@@ -398,7 +398,7 @@ def test_bert_step_goes_through_the_kernels(dev):
     (the flash three once a layer, with the padding bias), and its
     inference losses equal the CPU's."""
     import numpy as np
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import TensorAdam
     cfg = bert.BertConfig(vocab_size=130, seq_len=24, d_model=64, n_head=2,
                           n_layer=2, d_ff=128, attn_dropout=0.0,
                           max_predictions=3)
@@ -414,7 +414,7 @@ def test_bert_step_goes_through_the_kernels(dev):
         got = m.loss(is_test=True, **on(dev))
     for a, b in zip(got, want):
         assert abs(float(a) - float(b)) <= 1e-4
-    opt = Adam(m.p, 1e-3, fuse=True)
+    opt = TensorAdam(m.p, 1e-3, fuse=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     kernel_tier.reset_counts()
     loss = opt.minimize(m.loss(generator=gen, **on(dev))[0])
@@ -432,11 +432,11 @@ def test_bert_step_goes_through_the_kernels(dev):
 
 
 def test_training_step_goes_through_the_kernels(dev):
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import TensorAdam
     cfg = LMConfig(vocab_size=300, seq_len=24, d_model=64, n_head=2,
                    n_layer=2, d_ff=128)
     m = TransformerLM(cfg, init_params(cfg, 0, dev), 24)
-    opt = Adam(m.p, 1e-3, fuse=True)
+    opt = TensorAdam(m.p, 1e-3, fuse=True)
     g = torch.Generator(device=dev).manual_seed(0)
     tok = torch.randint(0, 300, (3, 24), device=dev, generator=g)
     kernel_tier.reset_counts()
@@ -1117,7 +1117,7 @@ def test_amp_training_step_goes_through_the_bf16_kernels(dev):
     within 5e-3 of the CPU's (the same arithmetic, sums in another order
     across bf16 roundings)."""
     from paddle_tpu_torch.contrib import mixed_precision as mp
-    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer import TensorAdam
     cfg = LMConfig(vocab_size=300, seq_len=32, d_model=64, n_head=2,
                    n_layer=2, d_ff=128, dropout=0.0, attn_dropout=0.0)
     params = init_params(cfg, 0, 'cpu')
@@ -1127,7 +1127,7 @@ def test_amp_training_step_goes_through_the_bf16_kernels(dev):
     for d in (dev, torch.device('cpu')):
         m = TransformerLM(cfg, {k: v.to(d) for k, v in params.items()}, 32)
         assert mp.rewrite_model_bf16(m) == 9
-        opt = mp.decorate(Adam(m.p, 1e-3, fuse=True))
+        opt = mp.decorate(TensorAdam(m.p, 1e-3, fuse=True))
         kernel_tier.reset_counts()
         losses[d.type] = float(opt.minimize(m.loss(tok.to(d), tok.to(d))))
         counts = kernel_tier.launch_counts()
@@ -1424,3 +1424,62 @@ def test_engine_graphs_serve_traffic_without_new_captures(dev):
     g = eng.stats()['graphs']
     assert g['captured'] == g['signatures'] == 6
     assert g['replays'] > 0 and g['captures_after_warmup'] == 0
+
+
+PROGRAM_LM = dict(vocab_size=256, seq_len=64, d_model=128, n_head=4,
+                  n_layer=2, d_ff=256, dropout=0.0, attn_dropout=0.0)
+
+
+def program_step_launches(n_layer):
+    """The launches one training step of the flash program makes
+    (`build_lm` + ``Adam(fuse=True)``): the gather, the 2L + 1 fused
+    LayerNorms forward and backward, the three flash kernels and the FFN
+    per layer, the CE forward and backward, one fused Adam."""
+    ln = 2 * n_layer + 1
+    return dict(dict.fromkeys(kernel_tier.KERNELS, 0), embedding_gather=1,
+                fused_ln_residual=ln, fused_ln_residual_bwd=ln,
+                flash_attention=n_layer, flash_attention_bwd_dq=n_layer,
+                flash_attention_bwd_dkv=n_layer, fused_ffn=n_layer,
+                softmax_ce_fwd=1, softmax_ce_bwd=1, fused_adam=1)
+
+
+def test_program_flash_training_on_the_card_matches_the_cpu(dev):
+    """Two steps of the flash program through ``Executor()`` (no place:
+    cuda:0) from the CPU run's startup scope: each step launches exactly
+    the path's kernels, and the losses lie within 1e-4 relative of the
+    CPU's (the repo's f32 limit for an LM step, card against CPU)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    from paddle_tpu_torch.models import transformer
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, _, _, loss = transformer.build_lm(
+                transformer.LMConfig(**PROGRAM_LM))
+            fluid.optimizer.Adam(1e-3, fuse=True).minimize(loss)
+        return main, startup, loss
+
+    rs = np.random.RandomState(0)
+    feeds = [{k: rs.randint(0, 256, (3, 64)).astype('int64')
+              for k in ('tokens', 'labels')} for _ in range(2)]
+    main, startup, loss = build()
+    cpu, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    init = {n: cpu_scope.get(n).clone() for n in cpu_scope.names()}
+    want = [float(cpu.run(main, feed=f, fetch_list=[loss],
+                          scope=cpu_scope)[0][0]) for f in feeds]
+    main, _, loss = build()
+    exe = fluid.Executor()
+    assert exe.device == torch.device('cuda', 0)
+    scope = scope_from_numpy(init)
+    expected = program_step_launches(PROGRAM_LM['n_layer'])
+    got = []
+    for f in feeds:
+        before = kernel_tier.launch_counts()
+        got.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                 scope=scope)[0][0]))
+        after = kernel_tier.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == expected
+    assert scope.get('tok_emb.w').device == torch.device('cuda', 0)
+    np.testing.assert_allclose(got, want, rtol=1e-4)

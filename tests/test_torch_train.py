@@ -42,7 +42,7 @@ from paddle_tpu_torch.models.transformer import (LMConfig, TransformerLM,
 from paddle_tpu_torch.ops import (ce_ops, embedding_ops, ffn_ops,
                                   kernel_tier, nn_ops, optimizer_ops,
                                   random_ops)
-from paddle_tpu_torch.optimizer import Adam
+from paddle_tpu_torch.optimizer import TensorAdam
 
 
 def _t(a, grad=False):
@@ -251,7 +251,7 @@ def test_adam_fuse_and_per_parameter_take_one_trajectory():
     runs = []
     for fuse in (True, False):
         m = TransformerLM(cfg, init_params(cfg, 0, 'cpu'), 8)
-        opt = Adam(m.p, 1e-2, fuse=fuse)
+        opt = TensorAdam(m.p, 1e-2, fuse=fuse)
         losses = [float(opt.minimize(m.loss(tok, lab))) for _ in range(3)]
         runs.append((losses, {n: p.detach().clone()
                               for n, p in m.p.items()}))
@@ -266,7 +266,7 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     cfg = LMConfig(vocab_size=64, seq_len=8, d_model=32, n_head=2,
                    n_layer=1, d_ff=64, attn_dropout=0.1)
     m = TransformerLM(cfg, init_params(cfg, 0, 'cpu'), 8)
-    opt = Adam(m.p, 1e-3, fuse=True)
+    opt = TensorAdam(m.p, 1e-3, fuse=True)
     opt.minimize(m.loss(torch.zeros(2, 8, dtype=torch.long),
                         torch.ones(2, 8, dtype=torch.long),
                         torch.Generator().manual_seed(0)))
@@ -372,7 +372,7 @@ def _check_trajectory(run, lm_kw):
     params, state, lr = train_state_from_numpy(init, 'cpu', config=cfg)
     model = TransformerLM(cfg, params, cfg.seq_len)
     assert model.flash_in_training() is lm_kw['use_flash_attention']
-    opt = Adam(model.p, 1e-3, fuse=True)
+    opt = TensorAdam(model.p, 1e-3, fuse=True)
     opt.load_state(state, lr)
     losses = []
     for f in _feeds():
