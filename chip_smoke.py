@@ -176,9 +176,11 @@ Phases, each printing one JSON line:
    peak memory and a profile of one step.
 13. amp_flash_kernel — phase 8 on bf16 operands: the bf16 forward, dQ and
    dK/dV kernels against their plain versions at (a) the AMP LM step's
-   shape, BH 512 (B 64 x 8 heads), L 512, dh 64, causal, and (b) BERT's
-   (as phase 8). O, dQ, dK and dV within 1e-2 of each tensor's largest
-   magnitude, LSE within 1e-5 absolute on the rows that keep a key, the
+   shape, BH 512 (B 64 x 8 heads), L 512, dh 64, causal, (b) BERT's (as
+   phase 8) and (c) ``lm_long_seq8k``'s (bench.py:1124-1129), BH 16 (B 2 x
+   8 heads), L 8192, dh 64, causal. O, dQ, dK and dV within 1e-2 of each
+   tensor's largest magnitude, LSE within 1e-5 absolute on the rows that
+   keep a key, the
    padded element exactly 0, two calls bitwise equal; ``library_ms`` is
    bf16 ``F.scaled_dot_product_attention`` and its backward; ``bound_ms``
    counts the products at the bf16 rate (989 TFLOP/s). The forward's
@@ -213,6 +215,48 @@ Phases, each printing one JSON line:
    with attention dropout 0 (the biased bf16 flash kernels train) under
    phase 15's checks; the bench's own configuration (attention dropout
    0.1: the unfused branch with bf16 matmuls), timed only.
+15b. program_amp — the AMP program pass on the card: ``build_lm`` +
+   ``mixed_precision.decorate(optimizer.Adam(1e-4, fuse=True)).minimize``
+   + ``Executor().run``. (a) Flash on, dropout and attention dropout 0, B
+   16: the startup scope's parameters overwritten with the initial weights
+   of a ``TransformerLM`` + ``rewrite_model_bf16`` + ``decorate(TensorAdam)``
+   run, 10 steps of each; the loss within 1e-4 relative of that run's at
+   every step (and the share of bitwise-equal steps), every parameter
+   within 1e-3 of its largest magnitude after 10 steps (the K slice of
+   each ``*.attn.qkv.b`` within 10 x lr), and each step launching exactly
+   the AMP path's kernels (gather 1, LN forward and backward 13, the bf16
+   flash forward, dQ and dK/dV 6 each, CE forward and backward 1, Adam 1;
+   no FFN and no float32 flash launch). (b) The bench's flagship row
+   (dropout 0.1, attention dropout 0, B 64) and (c) the same at B 16, 10
+   steps each on phase 15's weights: the loss finite and fallen, the same
+   launches; step ms (host clock, as phase 15 times it), device ms and
+   every CUDA launch a step (torch.profiler), tokens/s, model TFLOP/s
+   (bench.py:58-67's formula), peak memory, and the host ms an Executor
+   step and a model step take to return, beside phase 15's at the same
+   batch. (d) ``lm_large`` (d 1024, 16 heads, 8 layers, d_ff 4096, B 32)
+   and (e) ``lm_long_seq8k`` (L 8192, 4 layers, B 2), 5 steps each from the
+   startup program's weights: the loss finite and fallen, the AMP path's
+   launches exactly; step ms, tokens/s, model TFLOP/s, peak memory. Before
+   them (``program_large_kernel``), phase 5's checks at ``lm_large``'s own
+   shapes, but for the FFN, which its AMP step stands down: the gather
+   from [32000, 1024], the LN-residual forward and backward at N 16384 x
+   D 1024, CE at [16384, 32000] and Adam over its 166 M parameters.
+   (``lm_long_seq8k``'s are phase 5's widths at half the rows.)
+16b. program_bert — ``models.bert.build_bert_pretrain`` through the
+   Executor on phase 12's weights and ``make_pretrain_batch`` batches with
+   key lengths cut to 32..128. (a) The inference program at B 4: the total
+   within 1e-5 relative of ``BertPretrain.loss(is_test=True)``. (b) The
+   inference program at B 128: ms and samples/s beside phase 12's forward.
+   (c) Training at B 32, dropout and attention dropout 0, 10 steps, held to
+   ``BertPretrain`` + ``TensorAdam`` with 15b (a)'s limits, each step
+   launching exactly gather 2, LN forward and backward 25, the flash
+   forward, dQ and dK/dV 12 each, FFN 12, CE forward and backward 2, Adam
+   1. (d) Under ``decorate`` at B 128, 10 steps each, in the bench's own
+   configuration (attention dropout 0.1: the unfused branch, bf16
+   ``matmul``s, no flash launch) and with attention dropout 0 (the biased
+   bf16 flash kernels, 12 launches each a step): the loss finite and
+   fallen, the launches exactly; step ms, device ms, samples/s and peak
+   memory beside phase 16's.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -224,7 +268,8 @@ at the f32 CUDA-core peak of 67 TFLOP/s.
 Those four kernels also get ``bound_simt_ms``, every flop at 67 TFLOP/s,
 the rule of the tables before the tensor-core kernels.
 
-Then one line ``{"kernels": [...]}`` (per kernel: route, source, the TPU
+Then a ``total`` line (the script's seconds, the card beside them) and
+one line ``{"kernels": [...]}`` (per kernel: route, source, the TPU
 kernel it replaces, launches on each path (the engine paths' counted
 through their graphs' replays), max abs error, ms, plain_ms,
 bound_ms and what bounds it, library_ms, at the shape of the first path
@@ -316,6 +361,22 @@ PROGRAM_STEPS = 10
 PROGRAM_DEFAULT_STEPS = 5
 PROGRAM_INFER_B = 8
 QUICK_START_STEPS = 20
+# phase 15b: the bench's other AMP LM rows (bench.py:1118-1129), at their
+# batches, through the Executor
+LM_LARGE = dict(vocab_size=32000, seq_len=512, d_model=1024, n_head=16,
+                n_layer=8, d_ff=4096, dropout=0.1, attn_dropout=0.0,
+                use_flash_attention=True)
+LM_LARGE_B = 32
+SEQ8K = dict(vocab_size=32000, seq_len=8192, d_model=512, n_head=8,
+             n_layer=4, d_ff=2048, dropout=0.0, attn_dropout=0.0,
+             use_flash_attention=True)
+SEQ8K_B = 2
+LARGE_STEPS = 5
+# phase 16b: BERT's inference batch at phase 12's (i)
+BERT_CHECK_B = 4
+# the bench's AMP BERT row attends through the unfused branch: no flash
+AMP_BERT_UNFUSED_KERNELS = tuple(k for k in AMP_TRAIN_KERNELS
+                                 if k not in AMP_FLASH_KERNELS)
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'engine_spec': PAGED_KERNELS,
                 'train': TRAIN_KERNELS,
@@ -324,7 +385,12 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'program_train': FLASH_TRAIN_KERNELS,
                 'program_default': TRAIN_KERNELS,
                 'bert': FLASH_TRAIN_KERNELS, 'train_amp': AMP_TRAIN_KERNELS,
-                'bert_amp': AMP_TRAIN_KERNELS}
+                'bert_amp': AMP_TRAIN_KERNELS,
+                'program_amp': AMP_TRAIN_KERNELS,
+                'program_large': AMP_TRAIN_KERNELS,
+                'program_seq8k': AMP_TRAIN_KERNELS,
+                'program_bert': FLASH_TRAIN_KERNELS,
+                'program_bert_amp': AMP_TRAIN_KERNELS}
 
 
 def emit(obj):
@@ -1622,14 +1688,15 @@ def run_engine_spec(torch, kt, smi):
 
 
 def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
-                        ffn_infer_rows=()):
-    """Phases 5 and 11: the kernels a training step runs, but for flash
-    attention, at one model's shapes: ``n_rows`` rows of ``cfg.d_model``,
-    CE at each (rows, vocabulary) of ``ce_shapes``, Adam over the parameter
-    ``shapes``, and the FFN also at each of ``ffn_infer_rows`` as inference
-    calls it (no mask, no pre1). Returns {kernel name: summary dict} as
-    check_kernels does."""
-    from paddle_tpu_torch.ops import (ce_ops, embedding_ops, ffn_ops, nn_ops,
+                        ffn_infer_rows=(), ffn=True):
+    """Phases 5, 11 and 15b (d): the kernels a training step runs, but for
+    flash attention, at one model's shapes: ``n_rows`` rows of
+    ``cfg.d_model``, CE at each (rows, vocabulary) of ``ce_shapes``, Adam
+    over the parameter ``shapes``, and the FFN (unless ``ffn`` is false: an
+    AMP step stands it down) also at each of ``ffn_infer_rows`` as
+    inference calls it (no mask, no pre1). Returns {kernel name: summary
+    dict} as check_kernels does."""
+    from paddle_tpu_torch.ops import (ce_ops, embedding_ops, nn_ops,
                                       optimizer_ops)
     dev = torch.device('cuda', 0)
     g = torch.Generator(device=dev).manual_seed(4321)
@@ -1678,43 +1745,10 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
             lambda: cuda_ms(torch, lambda: F.layer_norm(
                 x + r, (D,), sc, bi, 1e-5)),
             4 * N * D * 4 + 2 * D * 4 + 2 * N * 4, 9 * N * D, calls=20))])
-    d_ff = cfg.d_ff
-    w1, b1 = randn(D, d_ff, scale=0.02), randn(d_ff, scale=0.02)
-    w2, b2 = randn(d_ff, D, scale=0.02), randn(D, scale=0.02)
-    mask = (torch.rand((N, D), generator=g, device=dev) < 0.9).float() / 0.9
-    del w, r
-    cases = []
-    # the training step's call (mask and pre1), then the inference rows'
-    # (neither)
-    for n, m, want_pre1 in [(N, mask, True)] + [
-            (n, None, False) for n in ffn_infer_rows]:
-        x = randn(n, D)
-        got = ffn_ops._ffn_fwd(x, w1, b1, w2, b2, m, want_pre1)
-        ref = ffn_ops._ffn_ref(x, w1, b1, w2, b2, m)
-        err = max_err(torch, got[:1 + want_pre1], ref[:1 + want_pre1])
-        del got, ref
-
-        def lib(x=x, m=m):
-            y = F.gelu(x @ w1 + b1) @ w2 + b2
-            return y * m if m is not None else y
-
-        cases.append(dict(
-            n=n, d=D, d_ff=d_ff, masked=m is not None, pre1=want_pre1,
-            route=ffn_ops._plan(n, D, d_ff, D)[0], max_abs_err=err,
-            deterministic=same_bits(torch, lambda: ffn_ops._ffn_fwd(
-                x, w1, b1, w2, b2, m, want_pre1)), **timed(
-                lambda: ffn_ops._ffn_fwd(x, w1, b1, w2, b2, m, want_pre1),
-                lambda: ffn_ops._ffn_ref(x, w1, b1, w2, b2, m),
-                lambda: cuda_ms(torch, lib, calls=5, replays=5),
-                (2 * n * D + D * d_ff + d_ff + d_ff * D + D
-                 + want_pre1 * n * d_ff + (m is not None) * n * D) * 4,
-                8 * n * d_ff, product_flops=4 * n * D * d_ff)))
-        del x
-        if not cases[-1]['deterministic']:
-            raise AssertionError('fused_ffn gave other bits on a second '
-                                 'call at N %d' % n)
-    out['fused_ffn'] = dict(tolerance=1e-4, cases=cases)
-    del w1, w2, mask
+    del w, x, r
+    if ffn:
+        out['fused_ffn'] = check_ffn(torch, F, cfg, g, N, ffn_infer_rows,
+                                     randn, timed)
     torch.cuda.empty_cache()
 
     # CE: logits of an LM head's scale, labels in range but for some rows
@@ -1832,6 +1866,47 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
     return out
 
 
+def check_ffn(torch, F, cfg, g, N, infer_rows, randn, timed):
+    """check_train_kernels' FFN cases: the training step's call at ``N``
+    rows (mask and pre1), then each of ``infer_rows`` as inference calls it
+    (neither)."""
+    from paddle_tpu_torch.ops import ffn_ops
+    dev = torch.device('cuda', 0)
+    D, d_ff = cfg.d_model, cfg.d_ff
+    w1, b1 = randn(D, d_ff, scale=0.02), randn(d_ff, scale=0.02)
+    w2, b2 = randn(d_ff, D, scale=0.02), randn(D, scale=0.02)
+    mask = (torch.rand((N, D), generator=g, device=dev) < 0.9).float() / 0.9
+    cases = []
+    for n, m, want_pre1 in [(N, mask, True)] + [
+            (n, None, False) for n in infer_rows]:
+        x = randn(n, D)
+        got = ffn_ops._ffn_fwd(x, w1, b1, w2, b2, m, want_pre1)
+        ref = ffn_ops._ffn_ref(x, w1, b1, w2, b2, m)
+        err = max_err(torch, got[:1 + want_pre1], ref[:1 + want_pre1])
+        del got, ref
+
+        def lib(x=x, m=m):
+            y = F.gelu(x @ w1 + b1) @ w2 + b2
+            return y * m if m is not None else y
+
+        cases.append(dict(
+            n=n, d=D, d_ff=d_ff, masked=m is not None, pre1=want_pre1,
+            route=ffn_ops._plan(n, D, d_ff, D)[0], max_abs_err=err,
+            deterministic=same_bits(torch, lambda: ffn_ops._ffn_fwd(
+                x, w1, b1, w2, b2, m, want_pre1)), **timed(
+                lambda: ffn_ops._ffn_fwd(x, w1, b1, w2, b2, m, want_pre1),
+                lambda: ffn_ops._ffn_ref(x, w1, b1, w2, b2, m),
+                lambda: cuda_ms(torch, lib, calls=5, replays=5),
+                (2 * n * D + D * d_ff + d_ff + d_ff * D + D
+                 + want_pre1 * n * d_ff + (m is not None) * n * D) * 4,
+                8 * n * d_ff, product_flops=4 * n * D * d_ff)))
+        del x
+        if not cases[-1]['deterministic']:
+            raise AssertionError('fused_ffn gave other bits on a second '
+                                 'call at N %d' % n)
+    return dict(tolerance=1e-4, cases=cases)
+
+
 def finish_kernel_checks(phase, out):
     """Emit every case of ``out`` and raise where a kernel's checked error
     exceeds its tolerance or its time reads under its bound."""
@@ -1882,17 +1957,25 @@ def flash_shapes(torch, low):
     """The shapes of phases 8 (``low`` False) and 13 (``low``, the AMP
     step's B 64): the LM training shape, causal, and BERT's, with its
     key-padding bias [B, L] on the CPU (key lengths drawn in 32..128, batch
-    element 0 wholly padded) and the visible (query, key) pairs of each."""
+    element 0 wholly padded) and the visible (query, key) pairs of each;
+    phase 13 also ``lm_long_seq8k``'s (B 2 x 8 heads, L 8192, causal)."""
     lens = np.random.RandomState(11).randint(32, 129, size=BERT_INFER_B)
     lens[0] = 0                       # one batch element wholly padded
     bias = torch.zeros(BERT_INFER_B, 128)
     for i, n in enumerate(lens):
         bias[i, n:] = -1e9
     lm_b = AMP_TRAIN_B if low else TRAIN_B
-    return [dict(shape='lm_train', B=lm_b, H=8, L=512, dh=64, causal=True,
-                 bias=None, pairs=lm_b * 8 * 512 * 513 // 2),
-            dict(shape='bert', B=BERT_INFER_B, H=12, L=128, dh=64,
-                 causal=False, bias=bias, pairs=12 * 128 * int(lens.sum()))]
+    out = [dict(shape='lm_train', B=lm_b, H=8, L=512, dh=64, causal=True,
+                bias=None, pairs=lm_b * 8 * 512 * 513 // 2),
+           dict(shape='bert', B=BERT_INFER_B, H=12, L=128, dh=64,
+                causal=False, bias=bias, pairs=12 * 128 * int(lens.sum()))]
+    if low:
+        L = SEQ8K['seq_len']
+        out.append(dict(shape='lm_long_seq8k', B=SEQ8K_B, H=SEQ8K['n_head'],
+                        L=L, dh=SEQ8K['d_model'] // SEQ8K['n_head'],
+                        causal=True, bias=None,
+                        pairs=SEQ8K_B * SEQ8K['n_head'] * L * (L + 1) // 2))
+    return out
 
 
 def sdpa_bwd_yardsticks(torch, F, sdpa, q4, k4, v4, do4, mask4, causal):
@@ -2261,29 +2344,112 @@ def timed_training(torch, kt, step, steps, kernels, idle=()):
                 step_profile=step_profile(torch, step, steps=1)), counts
 
 
-def program_step_launches(cfg):
-    """The launches one training step of the flash program makes: the
-    gather, the 2L + 1 fused LayerNorms forward and backward, the three
-    flash kernels and the FFN a layer, the CE forward and backward, one
-    fused Adam (`PERF.md` §6's launches column)."""
+def program_step_launches(cfg, amp=False, flash=True, gathers=1, ces=1):
+    """The launches one training step of a program makes (`PERF.md` §6's
+    launches columns): the ``gathers`` embedding gathers, the 2L + 1 fused
+    LayerNorms forward and backward, the three flash kernels a layer
+    (``flash``; their bf16 form under ``amp``), the FFN kernel a layer
+    (float32 only: the marked FFN stands it down, as the JAX package
+    does), the CE forward and backward of each of ``ces`` losses, one
+    fused Adam."""
     from paddle_tpu_torch.ops import kernel_tier as kt
     n, ln = cfg.n_layer, 2 * cfg.n_layer + 1
-    return dict(dict.fromkeys(kt.KERNELS, 0), embedding_gather=1,
-                fused_ln_residual=ln, fused_ln_residual_bwd=ln,
-                flash_attention=n, flash_attention_bwd_dq=n,
-                flash_attention_bwd_dkv=n, fused_ffn=n, softmax_ce_fwd=1,
-                softmax_ce_bwd=1, fused_adam=1)
+    out = dict(dict.fromkeys(kt.KERNELS, 0), embedding_gather=gathers,
+               fused_ln_residual=ln, fused_ln_residual_bwd=ln,
+               softmax_ce_fwd=ces, softmax_ce_bwd=ces, fused_adam=1)
+    if flash:
+        out.update(dict.fromkeys(AMP_FLASH_KERNELS if amp else FLASH_KERNELS,
+                                 n))
+    if not amp:
+        out['fused_ffn'] = n
+    return out
 
 
-def build_program(fluid, cfg, is_test=False):
-    """(main, startup, logits, loss) of ``build_lm(cfg)`` with
-    ``Adam(1e-4, fuse=True).minimize`` unless ``is_test``."""
+def model_flops(cfg, batch):
+    """Model flops of one LM training step, bench.py:58-67's formula
+    (`_lm_train_flops_per_step`): the forward's products (QKV, the scores
+    and context over all L x L pairs, proj, the two FFN products a layer,
+    and the LM head) times 3 for the backward."""
+    B, L, d, V, dff = (batch, cfg.seq_len, cfg.d_model, cfg.vocab_size,
+                       cfg.d_ff)
+    per_layer = (2 * B * L * d * 3 * d + 2 * B * L * L * d
+                 + 2 * B * L * L * d + 2 * B * L * d * d
+                 + 2 * B * L * d * dff * 2)
+    return 3 * (cfg.n_layer * per_layer + 2 * B * L * d * V)
+
+
+def run_counted(kt, steps, per_step, what):
+    """Run each of ``steps`` (functions returning a loss), checking that
+    each launches exactly ``per_step``; returns the losses as floats."""
+    out = []
+    for i, step in enumerate(steps):
+        before = kt.launch_counts()
+        out.append(float(step().reshape(-1)[0]))
+        after = kt.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        if got != per_step:
+            raise AssertionError('%s step %d launched %s, the path launches '
+                                 '%s' % (what, i, got, per_step))
+    return out
+
+
+def hold_to_model(torch, got, ref, scope, ref_params, d, lr):
+    """Phases 10b (a), 15b (a) and 16b (c): the program's losses ``got``
+    within 1e-4 relative of the model's ``ref`` at every step, and every
+    parameter within 1e-3 of its largest magnitude of ``ref_params`` (the
+    K slice of each ``*.attn.qkv.b``, whose true gradient is 0, within 10
+    x lr). Returns (summary, failures)."""
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    param_rel, kbias = {}, 0.0
+    for n, want in ref_params.items():
+        have = scope.get(n)
+        if n.endswith('.attn.qkv.b'):
+            kbias = max(kbias, float((have[d:2 * d] - want[d:2 * d])
+                                     .abs().max()))
+            have = torch.cat([have[:d], have[2 * d:]])
+            want = torch.cat([want[:d], want[2 * d:]])
+        param_rel[n] = float((have - want).abs().max() /
+                             want.abs().max().clamp_min(1e-30))
+    worst = max(param_rel, key=param_rel.get)
+    summary = dict(losses=got, ref_losses=ref,
+                   loss_rel_err_max=max(loss_rel),
+                   bitwise_equal_loss_share=float(np.mean(
+                       [a == b for a, b in zip(got, ref)])),
+                   param_rel_err_max=param_rel[worst],
+                   param_rel_err_worst=worst, k_bias_abs_err_max=kbias)
+    failures = []
+    if not max(loss_rel) <= 1e-4:
+        failures.append('program losses %s against the model\'s %s'
+                        % (got, ref))
+    if not param_rel[worst] <= 1e-3:
+        failures.append('parameter %s differs by %g of its largest '
+                        'magnitude' % (worst, param_rel[worst]))
+    if not kbias <= 10 * lr:
+        failures.append('a K bias differs by %g' % kbias)
+    return summary, failures
+
+
+def build_program(fluid, cfg, is_test=False, amp=False, bert=False):
+    """(main, startup, logits, loss) of ``build_lm(cfg)``, or with ``bert``
+    (main, startup, (mlm, nsp), total) of ``build_bert_pretrain(cfg)``,
+    with ``Adam(1e-4, fuse=True).minimize`` unless ``is_test``,
+    ``mixed_precision.decorate``d with ``amp`` (the bench's
+    ``amp=True``)."""
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert as bert_model
     from paddle_tpu_torch.models import transformer
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        _, _, logits, loss = transformer.build_lm(cfg, is_test=is_test)
+        if bert:
+            loss, *logits = bert_model.build_bert_pretrain(cfg,
+                                                           is_test=is_test)
+        else:
+            _, _, logits, loss = transformer.build_lm(cfg, is_test=is_test)
         if not is_test:
-            fluid.optimizer.Adam(1e-4, fuse=True).minimize(loss)
+            opt = fluid.optimizer.Adam(1e-4, fuse=True)
+            if amp:
+                opt = mixed_precision.decorate(opt)
+            opt.minimize(loss)
     return main, startup, logits, loss
 
 
@@ -2371,44 +2537,12 @@ def run_program_train(torch, kt, smi, flash_step):
     scope, startup_ms = program_scope(torch, fluid, exe, startup, params)
     per_step = program_step_launches(cfg)
     kt.reset_counts()
-    got = []
-    for i in range(PROGRAM_STEPS):
-        before = kt.launch_counts()
-        got.append(float(exe.run(main, feed=feed, fetch_list=[loss],
-                                 scope=scope)[0][0]))
-        after = kt.launch_counts()
-        step_counts = {k: after[k] - before[k] for k in after}
-        if step_counts != per_step:
-            raise AssertionError('program step %d launched %s, the path '
-                                 'launches %s' % (i, step_counts, per_step))
+    got = run_counted(kt, [program_step(exe, main, feed, loss, scope)] *
+                      PROGRAM_STEPS, per_step, 'program')
     by_path['program_held'] = kt.launch_counts()
-    loss_rel = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
-    d = cfg.d_model
-    param_rel, kbias = {}, 0.0
-    for n, want in ref_params.items():
-        have = scope.get(n)
-        if n.endswith('.attn.qkv.b'):
-            kbias = max(kbias, float((have[d:2 * d] - want[d:2 * d])
-                                     .abs().max()))
-            have = torch.cat([have[:d], have[2 * d:]])
-            want = torch.cat([want[:d], want[2 * d:]])
-        param_rel[n] = float((have - want).abs().max() /
-                             want.abs().max().clamp_min(1e-30))
-    worst = max(param_rel, key=param_rel.get)
-    out['held'] = dict(losses=got, ref_losses=ref,
-                       loss_rel_err_max=max(loss_rel),
-                       param_rel_err_max=param_rel[worst],
-                       param_rel_err_worst=worst, k_bias_abs_err_max=kbias,
-                       launches_per_step=per_step, startup_ms=startup_ms)
-    failures = []
-    if not max(loss_rel) <= 1e-4:
-        failures.append('program losses %s against TransformerLM %s'
-                        % (got, ref))
-    if not param_rel[worst] <= 1e-3:
-        failures.append('parameter %s differs by %g of its largest '
-                        'magnitude' % (worst, param_rel[worst]))
-    if not kbias <= 10 * lr:
-        failures.append('a K bias differs by %g' % kbias)
+    out['held'], failures = hold_to_model(torch, got, ref, scope, ref_params,
+                                          cfg.d_model, lr)
+    out['held'].update(launches_per_step=per_step, startup_ms=startup_ms)
     if failures:
         emit(out)
         raise AssertionError('; '.join(failures))
@@ -2658,7 +2792,246 @@ def run_bert_amp(torch, kt, f32_infer_ms):
     return out, counts
 
 
+def program_timing(torch, kt, step, steps, per_step, kernels, idle=()):
+    """`timed_training` of a program's ``step``, whose launches over the
+    ``steps`` must be exactly ``steps`` x ``per_step``; the step's device
+    ms and all of its CUDA launches (torch.profiler) beside."""
+    timed, counts = timed_training(torch, kt, step, steps, kernels, idle)
+    want = {k: steps * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError('%d program steps launched %s, not %s'
+                             % (steps, counts, want))
+    prof = timed['step_profile']
+    timed.update(device_ms=prof['device_ms_per_step'],
+                 cuda_launches_per_step=prof['launches_per_step'],
+                 launches_per_step=per_step)
+    return timed, counts
+
+
+def run_program_amp(torch, kt, smi, amp_ref):
+    """Phase 15b (module docstring). ``amp_ref`` is {batch: phase 15's
+    summary at that batch}. Returns (summary, {path: launch counts})."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models.transformer import (LMConfig,
+                                                     TransformerLM,
+                                                     init_params)
+    from paddle_tpu_torch.optimizer import TensorAdam
+    exe = fluid.Executor()
+    dev = exe.device
+    lr = 1e-4
+    lm = LMConfig()
+    params = init_params(lm, 2, 'cpu')         # phase 15's weights
+    out = dict(phase='program_amp', card=smi, seq_len=lm.seq_len)
+    by_path = {}
+
+    def batch(cfg, n, seed=6):
+        g = torch.Generator(device='cpu').manual_seed(seed)
+        return {k: torch.randint(0, cfg.vocab_size, (n, cfg.seq_len),
+                                 generator=g).to(dev)
+                for k in ('tokens', 'labels')}
+
+    def model_step(cfg, feed, weights, gen):
+        model = TransformerLM(cfg, {k: v.to(dev, copy=True)
+                                    for k, v in weights.items()},
+                              cfg.seq_len)
+        mixed_precision.rewrite_model_bf16(model)
+        opt = mixed_precision.decorate(TensorAdam(model.p, lr, fuse=True))
+        return model, lambda: opt.minimize(model.loss(
+            feed['tokens'], feed['labels'], gen))
+
+    # (a) the program held to the model path: flash, no dropout, B 16
+    cfg = LMConfig(dropout=0.0, attn_dropout=0.0)
+    feed = batch(cfg, TRAIN_B)
+    model, mstep = model_step(cfg, feed, params, None)
+    ref = [float(mstep()) for _ in range(PROGRAM_STEPS)]
+    ref_params = {n: p.detach().clone() for n, p in model.p.items()}
+    del model, mstep
+    torch.cuda.empty_cache()
+    main, startup, _, loss = build_program(fluid, cfg, amp=True)
+    marked = sum(1 for op in main.global_block().ops
+                 if op.attr(mixed_precision.AMP_ATTR))
+    scope, _ = program_scope(torch, fluid, exe, startup, params)
+    per_step = program_step_launches(cfg, amp=True)
+    kt.reset_counts()
+    got = run_counted(kt, [program_step(exe, main, feed, loss, scope)] *
+                      PROGRAM_STEPS, per_step, 'AMP program')
+    by_path['program_amp'] = kt.launch_counts()
+    out['held'], failures = hold_to_model(torch, got, ref, scope, ref_params,
+                                          cfg.d_model, lr)
+    out['held'].update(batch=TRAIN_B, marked_ops=marked,
+                       launches_per_step=per_step)
+    if failures:
+        emit(out)
+        raise AssertionError('; '.join(failures))
+    del scope, ref_params
+    torch.cuda.empty_cache()
+
+    # (b), (c) the bench's flagship row (bench.py:1058-1062) at B 64 and
+    # at B 16, each beside phase 15's model step at its batch
+    cfg = LMConfig(attn_dropout=0.0)
+    for key, n in (('train', AMP_TRAIN_B), ('train_b16', TRAIN_B)):
+        feed = batch(cfg, n)
+        main, startup, _, loss = build_program(fluid, cfg, amp=True)
+        scope, _ = program_scope(torch, fluid, exe, startup, params)
+        step = program_step(exe, main, feed, loss, scope)
+        timed, counts = program_timing(
+            torch, kt, step, PROGRAM_STEPS, per_step, AMP_TRAIN_KERNELS,
+            AMP_IDLE_KERNELS)
+        for k, v in counts.items():
+            by_path['program_amp'][k] += v
+        model, mstep = model_step(
+            cfg, feed, params, torch.Generator(device=dev).manual_seed(2024))
+        (host, wall), (m_host, m_wall) = return_ms(torch, [step, mstep])
+        del model, mstep, scope, step
+        torch.cuda.empty_cache()
+        ref = amp_ref[n]
+        out[key] = dict(
+            batch=n, dropout=cfg.dropout, attn_dropout=cfg.attn_dropout,
+            tokens_per_s=n * cfg.seq_len / (timed['step_ms'] / 1e3),
+            model_tflops=model_flops(cfg, n) / (timed['step_ms'] / 1e3) /
+            1e12,
+            host_ms=host, host_wall_ms=wall, model_host_ms=m_host,
+            model_host_wall_ms=m_wall,
+            phase15=dict(step_ms=ref['step_ms'],
+                         device_ms=ref['step_profile']['device_ms_per_step'],
+                         cuda_launches_per_step=ref['step_profile'][
+                             'launches_per_step'],
+                         tokens_per_s=ref['tokens_per_s'],
+                         peak_mem_bytes=ref['peak_mem_bytes']),
+            **timed)
+
+    # (d) lm_large at B 32, (e) lm_long_seq8k at B 2 (bench.py:1118-1129)
+    for key, kw, n in (('program_large', LM_LARGE, LM_LARGE_B),
+                       ('program_seq8k', SEQ8K, SEQ8K_B)):
+        cfg = LMConfig(**kw)
+        feed = batch(cfg, n)
+        main, startup, _, loss = build_program(fluid, cfg, amp=True)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        per = program_step_launches(cfg, amp=True)
+        timed, by_path[key] = program_timing(
+            torch, kt, program_step(exe, main, feed, loss, scope),
+            LARGE_STEPS, per, AMP_TRAIN_KERNELS, AMP_IDLE_KERNELS)
+        out[key] = dict(
+            config=kw, batch=n,
+            parameters=sum(int(np.prod(p.shape))
+                           for p in main.all_parameters()),
+            tokens_per_s=n * cfg.seq_len / (timed['step_ms'] / 1e3),
+            model_tflops=model_flops(cfg, n) / (timed['step_ms'] / 1e3) /
+            1e12, **timed)
+        del scope, main, startup
+        torch.cuda.empty_cache()
+    return out, by_path
+
+
+def run_program_bert(torch, kt, smi, bert_ref):
+    """Phase 16b (module docstring). ``bert_ref`` holds phase 12's B 128
+    forward ms and phase 16's AMP summary. Returns (summary, {path: launch
+    counts})."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import TensorAdam
+    exe = fluid.Executor()
+    dev = exe.device
+    lr = 1e-4
+    out = dict(phase='program_bert', card=smi)
+    by_path = {}
+    cfg = bert.BertConfig(dropout=0.0, attn_dropout=0.0)
+    params = bert.init_params(cfg, 3, 'cpu')        # phase 12's weights
+
+    # (a) the inference program against BertPretrain.loss(is_test=True)
+    main, startup, (mlm, nsp), total = build_program(fluid, cfg,
+                                                     is_test=True, bert=True)
+    scope, _ = program_scope(torch, fluid, exe, startup, params)
+    feed = bert_batch(torch, cfg, BERT_CHECK_B, 1, dev)
+    got = [float(v[0]) for v in exe.run(main, feed=feed,
+                                        fetch_list=[total, mlm, nsp],
+                                        scope=scope)]
+    model = bert.BertPretrain(cfg, {k: v.to(dev, copy=True)
+                                    for k, v in params.items()})
+    with torch.no_grad():
+        want = [float(v) for v in model.loss(is_test=True, **feed)]
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    out['infer_check'] = dict(batch=BERT_CHECK_B, losses=got,
+                              model_losses=want, total_rel_err=rel)
+    if not (all(np.isfinite(got)) and rel <= 1e-5):
+        emit(out)
+        raise AssertionError('BERT inference program %s against the model '
+                             '%s' % (got, want))
+
+    # (b) the inference program at B 128, beside phase 12's forward
+    feed = bert_batch(torch, cfg, BERT_INFER_B, 2, dev)
+    kt.reset_counts()
+    exe.run(main, feed=feed, fetch_list=[total], scope=scope,
+            return_numpy=False)
+    torch.cuda.synchronize()
+    launches = kt.launch_counts()
+    ms = host_ms(torch, lambda: exe.run(main, feed=feed, fetch_list=[total],
+                                        scope=scope, return_numpy=False), 5)
+    out['infer'] = dict(batch=BERT_INFER_B, forward_ms=ms,
+                        samples_per_s=BERT_INFER_B / (ms / 1e3),
+                        model_forward_ms=bert_ref['f32_infer_ms'],
+                        launches=launches)
+    del scope, feed
+    torch.cuda.empty_cache()
+
+    # (c) training at B 32, no dropout, held to BertPretrain + TensorAdam
+    feed = bert_batch(torch, cfg, BERT_TRAIN_B, 3, dev)
+    opt = TensorAdam(model.p, lr, fuse=True)
+    ref = [float(opt.minimize(model.loss(**feed)[0]))
+           for _ in range(BERT_STEPS)]
+    ref_params = {n: p.detach().clone() for n, p in model.p.items()}
+    del model, opt
+    torch.cuda.empty_cache()
+    main, startup, _, total = build_program(fluid, cfg, bert=True)
+    scope, _ = program_scope(torch, fluid, exe, startup, params)
+    per_step = program_step_launches(cfg, gathers=2, ces=2)
+    kt.reset_counts()
+    got = run_counted(kt, [program_step(exe, main, feed, total, scope)] *
+                      BERT_STEPS, per_step, 'BERT program')
+    by_path['program_bert'] = kt.launch_counts()
+    out['train'], failures = hold_to_model(torch, got, ref, scope,
+                                           ref_params, cfg.d_model, lr)
+    out['train'].update(batch=BERT_TRAIN_B, launches_per_step=per_step)
+    if failures:
+        emit(out)
+        raise AssertionError('; '.join(failures))
+    del scope, ref_params, feed
+    torch.cuda.empty_cache()
+
+    # (d) AMP at B 128: the bench's configuration (attention dropout 0.1,
+    # the unfused branch) and attention dropout 0 (the biased bf16 flash
+    # kernels), each beside phase 16's model step
+    by_path['program_bert_amp'] = dict.fromkeys(kt.KERNELS, 0)
+    for key, attn_dropout in (('amp_bench_config', 0.1), ('amp_flash', 0.0)):
+        cfg = bert.BertConfig(attn_dropout=attn_dropout)
+        main, startup, _, total = build_program(fluid, cfg, amp=True,
+                                                bert=True)
+        scope, _ = program_scope(torch, fluid, exe, startup, params)
+        feed = bert_batch(torch, cfg, AMP_BERT_B, 3, dev)
+        flash = not attn_dropout
+        per = program_step_launches(cfg, amp=True, flash=flash, gathers=2,
+                                    ces=2)
+        timed, counts = program_timing(
+            torch, kt, program_step(exe, main, feed, total, scope),
+            BERT_STEPS, per,
+            AMP_TRAIN_KERNELS if flash else AMP_BERT_UNFUSED_KERNELS,
+            AMP_IDLE_KERNELS + (() if flash else AMP_FLASH_KERNELS))
+        for k, v in counts.items():
+            by_path['program_bert_amp'][k] += v
+        ref = bert_ref['amp'][key]
+        out[key] = dict(batch=AMP_BERT_B, attn_dropout=attn_dropout,
+                        dropout=cfg.dropout, flash=flash,
+                        samples_per_s=AMP_BERT_B / (timed['step_ms'] / 1e3),
+                        phase16=ref, **timed)
+        del scope, feed, main, startup
+        torch.cuda.empty_cache()
+    return out, by_path
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -2795,8 +3168,9 @@ def main():
     # bf16 AMP: the bf16 flash kernels, then the AMP training steps
     amp_flash = check_flash_kernels(torch, F, torch.bfloat16, ptxas)
     for name in AMP_FLASH_KERNELS:
-        lm_case, bert_case = amp_flash[name]['cases']
-        other[name] = {'bert_amp': [bert_case]}
+        lm_case, bert_case, long_case = amp_flash[name]['cases']
+        other[name] = {'bert_amp': [bert_case],
+                       'program_seq8k': [long_case]}
         kernels[name] = amp_flash[name]
     compare_train_step_with_cpu(torch, flash=True, amp=True,
                                 f32_card=flash_card)
@@ -2806,7 +3180,6 @@ def main():
         AMP_TRAIN_KERNELS, amp=True, batch=AMP_TRAIN_B,
         idle=AMP_IDLE_KERNELS)
     emit(train_amp)
-    del train_amp
     torch.cuda.empty_cache()
     train_amp_b16, _ = run_training(
         torch, kt, 'train_amp_b16', LMConfig(attn_dropout=0.0),
@@ -2814,11 +3187,39 @@ def main():
         note='like for like with phase 10 (f32_* keys)')
     train_amp_b16.update({'f32_' + k: v for k, v in f32_flash_step.items()})
     emit(train_amp_b16)
-    del train_amp_b16
+    amp_ref = {AMP_TRAIN_B: train_amp, TRAIN_B: train_amp_b16}
+    del train_amp, train_amp_b16
     torch.cuda.empty_cache()
     bert_amp, by_path['bert_amp'] = run_bert_amp(torch, kt, f32_infer_ms)
     emit(bert_amp)
+    bench, flash_amp = bert_amp['bench_config'], bert_amp['train']
+    bert_ref = dict(f32_infer_ms=f32_infer_ms, amp=dict(
+        amp_bench_config=dict(step_ms=bench['step_ms'],
+                              samples_per_s=bench['samples_per_s']),
+        amp_flash=dict(step_ms=flash_amp['step_ms'],
+                       samples_per_s=flash_amp['samples_per_s'],
+                       peak_mem_bytes=flash_amp['peak_mem_bytes'],
+                       device_ms=flash_amp['step_profile'][
+                           'device_ms_per_step'])))
     del bert_amp
+    torch.cuda.empty_cache()
+
+    # the AMP program pass and BERT through the Executor; lm_large's
+    # kernels first at its own shapes (d 1024, 166 M parameters)
+    large = LMConfig(**LM_LARGE)
+    merge('program_large', check_train_kernels(
+        torch, F, 'program_large_kernel', large, param_shapes(large).values(),
+        LM_LARGE_B * large.seq_len,
+        [(LM_LARGE_B * large.seq_len, large.vocab_size)], ffn=False))
+    program_amp, paths = run_program_amp(torch, kt, smi, amp_ref)
+    by_path.update(paths)
+    emit(program_amp)
+    del program_amp, amp_ref
+    torch.cuda.empty_cache()
+    program_bert, paths = run_program_bert(torch, kt, smi, bert_ref)
+    by_path.update(paths)
+    emit(program_bert)
+    del program_bert
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {
@@ -2884,6 +3285,8 @@ def main():
         if idle:
             raise AssertionError('%s was never launched on the %s path'
                                  % (name, idle))
+    emit(dict(phase='total', seconds=time.perf_counter() - t_start,
+              card=smi))
     emit({'kernels': line})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                  'count': torch.cuda.device_count()}})

@@ -1,30 +1,37 @@
-"""Automatic mixed precision (bf16): the white and black lists, the model
-pass and the decorated optimizer.
+"""Automatic mixed precision (bf16): the white and black lists, the program
+pass, the model pass and the decorated optimizer.
 
-Counterpart of paddle_tpu/contrib/mixed_precision.py. The JAX package's
-``decorate(opt).minimize(loss)`` rewrites the Program before appending the
-backward: every op of the white list gets the AMP mark, which its lowering
-reads (core/amp.py). The port has no Program, and its forward has run by the
-time ``minimize`` sees the loss, so the mark goes on the model before the
-forward: :func:`rewrite_model_bf16` is the counterpart of
-`rewrite_program_bf16`. A user writes two lines::
+Counterpart of paddle_tpu/contrib/mixed_precision.py. ``decorate(opt)`` of
+a program optimizer (``optimizer.Adam``, ...) rewrites the loss's Program
+before ``minimize`` appends the backward: :func:`rewrite_program_bf16`
+gives every op of the white list the AMP mark, which its lowering reads
+(core/amp.py), exactly as the JAX package's pass does::
+
+    opt = mixed_precision.decorate(fluid.optimizer.Adam(1e-4, fuse=True))
+    opt.minimize(avg_loss)         # marks the program, appends backward
+
+A model driven without a Program (`TransformerLM.loss`,
+`BertPretrain.loss`) has run its forward by the time ``minimize`` sees the
+loss, so its mark goes on the model first: :func:`rewrite_model_bf16`, and
+``decorate`` of a `TensorAdam` only delegates::
 
     mixed_precision.rewrite_model_bf16(model)
     opt = mixed_precision.decorate(
         optimizer.TensorAdam(model.p, 1e-4, fuse=True))
     opt.minimize(model.loss(tokens, labels, generator))
 
-In the LM and BERT the marked sites are every fc's ``mul``, the unfused
+In the LM and BERT the marked ops are every fc's ``mul``, the unfused
 attention's two ``matmul``s, ``flash_attention`` and ``fused_ffn_tail``.
 Parameters stay float32 (master weights) and there is no loss scaling:
 bf16 keeps float32's exponent range, and ``decorate`` rejects a loss scale
 rather than apply it without the unscale step.
 """
 from ..core.amp import AMP_ATTR, AMP_KEEP_ATTR
+from ..framework import Variable
 
 __all__ = ['WHITE_LIST', 'BLACK_LIST', 'AutoMixedPrecisionLists',
-           'rewrite_model_bf16', 'decorate', 'OptimizerWithMixedPrecision',
-           'AMP_ATTR', 'AMP_KEEP_ATTR']
+           'rewrite_program_bf16', 'rewrite_model_bf16', 'decorate',
+           'OptimizerWithMixedPrecision', 'AMP_ATTR', 'AMP_KEEP_ATTR']
 
 # ops whose flops dominate and that are numerically safe in bf16 with
 # float32 accumulation
@@ -62,6 +69,32 @@ class AutoMixedPrecisionLists(object):
             self.black_list.add(t)
 
 
+_NO_KEEP_ACTIVATIONS = ('keep_bf16_activations: the port lowers no conv2d, '
+                        'depthwise_conv2d or batch_norm op')
+
+
+def rewrite_program_bf16(program, amp_lists=None, dtype='bfloat16',
+                         keep_bf16_activations=False):
+    """Mark every op of ``program`` whose type is in the white list to
+    compute in ``dtype`` (``AMP_ATTR``), as the JAX pass does. Bumps the
+    program's version, so that the Executor builds a new run plan for it.
+    Returns the count of white-listed ops marked.
+    ``keep_bf16_activations`` (the JAX package's conv-net bandwidth mode,
+    which keeps conv2d, depthwise_conv2d and batch_norm outputs bf16)
+    raises: the port lowers none of those ops."""
+    if keep_bf16_activations:
+        raise NotImplementedError(_NO_KEEP_ACTIVATIONS)
+    amp_lists = amp_lists or AutoMixedPrecisionLists()
+    n = 0
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type in amp_lists.white_list:
+                op.attrs[AMP_ATTR] = dtype
+                n += 1
+    program._bump_version()
+    return n
+
+
 def rewrite_model_bf16(model, amp_lists=None, dtype='bfloat16'):
     """Mark every site of ``model`` whose op type is in the white list to
     compute in ``dtype``, as `rewrite_program_bf16` marks a Program's ops.
@@ -76,11 +109,12 @@ def rewrite_model_bf16(model, amp_lists=None, dtype='bfloat16'):
 
 
 class OptimizerWithMixedPrecision(object):
-    """The optimizer of a bf16-marked model: rejects loss scaling and
-    otherwise hands ``minimize``, ``backward``, ``apply_gradients`` and
-    every other attribute to the wrapped optimizer, whose parameters stay
-    float32. The marks are :func:`rewrite_model_bf16`'s: the forward has
-    run before ``minimize`` sees the loss."""
+    """A bf16 optimizer: rejects loss scaling; ``minimize`` of a program's
+    loss (a `Variable`) marks its program (:func:`rewrite_program_bf16`)
+    and then minimizes; a model's loss (a tensor, under `TensorAdam`) is
+    minimized as it is, the marks being :func:`rewrite_model_bf16`'s.
+    ``backward``, ``apply_gradients`` and every other attribute go to the
+    wrapped optimizer, whose parameters stay float32."""
 
     def __init__(self, optimizer, amp_lists=None, init_loss_scaling=1.0,
                  use_dynamic_loss_scaling=False, dtype='bfloat16',
@@ -92,12 +126,14 @@ class OptimizerWithMixedPrecision(object):
                 "loss scaling is unnecessary for bf16 (same exponent range "
                 "as fp32); use init_loss_scaling=1.0 and "
                 "use_dynamic_loss_scaling=False")
+        if keep_bf16_activations:
+            raise NotImplementedError(_NO_KEEP_ACTIVATIONS)
         self._dtype = dtype
-        # the JAX package keeps conv/batch_norm outputs bf16 with this; no
-        # site of the port's models is one of those ops
-        self._keep_acts = keep_bf16_activations
 
     def minimize(self, loss, *args, **kwargs):
+        if isinstance(loss, Variable):
+            rewrite_program_bf16(loss.block.program, self._amp_lists,
+                                 self._dtype)
         return self._optimizer.minimize(loss, *args, **kwargs)
 
     def backward(self, *args, **kwargs):

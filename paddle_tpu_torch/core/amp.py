@@ -1,16 +1,20 @@
-"""The bf16 mixed-precision policy, as the marked sites of a model apply it.
+"""The bf16 mixed-precision policy, as the marked ops and sites apply it.
 
-Counterpart of paddle_tpu/core/amp.py. The JAX package's program pass
-(`contrib.mixed_precision.rewrite_program_bf16`) marks the ops of its white
-list with ``AMP_ATTR``; the port's counterpart
-(:func:`..contrib.mixed_precision.rewrite_model_bf16`) marks the sites of a
-model, and each site hands its mark, the *policy* (the AMP dtype's name, or
-None for an unmarked site), to :func:`cast_compute`. A marked site casts its
-float32 compute inputs to bf16, multiplies with float32 accumulation and
-casts its output back to the variable's float32, so that:
+Counterpart of paddle_tpu/core/amp.py. The program pass
+(`contrib.mixed_precision.rewrite_program_bf16`, the JAX package's own
+pass) marks the ops of its white list with ``AMP_ATTR``; each marked op's
+lowering reads the mark (:func:`op_policy`) and hands it, the *policy*
+(the AMP dtype's name, or None for an unmarked op), to the op functions,
+which take ``policy=``. A model driven without a Program is marked by
+:func:`..contrib.mixed_precision.rewrite_model_bf16` and hands the same
+policy to the same functions. A marked op casts its float32 compute
+inputs to bf16 (:func:`cast_compute`), multiplies with float32
+accumulation and casts its output back to the variable's float32, so
+that:
 
-- parameters stay float32 (master weights: the cast is part of the site);
-- the rest of the model (LayerNorm, softmax, the loss, Adam) runs in float32;
+- parameters stay float32 (master weights: the cast is part of the op);
+- the rest of the program (LayerNorm, softmax, the loss, Adam) runs in
+  float32, and no program variable is ever bf16;
 - no loss scaling is needed: bf16 keeps float32's exponent range.
 
 The port keeps its own copy of these names (it imports nothing of the JAX
@@ -18,13 +22,19 @@ package); the dtypes are torch's.
 """
 import torch
 
-__all__ = ['AMP_ATTR', 'AMP_KEEP_ATTR', 'compute_dtype', 'cast_compute',
-           'accum_dtype', 'result_dtype']
+__all__ = ['AMP_ATTR', 'AMP_KEEP_ATTR', 'op_policy', 'compute_dtype',
+           'cast_compute', 'accum_dtype', 'result_dtype']
 
 AMP_ATTR = '__amp_dtype__'
 AMP_KEEP_ATTR = '__amp_keep_out__'
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16}
+
+
+def op_policy(op):
+    """The policy an op's lowering hands to the op functions: the op's
+    ``AMP_ATTR`` mark, or None for an unmarked op."""
+    return op.attr(AMP_ATTR) or None
 
 
 def compute_dtype(policy):

@@ -4,7 +4,6 @@ The port's own copy of paddle_tpu/core/types.py: ``VarType`` and the
 numpy dtype of a variable (a Program's variables carry numpy dtypes in
 both packages, so their serialized forms agree), plus the map from a
 numpy dtype to the torch dtype its tensors take when a program runs.
-bfloat16 waits for the AMP program pass.
 """
 import numpy as np
 import torch

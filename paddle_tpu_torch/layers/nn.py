@@ -5,7 +5,7 @@ slice's programs call: ``fc``, ``embedding``, ``square_error_cost``,
 ``softmax_with_cross_entropy``, ``layer_norm``,
 ``fused_layer_norm_residual``, ``fused_ffn_tail``, ``matmul``, ``mean``,
 ``dropout``, ``add_position_encoding``, ``scale``, ``reshape``,
-``transpose``, ``squeeze``, ``slice``, ``softmax`` and
+``transpose``, ``squeeze``, ``slice``, ``gather``, ``softmax`` and
 ``elementwise_add``/``_sub``. Each appends the JAX layer's op with the same
 slots, attrs and static output shapes; the computation is the op's
 lowering (ops/*).
@@ -18,7 +18,7 @@ __all__ = [
     'fc', 'embedding', 'dropout', 'softmax', 'square_error_cost',
     'softmax_with_cross_entropy', 'layer_norm', 'fused_layer_norm_residual',
     'fused_ffn_tail', 'matmul', 'reshape', 'squeeze', 'transpose', 'mean',
-    'elementwise_add', 'elementwise_sub', 'slice', 'scale',
+    'elementwise_add', 'elementwise_sub', 'slice', 'gather', 'scale',
     'add_position_encoding',
 ]
 
@@ -325,6 +325,13 @@ def slice(input, axes, starts, ends):
                    inputs={'Input': [input]},
                    attrs={'axes': list(axes), 'starts': list(starts),
                           'ends': list(ends)})
+
+
+def gather(input, index):
+    helper = LayerHelper('gather')
+    shape = (index.shape[0],) + tuple(input.shape[1:])
+    return _simple(helper, 'gather', input, out_shape=shape,
+                   inputs={'X': [input], 'Index': [index]})
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,12 @@
 """BERT-base pretraining: masked-LM and next-sentence losses.
 
 Counterpart of paddle_tpu/models/bert.py: `BertConfig`,
-`build_bert_pretrain` (the forward of its program, up to the three losses)
-and `make_pretrain_batch`. The encoder is the block the causal LM uses
+`build_bert_pretrain` and `make_pretrain_batch`. `build_bert_pretrain` is
+the port's own copy of the JAX builder: the same ops, with the same
+parameter names, into the default programs, which the Executor runs
+(executor.py). :class:`BertPretrain` is the same forward, up to the three
+losses, as an ``nn.Module`` for the paths that run without a Program. The
+encoder is the block the causal LM uses
 (:class:`..transformer.TransformerStack`), not causal, with the per-key
 padding bias ``input_mask * 1e9 - 1e9`` fused into flash attention when the
 ``flash_ok`` rule allows it (flash on, and inference or attention dropout
@@ -20,6 +24,8 @@ import collections
 import numpy as np
 import torch
 
+from .. import layers
+from ..param_attr import ParamAttr
 from ..ops.ce_ops import fused_softmax_ce
 from ..ops.embedding_ops import embedding_gather
 from ..ops.ffn_ops import _gelu
@@ -27,10 +33,11 @@ from ..ops.nn_ops import layer_norm
 from ..ops.random_ops import dropout
 from ..ops.tensor_ops import add_position_encoding
 from . import transformer
-from .transformer import LMConfig, TransformerStack, block_param_shapes
+from .transformer import (LMConfig, TransformerStack, block_param_shapes,
+                          transformer_block)
 
-__all__ = ['BertConfig', 'BertPretrain', 'param_shapes', 'init_params',
-           'make_pretrain_batch']
+__all__ = ['BertConfig', 'BertPretrain', 'build_bert_pretrain',
+           'param_shapes', 'init_params', 'make_pretrain_batch']
 
 
 class BertConfig(LMConfig):
@@ -49,6 +56,103 @@ class BertConfig(LMConfig):
                           use_flash_attention=use_flash_attention)
         self.type_vocab_size = type_vocab_size
         self.max_predictions = max_predictions
+
+
+def build_bert_pretrain(cfg=None, is_test=False):
+    """BERT pretraining into the default programs
+    (paddle_tpu/models/bert.py:35-130). Feeds: tokens and segments [B, L]
+    int64, input_mask [B, L] float32 (1 = a real token), mlm_positions
+    [B, P] int64 (flat positions into the [B * L] token stream),
+    mlm_labels [B, P] int64, nsp_labels [B, 1] int64. Returns
+    (total_loss, mlm_loss, nsp_loss)."""
+    cfg = cfg or BertConfig()
+    tokens = layers.data(name='tokens', shape=[cfg.seq_len], dtype='int64')
+    segments = layers.data(name='segments', shape=[cfg.seq_len],
+                           dtype='int64')
+    input_mask = layers.data(name='input_mask', shape=[cfg.seq_len],
+                             dtype='float32')
+    mlm_pos = layers.data(name='mlm_positions',
+                          shape=[cfg.max_predictions], dtype='int64')
+    mlm_labels = layers.data(name='mlm_labels',
+                             shape=[cfg.max_predictions], dtype='int64')
+    nsp_labels = layers.data(name='nsp_labels', shape=[1], dtype='int64')
+
+    tok_emb = layers.embedding(
+        tokens, size=[cfg.vocab_size, cfg.d_model],
+        param_attr=ParamAttr(name='bert.tok_emb.w'))
+    seg_emb = layers.embedding(
+        segments, size=[cfg.type_vocab_size, cfg.d_model],
+        param_attr=ParamAttr(name='bert.seg_emb.w'))
+    x = layers.elementwise_add(tok_emb, seg_emb)
+    x = layers.add_position_encoding(x, alpha=1.0, beta=1.0)
+    x = layers.layer_norm(x, begin_norm_axis=2,
+                          param_attr=ParamAttr(name='bert.emb_ln.w'),
+                          bias_attr=ParamAttr(name='bert.emb_ln.b'))
+    if cfg.dropout and not is_test:
+        x = layers.dropout(x, dropout_prob=cfg.dropout, is_test=is_test,
+                           dropout_implementation='upscale_in_train')
+
+    # the per-key padding bias [B, L]: 0 for a real token, -1e9 for a pad;
+    # into flash attention, or broadcast to [B, 1, 1, L] into the scores
+    neg = layers.scale(input_mask, scale=1e9, bias=-1e9)
+    attn_drop = getattr(cfg, 'attn_dropout', 0.0)
+    flash_ok = getattr(cfg, 'use_flash_attention', False) and \
+        (is_test or not attn_drop)
+    if flash_ok:
+        bias_var, mask_var = neg, None
+    else:
+        bias_var = None
+        mask_var = layers.reshape(neg, shape=[-1, 1, 1, cfg.seq_len])
+
+    ckpts = []
+    # a zero delta ahead of block 0, as in build_lm
+    delta = layers.scale(x, scale=0.0)
+    for i in range(cfg.n_layer):
+        x, delta = transformer_block(x, cfg, 'bert.layer_%d' % i,
+                                     mask_var=mask_var, is_test=is_test,
+                                     causal=False,
+                                     key_padding_bias=bias_var,
+                                     residual=delta, defer_residual=True)
+        ckpts.append(x)
+    # the JAX package's remat boundaries, recorded on the program
+    tokens.block.program._lm_checkpoint_vars = ckpts
+    x, _ = layers.fused_layer_norm_residual(
+        x, delta, begin_norm_axis=2,
+        param_attr=ParamAttr(name='bert.final_ln.w'),
+        bias_attr=ParamAttr(name='bert.final_ln.b'))
+
+    # the MLM head over the masked positions only
+    flat = layers.reshape(x, shape=[-1, cfg.d_model])
+    pos_flat = layers.reshape(mlm_pos, shape=[-1])
+    picked = layers.gather(flat, pos_flat)
+    picked = layers.fc(picked, size=cfg.d_model, act='gelu',
+                       param_attr=ParamAttr(name='bert.mlm.trans.w'),
+                       bias_attr=ParamAttr(name='bert.mlm.trans.b'))
+    picked = layers.layer_norm(
+        picked, begin_norm_axis=1,
+        param_attr=ParamAttr(name='bert.mlm.ln.w'),
+        bias_attr=ParamAttr(name='bert.mlm.ln.b'))
+    mlm_logits = layers.fc(picked, size=cfg.vocab_size,
+                           param_attr=ParamAttr(name='bert.mlm.out.w'),
+                           bias_attr=ParamAttr(name='bert.mlm.out.b'))
+    mlm_lbl = layers.reshape(mlm_labels, shape=[-1, 1])
+    mlm_loss = layers.mean(layers.softmax_with_cross_entropy(
+        mlm_logits, mlm_lbl))
+
+    # the NSP head over each sequence's first position
+    first = layers.slice(x, axes=[1], starts=[0], ends=[1])
+    pooled = layers.fc(layers.reshape(first, shape=[-1, cfg.d_model]),
+                       size=cfg.d_model, act='tanh',
+                       param_attr=ParamAttr(name='bert.pooler.w'),
+                       bias_attr=ParamAttr(name='bert.pooler.b'))
+    nsp_logits = layers.fc(pooled, size=2,
+                           param_attr=ParamAttr(name='bert.nsp.w'),
+                           bias_attr=ParamAttr(name='bert.nsp.b'))
+    nsp_loss = layers.mean(layers.softmax_with_cross_entropy(
+        nsp_logits, nsp_labels))
+
+    total = layers.elementwise_add(mlm_loss, nsp_loss)
+    return total, mlm_loss, nsp_loss
 
 
 def param_shapes(cfg):

@@ -30,7 +30,9 @@ operands; the float32 arithmetic is unchanged.
 
 The program op `flash_attention` (Q, K, V [B, H, L, dh], an optional
 KeyPaddingBias [B, L], attrs ``scale`` (missing or 0: dh^-0.5) and
-``causal``) calls :func:`flash_attention`, as the JAX op calls its own.
+``causal``) calls :func:`flash_attention`, as the JAX op calls its own,
+with the op's AMP mark as the policy: a marked op launches the bf16
+kernels on the card (or raises), never the float32 ones.
 """
 import ctypes
 
@@ -374,10 +376,9 @@ def flash_attention(q, k, v, scale=None, causal=True, return_lse=False,
 
 @register_op('flash_attention')
 def _flash_attention_op(ctx, op):
-    if op.attr(amp.AMP_ATTR):
-        raise NotImplementedError(
-            'flash_attention carries the AMP mark: the AMP program pass '
-            'waits for a later slice of paddle_tpu_torch')
+    """The JAX op's lowering: q, k and v cast under the AMP mark (the bf16
+    kernels then run), the key-padding bias float32, the output in q's
+    float32."""
     q, k, v = ctx.in1(op, 'Q'), ctx.in1(op, 'K'), ctx.in1(op, 'V')
     bias = ctx.in1(op, 'KeyPaddingBias')
     if bias is not None and q.dim() != 4:
@@ -387,4 +388,5 @@ def _flash_attention_op(ctx, op):
     scale = None if scale is None or scale == 0.0 else float(scale)
     ctx.out(op, 'Out', flash_attention(q, k, v, scale=scale,
                                        causal=op.attr('causal', True),
-                                       key_padding_bias=bias))
+                                       key_padding_bias=bias,
+                                       policy=amp.op_policy(op)))

@@ -25,9 +25,11 @@ operands: :func:`fused_ffn_amp` is that math, with no kernel.
 
 The program op `fused_ffn_tail` calls :func:`fused_ffn_core` where the JAX
 op is fusable (trailing-axis products on float32 rows; dropout, if live,
-``upscale_in_train`` with p < 1), its pre-scaled keep mask drawn from the
-run's generator (random_ops.keep_mask), and otherwise runs the JAX op's
-own composition: mul, add, GELU, mul, add, dropout.
+``upscale_in_train`` with p < 1), or :func:`fused_ffn_amp` where it also
+carries the AMP mark, its pre-scaled keep mask drawn from the run's
+generator (random_ops.keep_mask), and otherwise runs the JAX op's own
+composition: mul, add, GELU, mul, add, dropout (each mul cast under the
+mark).
 """
 import ctypes
 import math
@@ -289,10 +291,11 @@ def _ffn_rng_active(op):
 
 @register_op('fused_ffn_tail', needs_rng=_ffn_rng_active)
 def _fused_ffn_tail_op(ctx, op):
-    if op.attr(amp.AMP_ATTR):
-        raise NotImplementedError(
-            'fused_ffn_tail carries the AMP mark: the AMP program pass waits '
-            'for a later slice of paddle_tpu_torch')
+    """The fusable form runs :func:`fused_ffn_core` (the kernel), or under
+    the AMP mark :func:`fused_ffn_amp` (the JAX op stands its Pallas kernel
+    down there), with the keep mask drawn at the same point of the run's
+    stream either way; any other form runs the JAX op's composition, each
+    product cast under the mark."""
     x = ctx.in1(op, 'X')
     w1, b1 = ctx.in1(op, 'W1'), ctx.in1(op, 'B1')
     w2, b2 = ctx.in1(op, 'W2'), ctx.in1(op, 'B2')
@@ -301,6 +304,7 @@ def _fused_ffn_tail_op(ctx, op):
     is_test = op.attr('is_test', False)
     dimpl = op.attr('dropout_implementation', 'upscale_in_train')
     drop_active = bool(prob) and not is_test
+    policy = amp.op_policy(op)
     seed = op.attr('seed', 0)
     gen = (lambda: ctx.op_rng(seed)) if seed else ctx.rng
     fusable = (tuple(x.shape[xnc:]) == tuple(w1.shape[:1])
@@ -312,14 +316,17 @@ def _fused_ffn_tail_op(ctx, op):
         x2 = x.reshape(-1, w1.shape[0]).contiguous()
         mask = random_ops.keep_mask((x2.shape[0], w2.shape[1]), prob, gen(),
                                     x.device) if drop_active else None
-        y2, _ = fused_ffn_core(x2, w1, b1, w2, b2, mask)
+        if policy:
+            y2 = fused_ffn_amp(x2, w1, b1, w2, b2, mask, policy=policy)
+        else:
+            y2, _ = fused_ffn_core(x2, w1, b1, w2, b2, mask)
         ctx.out(op, 'Out', y2.reshape(lead + (w2.shape[1],)))
         return
     # the JAX op's composition (its 'off' tier)
-    h = math_ops.mul(flatten_to_2d(x, xnc), flatten_to_2d(w1, 1))
+    h = math_ops.mul(flatten_to_2d(x, xnc), flatten_to_2d(w1, 1), policy)
     h = h.reshape(lead + tuple(w1.shape[1:]))
     h = _gelu(h + broadcast_y_to(h, b1, xnc))
-    y = math_ops.mul(flatten_to_2d(h, xnc), flatten_to_2d(w2, 1))
+    y = math_ops.mul(flatten_to_2d(h, xnc), flatten_to_2d(w2, 1), policy)
     y = y.reshape(lead + tuple(w2.shape[1:]))
     y = y + broadcast_y_to(y, b2, xnc)
     if drop_active:

@@ -122,33 +122,25 @@ def mul(x, w, policy=None):
 
 # ---------------------------------------------------------------------------
 # the program ops (paddle_tpu/ops/math_ops.py `_mul`, `_matmul`, the
-# elementwise family's add and sub, `_mean`; activations.py's `square`):
-# float32 products and plain elementwise PyTorch. An AMP-marked op waits
-# for the AMP program pass.
-
-
-def _unmarked(op):
-    if op.attr(amp.AMP_ATTR):
-        raise NotImplementedError(
-            'op %r carries the AMP mark: the AMP program pass '
-            '(rewrite_program_bf16) waits for a later slice of '
-            'paddle_tpu_torch' % op.type)
+# elementwise family's add and sub, `_mean`): the products above, float32
+# or under the op's AMP mark, and plain elementwise PyTorch.
 
 
 @register_op('mul')
 def _mul_op(ctx, op):
-    _unmarked(op)
     x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
     xnc = op.attr('x_num_col_dims', 1)
     ynk = op.attr('y_num_col_dims', 1)
-    out = mul(flatten_to_2d(x, xnc), flatten_to_2d(y, ynk))
+    out = mul(flatten_to_2d(x, xnc), flatten_to_2d(y, ynk),
+              amp.op_policy(op))
     ctx.out(op, 'Out', out.reshape(tuple(x.shape[:xnc]) +
                                    tuple(y.shape[ynk:])))
 
 
 @register_op('matmul')
 def _matmul_op(ctx, op):
-    _unmarked(op)
+    """Transposes, then the product (cast under the AMP mark, a float32
+    result), then ``alpha`` in float32, in the JAX lowering's order."""
     x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
     if x.dim() == 1:
         x = x.reshape(1, -1)
@@ -158,7 +150,7 @@ def _matmul_op(ctx, op):
         x = x.transpose(-1, -2)
     if op.attr('transpose_Y', False):
         y = y.transpose(-1, -2)
-    out = matmul(x, y)
+    out = matmul(x, y, amp.op_policy(op))
     alpha = op.attr('alpha', 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -179,8 +171,3 @@ _register_elementwise('elementwise_sub', torch.sub)
 @register_op('mean')
 def _mean_op(ctx, op):
     ctx.out(op, 'Out', ctx.in1(op, 'X').mean().reshape(1))
-
-
-@register_op('square')
-def _square_op(ctx, op):
-    ctx.out(op, 'Out', torch.square(ctx.in1(op, 'X')))

@@ -10,14 +10,15 @@ position).
 The program ops `reshape2` (0 copies a dimension, -1 is inferred),
 `transpose2`, `slice` and `squeeze2` are views where torch can make one;
 their ``XShape`` output (an empty [0, *x.shape] tensor in the JAX package)
-is made only when something reads it.
+is made only when something reads it. `gather` (BERT's masked positions)
+is :func:`gather`.
 """
 import numpy as np
 import torch
 
 from ..core.registry import register_op
 
-__all__ = ['position_encoding_table', 'add_position_encoding']
+__all__ = ['position_encoding_table', 'add_position_encoding', 'gather']
 
 
 def position_encoding_table(max_len, d_model):
@@ -38,6 +39,26 @@ def add_position_encoding(x, alpha=1.0, beta=1.0, table=None):
     if table is None:
         table = torch.from_numpy(position_encoding_table(L, D)).to(x.device)
     return alpha * x + beta * table[:L]
+
+
+def gather(x, index):
+    """Rows of ``x`` at ``index`` (flattened) along axis 0, as the JAX
+    ``gather`` op's ``jnp.take`` computes them in its default mode: an
+    index in [-n, 0) counts from the end, and one outside [-n, n) gives a
+    row of NaN whose gradient is dropped. No index reaches the tensor out
+    of range (on the card that is a device-side assert). The backward is
+    autograd's scatter-add of the rows' gradients. Only floating rows are
+    gathered: no program of the port gathers another dtype."""
+    if not x.dtype.is_floating_point:
+        raise NotImplementedError('gather of %s rows' % x.dtype)
+    n = x.shape[0]
+    idx = index.reshape(-1).to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    inside = ((idx >= 0) & (idx < n)).reshape((-1,) + (1,) * (x.dim() - 1))
+    rows = x[idx.clamp(0, max(n - 1, 0))]
+    return torch.where(inside, rows, torch.full((), float('nan'),
+                                                dtype=x.dtype,
+                                                device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -99,17 +120,33 @@ def _slice(ctx, op):
         s = max(s + dim, 0) if s < 0 else min(s, dim)
         e = max(e + dim, 0) if e < 0 else min(e, dim)
         idx[a] = slice(s, e)
-    if len(op.attr('axes')) == 1 and e - s == 1:
-        # one index of one axis: a view out of the run's one unbind of x,
-        # which its other one-index slices share, so that their gradients
-        # stack into one tensor (as ``q, k, v = qkv`` does) instead of each
-        # adding a zero-filled copy of x (12 adds and 18 copies a step of
-        # the flagship, 0.8 ms on an H100)
-        parts = ctx.run_memo(op.input('Input')[0], ('unbind', a),
-                             lambda: x.unbind(a))
+    name = op.input('Input')[0]
+    if len(op.attr('axes')) == 1 and e - s == 1 and \
+            _axis_slices(ctx, name, a) > 1:
+        # one index of one axis that other slices of x cut too: a view out
+        # of the run's one unbind of x, which they share, so that their
+        # gradients stack into one tensor (as ``q, k, v = qkv`` does)
+        # instead of each adding a zero-filled copy of x (12 adds and 18
+        # copies a step of the flagship, 0.8 ms on an H100). A lone slice
+        # (BERT's first position of 128) indexes: an unbind's backward
+        # would fill a zero tensor for every other index
+        parts = ctx.run_memo(name, ('unbind', a), lambda: x.unbind(a))
         ctx.out(op, 'Out', parts[s].unsqueeze(a))
         return
     ctx.out(op, 'Out', x[tuple(idx)])
+
+
+def _axis_slices(ctx, name, axis):
+    """How many `slice` ops of the program cut variable ``name`` along
+    ``axis`` alone (counted once a run plan)."""
+    return ctx.memo(('axis_slices', name, axis), lambda: sum(
+        1 for op in ctx.block.ops if op.type == 'slice'
+        and op.input('Input') == [name] and list(op.attr('axes')) == [axis]))
+
+
+@register_op('gather')
+def _gather(ctx, op):
+    ctx.out(op, 'Out', gather(ctx.in1(op, 'X'), ctx.in1(op, 'Index')))
 
 
 @register_op('add_position_encoding')

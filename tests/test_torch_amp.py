@@ -516,7 +516,23 @@ def _marked_weights(m):
 @pytest.mark.parametrize('model', ['lm', 'bert'])
 def test_three_step_amp_trajectory_matches_jax_decorate(runs, model):
     """The port's AMP run against the JAX package's ``mp.decorate`` run, and
-    the JAX float32 run as the control, which falls outside.
+    the JAX float32 run as the control, which falls outside
+    (:func:`check_amp_trajectory`)."""
+    init = runs[(model, True)][0]
+    m, first, losses, state = _port_run(model, init)
+    check_amp_trajectory(
+        runs, model, list(m.p), _marked_weights(m), first, losses,
+        {n: p.detach().numpy() for n, p in m.p.items()},
+        {n: s['moment1'].numpy() for n, s in state.items()})
+
+
+def check_amp_trajectory(runs, model, names, marked, first, losses, params,
+                         last_m1):
+    """Hold a port AMP run (parameter ``names``, the ``marked`` fc weights,
+    moment 1 after the first step ``first``, the ``losses`` of each step,
+    the final ``params`` and moment 1 ``last_m1``, {name: array}) to the
+    JAX package's ``mp.decorate`` run in ``runs``, with the JAX float32
+    run as the control, which falls outside.
 
     First step (moment 1 is 0.1 x the gradient): the marked fc weights'
     gradients are bf16 values in both AMP runs, and in every such tensor at
@@ -540,8 +556,6 @@ def test_three_step_amp_trajectory_matches_jax_decorate(runs, model):
     # decorate adds no scope variable: train_state_from_numpy carries the
     # AMP run's startup scope as it carries a float32 one
     assert sorted(init) == sorted(init_f32)
-    m, first, losses, state = _port_run(model, init)
-    names, marked = list(m.p), _marked_weights(m)
     assert marked
 
     def m1(scope):
@@ -559,17 +573,14 @@ def test_three_step_amp_trajectory_matches_jax_decorate(runs, model):
     assert _rel(got, m1(first_f32)) > 3.5e-3, _rel(got, m1(first_f32))
 
     np.testing.assert_allclose(losses, want_losses, rtol=0, atol=3e-3)
-    params = np.concatenate([m.p[n].detach().numpy().ravel()
-                             for n in names])
+    flat = np.concatenate([params[n].ravel() for n in names])
 
     def param_err(scope):
-        return _rel(params, np.concatenate([scope[n].ravel()
-                                            for n in names]))
+        return _rel(flat, np.concatenate([scope[n].ravel() for n in names]))
 
     assert param_err(final) <= 8e-4, param_err(final)
     assert param_err(final_f32) > 8e-4, param_err(final_f32)
-    last = np.concatenate([state[n]['moment1'].numpy().ravel()
-                           for n in names])
+    last = np.concatenate([last_m1[n].ravel() for n in names])
     assert _rel(last, m1(final)) <= 1e-2, _rel(last, m1(final))
 
 

@@ -1483,3 +1483,87 @@ def test_program_flash_training_on_the_card_matches_the_cpu(dev):
         assert {k: after[k] - before[k] for k in after} == expected
     assert scope.get('tok_emb.w').device == torch.device('cuda', 0)
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+AMP_PROGRAM_BERT = dict(vocab_size=256, seq_len=64, d_model=128, n_head=4,
+                        n_layer=2, d_ff=256, dropout=0.0, attn_dropout=0.0,
+                        max_predictions=8)
+
+
+def amp_program_step_launches(n_layer, gathers, ces):
+    """The launches one training step of an AMP flash program makes
+    (``mp.decorate(Adam(fuse=True))``): the gathers, the 2L + 1 fused
+    LayerNorms forward and backward, the three bf16 flash kernels a layer,
+    the CE forward and backward of each loss, one fused Adam; no FFN
+    kernel (the marked FFN stands it down, as the JAX package does) and no
+    float32 flash kernel."""
+    ln = 2 * n_layer + 1
+    return dict(dict.fromkeys(kernel_tier.KERNELS, 0),
+                embedding_gather=gathers, fused_ln_residual=ln,
+                fused_ln_residual_bwd=ln, flash_attention_bf16=n_layer,
+                flash_attention_bf16_bwd_dq=n_layer,
+                flash_attention_bf16_bwd_dkv=n_layer, softmax_ce_fwd=ces,
+                softmax_ce_bwd=ces, fused_adam=1)
+
+
+@pytest.mark.parametrize('model', ['lm', 'bert'])
+def test_amp_program_training_on_the_card_matches_the_cpu(dev, model):
+    """Two steps of the AMP flash LM program and of the AMP BERT program
+    (``mp.decorate(Adam(1e-3, fuse=True)).minimize``) through
+    ``Executor()`` from the CPU run's startup scope: each step launches
+    exactly the AMP path's kernels, the loss lies within 5e-3 relative and
+    every parameter's gradient within 2e-2 of its largest magnitude of the
+    CPU's (the AMP limits of chip_smoke.py phase 14: the same roundings,
+    float32 sums in another order)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.io import scope_from_numpy
+    from paddle_tpu_torch.models import transformer
+
+    rs = np.random.RandomState(0)
+    if model == 'lm':
+        kw = PROGRAM_LM
+        feeds = [{k: rs.randint(0, 256, (3, 64)).astype('int64')
+                  for k in ('tokens', 'labels')} for _ in range(2)]
+        expected = amp_program_step_launches(kw['n_layer'], 1, 1)
+    else:
+        kw = AMP_PROGRAM_BERT
+        feeds = []
+        for _ in range(2):
+            f = bert.make_pretrain_batch(bert.BertConfig(**kw), 4, rs)
+            for row, keep in enumerate((64, 40, 9, 33)):
+                f['input_mask'][row, keep:] = 0.0
+            feeds.append(f)
+        expected = amp_program_step_launches(kw['n_layer'], 2, 2)
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            if model == 'lm':
+                loss = transformer.build_lm(transformer.LMConfig(**kw))[3]
+            else:
+                loss = bert.build_bert_pretrain(bert.BertConfig(**kw))[0]
+            opt = mp.decorate(fluid.optimizer.Adam(1e-3, fuse=True))
+            params_grads = opt.minimize(loss)[1]
+        grads = [g.name for _, g in params_grads]
+        return main, startup, [loss.name] + grads
+
+    main, startup, fetch = build()
+    cpu, cpu_scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    init = {n: cpu_scope.get(n).clone() for n in cpu_scope.names()}
+    want = [cpu.run(main, feed=f, fetch_list=fetch, scope=cpu_scope)
+            for f in feeds]
+    main, _, fetch = build()
+    exe = fluid.Executor()
+    scope = scope_from_numpy(init)
+    for f, w in zip(feeds, want):
+        before = kernel_tier.launch_counts()
+        got = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+        after = kernel_tier.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == expected
+        assert np.isfinite(got[0]).all()
+        assert abs(got[0][0] - w[0][0]) <= 5e-3 * abs(w[0][0])
+        for name, g, gw in zip(fetch[1:], got[1:], w[1:]):
+            assert np.abs(g - gw).max() <= 2e-2 * max(np.abs(gw).max(),
+                                                      1e-30), name
