@@ -151,7 +151,19 @@ Phases, each printing one JSON line:
    clock, no fetch read until the last step, as phase 10 times it; and
    with the loss read each step), device ms and peak memory beside phase
    10's, and the host ms an Executor step and a ``TransformerLM`` step take
-   to return (the interpreter's cost). (c) ``LMConfig()`` (the unfused
+   to return (the interpreter's cost); (f) ``program_train_bound``: (b)'s
+   configuration through ``Executor.bind`` (one CUDA graph of the run
+   plan a step), 10 bound calls on a copy of the starting scope held to
+   10 eager ``run()`` steps of a fresh build and Executor (same seeds and
+   run counters) within 1e-4 relative (loss) and 1e-3 of each parameter's
+   largest magnitude (the K bias within 10 x lr), the share of bitwise
+   equal losses, each call launching exactly one step's kernels, one
+   capture (at ``bind``) and none after; the bound step's wall ms, the
+   replay's device ms (CUDA events), host ms to return, tokens/s and peak
+   memory beside (b)'s; (g) dropout 0.1 on a fed [64, 1024] tensor, its
+   mask fetched: each bound call's mask equals ``run()``'s at the same run
+   index bitwise, consecutive calls draw different masks. (c)
+   ``LMConfig()`` (the unfused
    branch, the causal mask an ``assign_value``), 5 steps: the loss finite
    and fallen, the seven kernels of phase 7's path launched and no flash
    kernel, step ms. (d) ``build_lm(cfg, is_test=True)`` at B 8: its logits
@@ -197,6 +209,12 @@ Phases, each printing one JSON line:
    that backward with FA2 forced; ``pair_ms`` is dQ's time plus its own,
    and ``ms_over_library`` and ``ms_over_fa2`` hold that pair against
    SDPA's backward, which yields dQ, dK and dV.
+13b. flash_head_widths — the three float32 and the three bf16 flash
+   kernels at head widths 8, 48, 80 and 96 (the wrappers zero-pad them to
+   16, 64, 128 and 128), B 4 x H 2, L 200, causal, a key-padding bias
+   keeping 200, 173, 140 and 101 keys: within phases 8's and 13's
+   tolerances of their plain versions at the true width, one launch each a
+   call; a width of 160 raises.
 14. amp_train_vs_cpu — phase 9 with the model bf16-marked
    (``rewrite_model_bf16``): card against CPU, loss within 5e-3 relative
    and every gradient within 2e-2 of its largest magnitude; then the
@@ -236,7 +254,15 @@ Phases, each printing one JSON line:
    batch. (d) ``lm_large`` (d 1024, 16 heads, 8 layers, d_ff 4096, B 32)
    and (e) ``lm_long_seq8k`` (L 8192, 4 layers, B 2), 5 steps each from the
    startup program's weights: the loss finite and fallen, the AMP path's
-   launches exactly; step ms, tokens/s, model TFLOP/s, peak memory. Before
+   launches exactly; step ms, tokens/s, model TFLOP/s, peak memory. (b),
+   (d) and (e) then run as the bench runs them (``fused``): through
+   ``Executor.run_fused`` over 4 batches stacked on the card, one first
+   call, then 2 calls of 8 steps each timed with their own sync, the best
+   over its steps (bench.py:70-120's method; its 120 steps a call and 2-3
+   rounds cut), the loss finite, each replay launching exactly the path's
+   kernels, one capture; step ms and tokens/s beside the eager step. (f)
+   ``program_amp_bound``: (c) through ``Executor.bind`` as 10b (f), 20
+   bound calls held to 20 eager steps, timed beside (c). Before
    them (``program_large_kernel``), phase 5's checks at ``lm_large``'s own
    shapes, but for the FFN, which its AMP step stands down: the gather
    from [32000, 1024], the LN-residual forward and backward at N 16384 x
@@ -256,7 +282,8 @@ Phases, each printing one JSON line:
    ``matmul``s, no flash launch) and with attention dropout 0 (the biased
    bf16 flash kernels, 12 launches each a step): the loss finite and
    fallen, the launches exactly; step ms, device ms, samples/s and peak
-   memory beside phase 16's.
+   memory beside phase 16's; the bench's configuration then through
+   ``run_fused`` as 15b (b) (``fused``), samples/s beside the eager step.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -372,6 +399,14 @@ SEQ8K = dict(vocab_size=32000, seq_len=8192, d_model=512, n_head=8,
              use_flash_attention=True)
 SEQ8K_B = 2
 LARGE_STEPS = 5
+# phase 15b (f): the bound AMP step's calls, held to as many eager steps
+BOUND_STEPS = 20
+# the run_fused rows: K batches staged on the card (bench.py stages its
+# k_per_call), a first call and FUSED_ROUNDS timed calls of FUSED_STEPS
+# steps each (the bench's 120 steps and 2-3 rounds, cut for time)
+FUSED_K = 4
+FUSED_STEPS = 8
+FUSED_ROUNDS = 2
 # phase 16b: BERT's inference batch at phase 12's (i)
 BERT_CHECK_B = 4
 # the bench's AMP BERT row attends through the unfused branch: no flash
@@ -390,7 +425,13 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'program_large': AMP_TRAIN_KERNELS,
                 'program_seq8k': AMP_TRAIN_KERNELS,
                 'program_bert': FLASH_TRAIN_KERNELS,
-                'program_bert_amp': AMP_TRAIN_KERNELS}
+                'program_bert_amp': AMP_TRAIN_KERNELS,
+                'program_train_bound': FLASH_TRAIN_KERNELS,
+                'program_amp_bound': AMP_TRAIN_KERNELS,
+                'program_amp_fused': AMP_TRAIN_KERNELS,
+                'program_large_fused': AMP_TRAIN_KERNELS,
+                'program_seq8k_fused': AMP_TRAIN_KERNELS,
+                'program_bert_fused': AMP_BERT_UNFUSED_KERNELS}
 
 
 def emit(obj):
@@ -2195,6 +2236,72 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
     return out
 
 
+def check_head_widths(torch):
+    """Phase 13b: the three float32 flash kernels and the three bf16 ones
+    at head widths between their instantiations (8, 48, 80, 96), which the
+    wrappers zero-pad to the next one (16, 64, 128, 128), on a small
+    causal shape (B 4, H 2, L 200) with a key-padding bias cutting the
+    elements to 200, 173, 140 and 101 keys: each held to its plain version
+    at the true width within phase 8's and 13's tolerances (float32: O and
+    LSE 1e-4 absolute, each gradient 1e-4 of its largest magnitude; bf16:
+    O, dQ, dK and dV 1e-2 of theirs, LSE 1e-5), each launched once a
+    call; a width above 128 raises."""
+    from paddle_tpu_torch.ops import attention_ops as A
+    from paddle_tpu_torch.ops import kernel_tier as kt
+    dev = torch.device('cuda', 0)
+    g = torch.Generator(device=dev).manual_seed(31)
+    B, H, L = 4, 2, 200
+    bias = torch.zeros(B, L, device=dev)
+    for i, keep in enumerate((200, 173, 140, 101)):
+        bias[i, keep:] = -1e9
+    cases = []
+    for dtype, names, tol in (
+            (torch.float32, FLASH_KERNELS, 1e-4),
+            (torch.bfloat16, AMP_FLASH_KERNELS, 1e-2)):
+        for dh in (8, 48, 80, 96):
+            q, k, v, do = (torch.randn((B * H, L, dh), generator=g,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            args = (dh ** -0.5, True, bias, H)
+            before = kt.launch_counts()
+            o, lse = A._flash_fwd(q, k, v, *args)
+            dq, dk, dv = A._flash_bwd(q, k, v, o, lse, do, *args)
+            torch.cuda.synchronize()
+            after = kt.launch_counts()
+            o_ref, lse_ref = A._attention_ref(q, k, v, *args)
+            want = A._flash_bwd_ref(q, k, v, o, lse, do, *args)
+            rel = lambda a, b: float((a.float() - b.float()).abs().max() /
+                                     b.float().abs().max().clamp_min(1.0))
+            case = dict(dtype=str(dtype).split('.')[-1], dh=dh,
+                        width=A._kernel_width(dh),
+                        o_err=float((o.float() - o_ref.float()).abs().max()),
+                        o_rel_err=rel(o, o_ref),
+                        lse_err=float((lse - lse_ref).abs().max()),
+                        dq_rel_err=rel(dq, want[0]),
+                        dk_rel_err=rel(dk, want[1]),
+                        dv_rel_err=rel(dv, want[2]),
+                        launches=[after[n] - before[n] for n in names])
+            cases.append(case)
+            o_key = 'o_rel_err' if dtype == torch.bfloat16 else 'o_err'
+            lse_tol = 1e-5 if dtype == torch.bfloat16 else 1e-4
+            if not (case[o_key] <= tol and case['lse_err'] <= lse_tol and
+                    max(case['dq_rel_err'], case['dk_rel_err'],
+                        case['dv_rel_err']) <= tol and
+                    case['launches'] == [1, 1, 1]):
+                emit(dict(phase='flash_head_widths', cases=cases))
+                raise AssertionError('flash kernels at head width %d (%s): '
+                                     '%s' % (dh, dtype, case))
+    q = torch.randn((2, 8, 160), device=dev)
+    try:
+        A._flash_fwd(q, q, q, 160 ** -0.5, True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError('a head width of 160 did not raise')
+    return dict(phase='flash_head_widths', shape=dict(B=B, H=H, L=L),
+                causal=True, keys_kept=[200, 173, 140, 101], cases=cases)
+
+
 def train_step_grads(torch, cfg, params, tok, lab, dev, amp=False):
     """(loss, {name: gradient on the CPU}, seconds) of one forward and
     backward of the LM on ``dev`` (bf16-marked with ``amp``)."""
@@ -2579,6 +2686,18 @@ def run_program_train(torch, kt, smi, flash_step):
         model_host_ms=lm_host, model_host_wall_ms=lm_wall,
         phase10=flash_step, **timed)
 
+    # (f) the same configuration bound (`Executor.bind`: one CUDA graph
+    # a step), held to the eager trajectory, beside (b)'s eager figures;
+    # (g) the bound dropout masks against run()'s
+    bound, by_path['program_train_bound'] = bound_against_eager(
+        torch, kt, cfg, params, feed_d, PROGRAM_STEPS, amp=False)
+    bound['eager'] = {k: out['train'][k] for k in (
+        'step_ms', 'host_ms', 'tokens_per_s', 'peak_mem_bytes')}
+    bound['eager']['device_ms'] = out['train']['step_profile'][
+        'device_ms_per_step']
+    out['bound'] = bound
+    out['bound_dropout'] = check_bound_dropout(torch)
+
     # (c) LMConfig(): the unfused branch with the assign_value mask
     cfg = LMConfig()
     main, startup, _, loss = build_program(fluid, cfg)
@@ -2634,6 +2753,170 @@ def run_program_train(torch, kt, smi, flash_step):
         emit(out)
         raise AssertionError('the quick start did not train: %s' % qs)
     return out, by_path
+
+
+# the bound program step (phases 10b (f) and 15b (f)) and the bench's
+# rows through run_fused (15b (b), (d), (e), 16b (d))
+
+def bound_against_eager(torch, kt, cfg, params, feed, steps, amp, lr=1e-4):
+    """Phases 10b (f) and 15b (f): ``steps`` eager ``Executor.run`` steps of
+    ``build_program(cfg, amp=amp)`` and, on a copy of the same starting
+    scope (``params`` over a fresh startup) with a fresh build and a fresh
+    Executor (so the same seeds and run counters), ``exe.bind`` and
+    ``steps - 1`` bound calls: the losses within 1e-4 relative at every
+    step and every parameter within 1e-3 of its largest magnitude
+    (`hold_to_model`), each bound call launching exactly one step's
+    kernels, no capture after ``bind``. Then the bound step timed: wall ms
+    a step (host clock over ``steps`` calls, the fetch read only at the
+    end, as `timed_training` times the eager step), the replay's device ms
+    (CUDA events around replays of the graph), the host ms a call takes to
+    return, peak memory (allocated, from ``bind`` on) and the memory the
+    caching allocator holds. Returns (summary, counts of the bound
+    calls)."""
+    import paddle_tpu_torch as fluid
+    per_step = program_step_launches(cfg, amp=amp)
+    sides = []
+    for _ in range(2):
+        exe = fluid.Executor()
+        main, startup, _, loss = build_program(fluid, cfg, amp=amp)
+        scope, _ = program_scope(torch, fluid, exe, startup, params)
+        sides.append((exe, main, loss, scope))
+    exe, main, loss, scope = sides.pop(0)
+    step = program_step(exe, main, feed, loss, scope)
+    ref = [float(v) for v in torch.stack([step() for _ in range(steps)])
+           .reshape(-1).cpu()]
+    ref_params = {p.name: scope.get(p.name) for p in main.all_parameters()}
+    exe, main, loss, scope = sides.pop(0)
+    del step
+    torch.cuda.empty_cache()
+    # peak memory from here: the bind step (eager), the capture and the
+    # bound calls, beside the eager side's parameters kept for the hold
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    bp = exe.bind(main, feed, fetch_list=[loss], scope=scope)
+    bind_s = time.perf_counter() - t
+    if bp.captures != 1:
+        raise AssertionError('bind captured %d graphs' % bp.captures)
+    kt.reset_counts()
+    got = [float(bp.first_out[0].reshape(-1)[0])] + run_counted(
+        kt, [lambda: bp(feed, return_numpy=False)[0]] * (steps - 1),
+        per_step, 'bound program')
+    counts = kt.launch_counts()
+    summary, failures = hold_to_model(torch, got, ref, scope, ref_params,
+                                      cfg.d_model, lr)
+    if bp.captures != 1 or bp.replays != steps - 1:
+        failures.append('%d captures, %d replays after %d bound calls'
+                        % (bp.captures, bp.replays, steps - 1))
+    if failures:
+        emit(dict(phase='bound_failure', **summary))
+        raise AssertionError('; '.join(failures))
+    del ref_params
+    call = lambda: bp(feed, return_numpy=False)[0]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        last = call()
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    float(last.reshape(-1)[0])
+    step_ms = (time.perf_counter() - t1) / (steps - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    (host, wall), = return_ms(torch, [call])
+    device_ms = replay_ms(torch, bp.graph, 1, 10)
+    if bp.captures != 1:
+        raise AssertionError('a bound call captured again')
+    B, L = feed['tokens'].shape
+    summary.update(
+        batch=int(B), steps=steps, bind_s=bind_s, step_ms=step_ms,
+        first_call_ms=(t1 - t0) * 1e3, device_ms=device_ms,
+        host_ms=host, host_wall_ms=wall,
+        tokens_per_s=int(B) * int(L) / (step_ms / 1e3),
+        peak_mem_bytes=peak, reserved_bytes=reserved,
+        launches_per_step=per_step,
+        launches_per_replay=bp.launches, replays=bp.replays,
+        captures=bp.captures)
+    del bp
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+def check_bound_dropout(torch):
+    """The dropout check of phase 10b (g): dropout 0.1 on a fed [64, 1024]
+    tensor with its mask fetched; four ``run()`` calls of one build and
+    ``bind`` plus three bound calls (replays) of another: each bound mask
+    equals the eager mask at the same run index bitwise, and two
+    consecutive bound calls draw different masks."""
+    import paddle_tpu_torch as fluid
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = 11
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = fluid.layers.data(name='x', shape=[1024], dtype='float32')
+            fluid.layers.dropout(x, 0.1,
+                                 dropout_implementation='upscale_in_train')
+        return main, main.global_block().ops[-1].output('Mask')[0]
+
+    feed = {'x': np.ones((64, 1024), 'float32')}
+    main, mask = build()
+    exe = fluid.Executor()
+    want = [exe.run(main, feed=feed, fetch_list=[mask])[0]
+            for _ in range(4)]
+    main, mask = build()
+    bp = fluid.Executor().bind(main, feed, fetch_list=[mask])
+    got = [bp.first_out[0]] + [bp(feed)[0] for _ in range(3)]
+    out = dict(equal=[bool(np.array_equal(g, w)) for g, w in zip(got, want)],
+               consecutive_differ=not np.array_equal(got[2], got[3]),
+               dropped_share=[float(1 - g.mean()) for g in got],
+               replays=bp.replays, captures=bp.captures)
+    if not (all(out['equal']) and out['consecutive_differ'] and
+            bp.replays == 3):
+        raise AssertionError('bound dropout masks: %s' % out)
+    return out
+
+
+def fused_timing(torch, kt, exe, main, loss, scope, batches, per_step,
+                 steps=FUSED_STEPS, rounds=FUSED_ROUNDS):
+    """bench.py:70-120 `_measure_steps` on the port: the K ``batches``
+    stacked on the card, one first call of ``steps`` steps (its eager first
+    step and the capture), then ``rounds`` calls of ``steps`` steps, each
+    timed with its own sync (a read of the loss); the best round over its
+    steps. The bench's 120 steps a call and 2-3 rounds are cut to
+    ``steps`` and ``rounds`` to keep the script's run short. Every replay
+    of the timed rounds launches exactly ``per_step`` and nothing is
+    captured after the first call. Returns (summary, counts of the timed
+    rounds)."""
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first = exe.run_fused(main, stacked, fetch_list=[loss], scope=scope,
+                          steps=steps)
+    first_s = time.perf_counter() - t
+    plan = [e.bound[scope] for _, e in exe._cache.items()
+            if scope in e.bound][-1]
+    kt.reset_counts()
+    best, losses = float('inf'), [float(first[0].reshape(-1)[0])]
+    for _ in range(rounds):
+        t = time.perf_counter()
+        last = exe.run_fused(main, stacked, fetch_list=[loss], scope=scope,
+                             return_numpy=False, steps=steps)
+        losses.append(float(last[0].reshape(-1)[0]))          # the sync
+        best = min(best, time.perf_counter() - t)
+    counts = kt.launch_counts()
+    want = {k: rounds * steps * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError('%d fused steps launched %s, not %s'
+                             % (rounds * steps, counts, want))
+    if not all(np.isfinite(losses)):
+        raise AssertionError('non-finite fused loss: %s' % losses)
+    if plan.captures != 1:
+        raise AssertionError('run_fused captured %d graphs' % plan.captures)
+    return dict(k_batches=len(batches), steps_per_call=steps,
+                rounds=rounds, first_call_s=first_s,
+                step_ms=best / steps * 1e3, losses=losses,
+                replays=plan.replays, captures=plan.captures), counts
 
 
 def bert_batch(torch, cfg, n, seed, to):
@@ -2883,10 +3166,22 @@ def run_program_amp(torch, kt, smi, amp_ref):
         model, mstep = model_step(
             cfg, feed, params, torch.Generator(device=dev).manual_seed(2024))
         (host, wall), (m_host, m_wall) = return_ms(torch, [step, mstep])
-        del model, mstep, scope, step
+        del model, mstep
+        fused = None
+        if key == 'train':
+            # the bench's row as the bench runs it: run_fused over batches
+            # staged on the card
+            fused, by_path['program_amp_fused'] = fused_timing(
+                torch, kt, exe, main, loss, scope,
+                [batch(cfg, n, seed=40 + i) for i in range(FUSED_K)],
+                per_step)
+            fused.update(tokens_per_s=n * cfg.seq_len /
+                         (fused['step_ms'] / 1e3),
+                         eager_step_ms=timed['step_ms'])
+        del scope, step
         torch.cuda.empty_cache()
         ref = amp_ref[n]
-        out[key] = dict(
+        out[key] = dict(fused=fused,
             batch=n, dropout=cfg.dropout, attn_dropout=cfg.attn_dropout,
             tokens_per_s=n * cfg.seq_len / (timed['step_ms'] / 1e3),
             model_tflops=model_flops(cfg, n) / (timed['step_ms'] / 1e3) /
@@ -2901,7 +3196,18 @@ def run_program_amp(torch, kt, smi, amp_ref):
                          peak_mem_bytes=ref['peak_mem_bytes']),
             **timed)
 
-    # (d) lm_large at B 32, (e) lm_long_seq8k at B 2 (bench.py:1118-1129)
+    # (f) the B 16 row bound: 20 bound calls held to 20 eager run() steps,
+    # timed beside (c)
+    cfg = LMConfig(attn_dropout=0.0)
+    bound, by_path['program_amp_bound'] = bound_against_eager(
+        torch, kt, cfg, params, batch(cfg, TRAIN_B), BOUND_STEPS, amp=True)
+    bound['eager'] = {k: out['train_b16'][k] for k in (
+        'step_ms', 'device_ms', 'host_ms', 'tokens_per_s',
+        'peak_mem_bytes')}
+    out['bound'] = bound
+
+    # (d) lm_large at B 32, (e) lm_long_seq8k at B 2 (bench.py:1118-1129),
+    # each then through run_fused
     for key, kw, n in (('program_large', LM_LARGE, LM_LARGE_B),
                        ('program_seq8k', SEQ8K, SEQ8K_B)):
         cfg = LMConfig(**kw)
@@ -2913,13 +3219,18 @@ def run_program_amp(torch, kt, smi, amp_ref):
         timed, by_path[key] = program_timing(
             torch, kt, program_step(exe, main, feed, loss, scope),
             LARGE_STEPS, per, AMP_TRAIN_KERNELS, AMP_IDLE_KERNELS)
+        fused, by_path[key + '_fused'] = fused_timing(
+            torch, kt, exe, main, loss, scope,
+            [batch(cfg, n, seed=40 + i) for i in range(FUSED_K)], per)
+        fused.update(tokens_per_s=n * cfg.seq_len / (fused['step_ms'] / 1e3),
+                     eager_step_ms=timed['step_ms'])
         out[key] = dict(
             config=kw, batch=n,
             parameters=sum(int(np.prod(p.shape))
                            for p in main.all_parameters()),
             tokens_per_s=n * cfg.seq_len / (timed['step_ms'] / 1e3),
             model_tflops=model_flops(cfg, n) / (timed['step_ms'] / 1e3) /
-            1e12, **timed)
+            1e12, fused=fused, **timed)
         del scope, main, startup
         torch.cuda.empty_cache()
     return out, by_path
@@ -3020,11 +3331,20 @@ def run_program_bert(torch, kt, smi, bert_ref):
             AMP_IDLE_KERNELS + (() if flash else AMP_FLASH_KERNELS))
         for k, v in counts.items():
             by_path['program_bert_amp'][k] += v
+        fused = None
+        if attn_dropout:
+            # the bench's row as the bench runs it (bench.py:279-304)
+            fused, by_path['program_bert_fused'] = fused_timing(
+                torch, kt, exe, main, total, scope,
+                [bert_batch(torch, cfg, AMP_BERT_B, 40 + i, dev)
+                 for i in range(FUSED_K)], per)
+            fused.update(samples_per_s=AMP_BERT_B / (fused['step_ms'] / 1e3),
+                         eager_step_ms=timed['step_ms'])
         ref = bert_ref['amp'][key]
         out[key] = dict(batch=AMP_BERT_B, attn_dropout=attn_dropout,
                         dropout=cfg.dropout, flash=flash,
                         samples_per_s=AMP_BERT_B / (timed['step_ms'] / 1e3),
-                        phase16=ref, **timed)
+                        phase16=ref, fused=fused, **timed)
         del scope, feed, main, startup
         torch.cuda.empty_cache()
     return out, by_path
@@ -3172,6 +3492,7 @@ def main():
         other[name] = {'bert_amp': [bert_case],
                        'program_seq8k': [long_case]}
         kernels[name] = amp_flash[name]
+    emit(check_head_widths(torch))
     compare_train_step_with_cpu(torch, flash=True, amp=True,
                                 f32_card=flash_card)
     del flash_card

@@ -3,9 +3,11 @@ H100.
 
 It ports the Fluid front end: a ``Program`` built with ``layers``,
 ``optimizer.SGD``/``Adam(...).minimize(loss)`` and
-``Executor().run(program, feed=..., fetch_list=...)`` (so
-``import paddle_tpu_torch as fluid`` runs the JAX package's quick start
-and `models.transformer.build_lm` on the card); the flagship causal LM's
+``Executor().run(program, feed=..., fetch_list=...)``, with ``bind`` and
+``run_fused`` replaying a CUDA graph of the run plan, and ``io``'s save
+and load functions (so ``import paddle_tpu_torch as fluid`` runs the JAX
+package's quick start and `models.transformer.build_lm` on the card);
+the flagship causal LM's
 continuous-batching decode engine (``serving.GenerateEngine``), its
 training step as a model (``models.transformer.TransformerLM.loss`` with
 ``optimizer.TensorAdam``) and BERT-base pretraining
@@ -30,10 +32,11 @@ from .framework import (CPUPlace, CUDAPlace, Parameter, Program, Variable,
                         program_guard, resolve_device)
 from .ops.kernel_tier import launch_counts, reset_counts
 from .param_attr import ParamAttr
+from . import io
 
 __all__ = ['CPUPlace', 'CUDAPlace', 'resolve_device', 'launch_counts',
            'reset_counts', 'Program', 'Variable', 'Parameter',
            'default_main_program', 'default_startup_program',
            'program_guard', 'Executor', 'Scope', 'global_scope',
            'scope_guard', 'ParamAttr', 'append_backward', 'layers',
-           'optimizer', 'initializer', 'unique_name']
+           'optimizer', 'initializer', 'unique_name', 'io']

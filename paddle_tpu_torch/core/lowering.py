@@ -26,16 +26,22 @@ GradientScaleStrategy across devices) waits for the parallel slice. Each kernel'
 Random ops draw from one ``torch.Generator`` on the run's device
 (:meth:`LowerContext.rng`), in op order, seeded for each run from
 (``program.random_seed``, the program's run index) when the program is
-seeded and from the executor's run counter when it is not (executor.py).
-Its bits are not the JAX package's threefry bits: the two packages draw
-different masks, and agree only where nothing is dropped.
+seeded and from the executor's run counter when it is not (executor.py);
+an op with a ``seed`` attr draws from a generator of its own, seeded from
+(seed, op index) at every run. The generators belong to the caller, a
+:class:`RunRNG` handed to the plan's function: it stays the same object
+from run to run and is seeded before each, so that a CUDA graph that
+captured the plan can register it and draw each replay's masks from the
+seed set before that replay (executor.py `BoundProgram`). Its bits are not
+the JAX package's threefry bits: the two packages draw different masks,
+and agree only where nothing is dropped.
 """
 import torch
 
 from .registry import get_op
 
-__all__ = ['LowerContext', 'lower_ops', 'lower_block', 'analyze_state',
-           'build_fn']
+__all__ = ['LowerContext', 'RunRNG', 'lower_ops', 'lower_block',
+           'analyze_state', 'build_fn']
 
 
 class _Plan(object):
@@ -78,7 +84,41 @@ class _Plan(object):
         for n, i in last.items():
             if n not in kept:
                 self.free_after[i].append(n)
+        # {op index: seed} of the running ops that draw from a generator of
+        # their own (a ``seed`` attr)
+        self.seeded_ops = {i: int(op.attr('seed', 0))
+                           for i, op in enumerate(self.ops)
+                           if self.live[i] and op.attr('seed', 0) and
+                           _needs_rng(self.defs[i], op)}
         self.memo = {}
+
+
+def _needs_rng(opdef, op):
+    """An OpDef's needs_rng: a bool, or a predicate over the op's attrs."""
+    nr = opdef.needs_rng
+    return nr(op) if callable(nr) else bool(nr)
+
+
+class RunRNG(object):
+    """The generators a run of a plan draws from: ``run`` (every random op
+    without a ``seed`` attr, in op order) and ``ops`` ({op index: generator}
+    for the ops with one). :meth:`seed` seeds them all for one run, as a
+    fresh generator of that seed starts."""
+
+    def __init__(self, plan, device):
+        self.run = torch.Generator(device=device)
+        self.ops = {i: torch.Generator(device=device)
+                    for i in plan.seeded_ops}
+        self._op_seeds = {i: s * 1000003 + i
+                          for i, s in plan.seeded_ops.items()}
+
+    def seed(self, run_seed):
+        self.run.manual_seed(run_seed)
+        for i, g in self.ops.items():
+            g.manual_seed(self._op_seeds[i])
+
+    def generators(self):
+        return [self.run] + list(self.ops.values())
 
 
 def _reads(op):
@@ -91,17 +131,16 @@ def _reads(op):
 class LowerContext(object):
     """The environment while one block runs: var name -> torch tensor."""
 
-    def __init__(self, program, block, env, device, seed=None, wrt=(),
+    def __init__(self, program, block, env, device, rng=None, wrt=(),
                  plan=None):
         self.program = program
         self.block = block
         self.env = env
         self.device = device
-        self.seed = seed
+        self._rng = rng
         self.op_index = 0
         self.wrt = set(wrt)
         self.plan = plan
-        self._generator = None
         self._run_memo = {}
 
     # ---- reading inputs --------------------------------------------------
@@ -169,23 +208,21 @@ class LowerContext(object):
     def rng(self):
         """The run's generator: every random op of the run draws from it,
         in op order."""
-        if self._generator is None:
-            if self.seed is None:
-                raise RuntimeError('op #%d (%s) draws random numbers but the '
-                                   'run has no seed' % (
-                                       self.op_index,
-                                       self.block.ops[self.op_index].type))
-            self._generator = torch.Generator(device=self.device)
-            self._generator.manual_seed(self.seed)
-        return self._generator
+        return self._run_rng().run
 
-    def op_rng(self, seed):
-        """A generator of its own for an op with a ``seed`` attr: seeded from
-        (seed, op index), the same at every run, as the JAX package folds
-        the op index into ``PRNGKey(seed)``."""
-        g = torch.Generator(device=self.device)
-        g.manual_seed(int(seed) * 1000003 + self.op_index)
-        return g
+    def op_rng(self):
+        """The generator of the running op, which has a ``seed`` attr:
+        seeded from (seed, op index), the same at every run, as the JAX
+        package folds the op index into ``PRNGKey(seed)``."""
+        return self._run_rng().ops[self.op_index]
+
+    def _run_rng(self):
+        if self._rng is None:
+            raise RuntimeError('op #%d (%s) draws random numbers but the '
+                               'run has no seed' % (
+                                   self.op_index,
+                                   self.block.ops[self.op_index].type))
+        return self._rng
 
 
 def lower_ops(ctx, ops, lo, hi):
@@ -292,10 +329,10 @@ def analyze_state(program, fetch_names=()):
 
 def build_fn(program, fetch_names, read_names, written_names, device):
     """The run plan of (program, fetch list) as a function
-    ``fn(feed, state, seed) -> (fetches, new_state)`` over {name: tensor}
-    dicts on ``device``; ``seed`` seeds the run's generator (None for a
-    program that draws nothing). Sub-blocks (control flow) wait for a
-    later slice."""
+    ``fn(feed, state, rng) -> (fetches, new_state)`` over {name: tensor}
+    dicts on ``device``; ``rng`` is a :class:`RunRNG` of the plan, seeded
+    for this run (None for a program that draws nothing). Sub-blocks
+    (control flow) wait for a later slice."""
     if len(program.blocks) > 1:
         raise NotImplementedError(
             'programs with sub-blocks (control flow) wait for a later slice '
@@ -303,10 +340,10 @@ def build_fn(program, fetch_names, read_names, written_names, device):
     plan = _Plan(program, fetch_names, written_names)
     block = program.global_block()
 
-    def fn(feed, state, seed=None):
+    def fn(feed, state, rng=None):
         env = dict(feed)
         env.update(state)
-        ctx = LowerContext(program, block, env, device, seed=seed, plan=plan)
+        ctx = LowerContext(program, block, env, device, rng=rng, plan=plan)
         with torch.no_grad():
             lower_block(ctx)
         env = ctx.env

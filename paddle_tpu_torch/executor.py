@@ -1,9 +1,10 @@
 """Executor and Scope: run a Program on the card.
 
 The port's own copy of paddle_tpu/executor.py's `Scope`, `global_scope`,
-`scope_guard` and `Executor.run`. ``Executor(place=None)`` runs on
-``cuda:0`` (framework.resolve_device); ``Executor(CPUPlace())`` on the
-CPU, where every kernel wrapper takes its plain version.
+`scope_guard`, `Executor.run`, `Executor.bind` (with `BoundProgram`) and
+`Executor.run_fused`. ``Executor(place=None)`` runs on ``cuda:0``
+(framework.resolve_device); ``Executor(CPUPlace())`` on the CPU, where
+every kernel wrapper takes its plain version.
 
 - ``run(program, feed, fetch_list, scope, return_numpy)`` prepares the feed
   (a float64 array becomes float32 when the variable is float32, ints take
@@ -15,29 +16,47 @@ CPU, where every kernel wrapper takes its plain version.
   tensors on the device; a fetched state variable is then a copy, since the
   optimizers update state in place).
 - Run plans are cached per executor by (program, version, feed signature,
-  fetch list), the key the JAX executor's `_feed_signature` builds: the op
-  list, the lowerings and the state names are resolved once per key, and
-  constants are built once per plan.
+  fetch list), the key the JAX executor's `_feed_signature` builds, in a
+  least-recently-used cache of ``PADDLE_EXECUTOR_CACHE_SIZE`` entries
+  (default 64, read at each insert; the JAX executor's `_LRUCache`): the
+  op list, the lowerings and the state names are resolved once per key,
+  and constants are built once per plan.
 - The RNG stream is counted as the JAX executor counts it (`_run_seed`,
-  `_next_program_run`, `_op_needs_rng`): a seeded program draws from
-  (random_seed, its own run index), so it replays its trajectory from a
-  fresh build; an unseeded one from the executor's run counter.
+  `_next_program_run`, core/lowering.py `_needs_rng`): a seeded program
+  draws from (random_seed, its own run index), so it replays its
+  trajectory from a fresh build; an unseeded one from the executor's run
+  counter.
+- ``bind(program, feed, fetch_list, scope)`` takes one step and returns a
+  `BoundProgram` of that feed signature; ``run_fused(program, feed_list,
+  fetch_list, scope, steps=)`` runs K steps over K staged batches. Both
+  run a plan bound to one scope (`_BoundPlan`). On the card its first
+  step is eager, on a side stream, and the step after it is captured as
+  one CUDA graph (core/graphs.py): the forward, the ``backward`` meta-op's
+  autograd and the optimizer; every later step stages the feeds (one copy),
+  re-seeds the run's generators, replays and reads the fetches once. On
+  the CPU the same object runs the plan eagerly through the same staging.
 
 The scope holds torch tensors on the run's device. State given as numpy
 arrays (or tensors elsewhere) is copied there on first read and cached
 back into the scope; the optimizer ops then update those tensors in
-place. `run_async`, `run_fused`, `bind`, `precompile`, `explain`, donation,
+place. `run_async`, `precompile`, `explain`, donation, LoD feeds,
 segmented host ops and the monitor counters wait for later slices.
 """
+import collections
+import os
+import threading
+import weakref
+
 import numpy as np
 import torch
 
 from . import ops  # noqa: F401  (registers every op's lowering)
-from .core import lowering
+from .core import graphs, lowering
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program, resolve_device
 
-__all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard']
+__all__ = ['Executor', 'BoundProgram', 'Scope', 'global_scope',
+           'scope_guard']
 
 
 class _TensorShim(object):
@@ -146,21 +165,275 @@ def _next_program_run(program):
     return n
 
 
-def _op_needs_rng(opdef, op):
-    """An OpDef's needs_rng: a bool, or a predicate over the op's attrs."""
-    nr = opdef.needs_rng
-    return nr(op) if callable(nr) else bool(nr)
+class _LRUCache(object):
+    """The bounded plan cache (the JAX executor's `_LRUCache`): a hit moves
+    its key to the back, an insert past the cap evicts from the front. The
+    cap is ``PADDLE_EXECUTOR_CACHE_SIZE`` (default 64), read at each
+    insert. The small dict surface: ``get``, ``[k] = v``, ``in``, ``len``,
+    ``iter``, ``items``, ``clear``. An evicted plan that holds a CUDA
+    graph lets go of it; a `BoundProgram` holding the plan keeps
+    working."""
+
+    def __init__(self):
+        self._d = collections.OrderedDict()
+        self._lock = threading.RLock()
+
+    @property
+    def cap(self):
+        try:
+            return max(1, int(os.environ.get('PADDLE_EXECUTOR_CACHE_SIZE',
+                                             '64')))
+        except ValueError:
+            return 64
+
+    def get(self, key, default=None):
+        with self._lock:
+            try:
+                self._d.move_to_end(key)
+            except KeyError:
+                return default
+            return self._d[key]
+
+    def __setitem__(self, key, value):
+        with self._lock:
+            self._d[key] = value
+            self._d.move_to_end(key)
+            while len(self._d) > self.cap:
+                self._d.popitem(last=False)
+
+    def __contains__(self, key):
+        with self._lock:
+            return key in self._d
+
+    def __len__(self):
+        with self._lock:
+            return len(self._d)
+
+    def __iter__(self):
+        with self._lock:
+            return iter(list(self._d))
+
+    def items(self):
+        with self._lock:
+            return list(self._d.items())
+
+    def clear(self):
+        with self._lock:
+            self._d.clear()
 
 
 class _Entry(object):
-    """A cached run plan: its function, the state it reads, whether it
-    draws random numbers, and which fetches are state variables."""
+    """A cached run plan: its function and plan, the state it reads and
+    writes, whether it draws random numbers, which fetches are state
+    variables, and its plans bound to a scope (`_BoundPlan`, by scope)."""
 
-    def __init__(self, fn, read_names, needs_rng, state_fetches):
+    def __init__(self, fn, plan, read_names, written_names, needs_rng,
+                 fetch_names, state_fetches, device):
         self.fn = fn
+        self.plan = plan
         self.read_names = read_names
+        self.written_names = written_names
         self.needs_rng = needs_rng
+        self.fetch_names = tuple(fetch_names)
         self.state_fetches = state_fetches
+        self.device = device
+        self.bound = weakref.WeakKeyDictionary()
+
+
+def _numpy_dtype(tdtype):
+    try:
+        return torch.empty(0, dtype=tdtype).numpy().dtype
+    except TypeError:
+        raise ValueError('a bound feed of dtype %s has no numpy form'
+                         % tdtype) from None
+
+
+class _BoundPlan(object):
+    """A run plan bound to one scope at one feed signature: the static
+    feeds (core/graphs.py `FeedBuffer`), the state tensors the plan reads
+    and writes (the scope's own, whose addresses a graph holds: the
+    optimizers update them in place, and state written as a new tensor is
+    copied into its tensor at the end of the step), the fetches' static
+    copies, its generators and, on the card, its CUDA graph.
+
+    ``step(scope)`` runs one program run on the staged feeds: the state
+    stages (a read name whose scope value is no longer its tensor, after a
+    ``load_params`` or a user's ``scope.set``, is copied into that tensor
+    and the scope bound back to it), the run is counted and the generators
+    seeded as ``run()`` counts and seeds them, and the plan runs: on the
+    CPU eagerly; on the card the first step eagerly on a side stream, the
+    next one captured on that stream and every step a replay."""
+
+    def __init__(self, exe, entry, program, feed):
+        self.exe = exe
+        self.entry = entry
+        self.program = program
+        self.names = sorted(feed)
+        self.feeds = graphs.FeedBuffer(
+            [(tuple(feed[n].shape), _numpy_dtype(feed[n].dtype))
+             for n in self.names], exe.device)
+        self.feed = dict(zip(self.names, self.feeds.inputs))
+        self.state = None       # {name: tensor} the plan reads
+        self.written = None     # {name: tensor} the state the plan writes
+        self.outputs = None     # the fetches' static copies
+        self.rng = lowering.RunRNG(entry.plan, exe.device) \
+            if entry.needs_rng else None
+        self.cuda = exe.device.type == 'cuda'
+        self.graph = None
+        self.launches = {}
+        self.captures = 0
+        self.replays = 0
+
+    def stage(self, feed):
+        """Copy ``feed`` ({name: numpy array or tensor}, exactly the bound
+        names, shapes and dtypes, else ValueError) into the static feeds."""
+        if sorted(feed) != self.names:
+            raise ValueError('a bound program takes the feeds %s, got %s'
+                             % (self.names, sorted(feed)))
+        values = [feed[n] if isinstance(feed[n], torch.Tensor)
+                  else np.asarray(feed[n]) for n in self.names]
+        self.feeds.check('bound program', values)
+        self.feeds.stage(values)
+
+    def step(self, scope):
+        self._stage_state(scope)
+        rng = self.exe._seed_run(self.program, self.entry, self.rng)
+        if not self.cuda:
+            if self.outputs is None:
+                self._first(rng)
+            else:
+                self._body(rng)
+        elif self.graph is None:
+            if self.captures:
+                raise RuntimeError('the capture of this bound plan failed '
+                                   'at an earlier call; it does not run '
+                                   'eagerly in place of a replay')
+            self._capture(rng)
+        else:
+            graphs.replay(self.graph, self.launches)
+            self.replays += 1
+        scope.update(self.written)
+
+    def fetches(self, return_numpy):
+        """The last step's fetches: numpy arrays, or copies on the device
+        (the static copies are overwritten by the next step)."""
+        if return_numpy:
+            return [_to_numpy(o) for o in self.outputs]
+        return [o.clone() for o in self.outputs]
+
+    def _stage_state(self, scope):
+        if self.state is None:
+            self.state = {n: self.exe._state_value(scope, n)
+                          for n in self.entry.read_names}
+            return
+        for n, t in self.state.items():
+            v = scope.get(n)
+            if v is t:
+                continue
+            if v is None:
+                raise RuntimeError('persistable variable %r left the scope '
+                                   'of a bound program' % n)
+            src = v if isinstance(v, torch.Tensor) else \
+                torch.from_numpy(np.asarray(v))
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError('%r is %s in the scope, the bound program '
+                                 'holds %s' % (n, tuple(src.shape),
+                                               tuple(t.shape)))
+            t.copy_(src)
+            scope.set(n, t)
+
+    def _first(self, rng):
+        """The first step, eagerly: it sizes the fetches' static copies and
+        the tensors of state the plan writes without reading."""
+        fetches, new_state = self.entry.fn(self.feed, self.state, rng)
+        self.outputs = tuple(torch.empty(f.shape, dtype=f.dtype,
+                                         device=f.device) for f in fetches)
+        self.written = {}
+        for n, v in new_state.items():
+            t = self.state.get(n)
+            if t is None:
+                t = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+            elif (tuple(v.shape), v.dtype) != (tuple(t.shape), t.dtype):
+                raise ValueError('%r is written as %s %s but read as %s %s'
+                                 % (n, v.dtype, tuple(v.shape), t.dtype,
+                                    tuple(t.shape)))
+            self.written[n] = t
+        self._write(fetches, new_state)
+
+    def _body(self, rng):
+        self._write(*self.entry.fn(self.feed, self.state, rng))
+
+    def _write(self, fetches, new_state):
+        # the fetches first: a fetch may alias state written below
+        for out, f in zip(self.outputs, fetches):
+            out.copy_(f)
+        for n, v in new_state.items():
+            t = self.written[n]
+            if v is not t:
+                t.copy_(v)
+
+    def _capture(self, rng):
+        """The first step eagerly on a side stream, then the next one
+        captured on it: the stream whose cuBLAS workspace and autograd
+        streams the warm-up set up."""
+        dev = self.exe.device
+        self.captures += 1
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._first(rng)
+        self.graph, self.launches = graphs.capture(
+            lambda: self._body(self.rng), stream=side,
+            name='the run plan of program %d' % self.program._uid,
+            generators=self.rng.generators() if self.rng else ())
+        stream.wait_stream(side)
+
+
+class BoundProgram(object):
+    """A fixed-signature handle from `Executor.bind`: each call takes a
+    feed of exactly the bound names, shapes and dtypes (else ValueError)
+    and runs one step of the program, one program run of the counted RNG
+    stream. On the card a call stages the feed (one host-to-device copy,
+    or a device-to-device copy of device tensors), stages the state,
+    re-seeds the generators, replays the captured graph and reads the
+    fetches once; ``return_numpy=False`` hands out copies. ``first_out``
+    holds the fetches of the step that ``bind`` took, ``example_feed`` the
+    prepared feed it took (device tensors, which a call copies on the
+    device), ``fetch_names`` the fetch list. ``replays``, ``captures`` and
+    ``launches`` (kernel launches a replay runs) count the graph's use.
+    Calls are not thread-safe against each other."""
+
+    __slots__ = ('_plan', '_scope', 'first_out', 'fetch_names',
+                 'example_feed')
+
+    def __init__(self, plan, scope, first_out, example_feed):
+        self._plan = plan
+        self._scope = scope
+        self.first_out = first_out
+        self.fetch_names = plan.entry.fetch_names
+        self.example_feed = example_feed
+
+    def __call__(self, feed, return_numpy=True):
+        self._plan.stage(feed)
+        self._plan.step(self._scope)
+        return self._plan.fetches(return_numpy)
+
+    @property
+    def graph(self):
+        return self._plan.graph
+
+    @property
+    def replays(self):
+        return self._plan.replays
+
+    @property
+    def captures(self):
+        return self._plan.captures
+
+    @property
+    def launches(self):
+        return dict(self._plan.launches)
 
 
 class Executor(object):
@@ -170,7 +443,7 @@ class Executor(object):
     def __init__(self, place=None):
         self.place = place
         self.device = resolve_device(place)
-        self._cache = {}
+        self._cache = _LRUCache()
         self._run_counter = 0
 
     def close(self):
@@ -190,6 +463,10 @@ class Executor(object):
         out = {}
         gb = program.global_block()
         for name, value in feed.items():
+            if isinstance(value, tuple):
+                raise NotImplementedError(
+                    'feed %r: LoD feeds ((array, lod) pairs) wait for a '
+                    'later slice of paddle_tpu_torch' % name)
             var = gb._find_var_recursive(name)
             t = value if isinstance(value, torch.Tensor) else \
                 torch.from_numpy(np.asarray(value))
@@ -246,25 +523,15 @@ class Executor(object):
                                          fetch_names)
         fn, plan = lowering.build_fn(program, fetch_names, needed, written,
                                      self.device)
-        needs_rng = any(_op_needs_rng(d, op)
+        needs_rng = any(lowering._needs_rng(d, op)
                         for d, op in zip(plan.defs, plan.ops))
         state = set(read) | set(written)
-        return _Entry(fn, needed, needs_rng,
-                      [n in state for n in fetch_names])
+        return _Entry(fn, plan, needed, written, needs_rng, fetch_names,
+                      [n in state for n in fetch_names], self.device)
 
-    def run(self, program=None, feed=None, fetch_list=None,
-            feed_var_name='feed', fetch_var_name='fetch', scope=None,
-            return_numpy=True, use_program_cache=True):
-        if program is None:
-            program = default_main_program()
-        if not isinstance(program, Program):
-            raise TypeError('Executor.run takes a Program, got %r'
-                            % type(program).__name__)
-        if scope is None:
-            scope = global_scope()
-        feed = self._prepare_feed(program, feed or {})
-        fetch_names = [v.name if isinstance(v, Variable) else v
-                       for v in (fetch_list or [])]
+    def _entry(self, program, feed, fetch_names, use_program_cache=True):
+        """The cached run plan of (program, its version, the feed
+        signature, the fetch list), built on a miss."""
         key = (program._uid, program._version, self._feed_signature(feed),
                tuple(fetch_names))
         entry = self._cache.get(key) if use_program_cache else None
@@ -272,12 +539,48 @@ class Executor(object):
             entry = self._build(program, set(feed), fetch_names)
             if use_program_cache:
                 self._cache[key] = entry
-        state = {n: self._state_value(scope, n) for n in entry.read_names}
+        return entry
+
+    def _seed_run(self, program, entry, rng):
+        """Count one run of ``program`` as the JAX executor counts it;
+        returns ``rng`` seeded for it, or None for a plan that draws
+        nothing."""
         self._run_counter += 1
         runs = _next_program_run(program)
-        seed = _run_seed(program.random_seed, runs, self._run_counter) \
-            if entry.needs_rng else None
-        fetches, new_state = entry.fn(feed, state, seed)
+        if not entry.needs_rng:
+            return None
+        rng.seed(_run_seed(program.random_seed, runs, self._run_counter))
+        return rng
+
+    @staticmethod
+    def _check_program(program, what):
+        if program is None:
+            program = default_main_program()
+        if not isinstance(program, Program):
+            raise TypeError('Executor.%s takes a Program, got %r'
+                            % (what, type(program).__name__))
+        return program
+
+    @staticmethod
+    def _fetch_names(fetch_list):
+        return [v.name if isinstance(v, Variable) else v
+                for v in (fetch_list or [])]
+
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name='feed', fetch_var_name='fetch', scope=None,
+            return_numpy=True, use_program_cache=True):
+        program = self._check_program(program, 'run')
+        if scope is None:
+            scope = global_scope()
+        feed = self._prepare_feed(program, feed or {})
+        fetch_names = self._fetch_names(fetch_list)
+        entry = self._entry(program, feed, fetch_names, use_program_cache)
+        state = {n: self._state_value(scope, n) for n in entry.read_names}
+        # generators of this run's own: a cached plan may run on two
+        # threads at once
+        rng = self._seed_run(program, entry, lowering.RunRNG(
+            entry.plan, self.device) if entry.needs_rng else None)
+        fetches, new_state = entry.fn(feed, state, rng)
         scope.update(new_state)
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
@@ -285,3 +588,88 @@ class Executor(object):
         # variable is handed out as a copy
         return [f.clone() if aliased else f
                 for f, aliased in zip(fetches, entry.state_fetches)]
+
+    # ------------------------------------------------------------------
+    def _bound_plan(self, entry, program, scope, feed):
+        """The plan of ``entry`` bound to ``scope`` (one for each pair,
+        shared by `bind` and `run_fused`)."""
+        plan = entry.bound.get(scope)
+        if plan is None:
+            plan = entry.bound[scope] = _BoundPlan(self, entry, program,
+                                                   feed)
+        return plan
+
+    def bind(self, program, feed, fetch_list=None, scope=None, donate=None):
+        """Take one step of ``program`` on ``feed`` (one program run, as
+        ``run()`` takes it) and return a `BoundProgram` whose calls run the
+        same plan at the same feed signature: on the card each call is a
+        feed copy, a state check, a re-seed, one replay of the plan's CUDA
+        graph (captured at this call, after its eager first step) and one
+        read of the fetches. ``donate`` is taken for parity with the JAX
+        executor and changes nothing: the port's optimizers update their
+        state in place, so there is no second copy of it to donate."""
+        program = self._check_program(program, 'bind')
+        if scope is None:
+            scope = global_scope()
+        feed = self._prepare_feed(program, feed)
+        entry = self._entry(program, feed, self._fetch_names(fetch_list))
+        plan = self._bound_plan(entry, program, scope, feed)
+        plan.stage(feed)
+        plan.step(scope)
+        return BoundProgram(plan, scope, plan.fetches(True), feed)
+
+    def _stack_feeds(self, program, feed_list):
+        """{name: tensor [K, ...] on the device} from K feed dicts of one
+        signature, or from a stacked {name: array or tensor [K, ...]}."""
+        if isinstance(feed_list, dict):
+            stacked = dict(feed_list)
+        else:
+            names = sorted(feed_list[0])
+            for f in feed_list:
+                if sorted(f) != names:
+                    raise ValueError('run_fused: every feed dict takes the '
+                                     'feeds %s, got %s' % (names, sorted(f)))
+            stacked = {}
+            for n in names:
+                vals = [f[n] for f in feed_list]
+                if any(isinstance(v, tuple) for v in vals):
+                    stacked[n] = vals[0]        # raises below, as LoD
+                elif all(isinstance(v, torch.Tensor) for v in vals):
+                    stacked[n] = torch.stack(vals)
+                else:
+                    stacked[n] = np.stack([np.asarray(v) for v in vals])
+        stacked = self._prepare_feed(program, stacked)
+        ks = set(int(t.shape[0]) for t in stacked.values())
+        if len(ks) != 1:
+            raise ValueError('run_fused: the stacked feeds hold %s batches'
+                             % sorted(ks))
+        return stacked, ks.pop()
+
+    def run_fused(self, program=None, feed_list=None, fetch_list=None,
+                  scope=None, return_numpy=True, steps=None, donate=None):
+        """Run one step for each of the K staged batches of ``feed_list``
+        (K feed dicts of one signature, or a stacked {name: array or tensor
+        [K, ...]}: device tensors are not copied again), or ``steps`` steps
+        cycling them, and return the last step's fetches; every state
+        update lands in the scope. On the card each step is a
+        device-to-device copy of its batch into the bound feed and one
+        replay of the graph that `bind` uses; the fetches are read once,
+        at the end. Each step is one program run of the counted RNG
+        stream, so a call over K batches equals K ``run()`` calls, draws
+        included; the JAX executor instead derives one key a call and folds
+        in the step index (the two packages' bits differ anyway, see
+        core/lowering.py). LoD feeds raise. ``donate`` changes nothing (see
+        `bind`)."""
+        if not feed_list:
+            return []
+        program = self._check_program(program, 'run_fused')
+        if scope is None:
+            scope = global_scope()
+        stacked, k = self._stack_feeds(program, feed_list)
+        feed0 = {n: t[0] for n, t in stacked.items()}
+        entry = self._entry(program, feed0, self._fetch_names(fetch_list))
+        plan = self._bound_plan(entry, program, scope, feed0)
+        for i in range(int(steps) if steps else k):
+            plan.stage({n: t[i % k] for n, t in stacked.items()})
+            plan.step(scope)
+        return plan.fetches(return_numpy)

@@ -1,55 +1,170 @@
-"""Carry the JAX package's weights and training state into the port.
+"""Persistence, and the JAX package's weights and training state in the
+port.
 
-`load_params` reads what `paddle_tpu.io.save_params` writes — one combined
-``.npz`` (``filename=``) or one ``.npy`` per variable, with ``/`` in a name
-written as ``%2F`` — and `params_from_numpy` maps those names onto the
-port's `TransformerLM` or `BertPretrain` state (a scope whose names start
-with ``bert.`` is BERT's), checking every name and shape.
-`train_state_from_numpy` takes a whole training scope (the parameters, the
-Adam accumulators and the learning rate) apart for the model and
-`optimizer.TensorAdam`. `scope_from_numpy` puts every array of a JAX scope,
-by name, into a port `Scope` for the Executor (``load_params(...,
-scope=)`` does the same from a saved directory).
+`save_vars`, `save_params`, `save_persistables`, `load_vars`,
+`load_params`, `load_persistables` and `get_program_parameter` are the
+port's own copies of paddle_tpu/io.py's, with the same signatures
+(``load_params(executor, dirname, main_program=None, filename=None)``)
+and the same files: one ``.npy`` per variable, with ``/`` in a name
+written as ``%2F``, or one ``.npz`` when ``filename=`` is given; so the
+two packages read each other's. They save from and load into
+`global_scope()`; a loaded value enters the scope as a numpy array, which
+the executor uploads at its first read (or a bound program copies into
+the tensor its graph holds).
+
+`read_params` returns such a directory's arrays by name, and
+`params_from_numpy` maps those names onto the port's `TransformerLM` or
+`BertPretrain` state (a scope whose names start with ``bert.`` is BERT's),
+checking every name and shape. `train_state_from_numpy` takes a whole
+training scope (the parameters, the Adam accumulators and the learning
+rate) apart for the model and `optimizer.TensorAdam`. `scope_from_numpy`
+puts every array of a JAX scope, by name, into a port `Scope` for the
+Executor.
 """
 import os
 import re
+import tempfile
 
 import numpy as np
 import torch
 
-from .executor import Scope
-from .framework import resolve_device
+from .executor import Scope, _to_numpy, global_scope
+from .framework import (Parameter, Variable, default_main_program,
+                        resolve_device)
 from .models import bert
 from .models.transformer import LMConfig, param_shapes
 
-__all__ = ['load_params', 'params_from_numpy', 'train_state_from_numpy',
+__all__ = ['save_vars', 'save_params', 'save_persistables', 'load_vars',
+           'load_params', 'load_persistables', 'get_program_parameter',
+           'read_params', 'params_from_numpy', 'train_state_from_numpy',
            'scope_from_numpy']
 
 # decode-engine state the JAX package keeps in the same scope: not weights
 _IGNORED = ('gen_kv_k', 'gen_kv_v')
 
 
-def load_params(dirname, filename=None, scope=None, device=None):
-    """{name: numpy array} from a directory written by
-    `paddle_tpu.io.save_params` (or `save_vars`); with ``scope`` (a port
-    `Scope`) the arrays also go into it, as `scope_from_numpy` puts them
-    (tensors on ``device``: None means ``cuda:0``)."""
+def _is_persistable(var):
+    return var.persistable
+
+
+def _is_parameter(var):
+    return isinstance(var, Parameter)
+
+
+def _var_path(dirname, name):
+    return os.path.join(dirname, name.replace('/', '%2F') + '.npy')
+
+
+def _npz_name(filename):
+    # np.savez appends the suffix anyway; keep the loader in step
+    return filename if filename.endswith('.npz') else filename + '.npz'
+
+
+def _publish(path, write):
+    """``write(file)`` into a temporary file beside ``path``, then rename it
+    there: a crash mid-save leaves the old file or none, never a torn
+    one."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or '.',
+                               prefix='.tmp_')
+    try:
+        with os.fdopen(fd, 'wb') as f:
+            write(f)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def _vars(main_program, vars, predicate):
+    if main_program is None:
+        main_program = default_main_program()
+    if vars is None:
+        vars = [v for v in main_program.list_vars()
+                if predicate is None or predicate(v)]
+    return [v.name if isinstance(v, Variable) else v for v in vars]
+
+
+def save_vars(executor, dirname, main_program=None, vars=None,
+              predicate=None, filename=None):
+    """Save the `global_scope()` values of ``vars`` (or of the variables of
+    ``main_program`` that ``predicate`` takes) under ``dirname``."""
+    scope = global_scope()
+    os.makedirs(dirname, exist_ok=True)
+    arrays = {}
+    for name in _vars(main_program, vars, predicate):
+        val = scope.get(name)
+        if val is None:
+            raise RuntimeError("variable %r has no value in scope" % name)
+        arrays[name] = _to_numpy(val)
     if filename is not None:
-        if not filename.endswith('.npz'):
-            filename += '.npz'
-        with np.load(os.path.join(dirname, filename)) as data:
-            out = {k: data[k] for k in data.files}
+        _publish(os.path.join(dirname, _npz_name(filename)),
+                 lambda f: np.savez(f, **arrays))
     else:
-        out = {}
-        for fn in sorted(os.listdir(dirname)):
-            if fn.endswith('.npy'):
-                out[fn[:-4].replace('%2F', '/')] = np.load(
-                    os.path.join(dirname, fn))
-        if not out:
-            raise FileNotFoundError('no .npy parameter files in %r'
-                                    % dirname)
-    if scope is not None:
-        scope_from_numpy(out, scope, device)
+        for name, arr in arrays.items():
+            _publish(_var_path(dirname, name),
+                     lambda f, arr=arr: np.save(f, arr))
+
+
+def save_params(executor, dirname, main_program=None, filename=None):
+    return save_vars(executor, dirname, main_program,
+                     predicate=_is_parameter, filename=filename)
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None):
+    return save_vars(executor, dirname, main_program,
+                     predicate=_is_persistable, filename=filename)
+
+
+def load_vars(executor, dirname, main_program=None, vars=None,
+              predicate=None, filename=None):
+    """Load ``vars`` (or the variables of ``main_program`` that
+    ``predicate`` takes) from ``dirname`` into `global_scope()`, each as a
+    numpy array."""
+    scope = global_scope()
+    stored = None
+    if filename is not None:
+        with np.load(os.path.join(dirname, _npz_name(filename))) as data:
+            stored = {k: data[k] for k in data.files}
+    for name in _vars(main_program, vars, predicate):
+        if stored is not None:
+            if name not in stored:
+                raise RuntimeError("variable %r not found in %s"
+                                   % (name, filename))
+            scope.set(name, stored[name])
+        else:
+            path = _var_path(dirname, name)
+            if not os.path.exists(path):
+                raise RuntimeError("variable file %r not found" % path)
+            scope.set(name, np.load(path))
+
+
+def load_params(executor, dirname, main_program=None, filename=None):
+    return load_vars(executor, dirname, main_program,
+                     predicate=_is_parameter, filename=filename)
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None):
+    return load_vars(executor, dirname, main_program,
+                     predicate=_is_persistable, filename=filename)
+
+
+def get_program_parameter(program):
+    return program.all_parameters()
+
+
+def read_params(dirname, filename=None):
+    """{name: numpy array} of every variable in a directory written by
+    `save_params` or `save_vars` of either package."""
+    if filename is not None:
+        with np.load(os.path.join(dirname, _npz_name(filename))) as data:
+            return {k: data[k] for k in data.files}
+    out = {}
+    for fn in sorted(os.listdir(dirname)):
+        if fn.endswith('.npy'):
+            out[fn[:-4].replace('%2F', '/')] = np.load(
+                os.path.join(dirname, fn))
+    if not out:
+        raise FileNotFoundError('no .npy parameter files in %r' % dirname)
     return out
 
 

@@ -118,6 +118,10 @@ class LayerHelper(object):
 
     create_tmp_variable = create_variable_for_type_inference
 
+    def create_global_variable(self, persistable=True, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, **kwargs)
+
     def create_or_get_global_variable(self, name, *args, **kwargs):
         gb = self.main_program.global_block()
         if gb.has_var(name):

@@ -4,7 +4,7 @@ The port's own copy of the layers of paddle_tpu/layers/nn.py that this
 slice's programs call: ``fc``, ``embedding``, ``square_error_cost``,
 ``softmax_with_cross_entropy``, ``layer_norm``,
 ``fused_layer_norm_residual``, ``fused_ffn_tail``, ``matmul``, ``mean``,
-``dropout``, ``add_position_encoding``, ``scale``, ``reshape``,
+``reduce_sum``, ``dropout``, ``add_position_encoding``, ``scale``, ``reshape``,
 ``transpose``, ``squeeze``, ``slice``, ``gather``, ``softmax`` and
 ``elementwise_add``/``_sub``. Each appends the JAX layer's op with the same
 slots, attrs and static output shapes; the computation is the op's
@@ -18,6 +18,7 @@ __all__ = [
     'fc', 'embedding', 'dropout', 'softmax', 'square_error_cost',
     'softmax_with_cross_entropy', 'layer_norm', 'fused_layer_norm_residual',
     'fused_ffn_tail', 'matmul', 'reshape', 'squeeze', 'transpose', 'mean',
+    'reduce_sum',
     'elementwise_add', 'elementwise_sub', 'slice', 'gather', 'scale',
     'add_position_encoding',
 ]
@@ -341,6 +342,33 @@ def gather(input, index):
 def mean(x, name=None):
     helper = LayerHelper('mean', name=name)
     return _simple(helper, 'mean', x, out_shape=(1,))
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    """The sum of ``input`` over ``dim`` (an int or a list; None: every
+    axis, to shape [1])."""
+    helper = LayerHelper('reduce_sum', name=name)
+    if dim is None:
+        reduce_all = True
+        dims = [0]
+        shape = [1]
+    else:
+        reduce_all = False
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        dims = [d % len(input.shape) for d in dims]
+        if keep_dim:
+            shape = [1 if i in dims else s
+                     for i, s in enumerate(input.shape)]
+        else:
+            shape = [s for i, s in enumerate(input.shape) if i not in dims]
+            shape = shape or [1]
+    out = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                    shape=shape)
+    helper.append_op(type='reduce_sum', inputs={'X': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'dim': dims, 'keep_dim': keep_dim,
+                            'reduce_all': reduce_all})
+    return out
 
 
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):

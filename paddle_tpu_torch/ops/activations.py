@@ -1,5 +1,5 @@
-"""Activation ops of a Program: ``gelu`` (exact, erf), ``tanh`` and
-``square``.
+"""Activation ops of a Program: ``relu``, ``gelu`` (exact, erf), ``tanh``
+and ``square``.
 
 The port's own copy of the activations of paddle_tpu/ops/activations.py
 that its programs run (`fc(act=...)` appends one after the bias add):
@@ -21,6 +21,7 @@ def _register_act(name, fn):
         ctx.out(op, 'Out', fn(ctx.in1(op, 'X')))
 
 
+_register_act('relu', torch.relu)
 _register_act('gelu', _gelu)
 _register_act('tanh', torch.tanh)
 _register_act('square', torch.square)

@@ -28,6 +28,15 @@ is rounded to bf16 on the way in), as the JAX op's ``astype`` does. The
 plain versions take either dtype and repeat the bf16 roundings for bf16
 operands; the float32 arithmetic is unchanged.
 
+The kernels are instantiated at head widths 16, 32, 64 and 128;
+:func:`_flash_fwd` and :func:`_flash_bwd` take any width up to 128 on the
+card by zero-padding q, k and v (and dO) along dh to the next of those,
+launching the kernels there and slicing O, dQ, dK and dV back
+(:func:`_pad_dh`); the dQ and dK/dV wrappers take the kernels' widths.
+That is exact: a zero column adds 0 to every Q·Kᵀ score, the scale stays
+the caller's (dh^-0.5 of the true width by default), and the padded
+columns of O, dQ, dK and dV are 0. A width above 128 raises.
+
 The program op `flash_attention` (Q, K, V [B, H, L, dh], an optional
 KeyPaddingBias [B, L], attrs ``scale`` (missing or 0: dh^-0.5) and
 ``causal``) calls :func:`flash_attention`, as the JAX op calls its own,
@@ -214,13 +223,46 @@ def _delta(do, o):
     return (do.float() * o.float()).sum(dim=-1)
 
 
+# the head widths the kernels are instantiated at
+_WIDTHS = (16, 32, 64, 128)
+
+
+def _kernel_width(dh):
+    """The head width the kernels run a ``dh``-wide head at: the next
+    instantiated one (ValueError above 128)."""
+    w = next((w for w in _WIDTHS if w >= dh), None)
+    if w is None or dh < 1:
+        raise ValueError('flash_attention: the CUDA kernels take head '
+                         'widths 1 to %d, got %d' % (_WIDTHS[-1], dh))
+    return w
+
+
+def _pad_dh(w, *ts):
+    """Each tensor of ``ts`` ([BH, L, dh], one dh) zero-padded along dh to
+    ``w`` columns (itself when it is that wide)."""
+    if len(set(t.shape[-1] for t in ts)) != 1:
+        raise ValueError('flash_attention: q, k, v and dO must share one '
+                         'head width, got %s' % [t.shape[-1] for t in ts])
+    return tuple(t if t.shape[-1] == w else
+                 torch.nn.functional.pad(t, (0, w - t.shape[-1]))
+                 for t in ts)
+
+
+def _unpad(dh, *ts):
+    """The first ``dh`` columns of each tensor, contiguous."""
+    return tuple(t if t.shape[-1] == dh else t[..., :dh].contiguous()
+                 for t in ts)
+
+
 def _check_cuda_operands(q, k, v, bias, n_heads):
     """Validate the kernels' operands (float32, or bf16 for the bf16
-    kernels); returns (bh, L, dh, device)."""
+    kernels, at the head width of an instantiation); returns (bh, L, dh,
+    device)."""
     bh, L, dh = q.shape
-    if dh not in (16, 32, 64, 128):
+    if dh not in _WIDTHS:
         raise ValueError('flash_attention: the CUDA kernels take head '
-                         'width 16, 32, 64 or 128, got %d' % dh)
+                         'width 16, 32, 64 or 128, got %d (_flash_bwd '
+                         'pads to those)' % dh)
     if q.dtype not in _ROUTES:
         raise ValueError('flash_attention: the CUDA kernels take float32 '
                          'or bfloat16 operands, got %s' % q.dtype)
@@ -239,6 +281,8 @@ def _flash_fwd(q, k, v, scale, causal, bias=None, n_heads=1):
     version on the CPU."""
     if not kernel_tier.on_cuda(q, k, v, bias):
         return _attention_ref(q, k, v, scale, causal, bias, n_heads)
+    width = q.shape[-1]
+    q, k, v = _pad_dh(_kernel_width(width), q, k, v)
     bh, L, dh, dev = _check_cuda_operands(q, k, v, bias, n_heads)
     o = torch.empty_like(q)
     lse = torch.empty((bh, L), dtype=torch.float32, device=dev)
@@ -249,7 +293,7 @@ def _flash_fwd(q, k, v, scale, causal, bias=None, n_heads=1):
     name = _names(q.dtype)[0]
     native.check(rc, name)
     kernel_tier.count(name)
-    return o, lse
+    return _unpad(width, o)[0], lse
 
 
 def _bwd_operands(q, k, v, do, lse, delta, bias, n_heads):
@@ -301,12 +345,17 @@ def _flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, bias=None,
 
 def _flash_bwd(q, k, v, o, lse, do, scale, causal, bias=None, n_heads=1):
     """(dQ, dK, dV) over [BH, L, dh]: delta = rowsum(dO * O) in plain
-    PyTorch, then the two kernels (their plain versions on the CPU)."""
+    PyTorch, then the two kernels (their plain versions on the CPU); on
+    the card q, k, v and dO are zero-padded once to the kernels' width and
+    dQ, dK and dV sliced back."""
     delta = _delta(do, o)
+    width = q.shape[-1]
+    if kernel_tier.on_cuda(q, k, v, do, lse, delta, bias):
+        q, k, v, do = _pad_dh(_kernel_width(width), q, k, v, do)
     dq = _flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, bias, n_heads)
     dk, dv = _flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, bias,
                             n_heads)
-    return dq, dk, dv
+    return _unpad(width, dq, dk, dv)
 
 
 class _FlashAttention(torch.autograd.Function):

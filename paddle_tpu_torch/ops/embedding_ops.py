@@ -8,8 +8,16 @@ out-of-range id reads the first or last row, it does not raise.
 On a CUDA tensor the wrapper launches ``csrc/embedding_gather.cu``; on the
 CPU it runs :func:`_gather_ref`. Where autograd records the call it is an
 ``autograd.Function`` whose backward is the JAX package's
-`_gather_grad_bwd`: an ``index_add_`` scatter of the output gradient into a
-zero table. The backward does NOT mirror the forward's clamp: it follows
+`_gather_grad_bwd`: a scatter-add of the output gradient into a zero
+table, with the same bits at every run (an ``index_add_`` adds by atomics,
+in an order that changes from run to run, so two runs of one training step
+drifted apart). A table of more than 64 rows takes
+``index_put_(accumulate=True)``, which on the card sorts the ids and sums
+each row's gradients in order; a smaller one (BERT's two segment rows, fed
+16384 ids at B 128) takes the product of the ids' one-hot transpose and
+the gradient, since the sorted sum runs one row's ids one after another
+(the cutoff of 64 rows is not measured, see `_ONE_HOT_ROWS`). The
+backward does NOT mirror the forward's clamp: it follows
 ``.at[ids].add(..., mode='drop')``, which first wraps an id in [-V, 0) to
 id + V (NumPy's negative indexing) and then drops any id still outside
 [0, V) — so an out-of-range id reads a clamped row but adds its gradient
@@ -47,17 +55,30 @@ def _gather_ref(w, ids, bias=None):
     return out if bias is None else out + bias.reshape(1, -1)
 
 
+# tables of at most this many rows take their gradient as a one-hot
+# product. The cutoff is not measured: it lies between the tables whose
+# gradient was timed on the card, BERT's 2-row segment table (the one-hot
+# product) and the 512- to 32000-row ones (the sorted scatter). What slows
+# the sorted sum is how many ids fall on one row, not the row count.
+_ONE_HOT_ROWS = 64
+
+
 def _scatter_grad(ids, ct, V):
     """The table's gradient [V, D]: ``ct`` rows added at ``ids`` with the
     JAX scatter's rule (ids in [-V, 0) wrap, the rest outside [0, V) are
-    dropped). Dropped rows add an exact 0 to row 0 instead of being
-    filtered out, which would need a host sync."""
+    dropped), deterministically (module docstring). Dropped rows add an
+    exact 0 to row 0 instead of being filtered out, which would need a
+    host sync."""
     idx = torch.where(ids < 0, ids + V, ids)
     keep = (idx >= 0) & (idx < V)
     idx = torch.where(keep, idx, torch.zeros_like(idx))
     ct = torch.where(keep[:, None], ct, torch.zeros_like(ct))
+    if V <= _ONE_HOT_ROWS:
+        rows = torch.arange(V, device=ct.device)
+        return (rows[:, None] == idx[None, :]).to(ct.dtype) @ ct
     return torch.zeros((V, ct.shape[1]), dtype=ct.dtype,
-                       device=ct.device).index_add_(0, idx, ct)
+                       device=ct.device).index_put_((idx,), ct,
+                                                    accumulate=True)
 
 
 class _Gather(torch.autograd.Function):

@@ -305,8 +305,7 @@ def _fused_ffn_tail_op(ctx, op):
     dimpl = op.attr('dropout_implementation', 'upscale_in_train')
     drop_active = bool(prob) and not is_test
     policy = amp.op_policy(op)
-    seed = op.attr('seed', 0)
-    gen = (lambda: ctx.op_rng(seed)) if seed else ctx.rng
+    gen = ctx.op_rng if op.attr('seed', 0) else ctx.rng
     fusable = (tuple(x.shape[xnc:]) == tuple(w1.shape[:1])
                and x.dim() == xnc + 1 and x.dtype == torch.float32
                and (not drop_active or (dimpl == 'upscale_in_train'

@@ -10,8 +10,9 @@ does not take at all raises in its wrapper.
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else (the plain version on the CPU does not count), so a run
 can show that its main path went through the kernels. Under CUDA-graph
-capture a wrapper runs but the device launches nothing; the bound step
-(serving/graphs.py) takes those counts back and adds them on each replay.
+capture a wrapper runs but the device launches nothing; the capture
+(core/graphs.py) takes those counts back and its owner adds them on each
+replay.
 """
 import threading
 
@@ -51,7 +52,7 @@ def count(name):
 
 def add_counts(delta):
     """Add ``delta`` ({kernel name: launches}) to the counts: a CUDA graph's
-    replay runs the launches its capture counted (serving/graphs.py)."""
+    replay runs the launches its capture counted (core/graphs.py)."""
     with _lock:
         for name, n in delta.items():
             _counts[name] += n

@@ -122,8 +122,8 @@ def mul(x, w, policy=None):
 
 # ---------------------------------------------------------------------------
 # the program ops (paddle_tpu/ops/math_ops.py `_mul`, `_matmul`, the
-# elementwise family's add and sub, `_mean`): the products above, float32
-# or under the op's AMP mark, and plain elementwise PyTorch.
+# elementwise family's add and sub, `_mean`, ``reduce_sum``): the products
+# above, float32 or under the op's AMP mark, and plain elementwise PyTorch.
 
 
 @register_op('mul')
@@ -171,3 +171,12 @@ _register_elementwise('elementwise_sub', torch.sub)
 @register_op('mean')
 def _mean_op(ctx, op):
     ctx.out(op, 'Out', ctx.in1(op, 'X').mean().reshape(1))
+
+
+@register_op('reduce_sum')
+def _reduce_sum_op(ctx, op):
+    """The sum over ``dim``, or over every axis with ``reduce_all``."""
+    x = ctx.in1(op, 'X')
+    dims = tuple(range(x.dim())) if op.attr('reduce_all', False) else \
+        tuple(d % x.dim() for d in op.attr('dim', [0]))
+    ctx.out(op, 'Out', x.sum(dim=dims, keepdim=op.attr('keep_dim', False)))

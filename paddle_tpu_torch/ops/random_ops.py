@@ -78,8 +78,7 @@ def train_dropout(x, p, upscale, generator):
 
 
 def _generator(ctx, op):
-    seed = op.attr('seed', 0)
-    return ctx.op_rng(seed) if seed else ctx.rng()
+    return ctx.op_rng() if op.attr('seed', 0) else ctx.rng()
 
 
 @register_op('dropout', needs_rng=lambda op: not op.attr('is_test', False))

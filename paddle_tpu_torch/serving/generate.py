@@ -371,7 +371,7 @@ class GenerateEngine(object):
                 ...
 
     ``params`` is a {JAX parameter name: array} mapping (for example
-    `paddle_tpu_torch.io.load_params` of a directory the JAX package
+    `paddle_tpu_torch.io.read_params` of a directory the JAX package
     saved); without it the engine initialises fresh weights from
     ``config.seed``. ``device`` None means ``cuda:0`` and raises without a
     card; pass ``device='cpu'`` to run on the CPU.

@@ -26,11 +26,8 @@ warm-up calls and the first replay run it on the same feeds. Every decode
 signature is: it writes rows whose values depend only on the feeds and on
 rows it does not write.
 
-Launch counts (`ops.kernel_tier`) are counted where a wrapper launches, in
-Python, so a replay would count nothing and a capture would count launches
-that never ran. A `BoundStep` therefore takes back the counts its capture
-made and adds them again on every replay: the counts stay what the device
-ran.
+Feed staging, capture and the launch counts of a replay are the shared
+machinery of core/graphs.py.
 
 Outputs live outside the graphs' pool (each call copies its results into
 them), because graphs that share a pool reuse each other's scratch: an
@@ -38,16 +35,13 @@ output in the pool would be overwritten by the next replay of another
 graph, which the engine's admissions run while a speculative round's
 results wait to be read.
 """
-import gc
-
 import numpy as np
 import torch
 
-from ..ops import kernel_tier
+from ..core import graphs
 
 __all__ = ['BoundStep']
 
-_ALIGN = 16     # bytes between feeds in the staging buffers
 _WARMUP_CALLS = 2
 
 
@@ -68,62 +62,26 @@ class BoundStep(object):
         self.name = name
         self.device = torch.device(device)
         self.pool = pool
-        self.specs = [(tuple(int(n) for n in shape), np.dtype(dtype))
-                      for shape, dtype in feeds]
-        offsets, at = [], 0
-        for shape, dtype in self.specs:
-            offsets.append(at)
-            at += -(-int(np.prod(shape)) * dtype.itemsize // _ALIGN) * _ALIGN
-        cuda = self.device.type == 'cuda'
-        self._host = torch.zeros(max(at, _ALIGN), dtype=torch.uint8,
-                                 pin_memory=cuda)
-        self._dev = torch.zeros(max(at, _ALIGN), dtype=torch.uint8,
-                                device=self.device)
-        host = self._host.numpy()
-        self._staged, self.inputs = [], []
-        for (shape, dtype), off in zip(self.specs, offsets):
-            nbytes = int(np.prod(shape)) * dtype.itemsize
-            self._staged.append(host[off:off + nbytes].view(dtype)
-                                .reshape(shape))
-            tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
-            self.inputs.append(self._dev[off:off + nbytes].view(tdtype)
-                               .view(shape))
-        self.inputs = tuple(self.inputs)
+        self._feeds = graphs.FeedBuffer(feeds, self.device)
+        self.specs = self._feeds.specs
+        self.inputs = self._feeds.inputs
         self.outputs = None
         self._graph = None
-        self._copied = torch.cuda.Event() if cuda else None
         self.captured = False
         self.replays = 0
         self.launches = {}
 
     def __call__(self, *arrays):
-        if len(arrays) != len(self.specs):
-            raise ValueError('%s takes %d feeds, got %d'
-                             % (self.name, len(self.specs), len(arrays)))
         arrays = [np.asarray(a) for a in arrays]
-        for i, (a, (shape, dtype)) in enumerate(zip(arrays, self.specs)):
-            if a.shape != shape or a.dtype != dtype:
-                raise ValueError(
-                    '%s: feed %d must be %s %s, got %s %s — a bound '
-                    'signature takes exactly the shapes and dtypes it was '
-                    'bound at' % (self.name, i, dtype, shape, a.dtype,
-                                  a.shape))
-        if self._copied is not None:
-            # the previous call's copy must have read the staging buffer
-            # before it is overwritten
-            self._copied.synchronize()
-        for staged, a in zip(self._staged, arrays):
-            staged[...] = a
-        self._dev.copy_(self._host, non_blocking=True)
-        if self._copied is None:
+        self._feeds.check(self.name, arrays)
+        self._feeds.stage(arrays)
+        if self.device.type != 'cuda':
             self._write(self.fn(*self.inputs))
             return self.outputs
-        self._copied.record()
         if self._graph is None:
             self._capture()
-        self._graph.replay()
+        graphs.replay(self._graph, self.launches)
         self.replays += 1
-        kernel_tier.add_counts(self.launches)
         return self.outputs
 
     def _write(self, results):
@@ -145,25 +103,7 @@ class BoundStep(object):
         # outside the pool (see the module docstring), on the replay stream
         self.outputs = tuple(torch.empty_like(r) for r in results)
         del results
-        graph = torch.cuda.CUDAGraph()
-        before = kernel_tier.launch_counts()
-        # no cyclic collection inside the capture: freeing another graph or
-        # pinned memory there is an operation the capture does not permit
-        gc_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                self._write(self.fn(*self.inputs))
-        except Exception as e:
-            raise RuntimeError('capturing %s as a CUDA graph failed: %s'
-                               % (self.name, e)) from e
-        finally:
-            if gc_on:
-                gc.enable()
-        after = kernel_tier.launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
-        # the capture recorded these launches; the device ran none of them
-        kernel_tier.add_counts({k: -n for k, n in self.launches.items()})
-        self._graph = graph
+        self._graph, self.launches = graphs.capture(
+            lambda: self._write(self.fn(*self.inputs)), pool=self.pool,
+            name=self.name)
         self.captured = True

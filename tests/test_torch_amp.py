@@ -46,7 +46,7 @@ import pytest
 import torch
 
 import paddle_tpu as fluid
-from paddle_tpu import goodput, layers
+from paddle_tpu import goodput, layers, monitor
 from paddle_tpu.contrib import mixed_precision as jmp
 from paddle_tpu.models import bert as jbert
 from paddle_tpu.models.transformer import LMConfig as JLMConfig
@@ -85,6 +85,8 @@ def _fresh_goodput_window():
     restart the window after this module."""
     yield
     goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 @pytest.fixture(scope='module')

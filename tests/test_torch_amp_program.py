@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 
 import paddle_tpu as jfluid
-from paddle_tpu import goodput
+from paddle_tpu import goodput, monitor
 from paddle_tpu.contrib import mixed_precision as jmp
 from paddle_tpu.core import serialization as jser
 from paddle_tpu.models import bert as jbert
@@ -82,6 +82,8 @@ def _fresh_goodput_window():
     restart the window after this module."""
     yield
     goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 @pytest.fixture(scope='module')

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import paddle_tpu as fluid
-from paddle_tpu import goodput
+from paddle_tpu import goodput, monitor
 from paddle_tpu.models import bert as jbert
 
 from paddle_tpu_torch.io import params_from_numpy, train_state_from_numpy
@@ -45,6 +45,8 @@ def _fresh_goodput_window():
     worker see a cold one."""
     yield
     goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 @pytest.fixture(scope='module', autouse=True)

@@ -189,9 +189,51 @@ def test_flash_attention_kernel_rejects_bias_and_odd_head_width(dev):
     out = attention_ops.flash_attention(q, q, q, key_padding_bias=torch.zeros(
         1, 8, device=dev))
     assert _err(out, attention_ops.flash_attention(q, q, q)) == 0
-    q = _randn(dev, 2, 8, 48)
+    # widths up to 128 run zero-padded (test_flash_kernels_take_any_head_
+    # width); above 128 the kernels have no instantiation
+    q = _randn(dev, 2, 8, 160)
     with pytest.raises(ValueError, match='head width'):
         attention_ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('dh', [8, 48, 80, 96])
+def test_flash_kernels_take_any_head_width(dev, dh, dtype):
+    """The three flash kernels (f32 and bf16) at head widths between their
+    instantiations, which the wrappers zero-pad to the next one, on a small
+    causal shape with the key-padding bias: each launched once a call and
+    within its tolerance of its plain version at the true width (f32: O
+    and LSE 1e-4, gradients 1e-4 of their largest magnitude; bf16: O and
+    gradients 1e-2 of theirs, LSE 1e-5)."""
+    B, H, L = 3, 2, 100
+    q, k, v, do = (_randn(dev, B * H, L, dh, seed=s).to(dtype)
+                   for s in range(4))
+    args = (dh ** -0.5, True, _padding_bias(dev, B, L, False), H)
+    before = kernel_tier.launch_counts()
+    o, lse = attention_ops._flash_fwd(q, k, v, *args)
+    dq, dk, dv = attention_ops._flash_bwd(q, k, v, o, lse, do, *args)
+    torch.cuda.synchronize()
+    after = kernel_tier.launch_counts()
+    names = BF16_FLASH if dtype == torch.bfloat16 else (
+        'flash_attention', 'flash_attention_bwd_dq', 'flash_attention_bwd_dkv')
+    assert [after[n] - before[n] for n in names] == [1, 1, 1]
+    for t in (o, dq, dk, dv):
+        assert t.shape == q.shape and t.dtype == dtype and t.is_contiguous()
+    o_ref, lse_ref = attention_ops._attention_ref(q, k, v, *args)
+    want = attention_ops._flash_bwd_ref(q, k, v, o, lse, do, *args)
+    if dtype == torch.float32:
+        assert _err(o, o_ref) <= 1e-4 and _err(lse, lse_ref) <= 1e-4
+        tol = 1e-4
+    else:
+        assert _err(lse, lse_ref) <= 1e-5
+        assert _err(o.float(), o_ref.float()) <= \
+            1e-2 * float(o_ref.float().abs().max())
+        tol = 1e-2
+    for g, w in zip((dq, dk, dv), want):
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all()
+        assert _err(g, w) <= tol * max(1.0, float(w.abs().max()))
 
 
 def _ffn_operands(dev, n, d, f, with_mask=False):
@@ -1567,3 +1609,139 @@ def test_amp_program_training_on_the_card_matches_the_cpu(dev, model):
         for name, g, gw in zip(fetch[1:], got[1:], w[1:]):
             assert np.abs(g - gw).max() <= 2e-2 * max(np.abs(gw).max(),
                                                       1e-30), name
+
+
+def _bound_lm(dropout):
+    """(main, startup, loss) of the flash program at PROGRAM_LM's width with
+    ``dropout``, seeded, under ``Adam(1e-3, fuse=True)``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, _, loss = transformer.build_lm(transformer.LMConfig(
+            **dict(PROGRAM_LM, dropout=dropout)))
+        fluid.optimizer.Adam(1e-3, fuse=True).minimize(loss)
+    return main, startup, loss
+
+
+def _bound_lm_feeds(n):
+    rs = np.random.RandomState(1)
+    return [{k: rs.randint(0, 256, (3, 64)).astype('int64')
+             for k in ('tokens', 'labels')} for _ in range(n)]
+
+
+def _hold_bound_to_eager(got, want, got_scope, want_scope, names,
+                         lr=1e-3):
+    """Losses within 1e-4 relative, every parameter within 1e-3 of its
+    largest magnitude (chip_smoke.py's limits for a bound step, the f32
+    LM step's): the K slice of each ``*.attn.qkv.b``, whose true gradient
+    is 0 and whose Adam steps of lr follow rounding noise, within 10 x
+    lr."""
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    d = PROGRAM_LM['d_model']
+    for n in names:
+        have, ref = got_scope.get(n), want_scope.get(n)
+        if n.endswith('.attn.qkv.b'):
+            assert float((have[d:2 * d] - ref[d:2 * d]).abs().max()) <= \
+                10 * lr, n
+            have = torch.cat([have[:d], have[2 * d:]])
+            ref = torch.cat([ref[:d], ref[2 * d:]])
+        assert float((have - ref).abs().max()) <= \
+            1e-3 * float(ref.abs().max().clamp_min(1e-30)), n
+
+
+def test_bound_program_step_replays_the_eager_step(dev):
+    """``Executor().bind`` of the flash program with dropout 0.1: the bind
+    step is eager and captures the next one; each later call replays that
+    graph, launches exactly one step's kernels and follows the eager
+    ``run()`` trajectory of the same seed and run counters; a feed of
+    another shape raises and nothing is captured after ``bind``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    feeds = _bound_lm_feeds(5)
+    main, startup, loss = _bound_lm(0.1)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in scope.names()}
+    want = [float(exe.run(main, feed=f, fetch_list=[loss],
+                          scope=scope)[0][0]) for f in feeds]
+    main, _, loss = _bound_lm(0.1)
+    exe, bscope = fluid.Executor(), scope_from_numpy(init)
+    bp = exe.bind(main, feeds[0], fetch_list=[loss], scope=bscope)
+    assert bp.captures == 1 and bp.replays == 0
+    expected = program_step_launches(PROGRAM_LM['n_layer'])
+    assert bp.launches == {k: v for k, v in expected.items() if v}
+    got = [float(bp.first_out[0][0])]
+    for f in feeds[1:]:
+        before = kernel_tier.launch_counts()
+        got.append(float(bp(f)[0][0]))
+        after = kernel_tier.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == expected
+    assert bp.replays == len(feeds) - 1 and bp.captures == 1
+    _hold_bound_to_eager(got, want, bscope, scope,
+                         [p.name for p in main.all_parameters()])
+    with pytest.raises(ValueError, match='bound'):
+        bp(dict(feeds[0], tokens=feeds[0]['tokens'][:2]))
+
+
+def test_bound_dropout_masks_equal_run_masks_on_the_card(dev):
+    """Dropout 0.1 on a fed [64, 1024] tensor with its mask fetched: each
+    bound call (a replay, after the bind step) draws bitwise the mask that
+    ``run()`` draws at the same run index, and two consecutive calls draw
+    different masks."""
+    import paddle_tpu_torch as fluid
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = 11
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = fluid.layers.data(name='x', shape=[1024], dtype='float32')
+            fluid.layers.dropout(x, 0.1,
+                                 dropout_implementation='upscale_in_train')
+        return main, main.global_block().ops[-1].output('Mask')[0]
+
+    feed = {'x': np.ones((64, 1024), 'float32')}
+    main, mask = build()
+    exe = fluid.Executor()
+    want = [exe.run(main, feed=feed, fetch_list=[mask])[0]
+            for _ in range(4)]
+    main, mask = build()
+    bp = fluid.Executor().bind(main, feed, fetch_list=[mask])
+    got = [bp.first_out[0]] + [bp(feed)[0] for _ in range(3)]
+    assert bp.replays == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not np.array_equal(got[2], got[3])
+    assert 0.05 < 1 - got[3].mean() < 0.15
+
+
+def test_run_fused_on_the_card_equals_k_run_calls(dev):
+    """``run_fused`` over K batches stacked on the card (``steps`` 2K, so
+    it cycles them) against 2K ``run()`` calls: the same limits as the
+    bound step, and one replay's kernels a step after the first."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    feeds = _bound_lm_feeds(3)
+    main, startup, loss = _bound_lm(0.1)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in scope.names()}
+    want = [float(exe.run(main, feed=feeds[i % 3], fetch_list=[loss],
+                          scope=scope)[0][0]) for i in range(6)]
+    main, _, loss = _bound_lm(0.1)
+    exe, fscope = fluid.Executor(), scope_from_numpy(init)
+    stacked = {k: torch.from_numpy(np.stack([f[k] for f in feeds])).to(dev)
+               for k in feeds[0]}
+    first = exe.run_fused(main, stacked, fetch_list=[loss], scope=fscope,
+                          steps=3)
+    before = kernel_tier.launch_counts()
+    last = exe.run_fused(main, stacked, fetch_list=[loss], scope=fscope,
+                         steps=3)
+    after = kernel_tier.launch_counts()
+    expected = program_step_launches(PROGRAM_LM['n_layer'])
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: 3 * v for k, v in expected.items()}
+    _hold_bound_to_eager([float(first[0][0]), float(last[0][0])],
+                         [want[2], want[5]], fscope, scope,
+                         [p.name for p in main.all_parameters()])

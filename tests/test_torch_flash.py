@@ -193,3 +193,45 @@ def test_plain_backward_equals_autograd_of_plain_forward(causal, biased):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize('dh', [8, 48, 80, 96])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_head_width_padding_is_exact(dh, dtype):
+    """The card's wrappers run a head width outside the kernels' 16, 32,
+    64 and 128 by zero-padding q, k, v and dO along dh to the next of
+    those (`_kernel_width`, `_pad_dh`) and slicing O, dQ, dK and dV back:
+    the plain versions of the kernels on the padded operands, at the true
+    width's scale, give the unpadded results (within 1e-6 of each output's
+    largest magnitude: a longer sum of the same terms and zeros; bf16
+    results are compared in their own rounding), and the padded columns
+    are exactly 0. A width above 128 raises, as do operands of two
+    widths."""
+    q, k, v, do, bias = _data(9, True, (2, 2, 40, dh))
+    q, k, v, do = (_t(_flat(a)).to(dtype) for a in (q, k, v, do))
+    tb, scale = _t(bias), dh ** -0.5
+    w = attention_ops._kernel_width(dh)
+    assert w == {8: 16, 48: 64, 80: 128, 96: 128}[dh]
+    o, lse = attention_ops._attention_ref(q, k, v, scale, True, tb, 2)
+    want = (o,) + attention_ops._flash_bwd_ref(q, k, v, o, lse, do, scale,
+                                               True, tb, 2)
+    pq, pk, pv, pdo = attention_ops._pad_dh(w, q, k, v, do)
+    po, plse = attention_ops._attention_ref(pq, pk, pv, scale, True, tb, 2)
+    delta = attention_ops._delta(do, o)
+    got = (po, attention_ops._bwd_dq_ref(pq, pk, pv, pdo, plse, delta, scale,
+                                         True, tb, 2)) + \
+        attention_ops._bwd_dkv_ref(pq, pk, pv, pdo, plse, delta, scale, True,
+                                   tb, 2)
+    torch.testing.assert_close(plse, lse, rtol=0, atol=1e-6)
+    for g, wt in zip(got, want):
+        assert g.shape[-1] == w
+        assert torch.count_nonzero(g[..., dh:]) == 0
+        g = attention_ops._unpad(dh, g)[0]
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+        assert float((g.float() - wt.float()).abs().max()) <= \
+            tol * float(wt.float().abs().max())
+    with pytest.raises(ValueError, match='widths 1 to 128'):
+        attention_ops._kernel_width(160)
+    with pytest.raises(ValueError, match='one head width'):
+        attention_ops._pad_dh(w, q, k[..., :dh - 1])

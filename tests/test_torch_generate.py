@@ -5,7 +5,7 @@ The JAX engine initialises its parameters from its seed; the port's engine
 (``device='cpu'``) takes them by name through
 ``paddle_tpu_torch.io.params_from_numpy`` — straight from the JAX scope,
 and through ``paddle_tpu.io.save_params`` / ``paddle_tpu_torch.io
-.load_params``. Greedy tokens and seeded sampled tokens must be identical;
+.read_params``. Greedy tokens and seeded sampled tokens must be identical;
 first-token and decode-step logits agree within rtol 1e-4 / atol 1e-4
 (f32 through two layers, summed in other orders; the flash op on the JAX
 side runs its jnp reference on the CPU). The port's own continuous
@@ -18,12 +18,12 @@ import pytest
 import torch
 
 import paddle_tpu as fluid
-from paddle_tpu import goodput
+from paddle_tpu import goodput, monitor
 from paddle_tpu.models.transformer import LMConfig as JLMConfig
 from paddle_tpu.serving import GenerateConfig as JGenerateConfig
 from paddle_tpu.serving import GenerateEngine as JGenerateEngine
 
-from paddle_tpu_torch.io import load_params, params_from_numpy
+from paddle_tpu_torch.io import params_from_numpy, read_params
 from paddle_tpu_torch.models.transformer import LMConfig, param_shapes
 from paddle_tpu_torch.serving import (DeadlineExceededError,
                                       EngineStoppedError, GenerateConfig,
@@ -57,6 +57,8 @@ def _fresh_goodput_window():
     files in the same worker see a cold one."""
     yield
     goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 @pytest.fixture(scope='module')
@@ -115,7 +117,7 @@ def test_save_params_then_load_params_serves_same_tokens(
         fluid.io.save_params(jax_engine.executor, str(tmp_path),
                              main_program=jax_engine._step_prog,
                              filename=filename)
-    loaded = load_params(str(tmp_path), filename=filename)
+    loaded = read_params(str(tmp_path), filename=filename)
     eng = GenerateEngine(_port_cfg(), params=loaded, device='cpu')
     p = _prompt(10, 9)
     assert eng.generate_once(p, max_new_tokens=6) == \

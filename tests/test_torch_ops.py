@@ -19,6 +19,7 @@ import torch
 
 import jax.numpy as jnp
 import paddle_tpu as fluid
+from paddle_tpu import goodput, monitor
 from paddle_tpu.framework import Program, program_guard
 from paddle_tpu.ops import attention_ops as jattn
 from paddle_tpu.ops import embedding_ops as jemb
@@ -32,6 +33,16 @@ from paddle_tpu_torch.ops import (attention_ops, embedding_ops, ffn_ops,
 from paddle_tpu_torch.reader.bucketing import bucketize
 
 RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _fresh_goodput_window():
+    """Driving the JAX executor arms the process-wide goodput sentinels;
+    restart the window after this module."""
+    yield
+    goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 def _t(a):

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu import goodput
+from paddle_tpu import goodput, monitor
 from paddle_tpu.models.transformer import LMConfig as JLMConfig
 from paddle_tpu.serving import GenerateConfig as JGenerateConfig
 from paddle_tpu.serving import GenerateEngine as JGenerateEngine
@@ -78,6 +78,8 @@ def _fresh_goodput_window():
     window after this module (as tests/test_torch_generate.py does)."""
     yield
     goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ import pytest
 import torch
 
 import paddle_tpu as jfluid
-from paddle_tpu import goodput
+from paddle_tpu import goodput, monitor
 from paddle_tpu.core import serialization as jser
 from paddle_tpu.models import bert as jbert
 from paddle_tpu.models import transformer as jtrans
@@ -85,6 +85,8 @@ def _fresh_goodput_window():
     restart the window after this module."""
     yield
     goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 def _scope_arrays(scope):

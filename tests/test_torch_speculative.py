@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu import goodput
+from paddle_tpu import goodput, monitor
 from paddle_tpu.executor import Scope
 from paddle_tpu.models.transformer import KV_CACHE_K, KV_CACHE_V
 from paddle_tpu.models.transformer import LMConfig as JLMConfig
@@ -103,6 +103,8 @@ def _fresh_goodput_window():
     window after this module (as tests/test_torch_paged.py does)."""
     yield
     goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 @pytest.fixture(scope='module')

@@ -27,7 +27,7 @@ import torch
 import jax
 import jax.numpy as jnp
 import paddle_tpu as fluid
-from paddle_tpu import goodput
+from paddle_tpu import goodput, monitor
 from paddle_tpu.models.transformer import LMConfig as JLMConfig
 from paddle_tpu.models.transformer import build_lm
 from paddle_tpu.ops import ce_ops as jce
@@ -56,6 +56,8 @@ def _fresh_goodput_window():
     worker see a cold one."""
     yield
     goodput.reset()
+    # the monitor keeps at most 64 series a metric: leave it empty
+    monitor.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +193,32 @@ def test_embedding_backward_matches_jax_scatter(with_bias):
     np.testing.assert_array_equal(dw[17], ct[1] + ct[4])
     np.testing.assert_array_equal(dw[V - 2], ct[5])
     np.testing.assert_array_equal(dw[0], ct[2])     # 45 and -50: dropped
+
+
+def test_embedding_backward_of_a_tall_table_matches_jax_scatter():
+    """A table of more than 64 rows takes the sorted scatter-add
+    (``index_put_``) where a short one takes the one-hot product: the same
+    JAX scatter, repeated, wrapped and dropped ids included, and the two
+    forms give the same table gradient."""
+    rs = np.random.RandomState(2)
+    V, D = 100, 64
+    assert V > embedding_ops._ONE_HOT_ROWS
+    w = rs.randn(V, D).astype('float32')
+    ids = np.array([3, 77, 0, 99, 77, -2, 145, -150, 8, 77], 'int64')
+    ct = rs.randn(len(ids), D).astype('float32')
+    out_j, vjp = jax.vjp(lambda w_: jemb.embedding_gather(
+        w_, jnp.asarray(ids), None, impl='interpret'), jnp.asarray(w))
+    want, = vjp(jnp.asarray(ct))
+    tw = _t(w, grad=True)
+    embedding_ops.embedding_gather(tw, _t(ids)).backward(_t(ct))
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(tw.grad.numpy()[V - 2], ct[5])
+    rows = torch.arange(V)[:, None] == torch.where(
+        _t(ids) < 0, _t(ids) + V, _t(ids))[None, :]
+    one_hot = rows.float() @ _t(ct)
+    np.testing.assert_allclose(tw.grad.numpy(), one_hot.numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 def _adam_case(seed=3):
