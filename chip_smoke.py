@@ -285,6 +285,41 @@ Phases, each printing one JSON line:
    memory beside phase 16's; the bench's configuration then through
    ``run_fused`` as 15b (b) (``fused``), samples/s beside the eager step.
 
+17. inference — the bench's inference benchmark (bench.py:623
+   `_bench_inference`, rows bench.py:721-731) through the port's deploy
+   path: build, run the startup program (seeded), `save_inference_model`
+   into a temporary directory, `create_predictor` (the card) and one with
+   ``place=CPUPlace()`` on the same artifact, then ``Predictor.run``. (a)
+   ``bert_infer``: BERT-base, L 128, 20 masked positions, ``is_test``,
+   float32, batches from ``make_pretrain_batch`` (seed 0). (b)
+   ``resnet50_infer``: ``models.resnet.build('imagenet', depth=50)`` (3 x
+   224 x 224, 1000 classes, built without ``is_test`` as the bench builds
+   it: the export's clone puts its batch norms on the moving statistics),
+   seeded float32 images, with ``torch.backends.cudnn.allow_tf32`` at
+   torch's default (True) for the whole row: the conv lowering keeps
+   float32 by itself, and must leave the flag as it found it. Checks, each
+   failing the run: the card's B 2 outputs against the CPU predictor's
+   (BERT's loss within 1e-4 relative; ResNet's softmax input, fetched by
+   name through ``Executor.run`` of the pruned program, within 1e-4 of its
+   largest magnitude, the probabilities within 1e-4); the predictor
+   against ``Executor.run`` of the unpruned ``is_test`` program on the
+   card (BERT bitwise; ResNet within 1e-5 of the largest magnitude, its
+   ``bitwise`` printed); exact hand-written launches a call at B 1 and B
+   128, predicted from the pruned program's op list (`infer_launches`:
+   BERT the gather, LN forward, FFN, f32 flash forward and CE forward;
+   ResNet none); every parameter on the card after the first call and the
+   same tensor there after the last (no second upload); the
+   ``run_fused`` window launching k x a call's kernels and capturing one
+   graph. Prints per row the p50 ms of a call at B 1 and B 128 (9 rounds,
+   5 for a feed above 8 MB, each call from numpy feeds to numpy fetches),
+   ``machine_ms_b128`` (bench.py:566 `_machine_window`: ``run_fused`` over
+   k 8 and k 40 steps on 8 batches staged on the card, best of 3, the
+   slope), samples or images a second at B 128 (from the p50 and from
+   ``machine_ms``), peak memory above what earlier phases hold, a
+   torch.profiler breakdown of one B 128
+   call (device busy share, top kernels and ops; ResNet's convolution
+   share of device time) and the launches a call.
+
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
 the operations' time, where matrix-product flops (the FFN's two products,
@@ -412,6 +447,18 @@ BERT_CHECK_B = 4
 # the bench's AMP BERT row attends through the unfused branch: no flash
 AMP_BERT_UNFUSED_KERNELS = tuple(k for k in AMP_TRAIN_KERNELS
                                  if k not in AMP_FLASH_KERNELS)
+# phase 17: the bench's inference benchmark (bench.py:623-731) through
+# save_inference_model -> create_predictor -> Predictor.run: the batches it
+# times, its rounds (fewer for a feed above 8 MB), the batch held to the
+# CPU predictor, and the k of its differential run_fused window
+INFER_BATCHES = (1, 128)
+INFER_ROUNDS = 9
+INFER_ROUNDS_LARGE = 5
+INFER_CHECK_B = 2
+INFER_WINDOW = (8, 40)
+# the kernels BERT's inference call launches; ResNet-50's launches none
+BERT_INFER_KERNELS = ('embedding_gather', 'fused_ln_residual',
+                      'flash_attention', 'fused_ffn', 'softmax_ce_fwd')
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'engine_spec': PAGED_KERNELS,
                 'train': TRAIN_KERNELS,
@@ -431,7 +478,8 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'program_amp_fused': AMP_TRAIN_KERNELS,
                 'program_large_fused': AMP_TRAIN_KERNELS,
                 'program_seq8k_fused': AMP_TRAIN_KERNELS,
-                'program_bert_fused': AMP_BERT_UNFUSED_KERNELS}
+                'program_bert_fused': AMP_BERT_UNFUSED_KERNELS,
+                'bert_infer': BERT_INFER_KERNELS, 'resnet50_infer': ()}
 
 
 def emit(obj):
@@ -3349,6 +3397,290 @@ def run_program_bert(torch, kt, smi, bert_ref):
         torch.cuda.empty_cache()
     return out, by_path
 
+# ---------------------------------------------------------------------------
+# phase 17: the bench's inference benchmark through the deploy path
+
+
+def infer_launches(program):
+    """The hand-written launches one call of the pruned inference
+    ``program`` makes, predicted from its op list: a gather a
+    ``lookup_table``, an LN forward a ``fused_ln_residual``, a flash
+    forward a ``flash_attention`` (bf16 under an AMP mark), an FFN a
+    ``fused_ffn_tail`` without a mark, a CE forward a
+    ``softmax_with_cross_entropy`` with hard labels. Convolution, pooling
+    and batch norm launch none: they are library calls, as the JAX package
+    has no Pallas kernel there."""
+    from paddle_tpu_torch.core import amp
+    from paddle_tpu_torch.ops import kernel_tier as kt
+    out = dict.fromkeys(kt.KERNELS, 0)
+    for op in program.global_block().ops:
+        marked = bool(op.attr(amp.AMP_ATTR))
+        if op.type == 'lookup_table':
+            out['embedding_gather'] += 1
+        elif op.type == 'fused_ln_residual':
+            out['fused_ln_residual'] += 1
+        elif op.type == 'flash_attention':
+            out['flash_attention_bf16' if marked else 'flash_attention'] += 1
+        elif op.type == 'fused_ffn_tail' and not marked:
+            out['fused_ffn'] += 1
+        elif op.type == 'softmax_with_cross_entropy' and \
+                not op.attr('soft_label', False):
+            out['softmax_ce_fwd'] += 1
+    return out
+
+
+def machine_window(torch, kt, pred, feed, per_call):
+    """bench.py:566 `_machine_window` on the port: ``run_fused`` of the
+    predictor's own program for k1 and for k2 steps over k1 batches staged
+    on the card (a float feed above 1 MB drawn there from a seeded
+    generator, as the bench draws it; the others stacked from ``feed``),
+    each after one untimed call, best of 3 timed calls; ``machine_ms`` is
+    the slope (t(k2) - t(k1)) / (k2 - k1), measured once more if the pair
+    is not increasing, else None with the windows kept. Then one call of
+    k1 steps must launch k1 x ``per_call`` and the bound plan must have
+    captured once."""
+    import paddle_tpu_torch as fluid
+    k1, k2 = INFER_WINDOW
+    dev = pred.executor.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    stacked = {}
+    for name, v in feed.items():
+        a = np.asarray(v)
+        if a.dtype.kind == 'f' and a.nbytes > (1 << 20):
+            stacked[name] = torch.randn((k1,) + a.shape, generator=g,
+                                        device=dev)
+        else:
+            stacked[name] = torch.from_numpy(np.stack([a] * k1)).to(dev)
+
+    def fused(steps):
+        with fluid.scope_guard(pred.scope):
+            return pred.executor.run_fused(pred.program, stacked,
+                                           fetch_list=pred.fetch_vars,
+                                           steps=steps)
+
+    def timed(steps):
+        fused(steps)
+        best = float('inf')
+        for _ in range(3):
+            t = time.perf_counter()
+            fused(steps)
+            best = min(best, time.perf_counter() - t)
+        return best
+
+    t1, t2 = timed(k1), timed(k2)
+    if t2 <= t1:
+        t1, t2 = timed(k1), timed(k2)
+    kt.reset_counts()
+    last = fused(k1)
+    counts = kt.launch_counts()
+    want = {k: k1 * v for k, v in per_call.items()}
+    if counts != want:
+        raise AssertionError('%d fused inference steps launched %s, not %s'
+                             % (k1, counts, want))
+    plans = [e.bound[pred.scope] for _, e in pred.executor._cache.items()
+             if pred.scope in e.bound]
+    if [p.captures for p in plans] != [1]:
+        raise AssertionError('the run_fused window captured %s graphs'
+                             % [p.captures for p in plans])
+    if not all(np.isfinite(np.asarray(o)).all() for o in last):
+        raise AssertionError('non-finite fused inference outputs')
+    return dict(k=[k1, k2], best_s=[t1, t2],
+                machine_ms=(t2 - t1) * 1e3 / (k2 - k1) if t2 > t1 else None,
+                replays=plans[0].replays, captures=plans[0].captures)
+
+
+def infer_row(torch, kt, row, build, make_feed, hold):
+    """One row of bench.py:623 `_bench_inference` (module docstring, phase
+    17): build, run the startup program, `save_inference_model`,
+    `create_predictor` on the card and on the CPU, the checks, then the
+    timings. ``hold(card_pred, cpu_pred, feed, out)`` holds the card's B 2
+    outputs to the CPU's and returns the card's fetches. Returns (summary,
+    the launch counts of one B 128 call)."""
+    import tempfile
+    import paddle_tpu_torch as fluid
+    # what earlier phases still hold: the row's peaks are counted above it
+    out = dict(row=row, base_mem_bytes=torch.cuda.memory_allocated())
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds, targets = build()
+    exe, scope = fluid.Executor(), fluid.Scope()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_infer_') as d:
+        with fluid.scope_guard(scope):
+            exe.run(startup, scope=scope)
+            t = time.perf_counter()
+            fluid.io.save_inference_model(d, feeds, targets, exe,
+                                          main_program=main)
+            out['save_s'] = time.perf_counter() - t
+        t = time.perf_counter()
+        pred = fluid.create_predictor(d)
+        out['load_s'] = time.perf_counter() - t
+        cpu = fluid.create_predictor(fluid.PredictorConfig(
+            d, place=fluid.CPUPlace()))
+    per_call = infer_launches(pred.program)
+    out['pruned_ops'] = len(pred.program.global_block().ops)
+    # (ResNet-50's is empty: its call launches no hand-written kernel)
+    out['launches_per_call'] = {k: v for k, v in per_call.items() if v}
+    out['hand_written_launches_per_call'] = sum(per_call.values())
+
+    # the B 2 outputs against the CPU predictor on the same artifact, then
+    # against Executor.run of the unpruned is_test program on the card
+    feed = make_feed(INFER_CHECK_B)
+    got = hold(pred, cpu, feed, out)
+    held = {n: pred.scope.get(n) for n in pred.scope.names()}
+    if not all(isinstance(v, torch.Tensor) and v.is_cuda
+               for v in held.values()):
+        raise AssertionError('%s: the predictor\'s parameters are not on '
+                             'the card after its first call' % row)
+    ref = exe.run(main.clone(for_test=True), feed=feed, fetch_list=targets,
+                  scope=scope)
+    err = max(float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30))
+              for g, r in zip(got, ref))
+    out['unpruned'] = dict(bitwise=all(np.array_equal(g, r)
+                                       for g, r in zip(got, ref)),
+                           rel_err=err)
+    if not (out['unpruned']['bitwise'] if row == 'bert_infer'
+            else err <= 1e-5):
+        emit(out)
+        raise AssertionError('%s: the predictor against the unpruned '
+                             'is_test program: %s' % (row, out['unpruned']))
+    del exe, scope, cpu
+
+    # exact launches a call; the p50 of a call at each batch
+    for b in INFER_BATCHES:
+        feed = make_feed(b)
+        pred.run(feed)
+        kt.reset_counts()
+        pred.run(feed)
+        counts = kt.launch_counts()
+        if counts != per_call:
+            emit(out)
+            raise AssertionError('%s: a B %d call launched %s, the pruned '
+                                 'program predicts %s'
+                                 % (row, b, counts, per_call))
+        if b == INFER_BATCHES[-1]:
+            main_counts = counts
+        nbytes = sum(np.asarray(v).nbytes for v in feed.values())
+        rounds = INFER_ROUNDS_LARGE if nbytes > (8 << 20) else INFER_ROUNDS
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(rounds):
+            t = time.perf_counter()
+            pred.run(feed)
+            times.append((time.perf_counter() - t) * 1e3)
+        out['p50_ms_b%d' % b] = sorted(times)[len(times) // 2]
+        out['rounds_b%d' % b] = rounds
+        out['feed_bytes_b%d' % b] = nbytes
+        out['peak_mem_bytes_b%d' % b] = \
+            torch.cuda.max_memory_allocated() - out['base_mem_bytes']
+    b = INFER_BATCHES[-1]
+    out['per_s_b%d' % b] = b / (out['p50_ms_b%d' % b] / 1e3)
+    out['step_profile_b%d' % b] = step_profile(torch, lambda: pred.run(feed),
+                                               steps=1)
+    win = machine_window(torch, kt, pred, feed, per_call)
+    out['machine_window_b%d' % b] = win
+    out['machine_ms_b%d' % b] = win['machine_ms']
+    if win['machine_ms']:
+        out['machine_per_s_b%d' % b] = b / (win['machine_ms'] / 1e3)
+    if not all(pred.scope.get(n) is v for n, v in held.items()):
+        raise AssertionError('%s: a parameter was uploaded again after the '
+                             'first call' % row)
+    out['params_uploaded_once'] = True
+    return out, main_counts
+
+
+def run_inference(torch, kt, smi):
+    """Phase 17 (module docstring). Returns (summaries, {path: the launch
+    counts of its B 128 call})."""
+    from paddle_tpu_torch.models import bert, resnet
+    bcfg = bert.BertConfig(seq_len=128, max_predictions=20)
+    by_path = {}
+
+    def bert_build():
+        total, _, _ = bert.build_bert_pretrain(bcfg, is_test=True)
+        return ['tokens', 'segments', 'input_mask', 'mlm_positions',
+                'mlm_labels', 'nsp_labels'], [total]
+
+    rs = np.random.RandomState(0)
+
+    def bert_feed(b):
+        return bert.make_pretrain_batch(bcfg, b, rs)
+
+    def bert_hold(pred, cpu, feed, out):
+        got, want = pred.run(feed), cpu.run(feed)
+        rel = float(abs(got[0][0] - want[0][0]) / abs(want[0][0]))
+        out['cpu_check'] = dict(batch=INFER_CHECK_B, loss=float(got[0][0]),
+                                cpu_loss=float(want[0][0]), rel_err=rel)
+        if not (np.isfinite(got[0]).all() and rel <= 1e-4):
+            emit(out)
+            raise AssertionError('bert_infer: the card\'s loss %s against '
+                                 'the CPU\'s %s' % (got, want))
+        return got
+
+    bert_out, by_path['bert_infer'] = infer_row(torch, kt, 'bert_infer',
+                                                bert_build, bert_feed,
+                                                bert_hold)
+    bert_out.update(phase='infer_bert', card=smi, config=dict(
+        seq_len=bcfg.seq_len, max_predictions=bcfg.max_predictions,
+        d_model=bcfg.d_model, n_layer=bcfg.n_layer, is_test=True))
+    emit(bert_out)
+    torch.cuda.empty_cache()
+
+    def resnet_build():
+        _, _, pred, _, _ = resnet.build('imagenet', depth=50)
+        return ['img'], [pred]
+
+    def resnet_feed(b):
+        return {'img': rs.randn(b, 3, 224, 224).astype('float32')}
+
+    def resnet_hold(pred, cpu, feed, out):
+        got, want = pred.run(feed), cpu.run(feed)
+        logits = [op for op in pred.program.global_block().ops
+                  if op.type == 'softmax'][-1].input('X')[0]
+        g = pred.executor.run(pred.program, feed=feed, fetch_list=[logits],
+                              scope=pred.scope)[0]
+        w = cpu.executor.run(cpu.program, feed=feed, fetch_list=[logits],
+                             scope=cpu.scope)[0]
+        err = float(np.abs(g - w).max() / np.abs(w).max())
+        out['cpu_check'] = dict(
+            batch=INFER_CHECK_B, logits=logits, logits_rel_err=err,
+            logits_max_abs=float(np.abs(w).max()),
+            probs_abs_err=float(np.abs(got[0] - want[0]).max()),
+            tf32_flag=bool(torch.backends.cudnn.allow_tf32))
+        if not (np.isfinite(g).all() and err <= 1e-4 and
+                out['cpu_check']['probs_abs_err'] <= 1e-4):
+            emit(out)
+            raise AssertionError('resnet50_infer: the card\'s logits %g of '
+                                 'their largest magnitude off the CPU\'s'
+                                 % err)
+        return got
+
+    # cuDNN's default (TF32 convolutions): the conv lowering keeps float32
+    # by itself
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        res_out, by_path['resnet50_infer'] = infer_row(
+            torch, kt, 'resnet50_infer', resnet_build, resnet_feed,
+            resnet_hold)
+        if torch.backends.cudnn.allow_tf32 is not True:
+            raise AssertionError('the conv lowering left cuDNN\'s TF32 flag '
+                                 'changed')
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    prof = res_out['step_profile_b%d' % INFER_BATCHES[-1]]
+    conv_ms = sum(o['ms_per_step'] for o in prof['top_ops']
+                  if 'conv' in o['name'])
+    res_out.update(phase='infer_resnet50', card=smi,
+                   conv_device_share=conv_ms / prof['device_ms_per_step']
+                   if prof['device_ms_per_step'] else None,
+                   config=dict(variant='imagenet', depth=50,
+                               image=[3, 224, 224], classes=1000,
+                               is_test=False, cudnn_allow_tf32=True))
+    emit(res_out)
+    torch.cuda.empty_cache()
+    return by_path
+
 
 def main():
     t_start = time.perf_counter()
@@ -3541,6 +3873,8 @@ def main():
     by_path.update(paths)
     emit(program_bert)
     del program_bert
+    torch.cuda.empty_cache()
+    by_path.update(run_inference(torch, kt, smi))
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {

@@ -7,7 +7,9 @@ It ports the Fluid front end: a ``Program`` built with ``layers``,
 ``run_fused`` replaying a CUDA graph of the run plan, and ``io``'s save
 and load functions (so ``import paddle_tpu_torch as fluid`` runs the JAX
 package's quick start and `models.transformer.build_lm` on the card);
-the flagship causal LM's
+the deploy path (``io.save_inference_model`` prunes a program for
+inference, ``create_predictor`` serves it) with ResNet as a program
+(``models.resnet``: conv2d, batch_norm, pool2d); the flagship causal LM's
 continuous-batching decode engine (``serving.GenerateEngine``), its
 training step as a model (``models.transformer.TransformerLM.loss`` with
 ``optimizer.TensorAdam``) and BERT-base pretraining
@@ -33,10 +35,15 @@ from .framework import (CPUPlace, CUDAPlace, Parameter, Program, Variable,
 from .ops.kernel_tier import launch_counts, reset_counts
 from .param_attr import ParamAttr
 from . import io
+from .io import load_inference_model, save_inference_model
+from . import inference
+from .inference import Predictor, PredictorConfig, create_predictor
 
 __all__ = ['CPUPlace', 'CUDAPlace', 'resolve_device', 'launch_counts',
            'reset_counts', 'Program', 'Variable', 'Parameter',
            'default_main_program', 'default_startup_program',
            'program_guard', 'Executor', 'Scope', 'global_scope',
            'scope_guard', 'ParamAttr', 'append_backward', 'layers',
-           'optimizer', 'initializer', 'unique_name', 'io']
+           'optimizer', 'initializer', 'unique_name', 'io',
+           'save_inference_model', 'load_inference_model', 'inference',
+           'PredictorConfig', 'Predictor', 'create_predictor']

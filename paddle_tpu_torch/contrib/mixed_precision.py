@@ -69,8 +69,9 @@ class AutoMixedPrecisionLists(object):
             self.black_list.add(t)
 
 
-_NO_KEEP_ACTIVATIONS = ('keep_bf16_activations: the port lowers no conv2d, '
-                        'depthwise_conv2d or batch_norm op')
+_NO_KEEP_ACTIVATIONS = ('keep_bf16_activations: the conv-net bandwidth mode '
+                        '(bf16 conv2d, depthwise_conv2d and batch_norm '
+                        'outputs) waits for the image training slice')
 
 
 def rewrite_program_bf16(program, amp_lists=None, dtype='bfloat16',
@@ -81,7 +82,7 @@ def rewrite_program_bf16(program, amp_lists=None, dtype='bfloat16',
     Returns the count of white-listed ops marked.
     ``keep_bf16_activations`` (the JAX package's conv-net bandwidth mode,
     which keeps conv2d, depthwise_conv2d and batch_norm outputs bf16)
-    raises: the port lowers none of those ops."""
+    raises: it waits for the image training slice."""
     if keep_bf16_activations:
         raise NotImplementedError(_NO_KEEP_ACTIVATIONS)
     amp_lists = amp_lists or AutoMixedPrecisionLists()

@@ -341,6 +341,64 @@ class Program(object):
         p._bump_version()
         return p
 
+    def _prune(self, targets):
+        """A clone that keeps only the ops needed to compute ``targets``
+        (names or Variables), walking back from them: a kept op's reads
+        become needed; an op with a ``sub_block`` is kept when the
+        sub-block (with its own sub-blocks) writes a needed var, and then
+        the sub-block's reads become needed too (sub-blocks stay whole).
+        Vars that no kept op touches are dropped, but for persistables and
+        the targets. Used by ``io.save_inference_model``."""
+        names = set(t.name if isinstance(t, Variable) else t
+                    for t in targets)
+        p = self.clone()
+
+        def block_io(bidx, seen):
+            """(reads, writes) of a block and its nested sub-blocks."""
+            if bidx in seen:
+                return set(), set()
+            seen.add(bidx)
+            reads, writes = set(), set()
+            for op in p.block(bidx).ops:
+                reads.update(op.input_arg_names)
+                writes.update(op.output_arg_names)
+                sb = op.attrs.get('sub_block')
+                if isinstance(sb, int):
+                    r, w = block_io(sb, seen)
+                    reads |= r
+                    writes |= w
+            return reads, writes
+
+        def op_io(op):
+            reads, writes = set(op.input_arg_names), \
+                set(op.output_arg_names)
+            sb = op.attrs.get('sub_block')
+            if isinstance(sb, int):
+                r, w = block_io(sb, set())
+                reads |= r
+                writes |= w
+            return reads, writes
+
+        gb = p.global_block()
+        needed = set(names)
+        kept = []
+        for op in reversed(gb.ops):
+            reads, writes = op_io(op)
+            if writes & needed or op.type == 'feed':
+                kept.append(op)
+                needed |= reads
+        kept.reverse()
+        gb.ops = kept
+        used = set()
+        for op in kept:
+            reads, writes = op_io(op)
+            used |= reads | writes
+        gb.vars = collections.OrderedDict(
+            (k, v) for k, v in gb.vars.items()
+            if k in used or k in names or v.persistable)
+        p._bump_version()
+        return p
+
     def list_vars(self):
         for block in self.blocks:
             for v in block.vars.values():

@@ -12,6 +12,17 @@ two packages read each other's. They save from and load into
 the executor uploads at its first read (or a bound program copies into
 the tensor its graph holds).
 
+`save_inference_model` writes a program pruned for inference (its
+``Backward`` and ``Optimize`` ops stripped, then `Program._prune` to the
+targets, then the persistables no remaining op touches dropped) as
+``__model__``, `core/serialization.program_to_dict` with ``feed_names``
+and ``fetch_names`` beside it, and every persistable it still touches
+(batch norm's moving statistics too) in ``__params__.npz``;
+`load_inference_model` reads it back as (program, feed_names,
+fetch_vars). The files are the JAX package's: an artifact written by
+either package loads in the other. `export_stablehlo_model` and
+`load_stablehlo_model` (XLA formats) raise NotImplementedError.
+
 `read_params` returns such a directory's arrays by name, and
 `params_from_numpy` maps those names onto the port's `TransformerLM` or
 `BertPretrain` state (a scope whose names start with ``bert.`` is BERT's),
@@ -21,6 +32,8 @@ rate) apart for the model and `optimizer.TensorAdam`. `scope_from_numpy`
 puts every array of a JAX scope, by name, into a port `Scope` for the
 Executor.
 """
+import collections
+import json
 import os
 import re
 import tempfile
@@ -29,6 +42,7 @@ import numpy as np
 import torch
 
 from .executor import Scope, _to_numpy, global_scope
+from .core import serialization as _ser
 from .framework import (Parameter, Variable, default_main_program,
                         resolve_device)
 from .models import bert
@@ -36,8 +50,9 @@ from .models.transformer import LMConfig, param_shapes
 
 __all__ = ['save_vars', 'save_params', 'save_persistables', 'load_vars',
            'load_params', 'load_persistables', 'get_program_parameter',
-           'read_params', 'params_from_numpy', 'train_state_from_numpy',
-           'scope_from_numpy']
+           'save_inference_model', 'load_inference_model',
+           'export_stablehlo_model', 'load_stablehlo_model', 'read_params',
+           'params_from_numpy', 'train_state_from_numpy', 'scope_from_numpy']
 
 # decode-engine state the JAX package keeps in the same scope: not weights
 _IGNORED = ('gen_kv_k', 'gen_kv_v')
@@ -150,6 +165,88 @@ def load_persistables(executor, dirname, main_program=None, filename=None):
 
 def get_program_parameter(program):
     return program.all_parameters()
+
+
+MODEL_FILENAME = '__model__'
+PARAMS_FILENAME = '__params__.npz'
+
+
+def _prune_for_inference(main_program, target_names):
+    """``clone(for_test=True)``, the ``Backward`` and ``Optimize`` ops
+    stripped, then `Program._prune`. The strip comes first: an optimizer
+    op writes its parameter under the parameter's own name, so pruning by
+    dependence alone would keep the whole backward and optimizer."""
+    program = main_program.clone(for_test=True)
+    gb = program.global_block()
+    gb.ops = [op for op in gb.ops
+              if op.role not in ('Backward', 'Optimize')]
+    program._bump_version()
+    return program._prune(target_names)
+
+
+def save_inference_model(dirname, feeded_var_names, target_vars, executor,
+                         main_program=None, model_filename=None,
+                         params_filename=None, export_for_deployment=True):
+    """Prune ``main_program`` (default: the default main program) to the
+    feeds and ``target_vars`` and write it under ``dirname`` with the
+    `global_scope()` values of the persistables it reads. Returns the
+    target names."""
+    if main_program is None:
+        main_program = default_main_program()
+    if isinstance(feeded_var_names, str):
+        feeded_var_names = [feeded_var_names]
+    if isinstance(target_vars, Variable):
+        target_vars = [target_vars]
+    target_names = [t.name for t in target_vars]
+    pruned = _prune_for_inference(main_program, target_names)
+    # _prune keeps every persistable: drop those no remaining op touches
+    # (optimizer accumulators, the learning rate)
+    used = set(target_names)
+    for block in pruned.blocks:
+        for op in block.ops:
+            used.update(op.input_arg_names)
+            used.update(op.output_arg_names)
+    gb = pruned.global_block()
+    gb.vars = collections.OrderedDict(
+        (k, v) for k, v in gb.vars.items() if k in used or not v.persistable)
+    pruned._bump_version()
+    os.makedirs(dirname, exist_ok=True)
+    blob = _ser.program_to_dict(pruned)
+    blob['feed_names'] = list(feeded_var_names)
+    blob['fetch_names'] = target_names
+    _publish(os.path.join(dirname, model_filename or MODEL_FILENAME),
+             lambda f: f.write(json.dumps(blob).encode()))
+    save_persistables(executor, dirname, pruned,
+                      filename=params_filename or PARAMS_FILENAME)
+    return target_names
+
+
+def load_inference_model(dirname, executor, model_filename=None,
+                         params_filename=None, pserver_endpoints=None):
+    """Read what `save_inference_model` (of either package) wrote: the
+    persistables go into `global_scope()` as numpy arrays; returns
+    (program, feed_names, fetch_vars)."""
+    with open(os.path.join(dirname, model_filename or MODEL_FILENAME)) as f:
+        blob = json.load(f)
+    program = _ser.program_from_dict(blob)
+    load_persistables(executor, dirname, program,
+                      filename=params_filename or PARAMS_FILENAME)
+    fetch_vars = [program.global_block().var(n) for n in blob['fetch_names']]
+    return program, blob['feed_names'], fetch_vars
+
+
+def export_stablehlo_model(*args, **kwargs):
+    raise NotImplementedError(
+        'export_stablehlo_model writes an XLA (StableHLO) artifact; its '
+        'counterpart in paddle_tpu_torch (a torch.export one, or none) is '
+        'still to be decided (ROADMAP Queue 1 item 4)')
+
+
+def load_stablehlo_model(*args, **kwargs):
+    raise NotImplementedError(
+        'load_stablehlo_model reads an XLA (StableHLO) artifact; its '
+        'counterpart in paddle_tpu_torch (a torch.export one, or none) is '
+        'still to be decided (ROADMAP Queue 1 item 4)')
 
 
 def read_params(dirname, filename=None):

@@ -6,17 +6,19 @@ slice's programs call: ``fc``, ``embedding``, ``square_error_cost``,
 ``fused_layer_norm_residual``, ``fused_ffn_tail``, ``matmul``, ``mean``,
 ``reduce_sum``, ``dropout``, ``add_position_encoding``, ``scale``, ``reshape``,
 ``transpose``, ``squeeze``, ``slice``, ``gather``, ``softmax`` and
-``elementwise_add``/``_sub``. Each appends the JAX layer's op with the same
-slots, attrs and static output shapes; the computation is the op's
-lowering (ops/*).
+``elementwise_add``/``_sub``, and the image layers ``conv2d``, ``pool2d``,
+``batch_norm`` and ``cross_entropy`` (models/resnet.py). Each appends the
+JAX layer's op with the same slots, attrs and static output shapes; the
+computation is the op's lowering (ops/*).
 """
 from ..layer_helper import LayerHelper
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
 
 __all__ = [
-    'fc', 'embedding', 'dropout', 'softmax', 'square_error_cost',
-    'softmax_with_cross_entropy', 'layer_norm', 'fused_layer_norm_residual',
+    'fc', 'embedding', 'dropout', 'softmax', 'cross_entropy',
+    'square_error_cost', 'softmax_with_cross_entropy', 'conv2d', 'pool2d',
+    'batch_norm', 'layer_norm', 'fused_layer_norm_residual',
     'fused_ffn_tail', 'matmul', 'reshape', 'squeeze', 'transpose', 'mean',
     'reduce_sum',
     'elementwise_add', 'elementwise_sub', 'slice', 'gather', 'scale',
@@ -105,6 +107,15 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
 # Losses
 # ---------------------------------------------------------------------------
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper('cross_entropy')
+    out_shape = tuple(input.shape[:-1]) + (1,)
+    return _simple(helper, 'cross_entropy', input, out_shape=out_shape,
+                   inputs={'X': [input], 'Label': [label]},
+                   attrs={'soft_label': soft_label,
+                          'ignore_index': ignore_index}, out_slot='Y')
+
+
 def square_error_cost(input, label):
     helper = LayerHelper('square_error_cost')
     minus_out = _simple(helper, 'elementwise_sub', input,
@@ -129,6 +140,130 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+# ---------------------------------------------------------------------------
+# Convolution, pooling and batch norm
+# ---------------------------------------------------------------------------
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+def _conv_out(i, k, p, s, d=1):
+    if i is None or i < 0:
+        return -1
+    return (i + 2 * p - (d * (k - 1) + 1)) // s + 1
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """NCHW convolution with an OIHW filter (default initializer
+    ``Normal(0, (2 / fan_in) ** 0.5)``), then the bias over dim 1, then
+    ``act``."""
+    helper = LayerHelper('conv2d', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    n, c = input.shape[0], input.shape[1]
+    groups = groups or 1
+    fsize = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, c // groups] + fsize
+    fan_in = (c // groups) * fsize[0] * fsize[1]
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5))
+    oh = _conv_out(input.shape[2], fsize[0], padding[0], stride[0],
+                   dilation[0])
+    ow = _conv_out(input.shape[3], fsize[1], padding[1], stride[1],
+                   dilation[1])
+    pre_bias = helper.create_variable_for_type_inference(
+        dtype, shape=(n, num_filters, oh, ow))
+    helper.append_op(
+        type='conv2d', inputs={'Input': [input], 'Filter': [w]},
+        outputs={'Output': [pre_bias]},
+        attrs={'strides': stride, 'paddings': padding, 'dilations': dilation,
+               'groups': groups, 'use_cudnn': use_cudnn})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper('pool2d', name=name)
+    ksize = _pair(pool_size)
+    stride = _pair(pool_stride)
+    padding = _pair(pool_padding)
+    n, c, h, w = input.shape
+    if global_pooling:
+        oh = ow = 1
+    else:
+        def _po(i, k, p, s):
+            if i is None or i < 0:
+                return -1
+            if ceil_mode:
+                return -(-(i + 2 * p - k) // s) + 1
+            return (i + 2 * p - k) // s + 1
+        oh = _po(h, ksize[0], padding[0], stride[0])
+        ow = _po(w, ksize[1], padding[1], stride[1])
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=(n, c, oh, ow))
+    helper.append_op(
+        type='pool2d', inputs={'X': [input]}, outputs={'Out': [out]},
+        attrs={'pooling_type': pool_type, 'ksize': ksize,
+               'global_pooling': global_pooling, 'strides': stride,
+               'paddings': padding, 'ceil_mode': ceil_mode,
+               'exclusive': exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Batch norm over the channel axis. The moving mean and variance are
+    global persistable variables ``<name>.mean`` and ``<name>.variance``
+    (initialized to 0 and 1), which the op reads as ``Mean`` and
+    ``Variance`` and writes back in place as ``MeanOut`` and
+    ``VarianceOut``."""
+    helper = LayerHelper('batch_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == 'NCHW' else input.shape[-1]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=[c],
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr or ParamAttr(),
+                                   shape=[c], dtype=dtype, is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        name=moving_mean_name or helper.name + '.mean',
+        dtype=dtype, shape=(c,))
+    helper.set_variable_initializer(mean, Constant(0.0))
+    variance = helper.create_or_get_global_variable(
+        name=moving_variance_name or helper.name + '.variance',
+        dtype=dtype, shape=(c,))
+    helper.set_variable_initializer(variance, Constant(1.0))
+    saved_mean = helper.create_variable_for_type_inference(dtype, shape=(c,))
+    saved_var = helper.create_variable_for_type_inference(dtype, shape=(c,))
+    out = helper.create_variable_for_type_inference(dtype, shape=input.shape)
+    helper.append_op(
+        type='batch_norm',
+        inputs={'X': [input], 'Scale': [scale], 'Bias': [bias],
+                'Mean': [mean], 'Variance': [variance]},
+        outputs={'Y': [out], 'MeanOut': [mean], 'VarianceOut': [variance],
+                 'SavedMean': [saved_mean], 'SavedVariance': [saved_var]},
+        attrs={'momentum': momentum, 'epsilon': epsilon, 'is_test': is_test,
+               'data_layout': data_layout,
+               'use_global_stats': use_global_stats})
+    return helper.append_activation(out)
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,6 @@
 PyTorch version beside it (ops/kernel_tier.py states the dispatch rule).
 Importing the package registers every program op's lowering
 (core/registry.py) with the module that holds it."""
-from . import (activations, attention_ops, embedding_ops,  # noqa: F401
-               ffn_ops, math_ops, meta, nn_ops, optimizer_ops, random_ops,
-               tensor_ops)
+from . import (activations, attention_ops, conv_ops,  # noqa: F401
+               embedding_ops, ffn_ops, math_ops, meta, metrics_ops, nn_ops,
+               optimizer_ops, random_ops, tensor_ops)

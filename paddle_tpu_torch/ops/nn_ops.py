@@ -20,9 +20,12 @@ The program ops (paddle_tpu/ops/nn_ops.py): `fused_ln_residual` calls
 :func:`fused_ln_residual` where the JAX op is fusable (scale and bias
 given, the normalized axis the last), and otherwise runs the JAX op's own
 composition, elementwise_add then layer_norm over ``begin_norm_axis``..;
-`layer_norm`, `softmax` and `softmax_with_cross_entropy` (hard labels:
-ce_ops.fused_softmax_ce on [N, V] logits; soft labels: log-softmax) as the
-JAX lowerings compute them.
+`layer_norm`, `softmax`, `softmax_with_cross_entropy` (hard labels:
+ce_ops.fused_softmax_ce on [N, V] logits; soft labels: log-softmax) and
+`cross_entropy` (of probabilities clipped to [1e-20, 1]; a hard label is
+picked as ``jnp.take_along_axis`` picks it: a negative one wraps, one out
+of range gives NaN, ``ignore_index`` gives 0) as the JAX lowerings compute
+them.
 """
 import ctypes
 
@@ -224,6 +227,23 @@ def _fused_ln_residual_op(ctx, op):
 @register_op('softmax')
 def _softmax_op(ctx, op):
     ctx.out(op, 'Out', torch.softmax(ctx.in1(op, 'X'), dim=-1))
+
+
+@register_op('cross_entropy')
+def _cross_entropy_op(ctx, op):
+    x, label = ctx.in1(op, 'X'), ctx.in1(op, 'Label')
+    xc = x.clamp(1e-20, 1.0)
+    if op.attr('soft_label', False):
+        ctx.out(op, 'Y', -(label * torch.log(xc)).sum(dim=-1, keepdim=True))
+        return
+    lab = label.reshape(-1).to(torch.int32)
+    n = xc.shape[-1]
+    idx = torch.where(lab < 0, lab + n, lab).long()
+    valid = ((idx >= 0) & (idx < n))[:, None]
+    p = torch.gather(xc, -1, idx.clamp(0, n - 1)[:, None])
+    out = -torch.log(torch.where(valid, p, p.new_tensor(float('nan'))))
+    keep = (lab != op.attr('ignore_index', -100))[:, None]
+    ctx.out(op, 'Y', torch.where(keep, out, out.new_zeros(())))
 
 
 @register_op('softmax_with_cross_entropy')

@@ -11,7 +11,8 @@ The program ops `reshape2` (0 copies a dimension, -1 is inferred),
 `transpose2`, `slice` and `squeeze2` are views where torch can make one;
 their ``XShape`` output (an empty [0, *x.shape] tensor in the JAX package)
 is made only when something reads it. `gather` (BERT's masked positions)
-is :func:`gather`.
+is :func:`gather`. `top_k` (``layers.accuracy``) is ``torch.topk`` over
+the last axis, largest first, its indices int64.
 """
 import numpy as np
 import torch
@@ -147,6 +148,13 @@ def _axis_slices(ctx, name, axis):
 @register_op('gather')
 def _gather(ctx, op):
     ctx.out(op, 'Out', gather(ctx.in1(op, 'X'), ctx.in1(op, 'Index')))
+
+
+@register_op('top_k')
+def _top_k(ctx, op):
+    vals, idx = torch.topk(ctx.in1(op, 'X'), op.attr('k', 1), dim=-1)
+    ctx.out(op, 'Out', vals)
+    ctx.out(op, 'Indices', idx)
 
 
 @register_op('add_position_encoding')

@@ -159,9 +159,9 @@ def test_decorate_rejects_loss_scaling_for_a_program_optimizer():
 
 
 def test_keep_bf16_activations_raises_without_a_conv_lowering():
-    """The JAX package's conv-net bandwidth mode marks conv2d,
-    depthwise_conv2d and batch_norm, none of which the port lowers: the
-    pass and ``decorate`` refuse it rather than mark nothing."""
+    """The JAX package's conv-net bandwidth mode (conv2d, depthwise_conv2d
+    and batch_norm outputs kept bf16) waits for the image training slice:
+    the pass and ``decorate`` refuse it rather than mark nothing."""
     with pytest.raises(NotImplementedError, match='keep_bf16_activations'):
         mp.decorate(fluid.optimizer.Adam(1e-3), keep_bf16_activations=True)
     with pytest.raises(NotImplementedError, match='keep_bf16_activations'):

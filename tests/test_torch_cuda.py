@@ -1745,3 +1745,164 @@ def test_run_fused_on_the_card_equals_k_run_calls(dev):
     _hold_bound_to_eager([float(first[0][0]), float(last[0][0])],
                          [want[2], want[5]], fscope, scope,
                          [p.name for p in main.all_parameters()])
+
+
+# ---------------------------------------------------------------------------
+# the image ops and the predictor (port PR 17): library calls on the card
+# (cuDNN, ATen), held to the CPU with cuDNN's TF32 flag at torch's default
+
+
+@pytest.fixture
+def tf32_default(dev):
+    """cuDNN's TF32 flag at torch's default (True) for the test, and back
+    afterwards: the conv lowering must hold float32 by itself."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    yield dev
+    assert torch.backends.cudnn.allow_tf32 is True
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+def _rel_err(got, want):
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+# (N, C, H, W, O, k, stride, padding, dilation, groups): ResNet-50's stem,
+# a 3 x 3 stage conv, a 1 x 1 stride-2 shortcut, dilation, groups and a
+# depthwise conv
+CARD_CONV_CASES = [(2, 3, 33, 31, 16, 7, 2, 3, 1, 1),
+                   (2, 256, 14, 14, 256, 3, 1, 1, 1, 1),
+                   (2, 512, 14, 14, 1024, 1, 2, 0, 1, 1),
+                   (2, 16, 17, 15, 24, 3, 1, 2, 2, 1),
+                   (2, 32, 9, 9, 64, 3, 2, 1, 1, 4),
+                   (2, 32, 9, 9, 32, 3, 1, 1, 1, 32)]
+
+
+@pytest.mark.parametrize('case', CARD_CONV_CASES,
+                         ids=lambda c: 'C%d_O%d_k%d_s%d_d%d_g%d' % (
+                             c[1], c[4], c[5], c[6], c[8], c[9]))
+def test_conv2d_on_the_card_matches_the_cpu_without_tf32(tf32_default,
+                                                         case):
+    """The forward and both gradients within 1e-5 of each one's largest
+    magnitude of the CPU's (TF32 would be about 1e-3 off)."""
+    from paddle_tpu_torch.ops import conv_ops
+    n, c, h, w, o, k, s, p, d, g = case
+    x = _randn('cpu', n, c, h, w, seed=1)
+    f = _randn('cpu', o, c // g, k, k, scale=(2.0 / (c // g * k * k)) ** 0.5,
+               seed=2)
+    dy = _randn('cpu', n, o, (h + 2 * p - d * (k - 1) - 1) // s + 1,
+                (w + 2 * p - d * (k - 1) - 1) // s + 1, seed=3)
+    outs = []
+    for on in ('cpu', tf32_default):
+        xi = x.to(on).detach().requires_grad_()
+        fi = f.to(on).detach().requires_grad_()
+        y = conv_ops.conv2d(xi, fi, (s, s), (p, p), (d, d), g)
+        y.backward(dy.to(on))
+        outs.append((y.detach(), xi.grad, fi.grad))
+    for got, want in zip(outs[1], outs[0]):
+        assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize('ptype,excl,ceil,pad,glob', [
+    ('max', True, False, 1, False), ('max', True, True, 1, False),
+    ('avg', True, True, 1, False), ('avg', False, True, 0, False),
+    ('avg', True, False, 1, False), ('avg', True, False, 0, True)])
+def test_pool2d_on_the_card_matches_the_cpu(dev, ptype, excl, ceil, pad,
+                                            glob):
+    from paddle_tpu_torch.ops import conv_ops
+    x = _randn('cpu', 4, 64, 56, 55, seed=4)
+    args = ((3, 3), (2, 2), (pad, pad), ptype, excl, False, glob, ceil)
+    want = conv_ops.pool2d(x, *args)
+    got = conv_ops.pool2d(x.to(dev), *args)
+    assert got.shape == want.shape
+    assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize('is_test', [False, True], ids=['train', 'test'])
+def test_batch_norm_on_the_card_matches_the_cpu(dev, is_test):
+    """A one-op batch_norm program on the card and on the CPU: every
+    output within 1e-5 of its largest magnitude, the moving statistics
+    written back to the scope."""
+    import paddle_tpu_torch as fluid
+    c = 64
+    x = _randn('cpu', 8, c, 14, 14, seed=5).numpy()
+    x[:, 1] = 1e3 + 2.0 ** -7 * np.round(4 * x[:, 1])
+    state = {'sc': 1 + 0.1 * np.random.RandomState(6).randn(c),
+             'b': 0.1 * np.random.RandomState(7).randn(c),
+             'm': np.random.RandomState(8).randn(c),
+             'v': 0.5 + np.random.RandomState(9).rand(c)}
+    outs = ['y', 'm', 'v', 'sm', 'sv']
+    got = {}
+    for place in (fluid.CPUPlace(), None):
+        main = fluid.Program()
+        block = main.global_block()
+        block.create_var(name='x', shape=x.shape, dtype='float32')
+        for n in state:
+            block.create_var(name=n, shape=(c,), dtype='float32',
+                             persistable=True)
+        for n in ('y', 'sm', 'sv'):
+            block.create_var(name=n, dtype='float32')
+        block.append_op(
+            type='batch_norm',
+            inputs={'X': ['x'], 'Scale': ['sc'], 'Bias': ['b'],
+                    'Mean': ['m'], 'Variance': ['v']},
+            outputs={'Y': ['y'], 'MeanOut': ['m'], 'VarianceOut': ['v'],
+                     'SavedMean': ['sm'], 'SavedVariance': ['sv']},
+            attrs={'momentum': 0.9, 'epsilon': 1e-5, 'is_test': is_test,
+                   'data_layout': 'NCHW', 'use_global_stats': False})
+        scope = fluid.Scope()
+        for n, a in state.items():
+            scope.set(n, a.astype('float32'))
+        res = fluid.Executor(place).run(main, feed={'x': x},
+                                        fetch_list=outs, scope=scope)
+        got[place is None] = [torch.from_numpy(r) for r in res] + [
+            scope.get('m').cpu()]
+    for card, cpu in zip(got[True], got[False]):
+        assert _rel_err(card, cpu) <= 1e-5
+
+
+def test_resnet_predictor_on_the_card_matches_the_cpu(tf32_default,
+                                                      tmp_path):
+    """The cifar10 ResNet of depth 8 saved once: the card's predictor
+    within 1e-5 of the CPU's (the softmax's input, fetched by name), no
+    hand-written launch, the parameters uploaded once, and ``run_fused`` of
+    its program (a captured graph) equal to its calls."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, pred_v, _, _ = resnet.build('cifar10', depth=8)
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup, scope=scope)
+        rs = np.random.RandomState(3)
+        for n in scope.names():
+            if n.endswith('.mean'):
+                scope.set(n, rs.randn(*scope.get(n).shape).astype('float32'))
+        fluid.io.save_inference_model(str(tmp_path), ['img'], [pred_v], exe,
+                                      main_program=main)
+    card = fluid.create_predictor(str(tmp_path))
+    cpu = fluid.create_predictor(fluid.PredictorConfig(
+        str(tmp_path), place=fluid.CPUPlace()))
+    logits = [op for op in card.program.global_block().ops
+              if op.type == 'softmax'][-1].input('X')[0]
+    feeds = [{'img': rs.randn(4, 3, 32, 32).astype('float32')}
+             for _ in range(2)]
+    before = kernel_tier.launch_counts()
+    got = [card.executor.run(card.program, feed=f, fetch_list=[logits],
+                             scope=card.scope)[0] for f in feeds]
+    assert kernel_tier.launch_counts() == before
+    held = {n: card.scope.get(n) for n in card.scope.names()}
+    assert all(t.is_cuda for t in held.values())
+    for f, g in zip(feeds, got):
+        w = cpu.executor.run(cpu.program, feed=f, fetch_list=[logits],
+                             scope=cpu.scope)[0]
+        assert _rel_err(torch.from_numpy(g), torch.from_numpy(w)) <= 1e-5
+    runs = [card.run(f)[0] for f in feeds]
+    with fluid.scope_guard(card.scope):
+        fused = card.executor.run_fused(
+            card.program, {'img': np.stack([f['img'] for f in feeds])},
+            fetch_list=card.fetch_vars)
+    assert _rel_err(torch.from_numpy(fused[0]),
+                    torch.from_numpy(runs[1])) <= 1e-5
+    assert all(card.scope.get(n) is t for n, t in held.items())
