@@ -320,6 +320,64 @@ Phases, each printing one JSON line:
    call (device busy share, top kernels and ops; ResNet's convolution
    share of device time) and the launches a call.
 
+18. image_train — the bench's image training rows (bench.py:1130-1134,
+   `_bench_image_model` bench.py:208-270) through the Fluid front end:
+   ``resnet50`` (`models.resnet.build('imagenet', depth=50)`, lr 0.005)
+   and ``se_resnext`` (`models.se_resnext.build()`, lr 0.02) on ImageNet
+   3 x 224 x 224 images, 1000 classes, and ``vgg16``
+   (`models.vgg.build(class_dim=10, image_shape=(3, 32, 32))`, lr 0.02) on
+   CIFAR's, each at B 128 under ``decorate(Momentum(lr, 0.9),
+   keep_bf16_activations=True)`` and ``minimize``, the startup program
+   seeded; the bench's batches (rng ``RandomState(0)``, teacher labels from
+   the 8 x 8-pooled images, k 4, 4 and 10 staged batches). Per row: (a)
+   ``image_hold``: the row's model at B 4 on the card against the CPU
+   Executor from the same startup state, every dropout at probability 0
+   (the two generators draw different masks), with a float64 witness
+   (`hold_image_to_cpu`; from this initialization the deep nets amplify
+   each rounding of a step far past float32's limits): the float64 twin
+   of the row's program two steps, every loss within 1e-9 and every
+   parameter, velocity and statistic within 1e-8 of the CPU's; the
+   float32 program one step, its loss within 1e-4 of the CPU's and each
+   gradient no further from the float64 one than ``IMAGE_F32_RATIO``
+   times the CPU's (or ``IMAGE_F32_FLOOR`` of the model's largest
+   gradient element); the bench's keep-bf16 program one step, held so
+   with ``IMAGE_AMP_RATIO`` and ``IMAGE_AMP_FLOOR``, its loss within
+   5e-3 of the float64 loss or no further from it than that multiple of
+   the CPU's; (b) three eager ``Executor.run`` steps: step ms, images/s,
+   peak memory, zero hand-written launches, and a torch.profiler
+   breakdown of one step (busy share, top kernels and ops, the
+   convolutions' and the elementwise ops' shares of device time,
+   `IMAGE_SHARES`); (c) the running statistics
+   through a bound plan: K ``run()`` calls and one ``run_fused`` over the
+   same K batches from the same state, under cuDNN's deterministic
+   algorithms, every statistic, parameter and velocity bitwise equal
+   (``fused_stats_equal_runs``); (d) ``run_fused`` as the bench times it,
+   cut to a first call and 2 rounds of max(8, k) steps (the bench's 240
+   steps a call and 2-3 rounds): step ms from the best round, images/s,
+   peak memory, zero launches; the loss finite and fallen from the first
+   eager step to the last fused one; and these rounds, under the flags
+   they were timed with, against as many ``run()`` calls from the same
+   state at the AMP limits (each call's loss 5e-3, the state 2e-2 of its
+   largest magnitude over the model; ``fused_rounds_equal_runs``). The
+   cuts: the rounds' length and count only; widths, batch, images and
+   depth are the bench's.
+18b. optimizer_checks — two programs on the card against the same
+   program on the CPU Executor for three steps on one batch, at the f32
+   limits (loss 1e-4 relative, every parameter within 1e-3 of its largest
+   magnitude, the moving statistics too; an LM's K bias within 10 x lr, as
+   10b holds it), under cuDNN's deterministic algorithms (`hold_steps`):
+   (a) ``momentum_l2_decay``, the cifar10 ResNet of depth 8
+   at B 32 under ``Momentum(0.05, 0.9, use_nesterov=True,
+   regularization=L2Decay(1e-4))``; (b) ``resnet_keep_bf16``, the same
+   net under ``decorate(Momentum(0.05, 0.9), keep_bf16_activations=True)``
+   at the AMP limits (loss 5e-3 relative, the parameters and the moving
+   statistics 2e-2 of their largest magnitude over the model); (c)
+   ``lm_global_norm_clip``, the
+   flagship LM at 2 layers (dropout 0, flash attention) at B 2 under
+   ``set_gradient_clip(GradientClipByGlobalNorm(1.0))`` and ``Adam(1e-3,
+   fuse=True)``: every f32 kernel of the training path under a clipped
+   program, exactly phase 10b's launches a step.
+
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
 the operations' time, where matrix-product flops (the FFN's two products,
@@ -459,6 +517,35 @@ INFER_WINDOW = (8, 40)
 # the kernels BERT's inference call launches; ResNet-50's launches none
 BERT_INFER_KERNELS = ('embedding_gather', 'fused_ln_residual',
                       'flash_attention', 'fused_ffn', 'softmax_ce_fwd')
+# phase 18: the bench's image training rows (bench.py:1130-1134 through
+# `_bench_image_model`, bench.py:208-270): (row, image shape, classes, lr,
+# k staged batches); B 128 under decorate(Momentum, keep_bf16_activations)
+IMAGE_B = 128
+IMAGE_ROWS = (('resnet50', (3, 224, 224), 1000, 0.005, 4),
+              ('se_resnext', (3, 224, 224), 1000, 0.02, 4),
+              ('vgg16', (3, 32, 32), 10, 0.02, 10))
+# eager Executor.run steps, then run_fused rounds of max(8, k) steps each
+# (the bench's 240 steps a call and 2-3 rounds, cut for time)
+IMAGE_EAGER_STEPS = 3
+IMAGE_FUSED_STEPS = 8
+IMAGE_FUSED_ROUNDS = 2
+# the hold against the CPU Executor at B 4 (`hold_image_to_cpu`): how far
+# (2-norm) the card's gradient of a tensor may lie from the float64 one,
+# as a multiple of the CPU's distance, or as a share of the float64
+# gradient's norm (`PERF.md` §6: the CPU's own distances, and ReLU kinks
+# that the two sides cross at other elements)
+IMAGE_CHECK_B = 4
+IMAGE_F32_RATIO, IMAGE_F32_FLOOR = 4.0, 2e-3
+IMAGE_AMP_RATIO, IMAGE_AMP_FLOOR = 4.0, 1e-3
+# the host ops whose device time a row's step profile sums: cuDNN's
+# convolutions, forward and backward, and the elementwise and reduction
+# ops (batch norm's passes, the residual adds, the casts)
+IMAGE_SHARES = {
+    'conv': ('aten::cudnn_convolution', 'aten::convolution_backward'),
+    'elementwise': ('aten::add', 'aten::add_', 'aten::sub', 'aten::rsub',
+                    'aten::mul', 'aten::div', 'aten::neg', 'aten::sqrt',
+                    'aten::pow', 'aten::mean', 'aten::sum', 'aten::copy_',
+                    'aten::_to_copy')}
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'engine_spec': PAGED_KERNELS,
                 'train': TRAIN_KERNELS,
@@ -479,7 +566,11 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'program_large_fused': AMP_TRAIN_KERNELS,
                 'program_seq8k_fused': AMP_TRAIN_KERNELS,
                 'program_bert_fused': AMP_BERT_UNFUSED_KERNELS,
-                'bert_infer': BERT_INFER_KERNELS, 'resnet50_infer': ()}
+                'bert_infer': BERT_INFER_KERNELS, 'resnet50_infer': (),
+                'resnet50_train': (), 'se_resnext_train': (),
+                'vgg16_train': (), 'momentum_l2_decay': (),
+                'resnet_keep_bf16': (),
+                'lm_global_norm_clip': FLASH_TRAIN_KERNELS}
 
 
 def emit(obj):
@@ -639,13 +730,15 @@ def backward_ms(torch, fwd, inputs, grad, calls=10, replays=5):
     return replay_ms(torch, bwd_graph, calls, replays)
 
 
-def step_profile(torch, fn, steps=10, host=False):
+def step_profile(torch, fn, steps=10, host=False, shares=None):
     """Device time of ``steps`` eager calls of ``fn`` by torch.profiler:
     the wall time, the summed kernel time, the busy share, the kernels
     taking the most device time and the host ops that launched the most of
     it; with ``host`` also the host ops taking the most host time of their
-    own (``top_host``). ``busy_share`` is None when the profiler recorded
-    no device time (then it was not measured)."""
+    own (``top_host``); with ``shares`` ({label: op names}) the device ms
+    a step launched by the host ops named exactly as one of a label's
+    names (``shares``). ``busy_share`` is None when the
+    profiler recorded no device time (then it was not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -677,6 +770,11 @@ def step_profile(torch, fn, steps=10, host=False):
         busy_share=dev_ms / wall_ms if dev_ms > 0 else None,
         launches_per_step=sum(e.count for e in kernels) / steps,
         top=top(kernels, 10), top_ops=top(ops, 10))
+    if shares:
+        out['shares'] = {
+            label: sum(e.self_device_time_total for e in ops
+                       if e.key in names) / 1e3 / steps
+            for label, names in shares.items()}
     if host:
         cpu_ops = sorted((e for e in events if e.device_type ==
                           torch.autograd.DeviceType.CPU),
@@ -3682,6 +3780,618 @@ def run_inference(torch, kt, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the bench's image training rows through the Fluid front end
+
+
+def image_batches(shape, classes, k, batch=IMAGE_B):
+    """bench.py:227-258's batches of `_bench_image_model`: rng
+    ``RandomState(0)``, a teacher projection of the 8 x 8-pooled image (of
+    the whole image when a side is not a multiple of 8), then ``k``
+    batches of random images, each labelled by the teacher's argmax."""
+    rng = np.random.RandomState(0)
+    c, h, w = shape
+    pool = (h % 8 == 0 and w % 8 == 0)
+
+    def features(imgs):
+        if pool:
+            imgs = imgs.reshape(imgs.shape[0], c, 8, h // 8, 8, w // 8) \
+                .mean(axis=(3, 5))
+        return imgs.reshape(imgs.shape[0], -1)
+
+    feat_dim = features(np.zeros((1,) + tuple(shape), 'float32')).shape[1]
+    teacher = rng.randn(feat_dim, classes).astype('float32')
+    out = []
+    for _ in range(k):
+        imgs = rng.randn(batch, *shape).astype('float32')
+        out.append({'img': imgs, 'label': np.argmax(
+            features(imgs) @ teacher, 1).astype('int64').reshape(-1, 1)})
+    return out
+
+
+def image_program(fluid, build, lr, amp=True):
+    """(main, startup, loss) of ``build()`` under the bench's optimizer:
+    ``decorate(Momentum(lr, 0.9), keep_bf16_activations=True)`` (plain
+    Momentum without ``amp``); the startup program seeded."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, _, loss, _ = build()
+        opt = fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9)
+        if amp:
+            opt = mp.decorate(opt, keep_bf16_activations=True)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def state_arrays(scope):
+    """{name: numpy copy} of every tensor of ``scope`` (float32 but for a
+    float64 tensor: numpy has no bf16)."""
+    import torch
+    out = {}
+    for n in scope.names():
+        v = scope.get(n)
+        if hasattr(v, 'detach'):
+            v = v.detach()
+            out[n] = (v if v.dtype == torch.float64 else v.float()) \
+                .cpu().numpy().copy()
+    return out
+
+
+def hold_steps(got, want, gstate, wstate, groups, loss_limit):
+    """One comparison of two runs of a program: the losses ``got`` within
+    ``loss_limit`` relative of ``want`` at every step, and each group of
+    the state ``groups`` ({label: (names, limit, scale)}) of ``gstate``
+    within ``limit`` of ``wstate``'s largest magnitude: each tensor's own
+    (``scale`` 'own'), the group's (``scale`` 'set': a batch norm's bias
+    starts at 0 and moves by rounding-sized steps), or 1 ('abs'). Returns
+    (summary, failures)."""
+    loss_rel = max(abs(a / b - 1.0) for a, b in zip(got, want))
+    out, failures = dict(losses=got, ref_losses=want,
+                         loss_rel_err_max=loss_rel), []
+    if not loss_rel <= loss_limit:
+        failures.append('losses %s against %s' % (got, want))
+    for label, (names, limit, scale) in groups.items():
+        diff = {n: float(np.abs(gstate[n] - wstate[n]).max()) for n in names}
+        mag = {n: float(np.abs(wstate[n]).max()) for n in names}
+        top = max(mag.values(), default=0.0)
+        err = {n: diff[n] / max({'own': mag[n], 'set': top, 'abs': 1.0}
+                                [scale], 1e-30) for n in names}
+        worst = max(err, key=err.get) if err else None
+        out[label] = dict(rel_err_max=err.get(worst, 0.0), worst=worst,
+                          scale=scale, limit=limit, tensors=len(names))
+        if not out[label]['rel_err_max'] <= limit:
+            failures.append('%s %s off by %g' % (label, worst, err[worst]))
+    return out, failures
+
+
+def float64_twin(program):
+    """A clone of ``program`` whose float32 variables are float64: the same
+    ops and the same lowerings, in float64 (the witness that
+    `hold_image_to_cpu` holds both sides to)."""
+    twin = program.clone()
+    for block in twin.blocks:
+        for v in block.vars.values():
+            if v.dtype == np.float32:
+                v.dtype = np.dtype('float64')
+    return twin
+
+
+def forward_outputs(program):
+    """The outputs of ``program``'s forward ops (a batch norm's ``Y``), in
+    order, the cast ops of the AMP pass left out."""
+    out = []
+    for op in program.global_block().ops:
+        if op.type == 'backward':
+            break
+        if op.type in ('conv2d', 'batch_norm', 'elementwise_add',
+                       'elementwise_mul', 'pool2d', 'mul', 'softmax'):
+            out.append(op.output('Y')[0] if op.type == 'batch_norm'
+                       else op.output_arg_names[0])
+    return out
+
+
+def rel_errs(got, want, names):
+    """{name: largest |got - want| over the largest |want|} of each
+    tensor."""
+    return {n: float(np.abs(got[n] - want[n]).max() /
+                     max(np.abs(want[n]).max(), 1e-300)) for n in names}
+
+
+def kind_of(name):
+    """The kind of a state tensor: 'velocity', 'stat' (a batch norm's
+    moving mean or variance) or 'param' (the rest)."""
+    if '_velocity_' in name:
+        return 'velocity'
+    return 'stat' if name.endswith(('.mean', '.variance')) else 'param'
+
+
+def rms_dist(got, want, names):
+    """{name: the 2-norm of got - want} of each tensor."""
+    return {n: float(np.linalg.norm((got[n] - want[n]).ravel()))
+            for n in names}
+
+
+def image_hold_runs(torch, fluid, main, main32, losses, init, feed,
+                    steps=2, place=None, fwd=False):
+    """The runs `hold_image_to_cpu` compares, each on one batch from
+    ``init`` with every dropout at probability 0 (the card's generator and
+    the CPU's draw different masks), cuDNN's deterministic algorithms on
+    the card: ``steps`` steps of the float64 twin of the float32 program
+    (``main32``) on the card and on the CPU, and one step of ``main32`` and
+    of the bench's keep-bf16 program ``main`` on each, fetching the losses
+    ``losses`` ({'f32': name, 'amp': name}). ``place`` stands for
+    the card (None: ``cuda:0``). Returns {(side, kind): dict(losses,
+    state (after each step), fwd (with ``fwd``: the first step's forward
+    outputs), s (seconds))}, side 'card' or 'cpu', kind 'f64', 'f32' or
+    'amp'."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    progs = {'f64': float64_twin(main32), 'f32': main32.clone(),
+             'amp': main.clone()}
+    for prog in progs.values():
+        for op in prog.global_block().ops:
+            if op.type == 'dropout':
+                op.attrs['dropout_prob'] = 0.0
+    names = forward_outputs(main32) if fwd else []
+    runs = {}
+    for kind, prog in progs.items():
+        cast = (lambda a: a.astype(np.float64) if a.dtype == np.float32
+                else a) if kind == 'f64' else (lambda a: a)
+        loss = losses['amp' if kind == 'amp' else 'f32']
+        for side, pl in (('card', place), ('cpu', fluid.CPUPlace())):
+            exe = fluid.Executor(pl)
+            scope = scope_from_numpy({n: cast(a) for n, a in init.items()},
+                                     device=exe.device)
+            run = dict(losses=[], state=[])
+            t = time.perf_counter()
+            with torch.backends.cudnn.flags(enabled=True,
+                                            deterministic=True):
+                for i in range(steps if kind == 'f64' else 1):
+                    got = exe.run(prog, feed={k: cast(v) for k, v in
+                                              feed.items()},
+                                  fetch_list=[loss] + (names if i == 0
+                                                       else []),
+                                  scope=scope)
+                    run['losses'].append(float(got[0].reshape(-1)[0]))
+                    run['state'].append(state_arrays(scope))
+                    if i == 0 and names:
+                        run['fwd'] = dict(zip(names, got[1:]))
+            run['s'] = time.perf_counter() - t
+            runs[side, kind] = run
+    return runs
+
+
+def hold_image_to_cpu(torch, fluid, build, lr, main, loss, init,
+                      batch):
+    """The row's model on the card held to the CPU Executor on the first
+    ``IMAGE_CHECK_B`` images of ``batch`` from the same ``init``
+    (`image_hold_runs`), with a float64 witness, since from this random
+    initialization the deep nets amplify each rounding of a step far past
+    float32's limits (tools/image_witness.py measures it; `PERF.md` §6):
+
+    (a) the float64 twin, two steps: each loss within 1e-9 relative of the
+        CPU's, every parameter, velocity and moving statistic after each
+        step within 1e-8 of its own largest magnitude: the card computes
+        the CPU's function, forward, backward and update;
+    (b) the float32 program, one step: the loss within 1e-4 relative of
+        the CPU's (`PERF.md` §2), and each gradient (the velocity after
+        the step) no further (2-norm of the difference) from the float64
+        gradient than ``IMAGE_F32_RATIO`` times the CPU's float32
+        gradient, or than ``IMAGE_F32_FLOOR`` of the float64 gradient's
+        norm (of the norm it would have at the model's RMS element, where
+        that is larger: a bias ahead of a batch norm has a gradient of 0
+        but for rounding);
+    (c) the bench's keep-bf16 program, one step: the loss within 5e-3
+        relative of the float64 loss (`PERF.md` §2's AMP limit) or no
+        further from it than ``IMAGE_AMP_RATIO`` times the CPU's, and each
+        gradient held as in (b) with ``IMAGE_AMP_RATIO`` and
+        ``IMAGE_AMP_FLOOR``.
+
+    Returns the summary; raises on a failure."""
+    main32, _, loss32 = image_program(fluid, build, lr, amp=False)
+    feed = {k: v[:IMAGE_CHECK_B] for k, v in batch.items()}
+    runs = image_hold_runs(torch, fluid, main, main32,
+                           {'f32': loss32.name, 'amp': loss.name}, init, feed)
+    out, failures = image_hold_verdict(runs, main32)
+    if failures:
+        emit(dict(phase='image_hold_failure', **out))
+        raise AssertionError('the card\'s image programs: %s'
+                             % '; '.join(failures))
+    return out
+
+
+def image_hold_verdict(runs, main32):
+    """The checks of `hold_image_to_cpu` on ``runs``: (summary,
+    failures)."""
+    ref = runs['cpu', 'f64']
+    state = sorted(ref['state'][0])
+    vels = [n for n in state if '_velocity_' in n]
+    out, failures = dict(batch=IMAGE_CHECK_B,
+                         params=len(main32.all_parameters()),
+                         cpu_s={k: r['s'] for (s, k), r in runs.items()
+                                if s == 'cpu'}), []
+    card = runs['card', 'f64']
+    # each tensor against its own largest magnitude, or 1e-3 of the
+    # largest of its kind: a bias ahead of a batch norm has a gradient of
+    # 0 but for rounding
+    top = {}
+    for n in state:
+        top[kind_of(n)] = max(top.get(kind_of(n), 0.0),
+                              float(np.abs(ref['state'][0][n]).max()))
+    worst = max((float(np.abs(g[n] - w[n]).max()) / max(
+        float(np.abs(w[n]).max()), 1e-3 * top[kind_of(n)], 1e-300), n, i)
+        for i, (g, w) in enumerate(zip(card['state'], ref['state']))
+        for n in state)
+    out['f64'] = dict(loss_rel=[abs(a / b - 1.0) for a, b in
+                                zip(card['losses'], ref['losses'])],
+                      state_rel_err_max=worst[0], worst_tensor=worst[1],
+                      worst_step=worst[2] + 1)
+    if not (max(out['f64']['loss_rel']) <= 1e-9 and worst[0] <= 1e-8):
+        failures.append('the float64 twin off the CPU\'s')
+    exact = ref['state'][0]
+    norm = {n: float(np.linalg.norm(exact[n].ravel())) for n in vels}
+    # the model's RMS gradient element
+    rms = float(np.sqrt(sum(v ** 2 for v in norm.values()) /
+                        sum(exact[n].size for n in vels)))
+    l64 = ref['losses'][0]
+    for kind, ratio, floor in (('f32', IMAGE_F32_RATIO, IMAGE_F32_FLOOR),
+                               ('amp', IMAGE_AMP_RATIO, IMAGE_AMP_FLOOR)):
+        c, p = runs['card', kind], runs['cpu', kind]
+        dc = rms_dist(c['state'][0], exact, vels)
+        dp = rms_dist(p['state'][0], exact, vels)
+        over = {n: dc[n] / max(ratio * dp[n], floor * max(
+            norm[n], rms * np.sqrt(exact[n].size)), 1e-300) for n in vels}
+        bad = max(over, key=over.get)
+        own = {n: max(norm[n], 1e-300) for n in vels}
+        lc, lp = c['losses'][0], p['losses'][0]
+        out[kind] = dict(
+            loss_card=lc, loss_cpu=lp, loss_f64=l64,
+            loss_rel=abs(lc / lp - 1.0),
+            grad_rms_err_card_median=float(np.median(
+                [dc[n] / own[n] for n in vels])),
+            grad_rms_err_cpu_median=float(np.median(
+                [dp[n] / own[n] for n in vels])),
+            worst_tensor=bad, worst_card=dc[bad] / own[bad],
+            worst_cpu=dp[bad] / own[bad], worst_over_limit=over[bad])
+        if kind == 'f32':
+            loss_ok = out[kind]['loss_rel'] <= 1e-4
+        else:
+            loss_ok = abs(lc - l64) <= max(ratio * abs(lp - l64),
+                                           5e-3 * abs(l64))
+        if not loss_ok:
+            failures.append('the %s loss off the CPU\'s' % kind)
+        if not over[bad] <= 1.0:
+            failures.append('the %s gradient of %s off the float64 one'
+                            % (kind, bad))
+    if not all(np.isfinite(r['losses']).all() for r in runs.values()):
+        failures.append('a non-finite loss')
+    return out, failures
+
+
+def fused_stats_equal_runs(torch, fluid, main, loss, init, batches):
+    """Batch norm's running statistics through ``run_fused`` against
+    ``run()``: from ``init``, K ``run()`` calls on one scope and one
+    ``run_fused`` call over the same K batches on another (a fresh bound
+    plan: its eager first step with the capture, then K - 1 replays), with
+    cuDNN's deterministic algorithms for both, so that the comparison sees
+    the bound plan's state handling and not the order of a convolution
+    gradient's atomics. Every moving statistic, parameter and velocity
+    must be bitwise equal. Returns the summary."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        # an Executor for each side: each counts its runs from 0, so both
+        # draw the same dropout masks
+        exe = fluid.Executor()
+        ref = scope_from_numpy(init, device=exe.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in batches:
+            exe.run(main, feed=b, fetch_list=[loss], scope=ref,
+                    return_numpy=False)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+        exe = fluid.Executor()
+        fused = scope_from_numpy(init, device=exe.device)
+        stacked = {k: torch.stack([b[k] for b in batches])
+                   for k in batches[0]}
+        exe.run_fused(main, stacked, fetch_list=[loss], scope=fused)
+        want, got = state_arrays(ref), state_arrays(fused)
+    stats = sorted(n for n in init if n.endswith(('.mean', '.variance')))
+    differ = sorted(n for n in want if not np.array_equal(got[n], want[n]))
+    moved = sum(not np.array_equal(want[n], init[n]) for n in stats)
+    out = dict(k=len(batches), stats=len(stats), stats_moved=moved,
+               state=len(want), differ=differ[:8], n_differ=len(differ),
+               deterministic_run_ms=run_ms,
+               stats_max_abs_err=max(float(np.abs(got[n] - want[n]).max())
+                                     for n in stats))
+    if differ or moved != len(stats):
+        emit(dict(phase='image_stats_failure', **out))
+        raise AssertionError('run_fused\'s state off run()\'s: %s' % out)
+    return out
+
+
+def fused_rounds_equal_runs(torch, fluid, main, loss, init, batches,
+                            scope, fused):
+    """The timed ``run_fused`` rounds (`fused_timing`, on ``scope`` from
+    ``init`` through a fresh Executor) against as many ``run()`` calls of
+    a fresh Executor from ``init`` over the same cycled ``batches``, both
+    under the flags the rounds ran with (cuDNN free to pick a
+    nondeterministic backward): the loss that each call returned within
+    5e-3 relative of the ``run()`` loss of its last step, and the
+    parameters, velocities and moving statistics after the last step
+    within 2e-2 of their largest magnitude over the model (`PERF.md` §2's
+    AMP limits; a batch norm's bias starts at 0). Returns (summary,
+    failures)."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    steps = fused['steps_per_call']
+    n = steps * (1 + fused['rounds'])
+    exe = fluid.Executor()
+    ref = scope_from_numpy(init, device=exe.device)
+    losses = [exe.run(main, feed=batches[i % len(batches)],
+                      fetch_list=[loss], scope=ref, return_numpy=False)[0]
+              for i in range(n)]
+    want = [float(v) for v in torch.cat(losses[steps - 1::steps]).cpu()]
+    got, wstate = state_arrays(scope), state_arrays(ref)
+    rest = sorted(k for k in wstate if k.endswith(
+        ('.mean', '.variance')) or '_velocity_' in k)
+    out, failures = hold_steps(
+        fused['losses'], want, got, wstate,
+        {'params': ([p.name for p in main.all_parameters()], 2e-2, 'set'),
+         'stats_and_velocities': (rest, 2e-2, 'set')}, 5e-3)
+    out.update(steps=n, bitwise_equal=sum(
+        np.array_equal(got[k], wstate[k]) for k in wstate), state=len(wstate))
+    return out, failures
+
+
+def image_row(torch, kt, smi, row, batches):
+    """One row of phase 18 (module docstring). Returns (summary, the
+    launch counts of its fused rounds)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    name, build, shape, classes, lr, k = row
+    torch.cuda.empty_cache()
+    out = dict(phase='image_train', row=name, card=smi, batch=IMAGE_B,
+               image=list(shape), classes=classes, lr=lr, k_batches=k,
+               base_mem_bytes=torch.cuda.memory_allocated())
+    t = time.perf_counter()
+    main, startup, loss = image_program(fluid, build, lr)
+    ops = main.global_block().ops
+    out.update(build_s=time.perf_counter() - t, ops=len(ops),
+               convs=sum(op.type == 'conv2d' for op in ops),
+               params=len(main.all_parameters()))
+    exe = fluid.Executor()
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = state_arrays(s0)
+    del s0
+    out['param_count'] = int(sum(init[p.name].size
+                                 for p in main.all_parameters()))
+    held = hold_image_to_cpu(torch, fluid, build, lr, main, loss, init,
+                             batches[0])
+    emit(dict(phase='image_hold', row=name, card=smi, **held))
+    out['cpu_hold'] = dict(
+        f64_state_rel_err_max=held['f64']['state_rel_err_max'],
+        **{'%s_%s' % (kind, k): held[kind][k] for kind in ('f32', 'amp')
+           for k in ('loss_rel', 'worst_over_limit')})
+    dev = [{n: torch.from_numpy(v).to(exe.device) for n, v in b.items()}
+           for b in batches]
+    zero = dict.fromkeys(kt.KERNELS, 0)
+
+    # eager steps through Executor.run: zero hand-written launches
+    scope = scope_from_numpy(init, device=exe.device)
+    step = lambda i: exe.run(main, feed=dev[i % k], fetch_list=[loss],
+                             scope=scope, return_numpy=False)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kt.reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(IMAGE_EAGER_STEPS):
+        losses.append(step(i))
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if kt.launch_counts() != zero:
+        raise AssertionError('%s: an eager step launched %s'
+                             % (name, kt.launch_counts()))
+    eager = dict(steps=IMAGE_EAGER_STEPS,
+                 losses=[float(v) for v in torch.cat(losses).cpu()],
+                 first_step_ms=(t1 - t0) * 1e3,
+                 step_ms=(t2 - t1) * 1e3 / (IMAGE_EAGER_STEPS - 1),
+                 peak_mem_bytes=torch.cuda.max_memory_allocated() -
+                 out['base_mem_bytes'])
+    eager['images_per_s'] = IMAGE_B / (eager['step_ms'] / 1e3)
+    prof = step_profile(torch, lambda: step(0), steps=1, shares=IMAGE_SHARES)
+    eager['step_profile'] = prof
+    out['eager'] = eager
+    del losses
+    fused_state = fused_stats_equal_runs(torch, fluid, main, loss, init,
+                                         dev)
+    out['fused_stats_equal_runs'] = fused_state
+
+    # the bench's run_fused rounds on a fresh scope, through a fresh
+    # Executor (whose runs count from 0, as the comparison's do)
+    del scope, step
+    torch.cuda.empty_cache()
+    exe = fluid.Executor()
+    scope = scope_from_numpy(init, device=exe.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused, counts = fused_timing(torch, kt, exe, main, loss, scope, dev,
+                                 zero, steps=max(IMAGE_FUSED_STEPS, k),
+                                 rounds=IMAGE_FUSED_ROUNDS)
+    fused['images_per_s'] = IMAGE_B / (fused['step_ms'] / 1e3)
+    fused['peak_mem_bytes'] = torch.cuda.max_memory_allocated() - \
+        out['base_mem_bytes']
+    out['fused'] = fused
+    exe.close()             # the bound plan's graph and pool let go
+    torch.cuda.empty_cache()
+    out['fused_equal_runs'], failures = fused_rounds_equal_runs(
+        torch, fluid, main, loss, init, dev, scope, fused)
+    if failures:
+        emit(out)
+        raise AssertionError('%s: %s' % (name, '; '.join(failures)))
+    trail = eager['losses'] + fused['losses']
+    if not (all(np.isfinite(trail)) and fused['losses'][-1] <
+            eager['losses'][0]):
+        emit(out)
+        raise AssertionError('%s: the loss did not fall: %s' % (name, trail))
+    dms = prof['device_ms_per_step']
+    out.update(
+        step_ms=fused['step_ms'], images_per_s=fused['images_per_s'],
+        peak_mem_bytes=max(eager['peak_mem_bytes'], fused['peak_mem_bytes']),
+        busy_share=prof['busy_share'], device_ms=dms,
+        conv_share=prof['shares']['conv'] / dms if dms else None,
+        elementwise_share=prof['shares']['elementwise'] / dms
+        if dms else None,
+        hand_written_launches_per_step=0,
+        loss_first=eager['losses'][0], loss_last=fused['losses'][-1])
+    del scope, dev
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def image_build(name):
+    """The builder of the image row ``name`` (`IMAGE_ROWS`)."""
+    from paddle_tpu_torch.models import resnet, se_resnext, vgg
+    return {'resnet50': lambda: resnet.build('imagenet', depth=50),
+            'se_resnext': se_resnext.build,
+            'vgg16': lambda: vgg.build(class_dim=10,
+                                       image_shape=(3, 32, 32))}[name]
+
+
+def run_image_training(torch, kt, smi):
+    """Phase 18 (module docstring). Returns {path: launch counts}."""
+    by_path, cache = {}, {}
+    for name, shape, classes, lr, k in IMAGE_ROWS:
+        key = (shape, classes, k)
+        if key not in cache:
+            cache.clear()
+            t = time.perf_counter()
+            cache[key] = (image_batches(shape, classes, k),
+                          time.perf_counter() - t)
+        batches, gen_s = cache[key]
+        out, by_path[name + '_train'] = image_row(
+            torch, kt, smi, (name, image_build(name), shape, classes, lr, k),
+            batches)
+        out['batches_s'] = gen_s
+        emit(out)
+    return by_path
+
+
+def run_optimizer_checks(torch, kt, smi):
+    """Phase 18b (module docstring). Returns {path: launch counts}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.io import scope_from_numpy
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.models.transformer import LMConfig, build_lm
+    rs = np.random.RandomState(5)
+    cfg = LMConfig(n_layer=2, dropout=0.0, attn_dropout=0.0)
+
+    def decay():
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = 2
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, _, _, loss, _ = resnet.build('cifar10', depth=8)
+            fluid.optimizer.Momentum(
+                0.05, 0.9, use_nesterov=True,
+                regularization=fluid.regularizer.L2Decay(1e-4)).minimize(loss)
+        feeds = [{'img': rs.randn(32, 3, 32, 32).astype('float32'),
+                  'label': rs.randint(0, 10, (32, 1)).astype('int64')}] * 3
+        return main, startup, loss, feeds, dict.fromkeys(kt.KERNELS, 0)
+
+    def keep_amp():
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = 4
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, _, _, loss, _ = resnet.build('cifar10', depth=8)
+            mp.decorate(fluid.optimizer.Momentum(0.05, 0.9),
+                        keep_bf16_activations=True).minimize(loss)
+        feeds = [{'img': rs.randn(32, 3, 32, 32).astype('float32'),
+                  'label': rs.randint(0, 10, (32, 1)).astype('int64')}] * 3
+        return main, startup, loss, feeds, dict.fromkeys(kt.KERNELS, 0)
+
+    def clipped():
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = 3
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, _, _, loss = build_lm(cfg)
+            fluid.clip.set_gradient_clip(
+                fluid.clip.GradientClipByGlobalNorm(1.0))
+            fluid.optimizer.Adam(1e-3, fuse=True).minimize(loss)
+        feeds = [{n: rs.randint(0, cfg.vocab_size, (2, cfg.seq_len))
+                  .astype('int64') for n in ('tokens', 'labels')}] * 3
+        return main, startup, loss, feeds, program_step_launches(cfg)
+
+    by_path = {}
+    for path, make in (('momentum_l2_decay', decay),
+                       ('resnet_keep_bf16', keep_amp),
+                       ('lm_global_norm_clip', clipped)):
+        main, startup, loss, feeds, per_step = make()
+        types = [op.type for op in main.global_block().ops]
+        exe = fluid.Executor()
+        s0 = fluid.Scope()
+        exe.run(startup, scope=s0)
+        init = state_arrays(s0)
+        del s0
+        runs = {}
+        for side, place in (('card', None), ('cpu', fluid.CPUPlace())):
+            e = exe if place is None else fluid.Executor(place)
+            scope = scope_from_numpy(init, device=e.device)
+            kt.reset_counts()
+            with torch.backends.cudnn.flags(enabled=True,
+                                            deterministic=True):
+                losses = run_counted(
+                    kt, [lambda f=f: e.run(main, feed=f, fetch_list=[loss],
+                                           scope=scope,
+                                           return_numpy=False)[0]
+                         for f in feeds],
+                    per_step if place is None else
+                    dict.fromkeys(kt.KERNELS, 0), path)
+            if place is None:
+                by_path[path] = kt.launch_counts()
+            runs[side] = (losses, state_arrays(scope))
+        (got, gstate), (want, wstate) = runs['card'], runs['cpu']
+        params = [p.name for p in main.all_parameters()]
+        d = cfg.d_model
+        for st in (gstate, wstate):
+            # the K slice of a qkv bias, whose true gradient is 0, moves
+            # by Adam's lr-sized steps of noise: held within 10 x lr
+            for n in params:
+                if n.endswith('.attn.qkv.b'):
+                    st[n + '[K]'] = st[n][d:2 * d]
+                    st[n] = np.concatenate([st[n][:d], st[n][2 * d:]])
+        # f32 limits, each tensor against its own magnitude; the AMP
+        # limits over the model (`PERF.md` §2)
+        tol, scale, loss_tol = ((2e-2, 'set', 5e-3)
+                                if path == 'resnet_keep_bf16'
+                                else (1e-3, 'own', 1e-4))
+        held, failures = hold_steps(got, want, gstate, wstate, {
+            'params': (params, tol, scale),
+            'stats': ([n for n in wstate if n.endswith(
+                ('.mean', '.variance'))], tol, scale),
+            'k_bias': ([n for n in wstate if n.endswith('[K]')], 1e-2,
+                       'abs')}, loss_tol)
+        out = dict(phase='optimizer_checks', path=path, card=smi,
+                   steps=len(feeds),
+                   ops={t: types.count(t) for t in (
+                       'momentum', 'scale', 'sum', 'squared_l2_norm',
+                       'sqrt', 'elementwise_max', 'elementwise_div',
+                       'elementwise_mul', 'fused_adam') if t in types},
+                   launches_per_step=per_step, **held)
+        emit(out)
+        if not got[-1] < got[0]:
+            failures.append('the loss did not fall: %s' % got)
+        if failures:
+            raise AssertionError('%s on the card off the CPU: %s'
+                                 % (path, '; '.join(failures)))
+    return by_path
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3875,6 +4585,8 @@ def main():
     del program_bert
     torch.cuda.empty_cache()
     by_path.update(run_inference(torch, kt, smi))
+    by_path.update(run_image_training(torch, kt, smi))
+    by_path.update(run_optimizer_checks(torch, kt, smi))
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {

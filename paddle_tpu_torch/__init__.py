@@ -1,15 +1,18 @@
 """paddle_tpu_torch: the PyTorch + CUDA port of paddle_tpu for an NVIDIA
 H100.
 
-It ports the Fluid front end: a ``Program`` built with ``layers``,
-``optimizer.SGD``/``Adam(...).minimize(loss)`` and
+It ports the Fluid front end: a ``Program`` built with ``layers`` and
+``nets``, ``optimizer.SGD``/``Momentum``/``Adam(...).minimize(loss)`` (with
+``regularizer`` weight decay and ``clip`` gradient clipping) and
 ``Executor().run(program, feed=..., fetch_list=...)``, with ``bind`` and
 ``run_fused`` replaying a CUDA graph of the run plan, and ``io``'s save
 and load functions (so ``import paddle_tpu_torch as fluid`` runs the JAX
 package's quick start and `models.transformer.build_lm` on the card);
 the deploy path (``io.save_inference_model`` prunes a program for
-inference, ``create_predictor`` serves it) with ResNet as a program
-(``models.resnet``: conv2d, batch_norm, pool2d); the flagship causal LM's
+inference, ``create_predictor`` serves it) with the image classifiers as
+programs (``models.resnet``, ``models.se_resnext``, ``models.vgg``:
+conv2d, batch_norm, pool2d), trained under bf16 AMP with
+``keep_bf16_activations``; the flagship causal LM's
 continuous-batching decode engine (``serving.GenerateEngine``), its
 training step as a model (``models.transformer.TransformerLM.loss`` with
 ``optimizer.TensorAdam``) and BERT-base pretraining
@@ -27,6 +30,7 @@ Entry points run on ``cuda:0`` unless the caller passes ``device='cpu'``
 (or ``CPUPlace()``).
 """
 from . import initializer, layers, optimizer, unique_name
+from . import clip, nets, regularizer
 from .backward import append_backward
 from .executor import Executor, Scope, global_scope, scope_guard
 from .framework import (CPUPlace, CUDAPlace, Parameter, Program, Variable,
@@ -44,6 +48,7 @@ __all__ = ['CPUPlace', 'CUDAPlace', 'resolve_device', 'launch_counts',
            'default_main_program', 'default_startup_program',
            'program_guard', 'Executor', 'Scope', 'global_scope',
            'scope_guard', 'ParamAttr', 'append_backward', 'layers',
-           'optimizer', 'initializer', 'unique_name', 'io',
+           'optimizer', 'initializer', 'unique_name', 'io', 'clip',
+           'nets', 'regularizer',
            'save_inference_model', 'load_inference_model', 'inference',
            'PredictorConfig', 'Predictor', 'create_predictor']

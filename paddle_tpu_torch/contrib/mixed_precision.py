@@ -21,7 +21,9 @@ loss, so its mark goes on the model first: :func:`rewrite_model_bf16`, and
     opt.minimize(model.loss(tokens, labels, generator))
 
 In the LM and BERT the marked ops are every fc's ``mul``, the unfused
-attention's two ``matmul``s, ``flash_attention`` and ``fused_ffn_tail``.
+attention's two ``matmul``s, ``flash_attention`` and ``fused_ffn_tail``; in
+the conv nets every ``conv2d``, whose output, with
+``keep_bf16_activations=True``, stays bf16.
 Parameters stay float32 (master weights) and there is no loss scaling:
 bf16 keeps float32's exponent range, and ``decorate`` rejects a loss scale
 rather than apply it without the unscale step.
@@ -29,7 +31,8 @@ rather than apply it without the unscale step.
 from ..core.amp import AMP_ATTR, AMP_KEEP_ATTR
 from ..framework import Variable
 
-__all__ = ['WHITE_LIST', 'BLACK_LIST', 'AutoMixedPrecisionLists',
+__all__ = ['WHITE_LIST', 'BLACK_LIST', 'KEEP_ACTIVATION_OPS',
+           'AutoMixedPrecisionLists',
            'rewrite_program_bf16', 'rewrite_model_bf16', 'decorate',
            'OptimizerWithMixedPrecision', 'AMP_ATTR', 'AMP_KEEP_ATTR']
 
@@ -69,22 +72,24 @@ class AutoMixedPrecisionLists(object):
             self.black_list.add(t)
 
 
-_NO_KEEP_ACTIVATIONS = ('keep_bf16_activations: the conv-net bandwidth mode '
-                        '(bf16 conv2d, depthwise_conv2d and batch_norm '
-                        'outputs) waits for the image training slice')
+# the conv-net bandwidth mode: these ops' outputs stay in the compute dtype
+KEEP_ACTIVATION_OPS = {'conv2d', 'depthwise_conv2d', 'batch_norm'}
 
 
 def rewrite_program_bf16(program, amp_lists=None, dtype='bfloat16',
                          keep_bf16_activations=False):
     """Mark every op of ``program`` whose type is in the white list to
-    compute in ``dtype`` (``AMP_ATTR``), as the JAX pass does. Bumps the
-    program's version, so that the Executor builds a new run plan for it.
-    Returns the count of white-listed ops marked.
-    ``keep_bf16_activations`` (the JAX package's conv-net bandwidth mode,
-    which keeps conv2d, depthwise_conv2d and batch_norm outputs bf16)
-    raises: it waits for the image training slice."""
-    if keep_bf16_activations:
-        raise NotImplementedError(_NO_KEEP_ACTIVATIONS)
+    compute in ``dtype`` (``AMP_ATTR``), as the JAX pass does. With
+    ``keep_bf16_activations`` (the conv-net bandwidth mode) every op of
+    `KEEP_ACTIVATION_OPS` outside the black list is marked too, with
+    ``AMP_KEEP_ATTR``: its output stays bf16 (core/amp.py). With the
+    default lists that is the convolutions (``batch_norm`` is black-listed:
+    unmarked, it returns its bf16 input's dtype all the same), and ReLU,
+    pooling and the residual adds keep bf16 as they preserve dtype; a
+    dense head's marked ``mul`` returns its input's dtype and its float32
+    bias add float32, as in JAX. Bumps the program's version, so that the
+    Executor builds a new run plan for it. Returns the count of
+    white-listed ops marked."""
     amp_lists = amp_lists or AutoMixedPrecisionLists()
     n = 0
     for block in program.blocks:
@@ -92,6 +97,10 @@ def rewrite_program_bf16(program, amp_lists=None, dtype='bfloat16',
             if op.type in amp_lists.white_list:
                 op.attrs[AMP_ATTR] = dtype
                 n += 1
+            if keep_bf16_activations and op.type in KEEP_ACTIVATION_OPS \
+                    and op.type not in amp_lists.black_list:
+                op.attrs[AMP_ATTR] = dtype
+                op.attrs[AMP_KEEP_ATTR] = True
     program._bump_version()
     return n
 
@@ -127,14 +136,14 @@ class OptimizerWithMixedPrecision(object):
                 "loss scaling is unnecessary for bf16 (same exponent range "
                 "as fp32); use init_loss_scaling=1.0 and "
                 "use_dynamic_loss_scaling=False")
-        if keep_bf16_activations:
-            raise NotImplementedError(_NO_KEEP_ACTIVATIONS)
         self._dtype = dtype
+        self._keep_acts = keep_bf16_activations
 
     def minimize(self, loss, *args, **kwargs):
         if isinstance(loss, Variable):
             rewrite_program_bf16(loss.block.program, self._amp_lists,
-                                 self._dtype)
+                                 self._dtype,
+                                 keep_bf16_activations=self._keep_acts)
         return self._optimizer.minimize(loss, *args, **kwargs)
 
     def backward(self, *args, **kwargs):
@@ -151,7 +160,14 @@ class OptimizerWithMixedPrecision(object):
 def decorate(optimizer, amp_lists=None, init_loss_scaling=1.0,
              use_dynamic_loss_scaling=False, keep_bf16_activations=False):
     """Wrap ``optimizer`` for bf16 mixed-precision training, with the JAX
-    package's signature, defaults and checks."""
+    package's signature, defaults and checks. ``keep_bf16_activations``
+    keeps the outputs of `KEEP_ACTIVATION_OPS` outside the black list
+    bf16 (the bench's image rows)::
+
+        opt = decorate(fluid.optimizer.Momentum(0.02, 0.9),
+                       keep_bf16_activations=True)
+        opt.minimize(avg_cost)
+    """
     return OptimizerWithMixedPrecision(
         optimizer, amp_lists=amp_lists, init_loss_scaling=init_loss_scaling,
         use_dynamic_loss_scaling=use_dynamic_loss_scaling,

@@ -14,15 +14,22 @@ that:
 
 - parameters stay float32 (master weights: the cast is part of the op);
 - the rest of the program (LayerNorm, softmax, the loss, Adam) runs in
-  float32, and no program variable is ever bf16;
+  float32;
 - no loss scaling is needed: bf16 keeps float32's exponent range.
+
+Under ``AMP_KEEP_ATTR`` (the pass's ``keep_bf16_activations``, the
+conv nets' bandwidth mode: :func:`op_keeps`) a marked op's output keeps
+the compute dtype instead (:func:`result_dtype`), so that a convolution's
+bf16 activations stay bf16 through batch norm, ReLU, pooling and the
+residual adds, which preserve their input's dtype.
 
 The port keeps its own copy of these names (it imports nothing of the JAX
 package); the dtypes are torch's.
 """
 import torch
 
-__all__ = ['AMP_ATTR', 'AMP_KEEP_ATTR', 'op_policy', 'compute_dtype',
+__all__ = ['AMP_ATTR', 'AMP_KEEP_ATTR', 'op_policy', 'op_keeps',
+           'compute_dtype',
            'cast_compute', 'accum_dtype', 'result_dtype']
 
 AMP_ATTR = '__amp_dtype__'
@@ -35,6 +42,12 @@ def op_policy(op):
     """The policy an op's lowering hands to the op functions: the op's
     ``AMP_ATTR`` mark, or None for an unmarked op."""
     return op.attr(AMP_ATTR) or None
+
+
+def op_keeps(op):
+    """Whether a marked op's output keeps the compute dtype: the op's
+    ``AMP_KEEP_ATTR`` mark."""
+    return bool(op.attr(AMP_KEEP_ATTR, False))
 
 
 def compute_dtype(policy):
@@ -60,9 +73,10 @@ def accum_dtype(x):
 
 
 def result_dtype(policy, computed, declared, keep=False):
-    """Output dtype of a marked site: the declared variable dtype (float32
-    master activations), or with ``keep`` (the JAX package's
-    ``AMP_KEEP_ATTR``) the dtype it was computed in."""
+    """Output dtype of a marked site (the JAX package's `result_dtype`):
+    the declared variable dtype (float32 master activations), or with
+    ``keep`` (:func:`op_keeps`) the dtype of ``computed``, the cast
+    compute input."""
     if policy and keep:
         return computed.dtype
     return declared

@@ -4,7 +4,8 @@ The port's own copy of paddle_tpu/core/serialization.py, with the same
 format tag (``paddle_tpu.program``) and version: a program saved by either
 package loads in the other, and the same model built by each serializes to
 the same dict. Nothing in the schema references live Python objects;
-dtypes are strings and numpy values in attrs are tagged dicts. An attr
+dtypes are strings, numpy values in attrs are tagged dicts and a
+parameter's L1 or L2 decay is its class name and coefficient. An attr
 value the schema cannot hold raises at save time.
 """
 import json
@@ -70,6 +71,10 @@ def decode_attr(value):
     return value
 
 
+# a parameter's regularizer is saved by class name and coefficient
+_KNOWN_REGULARIZERS = ('L2DecayRegularizer', 'L1DecayRegularizer')
+
+
 def _encode_var(v):
     from ..framework import Parameter
     d = {
@@ -86,10 +91,10 @@ def _encode_var(v):
     if isinstance(v, Parameter):
         d['trainable'] = bool(v.trainable)
         d['optimize_attr'] = encode_attr(v.optimize_attr or {})
-        if v.regularizer is not None:
-            raise NotImplementedError(
-                'parameter %r carries a regularizer: regularizers wait for '
-                'a later slice of paddle_tpu_torch' % v.name)
+        reg = v.regularizer
+        if reg is not None and type(reg).__name__ in _KNOWN_REGULARIZERS:
+            d['regularizer'] = {'type': type(reg).__name__,
+                                'coeff': float(reg._regularization_coeff)}
     return d
 
 
@@ -101,14 +106,16 @@ def _decode_var(block, d):
               type=d.get('type', 'lod_tensor'),
               is_data=d.get('is_data', False))
     if d.get('kind') == 'param':
-        if d.get('regularizer') is not None:
-            raise NotImplementedError(
-                'parameter %r carries a regularizer: regularizers wait for '
-                'a later slice of paddle_tpu_torch' % d['name'])
         kw.pop('stop_gradient', None)  # Parameter pins stop_gradient=False
         kw['trainable'] = d.get('trainable', True)
         kw['optimize_attr'] = decode_attr(d.get('optimize_attr', {})) or \
             {'learning_rate': 1.0}
+        reg = d.get('regularizer')
+        if reg is not None:
+            from .. import regularizer as _regmod
+            cls = getattr(_regmod, reg['type'], None)
+            if cls is not None:
+                kw['regularizer'] = cls(reg['coeff'])
         if kw['dtype'] is None:
             kw['dtype'] = 'float32'
         shape = kw.pop('shape')

@@ -14,7 +14,8 @@ every kernel wrapper takes its plain version.
   (core/lowering.py), writes the state it wrote back into the scope, and
   returns the fetches as numpy arrays (or, with ``return_numpy=False``, as
   tensors on the device; a fetched state variable is then a copy, since the
-  optimizers update state in place).
+  optimizers update state in place). A bf16 fetch (an activation kept
+  bf16 by the AMP pass) comes back as a float32 array.
 - Run plans are cached per executor by (program, version, feed signature,
   fetch list), the key the JAX executor's `_feed_signature` builds, in a
   least-recently-used cache of ``PADDLE_EXECUTOR_CACHE_SIZE`` entries
@@ -144,7 +145,11 @@ class scope_guard(object):
 
 
 def _to_numpy(v):
+    """A numpy copy of a scope or fetched value; a bf16 tensor (a kept AMP
+    activation) comes back as float32, exactly: numpy has no bf16."""
     if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bfloat16:
+            v = v.float()
         return v.detach().to('cpu', copy=True).numpy()
     return np.asarray(v)
 

@@ -5,9 +5,10 @@ slice's programs call: ``fc``, ``embedding``, ``square_error_cost``,
 ``softmax_with_cross_entropy``, ``layer_norm``,
 ``fused_layer_norm_residual``, ``fused_ffn_tail``, ``matmul``, ``mean``,
 ``reduce_sum``, ``dropout``, ``add_position_encoding``, ``scale``, ``reshape``,
-``transpose``, ``squeeze``, ``slice``, ``gather``, ``softmax`` and
-``elementwise_add``/``_sub``, and the image layers ``conv2d``, ``pool2d``,
-``batch_norm`` and ``cross_entropy`` (models/resnet.py). Each appends the
+``transpose``, ``squeeze``, ``slice``, ``gather``, ``softmax``,
+``elementwise_add``/``_sub``/``_mul``/``_div``/``_max``/``_min``, and the
+image layers ``conv2d``, ``pool2d``, ``batch_norm`` and ``cross_entropy``
+(models/resnet.py, models/se_resnext.py, models/vgg.py). Each appends the
 JAX layer's op with the same slots, attrs and static output shapes; the
 computation is the op's lowering (ops/*).
 """
@@ -21,8 +22,9 @@ __all__ = [
     'batch_norm', 'layer_norm', 'fused_layer_norm_residual',
     'fused_ffn_tail', 'matmul', 'reshape', 'squeeze', 'transpose', 'mean',
     'reduce_sum',
-    'elementwise_add', 'elementwise_sub', 'slice', 'gather', 'scale',
-    'add_position_encoding',
+    'elementwise_add', 'elementwise_sub', 'elementwise_mul',
+    'elementwise_div', 'elementwise_max', 'elementwise_min', 'slice',
+    'gather', 'scale', 'add_position_encoding',
 ]
 
 
@@ -525,6 +527,22 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
 
 def elementwise_sub(x, y, axis=-1, act=None, name=None):
     return _elementwise('elementwise_sub', x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_mul', x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_div', x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_max', x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_min', x, y, axis, act, name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -14,17 +14,23 @@ lowering and never shows in the program.
   ``torch.backends.cudnn.allow_tf32`` (True by default) says, backward
   included: cuDNN would otherwise round the operands to TF32, about 1e-3
   off the reference. Under the op's AMP mark (``policy``) the operands are
-  cast to bf16, cuDNN accumulates in float32 and returns bf16, and the
-  result is cast to the variable's dtype, as the JAX branch computes
-  (its ``preferred_element_type`` is None for bf16).
+  cast to bf16, cuDNN accumulates in float32 and returns bf16 (no flag to
+  clear, so no lock), and the result is cast to the variable's dtype, as
+  the JAX branch computes (its ``preferred_element_type`` is None for
+  bf16); under the keep mark (``keep``, core/amp.py `op_keeps`) the bf16
+  result is returned as it is.
 - :func:`pool2d` follows `_pool`: the right side padded as far as
   ``ceil_mode`` needs, -inf padding for max, ``exclusive`` dividing by
   the count of in-bounds elements, global and adaptive windows. It pools
   an explicitly padded tensor with unpadded windows, since torch's own
   ``ceil_mode`` drops a window that starts in the right padding and its
   ``count_include_pad=False`` is not ``exclusive`` there.
-- `batch_norm` takes the statistics in float32 with a two-pass variance
-  (a channel of large mean and tiny variance keeps its variance),
+- `batch_norm` takes the statistics in float32 (a float64 input's in
+  float64) with a two-pass variance
+  (a channel of large mean and tiny variance keeps its variance) from its
+  input (cast to bf16 under an AMP mark), normalizes with them (a bf16
+  ``x - mean`` promotes to float32) and casts ``Y`` back to that input's
+  dtype: a bf16 activation stays bf16, marked or not;
   ``MeanOut = momentum * mean + (1 - momentum) * batch_mean`` in training,
   ``SavedVariance = 1 / sqrt(var + eps)``, and the moving statistics under
   ``is_test`` or ``use_global_stats``. ``MeanOut`` and ``VarianceOut``
@@ -49,10 +55,11 @@ _tf32_lock = threading.Lock()
 
 
 @contextlib.contextmanager
-def _f32_cudnn(device):
-    """cuDNN's float32 convolutions without TF32 for the calls inside, on a
-    CUDA device (the CPU has no TF32)."""
-    if device.type != 'cuda':
+def _f32_cudnn(x):
+    """cuDNN's float32 convolutions without TF32 for the calls inside, for
+    a float32 ``x`` on a CUDA device (the CPU has no TF32, and a bf16
+    convolution none to clear)."""
+    if x.device.type != 'cuda' or x.dtype != torch.float32:
         yield
         return
     with _tf32_lock:
@@ -71,14 +78,14 @@ class _Conv2d(torch.autograd.Function):
     def forward(ctx, x, w, stride, padding, dilation, groups):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding, dilation, groups)
-        with _f32_cudnn(x.device):
+        with _f32_cudnn(x):
             return F.conv2d(x, w, None, stride, padding, dilation, groups)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         stride, padding, dilation, groups = ctx.conf
-        with _f32_cudnn(x.device):
+        with _f32_cudnn(x):
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 dy, x, w, None, stride, padding, dilation, False, [0, 0],
                 groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
@@ -87,14 +94,16 @@ class _Conv2d(torch.autograd.Function):
 
 
 def conv2d(x, w, stride=(1, 1), padding=(0, 0), dilation=(1, 1), groups=1,
-           policy=None):
+           policy=None, keep=False):
     """NCHW ``x`` convolved with the OIHW filter ``w`` (I = C / groups):
     float32 without TF32, or under ``policy`` bf16 operands with the bf16
-    result cast back to ``x``'s dtype. Differentiable."""
+    result cast back to ``x``'s dtype (kept bf16 with ``keep``).
+    Differentiable."""
     out_dtype = x.dtype
     x, w = amp.cast_compute(policy, x, w)
-    return _Conv2d.apply(x, w, list(stride), list(padding), list(dilation),
-                         int(groups)).to(out_dtype)
+    out = _Conv2d.apply(x, w, list(stride), list(padding), list(dilation),
+                        int(groups))
+    return out.to(amp.result_dtype(policy, x, out_dtype, keep))
 
 
 def _pair(v, n=2):
@@ -109,7 +118,7 @@ def _conv2d_op(ctx, op):
         ctx.in1(op, 'Input'), ctx.in1(op, 'Filter'),
         _pair(op.attr('strides', [1, 1])), _pair(op.attr('paddings', [0, 0])),
         _pair(op.attr('dilations', [1, 1])), op.attr('groups', 1) or 1,
-        amp.op_policy(op)))
+        amp.op_policy(op), amp.op_keeps(op)))
 
 
 @register_op('depthwise_conv2d')
@@ -180,7 +189,7 @@ def _batch_norm_op(ctx, op):
         ctx.out(op, 'MeanOut', mean)
         ctx.out(op, 'VarianceOut', var)
     else:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         m = xf.mean(dim=axes)
         v = ((xf - m.reshape(bshape)) ** 2).mean(dim=axes)
         ctx.out(op, 'MeanOut', momentum * mean + (1.0 - momentum) * m.detach())

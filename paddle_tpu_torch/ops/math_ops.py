@@ -1,11 +1,14 @@
-"""Matrix products: ``mul`` (every fc) and ``matmul``, float32 or marked.
+"""Matrix products: ``mul`` (every fc) and ``matmul``, float32 or marked;
+and the elementwise, ``sum``, ``sign`` and reduction ops of a Program.
 
 Counterpart of paddle_tpu/ops/math_ops.py `_mul` and `_matmul`. Unmarked
 (``policy`` None) they are float32 products. Marked (the AMP policy, see
 core/amp.py) they cast their float32 operands to bf16, multiply with float32
 accumulation and return float32, as the JAX lowerings do with
-``preferred_element_type=float32``. These are plain products outside any
-Pallas kernel, so on the card they are library calls (cuBLAS).
+``preferred_element_type=float32``; the program ops then round the result
+to their ``X`` input's dtype, as the JAX ops do (bf16 for a bf16 input).
+These are plain products outside any Pallas kernel, so on the card they
+are library calls (cuBLAS).
 
 The one place the port's bf16 product lives is :func:`bf16_product`:
 bf16 operands, float32 accumulation, one rounding to the output dtype. On
@@ -122,17 +125,22 @@ def mul(x, w, policy=None):
 
 # ---------------------------------------------------------------------------
 # the program ops (paddle_tpu/ops/math_ops.py `_mul`, `_matmul`, the
-# elementwise family's add and sub, `_mean`, ``reduce_sum``): the products
-# above, float32 or under the op's AMP mark, and plain elementwise PyTorch.
+# elementwise family's add, sub, mul, div, max and min, `_sum`, `_sign`,
+# `_squared_l2_norm`, `_mean`, ``reduce_sum``): the products above, float32
+# or under the op's AMP mark, and plain elementwise PyTorch. Sparse
+# (SelectedRows) operands wait for sparse gradients.
 
 
 @register_op('mul')
 def _mul_op(ctx, op):
+    """The product of the flattened operands, returned in ``X``'s dtype as
+    the JAX lowering returns it: float32 in the LM and BERT, bf16 where a
+    kept bf16 activation feeds an fc (the image models' heads)."""
     x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
     xnc = op.attr('x_num_col_dims', 1)
     ynk = op.attr('y_num_col_dims', 1)
     out = mul(flatten_to_2d(x, xnc), flatten_to_2d(y, ynk),
-              amp.op_policy(op))
+              amp.op_policy(op)).to(x.dtype)
     ctx.out(op, 'Out', out.reshape(tuple(x.shape[:xnc]) +
                                    tuple(y.shape[ynk:])))
 
@@ -140,7 +148,8 @@ def _mul_op(ctx, op):
 @register_op('matmul')
 def _matmul_op(ctx, op):
     """Transposes, then the product (cast under the AMP mark, a float32
-    result), then ``alpha`` in float32, in the JAX lowering's order."""
+    result rounded to ``X``'s dtype), then ``alpha``, in the JAX lowering's
+    order."""
     x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
     if x.dim() == 1:
         x = x.reshape(1, -1)
@@ -150,7 +159,7 @@ def _matmul_op(ctx, op):
         x = x.transpose(-1, -2)
     if op.attr('transpose_Y', False):
         y = y.transpose(-1, -2)
-    out = matmul(x, y, amp.op_policy(op))
+    out = matmul(x, y, amp.op_policy(op)).to(x.dtype)
     alpha = op.attr('alpha', 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -164,8 +173,38 @@ def _register_elementwise(name, fn):
         ctx.out(op, 'Out', fn(x, broadcast_y_to(x, y, op.attr('axis', -1))))
 
 
+# torch promotes as JAX does between two tensors of one dim or more (a
+# bf16 activation times a float32 gate is float32); a 0-dim float32 tensor
+# would take a bf16 operand's dtype in torch and not in JAX, which is why
+# the programs' scalars keep their declared shape [1]
 _register_elementwise('elementwise_add', torch.add)
 _register_elementwise('elementwise_sub', torch.sub)
+_register_elementwise('elementwise_mul', torch.mul)
+_register_elementwise('elementwise_div', torch.div)
+_register_elementwise('elementwise_max', torch.maximum)
+_register_elementwise('elementwise_min', torch.minimum)
+
+
+@register_op('sum')
+def _sum_op(ctx, op):
+    """The inputs added in order (the regularizer's grad + decay, the
+    global-norm clip's squared norms)."""
+    xs = ctx.in_list(op, 'X')
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.out(op, 'Out', out)
+
+
+@register_op('sign')
+def _sign_op(ctx, op):
+    ctx.out(op, 'Out', torch.sign(ctx.in1(op, 'X')))
+
+
+@register_op('squared_l2_norm')
+def _squared_l2_norm_op(ctx, op):
+    x = ctx.in1(op, 'X')
+    ctx.out(op, 'Out', (x * x).sum().reshape(1))
 
 
 @register_op('mean')

@@ -1,8 +1,11 @@
-"""Framework ops: ``backward``, constants, ``assign`` and ``scale``.
+"""Framework ops: ``backward``, constants, ``assign``, ``scale``, ``clip``
+and ``clip_by_norm``.
 
 The port's own lowerings of paddle_tpu/ops/meta.py's `backward`,
-`fill_constant`, `assign`, `assign_value` and `scale`, in plain PyTorch
-(the JAX package lowers them to plain XLA too).
+`fill_constant`, `assign`, `assign_value`, `scale`, `clip` and
+`clip_by_norm` (dense: a SelectedRows gradient waits for sparse
+gradients), in plain PyTorch (the JAX package lowers them to plain XLA
+too).
 """
 import numpy as np
 import torch
@@ -64,3 +67,23 @@ def _scale(ctx, op):
     else:
         out = (x + bias) * scale
     ctx.out(op, 'Out', out.to(x.dtype))
+
+
+@register_op('clip')
+def _clip(ctx, op):
+    ctx.out(op, 'Out', torch.clamp(ctx.in1(op, 'X'), op.attr('min'),
+                                   op.attr('max')))
+
+
+@register_op('clip_by_norm')
+def _clip_by_norm(ctx, op):
+    """``x * max_norm / norm`` where the float32 L2 norm of all of ``x``
+    passes ``max_norm``, else ``x``; the factor is a tensor on the device
+    (no host read), cast to ``x``'s dtype as the JAX lowering casts it."""
+    x = ctx.in1(op, 'X')
+    max_norm = op.attr('max_norm')
+    norm = torch.sqrt((x.float() ** 2).sum())
+    factor = torch.where(norm > max_norm,
+                         max_norm / torch.clamp(norm, min=1e-12),
+                         torch.ones_like(norm))
+    ctx.out(op, 'Out', x * factor.to(x.dtype))

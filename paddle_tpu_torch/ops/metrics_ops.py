@@ -22,5 +22,6 @@ def _accuracy(ctx, op):
     ctx.out(op, 'Accuracy',
             (num_correct.to(torch.float32) / total).reshape(1))
     ctx.out(op, 'Correct', num_correct.reshape(1))
-    ctx.out(op, 'Total', torch.tensor([total], dtype=torch.int32,
-                                      device=indices.device))
+    # a fill on the device (no host-to-device copy inside a captured graph)
+    ctx.out(op, 'Total', torch.full((1,), total, dtype=torch.int32,
+                                    device=indices.device))

@@ -241,7 +241,9 @@ def _cross_entropy_op(ctx, op):
     idx = torch.where(lab < 0, lab + n, lab).long()
     valid = ((idx >= 0) & (idx < n))[:, None]
     p = torch.gather(xc, -1, idx.clamp(0, n - 1)[:, None])
-    out = -torch.log(torch.where(valid, p, p.new_tensor(float('nan'))))
+    # a fill on the device, not a host value: the op runs inside captured
+    # CUDA graphs (a bound training step)
+    out = -torch.log(torch.where(valid, p, torch.full_like(p, float('nan'))))
     keep = (lab != op.attr('ignore_index', -100))[:, None]
     ctx.out(op, 'Y', torch.where(keep, out, out.new_zeros(())))
 

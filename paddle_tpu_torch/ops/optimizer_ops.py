@@ -1,7 +1,8 @@
-"""Adam, per parameter and fused over a parameter set.
+"""Adam, per parameter and fused over a parameter set, Momentum and SGD.
 
 Counterpart of paddle_tpu/ops/optimizer_ops.py: the `adam` lowering,
-`_adam_dense`, and `fused_adam` with its Pallas kernel `_fused_adam_flat`.
+`_adam_dense`, and `fused_adam` with its Pallas kernel `_fused_adam_flat`;
+the dense `momentum` and `sgd` lowerings.
 The update places eps as Paddle does (outside the square root of the
 bias-corrected moment, inside the step size)::
 
@@ -21,9 +22,23 @@ CPU it runs :func:`_fused_adam_ref`. :func:`adam` is the per-parameter
 update of the `adam` op (an XLA lowering with no Pallas kernel), plain
 PyTorch on every device.
 
-The program ops `fused_adam`, `adam` and `sgd` update the scope's tensors
-in place (the JAX ops return new state, which its executor writes back)
-and write the same tensors to their outputs.
+The program ops `fused_adam`, `adam`, `momentum` and `sgd` update the
+scope's tensors in place (the JAX ops return new state, which its executor
+writes back) and write the same tensors to their outputs.
+
+:func:`momentum` is the `momentum` op's dense update (plain math, outside
+any Pallas kernel in the JAX package too)::
+
+    v = mu * v + g
+    p = p - lr * v                  (use_nesterov: p - (g + mu * v) * lr)
+
+over a whole parameter set with ``torch._foreach_*`` ops: a program holds
+one `momentum` op a parameter (ResNet-50 has 161), and three ATen calls
+for each would make the step launch-bound. The program op applies it to
+each run of consecutive `momentum` ops that share ``mu``, ``use_nesterov``
+and the learning-rate variable, at the run's first op
+(:func:`_momentum_runs`); the others only name their outputs. A sparse
+(SelectedRows) gradient waits for sparse gradients.
 """
 import ctypes
 
@@ -33,7 +48,7 @@ from .. import native
 from ..core.registry import register_op
 from . import kernel_tier
 
-__all__ = ['adam', 'fused_adam']
+__all__ = ['adam', 'fused_adam', 'momentum']
 
 _fn = None
 
@@ -168,6 +183,62 @@ def _adam_op(ctx, op):
     _outs(ctx, op, (('ParamOut', [p]), ('Moment1Out', [m1]),
                     ('Moment2Out', [m2]), ('Beta1PowOut', [b1p]),
                     ('Beta2PowOut', [b2p])))
+
+
+@torch.no_grad()
+def momentum(params, grads, velocities, lr, mu, use_nesterov=False):
+    """Momentum over a parameter set in place: ``params``, ``grads`` and
+    ``velocities`` are lists of tensors of matching shapes, ``lr`` a
+    one-element tensor (module docstring). Each expression is one
+    ``torch._foreach_*`` pass over the set, in the JAX lowering's order of
+    operations."""
+    lr = lr.reshape(())
+    torch._foreach_mul_(velocities, mu)
+    torch._foreach_add_(velocities, grads)
+    if use_nesterov:
+        step = torch._foreach_mul(velocities, mu)
+        torch._foreach_add_(step, grads)
+        torch._foreach_mul_(step, lr)
+    else:
+        step = torch._foreach_mul(velocities, lr)
+    torch._foreach_sub_(params, step)
+
+
+def _momentum_runs(plan):
+    """{index of a run's first op: the run's op indices} for the runs of
+    consecutive `momentum` ops of ``plan`` with one ``mu``,
+    ``use_nesterov`` and learning-rate variable."""
+    runs, first, prev = {}, None, None
+    for i, op in enumerate(plan.ops):
+        key = (op.attr('mu'), bool(op.attr('use_nesterov', False)),
+               tuple(op.input('LearningRate'))) \
+            if op.type == 'momentum' else None
+        if key is not None and key == prev:
+            runs[first].append(i)
+        elif key is not None:
+            first = i
+            runs[i] = [i]
+        prev = key
+    return runs
+
+
+@register_op('momentum', stateful=True)
+def _momentum_op(ctx, op):
+    run = ctx.memo('momentum_runs',
+                   lambda: _momentum_runs(ctx.plan)).get(ctx.op_index)
+    if run is not None:
+        ops = [ctx.plan.ops[i] for i in run]
+        grads = [ctx.in1(o, 'Grad') for o in ops]
+        if not all(isinstance(g, torch.Tensor) for g in grads):
+            raise NotImplementedError(
+                'momentum: sparse (SelectedRows) gradients wait for a '
+                'later slice of paddle_tpu_torch')
+        momentum([ctx.in1(o, 'Param') for o in ops], grads,
+                 [ctx.in1(o, 'Velocity') for o in ops],
+                 ctx.in1(op, 'LearningRate'), op.attr('mu'),
+                 op.attr('use_nesterov', False))
+    ctx.out(op, 'ParamOut', ctx.in1(op, 'Param'))
+    ctx.out(op, 'VelocityOut', ctx.in1(op, 'Velocity'))
 
 
 @register_op('sgd', stateful=True)

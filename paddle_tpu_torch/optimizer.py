@@ -1,15 +1,18 @@
 """Optimizers: Fluid's program-building optimizers, and Adam on tensors.
 
 The port's own copy of paddle_tpu/optimizer.py `Optimizer` (``backward``,
-``apply_gradients``, ``minimize``), `SGDOptimizer` and `AdamOptimizer`,
-with the aliases ``SGD`` and ``Adam``. ``minimize(loss)`` appends the
-``backward`` meta-op (backward.py) and the update ops to the loss's
-program, and the learning rate and the accumulators to the startup
-program, under the JAX package's names (``learning_rate_0``,
-``<param>_moment1_0``, ``<param>_beta1_pow_acc_0``, ...). ``Adam(fuse=True)``
-emits one ``fused_adam`` op over the parameter set, ``fuse=False`` one
-``adam`` op a parameter. The Executor runs them (executor.py). The other
-Fluid optimizers wait for later slices.
+``apply_gradients``, ``minimize``), `SGDOptimizer`, `MomentumOptimizer`
+and `AdamOptimizer`, with the aliases ``SGD``, ``Momentum`` and ``Adam``.
+``minimize(loss)`` appends the ``backward`` meta-op (backward.py), the
+gradient clips (clip.py), the weight decay (regularizer.py) and the update
+ops to the loss's program, and the learning rate and the accumulators to
+the startup program, under the JAX package's names (``learning_rate_0``,
+``<param>_velocity_0``, ``<param>_moment1_0``, ``<param>_beta1_pow_acc_0``,
+...). ``Adam(fuse=True)`` emits one ``fused_adam`` op over the parameter
+set, ``fuse=False`` one ``adam`` op a parameter; ``Momentum`` one
+``momentum`` op a parameter, which the Executor applies a run at a time
+(ops/optimizer_ops.py). The other Fluid optimizers wait for later
+slices.
 
 :class:`TensorAdam` is the same Adam over tensors, for a model driven
 without a Program (`TransformerLM.loss`, `BertPretrain.loss`): each
@@ -34,8 +37,8 @@ from .layer_helper import LayerHelper
 from .ops import optimizer_ops
 from .regularizer import append_regularization_ops
 
-__all__ = ['SGD', 'Adam', 'SGDOptimizer', 'AdamOptimizer', 'Optimizer',
-           'TensorAdam']
+__all__ = ['SGD', 'Momentum', 'Adam', 'SGDOptimizer', 'MomentumOptimizer',
+           'AdamOptimizer', 'Optimizer', 'TensorAdam']
 
 
 class Optimizer(object):
@@ -169,6 +172,36 @@ class SGDOptimizer(Optimizer):
             outputs={'ParamOut': [param_and_grad[0]]})
 
 
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 regularization=None, name=None):
+        super(MomentumOptimizer, self).__init__(learning_rate,
+                                                regularization, name)
+        self.type = 'momentum'
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            type='momentum',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'Velocity': [velocity],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'VelocityOut': [velocity]},
+            attrs={'mu': self._momentum,
+                   'use_nesterov': self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -261,6 +294,7 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
 
 

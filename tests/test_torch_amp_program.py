@@ -159,13 +159,30 @@ def test_decorate_rejects_loss_scaling_for_a_program_optimizer():
 
 
 def test_keep_bf16_activations_raises_without_a_conv_lowering():
-    """The JAX package's conv-net bandwidth mode (conv2d, depthwise_conv2d
-    and batch_norm outputs kept bf16) waits for the image training slice:
-    the pass and ``decorate`` refuse it rather than mark nothing."""
-    with pytest.raises(NotImplementedError, match='keep_bf16_activations'):
-        mp.decorate(fluid.optimizer.Adam(1e-3), keep_bf16_activations=True)
-    with pytest.raises(NotImplementedError, match='keep_bf16_activations'):
-        mp.rewrite_program_bf16(fluid.Program(), keep_bf16_activations=True)
+    """The JAX package's conv-net bandwidth mode no longer raises since the
+    convolution's lowering keeps its bf16 output (the image training
+    slice; tests/test_torch_image.py holds it to JAX): on a program without
+    a convolution, such as the LM's, ``decorate(keep_bf16_activations=
+    True)`` marks what the plain pass marks and keeps nothing, exactly as
+    the JAX pass does."""
+    marks = {}
+    for pkg, mpmod, tmod in ((fluid, mp, ttrans), (jfluid, jmp, jtrans)):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard():
+            _, _, _, loss = tmod.build_lm(tmod.LMConfig(
+                **MODELS['lm_flash'][2]))
+            mpmod.decorate(pkg.optimizer.Adam(1e-3),
+                           keep_bf16_activations=True).minimize(loss)
+        marks[pkg] = [(op.type, op.attr(mp.AMP_ATTR),
+                       op.attr(mp.AMP_KEEP_ATTR))
+                      for op in main.global_block().ops]
+    assert marks[fluid] == marks[jfluid]
+    assert not any(keep for _, _, keep in marks[fluid])
+    counts = {}
+    for t, dt, _ in marks[fluid]:
+        if dt:
+            counts[t] = counts.get(t, 0) + 1
+    assert counts == MARKED['lm_flash']
 
 
 # ---------------------------------------------------------------------------

@@ -1906,3 +1906,172 @@ def test_resnet_predictor_on_the_card_matches_the_cpu(tf32_default,
     assert _rel_err(torch.from_numpy(fused[0]),
                     torch.from_numpy(runs[1])) <= 1e-5
     assert all(card.scope.get(n) is t for n, t in held.items())
+
+
+def _kept_conv_bn_program(fluid, c, o):
+    """A program of a marked, kept conv2d (3 x 3, padding 1) and a
+    batch_norm of its output: (program, output names)."""
+    from paddle_tpu_torch.core import amp
+    main = fluid.Program()
+    block = main.global_block()
+    block.create_var(name='x', shape=(-1, c, -1, -1), dtype='float32')
+    for n, shape in (('w', (o, c, 3, 3)), ('sc', (o,)), ('b', (o,)),
+                     ('m', (o,)), ('v', (o,))):
+        block.create_var(name=n, shape=shape, dtype='float32',
+                         persistable=True)
+    for n in ('y', 'z', 'sm', 'sv'):
+        block.create_var(name=n, dtype='float32')
+    block.append_op(type='conv2d', inputs={'Input': ['x'], 'Filter': ['w']},
+                    outputs={'Output': ['y']},
+                    attrs={'strides': [1, 1], 'paddings': [1, 1],
+                           'dilations': [1, 1], 'groups': 1,
+                           amp.AMP_ATTR: 'bfloat16', amp.AMP_KEEP_ATTR: True})
+    block.append_op(type='batch_norm',
+                    inputs={'X': ['y'], 'Scale': ['sc'], 'Bias': ['b'],
+                            'Mean': ['m'], 'Variance': ['v']},
+                    outputs={'Y': ['z'], 'MeanOut': ['m'],
+                             'VarianceOut': ['v'], 'SavedMean': ['sm'],
+                             'SavedVariance': ['sv']},
+                    attrs={'momentum': 0.9, 'epsilon': 1e-5,
+                           'is_test': False, 'data_layout': 'NCHW',
+                           'use_global_stats': False})
+    return main, ['y', 'z', 'sm', 'sv', 'm', 'v']
+
+
+def test_kept_conv_and_batch_norm_on_the_card_match_the_cpu(tf32_default):
+    """Keep-bf16 AMP on the card: the program of a marked, kept conv2d and a
+    batch norm of its bf16 output on the card and on the CPU Executor. The
+    convolution and ``Y`` come back bf16 (the TF32 flag left at its
+    default: a bf16 convolution does not take the float32 path), within
+    1e-2 of their largest magnitudes of the CPU's (bf16's step: the two
+    libraries sum in other orders, so an element may round one bf16 step
+    apart). The statistics are float32 of those bf16 values: on each side
+    the saved mean and variance and the moving ones (momentum 0.9 from 0
+    and 1) within 1e-5 of the float64 statistics of that side's own
+    convolution output (relative to the largest magnitude). Then the kept
+    convolution's gradients by both operands through autograd, within
+    1e-2."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import conv_ops
+    c, o = 64, 128
+    x = _randn('cpu', 8, c, 28, 28, seed=11)
+    state = {'w': _randn('cpu', o, c, 3, 3, scale=(2.0 / (9 * c)) ** 0.5,
+                         seed=12),
+             'sc': 1 + _randn('cpu', o, scale=0.1, seed=13),
+             'b': _randn('cpu', o, scale=0.1, seed=14),
+             'm': torch.zeros(o), 'v': torch.ones(o)}
+    main, names = _kept_conv_bn_program(fluid, c, o)
+    got = {}
+    for place in (fluid.CPUPlace(), None):
+        scope = fluid.Scope()
+        for n, t in state.items():
+            scope.set(n, t.clone())
+        res = fluid.Executor(place).run(main, feed={'x': x.numpy()},
+                                        fetch_list=names, scope=scope,
+                                        return_numpy=False)
+        got[place is None] = res
+        assert res[0].dtype == res[1].dtype == torch.bfloat16
+        assert all(r.dtype == torch.float32 for r in res[2:])
+        assert torch.backends.cudnn.allow_tf32 is True
+    for i in (0, 1):
+        assert _rel_err(got[True][i].float(), got[False][i].float()) <= \
+            1e-2, names[i]
+    for res in got.values():
+        y = res[0].cpu().double()
+        mean = y.mean(dim=(0, 2, 3))
+        var = y.var(dim=(0, 2, 3), unbiased=False)
+        want = {'sm': mean, 'sv': 1.0 / torch.sqrt(var + 1e-5),
+                'm': 0.1 * mean, 'v': 0.9 + 0.1 * var}
+        for n, w in want.items():
+            assert _rel_err(res[names.index(n)].double(), w) <= 1e-5, n
+    ct = _randn('cpu', 8, o, 28, 28, seed=15)
+    grads = []
+    for on in ('cpu', tf32_default):
+        xi = x.to(on).detach().requires_grad_()
+        fi = state['w'].to(on).detach().requires_grad_()
+        y = conv_ops.conv2d(xi, fi, (1, 1), (1, 1), (1, 1), 1,
+                            policy='bfloat16', keep=True)
+        (y.float() * ct.to(on)).sum().backward()
+        grads.append((xi.grad, fi.grad))
+    for g, w in zip(grads[1], grads[0]):
+        assert _rel_err(g, w) <= 1e-2
+
+
+def _keep_bf16_resnet8():
+    """(main, loss, init, feeds) of the cifar10 ResNet of depth 8 under
+    ``decorate(Momentum, keep_bf16_activations=True)``, four batches of 8
+    images."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.models import resnet
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 4
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, _, loss, _ = resnet.build('cifar10', depth=8)
+        mp.decorate(fluid.optimizer.Momentum(0.05, 0.9),
+                    keep_bf16_activations=True).minimize(loss)
+    s0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=s0)
+    init = {n: s0.get(n).cpu() for n in s0.names()}
+    rs = np.random.RandomState(5)
+    feeds = [{'img': rs.randn(8, 3, 32, 32).astype('float32'),
+              'label': rs.randint(0, 10, (8, 1)).astype('int64')}
+             for _ in range(4)]
+    return main, loss, init, feeds
+
+
+def _bound_and_run_calls(dev, main, loss, init, feeds):
+    """(bound program, its scope, its losses, the ``run()`` scope, its
+    losses): ``bind`` and three bound calls against four ``run()`` calls
+    of another Executor from the same state."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    ref = scope_from_numpy(init, device=dev)
+    exe = fluid.Executor()
+    want = [exe.run(main, feed=f, fetch_list=[loss], scope=ref)[0]
+            for f in feeds]
+    bound = scope_from_numpy(init, device=dev)
+    bp = fluid.Executor().bind(main, feeds[0], fetch_list=[loss],
+                               scope=bound)
+    got = [bp.first_out[0]] + [bp(f)[0] for f in feeds[1:]]
+    return bp, bound, np.concatenate(got), ref, np.concatenate(want)
+
+
+def test_bound_momentum_batch_norm_steps_equal_run_calls(dev):
+    """The cifar10 ResNet of depth 8 under ``decorate(Momentum,
+    keep_bf16_activations=True)`` at B 8: ``bind`` and three bound calls
+    (a captured graph) against four ``run()`` calls from the same state on
+    another Executor, under cuDNN's deterministic algorithms: the losses,
+    every parameter, velocity and moving statistic bitwise equal."""
+    main, loss, init, feeds = _keep_bf16_resnet8()
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        bp, bound, got, ref, want = _bound_and_run_calls(dev, main, loss,
+                                                         init, feeds)
+    assert bp.captures == 1 and bp.replays == 3
+    np.testing.assert_array_equal(got, want)
+    stats = [n for n in init if n.endswith(('.mean', '.variance'))]
+    assert len(stats) == 18
+    for n in init:
+        assert torch.equal(bound.get(n), ref.get(n)), n
+    assert not all(torch.equal(ref.get(n).cpu(), init[n]) for n in stats)
+
+
+def test_bound_momentum_batch_norm_steps_hold_run_calls_by_default(dev):
+    """The same four steps under the default flags, cuDNN free to pick a
+    nondeterministic backward: the bound losses within 5e-3 relative of
+    the ``run()`` losses, every parameter, velocity and moving statistic
+    within 2e-2 of its largest magnitude over the model (`PERF.md` §2's
+    AMP limits)."""
+    main, loss, init, feeds = _keep_bf16_resnet8()
+    assert not torch.backends.cudnn.deterministic
+    bp, bound, got, ref, want = _bound_and_run_calls(dev, main, loss, init,
+                                                     feeds)
+    assert bp.captures == 1 and bp.replays == 3
+    np.testing.assert_allclose(got, want, rtol=5e-3)
+    params = {p.name for p in main.all_parameters()}
+    for group in (params, set(init) - params):
+        floats = [n for n in group if init[n].is_floating_point()]
+        top = max(float(ref.get(n).abs().max()) for n in floats)
+        for n in floats:
+            assert float((bound.get(n) - ref.get(n)).abs().max()) <= \
+                2e-2 * top, n

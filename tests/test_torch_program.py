@@ -815,12 +815,17 @@ def test_features_left_for_later_raise():
         loss = fluid.layers.mean(emb)
         with pytest.raises(NotImplementedError, match='sparse'):
             fluid.optimizer.SGD(0.1).minimize(loss)
+    # weight decay is ported since the image training slice; Momentum's
+    # sparse (SelectedRows) branch still waits
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        x = fluid.layers.data(name='x', shape=[4], dtype='float32')
-        loss = fluid.layers.mean(fluid.layers.fc(x, size=2))
-        with pytest.raises(NotImplementedError, match='regulariz'):
-            fluid.optimizer.SGD(0.1, regularization=object()).minimize(loss)
+        ids = fluid.layers.data(name='ids', shape=[4], dtype='int64')
+        emb = fluid.layers.embedding(ids, size=[10, 8], is_sparse=True)
+        loss = fluid.layers.mean(emb)
+        with pytest.raises(NotImplementedError, match='sparse'):
+            fluid.optimizer.Momentum(
+                0.1, 0.9, regularization=fluid.regularizer.L2Decay(1e-4)
+            ).minimize(loss)
 
 
 # ---------------------------------------------------------------------------
