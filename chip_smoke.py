@@ -377,6 +377,33 @@ Phases, each printing one JSON line:
    ``set_gradient_clip(GradientClipByGlobalNorm(1.0))`` and ``Adam(1e-3,
    fuse=True)``: every f32 kernel of the training path under a clipped
    program, exactly phase 10b's launches a step.
+19. stacked_lstm — ragged (LoD) sequences: the bench's ``stacked_lstm``
+   row (bench.py:327-409, called at :1137) through the Fluid front end:
+   word ids fed as ``(array, lod)``, the embedding (vocabulary 5000, width
+   128), 3 x (fc to 512 + ``dynamic_lstm``, hidden 128),
+   ``sequence_last_step``, a 2-way softmax fc, cross entropy and
+   ``Adam(1e-3)`` (per-parameter ``adam`` ops). First the gather at the
+   buckets' B 32 x L ids against its plain version
+   (``stacked_lstm_kernel``). (a) ``stacked_lstm_hold``: the program, and
+   a text classifier of ``dynamic_gru``, ``sequence_conv`` and
+   ``sequence_pool(MAX)`` at the same widths, on a ragged B 4 batch
+   (lengths drawn from 0..128, one empty) for three ``run()`` steps on
+   the card against the CPU Executor at the f32 limits (loss 1e-4
+   relative, every parameter and Adam moment within 1e-3 of its largest
+   magnitude). (b) ``stacked_lstm_fused_mixed``: ``run_fused`` over four
+   B 4 batches of two LoDs (A, A, B, A) against four ``run()`` calls at
+   the same limits, one bound plan a LoD, each captured once (bitwise
+   equality reported). (c) ``stacked_lstm_bucket`` and ``stacked_lstm``:
+   B 32 at the bucket lengths 64, 96 and 128 as the bench builds its
+   batches (one uniform LoD a bucket, labels from the words' mean score),
+   each bucket 3 eager ``run()`` steps, one profiled eager step (device
+   busy share, launches a step), then the bench's ``run_fused`` window on
+   the batches staged on the card (one first call with its capture, then
+   2 timed rounds of 16 steps: the bench's 30 steps cut), the step ms,
+   samples/s and tokens/s of each bucket and blended over the three,
+   exactly one gather launch a step and none of the other twelve forms,
+   one capture a bucket, no host-to-device copy in two profiled fused
+   steps, peak memory. Widths, batch, depth and buckets are the bench's.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -546,6 +573,21 @@ IMAGE_SHARES = {
                     'aten::mul', 'aten::div', 'aten::neg', 'aten::sqrt',
                     'aten::pow', 'aten::mean', 'aten::sum', 'aten::copy_',
                     'aten::_to_copy')}
+# phase 19: the bench's stacked_lstm row (bench.py:327-409, called at
+# :1137): vocabulary 5000, embedding 128, hidden 128, 3 x (fc to 512 +
+# dynamic_lstm), B 32 at the bucket lengths 64, 96 and 128, each bucket its
+# own run_fused window; the bench's 30 steps a window and its rounds cut to
+# LSTM_FUSED_STEPS and LSTM_FUSED_ROUNDS, nothing else cut
+LSTM_VOCAB, LSTM_EMB, LSTM_HID, LSTM_LAYERS = 5000, 128, 128, 3
+LSTM_B = 32
+LSTM_BUCKETS = (64, 96, 128)
+LSTM_EAGER_STEPS = 3
+LSTM_FUSED_STEPS = 16
+LSTM_FUSED_ROUNDS = 2
+# the ragged holds against the CPU Executor: B 4, lengths from 0..128 with
+# one empty sequence, one run() step a batch
+LSTM_CHECK_B = 4
+LSTM_CHECK_STEPS = 3
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'engine_spec': PAGED_KERNELS,
                 'train': TRAIN_KERNELS,
@@ -570,7 +612,10 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'resnet50_train': (), 'se_resnext_train': (),
                 'vgg16_train': (), 'momentum_l2_decay': (),
                 'resnet_keep_bf16': (),
-                'lm_global_norm_clip': FLASH_TRAIN_KERNELS}
+                'lm_global_norm_clip': FLASH_TRAIN_KERNELS,
+                'stacked_lstm': ('embedding_gather',),
+                'stacked_lstm_hold': ('embedding_gather',),
+                'gru_conv_max_pool_hold': ('embedding_gather',)}
 
 
 def emit(obj):
@@ -1874,6 +1919,43 @@ def run_engine_spec(torch, kt, smi):
     return summary, counts
 
 
+def gather_case(torch, F, w, n, g):
+    """The gather of ``n`` ids from the table ``w`` against its plain
+    version, timed as `gather_times` times it: a case dict."""
+    from paddle_tpu_torch.ops import embedding_ops
+    rows, D = w.shape
+    ids = torch.randint(0, rows, (n,), generator=g, device=w.device)
+    err = max_err(torch, [embedding_ops.embedding_gather(w, ids)],
+                  [embedding_ops._gather_ref(w, ids)])
+    nbytes = (n + min(n, rows)) * D * 4 + n * 8
+    ms, plain, library = gather_times(
+        torch, F, embedding_ops, w, n,
+        torch.Generator(device=w.device).manual_seed(98), nbytes)
+    return dict(n=n, table_rows=rows, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=library, rotating_sets=rotation(nbytes),
+                eager_ms=eager_ms(torch, lambda: embedding_ops
+                                  .embedding_gather(w, ids), iters=10,
+                                  warmup=2), **bound(nbytes, 0))
+
+
+def check_lstm_gather(torch, F):
+    """Phase 19's kernel: the gather of the word ids from the [5000, 128]
+    table at each bucket's B 32 x L ids."""
+    dev = torch.device('cuda', 0)
+    g = torch.Generator(device=dev).manual_seed(1919)
+    w = torch.randn((LSTM_VOCAB, LSTM_EMB), generator=g, device=dev) * 0.02
+    cases = [gather_case(torch, F, w, LSTM_B * sl, g) for sl in LSTM_BUCKETS]
+    for c in cases:
+        check_bound('embedding_gather', c)
+    out = dict(tolerance=0.0, cases=cases,
+               max_abs_err=max(c['max_abs_err'] for c in cases))
+    if out['max_abs_err'] > 0:
+        raise AssertionError('the gather at the stacked_lstm shapes is off '
+                             'its plain version by %g' % out['max_abs_err'])
+    emit(dict(phase='stacked_lstm_kernel', name='embedding_gather', **out))
+    return {'embedding_gather': out}
+
+
 def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
                         ffn_infer_rows=(), ffn=True):
     """Phases 5, 11 and 15b (d): the kernels a training step runs, but for
@@ -3026,7 +3108,8 @@ def check_bound_dropout(torch):
 def fused_timing(torch, kt, exe, main, loss, scope, batches, per_step,
                  steps=FUSED_STEPS, rounds=FUSED_ROUNDS):
     """bench.py:70-120 `_measure_steps` on the port: the K ``batches``
-    stacked on the card, one first call of ``steps`` steps (its eager first
+    stacked on the card (or ``batches`` a stacked feed already), one first
+    call of ``steps`` steps (its eager first
     step and the capture), then ``rounds`` calls of ``steps`` steps, each
     timed with its own sync (a read of the loss); the best round over its
     steps. The bench's 120 steps a call and 2-3 rounds are cut to
@@ -3034,7 +3117,12 @@ def fused_timing(torch, kt, exe, main, loss, scope, batches, per_step,
     of the timed rounds launches exactly ``per_step`` and nothing is
     captured after the first call. Returns (summary, counts of the timed
     rounds)."""
-    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    if isinstance(batches, dict):
+        stacked, k_batches = batches, int(batches['label'].shape[0])
+    else:
+        stacked = {k: torch.stack([b[k] for b in batches])
+                   for k in batches[0]}
+        k_batches = len(batches)
     torch.cuda.synchronize()
     t = time.perf_counter()
     first = exe.run_fused(main, stacked, fetch_list=[loss], scope=scope,
@@ -3059,7 +3147,7 @@ def fused_timing(torch, kt, exe, main, loss, scope, batches, per_step,
         raise AssertionError('non-finite fused loss: %s' % losses)
     if plan.captures != 1:
         raise AssertionError('run_fused captured %d graphs' % plan.captures)
-    return dict(k_batches=len(batches), steps_per_call=steps,
+    return dict(k_batches=k_batches, steps_per_call=steps,
                 rounds=rounds, first_call_s=first_s,
                 step_ms=best / steps * 1e3, losses=losses,
                 replays=plan.replays, captures=plan.captures), counts
@@ -4392,6 +4480,335 @@ def run_optimizer_checks(torch, kt, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 19: ragged (LoD) sequences: the bench's stacked_lstm row
+
+
+def stacked_lstm_program(fluid, hid=LSTM_HID, layers=LSTM_LAYERS,
+                         vocab=LSTM_VOCAB, emb=LSTM_EMB):
+    """bench.py:345-361's program: the word ids' embedding, ``layers`` x
+    (fc to 4 x ``hid`` + ``dynamic_lstm``), ``sequence_last_step``, a 2-way
+    softmax fc, cross entropy and ``Adam(learning_rate=1e-3)``; the startup
+    program seeded. Returns (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = fluid.layers.data(name='words', shape=[1], dtype='int64',
+                                  lod_level=1)
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        h = fluid.layers.embedding(words, size=[vocab, emb])
+        for _ in range(layers):
+            proj = fluid.layers.fc(h, size=hid * 4)
+            h, _ = fluid.layers.dynamic_lstm(input=proj, size=hid * 4)
+        last = fluid.layers.sequence_last_step(h)
+        pred = fluid.layers.fc(last, size=2, act='softmax')
+        loss = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def gru_text_program(fluid, hid=LSTM_HID, vocab=LSTM_VOCAB, emb=LSTM_EMB):
+    """A text classifier at the row's widths: the embedding, fc to 3 x
+    ``hid`` + ``dynamic_gru``, ``sequence_conv`` (3 rows, ``hid`` filters,
+    ReLU), ``sequence_pool(MAX)``, a 2-way softmax fc, cross entropy and
+    ``Adam(1e-3)``."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 2
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = fluid.layers.data(name='words', shape=[1], dtype='int64',
+                                  lod_level=1)
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        e = fluid.layers.embedding(words, size=[vocab, emb])
+        g = fluid.layers.dynamic_gru(fluid.layers.fc(e, size=hid * 3),
+                                     size=hid)
+        conv = fluid.layers.sequence_conv(g, num_filters=hid, filter_size=3,
+                                          act='relu')
+        pred = fluid.layers.fc(fluid.layers.sequence_pool(conv, 'max'),
+                               size=2, act='softmax')
+        loss = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def lstm_batches(rng, tok_score, sl, n, batch=LSTM_B):
+    """bench.py:374-383 `make_batches`: ``n`` batches of ``batch``
+    sequences of ``sl`` random word ids (one uniform LoD), each labelled
+    by the sign of its words' mean score."""
+    lod = [list(range(0, (batch + 1) * sl, sl))]
+    out = []
+    for _ in range(n):
+        w = rng.randint(0, LSTM_VOCAB, (batch * sl, 1)).astype('int64')
+        sent = tok_score[w.reshape(batch, sl)].mean(1) > 0
+        out.append({'words': (w, lod),
+                    'label': sent.astype('int64').reshape(-1, 1)})
+    return out
+
+
+def ragged_lstm_batches(rs, n, lens=None, batch=LSTM_CHECK_B):
+    """``n`` batches of ``batch`` sequences of one LoD: lengths ``lens``,
+    or drawn from 0..128 with the second one empty."""
+    if lens is None:
+        lens = rs.randint(0, LSTM_BUCKETS[-1] + 1, batch)
+        lens[1] = 0
+    lod = [[0] + [int(v) for v in np.cumsum(lens)]]
+    return [{'words': (rs.randint(0, LSTM_VOCAB, (lod[0][-1], 1))
+                       .astype('int64'), lod),
+             'label': rs.randint(0, 2, (batch, 1)).astype('int64')}
+            for _ in range(n)], [int(v) for v in lens]
+
+
+def lstm_init(fluid, build):
+    """(main, loss, {name: array}) of ``build``'s program, its startup run
+    on the card."""
+    main, startup, loss = build(fluid)
+    exe = fluid.Executor()
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    return main, loss, state_arrays(s0)
+
+
+def lstm_hold(torch, kt, fluid, build, batches, what):
+    """``build``'s program on the card against the CPU Executor: a
+    ``run()`` step on each of ``batches`` from one initialization, the
+    losses within 1e-4 relative and every parameter and Adam moment within
+    1e-3 of its largest magnitude (`PERF.md` §2's f32 limits). Returns
+    (summary, {path launch counts of the card's steps})."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    main, loss, init = lstm_init(fluid, build)
+    runs, counts = {}, None
+    for side, place in (('card', None), ('cpu', fluid.CPUPlace())):
+        e = fluid.Executor(place)
+        scope = scope_from_numpy(init, device=e.device)
+        kt.reset_counts()
+        losses = [float(e.run(main, feed=b, fetch_list=[loss],
+                              scope=scope)[0][0]) for b in batches]
+        if place is None:
+            counts = kt.launch_counts()
+        runs[side] = (losses, state_arrays(scope))
+    (got, gstate), (want, wstate) = runs['card'], runs['cpu']
+    held, failures = hold_steps(got, want, gstate, wstate, {
+        'params': ([p.name for p in main.all_parameters()], 1e-3, 'own'),
+        'moments': ([n for n in wstate if '_moment' in n], 1e-3, 'own')},
+        1e-4)
+    out = dict(model=what, steps=len(batches), **held)
+    if failures:
+        emit(dict(phase='stacked_lstm_hold', **out))
+        raise AssertionError('%s on the card off the CPU: %s'
+                             % (what, '; '.join(failures)))
+    return out, counts
+
+
+def lstm_mixed_fused(torch, fluid, batches):
+    """``run_fused`` over ``batches`` (runs of consecutive batches of two
+    LoDs) on the card against as many ``run()`` calls from the same
+    initialization: the last loss within 1e-4 relative, the state within
+    1e-3 of each tensor's largest magnitude, one bound plan a LoD each
+    captured once; whether the two are bitwise equal is reported."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    main, loss, init = lstm_init(fluid, stacked_lstm_program)
+    ref_exe, exe = fluid.Executor(), fluid.Executor()
+    ref = scope_from_numpy(init, device=ref_exe.device)
+    want = [float(ref_exe.run(main, feed=b, fetch_list=[loss],
+                              scope=ref)[0][0]) for b in batches]
+    scope = scope_from_numpy(init, device=exe.device)
+    got = float(exe.run_fused(main, batches, fetch_list=[loss],
+                              scope=scope)[0][0])
+    plans = [e.bound[scope] for _, e in exe._cache.items()
+             if scope in e.bound]
+    gstate, wstate = state_arrays(scope), state_arrays(ref)
+    held, failures = hold_steps([got], want[-1:], gstate, wstate, {
+        'state': (sorted(wstate), 1e-3, 'own')}, 1e-4)
+    lods = [len(b['words'][1][0]) - 1 for b in batches]
+    out = dict(phase='stacked_lstm_fused_mixed', steps=len(batches),
+               lods=len(set(tuple(b['words'][1][0]) for b in batches)),
+               sequences=lods, plans=len(plans),
+               captures=[p.captures for p in plans],
+               replays=[p.replays for p in plans],
+               bitwise_equal=sum(np.array_equal(gstate[k], wstate[k])
+                                 for k in wstate),
+               state_tensors=len(wstate), **held)
+    if len(plans) != out['lods'] or any(p.captures != 1 for p in plans):
+        failures.append('%d bound plans captured %s times for %d LoDs'
+                        % (len(plans), out['captures'], out['lods']))
+    exe.close()
+    ref_exe.close()
+    return out, failures
+
+
+def htod_copies(torch, fn):
+    """(host-to-device copies, device kernels) the profiler records over
+    one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    copies = sum(e.count for e in events if 'HtoD' in e.key)
+    kernels = sum(e.count for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA and
+                  'Memcpy' not in e.key and 'Memset' not in e.key)
+    return copies, kernels
+
+
+def lstm_bucket(torch, kt, exe, main, loss, scope, sl, batches, per_step):
+    """One bucket of phase 19 (module docstring): eager ``run()`` steps,
+    one profiled eager step, then the bench's ``run_fused`` window on the
+    batches staged on the card. Returns (summary, launch counts of its
+    eager and fused steps)."""
+    dev = [{'words': (torch.from_numpy(b['words'][0]).to(exe.device),
+                      b['words'][1]),
+            'label': torch.from_numpy(b['label']).to(exe.device)}
+           for b in batches]
+    out = dict(seq_len=sl, tokens_per_batch=LSTM_B * sl)
+    step = lambda i: exe.run(main, feed=dev[i % len(dev)], fetch_list=[loss],
+                             scope=scope, return_numpy=False)[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kt.reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(LSTM_EAGER_STEPS):
+        losses.append(step(i))
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kt.launch_counts()
+    want = {k: LSTM_EAGER_STEPS * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError('stacked_lstm seq %d: %d eager steps launched '
+                             '%s, not %s' % (sl, LSTM_EAGER_STEPS, counts,
+                                             want))
+    eager = dict(steps=LSTM_EAGER_STEPS,
+                 losses=[float(v) for v in torch.cat(losses).cpu()],
+                 first_step_ms=(t1 - t0) * 1e3,
+                 step_ms=(t2 - t1) * 1e3 / (LSTM_EAGER_STEPS - 1),
+                 peak_mem_bytes=torch.cuda.max_memory_allocated() - base)
+    kt.reset_counts()
+    eager['step_profile'] = step_profile(torch, lambda: step(0), steps=1)
+    extra = kt.launch_counts()
+    counts = {k: counts[k] + extra[k] for k in counts}
+    out['eager'] = eager
+    lod = batches[0]['words'][1]
+    stacked = {'words': (torch.stack([d['words'][0] for d in dev]), lod),
+               'label': torch.stack([d['label'] for d in dev])}
+    torch.cuda.reset_peak_memory_stats()
+    fused, fcounts = fused_timing(torch, kt, exe, main, loss, scope, stacked,
+                                  per_step, steps=LSTM_FUSED_STEPS,
+                                  rounds=LSTM_FUSED_ROUNDS)
+    fused['peak_mem_bytes'] = torch.cuda.max_memory_allocated() - base
+    kt.reset_counts()
+    copies, kernels = htod_copies(torch, lambda: exe.run_fused(
+        main, stacked, fetch_list=[loss], scope=scope, return_numpy=False,
+        steps=2)[0].cpu())
+    fused['htod_copies_in_2_steps'] = copies
+    fused['device_kernels_in_2_steps'] = kernels
+    if copies:
+        raise AssertionError('stacked_lstm seq %d: %d host-to-device copies '
+                             'in two fused steps' % (sl, copies))
+    extra = kt.launch_counts()
+    counts = {k: counts[k] + fcounts[k] + extra[k] for k in counts}
+    out['fused'] = fused
+    prof = eager['step_profile']
+    out.update(
+        step_ms=fused['step_ms'], eager_step_ms=eager['step_ms'],
+        samples_per_s=LSTM_B / (fused['step_ms'] / 1e3),
+        tokens_per_s=LSTM_B * sl / (fused['step_ms'] / 1e3),
+        eager_samples_per_s=LSTM_B / (eager['step_ms'] / 1e3),
+        launches_per_step=prof['launches_per_step'],
+        busy_share=prof['busy_share'], device_ms=prof['device_ms_per_step'],
+        peak_mem_bytes=max(eager['peak_mem_bytes'],
+                           fused['peak_mem_bytes']),
+        loss_first=eager['losses'][0], loss_last=fused['losses'][-1])
+    trail = eager['losses'] + fused['losses']
+    if not all(np.isfinite(trail)):
+        raise AssertionError('stacked_lstm seq %d: a non-finite loss: %s'
+                             % (sl, trail))
+    return out, counts
+
+
+def run_stacked_lstm(torch, kt, smi):
+    """Phase 19 (module docstring). Returns {path: launch counts}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    per_step = dict.fromkeys(kt.KERNELS, 0)
+    per_step['embedding_gather'] = 1
+    by_path = {}
+    rs = np.random.RandomState(19)
+    # (a) the ragged holds at B 4 against the CPU Executor
+    hold_batches, lens = ragged_lstm_batches(rs, LSTM_CHECK_STEPS)
+    for what, build in (('stacked_lstm', stacked_lstm_program),
+                        ('gru_conv_max_pool', gru_text_program)):
+        held, counts = lstm_hold(torch, kt, fluid, build, hold_batches, what)
+        emit(dict(phase='stacked_lstm_hold', card=smi, lengths=lens,
+                  launches=counts, **held))
+        by_path[what + '_hold'] = counts
+    # (b) run_fused over two LoDs in runs (A, A, B, A) against run() calls
+    other, lens_b = ragged_lstm_batches(rs, 1)
+    mixed = [hold_batches[0], hold_batches[1], other[0], hold_batches[2]]
+    out, failures = lstm_mixed_fused(torch, fluid, mixed)
+    out.update(card=smi, lengths=[lens, lens_b])
+    emit(out)
+    if failures:
+        raise AssertionError('mixed-LoD run_fused off run(): %s'
+                             % '; '.join(failures))
+    torch.cuda.empty_cache()
+
+    # (c) the bench's row: B 32 at each bucket length, eager and fused
+    t = time.perf_counter()
+    main, loss, init = lstm_init(fluid, stacked_lstm_program)
+    build_s = time.perf_counter() - t
+    rng = np.random.RandomState(0)
+    tok_score = rng.randn(LSTM_VOCAB).astype('float32')
+    exe = fluid.Executor()
+    scope = scope_from_numpy(init, device=exe.device)
+    row = dict(phase='stacked_lstm', card=smi, batch=LSTM_B,
+               buckets=list(LSTM_BUCKETS), vocab=LSTM_VOCAB,
+               embedding=LSTM_EMB, hidden=LSTM_HID, layers=LSTM_LAYERS,
+               ops=len(main.global_block().ops),
+               param_count=int(sum(init[p.name].size
+                                   for p in main.all_parameters())),
+               build_s=build_s, launches_per_step_hand_written=per_step,
+               cut='steps a window 30 -> %d, rounds -> %d'
+                   % (LSTM_FUSED_STEPS, LSTM_FUSED_ROUNDS))
+    counts = dict.fromkeys(kt.KERNELS, 0)
+    buckets, total_s, samples, tokens = {}, 0.0, 0, 0
+    for sl in LSTM_BUCKETS:
+        batches = lstm_batches(rng, tok_score, sl, LSTM_FUSED_STEPS)
+        res, c = lstm_bucket(torch, kt, exe, main, loss, scope, sl, batches,
+                             per_step)
+        buckets['seq%d' % sl] = res
+        counts = {k: counts[k] + c[k] for k in counts}
+        total_s += res['step_ms'] / 1e3
+        samples += LSTM_B
+        tokens += LSTM_B * sl
+        emit(dict(phase='stacked_lstm_bucket', card=smi, **res))
+        torch.cuda.empty_cache()
+    row.update(
+        samples_per_s=samples / total_s, tokens_per_s=tokens / total_s,
+        step_ms=total_s / len(LSTM_BUCKETS) * 1e3,
+        buckets={k: {n: v[n] for n in (
+            'step_ms', 'eager_step_ms', 'samples_per_s', 'tokens_per_s',
+            'launches_per_step', 'busy_share', 'device_ms',
+            'peak_mem_bytes')} for k, v in buckets.items()},
+        captures=sum(v['fused']['captures'] for v in buckets.values()),
+        loss_first=buckets['seq%d' % LSTM_BUCKETS[0]]['loss_first'],
+        loss_last=buckets['seq%d' % LSTM_BUCKETS[-1]]['loss_last'])
+    row['loss_fell'] = row['loss_last'] < row['loss_first']
+    emit(row)
+    by_path['stacked_lstm'] = counts
+    exe.close()
+    del scope
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4587,6 +5004,8 @@ def main():
     by_path.update(run_inference(torch, kt, smi))
     by_path.update(run_image_training(torch, kt, smi))
     by_path.update(run_optimizer_checks(torch, kt, smi))
+    merge('stacked_lstm', check_lstm_gather(torch, F))
+    by_path.update(run_stacked_lstm(torch, kt, smi))
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {

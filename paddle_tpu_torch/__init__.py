@@ -12,7 +12,9 @@ the deploy path (``io.save_inference_model`` prunes a program for
 inference, ``create_predictor`` serves it) with the image classifiers as
 programs (``models.resnet``, ``models.se_resnext``, ``models.vgg``:
 conv2d, batch_norm, pool2d), trained under bf16 AMP with
-``keep_bf16_activations``; the flagship causal LM's
+``keep_bf16_activations``; ragged (LoD) sequences (``(array, lod)``
+feeds, ``create_lod_tensor``, ``DataFeeder``) through the sequence ops
+and ``layers.dynamic_lstm``/``dynamic_gru``; the flagship causal LM's
 continuous-batching decode engine (``serving.GenerateEngine``), its
 training step as a model (``models.transformer.TransformerLM.loss`` with
 ``optimizer.TensorAdam``) and BERT-base pretraining
@@ -42,6 +44,10 @@ from . import io
 from .io import load_inference_model, save_inference_model
 from . import inference
 from .inference import Predictor, PredictorConfig, create_predictor
+from . import lod_tensor
+from .lod_tensor import (LoDTensor, create_lod_tensor,
+                         create_random_int_lodtensor)
+from .data_feeder import DataFeeder
 
 __all__ = ['CPUPlace', 'CUDAPlace', 'resolve_device', 'launch_counts',
            'reset_counts', 'Program', 'Variable', 'Parameter',
@@ -51,4 +57,6 @@ __all__ = ['CPUPlace', 'CUDAPlace', 'resolve_device', 'launch_counts',
            'optimizer', 'initializer', 'unique_name', 'io', 'clip',
            'nets', 'regularizer',
            'save_inference_model', 'load_inference_model', 'inference',
-           'PredictorConfig', 'Predictor', 'create_predictor']
+           'PredictorConfig', 'Predictor', 'create_predictor',
+           'lod_tensor', 'LoDTensor', 'create_lod_tensor',
+           'create_random_int_lodtensor', 'DataFeeder']

@@ -35,9 +35,27 @@ captured the plan can register it and draw each replay's masks from the
 seed set before that replay (executor.py `BoundProgram`). Its bits are not
 the JAX package's threefry bits: the two packages draw different masks,
 and agree only where nothing is dropped.
+
+Ragged sequences carry a static LoD (core/lod.py), as in the JAX package:
+the executor hands the plan the LoDs of the feeds and of the scope's state
+(``static_lods``), which are part of the plan's key. An op reads its
+input's LoD with :meth:`LowerContext.in1_lod` and sets its output's with
+:meth:`LowerContext.set_lod`; every other output takes the LoD of the
+first LoD-carrying input whose leading dimension it shares (`_share_lod`,
+Fluid's default ShareLoD), unless its op is registered
+``share_lod=False``. After each run ``plan.lod_out`` holds the LoD of
+every value, which the executor attaches to fetches and keeps in the
+scope for written state. The index maps a sequence op derives from a LoD
+are device tensors built once per plan (:meth:`LowerContext.memo`, keyed
+by the op's index): no run copies one from the host, so a CUDA graph of
+the plan replays no host-to-device copy. Shape-bearing feeds (an op's
+``static_inputs``) reach the lowering as numpy (``static_feed``,
+:meth:`LowerContext.static_value`), and key the plan by their values.
 """
+import numpy as np
 import torch
 
+from .lod import normalize_lod
 from .registry import get_op
 
 __all__ = ['LowerContext', 'RunRNG', 'lower_ops', 'lower_block',
@@ -91,6 +109,8 @@ class _Plan(object):
                            if self.live[i] and op.attr('seed', 0) and
                            _needs_rng(self.defs[i], op)}
         self.memo = {}
+        # {name: LoD} of every value after the last run (module docstring)
+        self.lod_out = {}
 
 
 def _needs_rng(opdef, op):
@@ -132,7 +152,7 @@ class LowerContext(object):
     """The environment while one block runs: var name -> torch tensor."""
 
     def __init__(self, program, block, env, device, rng=None, wrt=(),
-                 plan=None):
+                 plan=None, lods=None, statics=None):
         self.program = program
         self.block = block
         self.env = env
@@ -142,6 +162,14 @@ class LowerContext(object):
         self.wrt = set(wrt)
         self.plan = plan
         self._run_memo = {}
+        # var name -> static LoD (a tuple of offset tuples)
+        self.lods = lods if lods is not None else {}
+        # names whose LoD an op set (or cleared) itself: `_share_lod` leaves
+        # them alone
+        self.lod_explicit = set()
+        # var name -> numpy value of a shape-bearing input
+        self.statics = statics if statics is not None else {}
+        self._static_written = set()
 
     # ---- reading inputs --------------------------------------------------
     def get(self, name):
@@ -185,6 +213,49 @@ class LowerContext(object):
 
     def var(self, name):
         return self.block._find_var_recursive(name)
+
+    # ---- static LoD and static values --------------------------------------
+    def lod_of(self, name):
+        """The static LoD of a variable, () for a dense one."""
+        return self.lods.get(name, ())
+
+    def set_lod(self, name, lod):
+        lod = normalize_lod(lod)
+        self.lod_explicit.add(name)
+        if lod:
+            self.lods[name] = lod
+        else:
+            self.lods.pop(name, None)
+
+    def in1_lod(self, op, slot):
+        names = op.input(slot)
+        return self.lods.get(names[0], ()) if names else ()
+
+    def set_static(self, name, value):
+        """Record the value of an output that is a function of static LoDs
+        alone (``sequence_pad``'s Length), for a ``static_inputs`` reader
+        downstream."""
+        self.statics[name] = np.asarray(value)
+        self._static_written.add(name)
+
+    def static_value(self, name):
+        """The numpy value of a shape-bearing input: a feed named in an
+        op's ``static_inputs`` or a value an op recorded with
+        :meth:`set_static`."""
+        if name in self.statics:
+            return self.statics[name]
+        raise ValueError(
+            "op #%d (%s) needs the value of %r when its plan is built (its "
+            "output's layout depends on it): feed it, so that the executor "
+            "binds it with the plan" % (self.op_index,
+                                        self.block.ops[self.op_index].type,
+                                        name))
+
+    def in1_static(self, op, slot, default=None):
+        names = op.input(slot)
+        if not names:
+            return default
+        return self.static_value(names[0])
 
     def memo(self, key, build):
         """A constant built once per run plan (so once per device):
@@ -230,8 +301,41 @@ def lower_ops(ctx, ops, lo, hi):
     for i in range(lo, hi):
         if live[i]:
             ctx.op_index = i
-            defs[i].lower(ctx, ops[i])
+            op = ops[i]
+            if ctx.statics:
+                ctx._static_written = set()
+                defs[i].lower(ctx, op)
+                for n in op.output_arg_names:
+                    if n not in ctx._static_written:
+                        ctx.statics.pop(n, None)
+            else:
+                defs[i].lower(ctx, op)
+            if ctx.lods and defs[i].share_lod:
+                _share_lod(ctx, op)
             _free(ctx, i)
+
+
+def _share_lod(ctx, op):
+    """The default LoD propagation (the JAX package's `_share_lod`, Fluid's
+    InferShapeContext::ShareLoD): each output whose leading dimension
+    equals that of the op's first LoD-carrying input takes its LoD, unless
+    the op set or cleared the output's LoD itself or it has one."""
+    in_lod = lead = None
+    for n in op.input_arg_names:
+        lod = ctx.lods.get(n)
+        if lod and n in ctx.env:
+            v = ctx.env[n]
+            if v.dim() >= 1:
+                in_lod, lead = lod, v.shape[0]
+                break
+    if in_lod is None:
+        return
+    for n in op.output_arg_names:
+        if n in ctx.lods or n in ctx.lod_explicit or n not in ctx.env:
+            continue
+        v = ctx.env[n]
+        if v.dim() >= 1 and v.shape[0] == lead:
+            ctx.lods[n] = in_lod
 
 
 def _free(ctx, i):
@@ -327,25 +431,35 @@ def analyze_state(program, fetch_names=()):
     return read, written
 
 
-def build_fn(program, fetch_names, read_names, written_names, device):
+def build_fn(program, fetch_names, read_names, written_names, device,
+             static_lods=None, static_feed=None):
     """The run plan of (program, fetch list) as a function
     ``fn(feed, state, rng) -> (fetches, new_state)`` over {name: tensor}
     dicts on ``device``; ``rng`` is a :class:`RunRNG` of the plan, seeded
-    for this run (None for a program that draws nothing). Sub-blocks
-    (control flow) wait for a later slice."""
+    for this run (None for a program that draws nothing).
+    ``static_lods`` ({name: LoD} of the feeds and the scope's state) and
+    ``static_feed`` ({name: numpy} of the shape-bearing feeds) are the
+    plan's, fixed by its key; after each run ``plan.lod_out`` holds every
+    value's LoD. Sub-blocks (control flow) wait for a later slice."""
     if len(program.blocks) > 1:
         raise NotImplementedError(
             'programs with sub-blocks (control flow) wait for a later slice '
             'of paddle_tpu_torch')
     plan = _Plan(program, fetch_names, written_names)
     block = program.global_block()
+    static_lods = {n: normalize_lod(l) for n, l in (static_lods or {})
+                   .items() if l}
+    static_feed = dict(static_feed or {})
 
     def fn(feed, state, rng=None):
         env = dict(feed)
         env.update(state)
-        ctx = LowerContext(program, block, env, device, rng=rng, plan=plan)
+        ctx = LowerContext(program, block, env, device, rng=rng, plan=plan,
+                           lods=dict(static_lods),
+                           statics=dict(static_feed))
         with torch.no_grad():
             lower_block(ctx)
+        plan.lod_out = ctx.lods
         env = ctx.env
         missing = [n for n in fetch_names if n not in env]
         if missing:

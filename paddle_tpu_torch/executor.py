@@ -16,12 +16,22 @@ every kernel wrapper takes its plain version.
   tensors on the device; a fetched state variable is then a copy, since the
   optimizers update state in place). A bf16 fetch (an activation kept
   bf16 by the AMP pass) comes back as a float32 array.
+- Ragged feeds: a feed may be an ``(array, lod)`` pair (offsets, or
+  lengths as ``create_lod_tensor`` takes them) or a `LoDTensor`; its LoD
+  must end at the array's leading dimension (else ValueError). The LoDs
+  of the feeds, and those the scope keeps for state a run wrote
+  (``scope._lods``), are static in the plan (core/lowering.py); a fetch
+  that carries a LoD comes back as a `FetchedTensor`, a numpy array with
+  ``.lod()`` and ``.recursive_sequence_lengths()`` (with
+  ``return_numpy=False`` too: the LoD is the point of fetching it, as in
+  the JAX executor).
 - Run plans are cached per executor by (program, version, feed signature,
-  fetch list), the key the JAX executor's `_feed_signature` builds, in a
-  least-recently-used cache of ``PADDLE_EXECUTOR_CACHE_SIZE`` entries
-  (default 64, read at each insert; the JAX executor's `_LRUCache`): the
-  op list, the lowerings and the state names are resolved once per key,
-  and constants are built once per plan.
+  fetch list, LoDs, values of the shape-bearing feeds), the key the JAX
+  executor's `_feed_signature` builds, in a least-recently-used cache of
+  ``PADDLE_EXECUTOR_CACHE_SIZE`` entries (default 64, read at each
+  insert; the JAX executor's `_LRUCache`): the op list, the lowerings and
+  the state names are resolved once per key, and constants are built
+  once per plan.
 - The RNG stream is counted as the JAX executor counts it (`_run_seed`,
   `_next_program_run`, core/lowering.py `_needs_rng`): a seeded program
   draws from (random_seed, its own run index), so it replays its
@@ -36,12 +46,15 @@ every kernel wrapper takes its plain version.
   autograd and the optimizer; every later step stages the feeds (one copy),
   re-seeds the run's generators, replays and reads the fetches once. On
   the CPU the same object runs the plan eagerly through the same staging.
+  A bound plan holds one LoD: `bind` takes the LoD of its feed, and
+  ``run_fused`` splits a list of feeds whose LoDs differ into runs of
+  consecutive feeds of one LoD, in order, each on its own bound plan.
 
 The scope holds torch tensors on the run's device. State given as numpy
 arrays (or tensors elsewhere) is copied there on first read and cached
 back into the scope; the optimizer ops then update those tensors in
-place. `run_async`, `precompile`, `explain`, donation, LoD feeds,
-segmented host ops and the monitor counters wait for later slices.
+place. `run_async`, `precompile`, `explain`, donation, segmented host
+ops and the monitor counters wait for later slices.
 """
 import collections
 import os
@@ -53,11 +66,13 @@ import torch
 
 from . import ops  # noqa: F401  (registers every op's lowering)
 from .core import graphs, lowering
+from .core.lod import lengths_from_offsets, normalize_lod
+from .core.registry import get_op, has_op
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program, resolve_device
 
-__all__ = ['Executor', 'BoundProgram', 'Scope', 'global_scope',
-           'scope_guard']
+__all__ = ['Executor', 'BoundProgram', 'FetchedTensor', 'Scope',
+           'global_scope', 'scope_guard']
 
 
 class _TensorShim(object):
@@ -77,6 +92,12 @@ class _TensorShim(object):
     def set(self, value, place=None):
         self._scope._vars[self._name] = np.array(value)
 
+    def set_lod(self, lod):
+        self._scope._lods[self._name] = normalize_lod(lod)
+
+    def lod(self):
+        return [list(l) for l in self._scope._lods.get(self._name, ())]
+
 
 class _VarShim(object):
     def __init__(self, scope, name):
@@ -89,10 +110,12 @@ class _VarShim(object):
 
 class Scope(object):
     """A flat name -> value store of persistable state (torch tensors, or
-    numpy arrays not yet read by a run)."""
+    numpy arrays not yet read by a run); ``_lods`` keeps the LoD of state
+    a run wrote with one."""
 
     def __init__(self):
         self._vars = {}
+        self._lods = {}
 
     def get(self, name, default=None):
         return self._vars.get(name, default)
@@ -152,6 +175,39 @@ def _to_numpy(v):
             v = v.float()
         return v.detach().to('cpu', copy=True).numpy()
     return np.asarray(v)
+
+
+class FetchedTensor(np.ndarray):
+    """A fetched numpy array with its LoD (the JAX executor's
+    `FetchedTensor`)."""
+
+    def lod(self):
+        return [list(l) for l in getattr(self, '_lod', ())]
+
+    def recursive_sequence_lengths(self):
+        return [list(lengths_from_offsets(l))
+                for l in getattr(self, '_lod', ())]
+
+
+def _fetched(arr, lod):
+    out = np.asarray(arr).view(FetchedTensor)
+    out._lod = normalize_lod(lod)
+    return out
+
+
+def _split_lod_feed(value):
+    """(value, LoD) of a feed: an ``(array, lod)`` pair, a `LoDTensor` (or
+    anything with a ``lod()`` method that is not an array), a
+    `FetchedTensor`, or a dense value with LoD ()."""
+    if isinstance(value, tuple) and len(value) == 2 and \
+            isinstance(value[1], (list, tuple)):
+        return value[0], normalize_lod(value[1])
+    if isinstance(value, FetchedTensor):
+        return np.asarray(value), normalize_lod(value.lod())
+    lod_m = getattr(value, 'lod', None)
+    if callable(lod_m) and not isinstance(value, (np.ndarray, torch.Tensor)):
+        return np.asarray(value), normalize_lod(lod_m())
+    return value, ()
 
 
 def _run_seed(random_seed, program_runs, global_counter):
@@ -269,10 +325,11 @@ class _BoundPlan(object):
     CPU eagerly; on the card the first step eagerly on a side stream, the
     next one captured on that stream and every step a replay."""
 
-    def __init__(self, exe, entry, program, feed):
+    def __init__(self, exe, entry, program, feed, lods):
         self.exe = exe
         self.entry = entry
         self.program = program
+        self.lods = dict(lods)          # the LoD of each ragged feed
         self.names = sorted(feed)
         self.feeds = graphs.FeedBuffer(
             [(tuple(feed[n].shape), _numpy_dtype(feed[n].dtype))
@@ -291,12 +348,22 @@ class _BoundPlan(object):
 
     def stage(self, feed):
         """Copy ``feed`` ({name: numpy array or tensor}, exactly the bound
-        names, shapes and dtypes, else ValueError) into the static feeds."""
+        names, shapes and dtypes, else ValueError) into the static feeds. A
+        ragged feed may come with its LoD (an ``(array, lod)`` pair or a
+        `LoDTensor`), which must be the bound one, or bare."""
         if sorted(feed) != self.names:
             raise ValueError('a bound program takes the feeds %s, got %s'
                              % (self.names, sorted(feed)))
-        values = [feed[n] if isinstance(feed[n], torch.Tensor)
-                  else np.asarray(feed[n]) for n in self.names]
+        values = []
+        for n in self.names:
+            v, lod = _split_lod_feed(feed[n])
+            if lod and lod != self.lods.get(n, ()):
+                raise ValueError(
+                    'a bound program holds feed %r at the LoD %s, got %s'
+                    % (n, [list(l) for l in self.lods.get(n, ())],
+                       [list(l) for l in lod]))
+            values.append(v if isinstance(v, torch.Tensor) else
+                          np.asarray(v))
         self.feeds.check('bound program', values)
         self.feeds.stage(values)
 
@@ -318,13 +385,14 @@ class _BoundPlan(object):
             graphs.replay(self.graph, self.launches)
             self.replays += 1
         scope.update(self.written)
+        _keep_lods(scope, self.entry)
 
     def fetches(self, return_numpy):
         """The last step's fetches: numpy arrays, or copies on the device
-        (the static copies are overwritten by the next step)."""
-        if return_numpy:
-            return [_to_numpy(o) for o in self.outputs]
-        return [o.clone() for o in self.outputs]
+        (the static copies are overwritten by the next step); a fetch with
+        a LoD is a `FetchedTensor`."""
+        return _fetch_values(self.entry, self.outputs, return_numpy,
+                             [True] * len(self.outputs))
 
     def _stage_state(self, scope):
         if self.state is None:
@@ -461,17 +529,16 @@ class Executor(object):
                             for k, v in feed.items()))
 
     def _prepare_feed(self, program, feed):
-        """{name: tensor on the device}: numpy, lists and tensors in; a
-        value whose dtype differs from its variable's is converted as the
-        JAX executor converts it (ints to the variable's int type, floats
-        to its float type, float64 always)."""
-        out = {}
+        """({name: tensor on the device}, {name: LoD}): numpy, lists,
+        tensors and ragged feeds (`_split_lod_feed`) in; a value whose dtype
+        differs from its variable's is converted as the JAX executor
+        converts it (ints to the variable's int type, floats to its float
+        type, float64 always). A LoD must end at its array's leading
+        dimension."""
+        out, lods = {}, {}
         gb = program.global_block()
         for name, value in feed.items():
-            if isinstance(value, tuple):
-                raise NotImplementedError(
-                    'feed %r: LoD feeds ((array, lod) pairs) wait for a '
-                    'later slice of paddle_tpu_torch' % name)
+            value, lod = _split_lod_feed(value)
             var = gb._find_var_recursive(name)
             t = value if isinstance(value, torch.Tensor) else \
                 torch.from_numpy(np.asarray(value))
@@ -482,7 +549,46 @@ class Executor(object):
                 if t.dtype != tgt and (src_f == tgt_f or
                                        t.dtype == torch.float64):
                     t = t.to(tgt)
+            if lod:
+                if t.dim() == 0 or lod[-1][-1] != t.shape[0]:
+                    raise ValueError(
+                        "feed %r: LoD %s does not cover the array's leading "
+                        "dimension %s: the offsets' last entry must equal "
+                        "it (pass lengths through create_lod_tensor or "
+                        "recursive_sequence_lengths)"
+                        % (name, [list(l) for l in lod],
+                           t.shape[0] if t.dim() else None))
+                lods[name] = lod
             out[name] = t.to(self.device)
+        return out, lods
+
+    @staticmethod
+    def _static_feed_names(program):
+        """The feeds read through an op's ``static_inputs`` slot, whose
+        values set a layout (cached per program version)."""
+        cached = getattr(program, '_static_names_cache', None)
+        if cached is not None and cached[0] == program._version:
+            return cached[1]
+        names = set()
+        for block in program.blocks:
+            for op in block.ops:
+                if has_op(op.type):
+                    for slot in get_op(op.type).static_inputs:
+                        names.update(op.input(slot))
+        program._static_names_cache = (program._version, names)
+        return names
+
+    def _statics(self, program, feed):
+        """{name: numpy} of the shape-bearing feeds among ``feed``."""
+        return {n: _to_numpy(feed[n])
+                for n in self._static_feed_names(program) if n in feed}
+
+    @staticmethod
+    def _static_lods(scope, lods):
+        """The plan's static LoDs: those the scope keeps for state, then the
+        feeds'."""
+        out = {n: l for n, l in scope._lods.items() if l}
+        out.update(lods)
         return out
 
     def _state_value(self, scope, name):
@@ -522,26 +628,33 @@ class Executor(object):
         return [n for n in read if n not in feed_names and not (
             n in first_write and first_write[n] < first_read.get(n, end + 1))]
 
-    def _build(self, program, feed_names, fetch_names):
+    def _build(self, program, feed_names, fetch_names, lods, statics):
         read, written = lowering.analyze_state(program, fetch_names)
         needed = self._read_before_write(program, read, written, feed_names,
                                          fetch_names)
         fn, plan = lowering.build_fn(program, fetch_names, needed, written,
-                                     self.device)
+                                     self.device, static_lods=lods,
+                                     static_feed=statics)
         needs_rng = any(lowering._needs_rng(d, op)
                         for d, op in zip(plan.defs, plan.ops))
         state = set(read) | set(written)
         return _Entry(fn, plan, needed, written, needs_rng, fetch_names,
                       [n in state for n in fetch_names], self.device)
 
-    def _entry(self, program, feed, fetch_names, use_program_cache=True):
+    def _entry(self, program, feed, fetch_names, lods=None, statics=None,
+               use_program_cache=True):
         """The cached run plan of (program, its version, the feed
-        signature, the fetch list), built on a miss."""
+        signature, the fetch list, the static LoDs, the values of the
+        shape-bearing feeds), built on a miss."""
+        lods, statics = lods or {}, statics or {}
         key = (program._uid, program._version, self._feed_signature(feed),
-               tuple(fetch_names))
+               tuple(fetch_names), tuple(sorted(lods.items())),
+               tuple(sorted((k, v.dtype.str, v.shape, v.tobytes())
+                            for k, v in statics.items())))
         entry = self._cache.get(key) if use_program_cache else None
         if entry is None:
-            entry = self._build(program, set(feed), fetch_names)
+            entry = self._build(program, set(feed), fetch_names, lods,
+                                statics)
             if use_program_cache:
                 self._cache[key] = entry
         return entry
@@ -577,9 +690,11 @@ class Executor(object):
         program = self._check_program(program, 'run')
         if scope is None:
             scope = global_scope()
-        feed = self._prepare_feed(program, feed or {})
+        feed, lods = self._prepare_feed(program, feed or {})
         fetch_names = self._fetch_names(fetch_list)
-        entry = self._entry(program, feed, fetch_names, use_program_cache)
+        entry = self._entry(program, feed, fetch_names,
+                            self._static_lods(scope, lods),
+                            self._statics(program, feed), use_program_cache)
         state = {n: self._state_value(scope, n) for n in entry.read_names}
         # generators of this run's own: a cached plan may run on two
         # threads at once
@@ -587,21 +702,28 @@ class Executor(object):
             entry.plan, self.device) if entry.needs_rng else None)
         fetches, new_state = entry.fn(feed, state, rng)
         scope.update(new_state)
-        if return_numpy:
-            return [_to_numpy(f) for f in fetches]
-        # state is updated in place by later runs: a fetched state
-        # variable is handed out as a copy
-        return [f.clone() if aliased else f
-                for f, aliased in zip(fetches, entry.state_fetches)]
+        _keep_lods(scope, entry)
+        # state is updated in place by later runs: a fetched state variable
+        # is handed out as a copy
+        return _fetch_values(entry, fetches, return_numpy,
+                             entry.state_fetches)
 
     # ------------------------------------------------------------------
-    def _bound_plan(self, entry, program, scope, feed):
-        """The plan of ``entry`` bound to ``scope`` (one for each pair,
-        shared by `bind` and `run_fused`)."""
+    def _bound_plan(self, program, scope, feed, lods, fetch_names, what):
+        """The cached plan of (program, ``feed``'s signature at ``lods``,
+        the fetch list) bound to ``scope`` (one for each pair, shared by
+        `bind` and `run_fused`). A shape-bearing feed raises ValueError: a
+        bound plan stages new values into the layout it was built for."""
+        static = sorted(self._static_feed_names(program) & set(feed))
+        if static:
+            raise ValueError('%s cannot bind the shape-bearing static feeds '
+                             '%s' % (what, static))
+        entry = self._entry(program, feed, fetch_names,
+                            self._static_lods(scope, lods))
         plan = entry.bound.get(scope)
         if plan is None:
             plan = entry.bound[scope] = _BoundPlan(self, entry, program,
-                                                   feed)
+                                                   feed, lods)
         return plan
 
     def bind(self, program, feed, fetch_list=None, scope=None, donate=None):
@@ -616,39 +738,71 @@ class Executor(object):
         program = self._check_program(program, 'bind')
         if scope is None:
             scope = global_scope()
-        feed = self._prepare_feed(program, feed)
-        entry = self._entry(program, feed, self._fetch_names(fetch_list))
-        plan = self._bound_plan(entry, program, scope, feed)
+        feed, lods = self._prepare_feed(program, feed)
+        plan = self._bound_plan(program, scope, feed, lods,
+                                self._fetch_names(fetch_list), 'bind')
         plan.stage(feed)
         plan.step(scope)
         return BoundProgram(plan, scope, plan.fetches(True), feed)
 
-    def _stack_feeds(self, program, feed_list):
-        """{name: tensor [K, ...] on the device} from K feed dicts of one
-        signature, or from a stacked {name: array or tensor [K, ...]}."""
-        if isinstance(feed_list, dict):
-            stacked = dict(feed_list)
-        else:
-            names = sorted(feed_list[0])
-            for f in feed_list:
-                if sorted(f) != names:
-                    raise ValueError('run_fused: every feed dict takes the '
-                                     'feeds %s, got %s' % (names, sorted(f)))
-            stacked = {}
-            for n in names:
-                vals = [f[n] for f in feed_list]
-                if any(isinstance(v, tuple) for v in vals):
-                    stacked[n] = vals[0]        # raises below, as LoD
-                elif all(isinstance(v, torch.Tensor) for v in vals):
-                    stacked[n] = torch.stack(vals)
-                else:
-                    stacked[n] = np.stack([np.asarray(v) for v in vals])
-        stacked = self._prepare_feed(program, stacked)
+    def _stack(self, program, stacked, lods):
+        """({name: tensor [K, ...] on the device}, K) of a stacked feed,
+        each LoD in ``lods`` covering every one of the K batches."""
+        stacked, _ = self._prepare_feed(program, stacked)
         ks = set(int(t.shape[0]) for t in stacked.values())
         if len(ks) != 1:
             raise ValueError('run_fused: the stacked feeds hold %s batches'
                              % sorted(ks))
+        for n, lod in lods.items():
+            t = stacked[n]
+            if t.dim() < 2 or lod[-1][-1] != t.shape[1]:
+                raise ValueError(
+                    "run_fused: feed %r's LoD %s does not cover its batches' "
+                    "leading dimension %s" % (n, [list(l) for l in lod],
+                                              tuple(t.shape[1:2])))
         return stacked, ks.pop()
+
+    def _fused_segments(self, program, feed_list, steps):
+        """[(stacked feeds, their LoDs, K)]: one for a stacked {name: array
+        or tensor [K, ...]} (a value may be an ``(array, lod)`` pair, the
+        LoD of each batch), or for each run of consecutive feed dicts of
+        one LoD, in order. ``steps`` takes one LoD (else ValueError)."""
+        if isinstance(feed_list, dict):
+            split = {n: _split_lod_feed(v) for n, v in feed_list.items()}
+            lods = {n: l for n, (_, l) in split.items() if l}
+            stacked, k = self._stack(
+                program, {n: v for n, (v, _) in split.items()}, lods)
+            return [(stacked, lods, k)]
+        names = sorted(feed_list[0])
+        runs = []
+        for f in feed_list:
+            if sorted(f) != names:
+                raise ValueError('run_fused: every feed dict takes the '
+                                 'feeds %s, got %s' % (names, sorted(f)))
+            split = {n: _split_lod_feed(f[n]) for n in names}
+            lods = {n: l for n, (_, l) in split.items() if l}
+            vals = {n: v for n, (v, _) in split.items()}
+            if runs and runs[-1][0] == lods:
+                runs[-1][1].append(vals)
+            else:
+                runs.append((lods, [vals]))
+        if len(runs) > 1 and steps:
+            raise ValueError(
+                'run_fused(steps=...) cycles the staged batches and takes '
+                'one LoD; omit steps for a list of mixed LoDs (each run of '
+                'one LoD takes its own steps)')
+        out = []
+        for lods, batch in runs:
+            stacked = {}
+            for n in names:
+                vals = [b[n] for b in batch]
+                if all(isinstance(v, torch.Tensor) for v in vals):
+                    stacked[n] = torch.stack(vals)
+                else:
+                    stacked[n] = np.stack([np.asarray(v) for v in vals])
+            stacked, k = self._stack(program, stacked, lods)
+            out.append((stacked, lods, k))
+        return out
 
     def run_fused(self, program=None, feed_list=None, fetch_list=None,
                   scope=None, return_numpy=True, steps=None, donate=None):
@@ -663,18 +817,53 @@ class Executor(object):
         stream, so a call over K batches equals K ``run()`` calls, draws
         included; the JAX executor instead derives one key a call and folds
         in the step index (the two packages' bits differ anyway, see
-        core/lowering.py). LoD feeds raise. ``donate`` changes nothing (see
-        `bind`)."""
+        core/lowering.py). Ragged feeds: feed dicts whose LoDs differ run
+        as consecutive runs of one LoD, in order, each on the bound plan of
+        its LoD (one capture a LoD), which ``steps`` refuses; a stacked
+        value may be an ``(array [K, ...], lod)`` pair, one LoD for every
+        batch. ``donate`` changes nothing (see `bind`)."""
         if not feed_list:
             return []
         program = self._check_program(program, 'run_fused')
         if scope is None:
             scope = global_scope()
-        stacked, k = self._stack_feeds(program, feed_list)
-        feed0 = {n: t[0] for n, t in stacked.items()}
-        entry = self._entry(program, feed0, self._fetch_names(fetch_list))
-        plan = self._bound_plan(entry, program, scope, feed0)
-        for i in range(int(steps) if steps else k):
-            plan.stage({n: t[i % k] for n, t in stacked.items()})
-            plan.step(scope)
+        fetch_names = self._fetch_names(fetch_list)
+        plan = None
+        for stacked, lods, k in self._fused_segments(program, feed_list,
+                                                     steps):
+            feed0 = {n: t[0] for n, t in stacked.items()}
+            plan = self._bound_plan(program, scope, feed0, lods, fetch_names,
+                                    'run_fused')
+            for i in range(int(steps) if steps else k):
+                plan.stage({n: t[i % k] for n, t in stacked.items()})
+                plan.step(scope)
         return plan.fetches(return_numpy)
+
+
+def _fetch_values(entry, values, return_numpy, copy):
+    """The fetches as a run returns them: one with a LoD as a
+    `FetchedTensor`, the others as numpy arrays or, without
+    ``return_numpy``, as the tensors (a copy of those ``copy`` marks)."""
+    lod_out = entry.plan.lod_out
+    out = []
+    for n, v, c in zip(entry.fetch_names, values, copy):
+        lod = lod_out.get(n)
+        if lod:
+            out.append(_fetched(_to_numpy(v), lod))
+        elif return_numpy:
+            out.append(_to_numpy(v))
+        else:
+            out.append(v.clone() if c else v)
+    return out
+
+
+def _keep_lods(scope, entry):
+    """Keep the LoD of each state variable the plan wrote in the scope (the
+    JAX executor's ``scope._lods``), and drop a stale one."""
+    lod_out = entry.plan.lod_out
+    for n in entry.written_names:
+        lod = lod_out.get(n)
+        if lod:
+            scope._lods[n] = lod
+        else:
+            scope._lods.pop(n, None)

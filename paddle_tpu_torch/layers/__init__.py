@@ -4,7 +4,8 @@ programs.
 The port's own copy of the parts of paddle_tpu/layers that this slice's
 programs call: the flagship LM's `build_lm` (training and inference),
 BERT's `build_bert_pretrain`, the image models' `build` (ResNet,
-SE-ResNeXt, VGG) and the README's quick start. Each layer emits the JAX
+SE-ResNeXt, VGG), the README's quick start, and the sequence models
+(the sequence ops, ``dynamic_lstm``, ``dynamic_gru``). Each layer emits the JAX
 layer's op, letter for letter (type, input and output slots, attrs); the
 rest of the JAX layers wait for later slices.
 """
@@ -13,12 +14,16 @@ from . import tensor
 from . import nn
 from . import ops
 from . import metric_op
+from . import sequence
+from . import rnn
 
 from .io import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
 
 __all__ = []
 __all__ += io.__all__
@@ -26,3 +31,5 @@ __all__ += tensor.__all__
 __all__ += nn.__all__
 __all__ += ops.__all__
 __all__ += metric_op.__all__
+__all__ += sequence.__all__
+__all__ += rnn.__all__

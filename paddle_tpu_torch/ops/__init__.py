@@ -4,4 +4,5 @@ Importing the package registers every program op's lowering
 (core/registry.py) with the module that holds it."""
 from . import (activations, attention_ops, conv_ops,  # noqa: F401
                embedding_ops, ffn_ops, math_ops, meta, metrics_ops, nn_ops,
-               optimizer_ops, random_ops, tensor_ops)
+               optimizer_ops, random_ops, rnn_ops, sequence_ops,
+               tensor_ops)

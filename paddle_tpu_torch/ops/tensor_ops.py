@@ -92,7 +92,7 @@ def _reshape2(ctx, op):
     _xshape(ctx, op, x)
 
 
-@register_op('transpose2')
+@register_op('transpose2', share_lod=False)
 def _transpose2(ctx, op):
     x = ctx.in1(op, 'X')
     ctx.out(op, 'Out', x.permute(*op.attr('axis')))
@@ -145,7 +145,7 @@ def _axis_slices(ctx, name, axis):
         and op.input('Input') == [name] and list(op.attr('axes')) == [axis]))
 
 
-@register_op('gather')
+@register_op('gather', share_lod=False)
 def _gather(ctx, op):
     ctx.out(op, 'Out', gather(ctx.in1(op, 'X'), ctx.in1(op, 'Index')))
 

@@ -26,8 +26,9 @@ and chip_smoke.py.
     parameters and Adam state rtol 1e-4 / atol 1e-5, the K slice of each
     ``*.attn.qkv.b`` within STEPS * lr).
 (c) The contracts: a feed of another name set, shape or dtype raises
-    ValueError, and so does a ragged ``run_fused`` feed list; a LoD feed
-    raises NotImplementedError; the plan cache evicts past
+    ValueError, and so does a ragged ``run_fused`` feed list, a LoD that
+    does not cover its feed's leading dimension, and a bound call with a
+    LoD the program was not bound at; the plan cache evicts past
     ``PADDLE_EXECUTOR_CACHE_SIZE`` and a hit refreshes an entry; a
     `BoundProgram` outlives its plan's eviction and ``close()``.
 (d) `io`: ``save_params(exe, dirname, main)`` of one package is read by
@@ -426,9 +427,11 @@ def test_bound_call_of_another_signature_raises(lm_init):
     with pytest.raises(ValueError):
         exe.run_fused(main, [f, dict(f, tokens=f['tokens'][:2])],
                       fetch_list=[loss], scope=scope)
-    with pytest.raises(NotImplementedError, match='LoD'):
-        exe.run_fused(main, [dict(f, tokens=(f['tokens'], [[0, 2, 4]]))],
+    with pytest.raises(ValueError, match='LoD'):
+        exe.run_fused(main, [dict(f, tokens=(f['tokens'], [[0, 1]]))],
                       fetch_list=[loss], scope=scope)
+    with pytest.raises(ValueError, match='LoD'):
+        bp(dict(f, tokens=(f['tokens'], [[0, len(f['tokens'])]])))
     assert exe.run_fused(main, [], fetch_list=[loss], scope=scope) == []
 
 

@@ -2075,3 +2075,202 @@ def test_bound_momentum_batch_norm_steps_hold_run_calls_by_default(dev):
         for n in floats:
             assert float((bound.get(n) - ref.get(n)).abs().max()) <= \
                 2e-2 * top, n
+
+
+# ---------------------------------------------------------------------------
+# ragged (LoD) sequences: the sequence ops, the recurrences and
+# the bound plans of a LoD on the card, held to the CPU Executor
+
+
+_RAGGED = [[0, 3, 3, 4, 8, 10]]     # lengths 3, 0, 1, 4, 2
+
+
+def _ragged_op_run(place, op_type, inputs, outputs, attrs, weights):
+    """Outputs and input gradients of a one-op program (each float input
+    persistable, its LoD in the scope) whose loss is the sum of each output
+    times ``weights[output]``."""
+    import paddle_tpu_torch as fluid
+    main = fluid.Program()
+    block = main.global_block()
+    scope = fluid.Scope()
+    for slot, items in inputs.items():
+        for name, arr, lod in items:
+            block.create_var(name=name, shape=arr.shape, dtype=arr.dtype,
+                             persistable=True, stop_gradient=False)
+            scope.set(name, arr.copy())
+            if lod:
+                scope._lods[name] = tuple(tuple(l) for l in lod)
+    for n in outputs.values():
+        block.create_var(name=n[0], dtype='float32')
+    block.append_op(type=op_type,
+                    inputs={k: [i[0] for i in v] for k, v in inputs.items()},
+                    outputs=outputs, attrs=attrs)
+    terms = []
+    for n, w in weights.items():
+        block.create_var(name=n + '@w', shape=w.shape, dtype='float32',
+                         persistable=True)
+        scope.set(n + '@w', w)
+        for op, ins, out, at in (
+                ('elementwise_mul', {'X': [n], 'Y': [n + '@w']}, n + '@wx',
+                 {'axis': -1}),
+                ('reduce_sum', {'X': [n + '@wx']}, n + '@s',
+                 {'dim': [0], 'keep_dim': False, 'reduce_all': True})):
+            block.create_var(name=out, dtype='float32')
+            block.append_op(type=op, inputs=ins, outputs={'Out': [out]},
+                            attrs=at)
+        terms.append(n + '@s')
+    loss = block.create_var(name='loss', dtype='float32')
+    block.append_op(type='sum', inputs={'X': terms},
+                    outputs={'Out': [loss]}, attrs={})
+    wrt = [i[0] for v in inputs.values() for i in v]
+    grads = [g.name for _, g in fluid.append_backward(loss,
+                                                      parameter_list=wrt)]
+    names = [n[0] for n in outputs.values()] + grads
+    return dict(zip(names, fluid.Executor(place).run(
+        main, fetch_list=names, scope=scope)))
+
+
+def _ragged_cases():
+    rs = np.random.RandomState(19)
+    f = lambda *s: rs.randn(*s).astype('float32')
+    x = f(10, 6)
+    ties = np.maximum(np.round(rs.randn(10, 6)), 0).astype('float32')
+    sig = {'gate_activation': 'sigmoid', 'cell_activation': 'tanh',
+           'candidate_activation': 'tanh'}
+    c = {}
+    for pool in ('SUM', 'AVERAGE', 'SQRT', 'MAX', 'LAST', 'FIRST'):
+        c['pool_' + pool] = ('sequence_pool', {'X': [('x', x, _RAGGED)]},
+                             {'Out': ['out']}, {'pooltype': pool})
+    c['pool_MAX_ties'] = ('sequence_pool', {'X': [('x', ties, _RAGGED)]},
+                          {'Out': ['out']}, {'pooltype': 'MAX'})
+    c['softmax'] = ('sequence_softmax', {'X': [('x', f(10, 1), _RAGGED)]},
+                    {'Out': ['out']}, {})
+    c['pad'] = ('sequence_pad', {'X': [('x', x, _RAGGED)],
+                                 'PadValue': [('pv', f(1), None)]},
+                {'Out': ['out']}, {'padded_length': 6})
+    c['reverse'] = ('sequence_reverse', {'X': [('x', x, _RAGGED)]},
+                    {'Y': ['out']}, {})
+    c['conv'] = ('sequence_conv', {'X': [('x', x, _RAGGED)],
+                                   'Filter': [('w', f(18, 5), None)]},
+                 {'Out': ['out']},
+                 {'contextLength': 3, 'contextStart': -1,
+                  'contextStride': 1})
+    c['lstm'] = ('lstm', {'Input': [('x', f(10, 16), _RAGGED)],
+                          'Weight': [('w', f(4, 16) * 0.5, None)],
+                          'Bias': [('b', f(1, 28) * 0.5, None)]},
+                 {'Hidden': ['h'], 'Cell': ['c']},
+                 dict(sig, use_peepholes=True, is_reverse=True))
+    c['gru'] = ('gru', {'Input': [('x', f(10, 12), _RAGGED)],
+                        'Weight': [('w', f(4, 12) * 0.5, None)],
+                        'Bias': [('b', f(1, 12) * 0.5, None)]},
+                {'Hidden': ['h']},
+                {'gate_activation': 'sigmoid', 'activation': 'tanh',
+                 'origin_mode': True, 'is_reverse': False})
+    return c
+
+
+RAGGED_CASES = _ragged_cases()
+
+
+@pytest.mark.parametrize('key', sorted(RAGGED_CASES))
+def test_ragged_op_on_the_card_matches_the_cpu(dev, key):
+    """Each sequence op and recurrence (an empty sequence, one of length
+    1, MAX ties) on the card against the CPU Executor: the outputs within
+    1e-5 of their largest magnitude, the gradients within 1e-4."""
+    import paddle_tpu_torch as fluid
+    op_type, inputs, outputs, attrs = RAGGED_CASES[key]
+    rs = np.random.RandomState(7)
+    shapes = {'sequence_pool': (5, 6), 'sequence_softmax': (10, 1),
+              'sequence_pad': (5, 6, 6), 'sequence_reverse': (10, 6),
+              'sequence_conv': (10, 5), 'lstm': (10, 4), 'gru': (10, 4)}
+    weights = {n[0]: rs.randn(*shapes[op_type]).astype('float32')
+               for n in outputs.values()}
+    want = _ragged_op_run(fluid.CPUPlace(), op_type, inputs, outputs, attrs,
+                          weights)
+    got = _ragged_op_run(None, op_type, inputs, outputs, attrs, weights)
+    for n, w in want.items():
+        w = np.asarray(w)
+        tol = (1e-4 if n.endswith('@GRAD') else 1e-5) * \
+            max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(np.asarray(got[n]), w, rtol=0, atol=tol,
+                                   err_msg=n)
+        assert getattr(got[n], 'lod', list)() == \
+            getattr(want[n], 'lod', list)(), n
+
+
+def _small_lstm():
+    import paddle_tpu_torch as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = fluid.layers.data(name='words', shape=[1], dtype='int64',
+                                  lod_level=1)
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        h = fluid.layers.embedding(words, size=[50, 8])
+        for _ in range(2):
+            h, _ = fluid.layers.dynamic_lstm(
+                input=fluid.layers.fc(h, size=64), size=64)
+        pred = fluid.layers.fc(fluid.layers.sequence_last_step(h), size=2,
+                               act='softmax')
+        loss = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def _lstm_feeds(lens_list, seed=3):
+    rs = np.random.RandomState(seed)
+    out = []
+    for lens in lens_list:
+        lod = [[0] + [int(v) for v in np.cumsum(lens)]]
+        out.append({'words': (rs.randint(0, 50, (lod[0][-1], 1))
+                              .astype('int64'), lod),
+                    'label': rs.randint(0, 2, (len(lens), 1))
+                    .astype('int64')})
+    return out
+
+
+def test_ragged_bound_and_fused_steps_equal_run_calls(dev):
+    """A two-layer stacked LSTM on ragged batches: ``bind`` and its calls,
+    and ``run_fused`` over two LoDs in runs (A, A, B, A), against as many
+    ``run()`` calls on another Executor from the same state: losses and
+    state bitwise equal, one capture a LoD, one gather launch a step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    main, startup, loss = _small_lstm()
+    exe, s0 = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = {n: s0.get(n).clone() for n in s0.names()}
+    a, b = [3, 0, 1, 9], [2, 5, 5, 1]
+    feeds = _lstm_feeds([a, a, b, a])
+    ref = scope_from_numpy(init)
+    want = [float(fluid.Executor().run(main, feed=f, fetch_list=[loss],
+                                       scope=ref)[0][0]) for f in feeds]
+    fused_exe = fluid.Executor()
+    fused = scope_from_numpy(init)
+    before = kernel_tier.launch_counts()
+    last = fused_exe.run_fused(main, feeds, fetch_list=[loss], scope=fused)
+    after = kernel_tier.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {'embedding_gather': 4}
+    plans = [e.bound[fused] for _, e in fused_exe._cache.items()
+             if fused in e.bound]
+    assert sorted(p.captures for p in plans) == [1, 1]
+    assert float(last[0][0]) == want[-1]
+    for n in init:
+        assert torch.equal(fused.get(n), ref.get(n)), n
+    bound = scope_from_numpy(init)
+    bp = fluid.Executor().bind(main, feeds[0], fetch_list=[loss],
+                               scope=bound)
+    got = [float(bp.first_out[0][0])] + [float(bp(f)[0][0])
+                                         for f in (feeds[1], feeds[3])]
+    with pytest.raises(ValueError, match='LoD'):
+        bp(feeds[2])
+    ref2 = scope_from_numpy(init)
+    e2 = fluid.Executor()
+    want2 = [float(e2.run(main, feed=f, fetch_list=[loss],
+                          scope=ref2)[0][0]) for f in (feeds[0], feeds[1],
+                                                       feeds[3])]
+    assert got == want2 and bp.captures == 1
+    for n in init:
+        assert torch.equal(bound.get(n), ref2.get(n)), n
