@@ -404,6 +404,33 @@ Phases, each printing one JSON line:
    exactly one gather launch a step and none of the other twelve forms,
    one capture a bucket, no host-to-device copy in two profiled fused
    steps, peak memory. Widths, batch, depth and buckets are the bench's.
+20. ctr — sparse embedding gradients: the bench's two CTR rows
+   (bench.py:510-551 `_bench_ctr`, called at :1135 and :1138) through the
+   Fluid front end: 26 slots of ids, one ``is_sparse`` embedding (a
+   SelectedRows gradient), fc 400 ReLU, fc 400 ReLU, fc 1 sigmoid,
+   ``mean(log_loss)`` and ``Adagrad(0.01)`` at B 512, the startup program
+   seeded; ``ctr_sparse`` at vocabulary 100000, width 16, and
+   ``ctr_sharded_v1m`` at 1048576 x 32 with ``is_distributed=True`` (the
+   plain lookup on one card, as the JAX package computes it without a
+   mesh). First the gather at both rows' 512 x 26 ids against its plain
+   version (tolerance 0), its device ms, bound and ``F.embedding``'s time
+   (``ctr_kernel``). (a) ``ctr_hold``: each row's program at vocabulary
+   1000 and B 64, three ``run()`` steps on the card against the CPU
+   Executor from one initialization at the f32 limits (loss 1e-4
+   relative, every parameter and Adagrad moment within 1e-3 of its
+   largest magnitude). Then each row at its published widths: (b) five
+   eager ``run()`` steps (step ms, samples/s, peak memory, exactly one
+   gather launch a step and none of the other twelve forms) and one
+   profiled eager step (busy share, launches, top kernels and ops); the
+   table's and its moment's rows that no batch read bitwise as they were,
+   the read ones moved; (c) ``run_fused`` over four batches against four
+   ``run()`` calls from the same state, losses and state bitwise, one
+   capture; (d) the bench's window: 150 distinct batches staged on the
+   card and 150 steps a call (bench.py's ``max(150, k)`` for k 50 and
+   20), a first call with its capture and then the bench's rounds (3 and
+   2), the best round's step ms and samples/s, no host-to-device copy in
+   two profiled fused steps, the loss falling from the first eager step
+   to the last fused one. Nothing is cut.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -588,6 +615,19 @@ LSTM_FUSED_ROUNDS = 2
 # one empty sequence, one run() step a batch
 LSTM_CHECK_B = 4
 LSTM_CHECK_STEPS = 3
+# phase 20: the bench's CTR rows (bench.py:510-551, called at :1135 and
+# :1138), each (name, vocabulary, width, is_distributed, rounds); the
+# bench's window stages max(150, k) = 150 batches and runs 150 steps a
+# call for both rows' k (50, 20); nothing is cut
+CTR_SLOTS, CTR_HIDDEN, CTR_B = 26, 400, 512
+CTR_ROWS = (('ctr_sparse', 100000, 16, False, 3),
+            ('ctr_sharded_v1m', 1 << 20, 32, True, 2))
+CTR_WINDOW = 150
+CTR_EAGER_STEPS = 5
+# the holds against the CPU Executor at vocabulary 1000 and B 64, and
+# run_fused over CTR_FUSED_K batches against as many run() calls
+CTR_HOLD_V, CTR_HOLD_B, CTR_HOLD_STEPS = 1000, 64, 3
+CTR_FUSED_K = 4
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'engine_spec': PAGED_KERNELS,
                 'train': TRAIN_KERNELS,
@@ -615,7 +655,11 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'lm_global_norm_clip': FLASH_TRAIN_KERNELS,
                 'stacked_lstm': ('embedding_gather',),
                 'stacked_lstm_hold': ('embedding_gather',),
-                'gru_conv_max_pool_hold': ('embedding_gather',)}
+                'gru_conv_max_pool_hold': ('embedding_gather',),
+                'ctr_sparse': ('embedding_gather',),
+                'ctr_sharded_v1m': ('embedding_gather',),
+                'ctr_sparse_hold': ('embedding_gather',),
+                'ctr_sharded_v1m_hold': ('embedding_gather',)}
 
 
 def emit(obj):
@@ -4569,12 +4613,14 @@ def lstm_init(fluid, build):
     return main, loss, state_arrays(s0)
 
 
-def lstm_hold(torch, kt, fluid, build, batches, what):
+def lstm_hold(torch, kt, fluid, build, batches, what,
+              phase='stacked_lstm_hold'):
     """``build``'s program on the card against the CPU Executor: a
     ``run()`` step on each of ``batches`` from one initialization, the
-    losses within 1e-4 relative and every parameter and Adam moment within
-    1e-3 of its largest magnitude (`PERF.md` §2's f32 limits). Returns
-    (summary, {path launch counts of the card's steps})."""
+    losses within 1e-4 relative and every parameter and moment within
+    1e-3 of its largest magnitude (`PERF.md` §2's f32 limits); a failure
+    prints a ``phase`` line. Returns (summary, {path launch counts of the
+    card's steps})."""
     from paddle_tpu_torch.io import scope_from_numpy
     main, loss, init = lstm_init(fluid, build)
     runs, counts = {}, None
@@ -4594,7 +4640,7 @@ def lstm_hold(torch, kt, fluid, build, batches, what):
         1e-4)
     out = dict(model=what, steps=len(batches), **held)
     if failures:
-        emit(dict(phase='stacked_lstm_hold', **out))
+        emit(dict(phase=phase, **out))
         raise AssertionError('%s on the card off the CPU: %s'
                              % (what, '; '.join(failures)))
     return out, counts
@@ -4809,6 +4855,242 @@ def run_stacked_lstm(torch, kt, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 20: sparse embedding gradients: the bench's CTR rows
+
+
+def ctr_program(fluid, vocab, dim, is_distributed, hidden=CTR_HIDDEN):
+    """bench.py:521-535's program: 26 slots' ids, one ``is_sparse``
+    embedding, fc ``hidden`` ReLU twice, fc 1 sigmoid, ``mean(log_loss)``
+    and ``Adagrad(0.01)``; the startup program seeded. Returns (main,
+    startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data(name='ids', shape=[CTR_SLOTS], dtype='int64')
+        label = fluid.layers.data(name='label', shape=[1], dtype='float32')
+        emb = fluid.layers.embedding(
+            input=fluid.layers.reshape(ids, [-1, CTR_SLOTS, 1]),
+            size=[vocab, dim], is_sparse=True, is_distributed=is_distributed)
+        flat = fluid.layers.reshape(emb, [-1, CTR_SLOTS * dim])
+        h = fluid.layers.fc(flat, size=hidden, act='relu')
+        h = fluid.layers.fc(h, size=hidden, act='relu')
+        p = fluid.layers.fc(h, size=1, act='sigmoid')
+        loss = fluid.layers.mean(fluid.layers.log_loss(p, label))
+        fluid.optimizer.Adagrad(learning_rate=0.01).minimize(loss)
+    return main, startup, loss
+
+
+def ctr_batches(vocab, n, batch=CTR_B, seed=0):
+    """bench.py:545-551: ``n`` distinct batches of ``batch`` x 26 ids, a
+    click iff the ids' fixed random scores sum positive."""
+    rng = np.random.RandomState(seed)
+    id_score = rng.randn(vocab).astype('float32')
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, vocab, (batch, CTR_SLOTS)).astype('int64')
+        out.append({'ids': ids, 'label': (id_score[ids].sum(1) > 0)
+                    .astype('float32').reshape(-1, 1)})
+    return out
+
+
+def check_ctr_gather(torch, F):
+    """Phase 20's kernel: the gather of 512 x 26 ids from each row's
+    table."""
+    dev = torch.device('cuda', 0)
+    g = torch.Generator(device=dev).manual_seed(2020)
+    cases = []
+    for name, vocab, dim, _, _ in CTR_ROWS:
+        w = torch.randn((vocab, dim), generator=g, device=dev) * 0.02
+        case = gather_case(torch, F, w, CTR_B * CTR_SLOTS, g)
+        case.update(row=name, dim=dim)
+        check_bound('embedding_gather', case)
+        cases.append(case)
+        del w
+    out = dict(tolerance=0.0, cases=cases,
+               max_abs_err=max(c['max_abs_err'] for c in cases))
+    if out['max_abs_err'] > 0:
+        raise AssertionError('the gather at the CTR shapes is off its plain '
+                             'version by %g' % out['max_abs_err'])
+    emit(dict(phase='ctr_kernel', name='embedding_gather', **out))
+    return {'embedding_gather': out}
+
+
+def ctr_fused_equals_runs(torch, fluid, main, loss, init, feeds):
+    """``run_fused`` over ``feeds`` (batches on the card) against as many
+    ``run()`` calls, each from a copy of ``init``: (summary, failures)."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    ref_exe, exe = fluid.Executor(), fluid.Executor()
+    ref = scope_from_numpy(init, device=ref_exe.device)
+    want = [float(ref_exe.run(main, feed=f, fetch_list=[loss],
+                              scope=ref)[0][0]) for f in feeds]
+    scope = scope_from_numpy(init, device=exe.device)
+    got = float(exe.run_fused(main, feeds, fetch_list=[loss],
+                              scope=scope)[0][0])
+    plans = [e.bound[scope] for _, e in exe._cache.items()
+             if scope in e.bound]
+    differ = [n for n in init if not torch.equal(scope.get(n), ref.get(n))]
+    out = dict(steps=len(feeds), loss=got, ref_loss=want[-1],
+               state_tensors=len(init), differ=differ,
+               captures=[p.captures for p in plans])
+    failures = []
+    if got != want[-1] or differ:
+        failures.append('run_fused off run(): loss %r against %r, %s differ'
+                        % (got, want[-1], differ))
+    if out['captures'] != [1]:
+        failures.append('captures %s' % out['captures'])
+    exe.close()
+    ref_exe.close()
+    return out, failures
+
+
+def ctr_row(torch, kt, fluid, smi, name, vocab, dim, dist, rounds, per_step):
+    """One row of phase 20 at its published widths (module docstring).
+    Returns (summary, launch counts of its eager and fused steps)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    main, startup, loss = ctr_program(fluid, vocab, dim, dist)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t
+    table = [op for op in main.global_block().ops
+             if op.type == 'lookup_table'][0].input('W')[0]
+    moment = [n for n in scope.names() if n.startswith(table + '_moment')]
+    # the table and its moment as they start, on the host (the peak
+    # memory on the card is the program's own)
+    init = {n: scope.get(n).to('cpu', copy=True) for n in [table] + moment}
+    param_count = int(sum(scope.get(p.name).numel()
+                          for p in main.all_parameters()))
+    batches = ctr_batches(vocab, CTR_WINDOW)
+    dev = [{k: torch.from_numpy(v).to(exe.device) for k, v in b.items()}
+           for b in batches]
+    step = lambda i: exe.run(main, feed=dev[i], fetch_list=[loss],
+                             scope=scope, return_numpy=False)[0]
+    out = dict(phase=name, card=smi, vocab=vocab, dim=dim, slots=CTR_SLOTS,
+               batch=CTR_B, hidden=CTR_HIDDEN, is_distributed=dist,
+               optimizer='Adagrad(0.01)', startup_s=startup_s,
+               param_count=param_count, ops=len(main.global_block().ops),
+               window=CTR_WINDOW, rounds=rounds,
+               launches_per_step_hand_written=per_step)
+    # (b) eager steps, the untouched rows, one profiled step
+    kt.reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(CTR_EAGER_STEPS):
+        losses.append(step(i))
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kt.launch_counts()
+    want = {k: CTR_EAGER_STEPS * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError('%s: %d eager steps launched %s, not %s'
+                             % (name, CTR_EAGER_STEPS, counts, want))
+    eager = dict(steps=CTR_EAGER_STEPS,
+                 losses=[float(v) for v in torch.cat(losses).cpu()],
+                 first_step_ms=(t1 - t0) * 1e3,
+                 step_ms=(t2 - t1) * 1e3 / (CTR_EAGER_STEPS - 1),
+                 peak_mem_bytes=torch.cuda.max_memory_allocated() - base)
+    seen = np.zeros(vocab, bool)
+    for b in batches[:CTR_EAGER_STEPS]:
+        seen[b['ids'].ravel()] = True
+    untouched = torch.from_numpy(~seen)
+    lazy = {n: (torch.equal(scope.get(n).cpu()[untouched], v[untouched]),
+                not torch.equal(scope.get(n).cpu()[~untouched],
+                                v[~untouched]))
+            for n, v in init.items()}
+    out['untouched_rows'] = dict(rows=int((~seen).sum()),
+                                 read_rows=int(seen.sum()),
+                                 tensors={n: dict(unchanged=u, moved=m)
+                                          for n, (u, m) in lazy.items()})
+    if len(moment) != 1 or not all(u and m for u, m in lazy.values()):
+        emit(out)
+        raise AssertionError('%s: the lazy Adagrad moved an untouched row '
+                             'or left a read one: %s' % (name, lazy))
+    kt.reset_counts()
+    eager['step_profile'] = step_profile(
+        torch, lambda: step(CTR_EAGER_STEPS), steps=1)
+    extra = kt.launch_counts()
+    counts = {k: counts[k] + extra[k] for k in counts}
+    out['eager'] = eager
+    # (c) run_fused against run() calls from the state the steps left,
+    # bitwise
+    snap = {n: scope.get(n).clone() for n in scope.names()}
+    out['fused_equals_runs'], failures = ctr_fused_equals_runs(
+        torch, fluid, main, loss, snap, dev[:CTR_FUSED_K])
+    if failures:
+        emit(out)
+        raise AssertionError('%s: %s' % (name, '; '.join(failures)))
+    del snap, init
+    torch.cuda.empty_cache()
+    # (d) the bench's window on the batches staged on the card
+    stacked = {k: torch.stack([d[k] for d in dev]) for k in dev[0]}
+    torch.cuda.reset_peak_memory_stats()
+    fused, fcounts = fused_timing(torch, kt, exe, main, loss, scope, stacked,
+                                  per_step, steps=CTR_WINDOW, rounds=rounds)
+    fused['peak_mem_bytes'] = torch.cuda.max_memory_allocated() - base
+    kt.reset_counts()
+    copies, kernels = htod_copies(torch, lambda: exe.run_fused(
+        main, stacked, fetch_list=[loss], scope=scope, return_numpy=False,
+        steps=2)[0].cpu())
+    fused['htod_copies_in_2_steps'] = copies
+    fused['device_kernels_in_2_steps'] = kernels
+    if copies:
+        raise AssertionError('%s: %d host-to-device copies in two fused '
+                             'steps' % (name, copies))
+    extra = kt.launch_counts()
+    counts = {k: counts[k] + fcounts[k] + extra[k] for k in counts}
+    out['fused'] = fused
+    prof = eager['step_profile']
+    out.update(
+        step_ms=fused['step_ms'], eager_step_ms=eager['step_ms'],
+        samples_per_s=CTR_B / (fused['step_ms'] / 1e3),
+        eager_samples_per_s=CTR_B / (eager['step_ms'] / 1e3),
+        launches_per_step=prof['launches_per_step'],
+        busy_share=prof['busy_share'], device_ms=prof['device_ms_per_step'],
+        peak_mem_bytes=max(eager['peak_mem_bytes'], fused['peak_mem_bytes']),
+        loss_first=eager['losses'][0], loss_window=fused['losses'][0],
+        loss_last=fused['losses'][-1])
+    out['loss_fell'] = out['loss_last'] < out['loss_first']
+    trail = eager['losses'] + fused['losses']
+    if not all(np.isfinite(trail)) or not out['loss_fell']:
+        emit(out)
+        raise AssertionError('%s: the loss did not fall: %s' % (name, trail))
+    exe.close()
+    return out, counts
+
+
+def run_ctr(torch, kt, smi):
+    """Phase 20 (module docstring). Returns {path: launch counts}."""
+    import paddle_tpu_torch as fluid
+    per_step = dict.fromkeys(kt.KERNELS, 0)
+    per_step['embedding_gather'] = 1
+    by_path = {}
+    # (a) the holds at vocabulary 1000 and B 64 against the CPU Executor
+    batches = ctr_batches(CTR_HOLD_V, CTR_HOLD_STEPS, batch=CTR_HOLD_B)
+    for name, _, dim, dist, _ in CTR_ROWS:
+        held, counts = lstm_hold(
+            torch, kt, fluid,
+            lambda f, d=dim, s=dist: ctr_program(f, CTR_HOLD_V, d, s),
+            batches, name, phase='ctr_hold')
+        emit(dict(phase='ctr_hold', card=smi, vocab=CTR_HOLD_V, dim=dim,
+                  batch=CTR_HOLD_B, is_distributed=dist, launches=counts,
+                  **held))
+        by_path[name + '_hold'] = counts
+    # (b)-(d) each row at its published widths
+    for name, vocab, dim, dist, rounds in CTR_ROWS:
+        row, by_path[name] = ctr_row(torch, kt, fluid, smi, name, vocab, dim,
+                                     dist, rounds, per_step)
+        emit(row)
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5006,6 +5288,8 @@ def main():
     by_path.update(run_optimizer_checks(torch, kt, smi))
     merge('stacked_lstm', check_lstm_gather(torch, F))
     by_path.update(run_stacked_lstm(torch, kt, smi))
+    merge('ctr', check_ctr_gather(torch, F))
+    by_path.update(run_ctr(torch, kt, smi))
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {

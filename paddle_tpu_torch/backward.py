@@ -5,9 +5,12 @@ ONE ``backward`` meta-op (input ``Loss``, attr ``wrt_names``, outputs
 ``Grads`` named ``<param>@GRAD``), the JAX package's op letter for letter.
 The executor (core/lowering.py) runs the ops before it under
 ``torch.enable_grad()`` and binds each gradient with ``torch.autograd.grad``;
-each kernel's backward is its ``autograd.Function``'s. Sparse embedding
-gradients (``is_sparse=True`` tables) and rematerialization
-(``checkpoints=``) wait for a later slice and raise NotImplementedError.
+each kernel's backward is its ``autograd.Function``'s. A table that only
+``is_sparse`` lookups read gets a sparse gradient: its grad var is typed
+``SELECTED_ROWS`` and the op lists it in ``sparse_wrt``
+(`_find_sparse_params`, the JAX package's). Rematerialization
+(``checkpoints=``) waits for a later slice and raises
+NotImplementedError.
 """
 from .framework import Variable, grad_var_name
 from .core.types import VarType
@@ -15,14 +18,29 @@ from .core.types import VarType
 __all__ = ['append_backward']
 
 
-def _sparse_tables(program, param_names):
-    """Parameters read by an ``is_sparse`` lookup: the JAX package keeps
-    their gradients sparse (a SelectedRows)."""
-    names = set(param_names)
-    return sorted(n for block in program.blocks for op in block.ops
-                  if op.type in ('lookup_table', 'fused_embedding_gather')
-                  and op.attr('is_sparse', False)
-                  for n in op.input('W') if n in names)
+def _find_sparse_params(program, param_names):
+    """Parameters whose gradient stays sparse (a SelectedRows): those that
+    every op reading them reads as ``W`` of a main-block ``lookup_table``
+    (or ``fused_embedding_gather``) with ``is_sparse``. A sub-block
+    reader (carried loop state) keeps the gradient dense."""
+    candidates = set(param_names)
+    consumed = set()
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type == 'backward':
+                continue
+            for n in op.input_arg_names:
+                if n not in candidates:
+                    continue
+                if (block.idx == 0
+                        and op.type in ('lookup_table',
+                                        'fused_embedding_gather')
+                        and op.attr('is_sparse', False)
+                        and n in op.input('W')):
+                    consumed.add(n)
+                else:
+                    candidates.discard(n)
+    return candidates & consumed
 
 
 def _resolve_no_grad(no_grad_set):
@@ -51,15 +69,13 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     params = [p for p in params if p.name not in no_grad]
     if not params:
         raise ValueError("append_backward: no trainable parameters found")
-    sparse = _sparse_tables(program, [p.name for p in params])
-    if sparse:
-        raise NotImplementedError(
-            'append_backward: sparse embedding gradients (is_sparse=True '
-            'tables %s) wait for a later slice of paddle_tpu_torch' % sparse)
+    sparse = _find_sparse_params(program, [p.name for p in params])
 
     grad_vars = [block.create_var(
         name=grad_var_name(p.name), shape=p.shape, dtype=p.dtype,
-        persistable=False, stop_gradient=False, type=VarType.LOD_TENSOR)
+        persistable=False, stop_gradient=False,
+        type=(VarType.SELECTED_ROWS if p.name in sparse
+              else VarType.LOD_TENSOR))
         for p in params]
     with program._role_guard('Backward'):
         block.append_op(
@@ -67,5 +83,5 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
             inputs={'Loss': [loss]},
             outputs={'Grads': grad_vars},
             attrs={'wrt_names': [p.name for p in params],
-                   'sparse_wrt': []})
+                   'sparse_wrt': sorted(sparse)})
     return list(zip(params, grad_vars))

@@ -23,6 +23,16 @@ GradientScaleStrategy across devices) waits for the parallel slice. Each kernel'
 ``autograd.Function``'s backward. Everything else runs under
 ``torch.no_grad()``, so a kernel wrapper there takes its bare forward.
 
+An ``is_sparse`` table (the op's ``sparse_wrt``, backward.py) is held out
+of the leaves, so autograd never builds its dense [V, D] gradient: each
+of its lookups (ops/embedding_ops.py) gathers the rows once, makes them a
+leaf that requires grad and records (table, ids, rows) in
+``ctx.sparse_sites``; after ``torch.autograd.grad`` the table's gradient
+is the SelectedRows (core/selected_rows.py) of every site's ids and row
+gradients, site by site in program order, as the JAX lowering's scout and
+zero dummies build it. The rows leaf is the gather's output before
+``padding_idx``'s mask, so a padded id's row gradient is 0.
+
 Random ops draw from one ``torch.Generator`` on the run's device
 (:meth:`LowerContext.rng`), in op order, seeded for each run from
 (``program.random_seed``, the program's run index) when the program is
@@ -57,6 +67,7 @@ import torch
 
 from .lod import normalize_lod
 from .registry import get_op
+from .selected_rows import SelectedRows
 
 __all__ = ['LowerContext', 'RunRNG', 'lower_ops', 'lower_block',
            'analyze_state', 'build_fn']
@@ -170,6 +181,10 @@ class LowerContext(object):
         # var name -> numpy value of a shape-bearing input
         self.statics = statics if statics is not None else {}
         self._static_written = set()
+        # while a backward's forward runs: the is_sparse tables it holds
+        # out of autograd, and [(table, ids, rows leaf)] of their lookups
+        self.sparse_tables = frozenset()
+        self.sparse_sites = None
 
     # ---- reading inputs --------------------------------------------------
     def get(self, name):
@@ -192,8 +207,8 @@ class LowerContext(object):
 
     # ---- writing outputs -------------------------------------------------
     def set(self, name, value):
-        if value.requires_grad and name in self.plan.stop and \
-                name not in self.wrt:
+        if isinstance(value, torch.Tensor) and value.requires_grad and \
+                name in self.plan.stop and name not in self.wrt:
             value = value.detach()
         self.env[name] = value
         self._run_memo.pop(name, None)
@@ -325,7 +340,7 @@ def _share_lod(ctx, op):
         lod = ctx.lods.get(n)
         if lod and n in ctx.env:
             v = ctx.env[n]
-            if v.dim() >= 1:
+            if isinstance(v, torch.Tensor) and v.dim() >= 1:
                 in_lod, lead = lod, v.shape[0]
                 break
     if in_lod is None:
@@ -334,7 +349,8 @@ def _share_lod(ctx, op):
         if n in ctx.lods or n in ctx.lod_explicit or n not in ctx.env:
             continue
         v = ctx.env[n]
-        if v.dim() >= 1 and v.shape[0] == lead:
+        if isinstance(v, torch.Tensor) and v.dim() >= 1 and \
+                v.shape[0] == lead:
             ctx.lods[n] = in_lod
 
 
@@ -362,41 +378,69 @@ def lower_block(ctx, lo=0):
 def _lower_backward(ctx, ops, lo, b, bop):
     loss_name = bop.input('Loss')[0]
     wrt_names = list(bop.attr('wrt_names'))
-    if bop.attr('sparse_wrt') or bop.attr('checkpoints'):
+    sparse = set(bop.attr('sparse_wrt') or ())
+    if bop.attr('checkpoints'):
         raise NotImplementedError(
-            'backward: sparse embedding gradients and rematerialization '
-            'wait for a later slice of paddle_tpu_torch')
+            'backward: rematerialization (checkpoints) waits for a later '
+            'slice of paddle_tpu_torch')
     missing = [n for n in wrt_names if n not in ctx.env]
     if missing:
         raise ValueError(
             "backward: cannot differentiate w.r.t. %s — they are neither "
             "fed nor in scope state (only leaf variables are supported)"
             % missing)
-    held = {n: ctx.env[n] for n in wrt_names}
+    dense = [n for n in wrt_names if n not in sparse]
+    held = {n: ctx.env[n] for n in dense}
     leaves = []
-    for n in wrt_names:
+    for n in dense:
         leaf = held[n].detach().requires_grad_()
         ctx.env[n] = leaf
         leaves.append(leaf)
-    ctx.wrt = set(wrt_names)
+    ctx.wrt = set(dense)
+    ctx.sparse_tables, ctx.sparse_sites = frozenset(sparse), []
     with torch.enable_grad():
         lower_ops(ctx, ops, lo, b)
+    sites = ctx.sparse_sites
+    ctx.sparse_tables, ctx.sparse_sites = frozenset(), None
     loss = ctx.get(loss_name)
-    grads = torch.autograd.grad(loss, leaves,
+    inputs = leaves + [rows for _, _, rows in sites]
+    grads = torch.autograd.grad(loss, inputs,
                                 grad_outputs=torch.ones_like(loss),
-                                allow_unused=True)
+                                allow_unused=True) if inputs else ()
     ctx.wrt = set()
     # what the forward left for later ops lets go of the autograd graph
     for k, v in list(ctx.env.items()):
-        if v.requires_grad:
+        if isinstance(v, torch.Tensor) and v.requires_grad:
             ctx.env[k] = v.detach()
     ctx.env.update(held)
-    grad_outs = bop.output('Grads')
-    for i, n in enumerate(wrt_names):
-        g = grads[i]
+    grad_outs = dict(zip(wrt_names, bop.output('Grads')))
+    for n, g in zip(dense, grads):
         if g is None:          # the loss does not depend on it
             g = torch.zeros_like(held[n])
-        ctx.env[grad_outs[i]] = g
+        ctx.env[grad_outs[n]] = g
+    per_table = {}
+    for (n, ids, rows), g in zip(sites, grads[len(leaves):]):
+        per_table.setdefault(n, []).append(
+            (ids, torch.zeros_like(rows) if g is None else g))
+    for n in wrt_names:
+        if n in sparse:
+            ctx.env[grad_outs[n]] = _sparse_grad(ctx.env[n],
+                                                 per_table.get(n, ()))
+
+
+def _sparse_grad(table, pairs):
+    """The SelectedRows gradient of an is_sparse ``table`` from its lookup
+    sites' (ids, row gradients) in program order; a table that no site
+    read gets one sentinel row (``height``) of zeros, the JAX lowering's
+    empty form."""
+    V = table.shape[0]
+    if not pairs:
+        return SelectedRows(
+            torch.full((1,), V, dtype=torch.int64, device=table.device),
+            torch.zeros((1,) + tuple(table.shape[1:]), dtype=table.dtype,
+                        device=table.device), V)
+    return SelectedRows(torch.cat([i for i, _ in pairs]),
+                        torch.cat([g for _, g in pairs]), V)
 
 
 # ---------------------------------------------------------------------------
@@ -465,7 +509,10 @@ def build_fn(program, fetch_names, read_names, written_names, device,
         if missing:
             raise KeyError('fetch %s: neither fed nor computed by the '
                            'program (nor state it reads)' % missing)
-        fetches = [env[n] for n in fetch_names]
+        # a fetched sparse gradient densifies, as the JAX executor's
+        # fetch of a SelectedRows does (the scope never holds one)
+        fetches = [env[n].to_dense() if isinstance(env[n], SelectedRows)
+                   else env[n] for n in fetch_names]
         new_state = {n: env[n] for n in written_names if n in env}
         return fetches, new_state
 

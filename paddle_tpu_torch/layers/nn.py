@@ -2,7 +2,7 @@
 
 The port's own copy of the layers of paddle_tpu/layers/nn.py that this
 slice's programs call: ``fc``, ``embedding``, ``square_error_cost``,
-``softmax_with_cross_entropy``, ``layer_norm``,
+``log_loss``, ``softmax_with_cross_entropy``, ``layer_norm``,
 ``fused_layer_norm_residual``, ``fused_ffn_tail``, ``matmul``, ``mean``,
 ``reduce_sum``, ``dropout``, ``add_position_encoding``, ``scale``, ``reshape``,
 ``transpose``, ``squeeze``, ``slice``, ``gather``, ``softmax``,
@@ -18,7 +18,8 @@ from ..param_attr import ParamAttr
 
 __all__ = [
     'fc', 'embedding', 'dropout', 'softmax', 'cross_entropy',
-    'square_error_cost', 'softmax_with_cross_entropy', 'conv2d', 'pool2d',
+    'square_error_cost', 'log_loss', 'softmax_with_cross_entropy',
+    'conv2d', 'pool2d',
     'batch_norm', 'layer_norm', 'fused_layer_norm_residual',
     'fused_ffn_tail', 'matmul', 'reshape', 'squeeze', 'transpose', 'mean',
     'reduce_sum',
@@ -87,8 +88,9 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype='float32'):
-    """Embedding lookup (``lookup_table``). ``is_sparse`` gradients wait for
-    a later slice: append_backward raises on them."""
+    """Embedding lookup (``lookup_table``). An ``is_sparse`` table gets a
+    SelectedRows gradient (backward.py); ``is_distributed`` is the plain
+    lookup on one device."""
     helper = LayerHelper('embedding', param_attr=param_attr)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype, is_bias=False)
@@ -116,6 +118,13 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
                    inputs={'X': [input], 'Label': [label]},
                    attrs={'soft_label': soft_label,
                           'ignore_index': ignore_index}, out_slot='Y')
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper('log_loss', name=name)
+    return _simple(helper, 'log_loss', input,
+                   inputs={'Predicted': [input], 'Labels': [label]},
+                   attrs={'epsilon': epsilon}, out_slot='Loss')
 
 
 def square_error_cost(input, label):

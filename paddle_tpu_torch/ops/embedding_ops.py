@@ -23,9 +23,13 @@ id + V (NumPy's negative indexing) and then drops any id still outside
 [0, V) — so an out-of-range id reads a clamped row but adds its gradient
 to a wrapped row or to none.
 
-The program op `lookup_table` gathers through :func:`embedding_gather`,
-zeroes the ``padding_idx`` rows and shapes the rows as the ids (a trailing
-1 of the ids folds into the embedding dim), as the JAX lowering does.
+The program ops `lookup_table` and `fused_embedding_gather` (the bias
+form) gather through :func:`embedding_gather`, zero the ``padding_idx``
+rows and shape the rows as the ids (a trailing 1 of the ids folds into the
+embedding dim), as the JAX lowerings do. An ``is_sparse`` table's lookup
+in a backward's forward gathers its rows once as a leaf of their own
+(`_lookup_rows`), from which the backward builds the table's SelectedRows
+gradient (core/lowering.py).
 """
 import ctypes
 
@@ -132,15 +136,23 @@ def _gather(w, ids, bias):
     return out
 
 
-@register_op('lookup_table')
-def _lookup_table(ctx, op):
-    if op.attr('is_distributed', False):
-        raise NotImplementedError(
-            'lookup_table(is_distributed=True) waits for the parallel slice '
-            'of paddle_tpu_torch')
-    w, ids = ctx.in1(op, 'W'), ctx.in1(op, 'Ids')
-    flat = ids.reshape(-1)
-    out = embedding_gather(w, flat)
+def _lookup_rows(ctx, op, w, flat, bias=None):
+    """The rows a lookup site gathers (plus ``bias``). In the forward of a
+    ``backward`` whose ``sparse_wrt`` holds the site's table the rows are
+    gathered once, with no autograd through the table, and made a leaf
+    that requires grad, recorded in ``ctx.sparse_sites``
+    (core/lowering.py); the bias stays on autograd."""
+    name = op.input('W')[0]
+    if name not in ctx.sparse_tables:
+        return embedding_gather(w, flat, bias)
+    rows = embedding_gather(w.detach(), flat).requires_grad_()
+    ctx.sparse_sites.append((name, flat.to(torch.int64), rows))
+    return rows if bias is None else rows + bias.reshape(1, -1)
+
+
+def _epilogue(ctx, op, out, flat, ids, w):
+    """Zero the ``padding_idx`` rows and shape the rows as the ids (a
+    trailing 1 of the ids folds into the embedding dim)."""
     pad = op.attr('padding_idx', -1)
     if pad is not None and pad != -1:
         pad = pad if pad >= 0 else pad + w.shape[0]
@@ -148,3 +160,23 @@ def _lookup_table(ctx, op):
     lead = tuple(ids.shape[:-1]) if ids.dim() and ids.shape[-1] == 1 \
         else tuple(ids.shape)
     ctx.out(op, 'Out', out.reshape(lead + (w.shape[1],)))
+
+
+@register_op('lookup_table')
+def _lookup_table(ctx, op):
+    """``is_distributed`` (a vocabulary-sharded table in the JAX package)
+    computes the plain lookup on one device, as the JAX lowering does with
+    no mesh."""
+    w, ids = ctx.in1(op, 'W'), ctx.in1(op, 'Ids')
+    flat = ids.reshape(-1)
+    _epilogue(ctx, op, _lookup_rows(ctx, op, w, flat), flat, ids, w)
+
+
+@register_op('fused_embedding_gather')
+def _fused_embedding_gather(ctx, op):
+    """The gather with its per-feature ``Bias`` [D] added in the kernel
+    (the bias form), then the lookup's epilogue."""
+    w, ids = ctx.in1(op, 'W'), ctx.in1(op, 'Ids')
+    flat = ids.reshape(-1)
+    out = _lookup_rows(ctx, op, w, flat, ctx.in1(op, 'Bias'))
+    _epilogue(ctx, op, out, flat, ids, w)

@@ -1,5 +1,6 @@
 """Matrix products: ``mul`` (every fc) and ``matmul``, float32 or marked;
-and the elementwise, ``sum``, ``sign`` and reduction ops of a Program.
+and the elementwise, ``sum``, ``sign``, ``log_loss`` and reduction ops of
+a Program.
 
 Counterpart of paddle_tpu/ops/math_ops.py `_mul` and `_matmul`. Unmarked
 (``policy`` None) they are float32 products. Marked (the AMP policy, see
@@ -35,6 +36,7 @@ import torch
 
 from ..core import amp
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows
 from .common import broadcast_y_to, flatten_to_2d
 
 __all__ = ['mul', 'matmul', 'bf16_product', 'split', 'split_product']
@@ -126,9 +128,11 @@ def mul(x, w, policy=None):
 # ---------------------------------------------------------------------------
 # the program ops (paddle_tpu/ops/math_ops.py `_mul`, `_matmul`, the
 # elementwise family's add, sub, mul, div, max and min, `_sum`, `_sign`,
-# `_squared_l2_norm`, `_mean`, ``reduce_sum``): the products above, float32
-# or under the op's AMP mark, and plain elementwise PyTorch. Sparse
-# (SelectedRows) operands wait for sparse gradients.
+# `_squared_l2_norm`, `_log_loss`, `_mean`, ``reduce_sum``): the products
+# above, float32 or under the op's AMP mark, and plain elementwise
+# PyTorch. A SelectedRows gradient meets the elementwise ops, `sum` and
+# `squared_l2_norm` on its way through the clips and the decay, and is
+# taken as the JAX lowerings take it.
 
 
 @register_op('mul')
@@ -170,6 +174,16 @@ def _register_elementwise(name, fn):
     @register_op(name)
     def _lower(ctx, op):
         x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
+        if isinstance(x, SelectedRows):
+            # only a product or quotient by one element (the global-norm
+            # clip's factor) leaves the untouched rows at zero; any other
+            # op must see the dense tensor
+            if name in ('elementwise_mul', 'elementwise_div') and \
+                    y.numel() == 1:
+                ctx.out(op, 'Out', SelectedRows(
+                    x.rows, fn(x.values, y.reshape(())), x.height))
+                return
+            x = x.to_dense()
         ctx.out(op, 'Out', fn(x, broadcast_y_to(x, y, op.attr('axis', -1))))
 
 
@@ -188,8 +202,9 @@ _register_elementwise('elementwise_min', torch.minimum)
 @register_op('sum')
 def _sum_op(ctx, op):
     """The inputs added in order (the regularizer's grad + decay, the
-    global-norm clip's squared norms)."""
-    xs = ctx.in_list(op, 'X')
+    global-norm clip's squared norms); a SelectedRows input densifies."""
+    xs = [x.to_dense() if isinstance(x, SelectedRows) else x
+          for x in ctx.in_list(op, 'X')]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -203,8 +218,21 @@ def _sign_op(ctx, op):
 
 @register_op('squared_l2_norm')
 def _squared_l2_norm_op(ctx, op):
+    """A SelectedRows merges first, so that duplicate rows add before
+    squaring: the norm of the dense gradient."""
     x = ctx.in1(op, 'X')
+    if isinstance(x, SelectedRows):
+        x = x.merged()[1]
     ctx.out(op, 'Out', (x * x).sum().reshape(1))
+
+
+@register_op('log_loss')
+def _log_loss_op(ctx, op):
+    """-y log(p + eps) - (1 - y) log(1 - p + eps), elementwise."""
+    p, y = ctx.in1(op, 'Predicted'), ctx.in1(op, 'Labels')
+    eps = op.attr('epsilon', 1e-4)
+    ctx.out(op, 'Loss', -y * torch.log(p + eps) -
+            (1.0 - y) * torch.log(1.0 - p + eps))
 
 
 @register_op('mean')

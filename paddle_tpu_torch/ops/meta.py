@@ -3,14 +3,15 @@ and ``clip_by_norm``.
 
 The port's own lowerings of paddle_tpu/ops/meta.py's `backward`,
 `fill_constant`, `assign`, `assign_value`, `scale`, `clip` and
-`clip_by_norm` (dense: a SelectedRows gradient waits for sparse
-gradients), in plain PyTorch (the JAX package lowers them to plain XLA
-too).
+`clip_by_norm` (dense, and on a SelectedRows gradient as the JAX
+lowerings take one), in plain PyTorch (the JAX package lowers them to
+plain XLA too).
 """
 import numpy as np
 import torch
 
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows
 from .common import attr_dtype
 
 __all__ = []
@@ -56,10 +57,16 @@ def _assign_value(ctx, op):
 def _scale(ctx, op):
     """``x * scale + bias`` (``bias_after_scale``) or ``(x + bias) * scale``;
     a bias of 0 is not added (it changes nothing but the sign of a
-    zero)."""
+    zero). A SelectedRows keeps its rows under a bias of 0 and densifies
+    under any other (the bias would touch every row)."""
     x = ctx.in1(op, 'X')
     scale = op.attr('scale', 1.0)
     bias = op.attr('bias', 0.0)
+    if isinstance(x, SelectedRows):
+        if not bias:
+            ctx.out(op, 'Out', x.scale(scale))
+            return
+        x = x.to_dense()
     if not bias:
         out = x * scale
     elif op.attr('bias_after_scale', True):
@@ -71,19 +78,36 @@ def _scale(ctx, op):
 
 @register_op('clip')
 def _clip(ctx, op):
-    ctx.out(op, 'Out', torch.clamp(ctx.in1(op, 'X'), op.attr('min'),
-                                   op.attr('max')))
+    """A SelectedRows merges its duplicate rows first: a clip does not
+    distribute over their sum."""
+    x = ctx.in1(op, 'X')
+    lo, hi = op.attr('min'), op.attr('max')
+    if isinstance(x, SelectedRows):
+        rows, vals = x.merged()
+        ctx.out(op, 'Out', SelectedRows(rows, torch.clamp(vals, lo, hi),
+                                        x.height))
+        return
+    ctx.out(op, 'Out', torch.clamp(x, lo, hi))
+
+
+def _norm_factor(x, max_norm):
+    norm = torch.sqrt((x.float() ** 2).sum())
+    return torch.where(norm > max_norm,
+                       max_norm / torch.clamp(norm, min=1e-12),
+                       torch.ones_like(norm)).to(x.dtype)
 
 
 @register_op('clip_by_norm')
 def _clip_by_norm(ctx, op):
     """``x * max_norm / norm`` where the float32 L2 norm of all of ``x``
     passes ``max_norm``, else ``x``; the factor is a tensor on the device
-    (no host read), cast to ``x``'s dtype as the JAX lowering casts it."""
+    (no host read), cast to ``x``'s dtype as the JAX lowering casts it. A
+    SelectedRows takes the norm of its merged rows."""
     x = ctx.in1(op, 'X')
     max_norm = op.attr('max_norm')
-    norm = torch.sqrt((x.float() ** 2).sum())
-    factor = torch.where(norm > max_norm,
-                         max_norm / torch.clamp(norm, min=1e-12),
-                         torch.ones_like(norm))
-    ctx.out(op, 'Out', x * factor.to(x.dtype))
+    if isinstance(x, SelectedRows):
+        rows, vals = x.merged()
+        ctx.out(op, 'Out', SelectedRows(
+            rows, vals * _norm_factor(vals, max_norm), x.height))
+        return
+    ctx.out(op, 'Out', x * _norm_factor(x, max_norm))

@@ -13,11 +13,14 @@ their ``XShape`` output (an empty [0, *x.shape] tensor in the JAX package)
 is made only when something reads it. `gather` (BERT's masked positions)
 is :func:`gather`. `top_k` (``layers.accuracy``) is ``torch.topk`` over
 the last axis, largest first, its indices int64.
+`merge_selected_rows` and `get_tensor_from_selected_rows` take a
+SelectedRows gradient (core/selected_rows.py) apart.
 """
 import numpy as np
 import torch
 
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows
 
 __all__ = ['position_encoding_table', 'add_position_encoding', 'gather']
 
@@ -165,3 +168,20 @@ def _add_position_encoding(ctx, op):
         position_encoding_table(L, D)).to(x.device))
     ctx.out(op, 'Out', add_position_encoding(
         x, op.attr('alpha', 1.0), op.attr('beta', 1.0), table=table))
+
+
+@register_op('get_tensor_from_selected_rows')
+def _get_tensor_from_selected_rows(ctx, op):
+    """A SelectedRows' values tensor (a dense input passes as it is)."""
+    x = ctx.in1(op, 'X')
+    ctx.out(op, 'Out', x.values if isinstance(x, SelectedRows) else x)
+
+
+@register_op('merge_selected_rows')
+def _merge_selected_rows(ctx, op):
+    """A SelectedRows with its duplicate rows summed
+    (`SelectedRows.merged`: the freed slots carry the sentinel row)."""
+    x = ctx.in1(op, 'X')
+    if isinstance(x, SelectedRows):
+        x = SelectedRows(*x.merged(), x.height)
+    ctx.out(op, 'Out', x)

@@ -1,8 +1,10 @@
 """Optimizers: Fluid's program-building optimizers, and Adam on tensors.
 
 The port's own copy of paddle_tpu/optimizer.py `Optimizer` (``backward``,
-``apply_gradients``, ``minimize``), `SGDOptimizer`, `MomentumOptimizer`
-and `AdamOptimizer`, with the aliases ``SGD``, ``Momentum`` and ``Adam``.
+``apply_gradients``, ``minimize``) and its optimizers, with their aliases:
+``SGD``, ``Momentum``, ``LarsMomentum``, ``Adagrad`` (with
+``initial_accumulator_value``), ``Adam``, ``Adamax``, ``DecayedAdagrad``,
+``Adadelta``, ``RMSProp`` and ``Ftrl``.
 ``minimize(loss)`` appends the ``backward`` meta-op (backward.py), the
 gradient clips (clip.py), the weight decay (regularizer.py) and the update
 ops to the loss's program, and the learning rate and the accumulators to
@@ -11,8 +13,11 @@ the startup program, under the JAX package's names (``learning_rate_0``,
 ...). ``Adam(fuse=True)`` emits one ``fused_adam`` op over the parameter
 set, ``fuse=False`` one ``adam`` op a parameter; ``Momentum`` one
 ``momentum`` op a parameter, which the Executor applies a run at a time
-(ops/optimizer_ops.py). The other Fluid optimizers wait for later
-slices.
+(ops/optimizer_ops.py); the others one op a parameter (``Adamax`` then a
+``scale`` op a parameter for its beta1 power). A sparse (SelectedRows)
+gradient updates its rows only under ``SGD``, ``Momentum``, ``Adagrad``
+and ``Adam``, and densifies under the rest. ``ModelAverage`` waits for a
+later slice and raises NotImplementedError.
 
 :class:`TensorAdam` is the same Adam over tensors, for a model driven
 without a Program (`TransformerLM.loss`, `BertPretrain.loss`): each
@@ -37,8 +42,12 @@ from .layer_helper import LayerHelper
 from .ops import optimizer_ops
 from .regularizer import append_regularization_ops
 
-__all__ = ['SGD', 'Momentum', 'Adam', 'SGDOptimizer', 'MomentumOptimizer',
-           'AdamOptimizer', 'Optimizer', 'TensorAdam']
+__all__ = ['SGD', 'Momentum', 'Adagrad', 'Adam', 'Adamax', 'DecayedAdagrad',
+           'Ftrl', 'SGDOptimizer', 'MomentumOptimizer', 'AdagradOptimizer',
+           'AdamOptimizer', 'AdamaxOptimizer', 'DecayedAdagradOptimizer',
+           'RMSPropOptimizer', 'FtrlOptimizer', 'Adadelta',
+           'AdadeltaOptimizer', 'ModelAverage', 'LarsMomentum',
+           'LarsMomentumOptimizer', 'RMSProp', 'Optimizer', 'TensorAdam']
 
 
 class Optimizer(object):
@@ -202,6 +211,60 @@ class MomentumOptimizer(Optimizer):
                    'use_nesterov': self._use_nesterov})
 
 
+class LarsMomentumOptimizer(MomentumOptimizer):
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, regularization=None, name=None):
+        super(LarsMomentumOptimizer, self).__init__(
+            learning_rate, momentum, False, regularization, name)
+        self.type = 'lars_momentum'
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            type='lars_momentum',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'Velocity': [velocity],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'VelocityOut': [velocity]},
+            attrs={'mu': self._momentum, 'lars_coeff': self._lars_coeff,
+                   'lars_weight_decay': self._lars_weight_decay})
+
+
+class AdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1e-6, regularization=None,
+                 name=None, initial_accumulator_value=0.0):
+        super(AdagradOptimizer, self).__init__(learning_rate,
+                                               regularization, name)
+        self.type = 'adagrad'
+        self._epsilon = epsilon
+        self._initial = initial_accumulator_value
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p,
+                                  fill_value=self._initial)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        return block.append_op(
+            type='adagrad',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'Moment': [moment],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'MomentOut': [moment]},
+            attrs={'epsilon': self._epsilon})
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -293,9 +356,215 @@ class AdamOptimizer(Optimizer):
                    'epsilon': self._epsilon, 'lazy_mode': self._lazy_mode})
 
 
+class AdamaxOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+    _inf_norm_acc_str = "inf_norm"
+    _beta1_pow_acc_str = "beta1_pow_acc"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, regularization=None, name=None):
+        super(AdamaxOptimizer, self).__init__(learning_rate, regularization,
+                                              name)
+        self.type = 'adamax'
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+            self._add_accumulator(self._beta1_pow_acc_str, p,
+                                  fill_value=self._beta1, shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str,
+                                         param_and_grad[0])
+        b1p = self._get_accumulator(self._beta1_pow_acc_str,
+                                    param_and_grad[0])
+        op = block.append_op(
+            type='adamax',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'LearningRate': [self._create_param_lr(param_and_grad)],
+                    'Moment': [moment], 'InfNorm': [inf_norm],
+                    'Beta1Pow': [b1p]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'MomentOut': [moment], 'InfNormOut': [inf_norm]},
+            attrs={'beta1': self._beta1, 'beta2': self._beta2,
+                   'epsilon': self._epsilon})
+        return op
+
+    def _finish_update(self, block, parameters_and_grads):
+        for param, _ in parameters_and_grads:
+            b1p = self._get_accumulator(self._beta1_pow_acc_str, param)
+            block.append_op(type='scale', inputs={'X': [b1p]},
+                            outputs={'Out': [b1p]},
+                            attrs={'scale': self._beta1, 'bias': 0.0})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6,
+                 regularization=None, name=None):
+        super(DecayedAdagradOptimizer, self).__init__(
+            learning_rate, regularization, name)
+        self.type = 'decayed_adagrad'
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        return block.append_op(
+            type='decayed_adagrad',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'Moment': [moment],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'MomentOut': [moment]},
+            attrs={'decay': self._decay, 'epsilon': self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    _avg_squared_grad_acc_str = "_avg_squared_grad"
+    _avg_squared_update_acc_str = "_avg_squared_update"
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95,
+                 regularization=None, name=None):
+        super(AdadeltaOptimizer, self).__init__(learning_rate,
+                                                regularization, name)
+        self.type = 'adadelta'
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._avg_squared_grad_acc_str, p)
+            self._add_accumulator(self._avg_squared_update_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        eg = self._get_accumulator(self._avg_squared_grad_acc_str,
+                                   param_and_grad[0])
+        ex = self._get_accumulator(self._avg_squared_update_acc_str,
+                                   param_and_grad[0])
+        return block.append_op(
+            type='adadelta',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'AvgSquaredGrad': [eg], 'AvgSquaredUpdate': [ex]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'AvgSquaredGradOut': [eg],
+                     'AvgSquaredUpdateOut': [ex]},
+            attrs={'epsilon': self._epsilon, 'rho': self._rho})
+
+
+class RMSPropOptimizer(Optimizer):
+    _momentum_acc_str = "momentum"
+    _mean_square_acc_str = "mean_square"
+    _mean_grad_acc_str = "mean_grad"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, regularization=None, name=None):
+        super(RMSPropOptimizer, self).__init__(learning_rate,
+                                               regularization, name)
+        self.type = 'rmsprop'
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._momentum_acc_str, p)
+            self._add_accumulator(self._mean_square_acc_str, p)
+            self._add_accumulator(self._mean_grad_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        momentum = self._get_accumulator(self._momentum_acc_str,
+                                         param_and_grad[0])
+        mean_square = self._get_accumulator(self._mean_square_acc_str,
+                                            param_and_grad[0])
+        mean_grad = self._get_accumulator(self._mean_grad_acc_str,
+                                          param_and_grad[0])
+        return block.append_op(
+            type='rmsprop',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'Moment': [momentum], 'MeanSquare': [mean_square],
+                    'MeanGrad': [mean_grad],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'MomentOut': [momentum],
+                     'MeanSquareOut': [mean_square],
+                     'MeanGradOut': [mean_grad]},
+            attrs={'epsilon': self._epsilon, 'decay': self._rho,
+                   'momentum': self._momentum, 'centered': self._centered})
+
+
+class FtrlOptimizer(Optimizer):
+    _squared_acc_str = "squared"
+    _linear_acc_str = "linear"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 regularization=None, name=None):
+        super(FtrlOptimizer, self).__init__(learning_rate, regularization,
+                                            name)
+        self.type = 'ftrl'
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._squared_acc_str, p)
+            self._add_accumulator(self._linear_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        sq = self._get_accumulator(self._squared_acc_str, param_and_grad[0])
+        lin = self._get_accumulator(self._linear_acc_str, param_and_grad[0])
+        return block.append_op(
+            type='ftrl',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'SquaredAccumulator': [sq],
+                    'LinearAccumulator': [lin],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'SquaredAccumOut': [sq], 'LinearAccumOut': [lin]},
+            attrs={'l1': self._l1, 'l2': self._l2,
+                   'lr_power': self._lr_power})
+
+
+class ModelAverage(Optimizer):
+    """Parameter averages over a sliding window (the `average_accumulates`
+    op): waits for a later slice of paddle_tpu_torch."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, regularization=None, name=None):
+        raise NotImplementedError(
+            'ModelAverage (the average_accumulates op) waits for a later '
+            'slice of paddle_tpu_torch')
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+LarsMomentum = LarsMomentumOptimizer
 
 
 class TensorAdam(object):

@@ -2274,3 +2274,140 @@ def test_ragged_bound_and_fused_steps_equal_run_calls(dev):
     assert got == want2 and bp.captures == 1
     for n in init:
         assert torch.equal(bound.get(n), ref2.get(n)), n
+
+
+# ---------------------------------------------------------------------------
+# sparse embedding gradients (SelectedRows) and the CTR program
+
+
+def _sparse_grad(dev, V, D, n, seed):
+    """A SelectedRows of ``n`` rows of a [V, D] table (many repeats when V
+    is small), with a sentinel row, on ``dev`` and on the CPU."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    rows = torch.randint(0, V, (n,), generator=g)
+    rows[-1] = V
+    vals = torch.randn((n, D), generator=g)
+    return (SelectedRows(rows.to(dev), vals.to(dev), V),
+            SelectedRows(rows, vals, V))
+
+
+@pytest.mark.parametrize('V,D', [(100000, 16), (50, 32), (50, 64)])
+def test_sparse_merge_on_the_card_equals_the_cpu(dev, V, D):
+    """``merged()`` and ``to_dense()`` on the card: the CPU's bits (each
+    row's values summed in index order on both), the same bits at a
+    second call; V 50 puts about 266 ids on a row."""
+    card, cpu = _sparse_grad(dev, V, D, 13312, 20)
+    rows, vals = card.merged()
+    want_rows, want_vals = cpu.merged()
+    assert torch.equal(rows.cpu(), want_rows)
+    assert torch.equal(vals.cpu(), want_vals)
+    again = card.merged()
+    assert torch.equal(again[0], rows) and torch.equal(again[1], vals)
+    assert torch.equal(card.to_dense().cpu(), cpu.to_dense())
+    assert torch.equal(card.to_dense(), card.to_dense())
+
+
+@pytest.mark.parametrize('update', ['sgd', 'momentum', 'nesterov', 'adam',
+                                    'adagrad'])
+def test_row_wise_updates_on_the_card_equal_the_cpu(dev, update):
+    """Each lazy SelectedRows update on the card: the CPU's bits, twice
+    the same bits from the same state, untouched rows as they were."""
+    V, D = 5000, 16
+
+    def step(g, where):
+        gen = torch.Generator(device='cpu').manual_seed(21)
+        state = [torch.randn((V, D), generator=gen).abs().to(where)
+                 for _ in range(3)]
+        lr = torch.tensor([0.05], device=where)
+        p, a, b = state
+        if update == 'sgd':
+            optimizer_ops.sgd_rows(p, g, lr)
+        elif update in ('momentum', 'nesterov'):
+            optimizer_ops.momentum_rows(p, g, a, lr, 0.9,
+                                        update == 'nesterov')
+        elif update == 'adam':
+            pows = [torch.tensor([v], device=where) for v in (0.81, 0.998)]
+            optimizer_ops.adam(p, g, a, b, pows[0], pows[1], lr)
+        else:
+            optimizer_ops.adagrad_rows(p, g, a, lr)
+        return [t.cpu() for t in state]
+
+    card, cpu = _sparse_grad(dev, V, D, 13312, 22)
+    got, want = step(card, dev), step(cpu, 'cpu')
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(step(card, dev), got):
+        assert torch.equal(a, b)
+    gen = torch.Generator(device='cpu').manual_seed(21)
+    init = torch.randn((V, D), generator=gen).abs()
+    untouched = torch.ones(V, dtype=torch.bool)
+    untouched[cpu.rows[cpu.rows < V]] = False
+    assert untouched.any()
+    assert torch.equal(got[0][untouched], init[untouched])
+
+
+@pytest.mark.parametrize('V,D', [(100000, 16), (1048576, 32)])
+def test_embedding_gather_at_the_ctr_shapes(dev, V, D):
+    """The gather of the CTR rows' 512 x 26 ids: its plain version's
+    bits."""
+    w = _randn(dev, V, D, seed=3)
+    g = torch.Generator(device='cpu').manual_seed(4)
+    ids = torch.randint(0, V, (512 * 26,), generator=g).to(dev)
+    got = embedding_ops.embedding_gather(w, ids)
+    assert torch.equal(got, embedding_ops._gather_ref(w, ids))
+
+
+def _small_ctr(fluid, V=300, D=8, opt='adagrad'):
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 1
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.layers.data(name='ids', shape=[26], dtype='int64')
+        label = fluid.layers.data(name='label', shape=[1], dtype='float32')
+        emb = fluid.layers.embedding(
+            input=fluid.layers.reshape(ids, [-1, 26, 1]), size=[V, D],
+            is_sparse=True)
+        h = fluid.layers.fc(fluid.layers.reshape(emb, [-1, 26 * D]),
+                            size=32, act='relu')
+        p = fluid.layers.fc(h, size=1, act='sigmoid')
+        loss = fluid.layers.mean(fluid.layers.log_loss(p, label))
+        {'adagrad': lambda: fluid.optimizer.Adagrad(0.01),
+         'adam': lambda: fluid.optimizer.Adam(1e-3, fuse=True),
+         'momentum': lambda: fluid.optimizer.Momentum(0.05, 0.9)}[opt]() \
+            .minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize('opt', ['adagrad', 'adam', 'momentum'])
+def test_sparse_fused_steps_equal_run_calls(dev, opt):
+    """``run_fused`` over four CTR batches: four ``run()`` calls' losses
+    and state bitwise, one capture, one gather launch a step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    main, startup, loss = _small_ctr(fluid, opt=opt)
+    exe, s0 = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = {n: s0.get(n).clone() for n in s0.names()}
+    rs = np.random.RandomState(5)
+    feeds = [{'ids': rs.randint(0, 300, (16, 26)).astype('int64'),
+              'label': (rs.rand(16, 1) > 0.5).astype('float32')}
+             for _ in range(4)]
+    ref = scope_from_numpy(init)
+    want = [float(fluid.Executor().run(main, feed=f, fetch_list=[loss],
+                                       scope=ref)[0][0]) for f in feeds]
+    fused_exe, fused = fluid.Executor(), scope_from_numpy(init)
+    before = kernel_tier.launch_counts()
+    last = fused_exe.run_fused(main, feeds, fetch_list=[loss], scope=fused)
+    after = kernel_tier.launch_counts()
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    want_launches = {'embedding_gather': 4}
+    if opt == 'adam':
+        want_launches['fused_adam'] = 4
+    assert launched == want_launches
+    plans = [e.bound[fused] for _, e in fused_exe._cache.items()
+             if fused in e.bound]
+    assert [p.captures for p in plans] == [1]
+    assert float(last[0][0]) == want[-1]
+    for n in init:
+        assert torch.equal(fused.get(n), ref.get(n)), n

@@ -808,24 +808,25 @@ def test_executor_defaults_to_the_card():
 
 
 def test_features_left_for_later_raise():
+    # sparse embedding gradients train since the CTR slice (see
+    # tests/test_torch_sparse.py); rematerialization and ModelAverage wait
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         ids = fluid.layers.data(name='ids', shape=[4], dtype='int64')
         emb = fluid.layers.embedding(ids, size=[10, 8], is_sparse=True)
         loss = fluid.layers.mean(emb)
-        with pytest.raises(NotImplementedError, match='sparse'):
-            fluid.optimizer.SGD(0.1).minimize(loss)
-    # weight decay is ported since the image training slice; Momentum's
-    # sparse (SelectedRows) branch still waits
+        with pytest.raises(NotImplementedError, match='rematerialization'):
+            fluid.append_backward(loss, checkpoints=[emb])
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         ids = fluid.layers.data(name='ids', shape=[4], dtype='int64')
         emb = fluid.layers.embedding(ids, size=[10, 8], is_sparse=True)
         loss = fluid.layers.mean(emb)
-        with pytest.raises(NotImplementedError, match='sparse'):
-            fluid.optimizer.Momentum(
-                0.1, 0.9, regularization=fluid.regularizer.L2Decay(1e-4)
-            ).minimize(loss)
+        fluid.optimizer.Momentum(
+            0.1, 0.9, regularization=fluid.regularizer.L2Decay(1e-4)
+        ).minimize(loss)
+        with pytest.raises(NotImplementedError, match='average_accumulates'):
+            fluid.optimizer.ModelAverage(0.15)
 
 
 # ---------------------------------------------------------------------------
