@@ -441,6 +441,12 @@ tensor cores), the bf16 kernels' products at 989 TFLOP/s, and other flops
 at the f32 CUDA-core peak of 67 TFLOP/s.
 Those four kernels also get ``bound_simt_ms``, every flop at 67 TFLOP/s,
 the rule of the tables before the tensor-core kernels.
+Every case of the embedding gather, in whichever phase times it (the
+decode rows of 3, 4b and 4c, the training rows of 5, 11 and 15b (d),
+phase 19's buckets and phase 20's rows), also prints a ``gather_case``
+line of its own: ``ms`` beside ``bound_ms``, ``share_of_bound`` and
+``library_ms`` (``F.embedding``), with the path (``at``), n, D and the
+table's rows.
 
 Then a ``total`` line (the script's seconds, the card beside them) and
 one line ``{"kernels": [...]}`` (per kernel: route, source, the TPU
@@ -968,21 +974,8 @@ def check_kernels(torch, F, kt, rows=None, decode_only=False):
 
     # embedding gather: exact (a copy); ids in range, plus a clamp probe
     w = randn(V, d, scale=0.02)
-    cases = []
     gd = torch.Generator(device=dev).manual_seed(99)
-    for n in rows:
-        ids = torch.randint(0, V, (n,), generator=g).to(dev)
-        got = embedding_ops.embedding_gather(w, ids)
-        want = embedding_ops._gather_ref(w, ids)
-        err = max_err(torch, [got], [want])
-        nbytes = 2 * n * d * 4 + n * 8
-        ms, plain, library = gather_times(torch, F, embedding_ops, w, n, gd,
-                                          nbytes)
-        cases.append(dict(**bound(nbytes, 0),
-            n=n, max_abs_err=err, ms=ms, rotating_sets=rotation(nbytes),
-            eager_ms=eager_ms(torch, lambda: embedding_ops.embedding_gather(
-                w, ids)),
-            plain_ms=plain, library_ms=library))
+    cases = [gather_case(torch, F, w, n, gd, 'decode') for n in rows]
     probe = torch.tensor([-3, 0, V - 1, V + 5], device=dev)
     clamp_err = max_err(torch, [embedding_ops.embedding_gather(w, probe)],
                         [w[torch.tensor([0, 0, V - 1, V - 1], device=dev)]])
@@ -1963,9 +1956,12 @@ def run_engine_spec(torch, kt, smi):
     return summary, counts
 
 
-def gather_case(torch, F, w, n, g):
+def gather_case(torch, F, w, n, g, at):
     """The gather of ``n`` ids from the table ``w`` against its plain
-    version, timed as `gather_times` times it: a case dict."""
+    version, timed as `gather_times` times it: a case dict, also printed
+    on a line of its own (phase ``gather_case``, ``at`` the path) with its
+    time beside its bound, its share of the bound and ``F.embedding``'s
+    time."""
     from paddle_tpu_torch.ops import embedding_ops
     rows, D = w.shape
     ids = torch.randint(0, rows, (n,), generator=g, device=w.device)
@@ -1975,11 +1971,17 @@ def gather_case(torch, F, w, n, g):
     ms, plain, library = gather_times(
         torch, F, embedding_ops, w, n,
         torch.Generator(device=w.device).manual_seed(98), nbytes)
-    return dict(n=n, table_rows=rows, max_abs_err=err, ms=ms, plain_ms=plain,
-                library_ms=library, rotating_sets=rotation(nbytes),
+    case = dict(n=n, table_rows=rows, max_abs_err=err, ms=ms,
+                plain_ms=plain, library_ms=library,
+                rotating_sets=rotation(nbytes),
                 eager_ms=eager_ms(torch, lambda: embedding_ops
                                   .embedding_gather(w, ids), iters=10,
                                   warmup=2), **bound(nbytes, 0))
+    case['share_of_bound'] = case['bound_ms'] / ms
+    emit(dict(phase='gather_case', at=at, D=D, **{k: case[k] for k in (
+        'n', 'table_rows', 'ms', 'bound_ms', 'share_of_bound', 'library_ms',
+        'plain_ms', 'max_abs_err')}))
+    return case
 
 
 def check_lstm_gather(torch, F):
@@ -1988,7 +1990,8 @@ def check_lstm_gather(torch, F):
     dev = torch.device('cuda', 0)
     g = torch.Generator(device=dev).manual_seed(1919)
     w = torch.randn((LSTM_VOCAB, LSTM_EMB), generator=g, device=dev) * 0.02
-    cases = [gather_case(torch, F, w, LSTM_B * sl, g) for sl in LSTM_BUCKETS]
+    cases = [gather_case(torch, F, w, LSTM_B * sl, g, 'stacked_lstm')
+             for sl in LSTM_BUCKETS]
     for c in cases:
         check_bound('embedding_gather', c)
     out = dict(tolerance=0.0, cases=cases,
@@ -2009,8 +2012,7 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
     AMP step stands it down) also at each of ``ffn_infer_rows`` as
     inference calls it (no mask, no pre1). Returns {kernel name: summary
     dict} as check_kernels does."""
-    from paddle_tpu_torch.ops import (ce_ops, embedding_ops, nn_ops,
-                                      optimizer_ops)
+    from paddle_tpu_torch.ops import ce_ops, nn_ops, optimizer_ops
     dev = torch.device('cuda', 0)
     g = torch.Generator(device=dev).manual_seed(4321)
     N, V, D = n_rows, cfg.vocab_size, cfg.d_model
@@ -2030,22 +2032,9 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
     # count: the embedding gather (from every table the model has), the
     # LN-residual forward and the FFN tail (with its pre-scaled dropout
     # mask and pre1, as a training step calls it)
-    cases = []
-    for rows in [V] + ([cfg.type_vocab_size]
-                       if hasattr(cfg, 'type_vocab_size') else []):
-        w = randn(rows, D, scale=0.02)
-        ids = torch.randint(0, rows, (N,), generator=g, device=dev)
-        err = max_err(torch, [embedding_ops.embedding_gather(w, ids)],
-                      [embedding_ops._gather_ref(w, ids)])
-        nbytes = (N + min(N, rows)) * D * 4 + N * 8
-        ms, plain, library = gather_times(
-            torch, F, embedding_ops, w, N,
-            torch.Generator(device=dev).manual_seed(98), nbytes)
-        cases.append(dict(
-            n=N, table_rows=rows, max_abs_err=err, ms=ms, plain_ms=plain,
-            library_ms=library, rotating_sets=rotation(nbytes),
-            eager_ms=eager_ms(torch, lambda: embedding_ops.embedding_gather(
-                w, ids), iters=10, warmup=2), **bound(nbytes, 0)))
+    cases = [gather_case(torch, F, randn(rows, D, scale=0.02), N, g, phase)
+             for rows in [V] + ([cfg.type_vocab_size]
+                                if hasattr(cfg, 'type_vocab_size') else [])]
     out['embedding_gather'] = dict(tolerance=0.0, cases=cases)
     x, r = randn(N, D), randn(N, D)
     sc, bi = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
@@ -2058,7 +2047,7 @@ def check_train_kernels(torch, F, phase, cfg, shapes, n_rows, ce_shapes,
             lambda: cuda_ms(torch, lambda: F.layer_norm(
                 x + r, (D,), sc, bi, 1e-5)),
             4 * N * D * 4 + 2 * D * 4 + 2 * N * 4, 9 * N * D, calls=20))])
-    del w, x, r
+    del x, r
     if ffn:
         out['fused_ffn'] = check_ffn(torch, F, cfg, g, N, ffn_infer_rows,
                                      randn, timed)
@@ -4902,7 +4891,7 @@ def check_ctr_gather(torch, F):
     cases = []
     for name, vocab, dim, _, _ in CTR_ROWS:
         w = torch.randn((vocab, dim), generator=g, device=dev) * 0.02
-        case = gather_case(torch, F, w, CTR_B * CTR_SLOTS, g)
+        case = gather_case(torch, F, w, CTR_B * CTR_SLOTS, g, name)
         case.update(row=name, dim=dim)
         check_bound('embedding_gather', case)
         cases.append(case)

@@ -4,7 +4,8 @@ H100.
 It ports the Fluid front end: a ``Program`` built with ``layers`` and
 ``nets``, ``optimizer.SGD``/``Momentum``/``Adam(...).minimize(loss)`` (with
 ``regularizer`` weight decay and ``clip`` gradient clipping) and
-``Executor().run(program, feed=..., fetch_list=...)``, with ``bind`` and
+``Executor().run(program, feed=..., fetch_list=...)``, ``calc_gradient``
+(alias ``gradients``) w.r.t. fed variables or parameters, with ``bind`` and
 ``run_fused`` replaying a CUDA graph of the run plan, and ``io``'s save
 and load functions (so ``import paddle_tpu_torch as fluid`` runs the JAX
 package's quick start and `models.transformer.build_lm` on the card);
@@ -33,7 +34,7 @@ Entry points run on ``cuda:0`` unless the caller passes ``device='cpu'``
 """
 from . import initializer, layers, optimizer, unique_name
 from . import clip, nets, regularizer
-from .backward import append_backward
+from .backward import append_backward, calc_gradient, gradients
 from .executor import Executor, Scope, global_scope, scope_guard
 from .framework import (CPUPlace, CUDAPlace, Parameter, Program, Variable,
                         default_main_program, default_startup_program,
@@ -41,7 +42,9 @@ from .framework import (CPUPlace, CUDAPlace, Parameter, Program, Variable,
 from .ops.kernel_tier import launch_counts, reset_counts
 from .param_attr import ParamAttr
 from . import io
-from .io import load_inference_model, save_inference_model
+from .io import (load_inference_model, load_params, load_persistables,
+                 load_vars, save_inference_model, save_params,
+                 save_persistables, save_vars)
 from . import inference
 from .inference import Predictor, PredictorConfig, create_predictor
 from . import lod_tensor
@@ -53,10 +56,13 @@ __all__ = ['CPUPlace', 'CUDAPlace', 'resolve_device', 'launch_counts',
            'reset_counts', 'Program', 'Variable', 'Parameter',
            'default_main_program', 'default_startup_program',
            'program_guard', 'Executor', 'Scope', 'global_scope',
-           'scope_guard', 'ParamAttr', 'append_backward', 'layers',
+           'scope_guard', 'ParamAttr', 'append_backward', 'calc_gradient',
+           'gradients', 'layers',
            'optimizer', 'initializer', 'unique_name', 'io', 'clip',
            'nets', 'regularizer',
-           'save_inference_model', 'load_inference_model', 'inference',
+           'save_inference_model', 'load_inference_model', 'save_vars',
+           'save_params', 'save_persistables', 'load_vars', 'load_params',
+           'load_persistables', 'inference',
            'PredictorConfig', 'Predictor', 'create_predictor',
            'lod_tensor', 'LoDTensor', 'create_lod_tensor',
            'create_random_int_lodtensor', 'DataFeeder']

@@ -10,12 +10,14 @@ each kernel's backward is its ``autograd.Function``'s. A table that only
 ``SELECTED_ROWS`` and the op lists it in ``sparse_wrt``
 (`_find_sparse_params`, the JAX package's). Rematerialization
 (``checkpoints=``) waits for a later slice and raises
-NotImplementedError.
+NotImplementedError. ``calc_gradient`` (alias ``gradients``) appends the
+same meta-op for any leaves, fed variables included, as the JAX package's
+does.
 """
 from .framework import Variable, grad_var_name
 from .core.types import VarType
 
-__all__ = ['append_backward']
+__all__ = ['append_backward', 'calc_gradient', 'gradients']
 
 
 def _find_sparse_params(program, param_names):
@@ -85,3 +87,31 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
             attrs={'wrt_names': [p.name for p in params],
                    'sparse_wrt': sorted(sparse)})
     return list(zip(params, grad_vars))
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradients of ``targets`` (the first one is the loss) w.r.t. the leaf
+    ``inputs``, fed variables or parameters: one ``backward`` op whose
+    ``wrt_names`` are ``inputs`` minus ``no_grad_set``. Returns the
+    gradient variables, named ``<input>@GRAD``."""
+    if not isinstance(targets, (list, tuple)):
+        targets = [targets]
+    if not isinstance(inputs, (list, tuple)):
+        inputs = [inputs]
+    loss = targets[0]
+    block = loss.block
+    no_grad = _resolve_no_grad(no_grad_set)
+    wrt = [i for i in inputs if i.name not in no_grad]
+    grad_vars = [block.create_var(
+        name=grad_var_name(v.name), shape=v.shape, dtype=v.dtype,
+        persistable=False, stop_gradient=False) for v in wrt]
+    with block.program._role_guard('Backward'):
+        block.append_op(
+            type='backward',
+            inputs={'Loss': [loss]},
+            outputs={'Grads': grad_vars},
+            attrs={'wrt_names': [v.name for v in wrt]})
+    return grad_vars
+
+
+gradients = calc_gradient

@@ -126,8 +126,10 @@ def _gather(w, ids, bias):
     if bias is not None:
         kernel_tier.require(bias, 'bias', (D,), device=w.device)
     n = ids.numel()
-    if n >= 2 ** 31:
-        raise ValueError('embedding_gather takes < 2^31 ids per call')
+    if not 0 < V < 2 ** 31 - 2 ** 24 or max(n, D) >= 2 ** 31 - 2 ** 24:
+        raise ValueError('embedding_gather takes a table of 1 to 2^31 - 2^24 '
+                         'rows and fewer ids and columns, got [%d, %d] and %d'
+                         % (V, D, n))
     out = torch.empty((n, D), dtype=w.dtype, device=w.device)
     rc = _kernel()(w.data_ptr(), ids.data_ptr(), kernel_tier.ptr(bias),
                    out.data_ptr(), n, V, D, kernel_tier.stream_ptr(w))

@@ -45,22 +45,34 @@ def add_position_encoding(x, alpha=1.0, beta=1.0, table=None):
     return alpha * x + beta * table[:L]
 
 
+def _take_fill(dtype):
+    """The value ``jnp.take`` gives an index outside [-n, n) in its default
+    mode: NaN for floats, the most negative value for signed integers (an
+    int64 program computes in int32 in the JAX package, so int32's), the
+    largest for unsigned ones and True for bool."""
+    if dtype.is_floating_point:
+        return float('nan')
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(torch.int32 if dtype == torch.int64 else dtype)
+    return info.min if info.min < 0 else info.max
+
+
 def gather(x, index):
-    """Rows of ``x`` at ``index`` (flattened) along axis 0, as the JAX
-    ``gather`` op's ``jnp.take`` computes them in its default mode: an
-    index in [-n, 0) counts from the end, and one outside [-n, n) gives a
-    row of NaN whose gradient is dropped. No index reaches the tensor out
-    of range (on the card that is a device-side assert). The backward is
-    autograd's scatter-add of the rows' gradients. Only floating rows are
-    gathered: no program of the port gathers another dtype."""
-    if not x.dtype.is_floating_point:
-        raise NotImplementedError('gather of %s rows' % x.dtype)
+    """Rows of ``x`` at ``index`` (flattened, cast to int32 as the JAX op
+    casts it) along axis 0, as the JAX ``gather`` op's ``jnp.take``
+    computes them in its default mode, for any dtype: an index in [-n, 0)
+    counts from the end, and one outside [-n, n) gives a row of the fill
+    value (`_take_fill`; NaN for floats, whose gradient is dropped). No
+    index reaches the tensor out of range (on the card that is a
+    device-side assert). The backward is autograd's scatter-add of the
+    rows' gradients."""
     n = x.shape[0]
-    idx = index.reshape(-1).to(torch.int64)
+    idx = index.reshape(-1).to(torch.int32).to(torch.int64)
     idx = torch.where(idx < 0, idx + n, idx)
     inside = ((idx >= 0) & (idx < n)).reshape((-1,) + (1,) * (x.dim() - 1))
     rows = x[idx.clamp(0, max(n - 1, 0))]
-    return torch.where(inside, rows, torch.full((), float('nan'),
+    return torch.where(inside, rows, torch.full((), _take_fill(x.dtype),
                                                 dtype=x.dtype,
                                                 device=x.device))
 

@@ -55,17 +55,31 @@ def _err(a, b):
     return float((a - b).abs().max())
 
 
-@pytest.mark.parametrize('V,D', [(50, 128), (50, 130), (50, 3), (2, 768)])
-def test_embedding_gather_kernel(dev, V, D):
-    w = _randn(dev, V, D)
-    ids = torch.tensor([0, 49, -7, 60, 13, 13, 1], device=dev)
+@pytest.mark.parametrize('V,D,n', [
+    (1000, D, n) for D in (1, 3, 4, 16, 32, 128, 130, 512, 768, 8192)
+    for n in (1, 1237, 13312)] + [(100000, 16, 13312), (1 << 20, 32, 13312)])
+def test_embedding_gather_kernel(dev, V, D, n):
+    """The gather against its plain version's bits at every row-group width
+    (D 1 to 8192: one lane a row up to four warps a row, and a loop over
+    column chunks), n of one row (the widest groups), a ragged last block
+    and the CTR rows' 512 x 26 ids, also from their own tables ([100000,
+    16] and [1048576, 32]); ids that clamp (below 0, at V, past V); without
+    and with the bias; from a contiguous table and from one offset by a
+    float, which takes the scalar path. One launch counted a call."""
+    flat = _randn(dev, V * D + 1, seed=D)
+    g = torch.Generator(device='cpu').manual_seed(n)
+    ids = torch.randint(0, V, (n,), generator=g)
+    ids[:3] = torch.tensor([-7, V, V + 60])[:n]
+    ids = ids.to(dev)
     bias = _randn(dev, D, seed=1)
-    before = kernel_tier.launch_counts()['embedding_gather']
-    for b in (None, bias):
-        got = embedding_ops.embedding_gather(w, ids, b)
-        torch.cuda.synchronize()
-        assert torch.equal(got, embedding_ops._gather_ref(w, ids, b))
-    assert kernel_tier.launch_counts()['embedding_gather'] == before + 2
+    for w in (flat[:V * D].view(V, D), flat[1:].view(V, D)):
+        for b in (None, bias):
+            before = kernel_tier.launch_counts()['embedding_gather']
+            got = embedding_ops.embedding_gather(w, ids, b)
+            torch.cuda.synchronize()
+            assert kernel_tier.launch_counts()['embedding_gather'] == \
+                before + 1
+            assert torch.equal(got, embedding_ops._gather_ref(w, ids, b))
 
 
 # widths up to 4096 stay in registers; 6144 and 8192 take the wide kernel
@@ -2345,17 +2359,6 @@ def test_row_wise_updates_on_the_card_equal_the_cpu(dev, update):
     untouched[cpu.rows[cpu.rows < V]] = False
     assert untouched.any()
     assert torch.equal(got[0][untouched], init[untouched])
-
-
-@pytest.mark.parametrize('V,D', [(100000, 16), (1048576, 32)])
-def test_embedding_gather_at_the_ctr_shapes(dev, V, D):
-    """The gather of the CTR rows' 512 x 26 ids: its plain version's
-    bits."""
-    w = _randn(dev, V, D, seed=3)
-    g = torch.Generator(device='cpu').manual_seed(4)
-    ids = torch.randint(0, V, (512 * 26,), generator=g).to(dev)
-    got = embedding_ops.embedding_gather(w, ids)
-    assert torch.equal(got, embedding_ops._gather_ref(w, ids))
 
 
 def _small_ctr(fluid, V=300, D=8, opt='adagrad'):

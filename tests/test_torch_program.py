@@ -662,13 +662,109 @@ def test_gather_values_and_gradient_match_jnp_take():
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize('dtype', [torch.int64, torch.bool])
-def test_gather_of_other_than_floating_rows_raises(dtype):
-    """Out-of-range rows are NaN, which only a floating dtype holds; no
-    program of the port gathers another."""
+def _one_layer_program(pkg, build):
+    """A program of what ``build(pkg)`` appends; returns (main, startup,
+    build's result)."""
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 3
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        out = build(pkg)
+    return main, startup, out
+
+
+@pytest.mark.parametrize('dtype', ['int32', 'int64', 'uint8', 'bool',
+                                   'float32'])
+def test_gather_op_of_any_dtype_matches_the_jax_executor(dtype):
+    """``layers.gather`` (the `gather` op) through the Executor, and
+    `ops.tensor_ops.gather` itself, against the JAX program and ``jnp.take``
+    exactly: ids in range, in [-n, 0) (counted from the end) and outside
+    [-n, n), whose rows hold the fill value (NaN, int32's least value for
+    an int32 or int64 program, 255 for uint8, True for bool)."""
+    import jax.numpy as jnp
     from paddle_tpu_torch.ops.tensor_ops import gather
-    with pytest.raises(NotImplementedError, match='gather'):
-        gather(torch.zeros((4, 2), dtype=dtype), torch.tensor([0, 5]))
+    rs = np.random.RandomState(6)
+    x = rs.randint(0, 200, (7, 3))
+    x = (x % 2).astype(dtype) if dtype == 'bool' else x.astype(dtype)
+    ids = np.concatenate([rs.randint(-7, 7, 10),
+                          [-7, -1, 6, 7, 9, -8, -20]]).astype('int64')
+
+    def build(pkg):
+        xv = pkg.layers.data(name='x', shape=list(x.shape), dtype=dtype,
+                             append_batch_size=False)
+        iv = pkg.layers.data(name='ids', shape=[len(ids)], dtype='int64',
+                             append_batch_size=False)
+        return pkg.layers.gather(xv, iv)
+
+    def run(pkg, place):
+        main, _, out = _one_layer_program(pkg, build)
+        exe = pkg.Executor(place) if place is not None else pkg.Executor()
+        return np.asarray(exe.run(main, feed={'x': x, 'ids': ids},
+                                  fetch_list=[out])[0])
+
+    want = run(jfluid, None)
+    got = run(fluid, CPU)
+    assert got.shape == want.shape == (len(ids), 3)
+    np.testing.assert_array_equal(got, want)
+    fill = {'int32': -2 ** 31, 'int64': -2 ** 31, 'uint8': 255,
+            'bool': True}.get(dtype)
+    outside = (ids >= 7) | (ids < -7)
+    if fill is None:
+        assert np.isnan(got[outside]).all()
+    else:
+        assert (got[outside] == fill).all()
+    direct = gather(torch.from_numpy(x), torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(direct, np.asarray(jnp.take(
+        jnp.asarray(x), jnp.asarray(ids, jnp.int32), axis=0)))
+
+
+@pytest.mark.parametrize('name', ['calc_gradient', 'gradients'])
+def test_calc_gradient_matches_the_jax_executor(name):
+    """``calc_gradient`` (and its alias ``gradients``) w.r.t. a fed variable
+    and a parameter, the bias named in ``no_grad_set``: the same program
+    as the JAX package's, and the same gradients through ``Executor.run``
+    within 1e-5 relative."""
+    rs = np.random.RandomState(8)
+    feed = {'x': rs.randn(6, 5).astype('float32')}
+
+    def build(pkg):
+        x = pkg.layers.data(name='x', shape=[5], dtype='float32')
+        h = pkg.layers.fc(x, size=4, act='tanh')
+        loss = pkg.layers.mean(pkg.layers.elementwise_mul(h, h))
+        w, b = pkg.default_main_program().global_block().all_parameters()
+        grads = getattr(pkg, name)(loss, [x, w, b], no_grad_set=[b.name])
+        return [loss] + grads
+
+    jmain, jstart, jouts = _one_layer_program(jfluid, build)
+    tmain, tstart, touts = _one_layer_program(fluid, build)
+    assert tser.program_to_dict(tmain) == jser.program_to_dict(jmain)
+    assert tser.program_to_dict(tstart) == jser.program_to_dict(jstart)
+    assert [v.name for v in touts[1:]] == ['x@GRAD', 'fc_0.w_0@GRAD']
+    jscope = jfluid.Scope()
+    jexe = jfluid.Executor()
+    jexe.run(jstart, scope=jscope)
+    want = jexe.run(jmain, feed=feed, fetch_list=jouts, scope=jscope)
+    got = fluid.Executor(CPU).run(
+        tmain, feed=feed, fetch_list=touts,
+        scope=scope_from_numpy(_scope_arrays(jscope), device='cpu'))
+    assert got[1].shape == (6, 5) and got[2].shape == (5, 4)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-7)
+    assert np.abs(got[1]).max() > 0
+
+
+@pytest.mark.parametrize('name', [
+    'calc_gradient', 'gradients', 'save_vars', 'save_params',
+    'save_persistables', 'load_vars', 'load_params', 'load_persistables'])
+def test_top_level_names_of_the_jax_package(name):
+    """The names the JAX package exports at its top level for gradients and
+    for saving and loading variables: importable from the port, in its
+    ``__all__``, and the same functions as in its modules."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import backward, io
+    assert hasattr(jfluid, name)
+    fn = getattr(paddle_tpu_torch, name)
+    assert name in paddle_tpu_torch.__all__
+    assert fn is getattr(backward if 'grad' in name else io, name)
 
 
 # ---------------------------------------------------------------------------
