@@ -117,15 +117,25 @@ Phases, each printing one JSON line:
    BH 128 (B 16 x 8 heads), L 512, dh 64, causal, no bias, and (b) BERT's,
    BH 1536 (B 128 x 12 heads), L 128, dh 64, not causal, with a key-padding
    bias from key lengths drawn in 32..128 and one batch element wholly
-   padded, for which O, dQ, dK and dV must be exactly 0. O and LSE within
+   padded, for which O, dQ, dK and dV must be exactly 0, and (c)
+   ``lm_dh256``'s (phase 22), BH 128 (B 32 x 4 heads), L 512, dh 256,
+   causal: the kernels' form that splits each head's output columns over
+   two blocks. O and LSE within
    1e-4 absolute (LSE on the rows that keep a key); each gradient within
    1e-4 of that tensor's largest magnitude; two calls of each kernel give
-   the same bits. ``library_ms`` is ``F.scaled_dot_product_attention`` and
+   the same bits. Each case names the instantiation its launch takes and
+   that instantiation's registers and spilled bytes; no dh-256
+   instantiation of any flash kernel may spill. ``library_ms`` is
+   ``F.scaled_dot_product_attention`` and
    its backward through autograd (one call that yields dQ, dK and dV
    together), timed only: the backward's device time from CUDA-graph
    replays like the kernels', and ``library_eager_ms`` its eager rate.
    ``bound_ms`` counts the visible (query, key) pairs of this run's mask:
-   4 dh flops a pair forward, 6 dh for dQ, 8 dh for dK/dV.
+   4 dh flops a pair forward, 6 dh for dQ, 8 dh for dK/dV; at dh 256
+   ``bound_split_ms`` counts beside them the products that the column
+   split repeats (``split_extra_flops``: 2 dh a pair forward, 4 dh for dQ
+   and the bf16 dK/dV, 8 dh for the float32 dK/dV, whose dK and dV halves
+   are blocks of their own).
 9. flash_train_vs_cpu — phase 6 with flash attention on: the card against
    the CPU, and on the card flash against the unfused branch of phase 6,
    same limits.
@@ -189,8 +199,9 @@ Phases, each printing one JSON line:
 13. amp_flash_kernel — phase 8 on bf16 operands: the bf16 forward, dQ and
    dK/dV kernels against their plain versions at (a) the AMP LM step's
    shape, BH 512 (B 64 x 8 heads), L 512, dh 64, causal, (b) BERT's (as
-   phase 8) and (c) ``lm_long_seq8k``'s (bench.py:1124-1129), BH 16 (B 2 x
-   8 heads), L 8192, dh 64, causal. O, dQ, dK and dV within 1e-2 of each
+   phase 8), (c) ``lm_long_seq8k``'s (bench.py:1124-1129), BH 16 (B 2 x
+   8 heads), L 8192, dh 64, causal, and (d) ``lm_dh256``'s (as phase 8's
+   (c)). O, dQ, dK and dV within 1e-2 of each
    tensor's largest magnitude, LSE within 1e-5 absolute on the rows that
    keep a key, the
    padded element exactly 0, two calls bitwise equal; ``library_ms`` is
@@ -210,11 +221,12 @@ Phases, each printing one JSON line:
    and ``ms_over_library`` and ``ms_over_fa2`` hold that pair against
    SDPA's backward, which yields dQ, dK and dV.
 13b. flash_head_widths — the three float32 and the three bf16 flash
-   kernels at head widths 8, 48, 80 and 96 (the wrappers zero-pad them to
-   16, 64, 128 and 128), B 4 x H 2, L 200, causal, a key-padding bias
-   keeping 200, 173, 140 and 101 keys: within phases 8's and 13's
-   tolerances of their plain versions at the true width, one launch each a
-   call; a width of 160 raises.
+   kernels at head widths 8, 48, 80, 96, 160, 192 and 256 (the wrappers
+   zero-pad them to 16, 64, 128, 128, 256, 256; 256 itself runs as it
+   is), B 4 x H 2, L 200, causal, a key-padding bias keeping 200, 173, 140
+   and 101 keys: within phases 8's and 13's tolerances of their plain
+   versions at the true width, one launch each a call; a width of 257
+   raises, naming 256.
 14. amp_train_vs_cpu — phase 9 with the model bf16-marked
    (``rewrite_model_bf16``): card against CPU, loss within 5e-3 relative
    and every gradient within 2e-2 of its largest magnitude; then the
@@ -431,6 +443,31 @@ Phases, each printing one JSON line:
    2), the best round's step ms and samples/s, no host-to-device copy in
    two profiled fused steps, the loss falling from the first eager step
    to the last fused one. Nothing is cut.
+22. lm_dh256 — the flagship LM family at head width 256: the bench's
+   ``lm_large`` row (bench.py:1118-1122) with 4 heads in place of 16
+   (V 32000, L 512, d 1024, 8 layers, d_ff 4096, dropout 0.1, attention
+   dropout 0), weights from the startup program's seed, nothing cut. Its
+   attention shape's kernels are phases 8 (c) and 13 (d). (a)
+   ``lm_dh256_amp``: ``build_lm`` + ``mixed_precision.decorate(Adam)``
+   through ``Executor.run`` at B 32, 5 steps (the loss finite and fallen,
+   each step launching exactly the AMP path's kernels: the bf16 forward,
+   dQ and dK/dV 8 each, at dh 256), then ``run_fused`` as 15b (b); step
+   ms, tokens/s, model TFLOP/s, peak memory; and 2 layers at B 2 without
+   dropout, three ``run()`` steps on the card against the CPU Executor at
+   the AMP limits (loss 5e-3 relative, every parameter and moment within
+   2e-2 of its group's largest magnitude; the K slice of each qkv bias
+   within 10 x lr). (b) ``lm_dh256_f32``: the float32 flash program of
+   the same configuration at B 4, 5 ``run()`` steps launching exactly the
+   f32 path's kernels (the f32 flash forward, dQ and dK/dV and the FFN 8
+   each), and 2 layers held to the CPU at the f32 limits (loss 1e-4
+   relative, every tensor within 1e-3 of its own largest magnitude).
+   (c) ``lm_dh256_engine``: the contiguous ``GenerateEngine`` at the same
+   configuration (dropout 0), 8 slots, max_len 512, buckets 128, 256 and
+   512: 8 concurrent requests (prompts of 5..448 tokens, 32 new tokens,
+   half greedy and half sampled with pinned seeds), each equal to its own
+   ``generate_once``, no capture after warmup, the f32 flash forward
+   launched by the prefills, and a 64-token prefill and one decode step
+   within 1e-3 of the CPU's logits, as phase 4 holds the flagship's.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -552,6 +589,15 @@ SEQ8K = dict(vocab_size=32000, seq_len=8192, d_model=512, n_head=8,
              use_flash_attention=True)
 SEQ8K_B = 2
 LARGE_STEPS = 5
+# phase 22: lm_large (bench.py:1118-1122) at head width 256 (4 heads of
+# 256): AMP at lm_large's batch, float32 at B 4, the holds against the CPU
+# at 2 layers and B 2 (3 steps), the engine at phase 4's slots and length
+LM_DH256 = dict(LM_LARGE, n_head=4)
+LM_DH256_B = 32
+LM_DH256_F32_B = 4
+DH256_HOLD_LAYERS, DH256_HOLD_B, DH256_HOLD_STEPS = 2, 2, 3
+DH256_BUCKETS = (128, 256, 512)
+DH256_REQUESTS = 8
 # phase 15b (f): the bound AMP step's calls, held to as many eager steps
 BOUND_STEPS = 20
 # the run_fused rows: K batches staged on the card (bench.py stages its
@@ -665,7 +711,13 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'ctr_sparse': ('embedding_gather',),
                 'ctr_sharded_v1m': ('embedding_gather',),
                 'ctr_sparse_hold': ('embedding_gather',),
-                'ctr_sharded_v1m_hold': ('embedding_gather',)}
+                'ctr_sharded_v1m_hold': ('embedding_gather',),
+                'lm_dh256_amp': AMP_TRAIN_KERNELS,
+                'lm_dh256_amp_fused': AMP_TRAIN_KERNELS,
+                'lm_dh256_amp_hold': AMP_TRAIN_KERNELS,
+                'lm_dh256_f32': FLASH_TRAIN_KERNELS,
+                'lm_dh256_f32_hold': FLASH_TRAIN_KERNELS,
+                'lm_dh256_engine': ENGINE_KERNELS}
 
 
 def emit(obj):
@@ -2260,7 +2312,8 @@ def flash_shapes(torch, low):
     step's B 64): the LM training shape, causal, and BERT's, with its
     key-padding bias [B, L] on the CPU (key lengths drawn in 32..128, batch
     element 0 wholly padded) and the visible (query, key) pairs of each;
-    phase 13 also ``lm_long_seq8k``'s (B 2 x 8 heads, L 8192, causal)."""
+    phase 13 also ``lm_long_seq8k``'s (B 2 x 8 heads, L 8192, causal); both
+    last ``lm_dh256``'s (B 32 x 4 heads, L 512, dh 256, causal)."""
     lens = np.random.RandomState(11).randint(32, 129, size=BERT_INFER_B)
     lens[0] = 0                       # one batch element wholly padded
     bias = torch.zeros(BERT_INFER_B, 128)
@@ -2277,6 +2330,10 @@ def flash_shapes(torch, low):
                         L=L, dh=SEQ8K['d_model'] // SEQ8K['n_head'],
                         causal=True, bias=None,
                         pairs=SEQ8K_B * SEQ8K['n_head'] * L * (L + 1) // 2))
+    H, L = LM_DH256['n_head'], LM_DH256['seq_len']
+    out.append(dict(shape='lm_dh256', B=LM_DH256_B, H=H, L=L,
+                    dh=LM_DH256['d_model'] // H, causal=True, bias=None,
+                    pairs=LM_DH256_B * H * L * (L + 1) // 2))
     return out
 
 
@@ -2300,31 +2357,45 @@ def sdpa_bwd_yardsticks(torch, F, sdpa, q4, k4, v4, do4, mask4, causal):
     return dict(library_kernels=names, library_fa2_ms=fa2)
 
 
+def f32_flash_rows(bh, L, parts):
+    """Rows a block (16 a warp) of a float32 flash kernel's launch with
+    ``parts`` blocks a row tile (at dh 256 the forward's and dQ's 2, dK/dV's
+    4; else 1): 64 where that gives each of the card's 132 SMs a block,
+    else 32, else 16."""
+    for rows in (64, 32):
+        if bh * parts * -(-L // rows) >= 132:
+            return rows
+    return 16
+
+
 def check_flash_kernels(torch, F, dtype=None, ptxas=None):
-    """Phases 8 and 13: the three flash kernels at the LM training shape and
-    at BERT's (with the key-padding bias), on float32 operands (phase 8) or
-    on bf16 ones (phase 13, ``dtype`` bf16: the bf16 kernels at the AMP
-    step's B 64; each kernel's cases also name their plan and, from
-    ``ptxas`` (``ptxas_report`` of the build), the registers and spilled
-    bytes of the instantiation that plan launches; no instantiation of the
-    forward, the dQ or the dK/dV kernel may spill). Returns
-    {kernel name: summary}."""
+    """Phases 8 and 13: the three flash kernels at the LM training shape,
+    at BERT's (with the key-padding bias) and at ``lm_dh256``'s, on float32
+    operands (phase 8) or on bf16 ones (phase 13, ``dtype`` bf16: the bf16
+    kernels at the AMP step's B 64). Each kernel's cases also name their
+    plan and, from ``ptxas`` (``ptxas_report`` of the build), the registers
+    and spilled bytes of the instantiation that plan launches; no
+    instantiation of a bf16 flash kernel may spill, nor any dh-256 one of
+    a float32 flash kernel. Returns {kernel name: summary}."""
     from paddle_tpu_torch.ops import attention_ops as A
     dtype = dtype or torch.float32
     low = dtype == torch.bfloat16
-    fwd_ptxas = (ptxas or {}).get('flash_attn_bf16_fwd', {})
-    bwd_ptxas = (ptxas or {}).get('flash_attn_bf16_bwd', {})
+    fwd_ptxas = (ptxas or {}).get(
+        'flash_attn_bf16_fwd' if low else 'flash_attn_fwd', {})
+    bwd_ptxas = (ptxas or {}).get(
+        'flash_attn_bf16_bwd' if low else 'flash_attn_bwd', {})
+    suffix = '_bf16<' if low else '<'
     dq_ptxas, dkv_ptxas = ({k: r for k, r in bwd_ptxas.items()
-                            if k.startswith(name)}
-                           for name in ('flash_bwd_dq_bf16',
-                                        'flash_bwd_dkv_bf16'))
-    if low:
-        for what, rep in (('forward', fwd_ptxas), ('dQ', dq_ptxas),
-                          ('dK/dV', dkv_ptxas)):
-            spilled = {k: r for k, r in rep.items() if r[1] or r[2]}
-            if spilled:
-                raise AssertionError('the bf16 %s spills: %s'
-                                     % (what, spilled))
+                            if k.startswith(name + suffix)}
+                           for name in ('flash_bwd_dq', 'flash_bwd_dkv'))
+    for what, rep in (('forward', fwd_ptxas), ('dQ', dq_ptxas),
+                      ('dK/dV', dkv_ptxas)):
+        spilled = {k: r for k, r in rep.items()
+                   if (r[1] or r[2]) and (low or '<256,' in k)}
+        if spilled:
+            raise AssertionError('the %s %s spills: %s'
+                                 % ('bf16' if low else 'float32', what,
+                                    spilled))
     dev = torch.device('cuda', 0)
     g = torch.Generator(device=dev).manual_seed(777)
     shapes = flash_shapes(torch, low)
@@ -2397,6 +2468,17 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
             library_covers='dQ, dK and dV in one call')
         del lib_out, leaves
         dq_extra, dkv_extra = {}, {}
+        if not low:
+            # the plan (rows a block, 16 a warp) and the instantiations
+            # flash_bwd_{dq,dkv}<dh, warps>
+            for res, rep, kernel, parts in ((dq_extra, dq_ptxas, 'dq', 2),
+                                            (dkv_extra, dkv_ptxas, 'dkv', 4)):
+                rows = f32_flash_rows(bh, L, parts if dh > 128 else 1)
+                kname = 'flash_bwd_%s<%d, %d>' % (kernel, dh, rows // 16)
+                regs = rep.get(kname, [None] * 3)
+                res.update(plan=dict(rows_block=rows, rows_warp=16),
+                           kernel=kname, registers=regs[0],
+                           spill_store_bytes=regs[1], spill_load_bytes=regs[2])
         if low:
             dkv_extra = sdpa_bwd_yardsticks(torch, F, sdpa, q4, k4, v4, do4,
                                             mask4, causal)
@@ -2413,14 +2495,22 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
                            kernel=kname, registers=regs[0],
                            spill_store_bytes=regs[1], spill_load_bytes=regs[2])
 
-        def case(fn, plain, library, nbytes, flops, **errs):
-            # every flop counted here is a matrix product's
-            products = dict(bf16_flops=flops) if low else \
-                dict(product_flops=flops)
-            return dict(common, ms=cuda_ms(torch, fn, calls=10, replays=5),
-                        eager_ms=eager_ms(torch, fn, iters=10, warmup=2),
-                        plain_ms=cuda_ms(torch, plain, calls=5, replays=5),
-                        **library, **bound(nbytes, 0, **products), **errs)
+        def case(fn, plain, library, nbytes, flops, split_flops, **errs):
+            # every flop counted here is a matrix product's; at dh 256 the
+            # column split does ``extra`` more (the score products twice)
+            key = 'bf16_flops' if low else 'product_flops'
+            out = dict(common, ms=cuda_ms(torch, fn, calls=10, replays=5),
+                       eager_ms=eager_ms(torch, fn, iters=10, warmup=2),
+                       plain_ms=cuda_ms(torch, plain, calls=5, replays=5),
+                       **library, **bound(nbytes, 0, **{key: flops}),
+                       **errs)
+            out['share_of_bound'] = out['bound_ms'] / out['ms']
+            if dh > 128:
+                split = bound(nbytes, 0, **{key: flops + split_flops})
+                out.update(split_extra_flops=split_flops,
+                           bound_split_ms=split['bound_ms'],
+                           bound_split_by=split['bound_by'])
+            return out
 
         fwd_errs = dict(max_abs_err=max(float((o.float() - o_ref.float())
                                               .abs().max()), lse_err))
@@ -2443,11 +2533,19 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
                             kernel=kname, registers=regs[0],
                             spill_store_bytes=regs[1],
                             spill_load_bytes=regs[2])
+        else:
+            rows = f32_flash_rows(bh, L, 2 if dh > 128 else 1)
+            kname = 'flash_fwd_tc<%d, %d>' % (dh, rows // 16)
+            regs = fwd_ptxas.get(kname, [None] * 3)
+            fwd_errs.update(plan=dict(rows_block=rows, rows_warp=16),
+                            kernel=kname, registers=regs[0],
+                            spill_store_bytes=regs[1],
+                            spill_load_bytes=regs[2])
         out[names[0]]['cases'].append(case(
             lambda: A._flash_fwd(q, k, v, *args),
             lambda: A._attention_ref(q, k, v, *args),
             fwd_library,
-            4 * mat + row + extra, 4 * dh * sh['pairs'],
+            4 * mat + row + extra, 4 * dh * sh['pairs'], 2 * dh * sh['pairs'],
             deterministic=same_bits(torch, lambda: A._flash_fwd(
                 q, k, v, *args)), **fwd_errs))
         if low:
@@ -2459,7 +2557,7 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
             lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args),
             lib_bwd, 5 * mat + 2 * row + extra, 6 * dh * sh['pairs'],
-            **dq_extra,
+            4 * dh * sh['pairs'], **dq_extra,
             max_abs_err=float((dq.float() - dq_ref.float()).abs().max()),
             max_rel_err=rel(dq, dq_ref),
             largest_magnitude=dict(dq=float(dq_ref.float().abs().max())),
@@ -2469,7 +2567,7 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
             lambda: A._flash_bwd_dkv(q, k, v, do, lse, delta, *args),
             lambda: A._bwd_dkv_ref(q, k, v, do, lse, delta, *args),
             lib_bwd, 6 * mat + 2 * row + extra, 8 * dh * sh['pairs'],
-            **dkv_extra,
+            (4 if low else 8) * dh * sh['pairs'], **dkv_extra,
             max_abs_err=max(float((dk.float() - dk_ref.float()).abs().max()),
                             float((dv.float() - dv_ref.float()).abs().max())),
             max_rel_err=max(rel(dk, dk_ref), rel(dv, dv_ref)),
@@ -2499,14 +2597,16 @@ def check_flash_kernels(torch, F, dtype=None, ptxas=None):
 
 def check_head_widths(torch):
     """Phase 13b: the three float32 flash kernels and the three bf16 ones
-    at head widths between their instantiations (8, 48, 80, 96), which the
-    wrappers zero-pad to the next one (16, 64, 128, 128), on a small
+    at head widths between their instantiations (8, 48, 80, 96, 160, 192),
+    which the wrappers zero-pad to the next one (16, 64, 128, 128, 256,
+    256), and at 256 (each head's output columns split over two blocks),
+    on a small
     causal shape (B 4, H 2, L 200) with a key-padding bias cutting the
     elements to 200, 173, 140 and 101 keys: each held to its plain version
     at the true width within phase 8's and 13's tolerances (float32: O and
     LSE 1e-4 absolute, each gradient 1e-4 of its largest magnitude; bf16:
     O, dQ, dK and dV 1e-2 of theirs, LSE 1e-5), each launched once a
-    call; a width above 128 raises."""
+    call; a width above 256 raises, naming 256."""
     from paddle_tpu_torch.ops import attention_ops as A
     from paddle_tpu_torch.ops import kernel_tier as kt
     dev = torch.device('cuda', 0)
@@ -2519,7 +2619,7 @@ def check_head_widths(torch):
     for dtype, names, tol in (
             (torch.float32, FLASH_KERNELS, 1e-4),
             (torch.bfloat16, AMP_FLASH_KERNELS, 1e-2)):
-        for dh in (8, 48, 80, 96):
+        for dh in (8, 48, 80, 96, 160, 192, 256):
             q, k, v, do = (torch.randn((B * H, L, dh), generator=g,
                                        device=dev).to(dtype)
                            for _ in range(4))
@@ -2552,13 +2652,15 @@ def check_head_widths(torch):
                 emit(dict(phase='flash_head_widths', cases=cases))
                 raise AssertionError('flash kernels at head width %d (%s): '
                                      '%s' % (dh, dtype, case))
-    q = torch.randn((2, 8, 160), device=dev)
+    q = torch.randn((2, 8, 257), device=dev)
     try:
-        A._flash_fwd(q, q, q, 160 ** -0.5, True)
-    except ValueError:
-        pass
+        A._flash_fwd(q, q, q, 257 ** -0.5, True)
+    except ValueError as e:
+        if '256' not in str(e):
+            raise AssertionError('a head width of 257 raised %r, which does '
+                                 'not name the limit 256' % e)
     else:
-        raise AssertionError('a head width of 160 did not raise')
+        raise AssertionError('a head width of 257 did not raise')
     return dict(phase='flash_head_widths', shape=dict(B=B, H=H, L=L),
                 causal=True, keys_kept=[200, 173, 140, 101], cases=cases)
 
@@ -5080,6 +5182,207 @@ def run_ctr(torch, kt, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the flagship LM family at head width 256
+
+
+def lm_feed(torch, cfg, n, seed, dev):
+    """{tokens, labels} [n, L] int64 on ``dev``, drawn on the CPU."""
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    return {k: torch.randint(0, cfg.vocab_size, (n, cfg.seq_len),
+                             generator=g).to(dev)
+            for k in ('tokens', 'labels')}
+
+
+def lm_program_hold(torch, kt, fluid, smi, cfg, amp, path):
+    """Phase 22's holds: ``cfg``'s training program (Adam 1e-4, decorated
+    with ``amp``) on the card against the CPU Executor from one
+    initialization, DH256_HOLD_STEPS ``run()`` steps on one batch of
+    DH256_HOLD_B, each card step launching exactly the path's kernels: the
+    losses within 1e-4 relative and every parameter and moment within
+    1e-3 of its own largest magnitude (float32), or 5e-3 and 2e-2 of its
+    group's (AMP); the K slice of each qkv bias, whose true gradient is 0,
+    within 10 x lr. Returns (summary, launch counts of the card's
+    steps)."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    main, startup, _, loss = build_program(fluid, cfg, amp=amp)
+    exe = fluid.Executor()
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = state_arrays(s0)
+    del s0
+    feed = {k: v.cpu().numpy() for k, v in lm_feed(
+        torch, cfg, DH256_HOLD_B, 22, 'cpu').items()}
+    per_step = program_step_launches(cfg, amp=amp)
+    runs, counts = {}, None
+    for side, place in (('card', None), ('cpu', fluid.CPUPlace())):
+        e = exe if place is None else fluid.Executor(place)
+        scope = scope_from_numpy(init, device=e.device)
+        kt.reset_counts()
+        losses = run_counted(
+            kt, [lambda: e.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)[0]] *
+            DH256_HOLD_STEPS,
+            per_step if place is None else dict.fromkeys(kt.KERNELS, 0),
+            path)
+        if place is None:
+            counts = kt.launch_counts()
+        runs[side] = (losses, state_arrays(scope))
+        del scope
+    (got, gstate), (want, wstate) = runs['card'], runs['cpu']
+    params = [p.name for p in main.all_parameters()]
+    d = cfg.d_model
+    for st in (gstate, wstate):
+        for n in params:
+            if n.endswith('.attn.qkv.b'):
+                st[n + '[K]'] = st[n][d:2 * d]
+                st[n] = np.concatenate([st[n][:d], st[n][2 * d:]])
+    tol, scale, loss_tol = (2e-2, 'set', 5e-3) if amp else \
+        (1e-3, 'own', 1e-4)
+    held, failures = hold_steps(got, want, gstate, wstate, {
+        'params': (params, tol, scale),
+        'moments': ([n for n in wstate if '_moment' in n], tol, scale),
+        'k_bias': ([n for n in wstate if n.endswith('[K]')], 10 * 1e-4,
+                   'abs')}, loss_tol)
+    out = dict(phase='lm_dh256_hold', path=path, card=smi, amp=amp,
+               n_layer=cfg.n_layer, batch=DH256_HOLD_B,
+               steps=DH256_HOLD_STEPS, launches_per_step=per_step, **held)
+    emit(out)
+    if failures:
+        raise AssertionError('%s on the card off the CPU: %s'
+                             % (path, '; '.join(failures)))
+    return out, counts
+
+
+def lm_dh256_engine(torch, kt, smi):
+    """Phase 22 (c): the contiguous engine at ``lm_dh256`` (module
+    docstring). Returns (summary, launch counts)."""
+    from paddle_tpu_torch.models.transformer import LMConfig, TransformerLM
+    from paddle_tpu_torch.serving import GenerateConfig, GenerateEngine
+    cfg = GenerateConfig(
+        model=LMConfig(**dict(LM_DH256, dropout=0.0)), slots=SLOTS,
+        max_len=MAX_LEN, prompt_buckets=list(DH256_BUCKETS),
+        max_new_tokens=NEW_TOKENS, seed=0)
+    rs = np.random.RandomState(22)
+    lens = np.linspace(5, MAX_LEN - 2 * NEW_TOKENS,
+                       DH256_REQUESTS).astype(int)
+    work = []
+    for i, n in enumerate(lens):
+        prompt = rs.randint(2, cfg.model.vocab_size, size=int(n))
+        work.append((prompt, dict(temperature=0.8, top_k=50, top_p=0.9,
+                                  sample_seed=1000 + i) if i % 2 else {}))
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerateEngine(cfg)
+    warm = eng.warmup()
+    check_warm('lm_dh256_engine', warm, 2 + 2 * len(DH256_BUCKETS))
+    kt.reset_counts()
+    t0 = time.perf_counter()
+    with eng:
+        reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, **kw)
+                for p, kw in work]
+        outs = [r.result(600) for r in reqs]
+    wall = time.perf_counter() - t0
+    refs = [eng.generate_once(p, max_new_tokens=NEW_TOKENS, **kw)
+            for p, kw in work]
+    counts = kt.launch_counts()
+    stats = eng.stats()
+    check_no_late_capture('lm_dh256_engine', stats)
+    reasons = [o.finish_reason for o in outs]
+    if reasons != ['length'] * len(work) or \
+            any(len(o) != NEW_TOKENS for o in outs):
+        raise AssertionError('lm_dh256_engine: finish reasons %s' % reasons)
+    mismatch = [i for i, (o, r) in enumerate(zip(outs, refs)) if list(o) != r]
+    if mismatch:
+        raise AssertionError('lm_dh256_engine: concurrent != sequential for '
+                             'requests %s' % mismatch)
+    idle = [k for k in ENGINE_KERNELS if counts[k] <= 0]
+    if idle:
+        raise AssertionError('lm_dh256_engine: kernels never launched: %s'
+                             % idle)
+    # the card's logits against the CPU's, as phase 4 holds them: one
+    # 64-token prefill, then one decode step
+    dev, model = eng.device, eng.model
+    cpu = TransformerLM(cfg.model, {k: v.cpu() for k, v in model.p.items()},
+                        MAX_LEN)
+    cpu.allocate_cache(SLOTS)
+    prompt = rs.randint(2, cfg.model.vocab_size, size=(1, 64))
+    _, lg_gpu = model.prefill(torch.from_numpy(prompt).to(dev), 1, 40)
+    _, lg_cpu = cpu.prefill(torch.from_numpy(prompt), 1, 40)
+    tok, posv = np.zeros(SLOTS, 'int64'), np.zeros(SLOTS, 'int64')
+    tok[1], posv[1] = 17, 40
+    _, sg_gpu = model.decode_step(torch.from_numpy(tok).to(dev),
+                                  torch.from_numpy(posv).to(dev))
+    _, sg_cpu = cpu.decode_step(torch.from_numpy(tok), torch.from_numpy(posv))
+    lg_gpu, sg_gpu = lg_gpu.cpu(), sg_gpu[1].cpu()
+    if not (torch.isfinite(lg_gpu).all() and torch.isfinite(sg_gpu).all()):
+        raise AssertionError('lm_dh256_engine: non-finite logits')
+    logit_err = max(float((lg_gpu - lg_cpu).abs().max()),
+                    float((sg_gpu - sg_cpu[1]).abs().max()))
+    if not logit_err <= 1e-3:
+        raise AssertionError('lm_dh256_engine: card vs CPU logits differ by '
+                             '%g' % logit_err)
+    gen = sum(len(o) for o in outs)
+    out = dict(phase='lm_dh256_engine', card=smi, requests=len(work),
+               prompt_lens=[int(n) for n in lens], new_tokens=gen,
+               warmup=warm, wall_s=wall, tokens_per_s=gen / wall,
+               concurrent_equals_sequential=True,
+               logits_max_abs_err_vs_cpu=logit_err, launches=counts,
+               launches_per_replay=replay_launches(eng),
+               stats=stats, peak_mem_bytes=torch.cuda.max_memory_allocated())
+    del eng, model, cpu
+    return out, counts
+
+
+def run_lm_dh256(torch, kt, smi):
+    """Phase 22 (module docstring). Returns {path: launch counts}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import LMConfig
+    exe = fluid.Executor()
+    dev = exe.device
+    by_path = {}
+    hold_cfg = LMConfig(**dict(LM_DH256, n_layer=DH256_HOLD_LAYERS,
+                               dropout=0.0))
+    for amp, key, n, idle in ((True, 'lm_dh256_amp', LM_DH256_B,
+                               AMP_IDLE_KERNELS),
+                              (False, 'lm_dh256_f32', LM_DH256_F32_B,
+                               AMP_FLASH_KERNELS)):
+        _, by_path[key + '_hold'] = lm_program_hold(
+            torch, kt, fluid, smi, hold_cfg, amp, key + '_hold')
+        torch.cuda.empty_cache()
+        cfg = LMConfig(**LM_DH256)
+        main, startup, _, loss = build_program(fluid, cfg, amp=amp)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        per = program_step_launches(cfg, amp=amp)
+        timed, by_path[key] = program_timing(
+            torch, kt, program_step(exe, main, lm_feed(torch, cfg, n, 6, dev),
+                                    loss, scope),
+            LARGE_STEPS, per, AMP_TRAIN_KERNELS if amp else
+            FLASH_TRAIN_KERNELS, idle)
+        fused = None
+        if amp:
+            fused, by_path[key + '_fused'] = fused_timing(
+                torch, kt, exe, main, loss, scope,
+                [lm_feed(torch, cfg, n, 40 + i, dev) for i in range(FUSED_K)],
+                per)
+            fused.update(tokens_per_s=n * cfg.seq_len /
+                         (fused['step_ms'] / 1e3),
+                         eager_step_ms=timed['step_ms'])
+        emit(dict(phase='lm_dh256_train', path=key, card=smi, config=LM_DH256,
+                  amp=amp, batch=n, head_width=cfg.d_model // cfg.n_head,
+                  parameters=sum(int(np.prod(p.shape))
+                                 for p in main.all_parameters()),
+                  tokens_per_s=n * cfg.seq_len / (timed['step_ms'] / 1e3),
+                  model_tflops=model_flops(cfg, n) /
+                  (timed['step_ms'] / 1e3) / 1e12, fused=fused, **timed))
+        del scope, main, startup
+        torch.cuda.empty_cache()
+    engine, by_path['lm_dh256_engine'] = lm_dh256_engine(torch, kt, smi)
+    emit(engine)
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5094,6 +5397,7 @@ def main():
     sys.path.insert(0, root)
     import torch.nn.functional as F
     from paddle_tpu_torch import native
+    from paddle_tpu_torch.ops import attention_ops
     from paddle_tpu_torch.ops import kernel_tier as kt
 
     # full f32 products on both sides of every comparison
@@ -5165,13 +5469,13 @@ def main():
                                            TRAIN_KERNELS)
     emit(train)
 
-    flash = check_flash_kernels(torch, F)
-    # each has one case at the LM's training shape and one at BERT's; the
-    # forward has its prefill cases already, the backward kernels' first
-    # path is the LM's training step
+    flash = check_flash_kernels(torch, F, ptxas=ptxas)
+    # each has one case at the LM's training shape, one at BERT's and one
+    # at lm_dh256's; the forward has its prefill cases already, the
+    # backward kernels' first path is the LM's training step
     for name in FLASH_KERNELS:
-        lm_case, bert_case = flash[name]['cases']
-        other[name] = {'bert': [bert_case]}
+        lm_case, bert_case, dh256_case = flash[name]['cases']
+        other[name] = {'bert': [bert_case], 'lm_dh256': [dh256_case]}
         if name in kernels:
             kernels[name]['max_abs_err'] = max(kernels[name]['max_abs_err'],
                                                flash[name]['max_abs_err'])
@@ -5218,9 +5522,10 @@ def main():
     # bf16 AMP: the bf16 flash kernels, then the AMP training steps
     amp_flash = check_flash_kernels(torch, F, torch.bfloat16, ptxas)
     for name in AMP_FLASH_KERNELS:
-        lm_case, bert_case, long_case = amp_flash[name]['cases']
+        lm_case, bert_case, long_case, dh256_case = amp_flash[name]['cases']
         other[name] = {'bert_amp': [bert_case],
-                       'program_seq8k': [long_case]}
+                       'program_seq8k': [long_case],
+                       'lm_dh256': [dh256_case]}
         kernels[name] = amp_flash[name]
     emit(check_head_widths(torch))
     compare_train_step_with_cpu(torch, flash=True, amp=True,
@@ -5279,6 +5584,7 @@ def main():
     by_path.update(run_stacked_lstm(torch, kt, smi))
     merge('ctr', check_ctr_gather(torch, F))
     by_path.update(run_ctr(torch, kt, smi))
+    by_path.update(run_lm_dh256(torch, kt, smi))
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {
@@ -5332,6 +5638,8 @@ def main():
                if 'bound_simt_ms' in case else {}),
             library_ms=case['library_ms'], eager_ms=case['eager_ms'],
             shape={key: case[key]},
+            **({'head_widths': list(attention_ops._WIDTHS)}
+               if name.startswith('flash') else {}),
             tolerance=res['tolerance'],
             checked=res.get('checked', 'max_abs_err'),
             **({'max_rel_err': res['max_rel_err']}

@@ -89,6 +89,14 @@
 //   +inf, so that its p is 0) and are masked, so any L works.
 // - Blocks are numbered (bh, tile) on gridDim.x alone, so batch × heads may
 //   exceed 65535.
+// - At DH 256 a block owns one 128-wide half of its outputs' columns
+//   (kOutCols, tf32_mma.cuh; two blocks a tile, neighbours on the grid, one
+//   launch): dQ's half, or dK's and dV's. It computes S and dP over all 256
+//   columns and accumulates only its half, which keeps DH 128's
+//   accumulator registers and its plan (32-row tiles, a two-slot ring, the
+//   fixed operands read by ldmatrix as used). The halves recompute S and dP
+//   each: dQ 10·DH flops a visible pair in place of 6·DH, dK/dV 12·DH in
+//   place of 8·DH.
 // - SDS: the reference rounds the scaled dS to bf16 (ds = p (dp - delta)
 //   scale, then ds.astype). Leaving the scale out of dS and taking it once
 //   at the end gives the same bits only when the scale is a power of two
@@ -174,11 +182,12 @@ __device__ __forceinline__ void dq_chunks(
     int from, int to, uint32_t any,
     const uint32_t (&qf)[kInRegs<DH> ? DH / 16 : 1][4],
     const uint32_t (&gf)[kInRegs<DH> ? DH / 16 : 1][4], const bf16* Qs,
-    const bf16* Gs, int wr, float (&acc)[DH / 8][4], const bf16* ks,
-    const bf16* vs, const float* bs, const float (&lx)[2],
-    const float (&dl)[2], int kr, int kl, float c, float scale, int lane) {
+    const bf16* Gs, int wr, float (&acc)[kOutCols<DH> / 8][4],
+    const bf16* ks, const bf16* vs, const float* bs, const float (&lx)[2],
+    const float (&dl)[2], int kr, int kl, float c, float scale, int col0,
+    int lane) {
   constexpr int KS = DH / 16;            // k-steps of Q K^T
-  constexpr int NO = DH / 8;             // 8-column tiles of dQ
+  constexpr int NO = kOutCols<DH> / 8;   // 8-column tiles of dQ's block
   constexpr int KPL = kTile<DH> / 32;    // keys a lane in the tile's vote
   constexpr uint32_t kChunk = (1u << (16 / KPL)) - 1;  // a chunk's bits
   const int t = lane & 3;
@@ -236,13 +245,13 @@ __device__ __forceinline__ void dq_chunks(
         const float grad = p * (dp[n][e] - dl[h]);
         dp[n][e] = SDS ? grad * scale : grad;
       }
-    // dQ += bf16(dS / scale) K, K read N-major
+    // dQ += bf16(dS / scale) K, K's columns [col0, ..) read N-major
     uint32_t a[4];
     pack_a(a, dp, 0);
 #pragma unroll
     for (int n = 0; n < NO; n += 2) {
       uint32_t b[4];
-      load_b_cols<DH>(b, ks, c0, 8 * n, lane);
+      load_b_cols<DH>(b, ks, c0, col0 + 8 * n, lane);
       mma_bf16(acc[n], a, b[0], b[1]);
       mma_bf16(acc[n + 1], a, b[2], b[3]);
     }
@@ -269,7 +278,8 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
   constexpr int BT = kTile<DH>;
   constexpr int S = kStages<DH>;
   constexpr int KS = DH / 16;  // k-steps of Q K^T
-  constexpr int NO = DH / 8;   // 8-column tiles of dQ
+  constexpr int DO = kOutCols<DH>;  // dQ's columns this block owns
+  constexpr int NO = DO / 8;   // 8-column tiles of dQ
   constexpr int SLOT = kSlot<DH, 1>;
   constexpr int KPL = BT / 32;  // keys a lane in the tile's votes
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -279,11 +289,14 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  // blocks numbered ((bh, query tile), half)
+  const int half = blockIdx.x % kHalves<DH>;
+  const unsigned blk = blockIdx.x / kHalves<DH>;
+  const int col0 = half * DO;
   const int tiles = (L + NW * 16 - 1) / (NW * 16);
-  const int64_t bh = blockIdx.x / tiles;
+  const int64_t bh = blk / tiles;
   // a head's last query rows (under causal the most key tiles) first
-  const int q0 =
-      (tiles - 1 - static_cast<int>(blockIdx.x % tiles)) * NW * 16;
+  const int q0 = (tiles - 1 - static_cast<int>(blk % tiles)) * NW * 16;
   const int64_t row0 = bh * L;
   const int64_t off = row0 * DH;
   const float* brow = BIAS ? bias + (bh / n_heads) * L : nullptr;
@@ -392,17 +405,17 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
       if (drop) {
         dq_chunks<DH, false, true, BIAS, SDS>(0, cmid, any, qf, gf, Qs, Gs,
                                               wr, acc, ks, vs, bs, lx, dl, kr,
-                                              kl, c, scale, lane);
+                                              kl, c, scale, col0, lane);
         dq_chunks<DH, true, true, BIAS, SDS>(cmid, cend, any, qf, gf, Qs, Gs,
                                              wr, acc, ks, vs, bs, lx, dl, kr,
-                                             kl, c, scale, lane);
+                                             kl, c, scale, col0, lane);
       } else {
         dq_chunks<DH, false, false, BIAS, SDS>(0, cmid, any, qf, gf, Qs, Gs,
                                                wr, acc, ks, vs, bs, lx, dl,
-                                               kr, kl, c, scale, lane);
+                                               kr, kl, c, scale, col0, lane);
         dq_chunks<DH, true, false, BIAS, SDS>(cmid, cend, any, qf, gf, Qs,
                                               Gs, wr, acc, ks, vs, bs, lx, dl,
-                                              kr, kl, c, scale, lane);
+                                              kr, kl, c, scale, col0, lane);
       }
     }
   }
@@ -412,7 +425,7 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 16 / NW : 1)
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + h * 8;
     if (r >= L) continue;
-    bf16* out = dq + off + static_cast<int64_t>(r) * DH;
+    bf16* out = dq + off + static_cast<int64_t>(r) * DH + col0;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       if constexpr (SDS)
@@ -446,16 +459,16 @@ template <int DH, int MASK, bool DROP, bool BIAS, bool SDS>
 __device__ __forceinline__ void dkv_tile(
     const uint32_t (&kf)[kInRegs<DH> ? DH / 16 : 1][4],
     const uint32_t (&vf)[kInRegs<DH> ? DH / 16 : 1][4], const bf16* Ks,
-    const bf16* Vs, int wr, float (&acc_k)[DH / 8][4],
-    float (&acc_v)[DH / 8][4], const bf16* qs, const bf16* gs,
+    const bf16* Vs, int wr, float (&acc_k)[kOutCols<DH> / 8][4],
+    float (&acc_v)[kOutCols<DH> / 8][4], const bf16* qs, const bf16* gs,
     const float* ls, const float* ds, const float (&kb)[2],
     const bool (&kk)[2], int kq, int qr, int causal, float c, float scale,
-    int lane) {
+    int col0, int lane) {
   constexpr int BT = kTile<DH>;
   constexpr int QC = 16;       // queries a chunk
   constexpr int NC = QC / 8;   // 8-query tiles of a chunk
   constexpr int KS = DH / 16;  // k-steps of K Q^T
-  constexpr int NO = DH / 8;   // 8-column tiles of dK and dV
+  constexpr int NO = kOutCols<DH> / 8;  // 8-column tiles of dK and dV
   const int t = lane & 3;
   // one chunk at a time: unrolled, the chunks' products would overlap and
   // take the registers that a third block an SM needs
@@ -524,7 +537,8 @@ __device__ __forceinline__ void dkv_tile(
         const float grad = p * (dp[n][e] - dl[n][x]);
         dp[n][e] = SDS ? grad * scale : grad;
       }
-    // dV += bf16(P^T) dO, dK += bf16(dS^T / scale) Q; dO and Q read N-major
+    // dV += bf16(P^T) dO, dK += bf16(dS^T / scale) Q; dO and Q (their
+    // columns [col0, ..)) read N-major
 #pragma unroll
     for (int s = 0; s < QC / 16; ++s) {
       uint32_t ap[4], ad[4];
@@ -533,10 +547,10 @@ __device__ __forceinline__ void dkv_tile(
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         uint32_t b[4];
-        load_b_cols<DH>(b, gs, c0 + 16 * s, 8 * n, lane);
+        load_b_cols<DH>(b, gs, c0 + 16 * s, col0 + 8 * n, lane);
         mma_bf16(acc_v[n], ap, b[0], b[1]);
         mma_bf16(acc_v[n + 1], ap, b[2], b[3]);
-        load_b_cols<DH>(b, qs, c0 + 16 * s, 8 * n, lane);
+        load_b_cols<DH>(b, qs, c0 + 16 * s, col0 + 8 * n, lane);
         mma_bf16(acc_k[n], ad, b[0], b[1]);
         mma_bf16(acc_k[n + 1], ad, b[2], b[3]);
       }
@@ -564,7 +578,8 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
   constexpr int BT = kTile<DH>;
   constexpr int S = kStages<DH>;
   constexpr int KS = DH / 16;  // k-steps of K Q^T
-  constexpr int NO = DH / 8;   // 8-column tiles of dK and dV
+  constexpr int DO = kOutCols<DH>;  // dK's and dV's columns this block owns
+  constexpr int NO = DO / 8;   // 8-column tiles of dK and dV
   constexpr int SLOT = kSlot<DH, 2>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw + kFixedAt<DH, 2>);
@@ -573,9 +588,13 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  // blocks numbered ((bh, key tile), half)
+  const int half = blockIdx.x % kHalves<DH>;
+  const unsigned blk = blockIdx.x / kHalves<DH>;
+  const int col0 = half * DO;
   const int tiles = (L + NW * 16 - 1) / (NW * 16);
-  const int64_t bh = blockIdx.x / tiles;
-  const int kb0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t bh = blk / tiles;
+  const int kb0 = (blk % tiles) * NW * 16;
   const int64_t row0 = bh * L;
   const int64_t off = row0 * DH;
   const int wr = warp * 16;        // the warp's first row in Ks and Vs
@@ -656,23 +675,23 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
       if (q0 + BT > L)
         dkv_tile<DH, 2, true, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
                                          gs, ls, ds, kb, kk, kq, qr, causal,
-                                         c, scale, lane);
+                                         c, scale, col0, lane);
       else if (causal && q0 < wk0 + 15 && drops)
         dkv_tile<DH, 1, true, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
                                          gs, ls, ds, kb, kk, kq, qr, causal,
-                                         c, scale, lane);
+                                         c, scale, col0, lane);
       else if (causal && q0 < wk0 + 15)
         dkv_tile<DH, 1, false, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v,
                                           qs, gs, ls, ds, kb, kk, kq, qr,
-                                          causal, c, scale, lane);
+                                          causal, c, scale, col0, lane);
       else if (drops)
         dkv_tile<DH, 0, true, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v, qs,
                                          gs, ls, ds, kb, kk, kq, qr, causal,
-                                         c, scale, lane);
+                                         c, scale, col0, lane);
       else
         dkv_tile<DH, 0, false, BIAS, SDS>(kf, vf, Ks, Vs, wr, acc_k, acc_v,
                                           qs, gs, ls, ds, kb, kk, kq, qr,
-                                          causal, c, scale, lane);
+                                          causal, c, scale, col0, lane);
     }
   }
 
@@ -681,7 +700,7 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 && NW > 1 ? 12 / NW : 1)
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + h * 8;
     if (key >= L) continue;
-    const int64_t at = off + static_cast<int64_t>(key) * DH;
+    const int64_t at = off + static_cast<int64_t>(key) * DH + col0;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       if constexpr (SDS)
@@ -708,18 +727,18 @@ struct Args {
 
 // Raise the kernel's dynamic shared-memory limit once per instantiation
 // (idempotent, so a racing second call is harmless), then launch one block
-// per (bh, ROWS-row tile); keeping the attribute out of later launches lets
-// them be captured in CUDA graphs.
+// per (bh, ROWS-row tile, column half of ``halves``); keeping the attribute
+// out of later launches lets them be captured in CUDA graphs.
 template <int ROWS, typename Kernel, typename... Out>
 int launch(Kernel kernel, int bytes, bool* configured, const Args& a,
-           Out... out) {
+           int halves, Out... out) {
   if (!*configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     *configured = true;
   }
-  const int64_t blocks = a.bh * ((a.L + ROWS - 1) / ROWS);
+  const int64_t blocks = a.bh * ((a.L + ROWS - 1) / ROWS) * halves;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), ROWS * 2, bytes, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, out...,
@@ -731,26 +750,29 @@ template <int DH, int NW, bool BIAS, bool SDS>
 int launch_dq(const Args& a, bf16* dq) {
   static bool configured = false;
   return launch<NW * 16>(flash_bwd_dq_bf16<DH, NW, BIAS, SDS>,
-                         ring_smem_bytes<DH, NW, 1>(), &configured, a, dq);
+                         ring_smem_bytes<DH, NW, 1>(), &configured, a,
+                         kHalves<DH>, dq);
 }
 
 template <int DH, int NW, bool BIAS, bool SDS>
 int launch_dkv(const Args& a, bf16* dk, bf16* dv) {
   static bool configured = false;
   return launch<NW * 16>(flash_bwd_dkv_bf16<DH, NW, BIAS, SDS>,
-                         ring_smem_bytes<DH, NW, 2>(), &configured, a, dk, dv);
+                         ring_smem_bytes<DH, NW, 2>(), &configured, a,
+                         kHalves<DH>, dk, dv);
 }
 
-// 4 warps (64 rows) a block where that fills the card, else 2, else 1
-int warps_for(const Args& a) {
-  if (a.bh * ((a.L + 63) / 64) >= kSms) return 4;
-  if (a.bh * ((a.L + 31) / 32) >= kSms) return 2;
+// 4 warps (64 rows) a block where that fills the card, else 2, else 1;
+// ``halves`` blocks a row tile
+int warps_for(const Args& a, int halves) {
+  if (a.bh * halves * ((a.L + 63) / 64) >= kSms) return 4;
+  if (a.bh * halves * ((a.L + 31) / 32) >= kSms) return 2;
   return 1;
 }
 
 template <int DH, bool BIAS, bool SDS>
 int launch_dq_rows(const Args& a, bf16* dq) {
-  switch (warps_for(a)) {
+  switch (warps_for(a, kHalves<DH>)) {
     case 4: return launch_dq<DH, 4, BIAS, SDS>(a, dq);
     case 2: return launch_dq<DH, 2, BIAS, SDS>(a, dq);
     default: return launch_dq<DH, 1, BIAS, SDS>(a, dq);
@@ -775,7 +797,7 @@ int launch_dq_bias(const Args& a, bf16* dq) {
 
 template <int DH, bool BIAS, bool SDS>
 int launch_dkv_rows(const Args& a, bf16* dk, bf16* dv) {
-  switch (warps_for(a)) {
+  switch (warps_for(a, kHalves<DH>)) {
     case 4: return launch_dkv<DH, 4, BIAS, SDS>(a, dk, dv);
     case 2: return launch_dkv<DH, 2, BIAS, SDS>(a, dk, dv);
     default: return launch_dkv<DH, 1, BIAS, SDS>(a, dk, dv);
@@ -823,19 +845,20 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // for a head width the kernels do not take.
 extern "C" int ptt_flash_attn_bf16_bwd_plan(int64_t bh, int64_t L,
                                             int64_t dh, int* plan) {
-  if (dh != 16 && dh != 32 && dh != 64 && dh != 128)
+  if (dh != 16 && dh != 32 && dh != 64 && dh != 128 && dh != 256)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.bh = bh;
   a.L = L;
-  plan[0] = warps_for(a) * 16;
+  plan[0] = warps_for(a, dh > 128 ? 2 : 1) * 16;
   return 0;
 }
 
 // q, k, v, dout, dq [bh, L, dh] bf16, q, k, v and dout 16-byte aligned; lse,
 // delta [bh, L] float32; bias null or [bh / n_heads, L] float32; all
-// contiguous; dh in {16, 32, 64, 128}. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a head width the kernel does not take).
+// contiguous; dh in {16, 32, 64, 128, 256}. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a head width the kernel does
+// not take).
 extern "C" int ptt_flash_attn_bf16_bwd_dq(const void* q, const void* k,
                                           const void* v, const void* dout,
                                           const void* lse, const void* delta,
@@ -853,6 +876,7 @@ extern "C" int ptt_flash_attn_bf16_bwd_dq(const void* q, const void* k,
     case 32: return launch_dq_bias<32>(a, out);
     case 64: return launch_dq_bias<64>(a, out);
     case 128: return launch_dq_bias<128>(a, out);
+    case 256: return launch_dq_bias<256>(a, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -874,6 +898,7 @@ extern "C" int ptt_flash_attn_bf16_bwd_dkv(
     case 32: return launch_dkv_bias<32>(a, outk, outv);
     case 64: return launch_dkv_bias<64>(a, outk, outv);
     case 128: return launch_dkv_bias<128>(a, outk, outv);
+    case 256: return launch_dkv_bias<256>(a, outk, outv);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -64,6 +64,14 @@
 // L2. One owner per output and a fixed order: two calls give the same bits.
 // Blocks are numbered (bh, query tile) on gridDim.x alone, so batch × heads
 // may exceed 65535.
+// At DH 256 a block owns one 128-wide half of O's columns (kOutCols,
+// tf32_mma.cuh; two blocks a query tile, neighbours on the grid, one
+// launch): it computes the scores over all 256 columns and accumulates only
+// its half of O (DH 128's 64 accumulator registers), reading its half of V;
+// half 0 writes LSE. Q's A fragments (64 registers there) are read from
+// shared memory by ldmatrix at each k-step instead of held. The score
+// products are done twice, once a half: 6·DH flops a visible pair in place
+// of 4·DH.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,8 +83,8 @@ namespace {
 using namespace ptt;
 
 constexpr int kBK = 64;     // keys per tile
-// key tiles in the cp.async ring: 3, or 2 at DH 128, where a third would
-// leave room for one block an SM
+// key tiles in the cp.async ring: 3, or 2 at DH >= 128, where a third
+// would leave room for one block an SM
 template <int DH>
 constexpr int kStages = DH > 64 ? 2 : 3;
 constexpr float kNegInf = -1e30f;
@@ -84,6 +92,9 @@ constexpr float kBiasDrop = -1e8f;  // a key with bias <= this is dropped
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kSms = 132;
+// Q's A fragments held in registers (else read from shared memory as used)
+template <int DH>
+constexpr bool kQInRegs = DH <= 128;
 
 // [BM][LD] Q rows, [S][kBK][LD] K and V tiles (bf16), [S][kBK] bias, S =
 // kStages<DH>
@@ -107,15 +118,18 @@ __device__ __forceinline__ bool visible(int key, int row, int L, int causal) {
 // themselves, the max is taken on them and the scale goes into c; else s =
 // product · scale + bias. Either way p = 2^(s c - fl(m c)), c = scale ·
 // log2(e) (RAW) or log2(e).
+// Q's A fragments come from ``qa`` (kQInRegs) or from the warp's rows of
+// ``qs``; the tile's P·V takes V's columns [col0, col0 + kOutCols).
 template <int DH, int MT, int MASK, bool DROP, bool RAW>
 __device__ __forceinline__ void tile_step(
-    const uint32_t (&qa)[MT][DH / 16][4], float (&oacc)[MT][DH / 8][4],
+    const uint32_t (&qa)[MT][kQInRegs<DH> ? DH / 16 : 1][4],
+    const bf16* qs, float (&oacc)[MT][kOutCols<DH> / 8][4],
     float (&m_r)[2 * MT], float (&l_r)[2 * MT], const bf16* ks,
     const bf16* vs, const float* bs, int k0, int L, int causal, int row0,
-    float scale, float c, int lane) {
+    float scale, float c, int col0, int lane) {
   constexpr int KS = DH / 16;  // k-steps of Q·K^T
   constexpr int NS = kBK / 8;  // 8-key tiles of S
-  constexpr int NO = DH / 8;   // 8-column tiles of O
+  constexpr int NO = kOutCols<DH> / 8;  // 8-column tiles of O
   const int t = lane & 3;
 
   // S = Q K^T: sacc[mt][n] holds keys 8n + 2t, 8n + 2t + 1 of rows
@@ -128,17 +142,28 @@ __device__ __forceinline__ void tile_step(
 #pragma unroll
       for (int e = 0; e < 4; ++e) sacc[mt][n][e] = 0.f;
 #pragma unroll
-  for (int s = 0; s < KS; ++s)
+  for (int s = 0; s < KS; ++s) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if constexpr (kQInRegs<DH>) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[mt][i] = qa[mt][s][i];
+      } else {
+        load_a<DH>(a[mt], qs, 16 * mt, 16 * s, lane);
+      }
+    }
 #pragma unroll
     for (int n = 0; n < NS; n += 2) {
       uint32_t b[4];
       load_b_rows<DH>(b, ks, 8 * n, 16 * s, lane);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(sacc[mt][n], qa[mt][s], b[0], b[1]);
-        mma_bf16(sacc[mt][n + 1], qa[mt][s], b[2], b[3]);
+        mma_bf16(sacc[mt][n], a[mt], b[0], b[1]);
+        mma_bf16(sacc[mt][n + 1], a[mt], b[2], b[3]);
       }
     }
+  }
   // the bias of this thread's 16 keys, once a tile
   float bb[NS][2];
 #pragma unroll
@@ -215,7 +240,7 @@ __device__ __forceinline__ void tile_step(
 #pragma unroll
     for (int n = 0; n < NO; n += 2) {
       uint32_t b[4];
-      load_b_cols<DH>(b, vs, 16 * s, 8 * n, lane);
+      load_b_cols<DH>(b, vs, 16 * s, col0 + 8 * n, lane);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         mma_bf16(oacc[mt][n], a[mt], b[0], b[1]);
@@ -239,7 +264,8 @@ __global__ void __launch_bounds__(NW * 32, RAW && MT == 1 && DH <= 64 ? 3 : 1)
   constexpr int BM = NW * RW;  // rows a block
   constexpr int LD = kLdB<DH>;
   constexpr int KS = DH / 16;  // k-steps of Q·K^T
-  constexpr int NO = DH / 8;   // 8-column tiles of O
+  constexpr int DO = kOutCols<DH>;  // O's columns this block owns
+  constexpr int NO = DO / 8;   // 8-column tiles of O
   constexpr int S = kStages<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
@@ -250,9 +276,13 @@ __global__ void __launch_bounds__(NW * 32, RAW && MT == 1 && DH <= 64 ? 3 : 1)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  // blocks numbered ((bh, query tile), half)
+  const int half = blockIdx.x % kHalves<DH>;
+  const unsigned blk = blockIdx.x / kHalves<DH>;
+  const int col0 = half * DO;
   const int tiles = (L + BM - 1) / BM;
-  const int64_t bh = blockIdx.x / tiles;
-  const int q0 = (tiles - 1 - static_cast<int>(blockIdx.x % tiles)) * BM;
+  const int64_t bh = blk / tiles;
+  const int q0 = (tiles - 1 - static_cast<int>(blk % tiles)) * BM;
   const int64_t off = bh * L * DH;
   const bf16* kb = k + off;
   const bf16* vb = v + off;
@@ -286,12 +316,15 @@ __global__ void __launch_bounds__(NW * 32, RAW && MT == 1 && DH <= 64 ? 3 : 1)
   }
   cp_async_wait<S - 1>();
   __syncthreads();  // Q (and a zero bias) is in for every thread
-  uint32_t qa[MT][KS][4];
+  uint32_t qa[MT][kQInRegs<DH> ? KS : 1][4];
+  if constexpr (kQInRegs<DH>) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int s = 0; s < KS; ++s)
-      load_a<DH>(qa[mt][s], Qs, warp * RW + 16 * mt, 16 * s, lane);
+      for (int s = 0; s < KS; ++s)
+        load_a<DH>(qa[mt][s], Qs, warp * RW + 16 * mt, 16 * s, lane);
+  }
+  const bf16* qw = Qs + warp * RW * LD;  // the warp's Q rows
 
   float oacc[MT][NO][4];
 #pragma unroll
@@ -327,23 +360,27 @@ __global__ void __launch_bounds__(NW * 32, RAW && MT == 1 && DH <= 64 ? 3 : 1)
       const bool inside = k0 + kBK <= L && (!causal || k0 + kBK - 1 <= wq0);
       const int row0 = wq0 + g;
       if (inside && !dropped)
-        tile_step<DH, MT, 0, false, RAW>(qa, oacc, m_r, l_r, ks, vs, bs, k0,
-                                         L, causal, row0, scale, c, lane);
+        tile_step<DH, MT, 0, false, RAW>(qa, qw, oacc, m_r, l_r, ks, vs, bs,
+                                         k0, L, causal, row0, scale, c, col0,
+                                         lane);
       else if (inside)
-        tile_step<DH, MT, 0, !RAW, RAW>(qa, oacc, m_r, l_r, ks, vs, bs, k0,
-                                        L, causal, row0, scale, c, lane);
+        tile_step<DH, MT, 0, !RAW, RAW>(qa, qw, oacc, m_r, l_r, ks, vs, bs,
+                                        k0, L, causal, row0, scale, c, col0,
+                                        lane);
       else if (k0 + kBK <= L && !dropped)  // on the causal diagonal
-        tile_step<DH, MT, 1, false, RAW>(qa, oacc, m_r, l_r, ks, vs, bs, k0,
-                                         L, causal, row0, scale, c, lane);
+        tile_step<DH, MT, 1, false, RAW>(qa, qw, oacc, m_r, l_r, ks, vs, bs,
+                                         k0, L, causal, row0, scale, c, col0,
+                                         lane);
       else
-        tile_step<DH, MT, 2, !RAW, RAW>(qa, oacc, m_r, l_r, ks, vs, bs, k0,
-                                        L, causal, row0, scale, c, lane);
+        tile_step<DH, MT, 2, !RAW, RAW>(qa, qw, oacc, m_r, l_r, ks, vs, bs,
+                                        k0, L, causal, row0, scale, c, col0,
+                                        lane);
     }
     __syncthreads();  // every warp is done with this buffer before reuse
   }
 
-  // O / l into the warp's own rows of Qs (read only before the loop), then
-  // out in 16-byte stores of whole rows
+  // O / l into the warp's own rows of Qs (read by no other warp, and by
+  // this one no more), then out in 16-byte stores of whole rows
   bf16* os = Qs + warp * RW * LD;
 #pragma unroll
   for (int r = 0; r < 2 * MT; ++r) {
@@ -357,7 +394,7 @@ __global__ void __launch_bounds__(NW * 32, RAW && MT == 1 && DH <= 64 ? 3 : 1)
           pack_bf16(oacc[r >> 1][n][2 * (r & 1)] * inv,
                     oacc[r >> 1][n][2 * (r & 1) + 1] * inv);
     const int row = wq0 + lr;
-    if (t == 0 && row < L) {
+    if (t == 0 && row < L && half == 0) {
       // l sums 2^(s c - fl(m c)), fl(m c) = m c - err: a factor 2^err that
       // LSE takes back out (a row that kept no key keeps m + log(1e-30));
       // the natural max is m (m · scale for RAW, as the plain version
@@ -374,18 +411,20 @@ __global__ void __launch_bounds__(NW * 32, RAW && MT == 1 && DH <= 64 ? 3 : 1)
     const int lr = c / NO, cc = (c % NO) * 8;
     if (wq0 + lr < L)
       *reinterpret_cast<uint4*>(o + off + static_cast<int64_t>(wq0 + lr) * DH +
-                                cc) =
+                                col0 + cc) =
           *reinterpret_cast<const uint4*>(os + lr * LD + cc);
   }
 }
 
 // The launch's shape: NW warps of MT m16 row tiles a block, and RAW. The
-// first of these whose blocks give each of the card's 132 SMs one, else the
-// last: at DH <= 64 without causal 4 x 32 rows (MT 2), 2 x 32, 2 x 16,
-// 1 x 16; else 4 x 16, 2 x 16, 1 x 16 (at DH 128 32 rows a warp would not
-// fit 255 registers; under causal a 64-row block loses less to the
-// diagonal, and three fit an SM). RAW where there is no bias and 0 < scale
-// < 1e4, at 16 rows a warp (at 32 it spills).
+// first of these whose blocks (two a row tile at DH 256) give each of the
+// card's 132 SMs one, else the last: at DH <= 64 without causal 4 x 32
+// rows (MT 2), 2 x 32, 2 x 16, 1 x 16; else 4 x 16, 2 x 16, 1 x 16 (at DH
+// 128 32 rows a warp would not fit 255 registers; under causal a 64-row
+// block loses less to the diagonal, and three fit an SM). RAW where there
+// is no bias and 0 < scale < 1e4, at 16 rows a warp (at 32 it spills).
+// At DH 256 a block has 2 warps at least: one warp copying its 256-wide
+// tiles alone spills.
 struct Plan {
   int nw, mt;
   bool raw;
@@ -395,13 +434,15 @@ Plan plan_for(int64_t bh, int64_t L, int64_t dh, int causal, bool biased,
               float scale) {
   const bool wide = dh <= 64 && !causal;
   const bool raw = !biased && scale > 0.f && scale < 1e4f;
+  const int least = dh > 128 ? 2 : 1;  // warps a block
   const Plan plans[4] = {{4, wide ? 2 : 1, raw && !wide},
                          {2, wide ? 2 : 1, raw && !wide},
-                         {wide ? 2 : 1, 1, raw},
-                         {1, 1, raw}};
+                         {wide ? 2 : least, 1, raw},
+                         {least, 1, raw}};
+  const int64_t halves = dh > 128 ? 2 : 1;
   for (const Plan& p : plans) {
     const int64_t rows = p.nw * p.mt * 16;
-    if (bh * ((L + rows - 1) / rows) >= kSms) return p;
+    if (bh * halves * ((L + rows - 1) / rows) >= kSms) return p;
   }
   return plans[3];
 }
@@ -423,7 +464,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int64_t blocks = bh * ((L + BM - 1) / BM);
+  const int64_t blocks = bh * ((L + BM - 1) / BM) * kHalves<DH>;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   flash_fwd_bf16<DH, NW, MT, RAW>
       <<<static_cast<unsigned>(blocks), NW * 32, bytes, stream>>>(
@@ -446,11 +487,13 @@ int launch_rows(Plan p, const bf16* q, const bf16* k, const bf16* v,
   if (p.nw == 4)
     return launch<DH, 4, 1, RAW>(q, k, v, bias, o, lse, bh, L, n_heads,
                                  scale, causal, s);
-  if (p.nw == 2)
+  if (p.nw == 2 || DH > 128)  // DH 256 has no 1-warp plan
     return launch<DH, 2, 1, RAW>(q, k, v, bias, o, lse, bh, L, n_heads,
                                  scale, causal, s);
-  return launch<DH, 1, 1, RAW>(q, k, v, bias, o, lse, bh, L, n_heads, scale,
-                               causal, s);
+  if constexpr (DH <= 128)
+    return launch<DH, 1, 1, RAW>(q, k, v, bias, o, lse, bh, L, n_heads,
+                                 scale, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int DH>
@@ -473,7 +516,7 @@ extern "C" int ptt_flash_attn_bf16_fwd_plan(int64_t bh, int64_t L,
                                             int64_t dh, int causal,
                                             int biased, float scale,
                                             int* plan) {
-  if (dh != 16 && dh != 32 && dh != 64 && dh != 128)
+  if (dh != 16 && dh != 32 && dh != 64 && dh != 128 && dh != 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = plan_for(bh, L, dh, causal, biased != 0, scale);
   plan[0] = p.nw * p.mt * 16;
@@ -483,7 +526,7 @@ extern "C" int ptt_flash_attn_bf16_fwd_plan(int64_t bh, int64_t L,
 }
 
 // q, k, v, o [bh, L, dh] bf16 and lse [bh, L] float32, all contiguous and
-// q, k, v 16-byte aligned; dh in {16, 32, 64, 128}; bias null or
+// q, k, v 16-byte aligned; dh in {16, 32, 64, 128, 256}; bias null or
 // [bh / n_heads, L] float32. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head width the kernel does not take).
 extern "C" int ptt_flash_attn_bf16_fwd(const void* q, const void* k,
@@ -519,6 +562,9 @@ extern "C" int ptt_flash_attn_bf16_fwd(const void* q, const void* k,
                              causal, s);
     case 128:
       return launch_plan<128>(p, qp, kp, vp, bp, op, lp, bh, L, nh, scale,
+                              causal, s);
+    case 256:
+      return launch_plan<256>(p, qp, kp, vp, bp, op, lp, bh, L, nh, scale,
                               causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -77,6 +77,17 @@
 //   lands in a fresh fragment that joins the running sum by a rounded FADD;
 //   one chain over every tile would bias dQ, dK and dV as L grows. The
 //   fresh fragment spans at most 64 columns (two passes at DH 128).
+// - At DH 256 a block owns one 128-wide half of one output's columns
+//   (kOutCols, tf32_mma.cuh; one launch): dQ's kernel has two blocks a
+//   query tile, dK/dV's four a key tile, dV's halves and dK's (a half of
+//   each in one block would hold 128 accumulator registers, and spill as
+//   the DH 128 instantiations do). A block computes S (and dP where it
+//   needs it) over all 256 columns and accumulates its half, 64
+//   registers. dQ does 10·DH flops a visible pair in place of 6·DH; dK/dV
+//   16·DH in place of 8·DH (a dV block S and P^T dO, a dK block S, dP and
+//   dS^T Q). The streamed tile is 16 rows there: two 256-wide tiles of
+//   each streamed operand beside the block's own rows fit 227 KB at 4
+//   warps.
 // Rows and keys past L load as zeros and are masked, so any L works.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,9 +102,10 @@ constexpr float kBiasDrop = -1e8f;  // a key with bias <= this is dropped
 constexpr int kSms = 132;
 
 // rows of a streamed tile: keys for dQ, queries for dK/dV
-constexpr int kKeyTile = 32;
 template <int DH>
-constexpr int kQueryTile = DH > 64 ? 32 : 64;
+constexpr int kKeyTile = DH > 128 ? 16 : 32;
+template <int DH>
+constexpr int kQueryTile = DH > 128 ? 16 : DH > 64 ? 32 : 64;
 
 // row stride of a tile in shared memory: lanes (g, t) reading (row 8n + g,
 // column 8s + t) hit 32 distinct banks
@@ -131,6 +143,7 @@ template <int DH, int NT>
 __device__ __forceinline__ void mma_xt(float (*acc)[4], const float* xs,
                                        int xr, const float* ts, int g,
                                        int t) {
+  constexpr int NG = NT < 4 ? NT : 4;  // 8-row blocks per mma group
 #pragma unroll
   for (int s = 0; s < DH / 8; ++s) {
     uint32_t ab[4], as[4];
@@ -140,32 +153,33 @@ __device__ __forceinline__ void mma_xt(float (*acc)[4], const float* xs,
                     (e >> 1) * 4],
                  ab[e], as[e]);
 #pragma unroll
-    for (int n0 = 0; n0 < NT; n0 += 4) {
-      uint32_t bb[4][2], bsm[4][2];
+    for (int n0 = 0; n0 < NT; n0 += NG) {
+      uint32_t bb[NG][2], bsm[NG][2];
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < NG; ++n) {
         const int r = 8 * (n0 + n) + g;
         const float* tp = ts + r * kLD<DH> + 8 * s + t;
         split_tf32(tp[0], bb[n][0], bsm[n][0]);
         split_tf32(tp[4], bb[n][1], bsm[n][1]);
       }
-      mma_3xtf32<4>(acc + n0, ab, as, bb, bsm);
+      mma_3xtf32<NG>(acc + n0, ab, as, bb, bsm);
     }
   }
 }
 
 // out[n] += C T for the warp's 16 x (8 KT) tile C, held in accumulator
-// fragments, and T an [8 KT][kLD] tile read N-major (B fragment of
-// key step s, column block n: rows 8s + t and + 4, column 8n + g). C's A
-// fragment for step s wants columns 8s + t and 8s + t + 4; lane (g, t')
-// holds 8s + 2t' and + 1, so column 8s + t lives in lane (g, t / 2),
-// element t & 1: eight shuffles within the quad. Each 64-column block of
-// the result sums in a fresh fragment, added to `out` by rounded FADDs.
-template <int DH, int KT>
+// fragments, and T the first DO columns of an [8 KT][kLD] tile (``ts``
+// points at its first column), read N-major (B fragment of key step s,
+// column block n: rows 8s + t and + 4, column 8n + g). C's A fragment for
+// step s wants columns 8s + t and 8s + t + 4; lane (g, t') holds 8s + 2t'
+// and + 1, so column 8s + t lives in lane (g, t / 2), element t & 1: eight
+// shuffles within the quad. Each 64-column block of the result sums in a
+// fresh fragment, added to `out` by rounded FADDs.
+template <int DH, int KT, int DO>
 __device__ __forceinline__ void mma_ct(float (*out)[4], const float (*c)[4],
                                        const float* ts, int lane, int g,
                                        int t) {
-  constexpr int KS = DH / 8;
+  constexpr int KS = DO / 8;
   constexpr int NC = KS < 8 ? KS : 8;  // column blocks per fresh fragment
   constexpr int NG = NC < 4 ? NC : 4;  // column blocks per mma group
   const int src_lo = (lane & ~3) | (t >> 1);
@@ -217,8 +231,8 @@ __device__ __forceinline__ void mma_ct(float (*out)[4], const float (*c)[4],
 // [2][BT] bias
 template <int DH, int NW>
 constexpr int dq_smem_bytes() {
-  return (2 * NW * 16 * kLD<DH> + 4 * kKeyTile * kLD<DH> + 2 * kKeyTile) *
-         4;
+  return (2 * NW * 16 * kLD<DH> + 4 * kKeyTile<DH> * kLD<DH> +
+          2 * kKeyTile<DH>) * 4;
 }
 
 template <int DH, int NW>
@@ -229,8 +243,9 @@ __global__ void __launch_bounds__(NW * 32)
                  const float* __restrict__ bias, float* __restrict__ dq, int L,
                  int n_heads, float scale, int causal) {
   constexpr int kThreads = NW * 32;
-  constexpr int KS = DH / 8;
-  constexpr int BT = kKeyTile;
+  constexpr int DO = kOutCols<DH>;  // dQ's columns this block owns
+  constexpr int NO = DO / 8;
+  constexpr int BT = kKeyTile<DH>;
   constexpr int NT = BT / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                     // [NW·16][kLD]
@@ -242,9 +257,13 @@ __global__ void __launch_bounds__(NW * 32)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  // blocks numbered ((bh, query tile), half)
+  const int half = blockIdx.x % kHalves<DH>;
+  const unsigned blk = blockIdx.x / kHalves<DH>;
+  const int col0 = half * DO;
   const int tiles = (L + NW * 16 - 1) / (NW * 16);
-  const int64_t bh = blockIdx.x / tiles;
-  const int q0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t bh = blk / tiles;
+  const int q0 = (blk % tiles) * NW * 16;
   const int64_t row0 = bh * L;
   const int64_t off = row0 * DH;
   const float* kb = k + off;
@@ -274,9 +293,9 @@ __global__ void __launch_bounds__(NW * 32)
     lse_r[h] = r < L ? lse[row0 + r] : 0.f;
     dl_r[h] = r < L ? delta[row0 + r] : 0.f;
   }
-  float acc[KS][4];
+  float acc[NO][4];
 #pragma unroll
-  for (int n = 0; n < KS; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -322,7 +341,7 @@ __global__ void __launch_bounds__(NW * 32)
           sc[n][e] = p * (dp[n][e] - dl_r[h]) * scale;
         }
       }
-      mma_ct<DH, NT>(acc, sc, ks, lane, g, t);
+      mma_ct<DH, NT, DO>(acc, sc, ks + col0, lane, g, t);
     }
     __syncthreads();  // every warp is done with this buffer before reuse
   }
@@ -331,13 +350,18 @@ __global__ void __launch_bounds__(NW * 32)
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + h * 8;
     if (r >= L) continue;
-    float* out = dq + off + static_cast<int64_t>(r) * DH;
+    float* out = dq + off + static_cast<int64_t>(r) * DH + col0;
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < NO; ++n)
       *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
           make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
   }
 }
+
+// blocks of the dK/dV kernel a key tile: 1, or at DH 256 four, one for
+// each half of dV's columns and of dK's
+template <int DH>
+constexpr int kDkvParts = DH > 128 ? 2 * kHalves<DH> : 1;
 
 // dK/dV: [2][NW·16][kLD] K and V rows, [2][2][BT][kLD] Q and dO tiles,
 // [2][2][BT] LSE and delta
@@ -357,9 +381,12 @@ __global__ void __launch_bounds__(NW * 32)
                   float* __restrict__ dv, int L, int n_heads, float scale,
                   int causal) {
   constexpr int kThreads = NW * 32;
-  constexpr int KS = DH / 8;
+  constexpr int DO = kOutCols<DH>;  // dK's and dV's columns this block owns
+  constexpr int NO = DO / 8;
   constexpr int BT = kQueryTile<DH>;
   constexpr int NT = BT / 8;
+  // at DH 256 a block sums dV's half or dK's half alone, in acc_k
+  constexpr bool kApart = kDkvParts<DH> > 1;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                     // [NW·16][kLD]
   float* Vs = Ks + NW * 16 * kLD<DH>;   // the same rows of V
@@ -371,9 +398,15 @@ __global__ void __launch_bounds__(NW * 32)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  // blocks numbered ((bh, key tile), part): at DH 256 parts 0 and 1 are
+  // dV's column halves, 2 and 3 dK's
+  const int part = blockIdx.x % kDkvParts<DH>;
+  const unsigned blk = blockIdx.x / kDkvParts<DH>;
+  const int col0 = (part % kHalves<DH>) * DO;
+  const bool want_k = !kApart || part >= kHalves<DH>;
   const int tiles = (L + NW * 16 - 1) / (NW * 16);
-  const int64_t bh = blockIdx.x / tiles;
-  const int kb0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t bh = blk / tiles;
+  const int kb0 = (blk % tiles) * NW * 16;
   const int64_t row0 = bh * L;
   const int64_t off = row0 * DH;
   const float* qb = q + off;
@@ -408,11 +441,15 @@ __global__ void __launch_bounds__(NW * 32)
     bk[h] = (brow != nullptr && key < L) ? brow[key] : 0.f;
     kk[h] = key < L && bk[h] > kBiasDrop;
   }
-  float acc_k[KS][4], acc_v[KS][4];
+  float acc_k[NO][4], acc_v[kApart ? 1 : NO][4];
 #pragma unroll
-  for (int n = 0; n < KS; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (kApart ? 1 : NO); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_v[n][e] = 0.f;
 
   const int warp_first = kb0 + wr;
   for (int j = j0; j < nq; ++j) {
@@ -438,7 +475,7 @@ __global__ void __launch_bounds__(NW * 32)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
       mma_xt<DH, NT>(sc, Ks, wr, qs, g, t);   // S^T = K Q^T
-      mma_xt<DH, NT>(dp, Vs, wr, gs, g, t);   // dP^T = V dO^T
+      if (want_k) mma_xt<DH, NT>(dp, Vs, wr, gs, g, t);   // dP^T = V dO^T
       // P^T in place of S^T, dS^T in place of dP^T
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
@@ -458,8 +495,15 @@ __global__ void __launch_bounds__(NW * 32)
           dp[n][e] = p * (dp[n][e] - ((e & 1) ? d2.y : d2.x)) * scale;
         }
       }
-      mma_ct<DH, NT>(acc_v, sc, gs, lane, g, t);   // dV += P^T dO
-      mma_ct<DH, NT>(acc_k, dp, qs, lane, g, t);   // dK += dS^T Q
+      if constexpr (kApart) {
+        if (want_k)
+          mma_ct<DH, NT, DO>(acc_k, dp, qs + col0, lane, g, t);  // dK
+        else
+          mma_ct<DH, NT, DO>(acc_k, sc, gs + col0, lane, g, t);  // dV
+      } else {
+        mma_ct<DH, NT, DO>(acc_v, sc, gs + col0, lane, g, t);  // dV += P^T dO
+        mma_ct<DH, NT, DO>(acc_k, dp, qs + col0, lane, g, t);  // dK += dS^T Q
+      }
     }
     __syncthreads();  // every warp is done with this buffer before reuse
   }
@@ -468,13 +512,21 @@ __global__ void __launch_bounds__(NW * 32)
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + h * 8;
     if (key >= L) continue;
-    const int64_t at = off + static_cast<int64_t>(key) * DH;
+    const int64_t at = off + static_cast<int64_t>(key) * DH + col0;
+    if constexpr (kApart) {
+      float* out = (want_k ? dk : dv) + at;
 #pragma unroll
-    for (int n = 0; n < KS; ++n) {
-      *reinterpret_cast<float2*>(dk + at + 8 * n + 2 * t) =
-          make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
-      *reinterpret_cast<float2*>(dv + at + 8 * n + 2 * t) =
-          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
+            make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        *reinterpret_cast<float2*>(dk + at + 8 * n + 2 * t) =
+            make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+        *reinterpret_cast<float2*>(dv + at + 8 * n + 2 * t) =
+            make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+      }
     }
   }
 }
@@ -490,19 +542,19 @@ struct Args {
 
 // Raise the kernel's dynamic shared-memory limit once per instantiation
 // (idempotent, so a racing second call is harmless), then launch one block
-// per (bh, ROWS-row tile), numbered on gridDim.x alone so that bh may exceed
-// the 65535 of gridDim.y; keeping the attribute out of later launches lets
-// them be captured in CUDA graphs.
+// per (bh, ROWS-row tile, one of ``parts``), numbered on gridDim.x
+// alone so that bh may exceed the 65535 of gridDim.y; keeping the attribute
+// out of later launches lets them be captured in CUDA graphs.
 template <int ROWS, typename Kernel, typename... Out>
 int launch(Kernel kernel, int bytes, bool* configured, const Args& a,
-           Out... out) {
+           int parts, Out... out) {
   if (!*configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     *configured = true;
   }
-  const int64_t blocks = a.bh * ((a.L + ROWS - 1) / ROWS);
+  const int64_t blocks = a.bh * ((a.L + ROWS - 1) / ROWS) * parts;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), ROWS * 2, bytes, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.bias, out...,
@@ -514,26 +566,27 @@ template <int DH, int NW>
 int launch_dq(const Args& a, float* dq) {
   static bool configured = false;
   return launch<NW * 16>(flash_bwd_dq<DH, NW>, dq_smem_bytes<DH, NW>(),
-                         &configured, a, dq);
+                         &configured, a, kHalves<DH>, dq);
 }
 
 template <int DH, int NW>
 int launch_dkv(const Args& a, float* dk, float* dv) {
   static bool configured = false;
   return launch<NW * 16>(flash_bwd_dkv<DH, NW>, dkv_smem_bytes<DH, NW>(),
-                         &configured, a, dk, dv);
+                         &configured, a, kDkvParts<DH>, dk, dv);
 }
 
-// 4 warps (64 rows) a block where that fills the card, else 2, else 1
-int warps_for(const Args& a) {
-  if (a.bh * ((a.L + 63) / 64) >= kSms) return 4;
-  if (a.bh * ((a.L + 31) / 32) >= kSms) return 2;
+// 4 warps (64 rows) a block where that fills the card, else 2, else 1;
+// ``parts`` blocks a row tile
+int warps_for(const Args& a, int parts) {
+  if (a.bh * parts * ((a.L + 63) / 64) >= kSms) return 4;
+  if (a.bh * parts * ((a.L + 31) / 32) >= kSms) return 2;
   return 1;
 }
 
 template <int DH>
 int launch_dq_rows(const Args& a, float* dq) {
-  switch (warps_for(a)) {
+  switch (warps_for(a, kHalves<DH>)) {
     case 4: return launch_dq<DH, 4>(a, dq);
     case 2: return launch_dq<DH, 2>(a, dq);
     default: return launch_dq<DH, 1>(a, dq);
@@ -542,7 +595,7 @@ int launch_dq_rows(const Args& a, float* dq) {
 
 template <int DH>
 int launch_dkv_rows(const Args& a, float* dk, float* dv) {
-  switch (warps_for(a)) {
+  switch (warps_for(a, kDkvParts<DH>)) {
     case 4: return launch_dkv<DH, 4>(a, dk, dv);
     case 2: return launch_dkv<DH, 2>(a, dk, dv);
     default: return launch_dkv<DH, 1>(a, dk, dv);
@@ -578,7 +631,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 // q, k, v, dout, dq [bh, L, dh] f32, q, k, v and dout 16-byte aligned; lse,
 // delta [bh, L] f32; bias null or [bh / n_heads, L] f32; all contiguous; dh
-// in {16, 32, 64, 128}. Returns cudaGetLastError() after the launch
+// in {16, 32, 64, 128, 256}. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head width the kernel does not take).
 extern "C" int ptt_flash_attn_bwd_dq(const void* q, const void* k,
                                      const void* v, const void* dout,
@@ -596,6 +649,7 @@ extern "C" int ptt_flash_attn_bwd_dq(const void* q, const void* k,
     case 32: return launch_dq_rows<32>(a, out);
     case 64: return launch_dq_rows<64>(a, out);
     case 128: return launch_dq_rows<128>(a, out);
+    case 256: return launch_dq_rows<256>(a, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -619,6 +673,7 @@ extern "C" int ptt_flash_attn_bwd_dkv(const void* q, const void* k,
     case 32: return launch_dkv_rows<32>(a, outk, outv);
     case 64: return launch_dkv_rows<64>(a, outk, outv);
     case 128: return launch_dkv_rows<128>(a, outk, outv);
+    case 256: return launch_dkv_rows<256>(a, outk, outv);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -34,6 +34,15 @@
 // of 64 rows of K and V double-buffer through cp.async, the next tile
 // loading while this one computes; the key tile stays 64 whatever the query
 // tile, so a row's sequence of rescalings does not depend on that choice.
+// At DH 256 a block owns one 128-wide half of O's columns (kOutCols,
+// tf32_mma.cuh; two blocks a query tile, one launch): it computes the
+// scores over all 256 columns, loads only its half of V and accumulates
+// only its half of O, so O and the P·V fragment keep DH 128's registers;
+// half 0 writes LSE. The score products are done twice, once a half: 6·DH
+// flops a visible pair in place of 4·DH. Key tiles are 32 rows there, and Q
+// stays in shared memory as f32 rows split as each k-step reads them (its
+// split fragments, twice the bytes, with two 256-wide K tiles would pass
+// the 227 KB a block may have).
 // S = Q·K^T lands in registers in the accumulator layout (thread (g, t) of
 // a quad row holds rows g and g + 8, keys 2t and 2t + 1 of each 8-key
 // block); the online softmax runs there, a row's max and sum taken over the
@@ -54,19 +63,23 @@
 
 namespace {
 
-constexpr int kBK = 64;  // keys per tile
+// keys a tile: 64, or 32 at DH 256 (shared memory)
+template <int DH>
+constexpr int kBK = DH > 128 ? 32 : 64;
 constexpr float kNegInf = -1e30f;
 constexpr float kBiasDrop = -1e8f;  // a key with bias <= this is dropped
 constexpr int kSms = 132;
 
 using namespace ptt;
 
-// row strides: K rows of DH + 4 floats and V rows of DH + 8 put the eight
-// rows of a B fragment's reads in distinct banks
+// row strides: K rows of DH + 4 floats and V rows of kOutCols + 8 put the
+// eight rows of a B fragment's reads in distinct banks; then Q's split
+// fragments (DH 128) or its f32 rows of DH + 4 (DH 256)
 template <int DH, int NW>
 constexpr int smem_bytes() {
-  return (2 * kBK * ((DH + 4) + (DH + 8)) + 2 * kBK) * 4 +
-         (DH > 64 ? NW * (DH / 8) * 32 * 32 : 0);
+  return (2 * kBK<DH> * ((DH + 4) + (kOutCols<DH> + 8)) + 2 * kBK<DH>) * 4 +
+         (DH > 64 && DH <= 128 ? NW * (DH / 8) * 32 * 32 : 0) +
+         (DH > 128 ? NW * 16 * (DH + 4) * 4 : 0);
 }
 
 template <int DH, int NW>
@@ -76,22 +89,32 @@ __global__ void __launch_bounds__(NW * 32)
                  float* __restrict__ o, float* __restrict__ lse, int L,
                  int n_heads, float scale, int causal) {
   constexpr int kThreads = NW * 32;
-  constexpr int LDK = DH + 4, LDV = DH + 8;
-  constexpr int KS = DH / 8;       // k-steps of Q·K^T, n-tiles of P·V
+  constexpr int BK = kBK<DH>;
+  constexpr int DO = kOutCols<DH>;  // O's columns this block owns
+  constexpr int LDK = DH + 4, LDV = DO + 8, LDQ = DH + 4;
+  constexpr int KS = DH / 8;       // k-steps of Q·K^T
+  constexpr int NO = DO / 8;       // n-tiles of P·V
   constexpr bool kQRegs = DH <= 64;
-  constexpr int NG = KS < 4 ? KS : 4;  // output column blocks per mma group
+  constexpr bool kQRows = DH > 128;  // else split fragments in smem
+  constexpr int NG = NO < 4 ? NO : 4;  // output column blocks per mma group
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                      // [2][kBK][LDK]
-  float* Vs = Ks + 2 * kBK * LDK;        // [2][kBK][LDV]
-  float* Bs = Vs + 2 * kBK * LDV;        // [2][kBK] bias of the key tile
-  uint4* Qf = reinterpret_cast<uint4*>(Bs + 2 * kBK);  // DH 128 only
+  float* Ks = smem;                      // [2][BK][LDK]
+  float* Vs = Ks + 2 * BK * LDK;         // [2][BK][LDV], the block's columns
+  float* Bs = Vs + 2 * BK * LDV;         // [2][BK] bias of the key tile
+  uint4* Qf = reinterpret_cast<uint4*>(Bs + 2 * BK);  // DH 128 only
+  float* Qs = Bs + 2 * BK;               // [NW·16][LDQ], DH 256 only
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  // blocks numbered ((bh, query tile), half): the halves of a tile are
+  // neighbours on the grid and share its Q, K and V in L2
+  const int half = blockIdx.x % kHalves<DH>;
+  const unsigned blk = blockIdx.x / kHalves<DH>;
+  const int col0 = half * DO;
   const int tiles = (L + NW * 16 - 1) / (NW * 16);
-  const int64_t bh = blockIdx.x / tiles;
-  const int q0 = (blockIdx.x % tiles) * NW * 16;
+  const int64_t bh = blk / tiles;
+  const int q0 = (blk % tiles) * NW * 16;
   const int64_t off = bh * L * DH;
   const float* qb = q + off;
   const float* kb = k + off;
@@ -101,34 +124,51 @@ __global__ void __launch_bounds__(NW * 32)
   const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
 
   const int last_row = min(q0 + NW * 16, L) - 1;
-  const int nk = causal ? last_row / kBK + 1 : (L + kBK - 1) / kBK;
+  const int nk = causal ? last_row / BK + 1 : (L + BK - 1) / BK;
 
   auto load_tile = [&](int buf, int j) {
-    const int k0 = j * kBK;
-    float* ks = Ks + buf * kBK * LDK;
-    float* vs = Vs + buf * kBK * LDV;
-    for (int c = tid; c < kBK * DH / 4; c += kThreads) {
+    const int k0 = j * BK;
+    float* ks = Ks + buf * BK * LDK;
+    float* vs = Vs + buf * BK * LDV;
+    for (int c = tid; c < BK * DH / 4; c += kThreads) {
       const int r = c / (DH / 4), cc = (c % (DH / 4)) * 4;
       const bool in = k0 + r < L;
       const int64_t gi = static_cast<int64_t>(k0 + r) * DH + cc;
       cp_async16(ks + r * LDK + cc, in ? kb + gi : kb, in);
-      cp_async16(vs + r * LDV + cc, in ? vb + gi : vb, in);
+      // a plain `if` on a constant (nvcc's front end rejects this lambda
+      // with `if constexpr` in it)
+      if (DO == DH) cp_async16(vs + r * LDV + cc, in ? vb + gi : vb, in);
     }
+    if (DO != DH)
+      for (int c = tid; c < BK * DO / 4; c += kThreads) {
+        const int r = c / (DO / 4), cc = (c % (DO / 4)) * 4;
+        const bool in = k0 + r < L;
+        const int64_t gi = static_cast<int64_t>(k0 + r) * DH + col0 + cc;
+        cp_async16(vs + r * LDV + cc, in ? vb + gi : vb, in);
+      }
     if (brow != nullptr)
-      for (int c = tid; c < kBK; c += kThreads) {
+      for (int c = tid; c < BK; c += kThreads) {
         const bool in = k0 + c < L;
-        cp_async4(Bs + buf * kBK + c, in ? brow + k0 + c : brow, in);
+        cp_async4(Bs + buf * BK + c, in ? brow + k0 + c : brow, in);
       }
   };
 
+  // at DH 256 the block's Q rows, zeros past L, in the first tile's group
+  if constexpr (kQRows)
+    for (int c = tid; c < NW * 16 * DH / 4; c += kThreads) {
+      const int r = c / (DH / 4), cc = (c % (DH / 4)) * 4;
+      const bool in = q0 + r < L;
+      cp_async16(Qs + r * LDQ + cc,
+                 in ? qb + static_cast<int64_t>(q0 + r) * DH + cc : qb, in);
+    }
   load_tile(0, 0);
   cp_async_commit();
 
   // Q's A fragments for k-step s: a0 (row g, col 8s + t), a1 (row g + 8),
-  // a2 (col + 4), a3 (row g + 8, col + 4), split once
+  // a2 (col + 4), a3 (row g + 8, col + 4), split once (at DH 256 as read)
   uint32_t qr[kQRegs ? KS : 1][8];
 #pragma unroll
-  for (int s = 0; s < KS; ++s) {
+  for (int s = 0; s < (kQRows ? 0 : KS); ++s) {
     uint32_t f[8];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -146,9 +186,9 @@ __global__ void __launch_bounds__(NW * 32)
     }
   }
 
-  float oacc[KS][4];
+  float oacc[NO][4];
 #pragma unroll
-  for (int n = 0; n < KS; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
@@ -163,15 +203,15 @@ __global__ void __launch_bounds__(NW * 32)
       cp_async_wait<0>();
     }
     __syncthreads();  // tile j is in for every thread
-    const float* ks = Ks + buf * kBK * LDK;
-    const float* vs = Vs + buf * kBK * LDV;
-    const float* bs = Bs + buf * kBK;
-    const int k0 = j * kBK;
+    const float* ks = Ks + buf * BK * LDK;
+    const float* vs = Vs + buf * BK * LDV;
+    const float* bs = Bs + buf * BK;
+    const int k0 = j * BK;
 
     // S = Q K^T: sacc[n] holds keys 8n + 2t, 8n + 2t + 1 of rows g, g + 8
-    float sacc[kBK / 8][4];
+    float sacc[BK / 8][4];
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
 #pragma unroll
@@ -183,6 +223,12 @@ __global__ void __launch_bounds__(NW * 32)
           ab[e] = qr[s][e];
           as[e] = qr[s][4 + e];
         }
+      } else if constexpr (kQRows) {
+        const float* qp = Qs + (warp * 16 + g) * LDQ + 8 * s + t;
+        split_tf32(qp[0], ab[0], as[0]);
+        split_tf32(qp[8 * LDQ], ab[1], as[1]);
+        split_tf32(qp[4], ab[2], as[2]);
+        split_tf32(qp[8 * LDQ + 4], ab[3], as[3]);
       } else {
         const uint4* src = Qf + ((warp * KS + s) * 32 + lane) * 2;
         const uint4 b4 = src[0], s4 = src[1];
@@ -190,7 +236,7 @@ __global__ void __launch_bounds__(NW * 32)
         as[0] = s4.x; as[1] = s4.y; as[2] = s4.z; as[3] = s4.w;
       }
 #pragma unroll
-      for (int n0 = 0; n0 < kBK / 8; n0 += 4) {
+      for (int n0 = 0; n0 < BK / 8; n0 += 4) {
         // B = K^T: b0 (k 8s + t, key 8n + g), b1 (k + 4); four key blocks
         // at a time
         uint32_t bb[4][2], bsm[4][2];
@@ -207,7 +253,7 @@ __global__ void __launch_bounds__(NW * 32)
     // scale, bias and mask; the tile's row max
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kc = 8 * n + 2 * t + (e & 1), key = k0 + kc;
@@ -229,7 +275,7 @@ __global__ void __launch_bounds__(NW * 32)
     // dropped keys has m ~ -1e9 with exp(s - m) ~ 1: the select, not the
     // exponential, is what makes such a key exactly 0
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kc = 8 * n + 2 * t + (e & 1), key = k0 + kc;
@@ -245,9 +291,9 @@ __global__ void __launch_bounds__(NW * 32)
     // this tile's P V in a fresh fragment, then O = alpha O + P V with
     // rounded FMAs: the tensor cores' f32 accumulation truncates, and a
     // chain of it over every key tile would bias O as L grows
-    float pv[KS][4];
+    float pv[NO][4];
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < NO; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 
@@ -258,7 +304,7 @@ __global__ void __launch_bounds__(NW * 32)
     const int src_hi = src_lo + 2;
     const bool odd = t & 1;
 #pragma unroll
-    for (int s = 0; s < kBK / 8; ++s) {
+    for (int s = 0; s < BK / 8; ++s) {
       float pa[4];
       {
         const float x0 = __shfl_sync(0xffffffffu, sacc[s][0], src_lo);
@@ -278,7 +324,7 @@ __global__ void __launch_bounds__(NW * 32)
 #pragma unroll
       for (int e = 0; e < 4; ++e) split_tf32(pa[e], ab[e], as[e]);
 #pragma unroll
-      for (int n0 = 0; n0 < KS; n0 += NG) {
+      for (int n0 = 0; n0 < NO; n0 += NG) {
         // B = V: b0 (key 8s + t, column 8n + g), b1 (key + 4)
         uint32_t bb[NG][2], bsm[NG][2];
 #pragma unroll
@@ -291,7 +337,7 @@ __global__ void __launch_bounds__(NW * 32)
       }
     }
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < NO; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         oacc[n][e] = fmaf(oacc[n][e], alpha[e >> 1], pv[n][e]);
@@ -303,12 +349,12 @@ __global__ void __launch_bounds__(NW * 32)
     const int row = row0 + h * 8;
     if (row >= L) continue;
     const float l = fmaxf(l_r[h], 1e-30f);
-    float* orow = o + off + static_cast<int64_t>(row) * DH;
+    float* orow = o + off + static_cast<int64_t>(row) * DH + col0;
 #pragma unroll
-    for (int n = 0; n < KS; ++n)
+    for (int n = 0; n < NO; ++n)
       *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
           make_float2(oacc[n][2 * h] / l, oacc[n][2 * h + 1] / l);
-    if (t == 0)
+    if (t == 0 && half == 0)
       lse[bh * L + row] = m_r[h] + logf(l);
   }
 }
@@ -329,9 +375,10 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  // blocks numbered (bh, query tile) on gridDim.x alone: bh may exceed the
-  // 65535 of gridDim.y
-  const int64_t blocks = bh * ((L + NW * 16 - 1) / (NW * 16));
+  // blocks numbered (bh, query tile, half) on gridDim.x alone: bh may
+  // exceed the 65535 of gridDim.y
+  const int64_t blocks =
+      bh * ((L + NW * 16 - 1) / (NW * 16)) * kHalves<DH>;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   flash_fwd_tc<DH, NW><<<static_cast<unsigned>(blocks), NW * 32, bytes,
                          stream>>>(
@@ -345,10 +392,11 @@ int launch_rows(const float* q, const float* k, const float* v,
                 int64_t L, int n_heads, float scale, int causal,
                 cudaStream_t s) {
   // 64 query rows a block where that fills the card, else 32, else 16
-  if (bh * ((L + 63) / 64) >= kSms)
+  const int64_t cols = bh * kHalves<DH>;
+  if (cols * ((L + 63) / 64) >= kSms)
     return launch<DH, 4>(q, k, v, bias, o, lse, bh, L, n_heads, scale,
                          causal, s);
-  if (bh * ((L + 31) / 32) >= kSms)
+  if (cols * ((L + 31) / 32) >= kSms)
     return launch<DH, 2>(q, k, v, bias, o, lse, bh, L, n_heads, scale,
                          causal, s);
   return launch<DH, 1>(q, k, v, bias, o, lse, bh, L, n_heads, scale, causal,
@@ -358,9 +406,9 @@ int launch_rows(const float* q, const float* k, const float* v,
 }  // namespace
 
 // q, k, v, o [bh, L, dh] f32 and lse [bh, L] f32, all contiguous and q, k,
-// v 16-byte aligned; dh in {16, 32, 64, 128}; bias null or [bh / n_heads, L]
-// f32. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for a head width the kernel does not take).
+// v 16-byte aligned; dh in {16, 32, 64, 128, 256}; bias null or
+// [bh / n_heads, L] f32. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a head width the kernel does not take).
 extern "C" int ptt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   const void* bias, void* o, void* lse,
                                   int64_t bh, int64_t L, int64_t dh,
@@ -393,6 +441,9 @@ extern "C" int ptt_flash_attn_fwd(const void* q, const void* k, const void* v,
                              causal, s);
     case 128:
       return launch_rows<128>(qp, kp, vp, bp, op, lp, bh, L, nh, scale,
+                              causal, s);
+    case 256:
+      return launch_rows<256>(qp, kp, vp, bp, op, lp, bh, L, nh, scale,
                               causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

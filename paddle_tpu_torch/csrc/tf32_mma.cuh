@@ -1,12 +1,24 @@
 // Pieces shared by the tensor-core kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu, ffn_gemm.cu): cp.async copies into shared memory, the
-// 3xTF32 split and product, and reductions over the four lanes of a quad.
+// 3xTF32 split and product, reductions over the four lanes of a quad, and
+// the flash kernels' split of a wide head's output columns.
 // `native` hashes a source together with the headers it includes, so an edit
 // here rebuilds every library that includes this file.
 #pragma once
 #include <stdint.h>
 
 namespace ptt {
+
+// The output columns one block of a flash kernel owns at head width DH: all
+// of them, or at DH 256 one 128-wide half, so that its accumulators keep the
+// DH 128 register budget. The block's scores (and in the backward dP) still
+// span all DH columns; the grid takes kHalves<DH> blocks a row tile, one a
+// half, in one launch (the float32 dK/dV kernel twice that: dK's halves
+// and dV's).
+template <int DH>
+constexpr int kOutCols = DH > 128 ? 128 : DH;
+template <int DH>
+constexpr int kHalves = DH / kOutCols<DH>;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {

@@ -28,14 +28,15 @@ is rounded to bf16 on the way in), as the JAX op's ``astype`` does. The
 plain versions take either dtype and repeat the bf16 roundings for bf16
 operands; the float32 arithmetic is unchanged.
 
-The kernels are instantiated at head widths 16, 32, 64 and 128;
-:func:`_flash_fwd` and :func:`_flash_bwd` take any width up to 128 on the
-card by zero-padding q, k and v (and dO) along dh to the next of those,
-launching the kernels there and slicing O, dQ, dK and dV back
+The kernels are instantiated at head widths 16, 32, 64, 128 and 256 (at
+256 each block owns one 128-wide half of an output's columns, in one
+launch); :func:`_flash_fwd` and :func:`_flash_bwd` take any width up to
+256 on the card by zero-padding q, k and v (and dO) along dh to the next
+of those, launching the kernels there and slicing O, dQ, dK and dV back
 (:func:`_pad_dh`); the dQ and dK/dV wrappers take the kernels' widths.
 That is exact: a zero column adds 0 to every Q·Kᵀ score, the scale stays
 the caller's (dh^-0.5 of the true width by default), and the padded
-columns of O, dQ, dK and dV are 0. A width above 128 raises.
+columns of O, dQ, dK and dV are 0. A width above 256 raises.
 
 The program op `flash_attention` (Q, K, V [B, H, L, dh], an optional
 KeyPaddingBias [B, L], attrs ``scale`` (missing or 0: dh^-0.5) and
@@ -224,12 +225,12 @@ def _delta(do, o):
 
 
 # the head widths the kernels are instantiated at
-_WIDTHS = (16, 32, 64, 128)
+_WIDTHS = (16, 32, 64, 128, 256)
 
 
 def _kernel_width(dh):
     """The head width the kernels run a ``dh``-wide head at: the next
-    instantiated one (ValueError above 128)."""
+    instantiated one (ValueError above 256)."""
     w = next((w for w in _WIDTHS if w >= dh), None)
     if w is None or dh < 1:
         raise ValueError('flash_attention: the CUDA kernels take head '
@@ -261,7 +262,7 @@ def _check_cuda_operands(q, k, v, bias, n_heads):
     bh, L, dh = q.shape
     if dh not in _WIDTHS:
         raise ValueError('flash_attention: the CUDA kernels take head '
-                         'width 16, 32, 64 or 128, got %d (_flash_bwd '
+                         'width 16, 32, 64, 128 or 256, got %d (_flash_bwd '
                          'pads to those)' % dh)
     if q.dtype not in _ROUTES:
         raise ValueError('flash_attention: the CUDA kernels take float32 '

@@ -26,6 +26,12 @@ CPU.
     (`TransformerLM` / `BertPretrain` + `rewrite_model_bf16` +
     ``decorate(TensorAdam)``): the same functions in the same order, so
     losses and weights agree to 1e-6. On CPU tensors no kernel launches.
+    The LM program also at head width 256 (d 512, 2 heads, one layer, V
+    128; on the card the bf16 flash kernels' column-split form) against
+    the JAX run, its parameters after three steps within 1.6e-3 relative
+    RMS (measured 1.2e-3, the float32 control 2.5e-3: at d 512 a weight's
+    lr-sized Adam steps are a larger share of its size than at d 128's
+    5.7e-4 / 1.3e-3).
 (d) Marking a program after it has run invalidates the cached plan: the
     next run computes in bf16.
 """
@@ -74,6 +80,9 @@ MARKED = {
     'bert_unfused': {'mul': 8, 'matmul': 4, 'fused_ffn_tail': 2},
 }
 TOL = 1e-3
+# the AMP LM at head width 256: d 512 over 2 heads, one layer
+WIDE_LM = dict(amp_tests.LM, vocab_size=128, d_model=512, n_head=2,
+               n_layer=1, d_ff=512)
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -374,28 +383,29 @@ def test_marked_ffn_with_live_dropout_matches_the_jax_tier_on_its_mask():
 # (c) three AMP steps of the LM and BERT programs
 
 
-def _param_names(model):
+def _param_names(model, lm=amp_tests.LM):
     if model == 'lm':
-        return list(ttrans.param_shapes(ttrans.LMConfig(**amp_tests.LM)))
+        return list(ttrans.param_shapes(ttrans.LMConfig(**lm)))
     return list(tbert.param_shapes(tbert.BertConfig(**amp_tests.BERT)))
 
 
-def _program_run(model, init):
+def _program_run(model, init, lm=amp_tests.LM):
     """(first-step moment 1, losses, final parameters, final moment 1,
-    launch counts) of the port's ``mp.decorate``d training program from the
-    JAX startup scope ``init``, on the CPU."""
+    launch counts) of the port's ``mp.decorate``d training program (the LM
+    in configuration ``lm``) from the JAX startup scope ``init``, on the
+    CPU."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = 5
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         if model == 'lm':
-            fetch = [ttrans.build_lm(ttrans.LMConfig(**amp_tests.LM))[3]]
-            feeds = amp_tests._lm_feeds()
+            fetch = [ttrans.build_lm(ttrans.LMConfig(**lm))[3]]
+            feeds = amp_tests._lm_feeds(lm)
         else:
             fetch = list(tbert.build_bert_pretrain(
                 tbert.BertConfig(**amp_tests.BERT)))
             feeds = amp_tests._bert_feeds()
         mp.decorate(fluid.optimizer.Adam(1e-3, fuse=True)).minimize(fetch[0])
-    names = _param_names(model)
+    names = _param_names(model, lm)
     exe = fluid.Executor(CPU)
     scope = scope_from_numpy(init, device='cpu')
     kernel_tier.reset_counts()
@@ -433,6 +443,24 @@ def test_three_step_amp_program_matches_jax_decorate(jax_runs, program_runs,
     amp_tests.check_amp_trajectory(jax_runs, model, names, marked, first,
                                    losses, params, m1)
     # CPU tensors take the plain versions and count no launch
+    assert all(n == 0 for n in counts.values())
+
+
+@pytest.fixture(scope='module')
+def wide_jax_runs(interpret_tier):
+    return {('lm', marked): amp_tests._jax_run('lm', marked, WIDE_LM)
+            for marked in (True, False)}
+
+
+def test_three_step_amp_program_at_head_width_256_matches_jax_decorate(
+        wide_jax_runs):
+    first, losses, params, m1, counts = _program_run(
+        'lm', wide_jax_runs[('lm', True)][0], WIDE_LM)
+    names = _param_names('lm', WIDE_LM)
+    marked = [n for n in names if n.endswith('.w') and params[n].ndim == 2
+              and not n.endswith('_emb.w')]
+    amp_tests.check_amp_trajectory(wide_jax_runs, 'lm', names, marked, first,
+                                   losses, params, m1, param_tol=1.6e-3)
     assert all(n == 0 for n in counts.values())
 
 

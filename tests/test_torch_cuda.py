@@ -203,27 +203,36 @@ def test_flash_attention_kernel_rejects_bias_and_odd_head_width(dev):
     out = attention_ops.flash_attention(q, q, q, key_padding_bias=torch.zeros(
         1, 8, device=dev))
     assert _err(out, attention_ops.flash_attention(q, q, q)) == 0
-    # widths up to 128 run zero-padded (test_flash_kernels_take_any_head_
-    # width); above 128 the kernels have no instantiation
-    q = _randn(dev, 2, 8, 160)
-    with pytest.raises(ValueError, match='head width'):
+    # widths up to 256 run zero-padded (test_flash_kernels_take_any_head_
+    # width); above 256 the kernels have no instantiation
+    q = _randn(dev, 2, 8, 257)
+    with pytest.raises(ValueError, match='head widths 1 to 256'):
         attention_ops.flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
-@pytest.mark.parametrize('dh', [8, 48, 80, 96])
+@pytest.mark.parametrize('dh', [8, 48, 80, 96, 160, 192, 256])
 def test_flash_kernels_take_any_head_width(dev, dh, dtype):
     """The three flash kernels (f32 and bf16) at head widths between their
-    instantiations, which the wrappers zero-pad to the next one, on a small
-    causal shape with the key-padding bias: each launched once a call and
-    within its tolerance of its plain version at the true width (f32: O
-    and LSE 1e-4, gradients 1e-4 of their largest magnitude; bf16: O and
-    gradients 1e-2 of theirs, LSE 1e-5)."""
+    instantiations, which the wrappers zero-pad to the next one, and at
+    256 (each block one half of the output columns), on a small shape
+    (L 100, off every tile) with the key-padding bias, causal and not:
+    each launched once a call and within its tolerance of its plain
+    version at the true width (f32: O and LSE 1e-4, gradients 1e-4 of
+    their largest magnitude; bf16: O and gradients 1e-2 of theirs, LSE
+    1e-5)."""
     B, H, L = 3, 2, 100
     q, k, v, do = (_randn(dev, B * H, L, dh, seed=s).to(dtype)
                    for s in range(4))
-    args = (dh ** -0.5, True, _padding_bias(dev, B, L, False), H)
+    for causal in (True, False):
+        _check_head_width(q, k, v, do, dh, causal,
+                          _padding_bias(dev, B, L, False), H)
+
+
+def _check_head_width(q, k, v, do, dh, causal, bias, H):
+    dtype = q.dtype
+    args = (dh ** -0.5, causal, bias, H)
     before = kernel_tier.launch_counts()
     o, lse = attention_ops._flash_fwd(q, k, v, *args)
     dq, dk, dv = attention_ops._flash_bwd(q, k, v, o, lse, do, *args)
@@ -587,22 +596,26 @@ BF16_FWD_LENGTHS = (127, 128, 129, 256, 383, 512)
 def _bf16_fwd_plans(dh, causal):
     """{query rows a block: query rows a warp} of the bf16 forward's plans
     at head width ``dh``: 32 rows a warp at dh <= 64 without causal, else
-    16."""
+    16; at dh 256 two warps a block at least."""
     if dh <= 64 and not causal:
         return {128: 32, 64: 32, 32: 16, 16: 16}
+    if dh > 128:
+        return {64: 16, 32: 16}
     return {64: 16, 32: 16, 16: 16}
 
 
-BF16_FWD_PLANS = [(dh, causal, rows) for dh in (16, 32, 64, 128)
+BF16_FWD_PLANS = [(dh, causal, rows) for dh in (16, 32, 64, 128, 256)
                   for causal in (False, True)
                   for rows in _bf16_fwd_plans(dh, causal)]
 
 
-def _bh_for_rows(rows, L):
+def _bh_for_rows(rows, L, dh):
     """A batch x heads at which the bf16 forward takes its plan of ``rows``
-    query rows a block: the fewest whose blocks give each of the card's 132
-    SMs one (3 for the 16-row plan, which takes what fills nothing)."""
-    return 3 if rows == 16 else -(-132 // -(-L // rows))
+    query rows a block: the fewest whose blocks (two a row tile at dh 256)
+    give each of the card's 132 SMs one (3 for the 16-row plan, which takes
+    what fills nothing)."""
+    halves = 2 if dh > 128 else 1
+    return 3 if rows == 16 else -(-132 // (halves * -(-L // rows)))
 
 
 def _tile_bias(dev, bh, L):
@@ -656,7 +669,7 @@ def test_flash_bf16_forward_plans_and_tile_paths(dev, dh, causal, rows, L):
     the plain version (on the rows that keep a key), the element that
     keeps no key exactly 0, and two calls bitwise equal. (The raw-product
     form runs at 16 rows a warp without a bias.)"""
-    bh = _bh_for_rows(rows, L)
+    bh = _bh_for_rows(rows, L, dh)
     q, k, v = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
                for s in range(3))
     for bias in (None, _tile_bias(dev, bh, L)):
@@ -687,7 +700,7 @@ def test_flash_bf16_forward_cases_reach_every_plan_and_tile_path(dev):
         rows_warp = _bf16_fwd_plans(dh, causal)[rows]
         reached = set()
         for L in BF16_FWD_LENGTHS:
-            bh = _bh_for_rows(rows, L)
+            bh = _bh_for_rows(rows, L, dh)
             for biased in (False, True):
                 assert attention_ops._bf16_fwd_plan(
                     bh, L, dh, causal, biased, dh ** -0.5) == \
@@ -760,25 +773,28 @@ def test_flash_bf16_forward_drops_at_exactly_minus_1e8(dev):
 BF16_DKV_LENGTHS = (1, 37, 63, 65, 200, 300)
 
 
-def _dkv_rows(bh, L):
+def _dkv_rows(bh, L, dh=64):
     """Keys a block (16 a warp) of the bf16 dK/dV kernel's launch: 64 where
-    that gives each of the card's 132 SMs a block, else 32, else 16."""
+    that gives each of the card's 132 SMs a block (two a row tile at dh
+    256), else 32, else 16."""
+    halves = 2 if dh > 128 else 1
     for rows in (64, 32):
-        if bh * -(-L // rows) >= 132:
+        if bh * halves * -(-L // rows) >= 132:
             return rows
     return 16
 
 
-def _dkv_bh(rows, L):
+def _dkv_bh(rows, L, dh=64):
     """A batch x heads at which the dK/dV kernel takes blocks of ``rows``
     keys (3 for 16, which takes what fills nothing), where some does."""
-    bh = 3 if rows == 16 else -(-132 // -(-L // rows))
-    return bh if _dkv_rows(bh, L) == rows else None
+    halves = 2 if dh > 128 else 1
+    bh = 3 if rows == 16 else -(-132 // (halves * -(-L // rows)))
+    return bh if _dkv_rows(bh, L, dh) == rows else None
 
 
-BF16_DKV_PLANS = [(dh, causal, rows, L) for dh in (16, 32, 64, 128)
+BF16_DKV_PLANS = [(dh, causal, rows, L) for dh in (16, 32, 64, 128, 256)
                   for causal in (False, True) for rows in (64, 32, 16)
-                  for L in BF16_DKV_LENGTHS if _dkv_bh(rows, L)]
+                  for L in BF16_DKV_LENGTHS if _dkv_bh(rows, L, dh)]
 
 
 def _dkv_bias(bh, L):
@@ -839,7 +855,7 @@ def test_flash_bf16_dkv_plans_and_tile_paths(dev, dh, causal, rows, L):
     plain version (at L 1, where dK is rounding noise around 0, within
     1e-2), the dropped keys' rows exactly 0, and two calls bitwise
     equal."""
-    bh = _dkv_bh(rows, L)
+    bh = _dkv_bh(rows, L, dh)
     assert attention_ops._bf16_bwd_plan(bh, L, dh) == rows
     q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
                    for s in range(4))
@@ -871,12 +887,12 @@ def test_flash_bf16_dkv_cases_reach_every_plan_and_tile_path():
     plan of each head width every path of the dK/dV kernel (by its rule in
     ``_dkv_paths``): the diagonal ones under causal alone, a dead warp
     where a block has more than one. Needs no card."""
-    for dh in (16, 32, 64, 128):
+    for dh in (16, 32, 64, 128, 256):
         for causal in (False, True):
             for rows in (64, 32, 16):
                 reached = set()
                 for L in BF16_DKV_LENGTHS:
-                    bh = _dkv_bh(rows, L)
+                    bh = _dkv_bh(rows, L, dh)
                     if bh is None:
                         continue
                     kept = [[True] * L] + \
@@ -901,7 +917,7 @@ def test_flash_bf16_dkv_phase13_shapes_reach_their_paths():
     reached = set()
     for sh in chip_smoke.flash_shapes(torch, True):
         bh, L = sh['B'] * sh['H'], sh['L']
-        assert _dkv_rows(bh, L) == 64
+        assert _dkv_rows(bh, L, sh['dh']) == 64
         rows = [None] if sh['bias'] is None else \
             sorted(set(map(tuple, (sh['bias'] > -1e8).tolist())))
         for row in rows:
@@ -998,7 +1014,7 @@ def test_flash_bf16_dq_plans_and_tile_paths(dev, dh, causal, rows, L):
     the plain version (at L 1, where dQ is rounding noise around 0, within
     1e-2), the rows that keep no key exactly 0, two calls bitwise equal,
     and each launch counted."""
-    bh = _dkv_bh(rows, L)
+    bh = _dkv_bh(rows, L, dh)
     assert attention_ops._bf16_bwd_plan(bh, L, dh) == rows
     q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
                    for s in range(4))
@@ -1030,12 +1046,12 @@ def test_flash_bf16_dq_cases_reach_every_plan_and_tile_path():
     plan of each head width every path of the dQ kernel (by its rule in
     ``_dq_chunks``, which ``_dq_reach`` first holds to the plain version's
     mask): the diagonal ones under causal alone. Needs no card."""
-    for dh in (16, 32, 64, 128):
+    for dh in (16, 32, 64, 128, 256):
         for causal in (False, True):
             for rows in (64, 32, 16):
                 reached = set()
                 for L in BF16_DKV_LENGTHS:
-                    bh = _dkv_bh(rows, L)
+                    bh = _dkv_bh(rows, L, dh)
                     if bh is None:
                         continue
                     kept = [[True] * L] + \
@@ -1061,7 +1077,7 @@ def test_flash_bf16_dq_phase13_shapes_reach_their_paths():
     reached = set()
     for sh in chip_smoke.flash_shapes(torch, True):
         bh, L = sh['B'] * sh['H'], sh['L']
-        assert _dkv_rows(bh, L) == 64
+        assert _dkv_rows(bh, L, sh['dh']) == 64
         rows = [[True] * L] if sh['bias'] is None else \
             map(list, sorted(set(map(tuple, (sh['bias'] > -1e8).tolist()))))
         for row in rows:
@@ -1091,15 +1107,17 @@ def _rms_err(g, w):
 
 
 @pytest.mark.parametrize('causal', [False, True], ids=['full', 'causal'])
-@pytest.mark.parametrize('dh,scale', [(32, None), (128, None), (64, 0.1)],
-                         ids=['dh32', 'dh128', 'dh64-scale0.1'])
+@pytest.mark.parametrize('dh,scale', [(32, None), (128, None), (64, 0.1),
+                                      (256, 0.1)],
+                         ids=['dh32', 'dh128', 'dh64-scale0.1',
+                              'dh256-scale0.1'])
 def test_flash_bf16_bwd_rounds_the_scaled_ds(dev, dh, scale, causal):
     """Where the scale is not a power of two (dh^-0.5 at dh 32 and 128, or
-    a caller's 0.1 at dh 64) the bf16 dQ and dK/dV kernels round the scaled
-    dS to bf16, as the reference does: dQ, dK and dV within 1e-2 of each
-    one's largest magnitude of the plain version, and dQ's and dK's root
-    mean square error below that of the form that rounds dS without the
-    scale (held to the same plain version)."""
+    a caller's 0.1 at dh 64 and 256) the bf16 dQ and dK/dV kernels round
+    the scaled dS to bf16, as the reference does: dQ, dK and dV within 1e-2
+    of each one's largest magnitude of the plain version, and dQ's and dK's
+    root mean square error below that of the form that rounds dS without
+    the scale (held to the same plain version)."""
     bh, L = 8, 200
     scale = dh ** -0.5 if scale is None else scale
     q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(torch.bfloat16)
@@ -1124,24 +1142,54 @@ def test_flash_bf16_bwd_rounds_the_scaled_ds(dev, dh, scale, causal):
 def test_flash_kernels_take_more_than_65535_rows(dev, dtype):
     """Batch x heads above 65535 (gridDim.y's limit): every row of the
     forward and of both backward kernels against the plain versions."""
-    bh, L, dh = 65536 + 3, 8, 16
-    q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(dtype)
-                   for s in range(4))
-    args = (dh ** -0.5, True, None, 1)
-    o, lse = attention_ops._flash_fwd(q, k, v, *args)
-    delta = attention_ops._delta(do, o)
-    dq = attention_ops._flash_bwd_dq(q, k, v, do, lse, delta, *args)
-    dk, dv = attention_ops._flash_bwd_dkv(q, k, v, do, lse, delta, *args)
-    torch.cuda.synchronize()
-    want = attention_ops._attention_ref(q, k, v, *args) + \
-        (attention_ops._bwd_dq_ref(q, k, v, do, lse, delta, *args),) + \
-        attention_ops._bwd_dkv_ref(q, k, v, do, lse, delta, *args)
-    tol = 1e-4 if dtype == torch.float32 else 1e-2
-    for g, w in zip((o, lse, dq, dk, dv), want):
-        g, w = g.float(), w.float()
-        assert _err(g, w) <= tol * max(1.0, float(w.abs().max()))
-        # the last rows too: a grid cut at 65535 would leave them unwritten
-        assert _err(g[-3:], w[-3:]) <= tol * max(1.0, float(w.abs().max()))
+    for dh in (16, 256):       # at 256 two blocks a row tile, one a half
+        bh, L = 65536 + 3, 8
+        q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(dtype)
+                       for s in range(4))
+        args = (dh ** -0.5, True, None, 1)
+        o, lse = attention_ops._flash_fwd(q, k, v, *args)
+        delta = attention_ops._delta(do, o)
+        dq = attention_ops._flash_bwd_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = attention_ops._flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+        torch.cuda.synchronize()
+        want = attention_ops._attention_ref(q, k, v, *args) + \
+            (attention_ops._bwd_dq_ref(q, k, v, do, lse, delta, *args),) + \
+            attention_ops._bwd_dkv_ref(q, k, v, do, lse, delta, *args)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        for g, w in zip((o, lse, dq, dk, dv), want):
+            g, w = g.float(), w.float()
+            assert _err(g, w) <= tol * max(1.0, float(w.abs().max()))
+            # the last rows too: a grid cut at 65535 would leave them
+            # unwritten
+            assert _err(g[-3:], w[-3:]) <= \
+                tol * max(1.0, float(w.abs().max()))
+        del q, k, v, do, o, lse, delta, dq, dk, dv, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_kernels_at_head_width_256_are_deterministic(dev, dtype):
+    """At head width 256 (two blocks a row tile, each one half of the
+    output columns) two calls of the forward, of the dQ kernel and of the
+    dK/dV kernel give the same bits, with and without the padding bias, at
+    every plan's rows a block (4, 32 and 128 rows x heads at L 200)."""
+    L = 200
+    for bh in (4, 32, 128):
+        q, k, v, do = (_randn(dev, bh, L, 256, seed=s).to(dtype)
+                       for s in range(4))
+        for b in (None, _padding_bias(dev, bh // 4, L, True)):
+            args = (1 / 16, b is None, b, 4)
+            first = attention_ops._flash_fwd(q, k, v, *args)
+            second = attention_ops._flash_fwd(q, k, v, *args)
+            ins = (q, k, v, do, first[1],
+                   attention_ops._delta(do, first[0])) + args
+            dq = [attention_ops._flash_bwd_dq(*ins) for _ in range(2)]
+            dkv = [attention_ops._flash_bwd_dkv(*ins) for _ in range(2)]
+            torch.cuda.synchronize()
+            for x, y in zip(first + (dq[0],) + dkv[0],
+                            second + (dq[1],) + dkv[1]):
+                assert torch.equal(x, y)
 
 
 def test_bf16_products_on_the_card_match_the_cpu(dev):

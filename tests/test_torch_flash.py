@@ -4,8 +4,10 @@ The port's forward (`flash_attention` with its LSE) and the plain version of
 its two backward kernels (`_flash_bwd_ref`) are held against the Pallas
 kernels `_flash_fwd_pallas` and `_flash_bwd_pallas` run through the
 interpreter, the same numpy-seeded ``q, k, v, o, lse, do`` fed to both, for
-{causal, full} x {no bias, a key-padding bias with padded tails}. Then the
-port's ``autograd.Function`` against ``jax.grad`` of
+{causal, full} x {no bias, a key-padding bias with padded tails}, and
+causal with the bias at head width 256 (B 2, H 1, L 64, 32-row tiles:
+the card's kernels split such a head's output columns over blocks). Then
+the port's ``autograd.Function`` against ``jax.grad`` of
 ``flash_attention(..., use_pallas='interpret')``.
 
 Tolerances are those of tests/test_attention.py for the same kernels
@@ -32,6 +34,10 @@ GRAD_TOL = dict(rtol=3e-3, atol=3e-4)
 CASES = [(c, b) for c in (False, True) for b in (False, True)]
 IDS = ['%s-%s' % ('causal' if c else 'full', 'bias' if b else 'nobias')
        for c, b in CASES]
+# the Pallas comparisons at the file's shape, and one at head width 256
+SHAPES = {'': (B, H, L, DH), 'dh256-': (2, 1, 64, 256)}
+PALLAS_CASES = [(c, b, '') for c, b in CASES] + [(True, True, 'dh256-')]
+PALLAS_IDS = IDS + ['dh256-causal-bias']
 
 
 def _t(a, grad=False):
@@ -53,40 +59,50 @@ def _flat(a):
     return a.reshape((-1,) + a.shape[2:])
 
 
+def _tile(q):
+    """The Pallas kernels' tile rows: two tiles of the [B, H, L, dh]
+    operand's L, at most 128, so that the online softmax and the gradient
+    sums take more than one."""
+    return min(128, q.shape[2] // 2)
+
+
 def _pallas_fwd(q, k, v, causal, bias):
-    """(O, LSE) of the interpreted Pallas forward over [BH, L, dh], with
-    128-wide tiles so that its online softmax takes two key tiles."""
+    """(O, LSE) of the interpreted Pallas forward over [BH, L, dh] at the
+    true width's scale, with `_tile` rows a tile."""
     return jattn._flash_fwd_pallas(
         jnp.asarray(_flat(q)), jnp.asarray(_flat(k)), jnp.asarray(_flat(v)),
-        SCALE, causal, True, 128, 128,
-        bias=None if bias is None else jnp.asarray(bias), n_heads=H)
+        q.shape[-1] ** -0.5, causal, True, _tile(q), _tile(q),
+        bias=None if bias is None else jnp.asarray(bias), n_heads=q.shape[1])
 
 
-@pytest.mark.parametrize('causal,biased', CASES, ids=IDS)
-def test_forward_and_lse_match_pallas_interpret(causal, biased):
-    q, k, v, _, bias = _data(0, biased)
+@pytest.mark.parametrize('causal,biased,shape', PALLAS_CASES, ids=PALLAS_IDS)
+def test_forward_and_lse_match_pallas_interpret(causal, biased, shape):
+    q, k, v, _, bias = _data(0, biased, SHAPES[shape])
     o_j, lse_j = _pallas_fwd(q, k, v, causal, bias)
     o, lse = attention_ops.flash_attention(
         _t(q), _t(k), _t(v), causal=causal, return_lse=True,
         key_padding_bias=None if bias is None else _t(bias))
-    assert o.shape == (B, H, L, DH) and lse.shape == (B, H, L)
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
     np.testing.assert_allclose(_flat(o.numpy()), np.asarray(o_j), **FWD_TOL)
     np.testing.assert_allclose(_flat(lse.numpy()), np.asarray(lse_j),
                                **FWD_TOL)
 
 
-@pytest.mark.parametrize('causal,biased', CASES, ids=IDS)
-def test_backward_plain_version_matches_pallas_interpret(causal, biased):
-    q, k, v, do, bias = _data(1, biased)
+@pytest.mark.parametrize('causal,biased,shape', PALLAS_CASES, ids=PALLAS_IDS)
+def test_backward_plain_version_matches_pallas_interpret(causal, biased,
+                                                         shape):
+    q, k, v, do, bias = _data(1, biased, SHAPES[shape])
+    scale, heads = q.shape[-1] ** -0.5, q.shape[1]
     o_j, lse_j = _pallas_fwd(q, k, v, causal, bias)
     want = jattn._flash_bwd_pallas(
         jnp.asarray(_flat(q)), jnp.asarray(_flat(k)), jnp.asarray(_flat(v)),
-        o_j, lse_j, jnp.asarray(_flat(do)), SCALE, causal, True, 128, 128,
-        bias=None if bias is None else jnp.asarray(bias), n_heads=H)
+        o_j, lse_j, jnp.asarray(_flat(do)), scale, causal, True, _tile(q),
+        _tile(q), bias=None if bias is None else jnp.asarray(bias),
+        n_heads=heads)
     got = attention_ops._flash_bwd_ref(
         _t(_flat(q)), _t(_flat(k)), _t(_flat(v)), _t(o_j), _t(lse_j),
-        _t(_flat(do)), SCALE, causal,
-        None if bias is None else _t(bias), H)
+        _t(_flat(do)), scale, causal,
+        None if bias is None else _t(bias), heads)
     for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
                                    **GRAD_TOL)
@@ -195,24 +211,25 @@ def test_plain_backward_equals_autograd_of_plain_forward(causal, biased):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize('dh', [8, 48, 80, 96])
+@pytest.mark.parametrize('dh', [8, 48, 80, 96, 160, 192, 256])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 def test_head_width_padding_is_exact(dh, dtype):
     """The card's wrappers run a head width outside the kernels' 16, 32,
-    64 and 128 by zero-padding q, k, v and dO along dh to the next of
+    64, 128 and 256 by zero-padding q, k, v and dO along dh to the next of
     those (`_kernel_width`, `_pad_dh`) and slicing O, dQ, dK and dV back:
     the plain versions of the kernels on the padded operands, at the true
     width's scale, give the unpadded results (within 1e-6 of each output's
     largest magnitude: a longer sum of the same terms and zeros; bf16
     results are compared in their own rounding), and the padded columns
-    are exactly 0. A width above 128 raises, as do operands of two
+    are exactly 0. A width above 256 raises, as do operands of two
     widths."""
     q, k, v, do, bias = _data(9, True, (2, 2, 40, dh))
     q, k, v, do = (_t(_flat(a)).to(dtype) for a in (q, k, v, do))
     tb, scale = _t(bias), dh ** -0.5
     w = attention_ops._kernel_width(dh)
-    assert w == {8: 16, 48: 64, 80: 128, 96: 128}[dh]
+    assert w == {8: 16, 48: 64, 80: 128, 96: 128, 160: 256, 192: 256,
+                 256: 256}[dh]
     o, lse = attention_ops._attention_ref(q, k, v, scale, True, tb, 2)
     want = (o,) + attention_ops._flash_bwd_ref(q, k, v, o, lse, do, scale,
                                                True, tb, 2)
@@ -231,7 +248,7 @@ def test_head_width_padding_is_exact(dh, dtype):
         tol = 1e-6 if dtype == torch.float32 else 2 ** -8
         assert float((g.float() - wt.float()).abs().max()) <= \
             tol * float(wt.float().abs().max())
-    with pytest.raises(ValueError, match='widths 1 to 128'):
-        attention_ops._kernel_width(160)
+    with pytest.raises(ValueError, match='widths 1 to 256'):
+        attention_ops._kernel_width(257)
     with pytest.raises(ValueError, match='one head width'):
         attention_ops._pad_dh(w, q, k[..., :dh - 1])

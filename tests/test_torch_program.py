@@ -26,6 +26,10 @@ comes from a numpy seed and goes through both packages.
     of each ``*.attn.qkv.b`` within STEPS * lr (tests/test_torch_train.py
     `_check_trajectory`'s tolerances and rule: that slice's true gradient
     is 0, and Adam turns rounding noise into steps of lr).
+    The flash program also at head width 256 (d 512, 2 heads, one layer,
+    V 128, L 32: on the card the flash kernels' column-split form), one
+    batch three times (at this width three random batches do not lower the
+    loss), with the same tolerances.
 (d) The same programs against the port's own `TransformerLM` +
     `TensorAdam` from the same weights: the same PyTorch functions in the
     same order, so losses and weights agree to 1e-6.
@@ -72,6 +76,9 @@ FLASH = dict(SMALL, dropout=0.1, attn_dropout=0.0)
 FLASH0 = dict(SMALL, dropout=0.0, attn_dropout=0.0)
 # the default configuration's unfused branch, without dropout
 UNFUSED0 = dict(FLASH0, use_flash_attention=False)
+# the flash program at head width 256 (d 512 over 2 heads), one layer
+WIDE0 = dict(FLASH0, vocab_size=128, seq_len=32, d_model=512, n_head=2,
+             n_layer=1, d_ff=512)
 # BERT at the same width, no dropout; its attention flash or unfused
 BERT_FLASH = dict(SMALL, dropout=0.0, attn_dropout=0.0, max_predictions=4)
 BERT_UNFUSED = dict(BERT_FLASH, use_flash_attention=False)
@@ -142,12 +149,15 @@ def _bert_feeds(n=STEPS, batch=4):
     return [f] * n
 
 
-def _lm_feeds(n=STEPS, batch=4, seed=0):
+def _lm_feeds(n=STEPS, batch=4, seed=0, kw=SMALL):
     rs = np.random.RandomState(seed)
-    V, L = SMALL['vocab_size'], SMALL['seq_len']
+    V, L = kw['vocab_size'], kw['seq_len']
     return [{'tokens': rs.randint(0, V, (batch, L)).astype('int64'),
              'labels': rs.randint(0, V, (batch, L)).astype('int64')}
             for _ in range(n)]
+
+
+WIDE_FEEDS = _lm_feeds(1, kw=WIDE0) * STEPS
 
 
 # ---------------------------------------------------------------------------
@@ -474,10 +484,10 @@ def test_fused_ln_residual_off_its_fusable_form_runs_the_composition():
 # (c), (d) the slice as a whole
 
 
-def _jax_run(kw):
-    """(startup arrays, losses, final arrays) of the JAX program of ``kw``
-    (dropout 0), three Adam(1e-3, fuse=True) steps at the interpret
-    tier."""
+def _jax_run(kw, feeds=None):
+    """(startup arrays, losses, final arrays, arrays after the first step)
+    of the JAX program of ``kw`` (dropout 0), three Adam(1e-3, fuse=True)
+    steps at the interpret tier."""
     import os
     old = os.environ.get('PADDLE_FUSED_TIER')
     os.environ['PADDLE_FUSED_TIER'] = 'interpret'
@@ -486,9 +496,12 @@ def _jax_run(kw):
         exe, scope = jfluid.Executor(), jfluid.Scope()
         exe.run(startup, scope=scope)
         init = _scope_arrays(scope)
-        losses = [float(exe.run(main, feed=f, fetch_list=[loss],
-                                scope=scope)[0][0]) for f in _lm_feeds()]
-        return init, losses, _scope_arrays(scope)
+        losses, first = [], None
+        for f in feeds or _lm_feeds():
+            losses.append(float(exe.run(main, feed=f, fetch_list=[loss],
+                                        scope=scope)[0][0]))
+            first = first or _scope_arrays(scope)
+        return init, losses, _scope_arrays(scope), first
     finally:
         if old is None:
             os.environ.pop('PADDLE_FUSED_TIER', None)
@@ -496,7 +509,7 @@ def _jax_run(kw):
             os.environ['PADDLE_FUSED_TIER'] = old
 
 
-def _port_run(init, kw):
+def _port_run(init, kw, feeds=None):
     main, startup, _, loss = _build_lm(fluid, ttrans, kw, seed=5)
     types = [op.type for op in main.global_block().ops]
     assert ('flash_attention' in types) == kw.get('use_flash_attention',
@@ -504,7 +517,7 @@ def _port_run(init, kw):
     exe = fluid.Executor(CPU)
     scope = scope_from_numpy(init, device='cpu')
     losses = [float(exe.run(main, feed=f, fetch_list=[loss],
-                            scope=scope)[0][0]) for f in _lm_feeds()]
+                            scope=scope)[0][0]) for f in feeds or _lm_feeds()]
     return losses, _scope_arrays(scope)
 
 
@@ -519,6 +532,16 @@ def port_flash_run(jax_flash_run):
 
 
 @pytest.fixture(scope='module')
+def jax_wide_run():
+    return _jax_run(WIDE0, WIDE_FEEDS)
+
+
+@pytest.fixture(scope='module')
+def port_wide_run(jax_wide_run):
+    return _port_run(jax_wide_run[0], WIDE0, WIDE_FEEDS)
+
+
+@pytest.fixture(scope='module')
 def jax_unfused_run():
     return _jax_run(UNFUSED0)
 
@@ -528,18 +551,19 @@ def port_unfused_run(jax_unfused_run):
     return _port_run(jax_unfused_run[0], UNFUSED0)
 
 
-def _k_bias_apart(name, have, want, tol):
-    """The K slice of a qkv bias within ``tol``; returns the rest."""
+def _k_bias_apart(name, have, want, tol, d=SMALL['d_model']):
+    """The K slice of a ``d``-wide model's qkv bias within ``tol``; returns
+    the rest."""
     if not name.endswith('.attn.qkv.b'):
         return have, want
-    d = SMALL['d_model']
     assert np.abs(have[d:2 * d] - want[d:2 * d]).max() <= tol, name
     return (np.delete(have, np.s_[d:2 * d]), np.delete(want, np.s_[d:2 * d]))
 
 
-def _check_against_jax(jax_run, port_run, noise=None):
+def _check_against_jax(jax_run, port_run, noise=None, d=SMALL['d_model']):
     """``noise``: {parameter name: a mask of the elements whose gradient is
-    rounding noise}, held within STEPS * lr as the K bias is."""
+    rounding noise}, held within STEPS * lr as the K bias is; ``d``: the
+    model's width."""
     init, want_losses, want = jax_run[:3]
     losses, got = port_run
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
@@ -548,7 +572,7 @@ def _check_against_jax(jax_run, port_run, noise=None):
     for name in want:
         have, w = got[name], want[name]
         if '_moment' not in name:
-            have, w = _k_bias_apart(name, have, w, STEPS * 1e-3)
+            have, w = _k_bias_apart(name, have, w, STEPS * 1e-3, d)
         if noise and name in noise:
             apart = noise[name]
             assert np.abs(have[apart] - w[apart]).max(initial=0) <= \
@@ -556,6 +580,21 @@ def _check_against_jax(jax_run, port_run, noise=None):
             have, w = have[~apart], w[~apart]
         np.testing.assert_allclose(have, w, rtol=1e-4, atol=1e-5,
                                    err_msg=name)
+
+
+def _noise(jax_run):
+    """{parameter name: mask of the elements whose first-step gradient is
+    nonzero but under 1e-5 of its tensor's largest} from the JAX run's
+    first-step moment 1 (0.1 x the gradient), the K bias of each qkv apart
+    (held on its own): f32 rounding noise, which Adam's first step turns
+    into a move of lr * g / (|g| + 1e-8), so that noise on a gradient near
+    1e-8 moves an element by a share of lr."""
+    first, noise = jax_run[3], {}
+    for name in jax_run[0]:
+        m1 = first.get(name + '_moment1_0')
+        if m1 is not None and not name.endswith('.attn.qkv.b'):
+            noise[name] = (m1 != 0) & (np.abs(m1) < 1e-5 * np.abs(m1).max())
+    return noise
 
 
 def _check_against_transformer_lm(kw, init, port_run):
@@ -581,6 +620,15 @@ def test_flash_program_trajectory_matches_the_jax_executor(jax_flash_run,
 
 def test_flash_program_matches_transformer_lm(jax_flash_run, port_flash_run):
     _check_against_transformer_lm(FLASH0, jax_flash_run[0], port_flash_run)
+
+
+def test_flash_program_at_head_width_256_matches_the_jax_executor(
+        jax_wide_run, port_wide_run):
+    """(c)'s check at head width 256, the rounding noise of `_noise` held
+    within STEPS * lr (measured: one element of ``layer_0.ffn2.w`` lands
+    1.8e-5 from JAX's)."""
+    _check_against_jax(jax_wide_run, port_wide_run, _noise(jax_wide_run),
+                       d=WIDE0['d_model'])
 
 
 def test_unfused_program_trajectory_matches_the_jax_executor(
@@ -996,13 +1044,7 @@ def test_bert_program_trajectory_matches_the_jax_executor(bert_runs):
     alike). An element whose first-step gradient is exactly 0 (a token
     row no batch holds) keeps the full tolerance."""
     _, jax_run, port_run = bert_runs
-    first = jax_run[3]
-    noise = {}
-    for name in jax_run[0]:
-        m1 = first.get(name + '_moment1_0')
-        if m1 is not None and not name.endswith('.attn.qkv.b'):
-            noise[name] = (m1 != 0) & (np.abs(m1) < 1e-5 * np.abs(m1).max())
-    _check_against_jax(jax_run, port_run, noise)
+    _check_against_jax(jax_run, port_run, _noise(jax_run))
 
 
 def test_bert_program_matches_bert_pretrain(bert_runs):
