@@ -225,8 +225,29 @@ Phases, each printing one JSON line:
    zero-pad them to 16, 64, 128, 128, 256, 256; 256 itself runs as it
    is), B 4 x H 2, L 200, causal, a key-padding bias keeping 200, 173, 140
    and 101 keys: within phases 8's and 13's tolerances of their plain
-   versions at the true width, one launch each a call; a width of 257
-   raises, naming 256.
+   versions at the true width, one launch each a call; widths 257 and
+   320 run through phase 13c's wide kernels (zero-padded to 384) under the
+   same checks.
+13c. wide_flash_kernel — the three wide flash kernels
+   (``csrc/flash_attn_wide.cu``: head widths above 256, each block one
+   128-wide column chunk of its outputs, CUDA-core products) at BH 64 (B
+   32 x 2 heads), L 512, dh 512, causal, float32 and bf16, against their
+   plain versions (float32: O and LSE 1e-4 absolute, each gradient 1e-4 of
+   its largest magnitude; bf16: O, dQ, dK and dV 1e-2 of theirs, LSE
+   1e-5), two calls bitwise equal, no spill in any of their
+   instantiations; ``ms`` beside ``bound_ms`` (the ``bound`` rule: the
+   products at the tensor-core rate) and ``bound_simt_ms`` (every flop at
+   67 TFLOP/s), ``plain_ms``, and ``library_ms``: SDPA's call (its
+   backward for dQ and dK/dV) under whichever backend takes dh 512, named
+   by its device kernels (``library_kernels``). Then the ``flash_wide``
+   path: ``build_lm`` at 2 heads of 512 (d 1024, L 512, d_ff 4096,
+   ``lm_large``'s vocabulary, 2 layers, dropout 0) with ``Adam(1e-4,
+   fuse=True)``, three ``run()`` steps at B 2 on the card against the CPU
+   Executor from one initialization, float32 (``flash_wide``) and under
+   ``mixed_precision.decorate`` (``flash_wide_amp``), at phase 22's hold
+   limits, each card step launching exactly its path's kernels (the wide
+   forward, dQ and dK/dV once a layer); then 5 timed steps of each (step
+   ms, device ms, the wide kernels' device ms and share).
 14. amp_train_vs_cpu — phase 9 with the model bf16-marked
    (``rewrite_model_bf16``): card against CPU, loss within 5e-3 relative
    and every gradient within 2e-2 of its largest magnitude; then the
@@ -469,6 +490,14 @@ Phases, each printing one JSON line:
    launched by the prefills, and a 64-token prefill and one decode step
    within 1e-3 of the CPU's logits, as phase 4 holds the flagship's.
 
+23. optest_replay — the repo's recorded op cases (``optest_cases/``, 480
+   programs with their feeds, state and the JAX package's CPU fetches)
+   replayed through ``Executor.run`` on the card by tools/torch_optest.py:
+   every case whose op types the port registers and that draws nothing
+   from JAX's key stream, each fetch within the corpus's rule,
+   |got - cpu| <= loosen (1e-4 + 1e-3 |cpu|); one line a op type (cases
+   run, worst normalised violation); any failing case fails the phase.
+
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
 the operations' time, where matrix-product flops (the FFN's two products,
@@ -598,6 +627,14 @@ LM_DH256_F32_B = 4
 DH256_HOLD_LAYERS, DH256_HOLD_B, DH256_HOLD_STEPS = 2, 2, 3
 DH256_BUCKETS = (128, 256, 512)
 DH256_REQUESTS = 8
+# phase 13c: the wide flash kernels (head widths above 256) at BH 64 (B 32
+# x 2 heads), L 512, dh 512, causal; and the flash_wide path, lm_large's
+# width over 2 heads of 512 at 2 layers, held to the CPU at phase 22's
+# batch and steps
+WIDE_FLASH_KERNELS = ('flash_attention_wide', 'flash_attention_wide_bwd_dq',
+                      'flash_attention_wide_bwd_dkv')
+WIDE_SHAPE = dict(B=32, H=2, L=512, dh=512)
+FLASH_WIDE = dict(LM_LARGE, n_head=2, n_layer=2, dropout=0.0)
 # phase 15b (f): the bound AMP step's calls, held to as many eager steps
 BOUND_STEPS = 20
 # the run_fused rows: K batches staged on the card (bench.py stages its
@@ -717,7 +754,10 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'lm_dh256_amp_hold': AMP_TRAIN_KERNELS,
                 'lm_dh256_f32': FLASH_TRAIN_KERNELS,
                 'lm_dh256_f32_hold': FLASH_TRAIN_KERNELS,
-                'lm_dh256_engine': ENGINE_KERNELS}
+                'lm_dh256_engine': ENGINE_KERNELS,
+                'flash_wide': TRAIN_KERNELS + WIDE_FLASH_KERNELS,
+                'flash_wide_amp': AMP_BERT_UNFUSED_KERNELS +
+                WIDE_FLASH_KERNELS}
 
 
 def emit(obj):
@@ -973,6 +1013,9 @@ def demangle(mangled):
     args = re.compile(r'I((?:L\w\d+E)+)E').match(mangled, pos)
     if args:
         name += '<%s>' % ', '.join(re.findall(r'L\w(\d+)E', args.group(1)))
+    typ = re.compile(r'I(f|13__nv_bfloat16)E').match(mangled, pos)
+    if typ:
+        name += '<%s>' % ('float' if typ.group(1) == 'f' else '__nv_bfloat16')
     return name
 
 
@@ -2599,14 +2642,14 @@ def check_head_widths(torch):
     """Phase 13b: the three float32 flash kernels and the three bf16 ones
     at head widths between their instantiations (8, 48, 80, 96, 160, 192),
     which the wrappers zero-pad to the next one (16, 64, 128, 128, 256,
-    256), and at 256 (each head's output columns split over two blocks),
-    on a small
+    256), at 256 (each head's output columns split over two blocks), and
+    the wide kernels at 257 and 320 (padded to 384), on a small
     causal shape (B 4, H 2, L 200) with a key-padding bias cutting the
     elements to 200, 173, 140 and 101 keys: each held to its plain version
-    at the true width within phase 8's and 13's tolerances (float32: O and
+    at the true width within phases 8's and 13's tolerances (float32: O and
     LSE 1e-4 absolute, each gradient 1e-4 of its largest magnitude; bf16:
     O, dQ, dK and dV 1e-2 of theirs, LSE 1e-5), each launched once a
-    call; a width above 256 raises, naming 256."""
+    call."""
     from paddle_tpu_torch.ops import attention_ops as A
     from paddle_tpu_torch.ops import kernel_tier as kt
     dev = torch.device('cuda', 0)
@@ -2619,7 +2662,7 @@ def check_head_widths(torch):
     for dtype, names, tol in (
             (torch.float32, FLASH_KERNELS, 1e-4),
             (torch.bfloat16, AMP_FLASH_KERNELS, 1e-2)):
-        for dh in (8, 48, 80, 96, 160, 192, 256):
+        for dh in (8, 48, 80, 96, 160, 192, 256, 257, 320):
             q, k, v, do = (torch.randn((B * H, L, dh), generator=g,
                                        device=dev).to(dtype)
                            for _ in range(4))
@@ -2629,6 +2672,7 @@ def check_head_widths(torch):
             dq, dk, dv = A._flash_bwd(q, k, v, o, lse, do, *args)
             torch.cuda.synchronize()
             after = kt.launch_counts()
+            counted = WIDE_FLASH_KERNELS if dh > 256 else names
             o_ref, lse_ref = A._attention_ref(q, k, v, *args)
             want = A._flash_bwd_ref(q, k, v, o, lse, do, *args)
             rel = lambda a, b: float((a.float() - b.float()).abs().max() /
@@ -2641,7 +2685,7 @@ def check_head_widths(torch):
                         dq_rel_err=rel(dq, want[0]),
                         dk_rel_err=rel(dk, want[1]),
                         dv_rel_err=rel(dv, want[2]),
-                        launches=[after[n] - before[n] for n in names])
+                        launches=[after[n] - before[n] for n in counted])
             cases.append(case)
             o_key = 'o_rel_err' if dtype == torch.bfloat16 else 'o_err'
             lse_tol = 1e-5 if dtype == torch.bfloat16 else 1e-4
@@ -2652,17 +2696,184 @@ def check_head_widths(torch):
                 emit(dict(phase='flash_head_widths', cases=cases))
                 raise AssertionError('flash kernels at head width %d (%s): '
                                      '%s' % (dh, dtype, case))
-    q = torch.randn((2, 8, 257), device=dev)
-    try:
-        A._flash_fwd(q, q, q, 257 ** -0.5, True)
-    except ValueError as e:
-        if '256' not in str(e):
-            raise AssertionError('a head width of 257 raised %r, which does '
-                                 'not name the limit 256' % e)
-    else:
-        raise AssertionError('a head width of 257 did not raise')
     return dict(phase='flash_head_widths', shape=dict(B=B, H=H, L=L),
                 causal=True, keys_kept=[200, 173, 140, 101], cases=cases)
+
+
+def check_wide_flash_kernels(torch, F, ptxas):
+    """Phase 13c: the three wide flash kernels, float32 and bf16, at
+    WIDE_SHAPE (module docstring). Returns {kernel name: summary}, one
+    case a dtype (float32 first)."""
+    from paddle_tpu_torch.ops import attention_ops as A
+    spilled = {k: r for k, r in ptxas.get('flash_attn_wide', {}).items()
+               if r[1] or r[2]}
+    if spilled:
+        raise AssertionError('the wide flash kernels spill: %s' % spilled)
+    dev = torch.device('cuda', 0)
+    g = torch.Generator(device=dev).manual_seed(2323)
+    B, H, L, dh = (WIDE_SHAPE[k] for k in ('B', 'H', 'L', 'dh'))
+    bh, scale, causal = B * H, dh ** -0.5, True
+    pairs = bh * L * (L + 1) // 2
+    chunks = dh // 128
+    out = {n: dict(tolerance=1e-2, checked='max_rel_err', cases=[])
+           for n in WIDE_FLASH_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        low = dtype == torch.bfloat16
+        q, k, v, do = (torch.randn((bh, L, dh), generator=g,
+                                   device=dev).to(dtype) for _ in range(4))
+        args = (scale, causal, None, H)
+        o, lse = A._flash_fwd(q, k, v, *args)
+        o_ref, lse_ref = A._attention_ref(q, k, v, *args)
+        delta = A._delta(do, o)
+        dq = A._flash_bwd_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = A._flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+        dq_ref = A._bwd_dq_ref(q, k, v, do, lse, delta, *args)
+        dk_ref, dv_ref = A._bwd_dkv_ref(q, k, v, do, lse, delta, *args)
+        torch.cuda.synchronize()
+
+        def rel(got, want):
+            return float((got.float() - want.float()).abs().max()
+                         / want.float().abs().max())
+
+        q4, k4, v4, do4 = (t.view(B, H, L, dh) for t in (q, k, v, do))
+
+        def sdpa(a, b, c):
+            return F.scaled_dot_product_attention(a, b, c, is_causal=causal)
+
+        # SDPA under whichever backend takes dh 512, named by its kernels
+        fwd_lib = dict(library_ms=cuda_ms(torch, lambda: sdpa(q4, k4, v4),
+                                          calls=10, replays=5),
+                       library_kernels=kernel_names(
+                           torch, lambda: sdpa(q4, k4, v4)))
+        leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+        lib_out = sdpa(*leaves)
+        bwd_lib = dict(library_ms=backward_ms(torch, sdpa, (q4, k4, v4), do4),
+                       library_covers='dQ, dK and dV in one call',
+                       library_kernels=kernel_names(
+                           torch, lambda: torch.autograd.grad(
+                               lib_out, leaves, do4, retain_graph=True)))
+        del lib_out, leaves
+        size = 2 if low else 4
+        mat, row = bh * L * dh * size, bh * L * 4
+        common = dict(shape='flash_wide_' + ('bf16' if low else 'f32'),
+                      dtype=str(dtype).split('.')[-1], bh=bh, L=L, dh=dh,
+                      causal=causal, visible_pairs=pairs,
+                      column_chunks=chunks)
+
+        def case(fn, plain, library, nbytes, flops, repeated, **errs):
+            key = 'bf16_flops' if low else 'product_flops'
+            res = dict(common, ms=cuda_ms(torch, fn, calls=3, replays=3),
+                       eager_ms=eager_ms(torch, fn, iters=5, warmup=1),
+                       plain_ms=cuda_ms(torch, plain, calls=2, replays=3),
+                       **library, **bound(nbytes, 0, **{key: flops}), **errs)
+            # every flop at the CUDA cores' rate; and the flops the column
+            # chunks add (the score products once a chunk)
+            res['bound_simt_ms'] = max(nbytes / PEAK_BYTES_PER_S,
+                                       flops / PEAK_F32_FLOPS) * 1e3
+            res['kernel_flops'] = flops + repeated
+            res['share_of_bound'] = res['bound_ms'] / res['ms']
+            res['share_of_simt_bound'] = res['bound_simt_ms'] / res['ms']
+            res['ms_over_library'] = res['ms'] / res['library_ms']
+            return res
+
+        lse_err = float((lse - lse_ref).abs().max())
+        o_err = float((o.float() - o_ref.float()).abs().max())
+        errs = (dict(max_abs_err=max(o_err, lse_err),
+                     max_rel_err=rel(o, o_ref), lse_abs_err=lse_err),
+                dict(max_abs_err=float((dq.float() - dq_ref.float()).abs()
+                                       .max()),
+                     max_rel_err=rel(dq, dq_ref)),
+                dict(max_abs_err=max(float((dk.float() - dk_ref.float())
+                                           .abs().max()),
+                                     float((dv.float() - dv_ref.float())
+                                           .abs().max())),
+                     max_rel_err=max(rel(dk, dk_ref), rel(dv, dv_ref))))
+        calls = (
+            (lambda: A._flash_fwd(q, k, v, *args),
+             lambda: A._attention_ref(q, k, v, *args), fwd_lib,
+             4 * mat + row, 4 * dh * pairs, 2 * dh * pairs * (chunks - 1)),
+            (lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
+             lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args), bwd_lib,
+             5 * mat + 2 * row, 6 * dh * pairs, 4 * dh * pairs * (chunks - 1)),
+            (lambda: A._flash_bwd_dkv(q, k, v, do, lse, delta, *args),
+             lambda: A._bwd_dkv_ref(q, k, v, do, lse, delta, *args), bwd_lib,
+             6 * mat + 2 * row, 8 * dh * pairs, 4 * dh * pairs * (chunks - 1)))
+        for i, name in enumerate(WIDE_FLASH_KERNELS):
+            fn, plain, lib, nbytes, flops, repeated = calls[i]
+            res = case(fn, plain, lib, nbytes, flops, repeated, **errs[i],
+                       deterministic=same_bits(torch, fn))
+            res['case_tolerance'] = 1e-2 if low else 1e-4
+            out[name]['cases'].append(res)
+            # float32: O and LSE 1e-4 absolute, gradients 1e-4 of their
+            # largest magnitude; bf16: 1e-2 of it, LSE 1e-5 absolute
+            err = o_err if (i == 0 and not low) else res['max_rel_err']
+            if not (err <= res['case_tolerance'] and res['deterministic'] and
+                    lse_err <= (1e-5 if low else 1e-4)):
+                emit(dict(phase='wide_flash_kernel', name=name, **res))
+                raise AssertionError('%s (%s) off its plain version or not '
+                                     'repeatable: %g' % (name, dtype, err))
+        del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref
+        del dv_ref, q4, k4, v4, do4
+        torch.cuda.empty_cache()
+    finish_kernel_checks('wide_flash_kernel', out)
+    return out
+
+
+def run_flash_wide(torch, kt, smi):
+    """Phase 13c's path (module docstring): the flash_wide holds, float32
+    and AMP, then LARGE_STEPS timed ``run()`` steps of each at the hold's
+    batch: step ms, device ms and the wide kernels' share of it (by
+    torch.profiler). Returns {path: launch counts of the hold's card
+    steps}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import LMConfig
+    exe = fluid.Executor()
+    cfg = LMConfig(**FLASH_WIDE)
+    by_path = {}
+    for amp, path, idle in (
+            (False, 'flash_wide', FLASH_KERNELS + AMP_FLASH_KERNELS),
+            (True, 'flash_wide_amp', AMP_IDLE_KERNELS + AMP_FLASH_KERNELS)):
+        _, by_path[path] = lm_program_hold(torch, kt, fluid, smi, cfg, amp,
+                                           path, phase='flash_wide_hold')
+        torch.cuda.empty_cache()
+        main, startup, _, loss = build_program(fluid, cfg, amp=amp)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        timed, _ = program_timing(
+            torch, kt, program_step(exe, main, lm_feed(
+                torch, cfg, DH256_HOLD_B, 23, exe.device), loss, scope),
+            LARGE_STEPS, program_step_launches(cfg, amp=amp),
+            PATH_KERNELS[path], idle)
+        wide = sum(t['ms_per_step'] for t in timed['step_profile']['top']
+                   if 'flash_wide' in t['name'])
+        emit(dict(phase='flash_wide_train', path=path, card=smi, amp=amp,
+                  batch=DH256_HOLD_B, head_width=cfg.d_model // cfg.n_head,
+                  wide_kernels_ms=wide,
+                  wide_share_of_device=wide / timed['device_ms'], **timed))
+        del scope, main, startup
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def run_optest_replay(torch, smi):
+    """Phase 23 (module docstring). Returns the summary line."""
+    from tools import torch_optest
+    t0 = time.perf_counter()
+    results, by_op = torch_optest.replay_all('cuda')
+    seconds = time.perf_counter() - t0
+    for t in sorted(by_op):
+        emit(dict(phase='optest_replay_op', op=t, cases=by_op[t][0],
+                  worst_viol=by_op[t][1]))
+    status = [st for st, _ in results.values()]
+    failed = {n: d for n, (st, d) in results.items() if st == 'fail'}
+    out = dict(phase='optest_replay', card=smi, cases=len(results),
+               passed=status.count('pass'), skipped=status.count('skip'),
+               failed=sorted(failed), op_types=len(by_op), seconds=seconds)
+    emit(out)
+    if failed:
+        raise AssertionError('recorded op cases fail on the card: %s'
+                             % {n: str(d)[:300] for n, d in failed.items()})
+    return out
 
 
 def train_step_grads(torch, cfg, params, tok, lab, dev, amp=False):
@@ -2828,8 +3039,10 @@ def program_step_launches(cfg, amp=False, flash=True, gathers=1, ces=1):
                fused_ln_residual=ln, fused_ln_residual_bwd=ln,
                softmax_ce_fwd=ces, softmax_ce_bwd=ces, fused_adam=1)
     if flash:
-        out.update(dict.fromkeys(AMP_FLASH_KERNELS if amp else FLASH_KERNELS,
-                                 n))
+        names = AMP_FLASH_KERNELS if amp else FLASH_KERNELS
+        if cfg.d_model // cfg.n_head > 256:
+            names = WIDE_FLASH_KERNELS
+        out.update(dict.fromkeys(names, n))
     if not amp:
         out['fused_ffn'] = n
     return out
@@ -5194,7 +5407,8 @@ def lm_feed(torch, cfg, n, seed, dev):
             for k in ('tokens', 'labels')}
 
 
-def lm_program_hold(torch, kt, fluid, smi, cfg, amp, path):
+def lm_program_hold(torch, kt, fluid, smi, cfg, amp, path,
+                    phase='lm_dh256_hold'):
     """Phase 22's holds: ``cfg``'s training program (Adam 1e-4, decorated
     with ``amp``) on the card against the CPU Executor from one
     initialization, DH256_HOLD_STEPS ``run()`` steps on one batch of
@@ -5244,7 +5458,7 @@ def lm_program_hold(torch, kt, fluid, smi, cfg, amp, path):
         'moments': ([n for n in wstate if '_moment' in n], tol, scale),
         'k_bias': ([n for n in wstate if n.endswith('[K]')], 10 * 1e-4,
                    'abs')}, loss_tol)
-    out = dict(phase='lm_dh256_hold', path=path, card=smi, amp=amp,
+    out = dict(phase=phase, path=path, card=smi, amp=amp,
                n_layer=cfg.n_layer, batch=DH256_HOLD_B,
                steps=DH256_HOLD_STEPS, launches_per_step=per_step, **held)
     emit(out)
@@ -5528,6 +5742,8 @@ def main():
                        'lm_dh256': [dh256_case]}
         kernels[name] = amp_flash[name]
     emit(check_head_widths(torch))
+    kernels.update(check_wide_flash_kernels(torch, F, ptxas))
+    by_path.update(run_flash_wide(torch, kt, smi))
     compare_train_step_with_cpu(torch, flash=True, amp=True,
                                 f32_card=flash_card)
     del flash_card
@@ -5585,6 +5801,7 @@ def main():
     merge('ctr', check_ctr_gather(torch, F))
     by_path.update(run_ctr(torch, kt, smi))
     by_path.update(run_lm_dh256(torch, kt, smi))
+    run_optest_replay(torch, smi)
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {
@@ -5621,6 +5838,15 @@ def main():
         'flash_attention_bf16_bwd_dkv': (
             'paddle_tpu_torch/csrc/flash_attn_bf16_bwd.cu',
             'paddle_tpu/ops/attention_ops.py:329', 'shape', 'lm_train'),
+        'flash_attention_wide': ('paddle_tpu_torch/csrc/flash_attn_wide.cu',
+                                 'paddle_tpu/ops/attention_ops.py:162',
+                                 'shape', 'flash_wide_f32'),
+        'flash_attention_wide_bwd_dq': (
+            'paddle_tpu_torch/csrc/flash_attn_wide.cu',
+            'paddle_tpu/ops/attention_ops.py:307', 'shape', 'flash_wide_f32'),
+        'flash_attention_wide_bwd_dkv': (
+            'paddle_tpu_torch/csrc/flash_attn_wide.cu',
+            'paddle_tpu/ops/attention_ops.py:329', 'shape', 'flash_wide_f32'),
     }
     line = []
     for name in kt.KERNELS:
@@ -5638,7 +5864,9 @@ def main():
                if 'bound_simt_ms' in case else {}),
             library_ms=case['library_ms'], eager_ms=case['eager_ms'],
             shape={key: case[key]},
-            **({'head_widths': list(attention_ops._WIDTHS)}
+            **({'head_widths': 'multiples of 128 above 256'}
+               if name in WIDE_FLASH_KERNELS else
+               {'head_widths': list(attention_ops._WIDTHS)}
                if name.startswith('flash') else {}),
             tolerance=res['tolerance'],
             checked=res.get('checked', 'max_abs_err'),

@@ -5,9 +5,11 @@ The port's own copy of the parts of paddle_tpu/layers that this slice's
 programs call: the flagship LM's `build_lm` (training and inference),
 BERT's `build_bert_pretrain`, the image models' `build` (ResNet,
 SE-ResNeXt, VGG), the README's quick start, and the sequence models
-(the sequence ops, ``dynamic_lstm``, ``dynamic_gru``). Each layer emits the JAX
-layer's op, letter for letter (type, input and output slots, attrs); the
-rest of the JAX layers wait for later slices.
+(the sequence ops, ``dynamic_lstm``, ``dynamic_gru``), and the op
+library's shape, cast, compare and reduce layers (``control_flow`` holds
+the comparisons, ``increment`` and ``is_empty`` of the JAX module). Each
+layer emits the JAX layer's op, letter for letter (type, input and output
+slots, attrs); the rest of the JAX layers wait for later slices.
 """
 from . import io
 from . import tensor
@@ -16,6 +18,7 @@ from . import ops
 from . import metric_op
 from . import sequence
 from . import rnn
+from . import control_flow
 
 from .io import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
@@ -24,6 +27,7 @@ from .ops import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
+from .control_flow import *  # noqa: F401,F403
 
 __all__ = []
 __all__ += io.__all__
@@ -33,3 +37,4 @@ __all__ += ops.__all__
 __all__ += metric_op.__all__
 __all__ += sequence.__all__
 __all__ += rnn.__all__
+__all__ += control_flow.__all__

@@ -8,10 +8,18 @@ slice's programs call: ``fc``, ``embedding``, ``square_error_cost``,
 ``transpose``, ``squeeze``, ``slice``, ``gather``, ``softmax``,
 ``elementwise_add``/``_sub``/``_mul``/``_div``/``_max``/``_min``, and the
 image layers ``conv2d``, ``pool2d``, ``batch_norm`` and ``cross_entropy``
-(models/resnet.py, models/se_resnext.py, models/vgg.py). Each appends the
-JAX layer's op with the same slots, attrs and static output shapes; the
+(models/resnet.py, models/se_resnext.py, models/vgg.py); and the op
+library's shape, compare and reduce layers: ``unsqueeze``, ``flatten``,
+``split``, ``reduce_mean``/``_max``/``_min``/``_prod``,
+``elementwise_pow``/``_mod``/``_floordiv``, ``logical_*``, ``one_hot``,
+``pad``, ``pad2d``, ``pad_constant_like``, ``label_smooth``, ``stack``,
+``unstack``, ``expand``, ``gather_nd``, ``scatter``, ``crop``, ``shape``,
+``increment``, ``multiplex``, ``where``, ``space_to_depth``,
+``shuffle_channel``, ``sampling_id`` and ``hash``. Each appends the JAX
+layer's op with the same slots, attrs and static output shapes; the
 computation is the op's lowering (ops/*).
 """
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
@@ -21,11 +29,17 @@ __all__ = [
     'square_error_cost', 'log_loss', 'softmax_with_cross_entropy',
     'conv2d', 'pool2d',
     'batch_norm', 'layer_norm', 'fused_layer_norm_residual',
-    'fused_ffn_tail', 'matmul', 'reshape', 'squeeze', 'transpose', 'mean',
-    'reduce_sum',
+    'fused_ffn_tail', 'matmul', 'reshape', 'squeeze', 'unsqueeze',
+    'flatten', 'transpose', 'split', 'mean', 'reduce_sum', 'reduce_mean',
+    'reduce_max', 'reduce_min', 'reduce_prod',
     'elementwise_add', 'elementwise_sub', 'elementwise_mul',
-    'elementwise_div', 'elementwise_max', 'elementwise_min', 'slice',
-    'gather', 'scale', 'add_position_encoding',
+    'elementwise_div', 'elementwise_max', 'elementwise_min',
+    'elementwise_pow', 'elementwise_mod', 'elementwise_floordiv',
+    'logical_and', 'logical_or', 'logical_xor', 'logical_not', 'one_hot',
+    'pad', 'pad2d', 'pad_constant_like', 'label_smooth', 'stack', 'unstack',
+    'expand', 'slice', 'gather', 'gather_nd', 'scatter', 'crop', 'shape',
+    'scale', 'increment', 'multiplex', 'where', 'space_to_depth',
+    'shuffle_channel', 'sampling_id', 'hash', 'add_position_encoding',
 ]
 
 
@@ -444,6 +458,35 @@ def squeeze(input, axes, name=None):
     return out
 
 
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper('unsqueeze2', name=name)
+    shape = list(input.shape)
+    for a in sorted(axes):
+        shape.insert(a, 1)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                    shape=shape)
+    xshape = helper.create_variable_for_type_inference(
+        dtype=input.dtype, shape=(0,) + tuple(input.shape))
+    helper.append_op(type='unsqueeze2', inputs={'X': [input]},
+                     outputs={'Out': [out], 'XShape': [xshape]},
+                     attrs={'axes': list(axes)})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper('flatten2', name=name)
+    lead = _prod(x.shape[:axis]) if axis > 0 else 1
+    tail = _prod(x.shape[axis:])
+    out = helper.create_variable_for_type_inference(
+        dtype=x.dtype, shape=(lead, tail))
+    xshape = helper.create_variable_for_type_inference(
+        dtype=x.dtype, shape=(0,) + tuple(x.shape))
+    helper.append_op(type='flatten2', inputs={'X': [x]},
+                     outputs={'Out': [out], 'XShape': [xshape]},
+                     attrs={'axis': axis})
+    return out
+
+
 def transpose(x, perm, name=None):
     helper = LayerHelper('transpose2', name=name)
     shape = [x.shape[p] for p in perm]
@@ -455,6 +498,29 @@ def transpose(x, perm, name=None):
                      outputs={'Out': [out], 'XShape': [xshape]},
                      attrs={'axis': list(perm)})
     return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper('split', name=name)
+    axis = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+        sizes = [input.shape[axis] // num] * num
+    else:
+        sections = list(num_or_sections)
+        num = 0
+        sizes = sections
+    outs = []
+    for s in sizes:
+        shape = list(input.shape)
+        shape[axis] = s
+        outs.append(helper.create_variable_for_type_inference(
+            dtype=input.dtype, shape=shape))
+    helper.append_op(type='split', inputs={'X': [input]},
+                     outputs={'Out': outs},
+                     attrs={'axis': axis, 'num': num, 'sections': sections})
+    return outs
 
 
 def slice(input, axes, starts, ends):
@@ -490,10 +556,10 @@ def mean(x, name=None):
     return _simple(helper, 'mean', x, out_shape=(1,))
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    """The sum of ``input`` over ``dim`` (an int or a list; None: every
-    axis, to shape [1])."""
-    helper = LayerHelper('reduce_sum', name=name)
+def _reduce(op_type, input, dim, keep_dim, name):
+    """The reduction of ``input`` over ``dim`` (an int or a list; None:
+    every axis, to shape [1])."""
+    helper = LayerHelper(op_type, name=name)
     if dim is None:
         reduce_all = True
         dims = [0]
@@ -510,11 +576,31 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
             shape = shape or [1]
     out = helper.create_variable_for_type_inference(dtype=input.dtype,
                                                     shape=shape)
-    helper.append_op(type='reduce_sum', inputs={'X': [input]},
+    helper.append_op(type=op_type, inputs={'X': [input]},
                      outputs={'Out': [out]},
                      attrs={'dim': dims, 'keep_dim': keep_dim,
                             'reduce_all': reduce_all})
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_sum', input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_mean', input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_max', input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_min', input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce('reduce_prod', input, dim, keep_dim, name)
 
 
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
@@ -554,6 +640,44 @@ def elementwise_min(x, y, axis=-1, act=None, name=None):
     return _elementwise('elementwise_min', x, y, axis, act, name)
 
 
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_pow', x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_mod', x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise('elementwise_floordiv', x, y, axis, act, name)
+
+
+def _logical(op_type, x, y, out, name):
+    helper = LayerHelper(op_type, name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype='bool',
+                                                        shape=x.shape)
+    inputs = {'X': [x]} if y is None else {'X': [x], 'Y': [y]}
+    helper.append_op(type=op_type, inputs=inputs, outputs={'Out': [out]})
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _logical('logical_and', x, y, out, name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical('logical_or', x, y, out, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical('logical_xor', x, y, out, name)
+
+
+def logical_not(x, out=None, name=None):
+    return _logical('logical_not', x, None, out, name)
+
+
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
           name=None):
     helper = LayerHelper('scale', name=name, act=act)
@@ -588,3 +712,181 @@ def add_position_encoding(input, alpha, beta, name=None):
     helper = LayerHelper('add_position_encoding', name=name)
     return _simple(helper, 'add_position_encoding', input,
                    attrs={'alpha': alpha, 'beta': beta})
+
+
+# ---------------------------------------------------------------------------
+# Shape, padding, index and misc layers
+# ---------------------------------------------------------------------------
+
+def one_hot(input, depth):
+    helper = LayerHelper('one_hot')
+    shape = (tuple(input.shape[:-1]) if input.shape[-1] == 1
+             else tuple(input.shape)) + (depth,)
+    return _simple(helper, 'one_hot', input, out_shape=shape,
+                   out_dtype='float32', attrs={'depth': depth})
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper('pad', name=name)
+    shape = [s + paddings[2 * i] + paddings[2 * i + 1]
+             for i, s in enumerate(x.shape)]
+    return _simple(helper, 'pad', x, out_shape=shape,
+                   attrs={'paddings': list(paddings),
+                          'pad_value': pad_value})
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode='constant', pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper('pad2d', name=name)
+    n, c, h, w = input.shape
+    shape = (n, c, h + paddings[0] + paddings[1],
+             w + paddings[2] + paddings[3])
+    return _simple(helper, 'pad2d', input, out_shape=shape,
+                   attrs={'paddings': list(paddings), 'mode': mode,
+                          'pad_value': pad_value,
+                          'data_format': data_format})
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    helper = LayerHelper('pad_constant_like', name=name)
+    return _simple(helper, 'pad_constant_like', y, out_shape=x.shape,
+                   inputs={'X': [x], 'Y': [y]},
+                   attrs={'pad_value': pad_value})
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype='float32',
+                 name=None):
+    helper = LayerHelper('label_smooth', name=name)
+    inputs = {'X': [label]}
+    if prior_dist is not None:
+        inputs['PriorDist'] = [prior_dist]
+    return _simple(helper, 'label_smooth', label, inputs=inputs,
+                   attrs={'epsilon': float(epsilon)})
+
+
+def stack(x, axis=0):
+    helper = LayerHelper('stack')
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    shape = list(xs[0].shape)
+    shape.insert(axis % (len(shape) + 1), len(xs))
+    out = helper.create_variable_for_type_inference(dtype=xs[0].dtype,
+                                                    shape=shape)
+    helper.append_op(type='stack', inputs={'X': xs}, outputs={'Y': [out]},
+                     attrs={'axis': axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper('unstack')
+    if num is None:
+        num = x.shape[axis]
+    shape = [s for i, s in enumerate(x.shape) if i != axis % len(x.shape)]
+    outs = [helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                      shape=shape)
+            for _ in range(num)]
+    helper.append_op(type='unstack', inputs={'X': [x]}, outputs={'Y': outs},
+                     attrs={'axis': axis, 'num': num})
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper('expand', name=name)
+    shape = [(s * t if s is not None and s >= 0 else -1)
+             for s, t in zip(x.shape, expand_times)]
+    return _simple(helper, 'expand', x, out_shape=shape,
+                   attrs={'expand_times': list(expand_times)})
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper('gather_nd', name=name)
+    shape = tuple(index.shape[:-1]) + tuple(input.shape[index.shape[-1]:])
+    return _simple(helper, 'gather_nd', input, out_shape=shape,
+                   inputs={'X': [input], 'Index': [index]})
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper('scatter', name=name)
+    return _simple(helper, 'scatter', input,
+                   inputs={'X': [input], 'Ids': [index],
+                           'Updates': [updates]},
+                   attrs={'overwrite': overwrite})
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper('crop', name=name)
+    if isinstance(shape, Variable):
+        shape = shape.shape
+    offsets = offsets or [0] * len(x.shape)
+    return _simple(helper, 'crop', x, out_shape=shape,
+                   inputs={'X': [x]},
+                   attrs={'shape': list(shape), 'offsets': list(offsets)})
+
+
+def shape(input):
+    helper = LayerHelper('shape')
+    out = helper.create_variable_for_type_inference(
+        'int32', shape=(len(input.shape),))
+    helper.append_op(type='shape', inputs={'Input': [input]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper('increment')
+    if in_place:
+        out = x
+    else:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                        shape=x.shape)
+    helper.append_op(type='increment', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'step': float(value)})
+    return out
+
+
+def where(condition, x, y):
+    helper = LayerHelper('where')
+    return _simple(helper, 'where', x,
+                   inputs={'Condition': [condition], 'X': [x], 'Y': [y]})
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper('multiplex')
+    out = helper.create_variable_for_type_inference(
+        dtype=inputs[0].dtype, shape=inputs[0].shape)
+    helper.append_op(type='multiplex',
+                     inputs={'X': inputs, 'Ids': [index]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def space_to_depth(x, blocksize, name=None):
+    helper = LayerHelper('space_to_depth', name=name)
+    n, c, h, w = x.shape
+    return _simple(helper, 'space_to_depth', x,
+                   out_shape=(n, c * blocksize * blocksize,
+                              h // blocksize, w // blocksize),
+                   attrs={'blocksize': blocksize})
+
+
+def shuffle_channel(x, group, name=None):
+    helper = LayerHelper('shuffle_channel', name=name)
+    return _simple(helper, 'shuffle_channel', x, attrs={'group': group})
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype='float32'):
+    helper = LayerHelper('sampling_id')
+    out = helper.create_variable_for_type_inference('int64',
+                                                    shape=(x.shape[0],))
+    helper.append_op(type='sampling_id', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'seed': seed})
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    helper = LayerHelper('hash', name=name)
+    out = helper.create_variable_for_type_inference(
+        'int64', shape=(input.shape[0], num_hash, 1))
+    helper.append_op(type='hash', inputs={'X': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'num_hash': num_hash, 'mod_by': hash_size})
+    return out

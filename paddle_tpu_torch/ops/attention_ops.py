@@ -30,13 +30,18 @@ operands; the float32 arithmetic is unchanged.
 
 The kernels are instantiated at head widths 16, 32, 64, 128 and 256 (at
 256 each block owns one 128-wide half of an output's columns, in one
-launch); :func:`_flash_fwd` and :func:`_flash_bwd` take any width up to
-256 on the card by zero-padding q, k and v (and dO) along dh to the next
-of those, launching the kernels there and slicing O, dQ, dK and dV back
+launch). Above 256 the wide kernels take over (``csrc/flash_attn_wide.cu``,
+f32 and bf16 forms, counted as ``flash_attention_wide``,
+``flash_attention_wide_bwd_dq`` and ``flash_attention_wide_bwd_dkv``):
+each block owns one 128-wide column chunk of its outputs at any multiple
+of 128, with CUDA-core products. :func:`_flash_fwd` and :func:`_flash_bwd`
+take any width from 1 up on the card by zero-padding q, k and v (and dO)
+along dh to the next of those widths (above 256: the next multiple of
+128), launching the kernels there and slicing O, dQ, dK and dV back
 (:func:`_pad_dh`); the dQ and dK/dV wrappers take the kernels' widths.
 That is exact: a zero column adds 0 to every Q·Kᵀ score, the scale stays
 the caller's (dh^-0.5 of the true width by default), and the padded
-columns of O, dQ, dK and dV are 0. A width above 256 raises.
+columns of O, dQ, dK and dV are 0.
 
 The program op `flash_attention` (Q, K, V [B, H, L, dh], an optional
 KeyPaddingBias [B, L], attrs ``scale`` (missing or 0: dh^-0.5) and
@@ -75,12 +80,30 @@ _ROUTES = {
 }
 
 
-def _kernel(which, dtype):
-    fn = _fns.get((which, dtype))
+# above 256 columns: the wide kernels' library, entry point prefix per
+# dtype, and their counted names (one each for both dtypes)
+_WIDE_LIB = 'flash_attn_wide'
+_WIDE_PREFIX = {torch.float32: 'ptt_flash_wide',
+                torch.bfloat16: 'ptt_flash_wide_bf16'}
+_WIDE_NAMES = ('flash_attention_wide', 'flash_attention_wide_bwd_dq',
+               'flash_attention_wide_bwd_dkv')
+
+
+def _route(dtype, dh):
+    """(forward library, backward library, entry point prefix, counted
+    names) of the kernels for ``dtype`` operands at kernel width ``dh``."""
+    if _wide(dh):
+        return _WIDE_LIB, _WIDE_LIB, _WIDE_PREFIX[dtype], _WIDE_NAMES
+    return _ROUTES[dtype]
+
+
+def _kernel(which, dtype, dh):
+    wide = _wide(dh)
+    fn = _fns.get((which, dtype, wide))
     if fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
         tail = [I, I, I, I, F, ctypes.c_int, P]
-        fwd_lib, bwd_lib, prefix, _ = _ROUTES[dtype]
+        fwd_lib, bwd_lib, prefix, _ = _route(dtype, dh)
         if which == 'fwd':
             fn = native.function(fwd_lib, prefix + '_fwd', [P] * 6 + tail)
         elif which == 'dq':
@@ -88,7 +111,7 @@ def _kernel(which, dtype):
         else:
             fn = native.function(bwd_lib, prefix + '_bwd_dkv',
                                  [P] * 9 + tail)
-        _fns[(which, dtype)] = fn
+        _fns[(which, dtype, wide)] = fn
     return fn
 
 
@@ -125,10 +148,10 @@ def _bf16_bwd_plan(bh, L, dh):
     return plan[0]
 
 
-def _names(dtype):
+def _names(dtype, dh):
     """The counted names (forward, dQ, dK/dV) of the kernels for operands
-    of ``dtype``."""
-    return _ROUTES[dtype][3]
+    of ``dtype`` at kernel width ``dh``."""
+    return _route(dtype, dh)[3]
 
 
 def _round(x, dtype):
@@ -224,18 +247,26 @@ def _delta(do, o):
     return (do.float() * o.float()).sum(dim=-1)
 
 
-# the head widths the kernels are instantiated at
+# the head widths the kernels are instantiated at; above the last, the
+# wide kernels take any multiple of their column chunk
 _WIDTHS = (16, 32, 64, 128, 256)
+_WIDE_COLS = 128
+
+
+def _wide(dh):
+    """True when a kernel width ``dh`` is the wide kernels'."""
+    return dh > _WIDTHS[-1]
 
 
 def _kernel_width(dh):
     """The head width the kernels run a ``dh``-wide head at: the next
-    instantiated one (ValueError above 256)."""
-    w = next((w for w in _WIDTHS if w >= dh), None)
-    if w is None or dh < 1:
+    instantiated one up to 256, above it the next multiple of 128 (the
+    wide kernels). ValueError below 1."""
+    if dh < 1:
         raise ValueError('flash_attention: the CUDA kernels take head '
-                         'widths 1 to %d, got %d' % (_WIDTHS[-1], dh))
-    return w
+                         'widths from 1 up, got %d' % dh)
+    w = next((w for w in _WIDTHS if w >= dh), None)
+    return w if w is not None else -(-dh // _WIDE_COLS) * _WIDE_COLS
 
 
 def _pad_dh(w, *ts):
@@ -260,10 +291,10 @@ def _check_cuda_operands(q, k, v, bias, n_heads):
     kernels, at the head width of an instantiation); returns (bh, L, dh,
     device)."""
     bh, L, dh = q.shape
-    if dh not in _WIDTHS:
+    if dh < 1 or _kernel_width(dh) != dh:
         raise ValueError('flash_attention: the CUDA kernels take head '
-                         'width 16, 32, 64, 128 or 256, got %d (_flash_bwd '
-                         'pads to those)' % dh)
+                         'width 16, 32, 64, 128, 256 or a multiple of 128 '
+                         'above it, got %d (_flash_bwd pads to those)' % dh)
     if q.dtype not in _ROUTES:
         raise ValueError('flash_attention: the CUDA kernels take float32 '
                          'or bfloat16 operands, got %s' % q.dtype)
@@ -287,11 +318,11 @@ def _flash_fwd(q, k, v, scale, causal, bias=None, n_heads=1):
     bh, L, dh, dev = _check_cuda_operands(q, k, v, bias, n_heads)
     o = torch.empty_like(q)
     lse = torch.empty((bh, L), dtype=torch.float32, device=dev)
-    rc = _kernel('fwd', q.dtype)(
+    rc = _kernel('fwd', q.dtype, dh)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kernel_tier.ptr(bias),
         o.data_ptr(), lse.data_ptr(), bh, L, dh, n_heads, scale, int(causal),
         kernel_tier.stream_ptr(q))
-    name = _names(q.dtype)[0]
+    name = _names(q.dtype, dh)[0]
     native.check(rc, name)
     kernel_tier.count(name)
     return _unpad(width, o)[0], lse
@@ -318,9 +349,10 @@ def _flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, bias=None,
                            n_heads)
     ins, dims = _bwd_operands(q, k, v, do, lse, delta, bias, n_heads)
     dq = torch.empty_like(q)
-    rc = _kernel('dq', q.dtype)(*ins, dq.data_ptr(), *dims, n_heads, scale,
-                                int(causal), kernel_tier.stream_ptr(q))
-    name = _names(q.dtype)[1]
+    rc = _kernel('dq', q.dtype, dims[2])(
+        *ins, dq.data_ptr(), *dims, n_heads, scale, int(causal),
+        kernel_tier.stream_ptr(q))
+    name = _names(q.dtype, dims[2])[1]
     native.check(rc, name)
     kernel_tier.count(name)
     return dq
@@ -335,10 +367,10 @@ def _flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, bias=None,
                             n_heads)
     ins, dims = _bwd_operands(q, k, v, do, lse, delta, bias, n_heads)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _kernel('dkv', q.dtype)(*ins, dk.data_ptr(), dv.data_ptr(), *dims,
-                                 n_heads, scale, int(causal),
-                                 kernel_tier.stream_ptr(q))
-    name = _names(q.dtype)[2]
+    rc = _kernel('dkv', q.dtype, dims[2])(
+        *ins, dk.data_ptr(), dv.data_ptr(), *dims, n_heads, scale,
+        int(causal), kernel_tier.stream_ptr(q))
+    name = _names(q.dtype, dims[2])[2]
     native.check(rc, name)
     kernel_tier.count(name)
     return dk, dv

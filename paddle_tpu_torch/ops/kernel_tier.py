@@ -27,7 +27,9 @@ KERNELS = ('embedding_gather', 'fused_ln_residual', 'flash_attention',
            'fused_ffn', 'softmax_ce_fwd', 'softmax_ce_bwd',
            'fused_ln_residual_bwd', 'fused_adam', 'flash_attention_bwd_dq',
            'flash_attention_bwd_dkv', 'flash_attention_bf16',
-           'flash_attention_bf16_bwd_dq', 'flash_attention_bf16_bwd_dkv')
+           'flash_attention_bf16_bwd_dq', 'flash_attention_bf16_bwd_dkv',
+           'flash_attention_wide', 'flash_attention_wide_bwd_dq',
+           'flash_attention_wide_bwd_dkv')
 
 _counts = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()

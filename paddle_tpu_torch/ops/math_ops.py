@@ -127,8 +127,9 @@ def mul(x, w, policy=None):
 
 # ---------------------------------------------------------------------------
 # the program ops (paddle_tpu/ops/math_ops.py `_mul`, `_matmul`, the
-# elementwise family's add, sub, mul, div, max and min, `_sum`, `_sign`,
-# `_squared_l2_norm`, `_log_loss`, `_mean`, ``reduce_sum``): the products
+# elementwise family's add, sub, mul, div, max, min, pow, mod and
+# floordiv, `_sum`, `_sign`, `_squared_l2_norm`, `_log_loss`, `_mean`, the
+# reductions): the products
 # above, float32 or under the op's AMP mark, and plain elementwise
 # PyTorch. A SelectedRows gradient meets the elementwise ops, `sum` and
 # `squared_l2_norm` on its way through the clips and the decay, and is
@@ -197,6 +198,11 @@ _register_elementwise('elementwise_mul', torch.mul)
 _register_elementwise('elementwise_div', torch.div)
 _register_elementwise('elementwise_max', torch.maximum)
 _register_elementwise('elementwise_min', torch.minimum)
+_register_elementwise('elementwise_pow', torch.pow)
+# ``jnp.mod`` and ``jnp.floor_divide``: the remainder takes the divisor's
+# sign and the quotient is floored (not C's truncation)
+_register_elementwise('elementwise_mod', torch.remainder)
+_register_elementwise('elementwise_floordiv', torch.floor_divide)
 
 
 @register_op('sum')
@@ -240,10 +246,44 @@ def _mean_op(ctx, op):
     ctx.out(op, 'Out', ctx.in1(op, 'X').mean().reshape(1))
 
 
-@register_op('reduce_sum')
-def _reduce_sum_op(ctx, op):
-    """The sum over ``dim``, or over every axis with ``reduce_all``."""
-    x = ctx.in1(op, 'X')
-    dims = tuple(range(x.dim())) if op.attr('reduce_all', False) else \
-        tuple(d % x.dim() for d in op.attr('dim', [0]))
-    ctx.out(op, 'Out', x.sum(dim=dims, keepdim=op.attr('keep_dim', False)))
+def _reduce_dims(op, x):
+    """The axes a reduction takes: every one under ``reduce_all``, else
+    ``dim`` (an int or a list) modulo the rank."""
+    if op.attr('reduce_all', False):
+        return tuple(range(x.dim()))
+    dim = op.attr('dim', [0])
+    dim = dim if isinstance(dim, (list, tuple)) else [dim]
+    return tuple(d % x.dim() for d in dim)
+
+
+def _prod(x, dims, keepdim):
+    for d in sorted(dims, reverse=True):
+        x = x.prod(dim=d, keepdim=keepdim)
+    return x
+
+
+def _mean(x, dims, keepdim):
+    # jnp.mean of integers is floating (float32 with x64 off)
+    x = x if x.is_floating_point() else x.to(torch.float32)
+    return x.mean(dim=dims, keepdim=keepdim)
+
+
+def _register_reduce(name, fn):
+    @register_op(name)
+    def _lower(ctx, op):
+        x = ctx.in1(op, 'X')
+        ctx.out(op, 'Out', fn(x, _reduce_dims(op, x),
+                              op.attr('keep_dim', False)))
+
+
+# paddle_tpu/ops/math_ops.py `_register_reduce`; max and min split the
+# gradient evenly between ties, as JAX's reductions do (amax, amin)
+_register_reduce('reduce_sum', lambda x, d, k: x.sum(dim=d, keepdim=k))
+_register_reduce('reduce_mean', _mean)
+_register_reduce('reduce_max', lambda x, d, k: x.amax(dim=d, keepdim=k))
+_register_reduce('reduce_min', lambda x, d, k: x.amin(dim=d, keepdim=k))
+_register_reduce('reduce_prod', _prod)
+_register_reduce('reduce_all', lambda x, d, k: x.bool().all(dim=d,
+                                                              keepdim=k))
+_register_reduce('reduce_any', lambda x, d, k: x.bool().any(dim=d,
+                                                              keepdim=k))

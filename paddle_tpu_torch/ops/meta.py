@@ -1,11 +1,15 @@
-"""Framework ops: ``backward``, constants, ``assign``, ``scale``, ``clip``
-and ``clip_by_norm``.
+"""Framework ops: ``backward``, constants, ``assign``, ``scale``, ``clip``,
+``clip_by_norm``, casts and the shape and counter ops.
 
 The port's own lowerings of paddle_tpu/ops/meta.py's `backward`,
 `fill_constant`, `assign`, `assign_value`, `scale`, `clip` and
 `clip_by_norm` (dense, and on a SelectedRows gradient as the JAX
-lowerings take one), in plain PyTorch (the JAX package lowers them to
-plain XLA too).
+lowerings take one), `cast`, `fill`, `fill_zeros_like`,
+`fill_constant_batch_size_like`, `shape`, `increment`, `one_hot` and
+`is_empty`, in plain PyTorch (the JAX package lowers them to plain XLA
+too). The JAX package runs with 64-bit types off, so its int64 and
+float64 values are int32 and float32; the port keeps the program's
+declared dtypes (`shape` is int32 in both).
 """
 import numpy as np
 import torch
@@ -111,3 +115,68 @@ def _clip_by_norm(ctx, op):
             rows, vals * _norm_factor(vals, max_norm), x.height))
         return
     ctx.out(op, 'Out', x * _norm_factor(x, max_norm))
+
+
+@register_op('cast')
+def _cast(ctx, op):
+    x = ctx.in1(op, 'X')
+    ctx.out(op, 'Out', x.to(attr_dtype(op.attr('out_dtype'))))
+
+
+@register_op('fill')
+def _fill(ctx, op):
+    """The ``value`` attr (a flat list) as a tensor of ``shape``."""
+    arr = np.asarray(op.attr('value'), dtype=np.dtype(
+        op.attr('dtype') or 'float32')).reshape(tuple(op.attr('shape')))
+    ctx.out(op, 'Out', torch.from_numpy(arr).to(ctx.device))
+
+
+@register_op('fill_zeros_like')
+def _fill_zeros_like(ctx, op):
+    ctx.out(op, 'Out', torch.zeros_like(ctx.in1(op, 'X')))
+
+
+@register_op('fill_constant_batch_size_like')
+def _fill_constant_batch_size_like(ctx, op):
+    """``shape`` with dimension ``output_dim_idx`` taken from the input's
+    dimension ``input_dim_idx`` (its batch size), filled with ``value``."""
+    x = ctx.in1(op, 'Input')
+    shape = list(op.attr('shape'))
+    shape[op.attr('output_dim_idx', 0)] = x.shape[op.attr('input_dim_idx',
+                                                           0)]
+    ctx.out(op, 'Out', torch.full(tuple(shape), op.attr('value', 0.0),
+                                  dtype=attr_dtype(op.attr('dtype')),
+                                  device=ctx.device))
+
+
+@register_op('shape')
+def _shape(ctx, op):
+    x = ctx.in1(op, 'Input')
+    ctx.out(op, 'Out', torch.tensor(tuple(x.shape), dtype=torch.int32,
+                                    device=ctx.device))
+
+
+@register_op('increment')
+def _increment(ctx, op):
+    """``x + step`` in x's dtype (a float step on an integer counter is
+    cast first, as the JAX lowering's ``jnp.asarray(step, x.dtype)``)."""
+    x = ctx.in1(op, 'X')
+    step = torch.tensor(op.attr('step', 1.0)).to(x.dtype)
+    ctx.out(op, 'Out', x + step.to(x.device))
+
+
+@register_op('one_hot')
+def _one_hot(ctx, op):
+    """float32 rows of ``depth``, a trailing axis of 1 on the ids folded;
+    an id outside [0, depth) gives a row of zeros (``jax.nn.one_hot``)."""
+    x = ctx.in1(op, 'X')
+    ids = x.reshape(x.shape[:-1]) if x.dim() and x.shape[-1] == 1 else x
+    depth = op.attr('depth')
+    cols = torch.arange(depth, device=ids.device)
+    ctx.out(op, 'Out', (ids.unsqueeze(-1).long() == cols).to(torch.float32))
+
+
+@register_op('is_empty')
+def _is_empty(ctx, op):
+    x = ctx.in1(op, 'X')
+    ctx.out(op, 'Out', torch.tensor(x.numel() == 0, device=ctx.device))

@@ -216,13 +216,27 @@ def _dense_grad(ctx, op):
     return g.to_dense() if isinstance(g, SelectedRows) else g
 
 
+def _records(ctx, op):
+    """True when autograd records the op: a gradient is taken through the
+    update itself (the `backward` op's ``wrt`` includes its inputs). The
+    update then makes new tensors, as the JAX lowering does, in place of
+    writing its state in place."""
+    return kernel_tier.records_grad(*(
+        t for slot in op.inputs for t in ctx.in_list(op, slot)
+        if isinstance(t, torch.Tensor)))
+
+
 def _update(ctx, op, pairs):
     """Copy each new value into its state tensor (the input ``slot``) in
     place and name that tensor as the output ``out``: ``pairs`` is
-    [(slot, out, new value)]."""
+    [(slot, out, new value)]. Where autograd records the op the new values
+    are the outputs themselves."""
+    recording = _records(ctx, op)
     for slot, out, new in pairs:
-        t = ctx.in1(op, slot)
-        t.copy_(new)
+        t = new
+        if not recording:
+            t = ctx.in1(op, slot)
+            t.copy_(new)
         ctx.out(op, out, t)
 
 
@@ -255,9 +269,15 @@ def _fused_adam_op(ctx, op):
 def _adam_op(ctx, op):
     p, m1, m2 = (ctx.in1(op, s) for s in ('Param', 'Moment1', 'Moment2'))
     b1p, b2p = ctx.in1(op, 'Beta1Pow'), ctx.in1(op, 'Beta2Pow')
-    adam(p, ctx.in1(op, 'Grad'), m1, m2, b1p, b2p,
-         ctx.in1(op, 'LearningRate'), op.attr('beta1', 0.9),
-         op.attr('beta2', 0.999), op.attr('epsilon', 1e-8))
+    lr, g = ctx.in1(op, 'LearningRate'), ctx.in1(op, 'Grad')
+    b1, b2 = op.attr('beta1', 0.9), op.attr('beta2', 0.999)
+    if _records(ctx, op) and not isinstance(g, SelectedRows):
+        p, m1, m2 = _adam_dense(p, g.to(p.dtype), m1, m2,
+                                _lr_t(lr, b1p, b2p), b1, b2,
+                                op.attr('epsilon', 1e-8))
+        b1p, b2p = b1p * b1, b2p * b2
+    else:
+        adam(p, g, m1, m2, b1p, b2p, lr, b1, b2, op.attr('epsilon', 1e-8))
     _outs(ctx, op, (('ParamOut', [p]), ('Moment1Out', [m1]),
                     ('Moment2Out', [m2]), ('Beta1PowOut', [b1p]),
                     ('Beta2PowOut', [b2p])))
@@ -321,10 +341,22 @@ def _momentum_runs(plan):
 def _momentum_op(ctx, op):
     """The run's dense gradients in one `momentum` pass, each SelectedRows
     gradient by `momentum_rows`."""
+    if _records(ctx, op) and \
+            not isinstance(ctx.in1(op, 'Grad'), SelectedRows):
+        # a gradient through the update: new tensors, the same expressions
+        p, g, v = (ctx.in1(op, s) for s in ('Param', 'Grad', 'Velocity'))
+        lr, mu = _lr(ctx, op), op.attr('mu')
+        v = v * mu + g
+        step = (v * mu + g) * lr if op.attr('use_nesterov', False) \
+            else v * lr
+        ctx.out(op, 'ParamOut', p - step)
+        ctx.out(op, 'VelocityOut', v)
+        return
     run = ctx.memo('momentum_runs',
                    lambda: _momentum_runs(ctx.plan)).get(ctx.op_index)
     if run is not None:
-        ops = [ctx.plan.ops[i] for i in run]
+        ops = [ctx.plan.ops[i] for i in run
+               if not _records(ctx, ctx.plan.ops[i])]
         lr, mu = ctx.in1(op, 'LearningRate'), op.attr('mu')
         nesterov = op.attr('use_nesterov', False)
         dense = []
@@ -363,6 +395,8 @@ def _sgd_op(ctx, op):
     g = ctx.in1(op, 'Grad')
     if isinstance(g, SelectedRows):
         sgd_rows(p, g, lr)
+    elif _records(ctx, op):
+        p = p - lr.to(p.dtype) * g.to(p.dtype)
     else:
         p.sub_(lr.to(p.dtype) * g.to(p.dtype))
     ctx.out(op, 'ParamOut', p)

@@ -204,10 +204,14 @@ def test_flash_attention_kernel_rejects_bias_and_odd_head_width(dev):
         1, 8, device=dev))
     assert _err(out, attention_ops.flash_attention(q, q, q)) == 0
     # widths up to 256 run zero-padded (test_flash_kernels_take_any_head_
-    # width); above 256 the kernels have no instantiation
+    # width); above 256 the wide kernels take them, padded to 384 here;
+    # a width below 1 raises
     q = _randn(dev, 2, 8, 257)
-    with pytest.raises(ValueError, match='head widths 1 to 256'):
-        attention_ops.flash_attention(q, q, q)
+    want = attention_ops.flash_attention(q.cpu(), q.cpu(), q.cpu())
+    assert _err(attention_ops.flash_attention(q, q, q).cpu(), want) <= 1e-4
+    with pytest.raises(ValueError, match='widths from 1 up'):
+        attention_ops.flash_attention(q[..., :0], q[..., :0], q[..., :0],
+                                      scale=1.0)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
@@ -1190,6 +1194,121 @@ def test_flash_kernels_at_head_width_256_are_deterministic(dev, dtype):
             for x, y in zip(first + (dq[0],) + dkv[0],
                             second + (dq[1],) + dkv[1]):
                 assert torch.equal(x, y)
+
+
+WIDE_FLASH = ('flash_attention_wide', 'flash_attention_wide_bwd_dq',
+              'flash_attention_wide_bwd_dkv')
+
+
+def _check_wide(q, k, v, do, causal, bias, H):
+    """The three wide kernels through the wrappers (padded to the next
+    multiple of 128 and sliced back) against the plain versions at the
+    true width: f32 O and LSE 1e-4, gradients 1e-4 of their largest
+    magnitude; bf16 O and gradients 1e-2 of theirs, LSE 1e-5 (on the rows
+    that keep a key); one launch of each a call."""
+    dtype, dh = q.dtype, q.shape[-1]
+    args = (dh ** -0.5, causal, bias, H)
+    before = kernel_tier.launch_counts()
+    o, lse = attention_ops._flash_fwd(q, k, v, *args)
+    dq, dk, dv = attention_ops._flash_bwd(q, k, v, o, lse, do, *args)
+    torch.cuda.synchronize()
+    after = kernel_tier.launch_counts()
+    assert [after[n] - before[n] for n in WIDE_FLASH] == [1, 1, 1]
+    for t in (o, dq, dk, dv):
+        assert t.shape == q.shape and t.dtype == dtype and t.is_contiguous()
+    o_ref, lse_ref = attention_ops._attention_ref(q, k, v, *args)
+    want = attention_ops._flash_bwd_ref(q, k, v, o, lse, do, *args)
+    live = torch.ones(q.shape[0], dtype=torch.bool, device=q.device) \
+        if bias is None else (bias > -1e8).any(dim=1).repeat_interleave(H)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert _err(lse[live], lse_ref[live]) <= \
+        (1e-4 if dtype == torch.float32 else 1e-5)
+    o_tol = 1e-4 if dtype == torch.float32 else \
+        1e-2 * float(o_ref.float().abs().max())
+    assert _err(o.float(), o_ref.float()) <= o_tol
+    for g, w in zip((dq, dk, dv), want):
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all()
+        assert _err(g, w) <= tol * max(1.0, float(w.abs().max()))
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('dh', [257, 320, 384, 512])
+def test_flash_wide_kernels_match_their_plain_versions(dev, dh, dtype):
+    """Head widths above 256 (padded to 384 or 512: three or four column
+    chunks of 128 a row tile) at L 100 (off every tile), causal and not,
+    with and without the key-padding bias (one element wholly padded:
+    its O, dQ, dK and dV exactly 0)."""
+    B, H, L = 3, 2, 100
+    q, k, v, do = (_randn(dev, B * H, L, dh, seed=s).to(dtype)
+                   for s in range(4))
+    for causal in (True, False):
+        for bias in (None, _padding_bias(dev, B, L, True)):
+            outs = _check_wide(q, k, v, do, causal, bias, H)
+            if bias is not None:
+                for t in (outs[0],) + outs[2:]:
+                    assert not t[:H].any()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_wide_kernels_take_more_than_65535_rows(dev, dtype):
+    """Batch x heads above 65535 at head width 384: every row, the last
+    ones too, against the plain versions."""
+    bh, L, dh = 65536 + 3, 8, 384
+    q, k, v, do = (_randn(dev, bh, L, dh, seed=s).to(dtype)
+                   for s in range(4))
+    o, lse, dq, dk, dv = _check_wide(q, k, v, do, True, None, 1)
+    delta = attention_ops._delta(do, o)
+    args = (dh ** -0.5, True, None, 1)
+    want = attention_ops._attention_ref(q, k, v, *args) + \
+        (attention_ops._bwd_dq_ref(q, k, v, do, lse, delta, *args),) + \
+        attention_ops._bwd_dkv_ref(q, k, v, do, lse, delta, *args)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w in zip((o, lse, dq, dk, dv), want):
+        g, w = g.float(), w.float()
+        assert _err(g[-3:], w[-3:]) <= tol * max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_wide_kernels_are_deterministic(dev, dtype):
+    """Two calls of each wide kernel give the same bits (one owner per
+    output element, a fixed order, no atomics), with and without the
+    padding bias, at dh 320 and 512."""
+    L = 200
+    for dh in (320, 512):
+        q, k, v, do = (_randn(dev, 8, L, dh, seed=s).to(dtype)
+                       for s in range(4))
+        for b in (None, _padding_bias(dev, 2, L, True)):
+            args = (dh ** -0.5, b is None, b, 4)
+            first = attention_ops._flash_fwd(q, k, v, *args)
+            second = attention_ops._flash_fwd(q, k, v, *args)
+            grads = [attention_ops._flash_bwd(q, k, v, first[0], first[1],
+                                              do, *args) for _ in range(2)]
+            torch.cuda.synchronize()
+            for x, y in zip(first + grads[0], second + grads[1]):
+                assert torch.equal(x, y)
+
+
+def test_flash_wide_kernels_do_not_spill(dev, tmp_path):
+    """ptxas reports no spill in any wide kernel (nvcc with the library's
+    own flags into a scratch directory)."""
+    import os
+    import re
+    import subprocess
+    from paddle_tpu_torch import native
+    out = subprocess.run(
+        [native.nvcc_path()] + list(native.NVCC_FLAGS) +
+        ['-o', str(tmp_path / 'wide.so'),
+         os.path.join(native.CSRC, 'flash_attn_wide.cu')],
+        capture_output=True, text=True, check=True)
+    spills = re.findall(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                        out.stdout + out.stderr)
+    assert len(spills) == 6       # three kernels, two dtypes
+    assert all(a == '0' and b == '0' for a, b in spills), spills
 
 
 def test_bf16_products_on_the_card_match_the_cpu(dev):

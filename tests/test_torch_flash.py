@@ -222,7 +222,8 @@ def test_head_width_padding_is_exact(dh, dtype):
     width's scale, give the unpadded results (within 1e-6 of each output's
     largest magnitude: a longer sum of the same terms and zeros; bf16
     results are compared in their own rounding), and the padded columns
-    are exactly 0. A width above 256 raises, as do operands of two
+    are exactly 0. A width above 256 goes to the wide kernels' next
+    multiple of 128; a width below 1 raises, as do operands of two
     widths."""
     q, k, v, do, bias = _data(9, True, (2, 2, 40, dh))
     q, k, v, do = (_t(_flat(a)).to(dtype) for a in (q, k, v, do))
@@ -248,7 +249,52 @@ def test_head_width_padding_is_exact(dh, dtype):
         tol = 1e-6 if dtype == torch.float32 else 2 ** -8
         assert float((g.float() - wt.float()).abs().max()) <= \
             tol * float(wt.float().abs().max())
-    with pytest.raises(ValueError, match='widths 1 to 256'):
-        attention_ops._kernel_width(257)
+    # above 256 the wide kernels take the next multiple of 128; below 1
+    # nothing
+    assert [attention_ops._kernel_width(d) for d in (257, 384, 512, 513)] \
+        == [384, 384, 512, 640]
+    with pytest.raises(ValueError, match='widths from 1 up'):
+        attention_ops._kernel_width(0)
     with pytest.raises(ValueError, match='one head width'):
         attention_ops._pad_dh(w, q, k[..., :dh - 1])
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('dh', [320, 512])
+def test_wide_head_width_matches_jax_grad(dh, dtype):
+    """Head widths above 256 (the card's wide kernels; here their plain
+    versions): O and dQ, dK, dV of ``flash_attention`` against the JAX
+    package's ``flash_attention(use_pallas='interpret')`` and ``jax.grad``,
+    BH 2 (B 2, H 1), L 64, causal, with a key-padding bias; f32 at the
+    file's tolerances, bf16 within 1e-2 of each output's largest
+    magnitude (an element near a bf16 rounding boundary may land one bf16
+    step away)."""
+    q, k, v, ct, bias = _data(4, True, (2, 1, 64, dh))
+    jdt = jnp.float32 if dtype == 'float32' else jnp.bfloat16
+    jq, jk, jv, jct = (jnp.asarray(a).astype(jdt) for a in (q, k, v, ct))
+    jb = jnp.asarray(bias)
+
+    def jloss(a, b, c):
+        o = jattn.flash_attention(a, b, c, causal=True, use_pallas='interpret',
+                                  key_padding_bias=jb)
+        return jnp.sum(o.astype(jnp.float32) * jct.astype(jnp.float32)), o
+    (_, o_j), grads_j = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(jq, jk, jv)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        tdt).requires_grad_() for a in (jq, jk, jv))
+    tct = torch.from_numpy(np.array(jct.astype(jnp.float32))).to(tdt)
+    o = attention_ops.flash_attention(tq, tk, tv, causal=True,
+                                      key_padding_bias=_t(bias))
+    (o.float() * tct.float()).sum().backward()
+    got = (o, tq.grad, tk.grad, tv.grad)
+    want = (o_j,) + tuple(grads_j)
+    for name, g, w in zip(('o', 'dq', 'dk', 'dv'), got, want):
+        assert g.dtype == tdt and g.shape == q.shape, name
+        g = g.detach().float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        if dtype == 'float32':
+            np.testing.assert_allclose(
+                g, w, err_msg=name, **(FWD_TOL if name == 'o' else GRAD_TOL))
+        else:
+            assert np.abs(g - w).max() <= 1e-2 * np.abs(w).max(), name

@@ -79,6 +79,8 @@ UNFUSED0 = dict(FLASH0, use_flash_attention=False)
 # the flash program at head width 256 (d 512 over 2 heads), one layer
 WIDE0 = dict(FLASH0, vocab_size=128, seq_len=32, d_model=512, n_head=2,
              n_layer=1, d_ff=512)
+# and above 256 (d 1024 over 2 heads of 512: the wide kernels' width)
+WIDE512 = dict(WIDE0, d_model=1024)
 # BERT at the same width, no dropout; its attention flash or unfused
 BERT_FLASH = dict(SMALL, dropout=0.0, attn_dropout=0.0, max_predictions=4)
 BERT_UNFUSED = dict(BERT_FLASH, use_flash_attention=False)
@@ -128,6 +130,75 @@ def _build_quick_start(pkg):
     return main, startup, avg
 
 
+def _build_op_library(pkg):
+    """One program through every layer of the op library's shape, cast,
+    compare and reduce ops (and the control-flow comparisons)."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        L = pkg.layers
+        x = L.data(name='x', shape=[4, 6], dtype='float32')
+        ids = L.data(name='ids', shape=[1], dtype='int64')
+        img = L.data(name='img', shape=[4, 6, 6], dtype='float32')
+        prob = L.data(name='prob', shape=[5], dtype='float32')
+        y = L.cast(L.cast(x, 'float64'), 'float32')
+        L.concat([x, y], axis=1)
+        L.sums([x, y])
+        diag = L.diag(L.fill_constant([5], 'float32', 1.5))
+        L.fill_constant_batch_size_like(x, [-1, 3], 'float32', 0.5)
+        L.ones([2], 'int64')
+        L.zeros([3], 'float32')
+        L.zeros_like(diag)
+        L.reverse(x, [1])
+        L.argmin(x, 1)
+        L.argmax(x, -1)
+        L.argsort(x, -1)
+        L.isfinite(x)
+        L.has_inf(x)
+        L.has_nan(x)
+        L.reshape(x, [0, -1])
+        L.squeeze(L.unsqueeze(x, [1]), [1])
+        L.flatten(x, 2)
+        L.transpose(x, [0, 2, 1])
+        L.split(x, 2, dim=1)
+        L.split(x, [1, 3], dim=1)
+        L.reduce_mean(x, 1)
+        L.reduce_max(x, [1, 2], keep_dim=True)
+        L.reduce_min(x)
+        L.reduce_prod(x, -1)
+        L.elementwise_pow(x, y)
+        L.elementwise_mod(x, y)
+        L.elementwise_floordiv(x, y, axis=0)
+        lt, ge = L.less_than(x, y), L.greater_equal(x, y)
+        for cmp in (L.less_equal, L.greater_than, L.equal, L.not_equal):
+            cmp(x, y)
+        L.logical_and(lt, ge)
+        L.logical_or(lt, ge)
+        L.logical_xor(lt, ge)
+        L.logical_not(lt)
+        L.label_smooth(L.one_hot(ids, 10), epsilon=0.2)
+        padded = L.pad(x, [0, 0, 1, 1, 2, 0], pad_value=1.0)
+        L.pad_constant_like(padded, x, pad_value=2.0)
+        L.pad2d(img, [1, 1, 2, 2], mode='reflect')
+        L.stack([x, y], axis=1)
+        L.unstack(x, axis=1)
+        L.expand(x, [1, 2, 1])
+        L.gather_nd(x, ids)
+        L.scatter(x, ids, y, overwrite=False)
+        L.crop(x, shape=[2, 2, 3], offsets=[0, 1, 1])
+        L.shape(x)
+        step = L.fill_constant([1], 'int64', 0)
+        L.increment(step, 1.0)
+        L.increment(step, 2.0, in_place=False)
+        L.is_empty(x)
+        L.multiplex([x, y], L.cast(ids, 'int32'))
+        L.where(lt, x, y)
+        L.space_to_depth(img, 2)
+        L.shuffle_channel(img, 2)
+        L.sampling_id(prob)
+        L.hash(ids, 1000, num_hash=2)
+    return main, startup
+
+
 def _build_bert(pkg, bmod, kw, is_test=False, seed=0):
     main, startup = pkg.Program(), pkg.Program()
     main.random_seed = startup.random_seed = seed
@@ -166,11 +237,14 @@ WIDE_FEEDS = _lm_feeds(1, kw=WIDE0) * STEPS
 
 @pytest.mark.parametrize('which', ['flash', 'default', 'inference',
                                    'quick_start', 'bert_flash',
-                                   'bert_unfused', 'bert_inference'])
+                                   'bert_unfused', 'bert_inference',
+                                   'op_library'])
 def test_program_dicts_equal_the_jax_package(which):
     def build(pkg, tmod, ser):
         if which == 'quick_start':
             main, startup, _ = _build_quick_start(pkg)
+        elif which == 'op_library':
+            main, startup = _build_op_library(pkg)
         elif which.startswith('bert'):
             bmod = jbert if pkg is jfluid else tbert
             main, startup, _ = _build_bert(
@@ -369,6 +443,152 @@ def _op_cases():
         inputs={}, outputs={'Out': ['out']},
         attrs={'shape': [2, 3], 'dtype': np.dtype('float32'),
                'values': [float(v) for v in f(6)]})
+    c.update(_shape_cast_compare_reduce_cases(rs, f))
+    return c
+
+
+def _one(x_name, x, **attrs):
+    """A one-input, one-output case."""
+    return dict(inputs={x_name: [('x', x)]}, outputs={'Out': ['out']},
+                attrs=attrs)
+
+
+def _two(x, y, out='Out', **attrs):
+    return dict(inputs={'X': [('x', x)], 'Y': [('y', y)]},
+                outputs={out: ['out']}, attrs=attrs)
+
+
+def _shape_cast_compare_reduce_cases(rs, f):
+    """The op library's shape, cast, compare and reduce ops (one case a
+    type, a second where a mode takes another path)."""
+    i = lambda lo, hi, *s: rs.randint(lo, hi, s).astype('int64')
+    b = lambda *s: rs.rand(*s) < 0.5
+    c = {}
+    # meta
+    c['cast'] = _one('X', f(4, 8, scale=3.0), in_dtype=np.dtype('float32'),
+                     out_dtype=np.dtype('int64'))
+    c['fill'] = dict(inputs={}, outputs={'Out': ['out']},
+                     attrs={'shape': [2, 3], 'dtype': np.dtype('float32'),
+                            'value': [float(v) for v in f(6)]})
+    c['fill_zeros_like'] = _one('X', f(3, 4))
+    c['fill_constant_batch_size_like'] = _one(
+        'Input', f(5, 3), shape=[-1, 7], dtype=np.dtype('float32'),
+        value=2.5, input_dim_idx=0, output_dim_idx=0)
+    c['shape'] = _one('Input', f(3, 4, 5))
+    c['increment'] = _one('X', f(1), step=2.0)
+    # ids outside [0, depth) give a row of zeros
+    c['one_hot'] = _one('X', i(-1, 6, 7, 1), depth=5)
+    c['is_empty'] = _one('X', f(3, 4))
+    # compare and logical ops, Y broadcast along axis 1
+    c['equal'] = _two(i(0, 3, 4, 6), i(0, 3, 4, 6))
+    c['not_equal'] = _two(i(0, 3, 4, 6), i(0, 3, 6), axis=1)
+    c['less_than'] = _two(f(4, 8), f(8), axis=1)
+    c['less_equal'] = _two(i(0, 3, 4, 6), i(0, 3, 4, 6))
+    c['greater_than'] = _two(f(4, 8), f(4, 8))
+    c['greater_equal'] = _two(i(0, 3, 4, 6), i(0, 3, 4, 6))
+    for op in ('logical_and', 'logical_or', 'logical_xor'):
+        c[op] = _two(b(4, 6), b(4, 6))
+    c['logical_not'] = _one('X', b(4, 6))
+    x = f(4, 8)
+    x[1, 2] = np.inf
+    c['isfinite'] = _one('X', x)
+    c['isfinite:finite'] = _one('X', f(4, 8))
+    # reductions and the elementwise ops on integer semantics
+    c['reduce_mean'] = _one('X', f(3, 4, 5), dim=[1, 2], keep_dim=False)
+    c['reduce_max'] = _one('X', f(3, 4, 5), dim=[-1], keep_dim=True)
+    c['reduce_min'] = _one('X', f(3, 4, 5), reduce_all=True)
+    c['reduce_prod'] = _one('X', 1 + f(3, 4, 5, scale=0.1), dim=[0, 2])
+    c['reduce_all'] = _one('X', b(3, 4), dim=[1])
+    c['reduce_any'] = _one('X', b(3, 4), reduce_all=True, keep_dim=True)
+    c['elementwise_pow'] = _two(0.5 + rs.rand(4, 8).astype('float32'),
+                                f(4, 8), axis=-1)
+    # the remainder takes the divisor's sign, the quotient is floored
+    c['elementwise_mod'] = _two(f(4, 8, scale=5.0),
+                                np.where(b(4, 8), 1.5, -2.5).astype(
+                                    'float32'), axis=-1)
+    c['elementwise_floordiv'] = _two(i(-20, 20, 4, 8),
+                                     np.where(b(4, 8), 3, -4).astype(
+                                         'int64'), axis=-1)
+    # shape ops
+    c['reshape'] = _one('X', f(4, 6, 5), shape=[0, -1])
+    c['transpose'] = _one('X', f(2, 3, 4), axis=[2, 0, 1])
+    c['concat'] = dict(inputs={'X': [('a', f(2, 3)), ('b', f(4, 3))]},
+                       outputs={'Out': ['out']}, attrs={'axis': 0})
+    c['split'] = dict(inputs={'X': [('x', f(6, 4))]},
+                      outputs={'Out': ['o0', 'o1', 'o2']},
+                      attrs={'axis': 0, 'sections': [1, 2, 3], 'num': 0})
+    c['split:num'] = dict(inputs={'X': [('x', f(6, 4))]},
+                          outputs={'Out': ['o0', 'o1']},
+                          attrs={'axis': 1, 'sections': [], 'num': 2})
+    c['squeeze'] = _one('X', f(1, 4, 1, 5), axes=[0])
+    c['unsqueeze'] = _one('X', f(3, 4), axes=[0, 2])
+    c['unsqueeze2'] = dict(inputs={'X': [('x', f(3, 4))]},
+                           outputs={'Out': ['out'], 'XShape': ['xs']},
+                           attrs={'axes': [1]})
+    c['flatten'] = _one('X', f(2, 3, 4), axis=2)
+    c['flatten2'] = dict(inputs={'X': [('x', f(2, 3, 4))]},
+                         outputs={'Out': ['out'], 'XShape': ['xs']},
+                         attrs={'axis': 1})
+    c['stack'] = dict(inputs={'X': [('a', f(3, 4)), ('b', f(3, 4))]},
+                      outputs={'Y': ['out']}, attrs={'axis': 1})
+    c['unstack'] = dict(inputs={'X': [('x', f(3, 2, 4))]},
+                        outputs={'Y': ['y0', 'y1']}, attrs={'axis': 1})
+    c['expand'] = _one('X', f(2, 3), expand_times=[2, 3])
+    # fewer repeats than axes: jnp.tile pads them with leading 1s
+    c['tile'] = _one('X', f(2, 3), repeat_times=[3])
+    # padding and slicing
+    c['pad'] = _one('X', f(2, 3), paddings=[1, 0, 2, 1], pad_value=0.5)
+    for mode in ('constant', 'reflect', 'edge'):
+        c['pad2d' + ('' if mode == 'reflect' else ':' + mode)] = _one(
+            'X', f(1, 2, 4, 5), paddings=[1, 2, 2, 1], mode=mode,
+            pad_value=0.25, data_format='NCHW')
+    c['pad_constant_like'] = _two(f(4, 5), f(2, 3), pad_value=1.5)
+    c['strided_slice'] = _one('Input', f(6, 7), axes=[0, 1], starts=[1, 6],
+                              ends=[6, 0], strides=[2, -2])
+    c['crop'] = _one('X', f(5, 6), offsets=[1, 2], shape=[3, 3])
+    c['reverse'] = _one('X', f(3, 4), axis=[0, 1])
+    # index ops; a repeated id: the last update wins, or both add
+    for key, over in (('scatter', True), ('scatter:add', False)):
+        c[key] = dict(inputs={'X': [('x', f(6, 4))],
+                              'Ids': [('ids', np.array([1, 3, 1, 5],
+                                                       'int64'))],
+                              'Updates': [('u', f(4, 4))]},
+                      outputs={'Out': ['out']}, attrs={'overwrite': over})
+    c['gather_nd'] = dict(inputs={'X': [('x', f(4, 5, 6))],
+                                  'Index': [('ids', np.stack(
+                                      [i(0, 4, 3), i(0, 5, 3)], -1))]},
+                          outputs={'Out': ['out']}, attrs={})
+    c['where'] = dict(inputs={'Condition': [('c', b(4, 5))],
+                              'X': [('x', f(4, 5))], 'Y': [('y', f(4, 5))]},
+                      outputs={'Out': ['out']}, attrs={})
+    c['multiplex'] = dict(inputs={'X': [('a', f(4, 3)), ('b', f(4, 3)),
+                                        ('d', f(4, 3))],
+                                  'Ids': [('ids', rs.randint(0, 3, (4, 1))
+                                           .astype('int32'))]},
+                          outputs={'Out': ['out']}, attrs={})
+    c['arg_max'] = _one('X', f(4, 6), axis=1)
+    c['arg_min'] = _one('X', f(4, 6), axis=0)
+    # ties: stable, their first position first
+    c['argsort'] = dict(inputs={'X': [('x', rs.randint(0, 4, (3, 8))
+                                       .astype('float32'))]},
+                        outputs={'Out': ['out'], 'Indices': ['idx']},
+                        attrs={'axis': -1})
+    c['diag'] = dict(inputs={'Diagonal': [('x', f(5))]},
+                     outputs={'Out': ['out']}, attrs={})
+    c['label_smooth'] = _one('X', np.eye(6, dtype='float32')[:4],
+                             epsilon=0.1)
+    c['label_smooth:prior'] = dict(
+        inputs={'X': [('x', np.eye(6, dtype='float32')[:4])],
+                'PriorDist': [('p', rs.dirichlet(np.ones(6), 1)
+                               .astype('float32'))]},
+        outputs={'Out': ['out']}, attrs={'epsilon': 0.2})
+    c['space_to_depth'] = _one('X', f(1, 2, 4, 6), blocksize=2)
+    c['shuffle_channel'] = _one('X', f(2, 6, 3, 3), group=3)
+    # uint32 products and sums that wrap, negative ids too
+    c['hash'] = _one('X', i(-2 ** 31, 2 ** 31, 4, 3), num_hash=2,
+                     mod_by=1000)
+    # one-hot rows: the draw is certain (the others clip to 1e-20)
+    c['sampling_id'] = _one('X', np.eye(5, dtype='float32')[[3, 0, 4, 4]])
     return c
 
 
@@ -542,6 +762,16 @@ def port_wide_run(jax_wide_run):
 
 
 @pytest.fixture(scope='module')
+def jax_wide512_run():
+    return _jax_run(WIDE512, WIDE_FEEDS)
+
+
+@pytest.fixture(scope='module')
+def port_wide512_run(jax_wide512_run):
+    return _port_run(jax_wide512_run[0], WIDE512, WIDE_FEEDS)
+
+
+@pytest.fixture(scope='module')
 def jax_unfused_run():
     return _jax_run(UNFUSED0)
 
@@ -629,6 +859,15 @@ def test_flash_program_at_head_width_256_matches_the_jax_executor(
     1.8e-5 from JAX's)."""
     _check_against_jax(jax_wide_run, port_wide_run, _noise(jax_wide_run),
                        d=WIDE0['d_model'])
+
+
+def test_flash_program_at_head_width_512_matches_the_jax_executor(
+        jax_wide512_run, port_wide512_run):
+    """(c)'s check at head width 512 (the card's wide kernels; their plain
+    versions here), the rounding noise of `_noise` held within STEPS *
+    lr."""
+    _check_against_jax(jax_wide512_run, port_wide512_run,
+                       _noise(jax_wide512_run), d=WIDE512['d_model'])
 
 
 def test_unfused_program_trajectory_matches_the_jax_executor(
