@@ -229,8 +229,10 @@ Phases, each printing one JSON line:
    320 run through phase 13c's wide kernels (zero-padded to 384) under the
    same checks.
 13c. wide_flash_kernel — the three wide flash kernels
-   (``csrc/flash_attn_wide.cu``: head widths above 256, each block one
-   128-wide column chunk of its outputs, CUDA-core products) at BH 64 (B
+   (``csrc/flash_attn_wide.cu``: head widths above 256; the forward on the
+   tensor cores, its scores once a 16-row query tile for a group of up to
+   four 128-wide column chunks of O; dQ and dK/dV one chunk a block on the
+   CUDA cores, their scores once a chunk) at BH 64 (B
    32 x 2 heads), L 512, dh 512, causal, float32 and bf16, against their
    plain versions (float32: O and LSE 1e-4 absolute, each gradient 1e-4 of
    its largest magnitude; bf16: O, dQ, dK and dV 1e-2 of theirs, LSE
@@ -917,14 +919,17 @@ def backward_ms(torch, fwd, inputs, grad, calls=10, replays=5):
     return replay_ms(torch, bwd_graph, calls, replays)
 
 
-def step_profile(torch, fn, steps=10, host=False, shares=None):
+def step_profile(torch, fn, steps=10, host=False, shares=None,
+                 kernel_shares=None):
     """Device time of ``steps`` eager calls of ``fn`` by torch.profiler:
     the wall time, the summed kernel time, the busy share, the kernels
     taking the most device time and the host ops that launched the most of
     it; with ``host`` also the host ops taking the most host time of their
     own (``top_host``); with ``shares`` ({label: op names}) the device ms
     a step launched by the host ops named exactly as one of a label's
-    names (``shares``). ``busy_share`` is None when the
+    names (``shares``); with ``kernel_shares`` ({label: text}) the device
+    ms a step of every kernel whose name holds the label's text
+    (``kernel_shares``). ``busy_share`` is None when the
     profiler recorded no device time (then it was not measured)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -962,6 +967,11 @@ def step_profile(torch, fn, steps=10, host=False, shares=None):
             label: sum(e.self_device_time_total for e in ops
                        if e.key in names) / 1e3 / steps
             for label, names in shares.items()}
+    if kernel_shares:
+        out['kernel_shares'] = {
+            label: sum(e.self_device_time_total for e in kernels
+                       if text in e.key) / 1e3 / steps
+            for label, text in kernel_shares.items()}
     if host:
         cpu_ops = sorted((e for e in events if e.device_type ==
                           torch.autograd.DeviceType.CPU),
@@ -2715,6 +2725,7 @@ def check_wide_flash_kernels(torch, F, ptxas):
     bh, scale, causal = B * H, dh ** -0.5, True
     pairs = bh * L * (L + 1) // 2
     chunks = dh // 128
+    groups = -(-chunks // 4)  # the forward's column groups
     out = {n: dict(tolerance=1e-2, checked='max_rel_err', cases=[])
            for n in WIDE_FLASH_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
@@ -2767,7 +2778,8 @@ def check_wide_flash_kernels(torch, F, ptxas):
                        plain_ms=cuda_ms(torch, plain, calls=2, replays=3),
                        **library, **bound(nbytes, 0, **{key: flops}), **errs)
             # every flop at the CUDA cores' rate; and the flops the column
-            # chunks add (the score products once a chunk)
+            # chunks (the forward's groups) add: the score products once a
+            # chunk (group)
             res['bound_simt_ms'] = max(nbytes / PEAK_BYTES_PER_S,
                                        flops / PEAK_F32_FLOPS) * 1e3
             res['kernel_flops'] = flops + repeated
@@ -2791,7 +2803,7 @@ def check_wide_flash_kernels(torch, F, ptxas):
         calls = (
             (lambda: A._flash_fwd(q, k, v, *args),
              lambda: A._attention_ref(q, k, v, *args), fwd_lib,
-             4 * mat + row, 4 * dh * pairs, 2 * dh * pairs * (chunks - 1)),
+             4 * mat + row, 4 * dh * pairs, 2 * dh * pairs * (groups - 1)),
             (lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
              lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args), bwd_lib,
              5 * mat + 2 * row, 6 * dh * pairs, 4 * dh * pairs * (chunks - 1)),
@@ -2839,17 +2851,21 @@ def run_flash_wide(torch, kt, smi):
         main, startup, _, loss = build_program(fluid, cfg, amp=amp)
         scope = fluid.Scope()
         exe.run(startup, scope=scope)
+        step = program_step(exe, main, lm_feed(
+            torch, cfg, DH256_HOLD_B, 23, exe.device), loss, scope)
         timed, _ = program_timing(
-            torch, kt, program_step(exe, main, lm_feed(
-                torch, cfg, DH256_HOLD_B, 23, exe.device), loss, scope),
-            LARGE_STEPS, program_step_launches(cfg, amp=amp),
+            torch, kt, step, LARGE_STEPS, program_step_launches(cfg, amp=amp),
             PATH_KERNELS[path], idle)
-        wide = sum(t['ms_per_step'] for t in timed['step_profile']['top']
-                   if 'flash_wide' in t['name'])
+        # every wide kernel of one more step, the forward too (it may fall
+        # out of the profile's top kernels)
+        prof = step_profile(torch, step, steps=1,
+                            kernel_shares={'wide': 'flash_wide'})
+        wide = prof['kernel_shares']['wide']
         emit(dict(phase='flash_wide_train', path=path, card=smi, amp=amp,
                   batch=DH256_HOLD_B, head_width=cfg.d_model // cfg.n_head,
                   wide_kernels_ms=wide,
-                  wide_share_of_device=wide / timed['device_ms'], **timed))
+                  wide_share_of_device=wide / prof['device_ms_per_step'],
+                  **timed))
         del scope, main, startup
         torch.cuda.empty_cache()
     return by_path

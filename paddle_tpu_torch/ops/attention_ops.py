@@ -32,11 +32,13 @@ The kernels are instantiated at head widths 16, 32, 64, 128 and 256 (at
 256 each block owns one 128-wide half of an output's columns, in one
 launch). Above 256 the wide kernels take over (``csrc/flash_attn_wide.cu``,
 f32 and bf16 forms, counted as ``flash_attention_wide``,
-``flash_attention_wide_bwd_dq`` and ``flash_attention_wide_bwd_dkv``):
-each block owns one 128-wide column chunk of its outputs at any multiple
-of 128, with CUDA-core products. :func:`_flash_fwd` and :func:`_flash_bwd`
-take any width from 1 up on the card by zero-padding q, k and v (and dO)
-along dh to the next of those widths (above 256: the next multiple of
+``flash_attention_wide_bwd_dq`` and ``flash_attention_wide_bwd_dkv``) at
+any multiple of 128: the forward on the tensor cores, its scores computed
+once a query tile for up to four 128-wide column chunks of O, one chunk a
+warp; dQ and dK/dV one column chunk a block, with CUDA-core products.
+:func:`_flash_fwd` and :func:`_flash_bwd` take any width from 1 up on the
+card by zero-padding q, k and v (and dO) along dh to the next of those
+widths (above 256: the next multiple of
 128), launching the kernels there and slicing O, dQ, dK and dV back
 (:func:`_pad_dh`); the dQ and dK/dV wrappers take the kernels' widths.
 That is exact: a zero column adds 0 to every Q·Kᵀ score, the scale stays

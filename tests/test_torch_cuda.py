@@ -1235,12 +1235,15 @@ def _check_wide(q, k, v, do, causal, bias, H):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
-@pytest.mark.parametrize('dh', [257, 320, 384, 512])
+@pytest.mark.parametrize('dh', [257, 320, 384, 512, 640, 1152, 2048])
 def test_flash_wide_kernels_match_their_plain_versions(dev, dh, dtype):
     """Head widths above 256 (padded to 384 or 512: three or four column
-    chunks of 128 a row tile) at L 100 (off every tile), causal and not,
-    with and without the key-padding bias (one element wholly padded:
-    its O, dQ, dK and dV exactly 0)."""
+    chunks of 128, one forward block a query tile; 640, 1152 and 2048:
+    past one group of four chunks, the last group only partly filled at
+    640 and 1152, so that further forward blocks take the next groups) at
+    L 100 (off every 16-row and 32-key tile), causal and not, with and
+    without the key-padding bias (one element wholly padded: its O, dQ, dK
+    and dV exactly 0)."""
     B, H, L = 3, 2, 100
     q, k, v, do = (_randn(dev, B * H, L, dh, seed=s).to(dtype)
                    for s in range(4))
@@ -1277,9 +1280,9 @@ def test_flash_wide_kernels_take_more_than_65535_rows(dev, dtype):
 def test_flash_wide_kernels_are_deterministic(dev, dtype):
     """Two calls of each wide kernel give the same bits (one owner per
     output element, a fixed order, no atomics), with and without the
-    padding bias, at dh 320 and 512."""
+    padding bias, at dh 320, 512 and 1152 (three forward groups)."""
     L = 200
-    for dh in (320, 512):
+    for dh in (320, 512, 1152):
         q, k, v, do = (_randn(dev, 8, L, dh, seed=s).to(dtype)
                        for s in range(4))
         for b in (None, _padding_bias(dev, 2, L, True)):
@@ -1293,9 +1296,27 @@ def test_flash_wide_kernels_are_deterministic(dev, dtype):
                 assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('dh', [4096, 8192])
+def test_flash_wide_forward_takes_any_width(dev, dh, dtype):
+    """The wide forward's shared memory is its design's, not the width's:
+    at dh 4096 and 8192 (8 and 16 groups of four column chunks) it
+    launches, and with the backward holds to the plain versions at a
+    small BH and L, causal, with the padding bias (the padded element's
+    outputs exactly 0)."""
+    B, H, L = 2, 1, 40
+    q, k, v, do = (_randn(dev, B * H, L, dh, seed=s).to(dtype)
+                   for s in range(4))
+    outs = _check_wide(q, k, v, do, True, _padding_bias(dev, B, L, True), H)
+    for t in (outs[0],) + outs[2:]:
+        assert not t[:H].any()
+
+
 def test_flash_wide_kernels_do_not_spill(dev, tmp_path):
     """ptxas reports no spill in any wide kernel (nvcc with the library's
-    own flags into a scratch directory)."""
+    own flags into a scratch directory); the forward has one
+    instantiation a dtype at every width."""
     import os
     import re
     import subprocess

@@ -260,10 +260,11 @@ def test_head_width_padding_is_exact(dh, dtype):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('dh', [320, 512])
+@pytest.mark.parametrize('dh', [320, 512, 1152])
 def test_wide_head_width_matches_jax_grad(dh, dtype):
     """Head widths above 256 (the card's wide kernels; here their plain
-    versions): O and dQ, dK, dV of ``flash_attention`` against the JAX
+    versions; 1152 is past the forward's group of four 128-wide column
+    chunks): O and dQ, dK, dV of ``flash_attention`` against the JAX
     package's ``flash_attention(use_pallas='interpret')`` and ``jax.grad``,
     BH 2 (B 2, H 1), L 64, causal, with a key-padding bias; f32 at the
     file's tolerances, bf16 within 1e-2 of each output's largest
