@@ -229,10 +229,10 @@ Phases, each printing one JSON line:
    320 run through phase 13c's wide kernels (zero-padded to 384) under the
    same checks.
 13c. wide_flash_kernel — the three wide flash kernels
-   (``csrc/flash_attn_wide.cu``: head widths above 256; the forward on the
-   tensor cores, its scores once a 16-row query tile for a group of up to
-   four 128-wide column chunks of O; dQ and dK/dV one chunk a block on the
-   CUDA cores, their scores once a chunk) at BH 64 (B
+   (``csrc/flash_attn_wide.cu``: head widths above 256, on the tensor
+   cores; each block takes 16 rows and a group of up to four 128-wide
+   column chunks of its outputs, its scores (and dP) once a tile for the
+   group) at BH 64 (B
    32 x 2 heads), L 512, dh 512, causal, float32 and bf16, against their
    plain versions (float32: O and LSE 1e-4 absolute, each gradient 1e-4 of
    its largest magnitude; bf16: O, dQ, dK and dV 1e-2 of theirs, LSE
@@ -1008,9 +1008,9 @@ def ptxas_report(log):
 
 def demangle(mangled):
     """name<args> of a kernel from its mangled name: the last of its
-    length-prefixed name components (after any namespace) and its integer
-    or bool template arguments; ``mangled`` itself when it does not
-    parse."""
+    length-prefixed name components (after any namespace) and its template
+    arguments (float, __nv_bfloat16, integers and bools, as digits);
+    ``mangled`` itself when it does not parse."""
     pos, name = (3 if mangled.startswith('_ZN') else 2), None
     while True:
         m = re.compile(r'\d+').match(mangled, pos)
@@ -1020,12 +1020,13 @@ def demangle(mangled):
         name = mangled[m.end():pos]
     if not name:
         return mangled
-    args = re.compile(r'I((?:L\w\d+E)+)E').match(mangled, pos)
+    args = re.compile(r'I((?:f|13__nv_bfloat16|L\w\d+E)+)E').match(mangled,
+                                                                  pos)
     if args:
-        name += '<%s>' % ', '.join(re.findall(r'L\w(\d+)E', args.group(1)))
-    typ = re.compile(r'I(f|13__nv_bfloat16)E').match(mangled, pos)
-    if typ:
-        name += '<%s>' % ('float' if typ.group(1) == 'f' else '__nv_bfloat16')
+        name += '<%s>' % ', '.join(
+            'float' if a.group(1) else a.group(2) or a.group(3)
+            for a in re.finditer(r'(f)|13(__nv_bfloat16)|L\w(\d+)E',
+                                 args.group(1)))
     return name
 
 
@@ -2725,7 +2726,7 @@ def check_wide_flash_kernels(torch, F, ptxas):
     bh, scale, causal = B * H, dh ** -0.5, True
     pairs = bh * L * (L + 1) // 2
     chunks = dh // 128
-    groups = -(-chunks // 4)  # the forward's column groups
+    groups = -(-chunks // 4)  # the column groups, one a block
     out = {n: dict(tolerance=1e-2, checked='max_rel_err', cases=[])
            for n in WIDE_FLASH_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
@@ -2778,8 +2779,7 @@ def check_wide_flash_kernels(torch, F, ptxas):
                        plain_ms=cuda_ms(torch, plain, calls=2, replays=3),
                        **library, **bound(nbytes, 0, **{key: flops}), **errs)
             # every flop at the CUDA cores' rate; and the flops the column
-            # chunks (the forward's groups) add: the score products once a
-            # chunk (group)
+            # groups add: the score products (and dP) once a group
             res['bound_simt_ms'] = max(nbytes / PEAK_BYTES_PER_S,
                                        flops / PEAK_F32_FLOPS) * 1e3
             res['kernel_flops'] = flops + repeated
@@ -2806,10 +2806,10 @@ def check_wide_flash_kernels(torch, F, ptxas):
              4 * mat + row, 4 * dh * pairs, 2 * dh * pairs * (groups - 1)),
             (lambda: A._flash_bwd_dq(q, k, v, do, lse, delta, *args),
              lambda: A._bwd_dq_ref(q, k, v, do, lse, delta, *args), bwd_lib,
-             5 * mat + 2 * row, 6 * dh * pairs, 4 * dh * pairs * (chunks - 1)),
+             5 * mat + 2 * row, 6 * dh * pairs, 4 * dh * pairs * (groups - 1)),
             (lambda: A._flash_bwd_dkv(q, k, v, do, lse, delta, *args),
              lambda: A._bwd_dkv_ref(q, k, v, do, lse, delta, *args), bwd_lib,
-             6 * mat + 2 * row, 8 * dh * pairs, 4 * dh * pairs * (chunks - 1)))
+             6 * mat + 2 * row, 8 * dh * pairs, 4 * dh * pairs * (groups - 1)))
         for i, name in enumerate(WIDE_FLASH_KERNELS):
             fn, plain, lib, nbytes, flops, repeated = calls[i]
             res = case(fn, plain, lib, nbytes, flops, repeated, **errs[i],

@@ -30,11 +30,12 @@
 // bf16): at L 512, causal, f32 is bound by operations (3xTF32 at 165
 // TFLOP/s) and bf16 by bytes (989 TFLOP/s against 3.35 TB/s).
 //
-// The forward runs its products on the tensor cores with mma.sync: the f32
-// form in 3xTF32 (m16n8k8, as flash_attn_fwd.cu; 165 TFLOP/s effective),
-// the bf16 form as m16n8k16 with f32 sums (as flash_attn_bf16_fwd.cu).
-// A block has four warps and 16 query rows, and computes the scores once
-// for a group of up to four 128-wide column chunks of O:
+// All three kernels run their products on the tensor cores with mma.sync:
+// the f32 form in 3xTF32 (m16n8k8, as flash_attn_fwd.cu; 165 TFLOP/s
+// effective), the bf16 form as m16n8k16 with f32 sums (as
+// flash_attn_bf16_fwd.cu).
+// The forward's block has four warps and 16 query rows, and computes the
+// scores once for a group of up to four 128-wide column chunks of O:
 // - S = Q K^T over the whole width is split by depth: warp w takes the
 //   128-column chunks w, w + 4, ... of Q and K, so that at DH 512 each warp
 //   takes one and the scores cost 4·DH flops a visible pair, not the
@@ -72,15 +73,54 @@
 //   head's query tiles run last first (the heaviest under causal), and the
 //   groups of a query tile are neighbours on the grid, sharing its Q and K
 //   in L2; blocks are numbered on gridDim.x alone, so BH may exceed 65535.
-// dQ and dK/dV own one 128-wide column chunk of their outputs a block, one
-// output column a thread (128 threads), for 16 rows: 16 query rows (dQ) or
-// 16 keys (dK/dV); their score products (and dP = dO V^T) stream the whole
-// width in 64-wide chunks through shared memory on the CUDA cores (67
-// TFLOP/s in f32; a bf16 product is exact in f32), once a column chunk,
-// and each thread adds its column's products reading K, Q or dO straight
-// from device memory. Only column chunk (or group) 0 writes LSE. Every
-// output element has one owner and a fixed summation order, with no
-// atomics: two calls give the same bits.
+// dQ and dK/dV take the forward's structure, in one kernel template: a
+// block owns kRows = 16 rows (queries for dQ, keys for dK/dV) and one group
+// of up to four column chunks of its outputs, and steps over tiles of kBK =
+// 32 rows (keys for dQ, queries for dK/dV). It has eight warps. Per tile
+// warps 0-3 compute the score tile S = Q K^T (S^T = K Q^T for dK/dV) and
+// warps 4-7 dP = dO V^T (dP^T = V dO^T), both split by depth as the
+// forward's scores are (warp w and 4 + w take depth chunks w, w + 4, ...),
+// and leave their partial tiles in shared memory; after one barrier a warp
+// that owns an output chunk sums the partials in warp order, forms P = 2^((s
+// - LSE) log2 e) (0 by a select where masked or dropped) and, for dQ and
+// dK, dS = P (dP - delta) scale itself, and adds its chunk's product, P or
+// dS reaching the tensor cores as A fragments read from the summed tiles.
+// Warp w owns chunk 4 group + w of dQ (dQ += dS K) or of dK (dK += dS^T Q);
+// for dK/dV warp 4 + w owns that chunk of dV (dV += P^T dO): 64 f32
+// accumulators a thread, where one warp owning both dK and dV of a chunk
+// would hold 128. So at DH 512 dQ costs 6·DH flops a visible pair and dK/dV
+// 8·DH, not the 18·DH and 20·DH of one block a column chunk.
+// - The output operand is the owning warp's own tile operand over its output
+//   chunk (K for dQ, Q for dK, dO for dV), and that chunk is one of the
+//   warp's depth chunks: the warp works it last and keeps its units in
+//   shared memory for the output product, which so reads nothing from L2
+//   (at L 512, DH 512, BH 64 that took dK/dV from 1.43 to 1.26 ms (f32)
+//   and from 0.66 to 0.54 (bf16), and dQ, with its move from four warps
+//   that each computed S and dP to this shape, from 1.05 to 0.99 and from
+//   0.48 to 0.42; PERF.md). In bf16 a chunk's two A units (the block's own
+//   rows) fit their two slots, so a warp with one depth chunk (DP <= 512)
+//   loads them at its first tile only (there dK/dV 0.54 -> 0.44 ms, dQ
+//   0.42 -> 0.38); in f32 four units do not fit beside the kept B units.
+// - Each warp streams its units through its own cp.async ring, one unit
+//   ahead (two ahead made f32 slower at the registers it took); rows are
+//   padded so that the score products' fragment reads are conflict-free
+//   (the f32 output product's N-major reads of the kept units conflict two
+//   ways); ldmatrix in bf16. The block holds 216 KB (f32) or 148 KB (bf16)
+//   of shared memory at any width, one block an SM.
+// - The f32 form sums each 128-column chunk of a partial and each tile's
+//   product in a fresh fragment, added by rounded FADDs (dK and dV sum L /
+//   32 query tiles, dQ L / 32 key tiles; a chain of tensor-core sums
+//   truncates).
+// - What bounds them is the loads: at DH 512 a form that ran two units
+//   ahead took 24-26% (f32) and 38-39% (bf16) less time with no loads at
+//   all, and 1-11% less with no barrier; one block of eight warps an SM
+//   hides little of either.
+// - Under causal dQ skips the key tiles wholly after its last query and
+//   dK/dV the query tiles wholly before its first key; a head's heaviest
+//   tiles run first (dQ's last query tiles, dK/dV's first key tiles).
+// Every output element has one owner and a fixed summation order, with no
+// atomics: two calls give the same bits. Only group 0's warp 0 of the
+// forward writes LSE.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,78 +134,10 @@ using namespace ptt;
 
 // rows a block owns: queries (forward, dQ) or keys (dK/dV)
 constexpr int kRows = 16;
-constexpr int kTile = 32;   // keys (forward, dQ) or queries (dK/dV) a step
-constexpr int kChunk = 64;  // head columns a staging pass of the scores
-constexpr int kCols = 128;  // columns a chunk: a backward block's threads
-constexpr int kLd = kChunk + 1;  // staged row stride: conflict-free reads
+constexpr int kCols = 128;  // columns an output chunk
 constexpr float kNegInf = -1e30f;
 constexpr float kBiasDrop = -1e8f;  // a key with bias <= this is dropped
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// P and dS as their products take them: rounded to bf16 in the bf16 form
-template <typename T>
-__device__ __forceinline__ float round_t(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// the block's row tile and column chunk
-struct Tile {
-  int64_t bh;
-  int r0;
-  int col0;
-  int chunk;
-};
-
-__device__ __forceinline__ Tile tile_of(int L, int chunks) {
-  const int chunk = static_cast<int>(blockIdx.x % chunks);
-  const unsigned rest = blockIdx.x / chunks;
-  const unsigned tiles = (L + kRows - 1) / kRows;
-  return Tile{static_cast<int64_t>(rest / tiles),
-              static_cast<int>(rest % tiles) * kRows, chunk * kCols, chunk};
-}
-
-// rows [r0, r0 + ROWS) and columns [d0, d0 + 64) of a [L, dp] operand into
-// shared memory as f32 rows of kLd, rows past L as zeros
-template <int ROWS, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0,
-                                      int d0, int L, int dp) {
-  for (int e = threadIdx.x; e < ROWS * kChunk; e += kCols) {
-    const int r = e / kChunk, c = e % kChunk;
-    dst[r * kLd + c] =
-        r0 + r < L ? to_f(src[static_cast<int64_t>(r0 + r) * dp + d0 + c])
-                   : 0.f;
-  }
-}
-
-// acc[j] += A[a] . B[b + 8 j] over one staged chunk, for this thread's
-// score row a = tid / 8 and columns b + 8 j, b = tid % 8
-__device__ __forceinline__ void dots(float (&acc)[4], const float* A,
-                                     const float* B) {
-  const int a = threadIdx.x >> 3, b = threadIdx.x & 7;
-#pragma unroll 8
-  for (int d = 0; d < kChunk; ++d) {
-    const float x = A[a * kLd + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[j] = fmaf(x, B[(b + 8 * j) * kLd + d], acc[j]);
-  }
-}
 
 // one score of a (query, key) pair: the scaled and biased score (-1e30
 // where the pair is masked) and whether the pair keeps a probability
@@ -288,13 +260,14 @@ struct Ring {
   }
 };
 
-// sc[n] += Q K^T over one K and Q unit: keys 8n + 2t, 8n + 2t + 1 of rows
-// g, g + 8 (the accumulator layout), 3xTF32
+// sc[n] += Q K^T over one K and Q unit (K's kBK rows at `unit`, Q's kRows
+// at `qs`): keys 8n + 2t, 8n + 2t + 1 of rows g, g + 8 (the accumulator
+// layout), 3xTF32
 __device__ __forceinline__ void unit_scores(float (&sc)[kBK / 8][4],
-                                            const float* unit, int lane) {
+                                            const float* unit,
+                                            const float* qs, int lane) {
   constexpr int LD = Form<float>::kLdKQ;
   const int g = lane >> 2, t = lane & 3;
-  const float* qs = unit + kBK * LD;
 #pragma unroll
   for (int s = 0; s < Form<float>::kDS / 8; ++s) {
     // A = Q: a0 (row g, col 8s + t), a1 (row g + 8), a2 (col + 4), a3
@@ -318,8 +291,8 @@ __device__ __forceinline__ void unit_scores(float (&sc)[kBK / 8][4],
 
 // the same in bf16 (m16n8k16, f32 sums)
 __device__ __forceinline__ void unit_scores(float (&sc)[kBK / 8][4],
-                                            const bf16* unit, int lane) {
-  const bf16* qs = unit + kBK * Form<bf16>::kLdKQ;
+                                            const bf16* unit,
+                                            const bf16* qs, int lane) {
 #pragma unroll
   for (int s = 0; s < Form<bf16>::kDS / 16; ++s) {
     uint32_t a[4];
@@ -332,6 +305,13 @@ __device__ __forceinline__ void unit_scores(float (&sc)[kBK / 8][4],
       mma_bf16(sc[n + 1], a, b[2], b[3]);
     }
   }
+}
+
+// the same over one forward unit, Q's rows right after K's
+template <typename T>
+__device__ __forceinline__ void unit_scores(float (&sc)[kBK / 8][4],
+                                            const T* unit, int lane) {
+  unit_scores(sc, unit, unit + kBK * Form<T>::kLdKQ, lane);
 }
 
 // The softmax state of this thread's rows g (h = 0) and g + 8 (h = 1)
@@ -610,165 +590,470 @@ __global__ void
   }
 }
 
+// One backward warp's staged units, in the order the warp works them: per
+// tile of kBK rows (keys for dQ, queries for dK/dV), a unit for each kDS
+// columns of each of its depth chunks w, w + 4, ...: kBK rows of its score
+// product's tile operand B and the block's kRows rows of the block operand
+// A (laid out as the forward's K and Q units). A warp that owns an output
+// chunk works that depth chunk last: its B units there are the output
+// operand over the output chunk (K for dQ, Q for dK, dO for dV), and they
+// stay in shared memory for the tile's output product, handed out once
+// more as the tile's output units. So B units take kUnits slots (the
+// unit's column in its chunk picks the slot) and A units two; in bf16 a
+// chunk has two units, and a warp with one depth chunk (DP <= 512) loads
+// its A units, the same every tile, at its first tile only. Rows past L
+// load as zeros. `next` hands out the oldest unit once it has landed and
+// starts the next one (its slots were freed by the units before the one
+// handed out).
 template <typename T>
-__global__ void
-    flash_wide_dq(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  const float* __restrict__ bias, T* __restrict__ dq, int L,
-                  int dp, int n_heads, float scale, int causal) {
-  __shared__ float Qs[kRows * kLd];
-  __shared__ float Ds[kRows * kLd];  // dO
-  __shared__ float Ks[kTile * kLd];
-  __shared__ float Vs[kTile * kLd];
-  __shared__ float Ss[kRows][kTile];  // dS
-  const Tile tl = tile_of(L, dp / kCols);
-  const int64_t off = tl.bh * L * dp;
-  q += off;
-  k += off;
-  v += off;
-  dout += off;
-  dq += off;
-  const float* brow = bias ? bias + (tl.bh / n_heads) * L : nullptr;
-  const int tid = threadIdx.x, a = tid >> 3, b = tid & 7;
-  const int row = tl.r0 + a;
-  const int c = tl.col0 + tid;
-  const float lr = row < L ? lse[tl.bh * L + row] : 0.f;
-  const float dr = row < L ? delta[tl.bh * L + row] : 0.f;
-  const int last = min(tl.r0 + kRows, L) - 1;
-  const int nk = causal ? last / kTile + 1 : (L + kTile - 1) / kTile;
-  float acc[kRows];
+struct BwdRing {
+  static constexpr int kE = 16 / sizeof(T);  // elements a 16-byte copy
+  static constexpr int kUnits = kCols / Form<T>::kDS;  // units a chunk
+  static constexpr int LD = Form<T>::kLdKQ;
+  static constexpr int kB = kBK * LD, kA = kRows * LD;  // elements a slot
+  static constexpr int kBytes = (kUnits * kB + 2 * kA) * sizeof(T);
+  T* slots;           // [kUnits] B slots, then [2] A slots
+  const T *b, *a;     // the head's B and A at the lane's copy column
+  int L, dp, r0, dc;  // dc: the warp's first depth chunk
+  int nd, om;         // depth chunks; the output chunk's place among them
+                      // (-1: none)
+  int nkq, nu, nt;    // score units and all units a tile; the tiles' end
+  int ja;             // bf16: the last tile that loads A units
+  int rr, cc;         // the lane's first row and its column in a unit
+  int j, i = 0;       // the next unit to start: unit i of tile j
+  int h = 0;          // the unit of its tile to hand out next
+
+  struct Unit {
+    const T *b, *a;
+  };
+
+  // rows r0, r0 + 4, ... (N of them) of one column of a [L, dp] operand
+  template <int N>
+  __device__ __forceinline__ void rows(T* dst, const T* src, int r0) const {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * kTile;
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, dpv[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < dp; d0 += kChunk) {
-      __syncthreads();
-      stage<kRows>(Qs, q, tl.r0, d0, L, dp);
-      stage<kRows>(Ds, dout, tl.r0, d0, L, dp);
-      stage<kTile>(Ks, k, k0, d0, L, dp);
-      stage<kTile>(Vs, v, k0, d0, L, dp);
-      __syncthreads();
-      dots(s, Qs, Ks);
-      dots(dpv, Ds, Vs);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const Score sc = score(s[j], row, k0 + b + 8 * j, L, causal, brow,
-                             scale);
-      const float p = sc.keep ? expf(sc.x - lr) : 0.f;
-      Ss[a][b + 8 * j] = round_t<T>(p * (dpv[j] - dr) * scale);
-    }
-    __syncthreads();
-    const int nkeys = min(kTile, L - k0);
-    for (int kk = 0; kk < nkeys; ++kk) {
-      const float x = to_f(k[static_cast<int64_t>(k0 + kk) * dp + c]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(Ss[r][kk], x, acc[r]);
+    for (int n = 0; n < N; ++n) {
+      const int r = r0 + 4 * n;
+      const bool in = r < L;
+      cp_async16(dst + 4 * n * LD,
+                 in ? src + static_cast<int64_t>(r) * dp : src, in);
     }
   }
+
+  // the ring for tiles [j0, j1); `ja` follows from nd
+  __device__ __forceinline__ void begin(int j0, int j1) {
+    j = j0;
+    nt = nu > 0 ? j1 : 0;
+    ja = kUnits == 2 && nd == 1 ? j0 : j1;
+    start();
+  }
+
+  __device__ __forceinline__ void start() {
+    if (j < nt) {
+      if (i < nkq) {  // an output unit is already in
+        const int c = i / kUnits, u = i % kUnits;
+        const int m = om < 0 ? c : c == nd - 1 ? om : c + (c >= om);
+        const int d = (dc + kGroup * m) * kCols + u * Form<T>::kDS;
+        rows<kBK / 4>(slots + u * kB + rr * LD + cc, b + d, j * kBK + rr);
+        if (kUnits != 2 || j <= ja)
+          rows<kRows / 4>(slots + kUnits * kB + (i & 1) * kA + rr * LD + cc,
+                          a + d, r0 + rr);
+      }
+      if (++i == nu) i = 0, ++j;
+    }
+    cp_async_commit();  // one group a unit, empty for an output unit
+  }
+
+  __device__ __forceinline__ Unit next() {
+    __syncwarp();  // every lane is done with the units before the last
+    start();
+    cp_async_wait<1>();
+    __syncwarp();  // the unit is in for every lane
+    const Unit unit{slots + (h % kUnits) * kB,
+                    slots + kUnits * kB + (h & 1) * kA};
+    if (++h == nu) h = 0;
+    return unit;
+  }
+};
+
+// sacc += one depth chunk's partial scores (a fresh fragment over its
+// kUnits units: the tensor cores' f32 sums truncate)
+template <typename T>
+__device__ __forceinline__ void chunk_scores(float (&sacc)[kBK / 8][4],
+                                             BwdRing<T>& ring, int lane) {
+  float sc[kBK / 8][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
-    if (tl.r0 + r < L)
-      dq[static_cast<int64_t>(tl.r0 + r) * dp + c] = from_f<T>(acc[r]);
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+  for (int u = 0; u < BwdRing<T>::kUnits; ++u) {
+    const typename BwdRing<T>::Unit unit = ring.next();
+    unit_scores(sc, unit.b, unit.a, lane);
+  }
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[n][e] += sc[n][e];
 }
 
+// a warp's partial tile into its shared-memory rows (row g + 8 h, columns
+// 8 n + 2 t and + 1: the accumulator layout)
+template <int LDS>
+__device__ __forceinline__ void put_partial(float* mine,
+                                            const float (&sacc)[kBK / 8][4],
+                                            int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(mine + (g + 8 * h) * LDS + 8 * n + 2 * t) =
+          make_float2(sacc[n][2 * h], sacc[n][2 * h + 1]);
+}
+
+// What a backward warp needs to form P and dS of a pair: the bias row (null
+// when none), the head's LSE and delta [L], and the call's constants
+struct Grad {
+  const float* brow;
+  const float* lse;
+  const float* delta;
+  int L, causal;
+  float scale;
+};
+
+// P, or with GRAD dS = P (dP - delta) scale, of a (query, key) pair from
+// its summed S and dP: P = 2^((s - LSE) log2 e), exactly 0 by a select
+// where the pair is masked or the key dropped (in a row whose keys are all
+// dropped LSE is about -1e9, and the exponential alone would be ~e^69)
+template <bool GRAD>
+__device__ __forceinline__ float p_or_ds(float s, float dpv, int query,
+                                         int key, const Grad& gr) {
+  const Score sc = score(s, query, key, gr.L, gr.causal, gr.brow, gr.scale);
+  if (!sc.keep) return 0.f;
+  const float p = ex2((sc.x - gr.lse[query]) * kLog2e);
+  return GRAD ? p * (dpv - gr.delta[query]) * gr.scale : p;
+}
+
+// The f32 form's A operand of a tile's product, P or (GRAD) dS, in the
+// m16n8k8 A layout ([s][e]: row r0 + g + 8 (e & 1), column c0 + 8 s + t +
+// 4 (e >> 1)) from the summed partials (S at sp, dP at dpp; the kGroup
+// partials of each kRows x LDS apart, summed in warp order), split for
+// 3xTF32. DQ: the rows are queries and the columns keys; else the rows
+// are keys and the columns queries.
+template <bool DQ, bool GRAD>
+__device__ __forceinline__ void operand(uint32_t (&ab)[kBK / 8][4],
+                                        uint32_t (&as)[kBK / 8][4],
+                                        const float* sp, const float* dpp,
+                                        int r0, int c0, const Grad& gr,
+                                        int lane) {
+  constexpr int LDS = Form<float>::kLdS;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < kBK / 8; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = (g + 8 * (e & 1)) * LDS + 8 * s + t + 4 * (e >> 1);
+      float sum = sp[at], dsum = 0.f;
+#pragma unroll
+      for (int w = 1; w < kGroup; ++w) sum += sp[w * kRows * LDS + at];
+      if (GRAD) {
+        dsum = dpp[at];
+#pragma unroll
+        for (int w = 1; w < kGroup; ++w) dsum += dpp[w * kRows * LDS + at];
+      }
+      const int row = r0 + g + 8 * (e & 1);
+      const int col = c0 + 8 * s + t + 4 * (e >> 1);
+      const float x = p_or_ds<GRAD>(sum, dsum, DQ ? row : col,
+                                    DQ ? col : row, gr);
+      split_tf32(x, ab[s][e], as[s][e]);
+    }
+}
+
+// acc += A B over a tile for the warp's output chunk, f32 form: A from
+// `operand`, B the chunk's kUnits output units read N-major (b0: row 8 s +
+// t, column 8 n + g; b1: row + 4), each unit's product in a fresh fragment
+// added by rounded FADDs
+__device__ __forceinline__ void out_product(
+    float (&acc)[kCols / 8][4], const uint32_t (&ab)[kBK / 8][4],
+    const uint32_t (&as)[kBK / 8][4], BwdRing<float>& ring, int lane) {
+  constexpr int LD = BwdRing<float>::LD, NO = Form<float>::kDS / 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < BwdRing<float>::kUnits; ++u) {
+    const float* vs = ring.next().b;
+    float pv[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kBK / 8; ++s) {
+      uint32_t bb[NO][2], bs[NO][2];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const float* vp = vs + (8 * s + t) * LD + 8 * n + g;
+        split_tf32(vp[0], bb[n][0], bs[n][0]);
+        split_tf32(vp[4 * LD], bb[n][1], bs[n][1]);
+      }
+      mma_3xtf32<NO>(pv, ab[s], as[s], bb, bs);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[NO * u + n][e] += pv[n][e];
+  }
+}
+
+// The bf16 form's A operand: the summed partials read in the accumulator
+// layout ([n][e]: row r0 + g + 8 (e >> 1), column c0 + 8 n + 2 t + (e & 1))
+// as float2 pairs, P or dS formed in f32 and rounded to bf16 into the A
+// fragments of m16n8k16
+template <bool DQ, bool GRAD>
+__device__ __forceinline__ void operand(uint32_t (&pa)[kBK / 16][4],
+                                        const float* sp, const float* dpp,
+                                        int r0, int c0, const Grad& gr,
+                                        int lane) {
+  constexpr int LDS = Form<bf16>::kLdS;
+  const int g = lane >> 2, t = lane & 3;
+  float x[kBK / 8][4];
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = (g + 8 * h) * LDS + 8 * n + 2 * t;
+      float2 sum = *reinterpret_cast<const float2*>(sp + at);
+      float2 dsum = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int w = 1; w < kGroup; ++w) {
+        const float2 y =
+            *reinterpret_cast<const float2*>(sp + w * kRows * LDS + at);
+        sum.x += y.x;
+        sum.y += y.y;
+      }
+      if (GRAD) {
+        dsum = *reinterpret_cast<const float2*>(dpp + at);
+#pragma unroll
+        for (int w = 1; w < kGroup; ++w) {
+          const float2 y =
+              *reinterpret_cast<const float2*>(dpp + w * kRows * LDS + at);
+          dsum.x += y.x;
+          dsum.y += y.y;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int row = r0 + g + 8 * h, col = c0 + 8 * n + 2 * t + c;
+        x[n][2 * h + c] =
+            p_or_ds<GRAD>(c ? sum.y : sum.x, c ? dsum.y : dsum.x,
+                          DQ ? row : col, DQ ? col : row, gr);
+      }
+    }
+#pragma unroll
+  for (int s = 0; s < kBK / 16; ++s) pack_a(pa[s], x, s);
+}
+
+// acc += A B in bf16: the output units read N-major by ldmatrix.trans,
+// summed in place in f32
+__device__ __forceinline__ void out_product(float (&acc)[kCols / 8][4],
+                                            const uint32_t (&pa)[kBK / 16][4],
+                                            BwdRing<bf16>& ring, int lane) {
+  constexpr int NO = Form<bf16>::kDS / 8;
+  static_assert(BwdRing<bf16>::LD == kLdB<64>, "ldmatrix reads kLdB rows");
+#pragma unroll
+  for (int u = 0; u < BwdRing<bf16>::kUnits; ++u) {
+    const bf16* vs = ring.next().b;
+#pragma unroll
+    for (int s = 0; s < kBK / 16; ++s)
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t b[4];
+        load_b_cols<64>(b, vs, 16 * s, 8 * n, lane);
+        mma_bf16(acc[NO * u + n], pa[s], b[0], b[1]);
+        mma_bf16(acc[NO * u + n + 1], pa[s], b[2], b[3]);
+      }
+  }
+}
+
+// One tile's product of a warp that owns an output chunk, in either form:
+// its operand (P, or with GRAD dS) from the summed partials, then acc +=
+// operand x the chunk's output units
+template <bool DQ, bool GRAD, typename T>
+__device__ __forceinline__ void tile_grad(float (&acc)[kCols / 8][4],
+                                          const float* sp, const float* dpp,
+                                          BwdRing<T>& ring, int r0, int c0,
+                                          const Grad& gr, int lane) {
+  if constexpr (sizeof(T) == 4) {
+    uint32_t ab[kBK / 8][4], as[kBK / 8][4];
+    operand<DQ, GRAD>(ab, as, sp, dpp, r0, c0, gr, lane);
+    out_product(acc, ab, as, ring, lane);
+  } else {
+    uint32_t pa[kBK / 16][4];
+    operand<DQ, GRAD>(pa, sp, dpp, r0, c0, gr, lane);
+    out_product(acc, pa, ring, lane);
+  }
+}
+
+// the block's kRows rows of a warp's output chunk (row r0 + g + 8 h,
+// columns 8 n + 2 t and + 1 of the accumulators), rows past L left out
 template <typename T>
+__device__ __forceinline__ void store_rows(T* out,
+                                           const float (&acc)[kCols / 8][4],
+                                           int r0, int L, int dp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= L) continue;
+    T* orow = out + static_cast<int64_t>(row) * dp;
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n) {
+      const float a = acc[n][2 * h], b = acc[n][2 * h + 1];
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = make_float2(a, b);
+      else
+        *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) = pack_bf16(a, b);
+    }
+  }
+}
+
+// The backward's shared memory: each of its 2 kGroup warps' slots, then
+// two buffers (tile j in buffer j & 1) of the S and dP partials, [2]
+// [kGroup][kRows][LDS] each
+template <typename T>
+constexpr int bwd_smem_bytes() {
+  return 2 * kGroup * BwdRing<T>::kBytes +
+         2 * 2 * kGroup * kRows * Form<T>::kLdS * 4;
+}
+
+// dQ (DQ: out0 = dQ) or dK and dV (out0 = dK, out1 = dV) of a block's
+// kRows rows (queries or keys) and one group of up to four column chunks.
+// Warps 0-3 (role 0) compute the partial S (S^T for dK/dV) over depth
+// chunks w, w + 4, ..., warps 4-7 (role 1) dP (dP^T) over the same; warp w
+// of role 0 owns chunk 4 group + w of dQ or dK, and for dK/dV warp 4 + w
+// owns that chunk of dV.
+template <typename T, bool DQ>
 __global__ void
-    flash_wide_dkv(const T* __restrict__ q, const T* __restrict__ k,
+    flash_wide_bwd(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
-                   const float* __restrict__ bias, T* __restrict__ dk,
-                   T* __restrict__ dv, int L, int dp, int n_heads,
+                   const float* __restrict__ bias, T* __restrict__ out0,
+                   T* __restrict__ out1, int L, int dp, int n_heads,
                    float scale, int causal) {
-  __shared__ float Ks[kRows * kLd];
-  __shared__ float Vs[kRows * kLd];
-  __shared__ float Qs[kTile * kLd];
-  __shared__ float Ds[kTile * kLd];  // dO
-  __shared__ float Ps[kRows][kTile];  // P^T
-  __shared__ float Ss[kRows][kTile];  // dS^T
-  __shared__ float lse_s[kTile], delta_s[kTile];
-  const Tile tl = tile_of(L, dp / kCols);
-  const int64_t off = tl.bh * L * dp;
-  q += off;
-  k += off;
-  v += off;
-  dout += off;
-  dk += off;
-  dv += off;
-  lse += tl.bh * L;
-  delta += tl.bh * L;
-  const float* brow = bias ? bias + (tl.bh / n_heads) * L : nullptr;
-  const int tid = threadIdx.x, a = tid >> 3, b = tid & 7;
-  const int key = tl.r0 + a;  // this thread's score row is a key
-  const int c = tl.col0 + tid;
-  float acc_k[kRows], acc_v[kRows];
+  constexpr int LDS = Form<T>::kLdS, kPart = kGroup * kRows * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* parts = reinterpret_cast<float*>(smem_raw +
+                                          2 * kGroup * BwdRing<T>::kBytes);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int role = warp / kGroup, lw = warp % kGroup;
+  // blocks numbered ((bh, row tile), group), a head's heaviest tiles under
+  // causal first: dQ's last query tiles, dK/dV's first key tiles
+  const int nc = dp / kCols, groups = (nc + kGroup - 1) / kGroup;
+  const int group = static_cast<int>(blockIdx.x % groups);
+  const unsigned rest = blockIdx.x / groups;
+  const int tiles = (L + kRows - 1) / kRows;
+  const int64_t bh = rest / tiles;
+  const int tile = static_cast<int>(rest % tiles);
+  const int r0 = (DQ ? tiles - 1 - tile : tile) * kRows;
+  const int64_t off = bh * L * dp;
+  const Grad gr{bias ? bias + (bh / n_heads) * L : nullptr, lse + bh * L,
+                delta + bh * L, L, causal, scale};
+  // causal: dQ skips the key tiles wholly after its last query, dK/dV the
+  // query tiles wholly before its first key
+  const int nt = (L + kBK - 1) / kBK;
+  const int j0 = !DQ && causal ? r0 / kBK : 0;
+  const int j1 = DQ && causal ? (min(r0 + kRows, L) - 1) / kBK + 1 : nt;
+  // the warp's depth chunks w, w + 4, ..., and its column chunk
+  const int nd = lw < nc ? (nc - 1 - lw) / kGroup + 1 : 0;
+  const int oc = (group * kGroup + lw) * kCols;
+  const bool owns = oc < dp && (!DQ || role == 0);
+  // B, the tile operand, and A, the block's: S = Q K^T and dP = dO V^T for
+  // dQ; S^T = K Q^T and dP^T = V dO^T for dK/dV
+  const T* B = DQ ? (role ? v : k) : (role ? dout : q);
+  const T* A = DQ ? (role ? dout : q) : (role ? v : k);
+  const int cc = (lane & 7) * BwdRing<T>::kE;
+  BwdRing<T> ring;
+  ring.slots = reinterpret_cast<T*>(smem_raw + warp * BwdRing<T>::kBytes);
+  ring.b = B + off + cc;
+  ring.a = A + off + cc;
+  ring.L = L;
+  ring.dp = dp;
+  ring.r0 = r0;
+  ring.dc = lw;
+  ring.nd = nd;
+  ring.om = owns ? group : -1;
+  ring.nkq = nd * BwdRing<T>::kUnits;
+  ring.nu = ring.nkq + (owns ? BwdRing<T>::kUnits : 0);
+  ring.rr = lane >> 3;
+  ring.cc = cc;
+  ring.begin(j0, j1);
+
+  float acc[kCols / 8][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc_k[r] = acc_v[r] = 0.f;
-  // causal: query tiles wholly above the block's first key see none of it
-  const int first = causal ? (tl.r0 / kTile) * kTile : 0;
-  for (int q0 = first; q0 < L; q0 += kTile) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, dpv[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < dp; d0 += kChunk) {
-      __syncthreads();
-      stage<kRows>(Ks, k, tl.r0, d0, L, dp);
-      stage<kRows>(Vs, v, tl.r0, d0, L, dp);
-      stage<kTile>(Qs, q, q0, d0, L, dp);
-      stage<kTile>(Ds, dout, q0, d0, L, dp);
-      if (d0 == 0 && tid < kTile) {
-        const bool in = q0 + tid < L;
-        lse_s[tid] = in ? lse[q0 + tid] : 0.f;
-        delta_s[tid] = in ? delta[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      dots(s, Ks, Qs);   // S^T: this key against queries b + 8 j
-      dots(dpv, Vs, Ds);  // dP^T
-    }
+  for (int n = 0; n < kCols / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = b + 8 * j;
-      const Score sc = score(s[j], q0 + i, key, L, causal, brow, scale);
-      const float p = sc.keep ? expf(sc.x - lse_s[i]) : 0.f;
-      Ps[a][i] = round_t<T>(p);
-      Ss[a][i] = round_t<T>(p * (dpv[j] - delta_s[i]) * scale);
-    }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = j0; j < j1; ++j) {
+    float sacc[kBK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+    for (int c = 0; c < nd; ++c) chunk_scores(sacc, ring, lane);
+    // the S partials, then dP's, of tile j in buffer j & 1 (zeros from a
+    // warp without a depth chunk): a warp writes tile j + 2's only after
+    // the barrier of tile j + 1, which every warp reaches after its reads
+    // of tile j
+    float* sp = parts + (j & 1) * 2 * kPart;
+    put_partial<LDS>(sp + role * kPart + lw * kRows * LDS, sacc, lane);
     __syncthreads();
-    const int nq = min(kTile, L - q0);
-    for (int i = 0; i < nq; ++i) {
-      const int64_t at = static_cast<int64_t>(q0 + i) * dp + c;
-      const float xo = to_f(dout[at]), xq = to_f(q[at]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        acc_v[r] = fmaf(Ps[r][i], xo, acc_v[r]);
-        acc_k[r] = fmaf(Ss[r][i], xq, acc_k[r]);
-      }
+    if (owns) {
+      const int c0 = j * kBK;
+      if (DQ)
+        tile_grad<true, true>(acc, sp, sp + kPart, ring, r0, c0, gr, lane);
+      else if (role == 0)  // dK += dS^T Q
+        tile_grad<false, true>(acc, sp, sp + kPart, ring, r0, c0, gr, lane);
+      else  // dV += P^T dO
+        tile_grad<false, false>(acc, sp, nullptr, ring, r0, c0, gr, lane);
     }
   }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-    if (tl.r0 + r < L) {
-      const int64_t at = static_cast<int64_t>(tl.r0 + r) * dp + c;
-      dk[at] = from_f<T>(acc_k[r]);
-      dv[at] = from_f<T>(acc_v[r]);
-    }
+  if (owns) store_rows((role ? out1 : out0) + off + oc, acc, r0, L, dp, lane);
 }
 
-// blocks of a backward launch: (row tile) x (column chunk) x BH on
-// gridDim.x; 0 when the call cannot launch (the forward's, a block a group
-// of four chunks, are fewer)
+// blocks of a launch: (row tile) x (group of four column chunks) x BH on
+// gridDim.x; 0 when the call cannot launch
 int64_t grid(int64_t bh, int64_t L, int64_t dh) {
-  const int64_t blocks = bh * ((L + kRows - 1) / kRows) * (dh / kCols);
+  const int64_t groups = (dh / kCols + kGroup - 1) / kGroup;
+  const int64_t blocks = bh * ((L + kRows - 1) / kRows) * groups;
   return blocks > INT32_MAX ? 0 : blocks;
 }
 
-// 0 when the arguments can launch, else the CUDA error to return
-int check(int64_t bh, int64_t L, int64_t dh, int64_t n_heads) {
+// 0 when the arguments can launch, else the CUDA error to return: the
+// operands (q, k, v and, in the backward, dO) must be 16-byte aligned for
+// cp.async
+int check(int64_t bh, int64_t L, int64_t dh, int64_t n_heads,
+          const void* q, const void* k, const void* v, const void* dout) {
   if (n_heads <= 0 || L > INT32_MAX / 2 || dh <= 256 || dh % kCols != 0 ||
       dh > INT32_MAX / 2 || grid(bh, L, dh) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
+       15) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return 0;
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once an
+// instantiation (idempotent, so a racing second call is harmless); keeping
+// it out of later launches lets them be captured in CUDA graphs
+template <typename Kernel>
+int configure(Kernel kernel, int bytes, bool* done) {
+  if (*done) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *done = true;
   return 0;
 }
 
@@ -777,26 +1062,13 @@ int fwd(const void* q, const void* k, const void* v, const void* bias,
         void* o, void* lse, int64_t bh, int64_t L, int64_t dh,
         int64_t n_heads, float scale, int causal, void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (const int rc = check(bh, L, dh, n_heads)) return rc;
-  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-        reinterpret_cast<uintptr_t>(v)) & 15) != 0)
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (const int rc = check(bh, L, dh, n_heads, q, k, v, q)) return rc;
   constexpr int bytes = fwd_smem_bytes<T>();
-  // once per instantiation (idempotent, so a racing second call is
-  // harmless); keeping it out of later launches lets them be captured in
-  // CUDA graphs
   static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_wide_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const int64_t groups = (dh / kCols + kGroup - 1) / kGroup;
-  const int64_t blocks = bh * ((L + kRows - 1) / kRows) * groups;
-  flash_wide_fwd<T><<<static_cast<unsigned>(blocks), kGroup * 32, bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (const int rc = configure(flash_wide_fwd<T>, bytes, &configured))
+    return rc;
+  flash_wide_fwd<T><<<static_cast<unsigned>(grid(bh, L, dh)), kGroup * 32,
+                      bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(o), static_cast<float*>(lse), static_cast<int>(L),
@@ -804,38 +1076,27 @@ int fwd(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, const void* bias, void* dq,
-           int64_t bh, int64_t L, int64_t dh, int64_t n_heads, float scale,
-           int causal, void* stream) {
+// dQ (DQ: out0) or dK and dV (out0, out1)
+template <typename T, bool DQ>
+int bwd(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, const void* bias, void* out0,
+        void* out1, int64_t bh, int64_t L, int64_t dh, int64_t n_heads,
+        float scale, int causal, void* stream) {
   if (bh <= 0 || L <= 0) return 0;
-  if (const int rc = check(bh, L, dh, n_heads)) return rc;
-  flash_wide_dq<T><<<static_cast<unsigned>(grid(bh, L, dh)), kCols, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  if (const int rc = check(bh, L, dh, n_heads, q, k, v, dout)) return rc;
+  constexpr int bytes = bwd_smem_bytes<T>();
+  static_assert(bytes <= 232448, "a block takes at most 227 KB");
+  static bool configured = false;
+  if (const int rc = configure(flash_wide_bwd<T, DQ>, bytes, &configured))
+    return rc;
+  flash_wide_bwd<T, DQ><<<static_cast<unsigned>(grid(bh, L, dh)),
+                          2 * kGroup * 32, bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(bias), static_cast<T*>(dq),
-      static_cast<int>(L), static_cast<int>(dh), static_cast<int>(n_heads),
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, const void* bias, void* dk,
-            void* dv, int64_t bh, int64_t L, int64_t dh, int64_t n_heads,
-            float scale, int causal, void* stream) {
-  if (bh <= 0 || L <= 0) return 0;
-  if (const int rc = check(bh, L, dh, n_heads)) return rc;
-  flash_wide_dkv<T><<<static_cast<unsigned>(grid(bh, L, dh)), kCols, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(bias), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<int>(L), static_cast<int>(dh),
+      static_cast<const float*>(bias), static_cast<T*>(out0),
+      static_cast<T*>(out1), static_cast<int>(L), static_cast<int>(dh),
       static_cast<int>(n_heads), scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -874,8 +1135,8 @@ extern "C" int ptt_flash_wide_bwd_dq(const void* q, const void* k,
                                      const void* bias, void* dq, int64_t bh,
                                      int64_t L, int64_t dh, int64_t n_heads,
                                      float scale, int causal, void* stream) {
-  return bwd_dq<float>(q, k, v, dout, lse, delta, bias, dq, bh, L, dh,
-                       n_heads, scale, causal, stream);
+  return bwd<float, true>(q, k, v, dout, lse, delta, bias, dq, nullptr, bh,
+                          L, dh, n_heads, scale, causal, stream);
 }
 
 extern "C" int ptt_flash_wide_bf16_bwd_dq(const void* q, const void* k,
@@ -885,8 +1146,9 @@ extern "C" int ptt_flash_wide_bf16_bwd_dq(const void* q, const void* k,
                                           int64_t bh, int64_t L, int64_t dh,
                                           int64_t n_heads, float scale,
                                           int causal, void* stream) {
-  return bwd_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, bias, dq, bh, L,
-                               dh, n_heads, scale, causal, stream);
+  return bwd<__nv_bfloat16, true>(q, k, v, dout, lse, delta, bias, dq,
+                                  nullptr, bh, L, dh, n_heads, scale, causal,
+                                  stream);
 }
 
 // As dQ, with outputs dk, dv [bh, L, dh].
@@ -897,8 +1159,8 @@ extern "C" int ptt_flash_wide_bwd_dkv(const void* q, const void* k,
                                       int64_t bh, int64_t L, int64_t dh,
                                       int64_t n_heads, float scale,
                                       int causal, void* stream) {
-  return bwd_dkv<float>(q, k, v, dout, lse, delta, bias, dk, dv, bh, L, dh,
-                        n_heads, scale, causal, stream);
+  return bwd<float, false>(q, k, v, dout, lse, delta, bias, dk, dv, bh, L,
+                           dh, n_heads, scale, causal, stream);
 }
 
 extern "C" int ptt_flash_wide_bf16_bwd_dkv(const void* q, const void* k,
@@ -910,6 +1172,7 @@ extern "C" int ptt_flash_wide_bf16_bwd_dkv(const void* q, const void* k,
                                            int64_t dh, int64_t n_heads,
                                            float scale, int causal,
                                            void* stream) {
-  return bwd_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, bias, dk, dv, bh,
-                                L, dh, n_heads, scale, causal, stream);
+  return bwd<__nv_bfloat16, false>(q, k, v, dout, lse, delta, bias, dk, dv,
+                                   bh, L, dh, n_heads, scale, causal,
+                                   stream);
 }

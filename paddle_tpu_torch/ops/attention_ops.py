@@ -33,9 +33,10 @@ The kernels are instantiated at head widths 16, 32, 64, 128 and 256 (at
 launch). Above 256 the wide kernels take over (``csrc/flash_attn_wide.cu``,
 f32 and bf16 forms, counted as ``flash_attention_wide``,
 ``flash_attention_wide_bwd_dq`` and ``flash_attention_wide_bwd_dkv``) at
-any multiple of 128: the forward on the tensor cores, its scores computed
-once a query tile for up to four 128-wide column chunks of O, one chunk a
-warp; dQ and dK/dV one column chunk a block, with CUDA-core products.
+any multiple of 128, all three on the tensor cores: each block takes 16
+rows and a group of up to four 128-wide column chunks of its outputs, one
+chunk a warp, and computes the scores (and in dQ and dK/dV dP) once a
+tile for the group, its warps splitting the depth.
 :func:`_flash_fwd` and :func:`_flash_bwd` take any width from 1 up on the
 card by zero-padding q, k and v (and dO) along dh to the next of those
 widths (above 256: the next multiple of

@@ -1313,6 +1313,15 @@ def test_flash_wide_forward_takes_any_width(dev, dh, dtype):
         assert not t[:H].any()
 
 
+def test_flash_wide_backward_sums_long_rows(dev):
+    """At L 2048 (BH 2, dh 384, causal) dQ sums 64 key tiles and dK/dV 64
+    query tiles into each output element: each tile's f32 product joins
+    the sum by a rounded FADD (one chain of tensor-core sums truncates),
+    so the gradients hold within 1e-4 of their largest magnitude."""
+    q, k, v, do = (_randn(dev, 2, 2048, 384, seed=s) for s in range(4))
+    _check_wide(q, k, v, do, True, None, 1)
+
+
 def test_flash_wide_kernels_do_not_spill(dev, tmp_path):
     """ptxas reports no spill in any wide kernel (nvcc with the library's
     own flags into a scratch directory); the forward has one
