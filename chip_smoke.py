@@ -478,12 +478,18 @@ Phases, each printing one JSON line:
    ms, tokens/s, model TFLOP/s, peak memory; and 2 layers at B 2 without
    dropout, three ``run()`` steps on the card against the CPU Executor at
    the AMP limits (loss 5e-3 relative, every parameter and moment within
-   2e-2 of its group's largest magnitude; the K slice of each qkv bias
-   within 10 x lr). (b) ``lm_dh256_f32``: the float32 flash program of
+   2e-2 of its group's largest magnitude: the parameters, the first
+   moments, the second moments; the K slice of each qkv bias within 10 x
+   lr; the parameters' change over the three steps, the K slices aside,
+   as a whole: its norm within 2e-2 relative and its difference's norm
+   within 0.1 of its norm, as an element whose gradient is within bf16's
+   rounding of 0 may take the other sign of Adam's normalised update).
+   (b) ``lm_dh256_f32``: the float32 flash program of
    the same configuration at B 4, 5 ``run()`` steps launching exactly the
    f32 path's kernels (the f32 flash forward, dQ and dK/dV and the FFN 8
    each), and 2 layers held to the CPU at the f32 limits (loss 1e-4
-   relative, every tensor within 1e-3 of its own largest magnitude).
+   relative, every tensor within 1e-3 of its own largest magnitude; the
+   parameters' change, its norm and its difference's norm, within 1e-3).
    (c) ``lm_dh256_engine``: the contiguous ``GenerateEngine`` at the same
    configuration (dropout 0), 8 slots, max_len 512, buckets 128, 256 and
    512: 8 concurrent requests (prompts of 5..448 tokens, 32 new tokens,
@@ -499,6 +505,37 @@ Phases, each printing one JSON line:
    from JAX's key stream, each fetch within the corpus's rule,
    |got - cpu| <= loosen (1e-4 + 1e-3 |cpu|); one line a op type (cases
    run, worst normalised violation); any failing case fails the phase.
+
+26. train_lm_example — the repo's training example, examples/train_lm.py,
+   on the port call for call: ``build_lm`` at its configuration (the
+   bench's flagship, bench.py:1058-1060: V 32000, L 512, d 512, 8 heads,
+   6 layers, dropout 0.1, attention dropout 0, flash), the rate
+   ``noam_decay(512, 400)`` (ops on the ``@LR_DECAY_COUNTER@`` step
+   counter, computed on the card inside the step) and
+   ``mixed_precision.decorate(Adam(learning_rate=lr))`` (76 plain
+   ``adam`` ops, no fused Adam), at the example's B 64 with its 8 batches
+   from ``RandomState(0)`` moved to the card once. First the kernels at
+   this path's shapes (the gather, LN forward and backward at N 32768, CE
+   at 32768 x 32000; the bf16 flash kernels' case is phase 13's LM case,
+   this path's shape). (a) ``train_lm_example_hold``: the program at 2
+   layers, B 2, dropout 0, 3 ``run()`` steps on the card against the CPU
+   Executor at the AMP limits (phase 22's), the counter starting at 396 on
+   both sides (steps 397-399: the rate 2.2e-3, near its warm-up peak, so
+   that a wrong or ignored rate in the ``adam`` ops moves the parameters'
+   change off the CPU's), the counters equal. (b) Step 1
+   on a copy of the initial state through ``Executor.run``. (c) The
+   example's loop: ``run_fused`` windows of 50 steps, one warm, then two
+   timed (the best window's step ms, tokens/s), every replay of the timed
+   windows launching exactly the path's kernels, one capture. (d) One
+   profiled window of 10 steps: device ms a step, busy share, CUDA
+   launches a step and no host-to-device copy. (e) One ``Executor.run``
+   step timed eagerly. Checks: the rate at steps 1, 50, 100, 150 (and the
+   later ones) within 1e-6 relative of noam's float64 closed form; the
+   counter an int64 equal to the steps run; the loss finite and fallen
+   from step 1 to step 150; and ``run_fused`` over 4 steps bitwise equal
+   to 4 ``run()`` calls from one state (two builds with one seed: the
+   dropout masks follow the program's counted stream), losses, rates,
+   state and counter.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -719,6 +756,22 @@ CTR_EAGER_STEPS = 5
 # run_fused over CTR_FUSED_K batches against as many run() calls
 CTR_HOLD_V, CTR_HOLD_B, CTR_HOLD_STEPS = 1000, 64, 3
 CTR_FUSED_K = 4
+# phase 26: examples/train_lm.py (its LMConfig is bench.py:1058-1060's
+# flagship; noam_decay(d_model, 400), decorate(Adam(learning_rate=lr)),
+# B 64, 8 batches from RandomState(0), run_fused windows of 50 steps)
+EXAMPLE_LM = dict(vocab_size=32000, seq_len=512, d_model=512, n_head=8,
+                  n_layer=6, d_ff=2048, dropout=0.1, attn_dropout=0.0,
+                  use_flash_attention=True)
+EXAMPLE_B, EXAMPLE_K, EXAMPLE_WINDOW, EXAMPLE_WARMUP = 64, 8, 50, 400
+EXAMPLE_TIMED = 2           # timed windows after the warm one
+EXAMPLE_PROFILED = 10       # steps of the profiled window
+EXAMPLE_BITWISE_STEPS = 4
+COUNTER = '@LR_DECAY_COUNTER@'
+# where a held program's step counter starts (phase 26 (a))
+EXAMPLE_HOLD_COUNTER0 = 396
+# the AMP path's kernels but the fused Adam: the example's Adam is not
+# fused, so it appends one ``adam`` op a parameter (plain torch)
+EXAMPLE_KERNELS = tuple(k for k in AMP_TRAIN_KERNELS if k != 'fused_adam')
 PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'engine_spec': PAGED_KERNELS,
                 'train': TRAIN_KERNELS,
@@ -759,7 +812,9 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'lm_dh256_engine': ENGINE_KERNELS,
                 'flash_wide': TRAIN_KERNELS + WIDE_FLASH_KERNELS,
                 'flash_wide_amp': AMP_BERT_UNFUSED_KERNELS +
-                WIDE_FLASH_KERNELS}
+                WIDE_FLASH_KERNELS,
+                'train_lm_example': EXAMPLE_KERNELS,
+                'train_lm_example_hold': EXAMPLE_KERNELS}
 
 
 def emit(obj):
@@ -4278,16 +4333,18 @@ def image_program(fluid, build, lr, amp=True):
 
 
 def state_arrays(scope):
-    """{name: numpy copy} of every tensor of ``scope`` (float32 but for a
-    float64 tensor: numpy has no bf16)."""
+    """{name: numpy copy} of every tensor of ``scope`` (a floating one
+    float32 but for a float64 tensor: numpy has no bf16; an integer one,
+    such as the schedules' step counter, in its own dtype)."""
     import torch
     out = {}
     for n in scope.names():
         v = scope.get(n)
         if hasattr(v, 'detach'):
             v = v.detach()
-            out[n] = (v if v.dtype == torch.float64 else v.float()) \
-                .cpu().numpy().copy()
+            if v.is_floating_point() and v.dtype != torch.float64:
+                v = v.float()
+            out[n] = v.cpu().numpy().copy()
     return out
 
 
@@ -4315,6 +4372,31 @@ def hold_steps(got, want, gstate, wstate, groups, loss_limit):
                           scale=scale, limit=limit, tensors=len(names))
         if not out[label]['rel_err_max'] <= limit:
             failures.append('%s %s off by %g' % (label, worst, err[worst]))
+    return out, failures
+
+
+def hold_change(init, gstate, wstate, names, norm_limit, diff_limit):
+    """The change of the tensors ``names`` from ``init`` over two runs,
+    held as one vector: ``gstate``'s change within ``norm_limit``
+    relative of ``wstate``'s in norm, and the two changes' difference
+    within ``diff_limit`` of ``wstate``'s change's norm (where Adam's
+    first, normalised update takes the sign of a gradient within rounding
+    of 0, the two may differ by twice the rate in such an element).
+    Returns (summary, failures)."""
+    def change(st):
+        return np.concatenate([(st[n] - init[n]).ravel() for n in names]
+                              ).astype(np.float64)
+    dg, dw = change(gstate), change(wstate)
+    ref = float(np.linalg.norm(dw))
+    out = dict(norm=ref, norm_rel_err=abs(float(np.linalg.norm(dg)) /
+                                          max(ref, 1e-300) - 1),
+               diff_rel=float(np.linalg.norm(dg - dw)) / max(ref, 1e-300),
+               norm_limit=norm_limit, diff_limit=diff_limit,
+               tensors=len(names))
+    failures = []
+    if not (ref > 0 and out['norm_rel_err'] <= norm_limit and
+            out['diff_rel'] <= diff_limit):
+        failures.append('the parameters\' change %s' % out)
     return out, failures
 
 
@@ -5004,20 +5086,24 @@ def lstm_mixed_fused(torch, fluid, batches):
 
 
 def htod_copies(torch, fn):
-    """(host-to-device copies, device kernels) the profiler records over
-    one call of ``fn``."""
+    """(host-to-device copies, device kernels, wall ms, device ms) the
+    profiler records over one call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     copies = sum(e.count for e in events if 'HtoD' in e.key)
-    kernels = sum(e.count for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA and
-                  'Memcpy' not in e.key and 'Memset' not in e.key)
-    return copies, kernels
+    kernels = sum(e.count for e in device
+                  if 'Memcpy' not in e.key and 'Memset' not in e.key)
+    return (copies, kernels, wall_ms,
+            sum(e.self_device_time_total for e in device) / 1e3)
 
 
 def lstm_bucket(torch, kt, exe, main, loss, scope, sl, batches, per_step):
@@ -5070,7 +5156,7 @@ def lstm_bucket(torch, kt, exe, main, loss, scope, sl, batches, per_step):
                                   rounds=LSTM_FUSED_ROUNDS)
     fused['peak_mem_bytes'] = torch.cuda.max_memory_allocated() - base
     kt.reset_counts()
-    copies, kernels = htod_copies(torch, lambda: exe.run_fused(
+    copies, kernels, _, _ = htod_copies(torch, lambda: exe.run_fused(
         main, stacked, fetch_list=[loss], scope=scope, return_numpy=False,
         steps=2)[0].cpu())
     fused['htod_copies_in_2_steps'] = copies
@@ -5355,7 +5441,7 @@ def ctr_row(torch, kt, fluid, smi, name, vocab, dim, dist, rounds, per_step):
                                   per_step, steps=CTR_WINDOW, rounds=rounds)
     fused['peak_mem_bytes'] = torch.cuda.max_memory_allocated() - base
     kt.reset_counts()
-    copies, kernels = htod_copies(torch, lambda: exe.run_fused(
+    copies, kernels, _, _ = htod_copies(torch, lambda: exe.run_fused(
         main, stacked, fetch_list=[loss], scope=scope, return_numpy=False,
         steps=2)[0].cpu())
     fused['htod_copies_in_2_steps'] = copies
@@ -5424,26 +5510,37 @@ def lm_feed(torch, cfg, n, seed, dev):
 
 
 def lm_program_hold(torch, kt, fluid, smi, cfg, amp, path,
-                    phase='lm_dh256_hold'):
-    """Phase 22's holds: ``cfg``'s training program (Adam 1e-4, decorated
-    with ``amp``) on the card against the CPU Executor from one
-    initialization, DH256_HOLD_STEPS ``run()`` steps on one batch of
-    DH256_HOLD_B, each card step launching exactly the path's kernels: the
-    losses within 1e-4 relative and every parameter and moment within
-    1e-3 of its own largest magnitude (float32), or 5e-3 and 2e-2 of its
-    group's (AMP); the K slice of each qkv bias, whose true gradient is 0,
-    within 10 x lr. Returns (summary, launch counts of the card's
-    steps)."""
+                    phase='lm_dh256_hold', build=None):
+    """Phase 22's holds (and phase 26's, with its ``build``): ``cfg``'s
+    training program (Adam 1e-4, decorated with ``amp``; or what
+    ``build(fluid, cfg, amp)`` returns as ``build_program`` does) on the
+    card against the CPU Executor from one initialization,
+    DH256_HOLD_STEPS ``run()`` steps on one batch of DH256_HOLD_B, each
+    card step launching exactly the path's kernels (one fused Adam where
+    the program has one): the losses within 1e-4 relative and every
+    parameter and moment within 1e-3 of its own largest magnitude
+    (float32), or 5e-3 and 2e-2 of its group's (AMP; the parameters, the
+    first moments, the second moments); the K slice of each qkv bias,
+    whose true gradient is 0, within 10 x 1e-4 (the program's largest
+    rate under a schedule); the parameters' change over the steps, the K
+    slices aside, within 1e-3 (float32) or 2e-2 (AMP) of the CPU's in
+    norm and its difference within 1e-3 or 0.1 of that norm
+    (`hold_change`). A step counter (a schedule's) starts at
+    EXAMPLE_HOLD_COUNTER0 on both sides and ends equal. Returns (summary,
+    launch counts of the card's steps)."""
     from paddle_tpu_torch.io import scope_from_numpy
-    main, startup, _, loss = build_program(fluid, cfg, amp=amp)
+    main, startup, _, loss = (build or build_program)(fluid, cfg, amp=amp)
     exe = fluid.Executor()
     s0 = fluid.Scope()
     exe.run(startup, scope=s0)
     init = state_arrays(s0)
     del s0
+    if COUNTER in init:
+        init[COUNTER] = np.full_like(init[COUNTER], EXAMPLE_HOLD_COUNTER0)
     feed = {k: v.cpu().numpy() for k, v in lm_feed(
         torch, cfg, DH256_HOLD_B, 22, 'cpu').items()}
-    per_step = program_step_launches(cfg, amp=amp)
+    per_step = dict(program_step_launches(cfg, amp=amp), fused_adam=[
+        op.type for op in main.global_block().ops].count('fused_adam'))
     runs, counts = {}, None
     for side, place in (('card', None), ('cpu', fluid.CPUPlace())):
         e = exe if place is None else fluid.Executor(place)
@@ -5462,18 +5559,28 @@ def lm_program_hold(torch, kt, fluid, smi, cfg, amp, path,
     (got, gstate), (want, wstate) = runs['card'], runs['cpu']
     params = [p.name for p in main.all_parameters()]
     d = cfg.d_model
-    for st in (gstate, wstate):
+    for st in (gstate, wstate, init):
         for n in params:
             if n.endswith('.attn.qkv.b'):
                 st[n + '[K]'] = st[n][d:2 * d]
                 st[n] = np.concatenate([st[n][:d], st[n][2 * d:]])
-    tol, scale, loss_tol = (2e-2, 'set', 5e-3) if amp else \
-        (1e-3, 'own', 1e-4)
+    tol, scale, loss_tol, diff_tol = (2e-2, 'set', 5e-3, 0.1) if amp else \
+        (1e-3, 'own', 1e-4, 1e-3)
+    rate = noam_rate(cfg.d_model, EXAMPLE_HOLD_COUNTER0 + DH256_HOLD_STEPS) \
+        if COUNTER in init else 1e-4
     held, failures = hold_steps(got, want, gstate, wstate, {
         'params': (params, tol, scale),
-        'moments': ([n for n in wstate if '_moment' in n], tol, scale),
-        'k_bias': ([n for n in wstate if n.endswith('[K]')], 10 * 1e-4,
+        'moments1': ([n for n in wstate if '_moment1_' in n], tol, scale),
+        'moments2': ([n for n in wstate if '_moment2_' in n], tol, scale),
+        'k_bias': ([n for n in wstate if n.endswith('[K]')], 10 * rate,
                    'abs')}, loss_tol)
+    held['change'], more = hold_change(init, gstate, wstate, params, tol,
+                                       diff_tol)
+    failures += more
+    if COUNTER in wstate and not np.array_equal(gstate[COUNTER],
+                                                wstate[COUNTER]):
+        failures.append('step counter %s against %s' % (gstate[COUNTER],
+                                                        wstate[COUNTER]))
     out = dict(phase=phase, path=path, card=smi, amp=amp,
                n_layer=cfg.n_layer, batch=DH256_HOLD_B,
                steps=DH256_HOLD_STEPS, launches_per_step=per_step, **held)
@@ -5610,6 +5717,231 @@ def run_lm_dh256(torch, kt, smi):
     engine, by_path['lm_dh256_engine'] = lm_dh256_engine(torch, kt, smi)
     emit(engine)
     torch.cuda.empty_cache()
+    return by_path
+
+
+def example_program(fluid, cfg, amp=True, seed=None):
+    """(main, startup, lr, loss) of examples/train_lm.py's program for
+    ``cfg``, call for call (``build_lm``, ``noam_decay(d_model, 400)``,
+    ``mixed_precision.decorate(Adam(learning_rate=lr))``; ``amp`` False
+    leaves out the decorate), under a fresh name guard; ``seed`` the
+    programs' random seed (the example's are unseeded)."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.models.transformer import build_lm
+    main_p, startup = fluid.Program(), fluid.Program()
+    if seed is not None:
+        main_p.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main_p, startup), fluid.unique_name.guard():
+        _, _, _, avg_loss = build_lm(cfg)
+        lr = fluid.layers.learning_rate_scheduler.noam_decay(
+            cfg.d_model, EXAMPLE_WARMUP)
+        opt = fluid.optimizer.Adam(learning_rate=lr)
+        (mp.decorate(opt) if amp else opt).minimize(avg_loss)
+    return main_p, startup, lr, avg_loss
+
+
+def noam_rate(d_model, step):
+    """noam_decay's rate at ``step`` in float64."""
+    return d_model ** -0.5 * min(step ** -0.5, step * EXAMPLE_WARMUP ** -1.5)
+
+
+def example_batch(stacked, i):
+    return {k: v[i % EXAMPLE_K] for k, v in stacked.items()}
+
+
+def example_fused_equals_runs(torch, fluid, cfg, stacked):
+    """Phase 26 (c): ``run_fused`` over EXAMPLE_BITWISE_STEPS batches
+    against as many ``run()`` calls, two builds of the program with one
+    seed (the dropout masks follow the program's counted stream) from one
+    initialization: losses, rates and every state tensor bitwise, the
+    counter at the step count on both."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    exe, n = fluid.Executor(), EXAMPLE_BITWISE_STEPS
+    s0 = fluid.Scope()
+    exe.run(example_program(fluid, cfg, seed=26)[1], scope=s0)
+    init = state_arrays(s0)
+    del s0
+    runs = []
+    for fused in (False, True):
+        main, _, lr, loss = example_program(fluid, cfg, seed=26)
+        scope = scope_from_numpy(init, device=exe.device)
+        feeds = [example_batch(stacked, i) for i in range(n)]
+        if fused:
+            out = exe.run_fused(main, feeds, fetch_list=[loss, lr],
+                                scope=scope, steps=n)
+        else:
+            for f in feeds:
+                out = exe.run(main, feed=f, fetch_list=[loss, lr],
+                              scope=scope)
+        runs.append(([np.asarray(o) for o in out], state_arrays(scope)))
+        del scope, main
+        torch.cuda.empty_cache()
+    (ro, rs), (fo, fs) = runs
+    differ = sorted(k for k in rs if not np.array_equal(rs[k], fs[k]))
+    out = dict(steps=n, tensors=len(rs), differ=differ,
+               loss_run=float(ro[0].ravel()[0]),
+               loss_fused=float(fo[0].ravel()[0]),
+               counter_run=int(rs[COUNTER][0]),
+               counter_fused=int(fs[COUNTER][0]),
+               counter_dtype=str(fs[COUNTER].dtype))
+    if differ or sorted(rs) != sorted(fs) or any(
+            not np.array_equal(a, b) for a, b in zip(ro, fo)) or \
+            out['counter_fused'] != n or out['counter_run'] != n or \
+            out['counter_dtype'] != 'int64':
+        raise AssertionError('run_fused over %d steps is not %d run() '
+                             'calls: %s' % (n, n, out))
+    return out
+
+
+def run_train_lm_example(torch, kt, smi):
+    """Phase 26 (module docstring). Returns {path: launch counts}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    from paddle_tpu_torch.models.transformer import LMConfig
+    by_path = {}
+    # (a) the program at 2 layers and B 2, dropout 0, against the CPU
+    hold_cfg = LMConfig(**dict(EXAMPLE_LM, n_layer=2, dropout=0.0))
+    _, by_path['train_lm_example_hold'] = lm_program_hold(
+        torch, kt, fluid, smi, hold_cfg, True, 'train_lm_example_hold',
+        phase='train_lm_example_hold', build=example_program)
+    torch.cuda.empty_cache()
+
+    cfg = LMConfig(**EXAMPLE_LM)
+    exe = fluid.Executor()
+    dev = exe.device
+    main, startup, lr, loss = example_program(fluid, cfg)
+    types = [op.type for op in main.global_block().ops]
+    per = dict(program_step_launches(cfg, amp=True),
+               fused_adam=types.count('fused_adam'))
+    rng = np.random.RandomState(0)
+    batches = [{
+        'tokens': rng.randint(0, cfg.vocab_size,
+                              (EXAMPLE_B, cfg.seq_len)).astype('int64'),
+        'labels': rng.randint(0, cfg.vocab_size,
+                              (EXAMPLE_B, cfg.seq_len)).astype('int64')}
+        for _ in range(EXAMPLE_K)]
+    stacked = {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(dev)
+               for k in batches[0]}
+    fetch = [loss, lr]
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rates, losses = {}, {}
+
+    def read(out, step):
+        losses[step] = float(out[0].reshape(-1)[0])
+        rates[step] = float(out[1].reshape(-1)[0])
+
+    def eager(on, i, step):
+        """An ``Executor.run`` step on scope ``on`` with batch ``i``, read
+        as step ``step``."""
+        def run():
+            out = exe.run(main, feed=example_batch(stacked, i),
+                          fetch_list=fetch, scope=on, return_numpy=False)
+            read(out, step)
+            return out[0]
+        return run
+
+    # (b) step 1 on a copy of the initial state (the example's windows
+    # report steps 50, 100, 150): its loss and rate, eager
+    first = scope_from_numpy(state_arrays(scope), device=dev)
+    kt.reset_counts()
+    run_counted(kt, [eager(first, 0, 1)], per, 'train_lm_example step 1')
+    del first
+    torch.cuda.empty_cache()
+
+    # (c) the example's loop: a warm window, then timed windows
+    def window(steps=EXAMPLE_WINDOW):
+        return exe.run_fused(main, stacked, fetch_list=fetch, scope=scope,
+                             steps=steps, return_numpy=False)
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    read(window(), EXAMPLE_WINDOW)
+    first_call_s = time.perf_counter() - t
+    plan = [e.bound[scope] for _, e in exe._cache.items()
+            if scope in e.bound][-1]
+    kt.reset_counts()
+    done, window_ms = EXAMPLE_WINDOW, []
+    for _ in range(EXAMPLE_TIMED):
+        t = time.perf_counter()
+        out = window()
+        done += EXAMPLE_WINDOW
+        read(out, done)                                    # the sync
+        window_ms.append((time.perf_counter() - t) * 1e3)
+    counts = kt.launch_counts()
+    want = {k: EXAMPLE_TIMED * EXAMPLE_WINDOW * v for k, v in per.items()}
+    if counts != want:
+        raise AssertionError('%d fused example steps launched %s, not %s'
+                             % (EXAMPLE_TIMED * EXAMPLE_WINDOW, counts,
+                                want))
+    by_path['train_lm_example'] = counts
+    step_ms = min(window_ms) / EXAMPLE_WINDOW
+    # (d) one profiled window: device ms, busy share, launches, copies
+    htod, launches, wall_ms, dev_ms = htod_copies(
+        torch, lambda: read(window(EXAMPLE_PROFILED),
+                            done + EXAMPLE_PROFILED))
+    done += EXAMPLE_PROFILED
+    # (e) one Executor.run step, timed eagerly (its plan built at step 1)
+    t = time.perf_counter()
+    run_counted(kt, [eager(scope, done, done + 1)], per,
+                'train_lm_example eager step')
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t) * 1e3
+    done += 1
+    counter = scope.get(COUNTER)
+    rate_err = {s: abs(r / noam_rate(cfg.d_model, s) - 1)
+                for s, r in rates.items()}
+    tokens = EXAMPLE_B * cfg.seq_len
+    out = dict(
+        phase='train_lm_example', card=smi, config=EXAMPLE_LM,
+        batch=EXAMPLE_B, k_batches=EXAMPLE_K, window=EXAMPLE_WINDOW,
+        adam_ops=types.count('adam'), fused_adam_ops=types.count(
+            'fused_adam'),
+        parameters=sum(int(np.prod(p.shape))
+                       for p in main.all_parameters()),
+        first_call_s=first_call_s, window_ms=window_ms, step_ms=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3),
+        model_tflops=model_flops(cfg, EXAMPLE_B) / (step_ms / 1e3) / 1e12,
+        profiled_steps=EXAMPLE_PROFILED,
+        profiled_wall_ms_per_step=wall_ms / EXAMPLE_PROFILED,
+        device_ms_per_step=dev_ms / EXAMPLE_PROFILED,
+        busy_share=dev_ms / wall_ms if dev_ms > 0 else None,
+        cuda_launches_per_step=launches / EXAMPLE_PROFILED,
+        htod_copies_in_replays=htod, eager_step_ms=eager_ms,
+        launches_per_step=per, launches=counts,
+        replays=plan.replays, captures=plan.captures,
+        rates={s: dict(got=r, closed_form=noam_rate(cfg.d_model, s),
+                       rel_err=rate_err[s]) for s, r in sorted(rates.items())},
+        losses=dict(sorted(losses.items())), steps=done,
+        counter=int(counter[0]), counter_dtype=str(counter.dtype),
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    out['loss_fell'] = losses[EXAMPLE_WINDOW * (1 + EXAMPLE_TIMED)] < \
+        losses[1]
+    del scope, plan
+    torch.cuda.empty_cache()
+    out['fused_equals_runs'] = example_fused_equals_runs(torch, fluid, cfg,
+                                                         stacked)
+    emit(out)
+    failures = []
+    if out['adam_ops'] != len(main.all_parameters()) or \
+            out['fused_adam_ops']:
+        failures.append('%d adam and %d fused_adam ops for %d parameters'
+                        % (out['adam_ops'], out['fused_adam_ops'],
+                           len(main.all_parameters())))
+    if max(rate_err.values()) > 1e-6:
+        failures.append('rates off the closed form: %s' % out['rates'])
+    if out['counter'] != done or out['counter_dtype'] != 'torch.int64':
+        failures.append('counter %d (%s) after %d steps'
+                        % (out['counter'], out['counter_dtype'], done))
+    if not all(np.isfinite(list(losses.values()))) or not out['loss_fell']:
+        failures.append('losses %s' % out['losses'])
+    if htod:
+        failures.append('%d host-to-device copies in %d replayed steps'
+                        % (htod, EXAMPLE_PROFILED))
+    if out['captures'] != 1:
+        failures.append('run_fused captured %d graphs' % out['captures'])
+    if failures:
+        raise AssertionError('train_lm_example: %s' % '; '.join(failures))
     return by_path
 
 
@@ -5818,6 +6150,17 @@ def main():
     by_path.update(run_ctr(torch, kt, smi))
     by_path.update(run_lm_dh256(torch, kt, smi))
     run_optest_replay(torch, smi)
+    # phase 26: the example's kernels at its B 64 (the bf16 flash kernels'
+    # case at this shape is phase 13's LM case: B 64 x 8 heads, L 512)
+    example = LMConfig(**EXAMPLE_LM)
+    merge('train_lm_example', check_train_kernels(
+        torch, F, 'train_lm_example_kernel', example,
+        param_shapes(example).values(), EXAMPLE_B * example.seq_len,
+        [(EXAMPLE_B * example.seq_len, example.vocab_size)], ffn=False))
+    for name in AMP_FLASH_KERNELS:
+        other[name]['train_lm_example'] = [kernels[name]['cases'][0]]
+    by_path.update(run_train_lm_example(torch, kt, smi))
+    torch.cuda.empty_cache()
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {

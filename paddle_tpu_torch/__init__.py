@@ -36,7 +36,8 @@ from . import initializer, layers, optimizer, unique_name
 from . import clip, nets, regularizer
 from .backward import append_backward, calc_gradient, gradients
 from .executor import Executor, Scope, global_scope, scope_guard
-from .framework import (CPUPlace, CUDAPlace, Parameter, Program, Variable,
+from .framework import (Block, CPUPlace, CUDAPlace, Operator, Parameter,
+                        Program, Variable, cpu_places, cuda_places,
                         default_main_program, default_startup_program,
                         program_guard, resolve_device)
 from .ops.kernel_tier import launch_counts, reset_counts
@@ -52,8 +53,9 @@ from .lod_tensor import (LoDTensor, create_lod_tensor,
                          create_random_int_lodtensor)
 from .data_feeder import DataFeeder
 
-__all__ = ['CPUPlace', 'CUDAPlace', 'resolve_device', 'launch_counts',
-           'reset_counts', 'Program', 'Variable', 'Parameter',
+__all__ = ['CPUPlace', 'CUDAPlace', 'cpu_places', 'cuda_places',
+           'resolve_device', 'launch_counts', 'reset_counts', 'Program',
+           'Block', 'Operator', 'Variable', 'Parameter',
            'default_main_program', 'default_startup_program',
            'program_guard', 'Executor', 'Scope', 'global_scope',
            'scope_guard', 'ParamAttr', 'append_backward', 'calc_gradient',

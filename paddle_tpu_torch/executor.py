@@ -309,6 +309,15 @@ def _numpy_dtype(tdtype):
                          % tdtype) from None
 
 
+def _widens(program, name, dtype):
+    """Whether a state value of ``dtype`` is an int32 copy of a variable
+    that ``program`` declares int64."""
+    if dtype != torch.int32:
+        return False
+    var = program.global_block().vars.get(name)
+    return var is not None and var.dtype == np.dtype('int64')
+
+
 class _BoundPlan(object):
     """A run plan bound to one scope at one feed signature: the static
     feeds (core/graphs.py `FeedBuffer`), the state tensors the plan reads
@@ -396,7 +405,7 @@ class _BoundPlan(object):
 
     def _stage_state(self, scope):
         if self.state is None:
-            self.state = {n: self.exe._state_value(scope, n)
+            self.state = {n: self.exe._state_value(scope, n, self.program)
                           for n in self.entry.read_names}
             return
         for n, t in self.state.items():
@@ -591,21 +600,27 @@ class Executor(object):
         out.update(lods)
         return out
 
-    def _state_value(self, scope, name):
+    def _state_value(self, scope, name, program):
         """The scope's value of ``name`` as a tensor on the device, cached
         back into the scope (a copy: the optimizers update state in place,
-        so the scope never shares memory with the caller's array)."""
+        so the scope never shares memory with the caller's array). An
+        int32 value of a variable ``program`` declares int64 is widened:
+        the JAX package runs with x64 off and holds such state (the
+        schedules' step counter) as int32."""
         v = scope.get(name)
         if v is None:
             raise RuntimeError(
                 "persistable variable %r is not initialized in the scope — "
                 "run the startup program first" % name)
-        if isinstance(v, torch.Tensor) and v.device == self.device:
+        if isinstance(v, torch.Tensor) and v.device == self.device and \
+                not _widens(program, name, v.dtype):
             return v
         if isinstance(v, torch.Tensor):
             t = v.detach().to(self.device, copy=True)
         else:
             t = torch.from_numpy(np.array(v)).to(self.device)
+        if _widens(program, name, t.dtype):
+            t = t.to(torch.int64)
         scope.set(name, t)
         return t
 
@@ -695,7 +710,8 @@ class Executor(object):
         entry = self._entry(program, feed, fetch_names,
                             self._static_lods(scope, lods),
                             self._statics(program, feed), use_program_cache)
-        state = {n: self._state_value(scope, n) for n in entry.read_names}
+        state = {n: self._state_value(scope, n, program)
+                 for n in entry.read_names}
         # generators of this run's own: a cached plan may run on two
         # threads at once
         rng = self._seed_run(program, entry, lowering.RunRNG(

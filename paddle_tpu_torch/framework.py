@@ -13,12 +13,15 @@ The program IR is the port's own copy of paddle_tpu/framework.py:
 Program built here names, shapes and wires its ops exactly as the JAX
 package builds it (the two serialize to the same dict,
 core/serialization.py). The Executor (executor.py) runs it op by op on
-torch tensors. The operator sugar of the JAX ``Variable`` (``x + y`` ...)
-waits for ``layers/math_op_patch``.
+torch tensors. ``Variable`` has the JAX one's ``astype`` and operators
+(``+ - * / **``, their reflected forms, unary ``-`` and ``< <= > >=``),
+each appending the ops of ``layers/math_op_patch.binary_op``; like the JAX
+one it has no ``==``, so that Variables stay dict keys.
 """
 import collections
 import contextlib
 import copy
+import os
 
 import torch
 
@@ -26,7 +29,7 @@ from . import unique_name
 from .core.types import VarType, convert_np_dtype_to_dtype_, dtype_str
 
 __all__ = [
-    'CPUPlace', 'CUDAPlace', 'resolve_device',
+    'CPUPlace', 'CUDAPlace', 'cpu_places', 'cuda_places', 'resolve_device',
     'Program', 'Block', 'Operator', 'Variable', 'Parameter',
     'default_startup_program', 'default_main_program', 'program_guard',
     'switch_main_program', 'switch_startup_program', 'grad_var_name',
@@ -54,6 +57,21 @@ class CUDAPlace(object):
 
     def torch_device(self):
         return torch.device('cuda', self.device_id)
+
+
+def cpu_places(device_count=None):
+    """``device_count`` CPU places (None: the ``CPU_NUM`` environment
+    variable, 1 without it)."""
+    if device_count is None:
+        device_count = int(os.environ.get('CPU_NUM', 1))
+    return [CPUPlace() for _ in range(device_count)]
+
+
+def cuda_places(device_ids=None):
+    """A CUDA place for each of ``device_ids`` (None: every visible card)."""
+    if device_ids is None:
+        device_ids = range(torch.cuda.device_count())
+    return [CUDAPlace(i) for i in device_ids]
 
 
 def resolve_device(device=None):
@@ -123,6 +141,30 @@ class Variable(object):
     @property
     def grad_name(self):
         return grad_var_name(self.name)
+
+    def astype(self, dtype):
+        from .layers import tensor
+        return tensor.cast(self, dtype)
+
+    def _binary(self, other, op, reverse=False):
+        from .layers import math_op_patch
+        return math_op_patch.binary_op(self, other, op, reverse)
+
+    def __add__(self, o): return self._binary(o, 'elementwise_add')
+    def __radd__(self, o): return self._binary(o, 'elementwise_add', True)
+    def __sub__(self, o): return self._binary(o, 'elementwise_sub')
+    def __rsub__(self, o): return self._binary(o, 'elementwise_sub', True)
+    def __mul__(self, o): return self._binary(o, 'elementwise_mul')
+    def __rmul__(self, o): return self._binary(o, 'elementwise_mul', True)
+    def __truediv__(self, o): return self._binary(o, 'elementwise_div')
+    def __rtruediv__(self, o): return self._binary(o, 'elementwise_div', True)
+    def __pow__(self, o): return self._binary(o, 'elementwise_pow')
+    def __rpow__(self, o): return self._binary(o, 'elementwise_pow', True)
+    def __neg__(self): return self._binary(-1.0, 'elementwise_mul')
+    def __lt__(self, o): return self._binary(o, 'less_than')
+    def __le__(self, o): return self._binary(o, 'less_equal')
+    def __gt__(self, o): return self._binary(o, 'greater_than')
+    def __ge__(self, o): return self._binary(o, 'greater_equal')
 
 
 class Parameter(Variable):

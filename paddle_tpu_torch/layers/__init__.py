@@ -10,6 +10,9 @@ library's shape, cast, compare and reduce layers (``control_flow`` holds
 the comparisons, ``increment`` and ``is_empty`` of the JAX module). Each
 layer emits the JAX layer's op, letter for letter (type, input and output
 slots, attrs); the rest of the JAX layers wait for later slices.
+``math_op_patch`` holds the ops behind ``Variable``'s operators, and
+``learning_rate_scheduler`` the schedules, also reachable as
+``layers.learning_rate_scheduler.noam_decay`` as in the JAX package.
 """
 from . import io
 from . import tensor
@@ -19,6 +22,8 @@ from . import metric_op
 from . import sequence
 from . import rnn
 from . import control_flow
+from . import math_op_patch
+from . import learning_rate_scheduler
 
 from .io import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
@@ -28,6 +33,7 @@ from .metric_op import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
+from .learning_rate_scheduler import *  # noqa: F401,F403
 
 __all__ = []
 __all__ += io.__all__
@@ -38,3 +44,4 @@ __all__ += metric_op.__all__
 __all__ += sequence.__all__
 __all__ += rnn.__all__
 __all__ += control_flow.__all__
+__all__ += learning_rate_scheduler.__all__

@@ -15,9 +15,16 @@ library's shape, compare and reduce layers: ``unsqueeze``, ``flatten``,
 ``pad``, ``pad2d``, ``pad_constant_like``, ``label_smooth``, ``stack``,
 ``unstack``, ``expand``, ``gather_nd``, ``scatter``, ``crop``, ``shape``,
 ``increment``, ``multiplex``, ``where``, ``space_to_depth``,
-``shuffle_channel``, ``sampling_id`` and ``hash``. Each appends the JAX
-layer's op with the same slots, attrs and static output shapes; the
-computation is the op's lowering (ops/*).
+``shuffle_channel``, ``sampling_id`` and ``hash``; the layers of op
+types lowered earlier (``mul``, ``sum``, ``clip``, ``clip_by_norm``,
+``sign``, ``gaussian_random``, ``lstm_unit``, ``merge_selected_rows``,
+``get_tensor_from_selected_rows``, ``flash_attention``); the activations
+with attributes or a parameter (``log``, ``prelu``, ``brelu``,
+``leaky_relu``, ``soft_relu``, ``selu``, ``swish``, ``maxout``); the
+losses, norms and distances of ops/math_ops.py; and
+``autoincreased_step_counter``, which the learning-rate schedules read.
+Each appends the JAX layer's op with the same slots, attrs and static
+output shapes; the computation is the op's lowering (ops/*).
 """
 from ..framework import Variable
 from ..layer_helper import LayerHelper
@@ -40,6 +47,13 @@ __all__ = [
     'expand', 'slice', 'gather', 'gather_nd', 'scatter', 'crop', 'shape',
     'scale', 'increment', 'multiplex', 'where', 'space_to_depth',
     'shuffle_channel', 'sampling_id', 'hash', 'add_position_encoding',
+    'mul', 'sum', 'sums_', 'clip', 'clip_by_norm', 'sign',
+    'gaussian_random', 'lstm_unit', 'merge_selected_rows',
+    'get_tensor_from_selected_rows', 'flash_attention', 'log', 'prelu',
+    'brelu', 'leaky_relu', 'soft_relu', 'selu', 'swish', 'maxout',
+    'huber_loss', 'smooth_l1', 'bpr_loss', 'rank_loss', 'margin_rank_loss',
+    'hinge_loss', 'teacher_student_sigmoid_loss', 'l2_normalize', 'cos_sim',
+    'bilinear_tensor_product', 'autoincreased_step_counter',
 ]
 
 
@@ -890,3 +904,327 @@ def hash(input, hash_size, num_hash=1, name=None):
                      outputs={'Out': [out]},
                      attrs={'num_hash': num_hash, 'mod_by': hash_size})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Products, sums and clips whose op the port lowers
+# ---------------------------------------------------------------------------
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper('mul', name=name)
+    out_shape = tuple(x.shape[:x_num_col_dims]) + tuple(
+        y.shape[y_num_col_dims:])
+    out = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                    shape=out_shape)
+    helper.append_op(type='mul', inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out]},
+                     attrs={'x_num_col_dims': x_num_col_dims,
+                            'y_num_col_dims': y_num_col_dims})
+    return out
+
+
+def sum(x):
+    helper = LayerHelper('sum')
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(dtype=xs[0].dtype,
+                                                    shape=xs[0].shape)
+    helper.append_op(type='sum', inputs={'X': xs}, outputs={'Out': [out]})
+    return out
+
+
+sums_ = sum
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper('clip', name=name)
+    return _simple(helper, 'clip', x, attrs={'min': min, 'max': max})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper('clip_by_norm', name=name)
+    return _simple(helper, 'clip_by_norm', x, attrs={'max_norm': max_norm})
+
+
+def sign(x):
+    helper = LayerHelper('sign')
+    return _simple(helper, 'sign', x)
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype='float32'):
+    helper = LayerHelper('gaussian_random')
+    out = helper.create_variable_for_type_inference(dtype, shape=shape)
+    helper.append_op(type='gaussian_random', outputs={'Out': [out]},
+                     attrs={'shape': list(shape), 'mean': mean, 'std': std,
+                            'seed': seed, 'dtype': out.dtype})
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """fc([x_t, h_prev]) to the 4 gates, then the ``lstm_unit`` op (gate
+    order i, f, o, j)."""
+    from .tensor import concat
+    helper = LayerHelper('lstm_unit', param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    size = cell_t_prev.shape[-1]
+    concat_out = concat([x_t, hidden_t_prev], axis=1)
+    fc_out = fc(input=concat_out, size=4 * size,
+                param_attr=helper.param_attr, bias_attr=helper.bias_attr)
+    h = helper.create_variable_for_type_inference(
+        x_t.dtype, shape=cell_t_prev.shape)
+    c = helper.create_variable_for_type_inference(
+        x_t.dtype, shape=cell_t_prev.shape)
+    helper.append_op(
+        type='lstm_unit',
+        inputs={'X': [fc_out], 'C_prev': [cell_t_prev]},
+        outputs={'H': [h], 'C': [c]},
+        attrs={'forget_bias': forget_bias})
+    return h, c
+
+
+def merge_selected_rows(x, name=None):
+    helper = LayerHelper('merge_selected_rows', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type='merge_selected_rows', inputs={'X': [x]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    helper = LayerHelper('get_tensor_from_selected_rows', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type='get_tensor_from_selected_rows',
+                     inputs={'X': [x]}, outputs={'Out': [out]})
+    return out
+
+
+def flash_attention(q, k, v, scale=None, causal=True, name=None):
+    """Fused multi-head attention over q, k, v [B, H, L, dh]; without
+    ``scale`` the op takes dh ** -0.5, a given scale (even 0.0) is taken
+    as it is."""
+    helper = LayerHelper('flash_attention', name=name)
+    out = helper.create_variable_for_type_inference(q.dtype, shape=q.shape)
+    attrs = {'causal': bool(causal)}
+    if scale is not None:
+        attrs['scale'] = float(scale)
+    helper.append_op(
+        type='flash_attention',
+        inputs={'Q': [q], 'K': [k], 'V': [v]},
+        outputs={'Out': [out]},
+        attrs=attrs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Activations with attributes or a parameter
+# ---------------------------------------------------------------------------
+
+def log(x, name=None):
+    helper = LayerHelper('log', name=name)
+    return _simple(helper, 'log', x)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper('prelu', param_attr=param_attr, name=name)
+    if mode == 'all':
+        alpha_shape = [1]
+    elif mode == 'channel':
+        alpha_shape = [1, x.shape[1], 1, 1]
+    else:
+        alpha_shape = [1] + list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype='float32',
+        is_bias=False, default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                    shape=x.shape)
+    helper.append_op(type='prelu', inputs={'X': [x], 'Alpha': [alpha]},
+                     outputs={'Out': [out]}, attrs={'mode': mode})
+    return out
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    helper = LayerHelper('brelu', name=name)
+    return _simple(helper, 'brelu', x,
+                   attrs={'t_min': t_min, 't_max': t_max})
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    helper = LayerHelper('leaky_relu', name=name)
+    return _simple(helper, 'leaky_relu', x, attrs={'alpha': alpha})
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    helper = LayerHelper('soft_relu', name=name)
+    return _simple(helper, 'soft_relu', x, attrs={'threshold': threshold})
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    helper = LayerHelper('selu', name=name)
+    attrs = {}
+    if scale is not None:
+        attrs['scale'] = scale
+    if alpha is not None:
+        attrs['alpha'] = alpha
+    return _simple(helper, 'selu', x, attrs=attrs)
+
+
+def swish(x, beta=1.0, name=None):
+    helper = LayerHelper('swish', name=name)
+    return _simple(helper, 'swish', x, attrs={'beta': beta})
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper('maxout', name=name)
+    n, c, h, w = x.shape
+    return _simple(helper, 'maxout', x, out_shape=(n, c // groups, h, w),
+                   attrs={'groups': groups})
+
+
+# ---------------------------------------------------------------------------
+# Norms, distances and losses
+# ---------------------------------------------------------------------------
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper('huber_loss')
+    residual = helper.create_variable_for_type_inference(
+        dtype=input.dtype, shape=input.shape)
+    out = helper.create_variable_for_type_inference(
+        dtype=input.dtype, shape=input.shape)
+    helper.append_op(type='huber_loss',
+                     inputs={'X': [input], 'Y': [label]},
+                     outputs={'Out': [out], 'Residual': [residual]},
+                     attrs={'delta': delta})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper('smooth_l1_loss')
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     shape=x.shape)
+    loss = helper.create_variable_for_type_inference(
+        dtype=x.dtype, shape=(x.shape[0], 1))
+    inputs = {'X': [x], 'Y': [y]}
+    if inside_weight is not None:
+        inputs['InsideWeight'] = [inside_weight]
+    if outside_weight is not None:
+        inputs['OutsideWeight'] = [outside_weight]
+    helper.append_op(type='smooth_l1_loss', inputs=inputs,
+                     outputs={'Diff': [diff], 'Out': [loss]},
+                     attrs={'sigma': sigma if sigma is not None else 1.0})
+    return loss
+
+
+def bpr_loss(input, label, name=None):
+    helper = LayerHelper('bpr_loss', name=name)
+    return _simple(helper, 'bpr_loss', input,
+                   out_shape=(input.shape[0], 1),
+                   inputs={'X': [input], 'Label': [label]}, out_slot='Y')
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper('rank_loss', name=name)
+    return _simple(helper, 'rank_loss', left,
+                   inputs={'Label': [label], 'Left': [left],
+                           'Right': [right]})
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper('margin_rank_loss', name=name)
+    act = helper.create_variable_for_type_inference(dtype=left.dtype,
+                                                    shape=left.shape)
+    out = helper.create_variable_for_type_inference(dtype=left.dtype,
+                                                    shape=left.shape)
+    helper.append_op(type='margin_rank_loss',
+                     inputs={'Label': [label], 'X1': [left], 'X2': [right]},
+                     outputs={'Out': [out], 'Activated': [act]},
+                     attrs={'margin': margin})
+    return out
+
+
+def hinge_loss(input, label, name=None):
+    helper = LayerHelper('hinge_loss', name=name)
+    return _simple(helper, 'hinge_loss', input,
+                   inputs={'Logits': [input], 'Labels': [label]},
+                   out_slot='Loss')
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    helper = LayerHelper('teacher_student_sigmoid_loss')
+    return _simple(helper, 'teacher_student_sigmoid_loss', input,
+                   inputs={'X': [input], 'Label': [label]},
+                   attrs={'soft_max_up_bound': soft_max_up_bound,
+                          'soft_max_lower_bound': soft_max_lower_bound},
+                   out_slot='Y')
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper('l2_normalize', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                    shape=x.shape)
+    norm = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     shape=x.shape)
+    helper.append_op(type='norm', inputs={'X': [x]},
+                     outputs={'Out': [out], 'Norm': [norm]},
+                     attrs={'axis': axis, 'epsilon': epsilon})
+    return out
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper('cos_sim')
+    out = helper.create_variable_for_type_inference(
+        dtype=X.dtype, shape=(X.shape[0], 1))
+    xnorm = helper.create_variable_for_type_inference(
+        dtype=X.dtype, shape=(X.shape[0], 1))
+    ynorm = helper.create_variable_for_type_inference(
+        dtype=X.dtype, shape=(X.shape[0], 1))
+    helper.append_op(type='cos_sim', inputs={'X': [X], 'Y': [Y]},
+                     outputs={'Out': [out], 'XNorm': [xnorm],
+                              'YNorm': [ynorm]})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    helper = LayerHelper('bilinear_tensor_product', name=name,
+                         param_attr=param_attr, bias_attr=bias_attr, act=act)
+    dtype = x.dtype
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[size, x.shape[1], y.shape[1]],
+        dtype=dtype)
+    out = helper.create_variable_for_type_inference(
+        dtype=dtype, shape=(x.shape[0], size))
+    inputs = {'X': [x], 'Y': [y], 'Weight': [w]}
+    if helper.bias_attr:
+        bias = helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, size], dtype=dtype,
+            is_bias=True)
+        inputs['Bias'] = [bias]
+    helper.append_op(type='bilinear_tensor_product', inputs=inputs,
+                     outputs={'Out': [out]})
+    return helper.append_activation(out)
+
+
+# ---------------------------------------------------------------------------
+# The step counter the learning-rate schedules read
+# ---------------------------------------------------------------------------
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """An int64 persistable [1] (``@STEP_COUNTER@`` by default), ``begin -
+    1`` at startup and advanced by ``step`` at the top of each run. Only
+    the call that creates it appends the ``increment``, so a counter
+    shared by several schedules advances once a step."""
+    helper = LayerHelper('global_step_counter')
+    counter_name = counter_name or '@STEP_COUNTER@'
+    gb = helper.main_program.global_block()
+    is_new_var = not gb.has_var(counter_name)
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype='int64', shape=(1,))
+    if is_new_var:
+        helper.set_variable_initializer(counter,
+                                        initializer=Constant(begin - 1))
+        helper.append_op(type='increment', inputs={'X': [counter]},
+                         outputs={'Out': [counter]},
+                         attrs={'step': float(step)})
+    counter.stop_gradient = True
+    return counter

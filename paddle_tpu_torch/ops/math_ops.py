@@ -37,7 +37,7 @@ import torch
 from ..core import amp
 from ..core.registry import register_op
 from ..core.selected_rows import SelectedRows
-from .common import broadcast_y_to, flatten_to_2d
+from .common import abs_, broadcast_y_to, clip, flatten_to_2d
 
 __all__ = ['mul', 'matmul', 'bf16_product', 'split', 'split_product']
 
@@ -287,3 +287,151 @@ _register_reduce('reduce_all', lambda x, d, k: x.bool().all(dim=d,
                                                               keepdim=k))
 _register_reduce('reduce_any', lambda x, d, k: x.bool().any(dim=d,
                                                               keepdim=k))
+
+
+# -- the rest of paddle_tpu/ops/math_ops.py: norms, distances and losses,
+# plain torch as the jnp expressions there (``jnp.maximum``'s and
+# ``jnp.clip``'s ties split evenly, ``jnp.abs``'s gradient at 0 is 1:
+# ops/common.py `clip`, `abs_`)
+
+def _logaddexp0(x):
+    """``jnp.logaddexp(0.0, x)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _rows_sum(x):
+    """The sum over every axis but the first, kept."""
+    return x.sum(dim=tuple(range(1, x.dim())), keepdim=True)
+
+
+@register_op('minus')
+def _minus_op(ctx, op):
+    ctx.out(op, 'Out', ctx.in1(op, 'X') - ctx.in1(op, 'Y'))
+
+
+@register_op('cumsum')
+def _cumsum_op(ctx, op):
+    """Along ``axis`` in x's dtype; ``exclusive`` subtracts x, ``reverse``
+    runs from the end."""
+    x = ctx.in1(op, 'X')
+    axis = op.attr('axis', -1)
+    reverse = op.attr('reverse', False)
+    if reverse:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, axis, dtype=x.dtype)
+    if op.attr('exclusive', False):
+        out = out - x
+    if reverse:
+        out = torch.flip(out, (axis,))
+    ctx.out(op, 'Out', out)
+
+
+@register_op('l1_norm')
+def _l1_norm_op(ctx, op):
+    ctx.out(op, 'Out', abs_(ctx.in1(op, 'X')).sum().reshape(()))
+
+
+@register_op('squared_l2_distance')
+def _squared_l2_distance_op(ctx, op):
+    sub = ctx.in1(op, 'X') - ctx.in1(op, 'Y')
+    ctx.out(op, 'sub_result', sub)
+    ctx.out(op, 'Out', _rows_sum(sub * sub))
+
+
+@register_op('cos_sim')
+def _cos_sim_op(ctx, op):
+    x, y = ctx.in1(op, 'X'), ctx.in1(op, 'Y')
+    xn = torch.sqrt((x * x).sum(-1, keepdim=True))
+    yn = torch.sqrt((y * y).sum(-1, keepdim=True))
+    ctx.out(op, 'Out', (x * y).sum(-1, keepdim=True) / (xn * yn + 1e-12))
+    ctx.out(op, 'XNorm', xn)
+    ctx.out(op, 'YNorm', yn)
+
+
+@register_op('norm')
+def _norm_op(ctx, op):
+    x = ctx.in1(op, 'X')
+    norm = torch.sqrt((x * x).sum(op.attr('axis', -1), keepdim=True) +
+                      op.attr('epsilon', 1e-10))
+    ctx.out(op, 'Norm', norm)
+    ctx.out(op, 'Out', x / norm)
+
+
+@register_op('bilinear_tensor_product')
+def _bilinear_tensor_product_op(ctx, op):
+    """out[n, k] = x[n] · W[k] · y[n] (+ Bias)."""
+    x, y, w = ctx.in1(op, 'X'), ctx.in1(op, 'Y'), ctx.in1(op, 'Weight')
+    out = torch.einsum('nm,kmp,np->nk', x, w, y)
+    bias = ctx.in1(op, 'Bias')
+    if bias is not None:
+        out = out + bias
+    ctx.out(op, 'Out', out)
+
+
+@register_op('huber_loss')
+def _huber_loss_op(ctx, op):
+    delta = op.attr('delta', 1.0)
+    r = ctx.in1(op, 'Y') - ctx.in1(op, 'X')
+    ar = torch.abs(r)
+    ctx.out(op, 'Residual', r)
+    ctx.out(op, 'Out', torch.where(ar <= delta, 0.5 * r * r,
+                                   delta * (ar - 0.5 * delta)))
+
+
+@register_op('hinge_loss')
+def _hinge_loss_op(ctx, op):
+    logits, labels = ctx.in1(op, 'Logits'), ctx.in1(op, 'Labels')
+    ctx.out(op, 'Loss', clip(1.0 - (2.0 * labels - 1.0) * logits, 0.0))
+
+
+@register_op('rank_loss')
+def _rank_loss_op(ctx, op):
+    d = ctx.in1(op, 'Left') - ctx.in1(op, 'Right')
+    ctx.out(op, 'Out', _logaddexp0(d) - ctx.in1(op, 'Label') * d)
+
+
+@register_op('margin_rank_loss')
+def _margin_rank_loss_op(ctx, op):
+    x1 = ctx.in1(op, 'X1')
+    out = clip(-ctx.in1(op, 'Label') * (x1 - ctx.in1(op, 'X2')) +
+               op.attr('margin', 0.0), 0.0)
+    ctx.out(op, 'Out', out)
+    ctx.out(op, 'Activated', (out > 0).to(x1.dtype))
+
+
+@register_op('smooth_l1_loss')
+def _smooth_l1_loss_op(ctx, op):
+    """Each row's sum of the smooth L1 of (x - y) · InsideWeight, times
+    OutsideWeight; ``Diff`` the weighted difference."""
+    s2 = op.attr('sigma', 1.0) ** 2
+    d = ctx.in1(op, 'X') - ctx.in1(op, 'Y')
+    iw, ow = ctx.in1(op, 'InsideWeight'), ctx.in1(op, 'OutsideWeight')
+    if iw is not None:
+        d = d * iw
+    ad = torch.abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * d * d * s2, ad - 0.5 / s2)
+    if ow is not None:
+        loss = loss * ow
+    ctx.out(op, 'Diff', d)
+    ctx.out(op, 'Out', _rows_sum(loss))
+
+
+@register_op('bpr_loss')
+def _bpr_loss_op(ctx, op):
+    """Bayesian personalized ranking: each row's mean over the other
+    classes of -log sigmoid(x_label - x_j)."""
+    x = ctx.in1(op, 'X')
+    lab = ctx.in1(op, 'Label').reshape(-1).to(torch.int64)
+    pos = torch.gather(x, 1, lab[:, None])
+    p = 1.0 / (1.0 + torch.exp(-(x - pos)))
+    loss = -torch.log(clip(p, 1e-20, 1.0))
+    mask = torch.ones_like(loss).scatter(1, lab[:, None], 0.0)
+    ctx.out(op, 'Y', (loss * mask).sum(1, keepdim=True) / (x.shape[1] - 1))
+
+
+@register_op('teacher_student_sigmoid_loss')
+def _ts_sigmoid_loss_op(ctx, op):
+    x = ctx.in1(op, 'X')
+    z = clip(x, op.attr('soft_max_lower_bound', -15.0),
+             op.attr('soft_max_up_bound', 15.0))
+    ctx.out(op, 'Y', _logaddexp0(z) - ctx.in1(op, 'Label') * z)

@@ -16,7 +16,7 @@ import torch
 
 from ..core.registry import register_op
 from ..core.selected_rows import SelectedRows
-from .common import attr_dtype
+from .common import attr_dtype, clip
 
 __all__ = []
 
@@ -82,16 +82,16 @@ def _scale(ctx, op):
 
 @register_op('clip')
 def _clip(ctx, op):
-    """A SelectedRows merges its duplicate rows first: a clip does not
-    distribute over their sum."""
+    """``jnp.clip`` (a gradient at a bound split in half, common.py
+    `clip`). A SelectedRows merges its duplicate rows first: a clip does
+    not distribute over their sum."""
     x = ctx.in1(op, 'X')
     lo, hi = op.attr('min'), op.attr('max')
     if isinstance(x, SelectedRows):
         rows, vals = x.merged()
-        ctx.out(op, 'Out', SelectedRows(rows, torch.clamp(vals, lo, hi),
-                                        x.height))
+        ctx.out(op, 'Out', SelectedRows(rows, clip(vals, lo, hi), x.height))
         return
-    ctx.out(op, 'Out', torch.clamp(x, lo, hi))
+    ctx.out(op, 'Out', clip(x, lo, hi))
 
 
 def _norm_factor(x, max_norm):
@@ -158,11 +158,13 @@ def _shape(ctx, op):
 
 @register_op('increment')
 def _increment(ctx, op):
-    """``x + step`` in x's dtype (a float step on an integer counter is
-    cast first, as the JAX lowering's ``jnp.asarray(step, x.dtype)``)."""
+    """``x + step`` in x's dtype: the step is rounded to x's dtype first,
+    as the JAX lowering's ``jnp.asarray(step, x.dtype)``, and added as a
+    Python number, so that a captured step (the schedules' counter under
+    `bind` and `run_fused`) copies nothing from the host."""
     x = ctx.in1(op, 'X')
-    step = torch.tensor(op.attr('step', 1.0)).to(x.dtype)
-    ctx.out(op, 'Out', x + step.to(x.device))
+    step = torch.tensor(op.attr('step', 1.0)).to(x.dtype).item()
+    ctx.out(op, 'Out', x + step)
 
 
 @register_op('one_hot')

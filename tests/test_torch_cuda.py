@@ -35,6 +35,8 @@ from paddle_tpu_torch.ops import (attention_ops, ce_ops, embedding_ops,
                                   ffn_ops, kernel_tier, nn_ops,
                                   optimizer_ops)
 
+import torch_activation_cases
+
 pytestmark = pytest.mark.cuda
 
 
@@ -2611,3 +2613,105 @@ def test_sparse_fused_steps_equal_run_calls(dev, opt):
     assert float(last[0][0]) == want[-1]
     for n in init:
         assert torch.equal(fused.get(n), ref.get(n)), n
+
+
+# ---------------------------------------------------------------------------
+# The learning-rate schedules' step counter and the activation ops (slice 26)
+
+def _scheduled_program(fluid):
+    """An fc regression under ``Adam(learning_rate=noam_decay(16, 3))``:
+    the step counter's ``increment`` at the top of every run."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 4
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data('x', shape=[8])
+        y = fluid.layers.data('y', shape=[1])
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(
+            fluid.layers.fc(x, size=1), y))
+        lr = fluid.layers.learning_rate_scheduler.noam_decay(16, 3)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss, lr
+
+
+def _htod_copies(fn):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if 'HtoD' in e.key)
+
+
+def test_bound_step_counter_copies_nothing_from_the_host(dev):
+    """A bound program whose rate is a schedule of the step counter: the
+    ``increment`` adds its step as a number, so a replay (feeds already on
+    the card) copies nothing from the host, and the rate advances with
+    every replay along noam's closed form (1e-6 relative), the counter an
+    int64 at the number of steps."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss, lr = _scheduled_program(fluid)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rs = np.random.RandomState(2)
+    feed = {'x': torch.from_numpy(rs.randn(4, 8).astype('float32')).to(dev),
+            'y': torch.from_numpy(rs.randn(4, 1).astype('float32')).to(dev)}
+    bp = exe.bind(main, feed, fetch_list=[loss, lr], scope=scope)
+    rates = [float(bp.first_out[1][0])]
+    for _ in range(2):
+        rates.append(float(bp(feed)[1][0]))
+    replayed = []
+    assert _htod_copies(lambda: replayed.append(bp(feed))) == 0
+    rates.append(float(replayed[0][1][0]))
+    assert bp.replays >= 2 and bp.captures == 1
+    for s, r in enumerate(rates, start=1):
+        want = 16 ** -0.5 * min(s ** -0.5, s * 3 ** -1.5)
+        assert abs(r / want - 1) <= 1e-6, (s, r, want)
+    counter = scope.get('@LR_DECAY_COUNTER@')
+    assert counter.dtype == torch.int64 and int(counter[0]) == 4
+
+
+def test_fused_steps_with_a_step_counter_equal_run_calls(dev):
+    """``run_fused`` over four batches under a scheduled rate: the four
+    ``run()`` calls' losses and state bitwise, the counter at 4."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.io import scope_from_numpy
+    main, startup, loss, lr = _scheduled_program(fluid)
+    exe, s0 = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = {n: s0.get(n).clone() for n in s0.names()}
+    rs = np.random.RandomState(3)
+    feeds = [{'x': rs.randn(4, 8).astype('float32'),
+              'y': rs.randn(4, 1).astype('float32')} for _ in range(4)]
+    ref = scope_from_numpy(init)
+    want = [exe.run(main, feed=f, fetch_list=[loss, lr], scope=ref)
+            for f in feeds]
+    fused = scope_from_numpy(init)
+    last = fluid.Executor().run_fused(main, feeds, fetch_list=[loss, lr],
+                                      scope=fused)
+    assert np.array_equal(last[0], want[-1][0])
+    assert np.array_equal(last[1], want[-1][1])
+    for n in init:
+        assert torch.equal(fused.get(n), ref.get(n)), n
+    assert int(fused.get('@LR_DECAY_COUNTER@')[0]) == 4
+
+
+ACT_CASES = torch_activation_cases.cases()
+
+
+@pytest.mark.parametrize('key', sorted(ACT_CASES))
+def test_activation_op_on_the_card_matches_the_cpu(dev, key):
+    """Each activation and math op type of tests/torch_activation_cases.py
+    through ``Executor.run`` on the card against the port's CPU Executor:
+    the outputs and the gradients of sum(out * ct), within rtol 1e-5 and
+    atol 1e-6 (the card's exp, log, tanh, pow and cos are correctly
+    rounded to within a few ulps, and its sums run in another order)."""
+    import paddle_tpu_torch as fluid
+    case, tac = ACT_CASES[key], torch_activation_cases
+    want = tac.run_case(fluid, fluid.Executor(fluid.CPUPlace()), key, case)
+    got = tac.run_case(fluid, fluid.Executor(), key, case)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].shape == want[name].shape, name
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-5,
+                                   atol=1e-6, err_msg=name)

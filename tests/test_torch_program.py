@@ -51,6 +51,7 @@ comes from a numpy seed and goes through both packages.
     `TensorAdam`.
 """
 import math
+import os
 
 import numpy as np
 import pytest
@@ -235,16 +236,107 @@ WIDE_FEEDS = _lm_feeds(1, kw=WIDE0) * STEPS
 # (a) the same programs
 
 
+def _build_slice26_layers(pkg):
+    """One program through the eleven layers of op types lowered before
+    slice 26, the activation, loss and norm layers, the Variable
+    operators and every learning-rate schedule."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        L = pkg.layers
+        x = L.data(name='x', shape=[4, 6], dtype='float32')
+        y = L.data(name='y', shape=[4, 6], dtype='float32')
+        w = L.data(name='w', shape=[6, 3], dtype='float32',
+                   append_batch_size=False)
+        img = L.data(name='img', shape=[4, 3, 3], dtype='float32')
+        lab = L.data(name='lab', shape=[1], dtype='int64')
+        col = L.data(name='col', shape=[1], dtype='float32')
+        q = L.data(name='q', shape=[2, 8, 16], dtype='float32')
+        h0 = L.data(name='h0', shape=[5], dtype='float32')
+        L.mul(x, w, x_num_col_dims=2)
+        L.sum([x, y])
+        L.sums_([x, y, x])
+        L.clip(x, -0.5, 0.5)
+        L.clip_by_norm(x, 1.0)
+        L.sign(x)
+        L.gaussian_random([3, 4], mean=1.0, std=2.0, seed=3)
+        L.uniform_random([2, 5], min=-2.0, max=3.0, seed=4)
+        L.lstm_unit(L.reshape(x, [-1, 24]), h0, h0, forget_bias=0.5)
+        L.flash_attention(q, q, q)
+        L.flash_attention(q, q, q, scale=0.0, causal=False)
+        ids = L.data(name='ids', shape=[1], dtype='int64')
+        emb = L.embedding(ids, size=[10, 4], is_sparse=True)
+        pg = pkg.backward.append_backward(L.mean(emb))
+        L.get_tensor_from_selected_rows(L.merge_selected_rows(pg[0][1]))
+        for act in ('exp', 'rsqrt', 'abs', 'ceil', 'floor', 'cos', 'sin',
+                    'round', 'reciprocal', 'softplus', 'softsign',
+                    'tanh_shrink', 'logsigmoid', 'softshrink', 'elu',
+                    'relu6', 'pow', 'stanh', 'hard_shrink', 'hard_sigmoid',
+                    'thresholded_relu', 'log', 'brelu', 'leaky_relu',
+                    'soft_relu', 'selu', 'swish'):
+            getattr(L, act)(x)
+        L.pow(x, factor=3.0)
+        L.selu(x, scale=1.5, alpha=0.5)
+        L.cumsum(x, axis=1, exclusive=True, reverse=True)
+        for mode in ('all', 'channel', 'element'):
+            L.prelu(img, mode)
+        L.maxout(img, groups=2)
+        L.huber_loss(x, y, 0.5)
+        L.smooth_l1(x, y, x, y, sigma=2.0)
+        L.smooth_l1(x, y)
+        L.bpr_loss(x, lab)
+        L.rank_loss(col, col, col)
+        L.margin_rank_loss(col, col, col, margin=0.2)
+        L.hinge_loss(col, col)
+        L.teacher_student_sigmoid_loss(col, col)
+        L.l2_normalize(x, axis=1)
+        L.cos_sim(x, y)
+        L.bilinear_tensor_product(x, y, 3, act='tanh')
+        v = (x + 1.0) * 2.0 - y / 3.0
+        v = (1.0 - v) ** 2.0 + 2.0 ** -v
+        (v < y, v >= 0.5, v.astype('float64'))
+        S = L.learning_rate_scheduler
+        S.noam_decay(512, 400)
+        S.exponential_decay(0.1, 100, 0.9, staircase=True)
+        S.natural_exp_decay(0.1, 100, 0.9)
+        S.inverse_time_decay(0.1, 100, 0.5, staircase=True)
+        S.polynomial_decay(0.1, 100, cycle=True)
+        S.polynomial_decay(0.1, 100, power=2.0)
+        S.piecewise_decay([10, 20], [0.1, 0.01, 0.001])
+        S.cosine_decay(0.1, 10, 5)
+        S.linear_lr_warmup(0.1, 5, 0.0, 0.1)
+    return main, startup
+
+
+def _build_train_lm_example(pkg, tmod):
+    """examples/train_lm.py's program at SMALL's size with its dropout."""
+    from paddle_tpu.contrib import mixed_precision as jmp
+    from paddle_tpu_torch.contrib import mixed_precision as tmp
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        _, _, _, loss = tmod.build_lm(tmod.LMConfig(
+            **dict(FLASH, use_flash_attention=True)))
+        lr = pkg.layers.learning_rate_scheduler.noam_decay(
+            SMALL['d_model'], 400)
+        (jmp if pkg is jfluid else tmp).decorate(
+            pkg.optimizer.Adam(learning_rate=lr)).minimize(loss)
+    return main, startup
+
+
 @pytest.mark.parametrize('which', ['flash', 'default', 'inference',
                                    'quick_start', 'bert_flash',
                                    'bert_unfused', 'bert_inference',
-                                   'op_library'])
+                                   'op_library', 'slice26_layers',
+                                   'train_lm_example'])
 def test_program_dicts_equal_the_jax_package(which):
     def build(pkg, tmod, ser):
         if which == 'quick_start':
             main, startup, _ = _build_quick_start(pkg)
         elif which == 'op_library':
             main, startup = _build_op_library(pkg)
+        elif which == 'slice26_layers':
+            main, startup = _build_slice26_layers(pkg)
+        elif which == 'train_lm_example':
+            main, startup = _build_train_lm_example(pkg, tmod)
         elif which.startswith('bert'):
             bmod = jbert if pkg is jfluid else tbert
             main, startup, _ = _build_bert(
@@ -957,6 +1049,140 @@ def _one_layer_program(pkg, build):
     with pkg.program_guard(main, startup), pkg.unique_name.guard():
         out = build(pkg)
     return main, startup, out
+
+
+def _eleven(pkg, which):
+    """(fetch vars, feed) of one of the eleven layers whose op types the
+    port lowered before it had their layers, on seeded inputs."""
+    L = pkg.layers
+    rs = np.random.RandomState(26)
+    f = lambda *s: rs.randn(*s).astype('float32')
+    feed = {'x': f(4, 6), 'y': f(4, 6)}
+    x = L.data(name='x', shape=[6])
+    y = L.data(name='y', shape=[6])
+    if which == 'mul':
+        feed['w'] = f(6, 3)
+        w = L.data(name='w', shape=[6, 3], append_batch_size=False)
+        return [L.mul(x, w)], feed
+    if which == 'sum':
+        return [L.sum([x, y, x])], feed
+    if which == 'clip':
+        return [L.clip(x, -0.5, 0.75)], feed
+    if which == 'clip_by_norm':
+        return [L.clip_by_norm(x, 1.5), L.clip_by_norm(y, 100.0)], feed
+    if which == 'sign':
+        feed['x'][0, :3] = 0.0
+        return [L.sign(x)], feed
+    if which == 'lstm_unit':
+        feed['c'] = f(4, 5)
+        h = L.fc(y, size=5, act='tanh')
+        return list(L.lstm_unit(x, h, L.data(name='c', shape=[5]),
+                                forget_bias=0.5)), feed
+    if which == 'flash_attention':
+        feed = {n: f(2, 2, 8, 16) for n in 'qkv'}
+        q, k, v = (L.data(name=n, shape=[2, 2, 8, 16],
+                          append_batch_size=False) for n in 'qkv')
+        return [L.flash_attention(q, k, v),
+                L.flash_attention(q, k, v, scale=0.5, causal=False)], feed
+    # merge_selected_rows, get_tensor_from_selected_rows: the sparse
+    # table's gradient (repeated ids) merged, then its rows as a tensor
+    feed = {'ids': np.array([[3], [1], [3], [7], [1]], 'int64')}
+    ids = L.data(name='ids', shape=[1], dtype='int64')
+    emb = L.embedding(ids, size=[10, 4], is_sparse=True)
+    (_, grad), = pkg.backward.append_backward(L.mean(L.square(emb)))
+    merged = L.merge_selected_rows(grad)
+    return [L.get_tensor_from_selected_rows(merged), merged], feed
+
+
+ELEVEN = ['mul', 'sum', 'clip', 'clip_by_norm', 'sign', 'lstm_unit',
+          'flash_attention', 'merge_selected_rows']
+
+
+@pytest.mark.parametrize('which', ELEVEN)
+def test_layers_of_ops_lowered_before_match_the_jax_executor(which):
+    """The deterministic of the eleven layers (Queue 3 item 1 of the
+    port's ROADMAP; ``merge_selected_rows`` with
+    ``get_tensor_from_selected_rows``): the same program as the JAX
+    package's, and the same fetches through ``Executor.run`` from the JAX
+    startup scope within 1e-5 (rtol and atol)."""
+    feeds = []
+
+    def build(pkg):
+        out, feed = _eleven(pkg, which)
+        feeds.append(feed)
+        return out
+
+    jmain, jstart, jouts = _one_layer_program(jfluid, build)
+    tmain, tstart, touts = _one_layer_program(fluid, build)
+    assert tser.program_to_dict(tmain) == jser.program_to_dict(jmain)
+    assert tser.program_to_dict(tstart) == jser.program_to_dict(jstart)
+    jscope, jexe = jfluid.Scope(), jfluid.Executor()
+    jexe.run(jstart, scope=jscope)
+    if which == 'flash_attention':
+        os.environ['PADDLE_FUSED_TIER'] = 'interpret'
+    try:
+        want = jexe.run(jmain, feed=feeds[0], fetch_list=jouts,
+                        scope=jscope)
+    finally:
+        os.environ.pop('PADDLE_FUSED_TIER', None)
+    got = fluid.Executor(CPU).run(
+        tmain, feed=feeds[1], fetch_list=touts,
+        scope=scope_from_numpy(_scope_arrays(jscope), device='cpu'))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('which', ['uniform_random', 'gaussian_random'])
+def test_random_layers_hold_their_distribution(which):
+    """``layers.uniform_random`` and ``layers.gaussian_random``: the JAX
+    program, and draws of the op's shape, dtype, range and moments in both
+    packages (threefry and torch's generator cannot agree draw by draw)."""
+    attrs = dict(shape=[64, 50], seed=0)
+    attrs.update(dict(min=-2.0, max=3.0) if which == 'uniform_random'
+                 else dict(mean=1.0, std=2.0))
+
+    def build(pkg):
+        return [getattr(pkg.layers, which)(**attrs)]
+
+    runs = []
+    for pkg, place in ((jfluid, None), (fluid, CPU)):
+        main, startup, outs = _one_layer_program(pkg, build)
+        runs.append(main)
+        exe = pkg.Executor(place) if place else pkg.Executor()
+        draws = [np.asarray(exe.run(main, fetch_list=outs,
+                                    scope=pkg.Scope())[0]) for _ in range(2)]
+        _check_draws(which, attrs, *draws)
+    assert tser.program_to_dict(runs[1]) == jser.program_to_dict(runs[0])
+
+
+@pytest.mark.parametrize('name', ['Block', 'Operator', 'cpu_places',
+                                  'cuda_places'])
+def test_framework_names_of_the_jax_package(name):
+    """``Block``, ``Operator``, ``cpu_places`` and ``cuda_places`` at the
+    top level, as in the JAX package: ``cpu_places()`` reads ``CPU_NUM``
+    (1 without it), ``cuda_places()`` lists every visible card."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import framework
+    assert hasattr(jfluid, name) and name in paddle_tpu_torch.__all__
+    assert getattr(paddle_tpu_torch, name) is getattr(framework, name)
+    if name == 'cpu_places':
+        old = os.environ.pop('CPU_NUM', None)
+        try:
+            assert len(fluid.cpu_places()) == 1
+            os.environ['CPU_NUM'] = '3'
+            places = fluid.cpu_places()
+            assert len(places) == 3 and all(
+                isinstance(p, fluid.CPUPlace) for p in places)
+            assert len(fluid.cpu_places(2)) == 2
+        finally:
+            os.environ.pop('CPU_NUM', None)
+            if old is not None:
+                os.environ['CPU_NUM'] = old
+    if name == 'cuda_places':
+        assert len(fluid.cuda_places()) == torch.cuda.device_count()
+        assert [p.device_id for p in fluid.cuda_places([1, 0])] == [1, 0]
 
 
 @pytest.mark.parametrize('dtype', ['int32', 'int64', 'uint8', 'bool',
