@@ -536,6 +536,49 @@ Phases, each printing one JSON line:
    to 4 ``run()`` calls from one state (two builds with one seed: the
    dropout masks follow the program's counted stream), losses, rates,
    state and counter.
+27. machine_translation — control flow: the bench's machine_translation
+   row (bench.py:429-517, called at :1148) through the Fluid front end at
+   its full width, nothing cut: ``build_nmt_train(Seq2SeqConfig())`` (V
+   30000, embedding, encoder and decoder 512: a bi-LSTM encoder and a
+   DynamicRNN decoder, a ``recurrent`` op whose step block attends over
+   the ragged source with ``sequence_expand``, ``sequence_softmax`` and
+   ``sequence_pool``) under ``Adam(1e-4)``, B 32 x L 30 in one LoD, and
+   ``build_nmt_generate(Seq2SeqConfig(beam_size=3), max_len=50)`` (a
+   ``While(max_trip_count=50)`` over ``top_k``, ``beam_search`` and
+   tensor arrays, then ``beam_search_decode``). First the gather at the
+   row's shapes (960 and 240 ids, and the 24 beam lanes a step, from the
+   [30000, 512] table; ``nmt_kernel``). (a) ``nmt_hold``: the training
+   program at V 1000, every width 64, on ragged B 4 batches (lengths 7,
+   3, 5, 9) for three ``run()`` steps on the card against the CPU
+   Executor at the f32 limits (loss 1e-4 relative, every parameter and
+   Adam moment within 1e-3 of its largest magnitude; the parameters'
+   change over the steps within 1e-3 of the CPU's in norm, its
+   difference within 1e-3 of that norm: `hold_change`), and the generation
+   program (beam 3, max_len 8) through ``run()`` on both: the beam ids
+   equal (else the first difference and both sentences' scores are
+   printed), the scores within 1e-4 relative. (b) ``nmt_train``: three
+   eager ``run()`` steps on the 6 batches moved to the card once, each
+   launching the gather twice; one profiled eager step (launches a step,
+   device ms, busy share, the host ops taking the most host time). (c)
+   ``run_fused`` windows of 6 steps (the bench's k): one that captures,
+   two timed (the best window's step ms, tokens/s), every replay
+   launching the gather twice, one capture, one profiled window (device
+   ms a step, busy share) and two fused steps with no host-to-device
+   copy. Checks: the loss finite and fallen from the first eager step to
+   the last fused one; peak memory reported; one ``run_fused`` window of
+   6 steps against 6 ``run()`` calls from one initialization, and 6 more
+   ``run()`` calls against those (the step is not bitwise from run to
+   run: atomics in a gather's backward), both held to one limit (the
+   last loss 1e-6 relative, parameters 1e-5 of their largest magnitude,
+   moments 1e-5 of their group's, the change 1e-3: `hold_change`). (d)
+   ``nmt_generate``: 8
+   source sentences of 30 tokens through ``Executor.bind`` (one
+   capture: the bounded loop runs its 50 iterations in one graph), five
+   timed calls (ms a call and a sentence), each launching the gather 51
+   times (the source and the loop's 50 iterations), a replay with no
+   host-to-device copy, the replays equal to an eager ``run()`` of the
+   program on the card (its loop reading the condition on the host),
+   bitwise.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -548,7 +591,8 @@ Those four kernels also get ``bound_simt_ms``, every flop at 67 TFLOP/s,
 the rule of the tables before the tensor-core kernels.
 Every case of the embedding gather, in whichever phase times it (the
 decode rows of 3, 4b and 4c, the training rows of 5, 11 and 15b (d),
-phase 19's buckets and phase 20's rows), also prints a ``gather_case``
+phase 19's buckets, phase 20's rows and phase 27's shapes), also prints a
+``gather_case``
 line of its own: ``ms`` beside ``bound_ms``, ``share_of_bound`` and
 ``library_ms`` (``F.embedding``), with the path (``at``), n, D and the
 table's rows.
@@ -769,6 +813,21 @@ EXAMPLE_BITWISE_STEPS = 4
 COUNTER = '@LR_DECAY_COUNTER@'
 # where a held program's step counter starts (phase 26 (a))
 EXAMPLE_HOLD_COUNTER0 = 396
+# phase 27: the bench's machine_translation row (bench.py:429-517, called
+# at :1148): Seq2SeqConfig() (V 30000, embedding, encoder and decoder 512),
+# B 32 x L 30 in one shared LoD, Adam(1e-4), K 6 batches a run_fused
+# window (the bench's k); beam-3 generation of 8 sentences of 30 tokens at
+# max_len 50 through bind. Nothing is cut; the bench's rounds are
+# NMT_FUSED_ROUNDS windows and GEN_ROUNDS calls
+NMT_B, NMT_L, NMT_K = 32, 30, 6
+NMT_EAGER_STEPS = 3
+NMT_FUSED_ROUNDS = 2
+GEN_B, GEN_BEAM, GEN_MAX_LEN, GEN_ROUNDS = 8, 3, 50, 5
+# the holds against the CPU Executor: V 1000, every width 64, B 4 ragged,
+# three run() steps; generation at beam 3, max_len 8 over the same source
+NMT_HOLD_V, NMT_HOLD_W, NMT_HOLD_LENS, NMT_HOLD_STEPS = 1000, 64, \
+    (7, 3, 5, 9), 3
+NMT_HOLD_MAX_LEN = 8
 # the AMP path's kernels but the fused Adam: the example's Adam is not
 # fused, so it appends one ``adam`` op a parameter (plain torch)
 EXAMPLE_KERNELS = tuple(k for k in AMP_TRAIN_KERNELS if k != 'fused_adam')
@@ -814,7 +873,10 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'flash_wide_amp': AMP_BERT_UNFUSED_KERNELS +
                 WIDE_FLASH_KERNELS,
                 'train_lm_example': EXAMPLE_KERNELS,
-                'train_lm_example_hold': EXAMPLE_KERNELS}
+                'train_lm_example_hold': EXAMPLE_KERNELS,
+                'nmt_hold': ('embedding_gather',),
+                'nmt_train': ('embedding_gather',),
+                'nmt_generate': ('embedding_gather',)}
 
 
 def emit(obj):
@@ -5945,6 +6007,423 @@ def run_train_lm_example(torch, kt, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 27: control flow: the bench's machine_translation row
+
+
+def nmt_config(hold=False, beam_size=GEN_BEAM):
+    from paddle_tpu_torch.models.seq2seq import Seq2SeqConfig
+    if not hold:
+        return Seq2SeqConfig(beam_size=beam_size)
+    w = NMT_HOLD_W
+    return Seq2SeqConfig(dict_size=NMT_HOLD_V, embedding_dim=w,
+                         encoder_size=w, decoder_size=w,
+                         beam_size=beam_size)
+
+
+def nmt_programs(fluid, cfg, max_len):
+    """bench.py:441-445's training program (``build_nmt_train`` under
+    ``Adam(1e-4)``) and :481-483's generation program
+    (``build_nmt_generate``), each with a seeded startup program. Returns
+    (main, startup, loss, feed names, gmain, gstartup, (ids, scores))."""
+    from paddle_tpu_torch.models.seq2seq import (build_nmt_generate,
+                                                 build_nmt_train)
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 27
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds, loss, _ = build_nmt_train(cfg)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    gmain, gstartup = fluid.Program(), fluid.Program()
+    gstartup.random_seed = 28
+    with fluid.program_guard(gmain, gstartup), fluid.unique_name.guard():
+        _, fetch = build_nmt_generate(cfg, max_len=max_len)
+    return main, startup, loss, feeds, gmain, gstartup, list(fetch)
+
+
+def nmt_batches(rng, feeds, vocab, lens, n, to=None):
+    """``n`` batches of source, target and label ids of one LoD (the
+    lengths ``lens``), each ``(ids [T, 1], lod)``, moved by ``to``."""
+    lod = [[0] + [int(v) for v in np.cumsum(lens)]]
+    out = []
+    for _ in range(n):
+        b = {}
+        for name in feeds:
+            ids = rng.randint(1, vocab, (lod[0][-1], 1)).astype('int64')
+            b[name] = (to(ids) if to else ids, lod)
+        out.append(b)
+    return out
+
+
+def gen_feed(rng, vocab, batch, beam, seq_len, to=None):
+    """bench.py:486-492's generation feed: ``batch`` source sentences of
+    ``seq_len`` ids and the decoder's initial beams (start id 0)."""
+    from paddle_tpu_torch.contrib.decoder import BeamSearchDecoder
+    src = rng.randint(1, vocab, (batch * seq_len, 1)).astype('int64')
+    init_ids, init_scores = BeamSearchDecoder.make_initial_beams(batch, beam,
+                                                                 0)
+    to = to or (lambda a: a)
+    return {'source_sequence': (to(src), [list(range(
+                0, (batch + 1) * seq_len, seq_len))]),
+            'init_ids': to(init_ids), 'init_scores': to(init_scores)}
+
+
+def check_nmt_gather(torch, F):
+    """Phase 27's kernel: the gather from the [30000, 512] tables at the
+    row's shapes: the B 32 x L 30 source and target ids, the generation's
+    8 x 30 source ids and its 24 beam lanes a step."""
+    dev = torch.device('cuda', 0)
+    g = torch.Generator(device=dev).manual_seed(2727)
+    cfg = nmt_config()
+    w = torch.randn((cfg.dict_size, cfg.embedding_dim), generator=g,
+                    device=dev) * 0.02
+    cases = [gather_case(torch, F, w, n, g, at) for n, at in (
+        (NMT_B * NMT_L, 'nmt_train'), (GEN_B * NMT_L, 'nmt_generate'),
+        (GEN_B * GEN_BEAM, 'nmt_generate_step'))]
+    for c in cases:
+        check_bound('embedding_gather', c)
+    out = dict(tolerance=0.0, cases=cases,
+               max_abs_err=max(c['max_abs_err'] for c in cases))
+    if out['max_abs_err'] > 0:
+        raise AssertionError('the gather at the NMT shapes is off its plain '
+                             'version by %g' % out['max_abs_err'])
+    emit(dict(phase='nmt_kernel', name='embedding_gather', **out))
+    return {'embedding_gather': out}
+
+
+def nmt_hold(torch, kt, fluid, smi):
+    """Phase 27 (a): the training program at the hold size on the card
+    against the CPU Executor (three ``run()`` steps on ragged B 4 batches
+    from one initialization) at the f32 limits, the parameters' change
+    over the steps held as one vector (`hold_change`, 1e-3 and 1e-3), and
+    the generation program through ``run()`` on both: the beam ids equal,
+    the scores within 1e-4 relative. Returns the card's launch counts."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    cfg = nmt_config(hold=True)
+    main, startup, loss, feeds, gmain, gstartup, gfetch = nmt_programs(
+        fluid, cfg, NMT_HOLD_MAX_LEN)
+    rng = np.random.RandomState(270)
+    batches = nmt_batches(rng, feeds, NMT_HOLD_V, NMT_HOLD_LENS,
+                          NMT_HOLD_STEPS)
+    gfeed = gen_feed(rng, NMT_HOLD_V, len(NMT_HOLD_LENS), GEN_BEAM, 6)
+    s0, g0 = fluid.Scope(), fluid.Scope()
+    fluid.Executor().run(startup, scope=s0)
+    fluid.Executor().run(gstartup, scope=g0)
+    init, ginit = state_arrays(s0), state_arrays(g0)
+    runs, counts = {}, None
+    for side, place in (('card', None), ('cpu', fluid.CPUPlace())):
+        e = fluid.Executor(place)
+        scope = scope_from_numpy(init, device=e.device)
+        kt.reset_counts()
+        losses = [float(e.run(main, feed=b, fetch_list=[loss],
+                              scope=scope)[0][0]) for b in batches]
+        gen = e.run(gmain, feed=gfeed, fetch_list=gfetch,
+                    scope=scope_from_numpy(ginit, device=e.device))
+        if place is None:
+            counts = kt.launch_counts()
+        runs[side] = (losses, state_arrays(scope), gen)
+    (got, gstate, ggen), (want, wstate, wgen) = runs['card'], runs['cpu']
+    params = [p.name for p in main.all_parameters()]
+    held, failures = hold_steps(got, want, gstate, wstate, {
+        'params': (params, 1e-3, 'own'),
+        'moments': ([n for n in wstate if '_moment' in n], 1e-3, 'own')},
+        1e-4)
+    held['change'], more = hold_change(init, gstate, wstate, params, 1e-3,
+                                       1e-3)
+    failures += more
+    ids_equal = bool(np.array_equal(ggen[0], wgen[0]))
+    score_rel = float(np.max(np.abs(ggen[1] - wgen[1]) /
+                             np.maximum(np.abs(wgen[1]), 1e-30)))
+    out = dict(phase='nmt_hold', card=smi, lengths=list(NMT_HOLD_LENS),
+               vocab=NMT_HOLD_V, width=NMT_HOLD_W, launches=counts,
+               beam_ids_equal=ids_equal, beam_shape=list(ggen[0].shape),
+               beam_score_rel_err_max=score_rel, **held)
+    if not ids_equal:
+        first = [int(v) for v in np.argwhere(ggen[0] != wgen[0])[0]]
+        out['first_difference'] = dict(
+            at=first, card=int(ggen[0][tuple(first)]),
+            cpu=int(wgen[0][tuple(first)]),
+            card_score=float(ggen[1][tuple(first[:2])]),
+            cpu_score=float(wgen[1][tuple(first[:2])]))
+        failures.append('beam ids differ at %s' % first)
+    if not score_rel <= 1e-4:
+        failures.append('beam scores off by %g' % score_rel)
+    emit(out)
+    if failures:
+        raise AssertionError('machine_translation on the card off the CPU: '
+                             '%s' % '; '.join(failures))
+    return counts
+
+
+def nmt_fused_holds_runs(torch, fluid, exe, main, loss, init, batches,
+                         stacked):
+    """Phase 27 (c): one ``run_fused`` window of NMT_K steps against NMT_K
+    ``run()`` calls on the same batches, and a second NMT_K ``run()``
+    calls against the first, each from a scope of ``init``. The card's
+    step is not bitwise from run to run (the backward of
+    ``sequence_softmax``'s and ``sequence_expand``'s row gathers adds by
+    atomics), so both pairs are held to one stated limit: the last loss
+    (what ``run_fused`` returns) within 1e-6 relative, each parameter
+    within 1e-5 of its largest magnitude, each Adam moment within 1e-5 of
+    its group's largest (the state projection's gradient is rounding
+    noise: its first moment differs by a share of its own tiny largest),
+    and the parameters' change within 1e-3 of the reference's in norm and
+    difference (`hold_change`)."""
+    from paddle_tpu_torch.io import scope_from_numpy
+    runs = {}
+    for side in ('run', 'run_again', 'fused'):
+        scope = scope_from_numpy(init, device=exe.device)
+        if side == 'fused':
+            last = exe.run_fused(main, stacked, fetch_list=[loss],
+                                 scope=scope, steps=NMT_K)[0]
+        else:
+            for b in batches:
+                last = exe.run(main, feed=b, fetch_list=[loss],
+                               scope=scope)[0]
+        runs[side] = ([float(np.asarray(last).reshape(-1)[0])],
+                      state_arrays(scope))
+        del scope
+        torch.cuda.empty_cache()
+    params = [p.name for p in main.all_parameters()]
+    want, wstate = runs['run']
+    out, failures = dict(steps=NMT_K), []
+    for side in ('fused', 'run_again'):
+        got, gstate = runs[side]
+        held, more = hold_steps(got, want, gstate, wstate, {
+            'params': (params, 1e-5, 'own'),
+            'moments1': ([n for n in wstate if '_moment1_' in n], 1e-5,
+                         'set'),
+            'moments2': ([n for n in wstate if '_moment2_' in n], 1e-5,
+                         'set')}, 1e-6)
+        held['change'], worse = hold_change(init, gstate, wstate, params,
+                                            1e-3, 1e-3)
+        held['bitwise'] = sorted(gstate) == sorted(wstate) and all(
+            np.array_equal(gstate[n], wstate[n]) for n in wstate)
+        out[side + '_vs_run'] = held
+        failures += ['%s: %s' % (side, f) for f in more + worse]
+    if failures:
+        raise AssertionError('machine_translation: run_fused over %d steps '
+                             'off %d run() calls: %s; %s'
+                             % (NMT_K, NMT_K, '; '.join(failures), out))
+    return out
+
+
+def nmt_train(torch, kt, fluid, smi, exe, main, startup, loss, feeds):
+    """Phase 27 (b)-(d): the row's training at full width, eagerly and in
+    run_fused windows of NMT_K steps. Returns (summary, launch counts)."""
+    dev = exe.device
+    cfg = nmt_config()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = state_arrays(scope)
+    rng = np.random.RandomState(0)
+    batches = nmt_batches(rng, feeds, cfg.dict_size, [NMT_L] * NMT_B, NMT_K,
+                          to=lambda a: torch.from_numpy(a).to(dev))
+    per_step = dict.fromkeys(kt.KERNELS, 0)
+    per_step['embedding_gather'] = 2
+    step = lambda i: exe.run(main, feed=batches[i % NMT_K],
+                             fetch_list=[loss], scope=scope,
+                             return_numpy=False)[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kt.reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(NMT_EAGER_STEPS):
+        losses.append(step(i))
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kt.launch_counts()
+    want = {k: NMT_EAGER_STEPS * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError('machine_translation: %d eager steps launched '
+                             '%s, not %s' % (NMT_EAGER_STEPS, counts, want))
+    eager = dict(steps=NMT_EAGER_STEPS,
+                 losses=[float(v) for v in torch.cat(losses).cpu()],
+                 first_step_ms=(t1 - t0) * 1e3,
+                 step_ms=(t2 - t1) * 1e3 / (NMT_EAGER_STEPS - 1),
+                 peak_mem_bytes=torch.cuda.max_memory_allocated() - base)
+    kt.reset_counts()
+    eager['step_profile'] = step_profile(torch, lambda: step(0), steps=1,
+                                         host=True)
+    extra = kt.launch_counts()
+    counts = {k: counts[k] + extra[k] for k in counts}
+
+    lod = batches[0][feeds[0]][1]
+    stacked = {n: (torch.stack([b[n][0] for b in batches]), lod)
+               for n in feeds}
+    run = lambda steps, **kw: exe.run_fused(
+        main, stacked, fetch_list=[loss], scope=scope, steps=steps, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    fused_losses = [float(run(NMT_K)[0].reshape(-1)[0])]
+    first_s = time.perf_counter() - t
+    plan = [e.bound[scope] for _, e in exe._cache.items()
+            if scope in e.bound][-1]
+    kt.reset_counts()
+    best = float('inf')
+    for _ in range(NMT_FUSED_ROUNDS):
+        t = time.perf_counter()
+        last = run(NMT_K, return_numpy=False)
+        fused_losses.append(float(last[0].reshape(-1)[0]))      # the sync
+        best = min(best, time.perf_counter() - t)
+    fcounts = kt.launch_counts()
+    want = {k: NMT_FUSED_ROUNDS * NMT_K * v for k, v in per_step.items()}
+    if fcounts != want:
+        raise AssertionError('machine_translation: %d fused steps launched '
+                             '%s, not %s' % (NMT_FUSED_ROUNDS * NMT_K,
+                                             fcounts, want))
+    fused = dict(k_batches=NMT_K, steps_per_call=NMT_K,
+                 rounds=NMT_FUSED_ROUNDS, first_call_s=first_s,
+                 step_ms=best / NMT_K * 1e3, losses=fused_losses,
+                 replays=plan.replays, captures=plan.captures,
+                 peak_mem_bytes=torch.cuda.max_memory_allocated() - base)
+    if plan.captures != 1:
+        raise AssertionError('machine_translation: run_fused captured %d '
+                             'graphs' % plan.captures)
+    kt.reset_counts()
+    fused['window_profile'] = step_profile(
+        torch, lambda: run(NMT_K, return_numpy=False)[0].cpu(), steps=1)
+    copies, kernels, _, _ = htod_copies(torch, lambda: run(
+        2, return_numpy=False)[0].cpu())
+    fused['htod_copies_in_2_steps'] = copies
+    fused['device_kernels_in_2_steps'] = kernels
+    if copies:
+        raise AssertionError('machine_translation: %d host-to-device copies '
+                             'in two fused steps' % copies)
+    extra = kt.launch_counts()
+    counts = {k: counts[k] + fcounts[k] + extra[k] for k in counts}
+    del plan
+    fused['holds_runs'] = nmt_fused_holds_runs(
+        torch, fluid, exe, main, loss, init, batches, stacked)
+    del init
+    prof, wprof = eager['step_profile'], fused['window_profile']
+    tokens = NMT_B * NMT_L
+    out = dict(
+        phase='nmt_train', card=smi, batch=NMT_B, seq_len=NMT_L,
+        vocab=cfg.dict_size, width=cfg.decoder_size,
+        ops=len(main.global_block().ops),
+        step_block_ops=len(main.block(1).ops),
+        param_count=int(sum(np.prod(p.shape)
+                            for p in main.all_parameters())),
+        step_ms=fused['step_ms'], eager_step_ms=eager['step_ms'],
+        tokens_per_s=tokens / (fused['step_ms'] / 1e3),
+        eager_tokens_per_s=tokens / (eager['step_ms'] / 1e3),
+        samples_per_s=NMT_B / (fused['step_ms'] / 1e3),
+        launches_per_step=prof['launches_per_step'],
+        eager_device_ms=prof['device_ms_per_step'],
+        eager_busy_share=prof['busy_share'],
+        device_ms=wprof['device_ms_per_step'] / NMT_K,
+        busy_share=wprof['busy_share'],
+        peak_mem_bytes=max(eager['peak_mem_bytes'],
+                           fused['peak_mem_bytes']),
+        launches_per_step_hand_written=per_step,
+        loss_first=eager['losses'][0], loss_last=fused_losses[-1],
+        eager=eager, fused=fused)
+    out['loss_fell'] = out['loss_last'] < out['loss_first']
+    trail = eager['losses'] + fused_losses
+    if not all(np.isfinite(trail)) or not out['loss_fell']:
+        emit(out)
+        raise AssertionError('machine_translation: the loss is not finite '
+                             'and falling: %s' % trail)
+    return out, counts
+
+
+def nmt_generate(torch, kt, fluid, smi, exe, gmain, gstartup, gfetch):
+    """Phase 27 (e): the row's beam generation through ``bind``: one
+    capture, replays timed (ms a sentence), no host-to-device copy in a
+    replay, the replay's ids equal to an eager ``run()``'s on the card.
+    Each call launches the gather 1 + GEN_MAX_LEN times (the source, and
+    the target embedding in each of the loop's iterations) and no other
+    kernel. Returns (summary, launch counts of the replays)."""
+    dev = exe.device
+    cfg = nmt_config()
+    gscope = fluid.Scope()
+    exe.run(gstartup, scope=gscope)
+    feed = gen_feed(np.random.RandomState(1), cfg.dict_size, GEN_B, GEN_BEAM,
+                    NMT_L, to=lambda a: torch.from_numpy(a).to(dev))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bound = exe.bind(gmain, feed, fetch_list=gfetch, scope=gscope)
+    bind_s = time.perf_counter() - t
+    kt.reset_counts()
+    best, outs = float('inf'), []
+    for _ in range(GEN_ROUNDS):
+        t = time.perf_counter()
+        outs.append(bound(bound.example_feed))                # reads: sync
+        best = min(best, time.perf_counter() - t)
+    copies, kernels, wall_ms, dev_ms = htod_copies(
+        torch, lambda: bound(bound.example_feed))
+    counts = kt.launch_counts()
+    want = dict.fromkeys(kt.KERNELS, 0)
+    want['embedding_gather'] = (GEN_ROUNDS + 1) * (1 + GEN_MAX_LEN)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eager = exe.run(gmain, feed=feed, fetch_list=gfetch, scope=gscope)
+    eager_ms = (time.perf_counter() - t) * 1e3
+    ids, scores = outs[-1]
+    out = dict(
+        phase='nmt_generate', card=smi, batch=GEN_B, beam=GEN_BEAM,
+        max_len=GEN_MAX_LEN, source_len=NMT_L, bind_s=bind_s,
+        call_ms=best * 1e3, ms_per_sentence=best * 1e3 / GEN_B,
+        eager_call_ms=eager_ms, captures=bound.captures,
+        replays=bound.replays, launches_per_replay=bound.launches,
+        device_kernels_a_replay=kernels, device_ms_a_replay=dev_ms,
+        replay_wall_ms=wall_ms, htod_copies_in_a_replay=copies,
+        gather_launches_a_call=counts['embedding_gather'] /
+        (GEN_ROUNDS + 1),
+        ids_shape=list(ids.shape),
+        replay_equals_eager=bool(np.array_equal(ids, eager[0]) and
+                                 np.array_equal(scores, eager[1])),
+        replays_agree=all(np.array_equal(o[0], ids) for o in outs),
+        scores_finite=bool(np.isfinite(scores).all()),
+        first_sentence=[int(v) for v in ids[0, 0, :12]])
+    emit(out)
+    failures = []
+    if bound.captures != 1:
+        failures.append('%d captures' % bound.captures)
+    if counts != want:
+        failures.append('%d calls launched %s, not %s'
+                        % (GEN_ROUNDS + 1, counts, want))
+    if copies:
+        failures.append('%d host-to-device copies in a replay' % copies)
+    if list(ids.shape) != [GEN_B, GEN_BEAM, GEN_MAX_LEN]:
+        failures.append('ids of shape %s' % list(ids.shape))
+    if not (out['replay_equals_eager'] and out['replays_agree'] and
+            out['scores_finite']):
+        failures.append('the replays are off the eager run or not finite')
+    if failures:
+        raise AssertionError('machine_translation generation: %s'
+                             % '; '.join(failures))
+    return out, counts
+
+
+def run_nmt(torch, kt, smi):
+    """Phase 27 (module docstring). Returns {path: launch counts}."""
+    import paddle_tpu_torch as fluid
+    by_path = {'nmt_hold': nmt_hold(torch, kt, fluid, smi)}
+    torch.cuda.empty_cache()
+    exe = fluid.Executor()
+    t = time.perf_counter()
+    main, startup, loss, feeds, gmain, gstartup, gfetch = nmt_programs(
+        fluid, nmt_config(), GEN_MAX_LEN)
+    build_s = time.perf_counter() - t
+    train, by_path['nmt_train'] = nmt_train(torch, kt, fluid, smi, exe, main,
+                                            startup, loss, feeds)
+    train['build_s'] = build_s
+    emit(train)
+    del train
+    torch.cuda.empty_cache()
+    _, by_path['nmt_generate'] = nmt_generate(torch, kt, fluid, smi, exe,
+                                              gmain, gstartup, gfetch)
+    exe.close()
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -6161,6 +6640,9 @@ def main():
         other[name]['train_lm_example'] = [kernels[name]['cases'][0]]
     by_path.update(run_train_lm_example(torch, kt, smi))
     torch.cuda.empty_cache()
+    # phase 27: the machine_translation row's gather shapes, then the row
+    merge('nmt', check_nmt_gather(torch, F))
+    by_path.update(run_nmt(torch, kt, smi))
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {

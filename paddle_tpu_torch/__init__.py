@@ -15,7 +15,11 @@ programs (``models.resnet``, ``models.se_resnext``, ``models.vgg``:
 conv2d, batch_norm, pool2d), trained under bf16 AMP with
 ``keep_bf16_activations``; ragged (LoD) sequences (``(array, lod)``
 feeds, ``create_lod_tensor``, ``DataFeeder``) through the sequence ops
-and ``layers.dynamic_lstm``/``dynamic_gru``; the flagship causal LM's
+and ``layers.dynamic_lstm``/``dynamic_gru``; control flow (``While``,
+``StaticRNN``, ``DynamicRNN``, ``ConditionalBlock``, ``Switch``,
+``IfElse``, tensor arrays, beam search) with the attention seq2seq model
+(``models.seq2seq``) and the decoders (``contrib.decoder``); the flagship
+causal LM's
 continuous-batching decode engine (``serving.GenerateEngine``), its
 training step as a model (``models.transformer.TransformerLM.loss`` with
 ``optimizer.TensorAdam``) and BERT-base pretraining

@@ -61,10 +61,24 @@ by the op's index): no run copies one from the host, so a CUDA graph of
 the plan replays no host-to-device copy. Shape-bearing feeds (an op's
 ``static_inputs``) reach the lowering as numpy (``static_feed``,
 :meth:`LowerContext.static_value`), and key the plan by their values.
+
+Control flow (ops/control_flow_ops.py): an op that owns a sub-block
+(``while``, ``conditional_block``, ``recurrent``; framework.py
+``SUB_BLOCK_ATTRS``) runs it through :func:`lower_ops` in a child context
+(:meth:`LowerContext.child`) that shares the LoDs, static values, memo,
+generators and gradient leaves, over the sub-block's own plan
+(`_BlockPlan`). The memo keys a sub-block's constants by its index, so a
+sequence op inside a loop builds its index maps once a plan, not once an
+iteration. Under `Executor.bind` and ``run_fused`` the context holds
+``loop_flags``, which the bounded loops report to.
 """
+import contextlib
+import copy
+
 import numpy as np
 import torch
 
+from ..framework import SUB_BLOCK_ATTRS
 from .lod import normalize_lod
 from .registry import get_op
 from .selected_rows import SelectedRows
@@ -85,7 +99,11 @@ class _Plan(object):
     A value leaves the environment after the last op that reads or writes
     it, unless it is fetched or state: as PyTorch frees a temporary nothing
     holds, so that a forward keeps only what autograd saved and the
-    backward frees each activation once it is used."""
+    backward frees each activation once it is used. An op that owns a
+    sub-block (control flow) reads every name that its sub-blocks read or
+    write, at any depth (`_reads`): the values a loop carries stay until
+    the loop has run. Each sub-block gets a plan of its own
+    (`_BlockPlan`, in ``blocks``), whose ops all run and drop nothing."""
 
     def __init__(self, program, fetch_names, written_names):
         block = program.global_block()
@@ -113,15 +131,58 @@ class _Plan(object):
         for n, i in last.items():
             if n not in kept:
                 self.free_after[i].append(n)
-        # {op index: seed} of the running ops that draw from a generator of
-        # their own (a ``seed`` attr)
+        self.memo = {}
+        self.blocks = {}
+        for b in program.blocks[1:]:
+            self.blocks[b.idx] = _BlockPlan(b, self)
+        # {op key: seed} of the running ops that draw from a generator of
+        # their own (a ``seed`` attr): the op's index, or (block index, op
+        # index) in a sub-block
         self.seeded_ops = {i: int(op.attr('seed', 0))
                            for i, op in enumerate(self.ops)
                            if self.live[i] and op.attr('seed', 0) and
                            _needs_rng(self.defs[i], op)}
-        self.memo = {}
+        for bp in self.blocks.values():
+            self.seeded_ops.update(
+                ((bp.idx, i), int(op.attr('seed', 0)))
+                for i, op in enumerate(bp.ops)
+                if op.attr('seed', 0) and _needs_rng(bp.defs[i], op))
         # {name: LoD} of every value after the last run (module docstring)
         self.lod_out = {}
+
+    def all_ops(self):
+        """(OpDef, op) of every op of the program, sub-blocks included."""
+        for d, op in zip(self.defs, self.ops):
+            yield d, op
+        for bp in self.blocks.values():
+            for d, op in zip(bp.defs, bp.ops):
+                yield d, op
+
+
+class _BlockPlan(object):
+    """The plan of a sub-block: every op runs (the JAX package lowers
+    them all), nothing is dropped (each run of the block has an
+    environment of its own), every output counts as read, and the memo is
+    the run plan's."""
+
+    def __init__(self, block, root):
+        self.idx = block.idx
+        self.ops = block.ops
+        self.defs = [get_op(op.type) for op in self.ops]
+        self.live = [True] * len(self.ops)
+        self.free_after = [()] * len(self.ops)
+        self.backward_at = []
+        self.reads = set(root.reads)
+        self.stop = set(root.stop)
+        b = block
+        while b is not None and b.idx != 0:
+            self.stop.update(n for n, v in b.vars.items() if v.stop_gradient)
+            b = b.parent_block
+        for op in self.ops:
+            self.reads.update(_reads(op))
+            self.reads.update(op.output_arg_names)
+        self.memo = root.memo
+        self.blocks = root.blocks
 
 
 def _needs_rng(opdef, op):
@@ -138,10 +199,11 @@ class RunRNG(object):
 
     def __init__(self, plan, device):
         self.run = torch.Generator(device=device)
-        self.ops = {i: torch.Generator(device=device)
-                    for i in plan.seeded_ops}
-        self._op_seeds = {i: s * 1000003 + i
-                          for i, s in plan.seeded_ops.items()}
+        self.ops = {k: torch.Generator(device=device)
+                    for k in plan.seeded_ops}
+        self._op_seeds = {k: s * 1000003 + (k if isinstance(k, int) else
+                                            k[1])
+                          for k, s in plan.seeded_ops.items()}
 
     def seed(self, run_seed):
         self.run.manual_seed(run_seed)
@@ -153,9 +215,24 @@ class RunRNG(object):
 
 
 def _reads(op):
+    """The names op reads: its inputs, a ``backward`` op's ``wrt_names``,
+    and every name that the sub-blocks of a control-flow op read or
+    write, at any depth."""
     names = list(op.input_arg_names)
     if op.type == 'backward':
         names += list(op.attr('wrt_names'))
+    for a in SUB_BLOCK_ATTRS:
+        idx = op.attr(a)
+        if idx is not None:
+            names += _block_names(op.block.program.block(int(idx)))
+    return names
+
+
+def _block_names(block):
+    """Every name the ops of ``block`` and its sub-blocks read or write."""
+    names = []
+    for op in block.ops:
+        names += _reads(op) + op.output_arg_names
     return names
 
 
@@ -163,7 +240,7 @@ class LowerContext(object):
     """The environment while one block runs: var name -> torch tensor."""
 
     def __init__(self, program, block, env, device, rng=None, wrt=(),
-                 plan=None, lods=None, statics=None):
+                 plan=None, lods=None, statics=None, loop_flags=None):
         self.program = program
         self.block = block
         self.env = env
@@ -185,6 +262,40 @@ class LowerContext(object):
         # out of autograd, and [(table, ids, rows leaf)] of their lookups
         self.sparse_tables = frozenset()
         self.sparse_sites = None
+        # under `bind` and `run_fused`: a list that each bounded ``while``
+        # appends its final condition to (ops/control_flow_ops.py); None
+        # when the run is eager
+        self.loop_flags = loop_flags
+
+    def child(self, env, block):
+        """The context of a sub-block's run over ``env``: it shares this
+        context's LoDs, static values, run plan memo, generators, gradient
+        leaves, sparse tables and loop flags."""
+        c = LowerContext(self.program, block, env, self.device,
+                         rng=self._rng, wrt=self.wrt,
+                         plan=self.plan.blocks[block.idx], lods=self.lods,
+                         statics=self.statics, loop_flags=self.loop_flags)
+        c.sparse_tables = self.sparse_tables
+        c.sparse_sites = self.sparse_sites
+        return c
+
+    @contextlib.contextmanager
+    def detached(self):
+        """A copy of this context for a run whose effects are dropped: its
+        LoDs and static values are copies, and the run's generators are put
+        back as they were when the block ends."""
+        gens = self._rng.generators() if self._rng is not None else []
+        states = [g.get_state() for g in gens]
+        c = copy.copy(self)
+        c.lods, c.statics = dict(self.lods), dict(self.statics)
+        try:
+            yield c
+        finally:
+            for g, st in zip(gens, states):
+                g.set_state(st)
+
+    def has(self, name):
+        return name in self.env
 
     # ---- reading inputs --------------------------------------------------
     def get(self, name):
@@ -274,7 +385,10 @@ class LowerContext(object):
 
     def memo(self, key, build):
         """A constant built once per run plan (so once per device):
-        ``build()`` on the first call with ``key``."""
+        ``build()`` on the first call with ``key`` in this block (a key
+        made of an op index names the op of this block)."""
+        if self.block.idx:
+            key = (self.block.idx, key)
         v = self.plan.memo.get(key)
         if v is None:
             v = self.plan.memo[key] = build()
@@ -300,7 +414,9 @@ class LowerContext(object):
         """The generator of the running op, which has a ``seed`` attr:
         seeded from (seed, op index), the same at every run, as the JAX
         package folds the op index into ``PRNGKey(seed)``."""
-        return self._run_rng().ops[self.op_index]
+        key = self.op_index if not self.block.idx else \
+            (self.block.idx, self.op_index)
+        return self._run_rng().ops[key]
 
     def _run_rng(self):
         if self._rng is None:
@@ -478,29 +594,28 @@ def analyze_state(program, fetch_names=()):
 def build_fn(program, fetch_names, read_names, written_names, device,
              static_lods=None, static_feed=None):
     """The run plan of (program, fetch list) as a function
-    ``fn(feed, state, rng) -> (fetches, new_state)`` over {name: tensor}
-    dicts on ``device``; ``rng`` is a :class:`RunRNG` of the plan, seeded
-    for this run (None for a program that draws nothing).
+    ``fn(feed, state, rng, loop_flags=None) -> (fetches, new_state)`` over
+    {name: tensor} dicts on ``device``; ``rng`` is a :class:`RunRNG` of
+    the plan, seeded for this run (None for a program that draws nothing).
+    ``loop_flags`` is a list under `bind` and `run_fused`: every bounded
+    ``while`` then runs its bound's iterations and appends whether its
+    condition still held after them (ops/control_flow_ops.py).
     ``static_lods`` ({name: LoD} of the feeds and the scope's state) and
     ``static_feed`` ({name: numpy} of the shape-bearing feeds) are the
     plan's, fixed by its key; after each run ``plan.lod_out`` holds every
-    value's LoD. Sub-blocks (control flow) wait for a later slice."""
-    if len(program.blocks) > 1:
-        raise NotImplementedError(
-            'programs with sub-blocks (control flow) wait for a later slice '
-            'of paddle_tpu_torch')
+    value's LoD."""
     plan = _Plan(program, fetch_names, written_names)
     block = program.global_block()
     static_lods = {n: normalize_lod(l) for n, l in (static_lods or {})
                    .items() if l}
     static_feed = dict(static_feed or {})
 
-    def fn(feed, state, rng=None):
+    def fn(feed, state, rng=None, loop_flags=None):
         env = dict(feed)
         env.update(state)
         ctx = LowerContext(program, block, env, device, rng=rng, plan=plan,
                            lods=dict(static_lods),
-                           statics=dict(static_feed))
+                           statics=dict(static_feed), loop_flags=loop_flags)
         with torch.no_grad():
             lower_block(ctx)
         plan.lod_out = ctx.lods

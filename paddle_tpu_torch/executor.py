@@ -49,6 +49,16 @@ every kernel wrapper takes its plain version.
   A bound plan holds one LoD: `bind` takes the LoD of its feed, and
   ``run_fused`` splits a list of feeds whose LoDs differ into runs of
   consecutive feeds of one LoD, in order, each on its own bound plan.
+- Control flow under ``bind`` and ``run_fused``: a StaticRNN or DynamicRNN
+  (``recurrent``) has a trip count fixed by the plan's key, and is
+  captured whole. A ``while`` with a bound (``While(max_trip_count=)``, or
+  under the ``backward`` meta-op the capacity of an array it writes) runs
+  its bound's iterations, finished ones masked, with no host read, and
+  reports whether its condition still held after them: the bound plan
+  ORs that flag into a device tensor, reads it after each ``bind`` call
+  and each ``run_fused`` run, and raises RuntimeError when it is set. A
+  ``while`` with no bound raises NotImplementedError there: run its
+  program with ``run()``.
 
 The scope holds torch tensors on the run's device. State given as numpy
 arrays (or tensors elsewhere) is copied there on first read and cached
@@ -347,6 +357,9 @@ class _BoundPlan(object):
         self.state = None       # {name: tensor} the plan reads
         self.written = None     # {name: tensor} the state the plan writes
         self.outputs = None     # the fetches' static copies
+        # whether a bounded ``while`` of a step since the last check ended
+        # with its condition still true (None: the plan has no such loop)
+        self.loop_flag = None
         self.rng = lowering.RunRNG(entry.plan, exe.device) \
             if entry.needs_rng else None
         self.cuda = exe.device.type == 'cuda'
@@ -424,10 +437,28 @@ class _BoundPlan(object):
             t.copy_(src)
             scope.set(n, t)
 
+    def check_loops(self):
+        """Raise if a bounded ``while`` of a step since the last check ended
+        with its condition still true: the step ran a truncated loop. One
+        read of a device flag, no copy to the device."""
+        if self.loop_flag is not None and bool(self.loop_flag):
+            self.loop_flag.zero_()
+            raise RuntimeError(
+                'while: a loop of the bound program %d still had its '
+                'condition true after its max_trip_count iterations, so the '
+                'step computed a truncated loop: raise '
+                'layers.While(max_trip_count=) to the real bound'
+                % self.program._uid)
+
     def _first(self, rng):
         """The first step, eagerly: it sizes the fetches' static copies and
         the tensors of state the plan writes without reading."""
-        fetches, new_state = self.entry.fn(self.feed, self.state, rng)
+        flags = []
+        fetches, new_state = self.entry.fn(self.feed, self.state, rng,
+                                           loop_flags=flags)
+        if flags:
+            self.loop_flag = torch.zeros((), dtype=torch.bool,
+                                         device=self.exe.device)
         self.outputs = tuple(torch.empty(f.shape, dtype=f.dtype,
                                          device=f.device) for f in fetches)
         self.written = {}
@@ -440,12 +471,17 @@ class _BoundPlan(object):
                                  % (n, v.dtype, tuple(v.shape), t.dtype,
                                     tuple(t.shape)))
             self.written[n] = t
-        self._write(fetches, new_state)
+        self._write(fetches, new_state, flags)
 
     def _body(self, rng):
-        self._write(*self.entry.fn(self.feed, self.state, rng))
+        flags = []
+        fetches, new_state = self.entry.fn(self.feed, self.state, rng,
+                                           loop_flags=flags)
+        self._write(fetches, new_state, flags)
 
-    def _write(self, fetches, new_state):
+    def _write(self, fetches, new_state, flags):
+        if flags:
+            self.loop_flag.logical_or_(torch.stack(flags).any())
         # the fetches first: a fetch may alias state written below
         for out, f in zip(self.outputs, fetches):
             out.copy_(f)
@@ -499,6 +535,7 @@ class BoundProgram(object):
     def __call__(self, feed, return_numpy=True):
         self._plan.stage(feed)
         self._plan.step(self._scope)
+        self._plan.check_loops()
         return self._plan.fetches(return_numpy)
 
     @property
@@ -630,10 +667,7 @@ class Executor(object):
         (a startup program's init ops) need not come from the scope."""
         first_write, first_read = {}, {}
         for idx, op in enumerate(program.global_block().ops):
-            names_in = list(op.input_arg_names)
-            if op.type == 'backward':
-                names_in += list(op.attr('wrt_names'))
-            for n in names_in:
+            for n in lowering._reads(op):
                 first_read.setdefault(n, idx)
             for n in op.output_arg_names:
                 first_write.setdefault(n, idx)
@@ -651,7 +685,7 @@ class Executor(object):
                                      self.device, static_lods=lods,
                                      static_feed=statics)
         needs_rng = any(lowering._needs_rng(d, op)
-                        for d, op in zip(plan.defs, plan.ops))
+                        for d, op in plan.all_ops())
         state = set(read) | set(written)
         return _Entry(fn, plan, needed, written, needs_rng, fetch_names,
                       [n in state for n in fetch_names], self.device)
@@ -759,6 +793,7 @@ class Executor(object):
                                 self._fetch_names(fetch_list), 'bind')
         plan.stage(feed)
         plan.step(scope)
+        plan.check_loops()
         return BoundProgram(plan, scope, plan.fetches(True), feed)
 
     def _stack(self, program, stacked, lods):
@@ -853,6 +888,7 @@ class Executor(object):
             for i in range(int(steps) if steps else k):
                 plan.stage({n: t[i % k] for n, t in stacked.items()})
                 plan.step(scope)
+            plan.check_loops()
         return plan.fetches(return_numpy)
 
 

@@ -187,6 +187,12 @@ class Parameter(Variable):
 # Operator
 # ---------------------------------------------------------------------------
 
+# the attrs under which control-flow ops name their body blocks (while and
+# recurrent: sub_block; IfElse's pair): every walk over nested blocks uses
+# this one list
+SUB_BLOCK_ATTRS = ('sub_block', 'sub_block_true', 'sub_block_false')
+
+
 class Operator(object):
     """One op in a block: type, named input/output variable-name lists and
     attrs. ``role`` is the program's role when the op was appended
@@ -365,6 +371,20 @@ class Program(object):
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def _create_block(self, parent_idx=None):
+        """Append a block whose parent is the current block (or
+        ``parent_idx``) and make it current."""
+        new_idx = len(self.blocks)
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.blocks.append(Block(self, new_idx, parent))
+        self.current_block_idx = new_idx
+        self._bump_version()
+        return self.current_block()
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def _bump_version(self):
         self._version += 1

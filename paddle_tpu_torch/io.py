@@ -239,14 +239,14 @@ def export_stablehlo_model(*args, **kwargs):
     raise NotImplementedError(
         'export_stablehlo_model writes an XLA (StableHLO) artifact; its '
         'counterpart in paddle_tpu_torch (a torch.export one, or none) is '
-        'still to be decided (ROADMAP Queue 1 item 4)')
+        'still to be decided (ROADMAP Queue 1 item 7)')
 
 
 def load_stablehlo_model(*args, **kwargs):
     raise NotImplementedError(
         'load_stablehlo_model reads an XLA (StableHLO) artifact; its '
         'counterpart in paddle_tpu_torch (a torch.export one, or none) is '
-        'still to be decided (ROADMAP Queue 1 item 4)')
+        'still to be decided (ROADMAP Queue 1 item 7)')
 
 
 def read_params(dirname, filename=None):

@@ -6,8 +6,10 @@ programs call: the flagship LM's `build_lm` (training and inference),
 BERT's `build_bert_pretrain`, the image models' `build` (ResNet,
 SE-ResNeXt, VGG), the README's quick start, and the sequence models
 (the sequence ops, ``dynamic_lstm``, ``dynamic_gru``), and the op
-library's shape, cast, compare and reduce layers (``control_flow`` holds
-the comparisons, ``increment`` and ``is_empty`` of the JAX module). Each
+library's shape, cast, compare and reduce layers, and the control flow
+(``control_flow``: the comparisons, ``While``, ``StaticRNN``,
+``DynamicRNN``, ``ConditionalBlock``, ``Switch``, ``IfElse``, the tensor
+arrays and beam search). Each
 layer emits the JAX layer's op, letter for letter (type, input and output
 slots, attrs); the rest of the JAX layers wait for later slices.
 ``math_op_patch`` holds the ops behind ``Variable``'s operators, and

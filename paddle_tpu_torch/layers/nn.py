@@ -21,8 +21,9 @@ types lowered earlier (``mul``, ``sum``, ``clip``, ``clip_by_norm``,
 ``get_tensor_from_selected_rows``, ``flash_attention``); the activations
 with attributes or a parameter (``log``, ``prelu``, ``brelu``,
 ``leaky_relu``, ``soft_relu``, ``selu``, ``swish``, ``maxout``); the
-losses, norms and distances of ops/math_ops.py; and
-``autoincreased_step_counter``, which the learning-rate schedules read.
+losses, norms and distances of ops/math_ops.py;
+``autoincreased_step_counter``, which the learning-rate schedules read;
+and ``topk``, which the beam-search decoder reads.
 Each appends the JAX layer's op with the same slots, attrs and static
 output shapes; the computation is the op's lowering (ops/*).
 """
@@ -53,7 +54,7 @@ __all__ = [
     'brelu', 'leaky_relu', 'soft_relu', 'selu', 'swish', 'maxout',
     'huber_loss', 'smooth_l1', 'bpr_loss', 'rank_loss', 'margin_rank_loss',
     'hinge_loss', 'teacher_student_sigmoid_loss', 'l2_normalize', 'cos_sim',
-    'bilinear_tensor_product', 'autoincreased_step_counter',
+    'bilinear_tensor_product', 'autoincreased_step_counter', 'topk',
 ]
 
 
@@ -690,6 +691,23 @@ def logical_xor(x, y, out=None, name=None):
 
 def logical_not(x, out=None, name=None):
     return _logical('logical_not', x, None, out, name)
+
+
+def topk(input, k, name=None):
+    """(values, indices) of the ``k`` largest entries of each row of
+    ``input`` (a ``top_k`` op); neither carries a gradient."""
+    helper = LayerHelper('top_k', name=name)
+    shape = tuple(input.shape[:-1]) + (k,)
+    values = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                       shape=shape)
+    indices = helper.create_variable_for_type_inference(dtype='int64',
+                                                        shape=shape)
+    helper.append_op(type='top_k', inputs={'X': [input]},
+                     outputs={'Out': [values], 'Indices': [indices]},
+                     attrs={'k': k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

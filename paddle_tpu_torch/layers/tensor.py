@@ -1,6 +1,7 @@
 """Tensor layers.
 
-The port's own copy of paddle_tpu/layers/tensor.py's `create_global_var`,
+The port's own copy of paddle_tpu/layers/tensor.py's `create_parameter`,
+`create_global_var`,
 `cast`, `concat`, `sums`, `assign` (a numpy value becomes an
 ``assign_value`` op holding it), `fill_constant`,
 `fill_constant_batch_size_like`, `ones`, `zeros`, `zeros_like`, `reverse`,
@@ -15,10 +16,23 @@ from ..framework import Variable
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ['create_global_var', 'cast', 'concat', 'sums', 'assign',
+__all__ = ['create_parameter', 'create_global_var', 'cast', 'concat', 'sums', 'assign',
            'fill_constant', 'fill_constant_batch_size_like', 'ones', 'zeros',
            'reverse', 'argmin', 'argmax', 'argsort', 'has_inf', 'has_nan',
            'isfinite', 'zeros_like', 'diag']
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter of ``shape`` in the main program's global block, with
+    its init op in the startup program."""
+    helper = LayerHelper("create_parameter", name=name, param_attr=attr)
+    attr = helper.param_attr
+    if name is not None and attr.name is None:
+        attr.name = name
+    return helper.create_parameter(attr, shape,
+                                   convert_np_dtype_to_dtype_(dtype), is_bias,
+                                   default_initializer)
 
 
 def create_global_var(shape, value, dtype, persistable=False,

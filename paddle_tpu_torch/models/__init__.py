@@ -1,3 +1,4 @@
+from . import mnist, seq2seq, word2vec
 from .bert import BertConfig, BertPretrain
 from .transformer import LMConfig, TransformerLM
 

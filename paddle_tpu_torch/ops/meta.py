@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..core.registry import register_op
+from ..core.types import convert_np_dtype_to_dtype_
 from ..core.selected_rows import SelectedRows
 from .common import attr_dtype, clip
 
@@ -29,10 +30,17 @@ def _backward(ctx, op):
 
 @register_op('fill_constant')
 def _fill_constant(ctx, op):
-    ctx.out(op, 'Out', torch.full(tuple(op.attr('shape', ())),
-                                  op.attr('value', 0.0),
-                                  dtype=attr_dtype(op.attr('dtype')),
+    """A small constant (16 elements or fewer) is also recorded as a static
+    value, as in the JAX lowering: an array write at a constant index
+    keeps the array's static length."""
+    shape = tuple(op.attr('shape', ()))
+    value = op.attr('value', 0.0)
+    dtype = op.attr('dtype') or 'float32'
+    ctx.out(op, 'Out', torch.full(shape, value, dtype=attr_dtype(dtype),
                                   device=ctx.device))
+    if int(np.prod(shape or (1,))) <= 16:
+        ctx.set_static(op.output('Out')[0], np.full(
+            shape, value, dtype=convert_np_dtype_to_dtype_(dtype)))
 
 
 @register_op('assign')

@@ -36,6 +36,7 @@ from paddle_tpu_torch.ops import (attention_ops, ce_ops, embedding_ops,
                                   optimizer_ops)
 
 import torch_activation_cases
+import torch_loop_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -2715,3 +2716,58 @@ def test_activation_op_on_the_card_matches_the_cpu(dev, key):
         assert got[name].shape == want[name].shape, name
         np.testing.assert_allclose(got[name], want[name], rtol=1e-5,
                                    atol=1e-6, err_msg=name)
+
+
+def _loop_setup(bound, train=False):
+    import paddle_tpu_torch as fluid
+    main, startup, fetch = torch_loop_cases.loop_program(fluid, bound, train)
+    exe = fluid.Executor()
+    scopes = [fluid.Scope(), fluid.Scope()]
+    for s in scopes:
+        exe.run(startup, scope=s)
+    return fluid, exe, main, fetch, scopes
+
+
+@pytest.mark.parametrize('train', [False, True])
+def test_bound_while_replays_equal_eager_runs(dev, train):
+    """A While(max_trip_count=8) bound on the card: one capture, and its
+    replays at 3, 5, 8 and 1 trips equal ``run()`` on the card bitwise (an
+    eager host loop, or under the backward the bounded loop), the trained
+    parameter too; a replay copies nothing from the host once the feed is
+    on the card."""
+    fluid, exe, main, fetch, scopes = _loop_setup(8, train)
+    feeds = [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+             for f in torch_loop_cases.loop_feeds((3, 5, 8, 1))]
+    ref = [exe.run(main, feed=f, fetch_list=fetch, scope=scopes[0])
+           for f in feeds]
+    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[1])
+    got = [bp.first_out] + [bp(f) for f in feeds[1:]]
+    assert bp.captures == 1 and bp.replays == 3
+    for r, g in zip(ref, got):
+        for a, b in zip(r, g):
+            np.testing.assert_array_equal(b, a)
+    assert [int(r[2][0]) for r in ref] == [3, 5, 8, 1]
+    assert torch.equal(scopes[1].get('loop.w'), scopes[0].get('loop.w'))
+    assert _htod_copies(lambda: bp(feeds[1])) == 0
+
+
+def test_bound_while_still_true_at_its_bound_raises_after_the_replay(dev):
+    """A replay whose loop still had its condition true after its
+    max_trip_count iterations raises once its flag is read; the next
+    replay whose loop ends in time returns its results."""
+    fluid, exe, main, fetch, scopes = _loop_setup(4)
+    ok, long_, short = torch_loop_cases.loop_feeds((3, 6, 2))
+    bp = exe.bind(main, ok, fetch_list=fetch, scope=scopes[0])
+    with pytest.raises(RuntimeError, match='max_trip_count'):
+        bp(long_)
+    assert bp.replays == 1
+    assert int(bp(short)[2][0]) == 2
+
+
+def test_bind_of_an_unbounded_while_raises(dev):
+    fluid, exe, main, fetch, scopes = _loop_setup(None)
+    feed, = torch_loop_cases.loop_feeds((3,))
+    assert int(exe.run(main, feed=feed, fetch_list=fetch,
+                       scope=scopes[0])[2][0]) == 3
+    with pytest.raises(NotImplementedError, match='max_trip_count'):
+        exe.bind(main, feed, fetch_list=fetch, scope=scopes[1])

@@ -253,5 +253,5 @@ def test_predictor_without_a_place_runs_on_the_card(artifacts):
 @pytest.mark.parametrize('fn', ['export_stablehlo_model',
                                 'load_stablehlo_model'])
 def test_stablehlo_pair_raises(fn):
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
+    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
         getattr(fluid.io, fn)('unused')

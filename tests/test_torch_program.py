@@ -69,6 +69,7 @@ from paddle_tpu_torch.io import scope_from_numpy, train_state_from_numpy
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.models import transformer as ttrans
 from paddle_tpu_torch.optimizer import TensorAdam
+from torch_state_hold import noise_mask
 
 SMALL = dict(vocab_size=128, seq_len=16, d_model=64, n_head=4, n_layer=2,
              d_ff=128)
@@ -905,17 +906,13 @@ def _check_against_jax(jax_run, port_run, noise=None, d=SMALL['d_model']):
 
 
 def _noise(jax_run):
-    """{parameter name: mask of the elements whose first-step gradient is
-    nonzero but under 1e-5 of its tensor's largest} from the JAX run's
-    first-step moment 1 (0.1 x the gradient), the K bias of each qkv apart
-    (held on its own): f32 rounding noise, which Adam's first step turns
-    into a move of lr * g / (|g| + 1e-8), so that noise on a gradient near
-    1e-8 moves an element by a share of lr."""
+    """{parameter name: `noise_mask` of the JAX run's first-step moment 1},
+    the K bias of each qkv apart (held on its own)."""
     first, noise = jax_run[3], {}
     for name in jax_run[0]:
         m1 = first.get(name + '_moment1_0')
         if m1 is not None and not name.endswith('.attn.qkv.b'):
-            noise[name] = (m1 != 0) & (np.abs(m1) < 1e-5 * np.abs(m1).max())
+            noise[name] = noise_mask(m1)
     return noise
 
 
