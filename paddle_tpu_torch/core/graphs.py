@@ -21,20 +21,44 @@ lives here.
   takes them back and returns them; the owner adds them again on every
   replay (:func:`replay`), so the counts stay what the device ran.
 
+- :func:`run_while` captures a data-dependent loop (a ``while`` op of a
+  bound plan, ops/control_flow_ops.py) as one WHILE conditional node of the
+  graph being captured (CUDA 12.4 or later; csrc/graph_while.cu): a
+  one-thread kernel loads the node's condition from a device tensor before
+  the node and again at the end of each run of its body, so the loop runs
+  until its condition reads false with no host read. The body is captured
+  on a stream of its own into the node's body graph, and what it allocates
+  comes from a memory pool that the graph keeps (`torch.cuda.MemPool`,
+  routed by thread while the body is captured: the capture's own pool takes
+  only the allocations of the capturing stream). A loop's body launches
+  run once for each trip, which the capture cannot know: each loop counts
+  its trips in a device tensor, :func:`capture` leaves the bodies' launches
+  out of what a replay adds, and :func:`loop_launches` reads the trip
+  counts (a host read, for a caller that wants exact launch counts) and
+  adds body launches times trips.
+- :func:`watch` and :func:`check_flags`: a bounded loop that its bound may
+  cut in a capture (a differentiated ``while`` whose bound is inferred
+  from an array's capacity, or a ``while`` whose body draws random
+  numbers) ORs its final condition into a device flag; the owner reads
+  the graph's flags after its replays and raises when one is set.
+
 The two owners warm up differently before their capture. A decode
 signature is idempotent in the state it writes, so `BoundStep` calls it
 twice on a side stream. A training step is not: its warm-up is the one
 real step that `Executor.bind` takes anyway, run on the stream that then
 captures the next one.
 """
+import ctypes
 import gc
+import threading
 
 import numpy as np
 import torch
 
 from ..ops import kernel_tier
 
-__all__ = ['FeedBuffer', 'capture', 'replay']
+__all__ = ['FeedBuffer', 'capture', 'replay', 'run_while', 'loop_launches',
+           'watch', 'check_flags']
 
 _ALIGN = 16     # bytes between feeds in the staging buffers
 
@@ -130,6 +154,8 @@ def capture(fn, stream=None, pool=None, name='bound step', generators=()):
     # pinned memory there is an operation the capture does not permit
     gc_on = gc.isenabled()
     gc.disable()
+    _loops.records, _loops.pool, _loops.depth = [], None, 0
+    _loops.flags = []
     try:
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             fn()
@@ -144,10 +170,166 @@ def capture(fn, stream=None, pool=None, name='bound step', generators=()):
                     if after[k] != before[k]}
         # the capture recorded these launches; the device ran none of them
         kernel_tier.add_counts({k: -n for k, n in launches.items()})
-    return graph, launches
+        graph.loops, graph.loop_pool = _loops.records, _loops.pool
+        graph.flags = _loops.flags
+        _loops.records = _loops.pool = _loops.flags = None
+    # a loop body's launches run once a trip: `loop_launches` counts them
+    for body, _ in graph.loops:
+        for k, n in body.items():
+            launches[k] -= n
+    return graph, {k: n for k, n in launches.items() if n}
 
 
 def replay(graph, launches):
-    """Replay ``graph`` and count the launches it runs."""
+    """Replay ``graph`` and count the launches it runs (a loop body's
+    launches: :func:`loop_launches`)."""
     graph.replay()
     kernel_tier.add_counts(launches)
+
+
+# ---------------------------------------------------------------------------
+# loops: WHILE conditional nodes
+# ---------------------------------------------------------------------------
+
+# the capture in progress on this thread: ``records`` [(body launches,
+# trip counter)] of its loops (None outside `capture`), ``pool`` the memory
+# pool of their bodies, ``depth`` the loops being captured and ``flags``
+# [(flag, message)] of `watch`
+_loops = threading.local()
+_fns = None
+_body_streams = {}
+
+
+def _while_fns():
+    global _fns
+    if _fns is None:
+        from .. import native
+        P = ctypes.c_void_p
+        _fns = (native.function('graph_while', 'graph_while_begin',
+                                [P, P, P, ctypes.POINTER(ctypes.c_ulonglong)]),
+                native.function('graph_while', 'graph_while_end',
+                                [P, P, ctypes.c_ulonglong]),
+                native.function('graph_while', 'graph_stream_create',
+                                [ctypes.POINTER(P)]))
+    return _fns
+
+
+def _body_stream(device, depth):
+    """The stream that captures the body of a loop at ``depth`` (one a
+    device and depth, made once: a body's capture ends before the next
+    one at its depth begins)."""
+    from .. import native
+    key = (device.index, depth)
+    s = _body_streams.get(key)
+    if s is None:
+        raw = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            native.check(_while_fns()[2](ctypes.byref(raw)),
+                         'graph_stream_create')
+        s = _body_streams[key] = torch.cuda.ExternalStream(raw.value,
+                                                           device=device)
+    return s
+
+
+def _flag(cond):
+    """``cond`` (one element of any dtype) as a bool tensor of one byte."""
+    return cond.reshape(()).to(torch.bool).contiguous()
+
+
+def run_while(cond, body, trips):
+    """Capture ``while cond: cond = body()`` as one WHILE node of the graph
+    that :func:`capture` is capturing on the current stream. ``cond`` is a
+    device tensor of one element, read when the node starts; ``body()``
+    captures one iteration on the body's stream (the current stream while
+    it runs) and returns the condition after it, read at the end of each
+    run of the body; ``trips`` is an int64 device tensor of one element
+    that each run of the body adds one to (made before the capture, so that
+    the graph does not zero it: :func:`loop_launches` reads it). Raises
+    when no capture is in progress or a CUDA call fails: nothing falls back
+    to an eager loop."""
+    from .. import native
+    records = getattr(_loops, 'records', None)
+    if records is None:
+        raise RuntimeError('run_while captures a loop only inside '
+                           'core.graphs.capture')
+    begin, end, _ = _while_fns()
+    stream = torch.cuda.current_stream()
+    body_stream = _body_stream(stream.device, _loops.depth)
+    flag = _flag(cond)
+    handle = ctypes.c_ulonglong()
+    native.check(begin(stream.cuda_stream, body_stream.cuda_stream,
+                       flag.data_ptr(), ctypes.byref(handle)),
+                 'graph_while_begin')
+    if _loops.pool is None:
+        _loops.pool = torch.cuda.MemPool()
+    routed = _loops.depth == 0
+    if routed:
+        # the capture's pool takes only the capturing stream's allocations
+        torch._C._cuda_beginAllocateCurrentThreadToPool(
+            stream.device.index, _loops.pool.id)
+    _loops.depth += 1
+    nested = len(records)
+    before = kernel_tier.launch_counts()
+    new = None
+    try:
+        with torch.cuda.stream(body_stream):
+            new = _flag(body())
+            trips.add_(1)
+    finally:
+        after = kernel_tier.launch_counts()
+        _loops.depth -= 1
+        if routed:
+            torch._C._cuda_endAllocateToPool(stream.device.index,
+                                             _loops.pool.id)
+            torch._C._cuda_releasePool(stream.device.index, _loops.pool.id)
+        rc = end(body_stream.cuda_stream,
+                 new.data_ptr() if new is not None else None, handle)
+    native.check(rc, 'graph_while_end')
+    launches = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    for inner, _ in records[nested:]:
+        for k, n in inner.items():
+            launches[k] -= n
+    records.append(({k: n for k, n in launches.items() if n}, trips))
+
+
+def loop_launches(graph):
+    """The launches that the loops of ``graph`` ran in its replays since
+    the last call, each body's launches times its trips: read from the
+    trip counters (one host read each), added to the launch counts and
+    returned with the trips of each loop, ({kernel: launches}, [trips]).
+    The counters restart at 0."""
+    total, trips = {}, []
+    for body, counter in getattr(graph, 'loops', ()):
+        n = int(counter)
+        counter.zero_()
+        trips.append(n)
+        for k, m in body.items():
+            total[k] = total.get(k, 0) + m * n
+    kernel_tier.add_counts(total)
+    return total, trips
+
+
+def watch(flag, message):
+    """Have the graph that :func:`capture` is capturing raise
+    RuntimeError(``message``) once a replay has set ``flag``, a bool device
+    tensor of one element that the captured step ORs into (made before the
+    capture, so that no replay clears it): :func:`check_flags`."""
+    flags = getattr(_loops, 'flags', None)
+    if flags is None:
+        raise RuntimeError('watch registers a flag only inside '
+                           'core.graphs.capture')
+    if not any(f is flag for f, _ in flags):
+        flags.append((flag, message))
+
+
+def check_flags(graph):
+    """Raise RuntimeError with the message of the first flag of ``graph``
+    (None: no graph) that a replay since the last check set, after clearing
+    them all; one host read a flag, none for a graph without flags."""
+    flags = getattr(graph, 'flags', None) or ()
+    for flag, message in flags:
+        if bool(flag):
+            for f, _ in flags:
+                f.zero_()
+            raise RuntimeError(message)

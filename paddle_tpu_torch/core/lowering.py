@@ -69,8 +69,7 @@ Control flow (ops/control_flow_ops.py): an op that owns a sub-block
 generators and gradient leaves, over the sub-block's own plan
 (`_BlockPlan`). The memo keys a sub-block's constants by its index, so a
 sequence op inside a loop builds its index maps once a plan, not once an
-iteration. Under `Executor.bind` and ``run_fused`` the context holds
-``loop_flags``, which the bounded loops report to.
+iteration.
 """
 import contextlib
 import copy
@@ -240,7 +239,7 @@ class LowerContext(object):
     """The environment while one block runs: var name -> torch tensor."""
 
     def __init__(self, program, block, env, device, rng=None, wrt=(),
-                 plan=None, lods=None, statics=None, loop_flags=None):
+                 plan=None, lods=None, statics=None):
         self.program = program
         self.block = block
         self.env = env
@@ -262,19 +261,15 @@ class LowerContext(object):
         # out of autograd, and [(table, ids, rows leaf)] of their lookups
         self.sparse_tables = frozenset()
         self.sparse_sites = None
-        # under `bind` and `run_fused`: a list that each bounded ``while``
-        # appends its final condition to (ops/control_flow_ops.py); None
-        # when the run is eager
-        self.loop_flags = loop_flags
 
     def child(self, env, block):
         """The context of a sub-block's run over ``env``: it shares this
         context's LoDs, static values, run plan memo, generators, gradient
-        leaves, sparse tables and loop flags."""
+        leaves and sparse tables."""
         c = LowerContext(self.program, block, env, self.device,
                          rng=self._rng, wrt=self.wrt,
                          plan=self.plan.blocks[block.idx], lods=self.lods,
-                         statics=self.statics, loop_flags=self.loop_flags)
+                         statics=self.statics)
         c.sparse_tables = self.sparse_tables
         c.sparse_sites = self.sparse_sites
         return c
@@ -594,12 +589,9 @@ def analyze_state(program, fetch_names=()):
 def build_fn(program, fetch_names, read_names, written_names, device,
              static_lods=None, static_feed=None):
     """The run plan of (program, fetch list) as a function
-    ``fn(feed, state, rng, loop_flags=None) -> (fetches, new_state)`` over
-    {name: tensor} dicts on ``device``; ``rng`` is a :class:`RunRNG` of
-    the plan, seeded for this run (None for a program that draws nothing).
-    ``loop_flags`` is a list under `bind` and `run_fused`: every bounded
-    ``while`` then runs its bound's iterations and appends whether its
-    condition still held after them (ops/control_flow_ops.py).
+    ``fn(feed, state, rng) -> (fetches, new_state)`` over {name: tensor}
+    dicts on ``device``; ``rng`` is a :class:`RunRNG` of the plan, seeded
+    for this run (None for a program that draws nothing).
     ``static_lods`` ({name: LoD} of the feeds and the scope's state) and
     ``static_feed`` ({name: numpy} of the shape-bearing feeds) are the
     plan's, fixed by its key; after each run ``plan.lod_out`` holds every
@@ -610,12 +602,12 @@ def build_fn(program, fetch_names, read_names, written_names, device,
                    .items() if l}
     static_feed = dict(static_feed or {})
 
-    def fn(feed, state, rng=None, loop_flags=None):
+    def fn(feed, state, rng=None):
         env = dict(feed)
         env.update(state)
         ctx = LowerContext(program, block, env, device, rng=rng, plan=plan,
                            lods=dict(static_lods),
-                           statics=dict(static_feed), loop_flags=loop_flags)
+                           statics=dict(static_feed))
         with torch.no_grad():
             lower_block(ctx)
         plan.lod_out = ctx.lods

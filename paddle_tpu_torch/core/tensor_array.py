@@ -10,7 +10,12 @@ array carried through a loop or a conditional block drops it
 (:meth:`clear_static`), as the JAX package's loop carries must.
 
 Writes are out of place (``index_copy``, not ``index_copy_``), so that
-autograd sees every write of a differentiated loop. A negative index
+autograd sees every write of a differentiated loop, except to an array
+marked ``in_place``: the buffer of a loop captured in a CUDA graph
+(ops/control_flow_ops.py `_graph_loop`), which a trip's write updates
+itself (one slot moved, not the whole buffer twice). The mark does not
+survive :meth:`clear_static`, so the carry of a nested block writes out
+of place. A negative index
 counts from the end and an index is then clamped into [0, capacity), as
 ``lax.dynamic_update_index_in_dim`` and ``lax.dynamic_index_in_dim`` take
 it; the length counts the index as given (``max(length, i + 1)``), as the
@@ -36,12 +41,13 @@ def _index(i, capacity, device):
 class TensorArray(object):
     """Fixed-capacity stacked array of same-shaped tensors."""
 
-    __slots__ = ('buffer', 'length', 'static_length')
+    __slots__ = ('buffer', 'length', 'static_length', 'in_place')
 
-    def __init__(self, buffer, length, static_length=None):
+    def __init__(self, buffer, length, static_length=None, in_place=False):
         self.buffer = buffer
         self.length = length
         self.static_length = static_length
+        self.in_place = in_place
 
     @classmethod
     def empty(cls, capacity, elem_shape, dtype, device):
@@ -74,16 +80,19 @@ class TensorArray(object):
         known before the run (a constant)."""
         idx, i = _index(i, self.capacity, self.buffer.device)
         value = value.to(self.buffer.dtype).reshape((1,) + self.elem_shape)
-        buf = self.buffer.index_copy(0, idx, value)
+        if self.in_place:
+            buf = self.buffer.index_copy_(0, idx, value)
+        else:
+            buf = self.buffer.index_copy(0, idx, value)
         new_len = torch.maximum(self.length, i + 1)
         new_static = (max(self.static_length, int(static_i) + 1)
                       if self.static_length is not None and
                       static_i is not None else None)
-        return TensorArray(buf, new_len, new_static)
+        return TensorArray(buf, new_len, new_static, self.in_place)
 
     def clear_static(self):
         """The array without its static length (carried through a loop or
-        a conditional block)."""
+        a conditional block), written out of place."""
         return TensorArray(self.buffer, self.length, None)
 
     def read(self, i):

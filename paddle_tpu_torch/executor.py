@@ -51,14 +51,19 @@ every kernel wrapper takes its plain version.
   consecutive feeds of one LoD, in order, each on its own bound plan.
 - Control flow under ``bind`` and ``run_fused``: a StaticRNN or DynamicRNN
   (``recurrent``) has a trip count fixed by the plan's key, and is
-  captured whole. A ``while`` with a bound (``While(max_trip_count=)``, or
-  under the ``backward`` meta-op the capacity of an array it writes) runs
-  its bound's iterations, finished ones masked, with no host read, and
-  reports whether its condition still held after them: the bound plan
-  ORs that flag into a device tensor, reads it after each ``bind`` call
-  and each ``run_fused`` run, and raises RuntimeError when it is set. A
-  ``while`` with no bound raises NotImplementedError there: run its
-  program with ``run()``.
+  captured whole. A ``while`` without a gradient runs until its condition
+  reads false, as ``run()`` runs it (``lax.while_loop``: a
+  ``max_trip_count`` does not cut it): in the capture it is one WHILE
+  node of the step's graph, whose body the device runs while the
+  condition holds, with no host read (core/graphs.py `run_while`). Under
+  the ``backward`` meta-op a ``while`` runs its bound's iterations,
+  finished ones masked, in ``run()`` as in the capture; so does a
+  ``while`` whose body draws random numbers in the capture, which then
+  needs a ``max_trip_count``. Where such a bound may cut the loop (one
+  inferred from an array's capacity, or any bound of a loop that draws),
+  the capture ORs the final condition into a device flag, read after
+  each ``bind`` call and each ``run_fused`` run, which raises
+  RuntimeError when it is set (core/graphs.py `check_flags`).
 
 The scope holds torch tensors on the run's device. State given as numpy
 arrays (or tensors elsewhere) is copied there on first read and cached
@@ -357,9 +362,6 @@ class _BoundPlan(object):
         self.state = None       # {name: tensor} the plan reads
         self.written = None     # {name: tensor} the state the plan writes
         self.outputs = None     # the fetches' static copies
-        # whether a bounded ``while`` of a step since the last check ended
-        # with its condition still true (None: the plan has no such loop)
-        self.loop_flag = None
         self.rng = lowering.RunRNG(entry.plan, exe.device) \
             if entry.needs_rng else None
         self.cuda = exe.device.type == 'cuda'
@@ -437,28 +439,10 @@ class _BoundPlan(object):
             t.copy_(src)
             scope.set(n, t)
 
-    def check_loops(self):
-        """Raise if a bounded ``while`` of a step since the last check ended
-        with its condition still true: the step ran a truncated loop. One
-        read of a device flag, no copy to the device."""
-        if self.loop_flag is not None and bool(self.loop_flag):
-            self.loop_flag.zero_()
-            raise RuntimeError(
-                'while: a loop of the bound program %d still had its '
-                'condition true after its max_trip_count iterations, so the '
-                'step computed a truncated loop: raise '
-                'layers.While(max_trip_count=) to the real bound'
-                % self.program._uid)
-
     def _first(self, rng):
         """The first step, eagerly: it sizes the fetches' static copies and
         the tensors of state the plan writes without reading."""
-        flags = []
-        fetches, new_state = self.entry.fn(self.feed, self.state, rng,
-                                           loop_flags=flags)
-        if flags:
-            self.loop_flag = torch.zeros((), dtype=torch.bool,
-                                         device=self.exe.device)
+        fetches, new_state = self.entry.fn(self.feed, self.state, rng)
         self.outputs = tuple(torch.empty(f.shape, dtype=f.dtype,
                                          device=f.device) for f in fetches)
         self.written = {}
@@ -471,17 +455,12 @@ class _BoundPlan(object):
                                  % (n, v.dtype, tuple(v.shape), t.dtype,
                                     tuple(t.shape)))
             self.written[n] = t
-        self._write(fetches, new_state, flags)
+        self._write(fetches, new_state)
 
     def _body(self, rng):
-        flags = []
-        fetches, new_state = self.entry.fn(self.feed, self.state, rng,
-                                           loop_flags=flags)
-        self._write(fetches, new_state, flags)
+        self._write(*self.entry.fn(self.feed, self.state, rng))
 
-    def _write(self, fetches, new_state, flags):
-        if flags:
-            self.loop_flag.logical_or_(torch.stack(flags).any())
+    def _write(self, fetches, new_state):
         # the fetches first: a fetch may alias state written below
         for out, f in zip(self.outputs, fetches):
             out.copy_(f)
@@ -535,8 +514,18 @@ class BoundProgram(object):
     def __call__(self, feed, return_numpy=True):
         self._plan.stage(feed)
         self._plan.step(self._scope)
-        self._plan.check_loops()
+        graphs.check_flags(self._plan.graph)
         return self._plan.fetches(return_numpy)
+
+    def loop_launches(self):
+        """({kernel: launches}, [trips]) that the ``while`` loops of the
+        replays since the last call ran (core/graphs.py `loop_launches`: a
+        replay counts a loop body's launches not at all, this adds them
+        times the trips; one host read a loop). On the CPU, where the
+        loops run eagerly and count as they launch, ({}, [])."""
+        if self._plan.graph is None:
+            return {}, []
+        return graphs.loop_launches(self._plan.graph)
 
     @property
     def graph(self):
@@ -793,7 +782,6 @@ class Executor(object):
                                 self._fetch_names(fetch_list), 'bind')
         plan.stage(feed)
         plan.step(scope)
-        plan.check_loops()
         return BoundProgram(plan, scope, plan.fetches(True), feed)
 
     def _stack(self, program, stacked, lods):
@@ -888,7 +876,7 @@ class Executor(object):
             for i in range(int(steps) if steps else k):
                 plan.stage({n: t[i % k] for n, t in stacked.items()})
                 plan.step(scope)
-            plan.check_loops()
+            graphs.check_flags(plan.graph)
         return plan.fetches(return_numpy)
 
 

@@ -11,10 +11,12 @@ Counterpart of paddle_tpu/models/transformer.py: `LMConfig`, `build_lm`
 (the training program's forward, up to the mean loss), the decode programs
 `build_lm_prefill`, `build_lm_prefill_paged` and `build_lm_decode_step`
 (with `_decode_tower`, in both cache modes) and speculative decoding's
-`build_lm_drafter` and `build_lm_verify` on the paged cache. The JAX
-package builds these as Programs; here the LM is
-an ``nn.Module`` whose parameters carry the JAX package's names
-(``tok_emb.w``, ``layer_{i}.attn.qkv.w``, ...) and layouts — fc weights
+`build_lm_drafter` and `build_lm_verify` on the paged cache. Both
+packages build these as Programs (the port's copies of the build
+functions bind with `Executor.bind`); the decode engine runs the same towers as
+:class:`TransformerLM`, an ``nn.Module`` whose parameters carry the JAX
+package's names (``tok_emb.w``, ``layer_{i}.attn.qkv.w``, ...) and
+layouts — fc weights
 stay [in, out], so ``y = x @ W + b`` — so a scope saved by the JAX package
 loads as it is (paddle_tpu_torch/io.py). The backward of `build_lm`'s
 program is ``torch.autograd`` over :meth:`TransformerLM.loss`.
@@ -71,8 +73,10 @@ from ..ops.tensor_ops import add_position_encoding, position_encoding_table
 
 __all__ = ['LMConfig', 'build_lm', 'multi_head_attention',
            'transformer_block', 'TransformerLM', 'TransformerStack',
-           'param_shapes',
-           'block_param_shapes', 'init_params']
+           'param_shapes', 'block_param_shapes', 'init_params',
+           'KV_CACHE_K', 'KV_CACHE_V', 'SAMPLE_FEEDS',
+           'build_lm_decode_step', 'build_lm_drafter', 'build_lm_verify',
+           'build_lm_prefill', 'build_lm_prefill_paged']
 
 
 class LMConfig(object):
@@ -307,6 +311,592 @@ def build_lm(cfg=None, is_test=False):
     loss = layers.softmax_with_cross_entropy(flat_logits, flat_labels)
     avg_loss = layers.mean(loss)
     return tokens, labels, logits, avg_loss
+
+
+# ---------------------------------------------------------------------------
+# The decode programs: the JAX package's build functions
+# (paddle_tpu/models/transformer.py:284-872), appending the same ops to
+# the default programs.
+# They bind with Executor.bind; each cache is a persistable variable the
+# scope holds (zeros, as the JAX engine sets them up) and the write ops
+# update in place (ops/kv_cache_ops.py). The module's TransformerLM runs
+# the same towers without a Program (serving/generate.py).
+# ---------------------------------------------------------------------------
+
+KV_CACHE_K = 'gen_kv_k'
+KV_CACHE_V = 'gen_kv_v'
+
+
+def _declare_kv_caches(block, cfg, slots, max_len):
+    dh = cfg.d_model // cfg.n_head
+    shape = (slots, cfg.n_layer, cfg.n_head, max_len, dh)
+    kc = block.create_var(name=KV_CACHE_K, shape=shape, dtype='float32',
+                          persistable=True, stop_gradient=True)
+    vc = block.create_var(name=KV_CACHE_V, shape=shape, dtype='float32',
+                          persistable=True, stop_gradient=True)
+    return kc, vc
+
+
+def _declare_paged_kv_caches(block, cfg, num_blocks, block_size):
+    dh = cfg.d_model // cfg.n_head
+    shape = (num_blocks, cfg.n_layer, cfg.n_head, block_size, dh)
+    kc = block.create_var(name=KV_CACHE_K, shape=shape, dtype='float32',
+                          persistable=True, stop_gradient=True)
+    vc = block.create_var(name=KV_CACHE_V, shape=shape, dtype='float32',
+                          persistable=True, stop_gradient=True)
+    return kc, vc
+
+
+SAMPLE_FEEDS = ('gen_temp', 'gen_topk', 'gen_topp', 'gen_u')
+
+
+def _sampling_inputs():
+    """Per-row sampling-control feeds ([rows, 1]; [1, 1] in prefill):
+    temperature, top-k, top-p, and the host-drawn uniform."""
+    temp = layers.data(name='gen_temp', shape=[1], dtype='float32')
+    topk = layers.data(name='gen_topk', shape=[1], dtype='int64')
+    topp = layers.data(name='gen_topp', shape=[1], dtype='float32')
+    u = layers.data(name='gen_u', shape=[1], dtype='float32')
+    return temp, topk, topp, u
+
+
+def _append_sample_op(block, logits, sample_vars, out_name):
+    temp, topk, topp, u = sample_vars
+    out = block.create_var(name=out_name, shape=(-1,), dtype='int64')
+    block.append_op(
+        type='sample_next_token',
+        inputs={'Logits': [logits], 'Temp': [temp], 'TopK': [topk],
+                'TopP': [topp], 'U': [u]},
+        outputs={'Out': [out]})
+    return out
+
+
+def _cache_write(block, op_type, cache, new, index_var, layer):
+    """Append a cache-write op whose output IS the cache var (read-modify-
+    write persistable state: the lowering writes the scope's tensor in
+    place and binds it back, ops/kv_cache_ops.py)."""
+    index_slot = 'Slot' if op_type == 'kv_cache_prefill' else 'Positions'
+    block.append_op(
+        type=op_type,
+        inputs={'Cache': [cache], 'New': [new], index_slot: [index_var]},
+        outputs={'Out': [cache]},
+        attrs={'layer': int(layer)})
+    return cache
+
+
+def _qkv_split_step(qkv, cfg):
+    """[S, 3d] -> three [S, H, dh], with the same 3/h/dh unpacking order as
+    build_lm's reshape (q first, then k, then v)."""
+    h, dh = cfg.n_head, cfg.d_model // cfg.n_head
+    qkv = layers.reshape(qkv, shape=[-1, 3, h, dh])
+    parts = []
+    for i in range(3):
+        parts.append(layers.squeeze(
+            layers.slice(qkv, axes=[1], starts=[i], ends=[i + 1]),
+            axes=[1]))
+    return parts
+
+
+def _decode_tower(cfg, x, cache_write, attend, tag='', head=True):
+    """One decode-position transformer tower over per-slot row state
+    ``x`` ([S, d]: token embedding + position encoding). The cache
+    write and cached attention are delegated to closures so the SAME
+    structural body serves the plain decode step, each of the drafter's
+    unrolled steps, and any future cached-decode flavor — per-position
+    numerics can never drift between them. Returns logits [S, V].
+
+    ``tag`` disambiguates intermediate var names when the tower is
+    instantiated more than once in one program (the drafter's unroll).
+    ``head=False`` skips the final LayerNorm + LM head and returns
+    None — the drafter's trailing write-only step needs every layer's
+    K/V deposited but no logits."""
+    d, h = cfg.d_model, cfg.n_head
+    dh = d // h
+    delta = None             # previous layer's deferred FFN output
+    for i in range(cfg.n_layer):
+        p = 'layer_%d' % i
+        ln1, x = _entry_ln(x, delta, 1, p + '.ln1')
+        qkv = layers.fc(ln1, size=3 * d,
+                        param_attr=ParamAttr(name=p + '.attn.qkv.w'),
+                        bias_attr=ParamAttr(name=p + '.attn.qkv.b'))
+        q, k, v = _qkv_split_step(qkv, cfg)                  # [S, H, dh]
+        cache_write(k, v, i)
+        if not head and i == cfg.n_layer - 1:
+            # write-only tower, last layer: nothing consumes x past
+            # this K/V deposit — attention/proj/ffn are dead compute
+            return None
+        ctx = attend(q, i, p + tag)
+        attn = layers.fc(layers.reshape(ctx, shape=[-1, d]), size=d,
+                         param_attr=ParamAttr(name=p + '.attn.proj.w'),
+                         bias_attr=ParamAttr(name=p + '.attn.proj.b'))
+        ln2, x = layers.fused_layer_norm_residual(
+            x, attn, begin_norm_axis=1,
+            param_attr=ParamAttr(name=p + '.ln2.w'),
+            bias_attr=ParamAttr(name=p + '.ln2.b'))
+        # decode is inference-only: prob 0 / is_test keeps the op on the
+        # RNG-free bind fast path (no per-step key derivation)
+        delta = _ffn_tail(ln2, cfg, p, 1)
+
+    if not head:
+        return None
+    x, _ = _entry_ln(x, delta, 1, 'final_ln')
+    return layers.fc(x, size=cfg.vocab_size,
+                     param_attr=ParamAttr(name='lm_head.w'),
+                     bias_attr=False)                        # [S, V]
+
+
+def build_lm_decode_step(cfg, slots, max_len, block_size=None,
+                         num_blocks=None):
+    """Single-token decode step over ALL cache slots.
+
+    Feeds: 'gen_tokens' [slots, 1] int64 (each slot's last token),
+    'gen_pos' [slots, 1] int64 (the position each slot writes this step),
+    the `SAMPLE_FEEDS` quad [slots, 1] (temperature / top-k / top-p /
+    host uniform; all-zero = bitwise greedy), and — paged mode —
+    'gen_btab' [slots, max_len // block_size] int64 per-slot block
+    tables. Returns {'tokens', 'pos', 'logits', 'next_tokens',
+    'k_cache', 'v_cache'} — fetch 'next_tokens' ([slots] int64)."""
+    paged = block_size is not None
+    d, h = cfg.d_model, cfg.n_head
+    dh = d // h
+    tokens = layers.data(name='gen_tokens', shape=[1], dtype='int64')
+    pos = layers.data(name='gen_pos', shape=[1], dtype='int64')
+    sample_vars = _sampling_inputs()
+    block = tokens.block
+    if paged:
+        mb = max_len // block_size
+        btab = layers.data(name='gen_btab', shape=[mb], dtype='int64')
+        kc, vc = _declare_paged_kv_caches(block, cfg, num_blocks,
+                                          block_size)
+    else:
+        kc, vc = _declare_kv_caches(block, cfg, slots, max_len)
+
+    x = layers.embedding(
+        tokens, size=[cfg.vocab_size, d], dtype='float32',
+        param_attr=ParamAttr(name='tok_emb.w'))              # [S, d]
+    pe = layers.assign(position_encoding_table(max_len, d))
+    x = layers.elementwise_add(x, layers.gather(pe, pos))
+
+    def cache_write(k, v, layer):
+        for cache, new in ((kc, k), (vc, v)):
+            if not paged:
+                _cache_write(block, 'kv_cache_update', cache, new,
+                             pos, layer)
+                continue
+            block.append_op(
+                type='kv_cache_update_paged',
+                inputs={'Cache': [cache], 'New': [new],
+                        'Positions': [pos], 'BlockTables': [btab]},
+                outputs={'Out': [cache]},
+                attrs={'layer': int(layer),
+                       'block_size': int(block_size)})
+
+    def attend(q, layer, name):
+        ctx = block.create_var(name=name + '.kv_ctx',
+                               shape=(-1, h, dh), dtype='float32')
+        attn_inputs = {'Q': [q], 'KCache': [kc], 'VCache': [vc],
+                       'Positions': [pos]}
+        attn_attrs = {'layer': layer, 'scale': dh ** -0.5}
+        if paged:
+            attn_inputs['BlockTables'] = [btab]
+            attn_attrs['block_size'] = int(block_size)
+        block.append_op(
+            type='kv_decode_attention_paged' if paged
+            else 'kv_decode_attention',
+            inputs=attn_inputs,
+            outputs={'Out': [ctx]},
+            attrs=attn_attrs)
+        return ctx
+
+    logits = _decode_tower(cfg, x, cache_write, attend)      # [S, V]
+    next_tokens = _append_sample_op(block, logits, sample_vars,
+                                    'gen_next_tokens')       # [S]
+    return {'tokens': tokens, 'pos': pos, 'logits': logits,
+            'next_tokens': next_tokens, 'k_cache': kc, 'v_cache': vc}
+
+
+def build_lm_drafter(cfg, slots, max_len, spec_k, num_blocks, block_size):
+    """``spec_k`` greedy decode steps UNROLLED into one program — the
+    draft leg of speculative decoding. Each unrolled step is the
+    same `_decode_tower` as the plain decode step, its argmax feeding
+    the next step's embedding IN-PROGRAM, so the K draft proposals cost
+    one host dispatch instead of K (the chip never waits on the host
+    between draft tokens).
+
+    Feeds: 'gen_tokens' [slots, 1] int64 (each slot's last accepted
+    token), 'gen_pos' [slots, 1] int64 (the position draft step 0
+    writes; step j writes pos + j), 'gen_btab'
+    [slots, max_len // block_size] int64 per-slot DRAFT block tables,
+    and 'gen_vmask' [slots, spec_k + 1] int64 (nonzero = step j's write
+    is budgeted; zero rows — idle slots, positions at or past max_len —
+    redirect to the trash block). Returns {'tokens', 'pos',
+    'block_table', 'vmask', 'draft_tokens' (list of spec_k [slots]
+    int64 vars), 'k_cache', 'v_cache'}.
+
+    The unroll is spec_k + 1 towers: the trailing step is WRITE-ONLY
+    (``head=False`` — no logits), depositing the K-th draft token's own
+    K/V at position pos + spec_k. Without it, a fully-accepted round
+    (spec_k drafts + the target's bonus token) would leave a hole in
+    the draft cache at the bonus position and every later draft would
+    attend garbage there — the accept rate of a target-equal draft
+    would silently drop from 1.0.
+
+    Drafting is greedy by construction (argmax — the same argmax the
+    sample op's temperature-0 branch takes): a draft
+    is a PROPOSAL, the target's verify step decides every emitted
+    token, so draft sampling would only lower the accept rate."""
+    d, h = cfg.d_model, cfg.n_head
+    dh = d // h
+    mb = max_len // block_size
+    tokens = layers.data(name='gen_tokens', shape=[1], dtype='int64')
+    pos = layers.data(name='gen_pos', shape=[1], dtype='int64')
+    btab = layers.data(name='gen_btab', shape=[mb], dtype='int64')
+    vmask = layers.data(name='gen_vmask', shape=[spec_k + 1],
+                        dtype='int64')
+    block = tokens.block
+    kc, vc = _declare_paged_kv_caches(block, cfg, num_blocks, block_size)
+    pe = layers.assign(position_encoding_table(max_len, d))
+
+    drafts = []
+    tok = tokens                                 # [S, 1] feed; then [S]
+    for j in range(spec_k + 1):
+        if j == 0:
+            pos_j = pos
+        else:
+            pos_j = layers.elementwise_add(
+                pos, layers.fill_constant(shape=[1], dtype='int64',
+                                          value=j))
+        valid_j = layers.slice(vmask, axes=[1], starts=[j], ends=[j + 1])
+        x = layers.embedding(
+            tok, size=[cfg.vocab_size, d], dtype='float32',
+            param_attr=ParamAttr(name='tok_emb.w'))          # [S, d]
+        # a capped slot's pos >= max_len gathers a row of the fill value
+        # (tensor_ops.gather, jnp.take's mode) — its output is garbage the
+        # host never accepts, and its cache write is vmask-trashed
+        x = layers.elementwise_add(x, layers.gather(pe, pos_j))
+
+        def cache_write(k, v, layer, _pos=pos_j, _valid=valid_j):
+            for cache, new in ((kc, k), (vc, v)):
+                block.append_op(
+                    type='kv_cache_update_paged',
+                    inputs={'Cache': [cache], 'New': [new],
+                            'Positions': [_pos], 'BlockTables': [btab],
+                            'Valid': [_valid]},
+                    outputs={'Out': [cache]},
+                    attrs={'layer': int(layer),
+                           'block_size': int(block_size)})
+
+        def attend(q, layer, name, _pos=pos_j):
+            ctx = block.create_var(name=name + '.kv_ctx',
+                                   shape=(-1, h, dh), dtype='float32')
+            block.append_op(
+                type='kv_decode_attention_paged',
+                inputs={'Q': [q], 'KCache': [kc], 'VCache': [vc],
+                        'Positions': [_pos], 'BlockTables': [btab]},
+                outputs={'Out': [ctx]},
+                attrs={'layer': layer, 'scale': dh ** -0.5,
+                       'block_size': int(block_size)})
+            return ctx
+
+        logits = _decode_tower(cfg, x, cache_write, attend,
+                               tag='.draft%d' % j,
+                               head=j < spec_k)              # [S, V]
+        if j < spec_k:
+            tok = layers.argmax(logits, axis=1)              # [S] int64
+            drafts.append(tok)
+    # ONE [S, spec_k] fetch: K separate fetches would cost K host
+    # syncs per round
+    cat = layers.concat([layers.reshape(t, shape=[-1, 1])
+                         for t in drafts], axis=1)
+    return {'tokens': tokens, 'pos': pos, 'block_table': btab,
+            'vmask': vmask, 'draft_tokens': cat,
+            'k_cache': kc, 'v_cache': vc}
+
+
+def build_lm_verify(cfg, slots, width, max_len, num_blocks, block_size):
+    """Target-model VERIFY step: score ``width = spec_k + 1`` positions
+    of every slot in ONE batched dispatch — the wide sibling of the
+    decode step that converts K sequential target steps into one.
+
+    Row t of slot s carries the token at global position
+    ``gen_pos[s, t]`` (row 0 = the slot's last accepted token, rows
+    1..K = the draft proposals). Every row's K/V is deposited through
+    the slot's block table first (`kv_cache_update_span_paged`,
+    vmask-guarded), then each row attends the cached history plus the
+    window rows at or before it (`kv_verify_attention_paged`) — so row
+    t's logits are IDENTICAL to what the plain decode step would have
+    produced at that position, and the greedy argmax over them is the
+    bitwise acceptance oracle: tokens are emitted exactly as
+    non-speculative greedy decode would have emitted them, speculation
+    only changes how many land per dispatch.
+
+    The program IS the decode tower: the (slot, window-row) pairs
+    flatten onto the tower's row axis ([slots * width, d]) and run the
+    SAME `_decode_tower` body as the plain decode step and the drafter
+    — only the cache write (span variant) and attention (per-row
+    position masks) closures differ, so the acceptance oracle can
+    never numerically drift from the step program it stands in for.
+
+    Feeds: 'gen_tokens' [slots, width] int64, 'gen_pos' [slots, width]
+    int64 (host-clipped to max_len - 1), 'gen_btab'
+    [slots, max_len // block_size] int64, 'gen_vmask' [slots, width]
+    int64. Returns {'tokens', 'pos', 'block_table', 'vmask', 'logits'
+    ([slots * width, vocab], row-major), 'verify_tokens'
+    ([slots * width] int64, row-major), 'k_cache', 'v_cache'}."""
+    d, h = cfg.d_model, cfg.n_head
+    dh = d // h
+    W = int(width)
+    if W < 2:
+        raise ValueError("verify width must be >= 2 (spec_k >= 1), "
+                         "got %d" % W)
+    mb = max_len // block_size
+    tokens = layers.data(name='gen_tokens', shape=[W], dtype='int64')
+    pos = layers.data(name='gen_pos', shape=[W], dtype='int64')
+    btab = layers.data(name='gen_btab', shape=[mb], dtype='int64')
+    vmask = layers.data(name='gen_vmask', shape=[W], dtype='int64')
+    block = tokens.block
+    kc, vc = _declare_paged_kv_caches(block, cfg, num_blocks, block_size)
+
+    flat = layers.reshape(tokens, shape=[-1])                # [S*W]
+    x = layers.embedding(
+        flat, size=[cfg.vocab_size, d], dtype='float32',
+        param_attr=ParamAttr(name='tok_emb.w'))              # [S*W, d]
+    pe = layers.assign(position_encoding_table(max_len, d))
+    x = layers.elementwise_add(x, layers.gather(pe, pos))
+
+    def cache_write(k, v, layer):
+        # tower rows [S*W, H, dh] -> the span op's [S, H, W, dh]
+        for cache, new in ((kc, k), (vc, v)):
+            rows = layers.transpose(
+                layers.reshape(new, shape=[-1, W, h, dh]),
+                perm=[0, 2, 1, 3])
+            block.append_op(
+                type='kv_cache_update_span_paged',
+                inputs={'Cache': [cache], 'New': [rows],
+                        'Positions': [pos], 'BlockTables': [btab],
+                        'Valid': [vmask]},
+                outputs={'Out': [cache]},
+                attrs={'layer': int(layer),
+                       'block_size': int(block_size)})
+
+    def attend(q, layer, name):
+        qw = layers.transpose(layers.reshape(q, shape=[-1, W, h, dh]),
+                              perm=[0, 2, 1, 3])             # [S,H,W,dh]
+        ctx = block.create_var(name=name + '.verify_attn_out',
+                               shape=(-1, h, W, dh), dtype='float32')
+        block.append_op(
+            type='kv_verify_attention_paged',
+            inputs={'Q': [qw], 'KCache': [kc], 'VCache': [vc],
+                    'Positions': [pos], 'BlockTables': [btab]},
+            outputs={'Out': [ctx]},
+            attrs={'layer': layer, 'scale': dh ** -0.5,
+                   'block_size': int(block_size)})
+        # [S, W, H, dh]: the tower's reshape([-1, d]) then folds the
+        # heads back into row order (s, w)
+        return layers.transpose(ctx, perm=[0, 2, 1, 3])
+
+    logits = _decode_tower(cfg, x, cache_write, attend,
+                           tag='.verify')                    # [S*W, V]
+    # the same argmax the sample op's temperature-0 branch takes —
+    # greedy acceptance is bitwise against the plain decode step
+    nxt = layers.argmax(logits, axis=1)                      # [S*W]
+    return {'tokens': tokens, 'pos': pos, 'block_table': btab,
+            'vmask': vmask, 'logits': logits, 'verify_tokens': nxt,
+            'k_cache': kc, 'v_cache': vc}
+
+
+def build_lm_prefill(cfg, prompt_len, slots, max_len):
+    """Prefill ONE prompt (padded to `prompt_len`, a bucket cell) into one
+    cache slot and emit the first generated token.
+
+    Feeds: 'gen_prompt' [1, prompt_len] int64, 'gen_slot' [1, 1] int64,
+    'gen_len' [1, 1] int64 (real prompt length; pad rows beyond it are
+    causal-masked out of the answer and overwritten by later decode
+    steps). Returns {'prompt', 'slot', 'length', 'logits', 'first_token',
+    'k_cache', 'v_cache'} — fetch 'first_token' ([1] int64)."""
+    if prompt_len > max_len:
+        raise ValueError(
+            "prompt bucket %d exceeds the KV cache width max_len=%d"
+            % (prompt_len, max_len))
+    d, h = cfg.d_model, cfg.n_head
+    dh = d // h
+    T = int(prompt_len)
+    prompt = layers.data(name='gen_prompt', shape=[-1, T], dtype='int64')
+    slot = layers.data(name='gen_slot', shape=[1], dtype='int64')
+    length = layers.data(name='gen_len', shape=[1], dtype='int64')
+    sample_vars = _sampling_inputs()
+    block = prompt.block
+    kc, vc = _declare_kv_caches(block, cfg, slots, max_len)
+
+    emb = layers.embedding(
+        prompt, size=[cfg.vocab_size, d], dtype='float32',
+        param_attr=ParamAttr(name='tok_emb.w'))              # [1, T, d]
+    x = layers.add_position_encoding(emb, alpha=1.0, beta=1.0)
+
+    use_flash = bool(getattr(cfg, 'use_flash_attention', False))
+    mask_var = None
+    if not use_flash:
+        causal_mask = np.triu(np.full((T, T), -1e9, dtype='float32'), k=1)
+        mask_var = layers.assign(causal_mask)
+
+    delta = None
+    for i in range(cfg.n_layer):
+        p = 'layer_%d' % i
+        ln1, x = _entry_ln(x, delta, 2, p + '.ln1')
+        qkv = layers.fc(ln1, size=3 * d, num_flatten_dims=2,
+                        param_attr=ParamAttr(name=p + '.attn.qkv.w'),
+                        bias_attr=ParamAttr(name=p + '.attn.qkv.b'))
+        qkv = layers.reshape(qkv, shape=[0, T, 3, h, dh])
+        qkv = layers.transpose(qkv, perm=[2, 0, 3, 1, 4])    # (3,1,H,T,dh)
+        q = layers.squeeze(layers.slice(qkv, axes=[0], starts=[0],
+                                        ends=[1]), axes=[0])
+        k = layers.squeeze(layers.slice(qkv, axes=[0], starts=[1],
+                                        ends=[2]), axes=[0])
+        v = layers.squeeze(layers.slice(qkv, axes=[0], starts=[2],
+                                        ends=[3]), axes=[0])
+        kc = _cache_write(block, 'kv_cache_prefill', kc, k, slot, i)
+        vc = _cache_write(block, 'kv_cache_prefill', vc, v, slot, i)
+        if use_flash:
+            ctx = block.create_var(name=p + '.prefill_flash_out',
+                                   shape=(-1, h, T, dh), dtype='float32')
+            block.append_op(
+                type='flash_attention',
+                inputs={'Q': [q], 'K': [k], 'V': [v]},
+                outputs={'Out': [ctx]},
+                attrs={'scale': dh ** -0.5, 'causal': True,
+                       'ring_zigzag': False})
+        else:
+            logits_a = layers.matmul(q, k, transpose_y=True,
+                                     alpha=dh ** -0.5)
+            logits_a = layers.elementwise_add(logits_a, mask_var)
+            weights = layers.softmax(logits_a)
+            ctx = layers.matmul(weights, v)                  # (1,H,T,dh)
+        ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+        ctx = layers.reshape(ctx, shape=[0, T, d])
+        attn = layers.fc(ctx, size=d, num_flatten_dims=2,
+                         param_attr=ParamAttr(name=p + '.attn.proj.w'),
+                         bias_attr=ParamAttr(name=p + '.attn.proj.b'))
+        ln2, x = layers.fused_layer_norm_residual(
+            x, attn, begin_norm_axis=2,
+            param_attr=ParamAttr(name=p + '.ln2.w'),
+            bias_attr=ParamAttr(name=p + '.ln2.b'))
+        delta = _ffn_tail(ln2, cfg, p, 2)
+
+    x, _ = _entry_ln(x, delta, 2, 'final_ln')
+    # only the last REAL row feeds the LM head: one [1, d] x [d, V] matmul
+    # instead of projecting all T rows to vocab
+    x_flat = layers.reshape(x, shape=[-1, d])                # [T, d]
+    one = layers.fill_constant(shape=[1], dtype='int64', value=1)
+    last = layers.gather(x_flat, layers.elementwise_sub(length, one))
+    logits = layers.fc(last, size=cfg.vocab_size,
+                       param_attr=ParamAttr(name='lm_head.w'),
+                       bias_attr=False)                      # [1, V]
+    first_token = _append_sample_op(block, logits, sample_vars,
+                                    'gen_first_token')       # [1]
+    return {'prompt': prompt, 'slot': slot, 'length': length,
+            'logits': logits, 'first_token': first_token,
+            'k_cache': kc, 'v_cache': vc}
+
+
+def build_lm_prefill_paged(cfg, prompt_len, num_blocks, block_size,
+                           max_blocks):
+    """Prefill one prompt SUFFIX (padded to the `prompt_len` bucket) into
+    a paged cache slot and emit the first generated token.
+
+    The suffix's query row t sits at global position ctx_len + t: with a
+    shared prefix of ctx_len tokens already cached in the slot's leading
+    block-table entries, only the suffix is embedded, projected and
+    written — the prefix K/V are READ by `kv_prefix_attention`, never
+    recomputed, which is exactly the prefill-compute saving prefix
+    sharing promises. ctx_len = 0 degenerates to the ordinary causal
+    prefill (computed against the cache instead of a local K/V copy).
+
+    Feeds: 'gen_prompt' [1, prompt_len] int64 (suffix tokens),
+    'gen_pos' [1, prompt_len] int64 (global positions ctx_len + t,
+    host-precomputed), 'gen_btab' [1, max_blocks] int64 (the slot's
+    block table), 'gen_len' [1, 1] int64 (REAL suffix length; pad rows
+    write to the trash block), and the `SAMPLE_FEEDS` quad [1, 1].
+    Returns {'prompt', 'positions', 'block_table', 'length', 'logits',
+    'first_token', 'k_cache', 'v_cache'}."""
+    d, h = cfg.d_model, cfg.n_head
+    dh = d // h
+    T = int(prompt_len)
+    prompt = layers.data(name='gen_prompt', shape=[-1, T], dtype='int64')
+    pos = layers.data(name='gen_pos', shape=[-1, T], dtype='int64')
+    btab = layers.data(name='gen_btab', shape=[max_blocks], dtype='int64')
+    length = layers.data(name='gen_len', shape=[1], dtype='int64')
+    sample_vars = _sampling_inputs()
+    block = prompt.block
+    kc, vc = _declare_paged_kv_caches(block, cfg, num_blocks, block_size)
+
+    emb = layers.embedding(
+        prompt, size=[cfg.vocab_size, d], dtype='float32',
+        param_attr=ParamAttr(name='tok_emb.w'))              # [1, T, d]
+    # decode-parity positioning: gather the SAME sinusoid table rows the
+    # contiguous prefill's add_position_encoding applies at offset 0
+    pe = layers.assign(position_encoding_table(
+        max_blocks * block_size, d))
+    pe_rows = layers.reshape(layers.gather(pe, pos), shape=[-1, T, d])
+    x = layers.elementwise_add(emb, pe_rows)
+
+    def cache_write(cache, new, layer):
+        block.append_op(
+            type='kv_cache_prefill_paged',
+            inputs={'Cache': [cache], 'New': [new], 'Positions': [pos],
+                    'BlockTable': [btab], 'Length': [length]},
+            outputs={'Out': [cache]},
+            attrs={'layer': int(layer), 'block_size': int(block_size)})
+        return cache
+
+    delta = None
+    for i in range(cfg.n_layer):
+        p = 'layer_%d' % i
+        ln1, x = _entry_ln(x, delta, 2, p + '.ln1')
+        qkv = layers.fc(ln1, size=3 * d, num_flatten_dims=2,
+                        param_attr=ParamAttr(name=p + '.attn.qkv.w'),
+                        bias_attr=ParamAttr(name=p + '.attn.qkv.b'))
+        qkv = layers.reshape(qkv, shape=[0, T, 3, h, dh])
+        qkv = layers.transpose(qkv, perm=[2, 0, 3, 1, 4])    # (3,1,H,T,dh)
+        q = layers.squeeze(layers.slice(qkv, axes=[0], starts=[0],
+                                        ends=[1]), axes=[0])
+        k = layers.squeeze(layers.slice(qkv, axes=[0], starts=[1],
+                                        ends=[2]), axes=[0])
+        v = layers.squeeze(layers.slice(qkv, axes=[0], starts=[2],
+                                        ends=[3]), axes=[0])
+        kc = cache_write(kc, k, i)
+        vc = cache_write(vc, v, i)
+        ctx = block.create_var(name=p + '.prefix_attn_out',
+                               shape=(-1, h, T, dh), dtype='float32')
+        block.append_op(
+            type='kv_prefix_attention',
+            inputs={'Q': [q], 'KCache': [kc], 'VCache': [vc],
+                    'Positions': [pos], 'BlockTable': [btab]},
+            outputs={'Out': [ctx]},
+            attrs={'layer': i, 'scale': dh ** -0.5,
+                   'block_size': int(block_size)})
+        ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+        ctx = layers.reshape(ctx, shape=[0, T, d])
+        attn = layers.fc(ctx, size=d, num_flatten_dims=2,
+                         param_attr=ParamAttr(name=p + '.attn.proj.w'),
+                         bias_attr=ParamAttr(name=p + '.attn.proj.b'))
+        ln2, x = layers.fused_layer_norm_residual(
+            x, attn, begin_norm_axis=2,
+            param_attr=ParamAttr(name=p + '.ln2.w'),
+            bias_attr=ParamAttr(name=p + '.ln2.b'))
+        delta = _ffn_tail(ln2, cfg, p, 2)
+
+    x, _ = _entry_ln(x, delta, 2, 'final_ln')
+    x_flat = layers.reshape(x, shape=[-1, d])                # [T, d]
+    one = layers.fill_constant(shape=[1], dtype='int64', value=1)
+    last = layers.gather(x_flat, layers.elementwise_sub(length, one))
+    logits = layers.fc(last, size=cfg.vocab_size,
+                       param_attr=ParamAttr(name='lm_head.w'),
+                       bias_attr=False)                      # [1, V]
+    first_token = _append_sample_op(block, logits, sample_vars,
+                                    'gen_first_token')       # [1]
+    return {'prompt': prompt, 'positions': pos, 'block_table': btab,
+            'length': length, 'logits': logits,
+            'first_token': first_token, 'k_cache': kc, 'v_cache': vc}
 
 
 def _key(name):

@@ -36,7 +36,7 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 # one shared library per kernel source
 SOURCES = ('embedding_gather', 'ln_residual', 'flash_attn_fwd', 'ffn_gemm',
            'softmax_ce', 'fused_adam', 'flash_attn_bwd', 'flash_attn_bf16_fwd',
-           'flash_attn_bf16_bwd', 'flash_attn_wide')
+           'flash_attn_bf16_bwd', 'flash_attn_wide', 'graph_while')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')

@@ -12,18 +12,30 @@ the carry, as in the JAX lowering. Where the JAX package traces
 ``lax.while_loop``, ``lax.scan`` and ``lax.cond``, the port runs Python
 loops on the device:
 
-- ``while``, eagerly and with no gradient: the loop reads its condition
-  on the host before each iteration (``lax.while_loop``'s semantics).
-  Under the ``backward`` meta-op it runs a bound's iterations,
+- ``while`` without a gradient: ``lax.while_loop``, the loop runs until
+  its condition reads false (a ``max_trip_count`` does not cut it, as in
+  the JAX package). Eagerly (``Executor.run``, the eager first step of a
+  bound plan, every step on the CPU) the condition is read on the host
+  before each iteration. Under a CUDA-graph capture (`Executor.bind`,
+  ``run_fused``) the loop is one WHILE conditional node of the step's
+  graph (core/graphs.py `run_while`, csrc/graph_while.cu): the body is
+  captured once over buffers of the carry, writes the arrays' buffers in
+  place (`TensorArray.in_place`), copies its other values back into theirs
+  and reloads the node's condition, so the device runs it as many times
+  as the condition holds, with no host read. The buffers take the layout
+  that the plan's eager first step left (its arrays' element shapes, its
+  carry's dtypes). A body that draws random numbers runs in a capture as
+  the bounded loop below (each trip of the node would replay the same
+  draws), so it needs a ``max_trip_count`` there, and a condition that
+  still holds after it raises.
+- ``while`` under the ``backward`` meta-op: a bound's iterations,
   ``max_trip_count`` or else the smallest capacity of an array the body
   writes (the JAX package's bounded ``lax.scan``), each iteration's carry
-  kept with ``torch.where(cond, new, old)``; an inferred bound is checked
-  on the host after the loop, a bound the user passed is not. Under
-  `Executor.bind` and `run_fused` (``ctx.loop_flags``) a loop with a
-  bound runs its bound's iterations the same way, with no host read, so
-  the step stays one CUDA graph, and appends its final condition to the
-  loop flags, which the bound plan reads after the step and raises on
-  (executor.py); a loop with no bound raises NotImplementedError there.
+  kept with ``torch.where(cond, new, old)``. An inferred bound is checked,
+  as the JAX package checks it on every step: on the host after an eager
+  loop; in a capture by a device flag that ``bind`` and ``run_fused`` read
+  after their replays (core/graphs.py `watch`). A bound the user passed is
+  not checked.
 - ``conditional_block``: the scalar form runs its block and keeps the
   written carry with ``torch.where(pred, new, old)`` (``lax.cond`` with an
   identity false branch, no host read); the non-scalar form runs the block
@@ -34,15 +46,17 @@ loops on the device:
   keeps its memory and outputs zeros (``torch.where``), on the padded maps
   of ops/rnn_ops.py.
 
-An array that a loop first writes is sized by that write; one still
-unwritten after a loop whose condition was false from the start is sized
-by one run of the body under ``torch.no_grad()`` whose results are
-dropped (the JAX package's abstract probe, ``jax.eval_shape``), and one
-that is never written becomes a [capacity, 1] float32 array of zeros, as
-in the JAX package. ``beam_search`` picks ties in ``lax.top_k``'s order,
-the lower index first (a stable sort: ``torch.topk`` promises no order on
-the card); ``beam_search_decode`` backtracks over the arrays' capacity,
-masked on the device by ``t < length``.
+An array that a loop first writes is sized by that write. A loop whose
+condition is false from the start runs its body once under
+``torch.no_grad()`` and drops its values (the JAX package's trace of the
+body): an array the body would write takes the written element's shape,
+and each name the body gives a LoD keeps it, as the trace records it. An
+array that is never written becomes a [capacity, 1] float32 array of
+zeros, as in the JAX package. ``beam_search`` picks ties in
+``lax.top_k``'s order, the lower index first (a stable sort:
+``torch.topk`` promises no order on the card); ``beam_search_decode``
+backtracks over the arrays' capacity, masked on the device by
+``t < length``.
 """
 import numpy as np
 import torch
@@ -178,31 +192,68 @@ def _select(ctx, pred, new, old):
     return torch.where(pred, new, old)
 
 
-def _settle_empties(ctx, block, carry, probe):
-    """Size the arrays still unwritten after a block's runs: ``probe`` (a
-    loop that never ran) runs the body once under no_grad and drops what
-    it computed, and records the element shapes it writes; an array that
-    nothing writes becomes [capacity, 1] float32 zeros. The probe draws
-    nothing from the run's generators and records no LoD or static value
-    (`LowerContext.detached`), and only a read of an array before its
-    first write is let pass: any other fault of the body raises, as the
-    JAX package's trace of the body raises it."""
-    empties = [n for n, v in carry.items() if isinstance(v, EmptyTensorArray)]
-    if not empties:
-        return
-    if probe:
-        with torch.no_grad(), ctx.detached() as probe_ctx:
-            try:
-                _run_block(probe_ctx, block, carry)
-            except UnwrittenArrayRead:
-                # a read of an array that no earlier op of the body wrote
-                pass
-    for n in empties:
-        ph = carry[n]
-        arr = ph.materialize(ctx.device) if ph.elem_shape is not None \
-            else TensorArray.empty(ph.capacity, (1,), torch.float32,
-                                   ctx.device)
-        carry[n] = arr.clear_static()
+def _settle_empties(ctx, carry):
+    """Size the arrays still unwritten after a block's runs: one whose
+    element shape a write recorded (a run of the block, or its probe)
+    becomes zeros of that shape, one that nothing writes [capacity, 1]
+    float32 zeros."""
+    for n, ph in carry.items():
+        if isinstance(ph, EmptyTensorArray):
+            arr = ph.materialize(ctx.device) if ph.elem_shape is not None \
+                else TensorArray.empty(ph.capacity, (1,), torch.float32,
+                                       ctx.device)
+            carry[n] = arr.clear_static()
+
+
+def _probe(ctx, block, carry):
+    """The JAX package's trace of a loop body that never runs: one run of
+    the body under no_grad whose values are dropped. The unwritten arrays
+    of ``carry`` record the element shapes it writes, and the run's LoDs
+    become the body's (`LowerContext.detached`: it draws nothing from the
+    run's generators and leaves the static values as they were). Only a
+    read of an array before its first write is let pass: any other fault
+    of the body raises, as the trace raises it."""
+    with torch.no_grad(), ctx.detached() as probe_ctx:
+        try:
+            _run_block(probe_ctx, block, carry)
+        except UnwrittenArrayRead:
+            # a read of an array that no earlier op of the body wrote
+            pass
+    ctx.lods.clear()
+    ctx.lods.update(probe_ctx.lods)
+
+
+def _carry_spec(carry):
+    """{name: (shape, dtype), or ('array', capacity, element shape, dtype)}
+    of a loop's carry after its eager run: the buffers its capture loops
+    over."""
+    spec = {}
+    for n, v in carry.items():
+        if isinstance(v, TensorArray):
+            spec[n] = ('array', v.capacity, v.elem_shape, v.buffer.dtype)
+        else:
+            spec[n] = (tuple(v.shape), v.dtype)
+    return spec
+
+
+def _draws(ctx, block):
+    """Whether an op of ``block`` or of its sub-blocks draws random
+    numbers."""
+    from ..core.lowering import _needs_rng
+    from ..core.registry import get_op
+    for op in block.ops:
+        if _needs_rng(get_op(op.type), op):
+            return True
+        for a in SUB_BLOCK_ATTRS:
+            idx = op.attr(a)
+            if idx is not None and _draws(ctx, ctx.program.block(int(idx))):
+                return True
+    return False
+
+
+def _capturing(ctx):
+    return ctx.device.type == 'cuda' and \
+        torch.cuda.is_current_stream_capturing()
 
 
 # ---------------------------------------------------------------------------
@@ -219,54 +270,187 @@ def _while(ctx, op):
             "while: condition %r is never updated inside the loop body — "
             "the loop would not terminate" % cond_name)
     carry = {n: _carry_value(ctx.env[n]) for n in carried}
-    if not ctx.wrt and ctx.loop_flags is None:
-        trips = 0
-        while bool(_pred(carry[cond_name])):
-            env = _run_block(ctx, block, carry)
-            carry = {n: _carry_value(env[n]) for n in carried}
-            trips += 1
-        _settle_empties(ctx, block, carry, probe=not trips)
-        for n in carried:
-            ctx.set(n, carry[n])
-        return
+    if ctx.wrt or (_capturing(ctx) and _draws(ctx, block)):
+        carry = _bounded_loop(ctx, op, block, written, carry, cond_name)
+    elif _capturing(ctx):
+        carry = _graph_loop(ctx, block, carry, cond_name)
+    else:
+        carry = _host_loop(ctx, block, carry, cond_name)
+    for n in carried:
+        ctx.set(n, carry[n])
 
+
+def _host_loop(ctx, block, carry, cond_name):
+    """``lax.while_loop`` eagerly: the condition read on the host before
+    each iteration. A loop that never runs probes its body (`_probe`). On
+    the card the carry's layout after the loop is kept for a capture of
+    the plan."""
+    trips = 0
+    while bool(_pred(carry[cond_name])):
+        env = _run_block(ctx, block, carry)
+        carry = {n: _carry_value(env[n]) for n in carry}
+        trips += 1
+    if not trips:
+        _probe(ctx, block, carry)
+    _settle_empties(ctx, carry)
+    if ctx.device.type == 'cuda':
+        # what a capture of the plan (`_graph_loop`) loops over, its trip
+        # counter and the flag of a bounded capture (`_check_cut`), made
+        # outside the capture so that no replay zeroes them
+        ctx.memo(('while.carry', ctx.op_index), lambda: _carry_spec(carry))
+        ctx.memo(('while.trips', ctx.op_index),
+                 lambda: torch.zeros((), dtype=torch.int64,
+                                     device=ctx.device))
+        _cut_flag(ctx)
+    return carry
+
+
+def _graph_loop(ctx, block, carry, cond_name):
+    """``lax.while_loop`` under a CUDA-graph capture (`Executor.bind`,
+    ``run_fused``): one WHILE node (core/graphs.py `run_while`) whose body
+    runs one iteration over buffers of the carry and copies the iteration's
+    values back into them, until the condition reads false, with no host
+    read. The buffers take the layout the plan's eager first step left
+    (`_host_loop`): arrays its run or probe sized, dtypes its body made.
+    The body writes the arrays' buffers in place (one slot a write), and
+    the loop's values leave it written out of place again."""
+    from ..core import graphs
+    spec = ctx.memo(('while.carry', ctx.op_index), _not_laid_out)
+    trips = ctx.memo(('while.trips', ctx.op_index), _not_laid_out)
+    bufs = {}
+    for n, v in carry.items():
+        want = spec[n]
+        if want[0] == 'array':
+            _, cap, elem, dtype = want
+            buf = torch.zeros((cap,) + tuple(elem), dtype=dtype,
+                              device=ctx.device) \
+                if isinstance(v, EmptyTensorArray) else \
+                v.buffer.to(dtype, copy=True)
+            length = torch.zeros((), dtype=torch.int32, device=ctx.device) \
+                if isinstance(v, EmptyTensorArray) else v.length.clone()
+            bufs[n] = TensorArray(buf, length, in_place=True)
+        else:
+            if tuple(v.shape) != want[0]:
+                raise ValueError('while: %r enters the loop as %s, its eager '
+                                 'run left %s' % (n, tuple(v.shape), want[0]))
+            bufs[n] = v.to(want[1], copy=True)
+
+    def body():
+        env = _run_block(ctx, block, dict(bufs))
+        _store(bufs, {n: _carry_value(env[n]) for n in bufs})
+        return bufs[cond_name]
+
+    graphs.run_while(bufs[cond_name], body, trips)
+    return {n: _carry_value(v) for n, v in bufs.items()}
+
+
+def _not_laid_out():
+    raise RuntimeError('while: a loop is captured only after an eager run '
+                       'of its plan has laid out its carry')
+
+
+def _cut_flag(ctx):
+    """The device flag of this loop's bounded capture (`_check_cut`),
+    made by the plan's eager first step."""
+    return ctx.memo(('while.cut', ctx.op_index),
+                    lambda: torch.zeros((), dtype=torch.bool,
+                                        device=ctx.device))
+
+
+def _check_cut(ctx, final, message):
+    """Raise RuntimeError(``message``) where a bounded loop's condition
+    ``final`` still holds after its bound: at once in an eager run; in a
+    capture through a device flag that the graph's owner reads after its
+    replays (core/graphs.py `watch`, `check_flags`)."""
+    if not _capturing(ctx):
+        if ctx.device.type == 'cuda':
+            _cut_flag(ctx)
+        if bool(final.any()):
+            raise RuntimeError(message)
+        return
+    from ..core import graphs
+    flag = ctx.memo(('while.cut', ctx.op_index), _not_laid_out)
+    flag.logical_or_(final.reshape(-1).any())
+    graphs.watch(flag, message)
+
+
+def _store(bufs, new):
+    """Copy one iteration's carry ``new`` into the loop's buffers; a value
+    that shares memory with a buffer (an assign of another carried name) is
+    copied first."""
+    pairs = []
+    for n, b in bufs.items():
+        v = new[n]
+        if isinstance(b, TensorArray):
+            pairs += [(b.buffer, v.buffer), (b.length, v.length)]
+        else:
+            pairs.append((b, v))
+    held = set(b.untyped_storage().data_ptr() for b, _ in pairs)
+    moves = []
+    for b, v in pairs:
+        if v is b:
+            continue
+        if tuple(v.shape) != tuple(b.shape):
+            raise ValueError('while: a carried value changes shape from %s '
+                             'to %s in the loop body' % (tuple(b.shape),
+                                                          tuple(v.shape)))
+        if v.untyped_storage().data_ptr() in held:
+            v = v.clone()
+        moves.append((b, v))
+    for b, v in moves:
+        b.copy_(v)
+
+
+def _bounded_loop(ctx, op, block, written, carry, cond_name):
+    """Under the ``backward`` meta-op, and in a capture of a body that
+    draws random numbers: the bound's iterations (the JAX package's bounded
+    ``lax.scan``), each iteration's carry kept with ``torch.where(cond,
+    new, old)``. The bound is ``max_trip_count`` or else, under the
+    ``backward``, the smallest capacity of an array the body writes. A
+    condition that still holds after an inferred bound, or after any bound
+    of a body that draws, raises (`_check_cut`)."""
     bound = op.attr('max_trip_count', None)
     inferred = bound is None
-    if bound is None and ctx.wrt:
+    if bound is None and not ctx.wrt:
+        raise ValueError(
+            "while: a loop whose body draws random numbers is captured in "
+            "a CUDA graph only with a bound, layers.While(cond, "
+            "max_trip_count=N), whose iterations it runs masked (each trip "
+            "of the graph's loop node would replay the same draws): pass "
+            "one, or run the program with Executor.run")
+    if bound is None:
         # only arrays the body writes bound it: a loop appending one slot
         # an iteration cannot run past the capacity
         caps = [v.capacity for n, v in carry.items()
                 if _is_array(v) and n in written]
         bound = min(caps) if caps else None
     if bound is None:
-        if ctx.wrt:
-            raise ValueError(
-                "while inside a differentiated (training) program needs a "
-                "static trip-count bound for reverse-mode AD: pass "
-                "layers.While(cond, max_trip_count=N) or carry a "
-                "TensorArray whose capacity bounds the loop")
-        raise NotImplementedError(
-            "while: Executor.bind and run_fused capture a loop only with a "
-            "trip-count bound, so that the step stays one CUDA graph: pass "
-            "layers.While(cond, max_trip_count=N), or run the program with "
-            "Executor.run")
+        raise ValueError(
+            "while inside a differentiated (training) program needs a "
+            "static trip-count bound for reverse-mode AD: pass "
+            "layers.While(cond, max_trip_count=N) or carry a "
+            "TensorArray whose capacity bounds the loop")
     for _ in range(int(bound)):
         pred = _pred(carry[cond_name])
         env = _run_block(ctx, block, carry)
         carry = {n: _carry_value(_select(ctx, pred, env[n], carry[n]))
-                 for n in carried}
-    _settle_empties(ctx, block, carry, probe=False)
-    final = carry[cond_name]
-    if ctx.loop_flags is not None:
-        ctx.loop_flags.append(final.reshape(-1).any())
-    elif inferred and bool(final.any()):
-        raise RuntimeError(
-            "while: inferred trip-count bound %d (from TensorArray "
-            "capacity) was too small — the loop condition is still true "
-            "after %d iterations. Pass layers.While(cond, "
-            "max_trip_count=N) with the real bound." % (bound, bound))
-    for n in carried:
-        ctx.set(n, carry[n])
+                 for n in carry}
+    _settle_empties(ctx, carry)
+    if not ctx.wrt:
+        _check_cut(ctx, carry[cond_name],
+                   "while: a loop whose body draws random numbers runs its "
+                   "max_trip_count of %d iterations in a CUDA graph, and "
+                   "its condition still held after them: pass "
+                   "layers.While(cond, max_trip_count=N) with the real "
+                   "bound, or run the program with Executor.run" % bound)
+    elif inferred:
+        _check_cut(ctx, carry[cond_name],
+                   "while: inferred trip-count bound %d (from TensorArray "
+                   "capacity) was too small — the loop condition is still "
+                   "true after %d iterations. Pass layers.While(cond, "
+                   "max_trip_count=N) with the real bound."
+                   % (bound, bound))
+    return carry
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +477,7 @@ def _conditional_block(ctx, op):
     env = _run_block(ctx, block, carry)
     carry = {n: _carry_value(_select(ctx, pred, env[n], carry[n]))
              for n in carried}
-    _settle_empties(ctx, block, carry, probe=False)
+    _settle_empties(ctx, carry)
     for n in carried:
         ctx.set(n, carry[n])
 
@@ -402,6 +586,11 @@ def _write_to_array(ctx, op):
     i = ctx.in1(op, 'I')
     out_name = op.output('Out')[0]
     arr = ctx.env.get(out_name)
+    if isinstance(arr, TensorArray) and arr.in_place and any(
+            n != out_name and isinstance(v, TensorArray) and
+            v.buffer is arr.buffer for n, v in ctx.env.items()):
+        # another name holds this buffer: it must not see the write
+        arr = arr.clear_static()
     if not isinstance(arr, TensorArray):
         if not isinstance(arr, EmptyTensorArray):
             arr = EmptyTensorArray(int(op.attr('capacity', 128)))

@@ -25,8 +25,23 @@ tenants; :func:`kv_decode_attention` zeroes their weights after the softmax
 with a select (never a multiply by a 0/1 mask), so a stale row contributes
 exactly 0 whatever finite values it holds. The cache is allocated with
 zeros, so it never holds uninitialised (possibly NaN) bits.
+
+Each function is also the lowering of its program op (the decode
+programs of models/transformer.py: `build_lm_decode_step`,
+`build_lm_prefill`, `build_lm_prefill_paged`, `build_lm_drafter`,
+`build_lm_verify`), with the JAX lowering's inputs, outputs and attributes
+(``layer``, ``scale``, ``block_size``). A cache write's ``Out`` is its
+``Cache`` variable: the lowering writes the scope's tensor in place and
+binds the same tensor, so a run, or a bound plan's step, copies no cache
+(executor.py `_BoundPlan._write`). The indices are cast to int64 (the JAX
+lowerings cast to int32; a cache has fewer than 2^31 rows) and ``New``
+to the cache's dtype, as the JAX lowerings cast them. The sampling op
+computes both branches for every row, as the JAX lowering does: it reads
+nothing on the host, so a bound step stays one CUDA graph.
 """
 import torch
+
+from ..core.registry import register_op
 
 __all__ = ['kv_cache_prefill', 'kv_cache_update', 'kv_decode_attention',
            'kv_cache_prefill_paged', 'kv_cache_update_paged',
@@ -264,3 +279,105 @@ def sample_next_token(logits, temp, topk, topp, u, any_sampled=None):
     j = torch.minimum(j, keep.sum(dim=1) - 1)
     sampled = torch.gather(order, 1, j[:, None])[:, 0]
     return torch.where(sampled_rows, sampled, greedy)
+
+
+# ---------------------------------------------------------------------------
+# the program ops (paddle_tpu/ops/kv_cache_ops.py's lowerings)
+
+
+def _index(ctx, op, slot):
+    return ctx.in1(op, slot).to(torch.int64)
+
+
+def _write(ctx, op, fn, *args):
+    cache = ctx.in1(op, 'Cache')
+    new = ctx.in1(op, 'New').to(cache.dtype)
+    ctx.out(op, 'Out', fn(cache, new, *args))
+
+
+def _layer(op):
+    return int(op.attr('layer'))
+
+
+def _block_size(op):
+    return int(op.attr('block_size'))
+
+
+@register_op('kv_cache_prefill', share_lod=False)
+def _kv_cache_prefill(ctx, op):
+    """Cache[slot, layer, :, 0:T, :] = New[0]; the slot clamped into the
+    cache as ``lax.dynamic_update_slice`` clamps its start."""
+    slot = _index(ctx, op, 'Slot').reshape(-1)[:1]
+    slot = slot.clamp(0, ctx.in1(op, 'Cache').shape[0] - 1)
+    _write(ctx, op, kv_cache_prefill, slot, _layer(op))
+
+
+@register_op('kv_cache_update', share_lod=False)
+def _kv_cache_update(ctx, op):
+    _write(ctx, op, kv_cache_update,
+           _index(ctx, op, 'Positions').reshape(-1), _layer(op))
+
+
+@register_op('kv_decode_attention', share_lod=False)
+def _kv_decode_attention(ctx, op):
+    ctx.out(op, 'Out', kv_decode_attention(
+        ctx.in1(op, 'Q'), ctx.in1(op, 'KCache'), ctx.in1(op, 'VCache'),
+        ctx.in1(op, 'Positions').reshape(-1), _layer(op),
+        op.attr('scale', 1.0)))
+
+
+@register_op('kv_cache_prefill_paged', share_lod=False)
+def _kv_cache_prefill_paged(ctx, op):
+    _write(ctx, op, kv_cache_prefill_paged,
+           _index(ctx, op, 'BlockTable').reshape(-1),
+           _index(ctx, op, 'Positions').reshape(-1),
+           _index(ctx, op, 'Length').reshape(-1)[0], _layer(op),
+           _block_size(op))
+
+
+@register_op('kv_cache_update_paged', share_lod=False)
+def _kv_cache_update_paged(ctx, op):
+    _write(ctx, op, kv_cache_update_paged, _index(ctx, op, 'BlockTables'),
+           _index(ctx, op, 'Positions').reshape(-1), _layer(op),
+           _block_size(op), ctx.in1(op, 'Valid'))
+
+
+@register_op('kv_cache_update_span_paged', share_lod=False)
+def _kv_cache_update_span_paged(ctx, op):
+    _write(ctx, op, kv_cache_update_span_paged,
+           _index(ctx, op, 'BlockTables'), _index(ctx, op, 'Positions'),
+           ctx.in1(op, 'Valid'), _layer(op), _block_size(op))
+
+
+@register_op('kv_decode_attention_paged', share_lod=False)
+def _kv_decode_attention_paged(ctx, op):
+    ctx.out(op, 'Out', kv_decode_attention_paged(
+        ctx.in1(op, 'Q'), ctx.in1(op, 'KCache'), ctx.in1(op, 'VCache'),
+        _index(ctx, op, 'BlockTables'), ctx.in1(op, 'Positions').reshape(-1),
+        _layer(op), op.attr('scale', 1.0)))
+
+
+@register_op('kv_verify_attention_paged', share_lod=False)
+def _kv_verify_attention_paged(ctx, op):
+    ctx.out(op, 'Out', kv_verify_attention_paged(
+        ctx.in1(op, 'Q'), ctx.in1(op, 'KCache'), ctx.in1(op, 'VCache'),
+        _index(ctx, op, 'BlockTables'), ctx.in1(op, 'Positions'),
+        _layer(op), op.attr('scale', 1.0)))
+
+
+@register_op('kv_prefix_attention', share_lod=False)
+def _kv_prefix_attention(ctx, op):
+    ctx.out(op, 'Out', kv_prefix_attention(
+        ctx.in1(op, 'Q'), ctx.in1(op, 'KCache'), ctx.in1(op, 'VCache'),
+        _index(ctx, op, 'BlockTable').reshape(-1),
+        ctx.in1(op, 'Positions').reshape(-1), _layer(op),
+        op.attr('scale', 1.0)))
+
+
+@register_op('sample_next_token', share_lod=False)
+def _sample_next_token(ctx, op):
+    ctx.out(op, 'Out', sample_next_token(
+        ctx.in1(op, 'Logits'), ctx.in1(op, 'Temp').reshape(-1),
+        _index(ctx, op, 'TopK').reshape(-1),
+        ctx.in1(op, 'TopP').reshape(-1), ctx.in1(op, 'U').reshape(-1),
+        any_sampled=True))

@@ -20,6 +20,11 @@ An empty sequence pools to 0 (`_zero_empty`). ``sequence_slice`` and
 (``static_inputs``), ``sequence_pad`` records its Length as one.
 ``sequence_enumerate``, ``sequence_erase``, ``sequence_scatter`` and
 ``fused_embedding_seq_pool`` wait for a later slice.
+
+Every gather of rows by an index map that may repeat a row goes through
+:func:`gather_rows`, whose gradient adds a repeated row's cotangents in
+index order on the card, so that a training step is bitwise from run to
+run (``index_select``'s gradient adds them by atomics there).
 """
 import numpy as np
 import torch
@@ -30,7 +35,7 @@ from ..core.registry import register_op
 from .common import attr_dtype
 from .math_ops import matmul
 
-__all__ = ['index_map', 'padded_maps', 'to_padded']
+__all__ = ['index_map', 'padded_maps', 'to_padded', 'gather_rows']
 
 
 def index_map(ctx, key, build, dtype=torch.int64):
@@ -73,10 +78,21 @@ def _padded_maps(ctx, offsets):
                       torch.bool))
 
 
+def gather_rows(x, idx):
+    """The rows of ``x`` at the int64 index vector ``idx``. On the card by
+    indexing, whose gradient is ``index_put_(accumulate=True)``: it adds a
+    repeated row's cotangents in index order (a sort), so the sum is the
+    same from run to run. On the CPU ``index_select``, whose gradient
+    ``index_add_`` adds them in index order there (the CPU's
+    ``index_put_`` does not: ROADMAP, where the port's bits come
+    from)."""
+    return x[idx] if x.is_cuda else x.index_select(0, idx)
+
+
 def to_padded(x, gidx):
     """The rows of ``x`` at the padded gather ``gidx`` [N, maxT]: [N,
     maxT, ...]."""
-    return x.index_select(0, gidx.reshape(-1)).reshape(
+    return gather_rows(x, gidx.reshape(-1)).reshape(
         tuple(gidx.shape) + tuple(x.shape[1:]))
 
 
@@ -150,7 +166,7 @@ def _take(ctx, x, key, build):
     idx = index_map(ctx, key, build)
     if idx.numel() == 0:
         return x.new_zeros((0,) + tuple(x.shape[1:]))
-    return x.index_select(0, idx)
+    return gather_rows(x, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +247,9 @@ def _sequence_softmax(ctx, op):
         seg_max, _, _ = _segment_max(ctx, x, offsets)
         seg_max = torch.where(torch.isfinite(seg_max), seg_max,
                               seg_max.new_zeros(()))
-        e = torch.exp(x - seg_max.index_select(0, ids))
+        e = torch.exp(x - gather_rows(seg_max, ids))
         denom = _segment_sum(ctx, e, offsets)
-        out = e / denom.index_select(0, ids)
+        out = e / gather_rows(denom, ids)
     ctx.out(op, 'Out', out)
     ctx.set_lod(op.output('Out')[0], lod)
 
@@ -378,7 +394,7 @@ def _sequence_pad(ctx, op):
 
     idx = index_map(ctx, 'idx', lambda: maps()[0])
     mask = index_map(ctx, 'mask', lambda: maps()[1], torch.bool)
-    gathered = x.index_select(0, idx.reshape(-1)).reshape(
+    gathered = gather_rows(x, idx.reshape(-1)).reshape(
         (n, padded) + step) if idx.numel() else \
         x.new_zeros((n, padded) + step)
     if pad_value.numel() > 0:
@@ -453,7 +469,7 @@ def _sequence_conv(ctx, op):
     valid = index_map(ctx, 'ctx.valid', lambda: context_maps(
         offsets, ctx_len, ctx_start)[1], torch.float32).to(x.dtype)
     if t:
-        ctx_mat = x.index_select(0, idx).reshape(t, ctx_len, d) * \
+        ctx_mat = gather_rows(x, idx).reshape(t, ctx_len, d) * \
             valid[:, :, None]
     else:
         ctx_mat = x.new_zeros((0, ctx_len, d))
@@ -479,7 +495,7 @@ def _sequence_conv(ctx, op):
         if rows:
             at = (index_map(ctx, 'pad.rows', lambda: np.asarray(rows)),
                   index_map(ctx, 'pad.cols', lambda: np.asarray(cols)))
-            pad_rows = pad_data.index_select(0, index_map(
+            pad_rows = gather_rows(pad_data, index_map(
                 ctx, 'pad.idx', lambda: np.asarray(pidx)))
             ctx_mat = ctx_mat.index_put(at, pad_rows.to(x.dtype),
                                         accumulate=True)

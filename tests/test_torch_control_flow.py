@@ -12,10 +12,10 @@ feeds through both executors: float fetches within 1e-5 relative (and
 training cases take 3 steps and hold the losses and the trained state
 the same way. The two raising cases raise in both packages with the JAX
 message. A control-flow program saved by the JAX package loads in the
-port with an equal dict. A bounded While under ``Executor.bind`` equals
-``run()`` bitwise, raises when its condition still holds at its bound,
-and an unbounded one raises NotImplementedError under ``bind`` and
-``run_fused``.
+port with an equal dict. A While under ``Executor.bind`` equals ``run()``
+bitwise, and under ``bind`` and ``run_fused`` one with no bound, and one
+whose condition holds past its ``max_trip_count``, equal the JAX
+executor (``lax.while_loop``, which the bound does not cut).
 """
 import numpy as np
 import pytest
@@ -543,10 +543,10 @@ def test_while_an_empty_loop_probe_raises_a_fault_of_its_body():
 def test_while_an_empty_loop_probe_leaves_the_run_as_it_found_it():
     """The run of a never-run body that sizes its arrays draws nothing from
     the run's generator (the uniform_random after the loop equals the
-    program's without the loop) and records no LoD: ``x``, which only the
-    body assigns a LoD tensor, keeps its value and no LoD. (The JAX
-    package records the body's LoDs at its trace, loop run or not, and
-    gives ``x`` the LoD of ``s``.)"""
+    program's without the loop) and leaves the values as they were; the
+    LoDs it records are the JAX trace's: ``x``, which only the body
+    assigns a LoD tensor, keeps its value and takes the LoD of ``s``, as
+    the JAX executor gives it."""
     outs = []
     for body in (None, _drawing_body):
         main, _, fetch = _build(fluid, _never_run(body))
@@ -556,7 +556,12 @@ def test_while_an_empty_loop_probe_leaves_the_run_as_it_found_it():
     (_, r0), (x1, r1) = outs
     np.testing.assert_array_equal(r1, r0)
     np.testing.assert_array_equal(x1, np.full((6, 1), 2.0, 'float32'))
-    assert not getattr(x1, 'lod', list)()
+    jmain, _, jfetch = _build(jfluid, _never_run(_drawing_body))
+    jx, _ = jfluid.Executor().run(jmain, feed=_NEVER_RUN_FEED,
+                                  fetch_list=jfetch, scope=jfluid.Scope())
+    np.testing.assert_array_equal(x1, np.asarray(jx))
+    assert [list(l) for l in jx.lod()] == [[0, 2, 6]]
+    assert [list(l) for l in x1.lod()] == [list(l) for l in jx.lod()]
 
 
 # ---------------------------------------------------------------------------
@@ -595,33 +600,107 @@ def test_bound_while_equals_run_calls(train):
                                   scopes[0].get('loop.w').numpy())
 
 
-def test_bound_while_still_true_at_its_bound_raises():
-    """A bound loop whose condition still holds after its max_trip_count
-    iterations raises after the step, names the bound, and the next step
-    whose loop ends in time runs."""
-    main, startup, fetch = torch_loop_cases.loop_program(fluid, 4)
-    exe, scope = fluid.Executor(CPU), fluid.Scope()
+def _jax_loop_refs(bound, trips):
+    """The JAX executor's fetches of the loop program (bound ``bound``) at
+    each of ``trips``, and the feeds."""
+    main, startup, fetch = torch_loop_cases.loop_program(jfluid, bound)
+    exe, scope = jfluid.Executor(), jfluid.Scope()
     exe.run(startup, scope=scope)
-    ok, long_, short = torch_loop_cases.loop_feeds((3, 6, 2))
-    bp = exe.bind(main, ok, fetch_list=fetch, scope=scope)
-    with pytest.raises(RuntimeError, match='max_trip_count'):
-        bp(long_)
-    assert int(bp(short)[2][0]) == 2
-    with pytest.raises(RuntimeError, match='max_trip_count'):
-        exe.run_fused(main, [short, long_], fetch_list=fetch, scope=scope)
+    feeds = torch_loop_cases.loop_feeds(trips)
+    return [exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+            for f in feeds], feeds
 
 
-def test_bind_of_an_unbounded_while_raises():
-    main, startup, fetch = torch_loop_cases.loop_program(fluid, None)
+def _bound_and_fused_hold_jax(bound, trips):
+    """``bind`` (its first step and a call a feed) and ``run_fused`` over
+    the same feeds against the JAX executor's ``run()``, fetch by fetch."""
+    want, feeds = _jax_loop_refs(bound, trips)
+    main, startup, fetch = torch_loop_cases.loop_program(fluid, bound)
     exe, scope = fluid.Executor(CPU), fluid.Scope()
     exe.run(startup, scope=scope)
-    feed, = torch_loop_cases.loop_feeds((3,))
-    assert int(exe.run(main, feed=feed, fetch_list=fetch,
-                       scope=scope)[2][0]) == 3
-    with pytest.raises(NotImplementedError, match='max_trip_count'):
-        exe.bind(main, feed, fetch_list=fetch, scope=scope)
-    with pytest.raises(NotImplementedError, match='max_trip_count'):
-        exe.run_fused(main, [feed], fetch_list=fetch, scope=scope)
+    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scope)
+    got = [bp.first_out] + [bp(f) for f in feeds[1:]]
+    fused = exe.run_fused(main, feeds, fetch_list=fetch, scope=scope)
+    for step, (g, w) in enumerate(zip(got, want)):
+        for k, (a, b) in enumerate(zip(g, w)):
+            _close(a, b, 'bind step %d fetch %d' % (step, k))
+    for k, (a, b) in enumerate(zip(fused, want[-1])):
+        _close(a, b, 'run_fused fetch %d' % k)
+    assert [int(np.asarray(w[2])[0]) for w in want] == list(trips)
+
+
+def test_bound_and_fused_unbounded_while_equal_the_jax_executor():
+    """A While with no max_trip_count under ``bind`` and ``run_fused`` runs
+    to its condition (``lax.while_loop``), at 3, 6, 0 and 8 trips."""
+    _bound_and_fused_hold_jax(None, (3, 6, 0, 8))
+
+
+def test_bound_while_past_its_max_trip_count_equals_the_jax_executor():
+    """A While(max_trip_count=4) whose condition holds for 6 and 7 trips:
+    without a gradient the JAX package runs ``lax.while_loop`` and does not
+    cut it, and neither do ``bind`` and ``run_fused``."""
+    _bound_and_fused_hold_jax(4, (6, 2, 7))
+
+
+_CUT = 'inferred trip-count bound 8'
+
+
+def test_bound_training_while_past_its_inferred_bound_raises():
+    """A differentiated While with no max_trip_count, bounded by its
+    array's capacity of 8: a feed that needs 10 trips raises in the JAX
+    executor (its check on every step) and in the port's ``run()``, a
+    call of ``bind`` and ``run_fused``, each naming the inferred bound;
+    the bound program then runs a feed of 5 trips as ``run()`` does."""
+    feeds = torch_loop_cases.loop_feeds((5, 10))
+    jmain, jstartup, jfetch = torch_loop_cases.loop_program(
+        jfluid, None, train=True)
+    jexe, jscope = jfluid.Executor(), jfluid.Scope()
+    jexe.run(jstartup, scope=jscope)
+    with pytest.raises(Exception, match=_CUT):
+        jexe.run(jmain, feed=feeds[1], fetch_list=jfetch, scope=jscope)
+    main, startup, fetch = torch_loop_cases.loop_program(fluid, None,
+                                                         train=True)
+    exe = fluid.Executor(CPU)
+    scopes = [fluid.Scope(), fluid.Scope()]
+    for sc in scopes:
+        exe.run(startup, scope=sc)
+    with pytest.raises(RuntimeError, match=_CUT):
+        exe.run(main, feed=feeds[1], fetch_list=fetch, scope=scopes[0])
+    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[1])
+    with pytest.raises(RuntimeError, match=_CUT):
+        bp(feeds[1])
+    with pytest.raises(RuntimeError, match=_CUT):
+        exe.run_fused(main, feeds, fetch_list=fetch, scope=scopes[1])
+    for sc in scopes:
+        sc.set('loop.w', np.full(4, 0.5, 'float32'))
+    want = exe.run(main, feed=feeds[0], fetch_list=fetch, scope=scopes[0])
+    for a, b in zip(want, bp(feeds[0])):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+
+
+def test_bound_while_that_draws_equals_run_calls():
+    """A While(max_trip_count=8) whose body draws (a seeded uniform) at 3,
+    5, 8 and 1 trips: ``bind`` and ``run_fused`` equal ``run()`` bitwise
+    (each run reseeds the op's generator; on the card the capture runs
+    the bound's iterations masked, tests/test_torch_cuda.py)."""
+    main, startup, fetch = torch_loop_cases.loop_program(fluid, 8,
+                                                         noise=True)
+    exe, scope = fluid.Executor(CPU), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = torch_loop_cases.loop_feeds((3, 5, 8, 1))
+    ref = [exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+           for f in feeds]
+    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scope)
+    got = [bp.first_out] + [bp(f) for f in feeds[1:]]
+    got.append(exe.run_fused(main, feeds, fetch_list=fetch, scope=scope))
+    for r, g in zip(ref + ref[-1:], got):
+        for a, b in zip(r, g):
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+    noiseless = fluid.Executor(CPU).run(
+        torch_loop_cases.loop_program(fluid, 8)[0], feed=feeds[1],
+        fetch_list=fetch[:1], scope=scope)
+    assert not np.array_equal(np.asarray(noiseless[0]),
+                              np.asarray(ref[1][0]))
 
 
 def test_tensor_array_matches_the_jax_tensor_array():

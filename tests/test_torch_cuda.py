@@ -2751,23 +2751,135 @@ def test_bound_while_replays_equal_eager_runs(dev, train):
     assert _htod_copies(lambda: bp(feeds[1])) == 0
 
 
-def test_bound_while_still_true_at_its_bound_raises_after_the_replay(dev):
-    """A replay whose loop still had its condition true after its
-    max_trip_count iterations raises once its flag is read; the next
-    replay whose loop ends in time returns its results."""
-    fluid, exe, main, fetch, scopes = _loop_setup(4)
-    ok, long_, short = torch_loop_cases.loop_feeds((3, 6, 2))
-    bp = exe.bind(main, ok, fetch_list=fetch, scope=scopes[0])
-    with pytest.raises(RuntimeError, match='max_trip_count'):
-        bp(long_)
-    assert bp.replays == 1
-    assert int(bp(short)[2][0]) == 2
+@pytest.mark.parametrize('bound', [None, 4])
+def test_bound_while_runs_to_its_condition_in_one_graph(dev, bound):
+    """A While with no bound, and one whose condition holds past its
+    max_trip_count of 4, bound on the card: one capture (the loop one WHILE
+    node of the step's graph), replays at 6, 0, 8 and 2 trips equal to
+    ``run()`` on the card bitwise (``lax.while_loop``: the bound does not
+    cut it), ``run_fused`` over the same feeds equal to the last, the trip
+    counter at the replays' trips and no host-to-device copy in a
+    replay."""
+    fluid, exe, main, fetch, scopes = _loop_setup(bound)
+    trips = (3, 6, 0, 8, 2)
+    feeds = [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+             for f in torch_loop_cases.loop_feeds(trips)]
+    ref = [exe.run(main, feed=f, fetch_list=fetch, scope=scopes[0])
+           for f in feeds]
+    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[1])
+    got = [bp.first_out] + [bp(f) for f in feeds[1:]]
+    assert bp.captures == 1 and bp.replays == len(trips) - 1
+    assert bp.loop_launches()[1] == [sum(trips[1:])]
+    for r, g in zip(ref, got):
+        for a, b in zip(r, g):
+            np.testing.assert_array_equal(b, a)
+    assert [int(r[2][0]) for r in ref] == list(trips)
+    fused = exe.run_fused(main, feeds, fetch_list=fetch, scope=scopes[1])
+    for a, b in zip(ref[-1], fused):
+        np.testing.assert_array_equal(b, a)
+    assert _htod_copies(lambda: bp(feeds[1])) == 0
 
 
-def test_bind_of_an_unbounded_while_raises(dev):
-    fluid, exe, main, fetch, scopes = _loop_setup(None)
-    feed, = torch_loop_cases.loop_feeds((3,))
-    assert int(exe.run(main, feed=feed, fetch_list=fetch,
-                       scope=scopes[0])[2][0]) == 3
-    with pytest.raises(NotImplementedError, match='max_trip_count'):
-        exe.bind(main, feed, fetch_list=fetch, scope=scopes[1])
+def _on_card(trips, dev):
+    return [{k: torch.from_numpy(v).to(dev) for k, v in f.items()}
+            for f in torch_loop_cases.loop_feeds(trips)]
+
+
+def test_bound_training_while_past_its_inferred_bound_raises(dev):
+    """A differentiated While bounded by its array's capacity of 8, bound
+    on the card: a replay whose feed needs 10 trips raises RuntimeError
+    after it (the capture ORs the final condition into a device flag, read
+    after each call), the next replay at 3 trips runs and equals ``run()``
+    from the same state, and ``run_fused`` over a feed of 10 trips
+    raises."""
+    fluid, exe, main, fetch, scopes = _loop_setup(None, train=True)
+    feeds = _on_card((5, 3, 10), dev)
+    cut = 'inferred trip-count bound 8'
+    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[1])
+    bp(feeds[1])
+    with pytest.raises(RuntimeError, match=cut):
+        bp(feeds[2])
+    assert bp.captures == 1
+    scopes[0].set('loop.w', scopes[1].get('loop.w').clone())
+    want = exe.run(main, feed=feeds[1], fetch_list=fetch, scope=scopes[0])
+    for a, b in zip(want, bp(feeds[1])):
+        np.testing.assert_array_equal(b, a)
+    with pytest.raises(RuntimeError, match=cut):
+        exe.run_fused(main, feeds, fetch_list=fetch, scope=scopes[1])
+
+
+def test_bound_while_that_draws_replays_equal_eager_runs(dev):
+    """A While(max_trip_count=8) whose body draws (a seeded uniform), bound
+    on the card: one capture, which runs the bound's iterations masked
+    (a loop node's trips would replay one draw), and replays at 5, 8 and
+    1 trips equal to ``run()`` on the card bitwise; with a bound of 4 a
+    replay whose feed needs 6 trips raises after it, and with no bound the
+    capture (``bind``: its eager step, then the capture) raises."""
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor()
+    feeds = _on_card((3, 5, 8, 1, 6), dev)
+    progs = {b: torch_loop_cases.loop_program(fluid, b, noise=True)
+             for b in (8, 4, None)}
+    scopes = {}
+    for b, (main, startup, _) in progs.items():
+        scopes[b] = fluid.Scope()
+        exe.run(startup, scope=scopes[b])
+    main, _, fetch = progs[8]
+    ref = [exe.run(main, feed=f, fetch_list=fetch, scope=scopes[8])
+           for f in feeds[:4]]
+    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[8])
+    got = [bp.first_out] + [bp(f) for f in feeds[1:4]]
+    assert bp.captures == 1 and bp.replays == 3
+    for r, g in zip(ref, got):
+        for a, b in zip(r, g):
+            np.testing.assert_array_equal(b, a)
+    main, _, fetch = progs[4]
+    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[4])
+    bp(feeds[3])
+    with pytest.raises(RuntimeError, match='draws random numbers'):
+        bp(feeds[4])
+    main, _, fetch = progs[None]
+    with pytest.raises(RuntimeError, match='draws random numbers'):
+        exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[None])
+
+
+def test_nmt_run_steps_are_bitwise_from_run_to_run(dev):
+    """The machine-translation training step (bi-LSTM encoder, DynamicRNN
+    decoder attending with sequence_expand and sequence_softmax, Adam) at
+    V 1000, widths 128, on ragged batches of repeated ids: two sequences
+    of three ``run()`` steps from one initialization (one startup run,
+    copied into two scopes) give the same state, bit for bit (each gather
+    that repeats rows adds its gradient in index order,
+    ops/sequence_ops.py `gather_rows`)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.seq2seq import (Seq2SeqConfig,
+                                                 build_nmt_train)
+    cfg = Seq2SeqConfig(dict_size=1000, embedding_dim=128, encoder_size=128,
+                        decoder_size=128)
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        names, loss, _ = build_nmt_train(cfg)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    rs = np.random.RandomState(4)
+    lens = [7, 3, 5, 9, 12, 4, 8, 6]
+    lod = [[0] + [int(v) for v in np.cumsum(lens)]]
+    batches = [{n: (torch.from_numpy(rs.randint(1, 20, (lod[0][-1], 1))
+                                     .astype('int64')).to(dev), lod)
+                for n in names} for _ in range(3)]
+    from paddle_tpu_torch.io import scope_from_numpy
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    init = {n: init.get(n).detach().cpu().numpy() for n in init.names()}
+    states = []
+    for _ in range(2):
+        scope = scope_from_numpy(init, device=dev)
+        for b in batches:
+            exe.run(main, feed=b, fetch_list=[loss], scope=scope)
+        states.append({n: scope.get(n).detach().cpu().numpy()
+                       for n in scope.names()})
+    assert sorted(states[0]) == sorted(states[1])
+    for n in states[0]:
+        np.testing.assert_array_equal(states[1][n], states[0][n],
+                                      err_msg=n)

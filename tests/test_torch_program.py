@@ -71,6 +71,8 @@ from paddle_tpu_torch.models import transformer as ttrans
 from paddle_tpu_torch.optimizer import TensorAdam
 from torch_state_hold import noise_mask
 
+import torch_decode_cases
+
 SMALL = dict(vocab_size=128, seq_len=16, d_model=64, n_head=4, n_layer=2,
              d_ff=128)
 # the bench's flash configuration (bench.py:1058-1060), and without dropout
@@ -327,10 +329,13 @@ def _build_train_lm_example(pkg, tmod):
                                    'quick_start', 'bert_flash',
                                    'bert_unfused', 'bert_inference',
                                    'op_library', 'slice26_layers',
-                                   'train_lm_example'])
+                                   'train_lm_example'] +
+                         list(torch_decode_cases.PROGRAMS))
 def test_program_dicts_equal_the_jax_package(which):
     def build(pkg, tmod, ser):
-        if which == 'quick_start':
+        if which in torch_decode_cases.PROGRAMS:
+            main, startup, _ = torch_decode_cases.build(pkg, tmod, which)
+        elif which == 'quick_start':
             main, startup, _ = _build_quick_start(pkg)
         elif which == 'op_library':
             main, startup = _build_op_library(pkg)

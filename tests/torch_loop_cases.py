@@ -5,10 +5,11 @@ handed."""
 import numpy as np
 
 
-def loop_program(fluid, bound, train=False):
+def loop_program(fluid, bound, train=False, noise=False):
     """(main, startup, fetch list): s = sum of x * w over n iterations (n
     fed), each partial sum written to an array at the counter; with
-    ``train`` an SGD step on sum(s)."""
+    ``train`` an SGD step on sum(s); with ``noise`` each iteration also
+    adds a uniform draw in [-0.1, 0.1) of an op seeded 5."""
     L = fluid.layers
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
@@ -25,8 +26,11 @@ def loop_program(fluid, bound, train=False):
         cond = L.less_than(i, n)
         loop = L.While(cond, max_trip_count=bound)
         with loop.block():
-            L.assign(L.tanh(L.elementwise_add(s, L.elementwise_mul(x, w))),
-                     s)
+            step = L.elementwise_mul(x, w)
+            if noise:
+                step = L.elementwise_add(step, L.uniform_random(
+                    [4], min=-0.1, max=0.1, seed=5))
+            L.assign(L.tanh(L.elementwise_add(s, step)), s)
             L.array_write(s, i, array=arr)
             L.increment(i, value=1, in_place=True)
             L.less_than(i, n, cond=cond)
