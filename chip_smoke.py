@@ -2,6 +2,7 @@
 """Drive paddle_tpu_torch's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --eager-ab TREE [TREE ...]    # `eager_ab`
 
 Phases, each printing one JSON line:
 
@@ -9,7 +10,10 @@ Phases, each printing one JSON line:
    --format=csv,noheader`` printed as it comes (a line of its own).
 2. build   — nvcc builds every CUDA kernel of the port from csrc/ (all
    sources in parallel), with its seconds and, from ``-Xptxas -v``, each
-   kernel's registers and spilled bytes (``ptxas``).
+   kernel's registers and spilled bytes (``ptxas``). The bf16 and wide
+   flash sources (LATE_SOURCES, the longest to compile) finish in the
+   background until phase 13 first runs them: a ``build_late`` line
+   there gives their seconds, the wait and their report.
 3. kernel  — each kernel's wrapper on the card at the shapes the decode
    engine gives it, held against its plain PyTorch version on the same
    inputs (max abs error within a stated tolerance). ``ms``, ``plain_ms``
@@ -568,10 +572,7 @@ Phases, each printing one JSON line:
    the last fused one; peak memory reported; one ``run_fused`` window of
    6 steps against 6 ``run()`` calls from one initialization, and 6 more
    ``run()`` calls against those, each pair bitwise (the last loss and
-   every state tensor); the fused step with the repeated-row gathers as
-   ``gather_rows`` (indexing, a sorted backward) and as ``index_select``
-   (an atomic backward), in turns (``gather_turns``: best ms a step,
-   device kernels and ms a window). (d) ``nmt_generate``: 8 source sentences of 30
+   every state tensor). (d) ``nmt_generate``: 8 source sentences of 30
    tokens through ``Executor.bind`` (one capture: the loop is one WHILE
    node of the graph, its trips run on the card), five timed calls (ms a
    call and a sentence), each launching the gather 51 times (the source
@@ -606,6 +607,34 @@ Phases, each printing one JSON line:
    part at a tie; launches a replay exactly 1 gather, 12 LN and 6 FFN for
    a paged step, prefill and the verify step, and SPEC_K + 1 gathers,
    58 LN and 29 FFN for the drafter. Peak memory of each part reported.
+29. observability — the port's monitor, trace, goodput, analysis and
+   profiler on the main paths, after a reset of the monitor, goodput and
+   trace (a snapshot before, which exports what the earlier phases'
+   plans registered). (a) Phase 4's engine and 16 requests with
+   ``metrics_port=0``:
+   ``/metrics`` scraped after the requests drained (goodput drained
+   first) equals ``monitor.export_prometheus()`` line for line but for
+   the wall-clock gauges (``goodput_wall_seconds``, ``goodput_frac``,
+   ``model_flops_per_s``); ``generate_request_total{outcome="ok"}`` is 16
+   with no other outcome, ``decode_tokens_total`` the tokens the requests
+   got, no capture after warmup, ``/healthz`` answers ``ok``, no request's
+   trace stages sum past its latency (their share printed), the engine's
+   kernels launched. (b) examples/train_lm.py's AMP program (phase 26's
+   ``EXAMPLE_LM`` at B 64) through ``run_fused``: a first call of 2 steps
+   (the eager step registers the plan's cost, then the capture), then
+   OBS_WINDOWS windows of OBS_WINDOW steps in a fresh goodput window:
+   the counted product flops a step equal `example_product_flops`, the
+   closed form of analysis.py's rule for the config; ``step_mfu`` and
+   ``hbm_bw_util_frac`` in (0, 1]; goodput counts every step; printed:
+   ``goodput_frac``, ``step_mfu``, ``hbm_bw_util_frac``, the productive
+   seconds beside the windows' CUDA-event device time, the busy share of
+   the port's profiler over OBS_PROFILED more steps, and
+   ``program_peak_bytes`` beside ``max_memory_allocated`` (the peak
+   statistics reset before the plan's first step). (c) The bound decode
+   step of (a)'s engine (8 slots), each call's host ms, with the hooks on
+   and off (``PADDLE_PERFWATCH=0``, ``PADDLE_TRACE=0``) in OBS_HOOK_PAIRS
+   pairs of calls: the rise of the median and its spread over the fifths
+   of the pairs (`hook_cost`), beside the card's name and power limit.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -640,6 +669,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -838,6 +868,14 @@ EXAMPLE_TIMED = 2           # timed windows after the warm one
 EXAMPLE_PROFILED = 10       # steps of the profiled window
 EXAMPLE_BITWISE_STEPS = 4
 COUNTER = '@LR_DECAY_COUNTER@'
+# phase 29: observability. The AMP LM step in OBS_WINDOWS run_fused windows
+# of OBS_WINDOW steps (one more profiled), then the bound decode step's
+# host ms with the hooks on and off in OBS_HOOK_PAIRS pairs of calls
+OBS_WINDOW, OBS_WINDOWS, OBS_PROFILED = 10, 2, 3
+OBS_HOOK_PAIRS = 4000
+# gauges read against the wall clock: two scrapes a moment apart differ
+OBS_WALL_GAUGES = ('goodput_wall_seconds', 'goodput_frac',
+                   'model_flops_per_s')
 # where a held program's step counter starts (phase 26 (a))
 EXAMPLE_HOLD_COUNTER0 = 396
 # phase 27: the bench's machine_translation row (bench.py:429-517, called
@@ -848,6 +886,11 @@ EXAMPLE_HOLD_COUNTER0 = 396
 # NMT_FUSED_ROUNDS windows and GEN_ROUNDS calls
 NMT_B, NMT_L, NMT_K = 32, 30, 6
 NMT_EAGER_STEPS = 3
+# the sources built in the background (phase 2)
+LATE_SOURCES = ('flash_attn_bf16_fwd', 'flash_attn_bf16_bwd',
+                'flash_attn_wide')
+# --eager-ab: rounds of steps a tree
+EAGER_AB_ROUNDS, EAGER_AB_STEPS = 16, 3
 NMT_FUSED_ROUNDS = 2
 GEN_B, GEN_BEAM, GEN_MAX_LEN, GEN_ROUNDS = 8, 3, 50, 5
 # the holds against the CPU Executor: V 1000, every width 64, B 4 ragged,
@@ -921,10 +964,19 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'nmt_train': ('embedding_gather',),
                 'nmt_generate': ('embedding_gather',),
                 'decode_programs': DECODE_PROGRAM_KERNELS,
-                'decode_programs_paged': PAGED_KERNELS}
+                'decode_programs_paged': PAGED_KERNELS,
+                'observability_engine': ENGINE_KERNELS,
+                'observability_train': EXAMPLE_KERNELS}
+
+
+_START = time.perf_counter()
 
 
 def emit(obj):
+    """Print one JSON line; a phase's line also carries ``at_s``, the
+    seconds since the script started."""
+    if 'phase' in obj or 'row' in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1536,6 +1588,18 @@ class Traced(object):
         return getattr(self.bs, name)
 
 
+def engine_work(rs, vocab_size):
+    """Phase 4's requests: N_REQUESTS prompts of 5..256 tokens from ``rs``,
+    every other one sampled with a pinned seed, as (prompt, kwargs)."""
+    work = []
+    for i, n in enumerate(np.linspace(5, BUCKETS[-1],
+                                      N_REQUESTS).astype(int)):
+        prompt = rs.randint(2, vocab_size, size=int(n))
+        work.append((prompt, dict(temperature=0.8, top_k=50, top_p=0.9,
+                                  sample_seed=1000 + i) if i % 2 else {}))
+    return work
+
+
 def run_engine(torch, kt, smi):
     """Phase 4: the full-width engine. Returns (summary, launch counts)."""
     from paddle_tpu_torch.models.transformer import LMConfig, TransformerLM
@@ -1546,13 +1610,7 @@ def run_engine(torch, kt, smi):
         slots=SLOTS, max_len=MAX_LEN, prompt_buckets=list(BUCKETS),
         max_new_tokens=NEW_TOKENS, seed=0)
     rs = np.random.RandomState(7)
-    lens = np.linspace(5, BUCKETS[-1], N_REQUESTS).astype(int)
-    work = []
-    for i, n in enumerate(lens):
-        prompt = rs.randint(2, cfg.model.vocab_size, size=int(n))
-        sampled = i % 2 == 1
-        work.append((prompt, dict(temperature=0.8, top_k=50, top_p=0.9,
-                                  sample_seed=1000 + i) if sampled else {}))
+    work = engine_work(rs, cfg.model.vocab_size)
 
     torch.cuda.reset_peak_memory_stats()
     eng = GenerateEngine(cfg)                       # cuda:0
@@ -1741,6 +1799,7 @@ def paged_prompts(rs, V):
 def run_engine_paged(torch, kt, smi):
     """Phase 4b: the full-width paged engine. Returns (summary, launch
     counts of its traffic)."""
+    from paddle_tpu_torch import monitor
     from paddle_tpu_torch.models.transformer import TransformerLM
     from paddle_tpu_torch.serving import GenerateConfig, GenerateEngine
     cfg = paged_config()
@@ -1757,6 +1816,7 @@ def run_engine_paged(torch, kt, smi):
     warm = eng.warmup()
     check_warm('engine_paged', warm, 2 + 2 * len(BUCKETS))
     kt.reset_counts()
+    before = monitor.counters()
     t0 = time.perf_counter()
     with eng:
         reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, **kw)
@@ -1765,7 +1825,7 @@ def run_engine_paged(torch, kt, smi):
     wall = time.perf_counter() - t0
     counts = kt.launch_counts()
     stats = eng.stats()
-    counters = dict(eng.counters)
+    counters = monitor.counter_delta(before)
     check_no_late_capture('engine_paged', stats)
 
     reasons = [o.finish_reason for o in outs]
@@ -1782,13 +1842,13 @@ def run_engine_paged(torch, kt, smi):
         raise AssertionError('peak_active %d is not above the contiguous '
                              'engine\'s %d slots' % (stats['peak_active'],
                                                      SLOTS))
-    hits = counters['kv_prefix_hit_total{outcome=hit}']
-    cows = counters['kv_block_cow_total']
+    hits = counters.get('kv_prefix_hit_total{outcome=hit}', 0)
+    cows = counters.get('kv_block_cow_total', 0)
     # a shared prompt's hit caches its 12 prefix blocks; a copy-on-write
     # prompt (the prefix alone) recomputes its last position
     saved = PAGED_PREFIX * (hits - cows) + (PAGED_PREFIX - 1) * cows
     if hits < 15 or cows < 4 or \
-            counters['kv_prefix_tokens_saved_total'] != saved:
+            counters.get('kv_prefix_tokens_saved_total') != saved:
         raise AssertionError('prefix sharing: %s (tokens saved should be '
                              '%d)' % (counters, saved))
 
@@ -1974,6 +2034,7 @@ def trace_verify(eng, rounds):
 def run_engine_spec(torch, kt, smi):
     """Phase 4c: speculative decoding on phase 4b's engine. Returns (summary,
     launch counts of the speculative traffic)."""
+    from paddle_tpu_torch import monitor
     from paddle_tpu_torch.models.transformer import LMConfig, TransformerLM
     from paddle_tpu_torch.serving import GenerateEngine
     cfg = paged_config()
@@ -2016,6 +2077,7 @@ def run_engine_spec(torch, kt, smi):
         check_warm('engine_spec %s' % name, warm[name], n)
 
     def drive(eng, work):
+        before = monitor.counters()
         t0 = time.perf_counter()
         with eng:
             reqs = [eng.submit(p, **dict(kw, **(
@@ -2024,7 +2086,8 @@ def run_engine_spec(torch, kt, smi):
             outs = [r.result(600) for r in reqs]
             held = dict(eng.stats()['blocks'])
         return dict(outs=outs, wall=time.perf_counter() - t0, held=held,
-                    stats=eng.stats(), counters=dict(eng.counters))
+                    stats=eng.stats(),
+                    counters=monitor.counter_delta(before))
 
     verified = []
     verify_bound = engines['target'].graphs[('verify',)]
@@ -2060,8 +2123,8 @@ def run_engine_spec(torch, kt, smi):
         raise AssertionError('the target-weights draft accepted %s of its '
                              'proposals' % acc['accept_rate'])
     fb = runs['fallback']['counters']
-    if not (fb['spec_fallback_total'] > 0 and
-            fb['spec_stale_draft_rounds_total'] >= 1):
+    if not (fb.get('spec_fallback_total', 0) > 0 and
+            fb.get('spec_stale_draft_rounds_total', 0) >= 1):
         raise AssertionError('no fallback and resync: %s' % fb)
 
     # every greedy token against the plain paged engine's generate_once, a
@@ -6243,47 +6306,6 @@ def nmt_fused_holds_runs(torch, fluid, exe, main, loss, init, batches,
     return out
 
 
-def nmt_gather_turns(torch, fluid, main, loss, init, stacked):
-    """Phase 27 (c): the fused step with the repeated-row gathers of
-    ops/sequence_ops.py as `gather_rows` (indexing, whose backward sorts)
-    and as ``index_select`` (whose backward adds by atomics), in turns
-    (gather_rows, index_select, index_select, gather_rows), each on a new
-    Executor from a scope of ``init``: best ms a step of NMT_FUSED_ROUNDS
-    ``run_fused`` windows of NMT_K steps after a first one, and a window's
-    device kernels and device ms."""
-    from paddle_tpu_torch.io import scope_from_numpy
-    from paddle_tpu_torch.ops import sequence_ops
-    sorted_rows = sequence_ops.gather_rows
-    forms = {'gather_rows': sorted_rows,
-             'index_select': lambda x, idx: x.index_select(0, idx)}
-    out = {}
-    try:
-        for turn in ('gather_rows', 'index_select', 'index_select_again',
-                     'gather_rows_again'):
-            sequence_ops.gather_rows = forms[turn.replace('_again', '')]
-            exe = fluid.Executor()
-            scope = scope_from_numpy(init, device=exe.device)
-            window = lambda: exe.run_fused(
-                main, stacked, fetch_list=[loss], scope=scope, steps=NMT_K,
-                return_numpy=False)[0].cpu()
-            window()
-            best = float('inf')
-            for _ in range(NMT_FUSED_ROUNDS):
-                t = time.perf_counter()
-                window()
-                best = min(best, time.perf_counter() - t)
-            _, kernels, _, dev_ms = htod_copies(torch, window)
-            out[turn] = dict(step_ms=best / NMT_K * 1e3,
-                             device_kernels_a_window=kernels,
-                             device_ms_a_window=dev_ms)
-            exe.close()
-            del scope, window
-            torch.cuda.empty_cache()
-    finally:
-        sequence_ops.gather_rows = sorted_rows
-    return out
-
-
 def nmt_train(torch, kt, fluid, smi, exe, main, startup, loss, feeds):
     """Phase 27 (b)-(d): the row's training at full width, eagerly and in
     run_fused windows of NMT_K steps. Returns (summary, launch counts)."""
@@ -6376,8 +6398,6 @@ def nmt_train(torch, kt, fluid, smi, exe, main, startup, loss, feeds):
     del plan
     fused['holds_runs'] = nmt_fused_holds_runs(
         torch, fluid, exe, main, loss, init, batches, stacked)
-    fused['gather_turns'] = nmt_gather_turns(torch, fluid, main, loss, init,
-                                             stacked)
     del init
     prof, wprof = eager['step_profile'], fused['window_profile']
     tokens = NMT_B * NMT_L
@@ -6925,6 +6945,277 @@ def run_decode_programs(torch, kt, smi):
         raise AssertionError('decode programs: %s' % '; '.join(failures))
     return by_path
 
+# ---------------------------------------------------------------------------
+# phase 29: the observability tier on the main paths
+
+
+def example_product_flops(cfg, batch):
+    """The product flops of one step of examples/train_lm.py's AMP program
+    at ``cfg`` and ``batch`` by analysis.py's rule: per layer the QKV and
+    projection products (forward, and dX and dW each as two bf16 products
+    under the AMP mark: 5x), the FFN's two (its plain backward's four: 3x)
+    and flash attention's two over the full L x L (its plain backward's
+    seven: 9x); the LM head like the QKV product."""
+    n = batch * cfg.seq_len
+    d, f, v, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.seq_len
+    layer = 5 * (2 * n * d * 3 * d + 2 * n * d * d) + \
+        3 * (2 * n * d * f + 2 * n * f * d) + 9 * (2 * batch * L * L * d)
+    return cfg.n_layer * layer + 5 * (2 * n * d * v)
+
+
+def prom_lines(text):
+    """The exposition's sample lines but those of the wall-clock gauges."""
+    return [ln for ln in text.splitlines()
+            if ln and not ln.startswith('#') and
+            not ln.split('{')[0].split(' ')[0] in OBS_WALL_GAUGES]
+
+
+def prom_value(text, series):
+    """The value of one sample line (name with its labels as exposed)."""
+    for ln in text.splitlines():
+        if ln.startswith(series + ' '):
+            return float(ln.rsplit(' ', 1)[1])
+    return None
+
+
+def obs_engine(torch, kt, smi):
+    """Phase 29 (a) and (c): phase 4's engine and requests with the metrics
+    endpoint; then the bound decode step's host ms, hooks on and off."""
+    import urllib.request
+    from paddle_tpu_torch import goodput, monitor
+    from paddle_tpu_torch.models.transformer import LMConfig
+    from paddle_tpu_torch.serving import GenerateConfig, GenerateEngine
+    cfg = GenerateConfig(
+        model=LMConfig(dropout=0.0, attn_dropout=0.0,
+                       use_flash_attention=True),
+        slots=SLOTS, max_len=MAX_LEN, prompt_buckets=list(BUCKETS),
+        max_new_tokens=NEW_TOKENS, seed=0, metrics_port=0)
+    work = engine_work(np.random.RandomState(7), cfg.model.vocab_size)
+    eng = GenerateEngine(cfg)
+    eng.warmup()
+    kt.reset_counts()
+    with eng:
+        base = 'http://127.0.0.1:%d' % eng.metrics_port
+        reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, **kw)
+                for p, kw in work]
+        outs = [r.result(600) for r in reqs]
+        goodput.stats()         # drains the dispatches before the scrape
+        scrape = urllib.request.urlopen(base + '/metrics',
+                                        timeout=30).read().decode()
+        text = monitor.export_prometheus()
+        health = urllib.request.urlopen(base + '/healthz',
+                                        timeout=30).read().decode()
+    counts = kt.launch_counts()
+    stats = eng.stats()
+    tokens = sum(len(o) for o in outs)
+    shares = []
+    for o in outs:
+        t = o.timing
+        stages = sum(v for k, v in t.items() if k.endswith('_s') and
+                     k not in ('total_s', 'step_s_mean', 'step_s_p99'))
+        shares.append(stages / t['total_s'])
+    out = dict(
+        engine_requests=len(outs), tokens=tokens, healthz=health.strip(),
+        scrape_lines=len(prom_lines(scrape)),
+        scrape_equals_export=prom_lines(scrape) == prom_lines(text),
+        requests_ok=prom_value(scrape,
+                               'generate_request_total{outcome="ok"}'),
+        decode_tokens_total=prom_value(scrape, 'decode_tokens_total'),
+        captures_after_warmup=stats['graphs']['captures_after_warmup'],
+        stage_share=dict(min=min(shares), mean=sum(shares) / len(shares),
+                         max=max(shares)),
+        timing_keys=sorted(outs[0].timing),
+        engine_goodput={k: stats['goodput'][k] for k in (
+            'dispatches', 'productive_s', 'goodput_frac')})
+    failures = []
+    if not out['scrape_equals_export']:
+        a, b = set(prom_lines(scrape)), set(prom_lines(text))
+        failures.append('the /metrics scrape differs from export_prometheus: '
+                        'only scraped %s, only exported %s'
+                        % (sorted(a - b), sorted(b - a)))
+    if out['healthz'] != 'ok':
+        failures.append('/healthz answered %r' % out['healthz'])
+    if out['requests_ok'] != N_REQUESTS or '"deadline"' in scrape or \
+            '"error"' in scrape:
+        failures.append('requests counted %s' % out['requests_ok'])
+    if out['decode_tokens_total'] != tokens:
+        failures.append('decode_tokens_total %s for %d tokens'
+                        % (out['decode_tokens_total'], tokens))
+    if out['captures_after_warmup']:
+        failures.append('%d captures after warmup'
+                        % out['captures_after_warmup'])
+    if max(shares) > 1.0 + 1e-9:
+        failures.append('trace stages sum past the latency: %s' % shares)
+    idle = [k for k in ENGINE_KERNELS if counts[k] <= 0]
+    if idle:
+        failures.append('kernels never launched: %s' % idle)
+    # (c) the bound decode step (the engine's graphed step and its goodput
+    # hook) with the hooks on and off, call by call
+    out['hook_cost'] = dict(hook_cost(torch, eng), card=smi)
+    del eng
+    return out, counts, failures
+
+
+def hook_cost(torch, eng):
+    """Phase 29 (c): the host ms of each call of the engine's bound decode
+    step, with the hooks on and off (``PADDLE_PERFWATCH=0``,
+    ``PADDLE_TRACE=0``) in OBS_HOOK_PAIRS pairs of calls, the pair's order
+    alternating. The rise is the ratio of the two modes' medians less 1,
+    and its spread the range of the rises within each fifth of the
+    pairs."""
+    rows = {i: (5 + i, 100 + i, (0.0, 0, 0.0, 0.0)) for i in range(SLOTS)}
+    keys = ('PADDLE_PERFWATCH', 'PADDLE_TRACE')
+    saved = {k: os.environ.get(k) for k in keys}
+    ms = {'on': [], 'off': []}
+    eng._run_step(rows)
+    try:
+        for i in range(OBS_HOOK_PAIRS):
+            for mode in (('on', 'off') if i % 2 == 0 else ('off', 'on')):
+                for k in keys:
+                    if mode == 'off':
+                        os.environ[k] = '0'
+                    else:
+                        os.environ.pop(k, None)
+                t = time.perf_counter()
+                eng._run_step(rows)
+                ms[mode].append((time.perf_counter() - t) * 1e3)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    med = {m: float(np.median(v)) for m, v in ms.items()}
+    fifth = OBS_HOOK_PAIRS // 5
+    rises = [float(np.median(ms['on'][j:j + fifth]) /
+                   np.median(ms['off'][j:j + fifth]) - 1.0)
+             for j in range(0, 5 * fifth, fifth)]
+    return dict(pairs=OBS_HOOK_PAIRS, median_on_ms=med['on'],
+                median_off_ms=med['off'],
+                best_on_ms=min(ms['on']), best_off_ms=min(ms['off']),
+                rise=med['on'] / med['off'] - 1.0, rise_by_fifth=rises,
+                spread=max(rises) - min(rises))
+
+
+def obs_train(torch, kt, smi):
+    """Phase 29 (b): the example's AMP LM step through run_fused, with its
+    counted flops, goodput and the profiler."""
+    import tempfile
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import analysis, goodput, monitor, profiler
+    from paddle_tpu_torch.models.transformer import LMConfig
+    cfg = LMConfig(**EXAMPLE_LM)
+    exe = fluid.Executor()
+    dev = exe.device
+    main, startup, lr, loss = example_program(fluid, cfg)
+    types = [op.type for op in main.global_block().ops]
+    per = dict(program_step_launches(cfg, amp=True),
+               fused_adam=types.count('fused_adam'))
+    rng = np.random.RandomState(1)
+    stacked = {k: torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (EXAMPLE_K, EXAMPLE_B, cfg.seq_len)).astype(
+            'int64')).to(dev) for k in ('tokens', 'labels')}
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    window = lambda steps: exe.run_fused(
+        main, stacked, fetch_list=[loss], scope=scope, steps=steps,
+        return_numpy=False)
+    # the plan's peak is its first step's new peak over the base: the
+    # statistics are this phase's to reset (analysis.py never does)
+    torch.cuda.reset_peak_memory_stats()
+    window(2)                   # the eager first step, the capture, a replay
+    goodput.reset()             # a window of the timed steps alone
+    kt.reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    t = time.perf_counter()
+    for _ in range(OBS_WINDOWS):
+        last = window(OBS_WINDOW)
+    ev[1].record()
+    loss_v = float(last[0].reshape(-1)[0])
+    wall_s = time.perf_counter() - t
+    counts = kt.launch_counts()
+    fp = main._fingerprint()
+    st = goodput.stats(fps={fp})
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler.profiler('All', profile_path=os.path.join(tmp, 'p')):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            float(window(OBS_PROFILED)[0].reshape(-1)[0])
+            prof_wall_ms = (time.perf_counter() - t) * 1e3
+    device = [e for e in profiler.last_session().key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    prof_dev_ms = sum(e.self_device_time_total for e in device) / 1e3
+    rec = analysis.lookup(main)
+    closed = example_product_flops(cfg, EXAMPLE_B)
+    gauges = monitor.snapshot()['gauges']
+    peak_key = 'program_peak_bytes{fingerprint=%s,kind=%s}' % (fp[:12],
+                                                               rec.kind)
+    steps = OBS_WINDOWS * OBS_WINDOW
+    out = dict(
+        config=EXAMPLE_LM, batch=EXAMPLE_B, steps=steps, loss=loss_v,
+        record_kind=rec.kind, flops_a_step=rec.flops,
+        product_flops_a_step=rec.product_flops, closed_form=closed,
+        bytes_a_step=rec.bytes_accessed,
+        transcendentals_a_step=rec.transcendentals,
+        goodput_frac=st['goodput_frac'], step_mfu=st['step_mfu'],
+        hbm_bw_util_frac=st['hbm_bw_util_frac'],
+        productive_s=st['productive_s'], window_s=st['window_s'],
+        event_device_s=ev[0].elapsed_time(ev[1]) / 1e3, wall_s=wall_s,
+        goodput_steps=st['by_kind'].get('fused', {}).get('steps'),
+        profiler=dict(steps=OBS_PROFILED, wall_ms=prof_wall_ms,
+                      device_ms=prof_dev_ms,
+                      busy_share=prof_dev_ms / prof_wall_ms),
+        program_peak_bytes=gauges.get(peak_key),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=counts, card=smi)
+    failures = []
+    if rec.product_flops != closed:
+        failures.append('counted product flops %r, closed form %r'
+                        % (rec.product_flops, closed))
+    for k in ('step_mfu', 'hbm_bw_util_frac'):
+        if out[k] is None or not 0 < out[k] <= 1.0:
+            failures.append('%s %r' % (k, out[k]))
+    if out['goodput_steps'] != steps:
+        failures.append('goodput counted %r fused steps of %d'
+                        % (out['goodput_steps'], steps))
+    if not np.isfinite(loss_v):
+        failures.append('loss %r' % loss_v)
+    if out['program_peak_bytes'] is None:
+        failures.append('no %s gauge' % peak_key)
+    want = {k: steps * v for k, v in per.items()}
+    if counts != want:
+        failures.append('%d fused steps launched %s, not %s'
+                        % (steps, counts, want))
+    del scope
+    exe.close()
+    return out, counts, failures
+
+
+def run_observability(torch, kt, smi):
+    """Phase 29 (module docstring). Returns {path: launch counts}."""
+    from paddle_tpu_torch import goodput, monitor, trace
+    # a snapshot first: it exports the records the earlier phases left
+    # uncounted, whose gauges would otherwise fill each metric's series
+    # cap at the phase's first read
+    monitor.snapshot()
+    goodput.reset()
+    monitor.reset()
+    trace.reset()
+    t0 = time.perf_counter()
+    engine, engine_counts, failures = obs_engine(torch, kt, smi)
+    torch.cuda.empty_cache()
+    train, train_counts, train_failures = obs_train(torch, kt, smi)
+    torch.cuda.empty_cache()
+    emit(dict(phase='observability', card=smi, engine=engine, train=train,
+              seconds=time.perf_counter() - t0))
+    failures += train_failures
+    if failures:
+        raise AssertionError('observability: %s' % '; '.join(failures))
+    return {'observability_engine': engine_counts,
+            'observability_train': train_counts}
+
 
 def main():
     t_start = time.perf_counter()
@@ -6955,11 +7246,25 @@ def main():
               nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda))
 
+    # every source starts compiling now; the longest ones (LATE_SOURCES,
+    # first run by phase 13) finish in the background while phases 3-12
+    # run (a first use of their libraries would wait for them)
     t0 = time.perf_counter()
-    built = native.build()
+    late = {}
+
+    def build_late():
+        try:
+            late['built'] = native.build(LATE_SOURCES)
+        except Exception as e:      # noqa: BLE001 — raised at the join
+            late['error'] = e
+    late_build = threading.Thread(target=build_late, daemon=True)
+    late_build.start()
+    built = native.build([n for n in native.SOURCES
+                          if n not in LATE_SOURCES])
     ptxas = ptxas_report(built['log'])
     emit(dict(phase='build', seconds=time.perf_counter() - t0,
-              built=built['built'], nvcc=native.nvcc_path(), ptxas=ptxas))
+              built=built['built'], nvcc=native.nvcc_path(), ptxas=ptxas,
+              building_on=list(LATE_SOURCES)))
 
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.models.transformer import LMConfig, param_shapes
@@ -7063,6 +7368,15 @@ def main():
     torch.cuda.empty_cache()
 
     # bf16 AMP: the bf16 flash kernels, then the AMP training steps
+    t = time.perf_counter()
+    late_build.join()
+    if 'error' in late:
+        raise late['error']
+    late_ptxas = ptxas_report(late['built']['log'])
+    ptxas.update(late_ptxas)
+    emit(dict(phase='build_late', seconds=late['built']['seconds'],
+              waited_s=time.perf_counter() - t, built=late['built']['built'],
+              ptxas=late_ptxas))
     amp_flash = check_flash_kernels(torch, F, torch.bfloat16, ptxas)
     for name in AMP_FLASH_KERNELS:
         lm_case, bert_case, long_case, dh256_case = amp_flash[name]['cases']
@@ -7148,6 +7462,9 @@ def main():
     torch.cuda.empty_cache()
     # phase 28: the decode engine's programs, bound
     by_path.update(run_decode_programs(torch, kt, smi))
+    torch.cuda.empty_cache()
+    # phase 29: the observability tier on the engine and the example's step
+    by_path.update(run_observability(torch, kt, smi))
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {
@@ -7234,5 +7551,79 @@ def main():
     return 0
 
 
+def eager_ab(trees, rounds=EAGER_AB_ROUNDS, steps=EAGER_AB_STEPS):
+    """``python chip_smoke.py --eager-ab TREE [TREE ...]``: the
+    machine_translation row's eager training step (phase 27's program at
+    B NMT_B x L NMT_L) from each TREE's paddle_tpu_torch (a checkout, each
+    building its own kernels), all loaded side by side in this process.
+    Each round times ``steps`` steps of every tree, in the given order on
+    even rounds and reversed on odd ones. Prints per tree the median and
+    best ms a step and the Python function calls of one step
+    (cProfile)."""
+    import cProfile
+    import importlib
+    import importlib.util
+    import pstats
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    runs = {}
+    for i, root in enumerate(trees):
+        alias = 'eager_ab%d' % i
+        pkg = os.path.join(os.path.abspath(root), 'paddle_tpu_torch')
+        spec = importlib.util.spec_from_file_location(
+            alias, os.path.join(pkg, '__init__.py'),
+            submodule_search_locations=[pkg])
+        fluid = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = fluid
+        spec.loader.exec_module(fluid)
+        importlib.import_module(alias + '.native').build()
+        s2s = importlib.import_module(alias + '.models.seq2seq')
+        cfg = s2s.Seq2SeqConfig(beam_size=GEN_BEAM)
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = 27
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            feeds, loss, _ = s2s.build_nmt_train(cfg)
+            fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        batch, = nmt_batches(np.random.RandomState(0), feeds, cfg.dict_size,
+                             [NMT_L] * NMT_B, 1,
+                             to=lambda a: torch.from_numpy(a).to(exe.device))
+
+        def step(exe=exe, main=main, batch=batch, loss=loss, scope=scope):
+            return exe.run(main, feed=batch, fetch_list=[loss], scope=scope,
+                           return_numpy=False)[0]
+        step()
+        step()
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        prof.enable()
+        step()
+        prof.disable()
+        torch.cuda.synchronize()
+        runs[root] = dict(step=step, calls=pstats.Stats(prof).total_calls,
+                          ms=[])
+    for r in range(rounds):
+        for root in (trees if r % 2 == 0 else trees[::-1]):
+            run = runs[root]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(steps):
+                out = run['step']()
+            float(out.reshape(-1)[0])
+            run['ms'].append((time.perf_counter() - t) * 1e3 / steps)
+    emit(dict(phase='eager_ab', card=smi, rounds=rounds, steps=steps,
+              trees={root: dict(median_ms=float(np.median(r['ms'])),
+                                best_ms=min(r['ms']),
+                                python_calls_a_step=r['calls'], ms=r['ms'])
+                     for root, r in runs.items()}))
+    return 0
+
+
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--eager-ab']:
+        sys.exit(eager_ab(sys.argv[2:]))
     sys.exit(main())

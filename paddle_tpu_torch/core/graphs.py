@@ -14,8 +14,12 @@ lives here.
 - :func:`capture` captures one call of a function as a CUDA graph, with the
   cyclic garbage collector off (freeing another graph or pinned memory
   inside a capture is an operation the capture does not permit) and the
-  caller's generators registered with the graph. A capture that fails
-  raises: nothing runs eagerly on the card in place of a replay.
+  caller's generators registered with the graph. It captures in
+  thread-local mode: a CUDA call that a capture does not permit fails it
+  only when the capturing thread makes it, so another engine's decode
+  loop, a /metrics scrape or a goodput read on another thread leaves it
+  whole. A capture that fails raises: nothing runs eagerly on the card in
+  place of a replay.
 - Launch counts (`ops.kernel_tier`) are counted in Python where a wrapper
   launches, so a capture counts launches that never ran. :func:`capture`
   takes them back and returns them; the owner adds them again on every
@@ -35,12 +39,18 @@ lives here.
   its trips in a device tensor, :func:`capture` leaves the bodies' launches
   out of what a replay adds, and :func:`loop_launches` reads the trip
   counts (a host read, for a caller that wants exact launch counts) and
-  adds body launches times trips.
+  adds body launches times trips. A body that draws random numbers draws
+  what an eager run draws in each trip: a captured random kernel draws at
+  its generator's device offset plus an offset fixed at capture, so the
+  body's capture-time increment of each of the run's generators (read
+  before and after the body's capture, csrc/philox_offset.cu) is added to
+  that generator's device offset at the end of each trip and taken off
+  once after the node (csrc/graph_while.cu `add_offset`).
 - :func:`watch` and :func:`check_flags`: a bounded loop that its bound may
   cut in a capture (a differentiated ``while`` whose bound is inferred
-  from an array's capacity, or a ``while`` whose body draws random
-  numbers) ORs its final condition into a device flag; the owner reads
-  the graph's flags after its replays and raises when one is set.
+  from an array's capacity) ORs its final condition into a device flag;
+  the owner reads the graph's flags after its replays and raises when one
+  is set.
 
 The two owners warm up differently before their capture. A decode
 signature is idempotent in the state it writes, so `BoundStep` calls it
@@ -157,7 +167,8 @@ def capture(fn, stream=None, pool=None, name='bound step', generators=()):
     _loops.records, _loops.pool, _loops.depth = [], None, 0
     _loops.flags = []
     try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode='thread_local'):
             fn()
     except Exception as e:
         raise RuntimeError('capturing %s as a CUDA graph failed: %s'
@@ -197,6 +208,7 @@ def replay(graph, launches):
 # [(flag, message)] of `watch`
 _loops = threading.local()
 _fns = None
+_philox = None
 _body_streams = {}
 
 
@@ -210,8 +222,41 @@ def _while_fns():
                 native.function('graph_while', 'graph_while_end',
                                 [P, P, ctypes.c_ulonglong]),
                 native.function('graph_while', 'graph_stream_create',
-                                [ctypes.POINTER(P)]))
+                                [ctypes.POINTER(P)]),
+                native.function('graph_while', 'graph_offset_add',
+                                [P, P, ctypes.c_longlong]))
     return _fns
+
+
+def _philox_state(gen):
+    """(address of the device offset, intragraph offset) of the CUDA
+    generator ``gen`` in the capture in progress on the current stream
+    (csrc/philox_offset.cu). Raises when the generator's graph state cannot
+    be read: a loop that draws is not captured without it."""
+    global _philox
+    from .. import native
+    if _philox is None:
+        # the C side reads the at::Generator after the CPython object
+        # header: a torch.Generator of any other layout is not read
+        if torch._C.Generator.__basicsize__ != 24:
+            raise RuntimeError(
+                'a torch.Generator is %d bytes here, not the 24 (object '
+                'header and at::Generator) whose graph state '
+                'csrc/philox_offset.cu reads: a while loop that draws '
+                'cannot be captured with this PyTorch'
+                % torch._C.Generator.__basicsize__)
+        _philox = native.function(
+            'philox_offset', 'philox_graph_state',
+            [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+             ctypes.POINTER(ctypes.c_ulonglong)])
+    ptr, intra = ctypes.c_void_p(), ctypes.c_ulonglong()
+    rc = _philox(id(gen), ctypes.byref(ptr), ctypes.byref(intra))
+    if rc:
+        raise RuntimeError(
+            'reading the graph state of a CUDA generator failed (%s)'
+            % ('no capture in progress on the current stream' if rc == 1
+               else 'PyTorch raised: not a CUDA generator?'))
+    return ptr.value, intra.value
 
 
 def _body_stream(device, depth):
@@ -236,7 +281,7 @@ def _flag(cond):
     return cond.reshape(()).to(torch.bool).contiguous()
 
 
-def run_while(cond, body, trips):
+def run_while(cond, body, trips, generators=()):
     """Capture ``while cond: cond = body()`` as one WHILE node of the graph
     that :func:`capture` is capturing on the current stream. ``cond`` is a
     device tensor of one element, read when the node starts; ``body()``
@@ -244,16 +289,20 @@ def run_while(cond, body, trips):
     it runs) and returns the condition after it, read at the end of each
     run of the body; ``trips`` is an int64 device tensor of one element
     that each run of the body adds one to (made before the capture, so that
-    the graph does not zero it: :func:`loop_launches` reads it). Raises
-    when no capture is in progress or a CUDA call fails: nothing falls back
-    to an eager loop."""
+    the graph does not zero it: :func:`loop_launches` reads it).
+    ``generators`` are the CUDA generators the body may draw from (those
+    registered with the graph): each trip draws past the last, as an eager
+    loop draws (module docstring). Raises when no capture is in progress,
+    a generator's graph state cannot be read or a CUDA call fails: nothing
+    falls back to an eager loop."""
     from .. import native
     records = getattr(_loops, 'records', None)
     if records is None:
         raise RuntimeError('run_while captures a loop only inside '
                            'core.graphs.capture')
-    begin, end, _ = _while_fns()
+    begin, end, _, offset_add = _while_fns()
     stream = torch.cuda.current_stream()
+    before_draws = [_philox_state(g) for g in generators]
     body_stream = _body_stream(stream.device, _loops.depth)
     flag = _flag(cond)
     handle = ctypes.c_ulonglong()
@@ -271,10 +320,18 @@ def run_while(cond, body, trips):
     nested = len(records)
     before = kernel_tier.launch_counts()
     new = None
+    drawn = []
     try:
         with torch.cuda.stream(body_stream):
             new = _flag(body())
             trips.add_(1)
+            # each trip draws one body's increment further on
+            for g, (ptr, at) in zip(generators, before_draws):
+                p = _philox_state(g)[1] - at
+                if p:
+                    native.check(offset_add(body_stream.cuda_stream, ptr, p),
+                                 'graph_offset_add')
+                    drawn.append((ptr, p))
     finally:
         after = kernel_tier.launch_counts()
         _loops.depth -= 1
@@ -285,6 +342,10 @@ def run_while(cond, body, trips):
         rc = end(body_stream.cuda_stream,
                  new.data_ptr() if new is not None else None, handle)
     native.check(rc, 'graph_while_end')
+    # the ops after the loop were captured one body's increment on
+    for ptr, p in drawn:
+        native.check(offset_add(stream.cuda_stream, ptr, -p),
+                     'graph_offset_add')
     launches = {k: after[k] - before[k] for k in after
                 if after[k] != before[k]}
     for inner, _ in records[nested:]:

@@ -70,9 +70,19 @@ generators and gradient leaves, over the sub-block's own plan
 (`_BlockPlan`). The memo keys a sub-block's constants by its index, so a
 sequence op inside a loop builds its index maps once a plan, not once an
 iteration.
+
+An op hook (:func:`op_hook`, the JAX package's `lowering.op_hook`) wraps
+each op's lowering on the thread that installed it: ``hook(ctx, op,
+thunk)`` runs ``thunk()``, which lowers the op; the ``backward`` meta-op
+is one call whose thunk lowers its forward segment (each of whose ops
+calls the hook in turn) and runs autograd. analysis.py installs one for
+the first step of a plan (to record each op's shapes for its cost) and
+for an op-profiled run; without one the walk pays one thread-local read
+a block.
 """
 import contextlib
 import copy
+import threading
 
 import numpy as np
 import torch
@@ -83,7 +93,22 @@ from .registry import get_op
 from .selected_rows import SelectedRows
 
 __all__ = ['LowerContext', 'RunRNG', 'lower_ops', 'lower_block',
-           'analyze_state', 'build_fn']
+           'analyze_state', 'build_fn', 'op_hook']
+
+_hook = threading.local()
+
+
+@contextlib.contextmanager
+def op_hook(fn):
+    """Call ``fn(ctx, op, thunk)`` in place of each op's lowering on this
+    thread while the block runs (module docstring); hooks do not nest, the
+    innermost wins."""
+    prev = getattr(_hook, 'fn', None)
+    _hook.fn = fn
+    try:
+        yield
+    finally:
+        _hook.fn = prev
 
 
 class _Plan(object):
@@ -424,21 +449,29 @@ class LowerContext(object):
 
 def lower_ops(ctx, ops, lo, hi):
     defs, live = ctx.plan.defs, ctx.plan.live
+    hook = getattr(_hook, 'fn', None)
     for i in range(lo, hi):
         if live[i]:
             ctx.op_index = i
             op = ops[i]
-            if ctx.statics:
-                ctx._static_written = set()
-                defs[i].lower(ctx, op)
-                for n in op.output_arg_names:
-                    if n not in ctx._static_written:
-                        ctx.statics.pop(n, None)
+            if hook is None:
+                _lower_op(ctx, defs[i], op)
             else:
-                defs[i].lower(ctx, op)
-            if ctx.lods and defs[i].share_lod:
-                _share_lod(ctx, op)
+                hook(ctx, op, lambda: _lower_op(ctx, defs[i], op))
             _free(ctx, i)
+
+
+def _lower_op(ctx, d, op):
+    if ctx.statics:
+        ctx._static_written = set()
+        d.lower(ctx, op)
+        for n in op.output_arg_names:
+            if n not in ctx._static_written:
+                ctx.statics.pop(n, None)
+    else:
+        d.lower(ctx, op)
+    if ctx.lods and d.share_lod:
+        _share_lod(ctx, op)
 
 
 def _share_lod(ctx, op):
@@ -481,7 +514,11 @@ def lower_block(ctx, lo=0):
         lower_ops(ctx, ops, lo, len(ops))
         return
     ctx.op_index = b
-    _lower_backward(ctx, ops, lo, b, ops[b])
+    hook = getattr(_hook, 'fn', None)
+    if hook is None:
+        _lower_backward(ctx, ops, lo, b, ops[b])
+    else:
+        hook(ctx, ops[b], lambda: _lower_backward(ctx, ops, lo, b, ops[b]))
     _free(ctx, b)
     lower_block(ctx, b + 1)
 

@@ -22,8 +22,17 @@
 // ends the body's capture. The device evaluates the handle when the node
 // starts and after each run of the body.
 //
-// Bound: launch latency; the kernel reads one byte and writes the handle,
-// once before the node and once an iteration.
+// A body that draws random numbers: each trip of the node must draw what
+// an eager run draws in that trip. A captured random kernel draws at the
+// generator's device offset plus an offset fixed at capture
+// (csrc/philox_offset.cu), so `add_offset` (one thread) adds the body's
+// capture-time increment to the device offset at the end of each trip,
+// and once more with its negative after the node: the ops after the loop
+// were captured one body's increment further on. At T trips they then
+// draw T increments on, as an eager run does, at 0 trips too.
+//
+// Bound: launch latency; each kernel reads at most one byte or word and
+// writes one, once before the node and once an iteration.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,9 +47,21 @@ __global__ void clear_condition(cudaGraphConditionalHandle handle) {
   cudaGraphSetConditional(handle, 0u);
 }
 
+__global__ void add_offset(int64_t* __restrict__ offset, int64_t delta) {
+  offset[0] += delta;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Adds `delta` to the one-element int64 device tensor `offset` on
+// `stream` (captured when the stream is capturing).
+int graph_offset_add(void* stream, void* offset, long long delta) {
+  add_offset<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int64_t*>(offset), static_cast<int64_t>(delta));
+  return static_cast<int>(cudaGetLastError());
+}
 
 int graph_stream_create(void** out) {
   return static_cast<int>(cudaStreamCreateWithFlags(

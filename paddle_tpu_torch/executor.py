@@ -55,30 +55,74 @@ every kernel wrapper takes its plain version.
   reads false, as ``run()`` runs it (``lax.while_loop``: a
   ``max_trip_count`` does not cut it): in the capture it is one WHILE
   node of the step's graph, whose body the device runs while the
-  condition holds, with no host read (core/graphs.py `run_while`). Under
-  the ``backward`` meta-op a ``while`` runs its bound's iterations,
-  finished ones masked, in ``run()`` as in the capture; so does a
-  ``while`` whose body draws random numbers in the capture, which then
-  needs a ``max_trip_count``. Where such a bound may cut the loop (one
-  inferred from an array's capacity, or any bound of a loop that draws),
-  the capture ORs the final condition into a device flag, read after
-  each ``bind`` call and each ``run_fused`` run, which raises
-  RuntimeError when it is set (core/graphs.py `check_flags`).
+  condition holds, with no host read (core/graphs.py `run_while`); a body
+  that draws random numbers draws in each trip what ``run()`` draws in
+  it. Under the ``backward`` meta-op a ``while`` runs its bound's
+  iterations, finished ones masked, in ``run()`` as in the capture. Where
+  a bound inferred from an array's capacity may cut the loop, the capture
+  ORs the final condition into a device flag, read after each ``bind``
+  call and each ``run_fused`` run, which raises RuntimeError when it is
+  set (core/graphs.py `check_flags`).
 
 The scope holds torch tensors on the run's device. State given as numpy
 arrays (or tensors elsewhere) is copied there on first read and cached
 back into the scope; the optimizer ops then update those tensors in
-place. `run_async`, `precompile`, `explain`, donation, segmented host
-ops and the monitor counters wait for later slices.
+place. `run_async`, `precompile`, `explain`, donation and segmented host
+ops wait for later slices.
+
+Observability, on the JAX executor's series (docs/observability.md):
+``run`` opens a head-sampled step trace (trace.py `step_scope`) and the
+``run`` span, counts ``executor_run_total`` and observes
+``executor_run_seconds``; a plan-cache hit counts ``compile_cache_hit``
+and is a goodput dispatch of kind ``run`` (goodput.py: CUDA events around
+it on the card), a miss counts ``compile_cache_miss`` (``_bypass`` without
+the cache), and the plan's build with its first run (the ``compile``
+span) goes into ``compile_seconds`` and ``goodput.note_compile``; that
+first run registers the plan's cost (analysis.py `recording`). Numpy
+feeds count ``feed_host_bytes``, numpy fetches ``fetch_host_bytes``, and
+every run, bind and fused call notes its program to the flight recorder
+(``blackbox.note_step``). ``bind`` takes its step as ``run`` counts one; a
+``BoundProgram`` call counts ``executor_bound_run_total`` and is a
+dispatch of kind ``bound``. ``run_fused`` counts
+``executor_run_fused_total`` in the ``run_fused`` span
+(``executor_run_fused_seconds``); a call whose bound plan is new is a
+miss, and its first step (eager, with the capture on the card) a compile;
+any other call is a hit. The steps after a new plan's first, and every
+step of a hit, are one dispatch of kind ``fused``. Counts that differ
+from the JAX executor's by design:
+
+- ``compile_cache_hit``/``_miss`` of ``run_fused``: the JAX executor
+  compiles a scan of its own per (K, steps) signature, so its first
+  ``run_fused`` of a signature is a miss even after ``bind`` compiled
+  the step; here ``bind`` and ``run_fused`` share one bound plan a
+  (signature, scope), so a ``run_fused`` after a ``bind`` of its
+  signature is a hit.
+- ``bind`` of a signature that ``run`` already cached: the JAX bind's
+  ``run`` dispatches the cached executable (a goodput dispatch of kind
+  ``run``); here the plan is new to the scope, so the step is its eager
+  first step and its capture, counted in ``compile_seconds`` with no
+  dispatch.
+- goodput of a ``run_fused`` call on a new plan: the JAX executor
+  compiles its scan and runs every step in one call, all of it compile
+  time; here only the first step is, and the rest are a ``fused``
+  dispatch of one step fewer.
+- ``compile_cache_eviction``: the JAX executor also keeps a process-wide
+  cache of 64 compiled entries beside each executor's, whose evictions
+  count too; the port's plan cache is the executor's alone.
+- ``executor_sync_seconds`` (``FLAGS_benchmark``), the donation and
+  segmented-execution series and ``nan_check_trigger_total`` are not
+  emitted: their features wait for later slices.
 """
 import collections
 import os
 import threading
+import time
 import weakref
 
 import numpy as np
 import torch
 
+from . import analysis, blackbox, goodput, monitor, trace
 from . import ops  # noqa: F401  (registers every op's lowering)
 from .core import graphs, lowering
 from .core.lod import lengths_from_offsets, normalize_lod
@@ -248,7 +292,7 @@ class _LRUCache(object):
     insert. The small dict surface: ``get``, ``[k] = v``, ``in``, ``len``,
     ``iter``, ``items``, ``clear``. An evicted plan that holds a CUDA
     graph lets go of it; a `BoundProgram` holding the plan keeps
-    working."""
+    working. Each eviction counts ``compile_cache_eviction``."""
 
     def __init__(self):
         self._d = collections.OrderedDict()
@@ -276,6 +320,7 @@ class _LRUCache(object):
             self._d.move_to_end(key)
             while len(self._d) > self.cap:
                 self._d.popitem(last=False)
+                monitor.inc('compile_cache_eviction')
 
     def __contains__(self, key):
         with self._lock:
@@ -306,6 +351,7 @@ class _Entry(object):
     def __init__(self, fn, plan, read_names, written_names, needs_rng,
                  fetch_names, state_fetches, device):
         self.fn = fn
+        self.fp = None          # the program's fingerprint (goodput's key)
         self.plan = plan
         self.read_names = read_names
         self.written_names = written_names
@@ -349,10 +395,11 @@ class _BoundPlan(object):
     CPU eagerly; on the card the first step eagerly on a side stream, the
     next one captured on that stream and every step a replay."""
 
-    def __init__(self, exe, entry, program, feed, lods):
+    def __init__(self, exe, entry, program, feed, lods, kind):
         self.exe = exe
         self.entry = entry
         self.program = program
+        self.kind = kind        # analysis kind of its first step
         self.lods = dict(lods)          # the LoD of each ragged feed
         self.names = sorted(feed)
         self.feeds = graphs.FeedBuffer(
@@ -439,10 +486,19 @@ class _BoundPlan(object):
             t.copy_(src)
             scope.set(n, t)
 
+    @property
+    def fresh(self):
+        """Whether no step has run yet (the next one is the first: eager,
+        then on the card the capture)."""
+        return self.outputs is None and not self.captures
+
     def _first(self, rng):
         """The first step, eagerly: it sizes the fetches' static copies and
-        the tensors of state the plan writes without reading."""
-        fetches, new_state = self.entry.fn(self.feed, self.state, rng)
+        the tensors of state the plan writes without reading, and
+        registers the plan's cost (analysis.py)."""
+        with analysis.recording(self.program, self.kind, self.feed,
+                                self.state, self.exe.device):
+            fetches, new_state = self.entry.fn(self.feed, self.state, rng)
         self.outputs = tuple(torch.empty(f.shape, dtype=f.dtype,
                                          device=f.device) for f in fetches)
         self.written = {}
@@ -512,10 +568,14 @@ class BoundProgram(object):
         self.example_feed = example_feed
 
     def __call__(self, feed, return_numpy=True):
-        self._plan.stage(feed)
-        self._plan.step(self._scope)
-        graphs.check_flags(self._plan.graph)
-        return self._plan.fetches(return_numpy)
+        plan = self._plan
+        monitor.inc('executor_bound_run_total')
+        plan.stage(feed)
+        blackbox.note_step(plan.program)
+        with goodput.timed(plan.entry.fp, 'bound', plan.exe.device):
+            plan.step(self._scope)
+        graphs.check_flags(plan.graph)
+        return plan.fetches(return_numpy)
 
     def loop_launches(self):
         """({kernel: launches}, [trips]) that the ``while`` loops of the
@@ -569,8 +629,10 @@ class Executor(object):
         differs from its variable's is converted as the JAX executor
         converts it (ints to the variable's int type, floats to its float
         type, float64 always). A LoD must end at its array's leading
-        dimension."""
+        dimension. The bytes of feeds given on the host (not as tensors on
+        the device) count ``feed_host_bytes``."""
         out, lods = {}, {}
+        host_bytes = 0
         gb = program.global_block()
         for name, value in feed.items():
             value, lod = _split_lod_feed(value)
@@ -594,7 +656,12 @@ class Executor(object):
                         % (name, [list(l) for l in lod],
                            t.shape[0] if t.dim() else None))
                 lods[name] = lod
+            if not isinstance(value, torch.Tensor) or \
+                    value.device != self.device:
+                host_bytes += int(t.numel()) * t.element_size()
             out[name] = t.to(self.device)
+        if host_bytes:
+            monitor.inc('feed_host_bytes', host_bytes)
         return out, lods
 
     @staticmethod
@@ -681,21 +748,23 @@ class Executor(object):
 
     def _entry(self, program, feed, fetch_names, lods=None, statics=None,
                use_program_cache=True):
-        """The cached run plan of (program, its version, the feed
+        """(the cached run plan of (program, its version, the feed
         signature, the fetch list, the static LoDs, the values of the
-        shape-bearing feeds), built on a miss."""
+        shape-bearing feeds), whether it was built now)."""
         lods, statics = lods or {}, statics or {}
         key = (program._uid, program._version, self._feed_signature(feed),
                tuple(fetch_names), tuple(sorted(lods.items())),
                tuple(sorted((k, v.dtype.str, v.shape, v.tobytes())
                             for k, v in statics.items())))
         entry = self._cache.get(key) if use_program_cache else None
-        if entry is None:
+        fresh = entry is None
+        if fresh:
             entry = self._build(program, set(feed), fetch_names, lods,
                                 statics)
+            entry.fp = program._fingerprint()
             if use_program_cache:
                 self._cache[key] = entry
-        return entry
+        return entry, fresh
 
     def _seed_run(self, program, entry, rng):
         """Count one run of ``program`` as the JAX executor counts it;
@@ -726,44 +795,88 @@ class Executor(object):
             feed_var_name='feed', fetch_var_name='fetch', scope=None,
             return_numpy=True, use_program_cache=True):
         program = self._check_program(program, 'run')
+        # the JAX executor's instrumentation: a head-sampled step trace,
+        # the 'run' span and its histogram, and the run counted even when
+        # it raises
+        with trace.step_scope('step'):
+            with monitor.timed_span('run', 'executor_run_seconds'):
+                monitor.inc('executor_run_total')
+                if analysis.profile_ops_active():
+                    # op attribution: a fresh plan, op by op, each op synced
+                    return analysis.run_profiled(self, program, feed,
+                                                 fetch_list, scope,
+                                                 return_numpy)
+                return self._run_impl(program, feed, fetch_list, scope,
+                                      return_numpy, use_program_cache)
+
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy,
+                  use_program_cache=True, hook=None):
+        """One run (module docstring); ``hook`` (an op profile's, from
+        analysis.py) runs a fresh plan under it, counted in no cache
+        series."""
         if scope is None:
             scope = global_scope()
+        t_build = time.perf_counter()
         feed, lods = self._prepare_feed(program, feed or {})
         fetch_names = self._fetch_names(fetch_list)
-        entry = self._entry(program, feed, fetch_names,
-                            self._static_lods(scope, lods),
-                            self._statics(program, feed), use_program_cache)
+        entry, fresh = self._entry(program, feed, fetch_names,
+                                   self._static_lods(scope, lods),
+                                   self._statics(program, feed),
+                                   use_program_cache and hook is None)
+        if hook is None:
+            monitor.inc('compile_cache_hit' if not fresh else
+                        'compile_cache_miss' if use_program_cache else
+                        'compile_cache_bypass')
         state = {n: self._state_value(scope, n, program)
                  for n in entry.read_names}
         # generators of this run's own: a cached plan may run on two
         # threads at once
         rng = self._seed_run(program, entry, lowering.RunRNG(
             entry.plan, self.device) if entry.needs_rng else None)
-        fetches, new_state = entry.fn(feed, state, rng)
+        blackbox.note_step(program)
+        if hook is not None:
+            with lowering.op_hook(hook):
+                fetches, new_state = entry.fn(feed, state, rng)
+        elif fresh:
+            # the plan's first run: with its build, the compile of the JAX
+            # executor's first call, and where its cost registers
+            with monitor.span('compile'), analysis.recording(
+                    program, 'run', feed, state, self.device):
+                fetches, new_state = entry.fn(feed, state, rng)
+            seconds = time.perf_counter() - t_build
+            monitor.observe('compile_seconds', seconds)
+            goodput.note_compile(entry.fp, seconds)
+        else:
+            with goodput.timed(entry.fp, 'run', self.device):
+                fetches, new_state = entry.fn(feed, state, rng)
         scope.update(new_state)
         _keep_lods(scope, entry)
         # state is updated in place by later runs: a fetched state variable
         # is handed out as a copy
-        return _fetch_values(entry, fetches, return_numpy,
-                             entry.state_fetches)
+        out = _fetch_values(entry, fetches, return_numpy,
+                            entry.state_fetches)
+        _count_fetch_bytes(out, return_numpy)
+        return out
 
     # ------------------------------------------------------------------
     def _bound_plan(self, program, scope, feed, lods, fetch_names, what):
-        """The cached plan of (program, ``feed``'s signature at ``lods``,
+        """(the cached plan of (program, ``feed``'s signature at ``lods``,
         the fetch list) bound to ``scope`` (one for each pair, shared by
-        `bind` and `run_fused`). A shape-bearing feed raises ValueError: a
-        bound plan stages new values into the layout it was built for."""
+        `bind` and `run_fused`), whether the run plan was built now). A
+        shape-bearing feed raises ValueError: a bound plan stages new
+        values into the layout it was built for."""
         static = sorted(self._static_feed_names(program) & set(feed))
         if static:
             raise ValueError('%s cannot bind the shape-bearing static feeds '
                              '%s' % (what, static))
-        entry = self._entry(program, feed, fetch_names,
-                            self._static_lods(scope, lods))
+        entry, fresh = self._entry(program, feed, fetch_names,
+                                   self._static_lods(scope, lods))
         plan = entry.bound.get(scope)
         if plan is None:
-            plan = entry.bound[scope] = _BoundPlan(self, entry, program,
-                                                   feed, lods)
-        return plan
+            plan = entry.bound[scope] = _BoundPlan(
+                self, entry, program, feed, lods,
+                'bound' if what == 'bind' else 'fused')
+        return plan, fresh
 
     def bind(self, program, feed, fetch_list=None, scope=None, donate=None):
         """Take one step of ``program`` on ``feed`` (one program run, as
@@ -777,12 +890,32 @@ class Executor(object):
         program = self._check_program(program, 'bind')
         if scope is None:
             scope = global_scope()
-        feed, lods = self._prepare_feed(program, feed)
-        plan = self._bound_plan(program, scope, feed, lods,
-                                self._fetch_names(fetch_list), 'bind')
-        plan.stage(feed)
-        plan.step(scope)
-        return BoundProgram(plan, scope, plan.fetches(True), feed)
+        # counted as the JAX bind's run() counts its step
+        with trace.step_scope('step'):
+            with monitor.timed_span('run', 'executor_run_seconds'):
+                monitor.inc('executor_run_total')
+                t0 = time.perf_counter()
+                feed, lods = self._prepare_feed(program, feed)
+                plan, built = self._bound_plan(
+                    program, scope, feed, lods,
+                    self._fetch_names(fetch_list), 'bind')
+                monitor.inc('compile_cache_miss' if built else
+                            'compile_cache_hit')
+                blackbox.note_step(program)
+                if plan.fresh:
+                    with monitor.span('compile'):
+                        plan.stage(feed)
+                        plan.step(scope)
+                    seconds = time.perf_counter() - t0
+                    monitor.observe('compile_seconds', seconds)
+                    goodput.note_compile(plan.entry.fp, seconds)
+                else:
+                    plan.stage(feed)
+                    with goodput.timed(plan.entry.fp, 'run', self.device):
+                        plan.step(scope)
+                first = plan.fetches(True)
+                _count_fetch_bytes(first, True)
+                return BoundProgram(plan, scope, first, feed)
 
     def _stack(self, program, stacked, lods):
         """({name: tensor [K, ...] on the device}, K) of a stacked feed,
@@ -866,18 +999,50 @@ class Executor(object):
         program = self._check_program(program, 'run_fused')
         if scope is None:
             scope = global_scope()
-        fetch_names = self._fetch_names(fetch_list)
-        plan = None
-        for stacked, lods, k in self._fused_segments(program, feed_list,
-                                                     steps):
-            feed0 = {n: t[0] for n, t in stacked.items()}
-            plan = self._bound_plan(program, scope, feed0, lods, fetch_names,
-                                    'run_fused')
-            for i in range(int(steps) if steps else k):
-                plan.stage({n: t[i % k] for n, t in stacked.items()})
-                plan.step(scope)
-            graphs.check_flags(plan.graph)
-        return plan.fetches(return_numpy)
+        with monitor.timed_span('run_fused', 'executor_run_fused_seconds'):
+            monitor.inc('executor_run_fused_total')
+            fetch_names = self._fetch_names(fetch_list)
+            plan = None
+            for stacked, lods, k in self._fused_segments(program, feed_list,
+                                                         steps):
+                feed0 = {n: t[0] for n, t in stacked.items()}
+                t0 = time.perf_counter()
+                plan, _ = self._bound_plan(program, scope, feed0, lods,
+                                           fetch_names, 'run_fused')
+                fresh = plan.fresh
+                monitor.inc('compile_cache_miss' if fresh else
+                            'compile_cache_hit')
+                blackbox.note_step(program)
+                n = int(steps) if steps else k
+                first = 1 if fresh else 0
+                if fresh:
+                    # the eager first step and, on the card, the capture
+                    with monitor.span('compile'):
+                        plan.stage({name: t[0]
+                                    for name, t in stacked.items()})
+                        plan.step(scope)
+                    seconds = time.perf_counter() - t0
+                    monitor.observe('compile_seconds', seconds)
+                    goodput.note_compile(plan.entry.fp, seconds)
+                if n > first:
+                    with goodput.timed(plan.entry.fp, 'fused', self.device,
+                                       steps=n - first):
+                        for i in range(first, n):
+                            plan.stage({name: t[i % k]
+                                        for name, t in stacked.items()})
+                            plan.step(scope)
+                graphs.check_flags(plan.graph)
+            out = plan.fetches(return_numpy)
+            _count_fetch_bytes(out, return_numpy)
+            return out
+
+
+def _count_fetch_bytes(out, return_numpy):
+    """``fetch_host_bytes``: the bytes of the fetches handed out as numpy
+    arrays."""
+    if return_numpy and out:
+        monitor.inc('fetch_host_bytes',
+                    sum(int(getattr(f, 'nbytes', 0)) for f in out))
 
 
 def _fetch_values(entry, values, return_numpy, copy):

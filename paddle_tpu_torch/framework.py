@@ -389,6 +389,32 @@ class Program(object):
     def _bump_version(self):
         self._version += 1
 
+    def _fingerprint(self):
+        """Structural identity (the JAX package's `Program._fingerprint`): a
+        sha1 of the serialized program (core/serialization.py, random_seed
+        included), so two identical programs share it and an equal program
+        of the JAX package has the same one; the observability tier keys
+        its per-program series on it. Falls back to the uid for a program
+        whose attrs the schema cannot encode. Cached per (version,
+        random_seed)."""
+        cached = getattr(self, '_fp_cache', None)
+        if cached is not None and cached[0] == (self._version,
+                                                self.random_seed):
+            return cached[1]
+        try:
+            import hashlib
+            import json
+            from .core import serialization
+            blob = serialization.program_to_dict(self)
+            fp = 'fp:' + hashlib.sha1(
+                json.dumps(blob, sort_keys=True,
+                           separators=(',', ':')).encode()).hexdigest()
+        except Exception:
+            fp = 'uid:%d:%d:%s' % (self._uid, self._version,
+                                   self.random_seed)
+        self._fp_cache = ((self._version, self.random_seed), fp)
+        return fp
+
     def clone(self, for_test=False):
         """A deep copy with a fresh identity; ``for_test`` sets every op's
         ``is_test`` attr (dropout's too)."""

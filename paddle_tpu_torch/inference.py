@@ -13,10 +13,13 @@ graph (the bench's device-resident rate).
 
 The one addition to the reference is ``PredictorConfig(place=)``: None (or
 a ``CUDAPlace``) runs on the card, ``CPUPlace()`` on the CPU, as
-``Executor(place)`` does. The JAX predictor's ``predictor_run_total``
-counter and ``predictor.run`` span wait for the port's monitor.
+``Executor(place)`` does. Each call counts ``predictor_run_total`` and
+runs in a ``predictor.run`` span (monitor.py), which separate serving
+traffic from training runs in the same process; the executor's own run
+series count beneath them.
 """
 from . import io as _io
+from . import monitor
 from .executor import Executor, Scope, scope_guard
 
 __all__ = ['PredictorConfig', 'Predictor', 'create_predictor']
@@ -81,10 +84,12 @@ class Predictor(object):
                 % (self.feed_names,
                    ' missing %s' % missing if missing else '',
                    ' unexpected %s' % extra if extra else ''))
-        return self.executor.run(self.program, feed=feed,
-                                 fetch_list=self.fetch_vars,
-                                 scope=self.scope,
-                                 return_numpy=return_numpy)
+        monitor.inc('predictor_run_total')
+        with monitor.span('predictor.run'):
+            return self.executor.run(self.program, feed=feed,
+                                     fetch_list=self.fetch_vars,
+                                     scope=self.scope,
+                                     return_numpy=return_numpy)
 
 
 def create_predictor(config):

@@ -24,10 +24,10 @@ loops on the device:
   and reloads the node's condition, so the device runs it as many times
   as the condition holds, with no host read. The buffers take the layout
   that the plan's eager first step left (its arrays' element shapes, its
-  carry's dtypes). A body that draws random numbers runs in a capture as
-  the bounded loop below (each trip of the node would replay the same
-  draws), so it needs a ``max_trip_count`` there, and a condition that
-  still holds after it raises.
+  carry's dtypes). A body that draws random numbers draws in each trip of
+  the node what ``run()`` draws in that trip: the run's generators' device
+  offsets advance by the body's increment at the end of each trip
+  (core/graphs.py `run_while`, csrc/philox_offset.cu).
 - ``while`` under the ``backward`` meta-op: a bound's iterations,
   ``max_trip_count`` or else the smallest capacity of an array the body
   writes (the JAX package's bounded ``lax.scan``), each iteration's carry
@@ -236,21 +236,6 @@ def _carry_spec(carry):
     return spec
 
 
-def _draws(ctx, block):
-    """Whether an op of ``block`` or of its sub-blocks draws random
-    numbers."""
-    from ..core.lowering import _needs_rng
-    from ..core.registry import get_op
-    for op in block.ops:
-        if _needs_rng(get_op(op.type), op):
-            return True
-        for a in SUB_BLOCK_ATTRS:
-            idx = op.attr(a)
-            if idx is not None and _draws(ctx, ctx.program.block(int(idx))):
-                return True
-    return False
-
-
 def _capturing(ctx):
     return ctx.device.type == 'cuda' and \
         torch.cuda.is_current_stream_capturing()
@@ -270,7 +255,7 @@ def _while(ctx, op):
             "while: condition %r is never updated inside the loop body — "
             "the loop would not terminate" % cond_name)
     carry = {n: _carry_value(ctx.env[n]) for n in carried}
-    if ctx.wrt or (_capturing(ctx) and _draws(ctx, block)):
+    if ctx.wrt:
         carry = _bounded_loop(ctx, op, block, written, carry, cond_name)
     elif _capturing(ctx):
         carry = _graph_loop(ctx, block, carry, cond_name)
@@ -340,7 +325,8 @@ def _graph_loop(ctx, block, carry, cond_name):
         _store(bufs, {n: _carry_value(env[n]) for n in bufs})
         return bufs[cond_name]
 
-    graphs.run_while(bufs[cond_name], body, trips)
+    graphs.run_while(bufs[cond_name], body, trips,
+                     ctx._rng.generators() if ctx._rng is not None else ())
     return {n: _carry_value(v) for n, v in bufs.items()}
 
 
@@ -402,22 +388,13 @@ def _store(bufs, new):
 
 
 def _bounded_loop(ctx, op, block, written, carry, cond_name):
-    """Under the ``backward`` meta-op, and in a capture of a body that
-    draws random numbers: the bound's iterations (the JAX package's bounded
-    ``lax.scan``), each iteration's carry kept with ``torch.where(cond,
-    new, old)``. The bound is ``max_trip_count`` or else, under the
-    ``backward``, the smallest capacity of an array the body writes. A
-    condition that still holds after an inferred bound, or after any bound
-    of a body that draws, raises (`_check_cut`)."""
+    """Under the ``backward`` meta-op: the bound's iterations (the JAX
+    package's bounded ``lax.scan``), each iteration's carry kept with
+    ``torch.where(cond, new, old)``. The bound is ``max_trip_count`` or
+    else the smallest capacity of an array the body writes. A condition
+    that still holds after an inferred bound raises (`_check_cut`)."""
     bound = op.attr('max_trip_count', None)
     inferred = bound is None
-    if bound is None and not ctx.wrt:
-        raise ValueError(
-            "while: a loop whose body draws random numbers is captured in "
-            "a CUDA graph only with a bound, layers.While(cond, "
-            "max_trip_count=N), whose iterations it runs masked (each trip "
-            "of the graph's loop node would replay the same draws): pass "
-            "one, or run the program with Executor.run")
     if bound is None:
         # only arrays the body writes bound it: a loop appending one slot
         # an iteration cannot run past the capacity
@@ -436,14 +413,7 @@ def _bounded_loop(ctx, op, block, written, carry, cond_name):
         carry = {n: _carry_value(_select(ctx, pred, env[n], carry[n]))
                  for n in carry}
     _settle_empties(ctx, carry)
-    if not ctx.wrt:
-        _check_cut(ctx, carry[cond_name],
-                   "while: a loop whose body draws random numbers runs its "
-                   "max_trip_count of %d iterations in a CUDA graph, and "
-                   "its condition still held after them: pass "
-                   "layers.While(cond, max_trip_count=N) with the real "
-                   "bound, or run the program with Executor.run" % bound)
-    elif inferred:
+    if inferred:
         _check_cut(ctx, carry[cond_name],
                    "while: inferred trip-count bound %d (from TensorArray "
                    "capacity) was too small — the loop condition is still "

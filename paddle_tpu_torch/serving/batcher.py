@@ -1,16 +1,52 @@
 """Request futures and the bounded request queue.
 
 The port's own copy of paddle_tpu/serving/batcher.py (`Request`,
-`RequestQueue` and the error classes), without the trace hooks and the
-metrics server. A full queue sheds new load at once with a structured
-`LoadShedError`; expired requests are dropped at collection so a dead
-request never occupies the card.
+`RequestQueue` and the error classes, the request's trace hooks, and the
+metrics endpoint's port resolution and start). A full queue sheds new
+load at once with a structured `LoadShedError`; expired requests are
+dropped at collection so a dead request never occupies the card.
 """
 import threading
 import time
 
+from .. import trace as trace_mod
+
 __all__ = ['ServingError', 'LoadShedError', 'DeadlineExceededError',
-           'EngineStoppedError', 'Request', 'RequestQueue']
+           'EngineStoppedError', 'Request', 'RequestQueue',
+           'resolve_metrics_port', 'start_metrics_server']
+
+
+def resolve_metrics_port(configured):
+    """A config's ``metrics_port``: an explicit value wins; else
+    PADDLE_METRICS_PORT (unset or unparsable: None, no endpoint)."""
+    if configured is not None:
+        return int(configured)
+    import os
+    env = os.environ.get('PADDLE_METRICS_PORT', '')
+    if env == '':
+        return None
+    try:
+        return int(env)
+    except ValueError:
+        return None
+
+
+def start_metrics_server(port, owner):
+    """Start the scrape endpoint that rides an engine's lifecycle: up
+    before the first request is served, down with stop(). A bind failure
+    must not leave the engine half-started: warn and serve without the
+    endpoint. Returns the server or None."""
+    if port is None:
+        return None
+    from .. import monitor
+    try:
+        return monitor.serve_metrics(port)
+    except Exception as e:          # noqa: BLE001 — telemetry only
+        import warnings
+        warnings.warn(
+            "%s: could not serve /metrics on port %s (%s); continuing "
+            "without the endpoint" % (owner, port, e), stacklevel=3)
+        return None
 
 
 class ServingError(RuntimeError):
@@ -39,15 +75,36 @@ class EngineStoppedError(ServingError):
     """The engine was stopped while the request was queued."""
 
 
+def _trace_outcome(error):
+    """A request failure's trace and metric outcome label."""
+    if isinstance(error, DeadlineExceededError):
+        return 'deadline'
+    if isinstance(error, LoadShedError):
+        return 'shed'
+    if isinstance(error, EngineStoppedError):
+        return 'stopped'
+    return 'error'
+
+
 class Request(object):
     """One in-flight request with a one-shot future: the engine calls
-    done()/fail(), the submitting thread blocks in result()."""
+    done()/fail(), the submitting thread blocks in result().
 
-    __slots__ = ('deadline', 'enqueue_t', '_event', '_result', '_error')
+    ``trace`` (set by the engine at submit) is the request's causal trace
+    (trace.py): the engine accumulates the latency-budget stages on it,
+    and done()/fail() finish it with the outcome; the flattened breakdown
+    lands on ``timing`` (``{'trace_id', 'total_s', 'queue_s', ...}``)."""
+
+    __slots__ = ('deadline', 'enqueue_t', 'enqueue_wall', 'trace', 'timing',
+                 '_tid', '_event', '_result', '_error')
 
     def __init__(self, deadline):
         self.deadline = deadline
         self.enqueue_t = time.monotonic()
+        self.enqueue_wall = time.time() * 1e6
+        self.trace = None
+        self.timing = None
+        self._tid = threading.get_ident()   # submitter (queue-span owner)
         self._event = threading.Event()
         self._result = None
         self._error = None
@@ -56,12 +113,25 @@ class Request(object):
         return self.deadline is not None and \
             (now if now is not None else time.monotonic()) > self.deadline
 
+    def _finish_trace(self, outcome, error=None):
+        tr = self.trace
+        if tr is None or self.timing is not None:
+            return
+        if 'queue' not in tr.stages:
+            # never admitted (expired, shed, stopped in the queue): its
+            # whole life was queue wait, so the breakdown composes
+            tr.add_stage('queue', max(0.0,
+                                      time.monotonic() - self.enqueue_t))
+        self.timing = trace_mod.flat_timing(tr.finish(outcome, error=error))
+
     def done(self, result):
         self._result = result
+        self._finish_trace('ok')
         self._event.set()
 
     def fail(self, error):
         self._error = error
+        self._finish_trace(_trace_outcome(error), error)
         self._event.set()
 
     def result(self, timeout=None):

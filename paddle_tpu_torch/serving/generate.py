@@ -68,16 +68,31 @@ modes).
   (``spec_fallback_total``), and the residents' draft caches miss those
   positions until the next speculative round copies them across.
 
-The JAX engine's monitor counters of the paged cache and of speculation
-are kept in ``GenerateEngine.counters`` under the monitor's names
-(``kv_block_cow_total``, ``kv_prefix_hit_total{outcome=hit|miss}``,
-``kv_prefix_tokens_saved_total``; ``spec_propose_total``,
-``spec_accept_total``, ``spec_fallback_total``,
-``spec_stale_draft_rounds_total``).
-
-Not ported yet (ROADMAP.md): the monitor / goodput / trace / black-box
-hooks, and the metrics endpoint.
+Observability, on the JAX engine's series (docs/observability.md): the
+requests (``generate_request_total{outcome}``), tokens
+(``decode_tokens_total``), queue waits (``generate_queue_seconds``, fed to
+goodput's queue sentinel), prefill and step times (``prefill_seconds``,
+``decode_step_seconds``, ``spec_draft_seconds``, ``spec_verify_seconds``),
+the paged cache (``kv_block_cow_total``,
+``kv_prefix_hit_total{outcome=hit|miss}``,
+``kv_prefix_tokens_saved_total``, the ``kv_blocks_in_use``/``_free`` and
+``kv_slot_occupancy`` gauges), speculation (``spec_propose_total``,
+``spec_accept_total``, fed to goodput's accept sentinel,
+``spec_fallback_total``, ``spec_stale_draft_rounds_total``),
+``generate_queue_depth`` and ``generate_warmup_total``. Each request
+carries a `Trace` (trace.py) whose stages (queue, prefill, decode_step;
+draft and verify under speculation) give ``GenerateResult.timing``
+(`trace.flat_timing`, the JAX keys). Every bound step is a goodput
+dispatch of kind ``bound`` (CUDA events around it on the card) under the
+engine's signature fingerprints, named ``generate``: ``stats()['goodput']``
+is their view. A failed step counts ``generate_step_error_total`` and
+publishes a ``generate_step_error`` flight-recorder bundle (blackbox.py).
+``GenerateConfig(metrics_port=)`` (or ``PADDLE_METRICS_PORT``) serves
+``/metrics`` and ``/healthz`` from start() to stop(). The paged cache's
+and speculation's counts are the monitor's counters (process-wide: take
+``monitor.counter_delta`` around the work to read an engine's own).
 """
+import hashlib
 import queue as _pyqueue
 import threading
 import time
@@ -85,12 +100,14 @@ import time
 import numpy as np
 import torch
 
+from .. import blackbox, goodput, monitor, trace as trace_mod
 from ..framework import resolve_device
 from ..io import params_from_numpy
 from ..models.transformer import LMConfig, TransformerLM, init_params
 from ..reader.bucketing import bucketize
 from .batcher import (DeadlineExceededError, EngineStoppedError,
-                      LoadShedError, Request, RequestQueue)
+                      LoadShedError, Request, RequestQueue,
+                      resolve_metrics_port, start_metrics_server)
 from .graphs import BoundStep
 from .kv_blocks import BlockAllocator, PrefixCache, chain_hashes
 
@@ -112,12 +129,14 @@ def _sampling_stream(sample_seed):
 class GenerateResult(list):
     """What ``GenerateRequest.result()`` returns: the generated token ids
     (it IS a list) plus ``finish_reason`` ('eos' | 'length' |
-    'cache_full') and ``timing``: ``queue_s``, ``prefill_s``,
-    ``decode_step_s`` (sum of the per-token gaps), ``total_s``,
-    ``tokens``, ``step_s_mean`` / ``step_s_p99``; a request that rode a
-    speculative round adds ``spec_proposed``, ``spec_accepted``,
-    ``spec_accept_rate``, ``draft_s`` and ``verify_s`` (host seconds of
-    its rounds' draft and verify legs)."""
+    'cache_full') and ``timing``, the request trace's flat breakdown
+    (`trace.flat_timing`): ``trace_id``, ``total_s``, ``outcome``,
+    ``queue_s``, ``prefill_s``, ``decode_step_s`` (the per-token gaps),
+    then ``tokens``, ``finish_reason``, ``step_s_mean`` / ``step_s_p99``; a
+    request that rode a speculative round adds ``draft_s`` and
+    ``verify_s`` (host seconds of its rounds' draft and verify legs, which
+    ``decode_step_s`` then leaves out), ``spec_proposed``,
+    ``spec_accepted`` and ``spec_accept_rate``."""
 
     def __init__(self, tokens, finish_reason=None, timing=None):
         list.__init__(self, tokens)
@@ -158,8 +177,9 @@ class GenerateConfig(object):
       step; greedy output stays the plain engine's. ``draft_model`` is the
       draft's LMConfig (its vocab must be the target's); None drafts with
       the target's own config and weights.
-    - metrics_port: not ported yet; asking for it raises
-      NotImplementedError.
+    - metrics_port: serve ``/metrics`` and ``/healthz`` on this port
+      (0: a free one) from start() to stop(); None falls back to
+      ``PADDLE_METRICS_PORT``, and without it there is no endpoint.
     """
 
     def __init__(self, model=None, slots=8, max_len=256,
@@ -169,10 +189,7 @@ class GenerateConfig(object):
                  top_p=0.0, paged=False, block_size=16, num_blocks=None,
                  prefix_sharing=True, speculative=False, spec_k=4,
                  draft_model=None, metrics_port=None):
-        if metrics_port is not None:
-            raise NotImplementedError(
-                'metrics_port is not ported to paddle_tpu_torch yet — see '
-                'ROADMAP.md, Queue 1')
+        self.metrics_port = metrics_port
         self.model = model or LMConfig()
         self.slots = int(slots)
         self.max_len = int(max_len)
@@ -249,10 +266,8 @@ class GenerateRequest(Request):
     req.stream()``)."""
 
     __slots__ = ('prompt', 'max_new_tokens', 'tokens', 'finish_reason',
-                 'timing', 'step_s', 'queue_s', 'prefill_s', '_stream_q',
-                 'temperature', 'top_k', 'top_p', 'sample_seed', '_rng',
-                 'spec_rounds', 'spec_proposed', 'spec_accepted', 'draft_s',
-                 'verify_s')
+                 'step_s', '_stream_q', 'temperature', 'top_k', 'top_p',
+                 'sample_seed', '_rng', 'spec_proposed', 'spec_accepted')
 
     def __init__(self, prompt, deadline, max_new_tokens, temperature=0.0,
                  top_k=0, top_p=0.0, sample_seed=None):
@@ -261,21 +276,15 @@ class GenerateRequest(Request):
         self.max_new_tokens = max_new_tokens
         self.tokens = []
         self.finish_reason = None
-        self.timing = None
         self.step_s = []        # per-token gaps after the first token
-        self.queue_s = 0.0
-        self.prefill_s = 0.0
         self._stream_q = _pyqueue.Queue()
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.sample_seed = sample_seed
         self._rng = None
-        self.spec_rounds = 0        # speculative rounds this request rode
         self.spec_proposed = 0      # draft tokens proposed for it
         self.spec_accepted = 0      # ... that became emitted tokens
-        self.draft_s = 0.0
-        self.verify_s = 0.0
 
     def _draw_u(self):
         """Next uniform of this request's own sampling stream (0.0 for a
@@ -291,30 +300,36 @@ class GenerateRequest(Request):
         self._stream_q.put(tok)
 
     def _finish(self, reason):
+        """A normal finish: counted ``ok``, the trace finished into
+        ``timing`` (the JAX engine's keys)."""
         self.finish_reason = reason
-        srt = sorted(self.step_s)
-        t = {'queue_s': self.queue_s, 'prefill_s': self.prefill_s,
-             'decode_step_s': sum(srt),
-             'total_s': time.monotonic() - self.enqueue_t,
-             'tokens': len(self.tokens), 'finish_reason': reason}
-        if srt:
-            t['step_s_mean'] = sum(srt) / len(srt)
-            t['step_s_p99'] = srt[min(len(srt) - 1,
-                                      int(np.ceil(0.99 * len(srt))) - 1)]
-        if self.spec_rounds:
-            t['spec_proposed'] = self.spec_proposed
-            t['spec_accepted'] = self.spec_accepted
-            t['spec_accept_rate'] = round(
-                self.spec_accepted / float(self.spec_proposed), 4) \
-                if self.spec_proposed else 0.0
-            t['draft_s'] = self.draft_s
-            t['verify_s'] = self.verify_s
-        self.timing = t
+        monitor.inc('generate_request_total', labels={'outcome': 'ok'})
+        tr = self.trace
+        if tr is not None and self.timing is None:
+            t = trace_mod.flat_timing(tr.finish('ok',
+                                                tokens=len(self.tokens)))
+            t['tokens'] = len(self.tokens)
+            t['finish_reason'] = reason
+            if self.step_s:
+                srt = sorted(self.step_s)
+                t['step_s_mean'] = sum(srt) / len(srt)
+                t['step_s_p99'] = srt[monitor._rank_idx(0.99, len(srt))]
+            if self.spec_proposed:
+                t['spec_proposed'] = self.spec_proposed
+                t['spec_accepted'] = self.spec_accepted
+                t['spec_accept_rate'] = round(
+                    self.spec_accepted / float(self.spec_proposed), 4)
+            self.timing = t
         self.done(GenerateResult(self.tokens, finish_reason=reason,
-                                 timing=t))
+                                 timing=self.timing))
         self._stream_q.put(_DONE)
 
     def fail(self, error):
+        """A failure, counted under its outcome (deadline, shed, stopped,
+        error) and finished into the trace."""
+        from .batcher import _trace_outcome
+        monitor.inc('generate_request_total',
+                    labels={'outcome': _trace_outcome(error)})
         Request.fail(self, error)
         self._stream_q.put(_DONE)
 
@@ -340,8 +355,8 @@ class GenerateRequest(Request):
 
 
 class _Slot(object):
-    __slots__ = ('req', 'pos', 'generated', 'last', 'last_t', 'blocks',
-                 'table', 'dblocks', 'dtable', 'draft_stale')
+    __slots__ = ('req', 'pos', 'generated', 'last', 'last_t', 'wall0',
+                 'blocks', 'table', 'dblocks', 'dtable', 'draft_stale')
 
     def __init__(self, req, pos, last, blocks=None, table=None,
                  dblocks=None, dtable=None):
@@ -349,7 +364,8 @@ class _Slot(object):
         self.pos = pos          # cache position the NEXT step writes
         self.generated = 1      # prefill already emitted the first token
         self.last = last        # last generated token (next step's input)
-        self.last_t = time.perf_counter()
+        self.last_t = time.perf_counter()   # previous token's completion
+        self.wall0 = time.time() * 1e6      # decode-phase start (us)
         self.blocks = blocks    # paged: physical block ids, table order
         self.table = table      # paged: np [max_blocks] int64, filler 0
         self.dblocks = dblocks  # speculative: the draft pool's block ids
@@ -480,17 +496,15 @@ class GenerateEngine(object):
         self._blocks_peak = 0
         self._spec_rounds = 0
         self._spec_emitted = 0
+        self._spec_proposed = self._spec_accepted = 0
+        self._spec_fallbacks = self._spec_stale_rounds = 0
         self._spec_draft_s = self._spec_verify_s = 0.0
-        # the JAX engine's monitor counters of the paged cache, by name
-        self.counters = {'kv_block_cow_total': 0,
-                         'kv_prefix_hit_total{outcome=hit}': 0,
-                         'kv_prefix_hit_total{outcome=miss}': 0,
-                         'kv_prefix_tokens_saved_total': 0}
-        if c.speculative:
-            self.counters.update({'spec_propose_total': 0,
-                                  'spec_accept_total': 0,
-                                  'spec_fallback_total': 0,
-                                  'spec_stale_draft_rounds_total': 0})
+        self._metrics_server = None
+        self._fps = {}          # signature key -> goodput fingerprint
+        monitor.set_gauge('kv_slot_occupancy', 0.0)
+        monitor.set_gauge('generate_queue_depth', 0.0)
+        if c.paged:
+            self._set_block_gauges()
 
     # ------------------------------------------------------------------
     # bound signatures (serving/graphs.py): one per shape the engine
@@ -512,6 +526,8 @@ class GenerateEngine(object):
             bs = BoundStep(fn, feeds, self.device, pool=self._pool,
                            name='signature %r' % (key,))
             self._graphs[key] = bs
+            self._fps[key] = fp = self._fingerprint(key)
+            goodput.name_model(fp, 'generate')
             if self._warm:
                 self._late_binds += 1
             if self.device.type == 'cuda':
@@ -520,6 +536,26 @@ class GenerateEngine(object):
                     if m is not None:
                         m.cache_captured = True
         return bs
+
+    def _fingerprint(self, key):
+        """The goodput key of signature ``key``: a hash of the model, the
+        engine's shapes and the key (engines of one configuration share
+        it, as the JAX engines' identical programs share a fingerprint)."""
+        c = self.config
+        return 'gen:' + hashlib.sha1(repr((
+            sorted(vars(c.model).items()), c.slots, c.max_len, c.paged,
+            c.block_size, c.num_blocks, c.spec_k if c.speculative else 0,
+            key)).encode()).hexdigest()
+
+    def _call(self, key, *arrays):
+        """One call of signature ``key``'s bound step: a goodput dispatch
+        of kind ``bound``, timed by CUDA events on the card (its first
+        call there captures the graph, a compile and no dispatch)."""
+        bs = self._bound(key)
+        if self.device.type == 'cuda' and not bs.captured:
+            return bs(*arrays)
+        with goodput.timed(self._fps[key], 'bound', self.device):
+            return bs(*arrays)
 
     def _signature(self, key):
         """(fn, feed specs) of signature ``key`` (see `_bound`). The
@@ -615,8 +651,8 @@ class GenerateEngine(object):
             b = bucketize(prompt.size, c.prompt_buckets)
             padded = np.full((1, b), c.pad_id, 'int64')
             padded[0, :prompt.size] = prompt
-            tok, _ = self._bound(('prefill', b, sampled))(
-                padded, np.array([slot], 'int64'),
+            tok, _ = self._call(
+                ('prefill', b, sampled), padded, np.array([slot], 'int64'),
                 np.array([prompt.size], 'int64'), *smp)
             return int(tok[0])
         # paged: only the uncached suffix is computed, bucketed by its own
@@ -633,16 +669,16 @@ class GenerateEngine(object):
         while suffix.size > wide:
             chunk, suffix = suffix[:wide], suffix[wide:]
             pos = np.clip(off + np.arange(wide), 0, c.max_len - 1)
-            self._bound(('prefill_paged', wide, False, draft))(
-                chunk[None], pos, table, np.array([wide], 'int64'),
-                *greedy)
+            self._call(('prefill_paged', wide, False, draft), chunk[None],
+                       pos, table, np.array([wide], 'int64'), *greedy)
             off += wide
         b = bucketize(suffix.size, c.prompt_buckets)
         padded = np.full((1, b), c.pad_id, 'int64')
         padded[0, :suffix.size] = suffix
         pos = np.clip(off + np.arange(b), 0, c.max_len - 1)
-        tok, _ = self._bound(('prefill_paged', b, sampled, draft))(
-            padded, pos, table, np.array([suffix.size], 'int64'), *smp)
+        tok, _ = self._call(('prefill_paged', b, sampled, draft), padded,
+                            pos, table, np.array([suffix.size], 'int64'),
+                            *smp)
         return int(tok[0])
 
     def _run_step(self, rows, tables=None):
@@ -665,7 +701,7 @@ class GenerateEngine(object):
             for i, table in (tables or {}).items():
                 btab[i] = table
             feeds.append(btab)
-        nxt, _ = self._bound(('step', any_sampled))(*feeds)
+        nxt, _ = self._call(('step', any_sampled), *feeds)
         return nxt.cpu().numpy().copy()
 
     # ------------------------------------------------------------------
@@ -695,7 +731,12 @@ class GenerateEngine(object):
             ids = self._alloc.alloc(n)
         if ids is not None:
             self._blocks_peak = max(self._blocks_peak, self._alloc.in_use())
+            self._set_block_gauges()
         return ids
+
+    def _set_block_gauges(self):
+        monitor.set_gauge('kv_blocks_in_use', float(self._alloc.in_use()))
+        monitor.set_gauge('kv_blocks_free', float(self._alloc.available()))
 
     def _slot_table(self, blocks):
         table = np.zeros((self._max_blocks,), 'int64')
@@ -736,11 +777,12 @@ class GenerateEngine(object):
         if cow:
             self._cow_copy(shared[-1], new_ids[0])
             self._alloc.deref(shared[-1])   # pinned only for the copy
-            self.counters['kv_block_cow_total'] += 1
+            monitor.inc('kv_block_cow_total')
         if self._prefix is not None:
-            self.counters['kv_prefix_hit_total{outcome=%s}' % (
-                'hit' if ctx_len > 0 else 'miss')] += 1
-            self.counters['kv_prefix_tokens_saved_total'] += ctx_len
+            monitor.inc('kv_prefix_hit_total', labels={
+                'outcome': 'hit' if ctx_len > 0 else 'miss'})
+            if ctx_len > 0:
+                monitor.inc('kv_prefix_tokens_saved_total', ctx_len)
         return shared[:n_keep] + new_ids, ctx_len, hashes
 
     def _grow_blocks(self):
@@ -778,6 +820,12 @@ class GenerateEngine(object):
                 "warmup() runs the prefill/decode path against the live KV "
                 "cache and must not race the started engine loop — warm up "
                 "before start() (start() warms up automatically)")
+        with monitor.span('generate.warmup'):
+            out = self._warmup()
+        monitor.inc('generate_warmup_total')
+        return out
+
+    def _warmup(self):
         t0 = time.perf_counter()
         c = self.config
         zero_table = None if not c.paged else np.zeros(self._max_blocks,
@@ -794,11 +842,11 @@ class GenerateEngine(object):
         if c.speculative:
             S, W = c.slots, c.spec_k + 1
             zeros = np.zeros((S, self._max_blocks), 'int64')
-            self._bound(('drafter',))(np.zeros(S, 'int64'),
-                                      np.zeros(S, 'int64'), zeros,
-                                      np.zeros((S, W), 'int64'))
-            self._bound(('verify',))(np.zeros((S, W), 'int64'), zeros,
-                                     np.zeros((S, W), 'int64'))
+            self._call(('drafter',), np.zeros(S, 'int64'),
+                       np.zeros(S, 'int64'), zeros,
+                       np.zeros((S, W), 'int64'))
+            self._call(('verify',), np.zeros((S, W), 'int64'), zeros,
+                       np.zeros((S, W), 'int64'))
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self._warm = True
@@ -819,6 +867,10 @@ class GenerateEngine(object):
             if not self._warm:
                 self.warmup()
             self._started = True
+            if self._metrics_server is None:
+                self._metrics_server = start_metrics_server(
+                    resolve_metrics_port(self.config.metrics_port),
+                    'GenerateEngine')
             self._stop_evt.clear()
             self._thread = threading.Thread(target=self._loop,
                                             name='paddle-torch-generate',
@@ -840,6 +892,16 @@ class GenerateEngine(object):
         if self._prefix is not None:
             # a stopped engine serves no more hits
             self._prefix.drop_all()
+            self._set_block_gauges()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
+
+    @property
+    def metrics_port(self):
+        """The port ``/metrics`` is served on while the engine runs (None
+        without an endpoint)."""
+        return self._metrics_server.port if self._metrics_server else None
 
     def __enter__(self):
         return self.start()
@@ -871,31 +933,43 @@ class GenerateEngine(object):
                    "prompt_buckets, or use paged=True (chunked prefill "
                    "admits up to max_len - 1)")
         if prompt.size < 1 or prompt.size > limit:
+            monitor.inc('generate_request_total',
+                        labels={'outcome': 'rejected'})
             raise ValueError("prompt length %d outside [1, %d] (%s)"
                              % (prompt.size, limit, why))
         if max_new_tokens is None:
             max_new_tokens = c.max_new_tokens
         if int(max_new_tokens) < 1:
+            monitor.inc('generate_request_total',
+                        labels={'outcome': 'rejected'})
             raise ValueError("max_new_tokens must be >= 1")
         temperature = c.temperature if temperature is None \
             else float(temperature)
         top_k = c.top_k if top_k is None else int(top_k)
         top_p = c.top_p if top_p is None else float(top_p)
         if top_p < 0.0 or top_p > 1.0:
+            monitor.inc('generate_request_total',
+                        labels={'outcome': 'rejected'})
             raise ValueError("top_p must lie in [0, 1] — 0 (or 1) "
                              "disables nucleus sampling")
         if deadline_s is None:
             deadline_s = c.default_deadline_s
         deadline = (time.monotonic() + deadline_s
                     if deadline_s is not None else None)
+        # the trace starts before the request's clock, so that its stages
+        # (the queue wait from enqueue_t on) lie inside the trace
+        tr = trace_mod.start('generate')
         req = GenerateRequest(prompt, deadline, int(max_new_tokens),
                               temperature=temperature, top_k=top_k,
                               top_p=top_p, sample_seed=sample_seed)
+        req.trace = tr
         try:
             self.queue.put(req)
         except (LoadShedError, EngineStoppedError) as e:
+            # counts its outcome and finishes the trace (keep-errors)
             req.fail(e)
             raise
+        monitor.set_gauge('generate_queue_depth', self.queue.depth())
         return req
 
     def generate(self, prompt, max_new_tokens=None, deadline_s=None,
@@ -980,6 +1054,8 @@ class GenerateEngine(object):
                 self._fail_expired(expired)
                 if req is not None:
                     self._admit_one(req)
+                monitor.set_gauge('generate_queue_depth',
+                                  self.queue.depth())
                 continue
             self._step()
         for i, st in enumerate(self._slots):
@@ -1003,6 +1079,7 @@ class GenerateEngine(object):
                     return
             if not self._admit_one(req):
                 return      # parked for blocks: retried next boundary
+            monitor.set_gauge('generate_queue_depth', self.queue.depth())
 
     def _admit_one(self, req):
         """Admit one popped request. False when a paged engine must wait
@@ -1023,8 +1100,19 @@ class GenerateEngine(object):
             blocks, ctx_len, hashes = plan
             table = self._slot_table(blocks)
         slot = self._free.pop()
-        req.queue_s = max(0.0, time.monotonic() - req.enqueue_t)
+        qs = max(0.0, time.monotonic() - req.enqueue_t)
+        # the queue wait's histogram (goodput's 'queue' loss bucket reads
+        # its sum) and the queue-SLO sentinel's feed
+        monitor.observe('generate_queue_seconds', qs)
+        goodput.note_queue_wait(qs)
+        if req.trace is not None:
+            # the queue stage closes at admission; its span rides the
+            # submitter's thread, so the trace shows the hop
+            req.trace.add_stage('queue', qs)
+            monitor.record_span('request.queue', req.enqueue_wall,
+                                qs * 1e6, tid=req._tid, trace=req.trace)
         t0 = time.perf_counter()
+        pf_wall = time.time() * 1e6
         try:
             first = self._run_prefill(
                 slot, req.prompt,
@@ -1058,7 +1146,13 @@ class GenerateEngine(object):
             # decode writes land past the prompt)
             for i, h in enumerate(hashes):
                 self._prefix.register(h, i, blocks[i])
-        req.prefill_s = time.perf_counter() - t0
+        pf_s = time.perf_counter() - t0
+        monitor.observe('prefill_seconds', pf_s)
+        if req.trace is not None:
+            req.trace.add_stage('prefill', pf_s)
+            monitor.record_span('request.prefill', pf_wall, pf_s * 1e6,
+                                trace=req.trace)
+        monitor.inc('decode_tokens_total')
         self._decode_tokens += 1
         req._emit(first)
         st = _Slot(req, pos=req.prompt.size, last=first, blocks=blocks,
@@ -1081,7 +1175,8 @@ class GenerateEngine(object):
             self._spec_round()
             return
         if self.config.speculative and any(self._slots):
-            self.counters['spec_fallback_total'] += 1
+            monitor.inc('spec_fallback_total')
+            self._spec_fallbacks += 1
         self._plain_step()
 
     def _plain_step(self):
@@ -1097,14 +1192,17 @@ class GenerateEngine(object):
             rows[i] = (st.last, st.pos,
                        (r.temperature, r.top_k, r.top_p, r._draw_u()))
             tables[i] = st.table
+        t0 = time.perf_counter()
         try:
             nxt = self._run_step(rows, tables)
         except Exception as e:  # noqa: BLE001 — fails the residents only
             self._fail_residents(active, e)
             return
         now = time.perf_counter()
+        monitor.observe('decode_step_seconds', now - t0)
         self._decode_steps += 1
         self._decode_tokens += len(active)
+        monitor.inc('decode_tokens_total', len(active))
         self._occ_sum += len(active) / float(self.config.slots)
         for i, st in active:
             st.pos += 1
@@ -1112,14 +1210,29 @@ class GenerateEngine(object):
             st.last = int(nxt[i])
             # on a speculative engine this row went to the target only
             st.draft_stale = self.config.speculative
-            st.req.step_s.append(max(0.0, now - st.last_t))
+            # the per-token gap: the request's decode_step stage, so that
+            # queue + prefill + decode sum to its latency
+            dt = max(0.0, now - st.last_t)
             st.last_t = now
+            st.req.step_s.append(dt)
+            if st.req.trace is not None:
+                st.req.trace.add_stage('decode_step', dt)
             st.req._emit(st.last)
             reason = self._finish_reason(st)
             if reason:
                 self._release(i)
-                st.req._finish(reason)
+                self._finish_decode(st, reason)
         self._set_occupancy()
+
+    @staticmethod
+    def _finish_decode(st, reason):
+        """A resident's normal finish, with its decode span when its trace
+        is sampled."""
+        r = st.req
+        if r.trace is not None and r.trace.sampled and r.step_s:
+            monitor.record_span('request.decode', st.wall0,
+                                sum(r.step_s) * 1e6, trace=r.trace)
+        r._finish(reason)
 
     # ------------------------------------------------------------------
     # speculative decoding
@@ -1209,7 +1322,8 @@ class GenerateEngine(object):
         # steps write past them
         stale = [st for _, st in active if st.draft_stale]
         if stale:
-            self.counters['spec_stale_draft_rounds_total'] += 1
+            monitor.inc('spec_stale_draft_rounds_total')
+            self._spec_stale_rounds += 1
             for st in stale:
                 n = min(len(st.dblocks), len(st.blocks))
                 if self._draft_copies_target and n:
@@ -1239,10 +1353,11 @@ class GenerateEngine(object):
         nvs = np.array([n_valid[i] for i, _ in active], 'int64')
         vv[idx] = np.arange(W)[None, :] < nvs[:, None]
         t0 = time.perf_counter()
+        wall0 = time.time() * 1e6
         try:
-            self._bound(('drafter',))(toks, pos, dbtab, dvm)
+            self._call(('drafter',), toks, pos, dbtab, dvm)
             t1 = time.perf_counter()
-            both, _ = self._bound(('verify',))(vp, vbtab, vv)
+            both, _ = self._call(('verify',), vp, vbtab, vv)
         except Exception as e:  # noqa: BLE001 — fails the residents only
             self._fail_residents(active, e)
             return
@@ -1259,6 +1374,9 @@ class GenerateEngine(object):
         now = time.perf_counter()
         draft_s = t1 - t0
         verify_s = max(0.0, now - t1 - adm_s)
+        monitor.observe('spec_draft_seconds', draft_s)
+        monitor.observe('spec_verify_seconds', verify_s)
+        monitor.observe('decode_step_seconds', draft_s + verify_s)
         drafts = both[:S * K].reshape(S, K)
         verdict = both[S * K:].reshape(S, W)
 
@@ -1278,17 +1396,27 @@ class GenerateEngine(object):
             accepted = max(0, m - 1)
             round_proposed += nv - 1
             round_accepted += accepted
-            r.spec_rounds += 1
             r.spec_proposed += nv - 1
             r.spec_accepted += accepted
-            r.draft_s += draft_s
-            r.verify_s += verify_s
             st.pos += m
             st.generated += m
             st.last = emitted[-1]
             self._spec_truncate(st)
-            per_tok = max(0.0, now - st.last_t) / m
+            dt = max(0.0, now - st.last_t)
             st.last_t = now
+            if r.trace is not None:
+                # draft and verify are sub-stages of the decode wall: the
+                # rest stays in decode_step, so the stages still sum to
+                # the request's latency
+                r.trace.add_stage('draft', draft_s)
+                r.trace.add_stage('verify', verify_s)
+                r.trace.add_stage('decode_step',
+                                  max(0.0, dt - draft_s - verify_s))
+                monitor.record_span('request.draft', wall0, draft_s * 1e6,
+                                    trace=r.trace)
+                monitor.record_span('request.verify', wall0 + draft_s * 1e6,
+                                    verify_s * 1e6, trace=r.trace)
+            per_tok = dt / m
             for tok in emitted:
                 r.step_s.append(per_tok)
                 r._emit(tok)
@@ -1296,19 +1424,34 @@ class GenerateEngine(object):
             reason = self._finish_reason(st)
             if reason:
                 self._release(i)
-                r._finish(reason)
+                self._finish_decode(st, reason)
         self._decode_tokens += emitted_total
+        monitor.inc('decode_tokens_total', emitted_total)
+        monitor.inc('spec_propose_total', round_proposed)
+        monitor.inc('spec_accept_total', round_accepted)
+        if round_proposed:
+            # the accept-collapse sentinel's feed
+            goodput.note_accept(round_accepted / float(round_proposed),
+                                model='generate')
         self._occ_sum += len(active) / float(S)
         self._spec_rounds += 1
+        self._spec_proposed += round_proposed
+        self._spec_accepted += round_accepted
         self._spec_draft_s += draft_s
         self._spec_verify_s += verify_s
         self._spec_emitted += emitted_total
-        self.counters['spec_propose_total'] += round_proposed
-        self.counters['spec_accept_total'] += round_accepted
         self._blocks_peak = max(self._blocks_peak, self._alloc.in_use())
+        self._set_block_gauges()
         self._set_occupancy()
 
     def _fail_residents(self, active, e):
+        """A failed step fails its residents (each counted ``error``); the
+        loop and the engine live on. The failure counts
+        ``generate_step_error_total`` and publishes a flight-recorder
+        bundle."""
+        monitor.inc('generate_step_error_total')
+        blackbox.record('generate_step_error', error=e,
+                        residents=len(active))
         for i, st in active:
             self._release(i)
             st.req.fail(e)
@@ -1352,6 +1495,7 @@ class GenerateEngine(object):
         if st.blocks:
             self._alloc.deref_many(st.blocks)
             st.blocks = []
+            self._set_block_gauges()
         if st.dblocks:
             self._draft_alloc.deref_many(st.dblocks)
             st.dblocks = []
@@ -1365,8 +1509,10 @@ class GenerateEngine(object):
 
     def _set_occupancy(self):
         n = sum(1 for s in self._slots if s is not None)
-        self._occ_peak = max(self._occ_peak, n / float(len(self._slots)))
+        occ = n / float(len(self._slots))
+        self._occ_peak = max(self._occ_peak, occ)
         self._active_peak = max(self._active_peak, n)
+        monitor.set_gauge('kv_slot_occupancy', occ)
 
     # ------------------------------------------------------------------
     def stats(self):
@@ -1413,8 +1559,7 @@ class GenerateEngine(object):
                 if self._prefix is not None else 0,
             }
         if self.config.speculative:
-            n = self.counters
-            prop, acc = n['spec_propose_total'], n['spec_accept_total']
+            prop, acc = self._spec_proposed, self._spec_accepted
             out['spec'] = {
                 'k': self.config.spec_k,
                 'rounds': self._spec_rounds,
@@ -1422,10 +1567,11 @@ class GenerateEngine(object):
                 'proposed': prop,
                 'accepted': acc,
                 'accept_rate': round(acc / float(prop), 4) if prop else 0.0,
-                'fallbacks': n['spec_fallback_total'],
-                'stale_draft_rounds': n['spec_stale_draft_rounds_total'],
+                'fallbacks': self._spec_fallbacks,
+                'stale_draft_rounds': self._spec_stale_rounds,
                 'draft_blocks_in_use': self._draft_alloc.in_use(),
                 'draft_s': self._spec_draft_s,
                 'verify_s': self._spec_verify_s,
             }
+        out['goodput'] = goodput.stats(fps=set(self._fps.values()))
         return out

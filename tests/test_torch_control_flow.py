@@ -678,29 +678,77 @@ def test_bound_training_while_past_its_inferred_bound_raises():
         np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
 
 
-def test_bound_while_that_draws_equals_run_calls():
-    """A While(max_trip_count=8) whose body draws (a seeded uniform) at 3,
-    5, 8 and 1 trips: ``bind`` and ``run_fused`` equal ``run()`` bitwise
-    (each run reseeds the op's generator; on the card the capture runs
-    the bound's iterations masked, tests/test_torch_cuda.py)."""
-    main, startup, fetch = torch_loop_cases.loop_program(fluid, 8,
-                                                         noise=True)
-    exe, scope = fluid.Executor(CPU), fluid.Scope()
-    exe.run(startup, scope=scope)
-    feeds = torch_loop_cases.loop_feeds((3, 5, 8, 1))
-    ref = [exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+def _draw_runs(bound, trips, noise):
+    """The loop program with ``noise`` at ``bound``: ``run()`` at each of
+    ``trips``, then ``bind`` (its first step and a call a feed) and
+    ``run_fused`` over the same feeds on a second executor, which counts
+    the same run indices (so the run's generator draws the same)."""
+    main, startup, fetch = torch_loop_cases.loop_program(fluid, bound,
+                                                         noise=noise)
+    feeds = torch_loop_cases.loop_feeds(trips)
+    exes = [fluid.Executor(CPU), fluid.Executor(CPU)]
+    scopes = [fluid.Scope(), fluid.Scope()]
+    for exe, sc in zip(exes, scopes):
+        exe.run(startup, scope=sc)
+    ref = [exes[0].run(main, feed=f, fetch_list=fetch, scope=scopes[0])
            for f in feeds]
-    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scope)
+    ref.append([exes[0].run(main, feed=f, fetch_list=fetch,
+                            scope=scopes[0]) for f in feeds][-1])
+    bp = exes[1].bind(main, feeds[0], fetch_list=fetch, scope=scopes[1])
     got = [bp.first_out] + [bp(f) for f in feeds[1:]]
-    got.append(exe.run_fused(main, feeds, fetch_list=fetch, scope=scope))
-    for r, g in zip(ref + ref[-1:], got):
+    got.append(exes[1].run_fused(main, feeds, fetch_list=fetch,
+                                 scope=scopes[1]))
+    return ref, got, feeds
+
+
+@pytest.mark.parametrize('bound,noise', [(8, True), (None, 'run')],
+                         ids=['bound_8_seeded', 'no_bound_run_generator'])
+def test_bound_while_that_draws_equals_run_calls(bound, noise):
+    """A While whose body draws (a seeded uniform; with no bound, also one
+    from the run's generator) at 3, 5, 8 and 1 trips (with no bound 3, 0,
+    12 and 1): ``bind`` and ``run_fused`` equal ``run()`` bitwise (each
+    run reseeds the generators; on the card the loop is one WHILE node
+    whose trips draw what ``run()`` draws in them,
+    tests/test_torch_cuda.py), each trip draws anew, and the draws move
+    the sum off the noiseless program's. With no bound the JAX executor
+    (``lax.while_loop``) runs the same trips: the counters and lengths
+    equal, and its draws lie in the same range (the two packages' bits
+    differ, core/lowering.py). The JAX package folds only the op index
+    into a drawing op's key, so its body draws one value in every trip:
+    the port draws anew in each trip, as an eager loop of torch draws
+    (ROADMAP Queue 3, noted)."""
+    trips = (3, 5, 8, 1) if bound else (3, 0, 12, 1)
+    ref, got, feeds = _draw_runs(bound, trips, noise)
+    for r, g in zip(ref, got):
         for a, b in zip(r, g):
             np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
-    noiseless = fluid.Executor(CPU).run(
-        torch_loop_cases.loop_program(fluid, 8)[0], feed=feeds[1],
-        fetch_list=fetch[:1], scope=scope)
+    half = 0.2 if noise == 'run' else 0.1
+    n = min(trips[2], 8)
+    for drawn in (np.asarray(ref[2][-1]),):
+        assert len(np.unique(drawn[:n], axis=0)) == n
+        assert np.all(np.abs(drawn[:n]) < half)
+    main, startup, fetch = torch_loop_cases.loop_program(fluid, bound)
+    exe, scope = fluid.Executor(CPU), fluid.Scope()
+    exe.run(startup, scope=scope)
+    noiseless = exe.run(main, feed=feeds[0], fetch_list=fetch, scope=scope)
     assert not np.array_equal(np.asarray(noiseless[0]),
-                              np.asarray(ref[1][0]))
+                              np.asarray(ref[0][0]))
+    if bound is not None:
+        return
+    jmain, jstartup, jfetch = torch_loop_cases.loop_program(
+        jfluid, bound, noise=noise)
+    jexe, jscope = jfluid.Executor(), jfluid.Scope()
+    jexe.run(jstartup, scope=jscope)
+    want = [jexe.run(jmain, feed=f, fetch_list=jfetch, scope=jscope)
+            for f in feeds]
+    for w, r in zip(want, ref):
+        for k in (2, 4):
+            np.testing.assert_array_equal(np.asarray(r[k]),
+                                          np.asarray(w[k]))
+        assert np.asarray(r[-1]).shape == np.asarray(w[-1]).shape
+    jdrawn = np.asarray(want[2][-1])
+    assert len(np.unique(jdrawn[:n], axis=0)) == 1
+    assert np.all(np.abs(jdrawn[:n]) < half)
 
 
 def test_tensor_array_matches_the_jax_tensor_array():

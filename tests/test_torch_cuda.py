@@ -1480,12 +1480,20 @@ def _traced_plain(eng, prompt, n):
         eng.warmup()
     rec, bound = [], dict(eng._graphs)
 
-    def traced(bs):
-        def call(*feeds):
-            out = bs(*feeds)
+    class traced(object):
+        """The bound step, each call's logits recorded; other attributes
+        are the step's."""
+
+        def __init__(self, bs):
+            self.bs = bs
+
+        def __call__(self, *feeds):
+            out = self.bs(*feeds)
             rec.append(out[1][0].to('cpu', copy=True))
             return out
-        return call
+
+        def __getattr__(self, name):
+            return getattr(self.bs, name)
 
     eng._graphs.update({k: traced(bs) for k, bs in bound.items()
                         if k[0] in ('step', 'prefill', 'prefill_paged')})
@@ -1548,6 +1556,8 @@ def test_spec_engine_on_the_card_drains_both_pools(dev):
     work = [(prompts[0][0], 3, True)] + [(p, n, False) for p, n in
                                           prompts * 2] + \
         [(prompts[1][0], 3, True)]
+    from paddle_tpu_torch import monitor
+    before = monitor.counters()
     with eng:
         reqs = [eng.submit(p, max_new_tokens=n,
                            **({'temperature': 0.8, 'sample_seed': i}
@@ -1560,8 +1570,9 @@ def test_spec_engine_on_the_card_drains_both_pools(dev):
     st = eng.stats()
     assert st['spec']['draft_blocks_in_use'] == 0
     assert st['blocks']['in_use'] == 0 and st['active'] == 0
-    assert eng.counters['spec_fallback_total'] > 0
-    assert eng.counters['spec_stale_draft_rounds_total'] > 0
+    delta = monitor.counter_delta(before)
+    assert delta['spec_fallback_total'] > 0
+    assert delta['spec_stale_draft_rounds_total'] > 0
 
 
 # the decode engine's bound signatures as CUDA graphs (serving/graphs.py)
@@ -1897,6 +1908,101 @@ def test_bound_program_step_replays_the_eager_step(dev):
                          [p.name for p in main.all_parameters()])
     with pytest.raises(ValueError, match='bound'):
         bp(dict(feeds[0], tokens=feeds[0]['tokens'][:2]))
+
+
+def test_binds_capture_while_other_threads_scrape_and_dispatch(dev):
+    """Captures are thread-local: while this thread binds programs (an
+    eager step, then a CUDA-graph capture) four times, one thread scrapes
+    /metrics in a loop (goodput's pre-snapshot flush on the monitor's
+    thread) and another runs a program eagerly (each run records CUDA
+    events, allocates and reads its loss on the host). Every capture
+    holds, and each bound call follows the eager run of the same feeds."""
+    import threading
+    import urllib.request
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.io import scope_from_numpy
+    feeds = _bound_lm_feeds(2)
+    main_d, startup_d, loss_d = _bound_lm(0.0)
+    exe_d, scope_d = fluid.Executor(), fluid.Scope()
+    exe_d.run(startup_d, scope=scope_d)
+    exe_d.run(main_d, feed=feeds[0], fetch_list=[loss_d], scope=scope_d)
+    stop, errors, done = threading.Event(), [], {'scrapes': 0, 'runs': 0}
+    server = monitor.serve_metrics(port=0)
+
+    def scrape():
+        url = 'http://127.0.0.1:%d/metrics' % server.port
+        while not stop.is_set():
+            try:
+                urllib.request.urlopen(url, timeout=30).read()
+                done['scrapes'] += 1
+            except Exception as e:      # noqa: BLE001 — reported below
+                errors.append(e)
+                return
+
+    def dispatch():
+        while not stop.is_set():
+            try:
+                exe_d.run(main_d, feed=feeds[1], fetch_list=[loss_d],
+                          scope=scope_d)
+                done['runs'] += 1
+            except Exception as e:      # noqa: BLE001 — reported below
+                errors.append(e)
+                return
+
+    threads = [threading.Thread(target=f) for f in (scrape, dispatch)]
+    for t in threads:
+        t.start()
+    try:
+        for _ in range(4):
+            main, startup, loss = _bound_lm(0.0)
+            exe, scope = fluid.Executor(), fluid.Scope()
+            exe.run(startup, scope=scope)
+            init = {n: scope.get(n).clone() for n in scope.names()}
+            want = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                  scope=scope)[0][0]) for f in feeds]
+            main, _, loss = _bound_lm(0.0)
+            bscope = scope_from_numpy(init)
+            bp = fluid.Executor().bind(main, feeds[0], fetch_list=[loss],
+                                       scope=bscope)
+            got = [float(bp.first_out[0][0]), float(bp(feeds[1])[0][0])]
+            assert bp.captures == 1 and bp.replays == 1
+            _hold_bound_to_eager(got, want, bscope, scope,
+                                 [p.name for p in main.all_parameters()])
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+        server.close()
+    assert not errors, errors
+    assert done['scrapes'] > 0 and done['runs'] > 0, done
+
+
+def test_program_analytics_leave_the_peak_statistics_alone(dev):
+    """analysis.py never resets the card's peak statistics: a plan whose
+    first step sets no new peak records no ``peak_bytes`` and leaves
+    ``max_memory_allocated`` as it was; after the caller resets them, a
+    new plan's first step records the new peak less its base."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import analysis
+    feed = _bound_lm_feeds(1)[0]
+    main, startup, loss = _bound_lm(0.0)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    big = torch.empty(4 << 30, dtype=torch.uint8, device=dev)
+    del big
+    high = torch.cuda.max_memory_allocated(dev)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert torch.cuda.max_memory_allocated(dev) == high
+    assert analysis.lookup(main, kind='run').peak_bytes is None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    main, _, loss = _bound_lm(0.0)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    peak = analysis.lookup(main, kind='run').peak_bytes
+    # the plan's base is taken in the run, after its feeds were staged
+    assert 0 < peak <= torch.cuda.max_memory_allocated(dev) - base
 
 
 def test_bound_dropout_masks_equal_run_masks_on_the_card(dev):
@@ -2809,38 +2915,44 @@ def test_bound_training_while_past_its_inferred_bound_raises(dev):
 
 
 def test_bound_while_that_draws_replays_equal_eager_runs(dev):
-    """A While(max_trip_count=8) whose body draws (a seeded uniform), bound
-    on the card: one capture, which runs the bound's iterations masked
-    (a loop node's trips would replay one draw), and replays at 5, 8 and
-    1 trips equal to ``run()`` on the card bitwise; with a bound of 4 a
-    replay whose feed needs 6 trips raises after it, and with no bound the
-    capture (``bind``: its eager step, then the capture) raises."""
+    """A While whose body draws (a seeded uniform and one from the run's
+    generator), with no bound and with a max_trip_count of 4 that its
+    trips pass, bound and fused on the card: one capture, the loop one
+    WHILE node whose trips draw what ``run()`` draws in them (each trip
+    advances the generators' device offsets, core/graphs.py `run_while`),
+    so the bind step and the replays at 3, 0 and 12 trips, and
+    ``run_fused`` over them, equal ``run()`` on the card bitwise, with a
+    different draw in each trip and no raise past the bound."""
     import paddle_tpu_torch as fluid
-    exe = fluid.Executor()
-    feeds = _on_card((3, 5, 8, 1, 6), dev)
-    progs = {b: torch_loop_cases.loop_program(fluid, b, noise=True)
-             for b in (8, 4, None)}
-    scopes = {}
-    for b, (main, startup, _) in progs.items():
-        scopes[b] = fluid.Scope()
-        exe.run(startup, scope=scopes[b])
-    main, _, fetch = progs[8]
-    ref = [exe.run(main, feed=f, fetch_list=fetch, scope=scopes[8])
-           for f in feeds[:4]]
-    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[8])
-    got = [bp.first_out] + [bp(f) for f in feeds[1:4]]
-    assert bp.captures == 1 and bp.replays == 3
-    for r, g in zip(ref, got):
-        for a, b in zip(r, g):
+    trips = (3, 0, 12, 3)
+    feeds = _on_card(trips, dev)
+    for bound in (None, 4):
+        main, startup, fetch = torch_loop_cases.loop_program(fluid, bound,
+                                                             noise='run')
+        # two executors count the same run indices, so the run's generator
+        # is seeded alike in both
+        exes = [fluid.Executor(), fluid.Executor()]
+        scopes = [fluid.Scope(), fluid.Scope()]
+        for exe, sc in zip(exes, scopes):
+            exe.run(startup, scope=sc)
+        ref = [exes[0].run(main, feed=f, fetch_list=fetch, scope=scopes[0])
+               for f in feeds]
+        bp = exes[1].bind(main, feeds[0], fetch_list=fetch, scope=scopes[1])
+        got = [bp.first_out] + [bp(f) for f in feeds[1:]]
+        assert bp.captures == 1 and bp.replays == len(trips) - 1
+        assert bp.loop_launches()[1] == [sum(trips[1:])]
+        for r, g in zip(ref, got):
+            for a, b in zip(r, g):
+                np.testing.assert_array_equal(b, a)
+        assert [int(r[2][0]) for r in ref] == list(trips)
+        drawn = ref[2][-1]
+        assert len(np.unique(drawn, axis=0)) == 8
+        fused = exes[1].run_fused(main, feeds, fetch_list=fetch,
+                                  scope=scopes[1])
+        want = [exes[0].run(main, feed=f, fetch_list=fetch, scope=scopes[0])
+                for f in feeds][-1]
+        for a, b in zip(want, fused):
             np.testing.assert_array_equal(b, a)
-    main, _, fetch = progs[4]
-    bp = exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[4])
-    bp(feeds[3])
-    with pytest.raises(RuntimeError, match='draws random numbers'):
-        bp(feeds[4])
-    main, _, fetch = progs[None]
-    with pytest.raises(RuntimeError, match='draws random numbers'):
-        exe.bind(main, feeds[0], fetch_list=fetch, scope=scopes[None])
 
 
 def test_nmt_run_steps_are_bitwise_from_run_to_run(dev):

@@ -251,9 +251,8 @@ def test_admission_control_shed_deadline_stop_and_rejects(port_engine):
 
 
 def test_not_ported_modes_raise():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        GenerateConfig(metrics_port=0)
-    # ported: speculative decoding on the paged cache
+    # ported: the metrics endpoint (tests/test_torch_monitor.py serves
+    # it), speculative decoding on the paged cache
     # (tests/test_torch_speculative.py), which the contiguous cache refuses
     # as the JAX package's does; the paged cache (tests/test_torch_paged.py)
     # and the unfused prefill of use_flash_attention=False
@@ -261,6 +260,7 @@ def test_not_ported_modes_raise():
         GenerateConfig(speculative=True)
     assert GenerateConfig(speculative=True, paged=True).speculative
     assert GenerateConfig(paged=True).paged
+    assert GenerateConfig(metrics_port=0).metrics_port == 0
     eng = GenerateEngine(_port_cfg(model=LMConfig(
         use_flash_attention=False, **LM)), device='cpu')
     assert len(eng.generate_once(_prompt(5), max_new_tokens=3)) == 3

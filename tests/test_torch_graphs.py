@@ -33,6 +33,7 @@ from paddle_tpu.models.transformer import LMConfig as JLMConfig
 from paddle_tpu.serving import GenerateConfig as JGenerateConfig
 from paddle_tpu.serving import GenerateEngine as JGenerateEngine
 
+from paddle_tpu_torch import monitor as tmonitor
 from paddle_tpu_torch.models.transformer import LMConfig
 from paddle_tpu_torch.serving import GenerateConfig, GenerateEngine
 from paddle_tpu_torch.serving.graphs import BoundStep
@@ -227,6 +228,7 @@ def test_mixed_traffic_binds_nothing_after_warmup(jax_engines, params,
     eng = GenerateEngine(_cfg(**kw), params=params, device='cpu')
     eng.warmup()
     refs = [eng.generate_once(p, max_new_tokens=n, **s) for p, n, s in work]
+    before = tmonitor.counters()
     with eng:
         outs = [list(r.result(60)) for r in
                 [eng.submit(p, max_new_tokens=n, **s) for p, n, s in work]]
@@ -239,7 +241,8 @@ def test_mixed_traffic_binds_nothing_after_warmup(jax_engines, params,
     assert g['captures_after_warmup'] == 0
     assert g['signatures'] == 2 + 2 * len(BUCKETS)
     if paged:
-        assert eng.counters['kv_prefix_hit_total{outcome=hit}'] >= 1
+        assert tmonitor.counter_delta(before)[
+            'kv_prefix_hit_total{outcome=hit}'] >= 1
 
 
 def test_speculative_traffic_binds_nothing_after_warmup(params):

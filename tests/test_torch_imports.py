@@ -128,3 +128,48 @@ def test_library_name_hashes_the_headers_a_source_includes(tmp_path,
     after = {n: native._lib_path(n)[1] for n in 'ab'}
     assert before['a'] != after['a']
     assert before['b'] == after['b']
+
+
+def test_a_source_in_flight_is_waited_for_not_compiled_twice(tmp_path,
+                                                              monkeypatch):
+    """A build of a source that another thread is compiling waits for
+    that nvcc and starts none of its own; the first use of a library
+    waits only for its own source, not for every source in flight (a
+    stand-in nvcc that takes half a second and logs each source)."""
+    import threading
+    import time
+    from paddle_tpu_torch import native
+    log = tmp_path / 'log'
+    nvcc = tmp_path / 'bin' / 'nvcc'
+    nvcc.parent.mkdir()
+    nvcc.write_text('#!/bin/sh\nprev=""\nfor a in "$@"; do\n'
+                    '  [ "$prev" = "-o" ] && out="$a"; prev="$a"; src="$a"\n'
+                    'done\nsleep 0.5\necho "$src" >> %s\n: > "$out"\n' % log)
+    nvcc.chmod(0o755)
+    src = tmp_path / 'csrc'
+    src.mkdir()
+    for n in ('a', 'b', 'slow'):
+        (src / (n + '.cu')).write_text('// %s\n' % n)
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+    monkeypatch.setattr(native, 'CSRC', str(src))
+    monkeypatch.setattr(native, 'BUILD_DIR', str(tmp_path / 'build'))
+    monkeypatch.setattr(native, 'SOURCES', ('a', 'b', 'slow'))
+    monkeypatch.setattr(native, 'TORCH_SOURCES', ())
+    monkeypatch.setattr(native, '_building', {})
+    monkeypatch.setattr(native.ctypes, 'CDLL', lambda path: path)
+    monkeypatch.setattr(native, '_libs', {})
+    monkeypatch.setattr(
+        native, '_compile',
+        lambda todo, out, real=native._compile:
+        (time.sleep(1.0) if [t[0] for t in todo] == ['slow'] else None,
+         real(todo, out)))
+    early = threading.Thread(target=native.build, args=(('slow',),))
+    early.start()
+    time.sleep(0.2)
+    t = time.perf_counter()
+    native._library('a')            # builds a and b, not slow
+    assert time.perf_counter() - t < 1.2
+    assert native.build(('a', 'b', 'slow'))['built'] == []
+    early.join()
+    assert sorted(log.read_text().split()) == sorted(
+        str(src / (n + '.cu')) for n in ('a', 'b', 'slow'))

@@ -28,6 +28,7 @@ from paddle_tpu.serving import GenerateConfig as JGenerateConfig
 from paddle_tpu.serving import GenerateEngine as JGenerateEngine
 from paddle_tpu.serving import kv_blocks as jkv_blocks
 
+from paddle_tpu_torch import monitor as tmonitor
 from paddle_tpu_torch.models.transformer import LMConfig
 from paddle_tpu_torch.ops import kv_cache_ops
 from paddle_tpu_torch.serving import (BlockAllocator, GenerateConfig,
@@ -344,7 +345,7 @@ def test_shared_prefix_traffic_identical_to_jax(params):
                                   params['lm_head.w'])
     eng = GenerateEngine(_cfg(), params=params, device='cpu')
     outs = {}
-    before = monitor.counters()
+    before, tbefore = monitor.counters(), tmonitor.counters()
     for name, e in (('jax', jeng), ('port', eng)):
         e.warmup()
         first = e.submit(work[0][0], max_new_tokens=work[0][1])
@@ -354,16 +355,17 @@ def test_shared_prefix_traffic_identical_to_jax(params):
         _drive(e, *reqs)
         outs[name] = [list(r.result(5)) for r in reqs]
         e.stop()
-    delta = monitor.counter_delta(before)
+    delta, tdelta = monitor.counter_delta(before), \
+        tmonitor.counter_delta(tbefore)
     assert outs['port'] == outs['jax']
     assert outs['port'][2] != outs['port'][3]     # the sharers diverge
     for k in ('kv_block_cow_total', 'kv_prefix_hit_total{outcome=hit}',
               'kv_prefix_hit_total{outcome=miss}',
               'kv_prefix_tokens_saved_total'):
-        assert eng.counters[k] == delta.get(k, 0), k
-    assert eng.counters['kv_block_cow_total'] == 2
-    assert eng.counters['kv_prefix_hit_total{outcome=hit}'] == 3
-    assert eng.counters['kv_prefix_tokens_saved_total'] == 16 + 15 + 15
+        assert tdelta.get(k, 0) == delta.get(k, 0), k
+    assert tdelta['kv_block_cow_total'] == 2
+    assert tdelta['kv_prefix_hit_total{outcome=hit}'] == 3
+    assert tdelta['kv_prefix_tokens_saved_total'] == 16 + 15 + 15
     assert eng.stats()['blocks']['in_use'] == 0
 
 
@@ -423,9 +425,11 @@ def test_prefix_blocks_are_reused_by_refcount(params):
     eng = GenerateEngine(_cfg(prompt_buckets=[8, 16, 32]), params=params,
                          device='cpu')
     p = _prompt(20, 21)
+    before = tmonitor.counters()
     a = eng.submit(p, max_new_tokens=3)
     _drive(eng, a)
-    assert eng.counters['kv_prefix_hit_total{outcome=miss}'] == 1
+    assert tmonitor.counter_delta(before)[
+        'kv_prefix_hit_total{outcome=miss}'] == 1
     assert eng.stats()['blocks']['prefix_entries'] == 2
     reg = [e[0] for e in sorted(eng._prefix._entries.values(),
                                 key=lambda e: e[1])]
@@ -436,9 +440,10 @@ def test_prefix_blocks_are_reused_by_refcount(params):
     assert eng._alloc.refcount(reg[0]) == 2     # cache + b
     assert list(st.table[:3]) == st.blocks
     _drive(eng, b)
-    assert eng.counters['kv_prefix_hit_total{outcome=hit}'] == 1
-    assert eng.counters['kv_prefix_tokens_saved_total'] == 16
-    assert eng.counters['kv_block_cow_total'] == 0
+    delta = tmonitor.counter_delta(before)
+    assert delta['kv_prefix_hit_total{outcome=hit}'] == 1
+    assert delta['kv_prefix_tokens_saved_total'] == 16
+    assert delta.get('kv_block_cow_total', 0) == 0
     assert b.result(5) == a.result(5)
     eng.stop()
     assert eng._alloc.in_use() == 0
@@ -452,14 +457,16 @@ def test_cow_isolates_two_sampled_sharers(params):
     ref_b = eng.generate_once(p, sample_seed=2, **kw)
     assert ref_a != ref_b
     greedy = eng.generate_once(p, max_new_tokens=6)
+    before = tmonitor.counters()
     with eng:
         assert eng.submit(p, max_new_tokens=6).result(60) == greedy
         ra = eng.submit(p, sample_seed=1, **kw)
         rb = eng.submit(p, sample_seed=2, **kw)
         assert ra.result(60) == ref_a
         assert rb.result(60) == ref_b
-    assert eng.counters['kv_block_cow_total'] >= 2
-    assert eng.counters['kv_prefix_hit_total{outcome=hit}'] >= 2
+    delta = tmonitor.counter_delta(before)
+    assert delta['kv_block_cow_total'] >= 2
+    assert delta['kv_prefix_hit_total{outcome=hit}'] >= 2
 
 
 def test_exhaustion_finishes_cache_full_and_returns_every_block(params):

@@ -31,6 +31,7 @@ from paddle_tpu.models.transformer import LMConfig as JLMConfig
 from paddle_tpu.serving import GenerateConfig as JGenerateConfig
 from paddle_tpu.serving import GenerateEngine as JGenerateEngine
 
+from paddle_tpu_torch import monitor as tmonitor
 from paddle_tpu_torch.io import params_from_numpy
 from paddle_tpu_torch.models.transformer import LMConfig
 from paddle_tpu_torch.ops import kv_cache_ops
@@ -429,6 +430,7 @@ def test_accept_path_threaded(params, refs, jax_spec):
                  for p, n in WORK]
     spec = GenerateEngine(_spec(), params=params, device='cpu')
     spec.warmup()
+    before = tmonitor.counters()
     with spec:
         reqs = [spec.submit(p, max_new_tokens=n) for p, n in WORK]
         outs = [list(r.result(60)) for r in reqs]
@@ -441,10 +443,10 @@ def test_accept_path_threaded(params, refs, jax_spec):
     t = reqs[0].timing
     assert t['spec_accept_rate'] == 1.0 and t['spec_proposed'] > 0
     assert t['draft_s'] > 0 and t['verify_s'] > 0
-    n = spec.counters
+    n = tmonitor.counter_delta(before)
     assert n['spec_propose_total'] == st['spec']['proposed'] == \
         n['spec_accept_total'] > 0
-    assert n['spec_fallback_total'] == 0
+    assert n.get('spec_fallback_total', 0) == 0
 
 
 def test_eos_inside_the_window(jax_spec, params):
@@ -500,6 +502,7 @@ def test_draft_cache_resync_after_fallback_burst(jax_spec, params):
     JAX engine's."""
     pg = _prompt(6, 41)
     counts = {}
+    before = tmonitor.counters()
     for name, e in (('jax', JGenerateEngine(_spec('jax'),
                                             scope=jax_spec.scope)),
                     ('port', GenerateEngine(_spec(), params=params,
@@ -530,7 +533,8 @@ def test_draft_cache_resync_after_fallback_burst(jax_spec, params):
             [sp['fallbacks' if name == 'port' else 'fallback_rounds']]
         assert sp['accept_rate'] == 1.0 and sp['stale_draft_rounds'] >= 1
     assert counts['port'] == counts['jax']
-    assert e.counters['spec_stale_draft_rounds_total'] >= 1
+    assert tmonitor.counter_delta(before)[
+        'spec_stale_draft_rounds_total'] >= 1
 
 
 def test_chunked_prefill_with_sharing_under_speculation(jax_spec, params):
@@ -545,11 +549,13 @@ def test_chunked_prefill_with_sharing_under_speculation(jax_spec, params):
         jouts = [list(jeng.submit(p, max_new_tokens=8).result(60))
                  for _ in range(2)]
     eng = GenerateEngine(_spec(), params=params, device='cpu')
+    before = tmonitor.counters()
     with eng:
         outs = [list(eng.submit(p, max_new_tokens=8).result(60))
                 for _ in range(2)]
     assert outs == jouts == [ref, ref]
-    assert eng.counters['kv_prefix_hit_total{outcome=hit}'] >= 1
+    assert tmonitor.counter_delta(before)[
+        'kv_prefix_hit_total{outcome=hit}'] >= 1
     assert eng.stats()['spec']['accept_rate'] == 1.0
 
 
@@ -560,8 +566,8 @@ def test_config_checks():
         _spec(spec_k=0)
     with pytest.raises(ValueError, match='vocab_size'):
         _spec(draft_model=LMConfig(**dict(LM, vocab_size=128)))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        _spec(metrics_port=0)
+    # the metrics endpoint is ported (tests/test_torch_monitor.py)
+    assert _spec(metrics_port=0).metrics_port == 0
     c = _spec()
     assert (c.speculative, c.spec_k, c.draft_model) == (True, K, None)
     assert _cfg().speculative is False

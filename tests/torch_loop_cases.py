@@ -9,7 +9,10 @@ def loop_program(fluid, bound, train=False, noise=False):
     """(main, startup, fetch list): s = sum of x * w over n iterations (n
     fed), each partial sum written to an array at the counter; with
     ``train`` an SGD step on sum(s); with ``noise`` each iteration also
-    adds a uniform draw in [-0.1, 0.1) of an op seeded 5."""
+    adds a uniform draw in [-0.1, 0.1) of an op seeded 5 (and, with
+    ``noise='run'``, one of an unseeded op, from the run's generator),
+    written to a second array at the counter, whose stack is the last
+    fetch."""
     L = fluid.layers
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
@@ -23,19 +26,27 @@ def loop_program(fluid, bound, train=False, noise=False):
         s = L.fill_constant(shape=[4], dtype='float32', value=0.0)
         s.stop_gradient = False
         arr = L.create_array('float32', capacity=8)
+        drawn = L.create_array('float32', capacity=8) if noise else None
         cond = L.less_than(i, n)
         loop = L.While(cond, max_trip_count=bound)
         with loop.block():
             step = L.elementwise_mul(x, w)
             if noise:
-                step = L.elementwise_add(step, L.uniform_random(
-                    [4], min=-0.1, max=0.1, seed=5))
+                u = L.uniform_random([4], min=-0.1, max=0.1, seed=5)
+                if noise == 'run':
+                    u = L.elementwise_add(u, L.uniform_random(
+                        [4], min=-0.1, max=0.1))
+                L.array_write(u, i, array=drawn)
+                step = L.elementwise_add(step, u)
             L.assign(L.tanh(L.elementwise_add(s, step)), s)
             L.array_write(s, i, array=arr)
             L.increment(i, value=1, in_place=True)
             L.less_than(i, n, cond=cond)
         stacked, _ = L.tensor_array_to_tensor(arr, axis=0, use_stack=True)
         fetch = [L.reduce_sum(s), s, i, stacked, L.array_length(arr)]
+        if noise:
+            fetch.append(L.tensor_array_to_tensor(drawn, axis=0,
+                                                  use_stack=True)[0])
         if train:
             fluid.optimizer.SGD(learning_rate=0.1).minimize(fetch[0])
     return main, startup, fetch
