@@ -382,7 +382,7 @@ Phases, each printing one JSON line:
    gradient element); the bench's keep-bf16 program one step, held so
    with ``IMAGE_AMP_RATIO`` and ``IMAGE_AMP_FLOOR``, its loss within
    5e-3 of the float64 loss or no further from it than that multiple of
-   the CPU's; (b) three eager ``Executor.run`` steps: step ms, images/s,
+   the CPU's; (b) two eager ``Executor.run`` steps: step ms, images/s,
    peak memory, zero hand-written launches, and a torch.profiler
    breakdown of one step (busy share, top kernels and ops, the
    convolutions' and the elementwise ops' shares of device time,
@@ -391,7 +391,7 @@ Phases, each printing one JSON line:
    same K batches from the same state, under cuDNN's deterministic
    algorithms, every statistic, parameter and velocity bitwise equal
    (``fused_stats_equal_runs``); (d) ``run_fused`` as the bench times it,
-   cut to a first call and 2 rounds of max(8, k) steps (the bench's 240
+   cut to a first call and 2 rounds of max(4, k) steps (the bench's 240
    steps a call and 2-3 rounds): step ms from the best round, images/s,
    peak memory, zero launches; the loss finite and fallen from the first
    eager step to the last fused one; and these rounds, under the flags
@@ -635,6 +635,33 @@ Phases, each printing one JSON line:
    and off (``PADDLE_PERFWATCH=0``, ``PADDLE_TRACE=0``) in OBS_HOOK_PAIRS
    pairs of calls: the rise of the median and its spread over the fifths
    of the pairs (`hook_cost`), beside the card's name and power limit.
+30. training_health — the health and fault-tolerance tier on
+   examples/train_lm.py's program (phase 26's ``EXAMPLE_LM``, AMP, B 64,
+   ``noam_decay`` + ``decorate(Adam)``), seeded, with a float [1] feed
+   (``POISON``) added to its loss: 0 on good steps, NaN on a poisoned one,
+   with ``FLAGS_check_nan_inf`` and ``PADDLE_NAN_LOCALIZE=1`` on. (a)
+   HEALTH_GOOD_STEPS good ``Executor.run`` steps through
+   ``TrainingGuard(health='preempt')`` (the program instrumented by
+   health.py), each launching exactly the example's kernels, with one
+   poisoned step before good step HEALTH_POISON_AT: it is skipped, the
+   state after it equals the state before it bitwise, and its
+   localization names the added ``elementwise_add``. (b) The same good
+   steps unguarded: the losses and every state tensor bitwise equal to
+   the guarded run's, the run counters equal (dropout included). (c)
+   Recorded: each step's ms, guarded and unguarded, the guard's snapshot
+   bytes and ms, the peak memory a step over its base on each side. (d)
+   One more instrumented step fetching its stat vector with the tensors
+   it reduces: each entry equals ``torch.linalg.vector_norm`` of them
+   within HEALTH_STAT_TOL relative (counts exact), every update ratio
+   above 0. (e) ``training_health_hold``: at HEALTH_HOLD_LAYERS layers,
+   dropout 0, B 2, the stat vectors of HEALTH_HOLD_STEPS steps on the card
+   against the CPU Executor's at phase 15b's AMP limits. (f) ``run()`` and
+   a ``run_fused`` window over a good, a poisoned and a good batch, and
+   (g) a bound call on the poisoned batch, each raise naming the loss
+   alone; (g) also times HEALTH_BOUND_CALLS bound calls with the check in
+   the graph against as many without it, alternating (the check's ms a
+   bound step). (h) ``PADDLE_FAULT_SPEC=run:n=2``: a guarded step retries
+   to success, ``retry_attempt_total{site=run}`` +2, no give-up.
 
 ``bound_ms`` is the least time the card could take: the larger of the
 bytes (each input read once, each output written once) over 3.35 TB/s and
@@ -807,10 +834,11 @@ IMAGE_B = 128
 IMAGE_ROWS = (('resnet50', (3, 224, 224), 1000, 0.005, 4),
               ('se_resnext', (3, 224, 224), 1000, 0.02, 4),
               ('vgg16', (3, 32, 32), 10, 0.02, 10))
-# eager Executor.run steps, then run_fused rounds of max(8, k) steps each
-# (the bench's 240 steps a call and 2-3 rounds, cut for time)
-IMAGE_EAGER_STEPS = 3
-IMAGE_FUSED_STEPS = 8
+# eager Executor.run steps, then run_fused rounds of max(4, k) steps each
+# (the bench's 240 steps a call and 2-3 rounds, cut for time: 3 eager
+# steps and max(8, k) until the script took on phase 30)
+IMAGE_EAGER_STEPS = 2
+IMAGE_FUSED_STEPS = 4
 IMAGE_FUSED_ROUNDS = 2
 # the hold against the CPU Executor at B 4 (`hold_image_to_cpu`): how far
 # (2-norm) the card's gradient of a tensor may lie from the float64 one,
@@ -876,6 +904,18 @@ OBS_HOOK_PAIRS = 4000
 # gauges read against the wall clock: two scrapes a moment apart differ
 OBS_WALL_GAUGES = ('goodput_wall_seconds', 'goodput_frac',
                    'model_flops_per_s')
+# phase 30: training health and fault tolerance. The example's program
+# (EXAMPLE_LM, AMP, B 64) with a float [1] feed POISON added to its loss,
+# seeded HEALTH_SEED: HEALTH_GOOD_STEPS good steps guarded, with one
+# poisoned step before good step HEALTH_POISON_AT, and unguarded; the
+# stats against the CPU at HEALTH_HOLD_LAYERS layers for HEALTH_HOLD_STEPS
+# steps; HEALTH_BOUND_CALLS bound calls each with the check on and off
+POISON = 'poison'
+HEALTH_SEED = 30
+HEALTH_GOOD_STEPS, HEALTH_POISON_AT = 12, 6
+HEALTH_HOLD_LAYERS, HEALTH_HOLD_STEPS = 2, 2
+HEALTH_BOUND_CALLS = 10
+HEALTH_STAT_TOL = 1e-5
 # where a held program's step counter starts (phase 26 (a))
 EXAMPLE_HOLD_COUNTER0 = 396
 # phase 27: the bench's machine_translation row (bench.py:429-517, called
@@ -966,7 +1006,8 @@ PATH_KERNELS = {'engine': ENGINE_KERNELS, 'engine_paged': PAGED_KERNELS,
                 'decode_programs': DECODE_PROGRAM_KERNELS,
                 'decode_programs_paged': PAGED_KERNELS,
                 'observability_engine': ENGINE_KERNELS,
-                'observability_train': EXAMPLE_KERNELS}
+                'observability_train': EXAMPLE_KERNELS,
+                'training_health': EXAMPLE_KERNELS}
 
 
 _START = time.perf_counter()
@@ -7217,6 +7258,444 @@ def run_observability(torch, kt, smi):
             'observability_train': train_counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 30: training health and fault tolerance
+
+
+def health_program(fluid, cfg, seed=HEALTH_SEED):
+    """(main, startup, lr, loss) of examples/train_lm.py's program for
+    ``cfg`` (`example_program`) with a float [1] feed ``POISON`` added to
+    its loss by an ``elementwise_add``: 0 on a good step, NaN on a
+    poisoned one (its gradient does not depend on the feed, so the
+    poisoned step's update is finite and only the loss is not). Seeded:
+    two builds draw the same dropout masks."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.models.transformer import build_lm
+    main_p, startup = fluid.Program(), fluid.Program()
+    main_p.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main_p, startup), fluid.unique_name.guard():
+        _, _, _, avg_loss = build_lm(cfg)
+        poison = fluid.layers.data(name=POISON, shape=[1], dtype='float32',
+                                   append_batch_size=False)
+        loss = fluid.layers.elementwise_add(avg_loss, poison)
+        lr = fluid.layers.learning_rate_scheduler.noam_decay(
+            cfg.d_model, EXAMPLE_WARMUP)
+        mp.decorate(fluid.optimizer.Adam(learning_rate=lr)).minimize(loss)
+    return main_p, startup, lr, loss
+
+
+def health_feed(batch, value=0.0):
+    return dict(batch, **{POISON: np.full((1,), value, np.float32)})
+
+
+def nonfinite_names(err):
+    """The variables a ``FLAGS_check_nan_inf`` error names."""
+    m = re.search(r'NaN/Inf detected in (\[.*?\]) after', str(err))
+    if m is None:
+        raise AssertionError('not a FLAGS_check_nan_inf error: %s' % err)
+    return sorted(re.findall(r"'([^']+)'", m.group(1)))
+
+
+def health_trajectory(torch, kt, fluid, cfg, init, batches, per_step,
+                      guarded):
+    """HEALTH_GOOD_STEPS good ``Executor.run`` steps of `health_program`
+    from ``init`` over the cycled ``batches``, each launching exactly
+    ``per_step``; ``guarded``: through ``TrainingGuard(health='preempt')``
+    with one poisoned step before good step HEALTH_POISON_AT (its
+    launches, the replay's included, recorded, not held). Returns
+    (summary, losses, state arrays after the last step, launch counts of
+    the good steps)."""
+    from paddle_tpu_torch import resilience
+    from paddle_tpu_torch.io import scope_from_numpy
+    exe = fluid.Executor()
+    main, _, _, loss = health_program(fluid, cfg)
+    scope = scope_from_numpy(init, device=exe.device)
+    guard = resilience.TrainingGuard(
+        exe, main, loss_name=loss.name, scope=scope, max_bad_steps=2,
+        health='preempt') if guarded else None
+    out = dict(guarded=guarded)
+
+    def step(feed):
+        def run():
+            if guard is not None:
+                got = guard.step(feed=feed, fetch_list=[loss],
+                                 return_numpy=False)
+                if guard.last_step_skipped and feed[POISON][0] == 0:
+                    raise AssertionError('the guard skipped a good step: '
+                                         '%s' % guard.stats())
+                return got[0]
+            return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                           return_numpy=False)[0]
+        return run
+
+    losses, ms, counts = [], [], dict.fromkeys(kt.KERNELS, 0)
+    for i in range(HEALTH_GOOD_STEPS):
+        if guarded and i == HEALTH_POISON_AT:
+            before = state_arrays(scope)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            k0 = kt.launch_counts()
+            t = time.perf_counter()
+            guard.step(feed=health_feed(batches[i % len(batches)],
+                                        float('nan')), fetch_list=[loss])
+            torch.cuda.synchronize()
+            k1 = kt.launch_counts()
+            after = state_arrays(scope)
+            out['poisoned'] = dict(
+                skipped=guard.last_step_skipped, ms=(time.perf_counter() -
+                                                     t) * 1e3,
+                launches={k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]},
+                peak_over_base_bytes=torch.cuda.max_memory_allocated() -
+                base,
+                localization=guard.last_localization and {
+                    k: guard.last_localization[k]
+                    for k in ('op_index', 'op_type', 'bad_outputs')},
+                state_bitwise=sorted(before) == sorted(after) and all(
+                    np.array_equal(before[k], after[k]) for k in before),
+                rng_run_counter=main._rng_run_counter)
+            del before, after
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        k0 = kt.launch_counts()
+        t = time.perf_counter()
+        losses += run_counted(kt, [step(health_feed(
+            batches[i % len(batches)]))], per_step,
+            'training_health %s step %d' % (
+                'guarded' if guarded else 'unguarded', i))
+        ms.append((time.perf_counter() - t) * 1e3)
+        k1 = kt.launch_counts()
+        for k in counts:
+            counts[k] += k1[k] - k0[k]
+        if i == 1:
+            out['peak_over_base_bytes'] = \
+                torch.cuda.max_memory_allocated() - base
+    out.update(step_ms=ms, median_step_ms=float(np.median(ms[1:])),
+               rng_run_counter=main._rng_run_counter)
+    if guard is not None:
+        # the snapshot's cost: a copy of every written persistable
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            guard._snapshot(scope)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        out.update(snapshot_bytes=guard.snapshot_bytes,
+                   snapshot_ms=float(np.median(ts)),
+                   guard_stats={k: v for k, v in guard.stats().items()
+                                if k != 'health'})
+    state = state_arrays(scope)
+    del scope, guard
+    return out, losses, state, main, counts
+
+
+def health_stats_direct(torch, fluid, exe, main, loss, scope, feed):
+    """One step of the instrumented ``main`` fetching its stat vector with
+    every tensor it reduces (the gradients, the parameters after the
+    update, the pre-update copies, the tapped activations, the loss), and
+    the vector against ``torch.linalg.vector_norm`` of those tensors:
+    (summary, failures). The norms and ratios within HEALTH_STAT_TOL
+    relative, the counts exact, every update ratio above 0."""
+    from paddle_tpu_torch import health
+    sch = main._health_schema
+    params = sch['params']
+    grads = [g for _, g in main._health_params]
+    pres = [p + '@health_pre' for p in params]
+    acts = sch['acts']
+    got = exe.run(main, feed=feed, fetch_list=[health.FETCH_NAME, loss] +
+                  grads + pres + acts + params, scope=scope,
+                  return_numpy=False)
+    vec = got[0].double().cpu().numpy()
+    n = len(params)
+    G = [t.float() for t in got[2:2 + n]]
+    P0 = [t.float() for t in got[2 + n:2 + 2 * n]]
+    A = [t.float() for t in got[2 + 2 * n:2 + 2 * n + len(acts)]]
+    P = [t.float() for t in got[2 + 2 * n + len(acts):]]
+    norm = torch.linalg.vector_norm
+    want = [norm(g) for g in G]
+    for p, p0 in zip(P, P0):
+        pn = norm(p0)
+        want.append(norm(p - p0) / (pn + 1e-12) if pn > 0 else pn * 0)
+    want += [torch.sqrt(torch.mean(a * a)) for a in A]
+    flat = torch.cat([g.reshape(-1) for g in G])
+    want += [norm(flat), norm(torch.cat([p.reshape(-1) for p in P])),
+             (~torch.isfinite(flat)).sum().float(),
+             (flat.abs() > 1e3).sum().float(), got[1].float().mean()]
+    want = torch.stack([w.reshape(()) for w in want]).double().cpu().numpy()
+    kinds = [k for k, _ in sch['entries']]
+    rel = np.abs(vec - want) / np.maximum(np.abs(want), 1e-30)
+    failures = []
+    if len(vec) != len(want):
+        failures.append('%d stats, %d direct' % (len(vec), len(want)))
+    else:
+        for k, r, g, w in zip(sch['entries'], rel, vec, want):
+            exact = k[0] in ('nonfinite', 'large')
+            if (g != w) if exact else not r <= HEALTH_STAT_TOL:
+                failures.append('%s: %r against %r' % (k, g, w))
+    ratios = [v for (k, _), v in zip(sch['entries'], vec)
+              if k == 'upd_ratio']
+    if not all(r > 0 for r in ratios):
+        failures.append('update ratios at 0: %s' % [
+            lbl for (k, lbl), v in zip(sch['entries'], vec)
+            if k == 'upd_ratio' and not v > 0])
+    out = dict(entries=len(vec), params=n, acts=len(acts),
+               max_rel_err={kind: float(max(r for k, r in zip(kinds, rel)
+                                            if k == kind))
+                            for kind in sorted(set(kinds))},
+               update_ratio_min=float(min(ratios)),
+               update_ratio_max=float(max(ratios)),
+               grad_norm_global=float(vec[kinds.index('grad_norm_global')]))
+    return out, failures
+
+
+def health_hold(torch, kt, fluid, cfg, smi):
+    """Phase 30 (e): the instrumented program at HEALTH_HOLD_LAYERS layers,
+    dropout 0, B DH256_HOLD_B, HEALTH_HOLD_STEPS ``run()`` steps on the
+    card and on the CPU Executor from one initialization: each step's stat
+    vector held at phase 15b's AMP limits (each entry within 2e-2 of its
+    kind's largest magnitude on the CPU, the loss 5e-3 relative, the
+    counts exact)."""
+    from paddle_tpu_torch import health
+    from paddle_tpu_torch.io import scope_from_numpy
+    hold_cfg = type(cfg)(**dict(EXAMPLE_LM, n_layer=HEALTH_HOLD_LAYERS,
+                                dropout=0.0))
+    main, startup, _, loss = health_program(fluid, hold_cfg)
+    health.instrument(main, loss.name)
+    kinds = [k for k, _ in main._health_schema['entries']]
+    s0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=s0)
+    init = state_arrays(s0)
+    del s0
+    feed = health_feed({k: v.cpu().numpy() for k, v in lm_feed(
+        torch, hold_cfg, DH256_HOLD_B, 30, 'cpu').items()})
+    runs = {}
+    for side, place in (('card', None), ('cpu', fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = scope_from_numpy(init, device=exe.device)
+        runs[side] = [exe.run(main, feed=feed, fetch_list=[
+            health.FETCH_NAME], scope=scope)[0].astype(np.float64)
+            for _ in range(HEALTH_HOLD_STEPS)]
+        del scope
+    worst, failures = {}, []
+    for s, (got, want) in enumerate(zip(runs['card'], runs['cpu'])):
+        for kind in sorted(set(kinds)):
+            idx = [i for i, k in enumerate(kinds) if k == kind]
+            g, w = got[idx], want[idx]
+            if kind in ('nonfinite', 'large'):
+                err, lim = float(np.abs(g - w).max()), 0.0
+            elif kind == 'loss':
+                err, lim = float(abs(g[0] / w[0] - 1)), 5e-3
+            else:
+                err = float(np.abs(g - w).max() / max(np.abs(w).max(),
+                                                      1e-30))
+                lim = 2e-2
+            worst[kind] = max(worst.get(kind, 0.0), err)
+            if not err <= lim:
+                failures.append('step %d %s: %.3g over %.3g'
+                                % (s + 1, kind, err, lim))
+    out = dict(phase='training_health_hold', card=smi,
+               n_layer=HEALTH_HOLD_LAYERS, batch=DH256_HOLD_B,
+               steps=HEALTH_HOLD_STEPS, entries=len(kinds), worst=worst)
+    emit(out)
+    return out, failures
+
+
+def bound_check_cost(torch, fluid, cfg, init, batch):
+    """Phase 30 (g): the example's step bound twice on copies of one
+    state, once with FLAGS_check_nan_inf on (its check in the graph) and
+    once off, their calls alternating HEALTH_BOUND_CALLS times, each
+    call's wall ms (the loss read is its sync): the medians and their
+    difference. Then the bound plan with the check names the poisoned
+    batch's variables. Returns (summary, names the bound call gave)."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.io import scope_from_numpy
+    exe = fluid.Executor()
+    main, _, _, loss = health_program(fluid, cfg)
+    feed = health_feed(batch)
+    bound, ms = {}, {True: [], False: []}
+    for on in (True, False):
+        flags.set_flags('check_nan_inf', on)
+        scope = scope_from_numpy(init, device=exe.device)
+        bound[on] = exe.bind(main, feed, fetch_list=[loss], scope=scope)
+        bound[on](feed)         # the first replay
+    try:
+        for _ in range(HEALTH_BOUND_CALLS):
+            for on in (True, False):
+                flags.set_flags('check_nan_inf', on)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                bound[on](feed)
+                ms[on].append((time.perf_counter() - t) * 1e3)
+        flags.set_flags('check_nan_inf', True)
+        try:
+            bound[True](health_feed(batch, float('nan')))
+            names = None
+        except RuntimeError as e:
+            names = nonfinite_names(e)
+    finally:
+        flags.set_flags('check_nan_inf', False)
+    out = dict(calls=HEALTH_BOUND_CALLS,
+               on_ms=float(np.median(ms[True])),
+               off_ms=float(np.median(ms[False])),
+               checked=len(bound[True]._plan.nan_names),
+               launches_on=sum(bound[True].launches.values()),
+               launches_off=sum(bound[False].launches.values()))
+    out['check_ms'] = out['on_ms'] - out['off_ms']
+    del bound
+    exe.close()
+    return out, names
+
+
+def run_training_health(torch, kt, smi):
+    """Phase 30 (module docstring). Returns {path: launch counts}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags, monitor, resilience
+    from paddle_tpu_torch.io import scope_from_numpy
+    from paddle_tpu_torch.models.transformer import LMConfig
+    t0 = time.perf_counter()
+    cfg = LMConfig(**EXAMPLE_LM)
+    hold, failures = health_hold(torch, kt, fluid, cfg, smi)
+    torch.cuda.empty_cache()
+    main, startup, _, loss = health_program(fluid, cfg)
+    exe = fluid.Executor()
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = state_arrays(s0)
+    del s0
+    per = dict(program_step_launches(cfg, amp=True), fused_adam=0)
+    rng = np.random.RandomState(0)
+    batches = [{k: torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (EXAMPLE_B, cfg.seq_len)).astype('int64')).to(
+            exe.device) for k in ('tokens', 'labels')}
+        for _ in range(EXAMPLE_K)]
+    prev_loc = os.environ.get('PADDLE_NAN_LOCALIZE')
+    os.environ['PADDLE_NAN_LOCALIZE'] = '1'
+    flags.set_flags('check_nan_inf', True)
+    try:
+        # (a)-(c) the guarded run with its poisoned step, then the same
+        # good steps unguarded (the check off: it changes no value)
+        guarded, g_losses, g_state, gmain, counts = health_trajectory(
+            torch, kt, fluid, cfg, init, batches, per, True)
+        torch.cuda.empty_cache()
+        flags.set_flags('check_nan_inf', False)
+        plain, u_losses, u_state, _, _ = health_trajectory(
+            torch, kt, fluid, cfg, init, batches, per, False)
+        torch.cuda.empty_cache()
+        differ = sorted(k for k in u_state
+                        if k not in g_state or
+                        not np.array_equal(g_state[k], u_state[k]))
+        # (d) the stat vector against direct norms, a step on the
+        # guarded run's final state
+        scope = scope_from_numpy(g_state, device=exe.device)
+        direct, more = health_stats_direct(
+            torch, fluid, exe, gmain, gmain.global_block().var(loss.name),
+            scope, health_feed(batches[0]))
+        failures += more
+        del scope, g_state, u_state
+        torch.cuda.empty_cache()
+        # (f) run() and run_fused over a window holding the poisoned
+        # batch name the same variables
+        flags.set_flags('check_nan_inf', True)
+        os.environ['PADDLE_NAN_LOCALIZE'] = '0'
+        names = {}
+        for how in ('run', 'run_fused'):
+            scope = scope_from_numpy(init, device=exe.device)
+            feeds = [health_feed(batches[i], v) for i, v in
+                     enumerate((0.0, float('nan'), 0.0))]
+            try:
+                if how == 'run':
+                    for f in feeds:
+                        exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)
+                else:
+                    exe.run_fused(main, feeds, fetch_list=[loss],
+                                  scope=scope)
+                names[how] = None
+            except RuntimeError as e:
+                names[how] = nonfinite_names(e)
+            del scope
+        exe.close()
+        torch.cuda.empty_cache()
+        flags.set_flags('check_nan_inf', False)
+        # (g) the check's cost a bound step, and the bound call's names
+        bound, names['bind'] = bound_check_cost(torch, fluid, cfg, init,
+                                                batches[0])
+        torch.cuda.empty_cache()
+        # (h) the fault drill: two injected run faults, retried to success
+        drill_main, _, _, drill_loss = health_program(fluid, cfg)
+        scope = scope_from_numpy(init, device=exe.device)
+        guard = resilience.TrainingGuard(exe, drill_main,
+                                         loss_name=drill_loss.name,
+                                         scope=scope)
+        guard.step(feed=health_feed(batches[0]), fetch_list=[drill_loss])
+        before = monitor.counters()
+        with resilience.fault_spec('run:n=2'):
+            got = guard.step(feed=health_feed(batches[1]),
+                             fetch_list=[drill_loss])
+        delta = monitor.counter_delta(before)
+        drill = dict(loss=float(got[0].reshape(-1)[0]),
+                     skipped=guard.last_step_skipped,
+                     retry_attempts=delta.get(
+                         'retry_attempt_total{site=run}', 0),
+                     faults=delta.get('fault_injected_total{site=run}', 0),
+                     giveups=delta.get('retry_giveup_total{site=run}', 0))
+        del scope, guard
+        exe.close()
+        torch.cuda.empty_cache()
+    finally:
+        flags.set_flags('check_nan_inf', False)
+        if prev_loc is None:
+            os.environ.pop('PADDLE_NAN_LOCALIZE', None)
+        else:
+            os.environ['PADDLE_NAN_LOCALIZE'] = prev_loc
+    poisoned = guarded['poisoned']
+    out = dict(phase='training_health', card=smi, config=EXAMPLE_LM,
+               batch=EXAMPLE_B, good_steps=HEALTH_GOOD_STEPS,
+               poisoned_before=HEALTH_POISON_AT, guarded=guarded,
+               unguarded=plain, trajectory_bitwise=not differ and
+               g_losses == u_losses, differ=differ[:8],
+               losses=g_losses, stats_direct=direct, hold=hold['worst'],
+               nonfinite_names=names, bound_check=bound, fault_drill=drill,
+               guarded_over_unguarded=guarded['median_step_ms'] /
+               plain['median_step_ms'],
+               health_extra_peak_bytes=guarded['peak_over_base_bytes'] -
+               plain['peak_over_base_bytes'],
+               launches_per_step=per, seconds=time.perf_counter() - t0)
+    emit(out)
+    loc = poisoned['localization'] or {}
+    if not poisoned['skipped'] or not poisoned['state_bitwise']:
+        failures.append('the poisoned step: %s' % poisoned)
+    if loc.get('op_type') != 'elementwise_add' or loc.get('op_index') != [
+            i for i, op in enumerate(main.global_block().ops)
+            if op.type == 'elementwise_add' and POISON in op.input_arg_names
+    ][0]:
+        failures.append('localized to %s, not the poison add' % loc)
+    if differ or g_losses != u_losses:
+        failures.append('guarded and unguarded trajectories differ: losses '
+                        '%s / %s, state %s' % (g_losses, u_losses,
+                                               differ[:8]))
+    if guarded['rng_run_counter'] != plain['rng_run_counter']:
+        failures.append('run counters %d / %d'
+                        % (guarded['rng_run_counter'],
+                           plain['rng_run_counter']))
+    if not all(np.isfinite(g_losses)):
+        failures.append('non-finite good losses %s' % g_losses)
+    want_names = [loss.name]
+    if any(v != want_names for v in names.values()):
+        failures.append('check_nan_inf names %s, want %s for each'
+                        % (names, want_names))
+    if drill['retry_attempts'] != 2 or drill['faults'] != 2 or \
+            drill['giveups'] or drill['skipped'] or \
+            not np.isfinite(drill['loss']):
+        failures.append('fault drill %s' % drill)
+    if failures:
+        raise AssertionError('training_health: %s' % '; '.join(failures))
+    return {'training_health': counts}
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -7465,6 +7944,9 @@ def main():
     torch.cuda.empty_cache()
     # phase 29: the observability tier on the engine and the example's step
     by_path.update(run_observability(torch, kt, smi))
+    torch.cuda.empty_cache()
+    # phase 30: training health and fault tolerance on the example's step
+    by_path.update(run_training_health(torch, kt, smi))
 
     # kernel: (source, TPU kernel it replaces, case key, case value)
     meta = {

@@ -29,7 +29,10 @@ backward), flash attention (forward, dQ and dK/dV, with the key-padding
 bias), the FFN tail, the softmax cross-entropy (forward and backward) and
 multi-tensor Adam: one for each Pallas kernel of the JAX package; and bf16
 mixed-precision training (``contrib.mixed_precision``) with the bf16 form
-of the three flash kernels. The JAX package ``paddle_tpu`` stays the
+of the three flash kernels; the training-health and fault-tolerance tier
+(``flags`` with ``FLAGS_check_nan_inf``, ``health``, ``resilience`` with
+``TrainingGuard``, fault injection and retry, NaN localization in
+``analysis``). The JAX package ``paddle_tpu`` stays the
 reference; this package imports ``torch`` and numpy only, never ``jax`` or
 ``paddle_tpu``.
 
@@ -56,6 +59,9 @@ from . import lod_tensor
 from .lod_tensor import (LoDTensor, create_lod_tensor,
                          create_random_int_lodtensor)
 from .data_feeder import DataFeeder
+from . import flags, health, resilience
+from .flags import get_flags, set_flags
+from .resilience import TrainingGuard
 
 __all__ = ['CPUPlace', 'CUDAPlace', 'cpu_places', 'cuda_places',
            'resolve_device', 'launch_counts', 'reset_counts', 'Program',
@@ -71,4 +77,6 @@ __all__ = ['CPUPlace', 'CUDAPlace', 'cpu_places', 'cuda_places',
            'load_persistables', 'inference',
            'PredictorConfig', 'Predictor', 'create_predictor',
            'lod_tensor', 'LoDTensor', 'create_lod_tensor',
-           'create_random_int_lodtensor', 'DataFeeder']
+           'create_random_int_lodtensor', 'DataFeeder', 'flags',
+           'get_flags', 'set_flags', 'health', 'resilience',
+           'TrainingGuard']

@@ -69,8 +69,17 @@ the port counts the program's own work from the ops its plan ran.
    (:func:`format_op_profile`) plus one ``op:<type>`` span per op on the
    monitor ring. A profiled run captures nothing and caches nothing.
 
-NaN localization (``PADDLE_NAN_LOCALIZE``) and ``explain_program`` wait
-for later slices (``check_nan_inf`` and ``Executor.explain``).
+3. **Which op made the NaN?** With ``PADDLE_NAN_LOCALIZE=1``, a
+   ``FLAGS_check_nan_inf`` trip in ``Executor.run`` (and a TrainingGuard
+   rollback, and ``tools/torch_blackbox.py replay``) replays the step
+   from its pre-run state with its run seed, op by op under an op hook
+   that checks each op's outputs on the host (:func:`localize_nonfinite`):
+   pass A runs the ops before the ``backward`` op (a forward culprit), pass
+   B the whole step (non-finite gradients name ``backward``; then the
+   optimizer). The replay writes into copies of the state, never the
+   state it was handed.
+
+``explain_program`` waits for a later slice (``Executor.explain``).
 
 Catalog + examples: docs/observability.md.
 """
@@ -92,7 +101,8 @@ __all__ = ['ProgramAnalytics', 'record_compiled', 'recording',
            'flush_pending', 'lookup', 'records', 'memory_usage_bytes', 'reset',
            'op_profile', 'format_op_profile', 'reset_op_profile',
            'profile_ops_active', 'push_profiling', 'pop_profiling',
-           'run_profiled']
+           'run_profiled', 'nan_localization_enabled', 'localize_nonfinite',
+           'localize_from_scope', 'format_localization']
 
 logger = logging.getLogger(__name__)
 
@@ -822,3 +832,186 @@ def run_profiled(executor, program, feed, fetch_list, scope, return_numpy):
         _profile_meta['runs'] += 1
         _profile_meta['wall_s'] += wall
     return out
+
+
+# ---------------------------------------------------------------------------
+# NaN provenance
+
+
+def nan_localization_enabled():
+    return _env_on('PADDLE_NAN_LOCALIZE')
+
+
+class _LocalizedNonFinite(Exception):
+    def __init__(self, info):
+        Exception.__init__(self, info['op_type'])
+        self.info = info
+
+
+def _host_values(v):
+    if isinstance(v, SelectedRows):
+        v = v.values
+    if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        return v.detach().to('cpu').numpy()
+    return np.asarray(v)
+
+
+def _value_stats(v):
+    try:
+        arr = _host_values(v)
+    except Exception:                   # noqa: BLE001 — diagnostics only
+        return {'repr': type(v).__name__}
+    out = {'shape': list(arr.shape), 'dtype': str(arr.dtype)}
+    if arr.size and arr.dtype.kind == 'f':
+        finite = np.isfinite(arr)
+        out['finite_frac'] = round(float(finite.mean()), 6)
+        if finite.any():
+            fa = arr[finite]
+            out['min'] = float(fa.min())
+            out['max'] = float(fa.max())
+            out['absmean'] = float(np.abs(fa).mean())
+    return out
+
+
+def _nonfinite(v):
+    if isinstance(v, SelectedRows):
+        v = v.values
+    return isinstance(v, torch.Tensor) and v.is_floating_point() and \
+        not bool(torch.isfinite(v).all())
+
+
+def _check_hook(ctx, op, thunk):
+    """The localizing op hook: after each op, a host check of its outputs;
+    the first op with a non-finite one stops the replay. The ``backward``
+    meta-op's thunk runs its forward segment (each op of which calls this
+    hook in turn), so its own index is taken before."""
+    idx = ctx.op_index
+    thunk()
+    bad = [n for n in op.output_arg_names if _nonfinite(ctx.env.get(n))]
+    if bad:
+        inputs = {n: _value_stats(ctx.env[n])
+                  for n in op.input_arg_names if ctx.has(n)}
+        outputs = {n: _value_stats(ctx.env[n]) for n in bad}
+        raise _LocalizedNonFinite({
+            'op_type': op.type, 'op_index': idx,
+            'bad_outputs': bad, 'output_stats': outputs,
+            'input_stats': inputs})
+
+
+def _localize_core(program, feed, state, run_seed, device, static_lods,
+                   static_feed):
+    """Replay one step op by op against its pre-run inputs, on copies of
+    the state it writes (the optimizers write in place: the state handed
+    in, a rolled-back scope's own tensors, stays bitwise as it was); return
+    the info dict of the FIRST op producing a non-finite output, or None
+    when the replay comes back clean."""
+    gb = program.global_block()
+    ops = gb.ops
+    b = next((i for i, op in enumerate(ops) if op.type == 'backward'), None)
+    _, written = lowering.analyze_state(program, [])
+    fn, plan = lowering.build_fn(program, [], list(state), written, device,
+                                 static_lods=static_lods,
+                                 static_feed=static_feed)
+    written = set(written)
+
+    def _inputs():
+        st = {n: v.clone() if n in written and isinstance(v, torch.Tensor)
+              else v for n, v in state.items()}
+        rng = lowering.RunRNG(plan, device)
+        rng.seed(0 if run_seed is None else int(run_seed))
+        return st, rng
+
+    # Pass A, the forward scout: the ops before the first `backward`, run
+    # as the step ran them (the same draws, in op order), name a forward
+    # culprit before any gradient exists
+    scout_hi = b if b is not None else len(ops)
+    if scout_hi:
+        st, rng = _inputs()
+        env = dict(feed)
+        env.update(st)
+        ctx = lowering.LowerContext(program, gb, env, device, rng=rng,
+                                    plan=plan, lods=dict(static_lods or {}),
+                                    statics=dict(static_feed or {}))
+        try:
+            with torch.no_grad(), lowering.op_hook(_check_hook):
+                lowering.lower_ops(ctx, ops, 0, scout_hi)
+        except _LocalizedNonFinite as e:
+            return e.info
+    if b is None:
+        return None
+    # Pass B, the full replay: the forward is finite, so the culprit is
+    # the backward (non-finite gradients name `backward`) or an op after
+    # it (the optimizer update)
+    st, rng = _inputs()
+    try:
+        with lowering.op_hook(_check_hook):
+            fn(feed, st, rng)
+    except _LocalizedNonFinite as e:
+        return e.info
+    return None
+
+
+def localize_nonfinite(program, feed, state, run_seed, device,
+                       static_lods=None, static_feed=None):
+    """Opt-in NaN/Inf localization (``PADDLE_NAN_LOCALIZE=1``): replay the
+    step of ``program`` on ``feed`` ({name: tensor on ``device``}) from
+    its pre-run ``state`` ({name: tensor}: every persistable it reads)
+    with the run's seed, op by op, and return the info dict of the first
+    op with a non-finite output ({'op_type', 'op_index', 'bad_outputs',
+    'output_stats', 'input_stats'}), or None. Never raises: a broken
+    replay must not mask the original non-finite error. Counts
+    ``nonfinite_localized_total{op_type}``."""
+    if not nan_localization_enabled():
+        return None
+    try:
+        with monitor.timed_span('nan_localize', 'nan_localize_seconds'):
+            info = _localize_core(program, feed, state, run_seed, device,
+                                  static_lods, static_feed)
+    except Exception as e:              # noqa: BLE001 — diagnostics only
+        logger.warning("NaN localization replay failed: %s", e)
+        monitor.inc('analysis_error_total', labels={'stage': 'localize'})
+        return None
+    if info is not None:
+        monitor.inc('nonfinite_localized_total',
+                    labels={'op_type': info['op_type']})
+        logger.error(
+            "non-finite value localized to op #%d (%s): outputs %s; "
+            "input stats: %s", info['op_index'], info['op_type'],
+            info['bad_outputs'], info['input_stats'])
+    return info
+
+
+def localize_from_scope(executor, program, feed, scope, run_seed):
+    """TrainingGuard's (and the replay CLI's) entry point: localize against
+    a ROLLED-BACK scope (the pre-step state) with the failed step's run
+    seed (``program._last_run_seed``). The scope's values stay as they
+    are (a numpy value becomes its tensor on the executor's device, as a
+    run reads it). Returns the culprit info dict or None."""
+    if not nan_localization_enabled():
+        return None
+    try:
+        tfeed, lods = executor._prepare_feed(program, feed or {})
+        read, written = lowering.analyze_state(program, [])
+        needed = executor._read_before_write(program, read, written,
+                                             set(tfeed), [])
+        state = {n: executor._state_value(scope, n, program)
+                 for n in needed}
+        static_lods = executor._static_lods(scope, lods)
+        statics = executor._statics(program, tfeed)
+    except Exception as e:              # noqa: BLE001 — diagnostics only
+        logger.warning("NaN localization setup failed: %s", e)
+        return None
+    return localize_nonfinite(program, tfeed, state, run_seed,
+                              executor.device, static_lods, statics)
+
+
+def format_localization(info):
+    """One-line human rendering of a localize_nonfinite() result."""
+    if not info:
+        return 'no op localized (replay was finite)'
+    return ('first non-finite output produced by op #%d type=%r '
+            'outputs=%s inputs=%s'
+            % (info['op_index'], info['op_type'], info['bad_outputs'],
+               sorted(info['input_stats'])))

@@ -6,8 +6,9 @@ writer thread, rate limit and rotation. ``env.json`` records torch, CUDA
 and the card's name in place of the JAX versions; ``analysis.json`` holds
 the port's record (analysis.py); ``replay/`` holds the feed and the
 pre-step state as ``.npz`` and the run's seed. ``program.hlo`` has no
-counterpart on the card and is left out, and the replay CLI waits with
-NaN localization.
+counterpart on the card and is left out. ``python tools/torch_blackbox.py
+replay <bundle>`` re-executes a captured step through the port's NaN
+localization (analysis.py).
 
 The JAX package detects trouble everywhere — ``perf_regression_total{kind}``
 sentinel trips, NaN escalation with localization, retry give-ups, worker

@@ -71,6 +71,16 @@ generators and gradient leaves, over the sub-block's own plan
 sequence op inside a loop builds its index maps once a plan, not once an
 iteration.
 
+Aliasing: the JAX package's values are immutable, but here the
+optimizers (ops registered ``stateful``) update their state in place, and
+a lowering may return its input or a view of it (``assign``, a cast to
+the same dtype, ``reshape``, ``transpose``, ``slice``, ...). So a read of
+a parameter taken before the optimizer would show the update. The plan
+decides once which outputs may share storage with a tensor a later
+stateful op updates in place and are read after that update
+(`_alias_checks`); only those ops check their outputs' storage after
+they run, and an output that does share it becomes a copy (`_unalias`).
+
 An op hook (:func:`op_hook`, the JAX package's `lowering.op_hook`) wraps
 each op's lowering on the thread that installed it: ``hook(ctx, op,
 thunk)`` runs ``thunk()``, which lowers the op; the ``backward`` meta-op
@@ -155,6 +165,8 @@ class _Plan(object):
         for n, i in last.items():
             if n not in kept:
                 self.free_after[i].append(n)
+        self.inplace_names, self.alias_checks = _alias_checks(
+            self.ops, self.defs, self.live, kept, last)
         self.memo = {}
         self.blocks = {}
         for b in program.blocks[1:]:
@@ -195,6 +207,7 @@ class _BlockPlan(object):
         self.defs = [get_op(op.type) for op in self.ops]
         self.live = [True] * len(self.ops)
         self.free_after = [()] * len(self.ops)
+        self.inplace_names, self.alias_checks = (), {}
         self.backward_at = []
         self.reads = set(root.reads)
         self.stop = set(root.stop)
@@ -207,6 +220,72 @@ class _BlockPlan(object):
             self.reads.update(op.output_arg_names)
         self.memo = root.memo
         self.blocks = root.blocks
+
+
+def _alias_checks(ops, defs, live, kept, last):
+    """(the names updated in place, {op index: (output names, in-place
+    targets)} of the running ops whose outputs may share storage with a
+    tensor that a later op updates in place, where something reads that
+    output after the update).
+
+    The in-place targets are the names a running ``stateful`` op both
+    reads and writes (an optimizer's parameter, moments and powers, a
+    loop's carry). A lowering may hand back its input or a view of it
+    (``assign``, a cast to the same dtype, ``reshape``, ``transpose``,
+    ``squeeze``, ``slice``, ``scale`` by 1, ...), so an output may alias
+    any target its inputs may alias, transitively. The JAX package's
+    values are immutable: a read of a parameter taken before the
+    optimizer keeps the old value there. So where such an output is
+    fetched, kept, or read after the first in-place write of a target it
+    may alias, the op's outputs are checked after it runs (`_unalias`): one
+    that shares storage with a target becomes a copy. Decided once per
+    plan; every other op pays nothing."""
+    inplace = {}
+    for i, op in enumerate(ops):
+        if live[i] and defs[i].stateful:
+            outs = set(op.output_arg_names)
+            for n in _reads(op):
+                if n in outs:
+                    inplace[n] = i
+    checks = {}
+    if not inplace:
+        return (), checks
+    may = {n: frozenset((n,)) for n in inplace}
+    for i, op in enumerate(ops):
+        if not live[i] or defs[i].stateful or op.type == 'backward':
+            continue
+        targets = set()
+        for n in _reads(op):
+            targets.update(may.get(n, ()))
+        if not targets:
+            continue
+        for n in op.output_arg_names:
+            may[n] = may.get(n, frozenset()) | targets
+        late = tuple(sorted(t for t in targets if inplace[t] > i))
+        if not late:
+            continue
+        first = min(inplace[t] for t in late)
+        names = tuple(n for n in op.output_arg_names
+                      if n in kept or last.get(n, -1) > first)
+        if names:
+            checks[i] = (names, late)
+    return tuple(inplace), checks
+
+
+def _unalias(ctx, names, targets):
+    """Replace each output in ``names`` that shares storage with a tensor
+    of ``targets`` (`_alias_checks`) by a copy."""
+    held = set()
+    for t in targets:
+        v = ctx.env.get(t)
+        if isinstance(v, torch.Tensor):
+            held.add(v.untyped_storage().data_ptr())
+    for n in names:
+        v = ctx.env.get(n)
+        if isinstance(v, torch.Tensor) and \
+                v.untyped_storage().data_ptr() in held:
+            ctx.env[n] = v.clone()
+            ctx._run_memo.pop(n, None)
 
 
 def _needs_rng(opdef, op):
@@ -458,6 +537,9 @@ def lower_ops(ctx, ops, lo, hi):
                 _lower_op(ctx, defs[i], op)
             else:
                 hook(ctx, op, lambda: _lower_op(ctx, defs[i], op))
+            checks = ctx.plan.alias_checks.get(i)
+            if checks is not None:
+                _unalias(ctx, *checks)
             _free(ctx, i)
 
 

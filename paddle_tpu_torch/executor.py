@@ -67,8 +67,10 @@ every kernel wrapper takes its plain version.
 The scope holds torch tensors on the run's device. State given as numpy
 arrays (or tensors elsewhere) is copied there on first read and cached
 back into the scope; the optimizer ops then update those tensors in
-place. `run_async`, `precompile`, `explain`, donation and segmented host
-ops wait for later slices.
+place (core/lowering.py copies an output that would share storage with
+state a later op updates in place, where it is read after the update).
+`run_async`, `precompile`, `explain`, donation and segmented host ops
+wait for later slices.
 
 Observability, on the JAX executor's series (docs/observability.md):
 ``run`` opens a head-sampled step trace (trace.py `step_scope`) and the
@@ -109,11 +111,30 @@ from the JAX executor's by design:
 - ``compile_cache_eviction``: the JAX executor also keeps a process-wide
   cache of 64 compiled entries beside each executor's, whose evictions
   count too; the port's plan cache is the executor's alone.
-- ``executor_sync_seconds`` (``FLAGS_benchmark``), the donation and
-  segmented-execution series and ``nan_check_trigger_total`` are not
-  emitted: their features wait for later slices.
+- the donation and segmented-execution series are not emitted: their
+  features wait for later slices.
+
+Health and faults (flags.py, resilience.py, health.py; the JAX
+executor's hooks): with ``FLAGS_check_nan_inf`` every ``run`` checks the
+state it wrote and its fetches for NaN or Inf after the scope takes them
+(`check_nan_inf`), and raises naming them (``nan_check_trigger_total``);
+with ``PADDLE_NAN_LOCALIZE=1`` too, the run keeps a copy of the state it
+writes and replays the step from it to name the first op that made one
+(analysis.py; the error carries ``nonfinite_localization``). A plan bound
+with the flag on computes the check inside its step (in the CUDA graph on
+the card): a flag a variable, summed over a call's steps and read after
+the call, so ``bind`` calls and ``run_fused`` windows name what ``run()``
+names. ``FLAGS_debug_nans`` runs ``run`` under anomaly mode and refuses a
+CUDA graph; ``FLAGS_benchmark`` synchronizes after each ``run`` on the
+card (``executor_sync_seconds``). A plan's build is the ``compile`` fault
+site and each dispatch the ``run`` site (a bound call's or a fused
+window's before its first step), retried under `resilience.RetryPolicy`;
+a run that failed after writing state in place is not re-run (a retry
+re-seeds the run's generators, so it draws what the failed try drew).
+Each run's seed stays on ``program._last_run_seed``.
 """
 import collections
+import math
 import os
 import threading
 import time
@@ -122,11 +143,12 @@ import weakref
 import numpy as np
 import torch
 
-from . import analysis, blackbox, goodput, monitor, trace
+from . import analysis, blackbox, flags, goodput, monitor, resilience, trace
 from . import ops  # noqa: F401  (registers every op's lowering)
 from .core import graphs, lowering
 from .core.lod import lengths_from_offsets, normalize_lod
 from .core.registry import get_op, has_op
+from .core.selected_rows import SelectedRows
 from .core.types import torch_dtype
 from .framework import Program, Variable, default_main_program, resolve_device
 
@@ -416,6 +438,11 @@ class _BoundPlan(object):
         self.launches = {}
         self.captures = 0
         self.replays = 0
+        # FLAGS_check_nan_inf on at the first step: the names checked and
+        # a device vector each step adds its `_finite_flags` to (in the
+        # graph on the card), zeroed before each call
+        self.nan_names = None
+        self.nan_acc = None
 
     def stage(self, feed):
         """Copy ``feed`` ({name: numpy array or tensor}, exactly the bound
@@ -439,8 +466,24 @@ class _BoundPlan(object):
         self.feeds.stage(values)
 
     def step(self, scope):
+        debug = flags.get_flags('debug_nans')
+        if debug and self.cuda:
+            raise RuntimeError(
+                'FLAGS_debug_nans cannot hold under a CUDA graph: anomaly '
+                'mode reads each gradient on the host, which a capture or a '
+                'replay cannot do. Use Executor.run, or FLAGS_check_nan_inf, '
+                'which bind and run_fused check inside the graph')
         self._stage_state(scope)
         rng = self.exe._seed_run(self.program, self.entry, self.rng)
+        if debug:
+            with torch.autograd.detect_anomaly(check_nan=True):
+                self._run(rng)
+        else:
+            self._run(rng)
+        scope.update(self.written)
+        _keep_lods(scope, self.entry)
+
+    def _run(self, rng):
         if not self.cuda:
             if self.outputs is None:
                 self._first(rng)
@@ -455,8 +498,25 @@ class _BoundPlan(object):
         else:
             graphs.replay(self.graph, self.launches)
             self.replays += 1
-        scope.update(self.written)
-        _keep_lods(scope, self.entry)
+
+    def begin_check(self):
+        """Zero the check's vector before a call's steps."""
+        if self.nan_acc is not None:
+            self.nan_acc.zero_()
+
+    def check(self):
+        """``FLAGS_check_nan_inf`` after a call: raise naming every state
+        variable or fetch that was non-finite after any of its steps (the
+        vector the steps added to; for a plan built with the flag off, the
+        values after the last step, checked now)."""
+        if not flags.get_flags('check_nan_inf') or self.outputs is None:
+            return
+        if self.nan_acc is not None:
+            _raise_nonfinite(self.nan_names, self.nan_acc)
+            return
+        check_nan_inf(self.written, dict(zip(self.entry.fetch_names,
+                                             self.outputs)),
+                      self.exe.device)
 
     def fetches(self, return_numpy):
         """The last step's fetches: numpy arrays, or copies on the device
@@ -511,6 +571,11 @@ class _BoundPlan(object):
                                  % (n, v.dtype, tuple(v.shape), t.dtype,
                                     tuple(t.shape)))
             self.written[n] = t
+        if flags.get_flags('check_nan_inf'):
+            self.nan_names = list(self.written) + list(self.entry.fetch_names)
+            self.nan_acc = torch.zeros(len(self.nan_names),
+                                       dtype=torch.float32,
+                                       device=self.exe.device)
         self._write(fetches, new_state)
 
     def _body(self, rng):
@@ -524,6 +589,10 @@ class _BoundPlan(object):
             t = self.written[n]
             if v is not t:
                 t.copy_(v)
+        if self.nan_acc is not None:
+            self.nan_acc.add_(_finite_flags(
+                list(self.written.values()) + list(self.outputs),
+                self.exe.device))
 
     def _capture(self, rng):
         """The first step eagerly on a side stream, then the next one
@@ -572,9 +641,12 @@ class BoundProgram(object):
         monitor.inc('executor_bound_run_total')
         plan.stage(feed)
         blackbox.note_step(plan.program)
+        _run_site()
+        plan.begin_check()
         with goodput.timed(plan.entry.fp, 'bound', plan.exe.device):
             plan.step(self._scope)
         graphs.check_flags(plan.graph)
+        plan.check()
         return plan.fetches(return_numpy)
 
     def loop_launches(self):
@@ -759,8 +831,14 @@ class Executor(object):
         entry = self._cache.get(key) if use_program_cache else None
         fresh = entry is None
         if fresh:
-            entry = self._build(program, set(feed), fetch_names, lods,
-                                statics)
+            def _build():
+                resilience.maybe_fault('compile')
+                return self._build(program, set(feed), fetch_names, lods,
+                                   statics)
+            try:
+                entry = _build()
+            except Exception as e:      # noqa: BLE001 — classified inside
+                entry = resilience.retry_after(e, _build, site='compile')
             entry.fp = program._fingerprint()
             if use_program_cache:
                 self._cache[key] = entry
@@ -769,12 +847,16 @@ class Executor(object):
     def _seed_run(self, program, entry, rng):
         """Count one run of ``program`` as the JAX executor counts it;
         returns ``rng`` seeded for it, or None for a plan that draws
-        nothing."""
+        nothing. The run's seed stays on ``program._last_run_seed`` (the
+        JAX executor's ``_last_run_key``): NaN localization and a
+        flight-recorder bundle replay the step with it."""
         self._run_counter += 1
         runs = _next_program_run(program)
+        seed = _run_seed(program.random_seed, runs, self._run_counter)
+        program._last_run_seed = seed
         if not entry.needs_rng:
             return None
-        rng.seed(_run_seed(program.random_seed, runs, self._run_counter))
+        rng.seed(seed)
         return rng
 
     @staticmethod
@@ -819,10 +901,10 @@ class Executor(object):
         t_build = time.perf_counter()
         feed, lods = self._prepare_feed(program, feed or {})
         fetch_names = self._fetch_names(fetch_list)
-        entry, fresh = self._entry(program, feed, fetch_names,
-                                   self._static_lods(scope, lods),
-                                   self._statics(program, feed),
-                                   use_program_cache and hook is None)
+        static_lods = self._static_lods(scope, lods)
+        statics = self._statics(program, feed)
+        entry, fresh = self._entry(program, feed, fetch_names, static_lods,
+                                   statics, use_program_cache and hook is None)
         if hook is None:
             monitor.inc('compile_cache_hit' if not fresh else
                         'compile_cache_miss' if use_program_cache else
@@ -833,24 +915,84 @@ class Executor(object):
         # threads at once
         rng = self._seed_run(program, entry, lowering.RunRNG(
             entry.plan, self.device) if entry.needs_rng else None)
+        seed = program._last_run_seed
         blackbox.note_step(program)
+        check = flags.get_flags('check_nan_inf')
+        # PADDLE_NAN_LOCALIZE=1 with the check on: a copy of the state the
+        # run writes, so that a trip replays the step from its pre-run
+        # state (the run updates the scope's tensors in place)
+        pre = _copies(state, entry.written_names) \
+            if check and hook is None and \
+            analysis.nan_localization_enabled() else None
+        # a run that fails after an in-place write is not re-run
+        writes = resilience.StateWrites(
+            state[n] for n in entry.plan.inplace_names if n in state)
+        attempts = [0]
+
+        def _call():
+            if attempts[0] and rng is not None:
+                rng.seed(seed)          # a retry draws what the try drew
+            attempts[0] += 1
+            if flags.get_flags('debug_nans'):
+                with torch.autograd.detect_anomaly(check_nan=True):
+                    return entry.fn(feed, state, rng)
+            return entry.fn(feed, state, rng)
+
+        def _dispatch():
+            resilience.maybe_fault('run')
+            with goodput.timed(entry.fp, 'run', self.device):
+                return _call()
+
         if hook is not None:
             with lowering.op_hook(hook):
-                fetches, new_state = entry.fn(feed, state, rng)
+                fetches, new_state = _call()
         elif fresh:
             # the plan's first run: with its build, the compile of the JAX
             # executor's first call, and where its cost registers
             with monitor.span('compile'), analysis.recording(
                     program, 'run', feed, state, self.device):
-                fetches, new_state = entry.fn(feed, state, rng)
+                try:
+                    fetches, new_state = _call()
+                except Exception as e:  # noqa: BLE001 — classified inside
+                    fetches, new_state = resilience.retry_after(
+                        e, _call, site='compile', state=writes)
             seconds = time.perf_counter() - t_build
             monitor.observe('compile_seconds', seconds)
             goodput.note_compile(entry.fp, seconds)
         else:
-            with goodput.timed(entry.fp, 'run', self.device):
-                fetches, new_state = entry.fn(feed, state, rng)
+            try:
+                fetches, new_state = _dispatch()
+            except Exception as e:      # noqa: BLE001 — classified inside
+                fetches, new_state = resilience.retry_after(
+                    e, _dispatch, site='run', state=writes)
+        # the scope takes the new state before the check can raise: a NaN
+        # state stays readable (and a TrainingGuard restores it)
         scope.update(new_state)
         _keep_lods(scope, entry)
+        if check:
+            try:
+                check_nan_inf(new_state, dict(zip(entry.fetch_names,
+                                                  fetches)), self.device)
+            except RuntimeError as e:
+                info = None
+                if pre is not None:
+                    loc_state = dict(state)
+                    loc_state.update(pre)
+                    info = analysis.localize_nonfinite(
+                        program, feed, loc_state, seed, self.device,
+                        static_lods, statics)
+                if info is None:
+                    raise
+                err = RuntimeError('%s; %s' % (
+                    e, analysis.format_localization(info)))
+                # carried for TrainingGuard, which reuses it
+                err.nonfinite_localization = info
+                raise err from None
+        if flags.get_flags('benchmark') and self.device.type == 'cuda':
+            t_sync = time.perf_counter()
+            torch.cuda.synchronize(self.device)
+            monitor.observe('executor_sync_seconds',
+                            time.perf_counter() - t_sync)
         # state is updated in place by later runs: a fetched state variable
         # is handed out as a copy
         out = _fetch_values(entry, fetches, return_numpy,
@@ -911,8 +1053,11 @@ class Executor(object):
                     goodput.note_compile(plan.entry.fp, seconds)
                 else:
                     plan.stage(feed)
+                    _run_site()
+                    plan.begin_check()
                     with goodput.timed(plan.entry.fp, 'run', self.device):
                         plan.step(scope)
+                plan.check()
                 first = plan.fetches(True)
                 _count_fetch_bytes(first, True)
                 return BoundProgram(plan, scope, first, feed)
@@ -1024,6 +1169,9 @@ class Executor(object):
                     seconds = time.perf_counter() - t0
                     monitor.observe('compile_seconds', seconds)
                     goodput.note_compile(plan.entry.fp, seconds)
+                else:
+                    _run_site()
+                    plan.begin_check()
                 if n > first:
                     with goodput.timed(plan.entry.fp, 'fused', self.device,
                                        steps=n - first):
@@ -1032,9 +1180,80 @@ class Executor(object):
                                         for name, t in stacked.items()})
                             plan.step(scope)
                 graphs.check_flags(plan.graph)
+                plan.check()
             out = plan.fetches(return_numpy)
             _count_fetch_bytes(out, return_numpy)
             return out
+
+
+def _copies(state, names):
+    """{name: a copy} of the tensors of ``state`` among ``names``
+    (`resilience.foreach_copy`)."""
+    names = [n for n in names if isinstance(state.get(n), torch.Tensor)]
+    srcs = [state[n].detach() for n in names]
+    dsts = [torch.empty_like(t) for t in srcs]
+    resilience.foreach_copy(dsts, srcs)
+    return dict(zip(names, dsts))
+
+
+def _run_site():
+    """The ``run`` fault site of a bound call or a fused window, checked
+    before its first step (nothing has run, so a retry is the call
+    itself)."""
+    try:
+        resilience.maybe_fault('run')
+    except Exception as e:              # noqa: BLE001 — classified inside
+        resilience.retry_after(e, lambda: resilience.maybe_fault('run'),
+                               site='run')
+
+
+def _finite_flags(values, device):
+    """A float32 vector on ``device``, one entry a value of ``values``: 0
+    where every element is finite, NaN where one is not (or a value that
+    is no float tensor: 0). Each entry is the 1-norm of the tensor times 0,
+    exact (no sum can overflow), in one multi-tensor pass a dtype, so that
+    a CUDA graph captures the check with the step; a SelectedRows is
+    checked over its values."""
+    flags = [None] * len(values)
+    groups = {}
+    for i, v in enumerate(values):
+        if isinstance(v, SelectedRows):
+            v = v.values
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            groups.setdefault(v.dtype, []).append((i, v))
+    for items in groups.values():
+        norms = torch._foreach_norm(
+            torch._foreach_mul([v for _, v in items], 0.0), 1,
+            dtype=torch.float32)
+        for (i, _), n in zip(items, norms):
+            flags[i] = n
+    if any(f is None for f in flags):
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        flags = [zero if f is None else f for f in flags]
+    if not flags:
+        return torch.zeros(0, dtype=torch.float32, device=device)
+    return torch.stack(flags)
+
+
+def _raise_nonfinite(names, vec):
+    """Raise the ``FLAGS_check_nan_inf`` error naming each of ``names``
+    whose entry of ``vec`` (`_finite_flags`, read to the host here) is
+    NaN, counting ``nan_check_trigger_total``; nothing when none is."""
+    bad = sorted(set(n for n, f in zip(names, vec.tolist())
+                     if math.isnan(f)))
+    if bad:
+        monitor.inc('nan_check_trigger_total')
+        raise RuntimeError(
+            "FLAGS_check_nan_inf: NaN/Inf detected in %s after executor "
+            "run" % bad)
+
+
+def check_nan_inf(new_state, fetches, device):
+    """``FLAGS_check_nan_inf`` at the program boundary (the JAX executor's
+    `_check_nan_inf`): the state a run wrote and its fetches ({name:
+    value}), checked for NaN or Inf; RuntimeError names the variables."""
+    _raise_nonfinite(list(new_state) + list(fetches), _finite_flags(
+        list(new_state.values()) + list(fetches.values()), device))
 
 
 def _count_fetch_bytes(out, return_numpy):

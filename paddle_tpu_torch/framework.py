@@ -318,6 +318,13 @@ class Block(object):
         self.program._bump_version()
         return op
 
+    def _insert_op(self, index, type=None, inputs=None, outputs=None,
+                   attrs=None):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
     def to_string(self):
         lines = ["block %d (parent %d):" % (self.idx, self.parent_idx)]
         for v in self.vars.values():

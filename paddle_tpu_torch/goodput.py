@@ -849,9 +849,15 @@ def stats(fps=None):
 
 
 def _health_block():
-    """The training-health view the JAX package nests into every stats()
-    reading: None until the port has the health observatory (ROADMAP
-    Queue 1 item 5)."""
+    """The training-health view nested into every stats() reading (and so
+    into every flight-recorder bundle's goodput.json): None until the
+    health observatory has observed a step."""
+    try:
+        from . import health
+        if health.active():
+            return health.stats()
+    except Exception:           # noqa: BLE001 — telemetry only
+        pass
     return None
 
 

@@ -36,11 +36,11 @@ import collections
 import json
 import os
 import re
-import tempfile
 
 import numpy as np
 import torch
 
+from . import resilience
 from .executor import Scope, _to_numpy, global_scope
 from .core import serialization as _ser
 from .framework import (Parameter, Variable, default_main_program,
@@ -76,18 +76,15 @@ def _npz_name(filename):
 
 
 def _publish(path, write):
-    """``write(file)`` into a temporary file beside ``path``, then rename it
-    there: a crash mid-save leaves the old file or none, never a torn
-    one."""
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or '.',
-                               prefix='.tmp_')
-    try:
-        with os.fdopen(fd, 'wb') as f:
+    """``write(file)`` into a temporary file beside ``path``, fsync it, then
+    rename it there (resilience.atomic_file, the reference io's
+    publication): a crash, or an injected ``ckpt_write`` fault, mid-save
+    leaves the old file or none, never a torn one. Dead writers'
+    temporary files in the directory are swept first."""
+    resilience.sweep_stale_tmp_files(os.path.dirname(path) or '.')
+    with resilience.atomic_file(path) as tmp:
+        with open(tmp, 'wb') as f:
             write(f)
-        os.replace(tmp, path)
-    except BaseException:
-        os.unlink(tmp)
-        raise
 
 
 def _vars(main_program, vars, predicate):

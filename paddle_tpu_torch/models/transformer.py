@@ -296,8 +296,8 @@ def build_lm(cfg=None, is_test=False):
                                      causal=flash_ok, residual=delta,
                                      defer_residual=True)
         block_outputs.append(x)
-    # the JAX package's remat boundaries and health taps, recorded on the
-    # program (rematerialization and the health observatory wait)
+    # the JAX package's remat boundaries (rematerialization waits) and the
+    # health observatory's activation taps, recorded on the program
     cfg.block_outputs = block_outputs
     tokens.block.program._lm_checkpoint_vars = block_outputs
     tokens.block.program._health_act_taps = tuple(

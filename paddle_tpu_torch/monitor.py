@@ -14,8 +14,8 @@ Three export surfaces:
 - ``monitor.snapshot()``          -> plain dict (tests, bench rows, debuggers)
 - ``monitor.export_prometheus()`` -> text exposition format (scrape endpoint)
 - ``FLAGS_monitor_log=<path>``    -> periodic JSON-lines snapshots appended to
-                                     the file (read when this module is
-                                     imported; interval via
+                                     the file (read when flags.py is
+                                     imported, with the package; interval via
                                      ``PADDLE_MONITOR_LOG_INTERVAL_S``,
                                      default 60 s, plus one immediate line and
                                      a final line at interpreter exit)
@@ -781,22 +781,3 @@ def serve_metrics(port=None, host='127.0.0.1'):
         except ValueError:
             port = 0
     return MetricsServer(port=port, host=host)
-
-
-def _configure_from_env():
-    """``FLAGS_monitor_log`` set at import starts the JSON-lines writer (the
-    JAX package's flags.py does this at its import). A path that cannot be
-    written warns and leaves logging off: importing the package must not
-    fail on a stale variable."""
-    path = os.environ.get('FLAGS_monitor_log', '')
-    if not path:
-        return
-    try:
-        configure_logging(path)
-    except OSError:
-        import warnings
-        warnings.warn('FLAGS_monitor_log=%r is not writable; monitor '
-                      'logging disabled' % path, stacklevel=2)
-
-
-_configure_from_env()

@@ -33,7 +33,7 @@ import collections.abc
 
 import torch
 
-from . import unique_name
+from . import health, unique_name
 from .backward import append_backward
 from .clip import append_gradient_clip_ops
 from .framework import Variable, default_main_program
@@ -143,10 +143,9 @@ class Optimizer(object):
             params_grads = append_gradient_clip_ops(params_grads)
             params_grads = append_regularization_ops(params_grads,
                                                      self.regularization)
-            # the training-health observatory's names (the JAX package's
-            # health.note_params_grads); the observatory itself waits
-            program._health_params = [(p.name, g.name)
-                                      for p, g in params_grads]
+            # the final (clipped, regularized) names the health
+            # observatory harvests
+            health.note_params_grads(program, params_grads)
             self._create_global_learning_rate()
             block = program.global_block()
             self._create_accumulators(block, [pg[0] for pg in params_grads])

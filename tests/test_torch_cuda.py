@@ -2995,3 +2995,161 @@ def test_nmt_run_steps_are_bitwise_from_run_to_run(dev):
     for n in states[0]:
         np.testing.assert_array_equal(states[1][n], states[0][n],
                                       err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# training health and fault tolerance on the card (resilience.py, health.py,
+# FLAGS_check_nan_inf, the aliasing rule of core/lowering.py)
+
+
+def test_bound_step_rollback_leaves_the_next_replay_equal_to_eager(dev):
+    """A `TrainingGuard` snapshot and rollback around a bound call (the
+    flash program with dropout 0.1): the rollback copies the state back
+    into the tensors the graph holds and rewinds the run counter, so the
+    next replay follows the eager ``run()`` trajectory that never took
+    the rolled-back step (the same masks), at the bound step's limits."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import resilience
+    from paddle_tpu_torch.io import scope_from_numpy
+    feeds = _bound_lm_feeds(4)
+    main, startup, loss = _bound_lm(0.1)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in scope.names()}
+    want = [float(exe.run(main, feed=f, fetch_list=[loss],
+                          scope=scope)[0][0]) for f in (feeds[0], feeds[2],
+                                                        feeds[3])]
+    main, _, loss = _bound_lm(0.1)
+    exe, bscope = fluid.Executor(), scope_from_numpy(init)
+    bp = exe.bind(main, feeds[0], fetch_list=[loss], scope=bscope)
+    got = [float(bp.first_out[0][0])]
+    guard = resilience.TrainingGuard(exe, main, loss_name=loss.name,
+                                     scope=bscope)
+    held = {n: bscope.get(n) for n in bscope.names()}
+    snap = guard._snapshot(bscope)
+    before = {n: t.clone() for n, t in held.items()}
+    bp(feeds[1])                              # the step rolled back
+    assert any(not torch.equal(before[n], held[n]) for n in held)
+    guard._restore(bscope, snap)
+    for n, t in held.items():
+        assert bscope.get(n) is t and torch.equal(t, before[n]), n
+    for f in feeds[2:]:
+        got.append(float(bp(f)[0][0]))
+    assert bp.captures == 1
+    _hold_bound_to_eager(got, want, bscope, scope,
+                         [p.name for p in main.all_parameters()])
+
+
+def _poison_program(kind=None):
+    """(main, startup, loss, copy) of an fc + mean program whose loss has a
+    float [1] feed ``poison`` added, under SGD(0.5); ``kind`` names the op
+    (assign, cast, reshape, transpose) whose copy of the weight, taken
+    before minimize, is ``copy``."""
+    import paddle_tpu_torch as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name='x', shape=[8], dtype='float32')
+        p = fluid.layers.data(name='poison', shape=[1], dtype='float32',
+                              append_batch_size=False)
+        h = fluid.layers.fc(x, size=16, act='relu',
+                            param_attr=fluid.ParamAttr(name='w'))
+        w = main.global_block().var('w')
+        copy = None
+        if kind == 'assign':
+            copy = fluid.layers.assign(w)
+        elif kind == 'cast':
+            copy = fluid.layers.cast(w, 'float32')
+        elif kind == 'reshape':
+            copy = fluid.layers.reshape(w, shape=[-1])
+        elif kind == 'transpose':
+            copy = fluid.layers.transpose(w, perm=[1, 0])
+        loss = fluid.layers.elementwise_add(
+            fluid.layers.mean(fluid.layers.fc(h, size=1)), p)
+        fluid.optimizer.SGD(0.5).minimize(loss)
+    return main, startup, loss, copy
+
+
+def _poison_feeds(n, bad=()):
+    rs = np.random.RandomState(2)
+    return [{'x': rs.randn(4, 8).astype('float32'),
+             'poison': np.full((1,), np.nan if i in bad else 0.0,
+                               np.float32)} for i in range(n)]
+
+
+def test_captured_check_nan_inf_flags_name_the_run_variables(dev):
+    """``FLAGS_check_nan_inf`` under a CUDA graph: a plan bound with the
+    flag on computes a flag a variable inside the graph (its vector is
+    read after the call); a bound call and a ``run_fused`` window holding
+    the poisoned batch raise naming what ``run()`` names, and the next
+    good call does not raise."""
+    import re
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags
+    main, startup, loss, _ = _poison_program()
+    feeds = _poison_feeds(4, bad=(1,))
+
+    def names(err):
+        return re.search(r'detected in (\[.*?\])', str(err)).group(1)
+
+    flags.set_flags('check_nan_inf', True)
+    try:
+        exe = fluid.Executor()
+        got = {}
+        for how in ('run', 'bind', 'run_fused'):
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            with pytest.raises(RuntimeError, match='NaN/Inf') as e:
+                if how == 'run':
+                    for f in feeds:
+                        exe.run(main, feed=f, fetch_list=[loss],
+                                scope=scope)
+                elif how == 'bind':
+                    bp = exe.bind(main, feeds[0], fetch_list=[loss],
+                                  scope=scope)
+                    assert bp.captures == 1
+                    assert bp._plan.nan_acc is not None
+                    bp(feeds[1])
+                else:
+                    exe.run_fused(main, feeds[:3], fetch_list=[loss],
+                                  scope=scope)
+            got[how] = names(e.value)
+        assert got['bind'] == got['run'] == got['run_fused']
+        assert 'elementwise_add' in got['run']
+        bp(feeds[2])                     # the flags were zeroed: no raise
+        assert bp.replays >= 2
+    finally:
+        flags.set_flags('check_nan_inf', False)
+
+
+@pytest.mark.parametrize('kind', ['assign', 'cast', 'reshape', 'transpose'])
+def test_copy_of_a_parameter_keeps_its_pre_update_value_under_capture(
+        dev, kind):
+    """core/lowering.py's aliasing rule in a CUDA graph: a copy of the
+    weight taken before ``minimize`` (through an op whose lowering can
+    return its input or a view) is the weight before the step's SGD
+    update, in the bind step, each replay and each ``run_fused`` step,
+    as in ``run()`` (and in the JAX package)."""
+    import paddle_tpu_torch as fluid
+    main, startup, loss, copy = _poison_program(kind)
+    feeds = _poison_feeds(4)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+
+    def shaped(w):
+        w = w.cpu().numpy().copy()
+        return {'assign': w, 'cast': w, 'reshape': w.reshape(-1),
+                'transpose': w.T}[kind]
+
+    w0 = shaped(scope.get('w'))
+    bp = exe.bind(main, feeds[0], fetch_list=[copy, loss], scope=scope)
+    np.testing.assert_array_equal(bp.first_out[0], w0)
+    for f in feeds[1:]:
+        w0 = shaped(scope.get('w'))
+        out = bp(f)
+        np.testing.assert_array_equal(out[0], w0)
+        assert not np.array_equal(shaped(scope.get('w')), w0)
+    for f in feeds[:3]:                  # the first call captures
+        w0 = shaped(scope.get('w'))
+        out = exe.run_fused(main, [f], fetch_list=[copy], scope=scope)
+        np.testing.assert_array_equal(out[0], w0)

@@ -1,5 +1,6 @@
 """paddle_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports jax, jaxlib or paddle_tpu (whole top-level names:
+chip_smoke.py nor the port's tools (tools/torch_blackbox.py,
+tools/torch_health_cost.py, tools/torch_optest.py), imports jax, jaxlib or paddle_tpu (whole top-level names:
 ``paddle_tpu_torch`` itself starts with ``paddle_tpu``), every module
 imports with those blocked, and entry points default to the card."""
 import ast
@@ -15,16 +16,25 @@ PKG = os.path.join(ROOT, 'paddle_tpu_torch')
 FORBIDDEN = {'jax', 'jaxlib', 'paddle_tpu'}
 
 
-def _sources():
-    out = [os.path.join(ROOT, 'chip_smoke.py')]
+# the port's command-line tools, which stand alone as the package does
+TOOLS = ('torch_blackbox.py', 'torch_health_cost.py', 'torch_optest.py')
+
+
+def _package_sources():
+    out = []
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith('.py')]
     return sorted(out)
 
 
+def _sources():
+    return [os.path.join(ROOT, 'chip_smoke.py')] + \
+        [os.path.join(ROOT, 'tools', t) for t in TOOLS] + _package_sources()
+
+
 def _modules():
     mods = []
-    for path in _sources()[1:]:
+    for path in _package_sources():
         rel = os.path.relpath(path, ROOT)[:-3].split(os.sep)
         if rel[-1] == '__init__':
             rel = rel[:-1]
